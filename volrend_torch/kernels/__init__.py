@@ -1,0 +1,134 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each source in ``volrend_torch/csrc/`` is compiled by ``nvcc`` into a shared
+library with a plain C interface, at first use, for Hopper
+(``-gencode arch=compute_90a,code=sm_90a``), into ``build/volrend_torch/``
+at the root of the checkout (git-ignored), or, for an installed package,
+into ``$XDG_CACHE_HOME/volrend_torch`` (``~/.cache`` by default). Libraries are keyed by a hash of
+their source and flags, so an edited source rebuilds and an unchanged one
+loads from the previous build. All sources compile in parallel (one
+``nvcc`` each). The libraries are loaded with ctypes; every entry point
+returns ``cudaGetLastError()`` after its launch, which ``check`` turns into
+an exception.
+
+A build failure raises: nothing here falls back to another path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+__all__ = ["SOURCES", "build_all", "lib", "check", "build_dir"]
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+
+#: kernel library name -> (source file, {C entry: argument types})
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SOURCES = {
+    "slab_march": ("slab_march.cu", {
+        # payload, params, qscale, zb, wins_masks, n_win, acc,
+        # P, G, gi, Dp, Gy, Gx, y0, x0, bd, K, flip, stream
+        "vt_march_slabs": [_P, _P, _P, _P, _P, _I, _P,
+                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    }),
+    "warp_build": ("warp_build.cu", {
+        # inter, table, P, gi, Wy, Wx, stream
+        "vt_warp_build": [_P, _P, _I, _I, _I, _I, _P],
+    }),
+    "warp_combine": ("warp_combine.cu", {
+        # table, Y0, X0, ry, rx, okm, out, out_u8, P, H, W, By, Bx, Wy,
+        # Wx, H3, W3, bg, qscale, qshift, stream
+        "vt_warp_combine": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _I, _F, _F, _F, _P],
+    }),
+}
+
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-lineinfo", "-Xptxas", "-v", "-shared",
+               "-Xcompiler", "-fPIC"]
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def build_dir() -> Path:
+    """``build/volrend_torch`` at the root of the checkout; a per-user cache
+    directory when the package is installed outside one."""
+    root = _CSRC.parent.parent
+    if (root / "pyproject.toml").is_file():
+        return root / "build" / "volrend_torch"
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "volrend_torch"
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("volrend_torch.kernels: nvcc not found (the CUDA "
+                           "toolkit is needed to build the kernels)")
+    return path
+
+
+def _target(name: str) -> Path:
+    src = _CSRC / SOURCES[name][0]
+    h = hashlib.sha256(src.read_bytes()
+                       + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+    return build_dir() / f"lib{name}_{h}.so"
+
+
+def build_all() -> Dict[str, str]:
+    """Compile every kernel library that is not built yet, one ``nvcc``
+    process per source, all started together. Returns {name: nvcc log}
+    (the ``-Xptxas -v`` register/shared-memory report) for the libraries
+    built by this call; raises if any build fails."""
+    build_dir().mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, (src, _) in SOURCES.items():
+        out = _target(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (subprocess.Popen(
+            [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_CSRC / src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp, out)
+    logs, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        logs[name] = log
+        out.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return logs
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name`` (built on first use)."""
+    if name not in _LIBS:
+        if not _target(name).exists():
+            build_all()
+        cdll = ctypes.CDLL(str(_target(name)))
+        for fn, argtypes in SOURCES[name][1].items():
+            f = getattr(cdll, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+        cdll.vt_error_string.argtypes = [ctypes.c_int]
+        cdll.vt_error_string.restype = ctypes.c_char_p
+        _LIBS[name] = cdll
+    return _LIBS[name]
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a kernel entry point reported a CUDA error."""
+    if rc != 0:
+        msg = lib(name).vt_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
