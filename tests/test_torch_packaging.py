@@ -27,6 +27,7 @@ MODULES = [
     "volrend_torch.ops.basis", "volrend_torch.ops.render_exact",
     "volrend_torch.ops.dense_grid", "volrend_torch.ops.slab_render",
     "volrend_torch.ops.slab_march", "volrend_torch.ops.display_warp",
+    "volrend_torch.ops.slab_grad", "volrend_torch.train",
 ]
 
 
@@ -72,6 +73,7 @@ def test_cuda_sources_name_their_tpu_kernel():
     """Each CUDA source opens with a note naming the TPU kernel it
     replaces, what bounds it on the card and its design."""
     want = {"slab_march.cu": "pallas_slab.py:_make_kernel",
+            "slab_march_bwd.cu": "pallas_slab.py:_make_bwd_kernel",
             "warp_build.cu": "display_warp.py:_make_build",
             "warp_combine.cu": "display_warp.py:_make_combine_kernel"}
     for name, ref in want.items():
@@ -128,6 +130,36 @@ def test_march_refuses_later_slices_options(option):
 def test_march_default_options_run_on_cpu():
     acc = slab_march.march_slabs(**_march_args())
     assert tuple(acc.shape) == (1, 4, 8, 8)
+
+
+def _train_args(**over):
+    """The training path's option set: a bf16 payload with Dp = D and
+    per-slab view directions."""
+    kw = _march_args(sig2=False, dir_win=False)
+    kw["gplanar"] = torch.zeros((4, kw["D"], 4, 4), dtype=torch.bfloat16)
+    kw["qscale"] = torch.ones(kw["D"])
+    kw.update(over)
+    return kw
+
+
+@pytest.mark.parametrize("option", [
+    dict(dir_win=True), dict(depth=True), dict(shade_bf16=True),
+    dict(rot=tuple(np.eye(3).ravel())), dict(bbox_full=False),
+    dict(z_base=0.5),
+])
+def test_march_training_mode_refuses_other_options(option):
+    """On the training payload the wrapper also raises on every option it
+    does not take (window directions on bf16 are the display path's
+    f16-bake route, slice B)."""
+    with pytest.raises(NotImplementedError, match="slices B-D"):
+        slab_march.march_slabs(**_train_args(**option))
+
+
+def test_march_training_options_run_on_cpu():
+    acc = slab_march.march_slabs(**_train_args())
+    assert tuple(acc.shape) == (1, 4, 8, 8)
+    with pytest.raises(ValueError):
+        slab_march.march_slabs(**_train_args(sig2=True))
 
 
 def test_kernel_wrappers_refuse_other_devices():

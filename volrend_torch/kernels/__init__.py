@@ -4,12 +4,13 @@ Each source in ``volrend_torch/csrc/`` is compiled by ``nvcc`` into a shared
 library with a plain C interface, at first use, for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``), into ``build/volrend_torch/``
 at the root of the checkout (git-ignored), or, for an installed package,
-into ``$XDG_CACHE_HOME/volrend_torch`` (``~/.cache`` by default). Libraries are keyed by a hash of
-their source and flags, so an edited source rebuilds and an unchanged one
-loads from the previous build. All sources compile in parallel (one
-``nvcc`` each). The libraries are loaded with ctypes; every entry point
-returns ``cudaGetLastError()`` after its launch, which ``check`` turns into
-an exception.
+into ``$XDG_CACHE_HOME/volrend_torch`` (``~/.cache`` by default).
+Libraries are keyed by a hash of their source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source rebuilds and an
+unchanged one loads from the previous build. All sources compile in
+parallel (one ``nvcc`` each). The libraries are loaded with ctypes; every
+entry point returns ``cudaGetLastError()`` after its launch, which
+``check`` turns into an exception.
 
 A build failure raises: nothing here falls back to another path.
 """
@@ -33,9 +34,15 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SOURCES = {
     "slab_march": ("slab_march.cu", {
         # payload, params, qscale, zb, wins_masks, n_win, acc,
-        # P, G, gi, Dp, Gy, Gx, y0, x0, bd, K, flip, stream
-        "vt_march_slabs": [_P, _P, _P, _P, _P, _I, _P,
-                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        # P, G, gi, Dp, Gy, Gx, y0, x0, bd, K, flip, train, stream
+        "vt_march_slabs": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
+                           _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    }),
+    "slab_march_bwd": ("slab_march_bwd.cu", {
+        # payload, params, qscale, zb, gacc, aux, gbuf, out, out_bf16,
+        # Gz, G, gi, bd, flip, stream
+        "vt_march_slabs_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                               _I, _I, _I, _I, _I, _P],
     }),
     "warp_build": ("warp_build.cu", {
         # inter, table, P, gi, Wy, Wx, stream
@@ -75,10 +82,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = _CSRC / SOURCES[name][0]
-    h = hashlib.sha256(src.read_bytes()
-                       + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    return build_dir() / f"lib{name}_{h}.so"
+    """The library's path, keyed by its source, the shared headers it may
+    include (``csrc/*.cuh``) and the flags."""
+    h = hashlib.sha256((_CSRC / SOURCES[name][0]).read_bytes())
+    for hdr in sorted(_CSRC.glob("*.cuh")):
+        h.update(hdr.read_bytes())
+    h.update(" ".join(_NVCC_FLAGS).encode())
+    return build_dir() / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> Dict[str, str]:

@@ -36,6 +36,7 @@ from volrend_torch.models.data_format import BasisType
 from volrend_torch.ops import display_warp, slab_march
 from volrend_torch.ops.dense_grid import DenseGrid
 from volrend_torch.ops.render_exact import _rodrigues_matrix
+from volrend_torch.utils.device import to_device
 from volrend_torch.utils.options import RenderOptions
 
 __all__ = ["choose_axis", "compatible", "render_frame", "render_frames",
@@ -224,11 +225,10 @@ class FrameGeom:
         if grid.ndc is not None:
             raise NotImplementedError(f"NDC trees come with {_SLICE_B}")
         dev = grid.device
-        tr = torch.as_tensor(transforms, dtype=_F32, device=dev
-                             ).reshape(-1, 3, 4)
+        tr = to_device(transforms, _F32, dev).reshape(-1, 3, 4)
         self.R = R = tr[:, :, :3]
-        self.fx = fx = torch.as_tensor(fx, dtype=_F32, device=dev)
-        self.fy = fy = torch.as_tensor(fy, dtype=_F32, device=dev)
+        self.fx = fx = to_device(fx, _F32, dev)
+        self.fy = fy = to_device(fy, _F32, dev)
         self.scale = scale = grid.scale
         self.origin_w = o_w = tr[:, :, 3]
         c_t = grid.offset + scale * o_w                         # (P, 3)
@@ -237,8 +237,8 @@ class FrameGeom:
         cz, cy, cx = self.cz, self.cy, self.cx
 
         # ---- intermediate slope grid ----------------------------------------
-        corners_cam = torch.as_tensor(
-            _cam_corners(width, height, 1.0, 1.0), dtype=_F32, device=dev)
+        corners_cam = to_device(_cam_corners(width, height, 1.0, 1.0), _F32,
+                                dev)
         # rescale the unit-focal boundary by the actual fx/fy
         corners_cam = torch.stack([corners_cam[:, 0] * (1.0 / fx),
                                    corners_cam[:, 1] * (1.0 / fy),
@@ -412,12 +412,25 @@ def render_frame(grid: DenseGrid, transform, fx, fy,
 def _warp_to_screen(inter, opt: RenderOptions, R, fx, fy,
                     width: int, height: int, gi: int, perm,
                     u0, du, v0, dv, scale, out_dtype=None,
-                    planar: bool = False):
+                    planar: bool = False, precise: bool = False):
     """Projective bilinear warp of a batch of intermediate images
     ((P, gi, gi, 4), or planar (P, 4, gi, gi)) to (P, H, W, 4) screens plus
     background compositing: the superquad warp where it applies, else the
-    reference quad-gather warp. (The reference's NDC, mesh-background and
-    precise-training variants come with slices B and C.)"""
+    reference quad-gather warp.
+
+    precise: the training path's warp — the reference quad-gather warp with
+    an f32 quad table, differentiable by autograd (the gather's backward
+    is a scatter-add). The reference routes here too while its precise
+    superquad warp is parked off (display_warp._PRECISE_SQ = False); that
+    warp and its adjoint kernels come with ROADMAP item 17. (The NDC and
+    mesh-background variants come with slice B.)"""
+    if precise:
+        if planar:
+            inter = inter.movedim(1, -1)
+        return display_warp.to_display_dtype(
+            _warp_to_screen_ref(inter, opt, R, fx, fy, width, height, gi,
+                                perm, u0, du, v0, dv, scale, precise=True),
+            out_dtype)
     if display_warp.usable(width, height, gi):
         return display_warp.warp_to_screen_sq(
             inter, opt, R, fx, fy, width, height, gi, perm,
@@ -431,14 +444,19 @@ def _warp_to_screen(inter, opt: RenderOptions, R, fx, fy,
 
 def _warp_to_screen_ref(inter, opt: RenderOptions, R, fx, fy,
                         width: int, height: int, gi: int, perm,
-                        u0, du, v0, dv, scale):
+                        u0, du, v0, dv, scale, precise: bool = False):
     """Reference warp: per-pixel quad-row gather (the exact display
     semantics the superquad warp is held against), in plain PyTorch.
 
     inter: (P, gi, gi, 4); R (P, 3, 3); u0/du/v0/dv (P,). The quad table
     and the bilinear combine are float16, as on the reference's display
-    path. Returns (P, H, W, 4) float32."""
-    _warp_to_screen_ref.poses += inter.shape[0]
+    path, or float32 with ``precise`` (the training path: f16 would
+    quantize the outputs below a gradient step). Linear in ``inter`` and
+    differentiable by autograd. Returns (P, H, W, 4) float32. Display-path
+    calls (not ``precise``) count their poses in ``poses``: a display run
+    shows with it that no pose fell back here."""
+    if not precise:
+        _warp_to_screen_ref.poses += inter.shape[0]
     dev = inter.device
     fx = torch.as_tensor(fx, dtype=_F32, device=dev)
     fy = torch.as_tensor(fy, dtype=_F32, device=dev)
@@ -461,8 +479,8 @@ def _warp_to_screen_ref(inter, opt: RenderOptions, R, fx, fy,
     fy_ = (gy - y0)[..., None]
     fx_ = (gx - x0)[..., None]
     # all four bilinear corners as one quad row [v00|v01|v10|v11]
-    # (float16: display-range rgba)
-    inter16 = inter.to(torch.float16)
+    # (float16: display-range rgba; f32 when precise)
+    inter16 = inter.to(_F32 if precise else torch.float16)
     quad = torch.cat([inter16[:, :-1, :-1], inter16[:, :-1, 1:],
                       inter16[:, 1:, :-1], inter16[:, 1:, 1:]], -1)
     P = inter.shape[0]
@@ -472,8 +490,9 @@ def _warp_to_screen_ref(inter, opt: RenderOptions, R, fx, fy,
     q = torch.gather(quad.reshape(P, (gi - 1) * (gi - 1), 16), 1,
                      flat[..., None].expand(-1, -1, 16)
                      ).reshape(P, height, width, 4, 4)
-    fy_ = fy_.to(torch.float16)
-    fx_ = fx_.to(torch.float16)
+    if not precise:
+        fy_ = fy_.to(torch.float16)
+        fx_ = fx_.to(torch.float16)
     v00, v01, v10, v11 = q[..., 0, :], q[..., 1, :], q[..., 2, :], q[..., 3, :]
     out = ((v00 * (1 - fx_) + v01 * fx_) * (1 - fy_)
            + (v10 * (1 - fx_) + v11 * fx_) * fy_)
