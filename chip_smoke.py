@@ -38,10 +38,16 @@ Phases (any failure exits non-zero and prints no result):
    800^2 frames, gi=256, 4 orbit poses of one (perm, flip) group,
    ``FrameTrainer(lr=5e-2)``): kernel M's training mode and the backward
    kernel against their plain versions on pose 0, with times and bounds;
-   then timed ``step_frame`` steps (synced and ``sync=False``) with the
-   launch counts reset just before and read just after — every step must
-   run exactly one launch of each kernel and no plain version — and the
-   peak device memory;
+   then the precise superquad warp's kernels on pose 0 (kernel B's and
+   C's f32 table modes, the combine adjoint and the build adjoint) against
+   their plain versions, with times, bounds and library yardsticks, and
+   the whole precise warp's output and gradient against autograd through
+   the reference warp; then timed ``step_frame`` steps (synced and
+   ``sync=False``) with the precise warp's switch (``display_warp.
+   _PRECISE_SQ``) off and then on, the launch counts reset just before
+   and read just after each run — every step must run exactly one launch
+   of each kernel of its path and no plain version, and with the switch on
+   no pose may take the reference warp — and the peak device memory;
 8. the recovery gate at G=128 (examples/train_slab_demo.py): corrupt the
    leaf rows, train 60 steps, PSNR must rise by more than 5 dB;
 9. one JSON line with every kernel's numbers, then the result line.
@@ -77,7 +83,8 @@ DEMO_GI = 448
 DEMO_STEPS = 60
 DEMO_GAIN_DB = 5.0
 REPS = 3            # main-path repetitions
-KREPS = 10          # kernel timing repetitions (median)
+KREPS = 10          # kernel timing repetitions (back to back)
+SLEEP_CYCLES = 20_000_000   # ~10 ms of device sleep ahead of a timed run
 PLAIN_POSES = 4     # poses of a display batch the plain march runs on
 # tolerances of each kernel against its plain version on the card
 TOL_M = 1e-3        # acc4: both f32, they differ only in summation order
@@ -93,6 +100,16 @@ TOL_BWD_REL = 1e-3
 MIN_BWD_COS = 0.9999
 TOL_C_F32 = 1e-5    # combine f32 emit
 TOL_C_U8 = 1        # combine uint8 emit, in display quanta
+# the precise warp's adjoint kernels against their plain versions: f32
+# both, another summation order (kernel 5 and 6 add in the same order per
+# output; the plain versions' einsum and slices may not)
+TOL_ADJ_REL = 1e-6
+# the whole precise warp against autograd through the reference warp (the
+# reference's test: tests/test_slab_grad.py::
+# test_precise_sq_warp_vjp_matches_autodiff)
+TOL_PRECISE_OUT = 5e-5
+TOL_PRECISE_GRAD_ATOL = 5e-5      # times the largest |gradient|
+TOL_PRECISE_GRAD_RTOL = 5e-4
 # card peaks for the bounds (NVIDIA data sheet, H100 SXM, dense rates)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -118,19 +135,24 @@ def card_line() -> str:
 
 
 def cuda_ms(torch, fn, reps: int, warm: int = 1) -> float:
-    """Median device time of ``fn`` in ms (CUDA events around each call)."""
+    """Device time of one call of ``fn`` in ms: CUDA events around ``reps``
+    back-to-back calls queued behind a device sleep (so the host's launch
+    overhead stays out of the reading of a short kernel), over ``reps``;
+    the median of three such runs."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     ts = []
-    for _ in range(reps):
+    for _ in range(3):
+        torch.cuda._sleep(SLEEP_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
         b.synchronize()
-        ts.append(a.elapsed_time(b))
+        ts.append(a.elapsed_time(b) / reps)
     return float(np.median(ts))
 
 
@@ -344,8 +366,9 @@ def train_orbit(Camera, n=TRAIN_POSES):
 
 def train_phase(torch, dev, stats):
     """Phases 7 and 8: the training path at the training bench's width,
-    then the recovery gate. Fills stats["MT"] (kernel M, training mode) and
-    stats["MB"] (the backward kernel); returns a summary dict."""
+    then the recovery gate. Fills stats["MT"] (kernel M, training mode),
+    stats["MB"] (the backward kernel) and, through precise_checks, the
+    precise warp's kernels; returns a summary dict."""
     from volrend_torch import train
     from volrend_torch.models.synthetic import make_solid_tree
     from volrend_torch.ops import slab_grad, slab_march, slab_render
@@ -455,16 +478,84 @@ def train_phase(torch, dev, stats):
         torch, planar, qs, bzb[None], G, GI, bd, sthr)
     log(f"train kernels: M (training mode) {json.dumps(stats['MT'])}; "
         f"M-bwd {json.dumps(stats['MB'])}")
+    # the training finalize of pose 0's march: (1, gi, gi, 4) rgb, 1 - T
+    inter = torch.cat([acc4[:3], 1.0 - acc4[3:]]).movedim(0, -1)[None]
+    gargs = (geom.R, geom.fx, geom.fy, W, H, GI, perm, geom.u0, geom.du,
+             geom.v0, geom.dv, geom.scale)
     del planar, acc_k, acc4, m, aux
     torch.cuda.empty_cache()
 
-    # ---- 7b. timed steps ----------------------------------------------------
+    # ---- 7b. the precise superquad warp on pose 0 --------------------------
+    precise = precise_checks(torch, dev, inter.contiguous(), gargs, tr,
+                             cams[0], perm, stats)
+    del inter
+    torch.cuda.empty_cache()
+
+    # ---- 7c. timed steps, the precise warp's switch off and on -------------
+    from volrend_torch.ops import display_warp
+    off = timed_steps(torch, tr, cams, tgt, "train")
+    display_warp._PRECISE_SQ = True
+    try:
+        on = timed_steps(torch, tr, cams, tgt, "train (precise warp)")
+    finally:
+        display_warp._PRECISE_SQ = False
+    n = off["steps"]
+    for name, c in (("switch off", off["counts"]),
+                    ("switch on", on["counts"])):
+        if (c["march"] != n or c["march_bwd"] != n
+                or sum(c["plain"].values())):
+            fail(f"train ({name}): a step did not run exactly one launch of "
+                 f"kernels M and M-bwd and no plain version ({c})")
+    c = off["counts"]
+    if (c["build_f32"], c["combine_f32"], c["combine_adj"],
+            c["build_adj"], c["ref_warp_poses"]) != (0, 0, 0, 0, n):
+        fail(f"train (switch off): a step left the reference warp ({c})")
+    c = on["counts"]
+    if (c["build_f32"], c["combine_f32"], c["combine_adj"],
+            c["build_adj"], c["ref_warp_poses"]) != (n, n, n, n, 0):
+        fail(f"train (switch on): a step did not run exactly one launch of "
+             f"B-f32, C-f32 and kernels 5 and 6, or a pose took the "
+             f"reference warp ({c})")
+    if "--profile" in sys.argv[1:]:
+        profile_run(torch, lambda: tr.step_frame(cams[0], tgt),
+                    "training step")
+        display_warp._PRECISE_SQ = True
+        try:
+            profile_run(torch, lambda: tr.step_frame(cams[0], tgt),
+                        "training step (precise warp)")
+        finally:
+            display_warp._PRECISE_SQ = False
+    summary = {"train_ms_synced": off["ms_synced"],
+               "train_ms_pipelined": off["ms_pipelined"],
+               "train_peak_gib": off["peak_gib"], "train_counts": off["counts"],
+               "train_G": G, "train_steps": n,
+               "train_precise_ms_synced": on["ms_synced"],
+               "train_precise_ms_pipelined": on["ms_pipelined"],
+               "train_precise_peak_gib": on["peak_gib"],
+               "train_precise_counts": on["counts"], **precise}
+    del tr, tdev, tree
+    torch.cuda.empty_cache()
+    summary.update(recovery_gate(torch, dev, topt))
+    return summary
+
+
+def timed_steps(torch, tr, cams, tgt, tag):
+    """TRAIN_WARM untimed steps per pose, then TRAIN_STEPS synced and
+    TRAIN_STEPS ``sync=False`` steps per pose with the launch counts reset
+    just before and read just after, and the peak device memory over the
+    timed steps."""
+    from volrend_torch.ops import display_warp, slab_march, slab_render
     for s in range(TRAIN_WARM * len(cams)):
         tr.step_frame(cams[s % len(cams)], tgt)
     torch.cuda.synchronize()
-    plain_calls = count_plain_calls(slab_march)
+    plain_calls = count_plain_calls()
     slab_march.march_slabs.launches = 0
     slab_march.march_slabs_bwd.launches = 0
+    display_warp.build_table.launches_f32 = 0
+    display_warp.combine_emit.launches_f32 = 0
+    display_warp.combine_adjoint.launches = 0
+    display_warp.build_adjoint.launches = 0
+    slab_render._warp_to_screen_ref.precise_poses = 0
     torch.cuda.reset_peak_memory_stats()
     n = TRAIN_STEPS * len(cams)
     synced = []
@@ -473,7 +564,7 @@ def train_phase(torch, dev, stats):
         loss = tr.step_frame(cams[s % len(cams)], tgt)
         synced.append((time.perf_counter() - t0) * 1e3)
         if not np.isfinite(loss):
-            fail(f"train: non-finite loss at step {s}")
+            fail(f"{tag}: non-finite loss at step {s}")
     t0 = time.perf_counter()
     for s in range(n):
         loss_t = tr.step_frame(cams[s % len(cams)], tgt, sync=False)
@@ -482,30 +573,220 @@ def train_phase(torch, dev, stats):
     peak = torch.cuda.max_memory_allocated() / 2**30
     counts = dict(march=slab_march.march_slabs.launches,
                   march_bwd=slab_march.march_slabs_bwd.launches,
+                  build_f32=display_warp.build_table.launches_f32,
+                  combine_f32=display_warp.combine_emit.launches_f32,
+                  combine_adj=display_warp.combine_adjoint.launches,
+                  build_adj=display_warp.build_adjoint.launches,
+                  ref_warp_poses=slab_render._warp_to_screen_ref.precise_poses,
                   plain=dict(plain_calls))
-    restore_plain(slab_march)
-    log(f"train: {2 * n} steps, counts {counts}")
-    if (counts["march"] != 2 * n or counts["march_bwd"] != 2 * n
-            or sum(plain_calls.values())):
-        fail(f"train: a step did not run exactly one launch of each kernel "
-             f"and no plain version ({counts})")
+    restore_plain()
     if not np.isfinite(last):
-        fail("train: non-finite loss (sync=False)")
+        fail(f"{tag}: non-finite loss (sync=False)")
     ms_synced = float(np.median(synced))
-    log(f"train: median {ms_synced:.3f} ms/step synced (steps {synced}), "
-        f"{pipelined:.3f} ms/step with sync=False; peak "
-        f"{peak:.3f} GiB allocated; last loss {last:.6f}")
-    if "--profile" in sys.argv[1:]:
-        profile_run(torch, lambda: tr.step_frame(cams[0], tgt),
-                    "training step")
-    summary = {"train_ms_synced": ms_synced, "train_ms_pipelined": pipelined,
-               "train_peak_gib": peak, "train_counts": counts,
-               "train_G": G, "train_steps": 2 * n}
-    del tr, tdev, tree
-    torch.cuda.empty_cache()
-    summary.update(recovery_gate(torch, dev, topt))
-    summary["train_counts"] = counts
-    return summary
+    log(f"{tag}: {2 * n} steps, counts {counts}; median {ms_synced:.3f} "
+        f"ms/step synced (steps {synced}), {pipelined:.3f} ms/step with "
+        f"sync=False; peak {peak:.3f} GiB allocated; last loss {last:.6f}")
+    return {"steps": 2 * n, "counts": counts, "ms_synced": ms_synced,
+            "ms_pipelined": pipelined, "peak_gib": peak}
+
+
+def precise_checks(torch, dev, inter, gargs, tr, cam, perm, stats):
+    """Phase 7b: the precise superquad warp at full width on pose 0's
+    intermediate image ``inter`` (1, gi, gi, 4) and geometry ``gargs``.
+    Holds kernel B's and C's f32 modes and kernels 5 and 6 against their
+    plain versions and times them (stats "BF", "CF", "K5", "K6"), then the
+    whole precise warp against autograd through the reference warp."""
+    import torch.nn.functional as F
+    from volrend_torch.ops import display_warp, slab_grad, slab_render
+    bg = float(tr.opt.background_brightness)
+    Wn = display_warp._PRECISE_WIN
+    By, Bx = display_warp._PRECISE_B
+    S, C, ncell = By * Bx, 4 * Wn[0] * Wn[1], Wn[0] * Wn[1]
+    H3, W3 = GI - Wn[0] + 1, GI - Wn[1] + 1
+    Hh, Wh = H // By, W // Bx
+
+    # kernel B, f32 table from the interleaved intermediate image
+    def run_b():
+        return display_warp.build_table(inter, Wn, dtype=torch.float32,
+                                        planar=False)
+
+    def run_b_plain():
+        return display_warp.build_table_ref(inter, Wn, dtype=torch.float32,
+                                            planar=False)
+
+    tbl = run_b()
+    tbl_p = run_b_plain()
+    if not torch.equal(tbl, tbl_p):
+        fail("kernel B's f32 table is not bit-equal to its plain version")
+    # library yardstick: ONE unfold of the planar image builds the same
+    # cells (in unfold's channel order; the planar copy is set-up)
+    itp = inter.movedim(-1, 1).contiguous()
+    unf = F.unfold(itp, Wn)
+    if not torch.equal(unf[0].reshape(4, ncell, H3 * W3).permute(2, 1, 0)
+                       .reshape(H3 * W3, C), tbl_p[0]):
+        fail("kernel B's library yardstick builds another table")
+    stats["BF"] = {"max_abs_err": 0.0, "ms": cuda_ms(torch, run_b, KREPS),
+                   "plain_ms": cuda_ms(torch, run_b_plain, KREPS),
+                   "library_ms": cuda_ms(torch, lambda: F.unfold(itp, Wn),
+                                         KREPS)}
+    stats["BF"]["bound_ms"], stats["BF"]["bound_by"] = bound(
+        GI * GI * 4 * 4 + H3 * W3 * C * 4, 0)
+    del unf, itp, tbl_p
+
+    # kernel C, f32 table (qscale 1, qshift 0) and f32 frame
+    gys, gxs, okm, Y0, X0 = display_warp._level_geometry(
+        gargs, GI, (By, Bx), Wn)
+    ry = (gys - Y0.float()[:, None]).contiguous()
+    rx = (gxs - X0.float()[:, None]).contiguous()
+    Y0, X0, okm = Y0.contiguous(), X0.contiguous(), okm.contiguous()
+    del gys, gxs
+    cargs = (tbl, Y0, X0, ry, rx, okm, GI, H, W, (By, Bx), Wn, bg)
+
+    def run_c():
+        return display_warp.combine_emit(*cargs, qscale=1.0, qshift=0.0)
+
+    def run_c_plain():
+        return display_warp.combine_emit_ref(*cargs, qscale=1.0, qshift=0.0)
+
+    err = float((run_c() - run_c_plain()).abs().max())
+    log(f"kernel C [f32 table, pose 0]: max err {err:.3e} (tol {TOL_C_F32})")
+    if not (np.isfinite(err) and err <= TOL_C_F32):
+        fail("kernel C's f32 mode disagrees with its plain version")
+    rows_used = int(torch.unique(Y0.long() * W3 + X0.long()).numel())
+    stats["CF"] = {"max_abs_err": err, "ms": cuda_ms(torch, run_c, KREPS),
+                   "plain_ms": cuda_ms(torch, run_c_plain, KREPS),
+                   "library_ms": None}
+    stats["CF"]["bound_ms"], stats["CF"]["bound_by"] = bound(
+        rows_used * C * 4 + 2 * Hh * Wh * 4 + 3 * S * Hh * Wh * 4
+        + H * W * 4 * 4, H * W * (ncell * 9 + 30))
+
+    # kernel 5 on a seeded cotangent of the frame
+    g = torch.as_tensor(np.random.default_rng(1).normal(
+        size=(1, H, W, 4)).astype(np.float32), device=dev)
+
+    def run_5():
+        return display_warp.combine_adjoint(g, ry, rx, okm, bg)
+
+    def run_5_plain():
+        return display_warp.combine_adjoint_ref(g, ry, rx, okm, bg)
+
+    rows_k, rows_p = run_5(), run_5_plain()
+    rel = float((rows_k.double() - rows_p.double()).norm()
+                / rows_p.double().norm())
+    mx = float((rows_k - rows_p).abs().max())
+    log(f"kernel 5 [pose 0]: relative L2 {rel:.3e}, max |diff| {mx:.3e} "
+        f"(max |plain| {float(rows_p.abs().max()):.3e}; tol {TOL_ADJ_REL})")
+    if not (np.isfinite(rel) and rel <= TOL_ADJ_REL):
+        fail("kernel 5 disagrees with its plain version")
+    stats["K5"] = {"max_abs_err": mx, "rel_l2": rel,
+                   "ms": cuda_ms(torch, run_5, KREPS),
+                   "plain_ms": cuda_ms(torch, run_5_plain, KREPS),
+                   "library_ms": None}
+    stats["K5"]["bound_ms"], stats["K5"]["bound_by"] = bound(
+        H * W * 4 * 4 + 3 * S * Hh * Wh * 4 + Hh * Wh * C * 4,
+        Hh * Wh * ncell * S * 18)
+
+    # the scatter of the block rows into the table cotangent (a PyTorch
+    # call, as in the reference; timed, not a kernel of the port)
+    flat = (Y0.long() * W3 + X0.long()).reshape(-1)
+
+    def scatter():
+        d = torch.zeros((H3 * W3, C), dtype=torch.float32, device=dev)
+        return d.index_add_(0, flat, rows_k.reshape(-1, C))
+
+    scatter_ms = cuda_ms(torch, scatter, KREPS)
+    dtbl = scatter()[None]
+    del rows_p
+
+    # kernel 6 on that table cotangent
+    def run_6():
+        return display_warp.build_adjoint(dtbl, GI)
+
+    def run_6_plain():
+        return display_warp.build_adjoint_ref(dtbl, GI)
+
+    d_k, d_p = run_6(), run_6_plain()
+    rel = float((d_k.double() - d_p.double()).norm() / d_p.double().norm())
+    mx = float((d_k - d_p).abs().max())
+    log(f"kernel 6 [pose 0]: relative L2 {rel:.3e}, max |diff| {mx:.3e} "
+        f"(max |plain| {float(d_p.abs().max()):.3e}; tol {TOL_ADJ_REL})")
+    if not (np.isfinite(rel) and rel <= TOL_ADJ_REL):
+        fail("kernel 6 disagrees with its plain version")
+    # library yardstick: ONE fold of the cotangent permuted to fold's
+    # channel order (the permute's copy is timed apart)
+    def permute():
+        return dtbl[0].reshape(H3 * W3, ncell, 4).permute(2, 1, 0).reshape(
+            1, C, H3 * W3).contiguous()
+
+    dperm = permute()
+    folded = F.fold(dperm, (GI, GI), Wn)
+    frel = float((folded[0].movedim(0, -1).double() - d_p[0].double()).norm()
+                 / d_p.double().norm())
+    if not frel <= TOL_ADJ_REL:
+        fail(f"kernel 6's library yardstick computes another function "
+             f"(relative L2 {frel:.3e})")
+    stats["K6"] = {"max_abs_err": mx, "rel_l2": rel,
+                   "ms": cuda_ms(torch, run_6, KREPS),
+                   "plain_ms": cuda_ms(torch, run_6_plain, KREPS),
+                   "library_ms": cuda_ms(
+                       torch, lambda: F.fold(dperm, (GI, GI), Wn), KREPS)}
+    stats["K6"]["bound_ms"], stats["K6"]["bound_by"] = bound(
+        H3 * W3 * C * 4 + GI * GI * 4 * 4, GI * GI * ncell * 4)
+    permute_ms = cuda_ms(torch, permute, KREPS)
+    del d_k, d_p, dperm, folded, dtbl, rows_k, g
+    log(f"precise warp kernels [pose 0]: B-f32 {json.dumps(stats['BF'])}; "
+        f"C-f32 {json.dumps(stats['CF'])}; 5 {json.dumps(stats['K5'])}; "
+        f"6 {json.dumps(stats['K6'])}; scatter (index_add_) "
+        f"{scatter_ms:.4f} ms; kernel 6 yardstick's permute copy "
+        f"{permute_ms:.4f} ms")
+
+    # the whole precise warp against autograd through the reference warp
+    ct = torch.as_tensor(np.random.default_rng(2).normal(
+        size=(1, H, W, 4)).astype(np.float32), device=dev)
+    res = []
+    for fn in (lambda x: display_warp.warp_precise(x, bg, *gargs),
+               lambda x: slab_render._warp_to_screen_ref(
+                   x, tr.opt, *gargs, precise=True)):
+        x = inter.clone().requires_grad_(True)
+        out = fn(x)
+        (gx,) = torch.autograd.grad(out, x, ct)
+        res.append((out.detach(), gx))
+    (out, gx), (ref, gref) = res
+    out_err = float((out - ref).abs().max())
+    gtol = (TOL_PRECISE_GRAD_ATOL * float(gref.abs().max())
+            + TOL_PRECISE_GRAD_RTOL * gref.abs())
+    grad_off = int(((gx - gref).abs() > gtol).sum())
+    grad_err = float((gx - gref).abs().max())
+    log(f"precise warp vs reference warp [pose 0, {W}x{H}, gi={GI}]: "
+        f"output max |diff| {out_err:.3e} (atol {TOL_PRECISE_OUT}); "
+        f"gradient max |diff| {grad_err:.3e}, {grad_off} of {gx.numel()} "
+        f"entries past atol {TOL_PRECISE_GRAD_ATOL} x max|g| "
+        f"({float(gref.abs().max()):.3e}) + rtol {TOL_PRECISE_GRAD_RTOL}")
+    if not (out_err <= TOL_PRECISE_OUT and grad_off == 0):
+        fail("the precise warp disagrees with the reference warp")
+    del res, out, gx, ref, gref, ct
+
+    # the routing's fit predicate, computed on the host from the camera:
+    # a pose's first visit, then its cached later ones
+    ts, tc = [], []
+    for _ in range(5):
+        slab_grad._fits_from_camera.cache_clear()
+        for t in (ts, tc):
+            t0 = time.perf_counter()
+            fits = slab_grad._precise_fits_host(tr.grid, cam.transform,
+                                                cam.fx, cam.fy, perm, W, H,
+                                                GI)
+            t.append((time.perf_counter() - t0) * 1e3)
+    host_ms, cached_ms = float(np.median(ts)), float(np.median(tc))
+    log(f"precise warp fit predicate on the host: {bool(fits[0])}; median "
+        f"{host_ms:.3f} ms a pose's first visit, {cached_ms:.4f} ms cached "
+        f"(host clock, {ts}, {tc})")
+    if not bool(fits[0]):
+        fail("pose 0 misfits the precise warp's window")
+    return {"precise_out_err": out_err, "precise_grad_err": grad_err,
+            "precise_fits_host_ms": host_ms,
+            "precise_fits_cached_ms": cached_ms, "scatter_ms": scatter_ms,
+            "fold_permute_ms": permute_ms}
 
 
 def timed_once(torch, fn):
@@ -519,28 +800,37 @@ def timed_once(torch, fn):
     return out, a.elapsed_time(b)
 
 
-_PLAIN = ("march_slabs_ref", "march_slabs_bwd_ref")
+_PLAIN = (("slab_march", "march_slabs_ref"),
+          ("slab_march", "march_slabs_bwd_ref"),
+          ("display_warp", "build_table_ref"),
+          ("display_warp", "combine_emit_ref"),
+          ("display_warp", "combine_adjoint_ref"),
+          ("display_warp", "build_adjoint_ref"))
 
 
-def count_plain_calls(slab_march):
+def count_plain_calls():
     """Wrap the kernels' plain versions with call counters (the training
     path must not reach them on the card); returns the live counts."""
-    calls = {name: 0 for name in _PLAIN}
-    for name in _PLAIN:
-        fn = getattr(slab_march, name)
+    import importlib
+    calls = {name: 0 for _, name in _PLAIN}
+    for mod, name in _PLAIN:
+        m = importlib.import_module(f"volrend_torch.ops.{mod}")
+        fn = getattr(m, name)
 
         def counted(*a, _fn=fn, _name=name, **kw):
             calls[_name] += 1
             return _fn(*a, **kw)
 
         counted.original = fn
-        setattr(slab_march, name, counted)
+        setattr(m, name, counted)
     return calls
 
 
-def restore_plain(slab_march):
-    for name in _PLAIN:
-        setattr(slab_march, name, getattr(slab_march, name).original)
+def restore_plain():
+    import importlib
+    for mod, name in _PLAIN:
+        m = importlib.import_module(f"volrend_torch.ops.{mod}")
+        setattr(m, name, getattr(m, name).original)
 
 
 def recovery_gate(torch, dev, topt):
@@ -978,6 +1268,18 @@ def main() -> None:
         ("MB", "slab_march_bwd", "volrend_torch/csrc/slab_march_bwd.cu",
          "volrend_tpu/ops/pallas_slab.py:951",
          tsum["train_counts"]["march_bwd"]),
+        ("BF", "warp_build_f32", "volrend_torch/csrc/warp_build.cu",
+         "volrend_tpu/ops/display_warp.py:139",
+         tsum["train_precise_counts"]["build_f32"]),
+        ("CF", "warp_combine_f32", "volrend_torch/csrc/warp_combine.cu",
+         "volrend_tpu/ops/display_warp.py:228",
+         tsum["train_precise_counts"]["combine_f32"]),
+        ("K5", "warp_combine_adj", "volrend_torch/csrc/warp_combine_adj.cu",
+         "volrend_tpu/ops/display_warp.py:768",
+         tsum["train_precise_counts"]["combine_adj"]),
+        ("K6", "warp_build_adj", "volrend_torch/csrc/warp_build_adj.cu",
+         "volrend_tpu/ops/display_warp.py:818",
+         tsum["train_precise_counts"]["build_adj"]),
     )
     rows = []
     for key, name, src, rep, launches in spec:

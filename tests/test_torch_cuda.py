@@ -277,3 +277,118 @@ def test_frame_trainer_on_card_uses_the_kernels(card):
         assert slab_march.march_slabs_bwd.launches == b0 + 3
         assert all(np.isfinite(losses)) and losses[-1] < losses[0]
         assert tr.pyramid[-1].device.type == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# The precise superquad training warp: kernels B and C in their f32 table
+# mode, the combine adjoint (kernel 5) and the build adjoint (kernel 6)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def precise_parts(card):
+    """One pose's warp geometry at 160^2, gi=64 on the card (the solid
+    scene's metadata), a seeded (1, gi, gi, 4) intermediate image and a
+    (1, H, W, 4) cotangent."""
+    tree = make_solid_tree(max_depth=4, basis_dim=9, seed=7)
+    grid = dense_grid.bake_dense(tree.to_device(lut_depth=None, device=card))
+    cam = _cams([(1.0, 0.25, 0.35)])[0]
+    perm, flip, _ = slab_render.choose_axis(grid, cam.transform, cam.fx,
+                                            cam.fy, W, H)
+    g = slab_render.FrameGeom(grid, cam.transform, cam.fx, cam.fy, perm,
+                              flip, W, H, OPT, GI)
+    geom = (g.R, g.fx, g.fy, W, H, GI, perm, g.u0, g.du, g.v0, g.dv,
+            g.scale)
+    rng = np.random.default_rng(11)
+    inter = torch.as_tensor(rng.uniform(0, 1, (1, GI, GI, 4)).astype(
+        np.float32), device=card)
+    ct = torch.as_tensor(rng.normal(size=(1, H, W, 4)).astype(np.float32),
+                         device=card)
+    return geom, inter, ct
+
+
+def _rel(a, b):
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).norm() / b.norm())
+
+
+def test_precise_kernels_match_plain(precise_parts):
+    """B and C in their f32 mode, kernels 5 and 6 against their plain
+    versions on the same CUDA tensors: B bit-equal, C within 1e-5, the
+    adjoints to relative L2 1e-6 (f32, another summation order)."""
+    geom, inter, ct = precise_parts
+    bg = 0.7
+    counts = (display_warp.build_table.launches_f32,
+              display_warp.combine_emit.launches_f32,
+              display_warp.combine_adjoint.launches,
+              display_warp.build_adjoint.launches)
+    tbl = display_warp.build_table(inter, (4, 4), dtype=torch.float32,
+                                   planar=False)
+    assert torch.equal(tbl, display_warp.build_table_ref(
+        inter, (4, 4), dtype=torch.float32, planar=False))
+    gys, gxs, okm, Y0, X0 = display_warp._level_geometry(geom, GI, 2,
+                                                         (4, 4))
+    args = (tbl, Y0.contiguous(), X0.contiguous(),
+            (gys - Y0.float()[:, None]).contiguous(),
+            (gxs - X0.float()[:, None]).contiguous(), okm.contiguous(), GI,
+            H, W, 2, (4, 4), bg)
+    got = display_warp.combine_emit(*args, qscale=1.0, qshift=0.0)
+    want = display_warp.combine_emit_ref(*args, qscale=1.0, qshift=0.0)
+    assert float((got - want).abs().max()) <= 1e-5
+    ry, rx, okm = args[3], args[4], args[5]
+    rows = display_warp.combine_adjoint(ct, ry, rx, okm, bg)
+    assert _rel(rows, display_warp.combine_adjoint_ref(ct, ry, rx, okm,
+                                                       bg)) <= 1e-6
+    dtbl = torch.randn(tbl.shape, device=tbl.device)
+    d = display_warp.build_adjoint(dtbl, GI)
+    assert _rel(d, display_warp.build_adjoint_ref(dtbl, GI)) <= 1e-6
+    assert (display_warp.build_table.launches_f32,
+            display_warp.combine_emit.launches_f32,
+            display_warp.combine_adjoint.launches,
+            display_warp.build_adjoint.launches) == tuple(
+                c + 1 for c in counts)
+
+
+def test_precise_warp_matches_reference_warp(precise_parts):
+    """The whole precise warp on the card (output and gradient) against
+    autograd through the reference warp with an f32 table, at the
+    reference test's tolerances."""
+    geom, inter, ct = precise_parts
+    outs = []
+    for fn in (lambda x: display_warp.warp_precise(x, 1.0, *geom),
+               lambda x: slab_render._warp_to_screen_ref(
+                   x, OPT, *geom, precise=True)):
+        x = inter.clone().requires_grad_(True)
+        out = fn(x)
+        (g,) = torch.autograd.grad(out, x, ct)
+        outs.append((out.detach(), g))
+    (out, g), (ref, gref) = outs
+    assert float((out - ref).abs().max()) <= 5e-5
+    tol = 5e-5 * float(gref.abs().max()) + 5e-4 * gref.abs()
+    assert bool(torch.all((g - gref).abs() <= tol))
+
+
+def test_frame_trainer_precise_switch_uses_its_kernels(card, monkeypatch):
+    """With _PRECISE_SQ on, every step_frame runs one launch of each of
+    M, M-bwd, B-f32, C-f32 and kernels 5 and 6, and no pose takes the
+    reference warp."""
+    from volrend_torch.train import FrameTrainer
+    monkeypatch.setattr(display_warp, "_PRECISE_SQ", True)
+    tree = make_solid_tree(max_depth=4, basis_dim=9, seed=7)
+    tdev = tree.to_device(lut_depth=None, device=card)
+    cams = _cams([(np.cos(0.25), np.sin(0.25), 0.45)], fx=200.0)
+    tr = FrameTrainer(tdev, opt=OPT, lr=5e-2, gi=64)
+    tgt = torch.full((H, W, 4), 0.5, device=card)
+
+    def counts():
+        return (slab_march.march_slabs.launches,
+                slab_march.march_slabs_bwd.launches,
+                display_warp.build_table.launches_f32,
+                display_warp.combine_emit.launches_f32,
+                display_warp.combine_adjoint.launches,
+                display_warp.build_adjoint.launches,
+                slab_render._warp_to_screen_ref.precise_poses)
+
+    c0 = counts()
+    losses = [tr.step_frame(cams[0], tgt) for _ in range(3)]
+    assert counts() == tuple(c + 3 for c in c0[:6]) + (c0[6],)
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]

@@ -75,7 +75,10 @@ def test_cuda_sources_name_their_tpu_kernel():
     want = {"slab_march.cu": "pallas_slab.py:_make_kernel",
             "slab_march_bwd.cu": "pallas_slab.py:_make_bwd_kernel",
             "warp_build.cu": "display_warp.py:_make_build",
-            "warp_combine.cu": "display_warp.py:_make_combine_kernel"}
+            "warp_combine.cu": "display_warp.py:_make_combine_kernel",
+            "warp_combine_adj.cu": "display_warp.py:_combine_adjoint_kernel",
+            "warp_build_adj.cu": "display_warp.py:_build_adjoint"}
+    assert sorted(want) == sorted(src for src, _ in kernels.SOURCES.values())
     for name, ref in want.items():
         head = open(os.path.join(ROOT, "volrend_torch", "csrc", name)
                     ).read()[:4000]

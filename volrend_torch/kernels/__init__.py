@@ -45,14 +45,23 @@ SOURCES = {
                                _I, _I, _I, _I, _I, _P],
     }),
     "warp_build": ("warp_build.cu", {
-        # inter, table, P, gi, Wy, Wx, stream
-        "vt_warp_build": [_P, _P, _I, _I, _I, _I, _P],
+        # inter, table, P, gi, Wy, Wx, table_f32, planar, stream
+        "vt_warp_build": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     }),
     "warp_combine": ("warp_combine.cu", {
-        # table, Y0, X0, ry, rx, okm, out, out_u8, P, H, W, By, Bx, Wy,
-        # Wx, H3, W3, bg, qscale, qshift, stream
+        # table, Y0, X0, ry, rx, okm, out, out_u8, table_f32, P, H, W, By,
+        # Bx, Wy, Wx, H3, W3, bg, qscale, qshift, stream
         "vt_warp_combine": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _I, _I, _I, _I, _I, _F, _F, _F, _P],
+                            _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P],
+    }),
+    "warp_combine_adj": ("warp_combine_adj.cu", {
+        # g, ry, rx, okm, rows, P, Hh, Wh, By, Bx, Wy, Wx, bg, stream
+        "vt_warp_combine_adj": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _I, _I, _F, _P],
+    }),
+    "warp_build_adj": ("warp_build_adj.cu", {
+        # dtbl, out, P, gi, Wy, Wx, stream
+        "vt_warp_build_adj": [_P, _P, _I, _I, _I, _I, _P],
     }),
 }
 

@@ -22,11 +22,20 @@ to the reference quad-gather warp (``slab_render._warp_to_screen_ref``).
 The fit predicates of a whole pose batch are computed in one pass and
 brought to the host in one transfer; the branching is plain Python.
 
+The training path's **precise** superquad warp (``_PreciseWarp``, behind
+the ``_PRECISE_SQ`` switch, off by default as in the reference) runs
+kernels B and C on an f32 table ((2, 2) blocks, 4 x 4 window) and
+differentiates them by hand: kernel 5 (``csrc/warp_combine_adj.cu``,
+wrapper ``combine_adjoint``) transposes the tent-combine, a scatter-add
+folds the block rows into the table cotangent, and kernel 6
+(``csrc/warp_build_adj.cu``, wrapper ``build_adjoint``) transposes the
+table build.
+
 Every function takes a batch of poses: per-pose tensors carry a leading
 pose dimension. On CUDA tensors the wrappers launch the kernels; on CPU
-tensors they run the plain PyTorch versions ``build_table_ref`` and
-``combine_emit_ref``. World trees only (NDC and mesh backgrounds come with
-a later slice).
+tensors they run the plain PyTorch versions (``build_table_ref``,
+``combine_emit_ref``, ``combine_adjoint_ref``, ``build_adjoint_ref``).
+World trees only (NDC and mesh backgrounds come with a later slice).
 """
 
 from __future__ import annotations
@@ -49,6 +58,17 @@ _CASCADE: Tuple = (((2, 2), (4, 4)), ((4, 4), (5, 5)))
 #: affine int8 window table: q = round(v*255) - 128, v = q/255 + 128/255
 _QSCALE = 1.0 / 255.0
 _QSHIFT = 128.0 / 255.0
+
+#: the precise (training) warp's fixed level: (2, 2) blocks, 4 x 4 window
+_PRECISE_B = (2, 2)
+_PRECISE_WIN = (4, 4)
+
+def _chan(cy: int, cx: int, c: int, win=(4, 4)) -> int:
+    """Window-table channel of cell (cy, cx) in [0, Wy) x [0, Wx), colour
+    c: row-major over the cells with the 4 colours minor. Every table of
+    this module and of the kernels (``csrc/warp_table.cuh``) has this
+    order."""
+    return (cy * _win2d(win)[1] + cx) * 4 + c
 
 
 def _block2d(block) -> Tuple[int, int]:
@@ -202,9 +222,11 @@ def _sub_slopes(R, fx, fy, width: int, height: int, gi: int,
     By, Bx = _block2d(B)
     Hh, Wh = height // By, width // Bx
     dev = R.device
-    po, qo = np.mgrid[0:By, 0:Bx].reshape(2, -1).astype(np.float32)
-    po = torch.as_tensor(po, device=dev)
-    qo = torch.as_tensor(qo, device=dev)
+    # subpixel s = p*Bx + q, made on the device (a copy from host memory
+    # would wait for the work queued before it)
+    s = torch.arange(By * Bx, device=dev)
+    po = torch.div(s, Bx, rounding_mode="floor").to(_F32)
+    qo = torch.remainder(s, Bx).to(_F32)
     xs = ((torch.arange(Wh, dtype=_F32, device=dev)[None, :] * Bx
            + qo[:, None] - 0.5 * width) / fx)[:, None, :]     # (S, 1, Wh)
     ys = (-(torch.arange(Hh, dtype=_F32, device=dev)[None, :] * By
@@ -238,6 +260,26 @@ def _level_geometry(geom_args, gi: int, B, win=(4, 4)):
     return gys, gxs, okm, Y0, X0
 
 
+def _sub_geometry(R, fx, fy, width: int, height: int, gi: int,
+                  perm: Tuple[int, int, int], u0, du, v0, dv, scale,
+                  ndc=None, origin=None, B=2, win=(4, 4)):
+    """Per-subpixel geometry, window corners and the bulk-misfit predicate
+    of one (block, window) level in one call (a one-shot wrapper over
+    _level_geometry, _pixel_slopes and _level_fits).
+
+    Returns (gys, gxs, okm, Y0, X0, fits): (P, By*Bx, Hh, Wh) clipped
+    subpixel positions / ok masks, (P, Hh, Wh) int32 window corners and
+    the (P,) bool fit predicates. World trees only (``origin`` is the NDC
+    warp's and is not read)."""
+    if ndc is not None:
+        raise NotImplementedError(
+            "NDC trees come with slice B of the port (ROADMAP.md)")
+    geom_args = (R, fx, fy, width, height, gi, perm, u0, du, v0, dv, scale)
+    gys, gxs, okm, Y0, X0 = _level_geometry(geom_args, gi, B, win)
+    fits = _level_fits(*_pixel_slopes(*geom_args), gi, B, win)
+    return gys, gxs, okm, Y0, X0, fits
+
+
 # ---------------------------------------------------------------------------
 # kernel B: the window-table build
 # ---------------------------------------------------------------------------
@@ -250,32 +292,51 @@ def _check(name: str, t: torch.Tensor, dtype, shape, dev) -> None:
                          f"{tuple(t.shape)} on {t.device}")
 
 
-def build_table(inter: torch.Tensor, win: Tuple[int, int] = (4, 4)
-                ) -> torch.Tensor:
-    """(P, 4, gi, gi) f32 planar intermediate -> (P, H3*W3, 4*Wy*Wx) int8
-    affine window-row table, row Y*W3 + X, channel (cy*Wx + cx)*4 + c =
-    q(inter[c, Y+cy, X+cx]). Launches kernel B on CUDA tensors; runs
-    ``build_table_ref`` on CPU tensors."""
+def _table_dtype(name: str, dtype) -> None:
+    if dtype not in (torch.int8, _F32):
+        raise ValueError(f"{name}: the table is int8 or float32, not "
+                         f"{dtype}")
+
+
+def build_table(inter: torch.Tensor, win: Tuple[int, int] = (4, 4),
+                dtype=torch.int8, planar: bool = True) -> torch.Tensor:
+    """f32 intermediate -> (P, H3*W3, 4*Wy*Wx) window-row table, row
+    Y*W3 + X, channel _chan(cy, cx, c) = v(inter[c, Y+cy, X+cx]).
+
+    dtype: torch.int8, the display path's affine int8 (v = q, the
+    quantized value), or torch.float32, the precise warp's plain copy.
+    planar: ``inter`` is (P, 4, gi, gi); else (P, gi, gi, 4). Launches
+    kernel B on CUDA tensors (counted in ``launches``, or in
+    ``launches_f32`` for an f32 table); runs ``build_table_ref`` on CPU
+    tensors."""
     Wy, Wx = _win2d(win)
-    P, _, gi, _ = inter.shape
+    _table_dtype("build_table", dtype)
+    P = inter.shape[0]
+    gi = inter.shape[-1] if planar else inter.shape[1]
     H3, W3 = gi - Wy + 1, gi - Wx + 1
     dev = inter.device
     if dev.type == "cpu":
-        return build_table_ref(inter, (Wy, Wx))
+        return build_table_ref(inter, (Wy, Wx), dtype, planar)
     if dev.type != "cuda":
         raise RuntimeError(f"build_table: no kernel for device {dev}")
-    _check("build_table: inter", inter, _F32, (P, 4, gi, gi), dev)
-    table = torch.empty((P, H3 * W3, 4 * Wy * Wx), dtype=torch.int8,
-                        device=dev)
+    _check("build_table: inter", inter, _F32,
+           (P, 4, gi, gi) if planar else (P, gi, gi, 4), dev)
+    f32 = dtype == _F32
+    table = torch.empty((P, H3 * W3, 4 * Wy * Wx), dtype=dtype, device=dev)
     lib = kernels.lib("warp_build")
     kernels.check(lib.vt_warp_build(
-        inter.data_ptr(), table.data_ptr(), P, gi, Wy, Wx,
-        torch.cuda.current_stream(dev).cuda_stream), "warp_build")
-    build_table.launches += 1
+        inter.data_ptr(), table.data_ptr(), P, gi, Wy, Wx, int(f32),
+        int(planar), torch.cuda.current_stream(dev).cuda_stream),
+        "warp_build")
+    if f32:
+        build_table.launches_f32 += 1
+    else:
+        build_table.launches += 1
     return table
 
 
 build_table.launches = 0
+build_table.launches_f32 = 0
 
 
 def _quantize_affine(v: torch.Tensor) -> torch.Tensor:
@@ -284,13 +345,15 @@ def _quantize_affine(v: torch.Tensor) -> torch.Tensor:
             ).to(torch.int8)
 
 
-def build_table_ref(inter: torch.Tensor, win: Tuple[int, int] = (4, 4)
-                    ) -> torch.Tensor:
+def build_table_ref(inter: torch.Tensor, win: Tuple[int, int] = (4, 4),
+                    dtype=torch.int8, planar: bool = True) -> torch.Tensor:
     """Plain PyTorch version of kernel B (same layout, bit-equal)."""
     Wy, Wx = _win2d(win)
-    P, _, gi, _ = inter.shape
+    _table_dtype("build_table_ref", dtype)
+    itp = inter if planar else inter.movedim(-1, 1)
+    P, _, gi, _ = itp.shape
     H3, W3 = gi - Wy + 1, gi - Wx + 1
-    q = _quantize_affine(inter)                                 # (P,4,gi,gi)
+    q = _quantize_affine(itp) if dtype == torch.int8 else itp.to(_F32)
     cells = [q[:, :, cy:cy + H3, cx:cx + W3]
              for cy in range(Wy) for cx in range(Wx)]
     tbl = torch.stack(cells, 1)                        # (P, WyWx, 4, H3, W3)
@@ -304,18 +367,22 @@ def build_table_ref(inter: torch.Tensor, win: Tuple[int, int] = (4, 4)
 def combine_emit(table: torch.Tensor, Y0: torch.Tensor, X0: torch.Tensor,
                  ry: torch.Tensor, rx: torch.Tensor, okm: torch.Tensor,
                  gi: int, height: int, width: int, B, win, bg: float,
-                 out_dtype=None) -> torch.Tensor:
-    """Per (By, Bx) screen block: gather the block's window row of the int8
+                 out_dtype=None, qscale: float = _QSCALE,
+                 qshift: float = _QSHIFT) -> torch.Tensor:
+    """Per (By, Bx) screen block: gather the block's window row of the
     table at Y0*W3 + X0, tent-combine each subpixel's taps at its window
-    position (ry, rx) (clamped to the window), dequantize the affine int8
-    (x _QSCALE + _QSHIFT), mask with okm and composite over the background
+    position (ry, rx) (clamped to the window), dequantize (x qscale +
+    qshift: the affine int8 by default; the precise warp's f32 table takes
+    qscale 1, qshift 0), mask with okm and composite over the background
     ``bg``.
 
-    table (P, H3*W3, 4*Wy*Wx) int8 with H3, W3 = gi - Wy + 1, gi - Wx + 1
-    (see build_table); Y0/X0 (P, Hh, Wh) int32; ry/rx/okm
+    table (P, H3*W3, 4*Wy*Wx) int8 or f32 with H3, W3 = gi - Wy + 1,
+    gi - Wx + 1 (see build_table); Y0/X0 (P, Hh, Wh) int32; ry/rx/okm
     (P, By*Bx, Hh, Wh) f32. Returns (P, H, W, 4) uint8 (out_dtype =
     torch.uint8, rounded half to even after a [0, 1] clamp) or f32.
-    Launches kernel C on CUDA tensors; runs ``combine_emit_ref`` on CPU."""
+    Launches kernel C on CUDA tensors (counted in ``launches`` and
+    ``poses``, or in ``launches_f32`` for an f32 table); runs
+    ``combine_emit_ref`` on CPU."""
     By, Bx = _block2d(B)
     Wy, Wx = _win2d(win)
     P = table.shape[0]
@@ -323,13 +390,16 @@ def combine_emit(table: torch.Tensor, Y0: torch.Tensor, X0: torch.Tensor,
     dev = table.device
     if dev.type == "cpu":
         return combine_emit_ref(table, Y0, X0, ry, rx, okm, gi, height,
-                                width, (By, Bx), (Wy, Wx), bg, out_dtype)
+                                width, (By, Bx), (Wy, Wx), bg, out_dtype,
+                                qscale, qshift)
     if dev.type != "cuda":
         raise RuntimeError(f"combine_emit: no kernel for device {dev}")
     if out_dtype not in (None, torch.float32, torch.uint8):
         raise ValueError(f"combine_emit: out_dtype {out_dtype} not taken")
+    _table_dtype("combine_emit", table.dtype)
+    f32 = table.dtype == _F32
     H3, W3 = gi - Wy + 1, gi - Wx + 1
-    _check("combine_emit: table", table, torch.int8,
+    _check("combine_emit: table", table, table.dtype,
            (P, H3 * W3, 4 * Wy * Wx), dev)
     for name, t, dt in (("Y0", Y0, torch.int32), ("X0", X0, torch.int32)):
         _check(f"combine_emit: {name}", t, dt, (P, Hh, Wh), dev)
@@ -341,21 +411,26 @@ def combine_emit(table: torch.Tensor, Y0: torch.Tensor, X0: torch.Tensor,
     lib = kernels.lib("warp_combine")
     kernels.check(lib.vt_warp_combine(
         table.data_ptr(), Y0.data_ptr(), X0.data_ptr(), ry.data_ptr(),
-        rx.data_ptr(), okm.data_ptr(), out.data_ptr(), int(u8), P, height,
-        width, By, Bx, Wy, Wx, H3, W3, float(bg), _QSCALE, _QSHIFT,
-        torch.cuda.current_stream(dev).cuda_stream),
+        rx.data_ptr(), okm.data_ptr(), out.data_ptr(), int(u8), int(f32),
+        P, height, width, By, Bx, Wy, Wx, H3, W3, float(bg), float(qscale),
+        float(qshift), torch.cuda.current_stream(dev).cuda_stream),
         "warp_combine")
-    combine_emit.launches += 1
-    combine_emit.poses += P
+    if f32:
+        combine_emit.launches_f32 += 1
+    else:
+        combine_emit.launches += 1
+        combine_emit.poses += P
     return out
 
 
 combine_emit.launches = 0
 combine_emit.poses = 0
+combine_emit.launches_f32 = 0
 
 
 def combine_emit_ref(table, Y0, X0, ry, rx, okm, gi: int, height: int,
-                     width: int, B, win, bg: float, out_dtype=None):
+                     width: int, B, win, bg: float, out_dtype=None,
+                     qscale: float = _QSCALE, qshift: float = _QSHIFT):
     """Plain PyTorch version of kernel C (f32 arithmetic)."""
     By, Bx = _block2d(B)
     Wy, Wx = _win2d(win)
@@ -373,7 +448,7 @@ def combine_emit_ref(table, Y0, X0, ry, rx, okm, gi: int, height: int,
     wx = torch.clamp(1.0 - torch.abs(rxc[..., None] - cxv), min=0.0)
     # (P, S, Hh, Wh, 4) = sum over the window cells
     rgba = torch.einsum("pshwy,pshwx,phwyxc->pshwc", wy, wx, qg)
-    rgba = rgba * _QSCALE + _QSHIFT
+    rgba = rgba * qscale + qshift
     alpha = rgba[..., 3:4]
     ok = (okm > 0.5)[..., None]
     rgb = torch.where(ok, rgba[..., :3] + bg * (1.0 - alpha),
@@ -459,3 +534,188 @@ def warp_to_screen_sq(inter, opt: RenderOptions, R, fx, fy,
             v0.index_select(0, sel), dv.index_select(0, sel), scale)
         out[sel] = to_display_dtype(ref, out_dtype)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the precise (training) superquad warp with a hand-written backward
+# ---------------------------------------------------------------------------
+#
+#   forward:  kernel B (f32 table) -> kernel C (f32 table, qscale 1,
+#             qshift 0; each block gathers its own row)
+#   backward: kernel 5 (tent + composite adjoint per block row) -> a
+#             scatter-add of the block rows into the table cotangent ->
+#             kernel 6 (build adjoint: each pixel sums its 16 cells)
+#
+# Geometry cotangents are zero by contract (training differentiates the
+# intermediate image only, as the reference's custom VJP does).
+
+#: training-path option (the reference's, off by default there too): warp
+#: with the precise superquad instead of autograd through the reference
+#: quad-gather warp. Read at call time by slab_render._warp_to_screen.
+_PRECISE_SQ = False
+
+
+def usable_precise(width: int, height: int, gi: int) -> bool:
+    """Static gate for the training-path superquad warp."""
+    return usable(width, height, gi, block=_PRECISE_B, win=_PRECISE_WIN)
+
+
+def combine_adjoint(g: torch.Tensor, ry: torch.Tensor, rx: torch.Tensor,
+                    okm: torch.Tensor, bg: float, B=_PRECISE_B,
+                    win=_PRECISE_WIN) -> torch.Tensor:
+    """Transpose of the f32 tent-combine with the composite adjoint.
+
+    g (P, H, W, 4) f32 cotangent of combine_emit's output; ry/rx/okm
+    (P, By*Bx, Hh, Wh) f32 (the forward's). Returns the (P, Hh*Wh,
+    4*Wy*Wx) f32 cotangents of each block's gathered table row, channel
+    _chan(cy, cx, c). Launches kernel 5 on CUDA tensors (counted in
+    ``launches``); runs ``combine_adjoint_ref`` on CPU tensors."""
+    By, Bx = _block2d(B)
+    Wy, Wx = _win2d(win)
+    P, H, W, _ = g.shape
+    Hh, Wh = H // By, W // Bx
+    dev = g.device
+    if dev.type == "cpu":
+        return combine_adjoint_ref(g, ry, rx, okm, bg, (By, Bx), (Wy, Wx))
+    if dev.type != "cuda":
+        raise RuntimeError(f"combine_adjoint: no kernel for device {dev}")
+    _check("combine_adjoint: g", g, _F32, (P, Hh * By, Wh * Bx, 4), dev)
+    for name, t in (("ry", ry), ("rx", rx), ("okm", okm)):
+        _check(f"combine_adjoint: {name}", t, _F32, (P, By * Bx, Hh, Wh),
+               dev)
+    rows = torch.empty((P, Hh * Wh, 4 * Wy * Wx), dtype=_F32, device=dev)
+    lib = kernels.lib("warp_combine_adj")
+    kernels.check(lib.vt_warp_combine_adj(
+        g.data_ptr(), ry.data_ptr(), rx.data_ptr(), okm.data_ptr(),
+        rows.data_ptr(), P, Hh, Wh, By, Bx, Wy, Wx, float(bg),
+        torch.cuda.current_stream(dev).cuda_stream), "warp_combine_adj")
+    combine_adjoint.launches += 1
+    return rows
+
+
+combine_adjoint.launches = 0
+
+
+def combine_adjoint_ref(g, ry, rx, okm, bg: float, B=_PRECISE_B,
+                        win=_PRECISE_WIN) -> torch.Tensor:
+    """Plain PyTorch version of kernel 5 (f32 arithmetic)."""
+    By, Bx = _block2d(B)
+    Wy, Wx = _win2d(win)
+    P, H, W, _ = g.shape
+    Hh, Wh = H // By, W // Bx
+    # subpixel split: (P, S, Hh, Wh, 4) with s = sy*Bx + sx
+    gs = g.reshape(P, Hh, By, Wh, Bx, 4).permute(0, 2, 4, 1, 3, 5).reshape(
+        P, By * Bx, Hh, Wh, 4)
+    ok = (okm > 0.5)[..., None]
+    dalpha = gs[..., 3:] - bg * (gs[..., 0:1] + gs[..., 1:2] + gs[..., 2:3])
+    d = torch.where(ok, torch.cat([gs[..., :3], dalpha], -1), 0.0)
+    ryc = torch.clamp(ry, 0.0, Wy - 1.0)
+    rxc = torch.clamp(rx, 0.0, Wx - 1.0)
+    cyv = torch.arange(Wy, dtype=_F32, device=g.device)
+    cxv = torch.arange(Wx, dtype=_F32, device=g.device)
+    wy = torch.clamp(1.0 - torch.abs(ryc[..., None] - cyv), min=0.0)
+    wx = torch.clamp(1.0 - torch.abs(rxc[..., None] - cxv), min=0.0)
+    rows = torch.einsum("pshwy,pshwx,pshwc->phwyxc", wy, wx, d)
+    return rows.reshape(P, Hh * Wh, 4 * Wy * Wx)
+
+
+def build_adjoint(dtbl: torch.Tensor, gi: int,
+                  win=_PRECISE_WIN) -> torch.Tensor:
+    """Transpose of the f32 table build: (P, H3*W3, 4*Wy*Wx) f32 table
+    cotangent -> (P, gi, gi, 4) f32 d_inter, each pixel the sum of its
+    Wy*Wx window cells. Launches kernel 6 on CUDA tensors (counted in
+    ``launches``); runs ``build_adjoint_ref`` on CPU tensors."""
+    Wy, Wx = _win2d(win)
+    P = dtbl.shape[0]
+    dev = dtbl.device
+    if dev.type == "cpu":
+        return build_adjoint_ref(dtbl, gi, (Wy, Wx))
+    if dev.type != "cuda":
+        raise RuntimeError(f"build_adjoint: no kernel for device {dev}")
+    _check("build_adjoint: dtbl", dtbl, _F32,
+           (P, (gi - Wy + 1) * (gi - Wx + 1), 4 * Wy * Wx), dev)
+    out = torch.empty((P, gi, gi, 4), dtype=_F32, device=dev)
+    lib = kernels.lib("warp_build_adj")
+    kernels.check(lib.vt_warp_build_adj(
+        dtbl.data_ptr(), out.data_ptr(), P, gi, Wy, Wx,
+        torch.cuda.current_stream(dev).cuda_stream), "warp_build_adj")
+    build_adjoint.launches += 1
+    return out
+
+
+build_adjoint.launches = 0
+
+
+def build_adjoint_ref(dtbl, gi: int, win=_PRECISE_WIN) -> torch.Tensor:
+    """Plain PyTorch version of kernel 6 (the same sum order)."""
+    Wy, Wx = _win2d(win)
+    P = dtbl.shape[0]
+    H3, W3 = gi - Wy + 1, gi - Wx + 1
+    t = dtbl.reshape(P, H3, W3, Wy, Wx, 4)
+    out = torch.zeros((P, gi, gi, 4), dtype=_F32, device=dtbl.device)
+    for cy in range(Wy):
+        for cx in range(Wx):
+            out[:, cy:cy + H3, cx:cx + W3] += t[:, :, :, cy, cx]
+    return out
+
+
+class _PreciseWarp(torch.autograd.Function):
+    """The precise superquad warp (the reference's ``make_warp_precise``):
+    (P, gi, gi, 4) f32 intermediate images -> (P, H, W, 4) f32 screens,
+    with the hand-written backward above. The geometry inputs get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, inter, R, fx, fy, u0, du, v0, dv, scale, statics):
+        bg, width, height, gi, perm = statics
+        Wy, Wx = _PRECISE_WIN
+        geom_args = (R, fx, fy, width, height, gi, perm, u0, du, v0, dv,
+                     scale)
+        gys, gxs, okm, Y0, X0 = _level_geometry(geom_args, gi, _PRECISE_B,
+                                                _PRECISE_WIN)
+        ry = (gys - Y0.to(_F32)[:, None]).contiguous()
+        rx = (gxs - X0.to(_F32)[:, None]).contiguous()
+        okm = okm.contiguous()
+        tbl = build_table(inter.to(_F32).contiguous(), _PRECISE_WIN,
+                          dtype=_F32, planar=False)
+        out = combine_emit(tbl, Y0.contiguous(), X0.contiguous(), ry, rx,
+                           okm, gi, height, width, _PRECISE_B, _PRECISE_WIN,
+                           bg, qscale=1.0, qshift=0.0)
+        P = inter.shape[0]
+        H3, W3 = gi - Wy + 1, gi - Wx + 1
+        # each block's table row, as a row of the poses' stacked tables
+        flat = (Y0.long() * W3 + X0.long()
+                + torch.arange(P, device=Y0.device)[:, None, None] * (H3 * W3)
+                ).reshape(-1)
+        ctx.save_for_backward(ry, rx, okm, flat)
+        ctx.statics = statics
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        ry, rx, okm, flat = ctx.saved_tensors
+        bg, _, _, gi, _ = ctx.statics
+        Wy, Wx = _PRECISE_WIN
+        P = ry.shape[0]
+        H3, W3 = gi - Wy + 1, gi - Wx + 1
+        rows = combine_adjoint(g.to(_F32).contiguous(), ry, rx, okm, bg)
+        dtbl = torch.zeros((P * H3 * W3, 4 * Wy * Wx), dtype=_F32,
+                           device=rows.device)
+        dtbl.index_add_(0, flat, rows.reshape(-1, 4 * Wy * Wx))
+        d_inter = build_adjoint(dtbl.reshape(P, H3 * W3, 4 * Wy * Wx), gi)
+        return (d_inter,) + (None,) * 9
+
+
+def warp_precise(inter, bg: float, R, fx, fy, width: int, height: int,
+                 gi: int, perm: Tuple[int, int, int], u0, du, v0, dv,
+                 scale) -> torch.Tensor:
+    """The precise superquad warp of (P, gi, gi, 4) intermediate images to
+    (P, H, W, 4) f32 screens over the background ``bg``, differentiable
+    w.r.t. ``inter`` (kernels B, C forward; 5, scatter, 6 backward). The
+    caller checks usable_precise and each pose's fit predicate
+    (slab_render._warp_to_screen does)."""
+    dev = inter.device
+    fx = torch.as_tensor(fx, dtype=_F32, device=dev)
+    fy = torch.as_tensor(fy, dtype=_F32, device=dev)
+    return _PreciseWarp.apply(inter, R, fx, fy, u0, du, v0, dv, scale,
+                              (float(bg), width, height, gi, tuple(perm)))

@@ -25,6 +25,12 @@
    ``backend="auto"`` takes the kernel path wherever the reference would
    take its Pallas kernels; on CPU tensors the kernel wrappers run their
    plain versions.
+3. **The screen warp** (``slab_render._warp_to_screen(precise=True)``):
+   autograd through the reference quad-gather warp with an f32 table, or,
+   with ``display_warp._PRECISE_SQ`` on, the precise superquad warp with
+   its hand-written backward for the poses whose window fits (decided on
+   the host from the camera and cached per pose, so the step does not
+   wait for the device).
 
 Training semantics match the reference: no early-stop renormalization,
 smooth alpha = 1 - T_end, early termination at stop_thresh kept as an
@@ -34,14 +40,17 @@ epsilon-sized truncation.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from volrend_torch.models.data_format import BasisType
 from volrend_torch.ops import basis as basis_mod
-from volrend_torch.ops import render_exact, slab_march, slab_render
+from volrend_torch.ops import (display_warp, render_exact, slab_march,
+                               slab_render)
 from volrend_torch.ops.dense_grid import DenseGrid, full_resolution
 from volrend_torch.utils.device import to_device
 from volrend_torch.utils.options import RenderOptions
@@ -492,9 +501,61 @@ def render_frame_train(data, bmap: BakeMap, grid: DenseGrid, transform,
                          "(auto, kernel or scan)")
     # training finalize: smooth alpha = 1 - T (no renorm, no hard switch)
     inter = torch.cat([acc, (1.0 - T)[..., None]], -1)[None]
+    fits = None
+    if (display_warp._PRECISE_SQ
+            and display_warp.usable_precise(width, height, gi)):
+        fits = _precise_fits_host(grid, transform, fx, fy, perm, width,
+                                  height, gi)
     return slab_render._warp_to_screen(
         inter, opt, geom.R, geom.fx, geom.fy, width, height, gi, perm,
-        geom.u0, geom.du, geom.v0, geom.dv, geom.scale, precise=True)[0]
+        geom.u0, geom.du, geom.v0, geom.dv, geom.scale, precise=True,
+        fits=fits)[0]
+
+
+#: host copies of grids' scale tensors, read back once per tensor (a read
+#: from the device waits for all the work queued before it)
+_HOST_SCALE = WeakIdKeyDictionary()
+
+
+def _precise_fits_host(grid: DenseGrid, transform, fx, fy, perm, width: int,
+                       height: int, gi: int) -> np.ndarray:
+    """The precise warp's per-pose fit predicates, (P,) bool, computed on
+    the host from the camera (the same f32 arithmetic as the device
+    geometry), so that routing the warp does not wait for the march queued
+    before it; cached per camera, since training revisits its poses (a
+    full-resolution pass costs milliseconds of host time)."""
+    scale = grid.scale
+    if scale.device.type != "cpu":
+        if scale not in _HOST_SCALE:
+            _HOST_SCALE[scale] = scale.detach().cpu()
+        scale = _HOST_SCALE[scale]
+    tr = np.ascontiguousarray(slab_render._host(transform).reshape(-1, 3, 4),
+                              np.float32)
+    sc = np.ascontiguousarray(scale.numpy(), np.float32)
+    return _fits_from_camera(tr.tobytes(), tr.shape[0],
+                             float(slab_render._host(fx)),
+                             float(slab_render._host(fy)), tuple(perm),
+                             width, height, gi, sc.tobytes())
+
+
+@functools.lru_cache(maxsize=4096)
+def _fits_from_camera(tr: bytes, P: int, fx: float, fy: float, perm,
+                      width: int, height: int, gi: int,
+                      scale: bytes) -> np.ndarray:
+    """_precise_fits_host's computation on hashable host values (f32
+    transforms and scale as bytes); returns a read-only array."""
+    R = torch.frombuffer(bytearray(tr), dtype=_F32).reshape(P, 3, 4)[:, :, :3]
+    sc = torch.frombuffer(bytearray(scale), dtype=_F32)
+    fx = torch.tensor(fx, dtype=_F32)
+    fy = torch.tensor(fy, dtype=_F32)
+    u0, du, v0, dv = slab_render._slope_grid(R, fx, fy, sc, perm, width,
+                                             height, gi)
+    gyf, gxf = display_warp._pixel_slopes(R, fx, fy, width, height, gi, perm,
+                                          u0, du, v0, dv, sc)
+    fits = display_warp._level_fits(gyf, gxf, gi, display_warp._PRECISE_B,
+                                    display_warp._PRECISE_WIN).numpy()
+    fits.flags.writeable = False
+    return fits
 
 
 def loss_and_grad_frame(data, bmap: BakeMap, grid: DenseGrid, transform,

@@ -16,7 +16,8 @@ compositing math) with a shear-warp factorization:
    group in one launch of the fused march kernel (``ops/slab_march.py``).
 4. **Warp** the intermediate image to the screen with the superquad warp
    (``ops/display_warp.py``), falling back per pose to the reference
-   quad-gather warp (``_warp_to_screen_ref``) when a pose misfits.
+   quad-gather warp (``_warp_to_screen_ref``) when a pose misfits. The
+   training path warps through ``_warp_to_screen(precise=True)``.
 
 Every function takes a batch of poses: per-pose values are tensors with a
 leading pose dimension (P, ...), the pose-invariant ones (fx, fy, grid
@@ -212,6 +213,35 @@ def default_gi(grid: DenseGrid) -> int:
     return int(min(512, max(128, -(-grid.G // 128) * 128)))
 
 
+def _slope_grid(R, fx, fy, scale, perm: Tuple[int, int, int], width: int,
+                height: int, gi: int):
+    """The intermediate slope grid of a pose batch, (u0, du, v0, dv) (P,):
+    the range of the image boundary's slopes along perm[1] and perm[2]
+    plus a half-texel guard band, over gi samples. R (P, 3, 3); fx, fy
+    0-d tensors on R's device."""
+    corners_cam = to_device(_cam_corners(width, height, 1.0, 1.0), _F32,
+                            R.device)
+    # rescale the unit-focal boundary by the actual fx/fy
+    corners_cam = torch.stack([corners_cam[:, 0] * (1.0 / fx),
+                               corners_cam[:, 1] * (1.0 / fy),
+                               corners_cam[:, 2]], -1)
+    d_world_c = torch.einsum("nc,pkc->pnk", corners_cam, R)
+    d_tree_c = d_world_c * scale
+    uc, vc = _slopes_from_dirs(d_tree_c, perm)                  # (P, n)
+    umin, umax = torch.amin(uc, -1), torch.amax(uc, -1)
+    vmin, vmax = torch.amin(vc, -1), torch.amax(vc, -1)
+    # half-texel guard band, proportional to each axis's slope range
+    ur = torch.clamp(umax - umin, min=1e-6)
+    vr = torch.clamp(vmax - vmin, min=1e-6)
+    upad = 0.5 * ur / gi
+    vpad = 0.5 * vr / gi
+    u0 = umin - upad
+    v0 = vmin - vpad
+    du = (umax + upad - u0) / (gi - 1)
+    dv = (vmax + vpad - v0) / (gi - 1)
+    return u0, du, v0, dv
+
+
 class FrameGeom:
     """Per-frame slab geometry for a batch of P poses sharing (perm, flip):
     slope grid, per-pixel z intervals, camera in tree coords. Per-pose
@@ -237,28 +267,8 @@ class FrameGeom:
         cz, cy, cx = self.cz, self.cy, self.cx
 
         # ---- intermediate slope grid ----------------------------------------
-        corners_cam = to_device(_cam_corners(width, height, 1.0, 1.0), _F32,
-                                dev)
-        # rescale the unit-focal boundary by the actual fx/fy
-        corners_cam = torch.stack([corners_cam[:, 0] * (1.0 / fx),
-                                   corners_cam[:, 1] * (1.0 / fy),
-                                   corners_cam[:, 2]], -1)
-        d_world_c = torch.einsum("nc,pkc->pnk", corners_cam, R)
-        d_tree_c = d_world_c * scale
-        uc, vc = _slopes_from_dirs(d_tree_c, perm)              # (P, n)
-        umin, umax = torch.amin(uc, -1), torch.amax(uc, -1)
-        vmin, vmax = torch.amin(vc, -1), torch.amax(vc, -1)
-        # half-texel guard band, proportional to each axis's slope range
-        ur = torch.clamp(umax - umin, min=1e-6)
-        vr = torch.clamp(vmax - vmin, min=1e-6)
-        upad = 0.5 * ur / gi
-        vpad = 0.5 * vr / gi
-        self.u0 = u0 = umin - upad
-        u1 = umax + upad
-        self.v0 = v0 = vmin - vpad
-        v1 = vmax + vpad
-        self.du = du = (u1 - u0) / (gi - 1)
-        self.dv = dv = (v1 - v0) / (gi - 1)
+        self.u0, self.du, self.v0, self.dv = u0, du, v0, dv = _slope_grid(
+            R, fx, fy, scale, perm, width, height, gi)
         io = torch.arange(gi, dtype=_F32, device=dev)
         # rows (axis perm[1]) / columns (axis perm[2]), (P, gi)
         self.uy = uy = u0[:, None] + du[:, None] * io
@@ -412,25 +422,35 @@ def render_frame(grid: DenseGrid, transform, fx, fy,
 def _warp_to_screen(inter, opt: RenderOptions, R, fx, fy,
                     width: int, height: int, gi: int, perm,
                     u0, du, v0, dv, scale, out_dtype=None,
-                    planar: bool = False, precise: bool = False):
+                    planar: bool = False, precise: bool = False,
+                    fits=None):
     """Projective bilinear warp of a batch of intermediate images
     ((P, gi, gi, 4), or planar (P, 4, gi, gi)) to (P, H, W, 4) screens plus
     background compositing: the superquad warp where it applies, else the
     reference quad-gather warp.
 
-    precise: the training path's warp — the reference quad-gather warp with
-    an f32 quad table, differentiable by autograd (the gather's backward
-    is a scatter-add). The reference routes here too while its precise
-    superquad warp is parked off (display_warp._PRECISE_SQ = False); that
-    warp and its adjoint kernels come with ROADMAP item 17. (The NDC and
-    mesh-background variants come with slice B.)"""
+    precise: the training path's warp, differentiable w.r.t. ``inter``.
+    With ``display_warp._PRECISE_SQ`` on (read at call time; off by
+    default, as in the reference) and ``usable_precise``, each pose whose
+    (2, 2)-block, 4 x 4-window level fits takes the precise superquad warp
+    (``display_warp.warp_precise``: f32 tables and a hand-written
+    backward); every other pose takes the reference quad-gather warp with
+    an f32 quad table, differentiated by autograd (the gather's backward
+    is a scatter-add). ``fits``: the per-pose fit predicates as a host
+    (P,) bool array, computed by the caller without waiting for the device
+    (slab_grad.render_frame_train does); None computes them here from the
+    device geometry and reads them back, which waits for the queued work.
+    (The NDC and mesh-background variants come with slice B.)"""
     if precise:
         if planar:
             inter = inter.movedim(1, -1)
-        return display_warp.to_display_dtype(
-            _warp_to_screen_ref(inter, opt, R, fx, fy, width, height, gi,
-                                perm, u0, du, v0, dv, scale, precise=True),
-            out_dtype)
+        geom = (R, fx, fy, width, height, gi, perm, u0, du, v0, dv, scale)
+        if (display_warp._PRECISE_SQ
+                and display_warp.usable_precise(width, height, gi)):
+            out = _warp_precise_routed(inter, opt, geom, fits)
+        else:
+            out = _warp_to_screen_ref(inter, opt, *geom, precise=True)
+        return display_warp.to_display_dtype(out, out_dtype)
     if display_warp.usable(width, height, gi):
         return display_warp.warp_to_screen_sq(
             inter, opt, R, fx, fy, width, height, gi, perm,
@@ -440,6 +460,40 @@ def _warp_to_screen(inter, opt: RenderOptions, R, fx, fy,
     return display_warp.to_display_dtype(
         _warp_to_screen_ref(inter, opt, R, fx, fy, width, height, gi,
                             perm, u0, du, v0, dv, scale), out_dtype)
+
+
+def _warp_precise_routed(inter, opt: RenderOptions, geom, fits=None):
+    """The precise warp per pose (the reference's lax.cond on the fit
+    predicate): the superquad warp for the poses that fit, the reference
+    warp for the others. geom = the _warp_to_screen_ref geometry args."""
+    R, fx, fy, width, height, gi, perm, u0, du, v0, dv, scale = geom
+    if fits is None:
+        fits = display_warp._level_fits(
+            *display_warp._pixel_slopes(*geom), gi, display_warp._PRECISE_B,
+            display_warp._PRECISE_WIN).cpu().numpy()
+    fits = np.asarray(fits, bool).reshape(-1)
+    bg = float(opt.background_brightness)
+    idx = np.argsort(~fits, kind="stable")       # fitting poses first
+    nfit = int(fits.sum())
+    parts = []
+    for sel, sq in ((idx[:nfit], True), (idx[nfit:], False)):
+        if sel.size == 0:
+            continue
+        if sel.size == len(fits):            # the whole batch: no copies
+            it, sub = inter, (R, u0, du, v0, dv)
+        else:
+            s = torch.as_tensor(sel, device=inter.device)
+            it = inter.index_select(0, s)
+            sub = tuple(t.index_select(0, s) for t in (R, u0, du, v0, dv))
+        Rs, u0s, dus, v0s, dvs = sub
+        args = (Rs, fx, fy, width, height, gi, perm, u0s, dus, v0s, dvs,
+                scale)
+        parts.append(display_warp.warp_precise(it, bg, *args) if sq
+                     else _warp_to_screen_ref(it, opt, *args, precise=True))
+    if len(parts) == 1:
+        return parts[0]
+    inv = torch.as_tensor(np.argsort(idx), device=inter.device)
+    return torch.cat(parts).index_select(0, inv)
 
 
 def _warp_to_screen_ref(inter, opt: RenderOptions, R, fx, fy,
@@ -453,9 +507,12 @@ def _warp_to_screen_ref(inter, opt: RenderOptions, R, fx, fy,
     path, or float32 with ``precise`` (the training path: f16 would
     quantize the outputs below a gradient step). Linear in ``inter`` and
     differentiable by autograd. Returns (P, H, W, 4) float32. Display-path
-    calls (not ``precise``) count their poses in ``poses``: a display run
-    shows with it that no pose fell back here."""
-    if not precise:
+    calls (not ``precise``) count their poses in ``poses``, training calls
+    in ``precise_poses``: a run shows with them that no pose fell back
+    here."""
+    if precise:
+        _warp_to_screen_ref.precise_poses += inter.shape[0]
+    else:
         _warp_to_screen_ref.poses += inter.shape[0]
     dev = inter.device
     fx = torch.as_tensor(fx, dtype=_F32, device=dev)
@@ -502,9 +559,11 @@ def _warp_to_screen_ref(inter, opt: RenderOptions, R, fx, fy,
     return torch.cat([rgb, out[..., 3:4]], -1)
 
 
-#: poses warped through the reference fallback (a plain counter, so a run
-#: can show that no pose fell back)
+#: poses warped through the reference warp (plain counters, so a run can
+#: show that no pose fell back): display fallbacks, and training-path
+#: poses (every pose with _PRECISE_SQ off; the misfit poses with it on)
 _warp_to_screen_ref.poses = 0
+_warp_to_screen_ref.precise_poses = 0
 
 
 def render_image(grid: DenseGrid, cam, opt: RenderOptions,
