@@ -29,11 +29,19 @@ Phases (any failure exits non-zero and prints no result):
    C and none through the reference warp; median wall time of REPS runs;
 5. the quality gate: orbit pose 0 against ``render_exact.render_rays`` at
    stride 5 (>= 54 dB);
-6. the sparse solid scene: each kernel against its plain version on the
+6. the measurement probes (``volrend_torch/probes/``) on the dense grid at
+   their own width (800^2, gi=448, the 96 orbit poses): the tent-combine
+   (P7), payload-stream (P8) and table-build (P9, both layouts) kernels
+   against their plain versions, with times, bounds and library
+   yardsticks; then the probes' own numbers (the stream's GB/s beside
+   kernel M's one-pose time, perf_sq3's s1 and s2, perf_sq4's b0, b3 and
+   b4) with the probe kernels' launch counts reset just before and read
+   just after;
+7. the sparse solid scene: each kernel against its plain version on the
    first pose group of each perm (cropped payloads, culled slab lists),
    then 96 orbit poses at full width, throughput and a gate at stride 8
    (>= 47.5 dB);
-7. training at the reference's training-bench width (tools/bench_train.py:
+8. training at the reference's training-bench width (tools/bench_train.py:
    ``make_solid_tree(max_depth=7, basis_dim=9, seed=7)``, G=256 SH9,
    800^2 frames, gi=256, 4 orbit poses of one (perm, flip) group,
    ``FrameTrainer(lr=5e-2)``): kernel M's training mode and the backward
@@ -48,9 +56,9 @@ Phases (any failure exits non-zero and prints no result):
    and read just after each run — every step must run exactly one launch
    of each kernel of its path and no plain version, and with the switch on
    no pose may take the reference warp — and the peak device memory;
-8. the recovery gate at G=128 (examples/train_slab_demo.py): corrupt the
+9. the recovery gate at G=128 (examples/train_slab_demo.py): corrupt the
    leaf rows, train 60 steps, PSNR must rise by more than 5 dB;
-9. one JSON line with every kernel's numbers, then the result line.
+10. one JSON line with every kernel's numbers, then the result line.
 """
 
 import json
@@ -70,7 +78,6 @@ N_POSES = 200
 N_POSES_SPARSE = 96
 FLOOR_ORBIT = 54.0
 FLOOR_SPARSE = 47.5
-CACHE = os.path.join(HERE, ".torch_bench_tree_cache.npz")
 CACHE_SPARSE = os.path.join(HERE, ".torch_bench_sparse_cache.npz")
 CACHE_TRAIN = os.path.join(HERE, ".torch_bench_train_cache.npz")
 CACHE_DEMO = os.path.join(HERE, ".torch_train_demo_cache.npz")
@@ -267,60 +274,11 @@ def freeze_flip_check(torch, tag, acc_k, acc_p, stop):
     return err, flips, off.numel()
 
 
-def profile_run(torch, fn, tag: str) -> None:
-    """Trace one call of ``fn`` with torch.profiler: device time by kernel
-    name (the 30 largest), the device's busy time (union of kernel
-    intervals) and its idle share of the wall time."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kern:
-        fail(f"{tag}: the profiler saw no device activity")
-    by_name = {}
-    for e in kern:
-        d = by_name.setdefault(e.name, [0.0, 0])
-        d[0] += (e.time_range.end - e.time_range.start) / 1e3
-        d[1] += 1
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
-    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for a, b in spans[1:]:
-        if a > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = a, b
-        else:
-            cur_e = max(cur_e, b)
-    busy = (busy + cur_e - cur_s) / 1e3
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    log(f"{tag} profile: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms,"
-        f" idle share {1.0 - busy / wall_ms:.4f}, {len(kern)} kernels")
-    for name, (ms, n) in ranked[:30]:
-        log(f"  {ms:9.3f} ms  x{n:<5d} {name[:150]}")
-
-
-def orbit_poses(Camera, n, radius=2.8, elev=0.45):
-    """The bench's orbit protocol (bench.py orbit_poses)."""
-    cams = []
-    for i in range(n):
-        th = 2 * np.pi * i / n
-        back = np.array([np.cos(th) * np.cos(elev),
-                         np.sin(th) * np.cos(elev), np.sin(elev)])
-        cams.append(Camera.from_vectors(
-            center=tuple(radius * back), v_back=tuple(back),
-            width=W, height=H))
-    return cams
-
-
 def steep_pose(Camera, slab_render, grid, lo=3.6, hi=3.95):
     """Orbit pose 0's view with the focal narrowed until the boundary-ray
     slope lies in [lo, hi): steep, yet below MAX_SLAB_SLOPE."""
-    base = orbit_poses(Camera, 1)[0]
+    from volrend_torch.probes._common import orbit_poses
+    base = orbit_poses(1)[0]
     f_lo, f_hi = 20.0, float(base.fx)
     for _ in range(60):
         f = 0.5 * (f_lo + f_hi)
@@ -333,15 +291,6 @@ def steep_pose(Camera, slab_render, grid, lo=3.6, hi=3.95):
         else:
             f_hi = f
     fail("no steep slab-compatible focal found")
-
-
-def load_tree(path, make):
-    from volrend_torch.models.n3tree import N3Tree
-    if os.path.isfile(path):
-        return N3Tree(path)
-    tree = make()
-    tree.save_npz(path, compressed=False)
-    return tree
 
 
 def psnr(a, b) -> float:
@@ -365,7 +314,7 @@ def train_orbit(Camera, n=TRAIN_POSES):
 
 
 def train_phase(torch, dev, stats):
-    """Phases 7 and 8: the training path at the training bench's width,
+    """Phases 8 and 9: the training path at the training bench's width,
     then the recovery gate. Fills stats["MT"] (kernel M, training mode),
     stats["MB"] (the backward kernel) and, through precise_checks, the
     precise warp's kernels; returns a summary dict."""
@@ -373,11 +322,12 @@ def train_phase(torch, dev, stats):
     from volrend_torch.models.synthetic import make_solid_tree
     from volrend_torch.ops import slab_grad, slab_march, slab_render
     from volrend_torch.ops.camera import Camera
+    from volrend_torch.probes import _common
     from volrend_torch.utils.options import RenderOptions
 
     topt = RenderOptions(max_steps=1024)
     t = time.perf_counter()
-    tree = load_tree(CACHE_TRAIN, lambda: make_solid_tree(
+    tree = _common.load_tree(CACHE_TRAIN, lambda: make_solid_tree(
         max_depth=DEPTH, basis_dim=9, seed=7))
     log(f"train: tree ready in {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
@@ -396,7 +346,7 @@ def train_phase(torch, dev, stats):
     (perm, flip), = groups
     tgt = torch.full((H, W, 4), 0.5, dtype=torch.float32, device=dev)
 
-    # ---- 7a. kernel checks on pose 0 at full width ------------------------
+    # ---- 8a. kernel checks on pose 0 at full width ------------------------
     cam = cams[0]
     with torch.no_grad():
         payload = slab_grad.bake_from_pyramid(tr.pyramid, tr.bmap)
@@ -485,13 +435,13 @@ def train_phase(torch, dev, stats):
     del planar, acc_k, acc4, m, aux
     torch.cuda.empty_cache()
 
-    # ---- 7b. the precise superquad warp on pose 0 --------------------------
+    # ---- 8b. the precise superquad warp on pose 0 --------------------------
     precise = precise_checks(torch, dev, inter.contiguous(), gargs, tr,
                              cams[0], perm, stats)
     del inter
     torch.cuda.empty_cache()
 
-    # ---- 7c. timed steps, the precise warp's switch off and on -------------
+    # ---- 8c. timed steps, the precise warp's switch off and on -------------
     from volrend_torch.ops import display_warp
     off = timed_steps(torch, tr, cams, tgt, "train")
     display_warp._PRECISE_SQ = True
@@ -517,12 +467,12 @@ def train_phase(torch, dev, stats):
              f"B-f32, C-f32 and kernels 5 and 6, or a pose took the "
              f"reference warp ({c})")
     if "--profile" in sys.argv[1:]:
-        profile_run(torch, lambda: tr.step_frame(cams[0], tgt),
-                    "training step")
+        _common.profile_run(lambda: tr.step_frame(cams[0], tgt),
+                            "training step", log)
         display_warp._PRECISE_SQ = True
         try:
-            profile_run(torch, lambda: tr.step_frame(cams[0], tgt),
-                        "training step (precise warp)")
+            _common.profile_run(lambda: tr.step_frame(cams[0], tgt),
+                                "training step (precise warp)", log)
         finally:
             display_warp._PRECISE_SQ = False
     summary = {"train_ms_synced": off["ms_synced"],
@@ -591,7 +541,7 @@ def timed_steps(torch, tr, cams, tgt, tag):
 
 
 def precise_checks(torch, dev, inter, gargs, tr, cam, perm, stats):
-    """Phase 7b: the precise superquad warp at full width on pose 0's
+    """Phase 8b: the precise superquad warp at full width on pose 0's
     intermediate image ``inter`` (1, gi, gi, 4) and geometry ``gargs``.
     Holds kernel B's and C's f32 modes and kernels 5 and 6 against their
     plain versions and times them (stats "BF", "CF", "K5", "K6"), then the
@@ -789,6 +739,182 @@ def precise_checks(torch, dev, inter, gargs, tr, cam, perm, stats):
             "fold_permute_ms": permute_ms}
 
 
+def probe_phase(torch, dev, grid, opt, stats):
+    """Phase 6: the measurement probes (volrend_torch/probes/) on the dense
+    grid at their own width (800^2, gi=448, the 96 orbit poses). P7, P8 and
+    P9 in both layouts against their plain versions on the same CUDA
+    tensors, with times, bounds and library yardsticks (stats "P7", "P8",
+    "P9", "P9P"); then the probes' own numbers, each once, with the probe
+    kernels' launch counts reset just before and read just after: the
+    stream's GB/s, kernel M's one-pose display time beside it, perf_sq3's
+    s1 and s2, and perf_sq4's b0, b3 and b4 (b3 drives the interleaved
+    build). Returns the numbers and the counts."""
+    import torch.nn.functional as F
+    from volrend_torch.ops import slab_march, slab_render
+    from volrend_torch.probes import _common, perf_overlap, perf_sq3, \
+        perf_sq4
+    gi = _common.GI
+    cams = _common.orbit_poses(_common.N_ORBIT)
+    groups = _common.pose_groups(grid, cams)
+    (perm, flip), idx = next((k, v) for k, v in groups.items() if 0 in v)
+    (perm4, flip4), idx4 = max(groups.items(), key=lambda kv: len(kv[1]))
+    fx, fy = cams[0].fx, cams[0].fy
+    trs = _common.transforms(cams, idx, dev)
+
+    # ---- P8: the payload stream, every window of pose 0's payload --------
+    pay = slab_render._permuted_grid(grid, perm)
+    n_win = grid.G // perf_overlap.WIN
+    ids = torch.arange(n_win, dtype=torch.int32, device=dev)
+    out_k, sums_k = perf_overlap.stream_probe(pay, ids)
+    out_p, sums_p = perf_overlap.stream_probe_ref(pay, ids)
+    if not (torch.equal(out_k, out_p) and torch.equal(sums_k, sums_p)):
+        fail("P8 (probe_stream) is not exact against its plain version")
+
+    def library_stream():
+        return pay.view(n_win, -1).sum(1, dtype=torch.int64)
+
+    if not torch.equal(library_stream(), sums_p):
+        fail("P8's library yardstick computes another function")
+    del out_k, out_p, sums_k, sums_p
+    nbytes = perf_overlap.stream_bytes(pay, n_win)
+    stats["P8"] = {"max_abs_err": 0.0, "ms": cuda_ms(
+        torch, lambda: perf_overlap.stream_probe(pay, ids), KREPS),
+        "plain_ms": cuda_ms(
+            torch, lambda: perf_overlap.stream_probe_ref(pay, ids), KREPS),
+        "library_ms": cuda_ms(torch, library_stream, KREPS)}
+    # one integer add per byte, counted at the fp32 rate
+    stats["P8"]["bound_ms"], stats["P8"]["bound_by"] = bound(nbytes, nbytes)
+    log(f"P8 [payload {tuple(pay.shape)}, {n_win} windows, {nbytes} B]: "
+        f"exact; {json.dumps(stats['P8'])}")
+
+    # ---- P7: the planar tent-combine on pose 0 ---------------------------
+    inter = torch.as_tensor(np.random.RandomState(0).rand(gi, gi, 4).astype(
+        np.float32), device=dev)
+    g = slab_render.FrameGeom(grid, trs[:1], fx, fy, perm, flip, W, H, opt,
+                              gi)
+    cin = perf_sq3.superquad_inputs(inter, perf_sq3.pose_geom(g), perm, W,
+                                    H, gi)
+    bgv = float(opt.background_brightness)
+    err = float((perf_sq3.combine_probe(*cin, bgv)
+                 - perf_sq3.combine_probe_ref(*cin, bgv)).abs().max())
+    log(f"P7 (probe_combine) [pose 0, {W}x{H}, gi={gi}]: max err "
+        f"{err:.3e} (tol {TOL_C_F32})")
+    if not (np.isfinite(err) and err <= TOL_C_F32):
+        fail("P7 (probe_combine) disagrees with its plain version")
+    Hh, Wh = H // 2, W // 2
+    stats["P7"] = {"max_abs_err": err, "ms": cuda_ms(
+        torch, lambda: perf_sq3.combine_probe(*cin, bgv), KREPS),
+        "plain_ms": cuda_ms(
+            torch, lambda: perf_sq3.combine_probe_ref(*cin, bgv), KREPS),
+        "library_ms": None}
+    # 64 bf16 table planes and 3 f32 geometry planes per subpixel read, 16
+    # f32 planes written; per half-pixel and subpixel 8 tents (3 ops), 16
+    # weight products, 64 multiply-adds and the composite (~8)
+    stats["P7"]["bound_ms"], stats["P7"]["bound_by"] = bound(
+        Hh * Wh * (64 * 2 + 3 * 4 * 4 + 16 * 4),
+        Hh * Wh * 4 * (8 * 3 + 16 + 64 * 2 + 8))
+    del cin
+
+    # ---- P9: the window-table build, both layouts ------------------------
+    a = torch.as_tensor(np.random.default_rng(0).uniform(
+        0.1, 0.9, (4, gi, gi)).astype(np.float32), device=dev)
+    itp = perf_sq4.finalize(a, opt).permute(2, 0, 1).to(
+        torch.bfloat16).contiguous()
+    n, Hp = perf_sq4.table_rows(gi)
+    for key, planar in (("P9", False), ("P9P", True)):
+        if not torch.equal(perf_sq4.build_probe(itp, gi, planar=planar),
+                           perf_sq4.build_probe_ref(itp, gi,
+                                                    planar=planar)):
+            fail(f"{key} (probe_build, planar={planar}) is not bit-equal to "
+                 "its plain version")
+        stats[key] = {"max_abs_err": 0.0, "ms": cuda_ms(
+            torch, lambda p=planar: perf_sq4.build_probe(itp, gi, planar=p),
+            KREPS), "plain_ms": cuda_ms(
+            torch, lambda p=planar: perf_sq4.build_probe_ref(
+                itp, gi, planar=p), KREPS)}
+        stats[key]["bound_ms"], stats[key]["bound_by"] = bound(
+            4 * gi * gi * 2 + Hp * n * 64 * 2, 0)
+    # library yardstick: ONE unfold of the planar image builds the same
+    # cells (in unfold's channel order c*16 + cy*4 + cx)
+    ilv = perf_sq4.build_probe_ref(itp, gi)
+    unf = F.unfold(itp[None], 4)
+    if not torch.equal(unf[0].reshape(4, 16, n, n).permute(2, 3, 1, 0)
+                       .reshape(n, n, 64), ilv[:n]):
+        fail("P9's library yardstick builds another table")
+    lib_ms = cuda_ms(torch, lambda: F.unfold(itp[None], 4), KREPS)
+    stats["P9"]["library_ms"] = stats["P9P"]["library_ms"] = lib_ms
+    del unf, ilv
+    log(f"P7 {json.dumps(stats['P7'])}; P9 [table ({Hp}, {n}, 64)] "
+        f"{json.dumps(stats['P9'])}; P9 planar {json.dumps(stats['P9P'])}")
+    torch.cuda.empty_cache()
+
+    # ---- the probes' own numbers, counted -------------------------------
+    perf_sq3.combine_probe.launches = 0
+    perf_overlap.stream_probe.launches = 0
+    perf_sq4.build_probe.launches = 0
+    perf_sq4.build_probe.launches_planar = 0
+    P = len(idx)
+    t = _common.sync_time(lambda: [perf_overlap.stream_probe(pay, ids)
+                                   for _ in range(P)])
+    stream_ms = t / P * 1e3
+    gbs = nbytes / stream_ms / 1e6
+    gm = slab_render.FrameGeom(grid, trs, fx, fy, perm, flip, W, H, opt, gi)
+    params, zb = slab_render._march_frame_fields(grid, gm, perm, flip, opt)
+    slab_ids = grid.slab_ids(perm[0], flip, opt.sigma_thresh)
+    t = _common.sync_time(lambda: [perf_overlap.march_one_pose(
+        grid, pay, params[i:i + 1], zb[i:i + 1], perm, flip, gi, slab_ids,
+        slab_march._K_STEP) for i in range(P)])
+    m_ms = t / P * 1e3
+    log(f"perf_overlap: payload stream {stream_ms:.4f} ms per launch, "
+        f"{gbs:.1f} GB/s ({gbs / (HBM_BYTES_PER_S / 1e9):.4f} of the data "
+        f"sheet's 3.35 TB/s); kernel M, one pose per launch at gi={gi} "
+        f"(K={slab_march._K_STEP}): {m_ms:.3f} ms, {m_ms / stream_ms:.2f}x "
+        f"the stream ({P} poses of group {perm}/{flip})")
+    if not gbs * 1e9 < HBM_BYTES_PER_S:
+        fail(f"the stream probe reads {gbs:.1f} GB/s, above the card's "
+             f"3.35 TB/s: its loads cannot all have run")
+    del params, zb, gm
+    s1 = perf_sq3.s1(grid, trs[0], fx, fy, perm, flip, inter, opt, W, H, gi)
+    sq_ms, prod_ms = perf_sq3.s2(grid, trs[:perf_sq4.N_POSES], fx, fy, perm,
+                                 flip, inter, opt, W, H, gi)
+    log(f"perf_sq3: s1 max |probe - production| {s1:.5f}; s2 probe warp "
+        f"{sq_ms:.3f} ms/frame (one pose per call), production warp "
+        f"{prod_ms:.3f} ms/frame (one batched call), over "
+        f"{min(P, perf_sq4.N_POSES)} poses")
+    if not (np.isfinite(s1) and s1 < 1e-2):
+        fail(f"perf_sq3: the probe warp is {s1} from the production warp")
+    del inter, pay
+    torch.cuda.empty_cache()
+    st = perf_sq4.Setup(grid.scale, perm4, float(fx), float(fy), W, H, gi,
+                        opt)
+    trs4 = _common.transforms(cams, idx4[:perf_sq4.N_POSES], dev)
+    accs = torch.as_tensor(np.random.default_rng(0).uniform(
+        0.1, 0.9, (trs4.shape[0], 4, gi, gi)).astype(np.float32),
+        device=dev)
+    sq4 = perf_sq4.run_variants(st, grid, trs4, accs, flip4,
+                                ["b0 ref quad", "b3 probe ilv",
+                                 "b4 probe+T"])
+    counts = dict(combine=perf_sq3.combine_probe.launches,
+                  stream=perf_overlap.stream_probe.launches,
+                  build=perf_sq4.build_probe.launches,
+                  build_planar=perf_sq4.build_probe.launches_planar)
+    log(f"perf_sq4 [{trs4.shape[0]} poses of group {perm4}/{flip4}]: "
+        + "; ".join(f"{k} {ms:.3f} ms/frame (table build alone {tb}), "
+                    f"max |. - b0| {e:.4f}" for k, (ms, e, tb) in sq4.items())
+        + f"; probe launch counts {counts}")
+    if min(counts.values()) < 1:
+        fail(f"a probe kernel never launched on the probes' path ({counts})")
+    if not sq4["b4 probe+T"][1] < 1e-2:
+        fail("perf_sq4: b4 disagrees with the reference warp b0")
+    del accs
+    torch.cuda.empty_cache()
+    return {"probe_stream_ms": stream_ms, "probe_stream_gbs": gbs,
+            "probe_march_one_pose_ms": m_ms, "probe_sq3_s1": s1,
+            "probe_sq3_ms": sq_ms, "probe_production_warp_ms": prod_ms,
+            "probe_sq4": {k: list(v) for k, v in sq4.items()},
+            "probe_counts": counts}
+
+
 def timed_once(torch, fn):
     """(fn(), its device time in ms): one call between CUDA events."""
     a = torch.cuda.Event(enable_timing=True)
@@ -843,9 +969,10 @@ def recovery_gate(torch, dev, topt):
     from volrend_torch.models.synthetic import make_solid_tree
     from volrend_torch.ops import slab_grad
     from volrend_torch.ops.camera import Camera
+    from volrend_torch.probes import _common
 
     t = time.perf_counter()
-    tree = load_tree(CACHE_DEMO, lambda: make_solid_tree(
+    tree = _common.load_tree(CACHE_DEMO, lambda: make_solid_tree(
         max_depth=DEMO_DEPTH, basis_dim=9, seed=7))
     tdev = tree.to_device(lut_depth=None, device=dev)
     tr = train.FrameTrainer(tdev, opt=topt, lr=TRAIN_LR, gi=DEMO_GI)
@@ -899,11 +1026,11 @@ def main() -> None:
         fail("no CUDA device (torch.cuda.is_available() is False)")
     sys.path.insert(0, HERE)
     from volrend_torch import kernels
-    from volrend_torch.models.synthetic import (make_solid_tree,
-                                                make_test_tree)
+    from volrend_torch.models.synthetic import make_solid_tree
     from volrend_torch.ops import (dense_grid, display_warp, render_exact,
                                    slab_march, slab_render)
     from volrend_torch.ops.camera import Camera
+    from volrend_torch.probes import _common
     from volrend_torch.utils.options import RenderOptions
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -927,9 +1054,9 @@ def main() -> None:
     opt = RenderOptions(max_steps=1024)
     dev = torch.device("cuda")
 
-    def setup(path, make, tag):
+    def setup(get_tree, tag):
         t = time.perf_counter()
-        tree = load_tree(path, make)
+        tree = get_tree()
         log(f"{tag}: tree ready in {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
         tdev = tree.to_device(lut_depth=None, device=dev)
@@ -1040,10 +1167,8 @@ def main() -> None:
         return p
 
     # ---- 2. dense scene -----------------------------------------------------
-    tdev, grid = setup(CACHE, lambda: make_test_tree(
-        max_depth=DEPTH, basis_dim=BASIS_DIM, seed=3, n_blobs=6,
-        sigma_scale=60.0), "dense")
-    cams = orbit_poses(Camera, N_POSES)
+    tdev, grid = setup(_common.get_tree, "dense")
+    cams = _common.orbit_poses(N_POSES)
     groups, pays, trs = groups_of(grid, cams)
     log(f"dense: {len(groups)} pose groups "
         f"{[(k, len(v)) for k, v in groups.items()]}")
@@ -1207,18 +1332,25 @@ def main() -> None:
     counts, frames, ms = main_path("dense", grid, cams, groups, pays, trs)
     mrays = N_POSES * W * H / ms / 1e3
     if "--profile" in sys.argv[1:]:
-        profile_run(torch, lambda: render_all(grid, cams, groups, pays, trs),
-                    "dense main path")
+        _common.profile_run(
+            lambda: render_all(grid, cams, groups, pays, trs),
+            "dense main path", log)
 
     # ---- 5. quality gate ----------------------------------------------------
     p_orbit = gate("dense orbit0", tdev, cams[0], frames[0], 5, FLOOR_ORBIT)
-    del frames, pays, trs, grid, tdev
+    del frames, pays, trs
     torch.cuda.empty_cache()
 
-    # ---- 6. sparse scene ----------------------------------------------------
-    sdev, sgrid = setup(CACHE_SPARSE, lambda: make_solid_tree(
-        max_depth=DEPTH, basis_dim=BASIS_DIM, seed=3), "sparse")
-    scams = orbit_poses(Camera, N_POSES_SPARSE)
+    # ---- 6. the measurement probes, on the dense grid ----------------------
+    probe = probe_phase(torch, dev, grid, opt, stats)
+    del grid, tdev
+    torch.cuda.empty_cache()
+
+    # ---- 7. sparse scene ----------------------------------------------------
+    sdev, sgrid = setup(lambda: _common.load_tree(
+        CACHE_SPARSE, lambda: make_solid_tree(
+            max_depth=DEPTH, basis_dim=BASIS_DIM, seed=3)), "sparse")
+    scams = _common.orbit_poses(N_POSES_SPARSE)
     sgroups, spays, strs = groups_of(sgrid, scams)
     crops = {perm: slab_render.inplane_crop(sgrid, perm,
                                             float(opt.sigma_thresh))
@@ -1245,15 +1377,15 @@ def main() -> None:
     del sframes, spays, strs, sgrid, sdev
     torch.cuda.empty_cache()
 
-    # ---- 7-8. training ------------------------------------------------------
+    # ---- 8-9. training ------------------------------------------------------
     tsum = train_phase(torch, dev, stats)
 
-    # ---- 9. result ----------------------------------------------------------
+    # ---- 10. result ---------------------------------------------------------
     summary = {"card": card, "dense_mrays": mrays, "dense_ms": ms,
                "sparse_mrays": smrays, "sparse_ms": sms,
                "psnr_orbit_db": p_orbit, "psnr_sparse_db": p_sparse,
                "dense_counts": counts, "sparse_counts": scounts, **tsum,
-               "seconds": time.perf_counter() - _T0}
+               **probe, "seconds": time.perf_counter() - _T0}
     log(f"summary {json.dumps(summary)}")
     spec = (
         ("M", "slab_march", "volrend_torch/csrc/slab_march.cu",
@@ -1280,6 +1412,14 @@ def main() -> None:
         ("K6", "warp_build_adj", "volrend_torch/csrc/warp_build_adj.cu",
          "volrend_tpu/ops/display_warp.py:818",
          tsum["train_precise_counts"]["build_adj"]),
+        ("P7", "probe_combine", "volrend_torch/csrc/probe_combine.cu",
+         "tools/perf_sq3.py:83", probe["probe_counts"]["combine"]),
+        ("P8", "probe_stream", "volrend_torch/csrc/probe_stream.cu",
+         "tools/perf_overlap.py:96", probe["probe_counts"]["stream"]),
+        ("P9", "probe_build", "volrend_torch/csrc/probe_build.cu",
+         "tools/perf_sq4.py:47", probe["probe_counts"]["build"]),
+        ("P9P", "probe_build_planar", "volrend_torch/csrc/probe_build.cu",
+         "tools/perf_sq4.py:75", probe["probe_counts"]["build_planar"]),
     )
     rows = []
     for key, name, src, rep, launches in spec:

@@ -392,3 +392,59 @@ def test_frame_trainer_precise_switch_uses_its_kernels(card, monkeypatch):
     losses = [tr.step_frame(cams[0], tgt) for _ in range(3)]
     assert counts() == tuple(c + 3 for c in c0[:6]) + (c0[6],)
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+# ---------------------------------------------------------------------------
+# The measurement probes' kernels (volrend_torch/probes/)
+# ---------------------------------------------------------------------------
+
+def test_probe_combine_matches_plain(card):
+    """P7 against its plain version: f32 both, another summation order
+    (1e-5); positions past the window and masked subpixels."""
+    from volrend_torch.probes import perf_sq3
+    rng = np.random.default_rng(5)
+    Hh, Wh = 40, 56
+    qgp = torch.as_tensor(rng.uniform(0.0, 1.0, (64, Hh, Wh)).astype(
+        np.float32)).to(torch.bfloat16).to(card)
+    ry, rx = (torch.as_tensor(rng.uniform(-0.7, 3.7, (4, Hh, Wh)).astype(
+        np.float32), device=card) for _ in range(2))
+    okm = torch.as_tensor((rng.uniform(size=(4, Hh, Wh)) > 0.25).astype(
+        np.float32), device=card)
+    n0 = perf_sq3.combine_probe.launches
+    got = perf_sq3.combine_probe(qgp, ry, rx, okm, 0.7)
+    assert perf_sq3.combine_probe.launches == n0 + 1
+    want = perf_sq3.combine_probe_ref(qgp, ry, rx, okm, 0.7)
+    assert float((got - want).abs().max()) <= 1e-5
+
+
+def test_probe_stream_matches_plain(card):
+    """P8 against its plain version, exactly: every window, then a permuted
+    subset."""
+    from volrend_torch.probes import perf_overlap
+    rng = np.random.default_rng(6)
+    G, Dp = 128, 3
+    pay = torch.as_tensor(rng.integers(-128, 128, (G, Dp, G, G),
+                                       dtype=np.int8), device=card)
+    for ids in (np.arange(G // 4), rng.permutation(G // 4)[:12]):
+        ids = torch.as_tensor(ids.astype(np.int32), device=card)
+        n0 = perf_overlap.stream_probe.launches
+        out, sums = perf_overlap.stream_probe(pay, ids)
+        assert perf_overlap.stream_probe.launches == n0 + 1
+        want_out, want_sums = perf_overlap.stream_probe_ref(pay, ids)
+        assert torch.equal(out, want_out) and torch.equal(sums, want_sums)
+
+
+@pytest.mark.parametrize("planar", [False, True])
+@pytest.mark.parametrize("gi", [35, 40])
+def test_probe_build_matches_plain(card, gi, planar):
+    """P9 in both layouts, bit-equal to its plain version, padding rows
+    (gi = 40: 37 rows padded to 48) included."""
+    from volrend_torch.probes import perf_sq4
+    it = torch.as_tensor(np.random.default_rng(7).uniform(
+        0.0, 1.0, (4, gi, gi)).astype(np.float32)).to(torch.bfloat16).to(
+            card)
+    counter = "launches_planar" if planar else "launches"
+    n0 = getattr(perf_sq4.build_probe, counter)
+    got = perf_sq4.build_probe(it, gi, planar=planar)
+    assert getattr(perf_sq4.build_probe, counter) == n0 + 1
+    assert torch.equal(got, perf_sq4.build_probe_ref(it, gi, planar=planar))

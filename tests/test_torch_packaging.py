@@ -28,6 +28,9 @@ MODULES = [
     "volrend_torch.ops.dense_grid", "volrend_torch.ops.slab_render",
     "volrend_torch.ops.slab_march", "volrend_torch.ops.display_warp",
     "volrend_torch.ops.slab_grad", "volrend_torch.train",
+    "volrend_torch.probes", "volrend_torch.probes._common",
+    "volrend_torch.probes.perf_overlap", "volrend_torch.probes.perf_sq3",
+    "volrend_torch.probes.perf_sq4",
 ]
 
 
@@ -77,7 +80,10 @@ def test_cuda_sources_name_their_tpu_kernel():
             "warp_build.cu": "display_warp.py:_make_build",
             "warp_combine.cu": "display_warp.py:_make_combine_kernel",
             "warp_combine_adj.cu": "display_warp.py:_combine_adjoint_kernel",
-            "warp_build_adj.cu": "display_warp.py:_build_adjoint"}
+            "warp_build_adj.cu": "display_warp.py:_build_adjoint",
+            "probe_combine.cu": "perf_sq3.py:combine_pallas",
+            "probe_stream.cu": "perf_overlap.py:dma_once",
+            "probe_build.cu": "perf_sq4.py:build_pallas"}
     assert sorted(want) == sorted(src for src, _ in kernels.SOURCES.values())
     for name, ref in want.items():
         head = open(os.path.join(ROOT, "volrend_torch", "csrc", name)
@@ -170,6 +176,26 @@ def test_kernel_wrappers_refuse_other_devices():
     meta = torch.empty((1, 4, 16, 16), device="meta")
     with pytest.raises(RuntimeError, match="no kernel for device"):
         display_warp.build_table(meta, (4, 4))
+
+
+@pytest.mark.parametrize("probe", ["combine", "stream", "build"])
+def test_probe_wrappers_refuse_other_devices(probe):
+    """The probes' kernel wrappers, too, run their plain versions only on
+    CPU tensors and launch nothing for another device."""
+    from volrend_torch.probes import perf_overlap, perf_sq3, perf_sq4
+    meta = {"combine": lambda: perf_sq3.combine_probe(
+                torch.empty((64, 8, 8), dtype=torch.bfloat16,
+                            device="meta"),
+                *(torch.empty((4, 8, 8), device="meta"),) * 3, 1.0),
+            "stream": lambda: perf_overlap.stream_probe(
+                torch.empty((8, 3, 8, 128), dtype=torch.int8,
+                            device="meta"),
+                torch.empty(2, dtype=torch.int32, device="meta")),
+            "build": lambda: perf_sq4.build_probe(
+                torch.empty((4, 19, 19), dtype=torch.bfloat16,
+                            device="meta"), 19)}[probe]
+    with pytest.raises(RuntimeError, match="no kernel for device"):
+        meta()
 
 
 def test_kernel_build_is_keyed_by_source():

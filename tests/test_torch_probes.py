@@ -1,0 +1,306 @@
+"""The port's measurement probes (``volrend_torch/probes/``) against the
+reference's probes under ``tools/``, on the CPU (the probe kernels' plain
+versions; the reference's Pallas kernels in interpret mode).
+
+- P7 (``perf_sq3.combine_probe``) against ``tools/perf_sq3.py``'s
+  ``combine_pallas``: f32 both, another summation order: atol 1e-5;
+- P8 (``perf_overlap.stream_probe``) against a verbatim copy of the
+  reference's ``dma_kernel`` and grid spec (``dma_once`` is a closure of
+  ``tools/perf_overlap.py:main`` and cannot be imported): exact, as are
+  the window sums against numpy;
+- P9 (``perf_sq4.build_probe``, both layouts) against
+  ``tools/perf_sq4.py``'s ``build_pallas`` and ``build_pallas_planar``:
+  bit-equal on the window rows (the reference's padding rows are
+  undefined; the port's are zero);
+- the whole ``perf_sq3`` warp against the reference's at 96^2, gi=48
+  (atol 1e-5: both round the table to bf16 the same way and sum in f32),
+  and ``perf_sq4``'s variants through the port's ``tail``.
+"""
+
+import functools
+import os
+import sys
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from volrend_tpu.ops import display_warp as j_dw
+from volrend_tpu.ops import slab_render as j_slab
+from volrend_tpu.utils.options import RenderOptions as JOpt
+from volrend_torch.ops import display_warp, slab_render
+from volrend_torch.ops.camera import Camera
+from volrend_torch.probes import perf_overlap, perf_sq3, perf_sq4
+from volrend_torch.utils.options import RenderOptions
+
+from _torch_scenes import interpret, scene
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+for _p in (ROOT, os.path.join(ROOT, "tools")):
+    if _p not in sys.path:
+        sys.path.insert(0, _p)
+import perf_sq3 as j_sq3  # noqa: E402  (tools/perf_sq3.py)
+import perf_sq4 as j_sq4  # noqa: E402  (tools/perf_sq4.py)
+
+torch.set_num_threads(1)
+
+W = H = 96
+GI = 48
+FX = 134.4           # the superquad tests' 200^2 pose (fx 280), scaled
+OPT = RenderOptions(max_steps=512)
+JOPT = JOpt(max_steps=512)
+
+
+def _bf16(x: np.ndarray) -> torch.Tensor:
+    """``x`` rounded to bfloat16 (a torch tensor; its f32 values pass to
+    JAX exactly)."""
+    return torch.as_tensor(x.astype(np.float32)).to(torch.bfloat16)
+
+
+def _bits(x) -> np.ndarray:
+    """The 16-bit patterns of a bfloat16 torch tensor or JAX array."""
+    if isinstance(x, torch.Tensor):
+        return x.view(torch.int16).numpy().view(np.uint16)
+    return np.asarray(x).view(np.uint16)
+
+
+# ---------------------------------------------------------------------------
+# P7: the planar tent-combine
+# ---------------------------------------------------------------------------
+
+def test_chan_matches_reference():
+    for cy in range(4):
+        for cx in range(4):
+            for c in range(4):
+                assert perf_sq3.chan(cy, cx, c) == j_sq3.chan(cy, cx, c)
+                assert perf_sq3.chan(cy, cx, c) == j_sq4._chan_idx(cy, cx, c)
+
+
+def test_combine_probe_matches_combine_pallas():
+    """Positions past the window [0, 3] on both sides (unclamped tents),
+    masked subpixels and a background other than 1; Hh divisible by the
+    reference's 8-row blocks."""
+    Hh, Wh, bg = 16, 24, 0.7
+    rng = np.random.default_rng(0)
+    qgp = _bf16(rng.uniform(0.0, 1.0, (64, Hh, Wh)))
+    ry = rng.uniform(-0.7, 3.7, (4, Hh, Wh)).astype(np.float32)
+    rx = rng.uniform(-0.7, 3.7, (4, Hh, Wh)).astype(np.float32)
+    okm = (rng.uniform(size=(4, Hh, Wh)) > 0.25).astype(np.float32)
+    want = np.asarray(j_sq3.combine_pallas(
+        jnp.asarray(qgp.float().numpy(), jnp.bfloat16), jnp.asarray(ry),
+        jnp.asarray(rx), jnp.asarray(okm), Hh, Wh, 8, bg, True))
+    got = perf_sq3.combine_probe(qgp, torch.as_tensor(ry),
+                                 torch.as_tensor(rx), torch.as_tensor(okm),
+                                 bg)
+    assert got.shape == (16, Hh, Wh) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+    # masked subpixels: the background, alpha 0
+    off = okm == 0
+    assert np.all(got.numpy()[3::4][off] == 0.0)
+    assert np.all(got.numpy()[0::4][off] == np.float32(bg))
+
+
+# ---------------------------------------------------------------------------
+# P8: the payload stream
+# ---------------------------------------------------------------------------
+
+def _dma_once(pay, ids):
+    """tools/perf_overlap.py:87-108 (dma_kernel and its grid spec),
+    verbatim but for interpret mode and a grid over len(ids) windows."""
+    G, Dp = pay.shape[0], pay.shape[1]
+
+    def dma_kernel(ids_ref, slab_ref, o_ref):
+        i = pl.program_id(0)
+
+        @pl.when(i == 0)
+        def _():
+            o_ref[...] = jnp.zeros_like(o_ref)
+
+        o_ref[...] += slab_ref[0, 0, :8, :128].astype(jnp.float32)
+
+    return pl.pallas_call(
+        dma_kernel,
+        grid_spec=pltpu.PrefetchScalarGridSpec(
+            num_scalar_prefetch=1,
+            grid=(ids.shape[0],),
+            in_specs=[pl.BlockSpec((4, Dp, G, G),
+                                   lambda i, ids: (ids[i], 0, 0, 0))],
+        ),
+        out_shape=jax.ShapeDtypeStruct((8, 128), jnp.float32),
+        compiler_params=pltpu.CompilerParams(
+            vmem_limit_bytes=100 * 1024 * 1024),
+        interpret=True,
+    )(ids, pay)
+
+
+def test_stream_probe_matches_dma_kernel():
+    G, Dp = 128, 3
+    rng = np.random.default_rng(1)
+    pay = rng.integers(-128, 128, (G, Dp, G, G), dtype=np.int8)
+    ids = rng.permutation(G // 4)[:12].astype(np.int32)
+    want = np.asarray(_dma_once(jnp.asarray(pay), jnp.asarray(ids)))
+    out, sums = perf_overlap.stream_probe(torch.as_tensor(pay),
+                                          torch.as_tensor(ids))
+    assert out.dtype == torch.float32 and tuple(out.shape) == (8, 128)
+    assert np.array_equal(out.numpy(), want)
+    wsum = pay.reshape(G // 4, -1).astype(np.int64).sum(1)[ids]
+    assert sums.dtype == torch.int64
+    assert np.array_equal(sums.numpy(), wsum)
+
+
+def test_stream_probe_refuses_bad_payloads():
+    with pytest.raises(ValueError):        # G not a multiple of 4
+        perf_overlap.stream_probe(torch.zeros((6, 3, 8, 128),
+                                              dtype=torch.int8),
+                                  torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(ValueError):        # fewer than 128 columns
+        perf_overlap.stream_probe(torch.zeros((8, 3, 8, 64),
+                                              dtype=torch.int8),
+                                  torch.zeros(1, dtype=torch.int32))
+    pay = torch.zeros((8, 3, 8, 128), dtype=torch.int8)
+    assert perf_overlap.stream_bytes(pay, 2) == 2 * 4 * 3 * 8 * 128 + 8 \
+        + 8 * 128 * 4 + 16
+
+
+# ---------------------------------------------------------------------------
+# P9: the window-table build
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("planar", [False, True])
+def test_build_probe_matches_build_pallas(planar):
+    """gi = 35: gi - 3 = 32 rows, two full 16-row blocks (a gi with a
+    ragged last block makes the reference read past its input)."""
+    gi = 35
+    it = _bf16(np.random.default_rng(2).uniform(0.0, 1.0, (4, gi, gi)))
+    jit = jnp.asarray(it.float().numpy(), jnp.bfloat16)
+    with pltpu.force_tpu_interpret_mode():
+        want = (j_sq4.build_pallas_planar(jit, gi) if planar
+                else j_sq4.build_pallas(jit, gi))
+    got = perf_sq4.build_probe(it, gi, planar=planar)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    n = gi - 3
+    if planar:
+        assert np.array_equal(_bits(got)[:, :n], _bits(want)[:, :n])
+    else:
+        assert np.array_equal(_bits(got)[:n], _bits(want)[:n])
+
+
+@pytest.mark.parametrize("planar", [False, True])
+def test_build_probe_pads_with_zeros(planar):
+    """gi = 40: 37 window rows padded to 48; the port's padding rows are
+    zero, the window rows are the input's cells in each layout's order."""
+    gi, n = 40, 37
+    it = _bf16(np.random.default_rng(3).uniform(0.0, 1.0, (4, gi, gi)))
+    got = perf_sq4.build_probe(it, gi, planar=planar)
+    assert perf_sq4.table_rows(gi) == (n, 48)
+    src = it.float().numpy()
+    cells = {(cy, cx, c): src[c, cy:cy + n, cx:cx + n]
+             for cy in range(4) for cx in range(4) for c in range(4)}
+    g = got.float().numpy()
+    for (cy, cx, c), v in cells.items():
+        if planar:
+            assert np.array_equal(g[perf_sq3.chan(cy, cx, c), :n], v)
+        else:
+            assert np.array_equal(g[:n, :, (cy * 4 + cx) * 4 + c], v)
+    pad = g[:, n:] if planar else g[n:]
+    assert pad.size and np.all(pad == 0.0)
+
+
+# ---------------------------------------------------------------------------
+# The whole perf_sq3 warp, and perf_sq4's variants through the port's tail
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _geom():
+    """Both packages' FrameGeom of one 96^2 pose (the reference's jitted),
+    perm, and a seeded (gi, gi, 4) intermediate image (shared, read
+    only)."""
+    _, g, _, jg = scene("dense", 4, "int8")
+    back = np.asarray((1.0, 0.25, 0.35))
+    back /= np.linalg.norm(back)
+    cam = Camera.from_vectors(center=tuple(2.5 * back), v_back=tuple(back),
+                              v_world_up=(0.0, 0.0, 1.0), width=W,
+                              height=H, fx=FX)
+    perm, flip, _ = j_slab.choose_axis(jg, cam.transform, cam.fx, cam.fy,
+                                       W, H)
+
+    def geom(tr):
+        m = j_slab.FrameGeom(jg, tr, FX, FX, perm, flip, W, H, JOPT, GI)
+        return m.R, m.fx, m.fy, m.u0, m.du, m.v0, m.dv
+
+    jgm = types.SimpleNamespace(scale=jg.scale, **dict(zip(
+        ("R", "fx", "fy", "u0", "du", "v0", "dv"),
+        jax.jit(geom)(jnp.asarray(cam.transform, jnp.float32)))))
+    tg = slab_render.FrameGeom(g, cam.transform, FX, FX, perm, flip, W, H,
+                               OPT, GI)
+    inter = np.random.default_rng(7).uniform(0.0, 1.0, (GI, GI, 4)).astype(
+        np.float32)
+    return jgm, tg, perm, inter
+
+
+def test_superquad_warp_matches_reference(monkeypatch):
+    """The port's perf_sq3 warp against the reference's (interpret mode),
+    and s1: each package's difference from its own production warp (both
+    emitting f32)."""
+    jgm, tg, perm, inter = _geom()
+    jit_inter = jnp.asarray(inter)
+    want = np.asarray(jax.jit(lambda it: j_sq3.superquad_warp(
+        it, jgm, None, perm, W, H, GI, JOPT, True))(jit_inter))
+    # the same geometry in: the reference's FrameGeom fields
+    geo = tuple(torch.as_tensor(np.array(v)) for v in (
+        jgm.R, jgm.fx, jgm.fy, jgm.u0, jgm.du, jgm.v0, jgm.dv, jgm.scale))
+    got = perf_sq3.superquad_warp(torch.as_tensor(inter), geo, perm, W, H,
+                                  GI, OPT)
+    assert tuple(got.shape) == (H, W, 4)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+
+    # each package's production warp at the cascade level whose shape the
+    # probe copies, (2, 2) blocks and a 4 x 4 window (the (4, 4) x (5, 5)
+    # level's interpret-mode kernel alone takes ~15 s to trace here), with
+    # the reference's exact (f32) emit: its default rounds each output
+    # plane to bf16, which the port's kernel C does not (ROADMAP.md §3,
+    # "f32 display emit")
+    level = (((2, 2), (4, 4)),)
+    monkeypatch.setattr(j_dw, "_EXACT_EMIT", True)
+    with interpret(monkeypatch):
+        jprod = np.asarray(jax.jit(lambda it: j_dw.warp_to_screen_sq(
+            it, JOPT, jgm.R, jgm.fx, jgm.fy, W, H, GI, perm, jgm.u0,
+            jgm.du, jgm.v0, jgm.dv, jgm.scale, block=level))(jit_inter))
+    targs = (tg.R, tg.fx, tg.fy, W, H, GI, perm, tg.u0, tg.du, tg.v0,
+             tg.dv, tg.scale)
+    assert bool(display_warp._level_fits(*display_warp._pixel_slopes(
+        *targs), GI, *level[0])[0])
+    tprod = display_warp.warp_to_screen_sq(torch.as_tensor(inter)[None],
+                                           OPT, *targs, block=level)[0]
+    s1_ref = float(np.abs(want - jprod).max())
+    s1_port = float((got - tprod).abs().max())
+    assert 1e-3 < s1_ref < 1e-2
+    assert abs(s1_port - s1_ref) <= 1e-4, (s1_port, s1_ref)
+
+
+def test_sq4_variants_through_tail():
+    """b1 and b4 (chan order) equal the perf_sq3 warp on the same pose; b2
+    and b3 (stack order) agree with each other and not with it: the
+    reference's channel-order mismatch, kept, not fixed."""
+    _, tg, perm, _ = _geom()
+    st = perf_sq4.Setup(tg.scale, perm, FX, FX, W, H, GI, OPT)
+    a = torch.as_tensor(np.random.default_rng(4).uniform(
+        0.1, 0.9, (4, GI, GI)).astype(np.float32))
+    geo = (tg.R[0], tg.u0[0], tg.du[0], tg.v0[0], tg.dv[0])
+    sq = perf_sq3.superquad_warp(perf_sq4.finalize(a, OPT),
+                                 perf_sq3.pose_geom(tg), perm, W, H, GI, OPT)
+    outs = {name: fn(st, a, *geo) for name, fn in perf_sq4.VARIANTS.items()}
+    for name in ("b1 concat", "b4 probe+T"):
+        np.testing.assert_allclose(outs[name].numpy(), sq.numpy(), rtol=0,
+                                   atol=1e-5, err_msg=name)
+    assert torch.equal(outs["b2 stack+T"], outs["b3 probe ilv"])
+    assert float((outs["b3 probe ilv"] - sq).abs().max()) > 0.05
+    # b0 (the f16 quad-gather warp) agrees with the bf16-table variants to
+    # their rounding
+    assert float((outs["b0 ref quad"] - sq).abs().max()) < 1e-2

@@ -63,6 +63,19 @@ SOURCES = {
         # dtbl, out, P, gi, Wy, Wx, stream
         "vt_warp_build_adj": [_P, _P, _I, _I, _I, _I, _P],
     }),
+    # the measurement probes (volrend_torch/probes/)
+    "probe_combine": ("probe_combine.cu", {
+        # qgp, ry, rx, okm, out, Hh, Wh, bg, stream
+        "vt_probe_combine": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
+    }),
+    "probe_stream": ("probe_stream.cu", {
+        # pay, ids, n, n_win, planes, Gy, Gx, out, win_sums, stream
+        "vt_probe_stream": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    }),
+    "probe_build": ("probe_build.cu", {
+        # it, out, gi, Hp, planar, stream
+        "vt_probe_build": [_P, _P, _I, _I, _I, _P],
+    }),
 }
 
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,0 +1,18 @@
+"""Measurement probes of the port: the counterparts of the reference's
+``tools/perf_overlap.py``, ``tools/perf_sq3.py`` and ``tools/perf_sq4.py``,
+each with its hand-written CUDA kernel (``csrc/probe_stream.cu``,
+``csrc/probe_combine.cu``, ``csrc/probe_build.cu``).
+
+No user path runs them. Each asks a question the kernel redesigns need
+answered on the card:
+
+- ``perf_overlap``: how far kernel M sits above a pure stream of its
+  payload (``stream_probe``), its K sweep, and the full frame;
+- ``perf_sq3``: the superquad warp with a planar gathered table and its own
+  tent-combine kernel (``combine_probe``), against the production warp;
+- ``perf_sq4``: the cost of the per-pose window-table build in five
+  layouts (``build_probe`` is the build kernel of two of them).
+
+Each runs as ``python -m volrend_torch.probes.<name>`` on a machine with a
+card, at the reference probes' own width (``_common``).
+"""
