@@ -22,7 +22,8 @@ Phases (any failure exits non-zero and prints no result):
    the kernel's whole-group launch), with times (CUDA events, median of
    KREPS) beside the least time the card could take for this data (the
    march's bound counts the slabs the rays meet and the voxels above the
-   sigma threshold);
+   sigma threshold); kernel M's display launch configuration (its tile
+   height) with its resident blocks per SM, registers and spills;
 4. the main path: ``render_frames`` over 200 orbit poses grouped by
    (perm, flip), RGBA8 output, gi=256 — launch counts reset just before and
    read just after, so every pose must have gone through kernels M, B and
@@ -34,9 +35,9 @@ Phases (any failure exits non-zero and prints no result):
    (P7), payload-stream (P8) and table-build (P9, both layouts) kernels
    against their plain versions, with times, bounds and library
    yardsticks; then the probes' own numbers (the stream's GB/s beside
-   kernel M's one-pose time, perf_sq3's s1 and s2, perf_sq4's b0, b3 and
-   b4) with the probe kernels' launch counts reset just before and read
-   just after;
+   kernel M's one-pose time, host-synced and, apart, on the card and the
+   host's issue; perf_sq3's s1 and s2, perf_sq4's b0, b3 and b4) with the
+   probe kernels' launch counts reset just before and read just after;
 7. the sparse solid scene: each kernel against its plain version on the
    first pose group of each perm (cropped payloads, culled slab lists),
    then 96 orbit poses at full width, throughput and a gate at stride 8
@@ -291,6 +292,18 @@ def steep_pose(Camera, slab_render, grid, lo=3.6, hi=3.95):
         else:
             f_hi = f
     fail("no steep slab-compatible focal found")
+
+
+def display_occupancy(kernels, bd: int, cfg: dict) -> dict:
+    """What the card makes of a display launch configuration
+    (vt_march_display_info): resident blocks per SM, registers a thread,
+    spill bytes a thread, static shared memory."""
+    import ctypes
+    out = (ctypes.c_int * 4)()
+    kernels.check(kernels.lib("slab_march_display").vt_march_display_info(
+        bd, cfg["rows"], cfg["smem"], out), "slab_march_display")
+    return {"blocks_per_sm": out[0], "regs": out[1], "spill_bytes": out[2],
+            "static_smem": out[3]}
 
 
 def psnr(a, b) -> float:
@@ -746,7 +759,8 @@ def probe_phase(torch, dev, grid, opt, stats):
     tensors, with times, bounds and library yardsticks (stats "P7", "P8",
     "P9", "P9P"); then the probes' own numbers, each once, with the probe
     kernels' launch counts reset just before and read just after: the
-    stream's GB/s, kernel M's one-pose display time beside it, perf_sq3's
+    stream's GB/s, kernel M's one-pose display time beside it (host-synced
+    and, apart, on the card and the host's issue), perf_sq3's
     s1 and s2, and perf_sq4's b0, b3 and b4 (b3 drives the interleaved
     build). Returns the numbers and the counts."""
     import torch.nn.functional as F
@@ -861,15 +875,21 @@ def probe_phase(torch, dev, grid, opt, stats):
     gm = slab_render.FrameGeom(grid, trs, fx, fy, perm, flip, W, H, opt, gi)
     params, zb = slab_render._march_frame_fields(grid, gm, perm, flip, opt)
     slab_ids = grid.slab_ids(perm[0], flip, opt.sigma_thresh)
-    t = _common.sync_time(lambda: [perf_overlap.march_one_pose(
-        grid, pay, params[i:i + 1], zb[i:i + 1], perm, flip, gi, slab_ids,
-        slab_march._K_STEP) for i in range(P)])
-    m_ms = t / P * 1e3
+
+    def march_each():
+        return [perf_overlap.march_one_pose(
+            grid, pay, params[i:i + 1], zb[i:i + 1], perm, flip, gi,
+            slab_ids, slab_march._K_STEP) for i in range(P)]
+
+    m_ms = _common.sync_time(march_each) / P * 1e3
+    m_dev_ms, m_host_ms = march_apart(torch, march_each, P)
     log(f"perf_overlap: payload stream {stream_ms:.4f} ms per launch, "
         f"{gbs:.1f} GB/s ({gbs / (HBM_BYTES_PER_S / 1e9):.4f} of the data "
         f"sheet's 3.35 TB/s); kernel M, one pose per launch at gi={gi} "
         f"(K={slab_march._K_STEP}): {m_ms:.3f} ms, {m_ms / stream_ms:.2f}x "
-        f"the stream ({P} poses of group {perm}/{flip})")
+        f"the stream ({P} poses of group {perm}/{flip}); apart, "
+        f"{m_dev_ms:.3f} ms on the card and {m_host_ms:.3f} ms of the "
+        f"host's issue a launch")
     if not gbs * 1e9 < HBM_BYTES_PER_S:
         fail(f"the stream probe reads {gbs:.1f} GB/s, above the card's "
              f"3.35 TB/s: its loads cannot all have run")
@@ -909,10 +929,36 @@ def probe_phase(torch, dev, grid, opt, stats):
     del accs
     torch.cuda.empty_cache()
     return {"probe_stream_ms": stream_ms, "probe_stream_gbs": gbs,
-            "probe_march_one_pose_ms": m_ms, "probe_sq3_s1": s1,
+            "probe_march_one_pose_ms": m_ms,
+            "probe_march_one_pose_device_ms": m_dev_ms,
+            "probe_march_one_pose_host_ms": m_host_ms, "probe_sq3_s1": s1,
             "probe_sq3_ms": sq_ms, "probe_production_warp_ms": prod_ms,
             "probe_sq4": {k: list(v) for k, v in sq4.items()},
             "probe_counts": counts}
+
+
+def march_apart(torch, fn, n: int):
+    """(device ms, host ms) a launch of ``fn()``'s ``n`` launches: the host
+    issues them all behind a long device sleep, so the card's reading holds
+    no host gap, and the host's issue time is read on its clock; the least
+    of three runs each. Fails when the issue outlasts the sleep."""
+    dev, host = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(8 * SLEEP_CYCLES)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3 / n)
+        b.record()
+        b.synchronize()
+        dev.append(a.elapsed_time(b) / n)
+    if min(host) * n > 60.0:
+        fail(f"issuing {n} launches took {min(host) * n:.1f} ms, longer "
+             f"than the device sleep ahead of them")
+    return min(dev), min(host)
 
 
 def timed_once(torch, fn):
@@ -1225,6 +1271,9 @@ def main() -> None:
             f"{crop}, {len(slab_ids)} slabs", acc_k[sub], acc_p,
             float(opt.stop_thresh))
         stats["M"]["max_abs_err"] = max(stats["M"]["max_abs_err"], err)
+        cfg = dict(slab_march.march_slabs.display)
+        occ = display_occupancy(kernels, bd, cfg)
+        log(f"kernel M [{tag}]: display launch {cfg}, on the card {occ}")
         del acc_p
 
         inter = slab_render._finalize_planar(acc_k, opt).contiguous()
@@ -1260,6 +1309,9 @@ def main() -> None:
         whole_ms = cuda_ms(torch, run_m, KREPS)
         log(f"kernel M [{tag}, {P} poses]: {whole_ms:.3f} ms per launch, "
             f"bound {one[0]:.3f} ms ({one[1]})")
+        stats.setdefault("M_launches", {})[tag] = {
+            "poses": P, "ms": whole_ms, "bound_ms": one[0], **occ,
+            "rows": cfg["rows"]}
         if not time_it:
             return
 
@@ -1268,8 +1320,11 @@ def main() -> None:
         stats["M_group"] = {"poses": P, "ms": whole_ms, "bound_ms": one[0],
                             "bound_by": one[1]}
         stats["M"]["poses"] = len(sub)
-        stats["M"]["ms"] = cuda_ms(
-            torch, lambda: run_m(params[sub], zb[sub]), KREPS)
+        # the poses' inputs are taken out of the timed calls: indexing with
+        # a host list copies the index from pageable memory, which waits
+        # for the card and would put the host's work in the reading
+        p_sub, z_sub = params[sub], zb[sub]
+        stats["M"]["ms"] = cuda_ms(torch, lambda: run_m(p_sub, z_sub), KREPS)
         stats["M"]["plain_ms"] = m_plain_ms
         stats["M"]["bound_ms"], stats["M"]["bound_by"] = march_bound(
             torch, pay, grid.qscale, m_sub["zb"], slab_ids, G, GI, bd, sthr)
@@ -1381,14 +1436,16 @@ def main() -> None:
     tsum = train_phase(torch, dev, stats)
 
     # ---- 10. result ---------------------------------------------------------
-    summary = {"card": card, "dense_mrays": mrays, "dense_ms": ms,
+    summary = {"card": card, "m_launches": stats.get("M_launches"),
+               "dense_mrays": mrays, "dense_ms": ms,
                "sparse_mrays": smrays, "sparse_ms": sms,
                "psnr_orbit_db": p_orbit, "psnr_sparse_db": p_sparse,
                "dense_counts": counts, "sparse_counts": scounts, **tsum,
                **probe, "seconds": time.perf_counter() - _T0}
     log(f"summary {json.dumps(summary)}")
     spec = (
-        ("M", "slab_march", "volrend_torch/csrc/slab_march.cu",
+        ("M", "slab_march_display",
+         "volrend_torch/csrc/slab_march_display.cu",
          "volrend_tpu/ops/pallas_slab.py:344", counts["march"]),
         ("B", "warp_build", "volrend_torch/csrc/warp_build.cu",
          "volrend_tpu/ops/display_warp.py:139", counts["build"]),

@@ -8,6 +8,8 @@ package, so on a machine without JAX it runs without the repo's conftest:
         tests/test_torch_cuda.py
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -128,6 +130,146 @@ def test_render_frames_card_matches_cpu(grids, out_dtype):
     assert display_warp.combine_emit.poses == n0 + 3
     tol = 1.0 if out_dtype == torch.uint8 else 1e-4
     assert float((a.float() - b.float()).abs().max()) <= tol
+
+
+# ---------------------------------------------------------------------------
+# Kernel M's display mode (csrc/slab_march_display.cu) against its plain
+# version: f32 both, another summation order (TOL_M), and the rare
+# stop-threshold freeze flip in a saturated ray (as chip_smoke.py allows)
+# ---------------------------------------------------------------------------
+
+TOL_M = 1e-3
+
+
+def _agree(acc, ref):
+    diff = (acc - ref).abs().amax(1)
+    off = diff > TOL_M
+    sat = torch.maximum(acc[:, 3], ref[:, 3]) < OPT.stop_thresh
+    assert bool(torch.all(sat[off])), float(diff.max())
+    assert int(off.sum()) <= MAX_FREEZE_FLIPS * off.numel() + 1
+    assert float(diff.max()) <= OPT.stop_thresh + TOL_M
+
+
+def _display_case(g, backs, fx=200.0, crop=None, cull=None):
+    """One display batch on grid ``g``: (payload, params, zb, slab ids,
+    perm, flip, crop). ``crop`` (y0, Gy, x0, Gx) slices the payload in
+    plane; ``cull`` drops the slab ids it is true for."""
+    cams = _cams(backs, fx)
+    perm, flip, slope = slab_render.choose_axis(g, cams[0].transform, fx,
+                                                fx, W, H)
+    assert slope < slab_render.MAX_SLAB_SLOPE
+    geom = slab_render.FrameGeom(g, np.stack([c.transform for c in cams]),
+                                 fx, fx, perm, flip, W, H, OPT, GI)
+    params, zb = slab_render._march_frame_fields(g, geom, perm, flip, OPT)
+    pay = slab_render._permuted_grid(g, perm, crop=crop)
+    ids = tuple(range(g.G - 1, -1, -1) if flip else range(g.G))
+    if cull is not None:
+        ids = tuple(i for i in ids if not cull(i))
+    return pay, params, zb, ids, perm, flip, crop
+
+
+def _display_vs_plain(g, case, seen=True):
+    pay, params, zb, ids, perm, flip, crop = case
+    n0 = slab_march.march_slabs.launches
+    acc = slab_march.march_slabs(
+        pay, params, g.qscale, zb, g.G, GI, g.data_dim, g.basis_dim, perm,
+        slab_ids=ids, sig2=True, flip=flip, bbox_full=True, dir_win=True,
+        crop=crop)
+    assert slab_march.march_slabs.launches == n0 + 1
+    m = slab_march.march_inputs(pay, params, zb, g.G, GI, ids, 4, crop)
+    ref = slab_march.march_slabs_ref(pay, g.qscale, D=g.data_dim,
+                                     bd=g.basis_dim, flip=flip, **m)
+    torch.cuda.synchronize()
+    if seen:
+        assert float(acc[:, 3].min()) < 0.9
+    _agree(acc, ref)
+    return acc
+
+
+@pytest.fixture(scope="module", params=[1, 4, 9, 16, 25])
+def sh_grid(card, request):
+    """A G=32 fog scene of SH degree bd, baked int8 on the card."""
+    tree = make_test_tree(max_depth=5, basis_dim=request.param, seed=5,
+                          sigma_scale=60.0)
+    return dense_grid.bake_dense(tree.to_device(lut_depth=None, device=card),
+                                 dtype="int8")
+
+
+@pytest.mark.parametrize("side", [1.0, -1.0])
+def test_display_march_matches_plain(sh_grid, side):
+    """The display kernel on every SH degree, marching toward +z and -z
+    (both flips over the two sides)."""
+    case = _display_case(sh_grid, [(side, 0.25, 0.35), (side, 0.1, 0.45)])
+    _display_vs_plain(sh_grid, case)
+
+
+def test_display_march_covers_both_flips(card):
+    tree = make_test_tree(max_depth=5, basis_dim=1, seed=5)
+    g = dense_grid.bake_dense(tree.to_device(lut_depth=None, device=card),
+                              dtype="int8")
+    flips = {_display_case(g, [(side, 0.25, 0.35)])[5]
+             for side in (1.0, -1.0)}
+    assert flips == {False, True}
+
+
+@pytest.fixture(scope="module")
+def solid64(card):
+    tree = make_solid_tree(max_depth=6, basis_dim=16, seed=3)
+    return dense_grid.bake_dense(tree.to_device(lut_depth=None, device=card),
+                                 dtype="int8")
+
+
+@pytest.mark.parametrize("crop", [(8, 48, 16, 32), (0, 64, 21, 20),
+                                  (4, 56, 3, 9)])
+def test_display_march_cropped_and_culled(solid64, crop):
+    """A cropped payload (rows of 32 cells, staged with cp.async; 20 and 9
+    cells, not a multiple of 16, staged by byte copies) and a culled slab
+    list whose windows keep only some of their slabs."""
+    case = _display_case(solid64, [(1.0, 0.25, 0.35), (1.0, 0.3, 0.2)],
+                         crop=crop, cull=lambda i: i % 3 == 1)
+    _display_vs_plain(solid64, case, seen=crop[2] > 8)
+
+
+def test_display_march_batch_equals_single_poses(solid64):
+    """A batch of poses against the same poses launched one at a time."""
+    backs = [(1.0, 0.25, 0.35), (1.0, 0.1, 0.45), (1.0, 0.3, 0.2)]
+    pay, params, zb, ids, perm, flip, _ = _display_case(solid64, backs)
+    g = solid64
+
+    def run(prm, z):
+        return slab_march.march_slabs(
+            pay, prm, g.qscale, z, g.G, GI, g.data_dim, g.basis_dim, perm,
+            slab_ids=ids, sig2=True, flip=flip, bbox_full=True, dir_win=True)
+
+    whole = run(params, zb)
+    for i in range(len(backs)):
+        one = run(params[i:i + 1], zb[i:i + 1])
+        assert float((one[0] - whole[i]).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("rows", [1, 2])
+def test_display_march_tile_heights_match_plain(solid64, rows):
+    """Both tile heights the launch rule picks from (32x8 and 32x16) compute
+    the same function on the steep fx = 80 pose, and the card holds two
+    blocks of each an SM."""
+    g = solid64
+    pay, params, zb, ids, perm, flip, _ = _display_case(
+        g, [(1.0, 0.25, 0.35), (1.0, 0.1, 0.45)], fx=80.0)
+    m = slab_march.march_inputs(pay, params, zb, g.G, GI, ids, 4)
+    cfg = dict(slab_march.display_config(2, GI, len(m["wins"]),
+                                         pay.shape[1], 132), rows=rows)
+    acc = slab_march._display_launch(pay, g.qscale, m["params"], m["zb"],
+                                     m["wins"], m["masks"], g.G, GI,
+                                     g.basis_dim, m["K"], flip, 0, 0, cfg)
+    ref = slab_march.march_slabs_ref(pay, g.qscale, D=g.data_dim,
+                                     bd=g.basis_dim, flip=flip, **m)
+    torch.cuda.synchronize()
+    _agree(acc, ref)
+    from volrend_torch import kernels
+    out = (ctypes.c_int * 4)()
+    kernels.check(kernels.lib("slab_march_display").vt_march_display_info(
+        g.basis_dim, rows, cfg["smem"], out), "slab_march_display")
+    assert out[0] == 2 and out[1] > 0 and out[2] == 0, list(out)
 
 
 def test_wrappers_check_their_inputs(card):

@@ -3,6 +3,7 @@ it imports neither JAX nor the JAX package, its entry points default to the
 card and never drift to the CPU, and its kernel wrappers refuse what they
 do not take instead of quietly running something else."""
 
+import ctypes
 import os
 import re
 import subprocess
@@ -30,7 +31,8 @@ MODULES = [
     "volrend_torch.ops.slab_grad", "volrend_torch.train",
     "volrend_torch.probes", "volrend_torch.probes._common",
     "volrend_torch.probes.perf_overlap", "volrend_torch.probes.perf_sq3",
-    "volrend_torch.probes.perf_sq4",
+    "volrend_torch.probes.perf_sq4", "volrend_torch.probes.display_tiles",
+    "volrend_torch.probes.tma_box",
 ]
 
 
@@ -76,6 +78,7 @@ def test_cuda_sources_name_their_tpu_kernel():
     """Each CUDA source opens with a note naming the TPU kernel it
     replaces, what bounds it on the card and its design."""
     want = {"slab_march.cu": "pallas_slab.py:_make_kernel",
+            "slab_march_display.cu": "pallas_slab.py:_make_kernel",
             "slab_march_bwd.cu": "pallas_slab.py:_make_bwd_kernel",
             "warp_build.cu": "display_warp.py:_make_build",
             "warp_combine.cu": "display_warp.py:_make_combine_kernel",
@@ -92,6 +95,25 @@ def test_cuda_sources_name_their_tpu_kernel():
         assert "bounds it on the H100" in head, name
         assert "Design" in head, name
         assert name in kernels.SOURCES[name[:-3]][0]
+
+
+_C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float}
+
+
+@pytest.mark.parametrize("name", sorted(kernels.SOURCES))
+def test_c_entries_match_their_argtypes(name):
+    """Each C entry that ``kernels.SOURCES`` binds is defined in its source
+    with the parameters its ctypes argtypes list: pointers as c_void_p,
+    ints as c_int, floats as c_float (a mismatch would pass a truncated
+    pointer or a wrong value without an error)."""
+    src, entries = kernels.SOURCES[name]
+    text = open(os.path.join(ROOT, "volrend_torch", "csrc", src)).read()
+    for fn, argtypes in entries.items():
+        m = re.search(rf'extern "C" int {fn}\(([^)]*)\)', text)
+        assert m, (src, fn)
+        want = [ctypes.c_void_p if "*" in decl else _C_TYPES[decl.split()[-2]]
+                for decl in m.group(1).split(",")]
+        assert want == argtypes, (src, fn)
 
 
 @pytest.mark.parametrize("entry", ["to_device", "bake_dense", "resolve"])

@@ -1,9 +1,12 @@
-// Device helpers shared by kernel M (slab_march.cu) and its backward
-// (slab_march_bwd.cu): the SH basis, the box-integration overlap weight,
-// payload loads for both payload types, the per-voxel shading, and the
-// per-slab footprint shading with each pixel's tap sum. Both kernels
-// include this one copy, so the backward's forward recompute does the same
-// float operations as the forward march.
+// Device helpers of the slab marches. The SH basis, the box-integration
+// overlap weight, the tile footprint and the pixel spans serve all three:
+// kernel M's display mode (slab_march_display.cu), its training mode
+// (slab_march.cu) and the backward (slab_march_bwd.cu). The bf16 payload
+// loads, the per-voxel shading and shade_and_sum (the per-slab footprint
+// shading with each pixel's tap sum) are shared by the training mode and
+// the backward only: both include this one copy, so the backward's forward
+// recompute does the same float operations as the training march. The
+// display mode stages and shades its int8 payload with its own code.
 
 #pragma once
 
@@ -97,21 +100,13 @@ __device__ __forceinline__ float sign_of(float s) {
   return (s > 0.f) ? 1.f : ((s < 0.f) ? -1.f : 0.f);
 }
 
-// one payload value as f32: an int8 code or a bf16 value
-__device__ __forceinline__ float ld(const int8_t* p) { return (float)*p; }
+// one payload value as f32: a bf16 value
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 
 // sigma of the voxel at ``src`` (plane 0 of that voxel; planes ``plane``
-// apart): int8 payloads split a 14-bit code over planes D-1 (hi) and D
-// (lo); bf16 payloads hold sigma in plane D-1
-template <int D>
-__device__ __forceinline__ float voxel_sigma(const int8_t* src, size_t plane,
-                                             const float* qs) {
-  return ((float)src[(size_t)(D - 1) * plane] * 128.f +
-          (float)src[(size_t)D * plane]) * qs[D - 1];
-}
+// apart): bf16 payloads hold sigma in plane D-1
 template <int D>
 __device__ __forceinline__ float voxel_sigma(const __nv_bfloat16* src,
                                              size_t plane, const float* qs) {

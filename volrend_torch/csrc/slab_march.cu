@@ -1,68 +1,53 @@
-// Kernel M: the fused shear-warp slab march, for Hopper (sm_90a).
+// Kernel M, training mode: the fused shear-warp slab march over the bf16
+// training payload, for Hopper (sm_90a).
 //
-// Replaces volrend_tpu/ops/pallas_slab.py:_make_kernel, the Pallas TPU
-// kernel behind pallas_slab.march_slabs (its plain PyTorch twin is
-// volrend_torch/ops/slab_march.py:march_slabs_ref).
+// Replaces volrend_tpu/ops/pallas_slab.py:_make_kernel in its training
+// option set (bf16 payload, Dp = D, sigma in plane D-1, dir_win=False), the
+// Pallas TPU kernel behind pallas_slab.march_slabs; its plain PyTorch twin
+// is volrend_torch/ops/slab_march.py:march_slabs_ref. The display mode
+// (int8 payload, window directions) is slab_march_display.cu.
 //
 // What it computes, per pose and intermediate pixel (j, k) of the (gi, gi)
-// slope grid, for each occupied slab in march order: dequantize the
-// payload, mask sigma by the threshold, shade srgb = sigma *
-// sigmoid(sum_k code * basis_k * qs_k), warp [sigma, sigma*r, sigma*g,
-// sigma*b] onto the pixel with the separable box-integration two-tap
-// weights, then composite tau = sigma_w * dt_pix * frac_z front to back
-// with the stop-threshold freeze. Output acc (P, 4, gi, gi) = [r, g, b, T].
-// Two modes, chosen at compile time (template arguments):
-// - display: int8 payload (colour codes x qscale, sigma = (hi*128 + lo) x
-//   qscale over two planes, Dp = D + 1), view direction taken once per
-//   K-slab window at the window centre (the reference's dir_win=True);
-// - training: bf16 payload with Dp = D (sigma in plane D-1), view direction
-//   per slab (dir_win=False: the backward kernel, slab_march_bwd.cu,
-//   recomputes this forward per slab and the two must match).
+// slope grid, for each slab in march order: mask sigma by the threshold,
+// shade srgb = sigma * sigmoid(sum_k value * basis_k) with the view
+// direction per slab (the backward kernel, slab_march_bwd.cu, recomputes
+// this forward per slab and the two must match), warp [sigma, sigma*r,
+// sigma*g, sigma*b] onto the pixel with the separable box-integration
+// two-tap weights, then composite tau = sigma_w * dt_pix * frac_z front to
+// back with the stop-threshold freeze. Output acc (P, 4, gi, gi) = [r, g,
+// b, T].
 //
-// What bounds it on the H100: for one pose, the payload read. A dense pose
-// streams the whole (G, Dp, G, G) int8 payload once (256^3 x 50 B =
-// 0.84 GB, about 0.25 ms at 3.35 TB/s; the training mode's bf16 SH9
-// payload is 256^3 x 56 B = 0.94 GB); shading is ~170 fp32 operations
-// per voxel (~2.9 GFLOP, about 0.04 ms at 67 TFLOP/s). The display path
-// launches a whole (perm, flip) pose group at once, and shading is per
-// pose, so for a group of ~50 poses the operations bound the function
-// (~3 ms), while this kernel re-reads the payload for every pose (~13 ms of
-// traffic for 51 poses). Either way it is the reverse of the TPU, where
-// the march was bound by vector compute.
+// What bounds it on the H100: for one pose, the payload read: the bf16 SH9
+// payload is 256^3 x 56 B = 0.94 GB (about 0.28 ms at 3.35 TB/s), shading
+// ~110 fp32 operations a voxel (~1.8 GFLOP, 0.03 ms at 67 TFLOP/s). The
+// march of the training bench's data needs less (its bound counts the
+// slabs the rays meet and the voxels above the threshold).
 //
 // Design:
 // - One block per 16x16 tile of intermediate pixels and per pose
-//   (blockIdx.z), so one launch covers a whole (perm, flip) pose group.
-//   Each thread owns one pixel and keeps r, g, b, T, its z interval and its
-//   slab thickness in registers across the whole march; the TPU's
-//   sequential grid over windows becomes a loop inside the block.
+//   (blockIdx.z). Each thread owns one pixel and keeps r, g, b, T, its z
+//   interval and its slab thickness in registers across the whole march;
+//   the TPU's sequential grid over windows becomes a loop inside the block.
 // - Per slab, the tile's cell footprint comes from the affine slope map
 //   (linear in the pixel index, so its extremes are at the tile corners).
-//   The block loads the footprint's planes with reads coalesced along x
-//   and shades each footprint voxel ONCE into shared memory as
-//   [sigma, sigma*r, sigma*g, sigma*b]; voxels under the sigma threshold
-//   skip the colour planes entirely (their contribution is exactly zero).
-//   A footprint larger than the shared buffer (steep slopes up to
-//   MAX_SLAB_SLOPE, gi != G) is processed in pieces: the warp is linear,
-//   so the pieces' partial sums simply add.
-// - Each pixel then sums its own separable overlap weights (the same
-//   formula as pallas_slab._overlap_mats, in f32) over the few cells its
-//   span covers: direct indexed reads instead of the one-hot MXU matmul.
+//   shade_and_sum (slab_common.cuh, shared with the backward's recompute)
+//   loads the footprint's planes with reads coalesced along x and shades
+//   each footprint voxel ONCE into shared memory as [sigma, sigma*r,
+//   sigma*g, sigma*b] (voxels under the sigma threshold skip the colour
+//   planes), in FMAX x FMAX pieces; each pixel then sums its own separable
+//   overlap weights over the few cells its span covers.
 // - A block leaves its loop when no pixel of the tile can still
 //   accumulate, and skips a window no pixel can see (__syncthreads_or):
 //   the per-tile form of the reference's _window_live gate, exact because
 //   a skipped slab would have composited with zero weight.
-// - Poses share nothing: each pose's blocks load and shade their own
-//   footprints (the shading direction is per pose). Making a group's poses
-//   share the payload read is the next step for a pose group.
 
 #include "slab_common.cuh"
 
 namespace {
 
-template <int BD, typename PayT>
+template <int BD>
 __global__ void __launch_bounds__(NTHREADS)
-march_kernel(const PayT* __restrict__ payload,
+march_kernel(const __nv_bfloat16* __restrict__ payload,
              const float* __restrict__ params,
              const float* __restrict__ qscale,
              const float* __restrict__ zb,
@@ -70,13 +55,9 @@ march_kernel(const PayT* __restrict__ payload,
              int n_win, float* __restrict__ acc, int G, int gi, int Dp,
              int Gy, int Gx, int y0, int x0, int K, int flip) {
   constexpr int D = 3 * BD + 1;  // colour planes + sigma
-  // int8 payloads carry sigma over two planes
-  constexpr int DQ = sizeof(PayT) == 1 ? D + 1 : D;
-  // the bf16 (training) payload takes its view directions per slab
-  constexpr bool SLAB_DIRS = sizeof(PayT) == 2;
   __shared__ float s_chan[4][FMAX][FMAX + 1];
   __shared__ float s_prm[NP];
-  __shared__ float s_qs[DQ];
+  __shared__ float s_qs[D];
 
   const int p = blockIdx.z;
   const int tid = threadIdx.y * TILE + threadIdx.x;
@@ -85,7 +66,7 @@ march_kernel(const PayT* __restrict__ payload,
   const bool inpix = (j < gi) && (k < gi);
 
   if (tid < NP) s_prm[tid] = params[(size_t)p * NP + tid];
-  for (int i = tid; i < DQ; i += NTHREADS) s_qs[i] = qscale[i];
+  for (int i = tid; i < D; i += NTHREADS) s_qs[i] = qscale[i];
   __syncthreads();
 
   const float Gf = (float)G;
@@ -131,11 +112,6 @@ march_kernel(const PayT* __restrict__ payload,
     const bool live = alive && (zlo <= zw1) && (zhi >= zw0);
     if (!__syncthreads_or(live)) continue;
 
-    // display mode: shading view directions once per window, at the
-    // window centre
-    const float sc = ((float)(w * K) + 0.5f * (float)K) / Gf + zbase - cz;
-    const float ssign = sign_of(sc);
-
     for (int t = 0; t < K; ++t) {
       const int dzi = flip ? (K - 1 - t) : t;
       if (!((m >> dzi) & 1)) continue;
@@ -143,9 +119,9 @@ march_kernel(const PayT* __restrict__ payload,
       const float z = ((float)sid + 0.5f) / Gf + zbase;
       const float s0 = z - hG - cz;
       const float s1 = z + hG - cz;
-      // training mode: view directions per slab, at the slab's distance
-      const float sd = SLAB_DIRS ? (z - cz) : sc;
-      const float sdsign = SLAB_DIRS ? sign_of(sd) : ssign;
+      // view directions per slab, at the slab's distance
+      const float sd = z - cz;
+      const float sdsign = sign_of(sd);
 
       const Footprint f = tile_footprint(cyG, cxG, s0, s1, ujGa, ujGb, vkGa,
                                          vkGb, G, y0, yend, x0, xend);
@@ -182,7 +158,7 @@ march_kernel(const PayT* __restrict__ payload,
   }
 }
 
-template <int BD, typename PayT>
+template <int BD>
 cudaError_t launch(const void* payload, const void* params,
                    const void* qscale, const void* zb, const int* wins,
                    const int* masks, int n_win, void* acc, int P, int G,
@@ -190,69 +166,46 @@ cudaError_t launch(const void* payload, const void* params,
                    int flip, cudaStream_t stream) {
   const dim3 block(TILE, TILE);
   const dim3 grid((gi + TILE - 1) / TILE, (gi + TILE - 1) / TILE, P);
-  march_kernel<BD, PayT><<<grid, block, 0, stream>>>(
-      (const PayT*)payload, (const float*)params, (const float*)qscale,
-      (const float*)zb, wins, masks, n_win, (float*)acc, G, gi, Dp, Gy, Gx,
-      y0, x0, K, flip);
+  march_kernel<BD><<<grid, block, 0, stream>>>(
+      (const __nv_bfloat16*)payload, (const float*)params,
+      (const float*)qscale, (const float*)zb, wins, masks, n_win, (float*)acc,
+      G, gi, Dp, Gy, Gx, y0, x0, K, flip);
   return cudaGetLastError();
-}
-
-// the two modes: display (int8, window directions) and training (bf16,
-// per-slab directions)
-template <int BD>
-cudaError_t launch_mode(int train, const void* payload, const void* params,
-                        const void* qscale, const void* zb, const int* wins,
-                        const int* masks, int n_win, void* acc, int P, int G,
-                        int gi, int Dp, int Gy, int Gx, int y0, int x0, int K,
-                        int flip, cudaStream_t stream) {
-  if (train)
-    return launch<BD, __nv_bfloat16>(payload, params, qscale, zb, wins,
-                                     masks, n_win, acc, P, G, gi, Dp, Gy, Gx,
-                                     y0, x0, K, flip, stream);
-  return launch<BD, int8_t>(payload, params, qscale, zb, wins, masks, n_win,
-                            acc, P, G, gi, Dp, Gy, Gx, y0, x0, K, flip,
-                            stream);
 }
 
 }  // namespace
 
 // wins_masks: (2, n_win) int32 on the device — window ids then occupancy
-// bit masks, in march order. train = 0: the display mode (int8 payload,
-// Dp = 3*bd + 2); train = 1: the training mode (bf16 payload, Dp = 3*bd +
-// 1). Returns cudaGetLastError() after the launch.
+// bit masks, in march order. The payload is bf16 with Dp = 3*bd + 1.
+// Returns cudaGetLastError() after the launch.
 extern "C" int vt_march_slabs(const void* payload, const void* params,
                               const void* qscale, const void* zb,
                               const void* wins_masks, int n_win, void* acc,
                               int P, int G, int gi, int Dp, int Gy, int Gx,
                               int y0, int x0, int bd, int K, int flip,
-                              int train, void* stream) {
-  if (Dp != 3 * bd + (train ? 1 : 2) || P < 1 || P > 65535 || gi < 1 ||
-      K < 1 || n_win < 1)
+                              void* stream) {
+  if (Dp != 3 * bd + 1 || P < 1 || P > 65535 || gi < 1 || K < 1 ||
+      n_win < 1)
     return (int)cudaErrorInvalidValue;
   const int* wins = (const int*)wins_masks;
   const int* masks = wins + n_win;
   cudaStream_t s = (cudaStream_t)stream;
   switch (bd) {
     case 1:
-      return (int)launch_mode<1>(train, payload, params, qscale, zb, wins,
-                                 masks, n_win, acc, P, G, gi, Dp, Gy, Gx, y0,
-                                 x0, K, flip, s);
+      return (int)launch<1>(payload, params, qscale, zb, wins, masks, n_win,
+                            acc, P, G, gi, Dp, Gy, Gx, y0, x0, K, flip, s);
     case 4:
-      return (int)launch_mode<4>(train, payload, params, qscale, zb, wins,
-                                 masks, n_win, acc, P, G, gi, Dp, Gy, Gx, y0,
-                                 x0, K, flip, s);
+      return (int)launch<4>(payload, params, qscale, zb, wins, masks, n_win,
+                            acc, P, G, gi, Dp, Gy, Gx, y0, x0, K, flip, s);
     case 9:
-      return (int)launch_mode<9>(train, payload, params, qscale, zb, wins,
-                                 masks, n_win, acc, P, G, gi, Dp, Gy, Gx, y0,
-                                 x0, K, flip, s);
+      return (int)launch<9>(payload, params, qscale, zb, wins, masks, n_win,
+                            acc, P, G, gi, Dp, Gy, Gx, y0, x0, K, flip, s);
     case 16:
-      return (int)launch_mode<16>(train, payload, params, qscale, zb, wins,
-                                  masks, n_win, acc, P, G, gi, Dp, Gy, Gx, y0,
-                                  x0, K, flip, s);
+      return (int)launch<16>(payload, params, qscale, zb, wins, masks, n_win,
+                             acc, P, G, gi, Dp, Gy, Gx, y0, x0, K, flip, s);
     case 25:
-      return (int)launch_mode<25>(train, payload, params, qscale, zb, wins,
-                                  masks, n_win, acc, P, G, gi, Dp, Gy, Gx, y0,
-                                  x0, K, flip, s);
+      return (int)launch<25>(payload, params, qscale, zb, wins, masks, n_win,
+                             acc, P, G, gi, Dp, Gy, Gx, y0, x0, K, flip, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

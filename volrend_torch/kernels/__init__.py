@@ -32,11 +32,20 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: kernel library name -> (source file, {C entry: argument types})
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SOURCES = {
+    "slab_march_display": ("slab_march_display.cu", {
+        # payload, params, qscale, zb, wins_masks, n_win, acc,
+        # P, G, gi, Dp, Gy, Gx, y0, x0, bd, K, flip, rows, stage_bytes,
+        # chan_cells, stream
+        "vt_march_display": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        # bd, rows, smem, out (int[4])
+        "vt_march_display_info": [_I, _I, _I, _P],
+    }),
     "slab_march": ("slab_march.cu", {
         # payload, params, qscale, zb, wins_masks, n_win, acc,
-        # P, G, gi, Dp, Gy, Gx, y0, x0, bd, K, flip, train, stream
+        # P, G, gi, Dp, Gy, Gx, y0, x0, bd, K, flip, stream
         "vt_march_slabs": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
-                           _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                           _I, _I, _I, _I, _I, _I, _I, _P],
     }),
     "slab_march_bwd": ("slab_march_bwd.cu", {
         # payload, params, qscale, zb, gacc, aux, gbuf, out, out_bf16,

@@ -25,17 +25,21 @@ Two option sets are taken, both SH:
   ``sig2=False``) with the view direction per slab (``dir_win=False``),
   all slabs or a culled list. ``march_slabs_bwd`` is its payload cotangent.
 
-On CUDA tensors ``march_slabs`` launches kernel M (``csrc/slab_march.cu``),
-one launch per pose batch, and ``march_slabs_bwd`` the backward kernel
-(``csrc/slab_march_bwd.cu``); on CPU tensors they run ``march_slabs_ref``
-and ``march_slabs_bwd_ref``, the same functions in plain PyTorch (dense
-overlap matrices, as the reference builds them). Kernel and plain version
-differ only in summation order. Unlike the reference kernels, neither rounds
-the warp weights or the stacked channels to bf16.
+On CUDA tensors ``march_slabs`` launches kernel M, one launch per pose
+batch: its display mode (``csrc/slab_march_display.cu``, which stages each
+tile's footprint with cp.async; ``display_config`` picks its tile height
+and sizes its stage) or its training mode (``csrc/slab_march.cu``);
+``march_slabs_bwd`` launches the backward kernel
+(``csrc/slab_march_bwd.cu``). On CPU tensors they run
+``march_slabs_ref`` and ``march_slabs_bwd_ref``, the same functions in plain
+PyTorch (dense overlap matrices, as the reference builds them). Kernel and
+plain version differ only in summation order. Unlike the reference kernels,
+neither rounds the warp weights or the stacked channels to bf16.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -47,7 +51,7 @@ from volrend_torch.ops import basis as basis_mod
 from volrend_torch.utils.device import to_device
 
 __all__ = ["march_slabs", "march_slabs_ref", "march_slabs_bwd",
-           "march_slabs_bwd_ref", "march_bwd_inputs"]
+           "march_slabs_bwd_ref", "march_bwd_inputs", "display_config"]
 
 _F32 = torch.float32
 
@@ -58,6 +62,10 @@ _K_STEP = 4
 # params vector layout (f32): see _pack_params (+1 slot appended by
 # march_slabs: [30] = z_base, the global z of the payload's first slab)
 _NP = 31
+
+#: dynamic shared memory a display block may take (two blocks an SM)
+_DISPLAY_SMEM = 110 * 1024
+_DTX, _DWARPS = 32, 8       # a display tile's columns; warps a block
 
 
 def _col(v, P: int, device) -> torch.Tensor:
@@ -231,7 +239,9 @@ def march_slabs(gplanar, params, qscale, zbounds, G: int,
         acc[:, 3] = 1.0
         return acc
     if dev.type == "cuda":
-        return _march_cuda(gplanar, qscale, D=D, bd=bd, flip=flip, **m)
+        launch = (_march_train_cuda if gplanar.dtype == torch.bfloat16
+                  else _march_display_cuda)
+        return launch(gplanar, qscale, D=D, bd=bd, flip=flip, **m)
     if dev.type == "cpu":
         return march_slabs_ref(gplanar, qscale, D=D, bd=bd, flip=flip, **m)
     raise RuntimeError(f"march_slabs: no kernel for device {dev}")
@@ -239,6 +249,8 @@ def march_slabs(gplanar, params, qscale, zbounds, G: int,
 
 march_slabs.launches = 0
 march_slabs.poses = 0
+#: the last display launch's configuration (display_config)
+march_slabs.display = None
 
 
 def march_inputs(gplanar, params, zbounds, G: int, gi: int,
@@ -269,14 +281,12 @@ def march_inputs(gplanar, params, zbounds, G: int, gi: int,
                 K=K, y0=y0, x0=x0)
 
 
-def _march_cuda(gplanar, qscale, params, zb, wins, masks, G, gi, D, bd, K,
-                flip, y0, x0):
-    """Launch kernel M over the whole pose batch (one launch); a bf16
-    payload selects the training mode (per-slab view directions)."""
+def _check_launch(gplanar, qscale, params, zb, G, gi):
+    """The march launch's inputs: contiguous tensors of the kernel's dtypes
+    and shapes on the payload's device."""
     dev = gplanar.device
     Gz, Dp, Gy, Gx = gplanar.shape
     P = params.shape[0]
-    train = gplanar.dtype == torch.bfloat16
     for name, t, dt, shape in (
             ("payload", gplanar, gplanar.dtype, (G, Dp, Gy, Gx)),
             ("params", params, _F32, (P, _NP)),
@@ -286,17 +296,90 @@ def _march_cuda(gplanar, qscale, params, zb, wins, masks, G, gi, D, bd, K,
                 or not t.is_contiguous()):
             raise ValueError(f"march_slabs: {name} must be a contiguous "
                              f"{dt} tensor of shape {shape} on {dev}")
+
+
+def _march_train_cuda(gplanar, qscale, params, zb, wins, masks, G, gi, D,
+                      bd, K, flip, y0, x0):
+    """Launch kernel M's training mode (bf16 payload, per-slab view
+    directions) over the whole pose batch (one launch)."""
+    _check_launch(gplanar, qscale, params, zb, G, gi)
+    dev = gplanar.device
+    _, Dp, Gy, Gx = gplanar.shape
+    P = params.shape[0]
     wm = to_device(np.asarray([wins, masks], np.int32), torch.int32, dev)
     acc = torch.empty((P, 4, gi, gi), dtype=_F32, device=dev)
     lib = kernels.lib("slab_march")
     kernels.check(lib.vt_march_slabs(
         gplanar.data_ptr(), params.data_ptr(), qscale.data_ptr(),
         zb.data_ptr(), wm.data_ptr(), len(wins), acc.data_ptr(),
-        P, G, gi, Dp, Gy, Gx, y0, x0, bd, K, int(bool(flip)), int(train),
+        P, G, gi, Dp, Gy, Gx, y0, x0, bd, K, int(bool(flip)),
         torch.cuda.current_stream(dev).cuda_stream), "slab_march")
     march_slabs.launches += 1
     march_slabs.poses += P
     return acc
+
+
+def _march_display_cuda(gplanar, qscale, params, zb, wins, masks, G, gi, D,
+                        bd, K, flip, y0, x0):
+    """Launch kernel M's display mode (int8 payload, window directions)
+    over the whole pose batch (one launch)."""
+    _check_launch(gplanar, qscale, params, zb, G, gi)
+    cfg = display_config(params.shape[0], gi, len(wins), gplanar.shape[1],
+                         _sm_count(gplanar.device.index))
+    return _display_launch(gplanar, qscale, params, zb, wins, masks, G, gi,
+                           bd, K, flip, y0, x0, cfg)
+
+
+def _display_launch(gplanar, qscale, params, zb, wins, masks, G, gi, bd, K,
+                    flip, y0, x0, cfg):
+    """One display launch of checked inputs with the configuration ``cfg``
+    (display_config's)."""
+    dev = gplanar.device
+    _, Dp, Gy, Gx = gplanar.shape
+    P = params.shape[0]
+    wm = to_device(np.asarray([wins, masks], np.int32), torch.int32, dev)
+    acc = torch.empty((P, 4, gi, gi), dtype=_F32, device=dev)
+    lib = kernels.lib("slab_march_display")
+    kernels.check(lib.vt_march_display(
+        gplanar.data_ptr(), params.data_ptr(), qscale.data_ptr(),
+        zb.data_ptr(), wm.data_ptr(), len(wins), acc.data_ptr(),
+        P, G, gi, Dp, Gy, Gx, y0, x0, bd, K, int(bool(flip)), cfg["rows"],
+        cfg["stage_bytes"], cfg["chan_cells"],
+        torch.cuda.current_stream(dev).cuda_stream), "slab_march_display")
+    march_slabs.launches += 1
+    march_slabs.poses += P
+    march_slabs.display = cfg
+    return acc
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index) -> int:
+    """The card's SM count (cached: the launch path is host-bound for one
+    pose)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def display_config(P: int, gi: int, n_win: int, Dp: int, n_sm: int,
+                   smem: int = _DISPLAY_SMEM) -> dict:
+    """A display launch's configuration: ``rows`` of 8 pixel rows a thread
+    and the block's ``smem`` split into the stage (``stage_bytes``, a
+    multiple of 128) and the shaded-cell buffer (``chan_cells`` float4, one
+    a Dp bytes of stage) after three ints a window.
+
+    The tile height, from the P poses at gi and the card's ``n_sm`` SMs
+    (measured on the display launches by ``probes.display_tiles``,
+    PERF.md): 32x16 tiles (rows=2) shade fewer halo cells a pixel, 32x8
+    tiles (rows=1) make twice the blocks, so a launch of few tiles, whose
+    costs differ, ends sooner after its costliest ones. 32x16 when the
+    launch holds at least six of them an SM (three waves of two blocks),
+    32x8 below that."""
+    tiles = P * -(-gi // _DTX) * -(-gi // (2 * _DWARPS))
+    rows = 2 if tiles >= 6 * n_sm else 1
+    avail = smem - 12 * n_win
+    stage_bytes = max(avail * Dp // (Dp + 16) // 128 * 128, Dp * 256)
+    chan_cells = max(256, (avail - stage_bytes) // 16)
+    return dict(rows=rows, stage_bytes=stage_bytes, chan_cells=chan_cells,
+                smem=stage_bytes + 16 * chan_cells + 12 * n_win)
 
 
 def _overlap_mat(c0G, slope_G, s0, s1, cell, G: int):

@@ -1,7 +1,8 @@
 """Measurement probes of the port: the counterparts of the reference's
 ``tools/perf_overlap.py``, ``tools/perf_sq3.py`` and ``tools/perf_sq4.py``,
 each with its hand-written CUDA kernel (``csrc/probe_stream.cu``,
-``csrc/probe_combine.cu``, ``csrc/probe_build.cu``).
+``csrc/probe_combine.cu``, ``csrc/probe_build.cu``), and two of the port's
+own for kernel M's display mode.
 
 No user path runs them. Each asks a question the kernel redesigns need
 answered on the card:
@@ -11,7 +12,12 @@ answered on the card:
 - ``perf_sq3``: the superquad warp with a planar gathered table and its own
   tent-combine kernel (``combine_probe``), against the production warp;
 - ``perf_sq4``: the cost of the per-pose window-table build in five
-  layouts (``build_probe`` is the build kernel of two of them).
+  layouts (``build_probe`` is the build kernel of two of them);
+- ``display_tiles``: kernel M's display launches at both tile heights,
+  the evidence behind ``slab_march.display_config``'s tile rule;
+- ``tma_box``: whether a one-box TMA load over the display payload works
+  on the card (``csrc/probe_tma_box.cu``, built apart from the port's
+  kernels).
 
 Each runs as ``python -m volrend_torch.probes.<name>`` on a machine with a
 card, at the reference probes' own width (``_common``).
