@@ -6,8 +6,10 @@ end to end and gates its quality against the exact octree renderer.
 
     python3 chip_smoke.py [--profile]
 
-``--profile`` adds a torch.profiler trace of one dense main-path run and of
-one training step (device time by kernel, the device's idle share).
+``--profile`` adds torch.profiler traces of one dense and one sparse
+main-path run, each also with the parent's display warp in place of kernel
+W (device time by kernel and by call site, DISPLAY_RANGES; the device's
+idle share), and of one training step.
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -23,11 +25,20 @@ Phases (any failure exits non-zero and prints no result):
    KREPS) beside the least time the card could take for this data (the
    march's bound counts the slabs the rays meet and the voxels above the
    sigma threshold); kernel M's display launch configuration (its tile
-   height) with its resident blocks per SM, registers and spills;
+   height) with its resident blocks per SM, registers and spills; kernel
+   W and its fit mode against their plain versions, W against kernel B's
+   and C's composition and the fit decisions against the parent's
+   predicates, and the display warp stage's device time in turns against
+   the parent's (its PyTorch geometry and fit predicates, B, C and
+   copies), which it must beat on every launch checked;
 4. the main path: ``render_frames`` over 200 orbit poses grouped by
    (perm, flip), RGBA8 output, gi=256 — launch counts reset just before and
-   read just after, so every pose must have gone through kernels M, B and
-   C and none through the reference warp; median wall time of REPS runs;
+   read just after, so every pose must have gone through kernels M and W
+   (and the fit mode), none through kernels B and C or the reference
+   warp; median wall time of REPS runs and the peak device memory; then
+   every frame against the parent's composition of the same path (the
+   PyTorch geometry, B and C; ``parent_warp_to_screen_sq``) on the card,
+   within one quantum, and the fit decisions against the parent's;
 5. the quality gate: orbit pose 0 against ``render_exact.render_rays`` at
    stride 5 (>= 54 dB);
 6. the measurement probes (``volrend_torch/probes/``) on the dense grid at
@@ -38,10 +49,10 @@ Phases (any failure exits non-zero and prints no result):
    kernel M's one-pose time, host-synced and, apart, on the card and the
    host's issue; perf_sq3's s1 and s2, perf_sq4's b0, b3 and b4) with the
    probe kernels' launch counts reset just before and read just after;
-7. the sparse solid scene: each kernel against its plain version on the
-   first pose group of each perm (cropped payloads, culled slab lists),
-   then 96 orbit poses at full width, throughput and a gate at stride 8
-   (>= 47.5 dB);
+7. the sparse solid scene: each kernel against its plain version on
+   every pose group (cropped payloads, culled slab lists), then 96 orbit
+   poses at full width, throughput, the frames against the parent's and a
+   gate at stride 8 (>= 47.5 dB);
 8. training at the reference's training-bench width (tools/bench_train.py:
    ``make_solid_tree(max_depth=7, basis_dim=9, seed=7)``, G=256 SH9,
    800^2 frames, gi=256, 4 orbit poses of one (perm, flip) group,
@@ -62,6 +73,7 @@ Phases (any failure exits non-zero and prints no result):
 10. one JSON line with every kernel's numbers, then the result line.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -122,6 +134,24 @@ TOL_PRECISE_GRAD_RTOL = 5e-4
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
+# the display path's call sites whose device time ``--profile`` reports
+# apart, for kernel W's path and for the parent's warp it replaced
+# (parent_warp_to_screen_sq); the main path's frame copy in render_all is
+# outside them all
+DISPLAY_RANGES = tuple(
+    (f"volrend_torch.ops.{mod}", name) for mod, name in (
+        ("slab_render", "render_frames"),
+        ("slab_render", "FrameGeom.__init__"),
+        ("slab_render", "_march_frame_fields"), ("slab_march", "march_slabs"),
+        ("slab_render", "_finalize_planar"),
+        ("display_warp", "warp_to_screen_sq"),
+        ("display_warp", "_pixel_slopes"),
+        ("display_warp", "_level_misfits"),
+        ("display_warp", "_level_geometry"), ("display_warp", "build_table"),
+        ("display_warp", "combine_emit"),
+        ("display_warp", "level_fit_counts"),
+        ("display_warp", "warp_display")))
+
 _T0 = time.perf_counter()
 
 
@@ -170,6 +200,19 @@ def bound(nbytes: float, flops: float):
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     tf = flops / FP32_FLOP_PER_S * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def tent_taps(torch, ry, rx, okm, win) -> int:
+    """The tent terms a superquad warp's data needs: per in-grid subpixel
+    (okm), the window cells whose weight is non-zero at its position
+    clamped into the window, 1 or 2 a side (2 where it lies between two
+    cells). The bounds of kernels C, 5 and W count these, not the whole
+    window."""
+    ryc = torch.clamp(ry, 0.0, win[0] - 1.0)
+    rxc = torch.clamp(rx, 0.0, win[1] - 1.0)
+    ny = 1 + (ryc != torch.floor(ryc)).long()
+    nx = 1 + (rxc != torch.floor(rxc)).long()
+    return int((ny * nx * (okm > 0.5).long()).sum())
 
 
 def march_work(torch, pay, qs, zb, slab_ids, G: int, bd: int,
@@ -616,12 +659,13 @@ def precise_checks(torch, dev, inter, gargs, tr, cam, perm, stats):
     if not (np.isfinite(err) and err <= TOL_C_F32):
         fail("kernel C's f32 mode disagrees with its plain version")
     rows_used = int(torch.unique(Y0.long() * W3 + X0.long()).numel())
+    taps = tent_taps(torch, ry, rx, okm, Wn)
     stats["CF"] = {"max_abs_err": err, "ms": cuda_ms(torch, run_c, KREPS),
                    "plain_ms": cuda_ms(torch, run_c_plain, KREPS),
                    "library_ms": None}
     stats["CF"]["bound_ms"], stats["CF"]["bound_by"] = bound(
         rows_used * C * 4 + 2 * Hh * Wh * 4 + 3 * S * Hh * Wh * 4
-        + H * W * 4 * 4, H * W * (ncell * 9 + 30))
+        + H * W * 4 * 4, H * W * 30 + taps * 9)
 
     # kernel 5 on a seeded cotangent of the frame
     g = torch.as_tensor(np.random.default_rng(1).normal(
@@ -647,7 +691,7 @@ def precise_checks(torch, dev, inter, gargs, tr, cam, perm, stats):
                    "library_ms": None}
     stats["K5"]["bound_ms"], stats["K5"]["bound_by"] = bound(
         H * W * 4 * 4 + 3 * S * Hh * Wh * 4 + Hh * Wh * C * 4,
-        Hh * Wh * ncell * S * 18)
+        taps * 18)
 
     # the scatter of the block rows into the table cotangent (a PyTorch
     # call, as in the reference; timed, not a kernel of the port)
@@ -961,6 +1005,99 @@ def march_apart(torch, fn, n: int):
     return min(dev), min(host)
 
 
+def warp_stage_turns(torch, tag, inter, geom, levels, P, B_, Wn, bg):
+    """Device time of the display warp stage on one launch's intermediate
+    (P, 4, gi, gi) at the level (B_, Wn), in turns (parent, change,
+    change, parent): the parent's (the fit predicates' PyTorch passes, its
+    geometry, index copies, kernels B and C and the frames' index-put)
+    against the change's (the parameter rows, the fit mode and its
+    non-blocking copy to the host, kernel W), without the host's reads
+    (each CUDA events around KREPS back-to-back stages). Fails if the
+    change's stage is not faster."""
+    from volrend_torch.ops import display_warp as dw
+    from volrend_torch.probes._common import mean_fits, table_warp_level
+    dev = inter.device
+    _, _, _, w, h, gi = geom[:6]
+    sel = torch.arange(P, device=dev)
+    sel32 = sel.to(torch.int32)
+
+    def parent():
+        mean_fits(geom, levels)
+        out = torch.empty((P, h, w, 4), dtype=torch.uint8, device=dev)
+        out[sel] = table_warp_level(geom, inter, sel, B_, Wn, bg,
+                                    torch.uint8)
+        return out
+
+    def change():
+        plan = dw.plan_fits(*geom)
+        out = torch.empty((P, h, w, 4), dtype=torch.uint8, device=dev)
+        return dw.warp_display(inter, plan.prm, sel32, out, B_, Wn, gi, bg)
+
+    ms = {"parent": [], "change": []}
+    for name in ("parent", "change", "change", "parent"):
+        ms[name].append(cuda_ms(torch, parent if name == "parent"
+                                else change, KREPS))
+    log(f"warp stage [{tag}, {P} poses]: parent (fit predicates, geometry, "
+        f"B, C, copies) {ms['parent']} ms, change (fit mode, W) "
+        f"{ms['change']} ms (device time)")
+    if not max(ms["change"]) < min(ms["parent"]):
+        fail(f"warp stage [{tag}]: the change's stage is not faster than "
+             f"the parent's ({ms})")
+    return ms
+
+
+def parent_warp_to_screen_sq(torch, choices, inter, opt, R, fx, fy,
+                             width, height, gi, perm, u0, du, v0, dv,
+                             scale, block=None, out_dtype=None,
+                             planar=False, plan=None):
+    """The parent commit's display warp (display_warp.warp_to_screen_sq
+    before kernel W): the fit predicates in PyTorch read on the host, then
+    per level the PyTorch geometry, kernel B's int8 table, kernel C and an
+    index-put of the frames; the misfit poses through the reference warp.
+    ``plan`` is not read; each batch's per-pose level goes to
+    ``choices``."""
+    from volrend_torch.ops import display_warp as dw
+    from volrend_torch.ops import slab_render
+    from volrend_torch.probes._common import mean_fits, table_warp_level
+    dev = inter.device
+    P = inter.shape[0]
+    itp = inter if planar else inter.movedim(-1, 1)
+    itp = itp.to(torch.float32).contiguous()
+    fx = torch.as_tensor(fx, dtype=torch.float32, device=dev)
+    fy = torch.as_tensor(fy, dtype=torch.float32, device=dev)
+    geom_args = (R, fx, fy, width, height, gi, perm, u0, du, v0, dv, scale)
+    levels = dw._usable_levels(width, height, gi, block)
+    choice = np.full(P, -1)
+    if levels:
+        fits = mean_fits(geom_args, levels).cpu().numpy()
+        for p in range(P):
+            hit = np.nonzero(fits[:, p])[0]
+            if hit.size:
+                choice[p] = int(hit[0])
+    choices.append(choice)
+    u8 = out_dtype == torch.uint8
+    out = torch.empty((P, height, width, 4),
+                      dtype=torch.uint8 if u8 else torch.float32, device=dev)
+    for li, (B, Wl) in enumerate(levels):
+        idx = np.nonzero(choice == li)[0]
+        if idx.size == 0:
+            continue
+        sel = torch.as_tensor(idx, device=dev)
+        out[sel] = table_warp_level(geom_args, itp, sel, B, Wl,
+                                    float(opt.background_brightness),
+                                    out_dtype)
+    idx = np.nonzero(choice < 0)[0]
+    if idx.size:
+        sel = torch.as_tensor(idx, device=dev)
+        ref = slab_render._warp_to_screen_ref(
+            itp.index_select(0, sel).movedim(1, -1), opt,
+            R.index_select(0, sel), fx, fy, width, height, gi, perm,
+            u0.index_select(0, sel), du.index_select(0, sel),
+            v0.index_select(0, sel), dv.index_select(0, sel), scale)
+        out[sel] = dw.to_display_dtype(ref, out_dtype)
+    return out
+
+
 def timed_once(torch, fn):
     """(fn(), its device time in ms): one call between CUDA events."""
     a = torch.cuda.Event(enable_timing=True)
@@ -974,6 +1111,8 @@ def timed_once(torch, fn):
 
 _PLAIN = (("slab_march", "march_slabs_ref"),
           ("slab_march", "march_slabs_bwd_ref"),
+          ("display_warp", "warp_display_ref"),
+          ("display_warp", "level_fit_counts_ref"),
           ("display_warp", "build_table_ref"),
           ("display_warp", "combine_emit_ref"),
           ("display_warp", "combine_adjoint_ref"),
@@ -1145,12 +1284,18 @@ def main() -> None:
         display_warp.build_table.launches = 0
         display_warp.combine_emit.launches = 0
         display_warp.combine_emit.poses = 0
+        display_warp.warp_display.launches = 0
+        display_warp.warp_display.poses = 0
+        display_warp.level_fit_counts.launches = 0
         slab_render._warp_to_screen_ref.poses = 0
 
     def read_counts():
         return dict(
             march=slab_march.march_slabs.launches,
             march_poses=slab_march.march_slabs.poses,
+            warp=display_warp.warp_display.launches,
+            warp_poses=display_warp.warp_display.poses,
+            fit=display_warp.level_fit_counts.launches,
             build=display_warp.build_table.launches,
             combine=display_warp.combine_emit.launches,
             combine_poses=display_warp.combine_emit.poses,
@@ -1158,7 +1303,7 @@ def main() -> None:
 
     def main_path(tag, grid, cams, groups, pays, trs):
         """One counted run, then REPS timed runs; returns (counts, frames,
-        median ms)."""
+        median ms, peak GiB of device memory over the timed runs)."""
         reset_counts()
         frames = render_all(grid, cams, groups, pays, trs)
         torch.cuda.synchronize()
@@ -1168,13 +1313,16 @@ def main() -> None:
         if counts["ref_warp_poses"] != 0:
             fail(f"{tag}: {counts['ref_warp_poses']} poses fell back to "
                  "the reference warp")
-        if counts["march_poses"] != n or counts["combine_poses"] != n:
-            fail(f"{tag}: not every pose went through kernels M and C "
+        if counts["march_poses"] != n or counts["warp_poses"] != n:
+            fail(f"{tag}: not every pose went through kernels M and W "
                  f"({counts})")
-        if min(counts["march"], counts["build"], counts["combine"]) < 1:
+        if min(counts["march"], counts["warp"], counts["fit"]) < 1:
             fail(f"{tag}: a kernel of the path never launched ({counts})")
+        if counts["build"] or counts["combine"]:
+            fail(f"{tag}: kernels B or C ran on the display path ({counts})")
         if tuple(frames.shape) != (n, H, W, 4):
             fail(f"{tag}: frames of shape {tuple(frames.shape)}")
+        torch.cuda.reset_peak_memory_stats()
         ts = []
         for _ in range(REPS):
             a = torch.cuda.Event(enable_timing=True)
@@ -1186,9 +1334,73 @@ def main() -> None:
             b.synchronize()
             ts.append((a.elapsed_time(b), time.perf_counter() - t0))
         ms = float(np.median([x[0] for x in ts]))
+        peak = torch.cuda.max_memory_allocated() / 2**30
         log(f"{tag}: {n} poses, median {ms:.1f} ms "
-            f"({n * W * H / ms / 1e3:.1f} Mrays/s); reps (ms, host s) {ts}")
-        return counts, frames, ms
+            f"({n * W * H / ms / 1e3:.1f} Mrays/s); reps (ms, host s) {ts}; "
+            f"peak {peak:.3f} GiB allocated")
+        return counts, frames, ms, peak
+
+    @contextlib.contextmanager
+    def parent_warp(choices):
+        """The main path with the parent's display warp
+        (parent_warp_to_screen_sq) in place of kernel W; each batch's
+        per-pose levels go to ``choices``."""
+        real = display_warp.warp_to_screen_sq
+
+        def parent(*a, **kw):
+            return parent_warp_to_screen_sq(torch, choices, *a, **kw)
+
+        display_warp.warp_to_screen_sq = parent
+        try:
+            yield
+        finally:
+            display_warp.warp_to_screen_sq = real
+
+    def against_parent(tag, grid, cams, groups, pays, trs, frames):
+        """The main path's frames against the parent's composition of the
+        same path on the card, and the fit decisions against the parent's:
+        within one quantum, the differing pixels counted."""
+        choices, plans = [], []
+        real_plan = display_warp.plan_fits
+
+        def plan_fits(*a, **kw):
+            plans.append(real_plan(*a, **kw))
+            return plans[-1]
+
+        display_warp.plan_fits = plan_fits
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            render_all(grid, cams, groups, pays, trs)
+        finally:
+            display_warp.plan_fits = real_plan
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        with parent_warp(choices):
+            old = render_all(grid, cams, groups, pays, trs)
+        torch.cuda.synchronize()
+        peak_old = torch.cuda.max_memory_allocated() / 2**30
+        same = all(np.array_equal(p.choice(), c)
+                   for p, c in zip(plans, choices))
+        diff = (frames.int() - old.int()).abs()
+        err = int(diff.max())
+        n_pix = int((diff > 0).any(-1).sum())
+        n_val = int((diff > 0).sum())
+        log(f"{tag}: frames against the parent's composition (geometry + "
+            f"B + C): max {err} quanta, {n_pix} of {diff[..., 0].numel()} "
+            f"pixels ({n_val} values) differ; fit decisions "
+            f"{'identical' if same else 'DIFFERENT'} for all "
+            f"{len(cams)} poses ({len(plans)} batches); peak "
+            f"{peak:.3f} GiB allocated, the parent's warp {peak_old:.3f}")
+        if not (same and len(plans) == len(choices) == len(groups)):
+            fail(f"{tag}: the fit decisions differ from the parent's")
+        if err > TOL_C_U8:
+            fail(f"{tag}: frames more than {TOL_C_U8} quantum from the "
+                 "parent's")
+        return {"max_quanta": err, "pixels_differ": n_pix,
+                "values_differ": n_val, "peak_gib": peak,
+                "parent_peak_gib": peak_old}
 
     def gate(tag, tdev, cam, frame, stride, floor):
         ys = np.arange(0, H, stride)
@@ -1224,7 +1436,7 @@ def main() -> None:
     B_, Wn = (4, 4), (5, 5)          # the cascade level all orbit poses take
     H3, W3 = GI - Wn[0] + 1, GI - Wn[1] + 1
     C = 4 * Wn[0] * Wn[1]
-    stats = {k: {"max_abs_err": 0.0} for k in ("M", "B", "C")}
+    stats = {k: {"max_abs_err": 0.0} for k in ("M", "B", "C", "W", "WF")}
 
     def check_kernels(tag, grid, pays, sel_cams, time_it):
         """Each kernel against its plain version on one pose batch of the
@@ -1304,6 +1516,60 @@ def main() -> None:
                 stats["C"]["max_abs_err"] = max(stats["C"]["max_abs_err"],
                                                 err)
             del out_k, out_p
+        # kernel W and its fit mode on the same intermediate: the fit
+        # counts bit-equal to their plain version and deciding as the
+        # parent's predicates; W (at the level C ran at) against its plain
+        # version and against the parent's composition, kernel C's output
+        levels = display_warp._usable_levels(W, H, GI)
+        prm = display_warp.display_params(g.R, g.fx, g.fy, g.u0, g.du, g.v0,
+                                          g.dv, g.scale, perm)
+        cnt = display_warp.level_fit_counts(prm, levels, GI, H, W)
+        if not torch.equal(cnt, display_warp.level_fit_counts_ref(
+                prm, levels, GI, H, W)):
+            fail(f"kernel W's fit counts differ from its plain version at "
+                 f"{tag}")
+        old_fits = _common.mean_fits(geom, levels).cpu().numpy()
+        new_fits = display_warp._fits_from_counts(cnt.cpu(), levels, H,
+                                                  W).numpy()
+        if not np.array_equal(old_fits, new_fits):
+            fail(f"the fit decisions differ from the parent's at {tag}")
+        sel = torch.arange(P, dtype=torch.int32, device=dev)
+
+        def run_w(od=torch.uint8):
+            out = torch.empty((P, H, W, 4), dtype=od, device=dev)
+            return display_warp.warp_display(inter, prm, sel, out, B_, Wn,
+                                             GI, bgv)
+
+        def run_w_plain(od=torch.uint8):
+            out = torch.empty((P, H, W, 4), dtype=od, device=dev)
+            return display_warp.warp_display_ref(inter, prm, sel, out, B_,
+                                                 Wn, GI, bgv)
+
+        for od, tol in ((torch.uint8, TOL_C_U8), (torch.float32, TOL_C_F32)):
+            out_w, out_p = run_w(od), run_w_plain(od)
+            out_c = display_warp.combine_emit(
+                *cargs, out_dtype=od if od == torch.uint8 else None)
+            torch.cuda.synchronize()
+            err = float((out_w.float() - out_p.float()).abs().max())
+            n_p = int((out_w != out_p).any(-1).sum())
+            err_c = float((out_w.float() - out_c.float()).abs().max())
+            n_c = int((out_w != out_c).any(-1).sum())
+            log(f"kernel W [{tag}] {od}: max err {err:.3e} against its plain "
+                f"version (tol {tol}; {n_p} of {P * H * W} pixels differ: "
+                f"its einsum sums the window in another order), {err_c:.3e} "
+                f"against B + C ({n_c} pixels differ); misfit blocks per "
+                f"level {cnt.sum(1).tolist()}, every pose fits each level: "
+                f"{new_fits.all(1).tolist()}")
+            if not (np.isfinite(err) and err <= tol and err_c <= tol):
+                fail(f"kernel W disagrees at {tag}")
+            if od == torch.float32:
+                stats["W"]["max_abs_err"] = max(stats["W"]["max_abs_err"],
+                                                err)
+            del out_w, out_p, out_c
+        stage = warp_stage_turns(torch, tag, inter, geom, levels, P, B_, Wn,
+                                 bgv)
+        stats.setdefault("warp_stage", {})[tag] = stage
+
         one = march_bound(torch, pay, grid.qscale, m["zb"], slab_ids, G, GI,
                           bd, sthr)
         whole_ms = cuda_ms(torch, run_m, KREPS)
@@ -1365,10 +1631,31 @@ def main() -> None:
              + Y0.long() * W3 + X0.long())).numel())
         cbytes = (rows * C + P * (2 * Hh * Wh * 4 + 3 * S * Hh * Wh * 4
                                   + H * W * 4))
-        cflops = P * H * W * (Wn[0] * Wn[1] * 9 + 30)
+        # per pixel the dequant and composite, per non-zero tent term its
+        # weight and 4 multiply-adds
+        taps = tent_taps(torch, ry, rx, okm, Wn)
+        cflops = P * H * W * 30 + taps * 9
         stats["C"]["bound_ms"], stats["C"]["bound_by"] = bound(cbytes,
                                                                cflops)
         stats["C"]["library_ms"] = None
+        stats["W"]["ms"] = cuda_ms(torch, run_w, KREPS)
+        stats["W"]["plain_ms"] = cuda_ms(torch, run_w_plain, KREPS)
+        stats["W"]["bound_ms"], stats["W"]["bound_by"] = bound(
+            P * (4 * GI * GI * 4 + H * W * 4 + 16 * 4 + 4),
+            P * H * W * (30 + 20) + taps * 9)
+        stats["W"]["library_ms"] = None
+        stats["WF"]["ms"] = cuda_ms(torch, lambda: display_warp.
+                                    level_fit_counts(prm, levels, GI, H, W),
+                                    KREPS)
+        stats["WF"]["plain_ms"] = cuda_ms(
+            torch, lambda: display_warp.level_fit_counts_ref(
+                prm, levels, GI, H, W), KREPS)
+        # per pixel its homography (~20; a pixel's position does not depend
+        # on the level) and per level its extents (~6)
+        stats["WF"]["bound_ms"], stats["WF"]["bound_by"] = bound(
+            P * 16 * 4 + len(levels) * P * 4,
+            P * H * W * (20 + 6 * len(levels)))
+        stats["WF"]["library_ms"] = None
         stats["poses_per_launch"] = P
         log(f"kernel times [{tag}, {P} poses per launch]: "
             f"{json.dumps(stats)}")
@@ -1384,12 +1671,19 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- 4. main path -------------------------------------------------------
-    counts, frames, ms = main_path("dense", grid, cams, groups, pays, trs)
+    counts, frames, ms, peak = main_path("dense", grid, cams, groups, pays,
+                                         trs)
     mrays = N_POSES * W * H / ms / 1e3
+    dense_diff = against_parent("dense", grid, cams, groups, pays, trs,
+                                frames)
     if "--profile" in sys.argv[1:]:
         _common.profile_run(
             lambda: render_all(grid, cams, groups, pays, trs),
-            "dense main path", log)
+            "dense main path", log, DISPLAY_RANGES)
+        with parent_warp([]):
+            _common.profile_run(
+                lambda: render_all(grid, cams, groups, pays, trs),
+                "dense main path, the parent's warp", log, DISPLAY_RANGES)
 
     # ---- 5. quality gate ----------------------------------------------------
     p_orbit = gate("dense orbit0", tdev, cams[0], frames[0], 5, FLOOR_ORBIT)
@@ -1414,18 +1708,25 @@ def main() -> None:
                 for a in (0, 1, 2)]
     log(f"sparse: {len(sgroups)} pose groups, crops {crops}, occupied "
         f"slabs per axis {occupied}")
-    # the cropped payloads and culled slab lists at full width: the first
-    # pose group of each perm, as the main path launches it
-    seen = set()
+    # the cropped payloads and culled slab lists at full width: every pose
+    # group, as the main path launches it
     for (perm, flip), idx in sgroups.items():
-        if perm not in seen:
-            seen.add(perm)
-            check_kernels(f"sparse group {perm}/{flip}", sgrid, spays,
-                          [scams[i] for i in idx], False)
+        check_kernels(f"sparse group {perm}/{flip}", sgrid, spays,
+                      [scams[i] for i in idx], False)
     torch.cuda.empty_cache()
-    scounts, sframes, sms = main_path("sparse", sgrid, scams, sgroups,
-                                      spays, strs)
+    scounts, sframes, sms, speak = main_path("sparse", sgrid, scams,
+                                             sgroups, spays, strs)
     smrays = N_POSES_SPARSE * W * H / sms / 1e3
+    sparse_diff = against_parent("sparse", sgrid, scams, sgroups, spays,
+                                 strs, sframes)
+    if "--profile" in sys.argv[1:]:
+        _common.profile_run(
+            lambda: render_all(sgrid, scams, sgroups, spays, strs),
+            "sparse main path", log, DISPLAY_RANGES)
+        with parent_warp([]):
+            _common.profile_run(
+                lambda: render_all(sgrid, scams, sgroups, spays, strs),
+                "sparse main path, the parent's warp", log, DISPLAY_RANGES)
     p_sparse = gate("sparse orbit0", sdev, scams[0], sframes[0], 8,
                     FLOOR_SPARSE)
 
@@ -1437,8 +1738,12 @@ def main() -> None:
 
     # ---- 10. result ---------------------------------------------------------
     summary = {"card": card, "m_launches": stats.get("M_launches"),
+               "warp_stage": stats.get("warp_stage"),
                "dense_mrays": mrays, "dense_ms": ms,
                "sparse_mrays": smrays, "sparse_ms": sms,
+               "dense_peak_gib": peak, "sparse_peak_gib": speak,
+               "dense_vs_parent": dense_diff,
+               "sparse_vs_parent": sparse_diff,
                "psnr_orbit_db": p_orbit, "psnr_sparse_db": p_sparse,
                "dense_counts": counts, "sparse_counts": scounts, **tsum,
                **probe, "seconds": time.perf_counter() - _T0}
@@ -1451,6 +1756,10 @@ def main() -> None:
          "volrend_tpu/ops/display_warp.py:139", counts["build"]),
         ("C", "warp_combine", "volrend_torch/csrc/warp_combine.cu",
          "volrend_tpu/ops/display_warp.py:228", counts["combine"]),
+        ("W", "warp_display", "volrend_torch/csrc/warp_display.cu",
+         "volrend_tpu/ops/display_warp.py:228", counts["warp"]),
+        ("WF", "warp_display_fit", "volrend_torch/csrc/warp_display.cu",
+         "volrend_tpu/ops/display_warp.py:467", counts["fit"]),
         ("MT", "slab_march_train", "volrend_torch/csrc/slab_march.cu",
          "volrend_tpu/ops/pallas_slab.py:344",
          tsum["train_counts"]["march"]),

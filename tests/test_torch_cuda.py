@@ -18,6 +18,7 @@ from volrend_torch.models.synthetic import make_solid_tree, make_test_tree
 from volrend_torch.ops import dense_grid, display_warp, slab_march, \
     slab_render
 from volrend_torch.ops.camera import Camera
+from volrend_torch.probes._common import mean_fits, table_warp_level
 from volrend_torch.utils.options import RenderOptions
 
 pytestmark = pytest.mark.cuda
@@ -124,12 +125,132 @@ def test_render_frames_card_matches_cpu(grids, out_dtype):
     trs = np.stack([c.transform for c in cams])
     a = slab_render.render_frames(cpu, trs, 200.0, 200.0, perm, flip, W, H,
                                   OPT, gi=GI, out_dtype=out_dtype)
-    n0 = display_warp.combine_emit.poses
+    n0 = display_warp.warp_display.poses
     b = slab_render.render_frames(gpu, trs, 200.0, 200.0, perm, flip, W, H,
                                   OPT, gi=GI, out_dtype=out_dtype).cpu()
-    assert display_warp.combine_emit.poses == n0 + 3
+    assert display_warp.warp_display.poses == n0 + 3
     tol = 1.0 if out_dtype == torch.uint8 else 1e-4
     assert float((a.float() - b.float()).abs().max()) <= tol
+
+
+# ---------------------------------------------------------------------------
+# Kernel W (csrc/warp_display.cu): the display path's fused warp and its
+# fit mode, against their plain versions and the parent's composition of
+# the PyTorch geometry with kernels B and C
+# ---------------------------------------------------------------------------
+
+LEVELS = display_warp._CASCADE
+
+
+def _warp_case(g, fx=200.0, backs=((1.0, 0.25, 0.35), (1.0, 0.1, 0.45),
+                                   (1.0, 0.3, 0.2))):
+    """(geometry args, (P, 16) parameter rows, seeded (P, 4, gi, gi)
+    planes with values outside [0, 1] too) for poses on grid ``g``."""
+    cams = _cams(backs, fx)
+    perm, flip, _ = slab_render.choose_axis(g, cams[0].transform, fx, fx,
+                                            W, H)
+    geom = slab_render.FrameGeom(g, np.stack([c.transform for c in cams]),
+                                 fx, fx, perm, flip, W, H, OPT, GI)
+    args = (geom.R, geom.fx, geom.fy, W, H, GI, perm, geom.u0, geom.du,
+            geom.v0, geom.dv, geom.scale)
+    prm = display_warp.display_params(geom.R, geom.fx, geom.fy, geom.u0,
+                                      geom.du, geom.v0, geom.dv, geom.scale,
+                                      perm)
+    inter = torch.as_tensor(np.random.default_rng(3).uniform(
+        -0.1, 1.1, (len(cams), 4, GI, GI)).astype(np.float32),
+        device=g.data.device)
+    return args, prm, inter
+
+
+#: the production levels (their own instantiations) and levels of the
+#: generic kernel: a non-square block and window, 8 x 8 blocks, and blocks
+#: wider than 8 with the largest window
+W_LEVELS = LEVELS + (((2, 4), (4, 5)), ((8, 8), (4, 4)),
+                     ((16, 10), (8, 8)))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("level", W_LEVELS)
+def test_warp_display_matches_plain_and_parent(grids, out_dtype, level):
+    """W on two of three poses, in place: the parent's composition (the
+    same arithmetic, so equal), the plain version (einsum sums the window
+    in another order: uint8 within one quantum, f32 within 1e-5), and the
+    third pose's slot untouched."""
+    _, g = grids
+    B, win = level
+    args, prm, inter = _warp_case(g)
+    sel = torch.tensor([2, 0], dtype=torch.int32, device=g.data.device)
+    fill = 7 if out_dtype == torch.uint8 else -3.0
+    out = torch.full((3, H, W, 4), fill, dtype=out_dtype,
+                     device=g.data.device)
+    n0 = (display_warp.warp_display.launches, display_warp.warp_display.poses)
+    got = display_warp.warp_display(inter, prm, sel, out.clone(), B, win, GI,
+                                    1.0)
+    assert (display_warp.warp_display.launches,
+            display_warp.warp_display.poses) == (n0[0] + 1, n0[1] + 2)
+    assert torch.equal(got[1], out[1])
+    want = display_warp.warp_display_ref(inter, prm, sel, out.clone(), B,
+                                         win, GI, 1.0)
+    diff = (got.float() - want.float()).abs()
+    assert float(diff.max()) <= (1.0 if out_dtype == torch.uint8 else 1e-5)
+    parent = table_warp_level(args, inter, sel.long(), B, win, 1.0,
+                              torch.uint8 if out_dtype == torch.uint8
+                              else None)
+    assert torch.equal(got[sel.long()], parent)
+
+
+@pytest.mark.parametrize("fx,levels", [
+    (200.0, LEVELS), (80.0, LEVELS), (45.0, LEVELS),
+    (80.0, (((1, 2), (4, 4)), ((2, 4), (4, 5)), ((4, 4), (5, 5)))),
+    (80.0, (((2, 2), (4, 4)), ((5, 5), (6, 6))))])
+def test_fit_counts_bit_equal(grids, fx, levels):
+    """W's fit mode against its plain version on the card and on the CPU
+    (bit-equal counts), and its decisions against the parent's
+    predicates (torch.mean of the misfits on the card), for poses that
+    fit, a steep and a wide one; and on two other level sets, three levels
+    that nest in a 4 x 4 super block (positions shared, as for the
+    production pair) and two that do not (each level its own positions)."""
+    _, g = grids
+    args, prm, _ = _warp_case(g, fx)
+    n0 = display_warp.level_fit_counts.launches
+    counts = display_warp.level_fit_counts(prm, levels, GI, H, W)
+    assert display_warp.level_fit_counts.launches == n0 + 1
+    assert torch.equal(counts, display_warp.level_fit_counts_ref(
+        prm, levels, GI, H, W))
+    assert torch.equal(counts.cpu(), display_warp.level_fit_counts_ref(
+        prm.cpu(), levels, GI, H, W))
+    fits = display_warp._fits_from_counts(counts, levels, H, W)
+    want = mean_fits(args, levels)
+    assert torch.equal(fits, want), counts
+    gyf, gxf = display_warp._pixel_slopes(*args)
+    for li, (B, win) in enumerate(levels):
+        assert torch.equal(display_warp._level_fits(gyf, gxf, GI, B, win),
+                           want[li])
+
+
+def test_mixed_cascade_batch_on_card(grids):
+    """One batch of steep poses, the last on a 7x finer slope grid so that
+    it takes the reference warp while the others take a superquad level,
+    on the card against the CPU: the same choices, the reference-warp pose
+    counted, uint8 within one quantum."""
+    cpu, gpu = grids
+    outs = []
+    for g in (cpu, gpu):
+        args, _, inter = _warp_case(g, fx=80.0)
+        R, fx, fy, w, h, gi, perm, u0, du, v0, dv, scale = args
+        du = du * torch.tensor([1.0, 1.0, 1.0 / 7.0], device=du.device)
+        plan = display_warp.plan_fits(R, fx, fy, w, h, gi, perm, u0, du, v0,
+                                      dv, scale)
+        choice = plan.choice()
+        r0 = slab_render._warp_to_screen_ref.poses
+        out = display_warp.warp_to_screen_sq(
+            inter, OPT, R, fx, fy, w, h, gi, perm, u0, du, v0, dv, scale,
+            out_dtype=torch.uint8, planar=True, plan=plan)
+        assert slab_render._warp_to_screen_ref.poses == r0 + 1
+        outs.append((choice, out.cpu()))
+    (c_cpu, a), (c_gpu, b) = outs
+    assert np.array_equal(c_cpu, c_gpu) and c_gpu[2] == -1
+    assert float((a.float() - b.float()).abs().max()) <= 1.0
 
 
 # ---------------------------------------------------------------------------

@@ -82,6 +82,7 @@ def test_cuda_sources_name_their_tpu_kernel():
             "slab_march_bwd.cu": "pallas_slab.py:_make_bwd_kernel",
             "warp_build.cu": "display_warp.py:_make_build",
             "warp_combine.cu": "display_warp.py:_make_combine_kernel",
+            "warp_display.cu": "display_warp.py:_make_combine_kernel",
             "warp_combine_adj.cu": "display_warp.py:_combine_adjoint_kernel",
             "warp_build_adj.cu": "display_warp.py:_build_adjoint",
             "probe_combine.cu": "perf_sq3.py:combine_pallas",
@@ -198,6 +199,15 @@ def test_kernel_wrappers_refuse_other_devices():
     meta = torch.empty((1, 4, 16, 16), device="meta")
     with pytest.raises(RuntimeError, match="no kernel for device"):
         display_warp.build_table(meta, (4, 4))
+    prm = torch.empty((1, 16), device="meta")
+    with pytest.raises(RuntimeError, match="no kernel for device"):
+        display_warp.level_fit_counts(prm, display_warp._CASCADE, 16, 16,
+                                      16)
+    with pytest.raises(RuntimeError, match="no kernel for device"):
+        display_warp.warp_display(
+            meta, prm, torch.zeros(1, dtype=torch.int32, device="meta"),
+            torch.empty((1, 16, 16, 4), dtype=torch.uint8, device="meta"),
+            (2, 2), (4, 4), 16, 1.0)
 
 
 @pytest.mark.parametrize("probe", ["combine", "stream", "build"])

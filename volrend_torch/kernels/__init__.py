@@ -63,6 +63,14 @@ SOURCES = {
         "vt_warp_combine": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P],
     }),
+    "warp_display": ("warp_display.cu", {
+        # inter, prm, sel, out, n_sel, out_u8, P, gi, H, W, By, Bx, Wy,
+        # Wx, bg, qscale, qshift, stream
+        "vt_warp_display": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _F, _F, _F, _P],
+        # prm, counts, P, L, dims, gi, H, W, stream
+        "vt_warp_fit": [_P, _P, _I, _I, _P, _I, _I, _I, _P],
+    }),
     "warp_combine_adj": ("warp_combine_adj.cu", {
         # g, ry, rx, okm, rows, P, Hh, Wh, By, Bx, Wy, Wx, bg, stream
         "vt_warp_combine_adj": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

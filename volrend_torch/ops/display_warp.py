@@ -4,9 +4,9 @@ counterpart of ``volrend_tpu/ops/display_warp.py``).
 The display path's last step warps the (gi, gi, 4) intermediate slope-grid
 image to the (H, W, 4) screen with a projective bilinear resample. The
 superquad form groups screen pixels into (By, Bx) blocks; every block reads
-ONE row of a window table — the (Wy, Wx) intermediate cells around the
-block's footprint, 4 channels each — and each subpixel tent-combines its
-bilinear taps inside that window:
+the (Wy, Wx) intermediate cells around its footprint, 4 channels each, and
+each subpixel tent-combines its bilinear taps inside that window. The
+reference runs it as two TPU kernels with XLA geometry between them:
 
 - **kernel B** (``csrc/warp_build.cu``, wrapper ``build_table``) quantizes
   the planar intermediate to affine int8 (q = round(v * 255) - 128) and
@@ -16,11 +16,19 @@ bilinear taps inside that window:
   position, dequantizes, masks, composites over the background and writes
   interleaved (H, W, 4) RGBA (uint8 or float32).
 
+The port's display path fuses both with the geometry into **kernel W**
+(``csrc/warp_display.cu``, wrapper ``warp_display``): per screen block it
+computes the subpixel positions from a (P, 16) row of per-pose scalars
+(``display_params``), the window corner, the window's int8 codes straight
+from the planar intermediate, and kernel C's combine and emit, writing the
+frames in place; nothing else is materialized. Its fit mode
+(``level_fit_counts``) counts each pose's blocks that misfit a level's
+window. ``render_frames`` queues those counts ahead of the march
+(``plan_fits``: a ``FitPlan``), so the host reads them while kernel M runs.
 A pose whose blocks misfit their window in bulk (wide-FOV / grazing
 geometry) falls through the cascade of (block, window) levels and finally
 to the reference quad-gather warp (``slab_render._warp_to_screen_ref``).
-The fit predicates of a whole pose batch are computed in one pass and
-brought to the host in one transfer; the branching is plain Python.
+Kernels B and C keep their table modes for the precise warp below.
 
 The training path's **precise** superquad warp (``_PreciseWarp``, behind
 the ``_PRECISE_SQ`` switch, off by default as in the reference) runs
@@ -33,19 +41,22 @@ table build.
 
 Every function takes a batch of poses: per-pose tensors carry a leading
 pose dimension. On CUDA tensors the wrappers launch the kernels; on CPU
-tensors they run the plain PyTorch versions (``build_table_ref``,
-``combine_emit_ref``, ``combine_adjoint_ref``, ``build_adjoint_ref``).
-World trees only (NDC and mesh backgrounds come with a later slice).
+tensors they run the plain PyTorch versions (``warp_display_ref``,
+``level_fit_counts_ref``, ``build_table_ref``, ``combine_emit_ref``,
+``combine_adjoint_ref``, ``build_adjoint_ref``). World trees only (NDC and
+mesh backgrounds come with a later slice).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from volrend_torch import kernels
+from volrend_torch.utils.device import to_device
 from volrend_torch.utils.options import RenderOptions
 
 _F32 = torch.float32
@@ -206,14 +217,22 @@ def _block_extents(gyf, gxf, gi: int, B):
     return ymin, ymax, xmin, xmax, any_in
 
 
-def _level_fits(gyf, gxf, gi: int, B, win=(4, 4)):
-    """Per-pose bulk-misfit predicate (P,) bool for one (block, window)
-    level: fewer than 0.1% of the blocks misfit their window."""
+def _level_misfits(gyf, gxf, gi: int, B, win=(4, 4)):
+    """(P, Hh, Wh) bool: the blocks whose in-grid tap extents overflow the
+    level's window (a block with no in-grid subpixel fits)."""
     Wy, Wx = _win2d(win)
     ymin, ymax, xmin, xmax, _ = _block_extents(gyf, gxf, gi, B)
-    misfit = ((ymax >= torch.floor(ymin) + (Wy - 1.0))
-              | (xmax >= torch.floor(xmin) + (Wx - 1.0)))
-    return torch.mean(misfit.to(_F32), (1, 2)) < 1e-3
+    return ((ymax >= torch.floor(ymin) + (Wy - 1.0))
+            | (xmax >= torch.floor(xmin) + (Wx - 1.0)))
+
+
+def _level_fits(gyf, gxf, gi: int, B, win=(4, 4)):
+    """Per-pose bulk-misfit predicate (P,) bool for one (block, window)
+    level: fewer than 0.1% of the blocks misfit their window (decided by
+    _fits_from_counts, as the display warp's fit plan decides)."""
+    misfit = _level_misfits(gyf, gxf, gi, B, win)
+    return _fits_from_counts(misfit.sum((1, 2))[None], ((B, win),),
+                             gyf.shape[1], gyf.shape[2])[0]
 
 
 def _sub_slopes(R, fx, fy, width: int, height: int, gi: int,
@@ -244,8 +263,14 @@ def _level_geometry(geom_args, gi: int, B, win=(4, 4)):
 
     Returns (gys, gxs, okm, Y0, X0): (P, By*Bx, Hh, Wh) clipped subpixel
     positions / ok masks and (P, Hh, Wh) int32 window corners."""
+    return _window_corners(*_sub_slopes(*geom_args, B=B), gi, win)
+
+
+def _window_corners(gy, gx, gi: int, win):
+    """(P, By*Bx, Hh, Wh) subpixel positions -> (gys, gxs, okm, Y0, X0):
+    the positions clipped to the grid, the ok masks and each block's
+    window corner, from its in-grid subpixels only."""
     Wy, Wx = _win2d(win)
-    gy, gx = _sub_slopes(*geom_args, B=B)
     ok = (gy >= 0) & (gy <= gi - 1) & (gx >= 0) & (gx <= gi - 1)
     gys = torch.clamp(gy, 0.0, gi - 1 - 1e-6)
     gxs = torch.clamp(gx, 0.0, gi - 1 - 1e-6)
@@ -464,6 +489,254 @@ def combine_emit_ref(table, Y0, X0, ry, rx, okm, gi: int, height: int,
 
 
 # ---------------------------------------------------------------------------
+# kernel W: the display path's fused warp and its fit mode
+# ---------------------------------------------------------------------------
+
+def display_params(R, fx, fy, u0, du, v0, dv, scale,
+                   perm: Tuple[int, int, int]) -> torch.Tensor:
+    """(P, 16) f32 per-pose scalars of kernel W and its fit mode, packed
+    on the device by tensor ops (nothing is read on the host): columns
+    0-8 the rows R[:, perm[k]] * scale[perm[k]] of _lin_forms for k = 0,
+    1, 2 (the den, nu and nv forms), then fx, fy, u0, du, v0, dv and a
+    zero."""
+    P, dev = R.shape[0], R.device
+    sc = torch.as_tensor(scale, dtype=_F32, device=dev).expand(3).reshape(3)
+    cols = [R[:, perm[k]] * sc[perm[k]] for k in range(3)]
+    cols += [torch.as_tensor(f, dtype=_F32, device=dev).reshape(-1)
+             .expand(P)[:, None] for f in (fx, fy)]
+    cols += [t.reshape(P, 1) for t in (u0, du, v0, dv)]
+    cols.append(torch.zeros((P, 1), dtype=_F32, device=dev))
+    return torch.cat(cols, 1).contiguous()
+
+
+def _display_positions(prm: torch.Tensor, B, height: int, width: int):
+    """_sub_slopes from the packed parameter rows: the (P, By*Bx, Hh, Wh)
+    slope-grid positions of every subpixel, with _sub_slopes's operations
+    in its order (bit-equal to it)."""
+    By, Bx = _block2d(B)
+    Hh, Wh = height // By, width // Bx
+    dev = prm.device
+    s = torch.arange(By * Bx, device=dev)
+    po = torch.div(s, Bx, rounding_mode="floor").to(_F32)
+    qo = torch.remainder(s, Bx).to(_F32)
+    c = prm[:, :, None, None, None]                          # (P, 16, 1,1,1)
+    xs = (torch.arange(Wh, dtype=_F32, device=dev)[None, :] * Bx
+          + qo[:, None] - 0.5 * width)[None, :, None, :] / c[:, 9]
+    ys = -(torch.arange(Hh, dtype=_F32, device=dev)[None, :] * By
+           + po[:, None] - 0.5 * height)[None, :, :, None] / c[:, 10]
+    den, nu, nv = (xs * c[:, k] + ys * c[:, k + 1] - c[:, k + 2]
+                   for k in (0, 3, 6))
+    inv = _safe_inv(den)
+    return (nu * inv - c[:, 11]) / c[:, 12], (nv * inv - c[:, 13]) / c[:, 14]
+
+
+def _usable_levels(width: int, height: int, gi: int, block=None):
+    """The cascade's levels this screen and grid can take, biggest block
+    first."""
+    levels = [(B, W) for (B, W) in _norm_cascade(block)
+              if usable(width, height, gi, block=B, win=W)]
+    levels.sort(key=lambda bw: -bw[0][0] * bw[0][1])
+    return levels
+
+
+def level_fit_counts(prm: torch.Tensor, levels, gi: int, height: int,
+                     width: int) -> torch.Tensor:
+    """(L, P) int32: for each ((By, Bx), (Wy, Wx)) level and pose (rows of
+    ``prm``, see display_params), the count of screen blocks whose in-grid
+    tap extents overflow the window (_level_misfits). Launches kernel W's
+    fit mode once for all levels (up to 4) on CUDA tensors (counted in
+    ``launches``); runs ``level_fit_counts_ref`` on CPU tensors."""
+    dev = prm.device
+    if dev.type == "cpu":
+        return level_fit_counts_ref(prm, levels, gi, height, width)
+    if dev.type != "cuda":
+        raise RuntimeError(f"level_fit_counts: no kernel for device {dev}")
+    P = prm.shape[0]
+    _check("level_fit_counts: prm", prm, _F32, (P, 16), dev)
+    counts = torch.zeros((len(levels), P), dtype=torch.int32, device=dev)
+    if not levels:
+        return counts
+    if len(levels) > 4:
+        raise ValueError(f"level_fit_counts: {len(levels)} levels, the "
+                         "kernel takes up to 4")
+    dims = [d for B, win in levels for d in _block2d(B) + _win2d(win)]
+    kernels.check(kernels.lib("warp_display").vt_warp_fit(
+        prm.data_ptr(), counts.data_ptr(), P, len(levels),
+        (ctypes.c_int * len(dims))(*dims), gi, height, width,
+        torch.cuda.current_stream(dev).cuda_stream), "warp_display")
+    level_fit_counts.launches += 1
+    return counts
+
+
+level_fit_counts.launches = 0
+
+
+def _block_to_pixels(t: torch.Tensor, B) -> torch.Tensor:
+    """(P, By*Bx, Hh, Wh) per-subpixel layout -> (P, H, W) screen layout."""
+    By, Bx = _block2d(B)
+    P, _, Hh, Wh = t.shape
+    return t.reshape(P, By, Bx, Hh, Wh).permute(0, 3, 1, 4, 2).reshape(
+        P, Hh * By, Wh * Bx)
+
+
+def level_fit_counts_ref(prm: torch.Tensor, levels, gi: int, height: int,
+                         width: int) -> torch.Tensor:
+    """Plain PyTorch version of kernel W's fit mode (exact)."""
+    out = []
+    for B, win in levels:
+        gyf, gxf = (_block_to_pixels(t, B)
+                    for t in _display_positions(prm, B, height, width))
+        out.append(_level_misfits(gyf, gxf, gi, B, win).sum((1, 2)))
+    if not out:
+        return torch.zeros((0, prm.shape[0]), dtype=torch.int32,
+                           device=prm.device)
+    return torch.stack(out).to(torch.int32)
+
+
+def _fits_from_counts(counts, levels, height: int,
+                      width: int) -> torch.Tensor:
+    """(L, P) bool fit decisions from the (L, P) misfit counts of
+    ``levels``: the mean count / (Hh*Wh) < 1e-3 in float32, taken as the
+    count times the float32 reciprocal of Hh*Wh, as torch.mean computes it
+    on the card and the reference's jnp.mean on the CPU (torch.mean on the
+    CPU divides instead; the two differ where the mean is exactly 1e-3).
+    The one fit rule of the port's warps."""
+    counts = torch.as_tensor(counts)
+    inv = torch.tensor(
+        [np.float32(1.0) / np.float32((height // _block2d(B)[0])
+                                      * (width // _block2d(B)[1]))
+         for B, _ in levels], dtype=_F32, device=counts.device)
+    return (counts.to(_F32) * inv[:, None]
+            < torch.tensor(1e-3, dtype=_F32, device=counts.device))
+
+
+class FitPlan:
+    """A pose batch's fit decisions, computed on the device ahead of the
+    warp (display_warp.plan_fits): the parameter rows kernel W reads
+    (``prm``), the usable cascade levels biggest block first
+    (``levels``), and each level's misfit counts on their way to the
+    host: a non-blocking copy into pinned memory behind an event, so the
+    host waits for the counts only in ``choice``, once whatever the caller
+    queued after the plan (kernel M) is already on the card."""
+
+    def __init__(self, prm: torch.Tensor, levels, gi: int, height: int,
+                 width: int):
+        self.prm, self.levels = prm, levels
+        self.height, self.width = height, width
+        self._event = None
+        counts = level_fit_counts(prm, levels, gi, height, width)
+        if counts.is_cuda:
+            host = torch.empty(counts.shape, dtype=torch.int32,
+                               pin_memory=True)
+            host.copy_(counts, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+            counts = host
+        self._counts = counts
+
+    def counts(self) -> np.ndarray:
+        """(L, P) int32 misfit counts on the host (waits for them)."""
+        if self._event is not None:
+            self._event.synchronize()
+        return self._counts.numpy()
+
+    def choice(self) -> np.ndarray:
+        """(P,) the level each pose takes (an index into ``levels``: the
+        first that fits), -1 for the reference warp."""
+        fits = _fits_from_counts(self.counts(), self.levels, self.height,
+                                 self.width).numpy()
+        hit = fits.any(0)
+        return np.where(hit, fits.argmax(0), -1)
+
+
+def plan_fits(R, fx, fy, width: int, height: int, gi: int,
+              perm: Tuple[int, int, int], u0, du, v0, dv, scale,
+              block=None) -> FitPlan:
+    """Queue the fit decisions of a pose batch (the _sub_slopes geometry
+    arguments) for warp_to_screen_sq's ``plan``: the parameter rows and
+    one fit-mode launch over the usable levels. Nothing waits for the
+    device."""
+    prm = display_params(R, fx, fy, u0, du, v0, dv, scale, perm)
+    return FitPlan(prm, _usable_levels(width, height, gi, block), gi,
+                   height, width)
+
+
+def _check_display(inter, prm, sel, out, B, win, gi: int):
+    """Kernel W's inputs on a CUDA device: contiguous (P, 4, gi, gi) f32
+    planes, (P, 16) f32 rows, (n,) int32 pose list, (P, H, W, 4) uint8 or
+    f32 frames on a 16-byte boundary, and a level the kernel takes: blocks
+    of any side that tile the screen, windows up to 8 x 8 (as kernel C)."""
+    dev = inter.device
+    P = inter.shape[0]
+    _check("warp_display: inter", inter, _F32, (P, 4, gi, gi), dev)
+    _check("warp_display: prm", prm, _F32, (P, 16), dev)
+    _check("warp_display: sel", sel, torch.int32, (sel.shape[0],), dev)
+    if out.dtype not in (torch.uint8, _F32):
+        raise ValueError(f"warp_display: frames are uint8 or float32, not "
+                         f"{out.dtype}")
+    _check("warp_display: out", out, out.dtype, (P,) + tuple(out.shape[1:3])
+           + (4,), dev)
+    By, Bx = _block2d(B)
+    Wy, Wx = _win2d(win)
+    H, W = out.shape[1], out.shape[2]
+    if (By < 1 or Bx < 1 or H % By or W % Bx or not 1 <= Wy <= 8
+            or not 1 <= Wx <= 8 or gi < max(Wy, Wx)
+            or out.data_ptr() % 16 or not 1 <= sel.shape[0] <= 65535):
+        raise ValueError(f"warp_display: level {(By, Bx)} x {(Wy, Wx)} on "
+                         f"{H}x{W} frames, gi={gi}, {sel.shape[0]} poses "
+                         "not taken")
+
+
+def warp_display(inter: torch.Tensor, prm: torch.Tensor, sel: torch.Tensor,
+                 out: torch.Tensor, B, win, gi: int, bg: float
+                 ) -> torch.Tensor:
+    """Warp the poses ``sel`` (int32 indices into the batch) of the planar
+    intermediate images ``inter`` (P, 4, gi, gi) f32 to their screens at
+    one cascade level ((By, Bx) blocks, (Wy, Wx) window), writing them in
+    place into ``out`` (P, H, W, 4) uint8 or f32: what _level_geometry,
+    kernel B's int8 table and kernel C compute together. ``prm``: the
+    (P, 16) rows of display_params. Launches kernel W on CUDA tensors
+    (counted in ``launches`` and ``poses``); runs ``warp_display_ref`` on
+    CPU tensors. Returns ``out``."""
+    dev = inter.device
+    if dev.type == "cpu":
+        return warp_display_ref(inter, prm, sel, out, B, win, gi, bg)
+    if dev.type != "cuda":
+        raise RuntimeError(f"warp_display: no kernel for device {dev}")
+    _check_display(inter, prm, sel, out, B, win, gi)
+    (By, Bx), (Wy, Wx) = _block2d(B), _win2d(win)
+    kernels.check(kernels.lib("warp_display").vt_warp_display(
+        inter.data_ptr(), prm.data_ptr(), sel.data_ptr(), out.data_ptr(),
+        sel.shape[0], int(out.dtype == torch.uint8), inter.shape[0], gi,
+        out.shape[1], out.shape[2], By, Bx, Wy, Wx, float(bg),
+        float(_QSCALE), float(_QSHIFT),
+        torch.cuda.current_stream(dev).cuda_stream), "warp_display")
+    warp_display.launches += 1
+    warp_display.poses += sel.shape[0]
+    return out
+
+
+warp_display.launches = 0
+warp_display.poses = 0
+
+
+def warp_display_ref(inter, prm, sel, out, B, win, gi: int, bg: float):
+    """Plain PyTorch version of kernel W: the positions from the parameter
+    rows, the window corners, kernel B's and C's plain versions, and the
+    frames of ``sel`` written into ``out``."""
+    sel = sel.long()
+    H, W = out.shape[1], out.shape[2]
+    gy, gx = _display_positions(prm.index_select(0, sel), B, H, W)
+    gys, gxs, okm, Y0, X0 = _window_corners(gy, gx, gi, win)
+    out[sel] = combine_emit_ref(
+        build_table_ref(inter.index_select(0, sel), win), Y0, X0,
+        gys - Y0.to(_F32)[:, None], gxs - X0.to(_F32)[:, None], okm, gi, H,
+        W, B, win, bg, out_dtype=out.dtype if out.dtype == torch.uint8
+        else None)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the warp with its per-pose cascade
 # ---------------------------------------------------------------------------
 
@@ -471,16 +744,18 @@ def warp_to_screen_sq(inter, opt: RenderOptions, R, fx, fy,
                       width: int, height: int, gi: int,
                       perm: Tuple[int, int, int],
                       u0, du, v0, dv, scale, block=None, out_dtype=None,
-                      planar: bool = False):
+                      planar: bool = False, plan: Optional[FitPlan] = None):
     """Warp a batch of intermediate images ((P, gi, gi, 4), or planar
     (P, 4, gi, gi) with ``planar=True``) to (P, H, W, 4) screens with the
     background composited.
 
     block: cascade spec (see _norm_cascade; None = the production
     _CASCADE). Each pose takes the biggest level whose fit predicate holds,
-    else the reference warp. The predicates of all poses and levels are
-    computed in one pass and read on the host in one transfer; each level
-    then runs its poses through kernels B and C together. (The
+    else the reference warp. plan: the batch's fit decisions queued
+    earlier by plan_fits (render_frames queues them ahead of the march; a
+    plan carries its own levels, so ``block`` is then not read); None
+    queues them here and waits for them. Each level then warps its poses
+    with one launch of kernel W, in place into the frames. (The
     reference's NDC and mesh-background variants come with slice B.)"""
     from volrend_torch.ops import slab_render
     dev = inter.device
@@ -489,44 +764,27 @@ def warp_to_screen_sq(inter, opt: RenderOptions, R, fx, fy,
     itp = itp.to(_F32).contiguous()
     fx = torch.as_tensor(fx, dtype=_F32, device=dev)
     fy = torch.as_tensor(fy, dtype=_F32, device=dev)
-    geom_args = (R, fx, fy, width, height, gi, perm, u0, du, v0, dv, scale)
-
-    levels = [(B, W) for (B, W) in _norm_cascade(block)
-              if usable(width, height, gi, block=B, win=W)]
-    levels.sort(key=lambda bw: -bw[0][0] * bw[0][1])     # biggest block first
-    choice = np.full(P, -1)
-    if levels:
-        gyf, gxf = _pixel_slopes(*geom_args)
-        fits = torch.stack([_level_fits(gyf, gxf, gi, B, W)
-                            for B, W in levels]).cpu().numpy()    # (L, P)
-        del gyf, gxf
-        for p in range(P):
-            hit = np.nonzero(fits[:, p])[0]
-            if hit.size:
-                choice[p] = int(hit[0])
+    if plan is None:
+        plan = plan_fits(R, fx, fy, width, height, gi, perm, u0, du, v0, dv,
+                         scale, block)
+    choice = plan.choice()
 
     u8 = out_dtype == torch.uint8
     out = torch.empty((P, height, width, 4),
                       dtype=torch.uint8 if u8 else _F32, device=dev)
-    for li, (B, W) in enumerate(levels):
+    bg = float(opt.background_brightness)
+    for li, (B, W) in enumerate(plan.levels):
         idx = np.nonzero(choice == li)[0]
-        if idx.size == 0:
+        if idx.size == P:
+            sel = torch.arange(P, dtype=torch.int32, device=dev)
+        elif idx.size:
+            sel = to_device(idx, torch.int32, dev)
+        else:
             continue
-        sel = torch.as_tensor(idx, device=dev)
-        sub = (R.index_select(0, sel), fx, fy, width, height, gi, perm,
-               u0.index_select(0, sel), du.index_select(0, sel),
-               v0.index_select(0, sel), dv.index_select(0, sel), scale)
-        gys, gxs, okm, Y0, X0 = _level_geometry(sub, gi, B, W)
-        tbl = build_table(itp.index_select(0, sel), W)
-        ry = (gys - Y0.to(_F32)[:, None]).contiguous()
-        rx = (gxs - X0.to(_F32)[:, None]).contiguous()
-        out[sel] = combine_emit(
-            tbl, Y0.contiguous(), X0.contiguous(), ry, rx,
-            okm.contiguous(), gi, height, width, B, W,
-            float(opt.background_brightness), out_dtype=out_dtype)
+        warp_display(itp, plan.prm, sel, out, B, W, gi, bg)
     idx = np.nonzero(choice < 0)[0]
     if idx.size:
-        sel = torch.as_tensor(idx, device=dev)
+        sel = to_device(idx, torch.int64, dev)
         ref = slab_render._warp_to_screen_ref(
             itp.index_select(0, sel).movedim(1, -1), opt,
             R.index_select(0, sel), fx, fy, width, height, gi, perm,

@@ -348,9 +348,10 @@ def _bbox_full(opt: RenderOptions) -> bool:
 def _march_finalize(grid: DenseGrid, payload, params, zb, R, u0, du, v0, dv,
                     fx, fy, perm: Tuple[int, int, int], flip: bool,
                     width: int, height: int, opt: RenderOptions, gi: int,
-                    out_dtype=None, crop=None):
+                    out_dtype=None, crop=None, fits=None):
     """March a pose batch through the fused kernel (one launch), finalize
-    planar (rt_core.cuh:176-194 semantics) and warp to the screen."""
+    planar (rt_core.cuh:176-194 semantics) and warp to the screen (``fits``:
+    the warp's fit plan, queued ahead of the march)."""
     slab_ids = grid.slab_ids(perm[0], flip, opt.sigma_thresh)
     blo, bhi = opt.basis_minmax
     rotm = _rodrigues_matrix(opt.rot_dirs)
@@ -366,7 +367,8 @@ def _march_finalize(grid: DenseGrid, payload, params, zb, R, u0, du, v0, dv,
         dir_win=True, k_per_step=slab_march._K_STEP, crop=crop)
     return _warp_to_screen(_finalize_planar(acc4, opt), opt, R, fx, fy,
                            width, height, gi, perm, u0, du, v0, dv,
-                           grid.scale, out_dtype=out_dtype, planar=True)
+                           grid.scale, out_dtype=out_dtype, planar=True,
+                           fits=fits)
 
 
 def _finalize_planar(acc4: torch.Tensor, opt: RenderOptions) -> torch.Tensor:
@@ -397,10 +399,16 @@ def render_frames(grid: DenseGrid, transforms, fx, fy,
         payload = _permuted_grid(grid, perm, crop=crop)
     g = FrameGeom(grid, transforms, fx, fy, perm, flip, width, height, opt,
                   gi)
+    # the warp's fit decisions go to the card ahead of the march, so the
+    # host reads them while kernel M runs
+    fits = None
+    if display_warp.usable(width, height, gi):
+        fits = display_warp.plan_fits(g.R, g.fx, g.fy, width, height, gi,
+                                      perm, g.u0, g.du, g.v0, g.dv, g.scale)
     params, zb = _march_frame_fields(grid, g, perm, flip, opt)
     return _march_finalize(grid, payload, params, zb, g.R, g.u0, g.du, g.v0,
                            g.dv, g.fx, g.fy, perm, flip, width, height, opt,
-                           gi, out_dtype=out_dtype, crop=crop)
+                           gi, out_dtype=out_dtype, crop=crop, fits=fits)
 
 
 def render_frame(grid: DenseGrid, transform, fx, fy,
@@ -436,10 +444,13 @@ def _warp_to_screen(inter, opt: RenderOptions, R, fx, fy,
     (``display_warp.warp_precise``: f32 tables and a hand-written
     backward); every other pose takes the reference quad-gather warp with
     an f32 quad table, differentiated by autograd (the gather's backward
-    is a scatter-add). ``fits``: the per-pose fit predicates as a host
-    (P,) bool array, computed by the caller without waiting for the device
-    (slab_grad.render_frame_train does); None computes them here from the
-    device geometry and reads them back, which waits for the queued work.
+    is a scatter-add). ``fits``: the fit decisions, computed by the
+    caller without waiting for the device: for the precise warp a host
+    (P,) bool array of the per-pose predicates (slab_grad.
+    render_frame_train computes it from the camera), for the display warp
+    a display_warp.FitPlan (render_frames queues it ahead of the march);
+    None computes them here and reads them back, which waits for the
+    queued work.
     (The NDC and mesh-background variants come with slice B.)"""
     if precise:
         if planar:
@@ -454,7 +465,8 @@ def _warp_to_screen(inter, opt: RenderOptions, R, fx, fy,
     if display_warp.usable(width, height, gi):
         return display_warp.warp_to_screen_sq(
             inter, opt, R, fx, fy, width, height, gi, perm,
-            u0, du, v0, dv, scale, out_dtype=out_dtype, planar=planar)
+            u0, du, v0, dv, scale, out_dtype=out_dtype, planar=planar,
+            plan=fits)
     if planar:
         inter = inter.movedim(1, -1)
     return display_warp.to_display_dtype(

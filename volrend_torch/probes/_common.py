@@ -9,9 +9,12 @@ cost, so the port has no floor."""
 
 from __future__ import annotations
 
+import contextlib
+import functools
+import importlib
 import os
 import time
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -115,21 +118,67 @@ def sync_time(fn: Callable, *args, reps: int = 3) -> float:
     return min(ts)
 
 
-def profile_run(fn: Callable, tag: str, log: Callable = log) -> None:
+def table_warp_level(geom, planes, idx, B, win, bg: float, out_dtype):
+    """The display warp of the poses ``idx`` at one cascade level as the
+    port composed it before kernel W, the yardstick W is held to (by
+    chip_smoke.py and the card tests): the PyTorch geometry
+    (display_warp._level_geometry), kernel B's int8 table and kernel C (on
+    CPU tensors their plain versions). ``geom``: the batch's _sub_slopes
+    geometry; ``planes``: its (P, 4, gi, gi) intermediate images. Returns
+    the (len(idx), H, W, 4) frames."""
+    from volrend_torch.ops import display_warp as dw
+    R, fx, fy, w, h, gi, perm, u0, du, v0, dv, scale = geom
+    sub = (R[idx], fx, fy, w, h, gi, perm, u0[idx], du[idx], v0[idx],
+           dv[idx], scale)
+    gys, gxs, okm, Y0, X0 = dw._level_geometry(sub, gi, B, win)
+    tbl = dw.build_table(planes[idx].contiguous(), win)
+    return dw.combine_emit(
+        tbl, Y0.contiguous(), X0.contiguous(),
+        (gys - Y0.float()[:, None]).contiguous(),
+        (gxs - X0.float()[:, None]).contiguous(), okm.contiguous(), gi, h,
+        w, B, win, bg, out_dtype=out_dtype)
+
+
+def mean_fits(geom, levels) -> torch.Tensor:
+    """(L, P) bool: the fit predicates as the display path took them
+    before its fit plan, the yardstick its decisions are held to: each
+    level's share of misfit blocks from the full-resolution slopes
+    (display_warp._pixel_slopes, _level_misfits), torch.mean'd and
+    compared with 1e-3 on the device."""
+    from volrend_torch.ops import display_warp as dw
+    gi = geom[5]
+    gyf, gxf = dw._pixel_slopes(*geom)
+    return torch.stack([torch.mean(dw._level_misfits(
+        gyf, gxf, gi, B, win).to(torch.float32), (1, 2)) < 1e-3
+        for B, win in levels])
+
+
+def profile_run(fn: Callable, tag: str, log: Callable = log,
+                ranges: Sequence[Tuple[str, str]] = ()) -> None:
     """Trace one call of ``fn`` with torch.profiler and ``log`` the device
     time by kernel name (the 30 largest), the device's busy time (the
     union of kernel intervals) and its idle share of the wall time. Raises
-    if the profiler saw no device activity."""
+    if the profiler saw no device activity.
+
+    ``ranges``: (module, attribute path) of functions to attribute device
+    time to, e.g. ("volrend_torch.ops.slab_render", "FrameGeom.__init__"):
+    each is wrapped in a ``record_function`` range for the trace only, and
+    its device time (the kernels launched inside it, nested ranges
+    included) and call count are logged, with the device time launched
+    outside every range. Attributes that do not exist are skipped."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _ranges_traced(ranges) as labels, profile(
+            activities=[ProfilerActivity.CPU,
+                        ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.events()
+    kern = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
     if not kern:
         raise RuntimeError(f"{tag}: the profiler saw no device activity")
     by_name: Dict[str, List] = {}
@@ -151,3 +200,83 @@ def profile_run(fn: Callable, tag: str, log: Callable = log) -> None:
         f" idle share {1.0 - busy / wall_ms:.4f}, {len(kern)} kernels")
     for name, (ms, n) in ranked[:30]:
         log(f"  {ms:9.3f} ms  x{n:<5d} {name[:150]}")
+    if labels:
+        _log_ranges(events, kern, labels, log)
+
+
+def _log_ranges(events, kern, labels, log) -> None:
+    """Per range label: the device time of the kernels (and copies) whose
+    launch call the host made inside one of its calls (nested ranges
+    included; this counts the hand-written kernels' ctypes launches too),
+    beside the device time the profiler links to the PyTorch ops inside
+    it, the host's time inside its calls and how many of its kernels the
+    host launched while the card was still running the kernel before
+    them (queued ahead: no host wait for the card in between); then the
+    device time launched outside every range."""
+    cpu = torch.autograd.DeviceType.CPU
+    # a kernel and the runtime call that launched it share a correlation id
+    launched_at = {e.id: e.time_range.start for e in events
+                   if e.device_type == cpu and e.name.startswith("cu")}
+    spans = {label: [(e.time_range.start, e.time_range.end, e)
+                     for e in events
+                     if e.name == label and e.device_type == cpu]
+             for label in labels}
+    work = [(launched_at.get(k.id),
+             (k.time_range.end - k.time_range.start) / 1e3) for k in kern]
+    # kernel i was queued ahead when its launch preceded the end of the
+    # kernel the card ran before it
+    order = sorted(range(len(kern)), key=lambda i: kern[i].time_range.start)
+    ahead = set()
+    for a, b in zip(order, order[1:]):
+        t = work[b][0]
+        if t is not None and t < kern[a].time_range.end:
+            ahead.add(b)
+    unlinked = sum(ms for t, ms in work if t is None)
+    covered = set()
+    for label in labels:
+        ms, mine = 0.0, []
+        for i, (t, dur) in enumerate(work):
+            if t is not None and any(a <= t <= b for a, b, _ in spans[label]):
+                ms += dur
+                mine.append(i)
+                covered.add(i)
+        linked = sum(e.device_time_total for *_, e in spans[label]) / 1e3
+        host = sum(b - a for a, b, _ in spans[label]) / 1e3
+        log(f"  range {label}: {ms:9.3f} ms launched inside, {linked:9.3f} "
+            f"ms linked to its PyTorch ops, host {host:9.3f} ms, "
+            f"x{len(spans[label])} calls; {len(ahead.intersection(mine))} "
+            f"of its {len(mine)} kernels queued ahead")
+    outside = sum(dur for i, (t, dur) in enumerate(work)
+                  if t is not None and i not in covered)
+    log(f"  outside every range: {outside:9.3f} ms; launch not found: "
+        f"{unlinked:.3f} ms (of {sum(ms for _, ms in work):.3f} ms)")
+
+
+@contextlib.contextmanager
+def _ranges_traced(ranges):
+    """Wrap each (module, attribute path) function in a record_function
+    range named after it for the duration of the block; yields the
+    labels."""
+    saved = []
+    try:
+        for mod, path in ranges:
+            owner = importlib.import_module(mod)
+            *head, attr = path.split(".")
+            for part in head:
+                owner = getattr(owner, part, None)
+            fn = getattr(owner, attr, None)
+            if fn is None:
+                continue
+            label = path.replace(".__init__", "")
+
+            @functools.wraps(fn)
+            def traced(*a, _fn=fn, _label=label, **kw):
+                with torch.profiler.record_function(_label):
+                    return _fn(*a, **kw)
+
+            setattr(owner, attr, traced)
+            saved.append((owner, attr, fn, label))
+        yield [label for *_, label in saved]
+    finally:
+        for owner, attr, fn, _ in reversed(saved):
+            setattr(owner, attr, fn)
