@@ -57,7 +57,12 @@ Phases (any failure exits non-zero and prints no result):
    ``make_solid_tree(max_depth=7, basis_dim=9, seed=7)``, G=256 SH9,
    800^2 frames, gi=256, 4 orbit poses of one (perm, flip) group,
    ``FrameTrainer(lr=5e-2)``): kernel M's training mode and the backward
-   kernel against their plain versions on pose 0, with times and bounds;
+   kernel against their plain versions on pose 0, both on the bake's own
+   f32 tensor (the default trainer's) and on its bf16 cast (the lean
+   trainer's), seen through the group's permutation, and the coarse
+   occupancy they share bit-equal to its plain version, with times, bounds
+   (at the tensor's element size), each launch's registers, spills and
+   blocks per SM, and the share of slabs skipped as empty;
    then the precise superquad warp's kernels on pose 0 (kernel B's and
    C's f32 table modes, the combine adjoint and the build adjoint) against
    their plain versions, with times, bounds and library yardsticks, and
@@ -68,6 +73,8 @@ Phases (any failure exits non-zero and prints no result):
    and read just after each run — every step must run exactly one launch
    of each kernel of its path and no plain version, and with the switch on
    no pose may take the reference warp — and the peak device memory;
+   ``--profile`` traces one step and fails if it holds a bf16 copy as long
+   as writing the bake in bf16 takes (the planar copy the kernels replaced);
 9. the recovery gate at G=128 (examples/train_slab_demo.py): corrupt the
    leaf rows, train 60 steps, PSNR must rise by more than 5 dB;
 10. one JSON line with every kernel's numbers, then the result line.
@@ -117,6 +124,7 @@ MAX_FREEZE_FLIPS = 1e-4   # share of rays
 # the payload cotangent (f32 both; the kernel adds with atomics in a
 # run-dependent order, and a freeze-flipped ray moves its own voxels' terms)
 TOL_BWD_REL = 1e-3
+TOL_BWD_REL_BF16 = 4e-3   # a bf16 cotangent: the f32 one rounded once
 MIN_BWD_COS = 0.9999
 TOL_C_F32 = 1e-5    # combine f32 emit
 TOL_C_U8 = 1        # combine uint8 emit, in display quanta
@@ -221,8 +229,10 @@ def march_work(torch, pay, qs, zb, slab_ids, G: int, bd: int,
     the per-pixel z intervals: a slab is marched for a pose when some
     pixel's interval [zlo, zhi] (zb[p, 0:2]) meets it; a voxel is shaded,
     and its colour planes read, only when its sigma is above the threshold.
-    Returns (sigma-plane bytes of the slabs marched for any pose, colour
-    bytes of their voxels above the threshold, per pose: voxels above the
+    Bytes count the payload's element size (int8 codes; a training
+    payload's f32 or bf16 values). Returns (sigma bytes of the slabs
+    marched for any pose, colour bytes of their voxels above the
+    threshold, per pose: voxels above the
     threshold in its marched slabs, per pose: (pixel, slab) pairs marched).
     The pairs count every slab of a pixel's interval, also those behind the
     point where the ray saturates."""
@@ -233,8 +243,9 @@ def march_work(torch, pay, qs, zb, slab_ids, G: int, bd: int,
     over = []
     for s in ids:
         sl = pay[s]
+        # a training payload's values as the kernels read them (bf16)
         sig = (sl[D - 1].float() * 128.0 + sl[D].float() if sig_planes == 2
-               else sl[D - 1].float())
+               else sl[D - 1].to(torch.bfloat16).float())
         over.append(int((sig * float(qs[D - 1]) > sigma_thresh).sum()))
     over = np.asarray(over, np.int64)
     hG = 0.5 / G
@@ -403,13 +414,12 @@ def train_phase(torch, dev, stats):
     tgt = torch.full((H, W, 4), 0.5, dtype=torch.float32, device=dev)
 
     # ---- 8a. kernel checks on pose 0 at full width ------------------------
+    # both kernels read the bake's own tensor through the group's
+    # permutation: the default trainer's f32 bake (the kernels line's rows)
+    # and the lean trainer's bf16 cast of it
     cam = cams[0]
     with torch.no_grad():
-        payload = slab_grad.bake_from_pyramid(tr.pyramid, tr.bmap)
-        planar = torch.empty((G, D, G, G), dtype=torch.bfloat16,
-                             device=dev).copy_(
-            payload.permute(perm[0], 3, perm[1], perm[2]))
-        del payload
+        bake = slab_grad.bake_from_pyramid(tr.pyramid, tr.bmap)
     geom = slab_render.FrameGeom(tr.grid, cam.transform, cam.fx, cam.fy,
                                  perm, flip, W, H, tr.opt, GI)
     ids = tuple(range(G - 1, -1, -1) if flip else range(G))
@@ -417,78 +427,32 @@ def train_phase(torch, dev, stats):
                             perm=perm, flip=flip, ids=ids, opt=tr.opt)
     params = slab_grad._pack_geom_params(geom, cfg, 1.0 / geom.scale)
     zb = torch.stack([geom.z_lo_pix, geom.z_hi_pix], 1)
-    qs = torch.ones(D, device=dev)
-
-    def run_m():
-        return slab_march.march_slabs(
-            planar, params, qs, zb, G, GI, D, bd, perm, slab_ids=ids,
-            flip=flip, bbox_full=True, dir_win=False)
-
-    m = slab_march.march_inputs(planar, params, zb, G, GI, ids)
-    sthr = float(m["params"][0, 14])
-
-    def run_m_plain():
-        return slab_march.march_slabs_ref(planar, qs, D=D, bd=bd, flip=flip,
-                                          **m)
-
-    acc_k = run_m()
-    torch.cuda.synchronize()
-    acc_p, mt_plain_ms = timed_once(torch, run_m_plain)
-    err, flips, nray = freeze_flip_check(
-        torch, f"training mode, pose 0, {G} slabs", acc_k, acc_p,
-        float(topt.stop_thresh))
-    del acc_p
-    stats["MT"] = {"max_abs_err": err, "plain_ms": mt_plain_ms,
-                   "ms": cuda_ms(torch, run_m, KREPS), "library_ms": None}
-    stats["MT"]["bound_ms"], stats["MT"]["bound_by"] = march_bound(
-        torch, planar, qs, m["zb"], ids, G, GI, bd, sthr)
-    sig_b, col_b, (over,), (pairs,) = march_work(torch, planar, qs, m["zb"],
-                                                 ids, G, bd, sthr)
-    log(f"train: pose 0's march reads {sig_b} B of sigma planes and {col_b} "
-        f"B of colour planes ({over} voxels above the sigma threshold) and "
-        f"marches {pairs} (pixel, slab) pairs")
-
     rng = np.random.default_rng(0)
     gacc4 = torch.as_tensor(rng.normal(size=(4, GI, GI)).astype(np.float32),
                             device=dev)
-    acc4 = acc_k[0]
-
-    def run_b():
-        return slab_march.march_slabs_bwd(
-            planar, params[0], qs, zb[0], gacc4, acc4, G, GI, D, bd, perm,
-            flip=flip, bbox_full=True)
-
-    g_k = run_b()
-    torch.cuda.synchronize()
-    bprm, bzb, bgacc, aux = slab_march.march_bwd_inputs(
-        params[0], zb[0], gacc4, acc4, G, GI)
-    g_p, mb_plain_ms = timed_once(
-        torch, lambda: slab_march.march_slabs_bwd_ref(
-            planar, qs, bprm, bzb, bgacc, aux, G, GI, D, bd, flip))
-    gk, gp = g_k.double(), g_p.double()
-    rel = float((gk - gp).norm() / gp.norm())
-    cos = float((gk * gp).sum() / (gk.norm() * gp.norm()))
-    mx = float((g_k - g_p).abs().max())
-    log(f"kernel M-bwd [pose 0, {G} slabs]: relative L2 {rel:.3e}, cosine "
-        f"{cos:.9f}, max |diff| {mx:.3e} (max |plain| "
-        f"{float(gp.abs().max()):.3e}); forward freeze flips {flips} of "
-        f"{nray} rays (tolerance: relative L2 < {TOL_BWD_REL}, cosine > "
-        f"{MIN_BWD_COS})")
-    if not (np.isfinite(rel) and rel < TOL_BWD_REL and cos > MIN_BWD_COS):
-        fail("the backward kernel disagrees with its plain version")
-    del g_k, g_p, gk, gp
-    stats["MB"] = {"max_abs_err": mx, "rel_l2": rel, "cosine": cos,
-                   "freeze_flips": flips, "plain_ms": mb_plain_ms,
-                   "ms": cuda_ms(torch, run_b, KREPS), "library_ms": None}
-    stats["MB"]["bound_ms"], stats["MB"]["bound_by"] = march_bwd_bound(
-        torch, planar, qs, bzb[None], G, GI, bd, sthr)
-    log(f"train kernels: M (training mode) {json.dumps(stats['MT'])}; "
-        f"M-bwd {json.dumps(stats['MB'])}")
+    acc4 = None
+    for dt in (torch.float32, torch.bfloat16):
+        pay = bake if dt == torch.float32 else bake.to(torch.bfloat16)
+        planar = pay.permute(perm[0], 3, perm[1], perm[2])
+        res = train_kernel_checks(torch, dev, planar, params, zb, gacc4, ids,
+                                  cfg, float(topt.stop_thresh))
+        log(f"train kernels [{dt}]: M (training mode) "
+            f"{json.dumps(res['MT'])}; M-bwd {json.dumps(res['MB'])}; "
+            f"coarse occupancy {json.dumps(res['MO'])}")
+        if dt == torch.float32:
+            stats["MT"], stats["MB"], stats["MO"] = (res["MT"], res["MB"],
+                                                     res["MO"])
+            acc4 = res["acc4"]
+        else:
+            stats["train_lean_kernels"] = {k: res[k]
+                                           for k in ("MT", "MB", "MO")}
+        del pay, planar, res
+    del bake
     # the training finalize of pose 0's march: (1, gi, gi, 4) rgb, 1 - T
     inter = torch.cat([acc4[:3], 1.0 - acc4[3:]]).movedim(0, -1)[None]
     gargs = (geom.R, geom.fx, geom.fy, W, H, GI, perm, geom.u0, geom.du,
              geom.v0, geom.dv, geom.scale)
-    del planar, acc_k, acc4, m, aux
+    del acc4
     torch.cuda.empty_cache()
 
     # ---- 8b. the precise superquad warp on pose 0 --------------------------
@@ -508,10 +472,11 @@ def train_phase(torch, dev, stats):
     n = off["steps"]
     for name, c in (("switch off", off["counts"]),
                     ("switch on", on["counts"])):
-        if (c["march"] != n or c["march_bwd"] != n
+        if (c["march"] != n or c["march_bwd"] != n or c["occupancy"] != n
                 or sum(c["plain"].values())):
             fail(f"train ({name}): a step did not run exactly one launch of "
-                 f"kernels M and M-bwd and no plain version ({c})")
+                 f"kernels M and M-bwd and of their shared coarse occupancy, "
+                 f"and no plain version ({c})")
     c = off["counts"]
     if (c["build_f32"], c["combine_f32"], c["combine_adj"],
             c["build_adj"], c["ref_warp_poses"]) != (0, 0, 0, 0, n):
@@ -523,8 +488,18 @@ def train_phase(torch, dev, stats):
              f"B-f32, C-f32 and kernels 5 and 6, or a pose took the "
              f"reference warp ({c})")
     if "--profile" in sys.argv[1:]:
-        _common.profile_run(lambda: tr.step_frame(cams[0], tgt),
-                            "training step", log)
+        prof = _common.profile_run(lambda: tr.step_frame(cams[0], tgt),
+                                   "training step", log)
+        # the kernels read the bake itself: a bf16 copy as long as writing
+        # the bake's values in bf16 takes at the memory's rate would be the
+        # planar copy they replaced
+        least = G ** 3 * D * 2 / HBM_BYTES_PER_S * 1e3
+        copies = {k: v for k, v in prof.items() if "bfloat16_copy" in k}
+        big = {k: v for k, v in copies.items() if v[2] >= least}
+        log(f"training step: bf16 copies (ms, launches, longest ms) "
+            f"{copies}; none may take {least:.4f} ms or more")
+        if big:
+            fail(f"the training step copies the bake to bf16 ({big})")
         display_warp._PRECISE_SQ = True
         try:
             _common.profile_run(lambda: tr.step_frame(cams[0], tgt),
@@ -545,6 +520,155 @@ def train_phase(torch, dev, stats):
     return summary
 
 
+def train_occupancy(kernels, bd: int, f32: bool) -> dict:
+    """What the card makes of the training kernels' launches
+    (vt_march_slabs_info, vt_march_slabs_bwd_info): resident blocks per SM,
+    registers a thread, spill bytes a thread and dynamic shared memory of
+    kernel M's training mode and of the backward's passes, and the launch
+    configuration they were built with."""
+    import ctypes
+    m = (ctypes.c_int * 11)()
+    kernels.check(kernels.lib("slab_march").vt_march_slabs_info(
+        bd, int(f32), m), "slab_march")
+    b = (ctypes.c_int * 7)()
+    kernels.check(kernels.lib("slab_march_bwd").vt_march_slabs_bwd_info(
+        bd, int(f32), b), "slab_march_bwd")
+    keys = ("blocks_per_sm", "regs", "spill_bytes", "smem")
+    return {"M": dict(zip(keys, m[:4])),
+            "M-bwd pass 1": dict(zip(keys, b[:4])),
+            "M-bwd pass 2": dict(zip(keys[:3], b[4:])),
+            "config": dict(zip(("ty", "tx", "nt", "ps", "ring", "dc",
+                                "rslots"), m[4:]))}
+
+
+def train_kernel_checks(torch, dev, planar, params, zb, gacc4, ids, cfg,
+                        stop):
+    """Phase 8a on one payload (the bake's f32 view or its bf16 cast):
+    kernel M's training mode and the backward kernel against their plain
+    versions on pose 0 (and their shared coarse occupancy, bit-equal to its
+    plain version), their times, bounds (counted at the payload's element
+    size), launch configuration and the share of slabs and jobs skipped as
+    empty (the kernels' counts). Returns {"MT", "MB", "MO", "acc4"}."""
+    from volrend_torch import kernels
+    from volrend_torch.ops import slab_march
+    G, D, bd = cfg.G, cfg.D, cfg.bd
+    perm, flip = cfg.perm, cfg.flip
+    f32 = planar.dtype == torch.float32
+    qs = torch.ones(D, device=dev)
+    tag = f"pose 0, {G} slabs, {planar.dtype}"
+
+    m = slab_march.march_inputs(planar, params, zb, G, GI, ids)
+    sthr = float(m["params"][0, 14])
+    # the coarse occupancy both kernels share (built once a step)
+    occ = slab_march.march_occupancy(planar, m["params"], qs)
+    occ_p, mo_plain_ms = timed_once(
+        torch, lambda: slab_march.march_occupancy_ref(planar, m["params"],
+                                                      qs))
+    if not torch.equal(occ, occ_p):
+        fail(f"the coarse occupancy differs from its plain version ({tag})")
+    live = int(torch.count_nonzero(occ)), occ.numel()
+    mo = {"max_abs_err": 0.0, "plain_ms": mo_plain_ms, "library_ms": None,
+          "ms": cuda_ms(torch, lambda: slab_march.march_occupancy(
+              planar, m["params"], qs), KREPS)}
+    # bytes: every voxel's sigma read once, the masks written
+    mo["bound_ms"], mo["bound_by"] = bound(
+        planar.shape[0] * planar.shape[2] * planar.shape[3]
+        * planar.element_size() + occ.numel() * 8, 0)
+    log(f"coarse occupancy [{tag}]: bit-equal to its plain version; "
+        f"{live[0]} of {live[1]} (slab, block row) masks hold a block above "
+        f"the threshold")
+    del occ_p
+
+    def run_m():
+        return slab_march.march_slabs(
+            planar, params, qs, zb, G, GI, D, bd, perm, slab_ids=ids,
+            flip=flip, bbox_full=True, dir_win=False, occupancy=occ)
+    acc_k = run_m()
+    torch.cuda.synchronize()
+    acc_p, mt_plain_ms = timed_once(
+        torch, lambda: slab_march.march_slabs_ref(planar, qs, D=D, bd=bd,
+                                                  flip=flip, **m))
+    err, flips, nray = freeze_flip_check(
+        torch, f"training mode, {tag}", acc_k, acc_p, stop)
+    del acc_p
+    mt = {"max_abs_err": err, "plain_ms": mt_plain_ms,
+          "ms": cuda_ms(torch, run_m, KREPS), "library_ms": None}
+    mt["bound_ms"], mt["bound_by"] = march_bound(
+        torch, planar, qs, m["zb"], ids, G, GI, bd, sthr)
+    sig_b, col_b, (over,), (pairs,) = march_work(torch, planar, qs, m["zb"],
+                                                 ids, G, bd, sthr)
+    log(f"train [{tag}]: pose 0's march reads {sig_b} B of sigma and "
+        f"{col_b} B of colour ({over} voxels above the sigma threshold) "
+        f"and marches {pairs} (pixel, slab) pairs")
+
+    acc4 = acc_k[0]
+
+    def run_b():
+        return slab_march.march_slabs_bwd(
+            planar, params[0], qs, zb[0], gacc4, acc4, G, GI, D, bd, perm,
+            flip=flip, bbox_full=True, out_dtype=planar.dtype,
+            occupancy=occ)
+
+    g_k = run_b()
+    torch.cuda.synchronize()
+    if g_k.stride() != planar.stride():
+        fail(f"the backward's cotangent has strides {g_k.stride()}, not the "
+             f"payload's {planar.stride()}")
+    bprm, bzb, bgacc, aux = slab_march.march_bwd_inputs(
+        params[0], zb[0], gacc4, acc4, G, GI)
+    g_p, mb_plain_ms = timed_once(
+        torch, lambda: slab_march.march_slabs_bwd_ref(
+            planar, qs, bprm, bzb, bgacc, aux, G, GI, D, bd, flip))
+    # element by element over the (Gz, D, G, G) indices (the kernel's
+    # cotangent has the payload's strides, the plain version's is planar)
+    gk = g_k.double()
+    gp = g_p.double()
+    rel = float((gk - gp).norm() / gp.norm())
+    cos = float((gk * gp).sum() / (gk.norm() * gp.norm()))
+    mx = float((g_k.float() - g_p).abs().max())
+    # a bf16 cotangent is the f32 one rounded once (2^-9 relative)
+    tol = TOL_BWD_REL if f32 else TOL_BWD_REL_BF16
+    log(f"kernel M-bwd [{tag}]: relative L2 {rel:.3e}, cosine {cos:.9f}, "
+        f"max |diff| {mx:.3e} (max |plain| {float(gp.abs().max()):.3e}); "
+        f"forward freeze flips {flips} of {nray} rays (tolerance: relative "
+        f"L2 < {tol}, cosine > {MIN_BWD_COS})")
+    if not (np.isfinite(rel) and rel < tol and cos > MIN_BWD_COS):
+        fail(f"the backward kernel disagrees with its plain version ({tag})")
+    del g_k, g_p, gk, gp
+    mb = {"max_abs_err": mx, "rel_l2": rel, "cosine": cos,
+          "freeze_flips": flips, "plain_ms": mb_plain_ms,
+          "ms": cuda_ms(torch, run_b, KREPS), "library_ms": None}
+    mb["bound_ms"], mb["bound_by"] = march_bwd_bound(
+        torch, planar, qs, bzb[None], G, GI, bd, sthr,
+        out_bytes=planar.element_size())
+
+    # the launch configuration and the share skipped as empty
+    occ_info = train_occupancy(kernels, bd, f32)
+    tcfg = occ_info["config"]
+    cm = torch.zeros(slab_march.N_COUNTS, dtype=torch.int64, device=dev)
+    cb = torch.zeros(slab_march.N_COUNTS, dtype=torch.int64, device=dev)
+    slab_march._march_train_cuda(planar, qs, D=D, bd=bd, flip=flip,
+                                 counts=cm, occ=occ, **m)
+    slab_march._march_bwd_cuda(planar, bprm, qs, bzb, bgacc, aux, G, GI, D,
+                               bd, flip, planar.dtype, counts=cb, occ=occ)
+    torch.cuda.synchronize()
+    for name, c, st in (("M", cm, mt), ("M-bwd pass 1", cb, mb)):
+        met, shaded, pieces, staged, pshaded = (int(x) for x in c.tolist())
+        st["slabs_met"], st["slabs_shaded"] = met, shaded
+        st["skipped_share"] = 1.0 - shaded / max(met, 1)
+        st["pieces"] = {"met": pieces, "staged": staged, "shaded": pshaded}
+        log(f"kernel {name} [{tag}]: config {tcfg}, on the card "
+            f"{occ_info[name]}; {met} (tile, slab) pairs met, {shaded} "
+            f"shaded: {st['skipped_share']:.4f} skipped as empty; footprint "
+            f"pieces {st['pieces']} (staged: a coarse block above the "
+            f"threshold)")
+    log(f"kernel M-bwd pass 2 [{tag}]: on the card {occ_info['M-bwd pass 2']}")
+    mt["config"], mb["config"] = tcfg, tcfg
+    mt["occupancy"], mb["occupancy"] = occ_info["M"], {
+        k: occ_info[k] for k in ("M-bwd pass 1", "M-bwd pass 2")}
+    return {"MT": mt, "MB": mb, "MO": mo, "acc4": acc4}
+
+
 def timed_steps(torch, tr, cams, tgt, tag):
     """TRAIN_WARM untimed steps per pose, then TRAIN_STEPS synced and
     TRAIN_STEPS ``sync=False`` steps per pose with the launch counts reset
@@ -557,6 +681,7 @@ def timed_steps(torch, tr, cams, tgt, tag):
     plain_calls = count_plain_calls()
     slab_march.march_slabs.launches = 0
     slab_march.march_slabs_bwd.launches = 0
+    slab_march.march_occupancy.launches = 0
     display_warp.build_table.launches_f32 = 0
     display_warp.combine_emit.launches_f32 = 0
     display_warp.combine_adjoint.launches = 0
@@ -579,6 +704,7 @@ def timed_steps(torch, tr, cams, tgt, tag):
     peak = torch.cuda.max_memory_allocated() / 2**30
     counts = dict(march=slab_march.march_slabs.launches,
                   march_bwd=slab_march.march_slabs_bwd.launches,
+                  occupancy=slab_march.march_occupancy.launches,
                   build_f32=display_warp.build_table.launches_f32,
                   combine_f32=display_warp.combine_emit.launches_f32,
                   combine_adj=display_warp.combine_adjoint.launches,
@@ -1111,6 +1237,7 @@ def timed_once(torch, fn):
 
 _PLAIN = (("slab_march", "march_slabs_ref"),
           ("slab_march", "march_slabs_bwd_ref"),
+          ("slab_march", "march_occupancy_ref"),
           ("display_warp", "warp_display_ref"),
           ("display_warp", "level_fit_counts_ref"),
           ("display_warp", "build_table_ref"),
@@ -1745,7 +1872,8 @@ def main() -> None:
                "dense_vs_parent": dense_diff,
                "sparse_vs_parent": sparse_diff,
                "psnr_orbit_db": p_orbit, "psnr_sparse_db": p_sparse,
-               "dense_counts": counts, "sparse_counts": scounts, **tsum,
+               "dense_counts": counts, "sparse_counts": scounts,
+               "train_lean_kernels": stats.get("train_lean_kernels"), **tsum,
                **probe, "seconds": time.perf_counter() - _T0}
     log(f"summary {json.dumps(summary)}")
     spec = (
@@ -1766,6 +1894,9 @@ def main() -> None:
         ("MB", "slab_march_bwd", "volrend_torch/csrc/slab_march_bwd.cu",
          "volrend_tpu/ops/pallas_slab.py:951",
          tsum["train_counts"]["march_bwd"]),
+        ("MO", "slab_march_occupancy", "volrend_torch/csrc/slab_march.cu",
+         "volrend_tpu/ops/pallas_slab.py:344",
+         tsum["train_counts"]["occupancy"]),
         ("BF", "warp_build_f32", "volrend_torch/csrc/warp_build.cu",
          "volrend_tpu/ops/display_warp.py:139",
          tsum["train_precise_counts"]["build_f32"]),

@@ -9,6 +9,7 @@ package, so on a machine without JAX it runs without the repo's conftest:
 """
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import pytest
@@ -417,7 +418,7 @@ MIN_BWD_COS = 0.9999
 @pytest.fixture(scope="module")
 def train_parts(card):
     """A G=64 SH9 solid scene on the card, one orbit pose at gi=64: the
-    march config, the training march's bf16 planar payload, params, z
+    march config, the bake (f32) and its lean bf16 cast, params, z
     interval, and a seeded upstream cotangent."""
     from volrend_torch.ops import slab_grad
     tree = make_solid_tree(max_depth=5, basis_dim=9, seed=7)
@@ -433,44 +434,78 @@ def train_parts(card):
     cfg = slab_grad.SlabCfg(G=grid.G, gi=GI, D=grid.data_dim,
                             bd=grid.basis_dim, fmt=int(grid.fmt), perm=perm,
                             flip=flip, ids=ids, opt=opt)
-    planar = grid.data.permute(perm[0], 3, perm[1], perm[2]).to(
-        torch.bfloat16).contiguous()
+    bake = grid.data.float().contiguous()
     params = slab_grad._pack_geom_params(geom, cfg, 1.0 / geom.scale)
     zb = torch.stack([geom.z_lo_pix, geom.z_hi_pix], 1)
     rng = np.random.default_rng(0)
     gacc4 = torch.as_tensor(rng.normal(size=(4, GI, GI)).astype(np.float32),
                             device=card)
-    return cfg, planar, params, zb, gacc4
+    return cfg, {torch.float32: bake, torch.bfloat16: bake.to(
+        torch.bfloat16)}, params, zb, gacc4
 
 
-def _march_train(cfg, planar, params, zb):
+def _view(bake, perm):
+    """The training march's payload: the bake seen through the group's
+    permutation (channel stride 1)."""
+    return bake.permute(perm[0], 3, perm[1], perm[2])
+
+
+def _march_train(cfg, planar, params, zb, gi=GI):
     return slab_march.march_slabs(
         planar, params, torch.ones(cfg.D, device=planar.device), zb, cfg.G,
-        GI, cfg.D, cfg.bd, cfg.perm, slab_ids=cfg.ids, flip=cfg.flip,
+        gi, cfg.D, cfg.bd, cfg.perm, slab_ids=cfg.ids, flip=cfg.flip,
         bbox_full=True, dir_win=False)
 
 
-def test_train_march_matches_plain(train_parts):
-    cfg, planar, params, zb, _ = train_parts
-    n0 = slab_march.march_slabs.launches
-    acc = _march_train(cfg, planar, params, zb)
-    assert slab_march.march_slabs.launches == n0 + 1
-    m = slab_march.march_inputs(planar, params, zb, cfg.G, GI, cfg.ids)
-    ref = slab_march.march_slabs_ref(planar, torch.ones(cfg.D,
-                                                        device=planar.device),
-                                     D=cfg.D, bd=cfg.bd, flip=cfg.flip, **m)
-    torch.cuda.synchronize()
+def _march_plain(cfg, planar, params, zb, gi=GI):
+    m = slab_march.march_inputs(planar, params, zb, cfg.G, gi, cfg.ids)
+    return slab_march.march_slabs_ref(
+        planar, torch.ones(cfg.D, device=planar.device), D=cfg.D, bd=cfg.bd,
+        flip=cfg.flip, **m)
+
+
+def _freeze_flip_ok(acc, ref):
+    """TOL_TRAIN_M, except stop-threshold freeze flips: in saturated rays,
+    on at most MAX_FREEZE_FLIPS of them (+1), by at most stop + TOL."""
     diff = (acc - ref).abs().amax(1)
     off = diff > TOL_TRAIN_M
     sat = torch.maximum(acc[:, 3], ref[:, 3]) < OPT.stop_thresh
-    assert float(acc[:, 3].min()) < 0.5       # the scene was seen
+    assert float(diff.max()) <= OPT.stop_thresh + TOL_TRAIN_M
     assert bool(torch.all(sat[off]))
     assert int(off.sum()) <= MAX_FREEZE_FLIPS * off.numel() + 1
 
 
+def _bwd_agrees(gk, ref, out_dtype):
+    gk = gk.float().cpu().double()
+    ref = ref.float().cpu().double()
+    rel = float((gk - ref).norm() / ref.norm())
+    cos = float((gk * ref).sum() / (gk.norm() * ref.norm()))
+    # bf16 output: the f32 cotangent rounded once (2^-9 relative)
+    tol = TOL_BWD_REL if out_dtype == torch.float32 else 4e-3
+    assert float(ref.abs().max()) > 0
+    assert rel < tol and cos > MIN_BWD_COS, (rel, cos)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_march_matches_plain(train_parts, dtype):
+    """Kernel M's training mode on the bake's own f32 tensor and on the lean
+    trainer's bf16 one, through the group's permutation, against its plain
+    version on the same view."""
+    cfg, bakes, params, zb, _ = train_parts
+    planar = _view(bakes[dtype], cfg.perm)
+    n0 = slab_march.march_slabs.launches
+    acc = _march_train(cfg, planar, params, zb)
+    assert slab_march.march_slabs.launches == n0 + 1
+    ref = _march_plain(cfg, planar, params, zb)
+    torch.cuda.synchronize()
+    assert float(acc[:, 3].min()) < 0.5       # the scene was seen
+    _freeze_flip_ok(acc, ref)
+
+
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_march_bwd_matches_plain(train_parts, out_dtype):
-    cfg, planar, params, zb, gacc4 = train_parts
+    cfg, bakes, params, zb, gacc4 = train_parts
+    planar = _view(bakes[out_dtype], cfg.perm)
     acc4 = _march_train(cfg, planar, params, zb)[0]
     qs = torch.ones(cfg.D, device=planar.device)
     n0 = slab_march.march_slabs_bwd.launches
@@ -479,19 +514,171 @@ def test_march_bwd_matches_plain(train_parts, out_dtype):
                                     cfg.perm, flip=cfg.flip, bbox_full=True,
                                     out_dtype=out_dtype)
     assert slab_march.march_slabs_bwd.launches == n0 + 1
-    assert gk.dtype == out_dtype
+    assert gk.dtype == out_dtype and gk.stride() == planar.stride()
     ref = slab_march.march_slabs_bwd(planar.cpu(), params[0].cpu(), qs.cpu(),
                                      zb[0].cpu(), gacc4.cpu(), acc4.cpu(),
                                      cfg.G, GI, cfg.D, cfg.bd, cfg.perm,
                                      flip=cfg.flip, bbox_full=True)
-    gk = gk.float().cpu().double()
-    ref = ref.double()
-    rel = float((gk - ref).norm() / ref.norm())
-    cos = float((gk * ref).sum() / (gk.norm() * ref.norm()))
-    # bf16 output: the f32 cotangent rounded once (2^-9 relative)
-    tol = TOL_BWD_REL if out_dtype == torch.float32 else 4e-3
-    assert float(ref.abs().max()) > 0
-    assert rel < tol and cos > MIN_BWD_COS, (rel, cos)
+    _bwd_agrees(gk, ref, out_dtype)
+
+
+@pytest.fixture(scope="module")
+def group_geom(card):
+    """A G=32 solid scene's geometry on the card and one camera per
+    (perm, flip) group (48^2 frames, gi=40)."""
+    from _torch_perms import group_cams
+    tree = make_solid_tree(max_depth=4, basis_dim=1, seed=3)
+    grid = dense_grid.bake_dense(tree.to_device(lut_depth=None, device=card))
+    return grid, group_cams(grid, 48, 48, 60.0)
+
+
+def _two_cubes(G, D, dtype, device, seed):
+    """A (G, G, G, D) bake with sigma above the threshold only in two cubes
+    apart ([G/8, 3G/8) and [5G/8, 7G/8) on every axis), so every slab axis
+    meets empty slabs before, between and after them; colours everywhere."""
+    rng = np.random.default_rng(seed)
+    bake = rng.normal(0.0, 0.6, size=(G, G, G, D)).astype(np.float32)
+    sig = rng.uniform(-2.0, -0.5, size=(G, G, G)).astype(np.float32)
+    for lo in (G // 8, 5 * G // 8):
+        hi = lo + G // 4
+        sig[lo:hi, lo:hi, lo:hi] = rng.uniform(
+            5.0, 80.0, size=(hi - lo,) * 3)
+    bake[..., D - 1] = sig
+    return torch.as_tensor(bake, device=device).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bd", [1, 4, 9, 16])
+def test_train_kernels_every_group_and_record(group_geom, bd, dtype):
+    """Both training kernels against their plain versions in every (perm,
+    flip) group, on f32 and bf16 bakes whose records (D = 4, 13, 28, 49:
+    16, 52, 112, 196 B in f32, half in bf16) take 16-byte copies where they
+    are 16-byte aligned and 4-byte words elsewhere, on a scene with empty
+    slabs between occupied ones: the launch counts show slabs skipped as
+    empty and slabs shaded; the coarse occupancy equals its plain version
+    bit for bit."""
+    from volrend_torch.ops import slab_grad
+    grid, cams = group_geom
+    assert len(cams) == 12
+    G, D, gi = grid.G, 3 * bd + 1, 40
+    bake = _two_cubes(G, D, dtype, grid.data.device, seed=bd)
+    opt = OPT.replace(renormalize=False)
+    rng = np.random.default_rng(bd)
+    for (perm, flip), cam in sorted(cams.items()):
+        geom = slab_render.FrameGeom(grid, cam.transform, cam.fx, cam.fy,
+                                     perm, flip, 48, 48, opt, gi)
+        ids = tuple(range(G - 1, -1, -1) if flip else range(G))
+        cfg = slab_grad.SlabCfg(G=G, gi=gi, D=D, bd=bd, fmt=int(grid.fmt),
+                                perm=perm, flip=flip, ids=ids, opt=opt)
+        params = slab_grad._pack_geom_params(geom, cfg, 1.0 / geom.scale)
+        zb = torch.stack([geom.z_lo_pix, geom.z_hi_pix], 1)
+        planar = _view(bake, perm)
+        m = slab_march.march_inputs(planar, params, zb, G, gi, ids)
+        qs = torch.ones(D, device=planar.device)
+        occ = slab_march.march_occupancy(planar, m["params"], qs)
+        assert torch.equal(occ, slab_march.march_occupancy_ref(
+            planar, m["params"], qs))
+        counts = torch.zeros(slab_march.N_COUNTS, dtype=torch.int64,
+                             device=planar.device)
+        acc = slab_march._march_train_cuda(planar, qs, D=D, bd=bd, flip=flip,
+                                           counts=counts, **m)
+        ref = slab_march.march_slabs_ref(planar, qs, D=D, bd=bd, flip=flip,
+                                         **m)
+        torch.cuda.synchronize()
+        assert float(acc[:, 3].min()) < 0.5, (perm, flip)
+        _freeze_flip_ok(acc, ref)
+        entered, shaded = int(counts[0]), int(counts[1])
+        assert 0 < shaded < entered, (perm, flip, counts.tolist())
+        gacc4 = torch.as_tensor(rng.normal(size=(4, gi, gi)).astype(
+            np.float32), device=planar.device)
+        gk = slab_march.march_slabs_bwd(planar, params[0], qs, zb[0], gacc4,
+                                        acc[0], G, gi, D, bd, perm,
+                                        flip=flip, bbox_full=True,
+                                        out_dtype=dtype)
+        assert gk.stride() == planar.stride()
+        prm, bzb, bgacc, aux = slab_march.march_bwd_inputs(
+            params[0], zb[0], gacc4, acc[0], G, gi)
+        gp = slab_march.march_slabs_bwd_ref(planar, qs, prm, bzb, bgacc, aux,
+                                            G, gi, D, bd, flip)
+        _bwd_agrees(gk, gp, dtype)
+
+
+def test_train_kernels_past_512_columns(card):
+    """Both training kernels at G = 600 (a dense fog, f32, SH1) against
+    their plain versions: past 512 columns the coarse occupancy takes two
+    64-bit masks a row, and a wide view's tile footprints cover most of a
+    slab (up to 25 x 25 pieces with a voxel above the threshold, more on
+    average than one round of the job list holds, LIST_CAP = 512), so
+    slabs are split across rounds. The coarse occupancy equals its plain
+    version bit for bit."""
+    from _torch_perms import group_cams
+    from volrend_torch.ops import slab_grad
+    G, D, bd, gi, side = 600, 4, 1, 8, 32
+    tree = make_solid_tree(max_depth=2, basis_dim=1, seed=3)
+    grid = dataclasses.replace(dense_grid.bake_dense(
+        tree.to_device(lut_depth=None, device=card)), G=G, occ_max=None)
+    (perm, flip), cam = sorted(group_cams(grid, side, side, 12.0).items())[0]
+    opt = OPT.replace(renormalize=False)
+    geom = slab_render.FrameGeom(grid, cam.transform, cam.fx, cam.fy, perm,
+                                 flip, side, side, opt, gi)
+    ids = tuple(range(G - 1, -1, -1) if flip else range(G))
+    cfg = slab_grad.SlabCfg(G=G, gi=gi, D=D, bd=bd, fmt=int(grid.fmt),
+                            perm=perm, flip=flip, ids=ids, opt=opt)
+    params = slab_grad._pack_geom_params(geom, cfg, 1.0 / geom.scale)
+    zb = torch.stack([geom.z_lo_pix, geom.z_hi_pix], 1)
+    gen = torch.Generator(device=card).manual_seed(0)
+    bake = torch.empty((G, G, G, D), device=card)
+    bake[..., :D - 1].normal_(0.0, 0.6, generator=gen)
+    bake[..., D - 1].uniform_(0.5, 1.5, generator=gen)
+    planar = _view(bake, perm)
+    m = slab_march.march_inputs(planar, params, zb, G, gi, ids)
+    qs = torch.ones(D, device=card)
+    occ = slab_march.march_occupancy(planar, m["params"], qs)
+    assert occ.shape == (G, G // 8, 2)
+    assert torch.equal(occ, slab_march.march_occupancy_ref(
+        planar, m["params"], qs))
+    counts = torch.zeros(slab_march.N_COUNTS, dtype=torch.int64,
+                         device=card)
+    acc = slab_march._march_train_cuda(planar, qs, D=D, bd=bd, flip=flip,
+                                       counts=counts, occ=occ, **m)
+    ref = slab_march.march_slabs_ref(planar, qs, D=D, bd=bd, flip=flip, **m)
+    torch.cuda.synchronize()
+    assert float(acc[:, 3].min()) < 0.5
+    _freeze_flip_ok(acc, ref)
+    met, _, pieces, staged, _ = counts.tolist()
+    assert pieces > 512 * met and staged == pieces, counts.tolist()
+    gacc4 = torch.randn((4, gi, gi), device=card, generator=gen)
+    gk = slab_march.march_slabs_bwd(planar, params[0], qs, zb[0], gacc4,
+                                    acc[0], G, gi, D, bd, perm, flip=flip,
+                                    bbox_full=True, occupancy=occ)
+    assert gk.stride() == planar.stride()
+    prm, bzb, bgacc, aux = slab_march.march_bwd_inputs(
+        params[0], zb[0], gacc4, acc[0], G, gi)
+    gp = slab_march.march_slabs_bwd_ref(planar, qs, prm, bzb, bgacc, aux, G,
+                                        gi, D, bd, flip)
+    _bwd_agrees(gk, gp, torch.float32)
+
+
+@pytest.mark.parametrize("lean", [False, True])
+def test_march_gradient_on_card_has_the_bake_layout(train_parts, lean):
+    """Through _MarchKernel on the card, the gradient that reaches the bake
+    (through the permutation back and, for the lean trainer, the cast) is
+    contiguous, and the kernel's cotangent has the view's strides."""
+    from volrend_torch.ops import slab_grad
+    cfg, bakes, params, zb, _ = train_parts
+    leaf = bakes[torch.float32].clone().requires_grad_(True)
+    bake = leaf * 1.0
+    seen, grad_view = [], []
+    bake.register_hook(seen.append)
+    pdt = torch.bfloat16 if lean else torch.float32
+    planar = _view(bake.to(pdt), cfg.perm)
+    planar.register_hook(grad_view.append)
+    acc, T = slab_grad._MarchKernel.apply(planar, params[0], zb[0], cfg)
+    (torch.sum(acc) + torch.sum(T)).backward()
+    (gb,), (gv,) = seen, grad_view
+    assert gb.is_contiguous() and gb.dtype == torch.float32
+    assert gv.dtype == pdt and gv.stride() == planar.stride()
+    assert float(gb.abs().max()) > 0
 
 
 def test_frame_train_card_matches_cpu(card):
@@ -523,23 +710,41 @@ def test_frame_train_card_matches_cpu(card):
     assert float((g_c - g_g).norm() / g_c.norm()) < 1e-3
 
 
+_COPY_OPS = ("aten::copy_", "aten::_to_copy", "aten::to", "aten::clone",
+             "aten::contiguous")
+
+
 def test_frame_trainer_on_card_uses_the_kernels(card):
     """Every step_frame runs one launch of each kernel (default and lean
-    trainers) and descends."""
+    trainers; one coarse occupancy serves both march kernels) and descends;
+    no step copies the bake into a planar (G, D, G, G) tensor (no copy op
+    in the profiler's record takes one: the kernels read the bake's own
+    tensor)."""
+    from torch.profiler import ProfilerActivity, profile
     from volrend_torch.train import FrameTrainer
     tree = make_solid_tree(max_depth=4, basis_dim=9, seed=7)
     tdev = tree.to_device(lut_depth=None, device=card)
     cams = _cams([(np.cos(0.25), np.sin(0.25), 0.45)], fx=200.0)
     for lean in (False, True):
         tr = FrameTrainer(tdev, opt=OPT, lr=5e-2, gi=64, lean=lean)
+        G, D = tr.grid.G, tr.grid.data_dim
         tgt = torch.full((H, W, 4), 0.5, device=card)
         m0 = slab_march.march_slabs.launches
         b0 = slab_march.march_slabs_bwd.launches
-        losses = [tr.step_frame(cams[0], tgt) for _ in range(3)]
+        o0 = slab_march.march_occupancy.launches
+        losses = [tr.step_frame(cams[0], tgt) for _ in range(2)]
+        with profile(activities=[ProfilerActivity.CPU],
+                     record_shapes=True) as prof:
+            losses.append(tr.step_frame(cams[0], tgt))
         assert slab_march.march_slabs.launches == m0 + 3
         assert slab_march.march_slabs_bwd.launches == b0 + 3
+        assert slab_march.march_occupancy.launches == o0 + 3  # shared
         assert all(np.isfinite(losses)) and losses[-1] < losses[0]
         assert tr.pyramid[-1].device.type == "cuda"
+        planar = [G, D, G, G]
+        copies = [e.name for e in prof.events()
+                  if e.name in _COPY_OPS and planar in (e.input_shapes or [])]
+        assert not copies, (lean, copies)
 
 
 # ---------------------------------------------------------------------------

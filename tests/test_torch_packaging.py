@@ -98,15 +98,17 @@ def test_cuda_sources_name_their_tpu_kernel():
         assert name in kernels.SOURCES[name[:-3]][0]
 
 
-_C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float}
+_C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float,
+            "long": ctypes.c_longlong}
 
 
 @pytest.mark.parametrize("name", sorted(kernels.SOURCES))
 def test_c_entries_match_their_argtypes(name):
     """Each C entry that ``kernels.SOURCES`` binds is defined in its source
     with the parameters its ctypes argtypes list: pointers as c_void_p,
-    ints as c_int, floats as c_float (a mismatch would pass a truncated
-    pointer or a wrong value without an error)."""
+    ints as c_int, long longs as c_longlong, floats as c_float (a
+    mismatch would pass a truncated pointer or a wrong value without an
+    error)."""
     src, entries = kernels.SOURCES[name]
     text = open(os.path.join(ROOT, "volrend_torch", "csrc", src)).read()
     for fn, argtypes in entries.items():

@@ -25,6 +25,7 @@ from volrend_tpu.utils.options import RenderOptions as JOpt
 from volrend_torch.ops import slab_grad, slab_march, slab_render
 from volrend_torch.utils.options import RenderOptions
 
+from _torch_perms import group_cams
 from _torch_scenes import make_cam, scene
 
 torch.set_num_threads(1)
@@ -318,15 +319,9 @@ def _frame_data(maps):
     return rows, cam, perm, flip
 
 
-@pytest.fixture(scope="module")
-def frame_case(maps):
-    """bf16-representable data, a pose, a seeded target, and the
-    reference's training frame, loss and pyramid gradient (one jax.vjp
-    trace per scene)."""
-    _, _, _, _, _, jg, jb = maps
-    rows, cam, perm, flip = _frame_data(maps)
-    tgt = np.random.default_rng(3).uniform(0, 1, (H, W, 4)).astype(
-        np.float32)
+def _reference_frame(jg, jb, rows, cam, perm, flip, tgt):
+    """The reference's training frame, loss and pyramid gradient for one
+    pose (one jax.vjp trace)."""
     jp = j_sg.data_to_pyramid(jnp.asarray(rows), jb)
     tr = jnp.asarray(cam.transform)
 
@@ -340,9 +335,20 @@ def frame_case(maps):
         return out, jnp.mean(diff * diff), vjp(ct)[0]
 
     out, loss, grads = frame_loss_grad(jp)
-    loss = float(loss)
-    return (rows, cam, perm, flip, tgt, np.asarray(out), loss,
-            [np.asarray(g) for g in grads])
+    return np.asarray(out), float(loss), [np.asarray(g) for g in grads]
+
+
+@pytest.fixture(scope="module")
+def frame_case(maps):
+    """bf16-representable data, a pose, a seeded target, and the
+    reference's training frame, loss and pyramid gradient (one jax.vjp
+    trace per scene)."""
+    _, _, _, _, _, jg, jb = maps
+    rows, cam, perm, flip = _frame_data(maps)
+    tgt = np.random.default_rng(3).uniform(0, 1, (H, W, 4)).astype(
+        np.float32)
+    out, loss, grads = _reference_frame(jg, jb, rows, cam, perm, flip, tgt)
+    return rows, cam, perm, flip, tgt, out, loss, grads
 
 
 def _use_scan(monkeypatch):
@@ -372,6 +378,60 @@ def test_loss_and_grad_frame_matches_reference(maps, frame_case, backend,
                                             gi=GI)
     assert slab_march.march_slabs.launches == n0     # CPU: plain versions
     assert np.isclose(float(loss), jl, rtol=1e-5)
+    for a, b in zip(g, jgr):
+        if float(np.abs(b).max()) == 0.0:
+            assert not bool(a.any())
+            continue
+        rel, _ = _rel_cos(a.numpy(), b)
+        assert rel < 1e-4, rel
+
+
+PERMS = [(0, 1, 2), (0, 2, 1), (1, 0, 2), (1, 2, 0), (2, 0, 1), (2, 1, 0)]
+
+
+@pytest.fixture(scope="module", params=[1, 4], ids=lambda b: f"SH{b}")
+def perm_scene(request):
+    """The dense scene at SH1 (D = 4) and SH4 (D = 13), f16-baked by both
+    packages, bf16-representable leaf rows, one camera per (perm, flip)
+    group and a seeded target."""
+    tdev, tg, jdev, jg = scene("dense", request.param, "f16")
+    rows = np.asarray(jnp.asarray(_rows32(jdev)).astype(jnp.bfloat16)
+                      .astype(jnp.float32))
+    tgt = np.random.default_rng(5).uniform(0, 1, (H, W, 4)).astype(
+        np.float32)
+    return (tg, slab_grad.build_bake_map(tdev), jg, j_sg.build_bake_map(jdev),
+            rows, group_cams(tg, W, H, 30.0), tgt)
+
+
+@pytest.mark.parametrize("perm", PERMS)
+def test_kernel_frame_gradient_every_perm(perm_scene, perm, monkeypatch):
+    """loss_and_grad_frame on the kernel path (its plain versions on the
+    CPU) for each of the six slab permutations,
+    flip alternating, at SH1 and SH4, against the reference's scan march
+    and jax.vjp: frame within 1e-5, loss to rtol 1e-5, gradient relative
+    L2 < 1e-4 per pyramid level (the tolerances of
+    test_loss_and_grad_frame_matches_reference)."""
+    tg, tb, jg, jb, rows, cams, tgt = perm_scene
+    flip = bool(PERMS.index(perm) % 2)
+    cam = cams[(perm, flip)]
+    assert slab_render.choose_axis(tg, cam.transform, cam.fx, cam.fy, W,
+                                   H)[:2] == (perm, flip)
+    ref, jl, jgr = _reference_frame(jg, jb, rows, cam, perm, flip, tgt)
+    calls = []
+    bwd_ref = slab_march.march_slabs_bwd_ref
+    monkeypatch.setattr(slab_march, "march_slabs_bwd_ref",
+                        lambda *a, **k: calls.append(1) or bwd_ref(*a, **k))
+    tp = slab_grad.data_to_pyramid(torch.tensor(rows), tb)
+    args = (cam.transform, cam.fx, cam.fy, perm, flip, W, H)
+    with torch.no_grad():
+        out = slab_grad.render_frame_train(tp, tb, tg, *args, OPT, gi=GI,
+                                           backend="kernel")
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+    loss, g = slab_grad.loss_and_grad_frame(tp, tb, tg, *args, tgt, OPT,
+                                            gi=GI)
+    assert calls == [1]                    # the kernel path's backward
+    assert np.isclose(float(loss), jl, rtol=1e-5)
+    assert any(float(np.abs(b).max()) > 0 for b in jgr)
     for a, b in zip(g, jgr):
         if float(np.abs(b).max()) == 0.0:
             assert not bool(a.any())

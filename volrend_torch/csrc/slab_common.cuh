@@ -1,12 +1,15 @@
 // Device helpers of the slab marches. The SH basis, the box-integration
 // overlap weight, the tile footprint and the pixel spans serve all three:
 // kernel M's display mode (slab_march_display.cu), its training mode
-// (slab_march.cu) and the backward (slab_march_bwd.cu). The bf16 payload
-// loads, the per-voxel shading and shade_and_sum (the per-slab footprint
-// shading with each pixel's tap sum) are shared by the training mode and
-// the backward only: both include this one copy, so the backward's forward
-// recompute does the same float operations as the training march. The
-// display mode stages and shades its int8 payload with its own code.
+// (slab_march.cu) and the backward (slab_march_bwd.cu). The training
+// march's slab loop (namespace tmarch: the payload in the bake's own layout,
+// the staged sigma ring, the empty-footprint skip, the colour records
+// staged for the cells above the threshold, the per-voxel shading and each
+// pixel's tap sums) is shared by the training mode and the backward only:
+// both run this one march_loop, so the backward's forward recompute does
+// the same float operations as the training march, stop-threshold freezes
+// included. The display mode stages and shades its int8 payload with its
+// own code.
 
 #pragma once
 
@@ -16,9 +19,6 @@
 
 namespace {
 
-constexpr int TILE = 16;              // intermediate pixels per block side
-constexpr int NTHREADS = TILE * TILE;
-constexpr int FMAX = 40;              // footprint piece side, in cells
 constexpr int NP = 31;                // params per pose (see _pack_params)
 
 // SH normalization constants (lumisphere.hpp:38-80)
@@ -100,49 +100,6 @@ __device__ __forceinline__ float sign_of(float s) {
   return (s > 0.f) ? 1.f : ((s < 0.f) ? -1.f : 0.f);
 }
 
-// one payload value as f32: a bf16 value
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-// sigma of the voxel at ``src`` (plane 0 of that voxel; planes ``plane``
-// apart): bf16 payloads hold sigma in plane D-1
-template <int D>
-__device__ __forceinline__ float voxel_sigma(const __nv_bfloat16* src,
-                                             size_t plane, const float* qs) {
-  return __bfloat162float(src[(size_t)(D - 1) * plane]) * qs[D - 1];
-}
-
-// the SH basis at the voxel's view direction and the voxel's rgb. The
-// direction is affine in the voxel's slope coordinates: s * dir =
-// dirM[:,0] * s + dirM[:,1] * ycm + dirM[:,2] * xcm (params 20:29), for the
-// camera distance ``s`` of the slab (per slab) or of the window centre
-// (display path); ``ssign`` = sign(s). The basis is scaled once per k by
-// qs[k] (the bake shares each basis function's scale across rgb).
-template <int BD, typename PayT>
-__device__ __forceinline__ void voxel_rgb(const PayT* src, size_t plane,
-                                          const float* qs, const float* prm,
-                                          float ycm, float xcm, float s,
-                                          float ssign, float* bk,
-                                          float* rgb) {
-  const float dw0 = (prm[21] * ycm + prm[22] * xcm) + prm[20] * s;
-  const float dw1 = (prm[24] * ycm + prm[25] * xcm) + prm[23] * s;
-  const float dw2 = (prm[27] * ycm + prm[28] * xcm) + prm[26] * s;
-  const float rn = rsqrtf(dw0 * dw0 + dw1 * dw1 + dw2 * dw2) * ssign;
-  sh_basis<BD>(dw0 * rn, dw1 * rn, dw2 * rn, bk);
-  float raw0 = 0.f, raw1 = 0.f, raw2 = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < BD; ++kk) {
-    const float bq = bk[kk] * qs[kk];
-    raw0 += ld(src + (size_t)kk * plane) * bq;
-    raw1 += ld(src + (size_t)(BD + kk) * plane) * bq;
-    raw2 += ld(src + (size_t)(2 * BD + kk) * plane) * bq;
-  }
-  rgb[0] = sigmoid(raw0);
-  rgb[1] = sigmoid(raw1);
-  rgb[2] = sigmoid(raw2);
-}
-
 // A tile's cell footprint at one slab, in global cells (+-1 cell of
 // rounding margin), clipped to [lo, hi] on each axis. The slope map is
 // affine in the pixel index, so the span extremes are at the tile's first
@@ -198,71 +155,839 @@ __device__ __forceinline__ PixelSpan pixel_span(float cyG, float cxG,
   return sp;
 }
 
-// The forward's per-slab work, shared by kernel M and the backward's
-// recompute so that both follow the same trajectory: the block shades its
-// footprint into shared memory as [sigma, sigma*r, sigma*g, sigma*b] (zero
-// under the sigma threshold; the colour planes are read only above it), in
-// pieces of FMAX x FMAX cells, and each pixel sums its overlap-weighted
-// taps. Returns (sw, rw, gw, bw) for this thread's pixel (zero if !inpix).
-// Every thread of the block must call it (it synchronizes). ``slab`` is the
-// slab's plane 0 in a (Dp, Gy, Gx) payload cropped at (y0, x0); ``sd`` and
-// ``sdsign`` the camera distance of the shading directions and its sign.
-template <int BD, typename PayT>
-__device__ __forceinline__ float4 shade_and_sum(
-    const PayT* slab, size_t plane, int Gx, int y0, int x0,
-    const Footprint& f, const PixelSpan& sp, bool inpix, int tid, int G,
-    float cy, float cx, float sigma_thresh, float sd, float sdsign,
-    const float* s_qs, const float* s_prm, float (*s_chan)[FMAX][FMAX + 1]) {
-  constexpr int D = 3 * BD + 1;
-  const float Gf = (float)G;
-  float sw = 0.f, rw = 0.f, gw = 0.f, bw = 0.f;
-  for (int py0 = f.y_lo; py0 <= f.y_hi; py0 += FMAX) {
-    const int FY = min(FMAX, f.y_hi - py0 + 1);
-    for (int px0 = f.x_lo; px0 <= f.x_hi; px0 += FMAX) {
-      const int FX = min(FMAX, f.x_hi - px0 + 1);
-      __syncthreads();  // the previous piece has been consumed
-      for (int i = tid; i < FY * FX; i += NTHREADS) {
-        const int ly = i / FX, lx = i - ly * FX;
-        const int gy = py0 + ly, gx = px0 + lx;
-        const PayT* src = slab + (size_t)(gy - y0) * Gx + (gx - x0);
-        const float sig = voxel_sigma<D>(src, plane, s_qs);
-        float o0 = 0.f, o1 = 0.f, o2 = 0.f, o3 = 0.f;
-        if (sig > sigma_thresh) {
-          const float ycm = ((float)gy + 0.5f) * (1.f / Gf) - cy;
-          const float xcm = ((float)gx + 0.5f) * (1.f / Gf) - cx;
-          float bk[BD], rgb[3];
-          voxel_rgb<BD>(src, plane, s_qs, s_prm, ycm, xcm, sd, sdsign, bk,
-                        rgb);
-          o0 = sig;
-          o1 = sig * rgb[0];
-          o2 = sig * rgb[1];
-          o3 = sig * rgb[2];
-        }
-        s_chan[0][ly][lx] = o0;
-        s_chan[1][ly][lx] = o1;
-        s_chan[2][ly][lx] = o2;
-        s_chan[3][ly][lx] = o3;
+
+// ---------------------------------------------------------------------------
+// The training march (kernel M's training mode and the backward's pass 1)
+// ---------------------------------------------------------------------------
+
+namespace tmarch {
+
+// The launch configuration, fixed at compile time: tiles of TY x TX
+// pixels; NT threads a block, a pixel each for the first TY * TX, all of
+// them staging and shading cells; footprint pieces of PS x PS cells; the
+// sigma of RING jobs staged ahead; the colour records of the job DC ahead
+// queued into RSLOTS slots a thread. The fastest of the configurations
+// probes/train_march.py times on the training bench (PERF.md); the probe
+// builds the others by defining all seven VT_TM_* macros.
+#ifndef VT_TM_TY
+#define VT_TM_TY 4
+#define VT_TM_TX 8
+#define VT_TM_NT 128
+#define VT_TM_PS 24
+#define VT_TM_RING 4
+#define VT_TM_DC 2
+#define VT_TM_RSLOTS 1
+#endif
+constexpr int TY = VT_TM_TY, TX = VT_TM_TX, NT = VT_TM_NT, PS = VT_TM_PS,
+              RING = VT_TM_RING, DC = VT_TM_DC, RSLOTS = VT_TM_RSLOTS;
+constexpr int CONFIG[7] = {TY, TX, NT, PS, RING, DC, RSLOTS};
+static_assert(TY >= 1 && TX >= 1 && NT >= TY * TX && NT % 32 == 0 &&
+                  NT <= 1024 && PS >= 4 && RING >= 1 &&
+                  DC >= 0 && DC < RING && RSLOTS >= 1,
+              "a launch configuration the march cannot take");
+
+// The payload as the bake holds it: a (Gz, D, Gy, Gx) view of the
+// (G, G, G, D) bake with channel stride 1, so that each voxel's D values are
+// one contiguous record; f32 (the default trainer's bake) or bf16 (the lean
+// trainer's). Strides in elements; ``ptr`` is element (0, 0, 0, 0) and
+// 16-byte aligned.
+struct PayView {
+  const void* ptr;
+  long long ss, sr, sc;  // slab, row and column strides
+};
+
+// a payload value as the march takes it: bf16 as it is, f32 rounded to
+// bf16 (to nearest even, as a PyTorch copy to bf16 rounds), so that both
+// dtypes march the values of the bake's bf16 copy
+__device__ __forceinline__ float pay_val(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ float pay_val(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+__device__ __forceinline__ uint32_t sptr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void cp4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(sptr(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(sptr(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// wait until at most N of this thread's most recent copy groups may be in
+// flight
+template <int N>
+__device__ __forceinline__ void wait_n() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+// The aligned 32-bit word that holds payload element ``e`` (a sigma value):
+// the element itself in f32; in bf16 the word of the element pair, ``e``'s
+// half chosen by sigma_of. An aligned word holding a byte of the tensor
+// lies inside its (aligned) allocation.
+template <typename PT>
+__device__ __forceinline__ const void* word_of(const void* base,
+                                               long long e) {
+  if constexpr (sizeof(PT) == 4)
+    return (const char*)base + e * 4;
+  else
+    return (const char*)base + (e & ~1LL) * 2;
+}
+template <typename PT>
+__device__ __forceinline__ float sigma_of(uint32_t w, long long e) {
+  if constexpr (sizeof(PT) == 4) {
+    return pay_val(__uint_as_float(w));
+  } else {
+    const unsigned short h =
+        (unsigned short)((e & 1) ? (w >> 16) : (w & 0xffffu));
+    return __bfloat162float(__ushort_as_bfloat16(h));
+  }
+}
+
+// bytes of one thread's record slot: the record and the word-alignment
+// slack of its 4-byte copies. The threads' slots lie side by side, so the
+// slot is an odd number of 16-byte units where the record takes 16-byte
+// copies and is read as float4 (the 8 threads of a phase hit 8 distinct
+// bank quads), else an odd number of words (read as words: 32 distinct
+// banks).
+template <int D, typename PT>
+__host__ __device__ constexpr int rec_slot() {
+  constexpr int RB = D * (int)sizeof(PT);
+  if constexpr (RB % 16 == 0) {
+    constexpr int u = (RB + 8 + 15) / 16;
+    return 16 * (u | 1);
+  } else {
+    constexpr int w = (RB + 8 + 3) / 4;
+    return 4 * (w | 1);
+  }
+}
+
+// a record's D values as the march takes them (load_record's order), read
+// as float4 where the record is f32 and a whole number of them (its slot
+// and the bake's records are then 16-byte aligned), else one by one
+template <int D, typename PT>
+__device__ __forceinline__ void load_record(const PT* rec, float* v) {
+  if constexpr (sizeof(PT) == 4 && (D * 4) % 16 == 0) {
+    const float4* r4 = reinterpret_cast<const float4*>(rec);
+#pragma unroll
+    for (int q = 0; q < D / 4; ++q) {
+      const float4 t = r4[q];
+      v[4 * q] = pay_val(t.x);
+      v[4 * q + 1] = pay_val(t.y);
+      v[4 * q + 2] = pay_val(t.z);
+      v[4 * q + 3] = pay_val(t.w);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < D; ++q) v[q] = pay_val(rec[q]);
+  }
+}
+
+// Queue the copy of the voxel record at ``rec`` (D values) into ``slot``
+// (this thread's) and return where the record will lie there: 16-byte
+// copies where the record is 16-byte aligned and a whole number of them
+// (f32 with D % 4 == 0), else the aligned 4-byte words that cover it. The
+// caller commits and waits.
+template <int D, typename PT>
+__device__ __forceinline__ const PT* stage_record(char* slot, const PT* rec) {
+  constexpr int RB = D * (int)sizeof(PT);
+  const uintptr_t a = reinterpret_cast<uintptr_t>(rec);
+  if constexpr (RB % 16 == 0) {
+    if ((a & 15) == 0) {
+#pragma unroll
+      for (int i = 0; i < RB / 16; ++i)
+        cp16(slot + 16 * i, (const char*)rec + 16 * i);
+      return reinterpret_cast<const PT*>(slot);
+    }
+  }
+  const uintptr_t w0 = a & ~(uintptr_t)3;
+  const int off = (int)(a - w0);
+  const int nw = (off + RB + 3) >> 2;
+  for (int i = 0; i < nw; ++i)
+    cp4(slot + 4 * i, (const char*)w0 + 4 * i);
+  return reinterpret_cast<const PT*>(slot + off);
+}
+
+// where stage_record put the record at ``rec`` in ``slot``
+template <int D, typename PT>
+__device__ __forceinline__ const PT* staged(const char* slot, const PT* rec) {
+  constexpr int RB = D * (int)sizeof(PT);
+  const uintptr_t a = reinterpret_cast<uintptr_t>(rec);
+  if constexpr (RB % 16 == 0) {
+    if ((a & 15) == 0) return reinterpret_cast<const PT*>(slot);
+  }
+  return reinterpret_cast<const PT*>(slot + (a & 3));
+}
+
+// the SH basis at the voxel's view direction and the voxel's rgb, from its
+// record's values (load_record: colour values c * BD + k, sigma last). The
+// direction is affine in the voxel's slope coordinates: s * dir =
+// dirM[:,0] * s + dirM[:,1] * ycm + dirM[:,2] * xcm (params 20:29), for the
+// camera distance ``s`` of the slab; ``ssign`` = sign(s). The basis is
+// scaled once per k by qs[k] (the bake shares each basis function's scale
+// across rgb).
+template <int BD>
+__device__ __forceinline__ void voxel_rgb(const float* rec, const float* qs,
+                                          const float* prm, float ycm,
+                                          float xcm, float s, float ssign,
+                                          float* bk, float* rgb) {
+  const float dw0 = (prm[21] * ycm + prm[22] * xcm) + prm[20] * s;
+  const float dw1 = (prm[24] * ycm + prm[25] * xcm) + prm[23] * s;
+  const float dw2 = (prm[27] * ycm + prm[28] * xcm) + prm[26] * s;
+  const float rn = rsqrtf(dw0 * dw0 + dw1 * dw1 + dw2 * dw2) * ssign;
+  sh_basis<BD>(dw0 * rn, dw1 * rn, dw2 * rn, bk);
+  float raw0 = 0.f, raw1 = 0.f, raw2 = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < BD; ++kk) {
+    const float bq = bk[kk] * qs[kk];
+    raw0 += rec[kk] * bq;
+    raw1 += rec[BD + kk] * bq;
+    raw2 += rec[2 * BD + kk] * bq;
+  }
+  rgb[0] = sigmoid(raw0);
+  rgb[1] = sigmoid(raw1);
+  rgb[2] = sigmoid(raw2);
+}
+
+// The coarse occupancy of a payload: per slab and per row of OCC x OCC
+// cell blocks (in the view's rows and columns, from the crop's origin),
+// ceil(ceil(Gx / OCC) / 64) 64-bit masks of the blocks holding a voxel
+// above the sigma threshold (bit b of word w: column block 64 w + b).
+// Built once per launch by occupancy_kernel; march_loop reads it to pass
+// over footprint pieces with no such voxel without touching the payload.
+constexpr int OCC = 8;
+
+__host__ __device__ __forceinline__ int occ_words(int Gx) {
+  return ((Gx + OCC - 1) / OCC + 63) / 64;
+}
+
+// One thread per voxel of the (Gz, Gy, Gx) view, the voxels taken in the
+// order of the view's strides (the payload's memory order for a permuted
+// bake, so that a warp's sigma reads fall in a few kilobytes): a voxel
+// above the threshold (its value as the march reads it: bf16, times
+// qs[D-1]) sets its block's bit. The threshold is the lowest of the P
+// poses' (params[14]). ``ax`` lists the view's axes (0 slab, 1 row, 2
+// column) from the smallest stride to the largest.
+struct AxisOrder {
+  int ax[3];
+};
+
+template <int D, typename PT>
+__global__ void __launch_bounds__(256)
+occupancy_kernel(PayView pv, const float* __restrict__ params, int P,
+                 const float* __restrict__ qscale, int Gz, int Gy, int Gx,
+                 AxisOrder order, unsigned long long* __restrict__ occ) {
+  const int dims[3] = {Gz, Gy, Gx};
+  const long long n = (long long)Gz * Gy * Gx;
+  long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= n) return;
+  int at[3];
+  const int n0 = dims[order.ax[0]], n1 = dims[order.ax[1]];
+  at[order.ax[0]] = (int)(v % n0);
+  v /= n0;
+  at[order.ax[1]] = (int)(v % n1);
+  at[order.ax[2]] = (int)(v / n1);
+  const int sz = at[0], ry = at[1], cx = at[2];
+  const PT* p = reinterpret_cast<const PT*>(pv.ptr) + sz * pv.ss +
+                ry * pv.sr + cx * pv.sc + (D - 1);
+  float thr = params[14];
+  for (int q = 1; q < P; ++q) thr = fminf(thr, params[q * NP + 14]);
+  if (pay_val(*p) * qscale[D - 1] > thr) {
+    const int cb = cx / OCC;
+    unsigned long long* w =
+        occ + ((long long)sz * ((Gy + OCC - 1) / OCC) + ry / OCC) *
+                  occ_words(Gx) +
+        (cb >> 6);
+    const unsigned long long bit = 1ull << (cb & 63);
+    if (!(*reinterpret_cast<volatile unsigned long long*>(w) & bit))
+      atomicOr(w, bit);
+  }
+}
+
+// Build the coarse occupancy of the view into ``occ`` (Gz * ceil(Gy/OCC) *
+// occ_words(Gx) 64-bit masks) on ``stream``: clear it, then one
+// occupancy_kernel launch.
+template <int D, typename PT>
+cudaError_t build_occupancy(PayView pv, const float* params, int P,
+                            const float* qscale, int Gz, int Gy, int Gx,
+                            unsigned long long* occ, cudaStream_t stream) {
+  const size_t masks =
+      (size_t)Gz * ((Gy + OCC - 1) / OCC) * (size_t)occ_words(Gx);
+  cudaError_t e = cudaMemsetAsync(occ, 0, masks * 8, stream);
+  if (e != cudaSuccess) return e;
+  const long long n = (long long)Gz * Gy * Gx;
+  const long long st[3] = {pv.ss, pv.sr, pv.sc};
+  AxisOrder order{{0, 1, 2}};
+  for (int i = 0; i < 3; ++i)  // sort the axes by stride
+    for (int j = i + 1; j < 3; ++j)
+      if (st[order.ax[j]] < st[order.ax[i]]) {
+        const int t = order.ax[i];
+        order.ax[i] = order.ax[j];
+        order.ax[j] = t;
       }
+  occupancy_kernel<D, PT><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      pv, params, P, qscale, Gz, Gy, Gx, order, occ);
+  return cudaGetLastError();
+}
+
+// What march_loop takes of the launch, the pose, the tile and the thread.
+struct MarchCtx {
+  PayView pv;
+  const int* ids;  // slab ids in march order (device)
+  const unsigned long long* occ;  // the coarse occupancy (build_occupancy)
+  int n_ids;
+  int G, y0, x0, yend, xend;  // crop: global cells [y0, yend] x [x0, xend]
+  int occ_rows, occ_words;    // ceil(Gy / OCC) rows of occ_words masks
+  int flip;                   // the march runs toward -z
+  float Gf, hG, cz, cy, cx, cyG, cxG, zbase, sigma_thresh, stop_thresh;
+  // ray slopes x G: the tile's first/last row and column, the pixel's
+  float ujGa, ujGb, vkGa, vkGb, ujG, vkG;
+  int tid;
+  bool inpix;
+  float zlo, zhi;  // the pixel's live z interval
+};
+
+// staged jobs a round of the list holds (a slab with more pieces to stage
+// is split across rounds)
+constexpr int LIST_CAP = 512;
+
+// The block's shared memory for march_loop. Dynamic (march_smem bytes):
+// ``chan`` (PS*PS float4) holds the current piece shaded as [sigma,
+// sigma*r, sigma*g, sigma*b]; ``ring`` (RING*PS*PS words) the staged sigma
+// of the next jobs; ``rec`` the colour record slots, DC + 1 sets of RSLOTS
+// a thread. Static (MarchStatic, the kernel's): ``zr`` and ``rng`` the
+// tile's slab range; ``list`` the round's staged jobs (job_entry);
+// ``wsum`` the list build's scan and counts.
+struct MarchSmem {
+  float4* chan;
+  uint32_t* ring;
+  char* rec;
+  float* zr;
+  int* rng;
+  int4* list;
+  int* wsum;
+};
+
+struct MarchStatic {
+  float zr[2 * NT / 32];
+  int rng[2];
+  int4 list[LIST_CAP];
+  int wsum[NT / 32 + 4];
+};
+
+// bytes of the sigma ring, rounded up to 16 (the record slots follow it)
+constexpr size_t RING_BYTES = ((size_t)RING * PS * PS * 4 + 15) / 16 * 16;
+
+// the dynamic shared memory of a block: chan, ring, rec
+template <int BD, typename PT>
+constexpr size_t march_smem() {
+  return (size_t)PS * PS * 16 + RING_BYTES +
+         (size_t)(DC + 1) * RSLOTS * NT * rec_slot<3 * BD + 1, PT>();
+}
+
+// march_loop's shared memory: the block's dynamic bytes and its MarchStatic
+__device__ __forceinline__ MarchSmem carve(unsigned char* dyn,
+                                           MarchStatic& st) {
+  MarchSmem sm;
+  sm.chan = reinterpret_cast<float4*>(dyn);
+  sm.ring = reinterpret_cast<uint32_t*>(dyn + (size_t)PS * PS * 16);
+  sm.rec = reinterpret_cast<char*>(dyn + (size_t)PS * PS * 16 + RING_BYTES);
+  sm.zr = st.zr;
+  sm.rng = st.rng;
+  sm.list = st.list;
+  sm.wsum = st.wsum;
+  return sm;
+}
+
+// Counts of a launch, summed over its blocks when ``counts`` is given:
+// [0] slabs met (a non-empty footprint in the tile's slab range), [1]
+// slabs shaded (a cell above the threshold; composited), [2] footprint
+// pieces met, [3] pieces staged (their coarse occupancy set), [4] pieces
+// shaded.
+constexpr int N_COUNTS = 5;
+
+__device__ __forceinline__ void add_counts(unsigned long long* counts,
+                                           int tid, const long long* n) {
+  if (counts != nullptr && tid == 0) {
+#pragma unroll
+    for (int i = 0; i < N_COUNTS; ++i)
+      if (n[i]) atomicAdd(counts + i, (unsigned long long)n[i]);
+  }
+}
+
+// A probe build's clock (VT_TM_CYCLES, probes/train_march.py): thread 0's
+// clock cycles by part of march_loop, summed over the blocks into
+// cycles[0..5], then [6] the whole loop's cycles summed and [7] their
+// largest over the blocks (the launch's critical path); the library's
+// vt_train_cycles reads and clears them. Other builds' clock is empty.
+enum Part { QUEUE, DECIDE, SHADE, TAPS, COMPOSITE, LIST, N_PARTS };
+#ifdef VT_TM_CYCLES
+__device__ unsigned long long cycles[N_PARTS + 2];
+struct Clock {
+  long long n[N_PARTS], t, t0;
+  __device__ Clock() {
+    for (int i = 0; i < N_PARTS; ++i) n[i] = 0;
+    t0 = t = clock64();
+  }
+  __device__ void start() { t = clock64(); }
+  __device__ void lap(Part p) {
+    const long long u = clock64();
+    n[p] += u - t;
+    t = u;
+  }
+  __device__ void add(int tid) {
+    if (tid != 0) return;
+    const unsigned long long loop = clock64() - t0;
+    for (int i = 0; i < N_PARTS; ++i)
+      atomicAdd(cycles + i, (unsigned long long)n[i]);
+    atomicAdd(cycles + N_PARTS, loop);
+    atomicMax(cycles + N_PARTS + 1, loop);
+  }
+};
+#else
+struct Clock {
+  __device__ void start() {}
+  __device__ void lap(Part) {}
+  __device__ void add(int) {}
+};
+#endif
+
+// One job: one piece (at most PS x PS cells) of one slab's tile footprint.
+struct Job {
+  int i;    // index into ids
+  int sid;  // the slab
+  float z;  // its centre
+  Footprint f;     // the tile's footprint on the slab (slab_of only)
+  int py, px;      // the piece's first cell
+  int FY, FX;      // its rows and columns
+};
+
+// slab ids[i]'s centre and the tile's footprint on it, clipped to the crop
+__device__ __forceinline__ void slab_of(Job& j, const MarchCtx& c, int i) {
+  j.i = i;
+  j.sid = __ldg(c.ids + i);
+  j.z = ((float)j.sid + 0.5f) / c.Gf + c.zbase;
+  j.f = tile_footprint(c.cyG, c.cxG, j.z - c.hG - c.cz, j.z + c.hG - c.cz,
+                       c.ujGa, c.ujGb, c.vkGa, c.vkGb, c.G, c.y0, c.yend,
+                       c.x0, c.xend);
+}
+
+// footprint pieces along the rows and the columns (0 when it is empty)
+__device__ __forceinline__ int pieces_y(const Job& j) {
+  return j.f.y_lo <= j.f.y_hi && j.f.x_lo <= j.f.x_hi
+             ? (j.f.y_hi - j.f.y_lo) / PS + 1
+             : 0;
+}
+__device__ __forceinline__ int pieces_x(const Job& j) {
+  return (j.f.x_hi - j.f.x_lo) / PS + 1;
+}
+
+// does piece (py, px) of slab j hold a coarse block with a voxel above the
+// threshold? (a piece spans at most two mask words)
+__device__ __forceinline__ bool coarse_live(const Job& j, const MarchCtx& c,
+                                            int py, int px) {
+  const int FY = min(PS, j.f.y_hi - py + 1);
+  const int FX = min(PS, j.f.x_hi - px + 1);
+  const int r0 = (py - c.y0) / OCC, r1 = (py + FY - 1 - c.y0) / OCC;
+  const int b0 = (px - c.x0) / OCC, b1 = (px + FX - 1 - c.x0) / OCC;
+  const unsigned long long* slab =
+      c.occ + (long long)j.sid * c.occ_rows * c.occ_words;
+  bool live = false;
+  for (int w = b0 >> 6; w <= (b1 >> 6); ++w) {
+    const int lo = max(b0 - 64 * w, 0), hi = min(b1 - 64 * w, 63);
+    const unsigned long long bits = (~0ull >> (63 - hi)) & (~0ull << lo);
+    for (int r = r0; r <= r1; ++r)
+      live |= (__ldg(slab + r * c.occ_words + w) & bits) != 0;
+  }
+  return live;
+}
+
+// a staged job as the list holds it: the slab's index into ids, the
+// piece's first cell, its rows and columns, the slab
+__device__ __forceinline__ int4 job_entry(const Job& j, int py, int px) {
+  const int FY = min(PS, j.f.y_hi - py + 1);
+  const int FX = min(PS, j.f.x_hi - px + 1);
+  return make_int4(j.i, (py << 16) | px, (FY << 16) | FX, j.sid);
+}
+
+__device__ __forceinline__ void job_at(Job& j, const MarchCtx& c,
+                                       int4 e) {
+  j.i = e.x;
+  j.sid = e.w;
+  j.z = ((float)j.sid + 0.5f) / c.Gf + c.zbase;
+  j.py = e.y >> 16;
+  j.px = e.y & 0xffff;
+  j.FY = e.z >> 16;
+  j.FX = e.z & 0xffff;
+}
+
+// Build one round of the block's staged-job list: thread t takes slab
+// index i_begin + t (below i1), counts its footprint's pieces whose coarse
+// occupancy is set (the first slab's from piece p_begin on), and the block
+// writes them in march order, as many whole slabs as LIST_CAP holds; a
+// first slab with more such pieces than that gives its first LIST_CAP and
+// is resumed by the next round. Returns the entries; (i_next, p_next) is
+// where the next round starts. Every thread calls it (it synchronizes).
+// ``met`` (thread 0's counts, or null) adds the slabs with a non-empty
+// footprint, their pieces and the staged ones.
+__device__ __forceinline__ int build_list(const MarchCtx& c,
+                                          const MarchSmem& sm,
+                                          int i_begin, int p_begin,
+                                          int i1, int& i_next, int& p_next,
+                                          long long* met) {
+  const int lane = c.tid & 31, warp = c.tid >> 5;
+  const int i = i_begin + c.tid;
+  const int p0 = c.tid == 0 ? p_begin : 0;
+  Job j;
+  int cnt = 0, npy = 0, npx = 0;
+  if (i < i1) {
+    slab_of(j, c, i);
+    npy = pieces_y(j);
+    npx = npy ? pieces_x(j) : 0;
+    for (int p = p0; p < npy * npx; ++p)
+      cnt += coarse_live(j, c, j.f.y_lo + (p / npx) * PS,
+                         j.f.x_lo + (p % npx) * PS);
+  }
+  // block-wide inclusive scan of cnt (warp scans, then the warp totals)
+  int incl = cnt;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  if (lane == 31) sm.wsum[warp] = incl;
+  if (c.tid < 4) sm.wsum[NT / 32 + c.tid] = 0;
+  __syncthreads();
+  for (int w = 0; w < warp; ++w) incl += sm.wsum[w];
+  // a first slab whose pieces overflow the list is taken in part
+  const bool split = c.tid == 0 && i < i1 && cnt > LIST_CAP;
+  const bool take = i < i1 && (incl <= LIST_CAP || split);
+  if (take) {
+    int at = incl - cnt, p = p0;
+    for (; p < npy * npx && at < LIST_CAP; ++p) {
+      const int py = j.f.y_lo + (p / npx) * PS;
+      const int px = j.f.x_lo + (p % npx) * PS;
+      if (coarse_live(j, c, py, px)) sm.list[at++] = job_entry(j, py, px);
+    }
+    if (split) sm.wsum[NT / 32 + 3] = p;
+    if (met != nullptr && p0 == 0) {
+      if (npy) atomicAdd(sm.wsum + NT / 32, 1);
+      atomicAdd(sm.wsum + NT / 32 + 1, npy * npx);
+    }
+    atomicMax(sm.wsum + NT / 32 + 2, at);
+  }
+  const int n_take = __syncthreads_count(take);  // a prefix of the threads
+  const int n = sm.wsum[NT / 32 + 2];
+  if (met != nullptr) {
+    met[0] += sm.wsum[NT / 32];
+    met[2] += sm.wsum[NT / 32 + 1];
+    met[3] += n;
+  }
+  p_next = sm.wsum[NT / 32 + 3];  // > 0 only where the first slab split
+  i_next = i_begin + n_take - (p_next > 0);
+  __syncthreads();  // wsum is read before the next round writes it
+  return n;
+}
+
+// the payload element of the record of piece cell i (FX columns)
+__device__ __forceinline__ long long cell_elem(const Job& j,
+                                               const MarchCtx& c, int i,
+                                               int FX) {
+  const int ly = i / FX, lx = i - ly * FX;
+  return (long long)j.sid * c.pv.ss +
+         (long long)(j.py + ly - c.y0) * c.pv.sr +
+         (long long)(j.px + lx - c.x0) * c.pv.sc;
+}
+
+// queue the sigma words of job j (if ``has``) into ``slot`` and commit a
+// copy group (empty when there is no job, so that every job has one). Cell
+// i is copied, checked and shaded by thread i % NT only, so the ring needs
+// no barrier.
+template <int D, typename PT>
+__device__ __forceinline__ void issue(const Job& j, bool has,
+                                      const MarchCtx& c, uint32_t* slot) {
+  if (has) {
+    for (int i = c.tid; i < j.FY * j.FX; i += NT)
+      cp4(slot + i, word_of<PT>(c.pv.ptr, cell_elem(j, c, i, j.FX) + D - 1));
+  }
+  commit();
+}
+
+// this thread's record slot k of colour set ``set``: slots are laid out
+// [set][k][thread], rec_slot bytes each
+template <int D, typename PT>
+__device__ __forceinline__ char* rec_slot_of(const MarchCtx& c,
+                                             const MarchSmem& sm, int set,
+                                             int k) {
+  return sm.rec +
+         ((size_t)(set * RSLOTS + k) * NT + c.tid) * rec_slot<D, PT>();
+}
+
+// queue the colour records of job j's cells above the threshold (this
+// thread's cells, whose sigma words have landed in ``ring_slot``) into its
+// slots of colour set ``set``, at most RSLOTS of them (the shading stages
+// any further one itself), and commit a copy group (empty without a job)
+template <int D, typename PT>
+__device__ __forceinline__ void issue_colour(const Job& j, bool has,
+                                             const MarchCtx& c,
+                                             const MarchSmem& sm,
+                                             const uint32_t* ring_slot,
+                                             int set, float qsig) {
+  if (has) {
+    int k = 0;
+    for (int i = c.tid; i < j.FY * j.FX && k < RSLOTS; i += NT) {
+      const long long e = cell_elem(j, c, i, j.FX);
+      if (sigma_of<PT>(ring_slot[i], e + D - 1) * qsig > c.sigma_thresh)
+        stage_record<D, PT>(rec_slot_of<D, PT>(c, sm, set, k++),
+                            reinterpret_cast<const PT*>(c.pv.ptr) + e);
+    }
+  }
+  commit();
+}
+
+// The training march's slab loop, shared by kernel M's training mode and
+// the backward's forward recompute (every thread of the block calls it).
+//
+// - The tile's slab range: the slabs of ``ids`` that the union of its
+//   pixels' z intervals meets (a slab outside it has frac_z = 0 for every
+//   pixel: skipping it is exact).
+// - Jobs, one a footprint piece (at most PS x PS cells) of a slab, in march
+//   order; a piece whose coarse occupancy is empty is passed over without
+//   reading the payload (exact: its cells would shade to zero). The block
+//   lists the other pieces together (build_list: a thread a slab, a scan),
+//   in rounds of up to LIST_CAP, so no thread walks the empty ones.
+// - The listed jobs go through a ring of RING stages: the sigma words of
+//   the next RING - 1 jobs are in flight (cp.async) while the current one
+//   is decided and shaded, and the colour records of the cells above the
+//   threshold of the job DC ahead are queued into the threads' record
+//   slots as soon as its sigma has landed (DC = 0: the current job's,
+//   staged as it is shaded).
+// - A job whose staged sigma has no cell above the threshold is skipped
+//   after one barrier (__syncthreads_or): it would shade to zero, so the
+//   tap sums and the composite would not change (exact).
+// - Otherwise the block checks once per slab that a pixel can still
+//   accumulate (else it leaves the loop: exact, as in the reference's
+//   _window_live gate), each thread shades its cells above the threshold
+//   from their staged records into ``chan``, and each pixel sums its
+//   separable overlap weights over its span's cells of the piece.
+// - When the march moves past a slab with a cell above the threshold,
+//   ``on_slab(job, span, (sw, rw, gw, bw))`` composites it (every thread
+//   calls it; it may synchronize).
+// ``T`` is the pixel's transmittance, which on_slab updates.
+template <int BD, typename PT, typename OnSlab>
+__device__ __forceinline__ void march_loop(const MarchCtx& c,
+                                           const MarchSmem& sm,
+                                           const float* s_qs,
+                                           const float* s_prm, const float& T,
+                                           unsigned long long* counts,
+                                           OnSlab&& on_slab) {
+  constexpr int D = 3 * BD + 1;
+  constexpr int CELLS = PS * PS;
+  const int warp = c.tid >> 5, lane = c.tid & 31;
+  Clock clk;
+  // ---- the tile's slab range ---------------------------------------------
+  const bool valid = c.inpix && (c.zlo <= c.zhi);
+  float za = valid ? c.zlo : 3.4e38f, zb = valid ? c.zhi : -3.4e38f;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    za = fminf(za, __shfl_xor_sync(0xffffffffu, za, o));
+    zb = fmaxf(zb, __shfl_xor_sync(0xffffffffu, zb, o));
+  }
+  if (lane == 0) {
+    sm.zr[warp] = za;
+    sm.zr[NT / 32 + warp] = zb;
+  }
+  if (c.tid == 0) {
+    sm.rng[0] = c.n_ids;
+    sm.rng[1] = 0;
+  }
+  __syncthreads();
+  float zmin = 3.4e38f, zmax = -3.4e38f;
+#pragma unroll
+  for (int w = 0; w < NT / 32; ++w) {
+    zmin = fminf(zmin, sm.zr[w]);
+    zmax = fmaxf(zmax, sm.zr[NT / 32 + w]);
+  }
+  for (int i = c.tid; i < c.n_ids; i += NT) {
+    const float z = ((float)__ldg(c.ids + i) + 0.5f) / c.Gf + c.zbase;
+    if (zmin <= z + c.hG && zmax >= z - c.hG) {
+      atomicMin(sm.rng, i);
+      atomicMax(sm.rng + 1, i + 1);
+    }
+  }
+  __syncthreads();
+  const int i0 = sm.rng[0], i1 = sm.rng[1];
+  long long n_cnt[N_COUNTS] = {};
+  long long* met = counts != nullptr ? n_cnt : nullptr;
+  if (i0 >= i1) {
+    clk.add(c.tid);
+    add_counts(counts, c.tid, n_cnt);
+    return;
+  }
+
+  // ---- the staged jobs, in rounds of the list, through the ring ----------
+  // Each iteration n commits two copy groups: the sigma of job n + RING - 1
+  // (S), then the colour records of job n + DC (C); so before the colour of
+  // job n + DC is queued, all but the newest 2 (RING - 1 - DC) groups hold
+  // S(n + DC), and before job n is shaded all but the newest 2 DC hold C(n).
+  const float qsig = s_qs[D - 1];
+  float sw = 0.f, rw = 0.f, gw = 0.f, bw = 0.f;
+  bool slab_any = false;  // the slab held a cell above the threshold
+  Job slab;               // the slab being summed
+  slab.i = -1;
+  PixelSpan sp;
+  bool left = false;      // no pixel of the tile can still accumulate
+  for (int i_cur = i0, p_cur = 0; i_cur < i1 && !left;) {
+    clk.start();
+    const int nj = build_list(c, sm, i_cur, p_cur, i1, i_cur, p_cur, met);
+    Job pj, qj, cons;
+#pragma unroll
+    for (int r = 0; r < RING - 1; ++r) {
+      if (r < nj) job_at(pj, c, sm.list[r]);
+      issue<D, PT>(pj, r < nj, c, sm.ring + r * CELLS);
+    }
+    wait_n<0>();
+#pragma unroll
+    for (int d = 0; d < DC; ++d) {
+      if (d < nj) job_at(qj, c, sm.list[d]);
+      issue_colour<D, PT>(qj, d < nj, c, sm, sm.ring + (d % RING) * CELLS,
+                          d % (DC + 1), qsig);
+    }
+    clk.lap(LIST);
+    for (int n = 0; n < nj; ++n) {
+      job_at(cons, c, sm.list[n]);
+      if (cons.i != slab.i) {  // the march has moved past the slab
+        if (slab_any) {
+          clk.start();
+          on_slab(slab, sp, make_float4(sw, rw, gw, bw));
+          clk.lap(COMPOSITE);
+        }
+        sw = rw = gw = bw = 0.f;
+        slab_any = false;
+        slab_of(slab, c, cons.i);
+        sp = pixel_span(c.cyG, c.cxG, slab.z - c.hG - c.cz,
+                        slab.z + c.hG - c.cz, c.ujG, c.vkG, c.G, slab.f);
+      }
+      clk.start();
+      const int m = n + RING - 1, m2 = n + DC;
+      if (m < nj) job_at(pj, c, sm.list[m]);
+      issue<D, PT>(pj, m < nj, c, sm.ring + (m % RING) * CELLS);
+      wait_n<2 * (RING - 1 - DC)>();  // S(n + DC) has landed
+      if (m2 < nj) job_at(qj, c, sm.list[m2]);
+      issue_colour<D, PT>(qj, m2 < nj, c, sm, sm.ring + (m2 % RING) * CELLS,
+                          m2 % (DC + 1), qsig);
+      clk.lap(QUEUE);
+      const uint32_t* slot = sm.ring + (n % RING) * CELLS;
+      const int FY = cons.FY, FX = cons.FX;
+      bool above = false;
+      for (int i = c.tid; i < FY * FX; i += NT)
+        above |= sigma_of<PT>(slot[i], cell_elem(cons, c, i, FX) + D - 1) *
+                     qsig >
+                 c.sigma_thresh;
+      const bool any = __syncthreads_or(above);
+      clk.lap(DECIDE);
+      if (!any) continue;
+      if (!slab_any) {
+        // once per slab: can a pixel of the tile still accumulate?
+        const bool passed = c.flip ? (cons.z + c.hG < c.zlo)
+                                   : (cons.z - c.hG > c.zhi);
+        const bool alive = c.inpix && (T >= c.stop_thresh) &&
+                           (c.zlo <= c.zhi) && !passed;
+        if (!__syncthreads_or(alive)) {
+          left = true;
+          break;
+        }
+        slab_any = true;
+        ++n_cnt[1];
+      }
+      ++n_cnt[4];
+      wait_n<2 * DC>();  // C(n) has landed
+      // view directions per slab, at the slab's distance
+      const float sd = cons.z - c.cz;
+      const float sdsign = sign_of(sd);
+      const int set = n % (DC + 1);
+      int k = 0;  // this thread's cells above the threshold so far
+      for (int i = c.tid; i < FY * FX; i += NT) {
+        const long long e = cell_elem(cons, c, i, FX);
+        const float sig = sigma_of<PT>(slot[i], e + D - 1) * qsig;
+        float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (sig > c.sigma_thresh) {
+          const PT* src = reinterpret_cast<const PT*>(c.pv.ptr) + e;
+          const PT* rec;
+          if (k < RSLOTS) {
+            rec = staged<D, PT>(rec_slot_of<D, PT>(c, sm, set, k), src);
+          } else {  // more cells than slots: stage this one now
+            rec = stage_record<D, PT>(
+                rec_slot_of<D, PT>(c, sm, set, RSLOTS - 1), src);
+            commit();
+            wait_n<0>();
+          }
+          ++k;
+          const int ly = i / FX, lx = i - ly * FX;
+          const float ycm =
+              ((float)(cons.py + ly) + 0.5f) * (1.f / c.Gf) - c.cy;
+          const float xcm =
+              ((float)(cons.px + lx) + 0.5f) * (1.f / c.Gf) - c.cx;
+          float vals[D], bk[BD], rgb[3];
+          load_record<D, PT>(rec, vals);
+          voxel_rgb<BD>(vals, s_qs, s_prm, ycm, xcm, sd, sdsign, bk, rgb);
+          o = make_float4(sig, sig * rgb[0], sig * rgb[1], sig * rgb[2]);
+        }
+        sm.chan[i] = o;
+      }
+      clk.lap(SHADE);
       __syncthreads();
-      if (inpix) {
-        const int ya = max(sp.ry_lo, py0), yb = min(sp.ry_hi, py0 + FY - 1);
-        const int xa = max(sp.rx_lo, px0), xb = min(sp.rx_hi, px0 + FX - 1);
+      if (c.inpix) {
+        const int ya = max(sp.ry_lo, cons.py);
+        const int yb = min(sp.ry_hi, cons.py + FY - 1);
+        const int xa = max(sp.rx_lo, cons.px);
+        const int xb = min(sp.rx_hi, cons.px + FX - 1);
         for (int cyy = ya; cyy <= yb; ++cyy) {
-          const float wr = overlap(cyy, G, sp.pmin, sp.pmax, sp.inv_r);
-          const int ly = cyy - py0;
+          const float wr = overlap(cyy, c.G, sp.pmin, sp.pmax, sp.inv_r);
+          const float4* row = sm.chan + (cyy - cons.py) * FX - cons.px;
           for (int cxx = xa; cxx <= xb; ++cxx) {
-            const float wgt = wr * overlap(cxx, G, sp.qmin, sp.qmax, sp.inv_c);
-            const int lx = cxx - px0;
-            sw += wgt * s_chan[0][ly][lx];
-            rw += wgt * s_chan[1][ly][lx];
-            gw += wgt * s_chan[2][ly][lx];
-            bw += wgt * s_chan[3][ly][lx];
+            const float wgt =
+                wr * overlap(cxx, c.G, sp.qmin, sp.qmax, sp.inv_c);
+            const float4 v = row[cxx];
+            sw += wgt * v.x;
+            rw += wgt * v.y;
+            gw += wgt * v.z;
+            bw += wgt * v.w;
           }
         }
       }
+      clk.lap(TAPS);
     }
+    wait_n<0>();  // the round's copies have landed before the list changes
   }
-  return make_float4(sw, rw, gw, bw);
+  if (slab_any) {  // the last slab marched (not set when the loop left)
+    clk.start();
+    on_slab(slab, sp, make_float4(sw, rw, gw, bw));
+    clk.lap(COMPOSITE);
+  }
+  clk.add(c.tid);
+  add_counts(counts, c.tid, n_cnt);
 }
 
+}  // namespace tmarch
+
 }  // namespace
+
+#ifdef VT_TM_CYCLES
+// A probe build's clock (tmarch::Clock): copy its N_PARTS + 2 counters to
+// ``out`` (host) and clear them. Returns a CUDA error code.
+extern "C" int vt_train_cycles(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, tmarch::cycles,
+                                       sizeof(tmarch::cycles));
+  if (e != cudaSuccess) return (int)e;
+  const unsigned long long zero[tmarch::N_PARTS + 2] = {};
+  return (int)cudaMemcpyToSymbol(tmarch::cycles, zero, sizeof(zero));
+}
+#endif

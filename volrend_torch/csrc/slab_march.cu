@@ -1,5 +1,5 @@
-// Kernel M, training mode: the fused shear-warp slab march over the bf16
-// training payload, for Hopper (sm_90a).
+// Kernel M, training mode: the fused shear-warp slab march over the bake's
+// own tensor, for Hopper (sm_90a).
 //
 // Replaces volrend_tpu/ops/pallas_slab.py:_make_kernel in its training
 // option set (bf16 payload, Dp = D, sigma in plane D-1, dir_win=False), the
@@ -17,124 +17,164 @@
 // back with the stop-threshold freeze. Output acc (P, 4, gi, gi) = [r, g,
 // b, T].
 //
-// What bounds it on the H100: for one pose, the payload read: the bf16 SH9
-// payload is 256^3 x 56 B = 0.94 GB (about 0.28 ms at 3.35 TB/s), shading
-// ~110 fp32 operations a voxel (~1.8 GFLOP, 0.03 ms at 67 TFLOP/s). The
-// march of the training bench's data needs less (its bound counts the
-// slabs the rays meet and the voxels above the threshold).
+// Its input is the bake's (G, G, G, D) tensor itself, seen as the
+// (Gz, D, Gy, Gx) view of the pose group's permutation: the kernel takes
+// the view's data pointer and element strides (channel stride 1: each
+// voxel's D values are one record), f32 for the default trainer, bf16 for
+// the lean one, and rounds f32 to bf16 as it reads it (__float2bfloat16_rn,
+// as PyTorch's copy rounds): it marches the values of the bf16 planar copy
+// that the training step no longer makes.
 //
-// Design:
-// - One block per 16x16 tile of intermediate pixels and per pose
-//   (blockIdx.z). Each thread owns one pixel and keeps r, g, b, T, its z
-//   interval and its slab thickness in registers across the whole march;
-//   the TPU's sequential grid over windows becomes a loop inside the block.
-// - Per slab, the tile's cell footprint comes from the affine slope map
-//   (linear in the pixel index, so its extremes are at the tile corners).
-//   shade_and_sum (slab_common.cuh, shared with the backward's recompute)
-//   loads the footprint's planes with reads coalesced along x and shades
-//   each footprint voxel ONCE into shared memory as [sigma, sigma*r,
-//   sigma*g, sigma*b] (voxels under the sigma threshold skip the colour
-//   planes), in FMAX x FMAX pieces; each pixel then sums its own separable
+// What bounds it on the H100: the bytes the data needs, the sigma of the
+// slabs the rays meet and the colour of the voxels above the threshold, at
+// the tensor's element size (the training bench's pose 0: 67 MB of sigma
+// and 95 MB of colour in f32, 0.048 ms at 3.35 TB/s); its operations (~110
+// fp32 a shaded voxel, ~60 a marched (pixel, slab) pair) are fewer. The
+// kernel this one replaced took 0.853 ms there (PERF.md): one block a
+// 16x16 tile walked every slab its rays meet through a synchronous chain of
+// scalar loads, ~95 % of them over empty space.
+//
+// Design (the shared loop is tmarch::march_loop in slab_common.cuh):
+// - A coarse occupancy of the payload (vt_march_occupancy: per slab a bit
+//   per 8x8 cell block holding a voxel above the threshold) is built once
+//   a step and shared with the backward; the march reads no payload for a
+//   footprint piece whose blocks are all empty. Its cost is the sigma read
+//   of every voxel: one 32-byte sector a record (~0.35 ms at G = 256 SH9
+//   f32, PERF.md).
+// - One block per tile of intermediate pixels and pose (blockIdx.z), NT
+//   threads: the first TY * TX own a pixel each (r, g, b, T, z interval
+//   and slab thickness in registers across the march), all of them stage
+//   and shade cells. The TPU's sequential grid over windows is the loop
+//   inside the block, over the slab list (march order) cut to the slabs
+//   the tile's z intervals meet.
+// - The block lists the footprint pieces (at most PS x PS cells) whose
+//   coarse occupancy is set, a thread a slab with one scan (no thread
+//   walks the empty ones; a slab with more such pieces than a round of
+//   the list holds is split across rounds), then runs the list through a
+//   ring: the sigma words of the next RING - 1 pieces are copied ahead
+//   with cp.async, each cell by the thread that later reads it (no
+//   barrier), and the colour records of the cells above the threshold of
+//   the piece DC ahead are queued into per-thread slots as soon as its
+//   sigma has landed (16-byte copies where a record is 16-byte aligned,
+//   aligned 4-byte words elsewhere; slots an odd number of 16-byte units
+//   or words apart, so their reads hit distinct banks).
+// - A piece whose staged sigma has no cell above the threshold is skipped
+//   after one __syncthreads_or: it would shade to zero and change nothing.
+//   Otherwise the threads shade its cells into shared memory as [sigma,
+//   sigma*r, sigma*g, sigma*b] and each pixel sums its own separable
 //   overlap weights over the few cells its span covers.
 // - A block leaves its loop when no pixel of the tile can still
-//   accumulate, and skips a window no pixel can see (__syncthreads_or):
-//   the per-tile form of the reference's _window_live gate, exact because
-//   a skipped slab would have composited with zero weight.
+//   accumulate (checked once a slab with a cell above the threshold).
+// - The launch's time is its slowest tiles': those at the object's
+//   silhouette, whose rays that miss it keep the tile marching through all
+//   of its slabs. Small tiles with several threads a pixel shorten their
+//   chain; the configuration is fixed at compile time (tmarch::CONFIG:
+//   4x8 tiles of 128 threads, pieces of 24 x 24 cells, ring 4, colour 2
+//   pieces ahead), the fastest of those probes/train_march.py built and
+//   timed (PERF.md).
 
 #include "slab_common.cuh"
 
 namespace {
 
-template <int BD>
-__global__ void __launch_bounds__(NTHREADS)
-march_kernel(const __nv_bfloat16* __restrict__ payload,
-             const float* __restrict__ params,
-             const float* __restrict__ qscale,
-             const float* __restrict__ zb,
-             const int* __restrict__ wins, const int* __restrict__ masks,
-             int n_win, float* __restrict__ acc, int G, int gi, int Dp,
-             int Gy, int Gx, int y0, int x0, int K, int flip) {
-  constexpr int D = 3 * BD + 1;  // colour planes + sigma
-  __shared__ float s_chan[4][FMAX][FMAX + 1];
+struct TrainArgs {
+  tmarch::PayView pv;
+  const float* params;
+  const float* qscale;
+  const float* zb;
+  const int* ids;
+  const unsigned long long* occ;
+  float* acc;
+  unsigned long long* counts;
+  int n_ids, G, gi, Gy, Gx, y0, x0, flip;
+};
+
+template <int BD, typename PT>
+__global__ void __launch_bounds__(tmarch::NT)
+march_kernel(const TrainArgs a) {
+  using tmarch::NT;
+  using tmarch::TX;
+  using tmarch::TY;
+  constexpr int D = 3 * BD + 1;  // colour values + sigma
+  extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float s_prm[NP];
   __shared__ float s_qs[D];
+  __shared__ tmarch::MarchStatic s_st;
 
   const int p = blockIdx.z;
-  const int tid = threadIdx.y * TILE + threadIdx.x;
-  const int j0 = blockIdx.y * TILE, k0 = blockIdx.x * TILE;
-  const int j = j0 + threadIdx.y, k = k0 + threadIdx.x;
-  const bool inpix = (j < gi) && (k < gi);
+  // the tile's pixels belong to the block's first TY * TX threads, one
+  // each; every thread stages and shades cells
+  const int tid = threadIdx.x;
+  const bool owner = tid < TY * TX;
+  const int j0 = blockIdx.y * TY, k0 = blockIdx.x * TX;
+  const int j = j0 + (owner ? tid / TX : 0), k = k0 + (owner ? tid % TX : 0);
+  const int gi = a.gi;
 
-  if (tid < NP) s_prm[tid] = params[(size_t)p * NP + tid];
-  for (int i = tid; i < D; i += NTHREADS) s_qs[i] = qscale[i];
+  for (int i = tid; i < NP; i += NT) s_prm[i] = a.params[(size_t)p * NP + i];
+  for (int i = tid; i < D; i += NT) s_qs[i] = a.qscale[i];
   __syncthreads();
 
-  const float Gf = (float)G;
-  const float cz = s_prm[0], cy = s_prm[1], cx = s_prm[2];
+  tmarch::MarchCtx c;
+  c.pv = a.pv;
+  c.ids = a.ids;
+  c.occ = a.occ;
+  c.occ_rows = (a.Gy + tmarch::OCC - 1) / tmarch::OCC;
+  c.occ_words = tmarch::occ_words(a.Gx);
+  c.n_ids = a.n_ids;
+  c.G = a.G;
+  c.y0 = a.y0;
+  c.x0 = a.x0;
+  c.yend = a.y0 + a.Gy - 1;
+  c.xend = a.x0 + a.Gx - 1;
+  c.flip = a.flip;
+  c.Gf = (float)a.G;
+  c.hG = 0.5f / c.Gf;
+  c.cz = s_prm[0];
+  c.cy = s_prm[1];
+  c.cx = s_prm[2];
+  c.cyG = c.cy * c.Gf;
+  c.cxG = c.cx * c.Gf;
+  c.zbase = s_prm[30];
+  c.sigma_thresh = s_prm[14];
+  c.stop_thresh = s_prm[15];
   const float u0 = s_prm[3], du = s_prm[4], v0 = s_prm[5], dv = s_prm[6];
-  const float sigma_thresh = s_prm[14], stop_thresh = s_prm[15];
-  const float zbase = s_prm[30];
-  const float cyG = cy * Gf, cxG = cx * Gf;
-  const float hG = 0.5f / Gf;
+  // ray slopes x G: this pixel's, and the tile's first/last row and column
+  const int jl = min(j0 + TY, gi) - 1, kl = min(k0 + TX, gi) - 1;
+  c.ujG = (u0 + du * (float)j) * c.Gf;
+  c.vkG = (v0 + dv * (float)k) * c.Gf;
+  c.ujGa = (u0 + du * (float)j0) * c.Gf;
+  c.ujGb = (u0 + du * (float)jl) * c.Gf;
+  c.vkGa = (v0 + dv * (float)k0) * c.Gf;
+  c.vkGb = (v0 + dv * (float)kl) * c.Gf;
+  c.tid = tid;
+  c.inpix = owner && (j < gi) && (k < gi);
 
   const size_t npx = (size_t)gi * gi;
   const size_t pix = (size_t)j * gi + k;
-  float zlo = 1.f, zhi = 0.f, dtp = 0.f;  // an empty interval off-grid
-  if (inpix) {
-    const float* zbp = zb + (size_t)p * 4 * npx + pix;
-    zlo = zbp[0];
-    zhi = zbp[npx];
+  float dtp = 0.f;
+  c.zlo = 1.f;  // an empty interval off-grid
+  c.zhi = 0.f;
+  if (c.inpix) {
+    const float* zbp = a.zb + (size_t)p * 4 * npx + pix;
+    c.zlo = zbp[0];
+    c.zhi = zbp[npx];
     dtp = zbp[2 * npx];
   }
+
+  const tmarch::MarchSmem sm = tmarch::carve(smem, s_st);
+
   float r = 0.f, g = 0.f, b = 0.f, T = 1.f;
-
-  // ray slopes x G: this pixel's, and the tile's first/last row and column
-  const int jl = min(j0 + TILE, gi) - 1, kl = min(k0 + TILE, gi) - 1;
-  const float ujG = (u0 + du * (float)j) * Gf;
-  const float vkG = (v0 + dv * (float)k) * Gf;
-  const float ujGa = (u0 + du * (float)j0) * Gf;
-  const float ujGb = (u0 + du * (float)jl) * Gf;
-  const float vkGa = (v0 + dv * (float)k0) * Gf;
-  const float vkGb = (v0 + dv * (float)kl) * Gf;
-
-  const size_t plane = (size_t)Gy * Gx;
-  const int yend = y0 + Gy - 1, xend = x0 + Gx - 1;  // crop, global cells
-
-  for (int wi = 0; wi < n_win; ++wi) {
-    const int w = wins[wi], m = masks[wi];
-    const float zw0 = (float)(w * K) / Gf + zbase;
-    const float zw1 = ((float)(w * K) + (float)K) / Gf + zbase;
-    // windows arrive in march order: once the march is past a pixel's z
-    // interval (or the pixel saturated) no later slab can touch it
-    const bool passed = flip ? (zw1 < zlo) : (zw0 > zhi);
-    const bool alive = inpix && (T >= stop_thresh) && (zlo <= zhi) && !passed;
-    if (!__syncthreads_or(alive)) break;
-    const bool live = alive && (zlo <= zw1) && (zhi >= zw0);
-    if (!__syncthreads_or(live)) continue;
-
-    for (int t = 0; t < K; ++t) {
-      const int dzi = flip ? (K - 1 - t) : t;
-      if (!((m >> dzi) & 1)) continue;
-      const int sid = w * K + dzi;
-      const float z = ((float)sid + 0.5f) / Gf + zbase;
-      const float s0 = z - hG - cz;
-      const float s1 = z + hG - cz;
-      // view directions per slab, at the slab's distance
-      const float sd = z - cz;
-      const float sdsign = sign_of(sd);
-
-      const Footprint f = tile_footprint(cyG, cxG, s0, s1, ujGa, ujGb, vkGa,
-                                         vkGb, G, y0, yend, x0, xend);
-      const PixelSpan sp = pixel_span(cyG, cxG, s0, s1, ujG, vkG, G, f);
-      const float4 w4 = shade_and_sum<BD>(
-          payload + (size_t)sid * Dp * plane, plane, Gx, y0, x0, f, sp,
-          inpix, tid, G, cy, cx, sigma_thresh, sd, sdsign, s_qs, s_prm,
-          s_chan);
-
-      if (inpix) {
+  const float Gf = c.Gf, hG = c.hG, zlo = c.zlo, zhi = c.zhi;
+  const float stop_thresh = c.stop_thresh;
+  const bool inpix = c.inpix;
+  tmarch::march_loop<BD, PT>(
+      c, sm, s_qs, s_prm, T, a.counts,
+      [&](const tmarch::Job& jb, const PixelSpan&, float4 w4) {
+        if (!inpix) return;
+        const float z = jb.z;
         // boundary slabs contribute by their overlap with [zlo, zhi]
-        const float frac = fminf(fmaxf(
-            (fminf(z + hG, zhi) - fmaxf(z - hG, zlo)) * Gf, 0.f), 1.f);
+        const float frac = fminf(
+            fmaxf((fminf(z + hG, zhi) - fmaxf(z - hG, zlo)) * Gf, 0.f), 1.f);
         const float tau = w4.x * dtp * frac;
         const float att = expf(-tau);
         const float sig_inv = 1.f / fmaxf(w4.x, 1e-12f);
@@ -145,12 +185,10 @@ march_kernel(const __nv_bfloat16* __restrict__ payload,
           b += wn * w4.w;
           T = T * att;
         }
-      }
-    }
-  }
+      });
 
-  if (inpix) {
-    float* out = acc + (size_t)p * 4 * npx + pix;
+  if (c.inpix) {
+    float* out = a.acc + (size_t)p * 4 * npx + pix;
     out[0] = r;
     out[npx] = g;
     out[2 * npx] = b;
@@ -158,57 +196,133 @@ march_kernel(const __nv_bfloat16* __restrict__ payload,
   }
 }
 
-template <int BD>
-cudaError_t launch(const void* payload, const void* params,
-                   const void* qscale, const void* zb, const int* wins,
-                   const int* masks, int n_win, void* acc, int P, int G,
-                   int gi, int Dp, int Gy, int Gx, int y0, int x0, int K,
-                   int flip, cudaStream_t stream) {
-  const dim3 block(TILE, TILE);
-  const dim3 grid((gi + TILE - 1) / TILE, (gi + TILE - 1) / TILE, P);
-  march_kernel<BD><<<grid, block, 0, stream>>>(
-      (const __nv_bfloat16*)payload, (const float*)params,
-      (const float*)qscale, (const float*)zb, wins, masks, n_win, (float*)acc,
-      G, gi, Dp, Gy, Gx, y0, x0, K, flip);
-  return cudaGetLastError();
-}
+using KernFn = void (*)(const TrainArgs);
+
+// one launch of the march (on a coarse occupancy vt_march_occupancy built)
+template <int BD, typename PT>
+struct Launch {
+  static constexpr size_t SMEM = tmarch::march_smem<BD, PT>();
+  static int run(const TrainArgs& a, int P, cudaStream_t s) {
+    const KernFn fn = march_kernel<BD, PT>;
+    cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid((a.gi + tmarch::TX - 1) / tmarch::TX,
+                    (a.gi + tmarch::TY - 1) / tmarch::TY, P);
+    fn<<<grid, tmarch::NT, SMEM, s>>>(a);
+    return (int)cudaGetLastError();
+  }
+  static int occupancy(tmarch::PayView pv, const float* params, int P,
+                       const float* qscale, int Gz, int Gy, int Gx,
+                       unsigned long long* occ, cudaStream_t s) {
+    return (int)tmarch::build_occupancy<3 * BD + 1, PT>(
+        pv, params, P, qscale, Gz, Gy, Gx, occ, s);
+  }
+  static int info(int* out) {
+    const KernFn fn = march_kernel<BD, PT>;
+    cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], fn,
+                                                      tmarch::NT, SMEM);
+    if (e != cudaSuccess) return (int)e;
+    cudaFuncAttributes at;
+    e = cudaFuncGetAttributes(&at, fn);
+    if (e != cudaSuccess) return (int)e;
+    out[1] = at.numRegs;
+    out[2] = (int)at.localSizeBytes;
+    out[3] = (int)SMEM;
+    for (int i = 0; i < 7; ++i) out[4 + i] = tmarch::CONFIG[i];
+    return 0;
+  }
+};
+
+#define VT_BD_DTYPE(bd, f32, CALL)                                       \
+  switch (bd) {                                                          \
+    case 1: return f32 ? Launch<1, float>::CALL                          \
+                       : Launch<1, __nv_bfloat16>::CALL;                 \
+    case 4: return f32 ? Launch<4, float>::CALL                          \
+                       : Launch<4, __nv_bfloat16>::CALL;                 \
+    case 9: return f32 ? Launch<9, float>::CALL                          \
+                       : Launch<9, __nv_bfloat16>::CALL;                 \
+    case 16: return f32 ? Launch<16, float>::CALL                        \
+                        : Launch<16, __nv_bfloat16>::CALL;               \
+    case 25: return f32 ? Launch<25, float>::CALL                        \
+                        : Launch<25, __nv_bfloat16>::CALL;               \
+    default: return (int)cudaErrorInvalidValue;                          \
+  }
 
 }  // namespace
 
-// wins_masks: (2, n_win) int32 on the device — window ids then occupancy
-// bit masks, in march order. The payload is bf16 with Dp = 3*bd + 1.
+// The launch of kernel M's training mode. payload: element (0, 0, 0, 0) of
+// a (Gz, D, Gy, Gx) view with channel stride 1 and slab/row/column element
+// strides ss, sr, sc, f32 (pay_f32) or bf16, 16-byte aligned; params
+// (P, 31) f32; qscale (D,) f32; zb (P, 4, gi, gi) f32; ids (n_ids,) int32
+// slab ids in march order; occ: Gz * ceil(Gy / 8) * ceil(Gx / 512) uint64,
+// the payload's coarse occupancy (vt_march_occupancy); acc (P, 4, gi, gi)
+// f32; counts: tmarch::N_COUNTS uint64 (tmarch::add_counts) or null.
 // Returns cudaGetLastError() after the launch.
-extern "C" int vt_march_slabs(const void* payload, const void* params,
-                              const void* qscale, const void* zb,
-                              const void* wins_masks, int n_win, void* acc,
-                              int P, int G, int gi, int Dp, int Gy, int Gx,
-                              int y0, int x0, int bd, int K, int flip,
-                              void* stream) {
-  if (Dp != 3 * bd + 1 || P < 1 || P > 65535 || gi < 1 || K < 1 ||
-      n_win < 1)
+extern "C" int vt_march_slabs(const void* payload, int pay_f32,
+                              long long ss, long long sr, long long sc,
+                              const void* params, const void* qscale,
+                              const void* zb, const void* ids, int n_ids,
+                              void* occ, void* acc, void* counts, int P,
+                              int Gz, int G, int gi, int Gy, int Gx, int y0,
+                              int x0, int bd, int flip, void* stream) {
+  if (P < 1 || P > 65535 || gi < 1 || n_ids < 1 || Gy < 1 || Gx < 1 ||
+      (reinterpret_cast<uintptr_t>(payload) & 15))
     return (int)cudaErrorInvalidValue;
-  const int* wins = (const int*)wins_masks;
-  const int* masks = wins + n_win;
+  TrainArgs a;
+  a.pv.ptr = payload;
+  a.pv.ss = ss;
+  a.pv.sr = sr;
+  a.pv.sc = sc;
+  a.params = (const float*)params;
+  a.qscale = (const float*)qscale;
+  a.zb = (const float*)zb;
+  a.ids = (const int*)ids;
+  a.occ = (const unsigned long long*)occ;
+  a.acc = (float*)acc;
+  a.counts = (unsigned long long*)counts;
+  a.n_ids = n_ids;
+  a.G = G;
+  a.gi = gi;
+  a.Gy = Gy;
+  a.Gx = Gx;
+  a.y0 = y0;
+  a.x0 = x0;
+  a.flip = flip;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (bd) {
-    case 1:
-      return (int)launch<1>(payload, params, qscale, zb, wins, masks, n_win,
-                            acc, P, G, gi, Dp, Gy, Gx, y0, x0, K, flip, s);
-    case 4:
-      return (int)launch<4>(payload, params, qscale, zb, wins, masks, n_win,
-                            acc, P, G, gi, Dp, Gy, Gx, y0, x0, K, flip, s);
-    case 9:
-      return (int)launch<9>(payload, params, qscale, zb, wins, masks, n_win,
-                            acc, P, G, gi, Dp, Gy, Gx, y0, x0, K, flip, s);
-    case 16:
-      return (int)launch<16>(payload, params, qscale, zb, wins, masks, n_win,
-                             acc, P, G, gi, Dp, Gy, Gx, y0, x0, K, flip, s);
-    case 25:
-      return (int)launch<25>(payload, params, qscale, zb, wins, masks, n_win,
-                             acc, P, G, gi, Dp, Gy, Gx, y0, x0, K, flip, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  VT_BD_DTYPE(bd, pay_f32, run(a, P, s))
+}
+
+// The coarse occupancy of a payload view (as for vt_march_slabs: channel
+// stride 1, f32 or bf16, 16-byte aligned): occ, Gz * ceil(Gy / 8) *
+// ceil(Gx / 512) uint64, per slab and row of 8 x 8 cell blocks the masks
+// of the blocks with a voxel above the lowest sigma threshold of the P
+// poses' params (P, 31). One memset and one launch; returns
+// cudaGetLastError().
+extern "C" int vt_march_occupancy(const void* payload, int pay_f32,
+                                  long long ss, long long sr, long long sc,
+                                  const void* params, int P,
+                                  const void* qscale, int Gz, int Gy, int Gx,
+                                  int bd, void* occ, void* stream) {
+  if (P < 1 || Gz < 1 || Gy < 1 || Gx < 1 ||
+      (reinterpret_cast<uintptr_t>(payload) & 15))
+    return (int)cudaErrorInvalidValue;
+  const tmarch::PayView pv{payload, ss, sr, sc};
+  VT_BD_DTYPE(bd, pay_f32,
+              occupancy(pv, (const float*)params, P, (const float*)qscale,
+                        Gz, Gy, Gx, (unsigned long long*)occ,
+                        (cudaStream_t)stream))
+}
+
+// What the card makes of the launch: out[0] resident blocks per SM, out[1]
+// registers a thread, out[2] spill (local) bytes a thread, out[3] dynamic
+// shared memory a block; out[4..10] the configuration it was built with
+// (tmarch::CONFIG: ty, tx, nt, ps, ring, dc, rslots).
+extern "C" int vt_march_slabs_info(int bd, int pay_f32, int* out) {
+  VT_BD_DTYPE(bd, pay_f32, info(out))
 }
 
 extern "C" const char* vt_error_string(int code) {

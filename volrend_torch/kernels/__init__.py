@@ -31,6 +31,7 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 
 #: kernel library name -> (source file, {C entry: argument types})
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 SOURCES = {
     "slab_march_display": ("slab_march_display.cu", {
         # payload, params, qscale, zb, wins_masks, n_win, acc,
@@ -42,16 +43,24 @@ SOURCES = {
         "vt_march_display_info": [_I, _I, _I, _P],
     }),
     "slab_march": ("slab_march.cu", {
-        # payload, params, qscale, zb, wins_masks, n_win, acc,
-        # P, G, gi, Dp, Gy, Gx, y0, x0, bd, K, flip, stream
-        "vt_march_slabs": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
-                           _I, _I, _I, _I, _I, _I, _I, _P],
+        # payload, pay_f32, ss, sr, sc, params, qscale, zb, ids, n_ids, occ,
+        # acc, counts, P, Gz, G, gi, Gy, Gx, y0, x0, bd, flip, stream
+        "vt_march_slabs": [_P, _I, _L, _L, _L, _P, _P, _P, _P, _I, _P, _P,
+                           _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        # bd, pay_f32, out (int[11])
+        "vt_march_slabs_info": [_I, _I, _P],
+        # payload, pay_f32, ss, sr, sc, params, P, qscale, Gz, Gy, Gx, bd,
+        # occ, stream
+        "vt_march_occupancy": [_P, _I, _L, _L, _L, _P, _I, _P, _I, _I, _I,
+                               _I, _P, _P],
     }),
     "slab_march_bwd": ("slab_march_bwd.cu", {
-        # payload, params, qscale, zb, gacc, aux, gbuf, out, out_bf16,
-        # Gz, G, gi, bd, flip, stream
-        "vt_march_slabs_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
-                               _I, _I, _I, _I, _I, _P],
+        # payload, pay_f32, ss, sr, sc, params, qscale, zb, gacc, aux, ids,
+        # occ, gbuf, out, out_bf16, counts, Gz, G, gi, bd, flip, stream
+        "vt_march_slabs_bwd": [_P, _I, _L, _L, _L, _P, _P, _P, _P, _P, _P,
+                               _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+        # bd, pay_f32, out (int[7])
+        "vt_march_slabs_bwd_info": [_I, _I, _P],
     }),
     "warp_build": ("warp_build.cu", {
         # inter, table, P, gi, Wy, Wx, table_f32, planar, stream

@@ -14,10 +14,11 @@
    round trips are exact.
 2. **The march**, two backends with one semantics:
    - ``"kernel"``: a ``torch.autograd.Function`` whose forward is kernel M
-     in its training mode (bf16 payload, per-slab view directions) and
-     whose backward is the backward march kernel (``slab_march.
-     march_slabs_bwd``), which re-marches the slabs with the suffix
-     algebra of ``ops/grad.py``;
+     in its training mode (the bake's own tensor seen through the pose
+     group's permutation, per-slab view directions) and whose backward is
+     the backward march kernel (``slab_march.march_slabs_bwd``), which
+     re-marches the slabs with the suffix algebra of ``ops/grad.py`` and
+     writes the cotangent in the bake's layout;
    - ``"scan"``: the march as plain PyTorch (``_march_fwd_impl``),
      differentiated by autograd (the reference's ``backend="scan"``; its
      custom re-march VJP for the scan, ``_march_diff``, computes the same
@@ -390,32 +391,40 @@ def _kernel_statics(cfg: SlabCfg):
 
 class _MarchKernel(torch.autograd.Function):
     """Slab march on the kernels, the counterpart of the reference's
-    ``_march_diff_pallas``: forward is kernel M in its training mode on the
-    payload cast to bf16 at the kernel boundary; backward is the backward
-    march kernel on that same bf16 payload (saved as the residual: the
-    recompute then sees identical values). The cotangent comes back in the
-    primal's dtype: f32, or bf16 when the caller marches a bf16 planar
-    (the lean trainer)."""
+    ``_march_diff_pallas``: forward is kernel M in its training mode,
+    backward the backward march kernel, both on ``planar``, the bake seen
+    through the pose group's permutation (f32, or bf16 for the lean
+    trainer). On the card the kernels read that view itself, rounding f32 to
+    bf16 as they stage it (the values of the reference's bf16 planar cast),
+    and it is the residual; on the CPU the plain versions run on a
+    contiguous bf16 planar copy. The cotangent comes back in the primal's
+    dtype and strides, so that the permutation back hands the bake a
+    gradient in its own contiguous layout."""
 
     @staticmethod
     def forward(ctx, planar, params, zb, cfg):
-        # one pass from the permuted view to a contiguous bf16 copy (no f32
-        # planar copy is materialized)
-        p16 = torch.empty(planar.shape, dtype=torch.bfloat16,
-                          device=planar.device).copy_(planar)
+        pay, occ = planar, None
         qs = torch.ones((cfg.D,), dtype=_F32, device=planar.device)
+        if planar.device.type == "cpu":
+            pay = torch.empty(planar.shape, dtype=torch.bfloat16).copy_(
+                planar)
+        else:  # one coarse occupancy for both kernels
+            occ = slab_march.march_occupancy(pay, params, qs)
         acc4 = slab_march.march_slabs(
-            p16, params[None], qs, zb[None], cfg.G, cfg.gi, cfg.D, cfg.bd,
+            pay, params[None], qs, zb[None], cfg.G, cfg.gi, cfg.D, cfg.bd,
             cfg.perm, slab_ids=cfg.ids, sig2=False, depth=False,
-            shade_bf16=False, dir_win=False, **_kernel_statics(cfg))[0]
-        ctx.save_for_backward(p16, params, zb, acc4)
+            shade_bf16=False, dir_win=False, occupancy=occ,
+            **_kernel_statics(cfg))[0]
+        ctx.save_for_backward(pay, params, zb, acc4)
+        ctx.occ = occ
         ctx.cfg = cfg
         ctx.pdtype = planar.dtype
+        ctx.pstride = planar.stride()
         return acc4[:3].movedim(0, -1).contiguous(), acc4[3].clone()
 
     @staticmethod
     def backward(ctx, g_acc, g_T):
-        p16, params, zb, acc4 = ctx.saved_tensors
+        pay, params, zb, acc4 = ctx.saved_tensors
         cfg = ctx.cfg
         gi = cfg.gi
         if g_acc is None:
@@ -425,11 +434,14 @@ class _MarchKernel(torch.autograd.Function):
         gacc4 = torch.cat([g_acc.to(_F32).movedim(-1, 0),
                            g_T.to(_F32)[None]])
         grad = slab_march.march_slabs_bwd(
-            p16, params, torch.ones((cfg.D,), dtype=_F32,
-                                    device=p16.device),
+            pay, params, torch.ones((cfg.D,), dtype=_F32, device=pay.device),
             zb, gacc4, acc4, cfg.G, gi, cfg.D, cfg.bd, cfg.perm,
-            out_dtype=ctx.pdtype, **_kernel_statics(cfg))
-        return grad.to(ctx.pdtype), None, None, None
+            out_dtype=ctx.pdtype, occupancy=ctx.occ, **_kernel_statics(cfg))
+        if grad.stride() != ctx.pstride:
+            grad = torch.empty_strided(grad.shape, ctx.pstride,
+                                       dtype=ctx.pdtype,
+                                       device=grad.device).copy_(grad)
+        return grad, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -458,9 +470,9 @@ def render_frame_train(data, bmap: BakeMap, grid: DenseGrid, transform,
         kernels — ``_kernel_train_ok`` — and ``use_custom_vjp`` holds, else
         the scan), "kernel" or "scan". On CPU tensors the kernel wrappers
         run their plain versions.
-    grad_bf16: the lean trainer's mode: the payload is cast to bf16 before
-        the planar transpose and the backward kernel emits a bf16
-        cotangent (a per-call setting; the reference's is process-global).
+    grad_bf16: the lean trainer's mode: the bake is cast to bf16 before the
+        kernels read it and the backward kernel emits a bf16 cotangent (a
+        per-call setting; the reference's is process-global).
     """
     opt = opt.replace(renormalize=False, render_depth=False)
     if isinstance(data, (tuple, list)):

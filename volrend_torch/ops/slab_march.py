@@ -21,16 +21,23 @@ Two option sets are taken, both SH:
   sigma's hi and lo planes, Dp = D + 1; ``sig2=True``) with the view
   direction taken once per K-slab window at the window centre
   (``dir_win=True``);
-- the training path's: a bf16 payload with Dp = D (sigma in plane D-1,
-  ``sig2=False``) with the view direction per slab (``dir_win=False``),
-  all slabs or a culled list. ``march_slabs_bwd`` is its payload cotangent.
+- the training path's: the bake's own f32 or bf16 tensor, seen as the
+  (Gz, D, Gy, Gx) view of the pose group's permutation (channel stride 1:
+  each voxel's D values are one record; ``_record_strides``), with
+  sigma last and the view direction per slab (``dir_win=False``), all slabs
+  or a culled list. Both versions round f32 to bf16 as they read it, so
+  both dtypes march the values of the bake's bf16 copy.
+  ``march_slabs_bwd`` is its payload cotangent, written through the same
+  strides.
 
 On CUDA tensors ``march_slabs`` launches kernel M, one launch per pose
 batch: its display mode (``csrc/slab_march_display.cu``, which stages each
 tile's footprint with cp.async; ``display_config`` picks its tile height
-and sizes its stage) or its training mode (``csrc/slab_march.cu``);
-``march_slabs_bwd`` launches the backward kernel
-(``csrc/slab_march_bwd.cu``). On CPU tensors they run
+and sizes its stage) or its training mode (``csrc/slab_march.cu``, which
+stages sigma ahead, skips footprints with no voxel above the threshold and
+stages colour only above it; its tile, pieces and ring are fixed when it
+is built, ``csrc/slab_common.cuh``); ``march_slabs_bwd`` launches the
+backward kernel (``csrc/slab_march_bwd.cu``). On CPU tensors they run
 ``march_slabs_ref`` and ``march_slabs_bwd_ref``, the same functions in plain
 PyTorch (dense overlap matrices, as the reference builds them). Kernel and
 plain version differ only in summation order. Unlike the reference kernels,
@@ -51,9 +58,13 @@ from volrend_torch.ops import basis as basis_mod
 from volrend_torch.utils.device import to_device
 
 __all__ = ["march_slabs", "march_slabs_ref", "march_slabs_bwd",
-           "march_slabs_bwd_ref", "march_bwd_inputs", "display_config"]
+           "march_slabs_bwd_ref", "march_bwd_inputs", "march_occupancy",
+           "march_occupancy_ref", "display_config", "march_slab_ids"]
 
 _F32 = torch.float32
+#: the training mode's payload dtypes: the default trainer's f32 bake and
+#: the lean trainer's bf16 one
+_TRAIN_DTYPES = (torch.float32, torch.bfloat16)
 
 #: display-path slabs per window (the view direction is shared by the
 #: window's slabs; K-aligned occupancy masks)
@@ -159,11 +170,11 @@ def _common_unsupported(D, bd, fmt, rot, basis_lo, basis_hi,
 def _check_options(gplanar, G, D, bd, sig2, fmt, depth, rot, basis_lo,
                    basis_hi, bbox_full, shade_bf16, dir_win, z_base,
                    acc_init):
-    """The display path's option set (int8) or the training path's (bf16);
-    anything else is a later slice."""
+    """The display path's option set (int8) or the training path's (f32 or
+    bf16); anything else is a later slice."""
     unsupported = _common_unsupported(D, bd, fmt, rot, basis_lo, basis_hi,
                                       bbox_full)
-    train = gplanar.dtype == torch.bfloat16
+    train = gplanar.dtype in _TRAIN_DTYPES
     if depth:
         unsupported.append("depth mode")
     if shade_bf16:
@@ -181,12 +192,11 @@ def _check_options(gplanar, G, D, bd, sig2, fmt, depth, rot, basis_lo,
     if z_base is not None or acc_init is not None:
         unsupported.append("z-sharded segments")
     _later_slices(unsupported)
-    if gplanar.dim() != 4 or gplanar.dtype not in (torch.int8,
-                                                   torch.bfloat16):
-        raise ValueError(f"payload must be (Gz, Dp, Gy, Gx) int8 or bf16, "
-                         f"got {tuple(gplanar.shape)} {gplanar.dtype}")
+    if gplanar.dim() != 4 or not (train or gplanar.dtype == torch.int8):
+        raise ValueError(f"payload must be (Gz, Dp, Gy, Gx) int8, f32 or "
+                         f"bf16, got {tuple(gplanar.shape)} {gplanar.dtype}")
     if train and sig2:
-        raise ValueError("a bf16 payload holds sigma in one plane (sig2 "
+        raise ValueError("a training payload holds sigma in one plane (sig2 "
                          "is the int8 split)")
     Dp = D if train else D + 1
     if gplanar.shape[1] != Dp:
@@ -206,15 +216,18 @@ def march_slabs(gplanar, params, qscale, zbounds, G: int,
                 flip: bool = False, k_per_step: int = 4,
                 bbox_full: bool = False, shade_bf16: bool = False,
                 dir_win: bool = False, z_base=None, acc_init=None,
-                crop: Optional[Tuple[int, int, int, int]] = None):
+                crop: Optional[Tuple[int, int, int, int]] = None,
+                occupancy: Optional[torch.Tensor] = None):
     """Run the fused march for a batch of poses sharing one payload;
     returns acc (P, 4, gi, gi): [r, g, b, T].
 
-    gplanar: (G, Dp, Gy, Gx) channel-planar permuted payload: int8 codes
-        with Dp = D+1 (colour codes + 14-bit sigma over the last two
-        planes; sig2=True, dir_win=True: the display path), or bf16 with
-        Dp = D (sigma in plane D-1; sig2=False, dir_win=False: the training
-        path, view directions per slab).
+    gplanar: (G, Dp, Gy, Gx) permuted payload: contiguous channel-planar
+        int8 codes with Dp = D+1 (colour codes + 14-bit sigma over the last
+        two planes; sig2=True, dir_win=True: the display path), or the
+        bake's f32 or bf16 tensor seen through its permutation, Dp = D
+        (sigma last; sig2=False, dir_win=False: the training path, view
+        directions per slab; on the card its channel stride must be 1,
+        ``_record_strides``).
     params: (P, 30) f32 (see _pack_params). qscale: (Dp,) f32, each basis
         function's scale shared across rgb (the int8 bake's; ones for
         training).
@@ -224,6 +237,10 @@ def march_slabs(gplanar, params, qscale, zbounds, G: int,
     flip: True when the march runs toward -z (descending slab ids).
     crop: optional (y0, Gy, x0, Gx) in-plane occupancy crop of the payload
         (slab_render.inplane_crop); None = uncropped.
+    occupancy: the training mode's coarse occupancy of this payload
+        (``march_occupancy``, at these poses' sigma threshold), to share one
+        between calls; None builds it (on the card; the plain version
+        needs none).
     The remaining arguments mirror the reference's signature; only the
     display and training paths' values are taken (see _check_options).
     """
@@ -239,9 +256,11 @@ def march_slabs(gplanar, params, qscale, zbounds, G: int,
         acc[:, 3] = 1.0
         return acc
     if dev.type == "cuda":
-        launch = (_march_train_cuda if gplanar.dtype == torch.bfloat16
-                  else _march_display_cuda)
-        return launch(gplanar, qscale, D=D, bd=bd, flip=flip, **m)
+        if gplanar.dtype in _TRAIN_DTYPES:
+            return _march_train_cuda(gplanar, qscale, D=D, bd=bd, flip=flip,
+                                     occ=occupancy, **m)
+        return _march_display_cuda(gplanar, qscale, D=D, bd=bd, flip=flip,
+                                   **m)
     if dev.type == "cpu":
         return march_slabs_ref(gplanar, qscale, D=D, bd=bd, flip=flip, **m)
     raise RuntimeError(f"march_slabs: no kernel for device {dev}")
@@ -282,8 +301,10 @@ def march_inputs(gplanar, params, zbounds, G: int, gi: int,
 
 
 def _check_launch(gplanar, qscale, params, zb, G, gi):
-    """The march launch's inputs: contiguous tensors of the kernel's dtypes
-    and shapes on the payload's device."""
+    """The march launch's inputs: tensors of the kernel's dtypes and shapes
+    on the payload's device, contiguous (the payload too in the display
+    mode; in the training mode a view with channel stride 1,
+    ``_record_strides``)."""
     dev = gplanar.device
     Gz, Dp, Gy, Gx = gplanar.shape
     P = params.shape[0]
@@ -293,30 +314,162 @@ def _check_launch(gplanar, qscale, params, zb, G, gi):
             ("qscale", qscale, _F32, (Dp,)),
             ("zbounds", zb, _F32, (P, 4, gi, gi))):
         if (t.device != dev or t.dtype != dt or tuple(t.shape) != shape
-                or not t.is_contiguous()):
+                or not (t.is_contiguous() or t is gplanar)):
             raise ValueError(f"march_slabs: {name} must be a contiguous "
                              f"{dt} tensor of shape {shape} on {dev}")
+    if gplanar.dtype == torch.int8 and not gplanar.is_contiguous():
+        raise ValueError("march_slabs: the int8 payload must be contiguous")
+
+
+def _record_strides(gplanar, bake: bool = False) -> Tuple[int, int, int]:
+    """(slab, row, column) element strides of a training payload, as the
+    wrappers hand them to the kernels: a view with channel stride 1 (each
+    voxel's D values one record; the bake's contiguous (G, G, G, D) tensor
+    seen through ``permute(perm[0], 3, perm[1], perm[2])`` is one) and a
+    16-byte aligned first element; with ``bake``, also a permutation of a
+    contiguous (G, G, G, D) tensor (the backward walks the voxels in its
+    memory order)."""
+    Gz, D, Gy, Gx = gplanar.shape
+    ss, sc, sr, sx = gplanar.stride()
+    if sc != 1 or min(ss, sr, sx) < 1 or gplanar.data_ptr() % 16:
+        raise ValueError(
+            f"the training payload must be a view with channel stride 1 "
+            f"(each voxel's values one record) and a 16-byte aligned first "
+            f"element, got strides {gplanar.stride()}")
+    if bake and not (Gz == Gy == Gx and sorted((ss, sr, sx)) ==
+                     [D, Gx * D, Gx * Gx * D]):
+        raise ValueError(f"the backward's payload must be a permuted "
+                         f"contiguous (G, G, G, D) bake, got shape "
+                         f"{tuple(gplanar.shape)} strides {gplanar.stride()}")
+    return ss, sr, sx
+
+
+def march_slab_ids(wins: Sequence[int], masks: Sequence[int], K: int,
+                   flip: bool) -> List[int]:
+    """The slab ids of K-aligned windows and their occupancy masks, in
+    march order (the training kernel's slab list)."""
+    order = range(K - 1, -1, -1) if flip else range(K)
+    return [w * K + d for w, m in zip(wins, masks) for d in order
+            if (m >> d) & 1]
 
 
 def _march_train_cuda(gplanar, qscale, params, zb, wins, masks, G, gi, D,
-                      bd, K, flip, y0, x0):
-    """Launch kernel M's training mode (bf16 payload, per-slab view
-    directions) over the whole pose batch (one launch)."""
+                      bd, K, flip, y0, x0, counts=None, occ=None):
+    """Launch kernel M's training mode (the bake's f32 or bf16 view, per-slab
+    view directions) over the whole pose batch (one launch). ``occ``: the
+    payload's coarse occupancy (``march_occupancy``; None builds it);
+    ``counts``: an int64 (N_COUNTS,) tensor on the card to add the launch's
+    counts to (slabs met and shaded, footprint pieces met, staged and
+    shaded; ``tmarch::add_counts`` in csrc/slab_common.cuh)."""
     _check_launch(gplanar, qscale, params, zb, G, gi)
+    ss, sr, sx = _record_strides(gplanar)
     dev = gplanar.device
-    _, Dp, Gy, Gx = gplanar.shape
+    Gz, Dp, Gy, Gx = gplanar.shape
     P = params.shape[0]
-    wm = to_device(np.asarray([wins, masks], np.int32), torch.int32, dev)
+    ids = to_device(np.asarray(march_slab_ids(wins, masks, K, flip),
+                               np.int32), torch.int32, dev)
+    if occ is None:
+        occ = march_occupancy(gplanar, params, qscale)
+    _check_occupancy(occ, Gz, Gy, Gx, dev)
     acc = torch.empty((P, 4, gi, gi), dtype=_F32, device=dev)
     lib = kernels.lib("slab_march")
     kernels.check(lib.vt_march_slabs(
-        gplanar.data_ptr(), params.data_ptr(), qscale.data_ptr(),
-        zb.data_ptr(), wm.data_ptr(), len(wins), acc.data_ptr(),
-        P, G, gi, Dp, Gy, Gx, y0, x0, bd, K, int(bool(flip)),
-        torch.cuda.current_stream(dev).cuda_stream), "slab_march")
+        gplanar.data_ptr(), int(gplanar.dtype == _F32), ss, sr, sx,
+        params.data_ptr(), qscale.data_ptr(), zb.data_ptr(), ids.data_ptr(),
+        ids.numel(), occ.data_ptr(), acc.data_ptr(),
+        _counts_ptr(counts, dev), P, Gz, G, gi, Gy, Gx, y0, x0, bd,
+        int(bool(flip)), torch.cuda.current_stream(dev).cuda_stream),
+        "slab_march")
     march_slabs.launches += 1
     march_slabs.poses += P
     return acc
+
+
+#: entries of the training kernels' counts (tmarch::N_COUNTS)
+N_COUNTS = 5
+#: cells a side of the coarse occupancy's blocks (tmarch::OCC)
+_OCC = 8
+
+
+def _occ_shape(Gz: int, Gy: int, Gx: int) -> Tuple[int, int, int]:
+    """The coarse occupancy's shape: per slab and row of blocks, the
+    64-bit masks that cover the column blocks."""
+    return Gz, -(-Gy // _OCC), -(-Gx // (64 * _OCC))
+
+
+def march_occupancy(gplanar, params, qscale) -> torch.Tensor:
+    """The training kernels' coarse occupancy of a payload: per slab and
+    row of 8 x 8 cell blocks (the view's rows and columns), int64 masks
+    whose bit b of word w is set when column block 64 w + b holds a voxel
+    above the sigma threshold (the lowest of the poses' params[:, 14];
+    values read as the kernels read them, bf16, times qscale[D-1]).
+    gplanar: the training payload (Gz, D, Gy, Gx); params (P, >=15) or
+    (>=15,); returns (Gz, ceil(Gy / 8), ceil(Gx / 512)) int64. Kernel
+    M's training mode and the backward pass over the footprint pieces it
+    marks empty; one map serves both (``_MarchKernel`` builds it once a
+    step). On CUDA tensors a kernel
+    (``vt_march_occupancy``), on CPU tensors ``march_occupancy_ref``."""
+    Gz, D, Gy, Gx = gplanar.shape
+    dev = gplanar.device
+    params = torch.as_tensor(params, dtype=_F32, device=dev)
+    params = params.reshape(-1, params.shape[-1])
+    if dev.type == "cpu":
+        return march_occupancy_ref(gplanar, params, qscale)
+    if dev.type != "cuda":
+        raise RuntimeError(f"march_occupancy: no kernel for device {dev}")
+    if gplanar.dtype not in _TRAIN_DTYPES:
+        raise ValueError(f"march_occupancy takes a training payload, got "
+                         f"{gplanar.dtype}")
+    ss, sr, sx = _record_strides(gplanar)
+    P = params.shape[0]
+    prm = torch.zeros((P, _NP), dtype=_F32, device=dev)
+    prm[:, :min(params.shape[1], _NP)] = params[:, :_NP]
+    qscale = qscale.to(device=dev, dtype=_F32).contiguous()
+    occ = torch.empty(_occ_shape(Gz, Gy, Gx), dtype=torch.int64, device=dev)
+    kernels.check(kernels.lib("slab_march").vt_march_occupancy(
+        gplanar.data_ptr(), int(gplanar.dtype == _F32), ss, sr, sx,
+        prm.data_ptr(), P, qscale.data_ptr(), Gz, Gy, Gx, (D - 1) // 3,
+        occ.data_ptr(), torch.cuda.current_stream(dev).cuda_stream),
+        "slab_march")
+    march_occupancy.launches += 1
+    return occ
+
+
+march_occupancy.launches = 0
+
+
+def march_occupancy_ref(gplanar, params, qscale) -> torch.Tensor:
+    """Plain PyTorch version of ``march_occupancy`` (params (P, >=15))."""
+    Gz, D, Gy, Gx = gplanar.shape
+    thr = params[:, 14].min()
+    live = (_slab_values(gplanar[:, D - 1]) * qscale[D - 1].to(_F32)
+            > thr)                                            # (Gz, Gy, Gx)
+    _, RB, NW = _occ_shape(Gz, Gy, Gx)
+    pad = torch.zeros((Gz, RB * _OCC, NW * 64 * _OCC), dtype=torch.bool,
+                      device=live.device)
+    pad[:, :Gy, :Gx] = live
+    blocks = pad.reshape(Gz, RB, _OCC, NW, 64, _OCC).any(5).any(2)
+    bits = torch.arange(64, device=live.device)
+    return torch.sum(blocks.long() << bits, -1)               # (Gz, RB, NW)
+
+
+def _check_occupancy(occ, Gz: int, Gy: int, Gx: int, dev) -> None:
+    shape = _occ_shape(Gz, Gy, Gx)
+    if (occ.device != dev or occ.dtype != torch.int64
+            or tuple(occ.shape) != shape or not occ.is_contiguous()):
+        raise ValueError(f"occupancy must be a contiguous int64 tensor of "
+                         f"shape {shape} on {dev} (march_occupancy)")
+
+
+def _counts_ptr(counts, dev) -> int:
+    if counts is None:
+        return 0
+    if (counts.device != dev or counts.dtype != torch.int64
+            or tuple(counts.shape) != (N_COUNTS,)
+            or not counts.is_contiguous()):
+        raise ValueError(f"counts must be a contiguous int64 ({N_COUNTS},) "
+                         f"tensor on {dev}")
+    return counts.data_ptr()
 
 
 def _march_display_cuda(gplanar, qscale, params, zb, wins, masks, G, gi, D,
@@ -410,6 +563,14 @@ def _dirs(dirp, prm, s) -> torch.Tensor:
                  * torch.sign(torch.as_tensor(s)))
 
 
+def _slab_values(slab) -> torch.Tensor:
+    """One slab of the payload as f32: int8 codes as they are, a training
+    payload's values rounded to bf16 first (as the kernels read them)."""
+    if slab.dtype != torch.int8:
+        slab = slab.to(torch.bfloat16)
+    return slab.to(_F32)
+
+
 def _slab_sigma(slab, qs, D: int, sig2: bool) -> torch.Tensor:
     """Dequantized sigma plane of one (Dp, Gy, Gx) f32 slab."""
     if sig2:
@@ -425,8 +586,9 @@ def march_slabs_ref(gplanar, qscale, params, zb, wins: Sequence[int],
     reference builds them (in f32). Inputs as ``march_inputs`` prepares
     them (params (P, 31), zb (P, 4, gi, gi)); returns acc (P, 4, gi, gi).
     The payload's dtype selects the mode, as for the kernel: int8 carries
-    the sig2 split with view directions per window (display), bf16 takes
-    them per slab (training)."""
+    the sig2 split with view directions per window (display), f32 or bf16
+    take them per slab (training; f32 rounded to bf16 as it is read, as the
+    kernel reads it)."""
     dev = gplanar.device
     Gz, Dp, Gy, Gx = gplanar.shape
     P = params.shape[0]
@@ -471,7 +633,7 @@ def march_slabs_ref(gplanar, qscale, params, zb, wins: Sequence[int],
                 if slab_dirs:
                     bkq = basis_mod.eval_sh_basis(
                         _dirs(dirp, prm, z - cz), bd) * qs[:bd]
-                slab = gplanar[sid].to(_F32)                   # (Dp,Gy,Gx)
+                slab = _slab_values(gplanar[sid])              # (Dp,Gy,Gx)
                 sigma = _slab_sigma(slab, qs, D, sig2)
                 sigma = torch.where(sigma > sigma_thresh, sigma, 0.0)
                 codes = slab[:3 * bd].reshape(3, bd, Gy, Gx)
@@ -509,11 +671,13 @@ def march_slabs_bwd(gplanar, params, qscale, zbounds, gacc4, acc4,
                     flip: bool = False,
                     k_per_step: Optional[int] = None,
                     bbox_full: bool = False,
-                    z_base=None, state_init=None, out_dtype=_F32):
+                    z_base=None, state_init=None, out_dtype=_F32,
+                    occupancy: Optional[torch.Tensor] = None):
     """Payload cotangent of the training-mode ``march_slabs`` for one pose.
 
-    gplanar: (Gz, D, G, G) channel-planar bf16 payload — the array the
-        forward marched. params: (30,) f32 (see _pack_params); qscale:
+    gplanar: (Gz, D, G, G) f32 or bf16 payload — the array the forward
+        marched (on the card, the bake's view: ``_record_strides``).
+        params: (30,) f32 (see _pack_params); qscale:
         (D,) f32; zbounds: (2, gi, gi) f32 per-pixel live z interval.
     gacc4: (4, gi, gi) upstream cotangent [g_r, g_g, g_b, g_T].
     acc4: (4, gi, gi) the forward output [r, g, b, T].
@@ -521,21 +685,24 @@ def march_slabs_bwd(gplanar, params, qscale, zbounds, gacc4, acc4,
         (1, 0), the whole-grid march.
     z_base: the global z of the payload's first slab (z-sharded segments,
         slice D); only None is taken.
+    occupancy: the payload's coarse occupancy (``march_occupancy``; the
+        forward's, shared); None builds it (on the card).
     Returns (Gz, D, G, G) in ``out_dtype`` (f32, or bf16 for the lean
-    trainer). Marches every slab in forward order (a slab culled from the
-    forward has no voxel above the sigma threshold, so its cotangent is
-    zero). ``perm``, ``extra`` and ``k_per_step`` mirror the reference's
-    signature and are not needed here.
+    trainer) with the payload's strides, so that the bake's permutation
+    back gives its own layout. Marches every slab in forward order (a slab
+    culled from the forward has no voxel above the sigma threshold, so its
+    cotangent is zero). ``perm``, ``extra`` and ``k_per_step`` mirror the
+    reference's signature and are not needed here.
     """
     unsupported = _common_unsupported(D, bd, fmt, rot, basis_lo, basis_hi,
                                       bbox_full)
     if z_base is not None:
         unsupported.append("z-sharded segments (z_base)")
     _later_slices(unsupported)
-    if (gplanar.dtype != torch.bfloat16 or gplanar.dim() != 4
+    if (gplanar.dtype not in _TRAIN_DTYPES or gplanar.dim() != 4
             or tuple(gplanar.shape[1:]) != (D, G, G)):
-        raise ValueError(f"payload must be (Gz, {D}, {G}, {G}) bf16, got "
-                         f"{tuple(gplanar.shape)} {gplanar.dtype}")
+        raise ValueError(f"payload must be (Gz, {D}, {G}, {G}) f32 or bf16, "
+                         f"got {tuple(gplanar.shape)} {gplanar.dtype}")
     if out_dtype not in (_F32, torch.bfloat16):
         raise ValueError(f"out_dtype must be float32 or bfloat16, got "
                          f"{out_dtype}")
@@ -545,10 +712,14 @@ def march_slabs_bwd(gplanar, params, qscale, zbounds, gacc4, acc4,
     qscale = qscale.to(_F32).contiguous()
     if dev.type == "cuda":
         return _march_bwd_cuda(gplanar, prm, qscale, zb, gacc4, aux, G, gi,
-                               D, bd, flip, out_dtype)
+                               D, bd, flip, out_dtype, occ=occupancy)
     if dev.type == "cpu":
-        return march_slabs_bwd_ref(gplanar, qscale, prm, zb, gacc4, aux, G,
-                                   gi, D, bd, flip, out_dtype)
+        g = march_slabs_bwd_ref(gplanar, qscale, prm, zb, gacc4, aux, G, gi,
+                                D, bd, flip, out_dtype)
+        if g.stride() == gplanar.stride():
+            return g
+        return torch.empty_strided(gplanar.shape, gplanar.stride(),
+                                   dtype=out_dtype).copy_(g)
     raise RuntimeError(f"march_slabs_bwd: no kernel for device {dev}")
 
 
@@ -580,9 +751,11 @@ def march_bwd_inputs(params, zbounds, gacc4, acc4, G: int, gi: int,
 
 
 def _march_bwd_cuda(gplanar, params, qscale, zb, gacc4, aux, G, gi, D, bd,
-                    flip, out_dtype):
-    """Launch the backward kernel (its two passes: re-march + scatter, then
-    the per-voxel shade adjoint) for one pose."""
+                    flip, out_dtype, counts=None, occ=None):
+    """Launch the backward kernel (its two passes: re-march + adjoint warp,
+    then the per-voxel shade adjoint) for one pose; the cotangent takes the
+    payload's strides. ``counts`` and ``occ`` as for _march_train_cuda
+    (``counts``: pass 1's)."""
     dev = gplanar.device
     Gz = gplanar.shape[0]
     for name, t, shape in (("params", params, (_NP,)), ("qscale", qscale, (D,)),
@@ -593,16 +766,25 @@ def _march_bwd_cuda(gplanar, params, qscale, zb, gacc4, aux, G, gi, D, bd,
                 or not t.is_contiguous()):
             raise ValueError(f"march_slabs_bwd: {name} must be a contiguous "
                              f"float32 tensor of shape {shape} on {dev}")
-    if not gplanar.is_contiguous():
-        raise ValueError("march_slabs_bwd: the payload must be contiguous")
-    gbuf = torch.zeros((Gz, 4, G, G), dtype=_F32, device=dev)
-    out = torch.empty((Gz, D, G, G), dtype=out_dtype, device=dev)
+    ss, sr, sx = _record_strides(gplanar, bake=True)
+    ids = torch.arange(Gz, dtype=torch.int32, device=dev)
+    if flip:
+        ids = ids.flip(0)
+    if occ is None:
+        occ = march_occupancy(gplanar, params, qscale)
+    _check_occupancy(occ, Gz, G, G, dev)
+    gbuf = torch.zeros((Gz * G * G, 4), dtype=_F32, device=dev)
+    out = torch.empty_strided(gplanar.shape, gplanar.stride(),
+                              dtype=out_dtype, device=dev)
     lib = kernels.lib("slab_march_bwd")
     kernels.check(lib.vt_march_slabs_bwd(
-        gplanar.data_ptr(), params.data_ptr(), qscale.data_ptr(),
-        zb.data_ptr(), gacc4.data_ptr(), aux.data_ptr(), gbuf.data_ptr(),
-        out.data_ptr(), int(out_dtype == torch.bfloat16), Gz, G, gi, bd,
-        int(bool(flip)), torch.cuda.current_stream(dev).cuda_stream),
+        gplanar.data_ptr(), int(gplanar.dtype == _F32), ss, sr, sx,
+        params.data_ptr(), qscale.data_ptr(), zb.data_ptr(),
+        gacc4.data_ptr(), aux.data_ptr(), ids.data_ptr(), occ.data_ptr(),
+        gbuf.data_ptr(),
+        out.data_ptr(), int(out_dtype == torch.bfloat16),
+        _counts_ptr(counts, dev), Gz, G, gi, bd, int(bool(flip)),
+        torch.cuda.current_stream(dev).cuda_stream),
         "slab_march_bwd")
     march_slabs_bwd.launches += 1
     return out
@@ -613,9 +795,11 @@ def march_slabs_bwd_ref(gplanar, qscale, params, zb, gacc4, aux, G: int,
                         out_dtype=_F32):
     """Plain PyTorch version of the backward kernel: the reference's
     algebra (pallas_slab._make_bwd_kernel) with the forward recompute and
-    the transposed warp as dense overlap-matrix products, in f32. Inputs as
-    ``march_bwd_inputs`` prepares them: params (31,), zb (4, gi, gi) from
-    _zb_planes, aux (4, gi, gi) = [ctot, T_end * g_T, T_in, A_in]."""
+    the transposed warp as dense overlap-matrix products, in f32 (the
+    payload rounded to bf16 as it is read). Inputs as ``march_bwd_inputs``
+    prepares them: params (31,), zb (4, gi, gi) from _zb_planes, aux
+    (4, gi, gi) = [ctot, T_end * g_T, T_in, A_in]. Returns a contiguous
+    (Gz, D, G, G) cotangent."""
     dev = gplanar.device
     Gz = gplanar.shape[0]
     qs = qscale.to(_F32)
@@ -640,7 +824,7 @@ def march_slabs_bwd_ref(gplanar, qscale, params, zb, gacc4, aux, G: int,
     for sid in (range(Gz - 1, -1, -1) if flip else range(Gz)):
         z = (sid + 0.5) / G + zbase
         s0, s1 = z - hG - cz, z + hG - cz
-        slab = gplanar[sid].to(_F32)                              # (D,G,G)
+        slab = _slab_values(gplanar[sid])                         # (D,G,G)
         sigma = _slab_sigma(slab, qs, D, False)
         ok = sigma > sigma_thresh
         sigma = torch.where(ok, sigma, 0.0)

@@ -154,11 +154,13 @@ def mean_fits(geom, levels) -> torch.Tensor:
 
 
 def profile_run(fn: Callable, tag: str, log: Callable = log,
-                ranges: Sequence[Tuple[str, str]] = ()) -> None:
+                ranges: Sequence[Tuple[str, str]] = ()
+                ) -> Dict[str, Tuple[float, int, float]]:
     """Trace one call of ``fn`` with torch.profiler and ``log`` the device
     time by kernel name (the 30 largest), the device's busy time (the
     union of kernel intervals) and its idle share of the wall time. Raises
-    if the profiler saw no device activity.
+    if the profiler saw no device activity. Returns {kernel name: (device
+    ms, launches, the longest launch's ms)}.
 
     ``ranges``: (module, attribute path) of functions to attribute device
     time to, e.g. ("volrend_torch.ops.slab_render", "FrameGeom.__init__"):
@@ -183,9 +185,11 @@ def profile_run(fn: Callable, tag: str, log: Callable = log,
         raise RuntimeError(f"{tag}: the profiler saw no device activity")
     by_name: Dict[str, List] = {}
     for e in kern:
-        d = by_name.setdefault(e.name, [0.0, 0])
-        d[0] += (e.time_range.end - e.time_range.start) / 1e3
+        d = by_name.setdefault(e.name, [0.0, 0, 0.0])
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        d[0] += ms
         d[1] += 1
+        d[2] = max(d[2], ms)
     spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     for a, b in spans[1:]:
@@ -198,10 +202,11 @@ def profile_run(fn: Callable, tag: str, log: Callable = log,
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     log(f"{tag} profile: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms,"
         f" idle share {1.0 - busy / wall_ms:.4f}, {len(kern)} kernels")
-    for name, (ms, n) in ranked[:30]:
+    for name, (ms, n, _) in ranked[:30]:
         log(f"  {ms:9.3f} ms  x{n:<5d} {name[:150]}")
     if labels:
         _log_ranges(events, kern, labels, log)
+    return {name: tuple(v) for name, v in by_name.items()}
 
 
 def _log_ranges(events, kern, labels, log) -> None:

@@ -1,0 +1,262 @@
+"""The training march's launch configurations on the training bench: the
+evidence behind the one the kernels are built with (``tmarch::CONFIG`` in
+``csrc/slab_common.cuh``).
+
+On pose 0 of the training bench (``make_solid_tree(max_depth=7,
+basis_dim=9, seed=7)``, G=256 SH9, 800^2, gi=256, the bake's f32 tensor
+through the group's permutation, as ``FrameTrainer`` marches it), times
+kernel M's training mode and the backward kernel at each tile shape
+(rows x columns), threads a block, ring depth (the jobs whose sigma is
+staged ahead), colour prefetch distance and record slots a thread, all on
+one coarse occupancy (``march_occupancy``, timed apart). Each
+configuration is a build of its own: ``csrc/slab_march.cu`` and
+``csrc/slab_march_bwd.cu`` compiled with its ``-DVT_TM_*`` values and
+``-DVT_TM_CYCLES`` (thread 0's clock cycles by part of the loop and the
+slowest block's, ``tmarch::Clock``) into ``build/volrend_torch/
+train_march/``, apart from ``kernels.SOURCES``; the port's wrappers run
+on it while its libraries stand in for the port's. Each launch's counts
+(``slab_march.N_COUNTS``) and cycles are logged beside its time, and the
+port's own launches are traced (torch.profiler) to split them into their
+kernels. Each configuration's output is held to the port's: kernel M's
+within 1e-3 but for stop-threshold freeze flips (the pieces' side sets
+the order of the tap sums), the backward's to relative L2 1e-4 (its
+global atomics add in a run-dependent order).
+
+Every time is the card's: CUDA events around back-to-back launches queued
+behind a device sleep, median of three runs. Run on a card from the root of
+the checkout::
+
+    python -m volrend_torch.probes.train_march [--configs 8:8:128:4:2:1,...]
+        [--out train_march.json]
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import ctypes
+import json
+import os
+import subprocess
+
+import numpy as np
+import torch
+
+from volrend_torch import kernels
+from volrend_torch.probes import _common as c
+from volrend_torch.probes.display_tiles import device_ms
+
+GI = 256
+W = H = 800
+CACHE_TRAIN = os.path.join(c._ROOT, ".torch_bench_train_cache.npz")
+#: (tile rows, columns, threads a block, sigma ring depth, colour prefetch
+#: distance, record slots a thread); the piece side is 2 * max(rows,
+#: columns) + 8
+CONFIGS = ((16, 16, 256, 4, 2, 1), (8, 8, 64, 4, 2, 2), (8, 8, 128, 4, 2, 1),
+           (8, 8, 256, 4, 2, 1), (4, 8, 64, 4, 2, 1), (4, 8, 128, 1, 0, 1),
+           (4, 8, 128, 2, 0, 1), (4, 8, 128, 4, 0, 1), (4, 8, 128, 4, 2, 1),
+           (4, 8, 128, 8, 2, 1), (4, 8, 256, 4, 2, 1), (4, 4, 128, 4, 2, 1))
+#: a configuration's fields, as the VT_TM_* macros name them
+_KEYS = ("ty", "tx", "nt", "ps", "ring", "dc", "rslots")
+#: the libraries a configuration's build replaces
+_LIB_NAMES = ("slab_march", "slab_march_bwd")
+#: the parts of tmarch::Clock, then the loop's cycles summed and largest
+_PARTS = ("queue", "decide", "shade", "taps", "composite", "list",
+          "loop_sum", "loop_max")
+
+
+def build(configs) -> dict:
+    """Compile each configuration's two libraries (one nvcc each, all
+    started together, with the port's flags) and load them:
+    {config: {library name: CDLL}}."""
+    out_dir = kernels.build_dir() / "train_march"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for tc in configs:
+        flags = [f"-DVT_TM_{k.upper()}={v}" for k, v in zip(_KEYS, tc)]
+        tag = "_".join(map(str, tc))
+        for name in _LIB_NAMES:
+            out = out_dir / f"lib{name}_{tag}.so"
+            src = kernels._CSRC / kernels.SOURCES[name][0]
+            procs.append((tc, name, out, subprocess.Popen(
+                [kernels._nvcc(), *kernels._NVCC_FLAGS, *flags,
+                 "-DVT_TM_CYCLES", "-o", str(out), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+    libs = {}
+    for tc, name, out, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"train_march: build of {name} at {tc} "
+                               f"failed:\n{log}")
+        lib = ctypes.CDLL(str(out))
+        for fn, argtypes in kernels.SOURCES[name][1].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.vt_error_string.argtypes = [ctypes.c_int]
+        lib.vt_error_string.restype = ctypes.c_char_p
+        lib.vt_train_cycles.argtypes = [ctypes.c_void_p]
+        lib.vt_train_cycles.restype = ctypes.c_int
+        libs.setdefault(tc, {})[name] = lib
+    return libs
+
+
+@contextlib.contextmanager
+def _standing_in(libs: dict):
+    """The port's wrappers launch ``libs`` (a configuration's build) in
+    place of the port's libraries while the block runs."""
+    saved = {k: kernels._LIBS.get(k) for k in libs}
+    kernels._LIBS.update(libs)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                kernels._LIBS.pop(k, None)
+            else:
+                kernels._LIBS[k] = v
+
+
+def _cycles(lib) -> dict:
+    """The build's clock (read and cleared) after one launch."""
+    torch.cuda.synchronize()
+    out = (ctypes.c_ulonglong * len(_PARTS))()
+    kernels.check(lib.vt_train_cycles(out), "slab_march")
+    return dict(zip(_PARTS, out))
+
+
+def _pose0(dev):
+    """The training bench's trainer and pose 0's march inputs (the bake's
+    f32 view, params, z interval, slab ids, config)."""
+    from volrend_torch import train
+    from volrend_torch.models.synthetic import make_solid_tree
+    from volrend_torch.ops import slab_grad, slab_render
+    from volrend_torch.ops.camera import Camera
+    from volrend_torch.utils.options import RenderOptions
+
+    tree = c.load_tree(CACHE_TRAIN, lambda: make_solid_tree(
+        max_depth=7, basis_dim=9, seed=7))
+    tr = train.FrameTrainer(tree.to_device(lut_depth=None, device=dev),
+                            opt=RenderOptions(max_steps=1024), lr=5e-2,
+                            gi=GI)
+    back = np.array([np.cos(0.25), np.sin(0.25), 0.45])
+    back /= np.linalg.norm(back)
+    cam = Camera.from_vectors(center=tuple(2.6 * back), v_back=tuple(back),
+                              width=W, height=H)
+    perm, flip = tr._group(cam)
+    G = tr.grid.G
+    with torch.no_grad():
+        bake = slab_grad.bake_from_pyramid(tr.pyramid, tr.bmap)
+    geom = slab_render.FrameGeom(tr.grid, cam.transform, cam.fx, cam.fy,
+                                 perm, flip, W, H, tr.opt, GI)
+    ids = tuple(range(G - 1, -1, -1) if flip else range(G))
+    cfg = slab_grad.SlabCfg(G=G, gi=GI, D=tr.grid.data_dim,
+                            bd=tr.grid.basis_dim, fmt=int(tr.grid.fmt),
+                            perm=perm, flip=flip, ids=ids, opt=tr.opt)
+    params = slab_grad._pack_geom_params(geom, cfg, 1.0 / geom.scale)
+    zb = torch.stack([geom.z_lo_pix, geom.z_hi_pix], 1)
+    return bake.permute(perm[0], 3, perm[1], perm[2]), params, zb, cfg
+
+
+def run(dev, configs=CONFIGS) -> dict:
+    from volrend_torch.ops import slab_march
+    configs = [tuple(tc[:3]) + (2 * max(tc[:2]) + 8,) + tuple(tc[3:])
+               for tc in configs]
+    libs = build(configs)
+    planar, params, zb, cfg = _pose0(dev)
+    G, D, bd, flip = cfg.G, cfg.D, cfg.bd, cfg.flip
+    qs = torch.ones(D, device=dev)
+    m = slab_march.march_inputs(planar, params, zb, G, GI, cfg.ids)
+    # the coarse occupancy both kernels share, built once (timed apart)
+    occ = slab_march.march_occupancy(planar, m["params"], qs)
+    occ_ms = device_ms(lambda: slab_march.march_occupancy(
+        planar, m["params"], qs))
+
+    def fwd(counts=None):
+        return slab_march._march_train_cuda(planar, qs, D=D, bd=bd,
+                                            flip=flip, counts=counts,
+                                            occ=occ, **m)
+
+    acc0 = fwd()
+    rng = np.random.default_rng(0)
+    gacc4 = torch.as_tensor(rng.normal(size=(4, GI, GI)).astype(np.float32),
+                            device=dev)
+    prm, bzb, bg, aux = slab_march.march_bwd_inputs(params[0], zb[0], gacc4,
+                                                    acc0[0], G, GI)
+
+    def bwd(counts=None):
+        return slab_march._march_bwd_cuda(planar, prm, qs, bzb, bg, aux, G,
+                                          GI, D, bd, flip, torch.float32,
+                                          counts=counts, occ=occ)
+
+    g0 = bwd().double()
+
+    def _measure(row, lib):
+        cnt = torch.zeros(slab_march.N_COUNTS, dtype=torch.int64,
+                          device=dev)
+        acc = fwd(cnt)
+        row["m_cycles"] = _cycles(lib["slab_march"])
+        row["m_counts"] = cnt.tolist()
+        d = (acc - acc0).abs().amax(1)
+        row["m_max_diff"] = float(d.max())
+        row["m_rays_past_1e-3"] = int((d > 1e-3).sum())
+        row["m_ms"] = device_ms(fwd)
+        cnt = torch.zeros(slab_march.N_COUNTS, dtype=torch.int64,
+                          device=dev)
+        g = bwd(cnt).double()
+        row["bwd_cycles"] = _cycles(lib["slab_march_bwd"])
+        row["bwd_counts"] = cnt.tolist()
+        row["bwd_rel_l2"] = float((g - g0).norm() / g0.norm())
+        row["bwd_ms"] = device_ms(bwd)
+
+    rows = []
+    for tc in configs:
+        row = dict(zip(_KEYS, tc))
+        try:
+            with _standing_in(libs[tc]):
+                _measure(row, libs[tc])
+        except RuntimeError as e:
+            # the card refuses a block more shared memory than it has
+            if "invalid argument" not in str(e):
+                raise
+            row["refused"] = str(e)
+        rows.append(row)
+        c.log(f"train_march {json.dumps(row)}")
+        if row.get("bwd_rel_l2", 0) > 1e-4 or row.get(
+                "m_max_diff", 0) > float(cfg.opt.stop_thresh) + 1e-3:
+            raise RuntimeError(f"configuration {tc} disagrees with the "
+                               f"port's build")
+
+    # the port's launches split into their kernels (occupancy, march,
+    # backward passes, the memsets) on the card
+    parts = {}
+    for tag, fn in (("M", fwd), ("M-bwd", bwd)):
+        prof = c.profile_run(fn, f"train_march {tag} (the port's build)")
+        parts[tag] = {k: v[0] for k, v in prof.items()}
+    return {"device": torch.cuda.get_device_name(0),
+            "occupancy_ms": occ_ms, "configs": rows, "parts_ms": parts}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--configs", default=",".join(
+        ":".join(map(str, k)) for k in CONFIGS),
+                    help="rows:columns:threads:ring:colour distance:record "
+                    "slots, comma-separated")
+    ap.add_argument("--out", default=None,
+                    help="also write the result as JSON to this file")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("train_march: needs a CUDA device")
+    configs = [tuple(int(v) for v in k.split(":"))
+               for k in args.configs.split(",")]
+    out = run(torch.device("cuda"), configs)
+    print(json.dumps(out), flush=True)
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()
