@@ -56,11 +56,16 @@ Phases (any failure exits non-zero and prints no result):
 8. training at the reference's training-bench width (tools/bench_train.py:
    ``make_solid_tree(max_depth=7, basis_dim=9, seed=7)``, G=256 SH9,
    800^2 frames, gi=256, 4 orbit poses of one (perm, flip) group,
-   ``FrameTrainer(lr=5e-2)``): kernel M's training mode and the backward
+   ``FrameTrainer(lr=5e-2)``): the pyramid bake kernel against its plain
+   versions (the bake bit for bit, its live bits equal), its time against
+   its bound and against the plain chain's (the parent's forward bake);
+   kernel M's training mode and the backward
    kernel against their plain versions on pose 0, both on the bake's own
    f32 tensor (the default trainer's) and on its bf16 cast (the lean
    trainer's), seen through the group's permutation, and the coarse
-   occupancy they share bit-equal to its plain version, with times, bounds
+   occupancy they share, in both modes (the full read of the sigma and the
+   reduction of the bake's live bits), bit-equal to their plain versions,
+   with times, bounds
    (at the tensor's element size), each launch's registers, spills and
    blocks per SM, and the share of slabs skipped as empty;
    then the precise superquad warp's kernels on pose 0 (kernel B's and
@@ -71,7 +76,8 @@ Phases (any failure exits non-zero and prints no result):
    ``sync=False``) with the precise warp's switch (``display_warp.
    _PRECISE_SQ``) off and then on, the launch counts reset just before
    and read just after each run — every step must run exactly one launch
-   of each kernel of its path and no plain version, and with the switch on
+   of each kernel of its path (the bake kernel and the occupancy's bits
+   mode among them) and no plain version, and with the switch on
    no pose may take the reference warp — and the peak device memory;
    ``--profile`` traces one step and fails if it holds a bf16 copy as long
    as writing the bake in bf16 takes (the planar copy the kernels replaced);
@@ -382,9 +388,10 @@ def train_orbit(Camera, n=TRAIN_POSES):
 
 def train_phase(torch, dev, stats):
     """Phases 8 and 9: the training path at the training bench's width,
-    then the recovery gate. Fills stats["MT"] (kernel M, training mode),
-    stats["MB"] (the backward kernel) and, through precise_checks, the
-    precise warp's kernels; returns a summary dict."""
+    then the recovery gate. Fills stats["BK"] (the bake kernel),
+    stats["MT"] (kernel M, training mode), stats["MB"] (the backward
+    kernel), stats["MO"] (their coarse occupancy) and, through
+    precise_checks, the precise warp's kernels; returns a summary dict."""
     from volrend_torch import train
     from volrend_torch.models.synthetic import make_solid_tree
     from volrend_torch.ops import slab_grad, slab_march, slab_render
@@ -413,13 +420,13 @@ def train_phase(torch, dev, stats):
     (perm, flip), = groups
     tgt = torch.full((H, W, 4), 0.5, dtype=torch.float32, device=dev)
 
-    # ---- 8a. kernel checks on pose 0 at full width ------------------------
-    # both kernels read the bake's own tensor through the group's
+    # ---- 8a. the pyramid bake kernel, then the march pair on pose 0 ------
+    # both march kernels read the bake's own tensor through the group's
     # permutation: the default trainer's f32 bake (the kernels line's rows)
     # and the lean trainer's bf16 cast of it
     cam = cams[0]
-    with torch.no_grad():
-        bake = slab_grad.bake_from_pyramid(tr.pyramid, tr.bmap)
+    stats["BK"], bake, live = bake_checks(torch, tr,
+                                          float(topt.sigma_thresh))
     geom = slab_render.FrameGeom(tr.grid, cam.transform, cam.fx, cam.fy,
                                  perm, flip, W, H, tr.opt, GI)
     ids = tuple(range(G - 1, -1, -1) if flip else range(G))
@@ -435,7 +442,7 @@ def train_phase(torch, dev, stats):
         pay = bake if dt == torch.float32 else bake.to(torch.bfloat16)
         planar = pay.permute(perm[0], 3, perm[1], perm[2])
         res = train_kernel_checks(torch, dev, planar, params, zb, gacc4, ids,
-                                  cfg, float(topt.stop_thresh))
+                                  cfg, float(topt.stop_thresh), live)
         log(f"train kernels [{dt}]: M (training mode) "
             f"{json.dumps(res['MT'])}; M-bwd {json.dumps(res['MB'])}; "
             f"coarse occupancy {json.dumps(res['MO'])}")
@@ -447,7 +454,7 @@ def train_phase(torch, dev, stats):
             stats["train_lean_kernels"] = {k: res[k]
                                            for k in ("MT", "MB", "MO")}
         del pay, planar, res
-    del bake
+    del bake, live
     # the training finalize of pose 0's march: (1, gi, gi, 4) rgb, 1 - T
     inter = torch.cat([acc4[:3], 1.0 - acc4[3:]]).movedim(0, -1)[None]
     gargs = (geom.R, geom.fx, geom.fy, W, H, GI, perm, geom.u0, geom.du,
@@ -472,11 +479,13 @@ def train_phase(torch, dev, stats):
     n = off["steps"]
     for name, c in (("switch off", off["counts"]),
                     ("switch on", on["counts"])):
-        if (c["march"] != n or c["march_bwd"] != n or c["occupancy"] != n
+        if (c["march"] != n or c["march_bwd"] != n or c["bake"] != n
+                or c["occupancy_live"] != n or c["occupancy"]
                 or sum(c["plain"].values())):
             fail(f"train ({name}): a step did not run exactly one launch of "
-                 f"kernels M and M-bwd and of their shared coarse occupancy, "
-                 f"and no plain version ({c})")
+                 f"the bake kernel, of kernels M and M-bwd and of their "
+                 f"shared coarse occupancy in its bits mode, and no plain "
+                 f"version ({c})")
     c = off["counts"]
     if (c["build_f32"], c["combine_f32"], c["combine_adj"],
             c["build_adj"], c["ref_warp_poses"]) != (0, 0, 0, 0, n):
@@ -520,6 +529,55 @@ def train_phase(torch, dev, stats):
     return summary
 
 
+def bake_checks(torch, tr, thresh: float):
+    """Phase 8a's first part: the pyramid bake kernel on the training
+    bench's pyramid against its plain versions (the bake bit for bit, the
+    live bits equal), its time (with the live bits, as the step launches
+    it) against its bound and against the plain chain's, which is the
+    parent's forward bake. Returns (the kernels-line stats, bake, live)."""
+    from volrend_torch.ops import slab_grad
+    pyr, bmap = tr.pyramid, tr.bmap
+    G, D = bmap.G, bmap.D
+    tag = f"G={G}, D={D}, {len(pyr)} levels"
+    with torch.no_grad():
+        def run_k():
+            return slab_grad.bake_from_pyramid(pyr, bmap, live_thresh=thresh)
+
+        def run_p():
+            return slab_grad.bake_from_pyramid_ref(pyr, bmap)
+        bake, live = run_k()
+        plain = run_p()
+        if not torch.equal(bake, plain):
+            fail(f"the bake kernel differs from its plain version ({tag})")
+        if not torch.equal(live.bits, slab_grad.live_bits_ref(
+                plain, thresh).bits):
+            fail(f"the bake kernel's live bits differ from live_bits_ref "
+                 f"({tag})")
+        del plain
+        st = {"max_abs_err": 0.0, "library_ms": None,
+              "ms": cuda_ms(torch, run_k, KREPS),
+              "plain_ms": cuda_ms(torch, run_p, 3),
+              "ms_without_bits": cuda_ms(
+                  torch, lambda: slab_grad.bake_from_pyramid(pyr, bmap),
+                  KREPS)}
+        # bytes: the bake written, each level's masked records and its mask
+        # read once, the bits written
+        st["bound_ms"], st["bound_by"] = bound(
+            G ** 3 * D * 4 + sum(bmap.sizes) * D * 4
+            + sum(m.numel() for m in bmap.masks) + live.bits.numel() * 4, 0)
+        if "--profile" in sys.argv[1:]:  # the parent's forward by launch
+            from volrend_torch.probes import _common
+            _common.profile_run(run_p, "forward bake, plain chain", log)
+    live_share = float(torch.count_nonzero(live.bits)) / live.bits.numel()
+    log(f"bake kernel [{tag}]: bit-equal to its plain version, live bits "
+        f"equal; {st['ms']:.4f} ms with the live bits "
+        f"({st['ms_without_bits']:.4f} without) against its bound "
+        f"{st['bound_ms']:.4f} ms ({st['bound_by']}) and the plain chain "
+        f"(the parent's forward bake) {st['plain_ms']:.4f} ms; "
+        f"{live_share:.4f} of the bit words non-zero")
+    return st, bake, live
+
+
 def train_occupancy(kernels, bd: int, f32: bool) -> dict:
     """What the card makes of the training kernels' launches
     (vt_march_slabs_info, vt_march_slabs_bwd_info): resident blocks per SM,
@@ -542,13 +600,16 @@ def train_occupancy(kernels, bd: int, f32: bool) -> dict:
 
 
 def train_kernel_checks(torch, dev, planar, params, zb, gacc4, ids, cfg,
-                        stop):
+                        stop, live):
     """Phase 8a on one payload (the bake's f32 view or its bf16 cast):
     kernel M's training mode and the backward kernel against their plain
-    versions on pose 0 (and their shared coarse occupancy, bit-equal to its
-    plain version), their times, bounds (counted at the payload's element
-    size), launch configuration and the share of slabs and jobs skipped as
-    empty (the kernels' counts). Returns {"MT", "MB", "MO", "acc4"}."""
+    versions on pose 0 (and their shared coarse occupancy in both modes,
+    each bit-equal to its plain version and to the other), their times,
+    bounds (counted at the payload's element size), launch configuration
+    and the share of slabs and jobs skipped as empty (the kernels' counts).
+    ``live``: the pyramid bake's live bits. Returns {"MT", "MB", "MO",
+    "acc4"}; "MO" is the bits mode the step launches, with the full read's
+    numbers under "full_read"."""
     from volrend_torch import kernels
     from volrend_torch.ops import slab_march
     G, D, bd = cfg.G, cfg.D, cfg.bd
@@ -559,25 +620,44 @@ def train_kernel_checks(torch, dev, planar, params, zb, gacc4, ids, cfg,
 
     m = slab_march.march_inputs(planar, params, zb, G, GI, ids)
     sthr = float(m["params"][0, 14])
-    # the coarse occupancy both kernels share (built once a step)
+    # the coarse occupancy both kernels share (built once a step): the full
+    # read of every voxel's sigma, and the bits mode the step launches
     occ = slab_march.march_occupancy(planar, m["params"], qs)
-    occ_p, mo_plain_ms = timed_once(
+    occ_p, full_plain_ms = timed_once(
         torch, lambda: slab_march.march_occupancy_ref(planar, m["params"],
                                                       qs))
     if not torch.equal(occ, occ_p):
         fail(f"the coarse occupancy differs from its plain version ({tag})")
-    live = int(torch.count_nonzero(occ)), occ.numel()
-    mo = {"max_abs_err": 0.0, "plain_ms": mo_plain_ms, "library_ms": None,
-          "ms": cuda_ms(torch, lambda: slab_march.march_occupancy(
-              planar, m["params"], qs), KREPS)}
+    host = m["params"].cpu()  # the bits mode checks the threshold here
+
+    def run_bits():
+        return slab_march.march_occupancy(planar, host, qs, live=live,
+                                          perm=perm)
+    occ_b = run_bits()
+    occ_bp, mo_plain_ms = timed_once(
+        torch, lambda: slab_march.march_occupancy_live_ref(live, perm))
+    if not (torch.equal(occ_b, occ_bp) and torch.equal(occ_b, occ)):
+        fail(f"the coarse occupancy's bits mode differs from its plain "
+             f"version or from the full read ({tag})")
+    nz = int(torch.count_nonzero(occ)), occ.numel()
+    full = {"plain_ms": full_plain_ms,
+            "ms": cuda_ms(torch, lambda: slab_march.march_occupancy(
+                planar, m["params"], qs), KREPS)}
     # bytes: every voxel's sigma read once, the masks written
-    mo["bound_ms"], mo["bound_by"] = bound(
+    full["bound_ms"], full["bound_by"] = bound(
         planar.shape[0] * planar.shape[2] * planar.shape[3]
         * planar.element_size() + occ.numel() * 8, 0)
-    log(f"coarse occupancy [{tag}]: bit-equal to its plain version; "
-        f"{live[0]} of {live[1]} (slab, block row) masks hold a block above "
-        f"the threshold")
-    del occ_p
+    mo = {"max_abs_err": 0.0, "plain_ms": mo_plain_ms, "library_ms": None,
+          "ms": cuda_ms(torch, run_bits, KREPS), "full_read": full}
+    # bytes: the live bits read once, the masks written
+    mo["bound_ms"], mo["bound_by"] = bound(
+        live.bits.numel() * 4 + occ.numel() * 8, 0)
+    log(f"coarse occupancy [{tag}]: both modes bit-equal to their plain "
+        f"versions and to each other; bits mode {mo['ms']:.4f} ms (bound "
+        f"{mo['bound_ms']:.4f}), full read {full['ms']:.4f} ms (bound "
+        f"{full['bound_ms']:.4f}); {nz[0]} of {nz[1]} (slab, block row) "
+        f"masks hold a block above the threshold")
+    del occ_p, occ_bp, occ_b
 
     def run_m():
         return slab_march.march_slabs(
@@ -674,14 +754,17 @@ def timed_steps(torch, tr, cams, tgt, tag):
     TRAIN_STEPS ``sync=False`` steps per pose with the launch counts reset
     just before and read just after, and the peak device memory over the
     timed steps."""
-    from volrend_torch.ops import display_warp, slab_march, slab_render
+    from volrend_torch.ops import (display_warp, slab_grad, slab_march,
+                                   slab_render)
     for s in range(TRAIN_WARM * len(cams)):
         tr.step_frame(cams[s % len(cams)], tgt)
     torch.cuda.synchronize()
     plain_calls = count_plain_calls()
+    slab_grad.bake_from_pyramid.launches = 0
     slab_march.march_slabs.launches = 0
     slab_march.march_slabs_bwd.launches = 0
     slab_march.march_occupancy.launches = 0
+    slab_march.march_occupancy.launches_live = 0
     display_warp.build_table.launches_f32 = 0
     display_warp.combine_emit.launches_f32 = 0
     display_warp.combine_adjoint.launches = 0
@@ -702,9 +785,11 @@ def timed_steps(torch, tr, cams, tgt, tag):
     last = float(loss_t)
     pipelined = (time.perf_counter() - t0) * 1e3 / n
     peak = torch.cuda.max_memory_allocated() / 2**30
-    counts = dict(march=slab_march.march_slabs.launches,
+    counts = dict(bake=slab_grad.bake_from_pyramid.launches,
+                  march=slab_march.march_slabs.launches,
                   march_bwd=slab_march.march_slabs_bwd.launches,
                   occupancy=slab_march.march_occupancy.launches,
+                  occupancy_live=slab_march.march_occupancy.launches_live,
                   build_f32=display_warp.build_table.launches_f32,
                   combine_f32=display_warp.combine_emit.launches_f32,
                   combine_adj=display_warp.combine_adjoint.launches,
@@ -1238,6 +1323,9 @@ def timed_once(torch, fn):
 _PLAIN = (("slab_march", "march_slabs_ref"),
           ("slab_march", "march_slabs_bwd_ref"),
           ("slab_march", "march_occupancy_ref"),
+          ("slab_march", "march_occupancy_live_ref"),
+          ("slab_grad", "bake_from_pyramid_ref"),
+          ("slab_grad", "live_bits_ref"),
           ("display_warp", "warp_display_ref"),
           ("display_warp", "level_fit_counts_ref"),
           ("display_warp", "build_table_ref"),
@@ -1896,7 +1984,9 @@ def main() -> None:
          tsum["train_counts"]["march_bwd"]),
         ("MO", "slab_march_occupancy", "volrend_torch/csrc/slab_march.cu",
          "volrend_tpu/ops/pallas_slab.py:344",
-         tsum["train_counts"]["occupancy"]),
+         tsum["train_counts"]["occupancy_live"]),
+        ("BK", "bake_pyramid", "volrend_torch/csrc/bake_pyramid.cu",
+         "volrend_tpu/ops/slab_grad.py:244", tsum["train_counts"]["bake"]),
         ("BF", "warp_build_f32", "volrend_torch/csrc/warp_build.cu",
          "volrend_tpu/ops/display_warp.py:139",
          tsum["train_precise_counts"]["build_f32"]),

@@ -10,6 +10,7 @@ package, so on a machine without JAX it runs without the repo's conftest:
 
 import ctypes
 import dataclasses
+import itertools
 
 import numpy as np
 import pytest
@@ -682,8 +683,10 @@ def test_march_gradient_on_card_has_the_bake_layout(train_parts, lean):
 
 
 def test_frame_train_card_matches_cpu(card):
-    """loss_and_grad_frame through both kernels on the card equals the CPU
-    run (their plain versions) on a G=16 scene."""
+    """loss_and_grad_frame through the kernels on the card (the bake
+    kernel with its live bits, the coarse occupancy's bits mode, both
+    march kernels) equals the CPU run (their plain versions) on a G=16
+    scene: the loss to rtol 1e-5, the gradient to relative L2 1e-3."""
     from volrend_torch.ops import slab_grad
     tree = make_test_tree(max_depth=3, basis_dim=4, seed=5,
                           sigma_scale=60.0)
@@ -698,11 +701,15 @@ def test_frame_train_card_matches_cpu(card):
                                                 60.0, 48, 48)
         tgt = torch.zeros((48, 48, 4), device=dev)
         n0 = slab_march.march_slabs_bwd.launches
+        k0 = slab_grad.bake_from_pyramid.launches
+        l0 = slab_march.march_occupancy.launches_live
         loss, g = slab_grad.loss_and_grad_frame(
             pyr, bmap, grid, cam.transform, 60.0, 60.0, perm, flip, 48, 48,
             tgt, OPT, gi=48)
-        if dev != "cpu":
+        if dev != "cpu":  # the bake kernel and the bits mode on the card
             assert slab_march.march_slabs_bwd.launches == n0 + 1
+            assert slab_grad.bake_from_pyramid.launches == k0 + 1
+            assert slab_march.march_occupancy.launches_live == l0 + 1
         out.append((float(loss), torch.cat([x.reshape(-1).cpu()
                                             for x in g]).double()))
     (l_c, g_c), (l_g, g_g) = out
@@ -721,6 +728,7 @@ def test_frame_trainer_on_card_uses_the_kernels(card):
     in the profiler's record takes one: the kernels read the bake's own
     tensor)."""
     from torch.profiler import ProfilerActivity, profile
+    from volrend_torch.ops import slab_grad
     from volrend_torch.train import FrameTrainer
     tree = make_solid_tree(max_depth=4, basis_dim=9, seed=7)
     tdev = tree.to_device(lut_depth=None, device=card)
@@ -732,19 +740,129 @@ def test_frame_trainer_on_card_uses_the_kernels(card):
         m0 = slab_march.march_slabs.launches
         b0 = slab_march.march_slabs_bwd.launches
         o0 = slab_march.march_occupancy.launches
+        l0 = slab_march.march_occupancy.launches_live
+        k0 = slab_grad.bake_from_pyramid.launches
         losses = [tr.step_frame(cams[0], tgt) for _ in range(2)]
         with profile(activities=[ProfilerActivity.CPU],
                      record_shapes=True) as prof:
             losses.append(tr.step_frame(cams[0], tgt))
         assert slab_march.march_slabs.launches == m0 + 3
         assert slab_march.march_slabs_bwd.launches == b0 + 3
-        assert slab_march.march_occupancy.launches == o0 + 3  # shared
+        # one bake kernel a step, whose live bits give the one coarse
+        # occupancy both march kernels share (the bits mode)
+        assert slab_grad.bake_from_pyramid.launches == k0 + 3
+        assert slab_march.march_occupancy.launches_live == l0 + 3
+        assert slab_march.march_occupancy.launches == o0
         assert all(np.isfinite(losses)) and losses[-1] < losses[0]
         assert tr.pyramid[-1].device.type == "cuda"
         planar = [G, D, G, G]
         copies = [e.name for e in prof.events()
                   if e.name in _COPY_OPS and planar in (e.input_shapes or [])]
         assert not copies, (lean, copies)
+
+
+# ---------------------------------------------------------------------------
+# The pyramid bake kernel (csrc/bake_pyramid.cu) and the coarse occupancy's
+# bits mode (vt_march_occupancy_live)
+# ---------------------------------------------------------------------------
+
+THRESH = 0.01  # the trainer's sigma threshold (RenderOptions' default)
+
+
+def _near_thresh_pyramid(bmap, K, device, seed):
+    """A seeded pyramid of (K, D) leaf rows whose sigma lies around THRESH
+    (some values cross it only after bf16 rounding) or below zero."""
+    from volrend_torch.ops import slab_grad
+    rng = np.random.default_rng(seed)
+    rows = rng.normal(0.0, 0.6, size=(K, bmap.D)).astype(np.float32)
+    sig = rng.uniform(0.0098, 0.0102, size=K).astype(np.float32)
+    sig[rng.random(K) < 0.3] = -1.0
+    rows[:, -1] = sig
+    return slab_grad.data_to_pyramid(torch.tensor(rows, device=device), bmap)
+
+
+def _bake_case(tdev, seed, grad=False):
+    """The bake kernel against its plain versions on one tree's pyramid:
+    the bake bit for bit, with and without its live bits, and the bits
+    equal to live_bits_ref; with ``grad``, the gradient equal to autograd
+    through the plain version."""
+    from volrend_torch.ops import slab_grad
+    bmap = slab_grad.build_bake_map(tdev)
+    pyr = _near_thresh_pyramid(bmap, int(tdev.data.shape[0]),
+                               tdev.data.device, seed)
+    if grad:
+        pyr = [p.requires_grad_(True) for p in pyr]
+    n0 = slab_grad.bake_from_pyramid.launches
+    bake, live = slab_grad.bake_from_pyramid(pyr, bmap, live_thresh=THRESH)
+    alone = slab_grad.bake_from_pyramid(pyr, bmap)
+    plain = slab_grad.bake_from_pyramid_ref(pyr, bmap)
+    assert slab_grad.bake_from_pyramid.launches == n0 + 2
+    assert torch.equal(bake, plain) and torch.equal(alone, plain)
+    ref = slab_grad.live_bits_ref(plain, THRESH)
+    assert torch.equal(live.bits, ref.bits) and live.thresh == ref.thresh
+    on = plain[..., -1].to(torch.bfloat16).float() > THRESH
+    assert 0 < int(on.sum()) < on.numel()
+    if grad:
+        gen = torch.Generator(device=bake.device).manual_seed(0)
+        R = torch.randn(bake.shape, device=bake.device, generator=gen)
+        gk = torch.autograd.grad(torch.sum(bake * R), pyr)
+        gp = torch.autograd.grad(torch.sum(plain * R), pyr)
+        for a, b in zip(gk, gp):
+            assert torch.equal(a, b)
+    return bmap
+
+
+@pytest.mark.parametrize("bd", [1, 4, 9, 16, 25])
+def test_bake_kernel_bit_equal(card, bd):
+    """The bake kernel equals its plain version bit for bit for D = 4, 13,
+    28, 49, 76 (records of 16, 52, 112, 196, 304 bytes: 16-byte units and
+    4-byte words), its live bits equal live_bits_ref (sigma around the
+    threshold), and its gradient equals autograd through the plain version
+    (G = 32)."""
+    from volrend_torch.ops import slab_grad
+    tree = make_test_tree(max_depth=4, basis_dim=bd, seed=bd,
+                          sigma_scale=60.0)
+    bmap = _bake_case(tree.to_device(lut_depth=None, device=card), bd,
+                      grad=True)
+    assert bmap.G == 32 and len(slab_grad.level_map(bmap).unique()) > 1
+
+
+def test_bake_kernel_n3(card):
+    """At N = 3 (G = 27, a partial bit word a row, SH9) the bake kernel and
+    its live bits equal their plain versions."""
+    from _torch_trees import tree_n
+    tree = tree_n(3, 2, 28, seed=3)
+    bmap = _bake_case(tree.to_device(lut_depth=None, device=card), 3,
+                      grad=True)
+    assert bmap.G == 27 and bmap.N == 3
+
+
+@pytest.mark.parametrize("G", [256, 600])
+def test_occupancy_bits_mode_every_perm(card, G):
+    """The coarse occupancy's bits mode equals march_occupancy_ref for all
+    six view permutations at G = 256 and at G = 600 (two mask words a row,
+    partial bit words and row blocks); the bits are taken from a random
+    sigma view by live_bits_ref, as the 600 case has no bake map."""
+    from volrend_torch.ops import slab_grad
+    gen = torch.Generator(device=card).manual_seed(G)
+    bake = torch.empty((G, G, G, 4), device=card)
+    bake[..., :3].normal_(0.0, 0.6, generator=gen)
+    u = torch.rand((G, G, G), device=card, generator=gen)
+    bake[..., 3] = torch.where(u < 2e-3, 0.02, -1.0)
+    c = G // 3
+    bake[c:c + 40, c + 7:c + 50, c + 3:c + 30, 3] = 0.0101
+    live = slab_grad.live_bits_ref(bake, THRESH)
+    prm = torch.full((1, 15), THRESH)
+    qs = torch.ones(4, device=card)
+    for perm in itertools.permutations(range(3)):
+        view = bake.permute(perm[0], 3, perm[1], perm[2])
+        n0 = slab_march.march_occupancy.launches_live
+        occ = slab_march.march_occupancy(view, prm, qs, live=live, perm=perm)
+        assert slab_march.march_occupancy.launches_live == n0 + 1
+        want = slab_march.march_occupancy_ref(view, prm.to(card), qs)
+        assert occ.shape == want.shape == (G, -(-G // 8), -(-G // 512))
+        assert torch.equal(occ, want), perm
+        assert 0 < int(want.count_nonzero()) < want.numel()
 
 
 # ---------------------------------------------------------------------------

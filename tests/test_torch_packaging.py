@@ -87,7 +87,8 @@ def test_cuda_sources_name_their_tpu_kernel():
             "warp_build_adj.cu": "display_warp.py:_build_adjoint",
             "probe_combine.cu": "perf_sq3.py:combine_pallas",
             "probe_stream.cu": "perf_overlap.py:dma_once",
-            "probe_build.cu": "perf_sq4.py:build_pallas"}
+            "probe_build.cu": "perf_sq4.py:build_pallas",
+            "bake_pyramid.cu": "slab_grad.py:bake_from_pyramid"}
     assert sorted(want) == sorted(src for src, _ in kernels.SOURCES.values())
     for name, ref in want.items():
         head = open(os.path.join(ROOT, "volrend_torch", "csrc", name)

@@ -1,0 +1,176 @@
+// The pyramid bake: the training step's dense (G, G, G, D) grid gathered
+// from the trainable pyramid's levels, with each voxel's live bit, for
+// Hopper (sm_90a).
+//
+// Replaces the forward of volrend_tpu/ops/slab_grad.py:bake_from_pyramid,
+// which has no Pallas kernel: XLA fuses its upsamples and wheres. Its plain
+// PyTorch twins are volrend_torch/ops/slab_grad.py:bake_from_pyramid_ref
+// (the coarse-to-fine expand / where chain) and live_bits_ref.
+//
+// What it computes: bake[v] = p_j[v / (G / B_j)], j the one level whose
+// mask covers voxel v (build_bake_map checks that one does), so bit for bit
+// the chain's result: both copy. In the same pass, a bit a
+// voxel: its sigma (channel D - 1) rounded to bf16 (__float2bfloat16_rn, as
+// the training march stages it) above the threshold; int32 words
+// (G, G, ceil(G / 32)) in the bake's (z, y, x) order, bit i of word w the
+// voxel x = 32 w + i, padding bits 0. The coarse occupancy of any pose
+// group's view is then a reduction over these bits
+// (slab_march.cu:vt_march_occupancy_live) instead of a sector read a voxel.
+//
+// What bounds it on the H100: bytes. The bake's write (G^3 D 4 bytes: 1.88
+// GB at the training bench's G = 256 SH9, 0.56 ms at 3.35 TB/s), each
+// level's masked records read once, the masks (the sum of B_j^3 bytes) and
+// the bits (G^3 / 8 bytes). The chain writes and reads each level's
+// upsample and the where's output: ~5.6 GB at the finest level alone.
+//
+// Design:
+// - One warp a word of bits, i.e. 32 x-neighbours of one (z, y) row. Each
+//   lane finds its voxel's level by walking the levels' masks coarse to
+//   fine (the bake map's own bool masks: a stored (G, G, G) level map
+//   would add G^3 bytes at the training step's peak; the coarse masks stay
+//   in L1/L2, and the finest, as large as such a map, is read only for
+//   the voxels no coarser level covers), finds its source record, and
+//   votes its live bit (__ballot_sync; lane 0 stores the word, no
+//   atomics).
+// - The warp's 32 records are one contiguous run of the bake: lane l moves
+//   elements l, l + 32, ... of the run, 16-byte units where a record is a
+//   multiple of 16 bytes (D = 4, 28, 76) and 4-byte words otherwise,
+//   taking each element's source address from the lane that owns its
+//   voxel (__shfl_sync). A whole word's loads are all issued before its
+//   stores (D / 4 or D registers a lane), so a warp keeps its run's reads
+//   in flight. Stores are coalesced, and so are the finest level's loads;
+//   a coarse level's record is re-read by its neighbours from L1/L2.
+// - The levels' and masks' pointers and sides are kernel parameters
+//   (indexed per lane from the constant bank).
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr int MAX_LEVELS = 24;
+constexpr int WARPS = 8;  // warps a block
+
+struct Levels {
+  const float* p[MAX_LEVELS];     // level j: (B_j, B_j, B_j, D) f32
+  const uint8_t* m[MAX_LEVELS];   // its mask: (B_j, B_j, B_j) bool
+  int side[MAX_LEVELS];           // B_j
+  int fac[MAX_LEVELS];            // G / B_j
+  int L;
+};
+
+template <int D>
+__global__ void __launch_bounds__(32 * WARPS)
+bake_kernel(Levels lv, int G, int NW, float thresh, float* __restrict__ out,
+            unsigned* __restrict__ live) {
+  const int lane = threadIdx.x & 31;
+  const long long word = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
+  const long long row = word / NW;  // z * G + y
+  if (row >= (long long)G * G) return;  // uniform across the warp
+  const int x0 = 32 * (int)(word - row * NW);
+  const int z = (int)(row / G), y = (int)(row - (long long)z * G);
+  const int n = min(32, G - x0);  // the run's voxels
+  const float* src = nullptr;
+  if (lane < n) {
+    const int x = x0 + lane;
+    long long blk = 0;
+    int j = 0;
+    for (; j < lv.L; ++j) {  // the one level whose mask covers the voxel
+      const int f = lv.fac[j], B = lv.side[j];
+      blk = ((long long)(z / f) * B + y / f) * B + x / f;
+      if (__ldg(lv.m[j] + blk)) break;
+    }
+    src = lv.p[min(j, lv.L - 1)] + blk * D;
+  }
+  if (live) {
+    const bool on =
+        src && __bfloat162float(__float2bfloat16_rn(__ldg(src + D - 1))) >
+                   thresh;
+    const unsigned b = __ballot_sync(0xffffffffu, on);
+    if (lane == 0) live[word] = b;
+  }
+  const unsigned long long sp = reinterpret_cast<unsigned long long>(src);
+  // the run's elements: 16-byte units where a record is a multiple of 16
+  // bytes, else 4-byte words; E a record
+  using T = typename std::conditional<D % 4 == 0, float4, float>::type;
+  constexpr int E = D % 4 == 0 ? D / 4 : D;
+  T* dst = reinterpret_cast<T*>(out + (row * G + x0) * D);
+  if (n == 32) {  // a whole word: every lane's loads in flight, then stores
+    T v[E];
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      const int q = 32 * i + lane, u = q / E;
+      const T* s = reinterpret_cast<const T*>(__shfl_sync(0xffffffffu, sp, u));
+      v[i] = __ldg(s + (q - u * E));
+    }
+#pragma unroll
+    for (int i = 0; i < E; ++i) dst[32 * i + lane] = v[i];
+  } else {  // the row's last, partial word
+    const int elems = n * E;
+    for (int base = 0; base < elems; base += 32) {  // uniform trip count
+      const int q = base + lane;
+      const int u = min(q / E, n - 1);
+      const T* s = reinterpret_cast<const T*>(__shfl_sync(0xffffffffu, sp, u));
+      if (q < elems) dst[q] = __ldg(s + (q - u * E));
+    }
+  }
+}
+
+template <int D>
+int launch(const Levels& lv, int G, float thresh, float* out, unsigned* live,
+           cudaStream_t stream) {
+  const int NW = (G + 31) / 32;
+  const long long words = (long long)G * G * NW;
+  bake_kernel<D><<<(unsigned)((words + WARPS - 1) / WARPS), 32 * WARPS, 0,
+                   stream>>>(lv, G, NW, thresh, out, live);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The bake of L pyramid levels into out (G, G, G, D) f32, contiguous.
+// levels: a host array of L device pointers, level j a contiguous
+// (B_j, B_j, B_j, D) f32 tensor, 16-byte aligned; masks: a host array of L
+// device pointers, level j's (B_j, B_j, B_j) bool mask, every voxel covered
+// by exactly one level; sides: a host array of the L sides B_j (each
+// dividing G); live: (G, G, ceil(G / 32)) int32 words of the voxels' live
+// bits at ``thresh``, or null for none. D is 4, 13, 28, 49 or 76 (SH degree
+// 1 to 25). Returns cudaGetLastError() after the launch.
+extern "C" int vt_bake_pyramid(const void* levels, const void* masks,
+                               const void* sides, int L, int G, int D,
+                               float thresh, void* out, void* live,
+                               void* stream) {
+  if (L < 1 || L > MAX_LEVELS || G < 1 ||
+      (reinterpret_cast<uintptr_t>(out) & 15))
+    return (int)cudaErrorInvalidValue;
+  Levels lv{};
+  const void* const* ptrs = static_cast<const void* const*>(levels);
+  const void* const* mks = static_cast<const void* const*>(masks);
+  const int* sd = static_cast<const int*>(sides);
+  for (int j = 0; j < L; ++j) {
+    if (sd[j] < 1 || G % sd[j] || (reinterpret_cast<uintptr_t>(ptrs[j]) & 15))
+      return (int)cudaErrorInvalidValue;
+    lv.p[j] = static_cast<const float*>(ptrs[j]);
+    lv.m[j] = static_cast<const uint8_t*>(mks[j]);
+    lv.side[j] = sd[j];
+    lv.fac[j] = G / sd[j];
+  }
+  lv.L = L;
+  float* o = static_cast<float*>(out);
+  unsigned* lb = static_cast<unsigned*>(live);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (D) {
+    case 4: return launch<4>(lv, G, thresh, o, lb, s);
+    case 13: return launch<13>(lv, G, thresh, o, lb, s);
+    case 28: return launch<28>(lv, G, thresh, o, lb, s);
+    case 49: return launch<49>(lv, G, thresh, o, lb, s);
+    case 76: return launch<76>(lv, G, thresh, o, lb, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" const char* vt_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

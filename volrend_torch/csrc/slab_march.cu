@@ -38,9 +38,11 @@
 // - A coarse occupancy of the payload (vt_march_occupancy: per slab a bit
 //   per 8x8 cell block holding a voxel above the threshold) is built once
 //   a step and shared with the backward; the march reads no payload for a
-//   footprint piece whose blocks are all empty. Its cost is the sigma read
-//   of every voxel: one 32-byte sector a record (~0.35 ms at G = 256 SH9
-//   f32, PERF.md).
+//   footprint piece whose blocks are all empty. Read from the payload it
+//   costs a 32-byte sector a voxel record (~0.35 ms at G = 256 SH9 f32,
+//   PERF.md); on the training path it is reduced instead from the live
+//   bits the pyramid bake writes beside the bake (vt_march_occupancy_live:
+//   G^3 / 8 bytes).
 // - One block per tile of intermediate pixels and pose (blockIdx.z), NT
 //   threads: the first TY * TX own a pixel each (r, g, b, T, z interval
 //   and slab thickness in registers across the march), all of them stage
@@ -315,6 +317,120 @@ extern "C" int vt_march_occupancy(const void* payload, int pay_f32,
               occupancy(pv, (const float*)params, P, (const float*)qscale,
                         Gz, Gy, Gx, (unsigned long long*)occ,
                         (cudaStream_t)stream))
+}
+
+namespace {
+
+// The coarse occupancy from a pyramid bake's live bits (bake_pyramid.cu):
+// words (G, G, NWB) int32 in the bake's (z, y, x) order, bit i of word w
+// the voxel x = 32 w + i. The view's axes (slab, row, column) are the
+// bake's axes (perm[0], perm[1], perm[2]); ``ax`` is the view axis that is
+// the bake's x, ``st`` the word strides of the view's other two axes.
+//
+// One warp a job, lane l the column block cb = 32 h + l of a half mask word
+// h (an output mask word is two 32-bit halves, low first): each lane ORs
+// the bit words its block's voxels lie in, and __ballot_sync assembles the
+// halves, stored without atomics. The bits are read once (2 MiB at
+// G = 256) and every half is written once (no memset):
+// - columns are x: a job is (slab, row block, h); per row of the block one
+//   word holds the lane's 8 columns as one byte;
+// - rows are x: a job is (slab, word of 32 rows, h); per column of the
+//   block one word holds 4 row blocks, one a byte: 4 halves a job;
+// - slabs are x: a job is (word of 32 slabs, row block, h); the lane ORs
+//   the 64 words of its block, whose bit i is slab 32 w + i: 32 halves a
+//   job.
+constexpr int OCC_WARPS = 8;
+
+__global__ void __launch_bounds__(32 * OCC_WARPS)
+occupancy_live_kernel(const unsigned* __restrict__ live, int G, int ax,
+                      long long st_s, long long st_r, long long st_c,
+                      unsigned* __restrict__ out) {
+  using tmarch::OCC;
+  const int lane = threadIdx.x & 31;
+  const long long job = (long long)blockIdx.x * OCC_WARPS + (threadIdx.x >> 5);
+  const int NWB = (G + 31) / 32, RB = (G + OCC - 1) / OCC;
+  const int CB = RB, NH = 2 * tmarch::occ_words(G);
+  const int h = (int)(job % NH);
+  const long long rest = job / NH;
+  const int cb = 32 * h + lane;
+  const bool in = cb < CB;
+  const int c0 = cb * OCC, c1 = min(c0 + OCC, G);
+  unsigned m = 0;
+  if (ax == 2) {  // columns are x: rest = slab * RB + row block
+    if (rest >= (long long)G * RB) return;
+    const int s = (int)(rest / RB), rb = (int)(rest % RB);
+    const int r1 = min(rb * OCC + OCC, G);
+    if (in)
+      for (int r = rb * OCC; r < r1; ++r)
+        m |= __ldg(live + s * st_s + r * st_r + cb / 4);
+    const bool on = (m >> (8 * (cb & 3))) & 0xffu;
+    const unsigned b = __ballot_sync(0xffffffffu, on);
+    if (lane == 0) out[rest * NH + h] = b;
+  } else if (ax == 1) {  // rows are x: rest = slab * NWB + row word
+    if (rest >= (long long)G * NWB) return;
+    const int s = (int)(rest / NWB), rw = (int)(rest % NWB);
+    if (in)
+      for (int c = c0; c < c1; ++c)
+        m |= __ldg(live + s * st_s + c * st_c + rw);
+    unsigned mine = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const unsigned b = __ballot_sync(0xffffffffu, (m >> (8 * k)) & 0xffu);
+      if (lane == k) mine = b;
+    }
+    const int rb = 4 * rw + lane;
+    if (lane < 4 && rb < RB) out[((long long)s * RB + rb) * NH + h] = mine;
+  } else {  // slabs are x: rest = slab word * RB + row block
+    if (rest >= (long long)NWB * RB) return;
+    const int sw = (int)(rest / RB), rb = (int)(rest % RB);
+    const int r1 = min(rb * OCC + OCC, G);
+    if (in)
+      for (int r = rb * OCC; r < r1; ++r)
+        for (int c = c0; c < c1; ++c)
+          m |= __ldg(live + r * st_r + c * st_c + sw);
+    unsigned mine = 0;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const unsigned b = __ballot_sync(0xffffffffu, (m >> i) & 1u);
+      if (lane == i) mine = b;
+    }
+    const int s = 32 * sw + lane;
+    if (s < G) out[((long long)s * RB + rb) * NH + h] = mine;
+  }
+}
+
+}  // namespace
+
+// The coarse occupancy of a pose group's view of a pyramid bake, from the
+// bake's live bits: live, (G, G, ceil(G / 32)) int32 words (bake_pyramid.cu,
+// vt_bake_pyramid); perm (int[3], host) the bake axes of the view's slab,
+// row and column axes; occ as vt_march_occupancy writes it (G * ceil(G / 8)
+// * ceil(G / 512) uint64), the blocks holding a live voxel. The threshold is
+// the one the bits were taken at. One launch; returns cudaGetLastError().
+extern "C" int vt_march_occupancy_live(const void* live, int G,
+                                       const int* perm, void* occ,
+                                       void* stream) {
+  if (G < 1) return (int)cudaErrorInvalidValue;
+  const int NWB = (G + 31) / 32, RB = (G + tmarch::OCC - 1) / tmarch::OCC;
+  const int NH = 2 * tmarch::occ_words(G);
+  // word strides of the bake's z and y axes; the view axis that is x
+  const long long bst[2] = {(long long)G * NWB, NWB};
+  long long st[3] = {0, 0, 0};
+  int ax = -1, seen = 0;
+  for (int a = 0; a < 3; ++a) {
+    if (perm[a] < 0 || perm[a] > 2 || (seen >> perm[a]) & 1)
+      return (int)cudaErrorInvalidValue;
+    seen |= 1 << perm[a];
+    if (perm[a] == 2) ax = a;
+    else st[a] = bst[perm[a]];
+  }
+  const long long jobs = ax == 2   ? (long long)G * RB * NH
+                         : ax == 1 ? (long long)G * NWB * NH
+                                   : (long long)NWB * RB * NH;
+  occupancy_live_kernel<<<(unsigned)((jobs + OCC_WARPS - 1) / OCC_WARPS),
+                          32 * OCC_WARPS, 0, (cudaStream_t)stream>>>(
+      (const unsigned*)live, G, ax, st[0], st[1], st[2], (unsigned*)occ);
+  return (int)cudaGetLastError();
 }
 
 // What the card makes of the launch: out[0] resident blocks per SM, out[1]

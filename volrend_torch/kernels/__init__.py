@@ -53,6 +53,13 @@ SOURCES = {
         # occ, stream
         "vt_march_occupancy": [_P, _I, _L, _L, _L, _P, _I, _P, _I, _I, _I,
                                _I, _P, _P],
+        # live, G, perm (int[3], host), occ, stream
+        "vt_march_occupancy_live": [_P, _I, _P, _P, _P],
+    }),
+    "bake_pyramid": ("bake_pyramid.cu", {
+        # levels (host void*[L]), masks (host void*[L]), sides (host
+        # int[L]), L, G, D, thresh, out, live, stream
+        "vt_bake_pyramid": [_P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
     }),
     "slab_march_bwd": ("slab_march_bwd.cu", {
         # payload, pay_f32, ss, sr, sc, params, qscale, zb, gacc, aux, ids,

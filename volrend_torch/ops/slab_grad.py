@@ -11,7 +11,11 @@
    sum-pool pyramid. The trainable state is the per-level pyramid
    (``data_to_pyramid``): the bake is then pure dense traffic, and entries
    outside a level's mask get exactly zero gradient, so leaf <-> pyramid
-   round trips are exact.
+   round trips are exact. On the card the pyramid's bake is one gather
+   kernel (``_BakeKernel``, ``csrc/bake_pyramid.cu``) from the level whose
+   mask covers each voxel; for the kernel march it also writes each
+   voxel's live bit, from which the march's coarse occupancy is reduced.
+   Its backward is the chain's transpose written out.
 2. **The march**, two backends with one semantics:
    - ``"kernel"``: a ``torch.autograd.Function`` whose forward is kernel M
      in its training mode (the bake's own tensor seen through the pose
@@ -40,6 +44,7 @@ epsilon-sized truncation.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 from typing import NamedTuple, Optional, Tuple
@@ -48,6 +53,7 @@ import numpy as np
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
+from volrend_torch import kernels
 from volrend_torch.models.data_format import BasisType
 from volrend_torch.ops import basis as basis_mod
 from volrend_torch.ops import (display_warp, render_exact, slab_march,
@@ -58,6 +64,7 @@ from volrend_torch.utils.options import RenderOptions
 
 __all__ = ["BakeMap", "build_bake_map", "bake_from_data",
            "data_to_pyramid", "pyramid_to_data", "bake_from_pyramid",
+           "bake_from_pyramid_ref", "live_bits_ref",
            "render_frame_train", "loss_and_grad_frame",
            "render_frame_train_zsharded"]
 
@@ -136,6 +143,25 @@ def build_bake_map(dev, G: Optional[int] = None,
         sizes=tuple(int(r.numel()) for r, _, _ in levels))
 
 
+def level_map(bmap: BakeMap) -> torch.Tensor:
+    """The (G, G, G) uint8 map of the level whose mask covers each voxel:
+    what the bake kernel finds by walking the masks (plain version, for
+    checks; the kernel stores no map). Raises unless every voxel is
+    covered exactly once."""
+    G = bmap.G
+    dev = bmap.masks[0].device
+    lmap = torch.zeros((G, G, G), dtype=torch.uint8, device=dev)
+    cover = torch.zeros((G, G, G), dtype=torch.uint8, device=dev)
+    for j, m in enumerate(bmap.masks):
+        up = _upsample(m, G // m.shape[0])[..., 0]
+        lmap.masked_fill_(up, j)
+        cover += up
+    if not bool(torch.all(cover == 1)):
+        raise ValueError("the bake map's levels do not cover every voxel "
+                         "exactly once")
+    return lmap
+
+
 def _upsample(g: torch.Tensor, N: int) -> torch.Tensor:
     """(B, B, B, D) -> (B*N, B*N, B*N, D): each block broadcast into its
     N^3 children (autograd's transpose is the N^3 sum-pool)."""
@@ -195,10 +221,31 @@ def pyramid_to_data(pyr, bmap: BakeMap, K: int,
     return data
 
 
-def bake_from_pyramid(pyr, bmap: BakeMap) -> torch.Tensor:
+def bake_from_pyramid(pyr, bmap: BakeMap, live_thresh: Optional[float] = None):
     """Bake the pyramid into the dense (G, G, G, D) grid — no scatters.
     Differentiable w.r.t. every level; the transpose is masked sum-pools
-    (entries outside a level's mask get exactly zero gradient)."""
+    (entries outside a level's mask get exactly zero gradient).
+
+    With ``live_thresh``, returns ``(bake, live)``: ``live`` the bake's live
+    bits at that sigma threshold (``slab_march.LiveBits``), from which
+    ``slab_march.march_occupancy`` reduces any view's coarse occupancy.
+    On CUDA tensors one kernel writes both (``_BakeKernel``: ``csrc/
+    bake_pyramid.cu``, f32 levels); on CPU tensors ``bake_from_pyramid_ref``
+    and ``live_bits_ref``."""
+    out = _BakeKernel.apply(bmap, live_thresh, *pyr)
+    if live_thresh is None:
+        return out
+    bake, bits = out
+    return bake, slab_march.LiveBits(bits, _f32(live_thresh))
+
+
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+def bake_from_pyramid_ref(pyr, bmap: BakeMap) -> torch.Tensor:
+    """Plain PyTorch version of ``bake_from_pyramid`` (the bake alone):
+    coarse to fine, each level's mask over the upsampled coarser bake."""
     N, G = bmap.N, bmap.G
     g = None
     for p, mask in zip(pyr, bmap.masks):
@@ -210,6 +257,120 @@ def bake_from_pyramid(pyr, bmap: BakeMap) -> torch.Tensor:
     if g.shape[0] != G:
         raise ValueError(f"bake map resolution {g.shape[0]} != G {G}")
     return g
+
+
+def live_bits_ref(bake, thresh: float):
+    """Plain PyTorch version of the bake kernel's live bits: a bit a voxel
+    of a (G, G, G, D) bake, set when its sigma (channel D - 1) rounded to
+    bf16 is above ``thresh`` (as f32); ``slab_march.LiveBits``."""
+    G = bake.shape[0]
+    on = bake[..., -1].to(torch.bfloat16).to(_F32) > _f32(thresh)
+    nw = -(-G // 32)
+    pad = torch.zeros((G, G, nw * 32), dtype=torch.int64, device=bake.device)
+    pad[..., :G] = on
+    sh = torch.arange(32, dtype=torch.int64, device=bake.device)
+    words = torch.sum(pad.reshape(G, G, nw, 32) << sh, -1)
+    # the words' low 32 bits as int32 (two's complement)
+    words = torch.where(words >= 2 ** 31, words - 2 ** 32, words)
+    return slab_march.LiveBits(words.to(torch.int32), _f32(thresh))
+
+
+#: the SH data widths the bake kernel is built for (bake_pyramid.cu)
+_BAKE_DIMS = (4, 13, 28, 49, 76)
+
+
+class _BakeKernel(torch.autograd.Function):
+    """The pyramid bake with its live bits. Forward: on CUDA tensors one
+    launch of ``vt_bake_pyramid`` (a gather from the level whose mask
+    covers each voxel; with ``thresh`` it also writes the live bits), on
+    CPU tensors
+    ``bake_from_pyramid_ref`` and ``live_bits_ref``. Backward: the plain
+    version's transpose written out, finest level first: a level's
+    gradient is ``where(mask_j, g, 0)`` and the rest, ``where(mask_j, 0,
+    g)``, is sum-pooled by N^3 onto the next coarser level (what autograd
+    computes through the plain version, op for op; the rest is pooled and
+    freed before the level's gradient is made, so one bake-sized tensor
+    besides the incoming gradient is alive at a time, where autograd's
+    where-backward makes two). Saves no tensor: the masks are the bake
+    map's."""
+
+    @staticmethod
+    def forward(ctx, bmap, thresh, *pyr):
+        ctx.bmap = bmap
+        dev = pyr[0].device
+        if dev.type == "cpu":
+            bake = bake_from_pyramid_ref(pyr, bmap)
+            bits = None if thresh is None else live_bits_ref(bake,
+                                                             thresh).bits
+        elif dev.type == "cuda":
+            bake, bits = _bake_cuda(pyr, bmap, thresh)
+        else:
+            raise RuntimeError(f"bake_from_pyramid: no kernel for device "
+                               f"{dev}")
+        if bits is None:
+            return bake
+        ctx.mark_non_differentiable(bits)
+        return bake, bits
+
+    @staticmethod
+    def backward(ctx, g, *_):
+        bmap = ctx.bmap
+        N = bmap.N
+        grads = [None] * len(bmap.masks)
+        zero = torch.zeros((), dtype=g.dtype, device=g.device)
+        for j in range(len(bmap.masks) - 1, -1, -1):
+            m = bmap.masks[j]
+            if j:  # the rest's pool first: it is freed before the level's
+                B = m.shape[0] // N
+                pooled = torch.where(m, zero, g).reshape(
+                    B, N, B, N, B, N, -1).sum((1, 3, 5))
+            grads[j] = torch.where(m, g, zero)
+            if j:
+                g = pooled
+        return (None, None, *grads)
+
+
+def _bake_cuda(pyr, bmap: BakeMap, thresh):
+    """One ``vt_bake_pyramid`` launch: (bake, live bits or None)."""
+    G, D = bmap.G, bmap.D
+    dev = pyr[0].device
+    if D not in _BAKE_DIMS:
+        raise ValueError(f"the bake kernel takes D in {_BAKE_DIMS}, got {D}")
+    if len(pyr) != len(bmap.masks):
+        raise ValueError(f"{len(pyr)} levels for a bake map of "
+                         f"{len(bmap.masks)}")
+    sides = []
+    for p, m in zip(pyr, bmap.masks):
+        B = m.shape[0]
+        if (p.dtype != _F32 or p.device != dev or tuple(p.shape) != (
+                B, B, B, D) or not p.is_contiguous() or p.data_ptr() % 16):
+            raise ValueError(f"the bake kernel takes contiguous, 16-byte "
+                             f"aligned f32 levels (B, B, B, {D}) on {dev}, "
+                             f"got {p.dtype} {tuple(p.shape)}")
+        if (m.dtype != torch.bool or m.device != dev
+                or not m.is_contiguous()):
+            raise ValueError(f"the bake map's masks must be contiguous bool "
+                             f"tensors on {dev}")
+        sides.append(B)
+    bake = torch.empty((G, G, G, D), dtype=_F32, device=dev)
+    bits = None
+    if thresh is not None:
+        bits = torch.empty((G, G, -(-G // 32)), dtype=torch.int32,
+                           device=dev)
+    L = len(sides)
+    ptrs = (ctypes.c_void_p * L)(*(p.data_ptr() for p in pyr))
+    mptrs = (ctypes.c_void_p * L)(*(m.data_ptr() for m in bmap.masks))
+    csides = (ctypes.c_int * L)(*sides)
+    kernels.check(kernels.lib("bake_pyramid").vt_bake_pyramid(
+        ptrs, mptrs, csides, L, G, D,
+        _f32(0.0 if thresh is None else thresh), bake.data_ptr(),
+        0 if bits is None else bits.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream), "bake_pyramid")
+    bake_from_pyramid.launches += 1
+    return bake, bits
+
+
+bake_from_pyramid.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -399,16 +560,24 @@ class _MarchKernel(torch.autograd.Function):
     and it is the residual; on the CPU the plain versions run on a
     contiguous bf16 planar copy. The cotangent comes back in the primal's
     dtype and strides, so that the permutation back hands the bake a
-    gradient in its own contiguous layout."""
+    gradient in its own contiguous layout. ``live``: the pyramid bake's
+    live bits (``bake_from_pyramid``), from which the kernels' coarse
+    occupancy is reduced; without them it reads every voxel's sigma."""
 
     @staticmethod
-    def forward(ctx, planar, params, zb, cfg):
+    def forward(ctx, planar, params, zb, cfg, live=None):
         pay, occ = planar, None
         qs = torch.ones((cfg.D,), dtype=_F32, device=planar.device)
         if planar.device.type == "cpu":
             pay = torch.empty(planar.shape, dtype=torch.bfloat16).copy_(
                 planar)
-        else:  # one coarse occupancy for both kernels
+        elif live is not None:  # one coarse occupancy for both kernels
+            # the bits mode checks the threshold on the host: the params
+            # carry opt.sigma_thresh in slot 14 (_pack_geom_params)
+            thr = torch.full((15,), cfg.opt.sigma_thresh, dtype=_F32)
+            occ = slab_march.march_occupancy(pay, thr, qs, live=live,
+                                             perm=cfg.perm)
+        else:
             occ = slab_march.march_occupancy(pay, params, qs)
         acc4 = slab_march.march_slabs(
             pay, params[None], qs, zb[None], cfg.G, cfg.gi, cfg.D, cfg.bd,
@@ -441,7 +610,7 @@ class _MarchKernel(torch.autograd.Function):
             grad = torch.empty_strided(grad.shape, ctx.pstride,
                                        dtype=ctx.pdtype,
                                        device=grad.device).copy_(grad)
-        return grad, None, None, None
+        return grad, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -475,12 +644,6 @@ def render_frame_train(data, bmap: BakeMap, grid: DenseGrid, transform,
         per-call setting; the reference's is process-global).
     """
     opt = opt.replace(renormalize=False, render_depth=False)
-    if isinstance(data, (tuple, list)):
-        payload = bake_from_pyramid(tuple(p.to(_F32) for p in data), bmap)
-    else:
-        payload = bake_from_data(data.to(_F32), bmap)
-    geom = slab_render.FrameGeom(grid, transform, fx, fy, perm, flip,
-                                 width, height, opt, gi)
     if cull:
         ids = grid.slab_ids(perm[0], flip, float(opt.sigma_thresh))
     else:
@@ -491,13 +654,25 @@ def render_frame_train(data, bmap: BakeMap, grid: DenseGrid, transform,
     if backend == "auto":
         backend = ("kernel" if use_custom_vjp and _kernel_train_ok(cfg)
                    else "scan")
+    live = None
+    if isinstance(data, (tuple, list)):
+        pyr = tuple(p.to(_F32) for p in data)
+        if backend == "kernel":  # the bake writes the march's live bits
+            payload, live = bake_from_pyramid(pyr, bmap,
+                                              live_thresh=opt.sigma_thresh)
+        else:
+            payload = bake_from_pyramid(pyr, bmap)
+    else:
+        payload = bake_from_data(data.to(_F32), bmap)
+    geom = slab_render.FrameGeom(grid, transform, fx, fy, perm, flip,
+                                 width, height, opt, gi)
     if backend == "kernel":
         pdt = torch.bfloat16 if grad_bf16 else _F32
         planar = payload.to(pdt).permute(perm[0], 3, perm[1], perm[2])
         with torch.no_grad():
             params = _pack_geom_params(geom, cfg, 1.0 / geom.scale)[0]
             zb = torch.stack([geom.z_lo_pix[0], geom.z_hi_pix[0]])
-        acc, T = _MarchKernel.apply(planar, params, zb, cfg)
+        acc, T = _MarchKernel.apply(planar, params, zb, cfg, live)
     elif backend == "scan":
         pperm = payload.permute(*perm, 3)
         gm = dict(cz=geom.cz[0], cy=geom.cy[0], cx=geom.cx[0],

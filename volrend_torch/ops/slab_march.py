@@ -46,8 +46,9 @@ neither rounds the warp weights or the stacked channels to bf16.
 
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -59,7 +60,8 @@ from volrend_torch.utils.device import to_device
 
 __all__ = ["march_slabs", "march_slabs_ref", "march_slabs_bwd",
            "march_slabs_bwd_ref", "march_bwd_inputs", "march_occupancy",
-           "march_occupancy_ref", "display_config", "march_slab_ids"]
+           "march_occupancy_ref", "march_occupancy_live_ref", "LiveBits",
+           "display_config", "march_slab_ids"]
 
 _F32 = torch.float32
 #: the training mode's payload dtypes: the default trainer's f32 bake and
@@ -397,7 +399,18 @@ def _occ_shape(Gz: int, Gy: int, Gx: int) -> Tuple[int, int, int]:
     return Gz, -(-Gy // _OCC), -(-Gx // (64 * _OCC))
 
 
-def march_occupancy(gplanar, params, qscale) -> torch.Tensor:
+class LiveBits(NamedTuple):
+    """A pyramid bake's live bits (``slab_grad.bake_from_pyramid`` with
+    ``live_thresh``): ``bits``, int32 words (G, G, ceil(G / 32)) in the
+    bake's (z, y, x) order, bit i of word w set when voxel x = 32 w + i has
+    its sigma, rounded to bf16, above ``thresh`` (an f32 value); padding
+    bits 0."""
+    bits: torch.Tensor
+    thresh: float
+
+
+def march_occupancy(gplanar, params, qscale, live: Optional[LiveBits] = None,
+                    perm: Optional[Sequence[int]] = None) -> torch.Tensor:
     """The training kernels' coarse occupancy of a payload: per slab and
     row of 8 x 8 cell blocks (the view's rows and columns), int64 masks
     whose bit b of word w is set when column block 64 w + b holds a voxel
@@ -407,10 +420,24 @@ def march_occupancy(gplanar, params, qscale) -> torch.Tensor:
     (>=15,); returns (Gz, ceil(Gy / 8), ceil(Gx / 512)) int64. Kernel
     M's training mode and the backward pass over the footprint pieces it
     marks empty; one map serves both (``_MarchKernel`` builds it once a
-    step). On CUDA tensors a kernel
-    (``vt_march_occupancy``), on CPU tensors ``march_occupancy_ref``."""
+    step).
+
+    Two modes, one result:
+    - full read (``live`` None): every voxel's sigma read from the payload;
+      on CUDA tensors ``vt_march_occupancy``, on CPU tensors
+      ``march_occupancy_ref``;
+    - bits (``live`` and ``perm``): ``gplanar`` is a pyramid bake seen
+      through ``permute(perm[0], 3, perm[1], perm[2])``, and the masks are
+      reduced from the bake's live bits (qscale of ones, as the training
+      path's); on CUDA tensors ``vt_march_occupancy_live``, on CPU tensors
+      ``march_occupancy_live_ref``. The bits must have been taken at the
+      lowest of ``params[:, 14]`` (else ValueError); ``params`` is read on
+      the host for that check (a CUDA tensor is copied back, which waits
+      for the device)."""
     Gz, D, Gy, Gx = gplanar.shape
     dev = gplanar.device
+    if live is not None:
+        return _occupancy_live(gplanar, params, live, perm)
     params = torch.as_tensor(params, dtype=_F32, device=dev)
     params = params.reshape(-1, params.shape[-1])
     if dev.type == "cpu":
@@ -435,15 +462,74 @@ def march_occupancy(gplanar, params, qscale) -> torch.Tensor:
     return occ
 
 
+#: launches of the full-read mode and of the bits mode
 march_occupancy.launches = 0
+march_occupancy.launches_live = 0
+
+
+def _occupancy_live(gplanar, params, live: LiveBits, perm) -> torch.Tensor:
+    """march_occupancy's bits mode: check the view, the bits and their
+    threshold, then launch or run the plain version."""
+    Gz, D, Gy, Gx = gplanar.shape
+    dev = gplanar.device
+    if perm is None or sorted(perm) != [0, 1, 2]:
+        raise ValueError(f"the bits mode takes the view's permutation of "
+                         f"the bake's axes, got perm={perm}")
+    G = Gz
+    bits = live.bits
+    shape = (G, G, -(-G // 32))
+    if (bits.dtype != torch.int32 or tuple(bits.shape) != shape
+            or bits.device != dev or not bits.is_contiguous()):
+        raise ValueError(f"live bits must be a contiguous int32 tensor of "
+                         f"shape {shape} on {dev}, got {bits.dtype} "
+                         f"{tuple(bits.shape)} on {bits.device}")
+    st = (G * G * D, G * D, D)
+    if ((Gy, Gx) != (G, G) or gplanar.stride()
+            != (st[perm[0]], 1, st[perm[1]], st[perm[2]])):
+        raise ValueError(f"the bits mode takes a contiguous (G, G, G, D) "
+                         f"bake seen through perm {tuple(perm)}, got shape "
+                         f"{tuple(gplanar.shape)} strides {gplanar.stride()}")
+    prm = torch.as_tensor(params, dtype=_F32)
+    thr = float(prm.reshape(-1, prm.shape[-1])[:, 14].min())
+    if thr != live.thresh:
+        raise ValueError(f"the live bits were taken at sigma threshold "
+                         f"{live.thresh}, the poses' lowest is {thr}")
+    if dev.type == "cpu":
+        return march_occupancy_live_ref(live, perm)
+    if dev.type != "cuda":
+        raise RuntimeError(f"march_occupancy: no kernel for device {dev}")
+    occ = torch.empty(_occ_shape(G, G, G), dtype=torch.int64, device=dev)
+    cperm = (ctypes.c_int * 3)(*perm)
+    kernels.check(kernels.lib("slab_march").vt_march_occupancy_live(
+        bits.data_ptr(), G, cperm, occ.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream), "slab_march")
+    march_occupancy.launches_live += 1
+    return occ
 
 
 def march_occupancy_ref(gplanar, params, qscale) -> torch.Tensor:
     """Plain PyTorch version of ``march_occupancy`` (params (P, >=15))."""
-    Gz, D, Gy, Gx = gplanar.shape
+    D = gplanar.shape[1]
     thr = params[:, 14].min()
-    live = (_slab_values(gplanar[:, D - 1]) * qscale[D - 1].to(_F32)
-            > thr)                                            # (Gz, Gy, Gx)
+    return _occ_of(_slab_values(gplanar[:, D - 1]) * qscale[D - 1].to(_F32)
+                   > thr)
+
+
+def march_occupancy_live_ref(live: LiveBits, perm) -> torch.Tensor:
+    """Plain PyTorch version of ``march_occupancy``'s bits mode: the bits
+    unpacked to the bake's (G, G, G) voxels, permuted to the view's axes
+    (perm[0], perm[1], perm[2]) and reduced by blocks."""
+    bits = live.bits
+    G = bits.shape[0]
+    on = ((bits[..., None] >> torch.arange(32, dtype=torch.int32,
+                                           device=bits.device)) & 1).bool()
+    on = on.reshape(G, G, -1)[..., :G]
+    return _occ_of(on.permute(*perm))
+
+
+def _occ_of(live) -> torch.Tensor:
+    """(Gz, Gy, Gx) bool live voxels -> the coarse occupancy's masks."""
+    Gz, Gy, Gx = live.shape
     _, RB, NW = _occ_shape(Gz, Gy, Gx)
     pad = torch.zeros((Gz, RB * _OCC, NW * 64 * _OCC), dtype=torch.bool,
                       device=live.device)
