@@ -9,7 +9,9 @@ end to end and gates its quality against the exact octree renderer.
 ``--profile`` adds torch.profiler traces of one dense and one sparse
 main-path run, each also with the parent's display warp in place of kernel
 W (device time by kernel and by call site, DISPLAY_RANGES; the device's
-idle share), and of one training step.
+idle share), and of one training step with the precise warp's switch off
+and on (the latter with the device time of the precise warp's calls,
+PRECISE_RANGES).
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -69,8 +71,10 @@ Phases (any failure exits non-zero and prints no result):
    (at the tensor's element size), each launch's registers, spills and
    blocks per SM, and the share of slabs skipped as empty;
    then the precise superquad warp's kernels on pose 0 (kernel B's and
-   C's f32 table modes, the combine adjoint and the build adjoint) against
-   their plain versions, with times, bounds and library yardsticks, and
+   C's f32 table modes, C's precise-level kernel also bit for bit against
+   its generic one, the combine adjoint with its table's zero fill and the
+   build adjoint) against their plain versions, with times, bounds and
+   library yardsticks, and
    the whole precise warp's output and gradient against autograd through
    the reference warp; then timed ``step_frame`` steps (synced and
    ``sync=False``) with the precise warp's switch (``display_warp.
@@ -135,8 +139,10 @@ MIN_BWD_COS = 0.9999
 TOL_C_F32 = 1e-5    # combine f32 emit
 TOL_C_U8 = 1        # combine uint8 emit, in display quanta
 # the precise warp's adjoint kernels against their plain versions: f32
-# both, another summation order (kernel 5 and 6 add in the same order per
-# output; the plain versions' einsum and slices may not)
+# both, another summation order (kernel 6 adds in the same order per
+# output, the plain version's slices may not; kernel 5 adds the blocks that
+# share a table row with atomics, in a run-dependent order, where the plain
+# version's index_add_ has its own)
 TOL_ADJ_REL = 1e-6
 # the whole precise warp against autograd through the reference warp (the
 # reference's test: tests/test_slab_grad.py::
@@ -165,6 +171,13 @@ DISPLAY_RANGES = tuple(
         ("display_warp", "combine_emit"),
         ("display_warp", "level_fit_counts"),
         ("display_warp", "warp_display")))
+# the precise warp's calls whose device time ``--profile`` reports in the
+# switch-on training step (the backward's kernel 5 and kernel 6 nested in
+# it)
+PRECISE_RANGES = tuple(
+    ("volrend_torch.ops.display_warp", name) for name in (
+        "_level_geometry", "build_table", "combine_emit",
+        "_PreciseWarp.backward", "combine_adjoint", "build_adjoint"))
 
 _T0 = time.perf_counter()
 
@@ -512,7 +525,8 @@ def train_phase(torch, dev, stats):
         display_warp._PRECISE_SQ = True
         try:
             _common.profile_run(lambda: tr.step_frame(cams[0], tgt),
-                                "training step (precise warp)", log)
+                                "training step (precise warp)", log,
+                                PRECISE_RANGES)
         finally:
             display_warp._PRECISE_SQ = False
     summary = {"train_ms_synced": off["ms_synced"],
@@ -811,8 +825,11 @@ def precise_checks(torch, dev, inter, gargs, tr, cam, perm, stats):
     """Phase 8b: the precise superquad warp at full width on pose 0's
     intermediate image ``inter`` (1, gi, gi, 4) and geometry ``gargs``.
     Holds kernel B's and C's f32 modes and kernels 5 and 6 against their
-    plain versions and times them (stats "BF", "CF", "K5", "K6"), then the
-    whole precise warp against autograd through the reference warp."""
+    plain versions and times them (stats "BF", "CF", "K5", "K6"; C's
+    constant-size kernel also against its generic one, bit for bit, and
+    kernel 5 with the zero fill of its table), then the whole precise warp
+    against autograd through the reference warp, and times its backward
+    alone."""
     import torch.nn.functional as F
     from volrend_torch.ops import display_warp, slab_grad, slab_render
     bg = float(tr.opt.background_brightness)
@@ -865,14 +882,29 @@ def precise_checks(torch, dev, inter, gargs, tr, cam, perm, stats):
     def run_c_plain():
         return display_warp.combine_emit_ref(*cargs, qscale=1.0, qshift=0.0)
 
-    err = float((run_c() - run_c_plain()).abs().max())
+    out_c = run_c()
+    err = float((out_c - run_c_plain()).abs().max())
     log(f"kernel C [f32 table, pose 0]: max err {err:.3e} (tol {TOL_C_F32})")
     if not (np.isfinite(err) and err <= TOL_C_F32):
         fail("kernel C's f32 mode disagrees with its plain version")
+
+    # the generic kernel at the precise level: the constant-size kernel's
+    # frames must equal its bit for bit
+    def run_c_generic():
+        display_warp._COMBINE_GENERIC = True
+        try:
+            return display_warp.combine_emit(*cargs, qscale=1.0, qshift=0.0)
+        finally:
+            display_warp._COMBINE_GENERIC = False
+
+    if not torch.equal(out_c, run_c_generic()):
+        fail("kernel C's precise-level kernel differs from its generic one")
+    del out_c
     rows_used = int(torch.unique(Y0.long() * W3 + X0.long()).numel())
     taps = tent_taps(torch, ry, rx, okm, Wn)
     stats["CF"] = {"max_abs_err": err, "ms": cuda_ms(torch, run_c, KREPS),
                    "plain_ms": cuda_ms(torch, run_c_plain, KREPS),
+                   "generic_ms": cuda_ms(torch, run_c_generic, KREPS),
                    "library_ms": None}
     stats["CF"]["bound_ms"], stats["CF"]["bound_by"] = bound(
         rows_used * C * 4 + 2 * Hh * Wh * 4 + 3 * S * Hh * Wh * 4
@@ -883,38 +915,38 @@ def precise_checks(torch, dev, inter, gargs, tr, cam, perm, stats):
         size=(1, H, W, 4)).astype(np.float32), device=dev)
 
     def run_5():
-        return display_warp.combine_adjoint(g, ry, rx, okm, bg)
+        return display_warp.combine_adjoint(g, ry, rx, okm, Y0, X0, GI, bg)
 
     def run_5_plain():
-        return display_warp.combine_adjoint_ref(g, ry, rx, okm, bg)
+        return display_warp.combine_adjoint_ref(g, ry, rx, okm, Y0, X0, GI,
+                                                bg)
 
-    rows_k, rows_p = run_5(), run_5_plain()
-    rel = float((rows_k.double() - rows_p.double()).norm()
-                / rows_p.double().norm())
-    mx = float((rows_k - rows_p).abs().max())
+    dtbl, dtbl_p = run_5(), run_5_plain()
+    rel = float((dtbl.double() - dtbl_p.double()).norm()
+                / dtbl_p.double().norm())
+    mx = float((dtbl - dtbl_p).abs().max())
     log(f"kernel 5 [pose 0]: relative L2 {rel:.3e}, max |diff| {mx:.3e} "
-        f"(max |plain| {float(rows_p.abs().max()):.3e}; tol {TOL_ADJ_REL})")
+        f"(max |plain| {float(dtbl_p.abs().max()):.3e}; tol {TOL_ADJ_REL})")
     if not (np.isfinite(rel) and rel <= TOL_ADJ_REL):
         fail("kernel 5 disagrees with its plain version")
+    del dtbl_p
+    # timed with the zero fill of the table it adds into (the wrapper's);
+    # the bound reads the cotangent, geometry and corners once and writes
+    # the whole table once; logged beside it, the bound of the kernel's
+    # own traffic (the rows its blocks touch) and of the fill alone
+    in_bytes = H * W * 4 * 4 + 3 * S * Hh * Wh * 4 + 2 * Hh * Wh * 4
     stats["K5"] = {"max_abs_err": mx, "rel_l2": rel,
                    "ms": cuda_ms(torch, run_5, KREPS),
                    "plain_ms": cuda_ms(torch, run_5_plain, KREPS),
+                   "fill_ms": cuda_ms(torch, lambda: torch.zeros(
+                       (1, H3 * W3, C), dtype=torch.float32, device=dev),
+                       KREPS),
+                   "rows_bound_ms": bound(in_bytes + rows_used * C * 4,
+                                          0)[0],
+                   "fill_bound_ms": bound(H3 * W3 * C * 4, 0)[0],
                    "library_ms": None}
     stats["K5"]["bound_ms"], stats["K5"]["bound_by"] = bound(
-        H * W * 4 * 4 + 3 * S * Hh * Wh * 4 + Hh * Wh * C * 4,
-        taps * 18)
-
-    # the scatter of the block rows into the table cotangent (a PyTorch
-    # call, as in the reference; timed, not a kernel of the port)
-    flat = (Y0.long() * W3 + X0.long()).reshape(-1)
-
-    def scatter():
-        d = torch.zeros((H3 * W3, C), dtype=torch.float32, device=dev)
-        return d.index_add_(0, flat, rows_k.reshape(-1, C))
-
-    scatter_ms = cuda_ms(torch, scatter, KREPS)
-    dtbl = scatter()[None]
-    del rows_p
+        in_bytes + H3 * W3 * C * 4, taps * 18)
 
     # kernel 6 on that table cotangent
     def run_6():
@@ -951,11 +983,10 @@ def precise_checks(torch, dev, inter, gargs, tr, cam, perm, stats):
     stats["K6"]["bound_ms"], stats["K6"]["bound_by"] = bound(
         H3 * W3 * C * 4 + GI * GI * 4 * 4, GI * GI * ncell * 4)
     permute_ms = cuda_ms(torch, permute, KREPS)
-    del d_k, d_p, dperm, folded, dtbl, rows_k, g
+    del d_k, d_p, dperm, folded, dtbl, g
     log(f"precise warp kernels [pose 0]: B-f32 {json.dumps(stats['BF'])}; "
         f"C-f32 {json.dumps(stats['CF'])}; 5 {json.dumps(stats['K5'])}; "
-        f"6 {json.dumps(stats['K6'])}; scatter (index_add_) "
-        f"{scatter_ms:.4f} ms; kernel 6 yardstick's permute copy "
+        f"6 {json.dumps(stats['K6'])}; kernel 6 yardstick's permute copy "
         f"{permute_ms:.4f} ms")
 
     # the whole precise warp against autograd through the reference warp
@@ -967,6 +998,11 @@ def precise_checks(torch, dev, inter, gargs, tr, cam, perm, stats):
                    x, tr.opt, *gargs, precise=True)):
         x = inter.clone().requires_grad_(True)
         out = fn(x)
+        if not res:
+            # the precise warp's backward alone (kernel 5 with its table's
+            # fill, then kernel 6)
+            backward_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+                out, x, ct, retain_graph=True), KREPS)
         (gx,) = torch.autograd.grad(out, x, ct)
         res.append((out.detach(), gx))
     (out, gx), (ref, gref) = res
@@ -979,7 +1015,8 @@ def precise_checks(torch, dev, inter, gargs, tr, cam, perm, stats):
         f"output max |diff| {out_err:.3e} (atol {TOL_PRECISE_OUT}); "
         f"gradient max |diff| {grad_err:.3e}, {grad_off} of {gx.numel()} "
         f"entries past atol {TOL_PRECISE_GRAD_ATOL} x max|g| "
-        f"({float(gref.abs().max()):.3e}) + rtol {TOL_PRECISE_GRAD_RTOL}")
+        f"({float(gref.abs().max()):.3e}) + rtol {TOL_PRECISE_GRAD_RTOL}; "
+        f"its backward alone {backward_ms:.4f} ms")
     if not (out_err <= TOL_PRECISE_OUT and grad_off == 0):
         fail("the precise warp disagrees with the reference warp")
     del res, out, gx, ref, gref, ct
@@ -1003,7 +1040,8 @@ def precise_checks(torch, dev, inter, gargs, tr, cam, perm, stats):
         fail("pose 0 misfits the precise warp's window")
     return {"precise_out_err": out_err, "precise_grad_err": grad_err,
             "precise_fits_host_ms": host_ms,
-            "precise_fits_cached_ms": cached_ms, "scatter_ms": scatter_ms,
+            "precise_fits_cached_ms": cached_ms,
+            "precise_backward_ms": backward_ms,
             "fold_permute_ms": permute_ms}
 
 

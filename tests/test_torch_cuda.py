@@ -897,41 +897,106 @@ def _rel(a, b):
     return float((a - b).norm() / b.norm())
 
 
+def _precise_level(geom, inter, B, win):
+    """Kernel C's f32-mode arguments at one level: the f32 table of
+    ``inter`` and the level's geometry."""
+    tbl = display_warp.build_table(inter, win, dtype=torch.float32,
+                                   planar=False)
+    gys, gxs, okm, Y0, X0 = display_warp._level_geometry(geom, GI, B, win)
+    return (tbl, Y0.contiguous(), X0.contiguous(),
+            (gys - Y0.float()[:, None]).contiguous(),
+            (gxs - X0.float()[:, None]).contiguous(), okm.contiguous(), GI,
+            H, W, B, win, 0.7)
+
+
 def test_precise_kernels_match_plain(precise_parts):
     """B and C in their f32 mode, kernels 5 and 6 against their plain
     versions on the same CUDA tensors: B bit-equal, C within 1e-5, the
-    adjoints to relative L2 1e-6 (f32, another summation order)."""
+    adjoints to relative L2 1e-6 (f32, another summation order; kernel 5
+    adds the blocks that share a table row with atomics, in a
+    run-dependent order)."""
     geom, inter, ct = precise_parts
     bg = 0.7
     counts = (display_warp.build_table.launches_f32,
               display_warp.combine_emit.launches_f32,
               display_warp.combine_adjoint.launches,
               display_warp.build_adjoint.launches)
-    tbl = display_warp.build_table(inter, (4, 4), dtype=torch.float32,
-                                   planar=False)
+    args = _precise_level(geom, inter, (2, 2), (4, 4))
+    tbl = args[0]
     assert torch.equal(tbl, display_warp.build_table_ref(
         inter, (4, 4), dtype=torch.float32, planar=False))
-    gys, gxs, okm, Y0, X0 = display_warp._level_geometry(geom, GI, 2,
-                                                         (4, 4))
-    args = (tbl, Y0.contiguous(), X0.contiguous(),
-            (gys - Y0.float()[:, None]).contiguous(),
-            (gxs - X0.float()[:, None]).contiguous(), okm.contiguous(), GI,
-            H, W, 2, (4, 4), bg)
     got = display_warp.combine_emit(*args, qscale=1.0, qshift=0.0)
     want = display_warp.combine_emit_ref(*args, qscale=1.0, qshift=0.0)
     assert float((got - want).abs().max()) <= 1e-5
-    ry, rx, okm = args[3], args[4], args[5]
-    rows = display_warp.combine_adjoint(ct, ry, rx, okm, bg)
-    assert _rel(rows, display_warp.combine_adjoint_ref(ct, ry, rx, okm,
-                                                       bg)) <= 1e-6
+    Y0, X0, ry, rx, okm = args[1:6]
+    dtbl5 = display_warp.combine_adjoint(ct, ry, rx, okm, Y0, X0, GI, bg)
+    assert _rel(dtbl5, display_warp.combine_adjoint_ref(
+        ct, ry, rx, okm, Y0, X0, GI, bg)) <= 1e-6
+    # kernel 6 on a dense table (every row non-zero), then on kernel 5's
     dtbl = torch.randn(tbl.shape, device=tbl.device)
     d = display_warp.build_adjoint(dtbl, GI)
     assert _rel(d, display_warp.build_adjoint_ref(dtbl, GI)) <= 1e-6
+    d = display_warp.build_adjoint(dtbl5, GI)
+    assert _rel(d, display_warp.build_adjoint_ref(dtbl5, GI)) <= 1e-6
     assert (display_warp.build_table.launches_f32,
             display_warp.combine_emit.launches_f32,
             display_warp.combine_adjoint.launches,
             display_warp.build_adjoint.launches) == tuple(
-                c + 1 for c in counts)
+                c + n for c, n in zip(counts, (1, 1, 1, 2)))
+
+
+@pytest.mark.parametrize("case", ["shared", "two_poses", "masked"])
+def test_combine_adjoint_cases_match_plain(precise_parts, case):
+    """Kernel 5 against its plain version (the block rows, then
+    index_add_) to relative L2 1e-6 (atomic summation order): many
+    blocks on each of a few table rows; two poses, each adding into its
+    own table; every subpixel masked, which leaves the table zero."""
+    geom, inter, ct = precise_parts
+    _, Y0, X0, ry, rx, okm = _precise_level(geom, inter, (2, 2),
+                                            (4, 4))[:6]
+    if case == "shared":
+        hh = torch.arange(Y0.shape[1], device=Y0.device)[:, None]
+        wh = torch.arange(Y0.shape[2], device=Y0.device)[None]
+        Y0 = (hh // 8 * 3).expand_as(Y0[0])[None].int().contiguous()
+        X0 = (wh // 8 * 5).expand_as(X0[0])[None].int().contiguous()
+    elif case == "two_poses":
+        W3 = GI - 3
+        Y0, X0 = (torch.cat([Y0, X0.flip(2)]).contiguous(),
+                  torch.cat([X0, W3 - 1 - Y0]).contiguous())
+        ry, rx, okm = (torch.cat([t, t.flip(3)]).contiguous()
+                       for t in (ry, rx, okm))
+        ct = torch.cat([ct, ct.flip(1)]).contiguous()
+    else:
+        okm = torch.zeros_like(okm)
+    dtbl = display_warp.combine_adjoint(ct, ry, rx, okm, Y0, X0, GI, 0.7)
+    want = display_warp.combine_adjoint_ref(ct, ry, rx, okm, Y0, X0, GI,
+                                            0.7)
+    if case == "masked":
+        assert not bool(dtbl.any()) and not bool(want.any())
+    else:
+        assert _rel(dtbl, want) <= 1e-6
+
+
+@pytest.mark.parametrize("level", [((2, 2), (4, 4)), ((4, 4), (5, 5)),
+                                   ((2, 2), (3, 3))])
+def test_combine_f32_levels(precise_parts, level):
+    """Kernel C's f32 mode against its plain version within 1e-5 at the
+    precise level (its constant-size kernel) and at two others (the
+    generic one); at the precise level the constant-size kernel equals
+    the generic kernel bit for bit."""
+    geom, inter, _ = precise_parts
+    args = _precise_level(geom, inter, *level)
+    got = display_warp.combine_emit(*args, qscale=1.0, qshift=0.0)
+    want = display_warp.combine_emit_ref(*args, qscale=1.0, qshift=0.0)
+    assert float((got - want).abs().max()) <= 1e-5
+    if level == ((2, 2), (4, 4)):
+        display_warp._COMBINE_GENERIC = True
+        try:
+            generic = display_warp.combine_emit(*args, qscale=1.0,
+                                                qshift=0.0)
+        finally:
+            display_warp._COMBINE_GENERIC = False
+        assert torch.equal(got, generic)
 
 
 def test_precise_warp_matches_reference_warp(precise_parts):

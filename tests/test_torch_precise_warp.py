@@ -1,6 +1,7 @@
 """The precise superquad training warp of the port (``display_warp.
 _PreciseWarp`` behind ``_PRECISE_SQ``: kernels B and C in their f32 table
-mode forward; kernel 5, the scatter and kernel 6 backward) against the
+mode forward; kernel 5, which adds into the table cotangent, and kernel 6
+backward) against the
 reference's ``make_warp_precise`` and its hand-written VJP, run in Pallas
 interpret mode, on the CPU (the port's kernels' plain versions).
 
@@ -233,23 +234,52 @@ def test_combine_emit_f32_matches_reference(ref):
                                atol=1e-5)
 
 
-def test_combine_adjoint_matches_interpret(ref):
-    """Kernel 5 (plain version) against the reference's
-    _combine_adjoint kernel: the port reads the (H, W, 4) cotangent and
-    writes block rows; the reference takes the subpixel planes and writes
-    planar channels."""
+def _corners(case, fwd_y, fwd_x):
+    """(P, Hh, Wh) window corners of a kernel 5 case: the forward's own;
+    blocks collapsed eight by eight onto shared rows; or two poses, the
+    second on rows of its own pattern."""
+    if case == "shared":
+        hh, wh = np.meshgrid(np.arange(HH), np.arange(WH), indexing="ij")
+        return (hh // 8 * 3)[None], (wh // 8 * 5)[None]
+    if case == "two_poses":
+        return (np.stack([fwd_y, fwd_x[::-1]]),
+                np.stack([fwd_x, W3 - 1 - fwd_y]))
+    return fwd_y[None], fwd_x[None]
+
+
+@pytest.mark.parametrize("case", ["forward", "shared", "two_poses",
+                                  "masked"])
+def test_combine_adjoint_matches_interpret(ref, case):
+    """Kernel 5 (plain version) against the reference's _combine_adjoint
+    kernel followed by its scatter into the table cotangent (np.add.at at
+    the blocks' rows): the port reads the (H, W, 4) cotangent and writes
+    the (P, H3*W3, 64) table; the reference takes the subpixel planes and
+    writes planar channels. Cases: the precise forward's own corners
+    (neighbouring blocks share rows); many blocks on each of a few rows;
+    two poses, each adding into its own table (pose 1's cotangent -2x pose
+    0's, so its rows are exactly -2x the reference's); every subpixel
+    masked, which passes nothing."""
     ry, rx, okm, g, _ = _adjoint_inputs()
-    rows = display_warp.combine_adjoint(
-        torch.tensor(g)[None], torch.tensor(ry)[None],
-        torch.tensor(rx)[None], torch.tensor(okm)[None], BG)
-    assert tuple(rows.shape) == (1, HH * WH, 64)
-    got = rows[0].reshape(HH, WH, 64).permute(2, 0, 1).numpy()
-    _close_to_max(got, ref["adj5"])
-    # masked subpixels pass nothing: all-zero ok gives zero rows
-    zero = display_warp.combine_adjoint(
-        torch.tensor(g)[None], torch.tensor(ry)[None],
-        torch.tensor(rx)[None], torch.zeros((1, 4, HH, WH)), BG)
-    assert not bool(zero.any())
+    Y0, X0 = (np.asarray(a).astype(np.int32) for a in _corners(
+        case, np.asarray(ref["stage"][0]), np.asarray(ref["stage"][1])))
+    P = Y0.shape[0]
+    gs = np.stack([g, -2.0 * g][:P])
+    if case == "masked":
+        okm = np.zeros_like(okm)
+    dtbl = display_warp.combine_adjoint(
+        torch.tensor(gs), *(torch.tensor(np.stack([a] * P))
+                            for a in (ry, rx, okm)),
+        torch.tensor(Y0), torch.tensor(X0), GI, BG)
+    assert tuple(dtbl.shape) == (P, W3 * W3, 64)
+    if case == "masked":
+        assert not bool(dtbl.any())
+        return
+    rows = np.asarray(ref["adj5"]).reshape(64, HH * WH).T
+    want = np.zeros((P, W3 * W3, 64), np.float32)
+    for p in range(P):
+        np.add.at(want[p], (Y0[p] * W3 + X0[p]).reshape(-1),
+                  rows * (1.0, -2.0)[p])
+    _close_to_max(dtbl.numpy(), want)
 
 
 def test_build_adjoint_matches_interpret(ref):
@@ -413,8 +443,9 @@ def test_precise_wrappers_refuse_other_devices():
     """A tensor on neither the CPU nor a CUDA card gets no kernel."""
     meta = lambda *s: torch.empty(s, device="meta")
     with pytest.raises(RuntimeError, match="no kernel for device"):
-        display_warp.combine_adjoint(meta(1, 8, 8, 4), meta(1, 4, 4, 4),
-                                     meta(1, 4, 4, 4), meta(1, 4, 4, 4), BG)
+        display_warp.combine_adjoint(
+            meta(1, 8, 8, 4), meta(1, 4, 4, 4), meta(1, 4, 4, 4),
+            meta(1, 4, 4, 4), meta(1, 4, 4), meta(1, 4, 4), 8, BG)
     with pytest.raises(RuntimeError, match="no kernel for device"):
         display_warp.build_adjoint(meta(1, 25, 64), 8)
     with pytest.raises(ValueError, match="int8 or float32"):

@@ -74,10 +74,11 @@ SOURCES = {
         "vt_warp_build": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     }),
     "warp_combine": ("warp_combine.cu", {
-        # table, Y0, X0, ry, rx, okm, out, out_u8, table_f32, P, H, W, By,
-        # Bx, Wy, Wx, H3, W3, bg, qscale, qshift, stream
+        # table, Y0, X0, ry, rx, okm, out, out_u8, table_f32, generic, P,
+        # H, W, By, Bx, Wy, Wx, H3, W3, bg, qscale, qshift, stream
         "vt_warp_combine": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P],
+                            _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
+                            _P],
     }),
     "warp_display": ("warp_display.cu", {
         # inter, prm, sel, out, n_sel, out_u8, P, gi, H, W, By, Bx, Wy,
@@ -88,8 +89,8 @@ SOURCES = {
         "vt_warp_fit": [_P, _P, _I, _I, _P, _I, _I, _I, _P],
     }),
     "warp_combine_adj": ("warp_combine_adj.cu", {
-        # g, ry, rx, okm, rows, P, Hh, Wh, By, Bx, Wy, Wx, bg, stream
-        "vt_warp_combine_adj": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+        # g, ry, rx, okm, Y0, X0, dtbl, P, Hh, Wh, H3, W3, bg, stream
+        "vt_warp_combine_adj": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _I, _I, _F, _P],
     }),
     "warp_build_adj": ("warp_build_adj.cu", {

@@ -32,12 +32,12 @@ Kernels B and C keep their table modes for the precise warp below.
 
 The training path's **precise** superquad warp (``_PreciseWarp``, behind
 the ``_PRECISE_SQ`` switch, off by default as in the reference) runs
-kernels B and C on an f32 table ((2, 2) blocks, 4 x 4 window) and
-differentiates them by hand: kernel 5 (``csrc/warp_combine_adj.cu``,
-wrapper ``combine_adjoint``) transposes the tent-combine, a scatter-add
-folds the block rows into the table cotangent, and kernel 6
-(``csrc/warp_build_adj.cu``, wrapper ``build_adjoint``) transposes the
-table build.
+kernels B and C on an f32 table ((2, 2) blocks, 4 x 4 window; C at that
+level with its sizes as constants) and differentiates them by hand: kernel
+5 (``csrc/warp_combine_adj.cu``, wrapper ``combine_adjoint``) transposes
+the tent-combine and adds each block's taps straight into the table
+cotangent, and kernel 6 (``csrc/warp_build_adj.cu``, wrapper
+``build_adjoint``) transposes the table build.
 
 Every function takes a batch of poses: per-pose tensors carry a leading
 pose dimension. On CUDA tensors the wrappers launch the kernels; on CPU
@@ -73,6 +73,11 @@ _QSHIFT = 128.0 / 255.0
 #: the precise (training) warp's fixed level: (2, 2) blocks, 4 x 4 window
 _PRECISE_B = (2, 2)
 _PRECISE_WIN = (4, 4)
+
+#: checks only: kernel C's f32 table and frame at the precise level run the
+#: generic per-pixel kernel instead of the constant-size one, so the card
+#: tests and chip_smoke.py can hold the two bit-equal. Read at call time.
+_COMBINE_GENERIC = False
 
 def _chan(cy: int, cx: int, c: int, win=(4, 4)) -> int:
     """Window-table channel of cell (cy, cx) in [0, Wy) x [0, Wx), colour
@@ -406,8 +411,11 @@ def combine_emit(table: torch.Tensor, Y0: torch.Tensor, X0: torch.Tensor,
     (P, By*Bx, Hh, Wh) f32. Returns (P, H, W, 4) uint8 (out_dtype =
     torch.uint8, rounded half to even after a [0, 1] clamp) or f32.
     Launches kernel C on CUDA tensors (counted in ``launches`` and
-    ``poses``, or in ``launches_f32`` for an f32 table); runs
-    ``combine_emit_ref`` on CPU."""
+    ``poses``, or in ``launches_f32`` for an f32 table): an f32 table and
+    frame at the precise level run its constant-size kernel, every other
+    level and mode the generic per-pixel one (``_COMBINE_GENERIC``
+    selects it at the precise level too). Runs ``combine_emit_ref`` on
+    CPU."""
     By, Bx = _block2d(B)
     Wy, Wx = _win2d(win)
     P = table.shape[0]
@@ -437,8 +445,9 @@ def combine_emit(table: torch.Tensor, Y0: torch.Tensor, X0: torch.Tensor,
     kernels.check(lib.vt_warp_combine(
         table.data_ptr(), Y0.data_ptr(), X0.data_ptr(), ry.data_ptr(),
         rx.data_ptr(), okm.data_ptr(), out.data_ptr(), int(u8), int(f32),
-        P, height, width, By, Bx, Wy, Wx, H3, W3, float(bg), float(qscale),
-        float(qshift), torch.cuda.current_stream(dev).cuda_stream),
+        int(_COMBINE_GENERIC), P, height, width, By, Bx, Wy, Wx, H3, W3, float(bg),
+        float(qscale), float(qshift),
+        torch.cuda.current_stream(dev).cuda_stream),
         "warp_combine")
     if f32:
         combine_emit.launches_f32 += 1
@@ -800,8 +809,8 @@ def warp_to_screen_sq(inter, opt: RenderOptions, R, fx, fy,
 #
 #   forward:  kernel B (f32 table) -> kernel C (f32 table, qscale 1,
 #             qshift 0; each block gathers its own row)
-#   backward: kernel 5 (tent + composite adjoint per block row) -> a
-#             scatter-add of the block rows into the table cotangent ->
+#   backward: kernel 5 (tent + composite adjoint per block, added into
+#             the zero-filled table cotangent at the block's row) ->
 #             kernel 6 (build adjoint: each pixel sums its 16 cells)
 #
 # Geometry cotangents are zero by contract (training differentiates the
@@ -819,48 +828,59 @@ def usable_precise(width: int, height: int, gi: int) -> bool:
 
 
 def combine_adjoint(g: torch.Tensor, ry: torch.Tensor, rx: torch.Tensor,
-                    okm: torch.Tensor, bg: float, B=_PRECISE_B,
-                    win=_PRECISE_WIN) -> torch.Tensor:
-    """Transpose of the f32 tent-combine with the composite adjoint.
+                    okm: torch.Tensor, Y0: torch.Tensor, X0: torch.Tensor,
+                    gi: int, bg: float) -> torch.Tensor:
+    """Transpose of the precise level's f32 tent-combine with the
+    composite adjoint, scattered into the table cotangent.
 
     g (P, H, W, 4) f32 cotangent of combine_emit's output; ry/rx/okm
-    (P, By*Bx, Hh, Wh) f32 (the forward's). Returns the (P, Hh*Wh,
-    4*Wy*Wx) f32 cotangents of each block's gathered table row, channel
-    _chan(cy, cx, c). Launches kernel 5 on CUDA tensors (counted in
-    ``launches``); runs ``combine_adjoint_ref`` on CPU tensors."""
-    By, Bx = _block2d(B)
-    Wy, Wx = _win2d(win)
+    (P, 4, H/2, W/2) f32 and Y0/X0 (P, H/2, W/2) int32 (the forward's).
+    Returns the (P, H3*W3, 64) f32 cotangent of the table (H3 = W3 =
+    gi - 3): each block's window-cell cotangents, channel _chan(cy, cx, c),
+    summed into the block's row Y0*W3 + X0. Launches kernel 5 on CUDA
+    tensors (counted in ``launches``; it adds with atomics, so rows that
+    blocks share sum in a run-dependent order); runs
+    ``combine_adjoint_ref`` on CPU tensors."""
+    By, Bx = _PRECISE_B
+    Wy, Wx = _PRECISE_WIN
     P, H, W, _ = g.shape
     Hh, Wh = H // By, W // Bx
+    H3, W3 = gi - Wy + 1, gi - Wx + 1
     dev = g.device
     if dev.type == "cpu":
-        return combine_adjoint_ref(g, ry, rx, okm, bg, (By, Bx), (Wy, Wx))
+        return combine_adjoint_ref(g, ry, rx, okm, Y0, X0, gi, bg)
     if dev.type != "cuda":
         raise RuntimeError(f"combine_adjoint: no kernel for device {dev}")
     _check("combine_adjoint: g", g, _F32, (P, Hh * By, Wh * Bx, 4), dev)
     for name, t in (("ry", ry), ("rx", rx), ("okm", okm)):
         _check(f"combine_adjoint: {name}", t, _F32, (P, By * Bx, Hh, Wh),
                dev)
-    rows = torch.empty((P, Hh * Wh, 4 * Wy * Wx), dtype=_F32, device=dev)
+    for name, t in (("Y0", Y0), ("X0", X0)):
+        _check(f"combine_adjoint: {name}", t, torch.int32, (P, Hh, Wh), dev)
+    dtbl = torch.zeros((P, H3 * W3, 4 * Wy * Wx), dtype=_F32, device=dev)
     lib = kernels.lib("warp_combine_adj")
     kernels.check(lib.vt_warp_combine_adj(
         g.data_ptr(), ry.data_ptr(), rx.data_ptr(), okm.data_ptr(),
-        rows.data_ptr(), P, Hh, Wh, By, Bx, Wy, Wx, float(bg),
-        torch.cuda.current_stream(dev).cuda_stream), "warp_combine_adj")
+        Y0.data_ptr(), X0.data_ptr(), dtbl.data_ptr(), P, Hh, Wh, H3, W3,
+        float(bg), torch.cuda.current_stream(dev).cuda_stream),
+        "warp_combine_adj")
     combine_adjoint.launches += 1
-    return rows
+    return dtbl
 
 
 combine_adjoint.launches = 0
 
 
-def combine_adjoint_ref(g, ry, rx, okm, bg: float, B=_PRECISE_B,
-                        win=_PRECISE_WIN) -> torch.Tensor:
-    """Plain PyTorch version of kernel 5 (f32 arithmetic)."""
-    By, Bx = _block2d(B)
-    Wy, Wx = _win2d(win)
+def combine_adjoint_ref(g, ry, rx, okm, Y0, X0, gi: int,
+                        bg: float) -> torch.Tensor:
+    """Plain PyTorch version of kernel 5 (f32 arithmetic): each block's
+    row of window-cell cotangents, then ``index_add_`` into the table
+    (the reference's ``.at[flat].add``)."""
+    By, Bx = _PRECISE_B
+    Wy, Wx = _PRECISE_WIN
     P, H, W, _ = g.shape
     Hh, Wh = H // By, W // Bx
+    H3, W3 = gi - Wy + 1, gi - Wx + 1
     # subpixel split: (P, S, Hh, Wh, 4) with s = sy*Bx + sx
     gs = g.reshape(P, Hh, By, Wh, Bx, 4).permute(0, 2, 4, 1, 3, 5).reshape(
         P, By * Bx, Hh, Wh, 4)
@@ -874,7 +894,13 @@ def combine_adjoint_ref(g, ry, rx, okm, bg: float, B=_PRECISE_B,
     wy = torch.clamp(1.0 - torch.abs(ryc[..., None] - cyv), min=0.0)
     wx = torch.clamp(1.0 - torch.abs(rxc[..., None] - cxv), min=0.0)
     rows = torch.einsum("pshwy,pshwx,pshwc->phwyxc", wy, wx, d)
-    return rows.reshape(P, Hh * Wh, 4 * Wy * Wx)
+    # each block's table row, as a row of the poses' stacked tables
+    flat = (Y0.long() * W3 + X0.long()
+            + torch.arange(P, device=g.device)[:, None, None] * (H3 * W3))
+    dtbl = torch.zeros((P * H3 * W3, 4 * Wy * Wx), dtype=_F32,
+                       device=g.device)
+    dtbl.index_add_(0, flat.reshape(-1), rows.reshape(-1, 4 * Wy * Wx))
+    return dtbl.reshape(P, H3 * W3, 4 * Wy * Wx)
 
 
 def build_adjoint(dtbl: torch.Tensor, gi: int,
@@ -926,7 +952,6 @@ class _PreciseWarp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, inter, R, fx, fy, u0, du, v0, dv, scale, statics):
         bg, width, height, gi, perm = statics
-        Wy, Wx = _PRECISE_WIN
         geom_args = (R, fx, fy, width, height, gi, perm, u0, du, v0, dv,
                      scale)
         gys, gxs, okm, Y0, X0 = _level_geometry(geom_args, gi, _PRECISE_B,
@@ -936,31 +961,21 @@ class _PreciseWarp(torch.autograd.Function):
         okm = okm.contiguous()
         tbl = build_table(inter.to(_F32).contiguous(), _PRECISE_WIN,
                           dtype=_F32, planar=False)
-        out = combine_emit(tbl, Y0.contiguous(), X0.contiguous(), ry, rx,
-                           okm, gi, height, width, _PRECISE_B, _PRECISE_WIN,
-                           bg, qscale=1.0, qshift=0.0)
-        P = inter.shape[0]
-        H3, W3 = gi - Wy + 1, gi - Wx + 1
-        # each block's table row, as a row of the poses' stacked tables
-        flat = (Y0.long() * W3 + X0.long()
-                + torch.arange(P, device=Y0.device)[:, None, None] * (H3 * W3)
-                ).reshape(-1)
-        ctx.save_for_backward(ry, rx, okm, flat)
+        Y0, X0 = Y0.contiguous(), X0.contiguous()
+        out = combine_emit(tbl, Y0, X0, ry, rx, okm, gi, height, width,
+                           _PRECISE_B, _PRECISE_WIN, bg, qscale=1.0,
+                           qshift=0.0)
+        ctx.save_for_backward(ry, rx, okm, Y0, X0)
         ctx.statics = statics
         return out
 
     @staticmethod
     def backward(ctx, g):
-        ry, rx, okm, flat = ctx.saved_tensors
+        ry, rx, okm, Y0, X0 = ctx.saved_tensors
         bg, _, _, gi, _ = ctx.statics
-        Wy, Wx = _PRECISE_WIN
-        P = ry.shape[0]
-        H3, W3 = gi - Wy + 1, gi - Wx + 1
-        rows = combine_adjoint(g.to(_F32).contiguous(), ry, rx, okm, bg)
-        dtbl = torch.zeros((P * H3 * W3, 4 * Wy * Wx), dtype=_F32,
-                           device=rows.device)
-        dtbl.index_add_(0, flat, rows.reshape(-1, 4 * Wy * Wx))
-        d_inter = build_adjoint(dtbl.reshape(P, H3 * W3, 4 * Wy * Wx), gi)
+        dtbl = combine_adjoint(g.to(_F32).contiguous(), ry, rx, okm, Y0, X0,
+                               gi, bg)
+        d_inter = build_adjoint(dtbl, gi)
         return (d_inter,) + (None,) * 9
 
 
@@ -969,7 +984,7 @@ def warp_precise(inter, bg: float, R, fx, fy, width: int, height: int,
                  scale) -> torch.Tensor:
     """The precise superquad warp of (P, gi, gi, 4) intermediate images to
     (P, H, W, 4) f32 screens over the background ``bg``, differentiable
-    w.r.t. ``inter`` (kernels B, C forward; 5, scatter, 6 backward). The
+    w.r.t. ``inter`` (kernels B, C forward; 5, 6 backward). The
     caller checks usable_precise and each pose's fit predicate
     (slab_render._warp_to_screen does)."""
     dev = inter.device
