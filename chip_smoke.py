@@ -28,6 +28,9 @@ Phases (any failure exits non-zero and prints no result):
    march's bound counts the slabs the rays meet and the voxels above the
    sigma threshold); kernel M's display launch configuration (its tile
    height) with its resident blocks per SM, registers and spills; kernel
+   B's int8 table with its launch (blocks per SM, registers, shared
+   memory) and, on three poses of the timed group, at two non-production
+   windows in both table types and input layouts, bit for bit; kernel
    W and its fit mode against their plain versions, W against kernel B's
    and C's composition and the fit decisions against the parent's
    predicates, and the display warp stage's device time in turns against
@@ -47,7 +50,8 @@ Phases (any failure exits non-zero and prints no result):
    their own width (800^2, gi=448, the 96 orbit poses): the tent-combine
    (P7), payload-stream (P8) and table-build (P9, both layouts) kernels
    against their plain versions, with times, bounds and library
-   yardsticks; then the probes' own numbers (the stream's GB/s beside
+   yardsticks (the planar build's launch: blocks per SM, registers,
+   shared memory); then the probes' own numbers (the stream's GB/s beside
    kernel M's one-pose time, host-synced and, apart, on the card and the
    host's issue; perf_sq3's s1 and s2, perf_sq4's b0, b3 and b4) with the
    probe kernels' launch counts reset just before and read just after;
@@ -71,8 +75,8 @@ Phases (any failure exits non-zero and prints no result):
    (at the tensor's element size), each launch's registers, spills and
    blocks per SM, and the share of slabs skipped as empty;
    then the precise superquad warp's kernels on pose 0 (kernel B's and
-   C's f32 table modes, C's precise-level kernel also bit for bit against
-   its generic one, the combine adjoint with its table's zero fill and the
+   C's f32 table modes, B's launch logged, C's precise-level kernel also
+   bit for bit against its generic one, the combine adjoint with its table's zero fill and the
    build adjoint) against their plain versions, with times, bounds and
    library yardsticks, and
    the whole precise warp's output and gradient against autograd through
@@ -91,6 +95,7 @@ Phases (any failure exits non-zero and prints no result):
 """
 
 import contextlib
+import itertools
 import json
 import os
 import subprocess
@@ -377,6 +382,42 @@ def display_occupancy(kernels, bd: int, cfg: dict) -> dict:
         bd, cfg["rows"], cfg["smem"], out), "slab_march_display")
     return {"blocks_per_sm": out[0], "regs": out[1], "spill_bytes": out[2],
             "static_smem": out[3]}
+
+
+def build_occupancy(kernels, P: int, gi: int, win, f32: bool,
+                    planar: bool) -> dict:
+    """What the card makes of kernel B's launch for these arguments
+    (vt_warp_build_info): resident blocks per SM, registers and spill
+    bytes a thread, dynamic shared memory a block, blocks a pose, window
+    columns a block, whether it stages its input rows, threads a block."""
+    import ctypes
+    out = (ctypes.c_int * 8)()
+    kernels.check(kernels.lib("warp_build").vt_warp_build_info(
+        P, gi, win[0], win[1], int(f32), int(planar), out), "warp_build")
+    return dict(zip(("blocks_per_sm", "regs", "spill_bytes", "smem",
+                     "blocks_per_pose", "cols_per_block", "staged",
+                     "threads"), out))
+
+
+def build_extra_checks(torch, inter) -> None:
+    """Kernel B away from the production levels: a non-production window
+    (3 x 3, 2 x 5) on 3 poses of the (P, 4, gi, gi) intermediate ``inter``,
+    both table types and both input layouts, bit-equal to its plain
+    version."""
+    from volrend_torch.ops import display_warp
+    sub = inter[:3].contiguous()
+    ilv = sub.movedim(1, -1).contiguous()
+    for win, dt, (x, planar) in itertools.product(
+            ((3, 3), (2, 5)), (torch.int8, torch.float32),
+            ((sub, True), (ilv, False))):
+        if not torch.equal(
+                display_warp.build_table(x, win, dtype=dt, planar=planar),
+                display_warp.build_table_ref(x, win, dtype=dt,
+                                             planar=planar)):
+            fail(f"kernel B is not bit-equal to its plain version at "
+                 f"window {win}, {dt}, planar={planar}, 3 poses")
+    log(f"kernel B at windows (3, 3), (2, 5), both table types and layouts, "
+        f"{sub.shape[0]} poses of gi={sub.shape[-1]}: bit-equal")
 
 
 def psnr(a, b) -> float:
@@ -831,6 +872,7 @@ def precise_checks(torch, dev, inter, gargs, tr, cam, perm, stats):
     against autograd through the reference warp, and times its backward
     alone."""
     import torch.nn.functional as F
+    from volrend_torch import kernels
     from volrend_torch.ops import display_warp, slab_grad, slab_render
     bg = float(tr.opt.background_brightness)
     Wn = display_warp._PRECISE_WIN
@@ -865,6 +907,8 @@ def precise_checks(torch, dev, inter, gargs, tr, cam, perm, stats):
                                          KREPS)}
     stats["BF"]["bound_ms"], stats["BF"]["bound_by"] = bound(
         GI * GI * 4 * 4 + H3 * W3 * C * 4, 0)
+    log(f"kernel B-f32 [pose 0]: on the card "
+        f"{build_occupancy(kernels, 1, GI, Wn, True, False)}")
     del unf, itp, tbl_p
 
     # kernel C, f32 table (qscale 1, qshift 0) and f32 frame
@@ -1056,7 +1100,9 @@ def probe_phase(torch, dev, grid, opt, stats):
     and, apart, on the card and the host's issue), perf_sq3's
     s1 and s2, and perf_sq4's b0, b3 and b4 (b3 drives the interleaved
     build). Returns the numbers and the counts."""
+    import ctypes
     import torch.nn.functional as F
+    from volrend_torch import kernels
     from volrend_torch.ops import slab_march, slab_render
     from volrend_torch.probes import _common, perf_overlap, perf_sq3, \
         perf_sq4
@@ -1141,6 +1187,12 @@ def probe_phase(torch, dev, grid, opt, stats):
                 itp, gi, planar=p), KREPS)}
         stats[key]["bound_ms"], stats[key]["bound_by"] = bound(
             4 * gi * gi * 2 + Hp * n * 64 * 2, 0)
+    pinfo = (ctypes.c_int * 6)()
+    kernels.check(kernels.lib("probe_build").vt_probe_build_info(gi, pinfo),
+                  "probe_build")
+    log("P9 planar: on the card " + json.dumps(dict(zip(
+        ("blocks_per_sm", "regs", "spill_bytes", "smem", "staged",
+         "threads"), pinfo))))
     # library yardstick: ONE unfold of the planar image builds the same
     # cells (in unfold's channel order c*16 + cy*4 + cx)
     ilv = perf_sq4.build_probe_ref(itp, gi)
@@ -1746,7 +1798,10 @@ def main() -> None:
         tbl_p = display_warp.build_table_ref(inter, Wn)
         if not torch.equal(tbl_k, tbl_p):
             fail(f"kernel B is not bit-equal to its plain version at {tag}")
-        log(f"kernel B [{tag}]: table {tuple(tbl_k.shape)} bit-equal")
+        log(f"kernel B [{tag}]: table {tuple(tbl_k.shape)} bit-equal; on "
+            f"the card {build_occupancy(kernels, P, GI, Wn, False, True)}")
+        if time_it and P >= 3:
+            build_extra_checks(torch, inter)
 
         geom = (g.R, g.fx, g.fy, W, H, GI, perm, g.u0, g.du, g.v0, g.dv,
                 g.scale)

@@ -405,6 +405,43 @@ def test_wrappers_check_their_inputs(card):
         display_warp.build_table(inter.transpose(2, 3), (4, 4))
 
 
+def _build_input(P, gi, planar, seed):
+    """A (P, 4, gi, gi) or (P, gi, gi, 4) f32 intermediate with values
+    outside [0, 1] and exactly on the int8 code's rounding ties."""
+    a = np.random.default_rng(seed).uniform(
+        -0.2, 1.2, (P, 4, gi, gi)).astype(np.float32)
+    a[:, 0, :4, :4] = np.array([0.5, 1.5, 2.5, -0.3], np.float32) / 255.0
+    a[:, 1, :2, :2] = [[1.7, -2.0], [1.0, 0.0]]
+    a[:, 2, 1, :8] = (np.arange(8, dtype=np.float32) + 0.5) / 255.0
+    if not planar:
+        a = np.ascontiguousarray(np.moveaxis(a, 1, -1))
+    return torch.as_tensor(a)
+
+
+@pytest.mark.parametrize("gi", [37, 40])
+@pytest.mark.parametrize("P", [1, 3])
+@pytest.mark.parametrize("win", [(4, 4), (5, 5), (3, 3), (2, 5), (8, 8),
+                                 (56, 56)])
+@pytest.mark.parametrize("planar", [True, False])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float32])
+def test_build_table_matches_plain(card, dtype, planar, win, P, gi):
+    """Kernel B bit-equal to its plain version in both table types and
+    input layouts, at the production windows, others (spans that start
+    off 16-byte boundaries in int8; column chunks that end early) and a
+    window whose f32 stage does not fit shared memory (56 x 56 at gi =
+    61 and 64, read from global memory), on one and three poses."""
+    if win == (56, 56):
+        gi += 24
+    x = _build_input(P, gi, planar, 10 * gi + P)
+    counter = "launches_f32" if dtype == torch.float32 else "launches"
+    n0 = getattr(display_warp.build_table, counter)
+    got = display_warp.build_table(x.to(card), win, dtype=dtype,
+                                   planar=planar)
+    assert getattr(display_warp.build_table, counter) == n0 + 1
+    want = display_warp.build_table_ref(x, win, dtype=dtype, planar=planar)
+    assert torch.equal(got.cpu(), want)
+
+
 # ---------------------------------------------------------------------------
 # Training path: kernel M in its training mode and the backward kernel
 # ---------------------------------------------------------------------------
@@ -1086,10 +1123,13 @@ def test_probe_stream_matches_plain(card):
 
 
 @pytest.mark.parametrize("planar", [False, True])
-@pytest.mark.parametrize("gi", [35, 40])
+@pytest.mark.parametrize("gi", [35, 40, 61, 800])
 def test_probe_build_matches_plain(card, gi, planar):
     """P9 in both layouts, bit-equal to its plain version, padding rows
-    (gi = 40: 37 rows padded to 48) included."""
+    (gi = 40: 37 rows padded to 48; gi = 61: 58 rows padded to 64, so the
+    last 8-row tile of the planar build holds 2 window rows and 6 padding
+    rows) included; gi = 800's planar tiles do not fit shared memory and
+    are read from global memory."""
     from volrend_torch.probes import perf_sq4
     it = torch.as_tensor(np.random.default_rng(7).uniform(
         0.0, 1.0, (4, gi, gi)).astype(np.float32)).to(torch.bfloat16).to(

@@ -72,6 +72,8 @@ SOURCES = {
     "warp_build": ("warp_build.cu", {
         # inter, table, P, gi, Wy, Wx, table_f32, planar, stream
         "vt_warp_build": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # P, gi, Wy, Wx, table_f32, planar, out (int[8])
+        "vt_warp_build_info": [_I, _I, _I, _I, _I, _I, _P],
     }),
     "warp_combine": ("warp_combine.cu", {
         # table, Y0, X0, ry, rx, okm, out, out_u8, table_f32, generic, P,
@@ -109,6 +111,8 @@ SOURCES = {
     "probe_build": ("probe_build.cu", {
         # it, out, gi, Hp, planar, stream
         "vt_probe_build": [_P, _P, _I, _I, _I, _P],
+        # gi, out (int[6])
+        "vt_probe_build_info": [_I, _P],
     }),
 }
 
