@@ -40,12 +40,23 @@ Phases (any failure exits non-zero and prints no result):
    (perm, flip), RGBA8 output, gi=256 — launch counts reset just before and
    read just after, so every pose must have gone through kernels M and W
    (and the fit mode), none through kernels B and C or the reference
-   warp; median wall time of REPS runs and the peak device memory; then
+   warp; median wall time of REPS runs (each group's frames written with
+   a device index, so the host never waits for the card between groups)
+   and the peak device memory; then
    every frame against the parent's composition of the same path (the
    PyTorch geometry, B and C; ``parent_warp_to_screen_sq``) on the card,
    within one quantum, and the fit decisions against the parent's;
 5. the quality gate: orbit pose 0 against ``render_exact.render_rays`` at
-   stride 5 (>= 54 dB);
+   stride 5 (>= 54 dB); then (5b) steep poses through ``render_image``:
+   bench.py's steep pose (its boundary slope, 2.98, is below
+   MAX_SLAB_SLOPE, so it takes one slab axis) and the two poses of
+   tools/perf_split.py's sweep past the gate, which take the split-frame
+   class passes (unit slope box): each pass's kernel M and kernel W (or
+   the reference warp its fit counts give) against their plain versions
+   with their times, the counted first call (one M and one fit-mode launch
+   a pass, no B or C), REPS timed calls after it with the payload cache
+   filled, the peak memory of both, and the gate at stride 8 (>= 52 dB,
+   bench.py's steep floor);
 6. the measurement probes (``volrend_torch/probes/``) on the dense grid at
    their own width (800^2, gi=448, the 96 orbit poses): the tent-combine
    (P7), payload-stream (P8) and table-build (P9, both layouts) kernels
@@ -91,7 +102,23 @@ Phases (any failure exits non-zero and prints no result):
    as writing the bake in bf16 takes (the planar copy the kernels replaced);
 9. the recovery gate at G=128 (examples/train_slab_demo.py): corrupt the
    leaf rows, train 60 steps, PSNR must rise by more than 5 dB;
-10. one JSON line with every kernel's numbers, then the result line.
+10. bench.py's NDC (LLFF) scene (``get_ndc_tree``: depth 6, G=128 int8)
+    and pose (``ndc_pose``) through ``render_frame``: the pose on the NDC
+    z axis, kernel M on the NDC geometry and kernels B and C at every
+    usable level against their plain versions, the counted run (M, then B
+    and C at the pose's level: no kernel W, no fit mode, no reference
+    warp when the pose fits), REPS timed runs and the gate at stride 8
+    (>= 47.5 dB);
+11. frame training on the NDC scene (800^2, gi=256, 4 poses near the
+    bench's): kernel M's training mode and the backward kernel against
+    their plain versions on pose 0, then timed steps from corrupted leaves
+    with the precise warp's switch off and on (each step one launch of BK,
+    the bits-mode occupancy, M and M-bwd, and with the switch on of B-f32,
+    C-f32, 5 and 6 for every pose that fits; no plain version); pose 0's
+    loss must fall;
+12. one JSON line with every kernel's numbers (kernels B's and C's
+    launches from phase 10's run, the display path that takes them), then
+    the result line.
 """
 
 import contextlib
@@ -113,7 +140,13 @@ N_POSES = 200
 N_POSES_SPARSE = 96
 FLOOR_ORBIT = 54.0
 FLOOR_SPARSE = 47.5
+FLOOR_STEEP = 52.0      # bench.py's steep gate (gate_steep)
+FLOOR_NDC = 47.5        # bench.py's NDC gate
+NDC_DEPTH = 6           # bench.py get_ndc_tree: G=128
+NDC_FOCAL = 1111.11
+NDC_TRAIN_POSES = 4
 CACHE_SPARSE = os.path.join(HERE, ".torch_bench_sparse_cache.npz")
+CACHE_NDC = os.path.join(HERE, ".torch_bench_ndc_cache.npz")
 CACHE_TRAIN = os.path.join(HERE, ".torch_bench_train_cache.npz")
 CACHE_DEMO = os.path.join(HERE, ".torch_train_demo_cache.npz")
 TRAIN_LR = 5e-2
@@ -808,11 +841,13 @@ def timed_steps(torch, tr, cams, tgt, tag):
     """TRAIN_WARM untimed steps per pose, then TRAIN_STEPS synced and
     TRAIN_STEPS ``sync=False`` steps per pose with the launch counts reset
     just before and read just after, and the peak device memory over the
-    timed steps."""
+    timed steps. ``tgt``: one target for every pose, or a list of one a
+    pose."""
     from volrend_torch.ops import (display_warp, slab_grad, slab_march,
                                    slab_render)
+    tgts = tgt if isinstance(tgt, list) else [tgt] * len(cams)
     for s in range(TRAIN_WARM * len(cams)):
-        tr.step_frame(cams[s % len(cams)], tgt)
+        tr.step_frame(cams[s % len(cams)], tgts[s % len(cams)])
     torch.cuda.synchronize()
     plain_calls = count_plain_calls()
     slab_grad.bake_from_pyramid.launches = 0
@@ -830,13 +865,14 @@ def timed_steps(torch, tr, cams, tgt, tag):
     synced = []
     for s in range(n):
         t0 = time.perf_counter()
-        loss = tr.step_frame(cams[s % len(cams)], tgt)
+        loss = tr.step_frame(cams[s % len(cams)], tgts[s % len(cams)])
         synced.append((time.perf_counter() - t0) * 1e3)
         if not np.isfinite(loss):
             fail(f"{tag}: non-finite loss at step {s}")
     t0 = time.perf_counter()
     for s in range(n):
-        loss_t = tr.step_frame(cams[s % len(cams)], tgt, sync=False)
+        loss_t = tr.step_frame(cams[s % len(cams)], tgts[s % len(cams)],
+                               sync=False)
     last = float(loss_t)
     pipelined = (time.perf_counter() - t0) * 1e3 / n
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -859,7 +895,7 @@ def timed_steps(torch, tr, cams, tgt, tag):
         f"ms/step synced (steps {synced}), {pipelined:.3f} ms/step with "
         f"sync=False; peak {peak:.3f} GiB allocated; last loss {last:.6f}")
     return {"steps": 2 * n, "counts": counts, "ms_synced": ms_synced,
-            "ms_pipelined": pipelined, "peak_gib": peak}
+            "ms_pipelined": pipelined, "peak_gib": peak, "last_loss": last}
 
 
 def precise_checks(torch, dev, inter, gargs, tr, cam, perm, stats):
@@ -1350,13 +1386,17 @@ def warp_stage_turns(torch, tag, inter, geom, levels, P, B_, Wn, bg):
 def parent_warp_to_screen_sq(torch, choices, inter, opt, R, fx, fy,
                              width, height, gi, perm, u0, du, v0, dv,
                              scale, block=None, out_dtype=None,
-                             planar=False, plan=None):
+                             planar=False, plan=None, ndc=None, origin=None):
     """The parent commit's display warp (display_warp.warp_to_screen_sq
     before kernel W): the fit predicates in PyTorch read on the host, then
     per level the PyTorch geometry, kernel B's int8 table, kernel C and an
     index-put of the frames; the misfit poses through the reference warp.
     ``plan`` is not read; each batch's per-pose level goes to
-    ``choices``."""
+    ``choices``. World trees only (the main path's; ``origin`` is not
+    read)."""
+    if ndc is not None:
+        fail("parent_warp_to_screen_sq: the parent's warp is compared on "
+             "world trees only")
     from volrend_torch.ops import display_warp as dw
     from volrend_torch.ops import slab_render
     from volrend_torch.probes._common import mean_fits, table_warp_level
@@ -1510,6 +1550,479 @@ def recovery_gate(torch, dev, topt):
             "recovery_loss_last": losses[-1]}
 
 
+def reset_counts():
+    """Set the display path's launch counts to 0 (and the reference warp's
+    pose count)."""
+    from volrend_torch.ops import display_warp, slab_march, slab_render
+    slab_march.march_slabs.launches = 0
+    slab_march.march_slabs.poses = 0
+    display_warp.build_table.launches = 0
+    display_warp.combine_emit.launches = 0
+    display_warp.combine_emit.poses = 0
+    display_warp.warp_display.launches = 0
+    display_warp.warp_display.poses = 0
+    display_warp.level_fit_counts.launches = 0
+    slab_render._warp_to_screen_ref.poses = 0
+
+
+def read_counts() -> dict:
+    from volrend_torch.ops import display_warp, slab_march, slab_render
+    return dict(
+        march=slab_march.march_slabs.launches,
+        march_poses=slab_march.march_slabs.poses,
+        warp=display_warp.warp_display.launches,
+        warp_poses=display_warp.warp_display.poses,
+        fit=display_warp.level_fit_counts.launches,
+        build=display_warp.build_table.launches,
+        combine=display_warp.combine_emit.launches,
+        combine_poses=display_warp.combine_emit.poses,
+        ref_warp_poses=slab_render._warp_to_screen_ref.poses)
+
+
+def timed_reps(torch, fn):
+    """fn() REPS times after one warm call: (median device ms by CUDA
+    events, the host seconds of each run, peak GiB allocated over them)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ts = []
+    for _ in range(REPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append((a.elapsed_time(b), time.perf_counter() - t0))
+    return (float(np.median([x[0] for x in ts])), [x[1] for x in ts],
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def bench_steep_pose(Camera):
+    """bench.py steep_pose (its gate_steep, floor 52 dB)."""
+    back = np.asarray([np.cos(1.2), 0.2, np.sin(1.2)])
+    back /= np.linalg.norm(back)
+    return Camera.from_vectors(center=tuple(1.35 * back), v_back=tuple(back),
+                               v_world_up=(0.0, 1.0, 0.0), width=W,
+                               height=H, fx=420.0)
+
+
+def split_sweep_poses(Camera):
+    """The poses of tools/perf_split.py's elevation sweep (radius 1.35,
+    fx 420, back ~ (cos e, 0.2, sin e)) past the single-axis gate: e = 0.5
+    (boundary slope ~5.1) and e = 0.9 (~42), three class passes each."""
+    cams = []
+    for elev in (0.5, 0.9):
+        back = np.asarray([np.cos(elev), 0.2, np.sin(elev)])
+        back /= np.linalg.norm(back)
+        cams.append(Camera.from_vectors(
+            center=tuple(1.35 * back), v_back=tuple(back),
+            v_world_up=(0.0, 1.0, 0.0), width=W, height=H, fx=420.0))
+    return cams
+
+
+def display_march_check(torch, tag, grid, opt, pay, g, perm, flip, crop,
+                        stats):
+    """Kernel M's display mode on one pose batch's geometry ``g`` against
+    its plain version (freeze_flip_check); returns (acc4, run_m)."""
+    from volrend_torch.ops import slab_march, slab_render
+    params, zb = slab_render._march_frame_fields(grid, g, perm, flip, opt)
+    slab_ids = grid.slab_ids(perm[0], flip, opt.sigma_thresh)
+    m = slab_march.march_inputs(pay, params, zb, grid.G, GI, slab_ids,
+                                slab_march._K_STEP, crop)
+
+    def run_m():
+        return slab_march.march_slabs(
+            pay, params, grid.qscale, zb, grid.G, GI, grid.data_dim,
+            grid.basis_dim, perm, slab_ids=slab_ids, sig2=True, flip=flip,
+            bbox_full=True, dir_win=True, k_per_step=slab_march._K_STEP,
+            crop=crop)
+
+    acc_k = run_m()
+    torch.cuda.synchronize()
+    acc_p, _ = timed_once(torch, lambda: slab_march.march_slabs_ref(
+        pay, grid.qscale, D=grid.data_dim, bd=grid.basis_dim, flip=flip,
+        **m))
+    err, _, _ = freeze_flip_check(
+        torch, f"{tag}, crop {crop}, {len(slab_ids)} slabs", acc_k, acc_p,
+        float(opt.stop_thresh))
+    stats["M"]["max_abs_err"] = max(stats["M"]["max_abs_err"], err)
+    return acc_k, run_m
+
+
+def split_pass_check(torch, grid, opt, cam, axis, flip, stats):
+    """One class pass of the steep pose (unit slope box, perm (axis,
+    axis+1, axis+2)): kernel M against its plain version, the fit counts
+    of kernel W's fit mode against theirs and the level the pass takes,
+    and at that level kernel W against its plain version; their times."""
+    from volrend_torch.ops import display_warp, slab_render
+    perm = (axis, (axis + 1) % 3, (axis + 2) % 3)
+    tag = f"steep pass {perm}/{flip}"
+    crop = slab_render.inplane_crop(grid, perm, float(opt.sigma_thresh))
+    pay = slab_render.prepare_payload(grid, perm, opt)
+    g = slab_render.FrameGeom(grid, cam.transform, cam.fx, cam.fy, perm,
+                              flip, W, H, opt, GI, unit_slope_box=True)
+    acc, run_m = display_march_check(torch, tag, grid, opt, pay, g, perm,
+                                     flip, crop, stats)
+    inter = slab_render._finalize_planar(acc, opt).contiguous()
+    prm = display_warp.display_params(g.R, g.fx, g.fy, g.u0, g.du, g.v0,
+                                      g.dv, g.scale, perm)
+    levels = display_warp._usable_levels(W, H, GI)
+    cnt = display_warp.level_fit_counts(prm, levels, GI, H, W)
+    if not torch.equal(cnt, display_warp.level_fit_counts_ref(
+            prm, levels, GI, H, W)):
+        fail(f"{tag}: kernel W's fit counts differ from their plain version")
+    fits = display_warp._fits_from_counts(cnt.cpu(), levels, H,
+                                          W).numpy()[:, 0]
+    level = int(np.argmax(fits)) if fits.any() else -1
+    res = {"perm": perm, "flip": flip, "crop": crop,
+           "misfit_blocks": cnt[:, 0].tolist(),
+           "warp": (str(levels[level]) if level >= 0
+                    else "reference warp"),
+           "m_ms": cuda_ms(torch, run_m, KREPS)}
+    if level >= 0:
+        B, Wn = levels[level]
+        sel = torch.zeros(1, dtype=torch.int32, device=inter.device)
+        bgv = float(opt.background_brightness)
+
+        def run_w(od=torch.uint8, fn=display_warp.warp_display):
+            out = torch.empty((1, H, W, 4), dtype=od, device=inter.device)
+            return fn(inter, prm, sel, out, B, Wn, GI, bgv)
+
+        for od, tol in ((torch.uint8, TOL_C_U8), (torch.float32, TOL_C_F32)):
+            a = run_w(od)
+            b = run_w(od, display_warp.warp_display_ref)
+            err = float((a.float() - b.float()).abs().max())
+            if not (np.isfinite(err) and err <= tol):
+                fail(f"{tag}: kernel W disagrees with its plain version "
+                     f"({od}: {err})")
+            if od == torch.float32:
+                stats["W"]["max_abs_err"] = max(stats["W"]["max_abs_err"],
+                                                err)
+            res[f"w_err_{'u8' if od == torch.uint8 else 'f32'}"] = err
+        res["w_ms"] = cuda_ms(torch, run_w, KREPS)
+    log(f"{tag}: {json.dumps(res)}")
+    del pay, acc, inter
+    return res
+
+
+def steep_pose_run(torch, tdev, grid, opt, stats, gate, tag, cam):
+    """One steep pose through render_image (RGBA8, gi=256): its route (the
+    split-frame class passes past MAX_SLAB_SLOPE, else one slab axis), for
+    a split frame each class pass's kernels against their plain versions,
+    the counted first call, REPS timed calls after it with the payload
+    cache filled, the peak memory of both and the gate at stride 8
+    (>= FLOOR_STEEP)."""
+    from volrend_torch.ops import slab_render
+    _, _, slope = slab_render.choose_axis(grid, cam.transform, cam.fx,
+                                          cam.fy, W, H)
+    split = not (np.isfinite(slope) and slope < slab_render.MAX_SLAB_SLOPE)
+    classes = (slab_render.split_classes(grid, cam.transform, cam.fx,
+                                         cam.fy, W, H) if split else ())
+    log(f"{tag}: slope {slope}; "
+        + (f"split frame, {len(classes)} class passes {classes}" if split
+           else "below MAX_SLAB_SLOPE: one slab axis"))
+    passes = [split_pass_check(torch, grid, opt, cam, a, f, stats)
+              for a, f in classes]
+    torch.cuda.empty_cache()
+    cache = {}
+
+    def run():
+        return slab_render.render_image(grid, cam, opt, gi=GI,
+                                        payload_cache=cache,
+                                        out_dtype=torch.uint8)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    frame = run()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    first_peak = torch.cuda.max_memory_allocated() / 2**30
+    n = max(len(classes), 1)
+    n_ref = sum(p["warp"] == "reference warp" for p in passes)
+    log(f"{tag}: counts {counts} (first call, payloads built: peak "
+        f"{first_peak:.3f} GiB allocated; cache {sorted(cache)})")
+    if (counts["march"], counts["march_poses"], counts["fit"]) != (n, n, n):
+        fail(f"{tag}: not one launch of kernel M and of the fit mode a pass "
+             f"({counts})")
+    if split and (counts["warp_poses"],
+                  counts["ref_warp_poses"]) != (n - n_ref, n_ref):
+        fail(f"{tag}: the passes did not take the warps their fit counts "
+             f"gave ({counts}; {n_ref} reference-warp passes)")
+    if counts["warp_poses"] + counts["ref_warp_poses"] != n:
+        fail(f"{tag}: a pass was not warped once ({counts})")
+    if counts["build"] or counts["combine"]:
+        fail(f"{tag}: kernels B or C ran ({counts})")
+    ms, host_s, peak = timed_reps(torch, run)
+    log(f"{tag}: render_image {ms:.3f} ms median of {REPS} (host s "
+        f"{host_s}), peak {peak:.3f} GiB allocated")
+    if frame.shape != (H, W, 4) or frame.dtype != np.uint8:
+        fail(f"{tag}: frame {frame.shape} {frame.dtype}")
+    p = gate(tag, tdev, cam, torch.as_tensor(frame, device=grid.device), 8,
+             FLOOR_STEEP)
+    del cache
+    torch.cuda.empty_cache()
+    return {"slope": slope, "split": split, "classes": classes, "ms": ms,
+            "host_s": host_s, "peak_gib": peak, "first_peak_gib": first_peak,
+            "counts": counts, "passes": passes, "psnr_db": p}
+
+
+def steep_phase(torch, tdev, grid, opt, stats, gate):
+    """Phase 5b: bench.py's steep pose, then the split-frame route at full
+    width on tools/perf_split.py's sweep poses past the gate (bench.py's
+    steep pose has a boundary slope below MAX_SLAB_SLOPE, so render_image
+    takes one slab axis for it, in both packages)."""
+    from volrend_torch.ops.camera import Camera
+    out = {"steep_bench": steep_pose_run(torch, tdev, grid, opt, stats, gate,
+                                         "steep (bench.py)",
+                                         bench_steep_pose(Camera))}
+    for i, cam in enumerate(split_sweep_poses(Camera)):
+        r = steep_pose_run(torch, tdev, grid, opt, stats, gate,
+                           f"steep split {i}", cam)
+        if not r["split"]:
+            fail(f"steep split {i}: the pose is not past the gate")
+        out[f"steep_split_{i}"] = r
+    return out
+
+
+def ndc_tree():
+    """bench.py get_ndc_tree: the depth-6 SH16 fog with the LLFF sidecar
+    NdcConfig(800, 800, 1111.11) (restored after a cache load: the npz
+    holds the scene arrays only)."""
+    from volrend_torch.models.n3tree import NdcConfig
+    from volrend_torch.models.synthetic import make_test_tree
+    from volrend_torch.probes import _common
+    tree = _common.load_tree(CACHE_NDC, lambda: make_test_tree(
+        max_depth=NDC_DEPTH, basis_dim=BASIS_DIM, seed=4, n_blobs=6,
+        sigma_scale=60.0))
+    tree.use_ndc = True
+    tree.ndc = NdcConfig(width=float(W), height=float(H), focal=NDC_FOCAL)
+    return tree
+
+
+def bench_ndc_pose(Camera, center=(0.0, 0.0, 0.2), back=(0.05, 0.02, 1.0)):
+    """bench.py ndc_pose (and poses near it)."""
+    return Camera.from_vectors(center=center, v_back=back,
+                               v_world_up=(0.0, 1.0, 0.0), width=W,
+                               height=H, fx=NDC_FOCAL)
+
+
+def ndc_phase(torch, dev, opt, stats, gate):
+    """Phase 10: bench.py's NDC scene and pose through render_frame
+    (RGBA8, gi=256): kernel M on the NDC geometry, kernel B's int8 table
+    and kernel C at every usable level against their plain versions, the
+    counted run (M, then B and C at the pose's level: no kernel W, no fit
+    mode), REPS timed runs and the PSNR gate. Returns (summary, tree)."""
+    from volrend_torch.ops import dense_grid, display_warp, slab_render
+    from volrend_torch.ops.camera import Camera
+    t = time.perf_counter()
+    tree = ndc_tree()
+    tdev = tree.to_device(lut_depth=None, device=dev)
+    grid = dense_grid.bake_dense(tdev, dtype="int8")
+    torch.cuda.synchronize()
+    log(f"ndc: tree, upload and int8 bake G={grid.G} in "
+        f"{time.perf_counter() - t:.1f} s; sidecar {grid.ndc}")
+    cam = bench_ndc_pose(Camera)
+    perm, flip, slope = slab_render.choose_axis(grid, cam.transform, cam.fx,
+                                                cam.fy, W, H)
+    log(f"ndc: pose group {perm}/{flip}, slope {slope}")
+    if perm[0] != 2 or not (np.isfinite(slope)
+                            and slope < slab_render.MAX_SLAB_SLOPE):
+        fail(f"ndc: the bench's NDC pose is not slab-renderable on the NDC "
+             f"z axis ({perm}, {slope})")
+    crop = slab_render.inplane_crop(grid, perm, float(opt.sigma_thresh))
+    pay = slab_render.prepare_payload(grid, perm, opt)
+    g = slab_render.FrameGeom(grid, cam.transform, cam.fx, cam.fy, perm,
+                              flip, W, H, opt, GI)
+    acc, run_m = display_march_check(torch, "ndc pose", grid, opt, pay, g,
+                                     perm, flip, crop, stats)
+    inter = slab_render._finalize_planar(acc, opt).contiguous()
+    geom = (g.R, g.fx, g.fy, W, H, GI, perm, g.u0, g.du, g.v0, g.dv,
+            g.scale, grid.ndc, g.origin_w)
+    plan = display_warp.plan_fits(*geom[:12], ndc=grid.ndc,
+                                  origin=g.origin_w)
+    level = int(plan.choice()[0])
+    bgv = float(opt.background_brightness)
+    res = {"perm": perm, "flip": flip, "slope": slope, "crop": crop,
+           "misfit_blocks": plan.counts()[:, 0].tolist(),
+           "warp": (str(plan.levels[level]) if level >= 0
+                    else "reference warp"),
+           "m_ms": cuda_ms(torch, run_m, KREPS)}
+    for li, (B, Wn) in enumerate(plan.levels):
+        tbl = display_warp.build_table(inter, Wn)
+        if not torch.equal(tbl, display_warp.build_table_ref(inter, Wn)):
+            fail(f"ndc: kernel B is not bit-equal to its plain version at "
+                 f"{(B, Wn)}")
+        gys, gxs, okm, Y0, X0 = display_warp._level_geometry(geom, GI, B, Wn)
+        cargs = (tbl, Y0.contiguous(), X0.contiguous(),
+                 (gys - Y0.float()[:, None]).contiguous(),
+                 (gxs - X0.float()[:, None]).contiguous(), okm.contiguous(),
+                 GI, H, W, B, Wn, bgv)
+        for od, tol in ((torch.uint8, TOL_C_U8), (None, TOL_C_F32)):
+            a = display_warp.combine_emit(*cargs, out_dtype=od)
+            b = display_warp.combine_emit_ref(*cargs, out_dtype=od)
+            err = float((a.float() - b.float()).abs().max())
+            if not (np.isfinite(err) and err <= tol):
+                fail(f"ndc: kernel C disagrees with its plain version at "
+                     f"{(B, Wn)} ({od}: {err})")
+            if od is None:
+                stats["C"]["max_abs_err"] = max(stats["C"]["max_abs_err"],
+                                                err)
+        if li == level:
+            res["b_ms"] = cuda_ms(torch, lambda: display_warp.build_table(
+                inter, Wn), KREPS)
+            res["c_ms"] = cuda_ms(torch, lambda: display_warp.combine_emit(
+                *cargs, out_dtype=torch.uint8), KREPS)
+        del tbl, gys, gxs, okm, Y0, X0, cargs
+    log(f"ndc kernels: M, B (bit-equal) and C at levels {plan.levels} "
+        f"against their plain versions; {json.dumps(res)}")
+    del acc, inter
+
+    def run():
+        return slab_render.render_frame(
+            grid, cam.transform, cam.fx, cam.fy, perm, flip, W, H, opt, GI,
+            payload=pay, out_dtype=torch.uint8)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    frame = run()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    fits = level >= 0
+    want = dict(march=1, march_poses=1, warp=0, warp_poses=0, fit=0,
+                build=int(fits), combine=int(fits), combine_poses=int(fits),
+                ref_warp_poses=int(not fits))
+    log(f"ndc: counts {counts}")
+    if counts != want:
+        fail(f"ndc: the path's launches {counts}, not {want}")
+    ms, host_s, peak = timed_reps(torch, run)
+    log(f"ndc: render_frame {ms:.3f} ms median of {REPS} (host s {host_s}), "
+        f"peak {peak:.3f} GiB allocated")
+    if tuple(frame.shape) != (H, W, 4):
+        fail(f"ndc: frame of shape {tuple(frame.shape)}")
+    p = gate("ndc", tdev, cam, frame, 8, FLOOR_NDC)
+    del grid, tdev, pay, frame
+    torch.cuda.empty_cache()
+    return ({"ndc_ms": ms, "ndc_host_s": host_s, "ndc_peak_gib": peak,
+             "ndc_counts": counts, "ndc_kernels": res, "psnr_ndc_db": p},
+            tree)
+
+
+def ndc_train_phase(torch, dev, tree, stats):
+    """Phase 11: FrameTrainer on the NDC scene (800^2, gi=256) over
+    NDC_TRAIN_POSES poses near the bench's: kernel M's training mode and
+    the backward kernel against their plain versions on pose 0, then from
+    corrupted leaves (as the recovery gate corrupts them) timed steps with
+    the precise warp's switch off and on, each from the same start: the
+    launch counts, and pose 0's loss must fall."""
+    from volrend_torch import train
+    from volrend_torch.ops import display_warp, slab_grad, slab_render
+    from volrend_torch.ops.camera import Camera
+    from volrend_torch.utils.options import RenderOptions
+    topt = RenderOptions(max_steps=1024)
+    t = time.perf_counter()
+    tdev = tree.to_device(lut_depth=None, device=dev)
+    tr = train.FrameTrainer(tdev, opt=topt, lr=TRAIN_LR, gi=GI)
+    torch.cuda.synchronize()
+    G, D, bd = tr.grid.G, tr.grid.data_dim, tr.grid.basis_dim
+    log(f"ndc train: FrameTrainer G={G} SH{bd} in "
+        f"{time.perf_counter() - t:.1f} s")
+    cams = [bench_ndc_pose(Camera, center=(0.02 * i, -0.01 * i,
+                                           0.2 + 0.03 * i),
+                           back=(0.05 - 0.02 * i, 0.02 + 0.01 * i, 1.0))
+            for i in range(NDC_TRAIN_POSES)]
+    groups = [tr._group(c) for c in cams]
+    perm, flip = groups[0]
+    log(f"ndc train: pose groups {groups}")
+
+    # ---- kernel M's training mode and the backward kernel on pose 0 -------
+    bake, live = slab_grad.bake_from_pyramid(
+        tuple(p.detach().float() for p in tr.pyramid), tr.bmap,
+        live_thresh=topt.sigma_thresh)
+    geom = slab_render.FrameGeom(tr.grid, cams[0].transform, cams[0].fx,
+                                 cams[0].fy, perm, flip, W, H, tr.opt, GI)
+    ids = tuple(range(G - 1, -1, -1) if flip else range(G))
+    cfg = slab_grad.SlabCfg(G=G, gi=GI, D=D, bd=bd, fmt=int(tr.grid.fmt),
+                            perm=perm, flip=flip, ids=ids, opt=tr.opt)
+    params = slab_grad._pack_geom_params(geom, cfg, 1.0 / geom.scale)
+    zb = torch.stack([geom.z_lo_pix, geom.z_hi_pix], 1)
+    gacc4 = torch.as_tensor(np.random.default_rng(0).normal(
+        size=(4, GI, GI)).astype(np.float32), device=dev)
+    res = train_kernel_checks(torch, dev,
+                              bake.permute(perm[0], 3, perm[1], perm[2]),
+                              params, zb, gacc4, ids, cfg,
+                              float(topt.stop_thresh), live)
+    kern = {k: res[k] for k in ("MT", "MB", "MO")}
+    log(f"ndc train kernels: M (training mode) {json.dumps(kern['MT'])}; "
+        f"M-bwd {json.dumps(kern['MB'])}")
+    del bake, live, res
+
+    # ---- targets from the clean leaves, then corrupted leaves -------------
+    def render(i):
+        with torch.no_grad():
+            c = cams[i]
+            return slab_grad.render_frame_train(
+                tr.pyramid, tr.bmap, tr.grid, c.transform, c.fx, c.fy,
+                *groups[i], W, H, tr.opt, gi=GI)
+
+    tgts = [render(i) for i in range(len(cams))]
+    data = tr.data
+    data[:, :D - 1] *= 0.15
+    data[:, D - 1] *= torch.as_tensor(np.random.default_rng(0).uniform(
+        0.6, 1.4, data.shape[0]).astype(np.float32), device=dev)
+    bad = data.clone()
+
+    def loss0():
+        return float(slab_grad.loss_and_grad_frame(
+            tr.pyramid, tr.bmap, tr.grid, cams[0].transform, cams[0].fx,
+            cams[0].fy, *groups[0], W, H, tgts[0], tr.opt, gi=GI)[0])
+
+    out = {"ndc_train_kernels": kern, "ndc_train_G": G}
+    fits = [bool(slab_grad._precise_fits_host(
+        tr.grid, c.transform, c.fx, c.fy, groups[i][0], W, H, GI)[0])
+        for i, c in enumerate(cams)]
+    log(f"ndc train: the precise warp's fit predicate per pose {fits}")
+    for switch in (False, True):
+        tag = f"ndc train (precise warp {'on' if switch else 'off'})"
+        tr.data = bad.clone()
+        tr.opt_state = tr.optimizer.init(tr.pyramid)
+        before = loss0()
+        display_warp._PRECISE_SQ = switch
+        try:
+            r = timed_steps(torch, tr, cams, tgts, tag)
+        finally:
+            display_warp._PRECISE_SQ = False
+        after = loss0()
+        c, n = r["counts"], r["steps"]
+        n_fit = sum(fits[s % len(cams)]
+                    for s in range(TRAIN_STEPS * len(cams))) * 2
+        log(f"{tag}: pose 0's loss {before:.6f} -> {after:.6f}")
+        if not (np.isfinite(after) and after < before):
+            fail(f"{tag}: pose 0's loss did not fall ({before} -> {after})")
+        if (c["march"] != n or c["march_bwd"] != n or c["bake"] != n
+                or c["occupancy_live"] != n or c["occupancy"]
+                or sum(c["plain"].values())):
+            fail(f"{tag}: a step did not run exactly one launch of the "
+                 f"bake kernel, kernels M and M-bwd and the occupancy's "
+                 f"bits mode, and no plain version ({c})")
+        precise = ((n_fit, n_fit, n_fit, n_fit, n - n_fit) if switch
+                   else (0, 0, 0, 0, n))
+        if (c["build_f32"], c["combine_f32"], c["combine_adj"],
+                c["build_adj"], c["ref_warp_poses"]) != precise:
+            fail(f"{tag}: the precise warp's launches or the reference "
+                 f"warp's poses are not {precise} ({c})")
+        key = "ndc_train_precise" if switch else "ndc_train"
+        out.update({f"{key}_ms_synced": r["ms_synced"],
+                    f"{key}_ms_pipelined": r["ms_pipelined"],
+                    f"{key}_peak_gib": r["peak_gib"],
+                    f"{key}_counts": c, f"{key}_loss0": [before, after]})
+    del tr, tdev, tgts, data, bad
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1568,8 +2081,12 @@ def main() -> None:
         for perm, _ in groups:
             if perm not in pays:
                 pays[perm] = slab_render.prepare_payload(grid, perm, opt)
-        trs = {k: torch.as_tensor(np.stack([cams[i].transform for i in v]),
-                                  dtype=torch.float32, device=dev)
+        # each group's transforms and its frames' indices, on the card: an
+        # index from a host list would be copied from pageable memory,
+        # which waits for the work queued before it
+        trs = {k: (torch.as_tensor(np.stack([cams[i].transform for i in v]),
+                                   dtype=torch.float32, device=dev),
+                   torch.as_tensor(v, dtype=torch.int64, device=dev))
                for k, v in groups.items()}
         return groups, pays, trs
 
@@ -1577,34 +2094,12 @@ def main() -> None:
         fx, fy = cams[0].fx, cams[0].fy
         out = torch.empty((len(cams), H, W, 4), dtype=torch.uint8,
                           device=dev)
-        for (perm, flip), idx in groups.items():
+        for perm, flip in groups:
+            tr, idx = trs[(perm, flip)]
             out[idx] = slab_render.render_frames(
-                grid, trs[(perm, flip)], fx, fy, perm, flip, W, H, opt,
-                gi=GI, payload=pays[perm], out_dtype=torch.uint8)
+                grid, tr, fx, fy, perm, flip, W, H, opt, gi=GI,
+                payload=pays[perm], out_dtype=torch.uint8)
         return out
-
-    def reset_counts():
-        slab_march.march_slabs.launches = 0
-        slab_march.march_slabs.poses = 0
-        display_warp.build_table.launches = 0
-        display_warp.combine_emit.launches = 0
-        display_warp.combine_emit.poses = 0
-        display_warp.warp_display.launches = 0
-        display_warp.warp_display.poses = 0
-        display_warp.level_fit_counts.launches = 0
-        slab_render._warp_to_screen_ref.poses = 0
-
-    def read_counts():
-        return dict(
-            march=slab_march.march_slabs.launches,
-            march_poses=slab_march.march_slabs.poses,
-            warp=display_warp.warp_display.launches,
-            warp_poses=display_warp.warp_display.poses,
-            fit=display_warp.level_fit_counts.launches,
-            build=display_warp.build_table.launches,
-            combine=display_warp.combine_emit.launches,
-            combine_poses=display_warp.combine_emit.poses,
-            ref_warp_poses=slab_render._warp_to_screen_ref.poses)
 
     def main_path(tag, grid, cams, groups, pays, trs):
         """One counted run, then REPS timed runs; returns (counts, frames,
@@ -1998,6 +2493,9 @@ def main() -> None:
     del frames, pays, trs
     torch.cuda.empty_cache()
 
+    # ---- 5b. the steep pose: split-frame class passes ----------------------
+    steep = steep_phase(torch, tdev, grid, opt, stats, gate)
+
     # ---- 6. the measurement probes, on the dense grid ----------------------
     probe = probe_phase(torch, dev, grid, opt, stats)
     del grid, tdev
@@ -2044,7 +2542,12 @@ def main() -> None:
     # ---- 8-9. training ------------------------------------------------------
     tsum = train_phase(torch, dev, stats)
 
-    # ---- 10. result ---------------------------------------------------------
+    # ---- 10-11. the NDC scene: display, then frame training ----------------
+    ndc, ndc_tree_ = ndc_phase(torch, dev, opt, stats, gate)
+    ndc.update(ndc_train_phase(torch, dev, ndc_tree_, stats))
+    del ndc_tree_
+
+    # ---- 12. result ---------------------------------------------------------
     summary = {"card": card, "m_launches": stats.get("M_launches"),
                "warp_stage": stats.get("warp_stage"),
                "dense_mrays": mrays, "dense_ms": ms,
@@ -2055,16 +2558,17 @@ def main() -> None:
                "psnr_orbit_db": p_orbit, "psnr_sparse_db": p_sparse,
                "dense_counts": counts, "sparse_counts": scounts,
                "train_lean_kernels": stats.get("train_lean_kernels"), **tsum,
-               **probe, "seconds": time.perf_counter() - _T0}
+               **probe, **steep, **ndc, "seconds": time.perf_counter() - _T0}
     log(f"summary {json.dumps(summary)}")
     spec = (
         ("M", "slab_march_display",
          "volrend_torch/csrc/slab_march_display.cu",
          "volrend_tpu/ops/pallas_slab.py:344", counts["march"]),
         ("B", "warp_build", "volrend_torch/csrc/warp_build.cu",
-         "volrend_tpu/ops/display_warp.py:139", counts["build"]),
+         "volrend_tpu/ops/display_warp.py:139", ndc["ndc_counts"]["build"]),
         ("C", "warp_combine", "volrend_torch/csrc/warp_combine.cu",
-         "volrend_tpu/ops/display_warp.py:228", counts["combine"]),
+         "volrend_tpu/ops/display_warp.py:228",
+         ndc["ndc_counts"]["combine"]),
         ("W", "warp_display", "volrend_torch/csrc/warp_display.cu",
          "volrend_tpu/ops/display_warp.py:228", counts["warp"]),
         ("WF", "warp_display_fit", "volrend_torch/csrc/warp_display.cu",

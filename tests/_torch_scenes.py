@@ -62,6 +62,33 @@ def scene(kind: str = "dense", basis_dim: int = 4, dtype: str = "int8"):
             j_dense.bake_dense(jdev, dtype=dtype))
 
 
+@functools.lru_cache(maxsize=None)
+def ndc_scene(dtype: str = "int8", seed: int = 4, sigma_scale: float = 60.0,
+              ndc=(800.0, 800.0, 1111.0)):
+    """(port TreeArrays, port DenseGrid, reference TreeArrays, reference
+    DenseGrid) of an NDC (LLFF) scene, the reference's NDC test tree
+    (test_slab_render.py's ``ndc_scene``) with its ``NdcConfig``."""
+    from volrend_torch.models.n3tree import NdcConfig as TNdc
+    from volrend_tpu.models.n3tree import NdcConfig as JNdc
+    kw = dict(max_depth=3, basis_dim=4, seed=seed, sigma_scale=sigma_scale)
+    tt, jt = t_synth.make_test_tree(**kw), j_synth.make_test_tree(**kw)
+    for t, cfg in ((tt, TNdc), (jt, JNdc)):
+        t.use_ndc = True
+        t.ndc = cfg(width=ndc[0], height=ndc[1], focal=ndc[2])
+    tdev = tt.to_device(lut_depth=None, device=CPU)
+    jdev = jt.to_device(lut_depth=None)
+    return (tdev, t_dense.bake_dense(tdev, dtype=dtype), jdev,
+            j_dense.bake_dense(jdev, dtype=dtype))
+
+
+def ndc_cam(center=(0.0, 0.0, 0.2), back=(0.05, 0.02, 1.0), width=48,
+            height=48, fx=52.0):
+    """The reference's NDC test pose (test_slab_render.py make_ndc_cam)."""
+    return Camera.from_vectors(center=center, v_back=back,
+                               v_world_up=(0.0, 1.0, 0.0), width=width,
+                               height=height, fx=fx)
+
+
 W = H = 200
 GI = 96
 

@@ -17,7 +17,8 @@ from volrend_torch.ops import dense_grid, render_exact, slab_march, \
     slab_render
 from volrend_torch.utils.options import RenderOptions
 
-from _torch_scenes import CPU, make_cam, np32, scene, trees
+from _torch_scenes import (CPU, make_cam, ndc_cam, ndc_scene, np32, scene,
+                           trees)
 
 torch.set_num_threads(1)
 
@@ -158,10 +159,16 @@ def test_render_rays_matches_reference(kind, back):
 
 
 def test_render_exact_refuses_ndc():
-    t, _ = trees("dense", 4)
-    td = t.to_device(lut_depth=None, device=CPU)
-    td.ndc = (800.0, 800.0, 1111.0)
-    with pytest.raises(NotImplementedError, match="slice B"):
-        render_exact.render_rays(td, np.zeros((2, 3), np.float32),
-                                 np.ones((2, 3), np.float32),
-                                 RenderOptions())
+    """NDC trees, which the exact renderer refused before their slice, now
+    render through world2ndc: the rays of an NDC pose equal
+    render_jax.render_rays on the same NDC tree within 1e-5
+    (tests/test_torch_ndc.py holds world2ndc and more poses)."""
+    tdev, _, jdev, _ = ndc_scene()
+    cam = ndc_cam(width=12, height=10, fx=14.0)
+    origins, dirs = cam.pixel_rays(xp=np)
+    origins = np.ascontiguousarray(origins)
+    got = render_exact.render_rays(tdev, origins, dirs, RenderOptions())
+    want = render_jax.render_rays(jdev, jnp.asarray(origins),
+                                  jnp.asarray(dirs), JOpt())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=0)

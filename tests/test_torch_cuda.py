@@ -309,6 +309,143 @@ def _display_vs_plain(g, case, seen=True):
     return acc
 
 
+# ---------------------------------------------------------------------------
+# The last two display pose classes: NDC trees (kernel M on the NDC
+# geometry, then kernels B and C) and split-frame class passes (kernel M
+# over the unit slope box, then kernel W)
+# ---------------------------------------------------------------------------
+
+NDC_CFG = (float(W), float(H), 200.0)
+
+
+@pytest.fixture(scope="module")
+def ndc_grids(card):
+    """(cpu grid, cuda grid) of an NDC tree (G=32 fog, the bench's NDC
+    scene at depth 4)."""
+    from volrend_torch.models.n3tree import NdcConfig
+    tree = make_test_tree(max_depth=4, basis_dim=16, seed=4, n_blobs=6,
+                          sigma_scale=60.0)
+    tree.use_ndc = True
+    tree.ndc = NdcConfig(*NDC_CFG)
+    return tuple(dense_grid.bake_dense(
+        tree.to_device(lut_depth=None, device=d), dtype="int8")
+        for d in ("cpu", card))
+
+
+def _ndc_cams():
+    return [Camera.from_vectors(center=c, v_back=b,
+                                v_world_up=(0.0, 1.0, 0.0), width=W,
+                                height=H, fx=200.0)
+            for c, b in (((0.0, 0.0, 0.2), (0.05, 0.02, 1.0)),
+                         ((0.05, -0.02, 0.3), (-0.04, 0.03, 1.0)))]
+
+
+def test_ndc_kernels_match_plain(ndc_grids):
+    """Kernel M on two NDC poses (the NDC dirM), then kernel B's int8
+    table and kernel C's generic combine on the NDC geometry, against
+    their plain versions on the same CUDA tensors."""
+    _, g = ndc_grids
+    cams = _ndc_cams()
+    perm, flip, slope = slab_render.choose_axis(g, cams[0].transform, 200.0,
+                                                200.0, W, H)
+    assert perm[0] == 2 and np.isfinite(slope)
+    geom = slab_render.FrameGeom(g, np.stack([c.transform for c in cams]),
+                                 200.0, 200.0, perm, flip, W, H, OPT, GI)
+    params, zb = slab_render._march_frame_fields(g, geom, perm, flip, OPT)
+    pay = slab_render._permuted_grid(g, perm)
+    ids = g.slab_ids(perm[0], flip, OPT.sigma_thresh)
+    acc = _display_vs_plain(g, (pay, params, zb, ids, perm, flip, None))
+    inter = slab_render._finalize_planar(acc, OPT).contiguous()
+    args = (geom.R, geom.fx, geom.fy, W, H, GI, perm, geom.u0, geom.du,
+            geom.v0, geom.dv, geom.scale, g.ndc, geom.origin_w)
+    for B, win in LEVELS:
+        tbl = display_warp.build_table(inter, win)
+        assert torch.equal(tbl, display_warp.build_table_ref(inter, win))
+        gys, gxs, okm, Y0, X0 = display_warp._level_geometry(args, GI, B,
+                                                             win)
+        cargs = (tbl, Y0.contiguous(), X0.contiguous(),
+                 (gys - Y0.float()[:, None]).contiguous(),
+                 (gxs - X0.float()[:, None]).contiguous(), okm.contiguous(),
+                 GI, H, W, B, win, 1.0)
+        for od, tol in ((torch.uint8, 1.0), (None, 1e-5)):
+            got = display_warp.combine_emit(*cargs, out_dtype=od)
+            want = display_warp.combine_emit_ref(*cargs, out_dtype=od)
+            assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("out_dtype", [torch.uint8, None])
+def test_ndc_render_frames_card_matches_cpu(ndc_grids, out_dtype):
+    """NDC frames on the card (M, then B and C for each fitting level, no
+    kernel W and no reference warp) equal the CPU run: uint8 within one
+    quantum, f32 within one code of the int8 table (1/255): the march's
+    float rounding, card against CPU, can move an intermediate value across
+    a rounding boundary of its table code."""
+    cpu, gpu = ndc_grids
+    cams = _ndc_cams()
+    perm, flip, _ = slab_render.choose_axis(cpu, cams[0].transform, 200.0,
+                                            200.0, W, H)
+    trs = np.stack([c.transform for c in cams])
+    a = slab_render.render_frames(cpu, trs, 200.0, 200.0, perm, flip, W, H,
+                                  OPT, gi=GI, out_dtype=out_dtype)
+    n = (display_warp.build_table.launches, display_warp.combine_emit.poses,
+         display_warp.warp_display.launches,
+         slab_render._warp_to_screen_ref.poses)
+    b = slab_render.render_frames(gpu, trs, 200.0, 200.0, perm, flip, W, H,
+                                  OPT, gi=GI, out_dtype=out_dtype).cpu()
+    assert display_warp.build_table.launches >= n[0] + 1
+    assert display_warp.combine_emit.poses == n[1] + 2
+    assert display_warp.warp_display.launches == n[2]
+    assert slab_render._warp_to_screen_ref.poses == n[3]
+    assert float(b[..., 3].max()) > 0.5
+    tol = 1.0 if out_dtype == torch.uint8 else 1.0 / 255.0
+    assert float((a.float() - b.float()).abs().max()) <= tol
+
+
+def _steep_cam():
+    back = np.asarray((1.0, 0.3, 0.4))
+    back /= np.linalg.norm(back)
+    return Camera.from_vectors(center=tuple(1.2 * back), v_back=tuple(back),
+                               v_world_up=(0.0, 0.0, 1.0), width=W,
+                               height=H, fx=50.0)
+
+
+def test_unit_box_pass_march_matches_plain(grids):
+    """Kernel M on each class pass of a steep pose (the unit slope box,
+    perm (axis, axis+1, axis+2)) against its plain version."""
+    _, g = grids
+    cam = _steep_cam()
+    classes = slab_render.split_classes(g, cam.transform, cam.fx, cam.fy, W,
+                                        H)
+    assert len(classes) > 1
+    for axis, flip in classes:
+        perm = (axis, (axis + 1) % 3, (axis + 2) % 3)
+        geom = slab_render.FrameGeom(g, cam.transform, cam.fx, cam.fy, perm,
+                                     flip, W, H, OPT, GI,
+                                     unit_slope_box=True)
+        params, zb = slab_render._march_frame_fields(g, geom, perm, flip,
+                                                     OPT)
+        crop = slab_render.inplane_crop(g, perm, OPT.sigma_thresh)
+        pay = slab_render._permuted_grid(g, perm, crop=crop)
+        ids = g.slab_ids(perm[0], flip, OPT.sigma_thresh)
+        _display_vs_plain(g, (pay, params, zb, ids, perm, flip, crop),
+                          seen=False)
+
+
+def test_split_frame_card_matches_cpu(grids):
+    """A steep pose's split frame on the card (every class pass through
+    kernels M and W) equals the CPU run."""
+    cpu, gpu = grids
+    cam = _steep_cam()
+    a = slab_render.render_frame_split(cpu, cam.transform, cam.fx, cam.fy,
+                                       W, H, OPT, gi=GI)
+    n = slab_render._warp_to_screen_ref.poses
+    b = slab_render.render_frame_split(gpu, cam.transform, cam.fx, cam.fy,
+                                       W, H, OPT, gi=GI).cpu()
+    assert b.dtype == torch.float32
+    assert float((a - b).abs().max()) <= 1e-4
+    assert slab_render._warp_to_screen_ref.poses == n
+
+
 @pytest.fixture(scope="module", params=[1, 4, 9, 16, 25])
 def sh_grid(card, request):
     """A G=32 fog scene of SH degree bd, baked int8 on the card."""

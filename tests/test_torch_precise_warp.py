@@ -29,7 +29,7 @@ from volrend_torch.ops import display_warp, slab_grad, slab_render
 from volrend_torch.ops.camera import Camera
 from volrend_torch.utils.options import RenderOptions
 
-from _torch_scenes import interpret, scene
+from _torch_scenes import interpret, ndc_cam, ndc_scene, scene
 
 torch.set_num_threads(1)
 
@@ -131,8 +131,26 @@ def test_sub_geometry_matches_reference(ref, fx):
     for a, b in zip(got[3:5], want[3:5]):
         assert float(np.mean(a[0].numpy() != np.asarray(b))) < 1e-3
     assert bool(got[5][0]) == bool(want[5]) == (fx == FX)
-    with pytest.raises(NotImplementedError, match="slice B"):
-        display_warp._sub_geometry(*_targs(tg, perm), ndc=(800, 800, 1.0))
+    # NDC geometry, which raised before its slice: an NDC pose's geometry
+    # at the precise level equals the reference's (tests/test_torch_ndc.py
+    # holds the display levels)
+    _, ng, _, njg = ndc_scene()
+    ncam = ndc_cam(width=W, height=H, fx=fx)
+    nperm, nflip, _ = j_slab.choose_axis(njg, ncam.transform, fx, fx, W, H)
+    jn = j_slab.FrameGeom(njg, jnp.asarray(ncam.transform), fx, fx, nperm,
+                          nflip, W, H, JOpt(max_steps=512), GI)
+    tn = slab_render.FrameGeom(ng, ncam.transform, fx, fx, nperm, nflip, W,
+                               H, RenderOptions(max_steps=512), GI)
+    got = display_warp._sub_geometry(*_targs(tn, nperm), ndc=ng.ndc,
+                                     origin=tn.origin_w)
+    want = j_dw._sub_geometry(jn.R, jn.fx, jn.fy, W, H, GI, nperm, jn.u0,
+                              jn.du, jn.v0, jn.dv, jn.scale, ndc=njg.ndc,
+                              origin=jn.origin_w)
+    for a, b in zip(got[:3], want[:3]):
+        np.testing.assert_allclose(a[0].numpy(), np.asarray(b), atol=1e-4)
+    for a, b in zip(got[3:5], want[3:5]):
+        assert float(np.mean(a[0].numpy() != np.asarray(b))) < 1e-3
+    assert bool(got[5][0]) == bool(want[5])
 
 
 def _adjoint_inputs(seed=3):

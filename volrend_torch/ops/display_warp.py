@@ -28,7 +28,12 @@ window. ``render_frames`` queues those counts ahead of the march
 A pose whose blocks misfit their window in bulk (wide-FOV / grazing
 geometry) falls through the cascade of (block, window) levels and finally
 to the reference quad-gather warp (``slab_render._warp_to_screen_ref``).
-Kernels B and C keep their table modes for the precise warp below.
+Kernels B and C keep their table modes for the precise warp below, and
+carry the display warp of NDC trees: kernel W evaluates a world-tree
+homography, while an NDC pose's pixel->slope map runs through
+``render_exact.world2ndc``, so its geometry is computed in PyTorch
+(``_sub_geometry(ndc=...)``) and warped by kernel B's int8 table and kernel
+C's generic combine (``_table_warp``), as the reference does.
 
 The training path's **precise** superquad warp (``_PreciseWarp``, behind
 the ``_PRECISE_SQ`` switch, off by default as in the reference) runs
@@ -43,8 +48,8 @@ Every function takes a batch of poses: per-pose tensors carry a leading
 pose dimension. On CUDA tensors the wrappers launch the kernels; on CPU
 tensors they run the plain PyTorch versions (``warp_display_ref``,
 ``level_fit_counts_ref``, ``build_table_ref``, ``combine_emit_ref``,
-``combine_adjoint_ref``, ``build_adjoint_ref``). World trees only (NDC and
-mesh backgrounds come with a later slice).
+``combine_adjoint_ref``, ``build_adjoint_ref``). Mesh backgrounds come
+with a later slice.
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ import numpy as np
 import torch
 
 from volrend_torch import kernels
+from volrend_torch.ops.render_exact import world2ndc
 from volrend_torch.utils.device import to_device
 from volrend_torch.utils.options import RenderOptions
 
@@ -155,7 +161,7 @@ def to_display_dtype(x: torch.Tensor, out_dtype) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# geometry (per pose batch; world trees)
+# geometry (per pose batch)
 # ---------------------------------------------------------------------------
 
 def _lin_forms(R, scale, perm, xs, ys):
@@ -178,13 +184,38 @@ def _safe_inv(den):
                              torch.full_like(den, 1e-12), den)
 
 
+def _ndc_slopes(R, xs, ys, perm, u0, du, v0, dv, scale, ndc, origin):
+    """Slope-grid coordinates of the camera rays (xs, ys, -1) of an NDC
+    tree (xs, ys broadcast to the ray grid's shape): the world dirs warped
+    by world2ndc from each pose's ``origin`` (P, 3), then the guarded
+    slope division of slab_render._slopes_from_dirs. (P, ...) each."""
+    from volrend_torch.ops.slab_render import _slopes_from_dirs
+    xs, ys = torch.broadcast_tensors(xs, ys)
+    d_cam = torch.stack([xs, ys, torch.full_like(xs, -1.0)], -1)
+    d_world = torch.einsum("...c,pkc->p...k", d_cam, R)
+    o = origin.reshape((-1,) + (1,) * xs.dim() + (3,))
+    ndir, _ = world2ndc(ndc, d_world, o)
+    us, vs = _slopes_from_dirs(ndir * scale, perm)
+    shape = (-1,) + (1,) * xs.dim()
+    return ((us - u0.reshape(shape)) / du.reshape(shape),
+            (vs - v0.reshape(shape)) / dv.reshape(shape))
+
+
 def _pixel_slopes(R, fx, fy, width: int, height: int, gi: int,
-                  perm: Tuple[int, int, int], u0, du, v0, dv, scale):
+                  perm: Tuple[int, int, int], u0, du, v0, dv, scale,
+                  ndc=None, origin=None):
     """Full-resolution (P, H, W) slope-grid coordinates of every screen
     pixel (the pixel->slope map of a world-space pinhole is a homography,
     so the three tree-dir components are linear forms of the pixel
-    coordinates)."""
+    coordinates; an NDC tree's map runs through world2ndc from each pose's
+    ``origin``)."""
     dev = R.device
+    if ndc is not None:
+        xs = (torch.arange(width, dtype=_F32, device=dev) - 0.5 * width) / fx
+        ys = -(torch.arange(height, dtype=_F32, device=dev)
+               - 0.5 * height) / fy
+        return _ndc_slopes(R, xs[None, :], ys[:, None], perm, u0, du, v0, dv,
+                           scale, ndc, origin)
     xs = ((torch.arange(width, dtype=_F32, device=dev) - 0.5 * width)
           / fx)[None, :]                                          # (1, W)
     ys = (-(torch.arange(height, dtype=_F32, device=dev) - 0.5 * height)
@@ -241,8 +272,10 @@ def _level_fits(gyf, gxf, gi: int, B, win=(4, 4)):
 
 
 def _sub_slopes(R, fx, fy, width: int, height: int, gi: int,
-                perm: Tuple[int, int, int], u0, du, v0, dv, scale, B=2):
-    """Per-subpixel slope-grid coordinates in (P, By*Bx, Hh, Wh) layout."""
+                perm: Tuple[int, int, int], u0, du, v0, dv, scale,
+                ndc=None, origin=None, B=2):
+    """Per-subpixel slope-grid coordinates in (P, By*Bx, Hh, Wh) layout
+    (an NDC tree's through world2ndc from each pose's ``origin``)."""
     By, Bx = _block2d(B)
     Hh, Wh = height // By, width // Bx
     dev = R.device
@@ -251,6 +284,13 @@ def _sub_slopes(R, fx, fy, width: int, height: int, gi: int,
     s = torch.arange(By * Bx, device=dev)
     po = torch.div(s, Bx, rounding_mode="floor").to(_F32)
     qo = torch.remainder(s, Bx).to(_F32)
+    if ndc is not None:
+        xs = (torch.arange(Wh, dtype=_F32, device=dev)[None, :] * Bx
+              + qo[:, None] - 0.5 * width) / fx                  # (S, Wh)
+        ys = -(torch.arange(Hh, dtype=_F32, device=dev)[None, :] * By
+               + po[:, None] - 0.5 * height) / fy                # (S, Hh)
+        return _ndc_slopes(R, xs[:, None, :], ys[:, :, None], perm, u0, du,
+                           v0, dv, scale, ndc, origin)
     xs = ((torch.arange(Wh, dtype=_F32, device=dev)[None, :] * Bx
            + qo[:, None] - 0.5 * width) / fx)[:, None, :]     # (S, 1, Wh)
     ys = (-(torch.arange(Hh, dtype=_F32, device=dev)[None, :] * By
@@ -299,12 +339,10 @@ def _sub_geometry(R, fx, fy, width: int, height: int, gi: int,
 
     Returns (gys, gxs, okm, Y0, X0, fits): (P, By*Bx, Hh, Wh) clipped
     subpixel positions / ok masks, (P, Hh, Wh) int32 window corners and
-    the (P,) bool fit predicates. World trees only (``origin`` is the NDC
-    warp's and is not read)."""
-    if ndc is not None:
-        raise NotImplementedError(
-            "NDC trees come with slice B of the port (ROADMAP.md)")
-    geom_args = (R, fx, fy, width, height, gi, perm, u0, du, v0, dv, scale)
+    the (P,) bool fit predicates. ``ndc``/``origin``: an NDC tree's
+    sidecar and the poses' (P, 3) origins."""
+    geom_args = (R, fx, fy, width, height, gi, perm, u0, du, v0, dv, scale,
+                 ndc, origin)
     gys, gxs, okm, Y0, X0 = _level_geometry(geom_args, gi, B, win)
     fits = _level_fits(*_pixel_slopes(*geom_args), gi, B, win)
     return gys, gxs, okm, Y0, X0, fits
@@ -622,18 +660,18 @@ def _fits_from_counts(counts, levels, height: int,
 class FitPlan:
     """A pose batch's fit decisions, computed on the device ahead of the
     warp (display_warp.plan_fits): the parameter rows kernel W reads
-    (``prm``), the usable cascade levels biggest block first
-    (``levels``), and each level's misfit counts on their way to the
-    host: a non-blocking copy into pinned memory behind an event, so the
-    host waits for the counts only in ``choice``, once whatever the caller
-    queued after the plan (kernel M) is already on the card."""
+    (``prm``; None for an NDC tree, whose poses take kernels B and C), the
+    usable cascade levels biggest block first (``levels``), and each
+    level's (L, P) misfit counts on their way to the host: a non-blocking
+    copy into pinned memory behind an event, so the host waits for the
+    counts only in ``choice``, once whatever the caller queued after the
+    plan (kernel M) is already on the card."""
 
-    def __init__(self, prm: torch.Tensor, levels, gi: int, height: int,
-                 width: int):
+    def __init__(self, prm: Optional[torch.Tensor], levels,
+                 counts: torch.Tensor, height: int, width: int):
         self.prm, self.levels = prm, levels
         self.height, self.width = height, width
         self._event = None
-        counts = level_fit_counts(prm, levels, gi, height, width)
         if counts.is_cuda:
             host = torch.empty(counts.shape, dtype=torch.int32,
                                pin_memory=True)
@@ -660,14 +698,25 @@ class FitPlan:
 
 def plan_fits(R, fx, fy, width: int, height: int, gi: int,
               perm: Tuple[int, int, int], u0, du, v0, dv, scale,
-              block=None) -> FitPlan:
+              block=None, ndc=None, origin=None) -> FitPlan:
     """Queue the fit decisions of a pose batch (the _sub_slopes geometry
     arguments) for warp_to_screen_sq's ``plan``: the parameter rows and
-    one fit-mode launch over the usable levels. Nothing waits for the
+    one fit-mode launch over the usable levels; for an NDC tree
+    (``ndc``, the poses' (P, 3) ``origin``) the misfit counts of
+    _pixel_slopes and _level_misfits in PyTorch. Nothing waits for the
     device."""
-    prm = display_params(R, fx, fy, u0, du, v0, dv, scale, perm)
-    return FitPlan(prm, _usable_levels(width, height, gi, block), gi,
-                   height, width)
+    levels = _usable_levels(width, height, gi, block)
+    if ndc is None:
+        prm = display_params(R, fx, fy, u0, du, v0, dv, scale, perm)
+        counts = level_fit_counts(prm, levels, gi, height, width)
+        return FitPlan(prm, levels, counts, height, width)
+    counts = torch.zeros((0, R.shape[0]), dtype=torch.int32, device=R.device)
+    if levels:
+        gyf, gxf = _pixel_slopes(R, fx, fy, width, height, gi, perm, u0, du,
+                                 v0, dv, scale, ndc, origin)
+        counts = torch.stack([_level_misfits(gyf, gxf, gi, B, win).sum((1, 2))
+                              for B, win in levels]).to(torch.int32)
+    return FitPlan(None, levels, counts, height, width)
 
 
 def _check_display(inter, prm, sel, out, B, win, gi: int):
@@ -749,11 +798,43 @@ def warp_display_ref(inter, prm, sel, out, B, win, gi: int, bg: float):
 # the warp with its per-pose cascade
 # ---------------------------------------------------------------------------
 
+def _select_geom(geom_args, sel: torch.Tensor):
+    """The _sub_slopes geometry arguments (12, or 14 with ndc and origin)
+    of the poses ``sel`` (int64 indices)."""
+    R, fx, fy, w, h, gi, perm, u0, du, v0, dv, scale = geom_args[:12]
+    sub = (R.index_select(0, sel), fx, fy, w, h, gi, perm,
+           u0.index_select(0, sel), du.index_select(0, sel),
+           v0.index_select(0, sel), dv.index_select(0, sel), scale)
+    if len(geom_args) > 12 and geom_args[12] is not None:
+        sub += (geom_args[12], geom_args[13].index_select(0, sel))
+    return sub
+
+
+def _table_warp(geom_args, planes: torch.Tensor, B, win, bg: float,
+                out_dtype):
+    """The display warp at one cascade level by kernel B's int8 table and
+    kernel C's combine (on CPU tensors their plain versions): the PyTorch
+    geometry of _level_geometry (``geom_args``: the _sub_slopes arguments
+    of the batch, an NDC tree's included), then the table of the
+    (P, 4, gi, gi) ``planes`` and the combine. Returns (P, H, W, 4)
+    frames, uint8 with ``out_dtype=torch.uint8``, else f32. The NDC
+    display path's warp, and the composition kernel W is held to."""
+    gi, h, w = geom_args[5], geom_args[4], geom_args[3]
+    gys, gxs, okm, Y0, X0 = _level_geometry(geom_args, gi, B, win)
+    tbl = build_table(planes.contiguous(), win)
+    return combine_emit(
+        tbl, Y0.contiguous(), X0.contiguous(),
+        (gys - Y0.to(_F32)[:, None]).contiguous(),
+        (gxs - X0.to(_F32)[:, None]).contiguous(), okm.contiguous(), gi, h,
+        w, B, win, bg, out_dtype=out_dtype)
+
+
 def warp_to_screen_sq(inter, opt: RenderOptions, R, fx, fy,
                       width: int, height: int, gi: int,
                       perm: Tuple[int, int, int],
                       u0, du, v0, dv, scale, block=None, out_dtype=None,
-                      planar: bool = False, plan: Optional[FitPlan] = None):
+                      planar: bool = False, plan: Optional[FitPlan] = None,
+                      ndc=None, origin=None):
     """Warp a batch of intermediate images ((P, gi, gi, 4), or planar
     (P, 4, gi, gi) with ``planar=True``) to (P, H, W, 4) screens with the
     background composited.
@@ -764,8 +845,10 @@ def warp_to_screen_sq(inter, opt: RenderOptions, R, fx, fy,
     earlier by plan_fits (render_frames queues them ahead of the march; a
     plan carries its own levels, so ``block`` is then not read); None
     queues them here and waits for them. Each level then warps its poses
-    with one launch of kernel W, in place into the frames. (The
-    reference's NDC and mesh-background variants come with slice B.)"""
+    with one launch of kernel W, in place into the frames. An NDC tree
+    (``ndc``, the poses' (P, 3) ``origin``) warps each level's poses with
+    kernels B and C instead (``_table_warp``). (The reference's
+    mesh-background variant comes with a later slice.)"""
     from volrend_torch.ops import slab_render
     dev = inter.device
     P = inter.shape[0]
@@ -773,9 +856,10 @@ def warp_to_screen_sq(inter, opt: RenderOptions, R, fx, fy,
     itp = itp.to(_F32).contiguous()
     fx = torch.as_tensor(fx, dtype=_F32, device=dev)
     fy = torch.as_tensor(fy, dtype=_F32, device=dev)
+    geom_args = (R, fx, fy, width, height, gi, perm, u0, du, v0, dv, scale,
+                 ndc, origin)
     if plan is None:
-        plan = plan_fits(R, fx, fy, width, height, gi, perm, u0, du, v0, dv,
-                         scale, block)
+        plan = plan_fits(*geom_args[:12], block, ndc, origin)
     choice = plan.choice()
 
     u8 = out_dtype == torch.uint8
@@ -784,21 +868,27 @@ def warp_to_screen_sq(inter, opt: RenderOptions, R, fx, fy,
     bg = float(opt.background_brightness)
     for li, (B, W) in enumerate(plan.levels):
         idx = np.nonzero(choice == li)[0]
-        if idx.size == P:
-            sel = torch.arange(P, dtype=torch.int32, device=dev)
-        elif idx.size:
-            sel = to_device(idx, torch.int32, dev)
-        else:
+        if idx.size == 0:
             continue
+        if ndc is not None:        # kernel W takes world trees only
+            if idx.size == P:
+                out = _table_warp(geom_args, itp, B, W, bg, out_dtype)
+            else:
+                sel = to_device(idx, torch.int64, dev)
+                out[sel] = _table_warp(_select_geom(geom_args, sel),
+                                       itp.index_select(0, sel), B, W, bg,
+                                       out_dtype)
+            continue
+        sel = (torch.arange(P, dtype=torch.int32, device=dev)
+               if idx.size == P else to_device(idx, torch.int32, dev))
         warp_display(itp, plan.prm, sel, out, B, W, gi, bg)
     idx = np.nonzero(choice < 0)[0]
     if idx.size:
         sel = to_device(idx, torch.int64, dev)
+        sub = _select_geom(geom_args, sel)
         ref = slab_render._warp_to_screen_ref(
-            itp.index_select(0, sel).movedim(1, -1), opt,
-            R.index_select(0, sel), fx, fy, width, height, gi, perm,
-            u0.index_select(0, sel), du.index_select(0, sel),
-            v0.index_select(0, sel), dv.index_select(0, sel), scale)
+            itp.index_select(0, sel).movedim(1, -1), opt, *sub[:12],
+            ndc=ndc, origin=None if ndc is None else sub[13])
         out[sel] = to_display_dtype(ref, out_dtype)
     return out
 
@@ -950,10 +1040,11 @@ class _PreciseWarp(torch.autograd.Function):
     gradient."""
 
     @staticmethod
-    def forward(ctx, inter, R, fx, fy, u0, du, v0, dv, scale, statics):
-        bg, width, height, gi, perm = statics
+    def forward(ctx, inter, R, fx, fy, u0, du, v0, dv, scale, origin,
+                statics):
+        bg, width, height, gi, perm, ndc = statics
         geom_args = (R, fx, fy, width, height, gi, perm, u0, du, v0, dv,
-                     scale)
+                     scale, ndc, origin)
         gys, gxs, okm, Y0, X0 = _level_geometry(geom_args, gi, _PRECISE_B,
                                                 _PRECISE_WIN)
         ry = (gys - Y0.to(_F32)[:, None]).contiguous()
@@ -972,23 +1063,25 @@ class _PreciseWarp(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         ry, rx, okm, Y0, X0 = ctx.saved_tensors
-        bg, _, _, gi, _ = ctx.statics
+        bg, _, _, gi, _, _ = ctx.statics
         dtbl = combine_adjoint(g.to(_F32).contiguous(), ry, rx, okm, Y0, X0,
                                gi, bg)
         d_inter = build_adjoint(dtbl, gi)
-        return (d_inter,) + (None,) * 9
+        return (d_inter,) + (None,) * 10
 
 
 def warp_precise(inter, bg: float, R, fx, fy, width: int, height: int,
                  gi: int, perm: Tuple[int, int, int], u0, du, v0, dv,
-                 scale) -> torch.Tensor:
+                 scale, ndc=None, origin=None) -> torch.Tensor:
     """The precise superquad warp of (P, gi, gi, 4) intermediate images to
     (P, H, W, 4) f32 screens over the background ``bg``, differentiable
-    w.r.t. ``inter`` (kernels B, C forward; 5, 6 backward). The
+    w.r.t. ``inter`` (kernels B, C forward; 5, 6 backward). ``ndc``/
+    ``origin``: an NDC tree's sidecar and the poses' (P, 3) origins. The
     caller checks usable_precise and each pose's fit predicate
     (slab_render._warp_to_screen does)."""
     dev = inter.device
     fx = torch.as_tensor(fx, dtype=_F32, device=dev)
     fy = torch.as_tensor(fy, dtype=_F32, device=dev)
     return _PreciseWarp.apply(inter, R, fx, fy, u0, du, v0, dv, scale,
-                              (float(bg), width, height, gi, tuple(perm)))
+                              origin, (float(bg), width, height, gi,
+                                       tuple(perm), ndc))

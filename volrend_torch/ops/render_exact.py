@@ -25,7 +25,7 @@ from volrend_torch.ops import basis as basis_mod
 from volrend_torch.utils.options import RenderOptions
 
 __all__ = ["TreeMeta", "tree_meta", "query_batched", "render_rays",
-           "render_image", "prepare_rays"]
+           "render_image", "prepare_rays", "world2ndc"]
 
 _F32 = torch.float32
 
@@ -135,6 +135,29 @@ def _fetch_rows(data, leaf_idx):
 # Ray setup
 # ---------------------------------------------------------------------------
 
+def world2ndc(ndc: Tuple[float, float, float], dirs, origins):
+    """Batched LLFF NDC warp (volrend.cu:34-54): world rays -> (unit NDC
+    directions, NDC origins on the near plane z' = -1). ``dirs`` and
+    ``origins`` broadcast against each other (..., 3)."""
+    width, height, focal = (np.float32(v) for v in ndc)
+    t = -(1.0 + origins[..., 2]) / dirs[..., 2]
+    cen = origins + t[..., None] * dirs
+    sx = float(-(np.float32(2.0) * focal) / width)
+    sy = float(-(np.float32(2.0) * focal) / height)
+    ndir = torch.stack([
+        sx * (dirs[..., 0] / dirs[..., 2] - cen[..., 0] / cen[..., 2]),
+        sy * (dirs[..., 1] / dirs[..., 2] - cen[..., 1] / cen[..., 2]),
+        -2.0 / cen[..., 2],
+    ], -1)
+    ncen = torch.stack([
+        sx * (cen[..., 0] / cen[..., 2]),
+        sy * (cen[..., 1] / cen[..., 2]),
+        1.0 + 2.0 / cen[..., 2],
+    ], -1)
+    ndir = ndir / _norm(ndir)[..., None]
+    return ndir, ncen
+
+
 def _rodrigues_matrix(rot_dirs) -> Optional[np.ndarray]:
     """Static axis-angle -> rotation matrix (volrend.cu:57-71); None if ~0."""
     aa = np.asarray(rot_dirs, np.float64)
@@ -155,14 +178,13 @@ def _norm(x):
 def prepare_rays(tree: TreeArrays, origins, dirs, opt: RenderOptions):
     """World rays -> (cen_tree, dir_unit, vdir, invdir, delta_scale).
 
-    Applies the world->tree transform, viewdir rotation, and the direction
-    rescale of ``_get_delta_scale`` (rt_core.cuh:51-63)."""
-    if tree.ndc is not None:
-        raise NotImplementedError(
-            "NDC trees are ported in slice B (ROADMAP.md)")
+    Applies the NDC warp, the world->tree transform, viewdir rotation, and
+    the direction rescale of ``_get_delta_scale`` (rt_core.cuh:51-63)."""
     dirs = dirs.to(_F32)
     origins = origins.to(_F32)
     vdir = dirs
+    if tree.ndc is not None:
+        dirs, origins = world2ndc(tree.ndc, dirs, origins)
     cen = tree.offset + tree.scale * origins
     R = _rodrigues_matrix(opt.rot_dirs)
     if R is not None:

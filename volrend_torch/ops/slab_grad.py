@@ -696,7 +696,7 @@ def render_frame_train(data, bmap: BakeMap, grid: DenseGrid, transform,
     return slab_render._warp_to_screen(
         inter, opt, geom.R, geom.fx, geom.fy, width, height, gi, perm,
         geom.u0, geom.du, geom.v0, geom.dv, geom.scale, precise=True,
-        fits=fits)[0]
+        fits=fits, ndc=grid.ndc, origin=geom.origin_w.detach())[0]
 
 
 #: host copies of grids' scale tensors, read back once per tensor (a read
@@ -709,8 +709,10 @@ def _precise_fits_host(grid: DenseGrid, transform, fx, fy, perm, width: int,
     """The precise warp's per-pose fit predicates, (P,) bool, computed on
     the host from the camera (the same f32 arithmetic as the device
     geometry), so that routing the warp does not wait for the march queued
-    before it; cached per camera, since training revisits its poses (a
-    full-resolution pass costs milliseconds of host time)."""
+    before it; cached per camera and tree sidecar (the transform's bytes
+    carry the origin, which an NDC tree's warp reads), since training
+    revisits its poses (a full-resolution pass costs milliseconds of host
+    time)."""
     scale = grid.scale
     if scale.device.type != "cpu":
         if scale not in _HOST_SCALE:
@@ -719,26 +721,30 @@ def _precise_fits_host(grid: DenseGrid, transform, fx, fy, perm, width: int,
     tr = np.ascontiguousarray(slab_render._host(transform).reshape(-1, 3, 4),
                               np.float32)
     sc = np.ascontiguousarray(scale.numpy(), np.float32)
+    ndc = None if grid.ndc is None else tuple(float(v) for v in grid.ndc)
     return _fits_from_camera(tr.tobytes(), tr.shape[0],
                              float(slab_render._host(fx)),
                              float(slab_render._host(fy)), tuple(perm),
-                             width, height, gi, sc.tobytes())
+                             width, height, gi, sc.tobytes(), ndc)
 
 
 @functools.lru_cache(maxsize=4096)
 def _fits_from_camera(tr: bytes, P: int, fx: float, fy: float, perm,
-                      width: int, height: int, gi: int,
-                      scale: bytes) -> np.ndarray:
+                      width: int, height: int, gi: int, scale: bytes,
+                      ndc=None) -> np.ndarray:
     """_precise_fits_host's computation on hashable host values (f32
-    transforms and scale as bytes); returns a read-only array."""
-    R = torch.frombuffer(bytearray(tr), dtype=_F32).reshape(P, 3, 4)[:, :, :3]
+    transforms, origins included, and scale as bytes; an NDC tree's
+    sidecar); returns a read-only array."""
+    T = torch.frombuffer(bytearray(tr), dtype=_F32).reshape(P, 3, 4)
+    R, origin = T[:, :, :3], T[:, :, 3]
     sc = torch.frombuffer(bytearray(scale), dtype=_F32)
     fx = torch.tensor(fx, dtype=_F32)
     fy = torch.tensor(fy, dtype=_F32)
     u0, du, v0, dv = slab_render._slope_grid(R, fx, fy, sc, perm, width,
-                                             height, gi)
+                                             height, gi, ndc=ndc,
+                                             origin=origin)
     gyf, gxf = display_warp._pixel_slopes(R, fx, fy, width, height, gi, perm,
-                                          u0, du, v0, dv, sc)
+                                          u0, du, v0, dv, sc, ndc, origin)
     fits = display_warp._level_fits(gyf, gxf, gi, display_warp._PRECISE_B,
                                     display_warp._PRECISE_WIN).numpy()
     fits.flags.writeable = False

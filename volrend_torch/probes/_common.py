@@ -127,16 +127,9 @@ def table_warp_level(geom, planes, idx, B, win, bg: float, out_dtype):
     geometry; ``planes``: its (P, 4, gi, gi) intermediate images. Returns
     the (len(idx), H, W, 4) frames."""
     from volrend_torch.ops import display_warp as dw
-    R, fx, fy, w, h, gi, perm, u0, du, v0, dv, scale = geom
-    sub = (R[idx], fx, fy, w, h, gi, perm, u0[idx], du[idx], v0[idx],
-           dv[idx], scale)
-    gys, gxs, okm, Y0, X0 = dw._level_geometry(sub, gi, B, win)
-    tbl = dw.build_table(planes[idx].contiguous(), win)
-    return dw.combine_emit(
-        tbl, Y0.contiguous(), X0.contiguous(),
-        (gys - Y0.float()[:, None]).contiguous(),
-        (gxs - X0.float()[:, None]).contiguous(), okm.contiguous(), gi, h,
-        w, B, win, bg, out_dtype=out_dtype)
+    idx = torch.as_tensor(idx, dtype=torch.int64, device=planes.device)
+    return dw._table_warp(dw._select_geom(geom, idx),
+                          planes.index_select(0, idx), B, win, bg, out_dtype)
 
 
 def mean_fits(geom, levels) -> torch.Tensor:
