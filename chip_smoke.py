@@ -116,9 +116,23 @@ Phases (any failure exits non-zero and prints no result):
     the bits-mode occupancy, M and M-bwd, and with the switch on of B-f32,
     C-f32, 5 and 6 for every pose that fits; no plain version); pose 0's
     loss must fall;
-12. one JSON line with every kernel's numbers (kernels B's and C's
-    launches from phase 10's run, the display path that takes them), then
-    the result line.
+12. kernel M's display variants at full width (variants_phase): the f16
+    route (the dense SH16 scene baked f16, a bf16 payload; the 200 orbit
+    poses through render_frames with every pose through the SH-bf16
+    variant and kernel W, nothing else; throughput, peak memory; the
+    variant against its plain version on group 0; pose 0 >= 54 dB), SG16,
+    ASG16 and RGBA trees read from the same leaves (int8 bakes; each
+    variant against its plain version on pose 0's group, render_image of
+    pose 0 counted, >= 47.5 dB), the render options on pose 0 of the dense
+    int8 grid (render_depth, render_bbox, a basis window, rot_dirs: each
+    against its plain version, counted, rot and the window >= 47.5 dB,
+    the bbox >= 40 dB, depth >= 30 dB), tools/perf_split.py's e = 0.5 sweep pose in depth mode (each
+    class pass against its plain version, >= 30 dB) and bench.py's NDC
+    pose in depth mode and with rot + bbox + basis window (>= 30 dB);
+13. one JSON line with every kernel's numbers (kernels B's and C's
+    launches from phase 10's run, the display path that takes them; kernel
+    M's display variants as rows of their own, their launches from phase
+    12's counted runs), then the result line.
 """
 
 import contextlib
@@ -281,7 +295,7 @@ def tent_taps(torch, ry, rx, okm, win) -> int:
 
 
 def march_work(torch, pay, qs, zb, slab_ids, G: int, bd: int,
-               sigma_thresh: float):
+               sigma_thresh: float, D=None, colour_planes=None, okb=None):
     """What this run's data asks of the march, counted from the payload and
     the per-pixel z intervals: a slab is marched for a pose when some
     pixel's interval [zlo, zhi] (zb[p, 0:2]) meets it; a voxel is shaded,
@@ -292,8 +306,12 @@ def march_work(torch, pay, qs, zb, slab_ids, G: int, bd: int,
     threshold, per pose: voxels above the
     threshold in its marched slabs, per pose: (pixel, slab) pairs marched).
     The pairs count every slab of a pixel's interval, also those behind the
-    point where the ray saturates."""
-    D = 3 * bd + 1
+    point where the ray saturates. ``D`` (default 3 * bd + 1), the colour
+    planes read a voxel (default D - 1: fewer under a basis window, none in
+    depth mode) and ``okb``, an in-plane (Gy, Gx) mask of the voxels a
+    render_bbox keeps, follow a display variant's format and options."""
+    D = 3 * bd + 1 if D is None else D
+    colour_planes = D - 1 if colour_planes is None else colour_planes
     Gy, Gx = pay.shape[2], pay.shape[3]
     sig_planes = 2 if pay.dtype == torch.int8 else 1
     ids = list(slab_ids)
@@ -303,7 +321,10 @@ def march_work(torch, pay, qs, zb, slab_ids, G: int, bd: int,
         # a training payload's values as the kernels read them (bf16)
         sig = (sl[D - 1].float() * 128.0 + sl[D].float() if sig_planes == 2
                else sl[D - 1].to(torch.bfloat16).float())
-        over.append(int((sig * float(qs[D - 1]) > sigma_thresh).sum()))
+        live = sig * float(qs[D - 1]) > sigma_thresh
+        if okb is not None:
+            live = live & okb
+        over.append(int(live.sum()))
     over = np.asarray(over, np.int64)
     hG = 0.5 / G
     z = (torch.as_tensor(ids, dtype=torch.float32, device=zb.device)
@@ -321,12 +342,12 @@ def march_work(torch, pay, qs, zb, slab_ids, G: int, bd: int,
         pairs_p.append(int(hit.sum()))
     elem = pay.element_size()
     sig_bytes = int(marched.sum()) * sig_planes * Gy * Gx * elem
-    colour_bytes = int(over[marched].sum()) * 3 * bd * elem
+    colour_bytes = int(over[marched].sum()) * colour_planes * elem
     return sig_bytes, colour_bytes, over_p, pairs_p
 
 
 def march_bound(torch, pay, qs, zb, slab_ids, G: int, gi: int, bd: int,
-                sigma_thresh: float):
+                sigma_thresh: float, ops=None, z_planes: int = 3, **work):
     """Kernel M's bound for one launch over the poses of ``zb`` (P, 4, gi,
     gi), from march_work: bytes are the marched slabs' sigma planes and the
     colour planes of their voxels above the threshold, read once, plus, per
@@ -335,12 +356,15 @@ def march_bound(torch, pay, qs, zb, slab_ids, G: int, gi: int, bd: int,
     SH basis function, the basis polynomials, the direction and three
     sigmoids: ~9*bd + 30 per voxel) and, per marched (pixel, slab) pair,
     the two-axis overlap weights, four channel taps and the composite
-    (~60)."""
+    (~60). ``ops`` = (per voxel, per pair) and ``work`` (march_work's D,
+    colour_planes, okb) follow a display variant (variant_ops); depth mode
+    reads a fourth z plane (``z_planes``)."""
     sig_b, col_b, over_p, pairs_p = march_work(torch, pay, qs, zb, slab_ids,
-                                               G, bd, sigma_thresh)
+                                               G, bd, sigma_thresh, **work)
     P = zb.shape[0]
-    nbytes = sig_b + col_b + P * (3 + 4) * gi * gi * 4
-    flops = sum(o * (9 * bd + 30) + n * 60 for o, n in zip(over_p, pairs_p))
+    ov, op = (9 * bd + 30, 60) if ops is None else ops
+    nbytes = sig_b + col_b + P * (z_planes + 4) * gi * gi * 4
+    flops = sum(o * ov + n * op for o, n in zip(over_p, pairs_p))
     return bound(nbytes, flops)
 
 
@@ -407,12 +431,14 @@ def steep_pose(Camera, slab_render, grid, lo=3.6, hi=3.95):
 
 def display_occupancy(kernels, bd: int, cfg: dict) -> dict:
     """What the card makes of a display launch configuration
-    (vt_march_display_info): resident blocks per SM, registers a thread,
+    (vt_march_display_info, for the variant of ``cfg``, the launch's
+    march_slabs.display): resident blocks per SM, registers a thread,
     spill bytes a thread, static shared memory."""
     import ctypes
     out = (ctypes.c_int * 4)()
     kernels.check(kernels.lib("slab_march_display").vt_march_display_info(
-        bd, cfg["rows"], cfg["smem"], out), "slab_march_display")
+        bd, cfg["rows"], cfg["fmt"], cfg["bf16"], cfg["opt"], cfg["smem"],
+        out), "slab_march_display")
     return {"blocks_per_sm": out[0], "regs": out[1], "spill_bytes": out[2],
             "static_smem": out[3]}
 
@@ -2023,6 +2049,376 @@ def ndc_train_phase(torch, dev, tree, stats):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: kernel M's display variants (the f16 bake, SG/ASG/RGBA trees,
+# the viewer's render options)
+# ---------------------------------------------------------------------------
+
+#: the JSON line's rows of kernel M's display variants: (stats key, row
+#: name, the variant whose launches the row counts)
+VARIANT_ROWS = (
+    ("M_bf16", "slab_march_display_bf16", "SH-bf16"),
+    ("M_sg", "slab_march_display_sg", "SG-int8"),
+    ("M_asg", "slab_march_display_asg", "ASG-int8"),
+    ("M_rgba", "slab_march_display_rgba", "RGBA-int8"),
+    ("M_opt", "slab_march_display_opt", "SH-int8-opt"),
+    ("M_depth", "slab_march_display_depth", "SH-int8-opt-depth"),
+)
+FLOOR_DEPTH = 30.0     # the reference's slab-vs-exact depth floor
+# the render_bbox frame's floor: the slab path masks voxels by their
+# extent and box-filters the cut, where the exact renderer clips each ray,
+# which costs the reference itself 12.4 dB against its exact renderer at
+# G=16 (tests/test_torch_options.py::test_bbox_edge_loss_matches_the_reference;
+# ROADMAP.md §3); this pose's frame read 44.555 dB on an H100, so the
+# floor sits 4.5 dB under it, above the reference test's own 30 dB
+# (tests/test_slab_render.py:689)
+FLOOR_BBOX = 40.0
+LOBE_SEED = 4          # the SG/ASG lobes of the format trees
+
+
+def variant_ops(grid, opt):
+    """(operations a shaded voxel, operations a marched (pixel, slab) pair,
+    colour planes a shaded voxel reads) of a display variant, for its
+    bound: SH 9*bd + 30 a voxel (march_bound's), SG ~14 and ASG ~20 a lobe
+    (the lobe's dot products, exponential and 3 multiply-adds) + 30, RGBA
+    ~10; the basis window counts its lobes only, rot adds 15; depth shades
+    nothing past the sigma decode (~5) and taps one channel (~30 a pair
+    against four channels' 60)."""
+    from volrend_torch.models.data_format import BasisType
+    bt = BasisType(grid.fmt)
+    bd = grid.basis_dim
+    if opt.render_depth:
+        return (5, 30), 0
+    if bt == BasisType.RGBA:
+        return (10, 60), 3
+    lo, hi = opt.basis_minmax
+    n = len([k for k in range(bd) if lo <= k <= hi])
+    per = {BasisType.SH: 9, BasisType.SG: 14, BasisType.ASG: 20}[bt]
+    rot = 15 if any(float(v) != 0.0 for v in opt.rot_dirs) else 0
+    return (per * n + 30 + rot, 60), 3 * n
+
+
+def variant_check(torch, kernels, tag, grid, opt, cams, key, stats,
+                  perm_flip=None, unit_slope_box=False):
+    """Kernel M's display variant of ``grid`` (its bake and format) and
+    ``opt`` (its options) on the pose batch ``cams`` against its plain
+    version (on up to PLAIN_POSES poses spread over the batch), with the
+    launch's configuration and occupancy, its time on those poses beside
+    their bound and the plain version's time, and the whole batch's time;
+    the first check of a key gives its row's times and bound (the JSON
+    line's), every check its largest max_abs_err. Returns the row."""
+    from volrend_torch.ops import slab_march, slab_render
+    from volrend_torch.ops.render_exact import _rodrigues_matrix
+    c0 = cams[0]
+    if perm_flip is None:
+        perm, flip, _ = slab_render.choose_axis(grid, c0.transform, c0.fx,
+                                                c0.fy, W, H)
+    else:
+        perm, flip = perm_flip
+    crop = slab_render.inplane_crop(grid, perm, float(opt.sigma_thresh))
+    pay = slab_render.prepare_payload(grid, perm, opt)
+    tr = torch.as_tensor(np.stack([c.transform for c in cams]),
+                         dtype=torch.float32, device=grid.device)
+    g = slab_render.FrameGeom(grid, tr, c0.fx, c0.fy, perm, flip, W, H, opt,
+                              GI, unit_slope_box=unit_slope_box)
+    params, zb = slab_render._march_frame_fields(grid, g, perm, flip, opt)
+    slab_ids = grid.slab_ids(perm[0], flip, opt.sigma_thresh)
+    rotm = _rodrigues_matrix(opt.rot_dirs)
+    kw = dict(fmt=int(grid.fmt), extra=grid.extra,
+              depth=bool(opt.render_depth),
+              rot=(None if rotm is None
+                   else tuple(float(v) for v in rotm.reshape(-1))),
+              bbox_full=slab_render._bbox_full(opt),
+              basis_lo=int(opt.basis_minmax[0]),
+              basis_hi=int(opt.basis_minmax[1]))
+    m = slab_march.march_inputs(pay, params, zb, grid.G, GI, slab_ids,
+                                slab_march._K_STEP, crop)
+
+    def run_m(prm=params, z=zb):
+        return slab_march.march_slabs(
+            pay, prm, grid.qscale, z, grid.G, GI, grid.data_dim,
+            grid.basis_dim, perm, slab_ids=slab_ids, sig2=grid.quantized,
+            flip=flip, dir_win=True, k_per_step=slab_march._K_STEP,
+            crop=crop, **kw)
+
+    P = len(cams)
+    sub = np.unique(np.linspace(0, P - 1, min(P, PLAIN_POSES)).round()
+                    ).astype(np.int64).tolist()
+    m_sub = dict(m, params=m["params"][sub], zb=m["zb"][sub])
+    acc_k = run_m()
+    torch.cuda.synchronize()
+    cfg = dict(slab_march.march_slabs.display)
+    acc_p, plain_ms = timed_once(torch, lambda: slab_march.march_slabs_ref(
+        pay, grid.qscale, D=grid.data_dim, bd=grid.basis_dim, flip=flip,
+        dir_win=True, **kw, **m_sub))
+    err, _, _ = freeze_flip_check(
+        torch, f"{tag} [{cfg['variant']}], {P} poses (plain version on "
+        f"poses {sub}), crop {crop}, {len(slab_ids)} slabs", acc_k[sub],
+        acc_p, float(opt.stop_thresh))
+    occ = display_occupancy(kernels, grid.basis_dim, cfg)
+    p_sub, z_sub = params[sub], zb[sub]
+    ms = cuda_ms(torch, lambda: run_m(p_sub, z_sub), KREPS)
+    ops, colour = variant_ops(grid, opt)
+    okb = None
+    if not kw["bbox_full"]:
+        ycell = torch.arange(pay.shape[2], device=pay.device) + m["y0"]
+        xcell = torch.arange(pay.shape[3], device=pay.device) + m["x0"]
+        yc, xc = (ycell + 0.5) / grid.G, (xcell + 0.5) / grid.G
+        h = 0.5 / grid.G
+        okb = (((yc + h > g.lo[1]) & (yc - h < g.hi[1]))[:, None]
+               & ((xc + h > g.lo[2]) & (xc - h < g.hi[2]))[None, :])
+    bnd = march_bound(torch, pay, grid.qscale, m_sub["zb"], slab_ids, grid.G,
+                      GI, grid.basis_dim, float(opt.sigma_thresh), ops=ops,
+                      z_planes=4 if kw["depth"] else 3, D=grid.data_dim,
+                      colour_planes=colour, okb=okb)
+    whole_ms = cuda_ms(torch, run_m, KREPS) if P > len(sub) else ms
+    row = stats.setdefault(key, {"max_abs_err": 0.0})
+    if "ms" not in row:
+        row.update(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0],
+                   bound_by=bnd[1], library_ms=None, poses=len(sub),
+                   variant=cfg["variant"], tag=tag)
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    log(f"kernel M [{tag}, {cfg['variant']}]: {len(sub)} poses {ms:.3f} ms "
+        f"(bound {bnd[0]:.3f} ms, {bnd[1]}; plain {plain_ms:.1f} ms), "
+        f"{P} poses {whole_ms:.3f} ms; launch {cfg}, on the card {occ}")
+    stats.setdefault("M_variants", {})[tag] = {
+        "variant": cfg["variant"], "poses": P, "ms": whole_ms,
+        "sub_ms": ms, "bound_ms": bnd[0], "plain_ms": plain_ms,
+        "max_abs_err": err, **occ, "rows": cfg["rows"]}
+    del pay, acc_k, acc_p
+    return row
+
+
+def counted_render(torch, tag, fn, passes: int, world: bool, launched):
+    """fn() (one render_image call of ``passes`` slab passes) with the
+    launch counts and the plain versions' calls reset just before and
+    read just after: kernel M once a pass, through display variants only
+    (march_slabs.variants), no plain version, and on a world tree no B or
+    C. Returns (frame, counts, variants)."""
+    from volrend_torch.ops import slab_march
+    calls = count_plain_calls()
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        slab_march.march_slabs.variants = {}
+        frame = fn()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        variants = dict(slab_march.march_slabs.variants)
+    finally:
+        restore_plain()
+    log(f"{tag}: counts {counts}, kernel M variants {variants}, plain "
+        f"versions called {sum(calls.values())}")
+    launched.update(variants)
+    if (counts["march"] != passes or sum(variants.values()) != passes
+            or any(calls.values())):
+        fail(f"{tag}: not one kernel M launch a pass, or a plain version "
+             f"ran ({counts}, {variants}, {calls})")
+    if world and (counts["build"] or counts["combine"]):
+        fail(f"{tag}: kernels B or C ran on a world tree ({counts})")
+    if counts["warp_poses"] + counts["ref_warp_poses"] + counts[
+            "combine_poses"] != passes:
+        fail(f"{tag}: a pass was not warped once ({counts})")
+    return frame, counts, variants
+
+
+def format_trees_on(torch, tdev):
+    """The dense bench tree's arrays read as SG16 and ASG16 trees (its leaf
+    rows as lobe coefficients, the lobes drawn from LOBE_SEED as the
+    reference's tests draw them, tests/test_slab_render.py:241-258 and
+    :349-376) and as an RGBA tree (D = 4: each colour channel's first
+    coefficient through a sigmoid, and sigma): {name: TreeArrays}."""
+    import dataclasses
+    from volrend_torch.models.data_format import BasisType
+    rng = np.random.default_rng(LOBE_SEED)
+    bd = tdev.basis_dim
+    mu = rng.normal(size=(bd, 3))
+    mu /= np.linalg.norm(mu, axis=-1, keepdims=True)
+    sg = np.concatenate([rng.uniform(1.0, 6.0, (bd, 1)), mu], -1)
+    asg = np.zeros((bd, 11))
+    for i in range(bd):
+        q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        asg[i, 0] = rng.uniform(0.5, 4.0)
+        asg[i, 1] = rng.uniform(0.5, 4.0)
+        asg[i, 2:] = q.T.reshape(-1)
+    dev = tdev.data.device
+    D = tdev.data_dim
+    rgba = torch.cat([torch.sigmoid(tdev.data[:, 0:3 * bd:bd].float()),
+                      tdev.data[:, D - 1:D].float()], 1)
+    return {
+        "SG": dataclasses.replace(
+            tdev, fmt=BasisType.SG,
+            extra=torch.as_tensor(sg, dtype=torch.float32, device=dev)),
+        "ASG": dataclasses.replace(
+            tdev, fmt=BasisType.ASG,
+            extra=torch.as_tensor(asg, dtype=torch.float32, device=dev)),
+        "RGBA": dataclasses.replace(
+            tdev, data=rgba.to(tdev.data.dtype).contiguous(), data_dim=4,
+            basis_dim=-1, fmt=BasisType.RGBA),
+    }
+
+
+def variants_phase(torch, kernels, dev, opt, stats, gate, main_path,
+                   groups_of, render_all):
+    """Phase 12: kernel M's display variants at full width. (a) The f16
+    route: the dense SH16 scene baked f16 (a bf16 payload), the 200 orbit
+    poses through render_frames (RGBA8, gi=256) with every pose through
+    the SH-bf16 variant and kernel W and nothing else, throughput and
+    peak memory, the variant against its plain version on PLAIN_POSES of
+    group 0 and pose 0 gated at >= FLOOR_ORBIT. (b) SG16, ASG16 and RGBA
+    trees from the same leaves (format_trees_on), baked int8: each
+    variant against its plain version on pose 0's group and render_image
+    of pose 0 counted and gated at >= FLOOR_SPARSE. (c) On the dense int8
+    grid, pose 0: render_depth, render_bbox, a basis window and rot_dirs,
+    each against its plain version, counted and gated (colour >=
+    FLOOR_SPARSE, depth >= FLOOR_DEPTH, the bbox >= FLOOR_BBOX). (d)
+    bench.py's NDC pose in depth mode and with the viz options (>=
+    FLOOR_DEPTH), and
+    tools/perf_split.py's e = 0.5 sweep pose in depth mode (each class
+    pass's M against its plain version; >= FLOOR_DEPTH). Returns the
+    summary."""
+    import collections
+    import dataclasses
+    from volrend_torch.ops import dense_grid, slab_march, slab_render
+    from volrend_torch.ops.camera import Camera
+    from volrend_torch.probes import _common
+    out = {}
+    # each variant's launches in the counted runs (the main path's for
+    # SH-bf16): the JSON line's counts
+    launched = collections.Counter()
+    t = time.perf_counter()
+    tdev = _common.get_tree().to_device(lut_depth=None, device=dev)
+    grid = dense_grid.bake_dense(tdev, dtype="f16")
+    torch.cuda.synchronize()
+    log(f"f16: uploaded + f16 bake G={grid.G} in "
+        f"{time.perf_counter() - t:.1f} s ({grid.data.numel() * 2 / 1e9:.3f}"
+        f" GB, D = {grid.data_dim})")
+    cams = _common.orbit_poses(N_POSES)
+    groups, pays, trs = groups_of(grid, cams)
+    first = next(iter(groups.values()))
+    variant_check(torch, kernels, "f16 orbit group 0", grid, opt,
+                  [cams[i] for i in first], "M_bf16", stats)
+    torch.cuda.empty_cache()
+    calls = count_plain_calls()
+    try:
+        slab_march.march_slabs.variants = {}
+        counts, frames, ms, peak = main_path("f16", grid, cams, groups, pays,
+                                             trs)
+    finally:
+        restore_plain()
+    variants = dict(slab_march.march_slabs.variants)
+    n_runs = REPS + 1
+    if (set(variants) != {"SH-bf16"}
+            or variants["SH-bf16"] != n_runs * counts["march"]
+            or any(calls.values())):
+        fail(f"f16: the route's launches are not all SH-bf16 ({variants} "
+             f"over {n_runs} runs of {counts['march']}), or a plain version "
+             f"ran ({calls})")
+    out["f16"] = {"ms": ms, "mrays": N_POSES * W * H / ms / 1e3,
+                  "peak_gib": peak, "counts": counts}
+    launched["SH-bf16"] += counts["march"]
+    if "--profile" in sys.argv[1:]:
+        _common.profile_run(
+            lambda: render_all(grid, cams, groups, pays, trs),
+            "f16 main path", log, DISPLAY_RANGES)
+    out["f16"]["psnr_db"] = gate("f16 orbit0", tdev, cams[0], frames[0], 5,
+                                 FLOOR_ORBIT)
+    del frames, pays, trs, grid
+    torch.cuda.empty_cache()
+
+    # (b) the formats
+    cam0 = cams[0]
+    for fmt, tree in format_trees_on(torch, tdev).items():
+        key = "M_" + fmt.lower()
+        t = time.perf_counter()
+        g = dense_grid.bake_dense(tree, dtype="int8")
+        torch.cuda.synchronize()
+        log(f"{fmt}: int8 bake G={g.G} in {time.perf_counter() - t:.1f} s")
+        variant_check(torch, kernels, f"{fmt} orbit group 0", g, opt,
+                      [cams[i] for i in first], key, stats)
+        frame, counts, variants = counted_render(
+            torch, fmt, lambda: slab_render.render_image(
+                g, cam0, opt, gi=GI, out_dtype=torch.uint8), 1, True,
+            launched)
+        out[fmt] = {"counts": counts, "variants": variants,
+                    "psnr_db": gate(f"{fmt} pose 0", tree, cam0,
+                                    torch.as_tensor(frame, device=dev), 5,
+                                    FLOOR_SPARSE)}
+        del g, frame
+        torch.cuda.empty_cache()
+
+    # (c) the options, on the dense int8 grid
+    grid = dense_grid.bake_dense(tdev, dtype="int8")
+    options = (("depth", dict(render_depth=True), "M_depth", FLOOR_DEPTH),
+               ("rot", dict(rot_dirs=(0.3, -0.2, 0.5)), "M_opt",
+                FLOOR_SPARSE),
+               ("window", dict(basis_minmax=(0, 8)), "M_opt", FLOOR_SPARSE),
+               ("bbox", dict(render_bbox=(0.25,) * 3 + (0.75,) * 3),
+                "M_opt", FLOOR_BBOX))
+    for name, o, key, floor in options:
+        vopt = dataclasses.replace(opt, **o)
+        variant_check(torch, kernels, f"option {name}", grid, vopt, [cam0],
+                      key, stats)
+        frame, counts, _ = counted_render(
+            torch, f"option {name}", lambda: slab_render.render_image(
+                grid, cam0, vopt, gi=GI, out_dtype=torch.uint8), 1, True,
+            launched)
+        out[f"option_{name}"] = {
+            "counts": counts,
+            "psnr_db": gate(f"option {name}", tdev, cam0,
+                            torch.as_tensor(frame, device=dev), 5, floor,
+                            vopt)}
+    # (d) the split sweep pose at e = 0.5, depth mode: every class pass
+    scam = split_sweep_poses(Camera)[0]
+    dopt = dataclasses.replace(opt, render_depth=True)
+    classes = slab_render.split_classes(grid, scam.transform, scam.fx,
+                                        scam.fy, W, H)
+    for axis, flip in classes:
+        perm = (axis, (axis + 1) % 3, (axis + 2) % 3)
+        variant_check(torch, kernels, f"split depth pass {perm}/{flip}",
+                      grid, dopt, [scam], "M_depth", stats,
+                      perm_flip=(perm, flip), unit_slope_box=True)
+    frame, counts, _ = counted_render(
+        torch, "split depth", lambda: slab_render.render_image(
+            grid, scam, dopt, gi=GI, out_dtype=torch.uint8), len(classes),
+        True, launched)
+    out["split_depth"] = {"classes": classes, "counts": counts,
+                          "psnr_db": gate("split depth", tdev, scam,
+                                          torch.as_tensor(frame, device=dev),
+                                          8, FLOOR_DEPTH, dopt)}
+    del grid, tdev, frame
+    torch.cuda.empty_cache()
+
+    # (d) bench.py's NDC pose: depth, and the viz options
+    ntree = ndc_tree()
+    ndev = ntree.to_device(lut_depth=None, device=dev)
+    ngrid = dense_grid.bake_dense(ndev, dtype="int8")
+    ncam = bench_ndc_pose(Camera)
+    for name, o in (("depth", dict(render_depth=True)),
+                    ("viz", dict(rot_dirs=(0.25, -0.15, 0.3),
+                                 render_bbox=(0.1, 0.1, 0.0, 0.9, 0.9, 1.0),
+                                 basis_minmax=(0, 2)))):
+        vopt = dataclasses.replace(opt, **o)
+        variant_check(torch, kernels, f"ndc {name}", ngrid, vopt, [ncam],
+                      "M_depth" if name == "depth" else "M_opt", stats)
+        frame, counts, _ = counted_render(
+            torch, f"ndc {name}", lambda: slab_render.render_image(
+                ngrid, ncam, vopt, gi=GI, out_dtype=torch.uint8), 1, False,
+            launched)
+        out[f"ndc_{name}"] = {
+            "counts": counts,
+            "psnr_db": gate(f"ndc {name}", ndev, ncam,
+                            torch.as_tensor(frame, device=dev), 8,
+                            FLOOR_DEPTH, vopt)}
+    del ngrid, ndev
+    torch.cuda.empty_cache()
+    for key, _, name in VARIANT_ROWS:
+        stats[key]["launches"] = launched[name]
+    out["launched"] = dict(launched)
+    log(f"variants: {json.dumps(out)}")
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2051,7 +2447,8 @@ def main() -> None:
         f"({sorted(blogs)} compiled this run)")
     for name, text in blogs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or line.startswith("nvcc seconds")):
                 log(f"  {name}: {line.strip()}")
 
     opt = RenderOptions(max_steps=1024)
@@ -2202,7 +2599,10 @@ def main() -> None:
                 "values_differ": n_val, "peak_gib": peak,
                 "parent_peak_gib": peak_old}
 
-    def gate(tag, tdev, cam, frame, stride, floor):
+    def gate(tag, tdev, cam, frame, stride, floor, gopt=None):
+        """``frame`` (H, W, 4) uint8 on the card against the exact
+        renderer's rays (options ``gopt``, default the smoke's) at
+        ``stride``: rgb PSNR >= floor."""
         ys = np.arange(0, H, stride)
         xs = np.arange(0, W, stride)
         origins, dirs = cam.pixel_rays(xp=np)
@@ -2211,7 +2611,7 @@ def main() -> None:
         exact = render_exact.render_rays(
             tdev, torch.as_tensor(np.ascontiguousarray(origins[sel])),
             torch.as_tensor(np.ascontiguousarray(dirs[sel])),
-            opt).cpu().numpy()
+            gopt or opt).cpu().numpy()
         got = frame.reshape(-1, 4)[torch.as_tensor(sel, device=dev)]
         got = got.cpu().numpy().astype(np.float64)
         got /= 255.0
@@ -2547,7 +2947,11 @@ def main() -> None:
     ndc.update(ndc_train_phase(torch, dev, ndc_tree_, stats))
     del ndc_tree_
 
-    # ---- 12. result ---------------------------------------------------------
+    # ---- 12. kernel M's display variants -----------------------------------
+    variants = variants_phase(torch, kernels, dev, opt, stats, gate,
+                              main_path, groups_of, render_all)
+
+    # ---- 13. result ---------------------------------------------------------
     summary = {"card": card, "m_launches": stats.get("M_launches"),
                "warp_stage": stats.get("warp_stage"),
                "dense_mrays": mrays, "dense_ms": ms,
@@ -2558,7 +2962,9 @@ def main() -> None:
                "psnr_orbit_db": p_orbit, "psnr_sparse_db": p_sparse,
                "dense_counts": counts, "sparse_counts": scounts,
                "train_lean_kernels": stats.get("train_lean_kernels"), **tsum,
-               **probe, **steep, **ndc, "seconds": time.perf_counter() - _T0}
+               **probe, **steep, **ndc, "variants": variants,
+               "m_variant_launches": stats.get("M_variants"),
+               "seconds": time.perf_counter() - _T0}
     log(f"summary {json.dumps(summary)}")
     spec = (
         ("M", "slab_march_display",
@@ -2605,6 +3011,9 @@ def main() -> None:
         ("P9P", "probe_build_planar", "volrend_torch/csrc/probe_build.cu",
          "tools/perf_sq4.py:75", probe["probe_counts"]["build_planar"]),
     )
+    spec += tuple((key, name, "volrend_torch/csrc/slab_march_display.cu",
+                   "volrend_tpu/ops/pallas_slab.py:344",
+                   stats[key]["launches"]) for key, name, _ in VARIANT_ROWS)
     rows = []
     for key, name, src, rep, launches in spec:
         s = stats[key]

@@ -81,6 +81,74 @@ def ndc_scene(dtype: str = "int8", seed: int = 4, sigma_scale: float = 60.0,
             j_dense.bake_dense(jdev, dtype=dtype))
 
 
+def lobes(fmt: str, bd: int, seed: int) -> np.ndarray:
+    """SG (bd, 4) or ASG (bd, 11) lobe parameters drawn from ``seed`` as the
+    reference's tests draw them (test_slab_render.py
+    test_pallas_interpret_sg, test_slab_asg_basis)."""
+    rng = np.random.default_rng(seed)
+    if fmt == "SG":
+        mu = rng.normal(size=(bd, 3))
+        mu /= np.linalg.norm(mu, axis=-1, keepdims=True)
+        lam = rng.uniform(1.0, 6.0, (bd, 1))
+        return np.concatenate([lam, mu], -1).astype(np.float32)
+    extra = np.zeros((bd, 11), np.float32)
+    for i in range(bd):
+        q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        extra[i, 0] = rng.uniform(0.5, 4.0)
+        extra[i, 1] = rng.uniform(0.5, 4.0)
+        extra[i, 2:] = q.T.reshape(-1)
+    return extra
+
+
+@functools.lru_cache(maxsize=None)
+def format_trees(fmt: str, bd: int = 4):
+    """(port N3Tree, reference N3Tree) of the reference's SG, ASG and RGBA
+    test trees (test_slab_render.py: blob scenes at depth 3, SG and ASG
+    with seeded lobes, RGBA with sinusoidal colours), built by each
+    package's ``build_tree`` from the same seeds."""
+    from volrend_torch.models import data_format as t_fmt
+    from volrend_tpu.models import data_format as j_fmt
+    out = []
+    for synth, fm in ((t_synth, t_fmt), (j_synth, j_fmt)):
+        if fmt == "RGBA":
+            density, refine, _ = synth.make_blob_scene(n_blobs=3, seed=6,
+                                                       sigma_scale=50.0)
+
+            def leaf_fn(pts, cell, density=density):
+                v = np.zeros((pts.shape[0], 4), np.float32)
+                v[:, :3] = 0.5 + 0.5 * np.sin(pts * 7.0)
+                v[:, 3] = density(pts)
+                return v
+
+            tree = synth.build_tree(
+                refine, leaf_fn, max_depth=3, data_dim=4,
+                data_format=fm.DataFormat(fm.BasisType.RGBA, -1))
+        else:
+            _, refine, factory = synth.make_blob_scene(n_blobs=3, seed=4,
+                                                       sigma_scale=50.0)
+            tree = synth.build_tree(
+                refine, factory(bd, coeff_seed=2 if fmt == "SG" else 9),
+                max_depth=3, data_dim=3 * bd + 1,
+                data_format=fm.DataFormat(fm.BasisType[fmt], bd))
+            tree.extra = lobes(fmt, bd, 4 if fmt == "SG" else 12)
+        out.append(tree)
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def format_scene(fmt: str, bd: int = 4, dtype: str = "int8"):
+    """(port TreeArrays, port DenseGrid, reference TreeArrays, reference
+    DenseGrid) of ``format_trees(fmt, bd)``, both baked with ``dtype``;
+    fmt "SH" is ``scene("dense", bd, dtype)``."""
+    if fmt == "SH":
+        return scene("dense", bd, dtype)
+    tt, jt = format_trees(fmt, bd)
+    tdev = tt.to_device(lut_depth=None, device=CPU)
+    jdev = jt.to_device(lut_depth=None)
+    return (tdev, t_dense.bake_dense(tdev, dtype=dtype), jdev,
+            j_dense.bake_dense(jdev, dtype=dtype))
+
+
 def ndc_cam(center=(0.0, 0.0, 0.2), back=(0.05, 0.02, 1.0), width=48,
             height=48, fx=52.0):
     """The reference's NDC test pose (test_slab_render.py make_ndc_cam)."""
@@ -146,6 +214,50 @@ def interpret(monkeypatch, crop_mult=None, force_dynamic=False):
         monkeypatch.setattr(pallas_slab, "_FORCE_INTERPRET", False)
         monkeypatch.setattr(pallas_slab, "_FORCE_DYNAMIC", False)
         jax.clear_caches()
+
+
+def to_torch(x) -> torch.Tensor:
+    """A JAX array (int8, f32 or bf16) as a CPU tensor of its dtype."""
+    a = np.asarray(x)
+    if a.dtype == jnp.bfloat16:
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def march_pair(g, jg, cam, jopt, gi=32):
+    """One pose marched by both packages on the reference's inputs (its
+    params, z interval, permuted payload, culled slab ids and crop) with
+    the formats and options of ``jopt`` (the reference's RenderOptions),
+    as the reference's display route calls its kernel; the reference runs
+    in interpret mode (the caller's ``interpret`` context). Returns (port
+    acc (4, gi, gi), reference acc) as numpy."""
+    from volrend_torch.ops import slab_march as t_march
+    W, H = cam.width, cam.height
+    perm, flip, slope = j_slab.choose_axis(jg, cam.transform, cam.fx,
+                                           cam.fy, W, H)
+    assert slope < j_slab.MAX_SLAB_SLOPE
+    crop = j_slab.inplane_crop(jg, perm, float(jopt.sigma_thresh))
+    geom = j_slab.FrameGeom(jg, jnp.asarray(cam.transform), cam.fx, cam.fy,
+                            perm, flip, W, H, jopt, gi)
+    params, zb = j_slab._pallas_frame_fields(jg, geom, perm, flip, jopt)
+    planar = j_slab._permuted_grid(jg, perm, True, crop=crop)[0]
+    blo, bhi = jopt.basis_minmax
+    rotm = j_slab._rodrigues(jopt.rot_dirs)
+    kw = dict(slab_ids=tuple(jg.slab_ids(perm[0], flip, jopt.sigma_thresh)),
+              basis_lo=int(blo), basis_hi=int(bhi), sig2=jg.quantized,
+              fmt=int(jg.fmt), depth=bool(jopt.render_depth),
+              rot=(None if rotm is None else
+                   tuple(float(v) for v in np.asarray(rotm).reshape(-1))),
+              flip=flip, bbox_full=j_slab._bbox_full(jopt), dir_win=True,
+              k_per_step=4, crop=crop)
+    want = pallas_slab.march_slabs(planar, params, jg.qscale, zb, jg.G, gi,
+                                   jg.data_dim, jg.basis_dim, perm,
+                                   extra=jg.extra, **kw)
+    got = t_march.march_slabs(
+        to_torch(planar), to_torch(params)[None], to_torch(jg.qscale),
+        to_torch(zb)[None], g.G, gi, g.data_dim, g.basis_dim, perm,
+        extra=to_torch(jg.extra), **kw)
+    return got[0].numpy(), np32(want)
 
 
 def np32(x) -> np.ndarray:

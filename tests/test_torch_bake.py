@@ -82,9 +82,15 @@ def test_bake_bit_equal(kind, bd, dtype):
 
 
 def test_edge_supersample_not_ported():
-    tdev, _, _, _ = scene("dense", 4, "int8")
-    with pytest.raises(NotImplementedError):
-        dense_grid.bake_dense(tdev, edge_supersample=2)
+    """edge_supersample, refused before its slice, now bakes: at the tree's
+    full resolution it is the no-op the reference documents (every
+    sub-sample lands in the voxel's own leaf), int8 codes bit-equal to the
+    plain bake's (tests/test_torch_formats.py holds a coarser bake against
+    the reference's)."""
+    tdev, g, _, _ = scene("dense", 4, "int8")
+    ss = dense_grid.bake_dense(tdev, dtype="int8", edge_supersample=2)
+    assert torch.equal(ss.data, g.data)
+    assert torch.equal(ss.qscale, g.qscale)
 
 
 def test_grid_from_numpy_roundtrip():

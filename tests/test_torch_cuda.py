@@ -528,7 +528,7 @@ def test_display_march_tile_heights_match_plain(solid64, rows):
     from volrend_torch import kernels
     out = (ctypes.c_int * 4)()
     kernels.check(kernels.lib("slab_march_display").vt_march_display_info(
-        g.basis_dim, rows, cfg["smem"], out), "slab_march_display")
+        g.basis_dim, rows, 1, 0, 0, cfg["smem"], out), "slab_march_display")
     assert out[0] == 2 and out[1] > 0 and out[2] == 0, list(out)
 
 
@@ -1276,3 +1276,187 @@ def test_probe_build_matches_plain(card, gi, planar):
     got = perf_sq4.build_probe(it, gi, planar=planar)
     assert getattr(perf_sq4.build_probe, counter) == n0 + 1
     assert torch.equal(got, perf_sq4.build_probe_ref(it, gi, planar=planar))
+
+
+# ---------------------------------------------------------------------------
+# Kernel M's display variants: the f16 bake's bf16 payload, SG, ASG and RGBA
+# trees and the viewer's options (depth, render_bbox, the basis window,
+# rot_dirs), each against its plain version on the same CUDA tensors
+# ---------------------------------------------------------------------------
+
+def _lobes(fmt, bd, seed):
+    """SG (bd, 4) or ASG (bd, 11) lobes drawn from ``seed`` (as
+    tests/_torch_scenes.py ``lobes`` draws them)."""
+    rng = np.random.default_rng(seed)
+    if fmt == "SG":
+        mu = rng.normal(size=(bd, 3))
+        mu /= np.linalg.norm(mu, axis=-1, keepdims=True)
+        return np.concatenate([rng.uniform(1.0, 6.0, (bd, 1)), mu],
+                              -1).astype(np.float32)
+    extra = np.zeros((bd, 11), np.float32)
+    for i in range(bd):
+        q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        extra[i, :2] = rng.uniform(0.5, 4.0, 2)
+        extra[i, 2:] = q.T.reshape(-1)
+    return extra
+
+
+@pytest.fixture(scope="module")
+def format_grids(card):
+    """{(format, bake dtype): grid on the card}: the G=32 SH16 fog read as
+    SH16, SG16, ASG16 (its leaves as lobe coefficients) and as an RGBA tree
+    (its first three colour coefficients and sigma), baked int8 and f16."""
+    from volrend_torch.models.data_format import BasisType
+    tree = make_test_tree(max_depth=4, basis_dim=16, seed=5,
+                          sigma_scale=60.0)
+    out = {}
+    for fmt in ("SH", "SG", "ASG", "RGBA"):
+        dev = tree.to_device(lut_depth=None, device=card)
+        if fmt in ("SG", "ASG"):
+            dev = dataclasses.replace(
+                dev, fmt=BasisType[fmt],
+                extra=torch.as_tensor(_lobes(fmt, 16, 4), device=card))
+        elif fmt == "RGBA":
+            D = dev.data_dim
+            rows = torch.cat([torch.sigmoid(dev.data[:, 0:48:16].float()),
+                              dev.data[:, D - 1:D].float()], 1)
+            dev = dataclasses.replace(
+                dev, data=rows.to(dev.data.dtype).contiguous(), data_dim=4,
+                basis_dim=-1, fmt=BasisType.RGBA)
+        for dt in ("int8", "f16"):
+            out[(fmt, dt)] = dense_grid.bake_dense(dev, dtype=dt)
+    return out
+
+
+def _variant_vs_plain(g, opt, backs=((1.0, 0.25, 0.35), (1.0, 0.1, 0.45)),
+                      fx=200.0, crop=None):
+    """Kernel M on grid ``g`` with the format and options of ``opt`` against
+    its plain version; returns (acc, the launch's variant)."""
+    cams = _cams(backs, fx)
+    perm, flip, _ = slab_render.choose_axis(g, cams[0].transform, fx, fx, W,
+                                            H)
+    geom = slab_render.FrameGeom(g, np.stack([c.transform for c in cams]),
+                                 fx, fx, perm, flip, W, H, opt, GI)
+    params, zb = slab_render._march_frame_fields(g, geom, perm, flip, opt)
+    pay = slab_render._permuted_grid(g, perm, crop=crop)
+    ids = g.slab_ids(perm[0], flip, opt.sigma_thresh)
+    rotm = slab_render._rodrigues_matrix(opt.rot_dirs)
+    kw = dict(fmt=int(g.fmt), extra=g.extra, depth=bool(opt.render_depth),
+              rot=(None if rotm is None
+                   else tuple(float(v) for v in rotm.reshape(-1))),
+              bbox_full=slab_render._bbox_full(opt),
+              basis_lo=int(opt.basis_minmax[0]),
+              basis_hi=int(opt.basis_minmax[1]))
+    n0 = slab_march.march_slabs.launches
+    acc = slab_march.march_slabs(
+        pay, params, g.qscale, zb, g.G, GI, g.data_dim, g.basis_dim, perm,
+        slab_ids=ids, sig2=g.quantized, flip=flip, dir_win=True, crop=crop,
+        **kw)
+    assert slab_march.march_slabs.launches == n0 + 1
+    variant = slab_march.march_slabs.display["variant"]
+    m = slab_march.march_inputs(pay, params, zb, g.G, GI, ids, 4, crop)
+    ref = slab_march.march_slabs_ref(pay, g.qscale, D=g.data_dim,
+                                     bd=g.basis_dim, flip=flip, dir_win=True,
+                                     **kw, **m)
+    torch.cuda.synchronize()
+    assert float(acc[:, 3].min()) < 0.9
+    _agree(acc, ref)
+    return acc, variant
+
+
+_OPTIONS = {
+    "none": {}, "depth": dict(render_depth=True),
+    "bbox": dict(render_bbox=(0.25,) * 3 + (0.75,) * 3),
+    "window": dict(basis_minmax=(0, 8)), "rot": dict(rot_dirs=(0.3, -0.2,
+                                                               0.5)),
+    "all": dict(rot_dirs=(0.25, -0.15, 0.3), basis_minmax=(1, 5),
+                render_bbox=(0.1, 0.1, 0.0, 0.9, 0.9, 1.0)),
+}
+
+
+@pytest.mark.parametrize("fmt", ["SH", "SG", "ASG", "RGBA"])
+@pytest.mark.parametrize("dt", ["int8", "f16"])
+@pytest.mark.parametrize("option", sorted(_OPTIONS))
+def test_display_variants_match_plain(format_grids, fmt, dt, option):
+    """Every format on both bakes, with each option and all together,
+    through the variant its mode names (slab_march.display_variant)."""
+    g = format_grids[(fmt, dt)]
+    opt = dataclasses.replace(OPT, **_OPTIONS[option])
+    _, variant = _variant_vs_plain(g, opt)
+    want = slab_march.display_variant(
+        slab_march.DisplayMode(
+            int(g.fmt), None, bool(opt.render_depth),
+            None if slab_render._rodrigues_matrix(opt.rot_dirs) is None
+            else (0.0,) * 9,
+            slab_render._bbox_full(opt), *opt.basis_minmax),
+        g.basis_dim, dt == "f16")
+    assert variant == want, (variant, want)
+    assert variant.startswith(fmt + ("-bf16" if dt == "f16" else "-int8"))
+
+
+@pytest.mark.parametrize("fmt", ["SH", "SG", "RGBA"])
+def test_display_bf16_unaligned_rows_match_plain(format_grids, fmt):
+    """A bf16 payload whose rows are not whole 16-byte chunks (a crop of
+    Gx = 30) is staged by element copies, and agrees."""
+    g = format_grids[(fmt, "f16")]
+    _variant_vs_plain(g, dataclasses.replace(OPT, render_depth=fmt == "SG"),
+                      crop=(0, 32, 1, 30))
+
+
+@pytest.mark.parametrize("crop", [(0, 32, 1, 30), (2, 28, 16, 16)])
+@pytest.mark.parametrize("dt", ["int8", "f16"])
+@pytest.mark.parametrize("option", ["bbox", "all"])
+def test_display_cropped_options_match_plain(format_grids, crop, dt, option):
+    """The bbox mask on a cropped payload, as a sparse scene with a box
+    takes it: the crop's in-plane offset (x0 = 1, staged by element
+    copies; x0 = 16, by cp.async) shifts every cell's global index, which
+    the mask reads."""
+    g = format_grids[("SH", dt)]
+    _variant_vs_plain(g, dataclasses.replace(OPT, **_OPTIONS[option]),
+                      crop=crop)
+
+
+def test_display_variants_lobe_counts(card):
+    """SG lobe counts across the compiled buckets (1..25) and a count past
+    them, which raises ValueError naming the set."""
+    from volrend_torch.models.data_format import BasisType
+    for bd in (1, 5, 9, 12, 25):
+        tree = make_test_tree(max_depth=4, basis_dim=bd if bd in (
+            1, 9, 25) else 4, seed=5, sigma_scale=60.0)
+        dev = tree.to_device(lut_depth=None, device=card)
+        if dev.basis_dim != bd:
+            # widen to bd lobes: repeat the leaf's coefficients
+            D = dev.data_dim
+            cols = dev.data[:, :D - 1].float().reshape(-1, 3, dev.basis_dim)
+            cols = cols[:, :, torch.arange(bd, device=card) % dev.basis_dim]
+            data = torch.cat([cols.reshape(-1, 3 * bd),
+                              dev.data[:, D - 1:D].float()], 1)
+            dev = dataclasses.replace(dev, data=data.to(dev.data.dtype),
+                                      data_dim=3 * bd + 1, basis_dim=bd)
+        dev = dataclasses.replace(
+            dev, fmt=BasisType.SG,
+            extra=torch.as_tensor(_lobes("SG", bd, bd), device=card))
+        g = dense_grid.bake_dense(dev, dtype="int8")
+        _variant_vs_plain(g, OPT)
+    g = dataclasses.replace(g, basis_dim=26, data_dim=79)
+    with pytest.raises(ValueError, match="1..25"):
+        slab_render.prepare_payload(g, (0, 1, 2), OPT)
+
+
+@pytest.mark.parametrize("bd", [1, 4, 9, 16, 25])
+def test_default_display_launch_configuration(card, bd):
+    """The SH int8 default keeps its launch: the tile rule's two heights,
+    two blocks an SM with no spills, and its own instantiation (no option
+    variant) for the default options."""
+    from volrend_torch import kernels
+    Dp = 3 * bd + 2
+    for P, rows in ((1, 1), (51, 2)):
+        cfg = slab_march.display_config(P, 256, 64, Dp, 132)
+        assert cfg["rows"] == rows
+        out = (ctypes.c_int * 4)()
+        kernels.check(kernels.lib("slab_march_display")
+                      .vt_march_display_info(bd, rows, 1, 0, 0, cfg["smem"],
+                                             out), "slab_march_display")
+        assert out[0] == 2 and out[2] == 0 and out[1] <= 128, list(out)
+    assert slab_march.display_variant(slab_march.DisplayMode(), bd,
+                                      False) == "SH-int8"

@@ -117,13 +117,15 @@ def test_render_image_matches_exact_renderer(kind, back):
     assert np.abs(one.astype(np.float64) - want8).max() <= 1.0
 
 
-def test_render_image_refuses_later_slices():
-    """Mesh overlays (item 13) and the f16 bake's payload raise
-    NotImplementedError naming the later slice; nothing falls back. The
-    steep and NDC poses this test refused before their slice now render:
-    a steep pose through the split-frame passes, an NDC tree's pose on the
-    slab path (tests/test_torch_split.py and tests/test_torch_ndc.py hold
-    them against the reference)."""
+def test_render_image_refuses_later_slices(monkeypatch):
+    """Mesh overlays (item 13) raise NotImplementedError naming the later
+    slice; nothing falls back. The steep and NDC poses and the f16 bake
+    this test refused before their slices now render: a steep pose through
+    the split-frame passes, an NDC tree's pose on the slab path
+    (tests/test_torch_split.py and tests/test_torch_ndc.py hold them
+    against the reference), and the f16 bake, here against the
+    reference's render_image in interpret mode (rgb >= 45 dB, alpha within
+    2e-2)."""
     _, g, _, _ = scene("dense", 4, "int8")
     opt = RenderOptions(max_steps=64)
     steep = make_cam((1.0, 0.25, 0.35), width=W, height=H, fx=8.0)
@@ -140,9 +142,14 @@ def test_render_image_refuses_later_slices():
     ncam = ndc_cam(width=W, height=H, fx=70.0)
     out = slab_render.render_image(ndc, ncam, opt, gi=GI)
     assert out.shape == (H, W, 4) and float(out[..., 3].max()) > 0.5
-    f16 = scene("dense", 16, "f16")[1]
-    with pytest.raises(NotImplementedError, match="slice B"):
-        slab_render.render_image(f16, cam, opt, gi=GI)
+    _, f16, _, jf16 = scene("dense", 16, "f16")
+    small = make_cam((1.0, 0.25, 0.35), width=40, height=40, fx=50.0)
+    got = slab_render.render_image(f16, small, opt, gi=48)
+    with interpret(monkeypatch):
+        want = np.asarray(j_slab.render_image(jf16, small,
+                                              JOpt(max_steps=64), gi=48))
+    assert psnr(got[..., :3], want[..., :3]) >= GATE_DB
+    np.testing.assert_allclose(got[..., 3], want[..., 3], atol=ALPHA_ATOL)
 
 
 def test_small_frames_take_the_reference_warp():

@@ -110,8 +110,24 @@ def test_sh_basis_matches(bd):
     np.testing.assert_allclose(win, wwin, rtol=1e-6, atol=1e-7)
 
 
-def test_basis_refuses_later_slices_formats():
-    d = torch.ones((2, 3)) / np.sqrt(3.0)
-    with pytest.raises(NotImplementedError, match="slice B"):
-        t_basis.eval_basis(t_fmt.BasisType.SG, 4, d,
-                           torch.zeros((4, 4)))
+@pytest.mark.parametrize("fmt", ["SG", "ASG", "RGBA"])
+def test_basis_refuses_later_slices_formats(fmt):
+    """The SG and ASG bases this test refused before their slice now
+    evaluate, as the reference's (RGBA has no basis: None in both)."""
+    from _torch_scenes import lobes
+    rng = np.random.default_rng(2)
+    d = rng.normal(size=(16, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    extra = lobes(fmt, 4, 5) if fmt != "RGBA" else None
+    got = t_basis.eval_basis(t_fmt.BasisType[fmt], 4,
+                             torch.as_tensor(d, dtype=torch.float32),
+                             None if extra is None else torch.as_tensor(extra))
+    want = j_basis.eval_basis(j_fmt.BasisType[fmt], 4,
+                              jnp.asarray(d, jnp.float32),
+                              None if extra is None else jnp.asarray(extra),
+                              xp=jnp)
+    if fmt == "RGBA":
+        assert got is None and want is None
+        return
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-7)

@@ -371,8 +371,7 @@ def test_ndc_train_frame_and_gradient_match_reference(ndc_train):
     with torch.no_grad():
         out = slab_grad.render_frame_train(tp, tb, g, *args, opt,
                                            gi=TGI).numpy()
-    # the eval render of the f16 bake: the reference's (the port's display
-    # march takes the int8 bake only, ROADMAP item 10)
+    # the eval render of the f16 bake, by the reference
     ev = np32(j_slab.render_frame(
         jg, jnp.asarray(cam.transform), cam.fx, cam.fy, perm, flip, TW, TW,
         JOPT.replace(renormalize=False), gi=TGI))

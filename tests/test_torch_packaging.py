@@ -150,16 +150,44 @@ def _march_args(**over):
     return kw
 
 
-@pytest.mark.parametrize("option", [
-    dict(fmt=2), dict(depth=True), dict(rot=tuple(np.eye(3).ravel())),
-    dict(bbox_full=False), dict(basis_hi=8), dict(sig2=False),
-    dict(shade_bf16=True), dict(dir_win=False), dict(acc_init=0.0),
+@pytest.mark.parametrize("option,item", [
+    (dict(shade_bf16=True), "item 10c"), (dict(dir_win=False), "item 10c"),
+    (dict(acc_init=0.0), "item 19"), (dict(z_base=0.5), "item 19"),
 ])
-def test_march_refuses_later_slices_options(option):
+def test_march_refuses_later_slices_options(option, item):
     """Kernel M's wrapper raises on every option it does not take (it does
-    not run some other path instead)."""
-    with pytest.raises(NotImplementedError, match="slices B-D"):
+    not run some other path instead), naming the item that brings it."""
+    with pytest.raises(NotImplementedError, match=item):
         slab_march.march_slabs(**_march_args(**option))
+
+
+def _bf16_display(**over):
+    """The f16 bake's display payload: bf16, Dp = D, window directions."""
+    kw = _march_args(sig2=False)
+    kw["gplanar"] = torch.zeros((4, kw["D"], 4, 4), dtype=torch.bfloat16)
+    kw["qscale"] = torch.ones(kw["D"])
+    kw.update(over)
+    return kw
+
+
+@pytest.mark.parametrize("case", [
+    "sg", "depth", "rot", "bbox", "window", "bf16", "bf16_rgba"])
+def test_march_runs_display_options(case):
+    """The display path's formats and options that kernel M's wrapper took
+    only from this slice on run (tests/test_torch_options.py and
+    tests/test_torch_formats.py hold each against the reference)."""
+    kw = {"sg": lambda: _march_args(fmt=2, extra=torch.ones((4, 4))),
+          "depth": lambda: _march_args(depth=True),
+          "rot": lambda: _march_args(rot=tuple(np.eye(3).ravel())),
+          "bbox": lambda: _march_args(bbox_full=False),
+          "window": lambda: _march_args(basis_hi=8),
+          "bf16": lambda: _bf16_display(),
+          "bf16_rgba": lambda: _bf16_display(
+              fmt=0, bd=-1, D=4, qscale=torch.ones(4),
+              gplanar=torch.zeros((4, 4, 4, 4), dtype=torch.bfloat16)),
+          }[case]()
+    acc = slab_march.march_slabs(**kw)
+    assert tuple(acc.shape) == (1, 4, 8, 8) and acc.dtype == torch.float32
 
 
 def test_march_default_options_run_on_cpu():
@@ -177,16 +205,20 @@ def _train_args(**over):
     return kw
 
 
-@pytest.mark.parametrize("option", [
-    dict(dir_win=True), dict(depth=True), dict(shade_bf16=True),
-    dict(rot=tuple(np.eye(3).ravel())), dict(bbox_full=False),
-    dict(z_base=0.5),
+@pytest.mark.parametrize("option,item", [
+    (dict(depth=True), "item 10b"), (dict(shade_bf16=True), "item 10c"),
+    (dict(rot=tuple(np.eye(3).ravel())), "item 10b"),
+    (dict(bbox_full=False), "item 10b"), (dict(basis_hi=8), "item 10b"),
+    (dict(fmt=2, extra=torch.ones((4, 4))), "item 10b"),
+    (dict(z_base=0.5), "item 19"),
 ])
-def test_march_training_mode_refuses_other_options(option):
-    """On the training payload the wrapper also raises on every option it
-    does not take (window directions on bf16 are the display path's
-    f16-bake route, slice B)."""
-    with pytest.raises(NotImplementedError, match="slices B-D"):
+def test_march_training_mode_refuses_other_options(option, item):
+    """On the training payload (per-slab directions) the wrapper raises on
+    every format and option it does not take, naming the item that brings
+    it (the training pair's formats and options are item 10b). A bf16
+    payload with window directions is the f16 bake's display route
+    (test_march_runs_display_options)."""
+    with pytest.raises(NotImplementedError, match=item):
         slab_march.march_slabs(**_train_args(**option))
 
 

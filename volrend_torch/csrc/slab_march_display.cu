@@ -1,11 +1,12 @@
 // Kernel M, display mode: the fused shear-warp slab march over the int8
-// payload, designed for Hopper (sm_90a).
+// or bf16 display payload, designed for Hopper (sm_90a).
 //
 // Replaces volrend_tpu/ops/pallas_slab.py:_make_kernel in its display
-// option set (sig2 int8 payload, dir_win=True), the Pallas TPU kernel
-// behind pallas_slab.march_slabs; its plain PyTorch twin is
-// volrend_torch/ops/slab_march.py:march_slabs_ref. The training mode (bf16
-// payload, per-slab directions) is slab_march.cu.
+// option set (dir_win=True: the sig2 int8 payload or the f16 bake's bf16
+// one; SH, SG, ASG and RGBA; depth, rot, a non-full bbox, the basis
+// window), the Pallas TPU kernel behind pallas_slab.march_slabs; its plain
+// PyTorch twin is volrend_torch/ops/slab_march.py:march_slabs_ref. The
+// training mode (f32/bf16 bake, per-slab directions) is slab_march.cu.
 //
 // What it computes, per pose and intermediate pixel (j, k) of the (gi, gi)
 // slope grid, for each occupied slab in march order: dequantize the
@@ -72,9 +73,26 @@
 //   slab's last piece, and the block leaves when no pixel can still
 //   accumulate; windows no pixel's z interval meets are never staged, and
 //   windows whose pixels all saturated are skipped (__syncthreads_or).
-// - __launch_bounds__(256, 2): two blocks (16 warps) per SM, what 123-128
+// - __launch_bounds__(256, 2): two blocks (16 warps) per SM, what <= 128
 //   registers a thread and ~110 KB of shared memory a block allow; the
 //   copies are asynchronous and the other resident block covers them.
+// - One kernel template, display_kernel<BD, ROWS, V>; the variant V
+//   (Var<bf16, format, options>) picks the payload element, the format
+//   and whether the run-time options are compiled in. The default, SH on
+//   the int8 payload with no option, is Var<false, F_SH, false>. The bf16
+//   payload (the f16 bake) holds two cells in a 32-bit word (each to f32
+//   by an exact 16-bit shift), a 16-byte chunk 8 cells, and its stage is
+//   sized in bytes (half the cells of an int8 stage: more footprints go in
+//   pieces, which add). The option variants (one tile height, 32x8) take
+//   the rest at run time:
+//   SG and ASG (lobe counts up to 4, 9, 16 or 25 compiled, the count at
+//   run time; the lobes loaded once a block into shared memory; the
+//   int8 bake shares each lobe's scale across rgb, so the per-k basis x
+//   qs[k] trick holds), RGBA (no basis, no sigmoid, a scale a channel),
+//   depth (sigma alone warped: one tap channel, and the composite adds
+//   w * |z - z0| * tview), rot (9 floats on the window direction), the
+//   basis window (the MACs of the dropped planes skipped) and the bbox (an
+//   in-plane voxel-extent mask ANDed into the sigma mask).
 
 #include "slab_common.cuh"
 
@@ -135,74 +153,11 @@ __device__ __forceinline__ float fast_sigmoid(float x) {
   return __fdividef(1.f, 1.f + __expf(-x));
 }
 
-// the SH basis at the voxel's view direction (slab_common.cuh voxel_rgb's
-// direction, at camera distance s of the window centre)
-template <int BD>
-__device__ __forceinline__ void voxel_basis(const float* prm, float ycm,
-                                            float xcm, float s, float ssign,
-                                            float* bk) {
-  const float dw0 = (prm[21] * ycm + prm[22] * xcm) + prm[20] * s;
-  const float dw1 = (prm[24] * ycm + prm[25] * xcm) + prm[23] * s;
-  const float dw2 = (prm[27] * ycm + prm[28] * xcm) + prm[26] * s;
-  const float rn = rsqrtf(dw0 * dw0 + dw1 * dw1 + dw2 * dw2) * ssign;
-  sh_basis<BD>(dw0 * rn, dw1 * rn, dw2 * rn, bk);
-}
-
 struct ShadeCtx {
   float invG, cy, cx, sc, ssign, thr;
   const float* prm;
   const float* qs;
 };
-
-// Two neighbouring cells, bytes i and i + 1 (i = 0 or 2) of the words at
-// ``wp`` (plane 0; planes ``plane`` bytes apart), into out[0..1] as
-// [sigma, sigma*r, sigma*g, sigma*b]; zero under the sigma threshold.
-// ``gy``/``gx``: the first cell's global indices.
-template <int BD>
-__device__ __forceinline__ void shade_pair(const uint8_t* wp, int plane,
-                                           int i, const ShadeCtx& c, int gy,
-                                           int gx, float4* out) {
-  constexpr int D = 3 * BD + 1;
-  const uint32_t hw = word(wp + (D - 1) * plane);
-  const uint32_t lw = word(wp + D * plane);
-  const float qsig = c.qs[D - 1];
-  const float sa = (code(hw, i) * 128.f + code(lw, i)) * qsig;
-  const float sb =
-      (code(hw, i + 1) * 128.f + code(lw, i + 1)) * qsig;
-  const bool oka = sa > c.thr, okb = sb > c.thr;
-  float4 oa = make_float4(0.f, 0.f, 0.f, 0.f), ob = oa;
-  if (oka || okb) {
-    const float ycm = ((float)gy + 0.5f) * c.invG - c.cy;
-    float bka[BD], bkb[BD];
-    voxel_basis<BD>(c.prm, ycm, ((float)gx + 0.5f) * c.invG - c.cx, c.sc,
-                    c.ssign, bka);
-    voxel_basis<BD>(c.prm, ycm, ((float)(gx + 1) + 0.5f) * c.invG - c.cx,
-                    c.sc, c.ssign, bkb);
-    float ra0 = 0.f, ra1 = 0.f, ra2 = 0.f, rb0 = 0.f, rb1 = 0.f, rb2 = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < BD; ++kk) {
-      const float q = c.qs[kk];
-      const float qa = bka[kk] * q, qb = bkb[kk] * q;
-      const uint32_t w0 = word(wp + kk * plane);
-      const uint32_t w1 = word(wp + (BD + kk) * plane);
-      const uint32_t w2 = word(wp + (2 * BD + kk) * plane);
-      ra0 += code(w0, i) * qa;
-      ra1 += code(w1, i) * qa;
-      ra2 += code(w2, i) * qa;
-      rb0 += code(w0, i + 1) * qb;
-      rb1 += code(w1, i + 1) * qb;
-      rb2 += code(w2, i + 1) * qb;
-    }
-    if (oka)
-      oa = make_float4(sa, sa * fast_sigmoid(ra0), sa * fast_sigmoid(ra1),
-                       sa * fast_sigmoid(ra2));
-    if (okb)
-      ob = make_float4(sb, sb * fast_sigmoid(rb0), sb * fast_sigmoid(rb1),
-                       sb * fast_sigmoid(rb2));
-  }
-  out[0] = oa;
-  out[1] = ob;
-}
 
 // What a block's walk shares: its windows, the slab geometry and its
 // tile's corner rays.
@@ -214,28 +169,239 @@ struct WalkGeo {
   float zbase, cz, cyG, cxG, hG, Gf, ujGa, ujGb, vkGa, vkGb;
 };
 
+// basis formats (volrend_torch/models/data_format.py BasisType)
+constexpr int F_RGBA = 0, F_SH = 1, F_SG = 2, F_ASG = 3;
+
+// A variant: the payload's element, the basis format, and whether the
+// run-time options (depth, rot, bbox, basis window, lobe count) are
+// compiled in.
+template <bool BF, int FM, bool O>
+struct Var {
+  static constexpr bool BF16 = BF;         // bf16 (Dp = D), else int8 (D + 1)
+  static constexpr int FMT = FM;
+  static constexpr bool OPT = O;
+  static constexpr int ESZ = BF ? 2 : 1;   // bytes a cell of one plane
+  static constexpr int CH = 16 / ESZ;      // cells a 16-byte chunk
+  static constexpr int SIGP = BF ? 1 : 2;  // sigma planes
+};
+
+// a launch's arguments: the payload, geometry and stage, and the run-time
+// options (read by the option variants only)
+struct LaunchArgs {
+  DispArgs a;
+  const float* extra;
+  int nb, depth, rot_on, bbox, blo, bhi;
+  float rot[9];
+};
+
+// The two neighbouring cells of one plane a shading unit takes: int8 codes
+// i and i + 1 of the (biased) word at p, or the bf16 pair of the word at p
+// (each an exact f32 by a 16-bit shift).
+template <bool BF>
+__device__ __forceinline__ float2 cell_pair(const uint8_t* p, int i) {
+  if constexpr (BF) {
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
+    return make_float2(__uint_as_float(w << 16),
+                       __uint_as_float(w & 0xffff0000u));
+  } else {
+    const uint32_t w = word(p);
+    return make_float2(code(w, i), code(w, i + 1));
+  }
+}
+
+// The option variants' run-time state: the rotation (9 floats in shared
+// memory, or null), the lobes' parameters (shared memory; SG 4, ASG 11
+// floats a lobe), the lobe count, the basis window [blo, bhi], depth mode,
+// and the in-plane box of params 16-19 with the half cell h.
+struct OptCtx {
+  const float* rot;
+  const float* ext;
+  int nb, blo, bhi, depth, bbox;
+  float inv_nb, lo1, hi1, lo2, hi2, h;
+};
+
+// The basis of variant V at the voxel's view direction (slab_common.cuh
+// voxel_rgb's direction, at camera distance c.sc of the window centre,
+// rotated by o.rot first); lobes past the count are zero.
+template <int BD, class V>
+__device__ __forceinline__ void voxel_basis(const ShadeCtx& c,
+                                            const OptCtx& o, float ycm,
+                                            float xcm, float* bk) {
+  const float* prm = c.prm;
+  const float dw0 = (prm[21] * ycm + prm[22] * xcm) + prm[20] * c.sc;
+  const float dw1 = (prm[24] * ycm + prm[25] * xcm) + prm[23] * c.sc;
+  const float dw2 = (prm[27] * ycm + prm[28] * xcm) + prm[26] * c.sc;
+  const float rn = rsqrtf(dw0 * dw0 + dw1 * dw1 + dw2 * dw2) * c.ssign;
+  float x = dw0 * rn, y = dw1 * rn, z = dw2 * rn;
+  if constexpr (V::OPT) {
+    if (o.rot) {
+      // the viewer's view-direction rotation (volrend.cu:57-71)
+      const float* R = o.rot;
+      const float rx = R[0] * x + R[1] * y + R[2] * z;
+      const float ry = R[3] * x + R[4] * y + R[5] * z;
+      const float rz = R[6] * x + R[7] * y + R[8] * z;
+      x = rx;
+      y = ry;
+      z = rz;
+    }
+  }
+  if constexpr (V::FMT == F_SH) {
+    sh_basis<BD>(x, y, z, bk);
+  } else if constexpr (V::FMT == F_SG) {
+    // exp(lambda (mu . d - 1)) / bd (lumisphere.hpp:30-36)
+#pragma unroll
+    for (int k = 0; k < BD; ++k) {
+      const float* e = o.ext + 4 * k;
+      bk[k] = k < o.nb
+                  ? __expf(e[0] * (e[1] * x + e[2] * y + e[3] * z - 1.f)) *
+                        o.inv_nb
+                  : 0.f;
+    }
+  } else if constexpr (V::FMT == F_ASG) {
+    // S exp(-a dotx^2 - b doty^2) / bd (lumisphere.hpp:14-28)
+#pragma unroll
+    for (int k = 0; k < BD; ++k) {
+      const float* e = o.ext + 11 * k;
+      const float dx = e[2] * x + e[3] * y + e[4] * z;
+      const float dy = e[5] * x + e[6] * y + e[7] * z;
+      const float sz = e[8] * x + e[9] * y + e[10] * z;
+      bk[k] = k < o.nb
+                  ? sz * __expf(-e[0] * dx * dx - e[1] * dy * dy) * o.inv_nb
+                  : 0.f;
+    }
+  }
+}
+
+// Two neighbouring cells of the stage at ``wp`` (int8: the word that
+// holds them, cells i and i + 1, i = 0 or 2; bf16: their word), planes
+// ``plane`` bytes apart, D data planes (int8: sigma's hi plane D - 1 and
+// lo plane D; bf16: sigma in plane D - 1), into out[0..1] as [sigma,
+// sigma*r, sigma*g, sigma*b]; zero under the sigma threshold. ``gy``/
+// ``gx``: the first cell's global indices.
+template <int BD, class V>
+__device__ __forceinline__ void shade_pair(const uint8_t* wp, int plane,
+                                           int i, const ShadeCtx& c,
+                                           const OptCtx& o, int D, int gy,
+                                           int gx, float4* out) {
+  const float qsig = c.qs[D - 1];
+  float sa, sb;
+  if constexpr (V::BF16) {
+    const float2 s = cell_pair<true>(wp + (D - 1) * plane, i);
+    sa = s.x * qsig;
+    sb = s.y * qsig;
+  } else {
+    const float2 h = cell_pair<false>(wp + (D - 1) * plane, i);
+    const float2 l = cell_pair<false>(wp + D * plane, i);
+    sa = (h.x * 128.f + l.x) * qsig;
+    sb = (h.y * 128.f + l.y) * qsig;
+  }
+  bool oka = sa > c.thr, okb = sb > c.thr;
+  if constexpr (V::OPT) {
+    if (o.bbox) {
+      // the voxel's extent meets the in-plane box (pallas_slab._shade_pre)
+      const float yc = ((float)gy + 0.5f) * c.invG;
+      const float xa = ((float)gx + 0.5f) * c.invG;
+      const float xb = ((float)(gx + 1) + 0.5f) * c.invG;
+      const bool yin = (yc + o.h > o.lo1) && (yc - o.h < o.hi1);
+      oka = oka && yin && (xa + o.h > o.lo2) && (xa - o.h < o.hi2);
+      okb = okb && yin && (xb + o.h > o.lo2) && (xb - o.h < o.hi2);
+    }
+    if (o.depth) {
+      out[0] = make_float4(oka ? sa : 0.f, 0.f, 0.f, 0.f);
+      out[1] = make_float4(okb ? sb : 0.f, 0.f, 0.f, 0.f);
+      return;
+    }
+  }
+  float4 oa = make_float4(0.f, 0.f, 0.f, 0.f), ob = oa;
+  if (oka || okb) {
+    if constexpr (V::FMT == F_RGBA) {
+      // raw colours: no basis, no sigmoid, a scale a channel
+      const float2 c0 = cell_pair<V::BF16>(wp, i);
+      const float2 c1 = cell_pair<V::BF16>(wp + plane, i);
+      const float2 c2 = cell_pair<V::BF16>(wp + 2 * plane, i);
+      const float q0 = c.qs[0], q1 = c.qs[1], q2 = c.qs[2];
+      if (oka)
+        oa = make_float4(sa, sa * (c0.x * q0), sa * (c1.x * q1),
+                         sa * (c2.x * q2));
+      if (okb)
+        ob = make_float4(sb, sb * (c0.y * q0), sb * (c1.y * q1),
+                         sb * (c2.y * q2));
+    } else {
+      const int nb = V::FMT == F_SH ? BD : o.nb;
+      const float ycm = ((float)gy + 0.5f) * c.invG - c.cy;
+      float bka[BD], bkb[BD];
+      voxel_basis<BD, V>(c, o, ycm, ((float)gx + 0.5f) * c.invG - c.cx,
+                         bka);
+      voxel_basis<BD, V>(c, o, ycm,
+                         ((float)(gx + 1) + 0.5f) * c.invG - c.cx, bkb);
+      float ra0 = 0.f, ra1 = 0.f, ra2 = 0.f, rb0 = 0.f, rb1 = 0.f,
+            rb2 = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < BD; ++kk) {
+        if constexpr (V::OPT) {
+          // the basis window and the lobe count: skip the plane's MACs
+          if (kk < o.blo || kk > o.bhi || kk >= nb) continue;
+        }
+        const float q = c.qs[kk];
+        const float qa = bka[kk] * q, qb = bkb[kk] * q;
+        const float2 c0 = cell_pair<V::BF16>(wp + kk * plane, i);
+        const float2 c1 = cell_pair<V::BF16>(wp + (nb + kk) * plane, i);
+        const float2 c2 = cell_pair<V::BF16>(wp + (2 * nb + kk) * plane, i);
+        ra0 += c0.x * qa;
+        ra1 += c1.x * qa;
+        ra2 += c2.x * qa;
+        rb0 += c0.y * qb;
+        rb1 += c1.y * qb;
+        rb2 += c2.y * qb;
+      }
+      if (oka)
+        oa = make_float4(sa, sa * fast_sigmoid(ra0), sa * fast_sigmoid(ra1),
+                         sa * fast_sigmoid(ra2));
+      if (okb)
+        ob = make_float4(sb, sb * fast_sigmoid(rb0), sb * fast_sigmoid(rb1),
+                         sb * fast_sigmoid(rb2));
+    }
+  }
+  out[0] = oa;
+  out[1] = ob;
+}
+
+// The option variants' shared memory: the rotation's 9 floats, then N - 9
+// floats of lobe parameters.
+template <int N>
+__device__ __forceinline__ float* opt_smem() {
+  __shared__ float s[N];
+  return s;
+}
+
 // The block's walk over its staged jobs, one per (slab, footprint piece),
 // in march order: the windows some pixel's z interval meets (live[wi]),
 // their occupied slabs, the pieces of each slab's non-empty tile
 // footprint: columns of up to MAX_COLS cells, staged from the 16-byte
 // chunk of the payload row that holds the first (cs, payload-relative;
-// the piece starts xoff cells into it) over BX cells (whole chunks), and
-// rows as many as the stage and the shaded-cell buffer hold (RP). The
-// producer walks it one job ahead of the consumer.
+// the piece starts xoff cells into it) over BX cells (whole chunks of CH
+// cells of ESZ bytes), and rows as many as the stage (in bytes) and the
+// shaded-cell buffer hold (RP). The producer walks it one job ahead of the
+// consumer.
+template <int CH, int ESZ>
 struct Walk {
   int wi, t, sid, py, px;
   float z;
   Footprint f;
 
   __device__ int cols() const { return min(MAX_COLS, f.x_hi - px + 1); }
-  __device__ int cs(const WalkGeo& g) const { return (px - g.xlo) & ~15; }
-  __device__ int xoff(const WalkGeo& g) const { return (px - g.xlo) & 15; }
+  __device__ int cs(const WalkGeo& g) const {
+    return (px - g.xlo) & ~(CH - 1);
+  }
+  __device__ int xoff(const WalkGeo& g) const {
+    return (px - g.xlo) & (CH - 1);
+  }
   __device__ int BX(const WalkGeo& g) const {
-    return (xoff(g) + cols() + 15) & ~15;
+    return (xoff(g) + cols() + CH - 1) & ~(CH - 1);
   }
   __device__ int RP(const WalkGeo& g) const {
     const int bx = BX(g);
-    return min(g.stage_bytes / (g.Dp * bx), g.chan_cells / bx);
+    return min(g.stage_bytes / (g.Dp * bx * ESZ), g.chan_cells / bx);
   }
   __device__ int rows(const WalkGeo& g) const {
     return min(RP(g), f.y_hi - py + 1);
@@ -277,42 +443,54 @@ struct Walk {
 
 // every thread: its share of the walk's current piece into ``st`` as
 // 16-byte cp.async copies, stage row ly holding the DP planes of BX cells
-// of payload row py + ly. A thread takes one (plane, chunk) column of the
-// piece and walks it down the rows, so each copy costs two adds; the
-// caller commits the group.
-template <int DP>
+// (ESZ bytes each) of payload row py + ly. A thread takes one (plane,
+// chunk) column of the piece and walks it down the rows, so each copy
+// costs two adds; the caller commits the group.
+template <int ESZ, class W>
 __device__ __forceinline__ void copy_piece(const int8_t* payload,
-                                           const Walk& pw, const WalkGeo& g,
+                                           const W& pw, const WalkGeo& g,
                                            uint8_t* st, int tid, int Gy,
-                                           int Gx, int y0) {
+                                           int Gx, int y0, const int DP) {
   const int bx = pw.BX(g);
-  const int nch = bx >> 4;
   const int rows = pw.rows(g);
   const size_t plane = (size_t)Gy * Gx;
-  const int8_t* base = payload + (size_t)pw.sid * DP * plane +
-                       (size_t)(pw.py - y0) * Gx + pw.cs(g);
-  const int rstride = DP * bx;
+  const int nch = (bx * ESZ) >> 4;
+  const uint8_t* base =
+      reinterpret_cast<const uint8_t*>(payload) +
+      ((size_t)pw.sid * DP * plane + (size_t)(pw.py - y0) * Gx + pw.cs(g)) *
+          ESZ;
+  const int rstride = DP * bx * ESZ;
   for (int u = tid; u < DP * nch; u += DNT) {
     const int d = u / nch, ch = u - d * nch;
-    const int8_t* src = base + d * plane + 16 * ch;
-    uint8_t* dst = st + d * bx + 16 * ch;
+    const uint8_t* src = base + d * plane * ESZ + 16 * ch;
+    uint8_t* dst = st + d * bx * ESZ + 16 * ch;
     for (int ly = 0; ly < rows; ++ly) {
       cp_async16(dst, src);
-      src += Gx;
+      src += Gx * ESZ;
       dst += rstride;
     }
   }
 }
 
 // A block: one tile of ROWS x 8 rows and 32 columns of one pose; a
-// thread owns column k of rows j0 + warp + 8 * rr.
-template <int BD, int ROWS>
-__global__ void __launch_bounds__(DNT, 2) display_kernel(const DispArgs a) {
-  constexpr int DP = 3 * BD + 2;
+// thread owns column k of rows j0 + warp + 8 * rr. V: the payload
+// element, format and options; BD: the SH basis dimension, the largest
+// SG/ASG lobe count of the instantiation, or 1 for RGBA.
+template <int BD, int ROWS, class V>
+__global__ void __launch_bounds__(DNT, 2)
+    display_kernel(const LaunchArgs args) {
+  const DispArgs& a = args.a;
+  // planes: compile-time for SH and RGBA, the lobe count's for SG/ASG
+  constexpr int DPC = V::FMT == F_SH     ? 3 * BD + V::SIGP
+                      : V::FMT == F_RGBA ? 3 + V::SIGP
+                                         : 0;
+  constexpr int DPMAX = DPC ? DPC : 3 * BD + V::SIGP;
+  const int DP = DPC ? DPC : a.Dp;
   constexpr int TY = DWARPS * ROWS;
+  using WalkV = Walk<V::CH, V::ESZ>;
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ float s_prm[NP];
-  __shared__ float s_qs[DP];
+  __shared__ float s_qs[DPMAX];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -332,6 +510,24 @@ __global__ void __launch_bounds__(DNT, 2) display_kernel(const DispArgs a) {
     s_m[i] = a.masks[i];
     s_live[i] = 0;
   }
+  OptCtx o{};  // read by the option variants only
+  if constexpr (V::OPT) {
+    constexpr int EXW = V::FMT == F_SG ? 4 : V::FMT == F_ASG ? 11 : 0;
+    float* s_opt = opt_smem<9 + EXW * BD>();
+#pragma unroll
+    for (int r = 0; r < 9; ++r)
+      if (tid == r) s_opt[r] = args.rot[r];
+    for (int i = tid; i < EXW * args.nb; i += DNT)
+      s_opt[9 + i] = args.extra[i];
+    o.rot = args.rot_on ? s_opt : nullptr;
+    o.ext = s_opt + 9;
+    o.nb = args.nb;
+    o.blo = args.blo;
+    o.bhi = args.bhi;
+    o.depth = args.depth;
+    o.bbox = args.bbox;
+    o.inv_nb = 1.f / (float)args.nb;
+  }
   __syncthreads();
 
   const float Gf = (float)G;
@@ -342,6 +538,15 @@ __global__ void __launch_bounds__(DNT, 2) display_kernel(const DispArgs a) {
   const float cyG = cy * Gf, cxG = cx * Gf;
   const float hG = 0.5f / Gf;
   const int K = a.K;
+  bool depth = false;  // the sigma channel alone is warped
+  if constexpr (V::OPT) {
+    o.lo1 = s_prm[16];
+    o.hi1 = s_prm[17];
+    o.lo2 = s_prm[18];
+    o.hi2 = s_prm[19];
+    o.h = hG;
+    depth = args.depth != 0;
+  }
 
   // this thread's pixels: column k, rows j0 + warp + 8 * rr
   const size_t npx = (size_t)gi * gi;
@@ -349,6 +554,7 @@ __global__ void __launch_bounds__(DNT, 2) display_kernel(const DispArgs a) {
   bool inpix[ROWS];
   float zlo[ROWS], zhi[ROWS], dtp[ROWS], ujG[ROWS];
   float r[ROWS], g[ROWS], b[ROWS], T[ROWS];
+  float tvb[ROWS];  // depth mode's tview base (zb plane 3)
   float4 w4[ROWS];
 #pragma unroll
   for (int rr = 0; rr < ROWS; ++rr) {
@@ -357,11 +563,13 @@ __global__ void __launch_bounds__(DNT, 2) display_kernel(const DispArgs a) {
     zlo[rr] = 1.f;  // an empty interval off-grid
     zhi[rr] = 0.f;
     dtp[rr] = 0.f;
+    tvb[rr] = 0.f;
     if (inpix[rr]) {
       const float* zbp = a.zb + (size_t)p * 4 * npx + (size_t)j * gi + k;
       zlo[rr] = zbp[0];
       zhi[rr] = zbp[npx];
       dtp[rr] = zbp[2 * npx];
+      if (depth) tvb[rr] = zbp[3 * npx];
     }
     ujG[rr] = (u0 + du * (float)j) * Gf;
     r[rr] = g[rr] = b[rr] = 0.f;
@@ -410,16 +618,16 @@ __global__ void __launch_bounds__(DNT, 2) display_kernel(const DispArgs a) {
   wg.ujGb = (u0 + du * (float)jl) * Gf;
   wg.vkGa = (v0 + dv * (float)k0) * Gf;
   wg.vkGb = (v0 + dv * (float)kl) * Gf;
-  Walk cw;
+  WalkV cw;
   bool has = cw.from(wg, 0, 0);
 
   // the producer: every thread copies its share, one job ahead
-  Walk pw = cw;
+  WalkV pw = cw;
   bool p_has = has;
   uint8_t* const st = smem;
   if (a.async) {
     if (p_has) {
-      copy_piece<DP>(a.payload, pw, wg, st, tid, a.Gy, a.Gx, a.y0);
+      copy_piece<V::ESZ>(a.payload, pw, wg, st, tid, a.Gy, a.Gx, a.y0, DP);
       p_has = pw.next(wg);
     }
     cp_async_commit();
@@ -463,21 +671,38 @@ __global__ void __launch_bounds__(DNT, 2) display_kernel(const DispArgs a) {
       sh.ssign = sign_of(sh.sc);
     }
     const int FY = cw.rows(wg), FX = cw.cols(), BX = cw.BX(wg);
-    // the piece's cells are row bytes [xoff, xoff + FX) of the stage, from
-    // payload column cs (global column x0 + cs + byte)
+    // the piece's cells are row cells [xoff, xoff + FX) of the stage, from
+    // payload column cs (global column x0 + cs + cell)
     const int xoff = cw.xoff(wg), gx0 = a.x0 + cw.cs(wg);
     if (!a.async) {
       // synchronous staging: the piece's rows, lanes along x
-      const int8_t* src = a.payload + (size_t)cw.sid * DP * a.Gy * a.Gx;
       const int cs = cw.cs(wg);
-      for (int row = warp; row < FY * DP; row += DWARPS) {
-        const int ly = row / DP, d = row - ly * DP;
-        const int gy = cw.py - a.y0 + ly;
-        for (int lx = lane; lx < BX; lx += 32) {
-          const int gx = cs + lx;
-          st[row * BX + lx] =
-              gx < a.Gx ? (uint8_t)src[((size_t)d * a.Gy + gy) * a.Gx + gx]
-                        : 0;
+      if constexpr (V::BF16) {
+        const uint16_t* src =
+            reinterpret_cast<const uint16_t*>(a.payload) +
+            (size_t)cw.sid * DP * a.Gy * a.Gx;
+        uint16_t* st16 = reinterpret_cast<uint16_t*>(st);
+        for (int row = warp; row < FY * DP; row += DWARPS) {
+          const int ly = row / DP, d = row - ly * DP;
+          const int gy = cw.py - a.y0 + ly;
+          for (int lx = lane; lx < BX; lx += 32) {
+            const int gx = cs + lx;
+            st16[row * BX + lx] =
+                gx < a.Gx ? src[((size_t)d * a.Gy + gy) * a.Gx + gx]
+                          : (uint16_t)0;
+          }
+        }
+      } else {
+        const int8_t* src = a.payload + (size_t)cw.sid * DP * a.Gy * a.Gx;
+        for (int row = warp; row < FY * DP; row += DWARPS) {
+          const int ly = row / DP, d = row - ly * DP;
+          const int gy = cw.py - a.y0 + ly;
+          for (int lx = lane; lx < BX; lx += 32) {
+            const int gx = cs + lx;
+            st[row * BX + lx] =
+                gx < a.Gx ? (uint8_t)src[((size_t)d * a.Gy + gy) * a.Gx + gx]
+                          : 0;
+          }
         }
       }
       __syncthreads();
@@ -490,14 +715,20 @@ __global__ void __launch_bounds__(DNT, 2) display_kernel(const DispArgs a) {
       const int units = FY * pcols;
       for (int u = tid; u < units; u += DNT) {
         const int ly = u / pcols, x = 2 * (p_lo + u - ly * pcols);
-        shade_pair<BD>(st + ly * DP * BX + (x & ~3), BX, x & 3, sh,
-                       cw.py + ly, gx0 + x, s_chan + ly * BX + x);
+        if constexpr (V::BF16) {
+          shade_pair<BD, V>(st + 2 * (ly * DP * BX + x), 2 * BX, 0, sh, o,
+                            DP, cw.py + ly, gx0 + x, s_chan + ly * BX + x);
+        } else {
+          shade_pair<BD, V>(st + ly * DP * BX + (x & ~3), BX, x & 3, sh, o,
+                            DP - 1, cw.py + ly, gx0 + x,
+                            s_chan + ly * BX + x);
+        }
       }
     }
     __syncthreads();  // the stage is consumed, s_chan is complete
     if (a.async) {
       if (p_has) {
-        copy_piece<DP>(a.payload, pw, wg, st, tid, a.Gy, a.Gx, a.y0);
+        copy_piece<V::ESZ>(a.payload, pw, wg, st, tid, a.Gy, a.Gx, a.y0, DP);
         p_has = pw.next(wg);
       }
       cp_async_commit();
@@ -517,16 +748,27 @@ __global__ void __launch_bounds__(DNT, 2) display_kernel(const DispArgs a) {
         const int xa = max(sp.rx_lo, cw.px);
         const int xb = min(sp.rx_hi, cw.px + FX - 1);
         float4 acc = w4[rr];
-        for (int cyy = ya; cyy <= yb; ++cyy) {
-          const float wr = overlap(cyy, G, sp.pmin, sp.pmax, sp.inv_r);
-          const float4* row = s_chan + (cyy - cw.py) * BX;
-          for (int cxx = xa; cxx <= xb; ++cxx) {
-            const float wgt = wr * overlap(cxx, G, sp.qmin, sp.qmax, sp.inv_c);
-            const float4 v = row[cxx - gx0];
-            acc.x += wgt * v.x;
-            acc.y += wgt * v.y;
-            acc.z += wgt * v.z;
-            acc.w += wgt * v.w;
+        if (depth) {
+          for (int cyy = ya; cyy <= yb; ++cyy) {
+            const float wr = overlap(cyy, G, sp.pmin, sp.pmax, sp.inv_r);
+            const float4* row = s_chan + (cyy - cw.py) * BX;
+            for (int cxx = xa; cxx <= xb; ++cxx)
+              acc.x += wr * overlap(cxx, G, sp.qmin, sp.qmax, sp.inv_c) *
+                       row[cxx - gx0].x;
+          }
+        } else {
+          for (int cyy = ya; cyy <= yb; ++cyy) {
+            const float wr = overlap(cyy, G, sp.pmin, sp.pmax, sp.inv_r);
+            const float4* row = s_chan + (cyy - cw.py) * BX;
+            for (int cxx = xa; cxx <= xb; ++cxx) {
+              const float wgt =
+                  wr * overlap(cxx, G, sp.qmin, sp.qmax, sp.inv_c);
+              const float4 v = row[cxx - gx0];
+              acc.x += wgt * v.x;
+              acc.y += wgt * v.y;
+              acc.z += wgt * v.z;
+              acc.w += wgt * v.w;
+            }
           }
         }
         w4[rr] = acc;
@@ -538,13 +780,22 @@ __global__ void __launch_bounds__(DNT, 2) display_kernel(const DispArgs a) {
               1.f);
           const float tau = acc.x * dtp[rr] * frac;
           const float att = __expf(-tau);
-          const float sig_inv = 1.f / fmaxf(acc.x, 1e-12f);
-          if (T[rr] >= stop_thresh && tau > 0.f) {
-            const float wn = (T[rr] * (1.f - att)) * sig_inv;
-            r[rr] += wn * acc.y;
-            g[rr] += wn * acc.z;
-            b[rr] += wn * acc.w;
-            T[rr] = T[rr] * att;
+          if (depth) {
+            // depth: w * |z - z0| * tview (pallas_slab.py's depth mode)
+            if (T[rr] >= stop_thresh && tau > 0.f) {
+              r[rr] += (T[rr] * (1.f - att)) * fabsf(z - s_prm[29]) *
+                       tvb[rr];
+              T[rr] = T[rr] * att;
+            }
+          } else {
+            const float sig_inv = 1.f / fmaxf(acc.x, 1e-12f);
+            if (T[rr] >= stop_thresh && tau > 0.f) {
+              const float wn = (T[rr] * (1.f - att)) * sig_inv;
+              r[rr] += wn * acc.y;
+              g[rr] += wn * acc.z;
+              b[rr] += wn * acc.w;
+              T[rr] = T[rr] * att;
+            }
           }
         }
       }
@@ -568,41 +819,75 @@ __global__ void __launch_bounds__(DNT, 2) display_kernel(const DispArgs a) {
   }
 }
 
-using KernFn = void (*)(const DispArgs);
+using KernFn = void (*)(const LaunchArgs);
 
-template <int BD>
+// The instantiations: SH (degrees 0-4) without options on both payloads
+// at both tile heights; SH with options, SG and ASG (lobe counts up to 4,
+// 9, 16, 25) and RGBA, on both payloads, at 32x8.
+template <int BD, class V>
 KernFn pick_rows(int rows) {
-  switch (rows) {
-    case 1: return display_kernel<BD, 1>;
-    case 2: return display_kernel<BD, 2>;
+  if (rows == 1) return display_kernel<BD, 1, V>;
+  if constexpr (!V::OPT) {
+    if (rows == 2) return display_kernel<BD, 2, V>;
+  }
+  return nullptr;
+}
+
+template <class V>
+KernFn pick_sh(int bd, int rows) {
+  switch (bd) {
+    case 1: return pick_rows<1, V>(rows);
+    case 4: return pick_rows<4, V>(rows);
+    case 9: return pick_rows<9, V>(rows);
+    case 16: return pick_rows<16, V>(rows);
+    case 25: return pick_rows<25, V>(rows);
     default: return nullptr;
   }
 }
 
-KernFn pick(int bd, int rows) {
-  switch (bd) {
-    case 1: return pick_rows<1>(rows);
-    case 4: return pick_rows<4>(rows);
-    case 9: return pick_rows<9>(rows);
-    case 16: return pick_rows<16>(rows);
-    case 25: return pick_rows<25>(rows);
+template <class V>
+KernFn pick_lobes(int nb, int rows) {
+  if (nb < 1 || rows != 1) return nullptr;
+  if (nb <= 4) return display_kernel<4, 1, V>;
+  if (nb <= 9) return display_kernel<9, 1, V>;
+  if (nb <= 16) return display_kernel<16, 1, V>;
+  if (nb <= 25) return display_kernel<25, 1, V>;
+  return nullptr;
+}
+
+template <bool BF>
+KernFn pick_payload(int bd, int rows, int fmt, int opt) {
+  if (fmt == F_SH)
+    return opt ? pick_sh<Var<BF, F_SH, true>>(bd, rows)
+               : pick_sh<Var<BF, F_SH, false>>(bd, rows);
+  if (!opt || rows != 1) return nullptr;
+  switch (fmt) {
+    case F_SG: return pick_lobes<Var<BF, F_SG, true>>(bd, rows);
+    case F_ASG: return pick_lobes<Var<BF, F_ASG, true>>(bd, rows);
+    case F_RGBA: return display_kernel<1, 1, Var<BF, F_RGBA, true>>;
     default: return nullptr;
   }
+}
+
+// the kernel of (bd, rows, fmt, bf16, opt); null when none is built
+const void* pick_any(int bd, int rows, int fmt, int bf16, int opt) {
+  return bf16 ? (const void*)pick_payload<true>(bd, rows, fmt, opt)
+              : (const void*)pick_payload<false>(bd, rows, fmt, opt);
 }
 
 // Let ``fn`` take ``smem`` bytes of dynamic shared memory; the attribute is
 // set again only when a kernel's size changes (one host call saved a
 // launch, which counts for one-pose launches).
-cudaError_t allow_smem(KernFn fn, int smem) {
-  static KernFn fns[32];
-  static int sizes[32];
+cudaError_t allow_smem(const void* fn, int smem) {
+  static const void* fns[64];
+  static int sizes[64];
   static int n = 0;
   int i = 0;
   while (i < n && fns[i] != fn) ++i;
   if (i < n && sizes[i] == smem) return cudaSuccess;
   const cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e == cudaSuccess && i < 32) {
+  if (e == cudaSuccess && i < 64) {
     fns[i] = fn;
     sizes[i] = smem;
     if (i == n) ++n;
@@ -623,22 +908,36 @@ int display_smem(int stage_bytes, int chan_cells, int n_win) {
 // 32x16). stage_bytes: the stage's size (a multiple of 16, at least one
 // 256-cell row of Dp planes); chan_cells: the shaded-cell buffer's cells
 // (>= 256). A payload whose rows are whole 16-byte chunks of a 16-byte
-// aligned base is staged with cp.async, any other with byte copies.
-// Returns cudaGetLastError() after the launch.
+// aligned base is staged with cp.async, any other with element copies.
+// The variant: fmt (0 RGBA, bd = -1; 1 SH; 2 SG, 3 ASG with bd lobes, 1 to
+// 25, whose parameters ``extra`` holds on the device), bf16 (the f16
+// bake's payload, Dp = D; else int8, Dp = D + 1) and opt (the option
+// variant, which every format but SH needs, and SH with depth, rot (9
+// floats on the host), bbox (params 16-19) or a basis window [basis_lo,
+// basis_hi] that drops planes). Returns cudaGetLastError() after the
+// launch.
 extern "C" int vt_march_display(const void* payload, const void* params,
                                 const void* qscale, const void* zb,
                                 const void* wins_masks, int n_win, void* acc,
                                 int P, int G, int gi, int Dp, int Gy, int Gx,
                                 int y0, int x0, int bd, int K, int flip,
                                 int rows, int stage_bytes, int chan_cells,
+                                int fmt, int bf16, int opt, const void* extra,
+                                int depth, int rot_on, const void* rot,
+                                int bbox, int basis_lo, int basis_hi,
                                 void* stream) {
-  if (Dp != 3 * bd + 2 || P < 1 || gi < 1 || K < 1 || n_win < 1 ||
-      Dp > 256 || stage_bytes % 16 || stage_bytes < Dp * 256 ||
-      chan_cells < 256)
+  const int esz = bf16 ? 2 : 1, sigp = bf16 ? 1 : 2;
+  const int D = fmt == F_RGBA ? 4 : 3 * bd + 1;
+  const bool cuts = fmt == F_SH && (basis_lo > 0 || basis_hi < bd - 1);
+  if ((fmt == F_RGBA) != (bd < 0) || Dp != D - 1 + sigp || P < 1 ||
+      gi < 1 || K < 1 || n_win < 1 || Dp > 256 || stage_bytes % 16 ||
+      stage_bytes < Dp * 256 * esz || chan_cells < 256 ||
+      (!opt && (fmt != F_SH || depth || rot_on || bbox || cuts)) ||
+      (rot_on && !rot) || (fmt >= F_SG && !extra))
     return (int)cudaErrorInvalidValue;
   // cp.async moves whole 16-byte chunks of 16-byte aligned rows
-  const bool async = Gx % 16 == 0 && (uintptr_t)payload % 16 == 0;
-  const KernFn fn = pick(bd, rows);
+  const bool async = (Gx * esz) % 16 == 0 && (uintptr_t)payload % 16 == 0;
+  const void* fn = pick_any(bd, rows, fmt, bf16, opt);
   if (!fn) return (int)cudaErrorInvalidValue;
   const int ntx = (gi + DTX - 1) / DTX;
   const int nty = (gi + DWARPS * rows - 1) / (DWARPS * rows);
@@ -647,7 +946,8 @@ extern "C" int vt_march_display(const void* payload, const void* params,
   const int smem = display_smem(stage_bytes, chan_cells, n_win);
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   const int* wins = (const int*)wins_masks;
-  DispArgs a;
+  LaunchArgs v;
+  DispArgs& a = v.a;
   a.payload = (const int8_t*)payload;
   a.params = (const float*)params;
   a.qscale = (const float*)qscale;
@@ -670,18 +970,28 @@ extern "C" int vt_march_display(const void* payload, const void* params,
   a.chan_cells = chan_cells;
   a.async = async ? 1 : 0;
   a.ntx = ntx;
+  v.extra = (const float*)extra;
+  v.nb = fmt == F_RGBA ? 1 : bd;
+  v.depth = depth;
+  v.rot_on = rot_on;
+  v.bbox = bbox;
+  v.blo = basis_lo;
+  v.bhi = basis_hi;
+  for (int i = 0; i < 9; ++i)
+    v.rot[i] = rot_on ? ((const float*)rot)[i] : (i % 4 == 0 ? 1.f : 0.f);
   const cudaError_t e = allow_smem(fn, smem);
   if (e != cudaSuccess) return (int)e;
-  fn<<<(unsigned)blocks, DNT, smem, (cudaStream_t)stream>>>(a);
+  ((KernFn)fn)<<<(unsigned)blocks, DNT, smem, (cudaStream_t)stream>>>(v);
   return (int)cudaGetLastError();
 }
 
-// What the card makes of the kernel for ``bd`` and ``rows`` at ``smem``
-// bytes of dynamic shared memory: out[0] resident blocks per SM, out[1]
-// registers a thread, out[2] local (spill) bytes a thread, out[3] static
-// shared bytes.
-extern "C" int vt_march_display_info(int bd, int rows, int smem, int* out) {
-  const KernFn fn = pick(bd, rows);
+// What the card makes of the variant (bd, rows, fmt, bf16, opt as for
+// vt_march_display) at ``smem`` bytes of dynamic shared memory: out[0]
+// resident blocks per SM, out[1] registers a thread, out[2] local (spill)
+// bytes a thread, out[3] static shared bytes.
+extern "C" int vt_march_display_info(int bd, int rows, int fmt, int bf16,
+                                     int opt, int smem, int* out) {
+  const void* fn = pick_any(bd, rows, fmt, bf16, opt);
   if (!fn || smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   cudaError_t e = allow_smem(fn, smem);
   if (e != cudaSuccess) return (int)e;

@@ -22,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict
 
@@ -36,11 +37,13 @@ SOURCES = {
     "slab_march_display": ("slab_march_display.cu", {
         # payload, params, qscale, zb, wins_masks, n_win, acc,
         # P, G, gi, Dp, Gy, Gx, y0, x0, bd, K, flip, rows, stage_bytes,
-        # chan_cells, stream
+        # chan_cells, fmt, bf16, opt, extra, depth, rot_on, rot (host
+        # float[9]), bbox, basis_lo, basis_hi, stream
         "vt_march_display": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
-                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-        # bd, rows, smem, out (int[4])
-        "vt_march_display_info": [_I, _I, _I, _P],
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _P, _I, _I, _P, _I, _I, _I, _P],
+        # bd, rows, fmt, bf16, opt, smem, out (int[4])
+        "vt_march_display_info": [_I, _I, _I, _I, _I, _I, _P],
     }),
     "slab_march": ("slab_march.cu", {
         # payload, pay_f32, ss, sr, sc, params, qscale, zb, ids, n_ids, occ,
@@ -154,8 +157,9 @@ def _target(name: str) -> Path:
 def build_all() -> Dict[str, str]:
     """Compile every kernel library that is not built yet, one ``nvcc``
     process per source, all started together. Returns {name: nvcc log}
-    (the ``-Xptxas -v`` register/shared-memory report) for the libraries
-    built by this call; raises if any build fails."""
+    (the ``-Xptxas -v`` register/shared-memory report, after a first line
+    ``nvcc seconds: <wall time>``) for the libraries built by this call;
+    raises if any build fails."""
     build_dir().mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, (src, _) in SOURCES.items():
@@ -163,15 +167,24 @@ def build_all() -> Dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        procs[name] = (subprocess.Popen(
-            [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_CSRC / src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-            tmp, out)
+        logf = out.with_suffix(".log")
+        with open(logf, "w") as fh:
+            procs[name] = (subprocess.Popen(
+                [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_CSRC / src)],
+                stdout=fh, stderr=subprocess.STDOUT), tmp, out, logf)
+    t0 = time.perf_counter()
+    secs, pending = {}, set(procs)
+    while pending:
+        for name in list(pending):
+            if procs[name][0].poll() is not None:
+                secs[name] = time.perf_counter() - t0
+                pending.discard(name)
+        time.sleep(0.05)
     logs, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
+    for name, (proc, tmp, out, logf) in procs.items():
+        log = f"nvcc seconds: {secs[name]:.1f}\n" + logf.read_text()
+        logf.write_text(log)
         logs[name] = log
-        out.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
             failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
         else:

@@ -1,9 +1,8 @@
-"""Spherical-harmonic basis evaluation on tensors.
+"""Basis evaluation on tensors: spherical harmonics and the SG/ASG lobes.
 
 Vectorized re-derivation of the reference per-ray basis precompute
 (``include/volrend/internal/lumisphere.hpp:9-87``) with identical hardcoded
-SH coefficients. The SG/ASG lobes come with the other formats in a later
-slice; ``eval_basis`` raises for them.
+SH coefficients.
 """
 
 from __future__ import annotations
@@ -64,16 +63,37 @@ def eval_sh_basis(dirs: torch.Tensor, basis_dim: int) -> torch.Tensor:
     return torch.stack(out, dim=-1)
 
 
+def eval_sg_basis(dirs: torch.Tensor, extra) -> torch.Tensor:
+    """Spherical gaussians: extra is (basis_dim, 4) = [lambda, mu_x, mu_y,
+    mu_z]; out_i = exp(lambda_i * (mu_i . d - 1)) / basis_dim
+    (lumisphere.hpp:30-36)."""
+    extra = torch.as_tensor(extra, dtype=dirs.dtype, device=dirs.device)
+    dot = torch.einsum("...d,bd->...b", dirs, extra[:, 1:4])
+    return torch.exp(extra[:, 0] * (dot - 1.0)) / extra.shape[0]
+
+
+def eval_asg_basis(dirs: torch.Tensor, extra) -> torch.Tensor:
+    """Anisotropic SG: extra is (basis_dim, 11) = [a, b, mu_x(3), mu_y(3),
+    mu_z(3)] (lumisphere.hpp:14-28); out_i = (d . mu_z) * exp(-a (d.mu_x)^2
+    - b (d.mu_y)^2) / basis_dim."""
+    extra = torch.as_tensor(extra, dtype=dirs.dtype, device=dirs.device)
+    dx = torch.einsum("...d,bd->...b", dirs, extra[:, 2:5])
+    dy = torch.einsum("...d,bd->...b", dirs, extra[:, 5:8])
+    s = torch.einsum("...d,bd->...b", dirs, extra[:, 8:11])
+    return (s * torch.exp(-extra[:, 0] * dx * dx - extra[:, 1] * dy * dy)
+            / extra.shape[0])
+
+
 def eval_basis(fmt: BasisType, basis_dim: int, dirs: torch.Tensor,
                extra=None):
     """Dispatch on data format; RGBA returns None (no basis)."""
     if fmt == BasisType.SH:
         return eval_sh_basis(dirs, basis_dim)
-    if fmt == BasisType.RGBA:
-        return None
-    raise NotImplementedError(
-        f"basis {BasisType(fmt).name}: the SG/ASG formats are ported in "
-        "slice B (ROADMAP.md)")
+    if fmt == BasisType.SG:
+        return eval_sg_basis(dirs, extra)
+    if fmt == BasisType.ASG:
+        return eval_asg_basis(dirs, extra)
+    return None
 
 
 def apply_basis_window(basis_vals: torch.Tensor, basis_minmax) -> torch.Tensor:

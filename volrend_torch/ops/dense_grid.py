@@ -8,9 +8,10 @@ holds *exactly* the leaf values (piecewise-constant equivalence — splitting
 a leaf chord into same-valued subsegments leaves front-to-back compositing
 algebraically unchanged).
 
-The ``int8`` bake is the display path's payload: per-basis-shared signed
-int8 colour codes plus a 14-bit fixed-point sigma split over two int8
-planes, dequantized inside the march kernel.
+Two bakes feed the display path: ``int8`` (per-basis-shared signed int8
+colour codes plus a 14-bit fixed-point sigma split over two int8 planes,
+dequantized inside the march kernel) and ``f16`` (the leaf values, marched
+as a bf16 payload).
 """
 
 from __future__ import annotations
@@ -131,6 +132,47 @@ def _quantize_int8(data: torch.Tensor, basis_dim: int):
     return out, torch.cat([qs_c, qs_s[None], qs_s[None]])
 
 
+def _supersample_edge_band(dev, data: torch.Tensor, G: int, meta,
+                           n_sub: int, thresh: float,
+                           chunk: int = 2 ** 21) -> torch.Tensor:
+    """Re-bake the occupancy-boundary voxels (sigma crosses ``thresh``
+    across a face neighbour) as the mean of n_sub^3 sub-centre octree
+    samples: area-weighted silhouettes. Interior and empty voxels keep
+    their point sample. ``data`` (G, G, G, D) is updated in place and
+    returned."""
+    occ = data[..., -1].to(torch.float32) > thresh
+    band = torch.zeros_like(occ)
+    for ax in range(3):
+        a = occ.transpose(0, ax)
+        b = band.transpose(0, ax)
+        edge = a[1:] != a[:-1]
+        b[1:] |= edge
+        b[:-1] |= edge
+    ids = torch.nonzero(band.reshape(-1))[:, 0].to(torch.int32)
+    if ids.numel() == 0:
+        return data
+    D = data.shape[-1]
+    offs = (torch.arange(n_sub, dtype=torch.float32, device=data.device)
+            + 0.5) / n_sub
+    sub = torch.stack(torch.meshgrid(offs, offs, offs, indexing="ij"),
+                      -1).reshape(-1, 3)                          # (n^3, 3)
+    flat = data.view(-1, D)
+    step = max(1, chunk // n_sub ** 3)
+    for c0 in range(0, ids.numel(), step):
+        vox = ids[c0:c0 + step]
+        z = torch.div(vox, G * G, rounding_mode="floor")
+        y = torch.remainder(torch.div(vox, G, rounding_mode="floor"), G)
+        x = torch.remainder(vox, G)
+        base = torch.stack([z, y, x], -1).to(torch.float32)
+        pos = ((base[:, None, :] + sub[None]) / G).reshape(-1, 3)
+        leaf_idx, _, _ = render_exact._query(dev.child, dev.lut, pos, meta)
+        rows = render_exact._fetch_rows(dev.data, leaf_idx)[:, :D]
+        flat[vox.long()] = torch.mean(
+            rows.to(torch.float32).reshape(vox.numel(), -1, D), 1
+        ).to(data.dtype)
+    return data
+
+
 def bake_dense(tree, G: Optional[int] = None,
                chunk: int = 2 ** 21, dtype: str = "f16",
                edge_supersample: int = 0,
@@ -143,12 +185,12 @@ def bake_dense(tree, G: Optional[int] = None,
     G: grid resolution; default = the tree's full resolution (exact bake).
     dtype: "f16" (exact leaf values) or "int8" (per-channel linear
         quantization, dequantized on the fly inside the march kernel).
-    edge_supersample: not ported (it is a no-op at the full resolution the
-        display path bakes at); values >= 2 raise.
+    edge_supersample: when n >= 2, the voxels of the occupancy boundary
+        band (sigma crosses ``edge_thresh`` across a face neighbour) are
+        re-baked as the mean of n^3 sub-centre samples (an anti-aliased
+        silhouette); a no-op at the tree's full resolution, where every
+        sub-sample lands in the voxel's own leaf. 0/1 = off.
     """
-    if edge_supersample >= 2:
-        raise NotImplementedError(
-            "edge_supersample is not on the display path and is not ported")
     if dtype not in ("f16", "int8"):
         raise ValueError(f"unsupported grid dtype {dtype!r}")
     if isinstance(tree, N3Tree):
@@ -176,6 +218,10 @@ def bake_dense(tree, G: Optional[int] = None,
         data[c0:c0 + chunk] = render_exact._fetch_rows(
             dev.data, leaf_idx)[:, :D]
     data = data.reshape(G, G, G, D)
+    if edge_supersample >= 2:
+        data = _supersample_edge_band(dev, data, G, meta,
+                                      int(edge_supersample),
+                                      float(edge_thresh))
     sigma_grid = data[..., -1].to(torch.bfloat16)
     occ_max = _occupancy(sigma_grid)
     qscale = torch.ones((D,), dtype=torch.float32, device=device_)

@@ -15,25 +15,28 @@ and, per slab and per intermediate pixel of the (gi, gi) slope grid:
 - composites tau = sigma_w * dt_pix * frac_z front to back with the
   stop-threshold freeze.
 
-Two option sets are taken, both SH:
+Two option sets are taken:
 
 - the display path's: an int8 payload (colour codes, then the 14-bit
-  sigma's hi and lo planes, Dp = D + 1; ``sig2=True``) with the view
-  direction taken once per K-slab window at the window centre
-  (``dir_win=True``);
-- the training path's: the bake's own f32 or bf16 tensor, seen as the
+  sigma's hi and lo planes, Dp = D + 1; ``sig2=True``) or the f16 bake's
+  bf16 payload (sigma in the last plane, Dp = D), with the view direction
+  taken once per K-slab window at the window centre (``dir_win=True``);
+  every format (SH, SG and ASG with their lobes in ``extra``, RGBA) and
+  option (depth mode, ``rot``, a non-full bbox, any basis window);
+- the training path's: SH, the bake's own f32 or bf16 tensor, seen as the
   (Gz, D, Gy, Gx) view of the pose group's permutation (channel stride 1:
   each voxel's D values are one record; ``_record_strides``), with
   sigma last and the view direction per slab (``dir_win=False``), all slabs
   or a culled list. Both versions round f32 to bf16 as they read it, so
   both dtypes march the values of the bake's bf16 copy.
   ``march_slabs_bwd`` is its payload cotangent, written through the same
-  strides.
+  strides. Its other formats and options are item 10b (ROADMAP.md).
 
 On CUDA tensors ``march_slabs`` launches kernel M, one launch per pose
 batch: its display mode (``csrc/slab_march_display.cu``, which stages each
 tile's footprint with cp.async; ``display_config`` picks its tile height
-and sizes its stage) or its training mode (``csrc/slab_march.cu``, which
+and sizes its stage; ``display_variant`` names the instantiation a
+launch takes) or its training mode (``csrc/slab_march.cu``, which
 stages sigma ahead, skips footprints with no voxel above the threshold and
 stages colour only above it; its tile, pieces and ring are fixed when it
 is built, ``csrc/slab_common.cuh``); ``march_slabs_bwd`` launches the
@@ -75,6 +78,9 @@ _K_STEP = 4
 # params vector layout (f32): see _pack_params (+1 slot appended by
 # march_slabs: [30] = z_base, the global z of the payload's first slab)
 _NP = 31
+
+#: the display kernel's rotation when rot_dirs is off
+_IDENTITY = (1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0)
 
 #: dynamic shared memory a display block may take (two blocks an SM)
 _DISPLAY_SMEM = 110 * 1024
@@ -145,67 +151,134 @@ def _window_masks(slab_ids: Sequence[int], K: int
     return win_order, [win_mask[w] for w in win_order]
 
 
-def _later_slices(unsupported: List[str]) -> None:
+#: the SG/ASG lobe counts kernel M's display mode takes (the kernel is
+#: compiled for lobe counts up to 4, 9, 16 and 25)
+DISPLAY_LOBES = range(1, 26)
+
+
+def _later_items(unsupported: List[str]) -> None:
     if unsupported:
         raise NotImplementedError(
-            "march_slabs takes the display path's SH int8 options and the "
-            "training path's SH bf16 options only; "
-            + ", ".join(unsupported) + " come with slices B-D (ROADMAP.md)")
+            "march_slabs: " + "; ".join(unsupported) + " (ROADMAP.md)")
 
 
-def _common_unsupported(D, bd, fmt, rot, basis_lo, basis_hi,
-                        bbox_full) -> List[str]:
-    unsupported = []
-    if BasisType(fmt) != BasisType.SH or bd not in basis_mod.SH_SUPPORTED_DIMS:
-        unsupported.append(f"format {BasisType(fmt).name}{bd}")
-    if D != 3 * bd + 1:
-        unsupported.append(f"data_dim {D} for SH{bd}")
-    if rot is not None:
-        unsupported.append("rot_dirs")
-    if not bbox_full:
-        unsupported.append("a non-full render_bbox")
-    if (basis_lo, basis_hi) != (0, 24):
-        unsupported.append(f"basis window ({basis_lo}, {basis_hi})")
-    return unsupported
-
-
-def _check_options(gplanar, G, D, bd, sig2, fmt, depth, rot, basis_lo,
-                   basis_hi, bbox_full, shade_bf16, dir_win, z_base,
-                   acc_init):
-    """The display path's option set (int8) or the training path's (f32 or
-    bf16); anything else is a later slice."""
-    unsupported = _common_unsupported(D, bd, fmt, rot, basis_lo, basis_hi,
-                                      bbox_full)
-    train = gplanar.dtype in _TRAIN_DTYPES
-    if depth:
-        unsupported.append("depth mode")
-    if shade_bf16:
-        unsupported.append("bf16 shading")
-    if train:
-        if dir_win:
-            unsupported.append("window shading directions (dir_win=True) "
-                               "on a bf16 (f16-bake) payload")
+def _check_format(fmt, bd: int, D: int, extra) -> None:
+    """The basis formats of the march (the reference's ``_pallas_ok``):
+    SH of degree 0-4, SG and ASG with their lobes in ``extra`` (bd x 4 and
+    bd x 11 floats), RGBA with D = 4."""
+    bt = BasisType(fmt)
+    if bt in (BasisType.SG, BasisType.ASG):
+        if bd not in DISPLAY_LOBES:
+            raise ValueError(
+                f"{bt.name}{bd}: the march takes {DISPLAY_LOBES.start}.."
+                f"{DISPLAY_LOBES.stop - 1} lobes")
+        n = bd * (4 if bt == BasisType.SG else 11)
+        ok = (D == 3 * bd + 1 and extra is not None
+              and int(torch.as_tensor(extra).numel()) == n)
+    elif bt == BasisType.SH:
+        ok = bd in basis_mod.SH_SUPPORTED_DIMS and D == 3 * bd + 1
     else:
-        if not sig2:
-            unsupported.append("a bf16 (f16-bake) payload")
-        if not dir_win:
-            unsupported.append("per-slab shading directions (dir_win=False) "
-                               "on the int8 payload")
-    if z_base is not None or acc_init is not None:
-        unsupported.append("z-sharded segments")
-    _later_slices(unsupported)
-    if gplanar.dim() != 4 or not (train or gplanar.dtype == torch.int8):
+        ok = bd < 0 and D == 4
+    if not ok:
+        raise ValueError(f"format {bt.name}{bd} with data_dim {D} (and "
+                         f"extra of its lobes) is not a march format")
+
+
+def _train_unsupported(fmt, depth, rot, basis_lo, basis_hi,
+                       bbox_full) -> List[str]:
+    """The formats and options of the display path that the training
+    payload does not take yet (item 10b)."""
+    out = []
+    if BasisType(fmt) != BasisType.SH:
+        out.append(f"format {BasisType(fmt).name}")
+    if depth:
+        out.append("depth mode")
+    if rot is not None:
+        out.append("rot_dirs")
+    if not bbox_full:
+        out.append("a non-full render_bbox")
+    if (basis_lo, basis_hi) != (0, 24):
+        out.append(f"basis window ({basis_lo}, {basis_hi})")
+    if out:
+        return [", ".join(out) + " on the training payload come with "
+                "item 10b"]
+    return []
+
+
+def _check_options(gplanar, G, D, bd, sig2, fmt, extra, depth, rot,
+                   basis_lo, basis_hi, bbox_full, shade_bf16, dir_win,
+                   z_base, acc_init) -> bool:
+    """The display path's option set (an int8 payload or the f16 bake's
+    bf16 one, window directions: every format and option) or the training
+    path's (f32 or bf16, per-slab directions, SH); anything else is a later
+    item. Returns True for a display payload."""
+    dt = gplanar.dtype
+    if gplanar.dim() != 4 or dt not in (torch.int8,) + _TRAIN_DTYPES:
         raise ValueError(f"payload must be (Gz, Dp, Gy, Gx) int8, f32 or "
-                         f"bf16, got {tuple(gplanar.shape)} {gplanar.dtype}")
-    if train and sig2:
-        raise ValueError("a training payload holds sigma in one plane (sig2 "
-                         "is the int8 split)")
-    Dp = D if train else D + 1
+                         f"bf16, got {tuple(gplanar.shape)} {dt}")
+    display = dt == torch.int8 or (dt == torch.bfloat16 and dir_win)
+    later = []
+    if shade_bf16:
+        later.append("bf16 shading comes with item 10c")
+    if dt == torch.int8 and not dir_win:
+        later.append("per-slab shading directions (dir_win=False) on the "
+                     "int8 payload come with item 10c")
+    if z_base is not None or acc_init is not None:
+        later.append("z-sharded segments (z_base, acc_init) come with "
+                     "item 19, slice D")
+    if not display:
+        later += _train_unsupported(fmt, depth, rot, basis_lo, basis_hi,
+                                    bbox_full)
+    _later_items(later)
+    if dt == torch.float32 and dir_win:
+        raise ValueError("window shading directions take the display "
+                         "path's int8 or bf16 payload, not f32")
+    _check_format(fmt, bd, D, extra)
+    if sig2 != (dt == torch.int8):
+        raise ValueError("an int8 payload carries the 14-bit sigma split "
+                         "(sig2=True); a bf16 or f32 payload holds sigma in "
+                         "one plane (sig2=False)")
+    Dp = D + 1 if dt == torch.int8 else D
     if gplanar.shape[1] != Dp:
-        raise ValueError(f"{gplanar.dtype} payload has {gplanar.shape[1]} "
-                         f"planes; expected {Dp}")
+        raise ValueError(f"{dt} payload has {gplanar.shape[1]} planes; "
+                         f"expected {Dp}")
     if gplanar.shape[0] != G:
         raise ValueError("payload must hold all G slabs")
+    return display
+
+
+class DisplayMode(NamedTuple):
+    """The format and options of a display march: the basis ``fmt`` and
+    its lobes ``extra`` (SG/ASG), ``depth`` (march depth instead of
+    colour), ``rot`` (9 floats, the view-direction rotation, or None),
+    ``bbox_full`` (else the in-plane voxel-extent mask of params 16-19)
+    and the basis window [basis_lo, basis_hi]."""
+    fmt: int = int(BasisType.SH)
+    extra: Optional[torch.Tensor] = None
+    depth: bool = False
+    rot: Optional[Tuple[float, ...]] = None
+    bbox_full: bool = True
+    basis_lo: int = 0
+    basis_hi: int = 24
+
+    def options(self, bd: int) -> bool:
+        """Does this mode take the display kernel's option variant (every
+        format but SH, and SH with any option that changes the march)?"""
+        return (self.fmt != int(BasisType.SH) or self.depth
+                or self.rot is not None or not self.bbox_full
+                or self.basis_lo > 0 or self.basis_hi < bd - 1)
+
+
+def display_variant(mode: DisplayMode, bd: int, bf16: bool) -> str:
+    """The name of the display kernel variant a launch takes (the key of
+    ``march_slabs.variants``): format, payload, ``opt`` for an SH option
+    set, ``depth`` for depth mode; ``SH-int8`` is the default."""
+    name = BasisType(mode.fmt).name + ("-bf16" if bf16 else "-int8")
+    if mode.fmt == int(BasisType.SH) and mode.options(bd):
+        name += "-opt"
+    if mode.depth:
+        name += "-depth"
+    return name
 
 
 def march_slabs(gplanar, params, qscale, zbounds, G: int,
@@ -243,12 +316,16 @@ def march_slabs(gplanar, params, qscale, zbounds, G: int,
         (``march_occupancy``, at these poses' sigma threshold), to share one
         between calls; None builds it (on the card; the plain version
         needs none).
-    The remaining arguments mirror the reference's signature; only the
-    display and training paths' values are taken (see _check_options).
+    The display path (an int8 payload, or bf16 with ``dir_win``) takes
+    every format (``fmt``, ``extra``) and option (``depth``, ``rot``, a
+    non-full bbox, any basis window); the remaining arguments mirror the
+    reference's signature (see _check_options).
     """
-    _check_options(gplanar, G, D, bd, sig2, fmt, depth, rot, basis_lo,
-                   basis_hi, bbox_full, shade_bf16, dir_win, z_base,
-                   acc_init)
+    display = _check_options(gplanar, G, D, bd, sig2, fmt, extra, depth,
+                             rot, basis_lo, basis_hi, bbox_full, shade_bf16,
+                             dir_win, z_base, acc_init)
+    mode = DisplayMode(int(fmt), extra, bool(depth), rot, bool(bbox_full),
+                       int(basis_lo), int(basis_hi))
     m = march_inputs(gplanar, params, zbounds, G, gi, slab_ids,
                      k_per_step, crop)
     dev = gplanar.device
@@ -258,19 +335,23 @@ def march_slabs(gplanar, params, qscale, zbounds, G: int,
         acc[:, 3] = 1.0
         return acc
     if dev.type == "cuda":
-        if gplanar.dtype in _TRAIN_DTYPES:
+        if not display:
             return _march_train_cuda(gplanar, qscale, D=D, bd=bd, flip=flip,
                                      occ=occupancy, **m)
         return _march_display_cuda(gplanar, qscale, D=D, bd=bd, flip=flip,
-                                   **m)
+                                   mode=mode, **m)
     if dev.type == "cpu":
-        return march_slabs_ref(gplanar, qscale, D=D, bd=bd, flip=flip, **m)
+        return march_slabs_ref(gplanar, qscale, D=D, bd=bd, flip=flip,
+                               dir_win=display, **mode._asdict(), **m)
     raise RuntimeError(f"march_slabs: no kernel for device {dev}")
 
 
 march_slabs.launches = 0
 march_slabs.poses = 0
-#: the last display launch's configuration (display_config)
+#: display launches by kernel variant (display_variant)
+march_slabs.variants = {}
+#: the last display launch's configuration (display_config) and variant
+#: (display_variant's name; its fmt, bf16 and opt as the kernel takes them)
 march_slabs.display = None
 
 
@@ -559,23 +640,33 @@ def _counts_ptr(counts, dev) -> int:
 
 
 def _march_display_cuda(gplanar, qscale, params, zb, wins, masks, G, gi, D,
-                        bd, K, flip, y0, x0):
-    """Launch kernel M's display mode (int8 payload, window directions)
-    over the whole pose batch (one launch)."""
+                        bd, K, flip, y0, x0,
+                        mode: DisplayMode = DisplayMode()):
+    """Launch kernel M's display mode (an int8 or bf16 payload, window
+    directions, the format and options of ``mode``) over the whole pose
+    batch (one launch)."""
     _check_launch(gplanar, qscale, params, zb, G, gi)
     cfg = display_config(params.shape[0], gi, len(wins), gplanar.shape[1],
-                         _sm_count(gplanar.device.index))
+                         _sm_count(gplanar.device.index),
+                         esz=gplanar.element_size(), opt=mode.options(bd))
     return _display_launch(gplanar, qscale, params, zb, wins, masks, G, gi,
-                           bd, K, flip, y0, x0, cfg)
+                           bd, K, flip, y0, x0, cfg, mode)
 
 
 def _display_launch(gplanar, qscale, params, zb, wins, masks, G, gi, bd, K,
-                    flip, y0, x0, cfg):
+                    flip, y0, x0, cfg, mode: DisplayMode = DisplayMode()):
     """One display launch of checked inputs with the configuration ``cfg``
-    (display_config's)."""
+    (display_config's) and the format and options of ``mode``."""
     dev = gplanar.device
     _, Dp, Gy, Gx = gplanar.shape
     P = params.shape[0]
+    bf16 = gplanar.dtype == torch.bfloat16
+    opt = mode.options(bd)
+    extra, extra_ptr = None, 0    # the SG/ASG lobes, read by the kernel
+    if mode.fmt in (int(BasisType.SG), int(BasisType.ASG)):
+        extra = to_device(mode.extra, _F32, dev).contiguous()
+        extra_ptr = extra.data_ptr()
+    rot = (ctypes.c_float * 9)(*(mode.rot or _IDENTITY))
     wm = to_device(np.asarray([wins, masks], np.int32), torch.int32, dev)
     acc = torch.empty((P, 4, gi, gi), dtype=_F32, device=dev)
     lib = kernels.lib("slab_march_display")
@@ -583,11 +674,17 @@ def _display_launch(gplanar, qscale, params, zb, wins, masks, G, gi, bd, K,
         gplanar.data_ptr(), params.data_ptr(), qscale.data_ptr(),
         zb.data_ptr(), wm.data_ptr(), len(wins), acc.data_ptr(),
         P, G, gi, Dp, Gy, Gx, y0, x0, bd, K, int(bool(flip)), cfg["rows"],
-        cfg["stage_bytes"], cfg["chan_cells"],
+        cfg["stage_bytes"], cfg["chan_cells"], mode.fmt, int(bf16),
+        int(opt), extra_ptr, int(mode.depth),
+        int(mode.rot is not None), rot, int(not mode.bbox_full),
+        mode.basis_lo, mode.basis_hi,
         torch.cuda.current_stream(dev).cuda_stream), "slab_march_display")
     march_slabs.launches += 1
     march_slabs.poses += P
-    march_slabs.display = cfg
+    name = display_variant(mode, bd, bf16)
+    march_slabs.variants[name] = march_slabs.variants.get(name, 0) + 1
+    march_slabs.display = dict(cfg, variant=name, fmt=mode.fmt,
+                               bf16=int(bf16), opt=int(opt))
     return acc
 
 
@@ -599,11 +696,13 @@ def _sm_count(index) -> int:
 
 
 def display_config(P: int, gi: int, n_win: int, Dp: int, n_sm: int,
-                   smem: int = _DISPLAY_SMEM) -> dict:
+                   smem: int = _DISPLAY_SMEM, esz: int = 1,
+                   opt: bool = False) -> dict:
     """A display launch's configuration: ``rows`` of 8 pixel rows a thread
     and the block's ``smem`` split into the stage (``stage_bytes``, a
-    multiple of 128) and the shaded-cell buffer (``chan_cells`` float4, one
-    a Dp bytes of stage) after three ints a window.
+    multiple of 128, at least one 256-cell row) and the shaded-cell buffer
+    (``chan_cells`` float4, one a cell of stage: Dp values of ``esz`` bytes,
+    1 for int8, 2 for bf16) after three ints a window.
 
     The tile height, from the P poses at gi and the card's ``n_sm`` SMs
     (measured on the display launches by ``probes.display_tiles``,
@@ -611,11 +710,14 @@ def display_config(P: int, gi: int, n_win: int, Dp: int, n_sm: int,
     tiles (rows=1) make twice the blocks, so a launch of few tiles, whose
     costs differ, ends sooner after its costliest ones. 32x16 when the
     launch holds at least six of them an SM (three waves of two blocks),
-    32x8 below that."""
+    32x8 below that. The option variants (``opt``: every format but SH, and
+    SH with an option, DisplayMode.options) are built with 32x8 tiles
+    only."""
     tiles = P * -(-gi // _DTX) * -(-gi // (2 * _DWARPS))
-    rows = 2 if tiles >= 6 * n_sm else 1
+    rows = 2 if tiles >= 6 * n_sm and not opt else 1
     avail = smem - 12 * n_win
-    stage_bytes = max(avail * Dp // (Dp + 16) // 128 * 128, Dp * 256)
+    cell = Dp * esz
+    stage_bytes = max(avail * cell // (cell + 16) // 128 * 128, cell * 256)
     chan_cells = max(256, (avail - stage_bytes) // 16)
     return dict(rows=rows, stage_bytes=stage_bytes, chan_cells=chan_cells,
                 smem=stage_bytes + 16 * chan_cells + 12 * n_win)
@@ -664,22 +766,57 @@ def _slab_sigma(slab, qs, D: int, sig2: bool) -> torch.Tensor:
     return slab[D - 1] * qs[D - 1]
 
 
+def _basis_planes(dirs, bd: int, mode: DisplayMode, qs) -> torch.Tensor:
+    """(Gy, Gx, bd) basis of ``mode``'s format at unit ``dirs`` (rotated by
+    ``mode.rot`` first), zero outside the basis window, times each basis
+    function's scale qs[k] (shared by rgb)."""
+    if mode.rot is not None:
+        R = torch.as_tensor(mode.rot, dtype=_F32, device=dirs.device)
+        dirs = dirs @ R.reshape(3, 3).T
+    bk = basis_mod.eval_basis(BasisType(mode.fmt), bd, dirs, mode.extra)
+    k = torch.arange(bd, device=dirs.device)
+    win = (k >= mode.basis_lo) & (k <= mode.basis_hi)
+    return torch.where(win, bk * qs[:bd], 0.0)
+
+
 def march_slabs_ref(gplanar, qscale, params, zb, wins: Sequence[int],
                     masks: Sequence[int], G: int, gi: int, D: int, bd: int,
-                    K: int, flip: bool, y0: int = 0, x0: int = 0):
+                    K: int, flip: bool, y0: int = 0, x0: int = 0,
+                    dir_win: Optional[bool] = None,
+                    fmt: int = int(BasisType.SH), extra=None,
+                    depth: bool = False,
+                    rot: Optional[Tuple[float, ...]] = None,
+                    bbox_full: bool = True, basis_lo: int = 0,
+                    basis_hi: int = 24):
     """Plain PyTorch version of kernel M: the same function, with the warp
     as dense (gi, Gy) @ (Gy, Gx) @ (Gx, gi) overlap-matrix products as the
     reference builds them (in f32). Inputs as ``march_inputs`` prepares
     them (params (P, 31), zb (P, 4, gi, gi)); returns acc (P, 4, gi, gi).
-    The payload's dtype selects the mode, as for the kernel: int8 carries
-    the sig2 split with view directions per window (display), f32 or bf16
-    take them per slab (training; f32 rounded to bf16 as it is read, as the
-    kernel reads it)."""
+
+    The mode follows the payload and ``dir_win``, as for the kernel: the
+    display mode (int8 with the sig2 split, or bf16 with ``dir_win``) takes
+    the view direction once per window and every format and option; the
+    training mode (f32 or bf16 without ``dir_win``; f32 rounded to bf16 as
+    it is read, as the kernel reads it) takes it per slab. ``dir_win``
+    None means True for int8 and False otherwise. The options, as the
+    reference's kernel body computes them (pallas_slab.py:391-537):
+    - ``fmt``/``extra``: SH, SG and ASG shade srgb = sigma * sigmoid(sum_k
+      code_k * basis_k * qs[k]); RGBA srgb = sigma * code_c * qs[c];
+    - ``rot``: 9 floats applied to the unit view direction;
+    - the basis window [basis_lo, basis_hi] drops the other basis planes;
+    - a non-full bbox masks sigma by the voxel extent's overlap with the
+      in-plane box of params 16-19;
+    - ``depth``: only sigma is warped, and acc[0] += w * |z - params[29]|
+      * zb[3] (acc[1:3] stay 0)."""
     dev = gplanar.device
     Gz, Dp, Gy, Gx = gplanar.shape
     P = params.shape[0]
     sig2 = gplanar.dtype == torch.int8
-    slab_dirs = not sig2
+    if dir_win is None:
+        dir_win = sig2
+    mode = DisplayMode(int(fmt), extra, depth, rot, bbox_full, basis_lo,
+                       basis_hi)
+    rgba = BasisType(fmt) == BasisType.RGBA
     qs = qscale.to(_F32)
     ycell = torch.arange(Gy, dtype=_F32, device=dev) + y0
     xcell = torch.arange(Gx, dtype=_F32, device=dev) + x0
@@ -699,15 +836,19 @@ def march_slabs_ref(gplanar, qscale, params, zb, wins: Sequence[int],
         xcm = (xc - cx)[None, :]
         dirp = [prm[21 + 3 * a] * ycm + prm[22 + 3 * a] * xcm
                 for a in range(3)]
+        okb = None
+        if not bbox_full:
+            okb = (((yc + hG > prm[16]) & (yc - hG < prm[17]))[:, None]
+                   & ((xc + hG > prm[18]) & (xc - hG < prm[19]))[None, :])
         zlo, zhi, dtp = zb[p, 0], zb[p, 1], zb[p, 2]
         rgb = torch.zeros((3, gi, gi), dtype=_F32, device=dev)
         T = torch.ones((gi, gi), dtype=_F32, device=dev)
+        shade = not depth and not rgba
         for w, m in zip(wins, masks):
-            if not slab_dirs:
+            if dir_win and shade:
                 # view directions once per window, at the window centre
                 sc = ((w * K) + 0.5 * K) / G + zbase - cz
-                bkq = basis_mod.eval_sh_basis(_dirs(dirp, prm, sc), bd
-                                              ) * qs[:bd]     # (Gy,Gx,bd)
+                bkq = _basis_planes(_dirs(dirp, prm, sc), bd, mode, qs)
             order = range(K - 1, -1, -1) if flip else range(K)
             for dzi in order:
                 if not (m >> dzi) & 1:
@@ -716,29 +857,42 @@ def march_slabs_ref(gplanar, qscale, params, zb, wins: Sequence[int],
                 z = (sid + 0.5) / G + zbase
                 s0 = z - hG - cz
                 s1 = z + hG - cz
-                if slab_dirs:
-                    bkq = basis_mod.eval_sh_basis(
-                        _dirs(dirp, prm, z - cz), bd) * qs[:bd]
+                if not dir_win:
+                    bkq = _basis_planes(_dirs(dirp, prm, z - cz), bd, mode,
+                                        qs)
                 slab = _slab_values(gplanar[sid])              # (Dp,Gy,Gx)
                 sigma = _slab_sigma(slab, qs, D, sig2)
-                sigma = torch.where(sigma > sigma_thresh, sigma, 0.0)
-                codes = slab[:3 * bd].reshape(3, bd, Gy, Gx)
-                raw = torch.sum(codes * bkq.permute(2, 0, 1)[None], 1)
-                chans = torch.cat([sigma[None],
-                                   sigma[None] * torch.sigmoid(raw)])
+                ok = sigma > sigma_thresh
+                if okb is not None:
+                    ok = ok & okb
+                sigma = torch.where(ok, sigma, 0.0)
+                if depth:
+                    chans = sigma[None]
+                elif rgba:
+                    chans = torch.cat([sigma[None],
+                                       sigma[None] * slab[:3]
+                                       * qs[:3, None, None]])
+                else:
+                    codes = slab[:3 * bd].reshape(3, bd, Gy, Gx)
+                    raw = torch.sum(codes * bkq.permute(2, 0, 1)[None], 1)
+                    chans = torch.cat([sigma[None],
+                                       sigma[None] * torch.sigmoid(raw)])
                 m_r = _overlap_mat(cy * G, ujG, s0, s1, ycell, G)
                 m_c = _overlap_mat(cx * G, vkG, s0, s1, xcell, G)
-                warped = m_r @ chans @ m_c.T                    # (4,gi,gi)
+                warped = m_r @ chans @ m_c.T                    # (C,gi,gi)
                 sig_w = warped[0]
                 frac = torch.clamp((torch.clamp(zhi, max=z + hG)
                                     - torch.clamp(zlo, min=z - hG)) * G,
                                    0.0, 1.0)
                 tau = sig_w * dtp * frac
                 att = torch.exp(-tau)
-                sig_inv = 1.0 / torch.clamp(sig_w, min=1e-12)
                 live = (T >= stop_thresh) & (tau > 0.0)
                 wgt = torch.where(live, T * (1.0 - att), 0.0)
-                rgb = rgb + (wgt * sig_inv)[None] * warped[1:]
+                if depth:
+                    rgb[0] = rgb[0] + wgt * torch.abs(z - prm[29]) * zb[p, 3]
+                else:
+                    sig_inv = 1.0 / torch.clamp(sig_w, min=1e-12)
+                    rgb = rgb + (wgt * sig_inv)[None] * warped[1:]
                 T = torch.where(live, T * att, T)
         out.append(torch.cat([rgb, T[None]]))
     return torch.stack(out)
@@ -780,11 +934,13 @@ def march_slabs_bwd(gplanar, params, qscale, zbounds, gacc4, acc4,
     cotangent is zero). ``perm``, ``extra`` and ``k_per_step`` mirror the
     reference's signature and are not needed here.
     """
-    unsupported = _common_unsupported(D, bd, fmt, rot, basis_lo, basis_hi,
-                                      bbox_full)
+    unsupported = _train_unsupported(fmt, False, rot, basis_lo, basis_hi,
+                                     bbox_full)
     if z_base is not None:
-        unsupported.append("z-sharded segments (z_base)")
-    _later_slices(unsupported)
+        unsupported.append("z-sharded segments (z_base) come with item "
+                           "19, slice D")
+    _later_items(unsupported)
+    _check_format(fmt, bd, D, extra)
     if (gplanar.dtype not in _TRAIN_DTYPES or gplanar.dim() != 4
             or tuple(gplanar.shape[1:]) != (D, G, G)):
         raise ValueError(f"payload must be (Gz, {D}, {G}, {G}) f32 or bf16, "

@@ -32,9 +32,10 @@ rays' dominant tree axis, stitched per pixel.
 
 Every function takes a batch of poses: per-pose values are tensors with a
 leading pose dimension (P, ...), the pose-invariant ones (fx, fy, grid
-metadata) are shared. The display path takes SH int8 payloads; mesh
-overlays and other formats raise ``NotImplementedError`` naming the slice
-that brings them (ROADMAP.md).
+metadata) are shared. The display path takes the int8 and the f16 bake,
+SH, SG, ASG and RGBA trees and the viewer's render options (depth,
+render_bbox, the basis window, rot_dirs); mesh overlays raise
+``NotImplementedError`` naming the item that brings them (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -44,7 +45,6 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from volrend_torch.models.data_format import BasisType
 from volrend_torch.ops import display_warp, slab_march
 from volrend_torch.ops.dense_grid import DenseGrid
 from volrend_torch.ops.render_exact import _rodrigues_matrix, world2ndc
@@ -71,8 +71,7 @@ _CROP_MULT_X = 128
 #: while boundary-ray slopes are below this
 MAX_SLAB_SLOPE = 4.0
 
-_SLICE_B = "slice B of the port (ROADMAP.md)"
-_MESHES = "mesh overlays come with item 13, " + _SLICE_B
+_MESHES = "mesh overlays come with item 13, slice B of the port (ROADMAP.md)"
 
 
 def inplane_crop(grid: DenseGrid, perm: Tuple[int, int, int],
@@ -240,27 +239,26 @@ def _slopes_from_dirs(d_tree, perm):
     return d_tree[..., perm[1]] / safe, d_tree[..., perm[2]] / safe
 
 
-def _kernel_ok(grid: DenseGrid, opt: RenderOptions) -> None:
-    """Raise unless the grid and options are the display path's: an SH
-    int8 payload (other formats/options: later slices)."""
-    bt = BasisType(grid.fmt)
-    if not (bt == BasisType.SH and grid.basis_dim in (1, 4, 9, 16, 25)
-            and grid.data_dim == 3 * grid.basis_dim + 1):
-        raise NotImplementedError(
-            f"format {bt.name}{grid.basis_dim} comes with {_SLICE_B}")
-    if not grid.quantized:
-        raise NotImplementedError(
-            "the march takes the int8 bake; a bf16 (f16-bake) payload "
-            f"comes with {_SLICE_B}")
+def _kernel_ok(grid: DenseGrid) -> None:
+    """Raise unless the march takes the grid (the reference's
+    ``_pallas_ok``): SH of degree 0-4, SG and ASG with their lobes (up to
+    25: ValueError above, slab_march.DISPLAY_LOBES), RGBA with D = 4; the
+    int8 or the f16 bake. Every display option is taken."""
+    slab_march._check_format(grid.fmt, grid.basis_dim, grid.data_dim,
+                             grid.extra)
 
 
 def _permuted_grid(grid: DenseGrid, perm, crop=None) -> torch.Tensor:
     """Channel-planar slab-major payload (z, Dp, y, x), in-plane-sliced to
-    ``crop`` when given (a fresh contiguous tensor)."""
+    ``crop`` when given (a fresh contiguous tensor). The f16 bake's is cast
+    to bf16 after the permute and crop, as the reference's kernel takes it
+    (Dp = D, sigma in the last plane)."""
     planar = grid.data.permute(perm[0], 3, perm[1], perm[2])
     if crop is not None:
         y0, Gy, x0, Gx = crop
         planar = planar[:, :, y0:y0 + Gy, x0:x0 + Gx]
+    if not grid.quantized:
+        return planar.to(torch.bfloat16, memory_format=torch.contiguous_format)
     return planar.contiguous()
 
 
@@ -269,7 +267,7 @@ def prepare_payload(grid: DenseGrid, perm: Tuple[int, int, int],
     """Materialize the slab-major payload for one slab axis ONCE (scene
     prep) so repeated ``render_frames`` calls skip the per-call permute.
     Cache by the FULL ``perm`` (only flip is free: it is the march order)."""
-    _kernel_ok(grid, opt)
+    _kernel_ok(grid)
     crop = inplane_crop(grid, perm, float(opt.sigma_thresh))
     return _permuted_grid(grid, perm, crop=crop)
 
@@ -499,10 +497,16 @@ def _march_finalize(grid: DenseGrid, payload, params, zb, R, u0, du, v0, dv,
 def _finalize_planar(acc4: torch.Tensor, opt: RenderOptions) -> torch.Tensor:
     """(P, 4, gi, gi) march accumulator [r, g, b, T] -> the planar
     intermediate image [r, g, b, alpha] (rt_core.cuh:176-194 semantics:
-    rays that stopped early renormalize their colour and report alpha 1)."""
+    rays that stopped early renormalize their colour and report alpha 1).
+    Depth mode: acc[0] is the accumulated depth; the image is [dep, dep,
+    dep, 1] with dep = min(0.3 * depth, 1), renormalized as the colour."""
     T = acc4[:, 3]
     stopped = T < float(opt.stop_thresh)
     renorm = stopped & opt.renormalize
+    if opt.render_depth:
+        dep = torch.clamp(acc4[:, 0] * 0.3, max=1.0)
+        dep = torch.where(renorm, dep / (1.0 - T), dep)
+        return torch.stack([dep, dep, dep, torch.ones_like(dep)], 1)
     rgb = torch.where(renorm[:, None], acc4[:, :3] / (1.0 - T)[:, None],
                       acc4[:, :3])
     alpha = torch.where(stopped, 1.0, 1.0 - T)
@@ -520,7 +524,7 @@ def render_frames(grid: DenseGrid, transforms, fx, fy,
     device: float32, or uint8 when ``out_dtype=torch.uint8`` (the RGBA8
     display write-out, volrend.cu:166-172). ``unit_slope_box``: a
     split-frame class pass (render_frame_split)."""
-    _kernel_ok(grid, opt)
+    _kernel_ok(grid)
     crop = inplane_crop(grid, perm, float(opt.sigma_thresh))
     if payload is None:
         payload = _permuted_grid(grid, perm, crop=crop)
