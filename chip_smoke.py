@@ -129,10 +129,24 @@ Phases (any failure exits non-zero and prints no result):
     the bbox >= 40 dB, depth >= 30 dB), tools/perf_split.py's e = 0.5 sweep pose in depth mode (each
     class pass against its plain version, >= 30 dB) and bench.py's NDC
     pose in depth mode and with rot + bbox + basis window (>= 30 dB);
+12b. the training pair's formats and options at the training bench's
+    width (train_variants_phase): the bench's leaves read as SG9, ASG9,
+    RGBA and SG6 trees (SG6: D = 19, a record width the kernels take at
+    run time and a new bake width) and the SH9 tree with rot_dirs, a basis
+    window (0, 3) and a render_bbox 0.25..0.75: for each, the bake kernel
+    bit-equal to its plain version (live bits equal), kernel M's training
+    mode and M-bwd against their plain versions on pose 0 (SG9 also on the
+    lean trainer's bf16 cast) with each variant's registers, spills,
+    blocks per SM, times and bounds, then timed step_frame steps from
+    corrupted leaves (each one launch of BK, the bits mode, M and M-bwd in
+    the case's variant, no plain version; peak memory; pose 0's loss must
+    fall) and, for SG9, one step with the precise warp's switch on;
 13. one JSON line with every kernel's numbers (kernels B's and C's
     launches from phase 10's run, the display path that takes them; kernel
     M's display variants as rows of their own, their launches from phase
-    12's counted runs), then the result line.
+    12's counted runs; the training variants' rows of M and M-bwd by
+    format and BK at D = 19 and 4, their launches from phase 12b's timed
+    steps), then the result line.
 """
 
 import contextlib
@@ -369,7 +383,8 @@ def march_bound(torch, pay, qs, zb, slab_ids, G: int, gi: int, bd: int,
 
 
 def march_bwd_bound(torch, pay, qs, zb, G: int, gi: int, bd: int,
-                    sigma_thresh: float, out_bytes: int = 4):
+                    sigma_thresh: float, out_bytes: int = 4, ops=None,
+                    **work):
     """The backward kernel's bound for one pose (zb (1, 4, gi, gi)): bytes
     are what the forward reads (march_bound's payload bytes), the whole
     (Gz, D, G, G) cotangent written once (``out_bytes`` per value: f32, or
@@ -378,13 +393,20 @@ def march_bwd_bound(torch, pay, qs, zb, G: int, gi: int, bd: int,
     forward recompute (march_bound's) plus the adjoint: per marched (pixel,
     slab) pair the suffix algebra and the transposed taps (~60), per voxel
     above the threshold the shade adjoint (the basis again, sigmoid', 3*bd
-    products: ~6*bd + 40)."""
+    products: ~6*bd + 40). ``ops`` and ``work`` follow a training variant
+    (variant_ops, as march_bound takes them): its adjoint a voxel is its
+    shading again plus a product per colour plane and ~10."""
     Gz, D = pay.shape[0], pay.shape[1]
     sig_b, col_b, (over,), (pairs,) = march_work(
-        torch, pay, qs, zb, range(Gz), G, bd, sigma_thresh)
+        torch, pay, qs, zb, range(Gz), G, bd, sigma_thresh, **work)
     nbytes = (sig_b + col_b + Gz * D * G * G * out_bytes
               + (2 + 4 + 4) * gi * gi * 4)
-    flops = over * (9 * bd + 30 + 6 * bd + 40) + pairs * (60 + 60)
+    if ops is None:
+        per_voxel, per_pair = 9 * bd + 30 + 6 * bd + 40, 60
+    else:
+        colour = work.get("colour_planes", D - 1)
+        per_voxel, per_pair = 2 * ops[0] + colour + 10, ops[1]
+    flops = over * per_voxel + pairs * (per_pair + 60)
     return bound(nbytes, flops)
 
 
@@ -590,25 +612,9 @@ def train_phase(torch, dev, stats):
     finally:
         display_warp._PRECISE_SQ = False
     n = off["steps"]
-    for name, c in (("switch off", off["counts"]),
-                    ("switch on", on["counts"])):
-        if (c["march"] != n or c["march_bwd"] != n or c["bake"] != n
-                or c["occupancy_live"] != n or c["occupancy"]
-                or sum(c["plain"].values())):
-            fail(f"train ({name}): a step did not run exactly one launch of "
-                 f"the bake kernel, of kernels M and M-bwd and of their "
-                 f"shared coarse occupancy in its bits mode, and no plain "
-                 f"version ({c})")
-    c = off["counts"]
-    if (c["build_f32"], c["combine_f32"], c["combine_adj"],
-            c["build_adj"], c["ref_warp_poses"]) != (0, 0, 0, 0, n):
-        fail(f"train (switch off): a step left the reference warp ({c})")
-    c = on["counts"]
-    if (c["build_f32"], c["combine_f32"], c["combine_adj"],
-            c["build_adj"], c["ref_warp_poses"]) != (n, n, n, n, 0):
-        fail(f"train (switch on): a step did not run exactly one launch of "
-             f"B-f32, C-f32 and kernels 5 and 6, or a pose took the "
-             f"reference warp ({c})")
+    train_counts_ok("train (switch off)", off["counts"], n, "SH-f32")
+    train_counts_ok("train (switch on)", on["counts"], n, "SH-f32",
+                    precise=True)
     if "--profile" in sys.argv[1:]:
         prof = _common.profile_run(lambda: tr.step_frame(cams[0], tgt),
                                    "training step", log)
@@ -692,19 +698,23 @@ def bake_checks(torch, tr, thresh: float):
     return st, bake, live
 
 
-def train_occupancy(kernels, bd: int, f32: bool) -> dict:
-    """What the card makes of the training kernels' launches
-    (vt_march_slabs_info, vt_march_slabs_bwd_info): resident blocks per SM,
+def train_occupancy(kernels, bd: int, f32: bool, fmt: int = 1,
+                    opt: bool = False) -> dict:
+    """What the card makes of the training kernels' launches of a variant
+    (vt_march_slabs_info, vt_march_slabs_bwd_info; the SH default unless
+    ``fmt``/``opt`` say otherwise): resident blocks per SM,
     registers a thread, spill bytes a thread and dynamic shared memory of
     kernel M's training mode and of the backward's passes, and the launch
     configuration they were built with."""
     import ctypes
+    from volrend_torch.ops.slab_march import train_lib
     m = (ctypes.c_int * 11)()
-    kernels.check(kernels.lib("slab_march").vt_march_slabs_info(
-        bd, int(f32), m), "slab_march")
+    kernels.check(train_lib("slab_march", fmt, opt).vt_march_slabs_info(
+        bd, int(f32), fmt, int(opt), m), "slab_march")
     b = (ctypes.c_int * 7)()
-    kernels.check(kernels.lib("slab_march_bwd").vt_march_slabs_bwd_info(
-        bd, int(f32), b), "slab_march_bwd")
+    kernels.check(train_lib("slab_march_bwd", fmt,
+                            opt).vt_march_slabs_bwd_info(
+        bd, int(f32), fmt, int(opt), b), "slab_march_bwd")
     keys = ("blocks_per_sm", "regs", "spill_bytes", "smem")
     return {"M": dict(zip(keys, m[:4])),
             "M-bwd pass 1": dict(zip(keys, b[:4])),
@@ -714,23 +724,33 @@ def train_occupancy(kernels, bd: int, f32: bool) -> dict:
 
 
 def train_kernel_checks(torch, dev, planar, params, zb, gacc4, ids, cfg,
-                        stop, live):
+                        stop, live, extra=None):
     """Phase 8a on one payload (the bake's f32 view or its bf16 cast):
     kernel M's training mode and the backward kernel against their plain
     versions on pose 0 (and their shared coarse occupancy in both modes,
     each bit-equal to its plain version and to the other), their times,
     bounds (counted at the payload's element size), launch configuration
     and the share of slabs and jobs skipped as empty (the kernels' counts).
-    ``live``: the pyramid bake's live bits. Returns {"MT", "MB", "MO",
-    "acc4"}; "MO" is the bits mode the step launches, with the full read's
-    numbers under "full_read"."""
+    ``live``: the pyramid bake's live bits. The variant is the one
+    ``cfg`` trains (its format, and the options of cfg.opt), with the
+    SG/ASG lobes ``extra``; an option variant's bounds count its
+    variant_ops. Returns {"MT", "MB", "MO", "acc4"}; "MO" is the bits mode
+    the step launches, with the full read's numbers under "full_read"."""
+    import types
     from volrend_torch import kernels
-    from volrend_torch.ops import slab_march
+    from volrend_torch.ops import slab_grad, slab_march
     G, D, bd = cfg.G, cfg.D, cfg.bd
     perm, flip = cfg.perm, cfg.flip
     f32 = planar.dtype == torch.float32
     qs = torch.ones(D, device=dev)
-    tag = f"pose 0, {G} slabs, {planar.dtype}"
+    st = slab_grad._kernel_statics(cfg)
+    st.pop("flip")
+    st["extra"] = extra
+    mode = slab_march.MarchMode(cfg.fmt, extra, False, st["rot"],
+                                st["bbox_full"], st["basis_lo"],
+                                st["basis_hi"])
+    variant = slab_march.train_variant(mode, bd, f32)
+    tag = f"pose 0, {G} slabs, {planar.dtype}, {variant}"
 
     m = slab_march.march_inputs(planar, params, zb, G, GI, ids)
     sthr = float(m["params"][0, 14])
@@ -776,21 +796,32 @@ def train_kernel_checks(torch, dev, planar, params, zb, gacc4, ids, cfg,
     def run_m():
         return slab_march.march_slabs(
             planar, params, qs, zb, G, GI, D, bd, perm, slab_ids=ids,
-            flip=flip, bbox_full=True, dir_win=False, occupancy=occ)
+            flip=flip, dir_win=False, occupancy=occ, **st)
     acc_k = run_m()
     torch.cuda.synchronize()
     acc_p, mt_plain_ms = timed_once(
         torch, lambda: slab_march.march_slabs_ref(planar, qs, D=D, bd=bd,
-                                                  flip=flip, **m))
+                                                  flip=flip, **st, **m))
     err, flips, nray = freeze_flip_check(
         torch, f"training mode, {tag}", acc_k, acc_p, stop)
     del acc_p
     mt = {"max_abs_err": err, "plain_ms": mt_plain_ms,
           "ms": cuda_ms(torch, run_m, KREPS), "library_ms": None}
+    ops, work = None, {}
+    if mode.options(bd):  # an option variant's operations and planes
+        ops, colour = variant_ops(types.SimpleNamespace(
+            fmt=cfg.fmt, basis_dim=bd), cfg.opt)
+        work = dict(D=D, colour_planes=colour)
+        if not st["bbox_full"]:
+            prm = m["params"][0]
+            c = (torch.arange(G, device=dev) + 0.5) / G
+            h = 0.5 / G
+            work["okb"] = (((c + h > prm[16]) & (c - h < prm[17]))[:, None]
+                           & ((c + h > prm[18]) & (c - h < prm[19]))[None])
     mt["bound_ms"], mt["bound_by"] = march_bound(
-        torch, planar, qs, m["zb"], ids, G, GI, bd, sthr)
+        torch, planar, qs, m["zb"], ids, G, GI, bd, sthr, ops=ops, **work)
     sig_b, col_b, (over,), (pairs,) = march_work(torch, planar, qs, m["zb"],
-                                                 ids, G, bd, sthr)
+                                                 ids, G, bd, sthr, **work)
     log(f"train [{tag}]: pose 0's march reads {sig_b} B of sigma and "
         f"{col_b} B of colour ({over} voxels above the sigma threshold) "
         f"and marches {pairs} (pixel, slab) pairs")
@@ -800,8 +831,7 @@ def train_kernel_checks(torch, dev, planar, params, zb, gacc4, ids, cfg,
     def run_b():
         return slab_march.march_slabs_bwd(
             planar, params[0], qs, zb[0], gacc4, acc4, G, GI, D, bd, perm,
-            flip=flip, bbox_full=True, out_dtype=planar.dtype,
-            occupancy=occ)
+            flip=flip, out_dtype=planar.dtype, occupancy=occ, **st)
 
     g_k = run_b()
     torch.cuda.synchronize()
@@ -812,7 +842,8 @@ def train_kernel_checks(torch, dev, planar, params, zb, gacc4, ids, cfg,
         params[0], zb[0], gacc4, acc4, G, GI)
     g_p, mb_plain_ms = timed_once(
         torch, lambda: slab_march.march_slabs_bwd_ref(
-            planar, qs, bprm, bzb, bgacc, aux, G, GI, D, bd, flip))
+            planar, qs, bprm, bzb, bgacc, aux, G, GI, D, bd, flip,
+            mode=mode))
     # element by element over the (Gz, D, G, G) indices (the kernel's
     # cotangent has the payload's strides, the plain version's is planar)
     gk = g_k.double()
@@ -834,17 +865,19 @@ def train_kernel_checks(torch, dev, planar, params, zb, gacc4, ids, cfg,
           "ms": cuda_ms(torch, run_b, KREPS), "library_ms": None}
     mb["bound_ms"], mb["bound_by"] = march_bwd_bound(
         torch, planar, qs, bzb[None], G, GI, bd, sthr,
-        out_bytes=planar.element_size())
+        out_bytes=planar.element_size(), ops=ops, **work)
 
     # the launch configuration and the share skipped as empty
-    occ_info = train_occupancy(kernels, bd, f32)
+    occ_info = train_occupancy(kernels, bd, f32, cfg.fmt,
+                               mode.options(bd))
     tcfg = occ_info["config"]
     cm = torch.zeros(slab_march.N_COUNTS, dtype=torch.int64, device=dev)
     cb = torch.zeros(slab_march.N_COUNTS, dtype=torch.int64, device=dev)
     slab_march._march_train_cuda(planar, qs, D=D, bd=bd, flip=flip,
-                                 counts=cm, occ=occ, **m)
+                                 counts=cm, occ=occ, mode=mode, **m)
     slab_march._march_bwd_cuda(planar, bprm, qs, bzb, bgacc, aux, G, GI, D,
-                               bd, flip, planar.dtype, counts=cb, occ=occ)
+                               bd, flip, planar.dtype, counts=cb, occ=occ,
+                               mode=mode)
     torch.cuda.synchronize()
     for name, c, st in (("M", cm, mt), ("M-bwd pass 1", cb, mb)):
         met, shaded, pieces, staged, pshaded = (int(x) for x in c.tolist())
@@ -860,7 +893,46 @@ def train_kernel_checks(torch, dev, planar, params, zb, gacc4, ids, cfg,
     mt["config"], mb["config"] = tcfg, tcfg
     mt["occupancy"], mb["occupancy"] = occ_info["M"], {
         k: occ_info[k] for k in ("M-bwd pass 1", "M-bwd pass 2")}
+    mt["variant"] = mb["variant"] = variant
     return {"MT": mt, "MB": mb, "MO": mo, "acc4": acc4}
+
+
+def reset_train_counts():
+    """Set the training path's launch counts to 0 (read_train_counts)."""
+    from volrend_torch.ops import (display_warp, slab_grad, slab_march,
+                                   slab_render)
+    slab_grad.bake_from_pyramid.launches = 0
+    slab_march.march_slabs.launches = 0
+    slab_march.march_slabs_bwd.launches = 0
+    slab_march.march_slabs.train_variants = {}
+    slab_march.march_slabs_bwd.variants = {}
+    slab_march.march_occupancy.launches = 0
+    slab_march.march_occupancy.launches_live = 0
+    display_warp.build_table.launches_f32 = 0
+    display_warp.combine_emit.launches_f32 = 0
+    display_warp.combine_adjoint.launches = 0
+    display_warp.build_adjoint.launches = 0
+    slab_render._warp_to_screen_ref.precise_poses = 0
+
+
+def read_train_counts(plain_calls) -> dict:
+    """The training path's launch counts since reset_train_counts, and the
+    plain versions' calls (count_plain_calls)."""
+    from volrend_torch.ops import (display_warp, slab_grad, slab_march,
+                                   slab_render)
+    return dict(bake=slab_grad.bake_from_pyramid.launches,
+                march=slab_march.march_slabs.launches,
+                march_bwd=slab_march.march_slabs_bwd.launches,
+                march_variants=dict(slab_march.march_slabs.train_variants),
+                march_bwd_variants=dict(slab_march.march_slabs_bwd.variants),
+                occupancy=slab_march.march_occupancy.launches,
+                occupancy_live=slab_march.march_occupancy.launches_live,
+                build_f32=display_warp.build_table.launches_f32,
+                combine_f32=display_warp.combine_emit.launches_f32,
+                combine_adj=display_warp.combine_adjoint.launches,
+                build_adj=display_warp.build_adjoint.launches,
+                ref_warp_poses=slab_render._warp_to_screen_ref.precise_poses,
+                plain=dict(plain_calls))
 
 
 def timed_steps(torch, tr, cams, tgt, tag):
@@ -869,23 +941,12 @@ def timed_steps(torch, tr, cams, tgt, tag):
     just before and read just after, and the peak device memory over the
     timed steps. ``tgt``: one target for every pose, or a list of one a
     pose."""
-    from volrend_torch.ops import (display_warp, slab_grad, slab_march,
-                                   slab_render)
     tgts = tgt if isinstance(tgt, list) else [tgt] * len(cams)
     for s in range(TRAIN_WARM * len(cams)):
         tr.step_frame(cams[s % len(cams)], tgts[s % len(cams)])
     torch.cuda.synchronize()
     plain_calls = count_plain_calls()
-    slab_grad.bake_from_pyramid.launches = 0
-    slab_march.march_slabs.launches = 0
-    slab_march.march_slabs_bwd.launches = 0
-    slab_march.march_occupancy.launches = 0
-    slab_march.march_occupancy.launches_live = 0
-    display_warp.build_table.launches_f32 = 0
-    display_warp.combine_emit.launches_f32 = 0
-    display_warp.combine_adjoint.launches = 0
-    display_warp.build_adjoint.launches = 0
-    slab_render._warp_to_screen_ref.precise_poses = 0
+    reset_train_counts()
     torch.cuda.reset_peak_memory_stats()
     n = TRAIN_STEPS * len(cams)
     synced = []
@@ -902,17 +963,7 @@ def timed_steps(torch, tr, cams, tgt, tag):
     last = float(loss_t)
     pipelined = (time.perf_counter() - t0) * 1e3 / n
     peak = torch.cuda.max_memory_allocated() / 2**30
-    counts = dict(bake=slab_grad.bake_from_pyramid.launches,
-                  march=slab_march.march_slabs.launches,
-                  march_bwd=slab_march.march_slabs_bwd.launches,
-                  occupancy=slab_march.march_occupancy.launches,
-                  occupancy_live=slab_march.march_occupancy.launches_live,
-                  build_f32=display_warp.build_table.launches_f32,
-                  combine_f32=display_warp.combine_emit.launches_f32,
-                  combine_adj=display_warp.combine_adjoint.launches,
-                  build_adj=display_warp.build_adjoint.launches,
-                  ref_warp_poses=slab_render._warp_to_screen_ref.precise_poses,
-                  plain=dict(plain_calls))
+    counts = read_train_counts(plain_calls)
     restore_plain()
     if not np.isfinite(last):
         fail(f"{tag}: non-finite loss (sync=False)")
@@ -2222,35 +2273,44 @@ def counted_render(torch, tag, fn, passes: int, world: bool, launched):
     return frame, counts, variants
 
 
-def format_trees_on(torch, tdev):
+def format_trees_on(torch, tdev, nb=None):
     """The dense bench tree's arrays read as SG16 and ASG16 trees (its leaf
     rows as lobe coefficients, the lobes drawn from LOBE_SEED as the
     reference's tests draw them, tests/test_slab_render.py:241-258 and
     :349-376) and as an RGBA tree (D = 4: each colour channel's first
-    coefficient through a sigmoid, and sigma): {name: TreeArrays}."""
+    coefficient through a sigmoid, and sigma): {name: TreeArrays}. With
+    ``nb``, the SG and ASG trees keep the first nb coefficients of each
+    colour and sigma (D = 3 nb + 1) and draw nb lobes."""
     import dataclasses
     from volrend_torch.models.data_format import BasisType
-    rng = np.random.default_rng(LOBE_SEED)
     bd = tdev.basis_dim
-    mu = rng.normal(size=(bd, 3))
+    nb = bd if nb is None else nb
+    rng = np.random.default_rng(LOBE_SEED)
+    mu = rng.normal(size=(nb, 3))
     mu /= np.linalg.norm(mu, axis=-1, keepdims=True)
-    sg = np.concatenate([rng.uniform(1.0, 6.0, (bd, 1)), mu], -1)
-    asg = np.zeros((bd, 11))
-    for i in range(bd):
+    sg = np.concatenate([rng.uniform(1.0, 6.0, (nb, 1)), mu], -1)
+    asg = np.zeros((nb, 11))
+    for i in range(nb):
         q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
         asg[i, 0] = rng.uniform(0.5, 4.0)
         asg[i, 1] = rng.uniform(0.5, 4.0)
         asg[i, 2:] = q.T.reshape(-1)
     dev = tdev.data.device
     D = tdev.data_dim
+    lobe = tdev
+    if nb != bd:
+        keep = [c * bd + k for c in range(3) for k in range(nb)] + [D - 1]
+        lobe = dataclasses.replace(
+            tdev, data=tdev.data[:, keep].contiguous(), data_dim=3 * nb + 1,
+            basis_dim=nb)
     rgba = torch.cat([torch.sigmoid(tdev.data[:, 0:3 * bd:bd].float()),
                       tdev.data[:, D - 1:D].float()], 1)
     return {
         "SG": dataclasses.replace(
-            tdev, fmt=BasisType.SG,
+            lobe, fmt=BasisType.SG,
             extra=torch.as_tensor(sg, dtype=torch.float32, device=dev)),
         "ASG": dataclasses.replace(
-            tdev, fmt=BasisType.ASG,
+            lobe, fmt=BasisType.ASG,
             extra=torch.as_tensor(asg, dtype=torch.float32, device=dev)),
         "RGBA": dataclasses.replace(
             tdev, data=rgba.to(tdev.data.dtype).contiguous(), data_dim=4,
@@ -2416,6 +2476,204 @@ def variants_phase(torch, kernels, dev, opt, stats, gate, main_path,
         stats[key]["launches"] = launched[name]
     out["launched"] = dict(launched)
     log(f"variants: {json.dumps(out)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 12b: the training pair's formats and options (SG, ASG and RGBA trees;
+# rot_dirs, a basis window, a render_bbox) at the training bench's width
+# ---------------------------------------------------------------------------
+
+#: phase 12b's cases: (name, tree, render options); the trees are the
+#: training bench's leaves read as SG9, ASG9, RGBA and SG6 (format_trees_on)
+#: and the SH9 tree itself
+TRAIN_CASES = (
+    ("SG9", "SG", {}), ("ASG9", "ASG", {}), ("RGBA", "RGBA", {}),
+    ("SG6", "SG6", {}),
+    ("SH9-rot", "SH", dict(rot_dirs=(0.3, -0.2, 0.5))),
+    ("SH9-window", "SH", dict(basis_minmax=(0, 3))),
+    ("SH9-bbox", "SH", dict(render_bbox=(0.25,) * 3 + (0.75,) * 3)),
+)
+#: the kernels line's rows of phase 12b: kernel M's training mode and M-bwd
+#: by format (their first case's numbers, every case's largest error) and
+#: the bake kernel at its new widths
+TRAIN_FAMILIES = {"SG9": "sg", "SG6": "sg", "ASG9": "asg", "RGBA": "rgba"}
+TRAIN_VARIANT_ROWS = tuple(
+    (f"{kind}_{fam}", f"{name}_{fam}", src, rep)
+    for fam in ("sg", "asg", "rgba", "opt")
+    for kind, name, src, rep in (
+        ("MT", "slab_march_train", "volrend_torch/csrc/slab_march.cu",
+         "volrend_tpu/ops/pallas_slab.py:344"),
+        ("MB", "slab_march_bwd", "volrend_torch/csrc/slab_march_bwd.cu",
+         "volrend_tpu/ops/pallas_slab.py:951"))) + tuple(
+    (f"BK_{d}", f"bake_pyramid_d{d}", "volrend_torch/csrc/bake_pyramid.cu",
+     "volrend_tpu/ops/slab_grad.py:244") for d in (19, 4))
+
+
+def train_counts_ok(tag, counts, n, variant, precise=False):
+    """A timed or counted run of n training steps: one launch a step of the
+    bake kernel, the occupancy's bits mode, and kernels M and M-bwd in
+    ``variant``, no full-read occupancy and no plain version; the precise
+    warp's kernels a step with the switch on, the reference warp a step
+    with it off."""
+    c = counts
+    if (c["march"] != n or c["march_bwd"] != n or c["bake"] != n
+            or c["occupancy_live"] != n or c["occupancy"]
+            or c["march_variants"] != {variant: n}
+            or c["march_bwd_variants"] != {variant: n}
+            or sum(c["plain"].values())):
+        fail(f"{tag}: a step did not run exactly one launch of the bake "
+             f"kernel, the occupancy's bits mode and kernels M and M-bwd "
+             f"in {variant}, or a plain version ran ({c})")
+    want = (n, n, n, n, 0) if precise else (0, 0, 0, 0, n)
+    if (c["build_f32"], c["combine_f32"], c["combine_adj"], c["build_adj"],
+            c["ref_warp_poses"]) != want:
+        fail(f"{tag}: the precise warp's launches or the reference warp's "
+             f"poses are not {want} ({c})")
+
+
+def train_variant_case(torch, dev, stats, case, tdev, topt, cams,
+                       lean=False, precise=False):
+    """One case of phase 12b: FrameTrainer on ``tdev`` with ``topt``; the
+    bake kernel against its plain versions; kernel M's training mode and
+    M-bwd against theirs on pose 0 (the f32 bake, and with ``lean`` its
+    bf16 cast), with their launches, times and bounds; from corrupted
+    leaves (as phase 11 corrupts them) timed steps, counted (one launch of
+    BK, the bits mode, M and M-bwd in the case's variant a step, no plain
+    version), peak memory, and pose 0's loss must fall; with ``precise``,
+    then one step with the precise warp's switch on, counted. Fills the
+    kernels line's rows (TRAIN_VARIANT_ROWS); returns the case's
+    summary."""
+    from volrend_torch import train
+    from volrend_torch.ops import display_warp, slab_grad, slab_render
+    t = time.perf_counter()
+    tr = train.FrameTrainer(tdev, opt=topt, lr=TRAIN_LR, gi=GI)
+    G, D, bd = tr.grid.G, tr.grid.data_dim, tr.grid.basis_dim
+    groups = {tr._group(c) for c in cams}
+    if len(groups) != 1:
+        fail(f"train {case}: the poses span {len(groups)} groups")
+    (perm, flip), = groups
+    log(f"train {case}: FrameTrainer G={G} D={D} "
+        f"{tr.grid.fmt.name}{bd} in {time.perf_counter() - t:.1f} s")
+    bk, bake, live = bake_checks(torch, tr, float(topt.sigma_thresh))
+    geom = slab_render.FrameGeom(tr.grid, cams[0].transform, cams[0].fx,
+                                 cams[0].fy, perm, flip, W, H, tr.opt, GI)
+    ids = tuple(range(G - 1, -1, -1) if flip else range(G))
+    cfg = slab_grad.SlabCfg(G=G, gi=GI, D=D, bd=bd, fmt=int(tr.grid.fmt),
+                            perm=perm, flip=flip, ids=ids, opt=tr.opt)
+    params = slab_grad._pack_geom_params(geom, cfg, 1.0 / geom.scale)
+    zb = torch.stack([geom.z_lo_pix, geom.z_hi_pix], 1)
+    gacc4 = torch.as_tensor(np.random.default_rng(0).normal(
+        size=(4, GI, GI)).astype(np.float32), device=dev)
+    kern = {}
+    for dt in (torch.float32, torch.bfloat16) if lean else (torch.float32,):
+        pay = bake if dt == torch.float32 else bake.to(dt)
+        res = train_kernel_checks(
+            torch, dev, pay.permute(perm[0], 3, perm[1], perm[2]), params,
+            zb, gacc4, ids, cfg, float(topt.stop_thresh), live,
+            extra=tr.grid.extra)
+        kern[str(dt)] = {k: res[k] for k in ("MT", "MB")}
+        log(f"train {case} kernels [{dt}]: M (training mode) "
+            f"{json.dumps(res['MT'])}; M-bwd {json.dumps(res['MB'])}")
+        del pay, res
+    del bake, live
+    variant = kern["torch.float32"]["MT"]["variant"]
+    torch.cuda.empty_cache()
+
+    # ---- targets from the clean leaves, then corrupted leaves -------------
+    def render(c):
+        with torch.no_grad():
+            return slab_grad.render_frame_train(
+                tr.pyramid, tr.bmap, tr.grid, c.transform, c.fx, c.fy, perm,
+                flip, W, H, tr.opt, gi=GI)
+
+    tgts = [render(c) for c in cams]
+    data = tr.data
+    data[:, :D - 1] *= 0.15
+    data[:, D - 1] *= torch.as_tensor(np.random.default_rng(0).uniform(
+        0.6, 1.4, data.shape[0]).astype(np.float32), device=dev)
+    tr.data = data
+    tr.opt_state = tr.optimizer.init(tr.pyramid)
+    del data
+
+    def loss0():
+        return float(slab_grad.loss_and_grad_frame(
+            tr.pyramid, tr.bmap, tr.grid, cams[0].transform, cams[0].fx,
+            cams[0].fy, perm, flip, W, H, tgts[0], tr.opt, gi=GI)[0])
+
+    tag = f"train {case} ({variant})"
+    before = loss0()
+    r = timed_steps(torch, tr, cams, tgts, tag)
+    after = loss0()
+    log(f"{tag}: pose 0's loss {before:.6f} -> {after:.6f}")
+    if not (np.isfinite(after) and after < before):
+        fail(f"{tag}: pose 0's loss did not fall ({before} -> {after})")
+    n = r["steps"]
+    train_counts_ok(tag, r["counts"], n, variant)
+    out = {"variant": variant, "G": G, "D": D, "kernels": kern,
+           "ms_synced": r["ms_synced"], "ms_pipelined": r["ms_pipelined"],
+           "peak_gib": r["peak_gib"], "counts": r["counts"],
+           "loss0": [before, after]}
+    if precise:  # one step with the precise warp's switch on
+        calls = count_plain_calls()
+        try:
+            reset_train_counts()
+            display_warp._PRECISE_SQ = True
+            tr.step_frame(cams[0], tgts[0])
+            torch.cuda.synchronize()
+            c = read_train_counts(calls)
+        finally:
+            display_warp._PRECISE_SQ = False
+            restore_plain()
+        log(f"{tag}, the precise warp's switch on: one step, counts {c}")
+        train_counts_ok(f"{tag} (precise warp)", c, 1, variant, precise=True)
+        out["precise_counts"] = c
+    fam = TRAIN_FAMILIES.get(case, "opt")
+    for kind in ("MT", "MB"):
+        row = stats.setdefault(f"{kind}_{fam}", {"max_abs_err": 0.0})
+        if "ms" not in row:
+            k32 = kern["torch.float32"][kind]
+            row.update({k: k32[k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")},
+                       case=case, variant=variant, launches=r["counts"][
+                           "march" if kind == "MT" else "march_bwd"])
+        row["max_abs_err"] = max([row["max_abs_err"]] + [
+            k[kind]["max_abs_err"] for k in kern.values()])
+    if D in (19, 4):
+        stats[f"BK_{D}"] = dict(bk, launches=r["counts"]["bake"], case=case)
+    del tr, tgts
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_variants_phase(torch, dev, stats):
+    """Phase 12b: the training pair's formats and options at the training
+    bench's width (tools/bench_train.py's scene: make_solid_tree(
+    max_depth=7, basis_dim=9, seed=7), G=256, 800^2, gi=256, 4 orbit poses
+    of one group, FrameTrainer(lr=5e-2)): its leaves read as SG9, ASG9,
+    RGBA and SG6 trees (format_trees_on; SG6 takes D = 19, a run-time
+    record width and a new bake width) and the SH9 tree with rot_dirs, a
+    basis window and a render_bbox, each through train_variant_case (SG9
+    also on the lean trainer's bf16 bake, and one step with the precise
+    warp's switch on). Returns {case: summary}."""
+    from volrend_torch.models.synthetic import make_solid_tree
+    from volrend_torch.ops.camera import Camera
+    from volrend_torch.probes import _common
+    from volrend_torch.utils.options import RenderOptions
+    topt = RenderOptions(max_steps=1024)
+    tree = _common.load_tree(CACHE_TRAIN, lambda: make_solid_tree(
+        max_depth=DEPTH, basis_dim=9, seed=7))
+    tdev = tree.to_device(lut_depth=None, device=dev)
+    trees = dict(format_trees_on(torch, tdev), SH=tdev,
+                 SG6=format_trees_on(torch, tdev, nb=6)["SG"])
+    cams = train_orbit(Camera)
+    out = {}
+    for case, key, option in TRAIN_CASES:
+        out[case] = train_variant_case(
+            torch, dev, stats, case, trees[key], topt.replace(**option),
+            cams, lean=case == "SG9", precise=case == "SG9")
+    del trees, tdev, tree
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2951,6 +3209,9 @@ def main() -> None:
     variants = variants_phase(torch, kernels, dev, opt, stats, gate,
                               main_path, groups_of, render_all)
 
+    # ---- 12b. the training pair's formats and options -----------------------
+    train_variants = train_variants_phase(torch, dev, stats)
+
     # ---- 13. result ---------------------------------------------------------
     summary = {"card": card, "m_launches": stats.get("M_launches"),
                "warp_stage": stats.get("warp_stage"),
@@ -2963,6 +3224,7 @@ def main() -> None:
                "dense_counts": counts, "sparse_counts": scounts,
                "train_lean_kernels": stats.get("train_lean_kernels"), **tsum,
                **probe, **steep, **ndc, "variants": variants,
+               "train_variants": train_variants,
                "m_variant_launches": stats.get("M_variants"),
                "seconds": time.perf_counter() - _T0}
     log(f"summary {json.dumps(summary)}")
@@ -3014,6 +3276,8 @@ def main() -> None:
     spec += tuple((key, name, "volrend_torch/csrc/slab_march_display.cu",
                    "volrend_tpu/ops/pallas_slab.py:344",
                    stats[key]["launches"]) for key, name, _ in VARIANT_ROWS)
+    spec += tuple((key, name, src, rep, stats[key]["launches"])
+                  for key, name, src, rep in TRAIN_VARIANT_ROWS)
     rows = []
     for key, name, src, rep, launches in spec:
         s = stats[key]

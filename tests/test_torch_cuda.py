@@ -1384,7 +1384,7 @@ def test_display_variants_match_plain(format_grids, fmt, dt, option):
     opt = dataclasses.replace(OPT, **_OPTIONS[option])
     _, variant = _variant_vs_plain(g, opt)
     want = slab_march.display_variant(
-        slab_march.DisplayMode(
+        slab_march.MarchMode(
             int(g.fmt), None, bool(opt.render_depth),
             None if slab_render._rodrigues_matrix(opt.rot_dirs) is None
             else (0.0,) * 9,
@@ -1458,5 +1458,220 @@ def test_default_display_launch_configuration(card, bd):
                       .vt_march_display_info(bd, rows, 1, 0, 0, cfg["smem"],
                                              out), "slab_march_display")
         assert out[0] == 2 and out[2] == 0 and out[1] <= 128, list(out)
-    assert slab_march.display_variant(slab_march.DisplayMode(), bd,
+    assert slab_march.display_variant(slab_march.MarchMode(), bd,
                                       False) == "SH-int8"
+
+
+# ---------------------------------------------------------------------------
+# The training pair's formats and options (kernel M's training mode and
+# M-bwd: SG and ASG of 1 to 25 lobes, RGBA, SH with rot, a basis window and
+# a bbox) and the bake kernel's run-time record widths
+# ---------------------------------------------------------------------------
+
+#: the default SH instantiations' launches before the training pair took
+#: formats and options (commit 48b6bfc, NVIDIA H100 80GB HBM3; read by
+#: ``python volrend_torch/probes/train_info.py --root <that checkout>``):
+#: per variant, M's (blocks per SM, registers, spill bytes, dynamic shared
+#: memory) and M-bwd's (pass 1's four, pass 2's blocks, registers, spills)
+DEFAULT_TRAIN_INFO = {
+    "SH1-f32": ([5, 96, 40, 36864], [4, 114, 40, 36864, 16, 32, 0]),
+    "SH1-bf16": ([5, 96, 40, 26112], [4, 115, 40, 26112, 16, 32, 0]),
+    "SH4-f32": ([4, 96, 40, 41472], [4, 120, 40, 41472, 12, 40, 0]),
+    "SH4-bf16": ([4, 105, 40, 32256], [4, 122, 40, 32256, 16, 32, 0]),
+    "SH9-f32": ([2, 96, 48, 73728], [2, 128, 40, 73728, 10, 48, 0]),
+    "SH9-bf16": ([4, 96, 40, 44544], [4, 96, 128, 44544, 10, 46, 0]),
+    "SH16-f32": ([2, 96, 40, 96768], [2, 126, 40, 96768, 8, 64, 0]),
+    "SH16-bf16": ([3, 122, 40, 59904], [3, 124, 40, 59904, 8, 64, 0]),
+    "SH25-f32": ([1, 128, 40, 147456], [1, 128, 168, 147456, 5, 96, 0]),
+    "SH25-bf16": ([2, 128, 40, 81408], [2, 154, 40, 81408, 5, 93, 0]),
+}
+
+
+def _train_variant_case(group_geom, fmt, nb, dtype, options=None, seed=0):
+    """Kernel M's training mode and M-bwd of one variant on a two-cube bake
+    (G = 32) seen from one (perm, flip) group against their plain versions
+    on the same CUDA tensors; returns the launches' variant names."""
+    from volrend_torch.models.data_format import BasisType
+    from volrend_torch.ops import slab_grad
+    grid, cams = group_geom
+    (perm, flip), cam = sorted(cams.items())[seed % len(cams)]
+    D = 4 if fmt == "RGBA" else 3 * nb + 1
+    G, gi = grid.G, 40
+    dev = grid.data.device
+    bake = _two_cubes(G, D, dtype, dev, seed)
+    opt = OPT.replace(renormalize=False, **(options or {}))
+    geom = slab_render.FrameGeom(grid, cam.transform, cam.fx, cam.fy, perm,
+                                 flip, 48, 48, opt, gi)
+    ids = tuple(range(G - 1, -1, -1) if flip else range(G))
+    cfg = slab_grad.SlabCfg(G=G, gi=gi, D=D, bd=nb, fmt=int(BasisType[fmt]),
+                            perm=perm, flip=flip, ids=ids, opt=opt)
+    params = slab_grad._pack_geom_params(geom, cfg, 1.0 / geom.scale)
+    zb = torch.stack([geom.z_lo_pix, geom.z_hi_pix], 1)
+    st = slab_grad._kernel_statics(cfg)
+    st.pop("flip")
+    st["extra"] = (torch.as_tensor(_lobes(fmt, nb, seed), device=dev)
+                   if fmt in ("SG", "ASG") else None)
+    planar = _view(bake, perm)
+    qs = torch.ones(D, device=dev)
+    slab_march.march_slabs.train_variants = {}
+    slab_march.march_slabs_bwd.variants = {}
+    acc = slab_march.march_slabs(planar, params, qs, zb, G, gi, D, nb, perm,
+                                 slab_ids=ids, flip=flip, dir_win=False,
+                                 **st)
+    m = slab_march.march_inputs(planar, params, zb, G, gi, ids)
+    ref = slab_march.march_slabs_ref(planar, qs, D=D, bd=nb, flip=flip,
+                                     **st, **m)
+    torch.cuda.synchronize()
+    assert float(acc[:, 3].min()) < 0.5, (fmt, nb)
+    _freeze_flip_ok(acc, ref)
+    gacc4 = torch.as_tensor(np.random.default_rng(seed).normal(
+        size=(4, gi, gi)).astype(np.float32), device=dev)
+    gk = slab_march.march_slabs_bwd(planar, params[0], qs, zb[0], gacc4,
+                                    acc[0], G, gi, D, nb, perm, flip=flip,
+                                    out_dtype=dtype, **st)
+    assert gk.stride() == planar.stride()
+    prm, bzb, bgacc, aux = slab_march.march_bwd_inputs(
+        params[0], zb[0], gacc4, acc[0], G, gi)
+    mode = slab_march.MarchMode(cfg.fmt, st["extra"], False, st["rot"],
+                                st["bbox_full"], st["basis_lo"],
+                                st["basis_hi"])
+    gp = slab_march.march_slabs_bwd_ref(planar, qs, prm, bzb, bgacc, aux, G,
+                                        gi, D, nb, flip, mode=mode)
+    _bwd_agrees(gk, gp, dtype)
+    name = slab_march.train_variant(mode, nb, dtype == torch.float32)
+    assert slab_march.march_slabs.train_variants == {name: 1}
+    assert slab_march.march_slabs_bwd.variants == {name: 1}
+    return name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nb", [1, 3, 6, 16, 25])
+@pytest.mark.parametrize("fmt", ["SG", "ASG"])
+def test_train_lobe_variants_match_plain(group_geom, fmt, nb, dtype):
+    """SG and ASG trees of 1, 3, 6, 16 and 25 lobes (the lobe bounds 4, 9,
+    16 and 25, records of 4 to 76 values whose width the kernels take at
+    run time: 16-byte copies where a record is a whole number of 16-byte
+    units, aligned words elsewhere) through both training kernels, f32 and
+    bf16, against their plain versions."""
+    name = _train_variant_case(group_geom, fmt, nb, dtype, seed=nb)
+    assert name.startswith(fmt + "-")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_rgba_matches_plain(group_geom, dtype):
+    """An RGBA bake (D = 4: raw colours, no sigmoid) through both training
+    kernels against their plain versions."""
+    assert _train_variant_case(group_geom, "RGBA", -1, dtype,
+                               seed=2).startswith("RGBA-")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bd", [1, 4, 9, 16, 25])
+@pytest.mark.parametrize("option", ["rot", "window", "bbox", "all"])
+def test_train_sh_options_match_plain(group_geom, option, bd, dtype):
+    """SH trees with rot_dirs, a basis window, a non-full render_bbox and
+    all three through both training kernels' option variants against their
+    plain versions."""
+    opts = {"rot": dict(rot_dirs=(0.3, -0.2, 0.5)),
+            "window": dict(basis_minmax=(1, max(1, bd - 3))),
+            "bbox": dict(render_bbox=(0.2,) * 3 + (0.7,) * 3)}
+    options = ({k: v for o in opts.values() for k, v in o.items()}
+               if option == "all" else opts[option])
+    name = _train_variant_case(group_geom, "SH", bd, dtype, options,
+                               seed=bd + 1)
+    assert name.endswith("-opt")
+
+
+def test_default_train_launches_keep_their_configuration(card):
+    """The default SH instantiations of kernel M's training mode and of
+    M-bwd keep the registers, spills, blocks per SM and shared memory they
+    had before the option variants were added (DEFAULT_TRAIN_INFO)."""
+    from volrend_torch import kernels
+    assert DEFAULT_TRAIN_INFO
+    for key, want in DEFAULT_TRAIN_INFO.items():
+        bd, f32 = int(key.split("-")[0][2:]), int(key.endswith("f32"))
+        m = (ctypes.c_int * 11)()
+        b = (ctypes.c_int * 7)()
+        kernels.check(kernels.lib("slab_march").vt_march_slabs_info(
+            bd, f32, 1, 0, m), "slab_march")
+        kernels.check(kernels.lib("slab_march_bwd").vt_march_slabs_bwd_info(
+            bd, f32, 1, 0, b), "slab_march_bwd")
+        assert (list(m[:4]), list(b)) == (want[0], want[1]), key
+
+
+def test_train_variants_refuse_what_is_not_built(card, group_geom):
+    """More than 25 lobes raises ValueError, as on the display path; the
+    option variant is the only one an SG tree takes (the entry refuses an
+    SG launch without it), and only the "_lobes" library holds it."""
+    from volrend_torch import kernels
+    with pytest.raises(ValueError, match="1..25"):
+        _train_variant_case(group_geom, "SG", 26, torch.float32)
+    out = (ctypes.c_int * 11)()
+    lobes = slab_march.train_lib("slab_march", 2, True)
+    assert lobes.vt_march_slabs_info(9, 1, 2, 0, out) != 0
+    assert lobes.vt_march_slabs_info(9, 1, 2, 1, out) == 0
+    # each library holds its own set: the defaults' refuses an SG variant
+    assert kernels.lib("slab_march").vt_march_slabs_info(9, 1, 2, 1,
+                                                         out) != 0
+
+
+@pytest.mark.parametrize("D", [4, 10, 19, 76])
+def test_bake_kernel_any_width(card, D):
+    """The bake kernel at D = 4 (RGBA and SH1), 10 and 19 (SG3 and SG6,
+    run-time widths: 40 and 76 bytes a record) and 76 (SH25, ASG25) equals
+    its plain version bit for bit, its live bits equal live_bits_ref and
+    its gradient autograd's through the plain version (G = 32)."""
+    tree = make_test_tree(max_depth=4, basis_dim=1, seed=D,
+                          sigma_scale=60.0)
+    tdev = dataclasses.replace(tree.to_device(lut_depth=None, device=card),
+                               data_dim=D)
+    bmap = _bake_case(tdev, D, grad=True)
+    assert bmap.D == D
+
+
+@pytest.mark.parametrize("lean", [False, True])
+@pytest.mark.parametrize("fmt,nb,options", [
+    ("SG", 3, {}), ("ASG", 5, {}), ("SG", 25, {}), ("RGBA", -1, {}),
+    ("SH", 9, dict(rot_dirs=(0.3, -0.2, 0.5), basis_minmax=(0, 3),
+                   render_bbox=(0.2,) * 3 + (0.8,) * 3)),
+], ids=["SG3", "ASG5", "SG25", "RGBA", "SH9-options"])
+def test_frame_trainer_formats_on_card(card, fmt, nb, options, lean):
+    """FrameTrainer on SG, ASG and RGBA trees and an SH tree with rot_dirs,
+    a basis window and a render_bbox (G = 16 solid scene, its leaves read
+    as the format), default and lean: each step runs one launch of BK, the
+    bits mode, and kernels M and M-bwd in the tree's variant (bf16 for the
+    lean trainer), and three steps descend."""
+    from volrend_torch.models.data_format import BasisType
+    from volrend_torch.ops import slab_grad
+    from volrend_torch.train import FrameTrainer
+    tree = make_solid_tree(max_depth=3, basis_dim=25 if fmt == "SG" else 9,
+                           seed=7)
+    tdev = tree.to_device(lut_depth=None, device=card)
+    bd, D = tdev.basis_dim, tdev.data_dim
+    if fmt in ("SG", "ASG"):
+        keep = [c * bd + k for c in range(3) for k in range(nb)] + [D - 1]
+        tdev = dataclasses.replace(
+            tdev, data=tdev.data[:, keep].contiguous(), data_dim=3 * nb + 1,
+            basis_dim=nb, fmt=BasisType[fmt],
+            extra=torch.as_tensor(_lobes(fmt, nb, 4), device=card))
+    elif fmt == "RGBA":
+        rows = torch.cat([torch.sigmoid(tdev.data[:, 0:3 * bd:bd].float()),
+                          tdev.data[:, D - 1:D].float()], 1)
+        tdev = dataclasses.replace(tdev, data=rows.contiguous(), data_dim=4,
+                                   basis_dim=-1, fmt=BasisType.RGBA)
+    tr = FrameTrainer(tdev, opt=OPT.replace(**options), lr=5e-2, gi=48,
+                      lean=lean)
+    cam = _cams([(np.cos(0.25), np.sin(0.25), 0.45)], fx=200.0)[0]
+    tgt = torch.full((H, W, 4), 0.5, device=card)
+    name = (f"{fmt}-{'bf16' if lean else 'f32'}"
+            + ("-opt" if fmt == "SH" else ""))
+    slab_march.march_slabs.train_variants = {}
+    slab_march.march_slabs_bwd.variants = {}
+    k0 = slab_grad.bake_from_pyramid.launches
+    l0 = slab_march.march_occupancy.launches_live
+    losses = [tr.step_frame(cam, tgt) for _ in range(3)]
+    assert slab_march.march_slabs.train_variants == {name: 3}
+    assert slab_march.march_slabs_bwd.variants == {name: 3}
+    assert slab_grad.bake_from_pyramid.launches == k0 + 3
+    assert slab_march.march_occupancy.launches_live == l0 + 3
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses

@@ -89,7 +89,10 @@ def test_cuda_sources_name_their_tpu_kernel():
             "probe_stream.cu": "perf_overlap.py:dma_once",
             "probe_build.cu": "perf_sq4.py:build_pallas",
             "bake_pyramid.cu": "slab_grad.py:bake_from_pyramid"}
-    assert sorted(want) == sorted(src for src, _ in kernels.SOURCES.values())
+    # (kernel M's training mode and M-bwd are each built as three
+    # libraries from one source)
+    assert sorted(want) == sorted({src for src, _ in
+                                   kernels.SOURCES.values()})
     for name, ref in want.items():
         head = open(os.path.join(ROOT, "volrend_torch", "csrc", name)
                     ).read()[:4000]
@@ -205,21 +208,39 @@ def _train_args(**over):
     return kw
 
 
-@pytest.mark.parametrize("option,item", [
-    (dict(depth=True), "item 10b"), (dict(shade_bf16=True), "item 10c"),
-    (dict(rot=tuple(np.eye(3).ravel())), "item 10b"),
-    (dict(bbox_full=False), "item 10b"), (dict(basis_hi=8), "item 10b"),
-    (dict(fmt=2, extra=torch.ones((4, 4))), "item 10b"),
-    (dict(z_base=0.5), "item 19"),
+@pytest.mark.parametrize("option,error,match", [
+    (dict(depth=True), ValueError, "never marches depth"),
+    (dict(shade_bf16=True), NotImplementedError, "item 10c"),
+    (dict(z_base=0.5), NotImplementedError, "item 19"),
 ])
-def test_march_training_mode_refuses_other_options(option, item):
+def test_march_training_mode_refuses_other_options(option, error, match):
     """On the training payload (per-slab directions) the wrapper raises on
-    every format and option it does not take, naming the item that brings
-    it (the training pair's formats and options are item 10b). A bf16
-    payload with window directions is the f16 bake's display route
+    every option it does not take: depth mode, which the reference's
+    training path never marches (ValueError), and the options of later
+    items (NotImplementedError, naming the item). A bf16 payload with
+    window directions is the f16 bake's display route
     (test_march_runs_display_options)."""
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=match):
         slab_march.march_slabs(**_train_args(**option))
+
+
+@pytest.mark.parametrize("option", [
+    dict(rot=tuple(np.eye(3).ravel())), dict(bbox_full=False),
+    dict(basis_hi=2), dict(fmt=2, extra=torch.ones((4, 4))),
+], ids=["rot", "bbox", "window", "sg"])
+def test_march_training_mode_runs_formats_and_options(option):
+    """The training payload's formats and options run, forward and
+    backward (tests/test_torch_train_formats.py holds each against the
+    reference)."""
+    kw = _train_args(**option)
+    acc = slab_march.march_slabs(**kw)
+    assert tuple(acc.shape) == (1, 4, 8, 8) and acc.dtype == torch.float32
+    for k in ("sig2", "dir_win"):
+        kw.pop(k)
+    g = slab_march.march_slabs_bwd(
+        kw.pop("gplanar"), kw.pop("params")[0], kw.pop("qscale"),
+        kw.pop("zbounds")[0], torch.ones((4, 8, 8)), acc[0], **kw)
+    assert tuple(g.shape) == (4, kw["D"], 4, 4) and g.dtype == torch.float32
 
 
 def test_march_training_options_run_on_cpu():

@@ -40,6 +40,12 @@
 //   stores (D / 4 or D registers a lane), so a warp keeps its run's reads
 //   in flight. Stores are coalesced, and so are the finest level's loads;
 //   a coarse level's record is re-read by its neighbours from L1/L2.
+// - The SH widths (D = 4, 13, 28, 49, 76: one instantiation each) keep
+//   their record width at compile time. Every other width the trainer's
+//   formats take (SG and ASG of nb lobes, D = 3 nb + 1 up to 76) goes
+//   through one instantiation with D at run time (bake_kernel<0>), whose
+//   lanes move the run's 4-byte words one at a time (a load, then its
+//   store).
 // - The levels' and masks' pointers and sides are kernel parameters
 //   (indexed per lane from the constant bank).
 #include <cuda_bf16.h>
@@ -61,10 +67,12 @@ struct Levels {
   int L;
 };
 
-template <int D>
+template <int DC>
 __global__ void __launch_bounds__(32 * WARPS)
 bake_kernel(Levels lv, int G, int NW, float thresh, float* __restrict__ out,
-            unsigned* __restrict__ live) {
+            unsigned* __restrict__ live, int d_rt) {
+  // the record width: the instantiation's, or the run-time one (DC = 0)
+  const int D = DC ? DC : d_rt;
   const int lane = threadIdx.x & 31;
   const long long word = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
   const long long row = word / NW;  // z * G + y
@@ -94,37 +102,42 @@ bake_kernel(Levels lv, int G, int NW, float thresh, float* __restrict__ out,
   const unsigned long long sp = reinterpret_cast<unsigned long long>(src);
   // the run's elements: 16-byte units where a record is a multiple of 16
   // bytes, else 4-byte words; E a record
-  using T = typename std::conditional<D % 4 == 0, float4, float>::type;
-  constexpr int E = D % 4 == 0 ? D / 4 : D;
+  using T = typename std::conditional<DC && DC % 4 == 0, float4, float>::type;
+  const int E = DC && DC % 4 == 0 ? D / 4 : D;
   T* dst = reinterpret_cast<T*>(out + (row * G + x0) * D);
-  if (n == 32) {  // a whole word: every lane's loads in flight, then stores
-    T v[E];
+  if constexpr (DC != 0) {
+    if (n == 32) {  // a whole word: all its loads in flight, then stores
+      constexpr int EC = DC % 4 == 0 ? DC / 4 : DC;
+      T v[EC];
 #pragma unroll
-    for (int i = 0; i < E; ++i) {
-      const int q = 32 * i + lane, u = q / E;
-      const T* s = reinterpret_cast<const T*>(__shfl_sync(0xffffffffu, sp, u));
-      v[i] = __ldg(s + (q - u * E));
-    }
+      for (int i = 0; i < EC; ++i) {
+        const int q = 32 * i + lane, u = q / EC;
+        const T* s =
+            reinterpret_cast<const T*>(__shfl_sync(0xffffffffu, sp, u));
+        v[i] = __ldg(s + (q - u * EC));
+      }
 #pragma unroll
-    for (int i = 0; i < E; ++i) dst[32 * i + lane] = v[i];
-  } else {  // the row's last, partial word
-    const int elems = n * E;
-    for (int base = 0; base < elems; base += 32) {  // uniform trip count
-      const int q = base + lane;
-      const int u = min(q / E, n - 1);
-      const T* s = reinterpret_cast<const T*>(__shfl_sync(0xffffffffu, sp, u));
-      if (q < elems) dst[q] = __ldg(s + (q - u * E));
+      for (int i = 0; i < EC; ++i) dst[32 * i + lane] = v[i];
+      return;
     }
+  }
+  // a run of any width, or the row's last, partial word
+  const int elems = n * E;
+  for (int base = 0; base < elems; base += 32) {  // uniform trip count
+    const int q = base + lane;
+    const int u = min(q / E, n - 1);
+    const T* s = reinterpret_cast<const T*>(__shfl_sync(0xffffffffu, sp, u));
+    if (q < elems) dst[q] = __ldg(s + (q - u * E));
   }
 }
 
-template <int D>
-int launch(const Levels& lv, int G, float thresh, float* out, unsigned* live,
-           cudaStream_t stream) {
+template <int DC>
+int launch(const Levels& lv, int G, int D, float thresh, float* out,
+           unsigned* live, cudaStream_t stream) {
   const int NW = (G + 31) / 32;
   const long long words = (long long)G * G * NW;
-  bake_kernel<D><<<(unsigned)((words + WARPS - 1) / WARPS), 32 * WARPS, 0,
-                   stream>>>(lv, G, NW, thresh, out, live);
+  bake_kernel<DC><<<(unsigned)((words + WARPS - 1) / WARPS), 32 * WARPS, 0,
+                    stream>>>(lv, G, NW, thresh, out, live, D);
   return (int)cudaGetLastError();
 }
 
@@ -136,13 +149,14 @@ int launch(const Levels& lv, int G, float thresh, float* out, unsigned* live,
 // device pointers, level j's (B_j, B_j, B_j) bool mask, every voxel covered
 // by exactly one level; sides: a host array of the L sides B_j (each
 // dividing G); live: (G, G, ceil(G / 32)) int32 words of the voxels' live
-// bits at ``thresh``, or null for none. D is 4, 13, 28, 49 or 76 (SH degree
-// 1 to 25). Returns cudaGetLastError() after the launch.
+// bits at ``thresh``, or null for none. D is 3 nb + 1 for nb = 1 to 25
+// (SH of 1 to 25 basis functions, SG and ASG of nb lobes; 4 is also RGBA).
+// Returns cudaGetLastError() after the launch.
 extern "C" int vt_bake_pyramid(const void* levels, const void* masks,
                                const void* sides, int L, int G, int D,
                                float thresh, void* out, void* live,
                                void* stream) {
-  if (L < 1 || L > MAX_LEVELS || G < 1 ||
+  if (L < 1 || L > MAX_LEVELS || G < 1 || D < 4 || D > 76 || D % 3 != 1 ||
       (reinterpret_cast<uintptr_t>(out) & 15))
     return (int)cudaErrorInvalidValue;
   Levels lv{};
@@ -162,12 +176,12 @@ extern "C" int vt_bake_pyramid(const void* levels, const void* masks,
   unsigned* lb = static_cast<unsigned*>(live);
   cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
-    case 4: return launch<4>(lv, G, thresh, o, lb, s);
-    case 13: return launch<13>(lv, G, thresh, o, lb, s);
-    case 28: return launch<28>(lv, G, thresh, o, lb, s);
-    case 49: return launch<49>(lv, G, thresh, o, lb, s);
-    case 76: return launch<76>(lv, G, thresh, o, lb, s);
-    default: return (int)cudaErrorInvalidValue;
+    case 4: return launch<4>(lv, G, D, thresh, o, lb, s);
+    case 13: return launch<13>(lv, G, D, thresh, o, lb, s);
+    case 28: return launch<28>(lv, G, D, thresh, o, lb, s);
+    case 49: return launch<49>(lv, G, D, thresh, o, lb, s);
+    case 76: return launch<76>(lv, G, D, thresh, o, lb, s);
+    default: return launch<0>(lv, G, D, thresh, o, lb, s);
   }
 }
 

@@ -17,6 +17,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int NP = 31;                // params per pose (see _pack_params)
@@ -75,6 +77,78 @@ __device__ __forceinline__ void sh_basis(float x, float y, float z,
       bk[24] = C4_8 * (xx * (xx - 3.f * yy) - yy * (3.f * xx - yy));
     }
   }
+}
+
+// basis formats (volrend_torch/models/data_format.py BasisType)
+constexpr int F_RGBA = 0, F_SH = 1, F_SG = 2, F_ASG = 3;
+
+// The unit view direction of a voxel: the direction is affine in the
+// voxel's slope coordinates, s * dir = dirM[:,0] * s + dirM[:,1] * ycm +
+// dirM[:,2] * xcm (params 20:29), for the camera distance ``s`` of its slab
+// (or window centre); ``ssign`` = sign(s).
+__device__ __forceinline__ void view_dir(const float* prm, float ycm,
+                                         float xcm, float s, float ssign,
+                                         float& x, float& y, float& z) {
+  const float dw0 = (prm[21] * ycm + prm[22] * xcm) + prm[20] * s;
+  const float dw1 = (prm[24] * ycm + prm[25] * xcm) + prm[23] * s;
+  const float dw2 = (prm[27] * ycm + prm[28] * xcm) + prm[26] * s;
+  const float rn = rsqrtf(dw0 * dw0 + dw1 * dw1 + dw2 * dw2) * ssign;
+  x = dw0 * rn;
+  y = dw1 * rn;
+  z = dw2 * rn;
+}
+
+// the viewer's view-direction rotation, d = R d (volrend.cu:57-71)
+__device__ __forceinline__ void rotate(const float* R, float& x, float& y,
+                                       float& z) {
+  const float rx = R[0] * x + R[1] * y + R[2] * z;
+  const float ry = R[3] * x + R[4] * y + R[5] * z;
+  const float rz = R[6] * x + R[7] * y + R[8] * z;
+  x = rx;
+  y = ry;
+  z = rz;
+}
+
+// The basis of format FM at the unit direction (x, y, z): SH's BD
+// functions, or nb <= BD SG/ASG lobes whose parameters ``ext`` holds (4 or
+// 11 floats a lobe), each divided by the lobe count (inv_nb = 1 / nb);
+// lobes past nb are zero.
+template <int BD, int FM>
+__device__ __forceinline__ void basis_at(float x, float y, float z,
+                                         const float* ext, int nb,
+                                         float inv_nb, float* bk) {
+  if constexpr (FM == F_SH) {
+    sh_basis<BD>(x, y, z, bk);
+  } else if constexpr (FM == F_SG) {
+    // exp(lambda (mu . d - 1)) / bd (lumisphere.hpp:30-36)
+#pragma unroll
+    for (int k = 0; k < BD; ++k) {
+      const float* e = ext + 4 * k;
+      bk[k] = k < nb
+                  ? __expf(e[0] * (e[1] * x + e[2] * y + e[3] * z - 1.f)) *
+                        inv_nb
+                  : 0.f;
+    }
+  } else if constexpr (FM == F_ASG) {
+    // S exp(-a dotx^2 - b doty^2) / bd (lumisphere.hpp:14-28)
+#pragma unroll
+    for (int k = 0; k < BD; ++k) {
+      const float* e = ext + 11 * k;
+      const float dx = e[2] * x + e[3] * y + e[4] * z;
+      const float dy = e[5] * x + e[6] * y + e[7] * z;
+      const float sz = e[8] * x + e[9] * y + e[10] * z;
+      bk[k] = k < nb ? sz * __expf(-e[0] * dx * dx - e[1] * dy * dy) * inv_nb
+                     : 0.f;
+    }
+  }
+}
+
+// The option variants' shared memory: the rotation's 9 floats, then N - 9
+// floats of lobe parameters (one array a kernel that calls it).
+template <int N>
+__device__ __forceinline__ float* opt_smem() {
+  __shared__ float s[N];
+  return s;
 }
 
 // floor(v) clamped to [lo, hi], safe for any float (incl. huge values)
@@ -251,12 +325,131 @@ __device__ __forceinline__ float sigma_of(uint32_t w, long long e) {
   }
 }
 
+// A training variant: its basis format FM; whether the run-time options
+// (rot, the basis window, the bbox and, for SG/ASG, the lobe count and
+// their parameters) are compiled in (O); and B, the SH basis functions or
+// the lobe count's bound (1 for RGBA). A record holds at most DMAX values:
+// 3 B + 1, or 4 for RGBA; SG and ASG take theirs, 3 nb + 1 for nb <= B
+// lobes, at run time (RTD). The default variants, SH without options
+// (ShVar), are what the training bench marches.
+template <int FM, bool O, int B>
+struct TVar {
+  static constexpr int FMT = FM, BD = B;
+  static constexpr bool OPT = O;
+  static constexpr bool RTD = FM == F_SG || FM == F_ASG;
+  static constexpr int DMAX = FM == F_RGBA ? 4 : 3 * B + 1;
+  static constexpr int EXW = FM == F_SG ? 4 : FM == F_ASG ? 11 : 0;
+};
+template <int BD>
+using ShVar = TVar<F_SH, false, BD>;
+
+// The launch's options, as the host passes them: the lobes (SG/ASG: nb x 4
+// or 11 floats on the device), the lobe count, the rotation (rot_on, 9
+// floats), the bbox mask (params 16-19) and the basis window [blo, bhi].
+struct VarArgs {
+  const float* extra;
+  int nb, rot_on, bbox, blo, bhi;
+  float rot[9];
+};
+
+// A kernel's arguments ``A`` with the launch's options (VarArgs ``va``) for
+// an option variant; the default variants take ``A`` alone (their
+// parameters, and so their registers, stay those of the SH-only kernels).
+template <class A>
+struct WithVar : A {
+  VarArgs va;
+};
+template <class V, class A>
+using ArgsOf = typename std::conditional<V::OPT, WithVar<A>, A>::type;
+
+// An option variant's run-time state in the kernel: the rotation (shared
+// memory, or null), the lobes (shared memory), the lobe count nb and its
+// inverse, the record width D, the basis window, and the bbox (its
+// in-plane box from params 16-19).
+struct TrainOpt {
+  const float* rot;
+  const float* ext;
+  int nb, D, blo, bhi, bbox;
+  float inv_nb, lo1, hi1, lo2, hi2;
+};
+
+// the record width of variant V: a constant, or the lobe count's (RTD)
+template <class V>
+__device__ __forceinline__ int rec_dim(const TrainOpt& o) {
+  if constexpr (V::RTD)
+    return o.D;
+  else
+    return V::DMAX;
+}
+
+// Load an option variant's options into shared memory (the block's NTH
+// threads; the caller synchronizes before use) and return its state; the
+// bbox's box is set from the pose's params by set_box. Empty for the
+// default variants.
+template <class V, int NTH>
+__device__ __forceinline__ TrainOpt load_opt(const VarArgs& va, int tid) {
+  TrainOpt o{};
+  if constexpr (V::OPT) {
+    float* s = opt_smem<9 + V::EXW * V::BD>();
+    if (tid < 9) s[tid] = va.rot[tid];
+    for (int i = tid; i < V::EXW * va.nb; i += NTH) s[9 + i] = va.extra[i];
+    o.rot = va.rot_on ? s : nullptr;
+    o.ext = s + 9;
+    o.nb = va.nb;
+    o.inv_nb = 1.f / (float)va.nb;
+    o.D = V::RTD ? 3 * va.nb + 1 : V::DMAX;
+    o.blo = va.blo;
+    o.bhi = va.bhi;
+    o.bbox = va.bbox;
+  }
+  return o;
+}
+
+// a kernel's arguments of variant V: ``a`` with the options ``va`` where
+// V takes them
+template <class V, class A>
+ArgsOf<V, A> args_of(const A& a, const VarArgs& va) {
+  ArgsOf<V, A> k;
+  static_cast<A&>(k) = a;
+  if constexpr (V::OPT) k.va = va;
+  return k;
+}
+
+template <class V>
+__device__ __forceinline__ void set_box(TrainOpt& o, const float* prm) {
+  if constexpr (V::OPT) {
+    o.lo1 = prm[16];
+    o.hi1 = prm[17];
+    o.lo2 = prm[18];
+    o.hi2 = prm[19];
+  }
+}
+
+// Does the voxel at global cell (gy, gx) lie in the option variant's bbox
+// (its extent meets the in-plane box, pallas_slab._shade_pre)? Always for
+// the default variants and a full bbox.
+template <class V>
+__device__ __forceinline__ bool in_box(const TrainOpt& o, float Gf, int gy,
+                                       int gx) {
+  if constexpr (V::OPT) {
+    if (o.bbox) {
+      const float h = 0.5f / Gf;
+      const float yc = ((float)gy + 0.5f) * (1.f / Gf);
+      const float xc = ((float)gx + 0.5f) * (1.f / Gf);
+      return (yc + h > o.lo1) && (yc - h < o.hi1) && (xc + h > o.lo2) &&
+             (xc - h < o.hi2);
+    }
+  }
+  return true;
+}
+
 // bytes of one thread's record slot: the record and the word-alignment
 // slack of its 4-byte copies. The threads' slots lie side by side, so the
 // slot is an odd number of 16-byte units where the record takes 16-byte
 // copies and is read as float4 (the 8 threads of a phase hit 8 distinct
 // bank quads), else an odd number of words (read as words: 32 distinct
-// banks).
+// banks). A variant with its record width at run time sizes the slot by
+// its bound DMAX, which holds every narrower record either way.
 template <int D, typename PT>
 __host__ __device__ constexpr int rec_slot() {
   constexpr int RB = D * (int)sizeof(PT);
@@ -290,22 +483,38 @@ __device__ __forceinline__ void load_record(const PT* rec, float* v) {
   }
 }
 
+// Does variant V copy the record at address ``a`` (``D`` values) in
+// 16-byte units? Where the record is 16-byte aligned and a whole number of
+// them (a constant width: f32 with D % 4 == 0; a run-time width: also a
+// slot of whole 16-byte units).
+template <class V, typename PT>
+__device__ __forceinline__ bool whole16(uintptr_t a, int D) {
+  if constexpr (!V::RTD) {
+    if constexpr ((V::DMAX * (int)sizeof(PT)) % 16 == 0)
+      return (a & 15) == 0;
+    else
+      return false;
+  } else if constexpr (rec_slot<V::DMAX, PT>() % 16 == 0) {
+    return ((D * (int)sizeof(PT)) & 15) == 0 && (a & 15) == 0;
+  } else {
+    return false;
+  }
+}
+
 // Queue the copy of the voxel record at ``rec`` (D values) into ``slot``
 // (this thread's) and return where the record will lie there: 16-byte
-// copies where the record is 16-byte aligned and a whole number of them
-// (f32 with D % 4 == 0), else the aligned 4-byte words that cover it. The
-// caller commits and waits.
-template <int D, typename PT>
-__device__ __forceinline__ const PT* stage_record(char* slot, const PT* rec) {
-  constexpr int RB = D * (int)sizeof(PT);
+// copies where whole16 allows, else the aligned 4-byte words that cover
+// it. The caller commits and waits.
+template <class V, typename PT>
+__device__ __forceinline__ const PT* stage_record(char* slot, const PT* rec,
+                                                  int D) {
+  const int RB = D * (int)sizeof(PT);
   const uintptr_t a = reinterpret_cast<uintptr_t>(rec);
-  if constexpr (RB % 16 == 0) {
-    if ((a & 15) == 0) {
+  if (whole16<V, PT>(a, D)) {
 #pragma unroll
-      for (int i = 0; i < RB / 16; ++i)
-        cp16(slot + 16 * i, (const char*)rec + 16 * i);
-      return reinterpret_cast<const PT*>(slot);
-    }
+    for (int i = 0; i < V::DMAX * (int)sizeof(PT) / 16; ++i)
+      if (16 * i < RB) cp16(slot + 16 * i, (const char*)rec + 16 * i);
+    return reinterpret_cast<const PT*>(slot);
   }
   const uintptr_t w0 = a & ~(uintptr_t)3;
   const int off = (int)(a - w0);
@@ -316,33 +525,27 @@ __device__ __forceinline__ const PT* stage_record(char* slot, const PT* rec) {
 }
 
 // where stage_record put the record at ``rec`` in ``slot``
-template <int D, typename PT>
-__device__ __forceinline__ const PT* staged(const char* slot, const PT* rec) {
-  constexpr int RB = D * (int)sizeof(PT);
+template <class V, typename PT>
+__device__ __forceinline__ const PT* staged(const char* slot, const PT* rec,
+                                            int D) {
   const uintptr_t a = reinterpret_cast<uintptr_t>(rec);
-  if constexpr (RB % 16 == 0) {
-    if ((a & 15) == 0) return reinterpret_cast<const PT*>(slot);
-  }
+  if (whole16<V, PT>(a, D)) return reinterpret_cast<const PT*>(slot);
   return reinterpret_cast<const PT*>(slot + (a & 3));
 }
 
-// the SH basis at the voxel's view direction and the voxel's rgb, from its
-// record's values (load_record: colour values c * BD + k, sigma last). The
-// direction is affine in the voxel's slope coordinates: s * dir =
-// dirM[:,0] * s + dirM[:,1] * ycm + dirM[:,2] * xcm (params 20:29), for the
-// camera distance ``s`` of the slab; ``ssign`` = sign(s). The basis is
-// scaled once per k by qs[k] (the bake shares each basis function's scale
-// across rgb).
+// the SH basis at the voxel's view direction (view_dir, at the camera
+// distance ``s`` of the slab) and the voxel's rgb, from its record's values
+// (load_record: colour values c * BD + k, sigma last). The basis is scaled
+// once per k by qs[k] (the bake shares each basis function's scale across
+// rgb).
 template <int BD>
 __device__ __forceinline__ void voxel_rgb(const float* rec, const float* qs,
                                           const float* prm, float ycm,
                                           float xcm, float s, float ssign,
                                           float* bk, float* rgb) {
-  const float dw0 = (prm[21] * ycm + prm[22] * xcm) + prm[20] * s;
-  const float dw1 = (prm[24] * ycm + prm[25] * xcm) + prm[23] * s;
-  const float dw2 = (prm[27] * ycm + prm[28] * xcm) + prm[26] * s;
-  const float rn = rsqrtf(dw0 * dw0 + dw1 * dw1 + dw2 * dw2) * ssign;
-  sh_basis<BD>(dw0 * rn, dw1 * rn, dw2 * rn, bk);
+  float x, y, z;
+  view_dir(prm, ycm, xcm, s, ssign, x, y, z);
+  sh_basis<BD>(x, y, z, bk);
   float raw0 = 0.f, raw1 = 0.f, raw2 = 0.f;
 #pragma unroll
   for (int kk = 0; kk < BD; ++kk) {
@@ -354,6 +557,47 @@ __device__ __forceinline__ void voxel_rgb(const float* rec, const float* qs,
   rgb[0] = sigmoid(raw0);
   rgb[1] = sigmoid(raw1);
   rgb[2] = sigmoid(raw2);
+}
+
+// An option variant's rgb of a voxel, from its record ``rec`` (staged, or
+// in the payload; values as pay_val reads them), as the reference's kernel
+// shades it (pallas_slab.py:391-471): SH, SG and ASG take sigmoid(sum_k
+// rec[c nb + k] bk[k] qs[k]), bk the basis at the view direction rotated
+// by o.rot, zero outside the window [blo, bhi] and past nb lobes (bk is
+// returned so); RGBA takes rec[c] qs[c] (no basis, no sigmoid).
+template <class V, typename PT>
+__device__ __forceinline__ void voxel_rgb_opt(const PT* rec,
+                                              const TrainOpt& o,
+                                              const float* qs,
+                                              const float* prm, float ycm,
+                                              float xcm, float s,
+                                              float ssign, float* bk,
+                                              float* rgb) {
+  if constexpr (V::FMT == F_RGBA) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) rgb[c] = pay_val(rec[c]) * qs[c];
+  } else {
+    float x, y, z;
+    view_dir(prm, ycm, xcm, s, ssign, x, y, z);
+    if (o.rot) rotate(o.rot, x, y, z);
+    basis_at<V::BD, V::FMT>(x, y, z, o.ext, o.nb, o.inv_nb, bk);
+    const int nb = V::FMT == F_SH ? V::BD : o.nb;
+    float raw0 = 0.f, raw1 = 0.f, raw2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < V::BD; ++k) {
+      if (k < o.blo || k > o.bhi || k >= nb) {
+        bk[k] = 0.f;
+        continue;
+      }
+      const float bq = bk[k] * qs[k];
+      raw0 += pay_val(rec[k]) * bq;
+      raw1 += pay_val(rec[nb + k]) * bq;
+      raw2 += pay_val(rec[2 * nb + k]) * bq;
+    }
+    rgb[0] = sigmoid(raw0);
+    rgb[1] = sigmoid(raw1);
+    rgb[2] = sigmoid(raw2);
+  }
 }
 
 // The coarse occupancy of a payload: per slab and per row of OCC x OCC
@@ -372,16 +616,17 @@ __host__ __device__ __forceinline__ int occ_words(int Gx) {
 // order of the view's strides (the payload's memory order for a permuted
 // bake, so that a warp's sigma reads fall in a few kilobytes): a voxel
 // above the threshold (its value as the march reads it: bf16, times
-// qs[D-1]) sets its block's bit. The threshold is the lowest of the P
+// qs[D-1]; sigma is the last of a record's D values) sets its block's
+// bit. The threshold is the lowest of the P
 // poses' (params[14]). ``ax`` lists the view's axes (0 slab, 1 row, 2
 // column) from the smallest stride to the largest.
 struct AxisOrder {
   int ax[3];
 };
 
-template <int D, typename PT>
+template <typename PT>
 __global__ void __launch_bounds__(256)
-occupancy_kernel(PayView pv, const float* __restrict__ params, int P,
+occupancy_kernel(PayView pv, int D, const float* __restrict__ params, int P,
                  const float* __restrict__ qscale, int Gz, int Gy, int Gx,
                  AxisOrder order, unsigned long long* __restrict__ occ) {
   const int dims[3] = {Gz, Gy, Gx};
@@ -411,11 +656,11 @@ occupancy_kernel(PayView pv, const float* __restrict__ params, int P,
   }
 }
 
-// Build the coarse occupancy of the view into ``occ`` (Gz * ceil(Gy/OCC) *
-// occ_words(Gx) 64-bit masks) on ``stream``: clear it, then one
-// occupancy_kernel launch.
-template <int D, typename PT>
-cudaError_t build_occupancy(PayView pv, const float* params, int P,
+// Build the coarse occupancy of the view (records of D values) into
+// ``occ`` (Gz * ceil(Gy/OCC) * occ_words(Gx) 64-bit masks) on ``stream``:
+// clear it, then one occupancy_kernel launch.
+template <typename PT>
+cudaError_t build_occupancy(PayView pv, int D, const float* params, int P,
                             const float* qscale, int Gz, int Gy, int Gx,
                             unsigned long long* occ, cudaStream_t stream) {
   const size_t masks =
@@ -432,8 +677,8 @@ cudaError_t build_occupancy(PayView pv, const float* params, int P,
         order.ax[i] = order.ax[j];
         order.ax[j] = t;
       }
-  occupancy_kernel<D, PT><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-      pv, params, P, qscale, Gz, Gy, Gx, order, occ);
+  occupancy_kernel<PT><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      pv, D, params, P, qscale, Gz, Gy, Gx, order, occ);
   return cudaGetLastError();
 }
 
@@ -485,11 +730,11 @@ struct MarchStatic {
 // bytes of the sigma ring, rounded up to 16 (the record slots follow it)
 constexpr size_t RING_BYTES = ((size_t)RING * PS * PS * 4 + 15) / 16 * 16;
 
-// the dynamic shared memory of a block: chan, ring, rec
-template <int BD, typename PT>
+// the dynamic shared memory of a block of variant V: chan, ring, rec
+template <class V, typename PT>
 constexpr size_t march_smem() {
   return (size_t)PS * PS * 16 + RING_BYTES +
-         (size_t)(DC + 1) * RSLOTS * NT * rec_slot<3 * BD + 1, PT>();
+         (size_t)(DC + 1) * RSLOTS * NT * rec_slot<V::DMAX, PT>();
 }
 
 // march_loop's shared memory: the block's dynamic bytes and its MarchStatic
@@ -709,10 +954,11 @@ __device__ __forceinline__ long long cell_elem(const Job& j,
 // queue the sigma words of job j (if ``has``) into ``slot`` and commit a
 // copy group (empty when there is no job, so that every job has one). Cell
 // i is copied, checked and shaded by thread i % NT only, so the ring needs
-// no barrier.
-template <int D, typename PT>
+// no barrier. Records hold D values, sigma last.
+template <typename PT>
 __device__ __forceinline__ void issue(const Job& j, bool has,
-                                      const MarchCtx& c, uint32_t* slot) {
+                                      const MarchCtx& c, uint32_t* slot,
+                                      int D) {
   if (has) {
     for (int i = c.tid; i < j.FY * j.FX; i += NT)
       cp4(slot + i, word_of<PT>(c.pv.ptr, cell_elem(j, c, i, j.FX) + D - 1));
@@ -730,23 +976,39 @@ __device__ __forceinline__ char* rec_slot_of(const MarchCtx& c,
          ((size_t)(set * RSLOTS + k) * NT + c.tid) * rec_slot<D, PT>();
 }
 
-// queue the colour records of job j's cells above the threshold (this
+// is piece cell i of job j (FX columns), of sigma ``sig``, shaded: sigma
+// above the threshold and, for an option variant, the voxel in the bbox?
+template <class V>
+__device__ __forceinline__ bool cell_live(float sig, const MarchCtx& c,
+                                          const TrainOpt& o, const Job& j,
+                                          int i, int FX) {
+  if (!(sig > c.sigma_thresh)) return false;
+  if constexpr (V::OPT) {
+    const int ly = i / FX;
+    return in_box<V>(o, c.Gf, j.py + ly, j.px + i - ly * FX);
+  }
+  return true;
+}
+
+// queue the colour records of job j's shaded cells (cell_live: this
 // thread's cells, whose sigma words have landed in ``ring_slot``) into its
 // slots of colour set ``set``, at most RSLOTS of them (the shading stages
 // any further one itself), and commit a copy group (empty without a job)
-template <int D, typename PT>
+template <class V, typename PT>
 __device__ __forceinline__ void issue_colour(const Job& j, bool has,
                                              const MarchCtx& c,
                                              const MarchSmem& sm,
+                                             const TrainOpt& o,
                                              const uint32_t* ring_slot,
-                                             int set, float qsig) {
+                                             int set, float qsig, int D) {
   if (has) {
     int k = 0;
     for (int i = c.tid; i < j.FY * j.FX && k < RSLOTS; i += NT) {
       const long long e = cell_elem(j, c, i, j.FX);
-      if (sigma_of<PT>(ring_slot[i], e + D - 1) * qsig > c.sigma_thresh)
-        stage_record<D, PT>(rec_slot_of<D, PT>(c, sm, set, k++),
-                            reinterpret_cast<const PT*>(c.pv.ptr) + e);
+      if (cell_live<V>(sigma_of<PT>(ring_slot[i], e + D - 1) * qsig, c, o,
+                       j, i, j.FX))
+        stage_record<V, PT>(rec_slot_of<V::DMAX, PT>(c, sm, set, k++),
+                            reinterpret_cast<const PT*>(c.pv.ptr) + e, D);
     }
   }
   commit();
@@ -780,15 +1042,20 @@ __device__ __forceinline__ void issue_colour(const Job& j, bool has,
 // - When the march moves past a slab with a cell above the threshold,
 //   ``on_slab(job, span, (sw, rw, gw, bw))`` composites it (every thread
 //   calls it; it may synchronize).
-// ``T`` is the pixel's transmittance, which on_slab updates.
-template <int BD, typename PT, typename OnSlab>
+// ``T`` is the pixel's transmittance, which on_slab updates. V is the
+// variant (TVar): an option variant's cells are shaded only inside its
+// bbox (cell_live), by voxel_rgb_opt with the state ``opt``.
+template <class V, typename PT, typename OnSlab>
 __device__ __forceinline__ void march_loop(const MarchCtx& c,
                                            const MarchSmem& sm,
                                            const float* s_qs,
-                                           const float* s_prm, const float& T,
+                                           const float* s_prm,
+                                           const TrainOpt& opt,
+                                           const float& T,
                                            unsigned long long* counts,
                                            OnSlab&& on_slab) {
-  constexpr int D = 3 * BD + 1;
+  constexpr int BD = V::BD;
+  const int D = rec_dim<V>(opt);
   constexpr int CELLS = PS * PS;
   const int warp = c.tid >> 5, lane = c.tid & 31;
   Clock clk;
@@ -851,14 +1118,15 @@ __device__ __forceinline__ void march_loop(const MarchCtx& c,
 #pragma unroll
     for (int r = 0; r < RING - 1; ++r) {
       if (r < nj) job_at(pj, c, sm.list[r]);
-      issue<D, PT>(pj, r < nj, c, sm.ring + r * CELLS);
+      issue<PT>(pj, r < nj, c, sm.ring + r * CELLS, D);
     }
     wait_n<0>();
 #pragma unroll
     for (int d = 0; d < DC; ++d) {
       if (d < nj) job_at(qj, c, sm.list[d]);
-      issue_colour<D, PT>(qj, d < nj, c, sm, sm.ring + (d % RING) * CELLS,
-                          d % (DC + 1), qsig);
+      issue_colour<V, PT>(qj, d < nj, c, sm, opt,
+                          sm.ring + (d % RING) * CELLS, d % (DC + 1), qsig,
+                          D);
     }
     clk.lap(LIST);
     for (int n = 0; n < nj; ++n) {
@@ -878,19 +1146,20 @@ __device__ __forceinline__ void march_loop(const MarchCtx& c,
       clk.start();
       const int m = n + RING - 1, m2 = n + DC;
       if (m < nj) job_at(pj, c, sm.list[m]);
-      issue<D, PT>(pj, m < nj, c, sm.ring + (m % RING) * CELLS);
+      issue<PT>(pj, m < nj, c, sm.ring + (m % RING) * CELLS, D);
       wait_n<2 * (RING - 1 - DC)>();  // S(n + DC) has landed
       if (m2 < nj) job_at(qj, c, sm.list[m2]);
-      issue_colour<D, PT>(qj, m2 < nj, c, sm, sm.ring + (m2 % RING) * CELLS,
-                          m2 % (DC + 1), qsig);
+      issue_colour<V, PT>(qj, m2 < nj, c, sm, opt,
+                          sm.ring + (m2 % RING) * CELLS, m2 % (DC + 1), qsig,
+                          D);
       clk.lap(QUEUE);
       const uint32_t* slot = sm.ring + (n % RING) * CELLS;
       const int FY = cons.FY, FX = cons.FX;
       bool above = false;
       for (int i = c.tid; i < FY * FX; i += NT)
-        above |= sigma_of<PT>(slot[i], cell_elem(cons, c, i, FX) + D - 1) *
-                     qsig >
-                 c.sigma_thresh;
+        above |= cell_live<V>(
+            sigma_of<PT>(slot[i], cell_elem(cons, c, i, FX) + D - 1) * qsig,
+            c, opt, cons, i, FX);
       const bool any = __syncthreads_or(above);
       clk.lap(DECIDE);
       if (!any) continue;
@@ -918,14 +1187,15 @@ __device__ __forceinline__ void march_loop(const MarchCtx& c,
         const long long e = cell_elem(cons, c, i, FX);
         const float sig = sigma_of<PT>(slot[i], e + D - 1) * qsig;
         float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (sig > c.sigma_thresh) {
+        if (cell_live<V>(sig, c, opt, cons, i, FX)) {
           const PT* src = reinterpret_cast<const PT*>(c.pv.ptr) + e;
           const PT* rec;
           if (k < RSLOTS) {
-            rec = staged<D, PT>(rec_slot_of<D, PT>(c, sm, set, k), src);
+            rec = staged<V, PT>(rec_slot_of<V::DMAX, PT>(c, sm, set, k), src,
+                                D);
           } else {  // more cells than slots: stage this one now
-            rec = stage_record<D, PT>(
-                rec_slot_of<D, PT>(c, sm, set, RSLOTS - 1), src);
+            rec = stage_record<V, PT>(
+                rec_slot_of<V::DMAX, PT>(c, sm, set, RSLOTS - 1), src, D);
             commit();
             wait_n<0>();
           }
@@ -935,9 +1205,15 @@ __device__ __forceinline__ void march_loop(const MarchCtx& c,
               ((float)(cons.py + ly) + 0.5f) * (1.f / c.Gf) - c.cy;
           const float xcm =
               ((float)(cons.px + lx) + 0.5f) * (1.f / c.Gf) - c.cx;
-          float vals[D], bk[BD], rgb[3];
-          load_record<D, PT>(rec, vals);
-          voxel_rgb<BD>(vals, s_qs, s_prm, ycm, xcm, sd, sdsign, bk, rgb);
+          float bk[BD], rgb[3];
+          if constexpr (V::OPT) {
+            voxel_rgb_opt<V, PT>(rec, opt, s_qs, s_prm, ycm, xcm, sd, sdsign,
+                                 bk, rgb);
+          } else {
+            float vals[V::DMAX];
+            load_record<V::DMAX, PT>(rec, vals);
+            voxel_rgb<BD>(vals, s_qs, s_prm, ycm, xcm, sd, sdsign, bk, rgb);
+          }
           o = make_float4(sig, sig * rgb[0], sig * rgb[1], sig * rgb[2]);
         }
         sm.chan[i] = o;
@@ -974,6 +1250,98 @@ __device__ __forceinline__ void march_loop(const MarchCtx& c,
   }
   clk.add(c.tid);
   add_counts(counts, c.tid, n_cnt);
+}
+
+// ---- the launch's variant (host) -------------------------------------------
+
+// The options of a launch as VarArgs: fmt (F_*), bd (SH's basis functions;
+// SG/ASG's lobes, 1 to 25; -1 for RGBA), opt (the option variant, which
+// every format but SH takes, and SH with rot, a bbox or a basis window
+// [blo, bhi] that drops planes), ``extra`` (SG/ASG: the lobes on the
+// device), rot (9 floats on the host, when rot_on). False where they do
+// not hold together.
+inline bool make_var(int fmt, int bd, int opt, const void* extra,
+                     int rot_on, const void* rot, int bbox, int blo, int bhi,
+                     VarArgs& va) {
+  const bool cuts = fmt == F_SH && (blo > 0 || bhi < bd - 1);
+  if (fmt < F_RGBA || fmt > F_ASG || (fmt == F_RGBA) != (bd < 0) ||
+      (!opt && (fmt != F_SH || rot_on || bbox || cuts)) ||
+      (rot_on && !rot) || (fmt >= F_SG && (!extra || bd < 1 || bd > 25)))
+    return false;
+  va.extra = (const float*)extra;
+  va.nb = fmt == F_RGBA ? 1 : bd;
+  va.rot_on = rot_on;
+  va.bbox = bbox;
+  va.blo = blo;
+  va.bhi = bhi;
+  for (int i = 0; i < 9; ++i)
+    va.rot[i] = rot_on ? ((const float*)rot)[i] : (i % 4 == 0 ? 1.f : 0.f);
+  return true;
+}
+
+template <typename T>
+struct Elem {
+  using type = T;
+};
+
+template <class V, class F>
+int with_payload(int f32, F& f) {
+  return f32 ? f(V{}, Elem<float>{}) : f(V{}, Elem<__nv_bfloat16>{});
+}
+
+template <int FM, class F>
+int with_lobes(int nb, int f32, F& f) {
+  if (nb >= 1 && nb <= 4) return with_payload<TVar<FM, true, 4>>(f32, f);
+  if (nb > 4 && nb <= 9) return with_payload<TVar<FM, true, 9>>(f32, f);
+  if (nb > 9 && nb <= 16) return with_payload<TVar<FM, true, 16>>(f32, f);
+  if (nb > 16 && nb <= 25) return with_payload<TVar<FM, true, 25>>(f32, f);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The library that holds the variant (fmt, opt): each training source is
+// built three times, in parallel (volrend_torch/kernels), its
+// instantiations split by VT_TRAIN_SET: 0 the defaults (SH without
+// options), 1 SH with options and RGBA, 2 SG and ASG.
+#ifndef VT_TRAIN_SET
+#define VT_TRAIN_SET 0
+#endif
+inline int train_set(int fmt, int opt) {
+  return fmt >= F_SG ? 2 : (opt ? 1 : 0);
+}
+
+// Call f(V{}, Elem<PT>{}) with the instantiation of (fmt, bd, opt) and the
+// payload's element (f32, else bf16): SH of degree 0-4 without options
+// (the defaults, ShVar) and with them; SG and ASG with lobe counts up to 4,
+// 9, 16 and 25 (the count at run time); RGBA. Returns f's result, or
+// cudaErrorInvalidValue for a variant this library does not hold.
+template <class F>
+int with_variant(int fmt, int bd, int opt, int f32, F&& f) {
+  if (train_set(fmt, opt) != VT_TRAIN_SET || (!opt && fmt != F_SH))
+    return (int)cudaErrorInvalidValue;
+  if constexpr (VT_TRAIN_SET == 2) {
+    if (fmt == F_SG) return with_lobes<F_SG>(bd, f32, f);
+    if (fmt == F_ASG) return with_lobes<F_ASG>(bd, f32, f);
+  } else {
+    if constexpr (VT_TRAIN_SET == 1) {
+      if (fmt == F_RGBA && bd < 0)
+        return with_payload<TVar<F_RGBA, true, 1>>(f32, f);
+    }
+    if (fmt == F_SH) {
+#define VT_SH(B) \
+  case B:        \
+    return with_payload<TVar<F_SH, VT_TRAIN_SET == 1, B>>(f32, f);
+      switch (bd) {
+        VT_SH(1)
+        VT_SH(4)
+        VT_SH(9)
+        VT_SH(16)
+        VT_SH(25)
+        default: break;
+      }
+#undef VT_SH
+    }
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace tmarch

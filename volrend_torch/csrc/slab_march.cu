@@ -2,14 +2,17 @@
 // own tensor, for Hopper (sm_90a).
 //
 // Replaces volrend_tpu/ops/pallas_slab.py:_make_kernel in its training
-// option set (bf16 payload, Dp = D, sigma in plane D-1, dir_win=False), the
-// Pallas TPU kernel behind pallas_slab.march_slabs; its plain PyTorch twin
-// is volrend_torch/ops/slab_march.py:march_slabs_ref. The display mode
-// (int8 payload, window directions) is slab_march_display.cu.
+// option set (bf16 payload, Dp = D, sigma in plane D-1, dir_win=False; SH,
+// SG, ASG and RGBA, rot, a non-full bbox and the basis window), the Pallas
+// TPU kernel behind pallas_slab.march_slabs; its plain PyTorch twin is
+// volrend_torch/ops/slab_march.py:march_slabs_ref. The display mode (int8
+// payload, window directions) is slab_march_display.cu.
 //
 // What it computes, per pose and intermediate pixel (j, k) of the (gi, gi)
-// slope grid, for each slab in march order: mask sigma by the threshold,
-// shade srgb = sigma * sigmoid(sum_k value * basis_k) with the view
+// slope grid, for each slab in march order: mask sigma by the threshold
+// (and the bbox), shade srgb = sigma * sigmoid(sum_k value * basis_k) (SH,
+// SG or ASG lobes, the direction rotated by rot, basis functions outside
+// the window dropped; RGBA: srgb = sigma * value) with the view
 // direction per slab (the backward kernel, slab_march_bwd.cu, recomputes
 // this forward per slab and the two must match), warp [sigma, sigma*r,
 // sigma*g, sigma*b] onto the pixel with the separable box-integration
@@ -74,6 +77,18 @@
 //   4x8 tiles of 128 threads, pieces of 24 x 24 cells, ring 4, colour 2
 //   pieces ahead), the fastest of those probes/train_march.py built and
 //   timed (PERF.md).
+// - One kernel template, march_kernel<V, PT>: the variant V
+//   (tmarch::TVar<format, options, BD>) picks the format and whether the
+//   run-time options are compiled in; the defaults (SH without options,
+//   ShVar) take none of their code and keep the parameters they had before
+//   the variants, so their registers stay as measured (a larger parameter
+//   struct alone moved six of the ten). SG and ASG take their lobe count,
+//   and so their record width D = 3 nb + 1, at run time, under bounds 4, 9,
+//   16 and 25 (record slots sized by the bound; 16-byte copies where a
+//   record is a whole number of 16-byte units, words elsewhere); the lobes
+//   and the rotation go into shared memory once a block. The source is
+//   built three times (VT_TRAIN_SET: the defaults, SH with options and
+//   RGBA, SG and ASG), in parallel, to keep the build's wall time.
 
 #include "slab_common.cuh"
 
@@ -91,16 +106,15 @@ struct TrainArgs {
   int n_ids, G, gi, Gy, Gx, y0, x0, flip;
 };
 
-template <int BD, typename PT>
+template <class V, typename PT>
 __global__ void __launch_bounds__(tmarch::NT)
-march_kernel(const TrainArgs a) {
+march_kernel(const tmarch::ArgsOf<V, TrainArgs> a) {
   using tmarch::NT;
   using tmarch::TX;
   using tmarch::TY;
-  constexpr int D = 3 * BD + 1;  // colour values + sigma
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float s_prm[NP];
-  __shared__ float s_qs[D];
+  __shared__ float s_qs[V::DMAX];  // colour values + sigma
   __shared__ tmarch::MarchStatic s_st;
 
   const int p = blockIdx.z;
@@ -112,9 +126,13 @@ march_kernel(const TrainArgs a) {
   const int j = j0 + (owner ? tid / TX : 0), k = k0 + (owner ? tid % TX : 0);
   const int gi = a.gi;
 
+  tmarch::TrainOpt opt{};  // the option variants' (their arguments' va)
+  if constexpr (V::OPT) opt = tmarch::load_opt<V, NT>(a.va, tid);
+  const int D = tmarch::rec_dim<V>(opt);
   for (int i = tid; i < NP; i += NT) s_prm[i] = a.params[(size_t)p * NP + i];
   for (int i = tid; i < D; i += NT) s_qs[i] = a.qscale[i];
   __syncthreads();
+  tmarch::set_box<V>(opt, s_prm);
 
   tmarch::MarchCtx c;
   c.pv = a.pv;
@@ -169,8 +187,8 @@ march_kernel(const TrainArgs a) {
   const float Gf = c.Gf, hG = c.hG, zlo = c.zlo, zhi = c.zhi;
   const float stop_thresh = c.stop_thresh;
   const bool inpix = c.inpix;
-  tmarch::march_loop<BD, PT>(
-      c, sm, s_qs, s_prm, T, a.counts,
+  tmarch::march_loop<V, PT>(
+      c, sm, s_qs, s_prm, opt, T, a.counts,
       [&](const tmarch::Job& jb, const PixelSpan&, float4 w4) {
         if (!inpix) return;
         const float z = jb.z;
@@ -198,30 +216,24 @@ march_kernel(const TrainArgs a) {
   }
 }
 
-using KernFn = void (*)(const TrainArgs);
-
-// one launch of the march (on a coarse occupancy vt_march_occupancy built)
-template <int BD, typename PT>
+// one launch of the march of variant V (on a coarse occupancy built)
+template <class V, typename PT>
 struct Launch {
-  static constexpr size_t SMEM = tmarch::march_smem<BD, PT>();
-  static int run(const TrainArgs& a, int P, cudaStream_t s) {
-    const KernFn fn = march_kernel<BD, PT>;
+  using KernFn = void (*)(const tmarch::ArgsOf<V, TrainArgs>);
+  static constexpr size_t SMEM = tmarch::march_smem<V, PT>();
+  static int run(const TrainArgs& a, const tmarch::VarArgs& va, int P,
+                 cudaStream_t s) {
+    const KernFn fn = march_kernel<V, PT>;
     cudaError_t e = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
     if (e != cudaSuccess) return (int)e;
     const dim3 grid((a.gi + tmarch::TX - 1) / tmarch::TX,
                     (a.gi + tmarch::TY - 1) / tmarch::TY, P);
-    fn<<<grid, tmarch::NT, SMEM, s>>>(a);
+    fn<<<grid, tmarch::NT, SMEM, s>>>(tmarch::args_of<V>(a, va));
     return (int)cudaGetLastError();
   }
-  static int occupancy(tmarch::PayView pv, const float* params, int P,
-                       const float* qscale, int Gz, int Gy, int Gx,
-                       unsigned long long* occ, cudaStream_t s) {
-    return (int)tmarch::build_occupancy<3 * BD + 1, PT>(
-        pv, params, P, qscale, Gz, Gy, Gx, occ, s);
-  }
   static int info(int* out) {
-    const KernFn fn = march_kernel<BD, PT>;
+    const KernFn fn = march_kernel<V, PT>;
     cudaError_t e = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
     if (e != cudaSuccess) return (int)e;
@@ -239,21 +251,6 @@ struct Launch {
   }
 };
 
-#define VT_BD_DTYPE(bd, f32, CALL)                                       \
-  switch (bd) {                                                          \
-    case 1: return f32 ? Launch<1, float>::CALL                          \
-                       : Launch<1, __nv_bfloat16>::CALL;                 \
-    case 4: return f32 ? Launch<4, float>::CALL                          \
-                       : Launch<4, __nv_bfloat16>::CALL;                 \
-    case 9: return f32 ? Launch<9, float>::CALL                          \
-                       : Launch<9, __nv_bfloat16>::CALL;                 \
-    case 16: return f32 ? Launch<16, float>::CALL                        \
-                        : Launch<16, __nv_bfloat16>::CALL;               \
-    case 25: return f32 ? Launch<25, float>::CALL                        \
-                        : Launch<25, __nv_bfloat16>::CALL;               \
-    default: return (int)cudaErrorInvalidValue;                          \
-  }
-
 }  // namespace
 
 // The launch of kernel M's training mode. payload: element (0, 0, 0, 0) of
@@ -262,17 +259,29 @@ struct Launch {
 // (P, 31) f32; qscale (D,) f32; zb (P, 4, gi, gi) f32; ids (n_ids,) int32
 // slab ids in march order; occ: Gz * ceil(Gy / 8) * ceil(Gx / 512) uint64,
 // the payload's coarse occupancy (vt_march_occupancy); acc (P, 4, gi, gi)
-// f32; counts: tmarch::N_COUNTS uint64 (tmarch::add_counts) or null.
-// Returns cudaGetLastError() after the launch.
+// f32; counts: tmarch::N_COUNTS uint64 (tmarch::add_counts) or null. The
+// variant (tmarch::with_variant, tmarch::make_var): fmt (0 RGBA, bd = -1,
+// D = 4; 1 SH; 2 SG, 3 ASG with bd lobes, 1 to 25, whose parameters
+// ``extra`` holds on the device; D = 3 bd + 1 otherwise), opt (the option
+// variant: every format but SH, and SH with rot (9 floats on the host),
+// bbox (params 16-19) or a basis window [basis_lo, basis_hi] that drops
+// planes). Returns cudaGetLastError() after the launch.
 extern "C" int vt_march_slabs(const void* payload, int pay_f32,
                               long long ss, long long sr, long long sc,
                               const void* params, const void* qscale,
                               const void* zb, const void* ids, int n_ids,
                               void* occ, void* acc, void* counts, int P,
                               int Gz, int G, int gi, int Gy, int Gx, int y0,
-                              int x0, int bd, int flip, void* stream) {
+                              int x0, int bd, int flip, int fmt, int opt,
+                              const void* extra, int rot_on, const void* rot,
+                              int bbox, int basis_lo, int basis_hi,
+                              void* stream) {
   if (P < 1 || P > 65535 || gi < 1 || n_ids < 1 || Gy < 1 || Gx < 1 ||
       (reinterpret_cast<uintptr_t>(payload) & 15))
+    return (int)cudaErrorInvalidValue;
+  tmarch::VarArgs va;
+  if (!tmarch::make_var(fmt, bd, opt, extra, rot_on, rot, bbox, basis_lo,
+                        basis_hi, va))
     return (int)cudaErrorInvalidValue;
   TrainArgs a;
   a.pv.ptr = payload;
@@ -295,28 +304,35 @@ extern "C" int vt_march_slabs(const void* payload, int pay_f32,
   a.x0 = x0;
   a.flip = flip;
   cudaStream_t s = (cudaStream_t)stream;
-  VT_BD_DTYPE(bd, pay_f32, run(a, P, s))
+  return tmarch::with_variant(fmt, bd, opt, pay_f32, [&](auto v, auto e) {
+    return Launch<decltype(v), typename decltype(e)::type>::run(a, va, P,
+                                                                 s);
+  });
 }
 
 // The coarse occupancy of a payload view (as for vt_march_slabs: channel
-// stride 1, f32 or bf16, 16-byte aligned): occ, Gz * ceil(Gy / 8) *
-// ceil(Gx / 512) uint64, per slab and row of 8 x 8 cell blocks the masks
-// of the blocks with a voxel above the lowest sigma threshold of the P
-// poses' params (P, 31). One memset and one launch; returns
-// cudaGetLastError().
+// stride 1, f32 or bf16, 16-byte aligned; records of D values, sigma
+// last, any format): occ, Gz * ceil(Gy / 8) * ceil(Gx / 512) uint64, per
+// slab and row of 8 x 8 cell blocks the masks of the blocks with a voxel
+// above the lowest sigma threshold of the P poses' params (P, 31). One
+// memset and one launch; returns cudaGetLastError().
 extern "C" int vt_march_occupancy(const void* payload, int pay_f32,
                                   long long ss, long long sr, long long sc,
                                   const void* params, int P,
                                   const void* qscale, int Gz, int Gy, int Gx,
-                                  int bd, void* occ, void* stream) {
-  if (P < 1 || Gz < 1 || Gy < 1 || Gx < 1 ||
+                                  int D, void* occ, void* stream) {
+  if (P < 1 || Gz < 1 || Gy < 1 || Gx < 1 || D < 1 ||
       (reinterpret_cast<uintptr_t>(payload) & 15))
     return (int)cudaErrorInvalidValue;
   const tmarch::PayView pv{payload, ss, sr, sc};
-  VT_BD_DTYPE(bd, pay_f32,
-              occupancy(pv, (const float*)params, P, (const float*)qscale,
-                        Gz, Gy, Gx, (unsigned long long*)occ,
-                        (cudaStream_t)stream))
+  const float* prm = (const float*)params;
+  const float* qs = (const float*)qscale;
+  unsigned long long* o = (unsigned long long*)occ;
+  cudaStream_t s = (cudaStream_t)stream;
+  return (int)(pay_f32 ? tmarch::build_occupancy<float>(pv, D, prm, P, qs,
+                                                        Gz, Gy, Gx, o, s)
+                       : tmarch::build_occupancy<__nv_bfloat16>(
+                             pv, D, prm, P, qs, Gz, Gy, Gx, o, s));
 }
 
 namespace {
@@ -433,12 +449,17 @@ extern "C" int vt_march_occupancy_live(const void* live, int G,
   return (int)cudaGetLastError();
 }
 
-// What the card makes of the launch: out[0] resident blocks per SM, out[1]
-// registers a thread, out[2] spill (local) bytes a thread, out[3] dynamic
-// shared memory a block; out[4..10] the configuration it was built with
-// (tmarch::CONFIG: ty, tx, nt, ps, ring, dc, rslots).
-extern "C" int vt_march_slabs_info(int bd, int pay_f32, int* out) {
-  VT_BD_DTYPE(bd, pay_f32, info(out))
+// What the card makes of the launch of variant (bd, fmt, opt; as for
+// vt_march_slabs) on a payload of f32 (pay_f32) or bf16: out[0] resident
+// blocks per SM, out[1] registers a thread, out[2] spill (local) bytes a
+// thread, out[3] dynamic shared memory a block; out[4..10] the
+// configuration it was built with (tmarch::CONFIG: ty, tx, nt, ps, ring,
+// dc, rslots).
+extern "C" int vt_march_slabs_info(int bd, int pay_f32, int fmt, int opt,
+                                   int* out) {
+  return tmarch::with_variant(fmt, bd, opt, pay_f32, [&](auto v, auto e) {
+    return Launch<decltype(v), typename decltype(e)::type>::info(out);
+  });
 }
 
 extern "C" const char* vt_error_string(int code) {

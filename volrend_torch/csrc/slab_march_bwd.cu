@@ -17,7 +17,11 @@
 //   g_srgb_w = gacc_c * w / sig_w
 //   g_sig_w  = g_tau * dt - [sig_w >= 1e-12] sum_c gacc_c w srgb_w_c / sig_w^2
 // then the transposed box-overlap warp onto the slab's voxels and the shade
-// adjoint (sigmoid' times the SH basis; sigma masked by the threshold).
+// adjoint (sigmoid' times the basis: SH, or SG/ASG lobes, rotated by rot,
+// zero outside the basis window; RGBA's raw colours get g_srgb * sigma;
+// sigma masked by the threshold and the bbox), in the variants of kernel
+// M's training mode (slab_march.cu: march_kernel<V, PT>, built as three
+// libraries from one source).
 //
 // Its input is what kernel M's training mode marched: the bake's tensor
 // seen as the (Gz, D, G, G) view of the pose group's permutation (f32 or
@@ -82,17 +86,16 @@ struct BwdArgs {
   int n_ids, G, gi, flip;
 };
 
-template <int BD, typename PT>
+template <class V, typename PT>
 __global__ void __launch_bounds__(tmarch::NT)
-bwd_march_kernel(const BwdArgs a) {
+bwd_march_kernel(const tmarch::ArgsOf<V, BwdArgs> a) {
   using tmarch::NT;
   using tmarch::PS;
   using tmarch::TX;
   using tmarch::TY;
-  constexpr int D = 3 * BD + 1;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float s_prm[NP];
-  __shared__ float s_qs[D];
+  __shared__ float s_qs[V::DMAX];
   __shared__ tmarch::MarchStatic s_st;
 
   // the tile's pixels belong to the block's first TY * TX threads, one
@@ -103,9 +106,13 @@ bwd_march_kernel(const BwdArgs a) {
   const int j = j0 + (owner ? tid / TX : 0), k = k0 + (owner ? tid % TX : 0);
   const int gi = a.gi, G = a.G;
 
+  tmarch::TrainOpt opt{};  // the option variants' (their arguments' va)
+  if constexpr (V::OPT) opt = tmarch::load_opt<V, NT>(a.va, tid);
+  const int D = tmarch::rec_dim<V>(opt);
   for (int i = tid; i < NP; i += NT) s_prm[i] = a.params[i];
   for (int i = tid; i < D; i += NT) s_qs[i] = a.qscale[i];
   __syncthreads();
+  tmarch::set_box<V>(opt, s_prm);
 
   tmarch::MarchCtx c;
   c.pv = a.pv;
@@ -168,8 +175,8 @@ bwd_march_kernel(const BwdArgs a) {
   const float Gf = c.Gf, hG = c.hG, zlo = c.zlo, zhi = c.zhi;
   const float stop_thresh = c.stop_thresh;
   const bool inpix = c.inpix;
-  tmarch::march_loop<BD, PT>(
-      c, sm, s_qs, s_prm, T, a.counts,
+  tmarch::march_loop<V, PT>(
+      c, sm, s_qs, s_prm, opt, T, a.counts,
       [&](const tmarch::Job& jb, const PixelSpan& sp, float4 w4) {
         const float sw = w4.x, rw = w4.y, gw = w4.z, bw = w4.w;
         const float z = jb.z;
@@ -253,22 +260,25 @@ bwd_march_kernel(const BwdArgs a) {
 
 // the shade adjoint, one thread per voxel in the payload's memory order;
 // the block's records go out as one contiguous run
-template <int BD, typename PT>
+template <class V, typename PT>
 __global__ void __launch_bounds__(NT2)
 bwd_shade_kernel(const PT* __restrict__ payload,
                  const float* __restrict__ params,
                  const float* __restrict__ qscale,
                  const float4* __restrict__ gbuf, void* __restrict__ out,
                  int out_bf16, int G, long long vs, long long vr,
-                 long long vc, long long n_vox) {
-  constexpr int D = 3 * BD + 1;
+                 long long vc, long long n_vox, const tmarch::VarArgs va) {
+  constexpr int BD = V::BD, DMAX = V::DMAX;
   __shared__ float s_prm[NP];
-  __shared__ float s_qs[D];
-  __shared__ __align__(16) float s_out[NT2 * D];
+  __shared__ float s_qs[DMAX];
+  __shared__ __align__(16) float s_out[NT2 * DMAX];
   const int tid = threadIdx.x;
+  tmarch::TrainOpt opt = tmarch::load_opt<V, NT2>(va, tid);
+  const int D = tmarch::rec_dim<V>(opt);
   for (int i = tid; i < NP; i += NT2) s_prm[i] = params[i];
   for (int i = tid; i < D; i += NT2) s_qs[i] = qscale[i];
   __syncthreads();
+  tmarch::set_box<V>(opt, s_prm);
 
   const long long v0 = (long long)blockIdx.x * NT2;
   const long long v = v0 + tid;
@@ -279,38 +289,59 @@ bwd_shade_kernel(const PT* __restrict__ payload,
     if (g.x != 0.f || g.y != 0.f || g.z != 0.f || g.w != 0.f) {
       const PT* rec = payload + v * D;
       const float sigma = tmarch::pay_val(rec[D - 1]) * s_qs[D - 1];
-      // a voxel under the sigma threshold is masked out of the forward:
-      // its cotangent is zero whatever reached it
+      // a voxel under the sigma threshold (or outside the bbox) is masked
+      // out of the forward: its cotangent is zero whatever reached it
       if (sigma > s_prm[14]) {
         const float Gf = (float)G;
         const int sid = (int)((v / vs) % G);
         const int gy = (int)((v / vr) % G), gx = (int)((v / vc) % G);
-        const float z = ((float)sid + 0.5f) / Gf + s_prm[30];
-        const float sd = z - s_prm[0];
-        const float ycm = ((float)gy + 0.5f) * (1.f / Gf) - s_prm[1];
-        const float xcm = ((float)gx + 0.5f) * (1.f / Gf) - s_prm[2];
-        float vals[D], bk[BD], rgb[3];
-        tmarch::load_record<D, PT>(rec, vals);
-        tmarch::voxel_rgb<BD>(vals, s_qs, s_prm, ycm, xcm, sd, sign_of(sd),
-                              bk, rgb);
-        const float gsig = g.x + g.y * rgb[0] + g.z * rgb[1] + g.w * rgb[2];
-        o[D - 1] = gsig * s_qs[D - 1];
-        const float graw[3] = {g.y * sigma * rgb[0] * (1.f - rgb[0]),
-                               g.z * sigma * rgb[1] * (1.f - rgb[1]),
-                               g.w * sigma * rgb[2] * (1.f - rgb[2])};
+        if (tmarch::in_box<V>(opt, Gf, gy, gx)) {
+          const float z = ((float)sid + 0.5f) / Gf + s_prm[30];
+          const float sd = z - s_prm[0];
+          const float ycm = ((float)gy + 0.5f) * (1.f / Gf) - s_prm[1];
+          const float xcm = ((float)gx + 0.5f) * (1.f / Gf) - s_prm[2];
+          float bk[BD], rgb[3];
+          if constexpr (V::OPT) {
+            tmarch::voxel_rgb_opt<V, PT>(rec, opt, s_qs, s_prm, ycm, xcm,
+                                         sd, sign_of(sd), bk, rgb);
+          } else {
+            float vals[DMAX];
+            tmarch::load_record<DMAX, PT>(rec, vals);
+            tmarch::voxel_rgb<BD>(vals, s_qs, s_prm, ycm, xcm, sd,
+                                  sign_of(sd), bk, rgb);
+          }
+          const float gsig =
+              g.x + g.y * rgb[0] + g.z * rgb[1] + g.w * rgb[2];
+          o[D - 1] = gsig * s_qs[D - 1];
+          if constexpr (V::FMT == F_RGBA) {
+            // raw colours: their cotangent is g_srgb * sigma (no sigmoid')
+            o[0] = g.y * sigma * s_qs[0];
+            o[1] = g.z * sigma * s_qs[1];
+            o[2] = g.w * sigma * s_qs[2];
+          } else {
+            // sigmoid' x the basis; planes outside the window (bk = 0) and
+            // past the lobe count get zero
+            const int nb = V::RTD ? opt.nb : BD;
+            const float graw[3] = {g.y * sigma * rgb[0] * (1.f - rgb[0]),
+                                   g.z * sigma * rgb[1] * (1.f - rgb[1]),
+                                   g.w * sigma * rgb[2] * (1.f - rgb[2])};
 #pragma unroll
-        for (int ch = 0; ch < 3; ++ch) {
+            for (int ch = 0; ch < 3; ++ch) {
 #pragma unroll
-          for (int kk = 0; kk < BD; ++kk)
-            o[ch * BD + kk] = graw[ch] * bk[kk] * s_qs[ch * BD + kk];
+              for (int kk = 0; kk < BD; ++kk)
+                if (kk < nb)
+                  o[ch * nb + kk] = graw[ch] * bk[kk] * s_qs[ch * nb + kk];
+            }
+          }
+          done = true;
         }
-        done = true;
       }
     }
   }
   if (!done) {
 #pragma unroll
-    for (int ch = 0; ch < D; ++ch) o[ch] = 0.f;
+    for (int ch = 0; ch < DMAX; ++ch)
+      if (ch < D) o[ch] = 0.f;
   }
   __syncthreads();
   const long long nv = min((long long)NT2, n_vox - v0);
@@ -340,100 +371,58 @@ bwd_shade_kernel(const PT* __restrict__ payload,
   }
 }
 
-using MarchFn = void (*)(const BwdArgs);
-
-template <int BD>
+// the two passes' kernels of variant V on a payload of PT
+template <class V, typename PT>
 struct Fns {
-  static MarchFn march(int f32) {
-    return f32 ? bwd_march_kernel<BD, float>
-               : bwd_march_kernel<BD, __nv_bfloat16>;
-  }
-  static size_t smem(int f32) {
-    return f32 ? tmarch::march_smem<BD, float>()
-               : tmarch::march_smem<BD, __nv_bfloat16>();
-  }
-  static cudaError_t shade(const void* payload, int f32, const void* params,
-                           const void* qscale, const void* gbuf, void* out,
-                           int out_bf16, int G, long long vs, long long vr,
-                           long long vc, cudaStream_t s) {
-    const long long n_vox = (long long)G * G * G;
+  using Var = V;
+  using MarchFn = void (*)(const tmarch::ArgsOf<V, BwdArgs>);
+  static constexpr size_t SMEM = tmarch::march_smem<V, PT>();
+  static MarchFn march() { return bwd_march_kernel<V, PT>; }
+  static const void* shade_fn() { return (const void*)bwd_shade_kernel<V, PT>; }
+  static cudaError_t shade(const void* payload, const BwdArgs& a,
+                           const tmarch::VarArgs& va, void* out,
+                           int out_bf16, cudaStream_t s) {
+    const long long n_vox = (long long)a.G * a.G * a.G;
     const unsigned blocks = (unsigned)((n_vox + NT2 - 1) / NT2);
-    if (f32)
-      bwd_shade_kernel<BD, float><<<blocks, NT2, 0, s>>>(
-          (const float*)payload, (const float*)params, (const float*)qscale,
-          (const float4*)gbuf, out, out_bf16, G, vs, vr, vc, n_vox);
-    else
-      bwd_shade_kernel<BD, __nv_bfloat16><<<blocks, NT2, 0, s>>>(
-          (const __nv_bfloat16*)payload, (const float*)params,
-          (const float*)qscale, (const float4*)gbuf, out, out_bf16, G, vs,
-          vr, vc, n_vox);
+    bwd_shade_kernel<V, PT><<<blocks, NT2, 0, s>>>(
+        (const PT*)payload, a.params, a.qscale, (const float4*)a.gbuf, out,
+        out_bf16, a.G, a.vs, a.vr, a.vc, n_vox, va);
     return cudaGetLastError();
-  }
-  static void* shade_fn(int f32) {
-    return f32 ? (void*)bwd_shade_kernel<BD, float>
-               : (void*)bwd_shade_kernel<BD, __nv_bfloat16>;
   }
 };
 
 template <typename F>
-int launch(const void* payload, int f32, long long ss, long long sr,
-           long long sc, const void* params, const void* qscale,
-           const void* zb, const void* gacc, const void* aux,
-           const void* ids, void* occ, void* gbuf, void* out, int out_bf16,
-           void* counts, int Gz, int G, int gi, int D, int flip,
-           cudaStream_t s) {
-  const MarchFn fn = F::march(f32);
-  const size_t smem = F::smem(f32);
+int launch(const BwdArgs& a, const tmarch::VarArgs& va, const void* payload,
+           void* out, int out_bf16, cudaStream_t s) {
+  const typename F::MarchFn fn = F::march();
   cudaError_t e = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F::SMEM);
   if (e != cudaSuccess) return (int)e;
-  BwdArgs a;
-  a.pv.ptr = payload;
-  a.pv.ss = ss;
-  a.pv.sr = sr;
-  a.pv.sc = sc;
-  a.params = (const float*)params;
-  a.qscale = (const float*)qscale;
-  a.zb = (const float*)zb;
-  a.gacc = (const float*)gacc;
-  a.aux = (const float*)aux;
-  a.ids = (const int*)ids;
-  a.occ = (const unsigned long long*)occ;
-  a.gbuf = (float*)gbuf;
-  a.counts = (unsigned long long*)counts;
-  a.vs = ss / D;
-  a.vr = sr / D;
-  a.vc = sc / D;
-  a.n_ids = Gz;
-  a.G = G;
-  a.gi = gi;
-  a.flip = flip;
-  const dim3 grid((gi + tmarch::TX - 1) / tmarch::TX,
-                  (gi + tmarch::TY - 1) / tmarch::TY);
-  fn<<<grid, tmarch::NT, smem, s>>>(a);
+  const dim3 grid((a.gi + tmarch::TX - 1) / tmarch::TX,
+                  (a.gi + tmarch::TY - 1) / tmarch::TY);
+  fn<<<grid, tmarch::NT, F::SMEM, s>>>(
+      tmarch::args_of<typename F::Var>(a, va));
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  return (int)F::shade(payload, f32, params, qscale, gbuf, out, out_bf16, G,
-                       a.vs, a.vr, a.vc, s);
+  return (int)F::shade(payload, a, va, out, out_bf16, s);
 }
 
 template <typename F>
-int info(int f32, int* out) {
-  const MarchFn fn = F::march(f32);
-  const size_t smem = F::smem(f32);
+int info(int* out) {
+  const typename F::MarchFn fn = F::march();
   cudaError_t e = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F::SMEM);
   if (e != cudaSuccess) return (int)e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], fn,
-                                                    tmarch::NT, smem);
+                                                    tmarch::NT, F::SMEM);
   if (e != cudaSuccess) return (int)e;
   cudaFuncAttributes at;
   e = cudaFuncGetAttributes(&at, fn);
   if (e != cudaSuccess) return (int)e;
   out[1] = at.numRegs;
   out[2] = (int)at.localSizeBytes;
-  out[3] = (int)smem;
-  const void* sfn = F::shade_fn(f32);
+  out[3] = (int)F::SMEM;
+  const void* sfn = F::shade_fn();
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], sfn, NT2, 0);
   if (e != cudaSuccess) return (int)e;
   e = cudaFuncGetAttributes(&at, sfn);
@@ -455,8 +444,9 @@ int info(int f32, int* out) {
 // occupancy (vt_march_occupancy in slab_march.cu); gbuf (G^3, 4) f32 in
 // the payload's voxel order, zeroed by the caller; out: the cotangent,
 // the payload's strides, f32 or bf16 (out_bf16); counts: tmarch::N_COUNTS
-// uint64 (pass 1's, tmarch::add_counts) or null. Returns
-// cudaGetLastError() after the launches.
+// uint64 (pass 1's, tmarch::add_counts) or null; the variant (bd, fmt,
+// opt, extra, rot_on, rot, bbox, basis_lo, basis_hi) as for
+// vt_march_slabs. Returns cudaGetLastError() after the launches.
 extern "C" int vt_march_slabs_bwd(const void* payload, int pay_f32,
                                   long long ss, long long sr, long long sc,
                                   const void* params, const void* qscale,
@@ -464,40 +454,57 @@ extern "C" int vt_march_slabs_bwd(const void* payload, int pay_f32,
                                   const void* aux, const void* ids,
                                   void* occ, void* gbuf, void* out,
                                   int out_bf16, void* counts, int Gz, int G,
-                                  int gi, int bd, int flip, void* stream) {
-  const int D = 3 * bd + 1;
+                                  int gi, int bd, int flip, int fmt, int opt,
+                                  const void* extra, int rot_on,
+                                  const void* rot, int bbox, int basis_lo,
+                                  int basis_hi, void* stream) {
+  tmarch::VarArgs va;
+  if (!tmarch::make_var(fmt, bd, opt, extra, rot_on, rot, bbox, basis_lo,
+                        basis_hi, va))
+    return (int)cudaErrorInvalidValue;
+  const int D = fmt == F_RGBA ? 4 : 3 * bd + 1;
   if (Gz != G || G < 1 || gi < 1 ||
       (reinterpret_cast<uintptr_t>(payload) & 15) || ss % D || sr % D ||
       sc % D)
     return (int)cudaErrorInvalidValue;
+  BwdArgs a;
+  a.pv.ptr = payload;
+  a.pv.ss = ss;
+  a.pv.sr = sr;
+  a.pv.sc = sc;
+  a.params = (const float*)params;
+  a.qscale = (const float*)qscale;
+  a.zb = (const float*)zb;
+  a.gacc = (const float*)gacc;
+  a.aux = (const float*)aux;
+  a.ids = (const int*)ids;
+  a.occ = (const unsigned long long*)occ;
+  a.gbuf = (float*)gbuf;
+  a.counts = (unsigned long long*)counts;
+  a.vs = ss / D;
+  a.vr = sr / D;
+  a.vc = sc / D;
+  a.n_ids = Gz;
+  a.G = G;
+  a.gi = gi;
+  a.flip = flip;
   cudaStream_t s = (cudaStream_t)stream;
-#define VT_LAUNCH(BD)                                                    \
-  launch<Fns<BD>>(payload, pay_f32, ss, sr, sc, params, qscale, zb, gacc,  \
-                  aux, ids, occ, gbuf, out, out_bf16, counts, Gz, G, gi,   \
-                  D, flip, s)
-  switch (bd) {
-    case 1: return VT_LAUNCH(1);
-    case 4: return VT_LAUNCH(4);
-    case 9: return VT_LAUNCH(9);
-    case 16: return VT_LAUNCH(16);
-    case 25: return VT_LAUNCH(25);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef VT_LAUNCH
+  return tmarch::with_variant(fmt, bd, opt, pay_f32, [&](auto v, auto e) {
+    return launch<Fns<decltype(v), typename decltype(e)::type>>(
+        a, va, payload, out, out_bf16, s);
+  });
 }
 
-// What the card makes of the launches: out[0..3] pass 1's resident blocks
-// per SM, registers a thread, spill bytes a thread and dynamic shared
-// memory a block; out[4..6] pass 2's blocks per SM, registers, spill bytes.
-extern "C" int vt_march_slabs_bwd_info(int bd, int pay_f32, int* out) {
-  switch (bd) {
-    case 1: return info<Fns<1>>(pay_f32, out);
-    case 4: return info<Fns<4>>(pay_f32, out);
-    case 9: return info<Fns<9>>(pay_f32, out);
-    case 16: return info<Fns<16>>(pay_f32, out);
-    case 25: return info<Fns<25>>(pay_f32, out);
-    default: return (int)cudaErrorInvalidValue;
-  }
+// What the card makes of the launches of variant (bd, fmt, opt; as for
+// vt_march_slabs_bwd) on a payload of f32 (pay_f32) or bf16: out[0..3]
+// pass 1's resident blocks per SM, registers a thread, spill bytes a
+// thread and dynamic shared memory a block; out[4..6] pass 2's blocks per
+// SM, registers, spill bytes.
+extern "C" int vt_march_slabs_bwd_info(int bd, int pay_f32, int fmt,
+                                       int opt, int* out) {
+  return tmarch::with_variant(fmt, bd, opt, pay_f32, [&](auto v, auto e) {
+    return info<Fns<decltype(v), typename decltype(e)::type>>(out);
+  });
 }
 
 extern "C" const char* vt_error_string(int code) {

@@ -47,12 +47,15 @@ SOURCES = {
     }),
     "slab_march": ("slab_march.cu", {
         # payload, pay_f32, ss, sr, sc, params, qscale, zb, ids, n_ids, occ,
-        # acc, counts, P, Gz, G, gi, Gy, Gx, y0, x0, bd, flip, stream
+        # acc, counts, P, Gz, G, gi, Gy, Gx, y0, x0, bd, flip, fmt, opt,
+        # extra, rot_on, rot (host float[9]), bbox, basis_lo, basis_hi,
+        # stream
         "vt_march_slabs": [_P, _I, _L, _L, _L, _P, _P, _P, _P, _I, _P, _P,
-                           _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-        # bd, pay_f32, out (int[11])
-        "vt_march_slabs_info": [_I, _I, _P],
-        # payload, pay_f32, ss, sr, sc, params, P, qscale, Gz, Gy, Gx, bd,
+                           _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _P, _I, _P, _I, _I, _I, _P],
+        # bd, pay_f32, fmt, opt, out (int[11])
+        "vt_march_slabs_info": [_I, _I, _I, _I, _P],
+        # payload, pay_f32, ss, sr, sc, params, P, qscale, Gz, Gy, Gx, D,
         # occ, stream
         "vt_march_occupancy": [_P, _I, _L, _L, _L, _P, _I, _P, _I, _I, _I,
                                _I, _P, _P],
@@ -66,11 +69,14 @@ SOURCES = {
     }),
     "slab_march_bwd": ("slab_march_bwd.cu", {
         # payload, pay_f32, ss, sr, sc, params, qscale, zb, gacc, aux, ids,
-        # occ, gbuf, out, out_bf16, counts, Gz, G, gi, bd, flip, stream
+        # occ, gbuf, out, out_bf16, counts, Gz, G, gi, bd, flip, fmt, opt,
+        # extra, rot_on, rot (host float[9]), bbox, basis_lo, basis_hi,
+        # stream
         "vt_march_slabs_bwd": [_P, _I, _L, _L, _L, _P, _P, _P, _P, _P, _P,
-                               _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
-        # bd, pay_f32, out (int[7])
-        "vt_march_slabs_bwd_info": [_I, _I, _P],
+                               _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                               _I, _P, _I, _P, _I, _I, _I, _P],
+        # bd, pay_f32, fmt, opt, out (int[7])
+        "vt_march_slabs_bwd_info": [_I, _I, _I, _I, _P],
     }),
     "warp_build": ("warp_build.cu", {
         # inter, table, P, gi, Wy, Wx, table_f32, planar, stream
@@ -118,6 +124,20 @@ SOURCES = {
         "vt_probe_build_info": [_I, _P],
     }),
 }
+# kernel M's training mode and M-bwd are each built three times from their
+# source, in parallel, their instantiations split (_FLAGS; VT_TRAIN_SET in
+# csrc/slab_common.cuh; slab_march.train_lib picks one): the defaults, then
+# "_opt" (SH with options, and RGBA) and "_lobes" (SG and ASG)
+for _base in ("slab_march", "slab_march_bwd"):
+    _src, _entries = SOURCES[_base]
+    _train = {k: v for k, v in _entries.items() if "occupancy" not in k}
+    for _suffix in ("_opt", "_lobes"):
+        SOURCES[_base + _suffix] = (_src, _train)
+
+#: extra nvcc flags of a library (its instantiation set)
+_FLAGS = {f"{base}{suffix}": [f"-DVT_TRAIN_SET={n}"]
+          for base in ("slab_march", "slab_march_bwd")
+          for n, suffix in ((1, "_opt"), (2, "_lobes"))}
 
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-lineinfo", "-Xptxas", "-v", "-shared",
@@ -150,7 +170,7 @@ def _target(name: str) -> Path:
     h = hashlib.sha256((_CSRC / SOURCES[name][0]).read_bytes())
     for hdr in sorted(_CSRC.glob("*.cuh")):
         h.update(hdr.read_bytes())
-    h.update(" ".join(_NVCC_FLAGS).encode())
+    h.update(" ".join(_NVCC_FLAGS + _FLAGS.get(name, [])).encode())
     return build_dir() / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
@@ -170,7 +190,8 @@ def build_all() -> Dict[str, str]:
         logf = out.with_suffix(".log")
         with open(logf, "w") as fh:
             procs[name] = (subprocess.Popen(
-                [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_CSRC / src)],
+                [_nvcc(), *_NVCC_FLAGS, *_FLAGS.get(name, []), "-o", str(tmp),
+                 str(_CSRC / src)],
                 stdout=fh, stderr=subprocess.STDOUT), tmp, out, logf)
     t0 = time.perf_counter()
     secs, pending = {}, set(procs)

@@ -275,8 +275,9 @@ def live_bits_ref(bake, thresh: float):
     return slab_march.LiveBits(words.to(torch.int32), _f32(thresh))
 
 
-#: the SH data widths the bake kernel is built for (bake_pyramid.cu)
-_BAKE_DIMS = (4, 13, 28, 49, 76)
+#: the data widths the bake kernel takes (bake_pyramid.cu): 3 nb + 1 for
+#: nb = 1..25 basis functions or lobes (4 is also RGBA's)
+_BAKE_DIMS = tuple(3 * nb + 1 for nb in range(1, 26))
 
 
 class _BakeKernel(torch.autograd.Function):
@@ -335,7 +336,8 @@ def _bake_cuda(pyr, bmap: BakeMap, thresh):
     G, D = bmap.G, bmap.D
     dev = pyr[0].device
     if D not in _BAKE_DIMS:
-        raise ValueError(f"the bake kernel takes D in {_BAKE_DIMS}, got {D}")
+        raise ValueError(f"the bake kernel takes D = 3 nb + 1 for nb in "
+                         f"1..25, got {D}")
     if len(pyr) != len(bmap.masks):
         raise ValueError(f"{len(pyr)} levels for a bake map of "
                          f"{len(bmap.masks)}")
@@ -512,9 +514,9 @@ def _march_fwd_impl(cfg: SlabCfg, payload, extra, gm):
 
 def _kernel_train_ok(cfg: SlabCfg) -> bool:
     """Can the kernels carry training? The reference's ``_pallas_train_ok``
-    (an SH/SG/ASG payload of 3*bd + 1 planes or RGBA of 4; no depth).
-    Options the port's kernel M does not take yet raise in its wrapper,
-    naming their slice."""
+    (an SH/SG/ASG payload of 3*bd + 1 planes or RGBA of 4; no depth). An
+    SG/ASG tree of more than 25 lobes passes here, as in the reference, and
+    its march raises ValueError (``slab_march.DISPLAY_LOBES``)."""
     if cfg.opt.render_depth:
         return False
     bt = BasisType(cfg.fmt)
@@ -562,10 +564,12 @@ class _MarchKernel(torch.autograd.Function):
     dtype and strides, so that the permutation back hands the bake a
     gradient in its own contiguous layout. ``live``: the pyramid bake's
     live bits (``bake_from_pyramid``), from which the kernels' coarse
-    occupancy is reduced; without them it reads every voxel's sigma."""
+    occupancy is reduced; without them it reads every voxel's sigma.
+    ``extra``: the tree's SG/ASG lobes (``grid.extra``; not trained, as the
+    reference stops their gradient)."""
 
     @staticmethod
-    def forward(ctx, planar, params, zb, cfg, live=None):
+    def forward(ctx, planar, params, zb, cfg, live=None, extra=None):
         pay, occ = planar, None
         qs = torch.ones((cfg.D,), dtype=_F32, device=planar.device)
         if planar.device.type == "cpu":
@@ -582,10 +586,11 @@ class _MarchKernel(torch.autograd.Function):
         acc4 = slab_march.march_slabs(
             pay, params[None], qs, zb[None], cfg.G, cfg.gi, cfg.D, cfg.bd,
             cfg.perm, slab_ids=cfg.ids, sig2=False, depth=False,
-            shade_bf16=False, dir_win=False, occupancy=occ,
+            shade_bf16=False, dir_win=False, occupancy=occ, extra=extra,
             **_kernel_statics(cfg))[0]
         ctx.save_for_backward(pay, params, zb, acc4)
         ctx.occ = occ
+        ctx.extra = extra
         ctx.cfg = cfg
         ctx.pdtype = planar.dtype
         ctx.pstride = planar.stride()
@@ -605,12 +610,13 @@ class _MarchKernel(torch.autograd.Function):
         grad = slab_march.march_slabs_bwd(
             pay, params, torch.ones((cfg.D,), dtype=_F32, device=pay.device),
             zb, gacc4, acc4, cfg.G, gi, cfg.D, cfg.bd, cfg.perm,
-            out_dtype=ctx.pdtype, occupancy=ctx.occ, **_kernel_statics(cfg))
+            out_dtype=ctx.pdtype, occupancy=ctx.occ, extra=ctx.extra,
+            **_kernel_statics(cfg))
         if grad.stride() != ctx.pstride:
             grad = torch.empty_strided(grad.shape, ctx.pstride,
                                        dtype=ctx.pdtype,
                                        device=grad.device).copy_(grad)
-        return grad, None, None, None, None
+        return grad, None, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -672,7 +678,8 @@ def render_frame_train(data, bmap: BakeMap, grid: DenseGrid, transform,
         with torch.no_grad():
             params = _pack_geom_params(geom, cfg, 1.0 / geom.scale)[0]
             zb = torch.stack([geom.z_lo_pix[0], geom.z_hi_pix[0]])
-        acc, T = _MarchKernel.apply(planar, params, zb, cfg, live)
+        acc, T = _MarchKernel.apply(planar, params, zb, cfg, live,
+                                    grid.extra.detach())
     elif backend == "scan":
         pperm = payload.permute(*perm, 3)
         gm = dict(cz=geom.cz[0], cy=geom.cy[0], cx=geom.cx[0],

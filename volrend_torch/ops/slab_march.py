@@ -23,14 +23,15 @@ Two option sets are taken:
   taken once per K-slab window at the window centre (``dir_win=True``);
   every format (SH, SG and ASG with their lobes in ``extra``, RGBA) and
   option (depth mode, ``rot``, a non-full bbox, any basis window);
-- the training path's: SH, the bake's own f32 or bf16 tensor, seen as the
+- the training path's: the bake's own f32 or bf16 tensor, seen as the
   (Gz, D, Gy, Gx) view of the pose group's permutation (channel stride 1:
   each voxel's D values are one record; ``_record_strides``), with
   sigma last and the view direction per slab (``dir_win=False``), all slabs
-  or a culled list. Both versions round f32 to bf16 as they read it, so
-  both dtypes march the values of the bake's bf16 copy.
-  ``march_slabs_bwd`` is its payload cotangent, written through the same
-  strides. Its other formats and options are item 10b (ROADMAP.md).
+  or a culled list; every format and option of the display path but depth
+  mode, which the reference's training path never marches. Both versions
+  round f32 to bf16 as they read it, so both dtypes march the values of
+  the bake's bf16 copy. ``march_slabs_bwd`` is its payload cotangent,
+  written through the same strides.
 
 On CUDA tensors ``march_slabs`` launches kernel M, one launch per pose
 batch: its display mode (``csrc/slab_march_display.cu``, which stages each
@@ -39,8 +40,9 @@ and sizes its stage; ``display_variant`` names the instantiation a
 launch takes) or its training mode (``csrc/slab_march.cu``, which
 stages sigma ahead, skips footprints with no voxel above the threshold and
 stages colour only above it; its tile, pieces and ring are fixed when it
-is built, ``csrc/slab_common.cuh``); ``march_slabs_bwd`` launches the
-backward kernel (``csrc/slab_march_bwd.cu``). On CPU tensors they run
+is built, ``csrc/slab_common.cuh``; ``train_variant`` names the
+instantiation a launch takes); ``march_slabs_bwd`` launches the backward
+kernel (``csrc/slab_march_bwd.cu``). On CPU tensors they run
 ``march_slabs_ref`` and ``march_slabs_bwd_ref``, the same functions in plain
 PyTorch (dense overlap matrices, as the reference builds them). Kernel and
 plain version differ only in summation order. Unlike the reference kernels,
@@ -63,6 +65,7 @@ from volrend_torch.utils.device import to_device
 
 __all__ = ["march_slabs", "march_slabs_ref", "march_slabs_bwd",
            "march_slabs_bwd_ref", "march_bwd_inputs", "march_occupancy",
+           "MarchMode", "train_variant", "train_lib",
            "march_occupancy_ref", "march_occupancy_live_ref", "LiveBits",
            "display_config", "march_slab_ids"]
 
@@ -184,25 +187,10 @@ def _check_format(fmt, bd: int, D: int, extra) -> None:
                          f"extra of its lobes) is not a march format")
 
 
-def _train_unsupported(fmt, depth, rot, basis_lo, basis_hi,
-                       bbox_full) -> List[str]:
-    """The formats and options of the display path that the training
-    payload does not take yet (item 10b)."""
-    out = []
-    if BasisType(fmt) != BasisType.SH:
-        out.append(f"format {BasisType(fmt).name}")
-    if depth:
-        out.append("depth mode")
-    if rot is not None:
-        out.append("rot_dirs")
-    if not bbox_full:
-        out.append("a non-full render_bbox")
-    if (basis_lo, basis_hi) != (0, 24):
-        out.append(f"basis window ({basis_lo}, {basis_hi})")
-    if out:
-        return [", ".join(out) + " on the training payload come with "
-                "item 10b"]
-    return []
+#: why a training payload refuses depth mode
+_TRAIN_DEPTH = ("depth mode on the training payload: the reference's "
+                "training path never marches depth (render_frame_train "
+                "sets render_depth=False, volrend_tpu/ops/slab_grad.py:609)")
 
 
 def _check_options(gplanar, G, D, bd, sig2, fmt, extra, depth, rot,
@@ -210,8 +198,9 @@ def _check_options(gplanar, G, D, bd, sig2, fmt, extra, depth, rot,
                    z_base, acc_init) -> bool:
     """The display path's option set (an int8 payload or the f16 bake's
     bf16 one, window directions: every format and option) or the training
-    path's (f32 or bf16, per-slab directions, SH); anything else is a later
-    item. Returns True for a display payload."""
+    path's (f32 or bf16, per-slab directions: every format and option but
+    depth, which raises ValueError); anything else is a later item.
+    Returns True for a display payload."""
     dt = gplanar.dtype
     if gplanar.dim() != 4 or dt not in (torch.int8,) + _TRAIN_DTYPES:
         raise ValueError(f"payload must be (Gz, Dp, Gy, Gx) int8, f32 or "
@@ -226,10 +215,9 @@ def _check_options(gplanar, G, D, bd, sig2, fmt, extra, depth, rot,
     if z_base is not None or acc_init is not None:
         later.append("z-sharded segments (z_base, acc_init) come with "
                      "item 19, slice D")
-    if not display:
-        later += _train_unsupported(fmt, depth, rot, basis_lo, basis_hi,
-                                    bbox_full)
     _later_items(later)
+    if depth and not display:
+        raise ValueError(_TRAIN_DEPTH)
     if dt == torch.float32 and dir_win:
         raise ValueError("window shading directions take the display "
                          "path's int8 or bf16 payload, not f32")
@@ -247,12 +235,12 @@ def _check_options(gplanar, G, D, bd, sig2, fmt, extra, depth, rot,
     return display
 
 
-class DisplayMode(NamedTuple):
-    """The format and options of a display march: the basis ``fmt`` and
-    its lobes ``extra`` (SG/ASG), ``depth`` (march depth instead of
-    colour), ``rot`` (9 floats, the view-direction rotation, or None),
-    ``bbox_full`` (else the in-plane voxel-extent mask of params 16-19)
-    and the basis window [basis_lo, basis_hi]."""
+class MarchMode(NamedTuple):
+    """The format and options of a march: the basis ``fmt`` and its
+    lobes ``extra`` (SG/ASG), ``depth`` (march depth instead of colour; the
+    display path only), ``rot`` (9 floats, the view-direction rotation, or
+    None), ``bbox_full`` (else the in-plane voxel-extent mask of params
+    16-19) and the basis window [basis_lo, basis_hi]."""
     fmt: int = int(BasisType.SH)
     extra: Optional[torch.Tensor] = None
     depth: bool = False
@@ -262,14 +250,14 @@ class DisplayMode(NamedTuple):
     basis_hi: int = 24
 
     def options(self, bd: int) -> bool:
-        """Does this mode take the display kernel's option variant (every
-        format but SH, and SH with any option that changes the march)?"""
+        """Does this mode take the kernels' option variant (every format
+        but SH, and SH with any option that changes the march)?"""
         return (self.fmt != int(BasisType.SH) or self.depth
                 or self.rot is not None or not self.bbox_full
                 or self.basis_lo > 0 or self.basis_hi < bd - 1)
 
 
-def display_variant(mode: DisplayMode, bd: int, bf16: bool) -> str:
+def display_variant(mode: MarchMode, bd: int, bf16: bool) -> str:
     """The name of the display kernel variant a launch takes (the key of
     ``march_slabs.variants``): format, payload, ``opt`` for an SH option
     set, ``depth`` for depth mode; ``SH-int8`` is the default."""
@@ -279,6 +267,28 @@ def display_variant(mode: DisplayMode, bd: int, bf16: bool) -> str:
     if mode.depth:
         name += "-depth"
     return name
+
+
+def train_variant(mode: MarchMode, bd: int, f32: bool) -> str:
+    """The name of the training kernels' variant a launch takes (the key of
+    ``march_slabs.train_variants`` and ``march_slabs_bwd.variants``):
+    format, payload, ``opt`` for an SH option set; ``SH-f32`` is the
+    default trainer's."""
+    name = BasisType(mode.fmt).name + ("-f32" if f32 else "-bf16")
+    if mode.fmt == int(BasisType.SH) and mode.options(bd):
+        name += "-opt"
+    return name
+
+
+def train_lib(kind: str, fmt: int, opt: bool):
+    """The library of a training kernel (``kind``: "slab_march" for kernel
+    M's training mode, "slab_march_bwd" for M-bwd) that holds the variant
+    of format ``fmt`` with or without options (``MarchMode.options``): the
+    defaults, "_opt" (SH with options, RGBA) or "_lobes" (SG, ASG); each
+    is one build of the kernel's source (volrend_torch/kernels)."""
+    if fmt in (int(BasisType.SG), int(BasisType.ASG)):
+        return kernels.lib(kind + "_lobes")
+    return kernels.lib(kind + ("_opt" if opt else ""))
 
 
 def march_slabs(gplanar, params, qscale, zbounds, G: int,
@@ -316,15 +326,15 @@ def march_slabs(gplanar, params, qscale, zbounds, G: int,
         (``march_occupancy``, at these poses' sigma threshold), to share one
         between calls; None builds it (on the card; the plain version
         needs none).
-    The display path (an int8 payload, or bf16 with ``dir_win``) takes
-    every format (``fmt``, ``extra``) and option (``depth``, ``rot``, a
-    non-full bbox, any basis window); the remaining arguments mirror the
-    reference's signature (see _check_options).
+    Both paths take every format (``fmt``, ``extra``) and option (``rot``,
+    a non-full bbox, any basis window); ``depth`` is the display path's
+    (an int8 payload, or bf16 with ``dir_win``) only. The remaining
+    arguments mirror the reference's signature (see _check_options).
     """
     display = _check_options(gplanar, G, D, bd, sig2, fmt, extra, depth,
                              rot, basis_lo, basis_hi, bbox_full, shade_bf16,
                              dir_win, z_base, acc_init)
-    mode = DisplayMode(int(fmt), extra, bool(depth), rot, bool(bbox_full),
+    mode = MarchMode(int(fmt), extra, bool(depth), rot, bool(bbox_full),
                        int(basis_lo), int(basis_hi))
     m = march_inputs(gplanar, params, zbounds, G, gi, slab_ids,
                      k_per_step, crop)
@@ -337,7 +347,7 @@ def march_slabs(gplanar, params, qscale, zbounds, G: int,
     if dev.type == "cuda":
         if not display:
             return _march_train_cuda(gplanar, qscale, D=D, bd=bd, flip=flip,
-                                     occ=occupancy, **m)
+                                     occ=occupancy, mode=mode, **m)
         return _march_display_cuda(gplanar, qscale, D=D, bd=bd, flip=flip,
                                    mode=mode, **m)
     if dev.type == "cpu":
@@ -350,6 +360,8 @@ march_slabs.launches = 0
 march_slabs.poses = 0
 #: display launches by kernel variant (display_variant)
 march_slabs.variants = {}
+#: training launches by kernel variant (train_variant)
+march_slabs.train_variants = {}
 #: the last display launch's configuration (display_config) and variant
 #: (display_variant's name; its fmt, bf16 and opt as the kernel takes them)
 march_slabs.display = None
@@ -437,13 +449,15 @@ def march_slab_ids(wins: Sequence[int], masks: Sequence[int], K: int,
 
 
 def _march_train_cuda(gplanar, qscale, params, zb, wins, masks, G, gi, D,
-                      bd, K, flip, y0, x0, counts=None, occ=None):
+                      bd, K, flip, y0, x0, counts=None, occ=None,
+                      mode: MarchMode = MarchMode()):
     """Launch kernel M's training mode (the bake's f32 or bf16 view, per-slab
-    view directions) over the whole pose batch (one launch). ``occ``: the
-    payload's coarse occupancy (``march_occupancy``; None builds it);
-    ``counts``: an int64 (N_COUNTS,) tensor on the card to add the launch's
-    counts to (slabs met and shaded, footprint pieces met, staged and
-    shaded; ``tmarch::add_counts`` in csrc/slab_common.cuh)."""
+    view directions; the format and options of ``mode``) over the whole
+    pose batch (one launch). ``occ``: the payload's coarse occupancy
+    (``march_occupancy``; None builds it); ``counts``: an int64
+    (N_COUNTS,) tensor on the card to add the launch's counts to (slabs met
+    and shaded, footprint pieces met, staged and shaded;
+    ``tmarch::add_counts`` in csrc/slab_common.cuh)."""
     _check_launch(gplanar, qscale, params, zb, G, gi)
     ss, sr, sx = _record_strides(gplanar)
     dev = gplanar.device
@@ -455,17 +469,38 @@ def _march_train_cuda(gplanar, qscale, params, zb, wins, masks, G, gi, D,
         occ = march_occupancy(gplanar, params, qscale)
     _check_occupancy(occ, Gz, Gy, Gx, dev)
     acc = torch.empty((P, 4, gi, gi), dtype=_F32, device=dev)
-    lib = kernels.lib("slab_march")
+    f32 = gplanar.dtype == _F32
+    va = _variant_args(mode, bd, dev)
+    lib = train_lib("slab_march", mode.fmt, mode.options(bd))
     kernels.check(lib.vt_march_slabs(
-        gplanar.data_ptr(), int(gplanar.dtype == _F32), ss, sr, sx,
+        gplanar.data_ptr(), int(f32), ss, sr, sx,
         params.data_ptr(), qscale.data_ptr(), zb.data_ptr(), ids.data_ptr(),
         ids.numel(), occ.data_ptr(), acc.data_ptr(),
         _counts_ptr(counts, dev), P, Gz, G, gi, Gy, Gx, y0, x0, bd,
-        int(bool(flip)), torch.cuda.current_stream(dev).cuda_stream),
+        int(bool(flip)), *va[1:],
+        torch.cuda.current_stream(dev).cuda_stream),
         "slab_march")
     march_slabs.launches += 1
     march_slabs.poses += P
+    name = train_variant(mode, bd, f32)
+    march_slabs.train_variants[name] = (
+        march_slabs.train_variants.get(name, 0) + 1)
     return acc
+
+
+def _variant_args(mode: MarchMode, bd: int, dev) -> tuple:
+    """A launch's variant arguments as the kernels' entries take them:
+    (the lobes' device tensor, kept alive for the call, or None; then fmt,
+    opt, the lobes' pointer, rot_on, rot (host float[9]), bbox, basis_lo,
+    basis_hi)."""
+    extra, extra_ptr = None, 0
+    if mode.fmt in (int(BasisType.SG), int(BasisType.ASG)):
+        extra = to_device(mode.extra, _F32, dev).contiguous()
+        extra_ptr = extra.data_ptr()
+    rot = (ctypes.c_float * 9)(*(mode.rot or _IDENTITY))
+    return (extra, mode.fmt, int(mode.options(bd)), extra_ptr,
+            int(mode.rot is not None), rot, int(not mode.bbox_full),
+            mode.basis_lo, mode.basis_hi)
 
 
 #: entries of the training kernels' counts (tmarch::N_COUNTS)
@@ -536,7 +571,7 @@ def march_occupancy(gplanar, params, qscale, live: Optional[LiveBits] = None,
     occ = torch.empty(_occ_shape(Gz, Gy, Gx), dtype=torch.int64, device=dev)
     kernels.check(kernels.lib("slab_march").vt_march_occupancy(
         gplanar.data_ptr(), int(gplanar.dtype == _F32), ss, sr, sx,
-        prm.data_ptr(), P, qscale.data_ptr(), Gz, Gy, Gx, (D - 1) // 3,
+        prm.data_ptr(), P, qscale.data_ptr(), Gz, Gy, Gx, D,
         occ.data_ptr(), torch.cuda.current_stream(dev).cuda_stream),
         "slab_march")
     march_occupancy.launches += 1
@@ -641,7 +676,7 @@ def _counts_ptr(counts, dev) -> int:
 
 def _march_display_cuda(gplanar, qscale, params, zb, wins, masks, G, gi, D,
                         bd, K, flip, y0, x0,
-                        mode: DisplayMode = DisplayMode()):
+                        mode: MarchMode = MarchMode()):
     """Launch kernel M's display mode (an int8 or bf16 payload, window
     directions, the format and options of ``mode``) over the whole pose
     batch (one launch)."""
@@ -654,7 +689,7 @@ def _march_display_cuda(gplanar, qscale, params, zb, wins, masks, G, gi, D,
 
 
 def _display_launch(gplanar, qscale, params, zb, wins, masks, G, gi, bd, K,
-                    flip, y0, x0, cfg, mode: DisplayMode = DisplayMode()):
+                    flip, y0, x0, cfg, mode: MarchMode = MarchMode()):
     """One display launch of checked inputs with the configuration ``cfg``
     (display_config's) and the format and options of ``mode``."""
     dev = gplanar.device
@@ -662,11 +697,9 @@ def _display_launch(gplanar, qscale, params, zb, wins, masks, G, gi, bd, K,
     P = params.shape[0]
     bf16 = gplanar.dtype == torch.bfloat16
     opt = mode.options(bd)
-    extra, extra_ptr = None, 0    # the SG/ASG lobes, read by the kernel
-    if mode.fmt in (int(BasisType.SG), int(BasisType.ASG)):
-        extra = to_device(mode.extra, _F32, dev).contiguous()
-        extra_ptr = extra.data_ptr()
-    rot = (ctypes.c_float * 9)(*(mode.rot or _IDENTITY))
+    # the SG/ASG lobes are kept alive until the launch is queued
+    extra, fmt, _, extra_ptr, rot_on, rot, bbox, blo, bhi = _variant_args(
+        mode, bd, dev)
     wm = to_device(np.asarray([wins, masks], np.int32), torch.int32, dev)
     acc = torch.empty((P, 4, gi, gi), dtype=_F32, device=dev)
     lib = kernels.lib("slab_march_display")
@@ -674,10 +707,8 @@ def _display_launch(gplanar, qscale, params, zb, wins, masks, G, gi, bd, K,
         gplanar.data_ptr(), params.data_ptr(), qscale.data_ptr(),
         zb.data_ptr(), wm.data_ptr(), len(wins), acc.data_ptr(),
         P, G, gi, Dp, Gy, Gx, y0, x0, bd, K, int(bool(flip)), cfg["rows"],
-        cfg["stage_bytes"], cfg["chan_cells"], mode.fmt, int(bf16),
-        int(opt), extra_ptr, int(mode.depth),
-        int(mode.rot is not None), rot, int(not mode.bbox_full),
-        mode.basis_lo, mode.basis_hi,
+        cfg["stage_bytes"], cfg["chan_cells"], fmt, int(bf16), int(opt),
+        extra_ptr, int(mode.depth), rot_on, rot, bbox, blo, bhi,
         torch.cuda.current_stream(dev).cuda_stream), "slab_march_display")
     march_slabs.launches += 1
     march_slabs.poses += P
@@ -711,7 +742,7 @@ def display_config(P: int, gi: int, n_win: int, Dp: int, n_sm: int,
     costs differ, ends sooner after its costliest ones. 32x16 when the
     launch holds at least six of them an SM (three waves of two blocks),
     32x8 below that. The option variants (``opt``: every format but SH, and
-    SH with an option, DisplayMode.options) are built with 32x8 tiles
+    SH with an option, MarchMode.options) are built with 32x8 tiles
     only."""
     tiles = P * -(-gi // _DTX) * -(-gi // (2 * _DWARPS))
     rows = 2 if tiles >= 6 * n_sm and not opt else 1
@@ -766,7 +797,7 @@ def _slab_sigma(slab, qs, D: int, sig2: bool) -> torch.Tensor:
     return slab[D - 1] * qs[D - 1]
 
 
-def _basis_planes(dirs, bd: int, mode: DisplayMode, qs) -> torch.Tensor:
+def _basis_planes(dirs, bd: int, mode: MarchMode, qs) -> torch.Tensor:
     """(Gy, Gx, bd) basis of ``mode``'s format at unit ``dirs`` (rotated by
     ``mode.rot`` first), zero outside the basis window, times each basis
     function's scale qs[k] (shared by rgb)."""
@@ -814,7 +845,7 @@ def march_slabs_ref(gplanar, qscale, params, zb, wins: Sequence[int],
     sig2 = gplanar.dtype == torch.int8
     if dir_win is None:
         dir_win = sig2
-    mode = DisplayMode(int(fmt), extra, depth, rot, bbox_full, basis_lo,
+    mode = MarchMode(int(fmt), extra, depth, rot, bbox_full, basis_lo,
                        basis_hi)
     rgba = BasisType(fmt) == BasisType.RGBA
     qs = qscale.to(_F32)
@@ -857,7 +888,7 @@ def march_slabs_ref(gplanar, qscale, params, zb, wins: Sequence[int],
                 z = (sid + 0.5) / G + zbase
                 s0 = z - hG - cz
                 s1 = z + hG - cz
-                if not dir_win:
+                if not dir_win and shade:
                     bkq = _basis_planes(_dirs(dirp, prm, z - cz), bd, mode,
                                         qs)
                 slab = _slab_values(gplanar[sid])              # (Dp,Gy,Gx)
@@ -931,15 +962,15 @@ def march_slabs_bwd(gplanar, params, qscale, zbounds, gacc4, acc4,
     trainer) with the payload's strides, so that the bake's permutation
     back gives its own layout. Marches every slab in forward order (a slab
     culled from the forward has no voxel above the sigma threshold, so its
-    cotangent is zero). ``perm``, ``extra`` and ``k_per_step`` mirror the
-    reference's signature and are not needed here.
+    cotangent is zero). Every format (``fmt``, ``extra``) and option
+    (``rot``, a non-full bbox, any basis window, whose dropped planes get
+    zero cotangent) of the forward's training mode; ``perm`` and
+    ``k_per_step`` mirror the reference's signature and are not needed
+    here.
     """
-    unsupported = _train_unsupported(fmt, False, rot, basis_lo, basis_hi,
-                                     bbox_full)
     if z_base is not None:
-        unsupported.append("z-sharded segments (z_base) come with item "
-                           "19, slice D")
-    _later_items(unsupported)
+        _later_items(["z-sharded segments (z_base) come with item 19, "
+                      "slice D"])
     _check_format(fmt, bd, D, extra)
     if (gplanar.dtype not in _TRAIN_DTYPES or gplanar.dim() != 4
             or tuple(gplanar.shape[1:]) != (D, G, G)):
@@ -952,12 +983,15 @@ def march_slabs_bwd(gplanar, params, qscale, zbounds, gacc4, acc4,
     prm, zb, gacc4, aux = march_bwd_inputs(params, zbounds, gacc4, acc4, G,
                                            gi, state_init)
     qscale = qscale.to(_F32).contiguous()
+    mode = MarchMode(int(fmt), extra, False, rot, bool(bbox_full),
+                     int(basis_lo), int(basis_hi))
     if dev.type == "cuda":
         return _march_bwd_cuda(gplanar, prm, qscale, zb, gacc4, aux, G, gi,
-                               D, bd, flip, out_dtype, occ=occupancy)
+                               D, bd, flip, out_dtype, occ=occupancy,
+                               mode=mode)
     if dev.type == "cpu":
         g = march_slabs_bwd_ref(gplanar, qscale, prm, zb, gacc4, aux, G, gi,
-                                D, bd, flip, out_dtype)
+                                D, bd, flip, out_dtype, mode=mode)
         if g.stride() == gplanar.stride():
             return g
         return torch.empty_strided(gplanar.shape, gplanar.stride(),
@@ -966,6 +1000,8 @@ def march_slabs_bwd(gplanar, params, qscale, zbounds, gacc4, acc4,
 
 
 march_slabs_bwd.launches = 0
+#: launches by kernel variant (train_variant)
+march_slabs_bwd.variants = {}
 
 
 def march_bwd_inputs(params, zbounds, gacc4, acc4, G: int, gi: int,
@@ -993,11 +1029,12 @@ def march_bwd_inputs(params, zbounds, gacc4, acc4, G: int, gi: int,
 
 
 def _march_bwd_cuda(gplanar, params, qscale, zb, gacc4, aux, G, gi, D, bd,
-                    flip, out_dtype, counts=None, occ=None):
+                    flip, out_dtype, counts=None, occ=None,
+                    mode: MarchMode = MarchMode()):
     """Launch the backward kernel (its two passes: re-march + adjoint warp,
     then the per-voxel shade adjoint) for one pose; the cotangent takes the
-    payload's strides. ``counts`` and ``occ`` as for _march_train_cuda
-    (``counts``: pass 1's)."""
+    payload's strides. ``counts``, ``occ`` and ``mode`` as for
+    _march_train_cuda (``counts``: pass 1's)."""
     dev = gplanar.device
     Gz = gplanar.shape[0]
     for name, t, shape in (("params", params, (_NP,)), ("qscale", qscale, (D,)),
@@ -1018,34 +1055,45 @@ def _march_bwd_cuda(gplanar, params, qscale, zb, gacc4, aux, G, gi, D, bd,
     gbuf = torch.zeros((Gz * G * G, 4), dtype=_F32, device=dev)
     out = torch.empty_strided(gplanar.shape, gplanar.stride(),
                               dtype=out_dtype, device=dev)
-    lib = kernels.lib("slab_march_bwd")
+    f32 = gplanar.dtype == _F32
+    va = _variant_args(mode, bd, dev)
+    lib = train_lib("slab_march_bwd", mode.fmt, mode.options(bd))
     kernels.check(lib.vt_march_slabs_bwd(
-        gplanar.data_ptr(), int(gplanar.dtype == _F32), ss, sr, sx,
+        gplanar.data_ptr(), int(f32), ss, sr, sx,
         params.data_ptr(), qscale.data_ptr(), zb.data_ptr(),
         gacc4.data_ptr(), aux.data_ptr(), ids.data_ptr(), occ.data_ptr(),
         gbuf.data_ptr(),
         out.data_ptr(), int(out_dtype == torch.bfloat16),
-        _counts_ptr(counts, dev), Gz, G, gi, bd, int(bool(flip)),
+        _counts_ptr(counts, dev), Gz, G, gi, bd, int(bool(flip)), *va[1:],
         torch.cuda.current_stream(dev).cuda_stream),
         "slab_march_bwd")
     march_slabs_bwd.launches += 1
+    name = train_variant(mode, bd, f32)
+    march_slabs_bwd.variants[name] = march_slabs_bwd.variants.get(name,
+                                                                  0) + 1
     return out
 
 
 def march_slabs_bwd_ref(gplanar, qscale, params, zb, gacc4, aux, G: int,
                         gi: int, D: int, bd: int, flip: bool,
-                        out_dtype=_F32):
+                        out_dtype=_F32, mode: MarchMode = MarchMode()):
     """Plain PyTorch version of the backward kernel: the reference's
-    algebra (pallas_slab._make_bwd_kernel) with the forward recompute and
-    the transposed warp as dense overlap-matrix products, in f32 (the
-    payload rounded to bf16 as it is read). Inputs as ``march_bwd_inputs``
-    prepares them: params (31,), zb (4, gi, gi) from _zb_planes, aux
-    (4, gi, gi) = [ctot, T_end * g_T, T_in, A_in]. Returns a contiguous
-    (Gz, D, G, G) cotangent."""
+    algebra (pallas_slab._make_bwd_kernel, :1005-1142) with the forward
+    recompute and the transposed warp as dense overlap-matrix products, in
+    f32 (the payload rounded to bf16 as it is read). Inputs as
+    ``march_bwd_inputs`` prepares them: params (31,), zb (4, gi, gi) from
+    _zb_planes, aux (4, gi, gi) = [ctot, T_end * g_T, T_in, A_in]; ``mode``
+    the format and options (as march_slabs_ref takes them: SH, SG and ASG
+    shade through sigmoid(sum_k code_k * basis_k), the basis rotated by
+    ``rot`` and zero outside the window, and get sigmoid' x basis; RGBA's
+    colours are raw and get g_srgb * sigma; sigma is masked by the
+    threshold and a non-full bbox). Returns a contiguous (Gz, D, G, G)
+    cotangent."""
     dev = gplanar.device
     Gz = gplanar.shape[0]
     qs = qscale.to(_F32)
     prm = params
+    rgba = BasisType(mode.fmt) == BasisType.RGBA
     cz, cy, cx = prm[0], prm[1], prm[2]
     u0, du, v0, dv = prm[3], prm[4], prm[5], prm[6]
     sigma_thresh, stop_thresh, zbase = prm[14], prm[15], prm[30]
@@ -1056,12 +1104,16 @@ def march_slabs_bwd_ref(gplanar, qscale, params, zb, gacc4, aux, G: int,
     vkG = (v0 + dv * ray) * G
     dirp = [prm[21 + 3 * a] * (vc - cy)[:, None]
             + prm[22 + 3 * a] * (vc - cx)[None, :] for a in range(3)]
+    hG = 0.5 / G
+    okb = None
+    if not mode.bbox_full:
+        okb = (((vc + hG > prm[16]) & (vc - hG < prm[17]))[:, None]
+               & ((vc + hG > prm[18]) & (vc - hG < prm[19]))[None, :])
     zlo, zhi, dtp = zb[0], zb[1], zb[2]
     g_acc = gacc4[:3]
     ctot, gT = aux[0], aux[1]
     T, A = aux[2].clone(), aux[3].clone()
-    qcol = qs[:3 * bd].reshape(3, bd, 1, 1)
-    hG = 0.5 / G
+    ones = torch.ones_like(qs)
     out = torch.zeros((Gz, D, G, G), dtype=out_dtype, device=dev)
     for sid in (range(Gz - 1, -1, -1) if flip else range(Gz)):
         z = (sid + 0.5) / G + zbase
@@ -1069,12 +1121,18 @@ def march_slabs_bwd_ref(gplanar, qscale, params, zb, gacc4, aux, G: int,
         slab = _slab_values(gplanar[sid])                         # (D,G,G)
         sigma = _slab_sigma(slab, qs, D, False)
         ok = sigma > sigma_thresh
+        if okb is not None:
+            ok = ok & okb
         sigma = torch.where(ok, sigma, 0.0)
-        bk = basis_mod.eval_sh_basis(_dirs(dirp, prm, z - cz), bd
-                                     ).permute(2, 0, 1)            # (bd,G,G)
-        raw = torch.sum(slab[:3 * bd].reshape(3, bd, G, G)
-                        * (bk * qs[:bd, None, None])[None], 1)
-        rgb = torch.sigmoid(raw)
+        if rgba:
+            rgb = slab[:3] * qs[:3, None, None]
+        else:
+            # the basis (rotated, zero outside the window), unscaled
+            bk = _basis_planes(_dirs(dirp, prm, z - cz), bd, mode, ones
+                               ).permute(2, 0, 1)                 # (bd,G,G)
+            raw = torch.sum(slab[:3 * bd].reshape(3, bd, G, G)
+                            * (bk * qs[:bd, None, None])[None], 1)
+            rgb = torch.sigmoid(raw)
         chans = torch.cat([sigma[None], sigma[None] * rgb])
         m_r = _overlap_mat(cy * G, ujG, s0, s1, cell, G)
         m_c = _overlap_mat(cx * G, vkG, s0, s1, cell, G)
@@ -1099,8 +1157,13 @@ def march_slabs_bwd_ref(gplanar, qscale, params, zb, gacc4, aux, G: int,
         g_vox = m_r.T @ gch @ m_c                                  # (4,G,G)
         g_sigma = torch.where(ok, g_vox[0] + torch.sum(g_vox[1:] * rgb, 0),
                               0.0)
-        g_raw = g_vox[1:] * sigma * rgb * (1.0 - rgb)              # (3,G,G)
         out[sid, D - 1] = (g_sigma * qs[D - 1]).to(out_dtype)
-        out[sid, :3 * bd] = (g_raw[:, None] * bk[None] * qcol
-                             ).reshape(3 * bd, G, G).to(out_dtype)
+        if rgba:
+            out[sid, :3] = (g_vox[1:] * sigma * qs[:3, None, None]
+                            ).to(out_dtype)
+        else:
+            g_raw = g_vox[1:] * sigma * rgb * (1.0 - rgb)          # (3,G,G)
+            qcol = qs[:3 * bd].reshape(3, bd, 1, 1)
+            out[sid, :3 * bd] = (g_raw[:, None] * bk[None] * qcol
+                                 ).reshape(3 * bd, G, G).to(out_dtype)
     return out
