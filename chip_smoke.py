@@ -141,12 +141,37 @@ Phases (any failure exits non-zero and prints no result):
     corrupted leaves (each one launch of BK, the bits mode, M and M-bwd in
     the case's variant, no plain version; peak memory; pose 0's loss must
     fall) and, for SG9, one step with the precise warp's switch on;
+12c. mesh overlays, the display knobs and a quantized tree
+    (overlay_phase), at full width: (a) on the dense int8 scene, orbit
+    pose 0 with an occluding cube (the reference's 800^2 mesh test's): the
+    host rasterizer's ms, kernel W's mesh mode against its plain version
+    at both production levels and a generic one (uint8 and f32, alpha on
+    every mesh pixel), its time against its bound and W's without the
+    mesh, the counted render_image(meshes=) (one M, fit-mode and W-mesh
+    launch; no B, C or reference warp), render_frame's ms beside the
+    rasterizer's, >= 38 dB against the exact composite at gi=448 (the
+    reference floor's own gi; gi=256's logged); tools/perf_split.py's e =
+    0.5 pose with a cube (every class pass through W-mesh, >= 38 dB at
+    gi=448); pose 0 with opt.show_grid (the wireframe to depth 2, counted,
+    alpha 255 on its pixels). (b) orbit group 0 of the dense int8 grid and
+    of the f16 route with slab_march._DIR_WIN = False, then _BF16_SHADE =
+    True: each variant against its plain version, its time beside the
+    default's, the group rendered counted, pose 0 >= 50 dB from the
+    default frame and >= 54 dB against the exact renderer. (c) the sparse
+    scene compressed by compress_tree at its defaults (bits 16; the dense
+    scene's ~10^7 live leaves would take the median cut ~10 minutes):
+    QuantLeaves on the card, fetch_rows and the int8 bake bit-equal to the
+    host decode's, one orbit group counted (M and W only), pose 0 against
+    the exact renderer on the QuantLeaves tree (>= 47.5 dB, the scene's
+    floor);
 13. one JSON line with every kernel's numbers (kernels B's and C's
     launches from phase 10's run, the display path that takes them; kernel
     M's display variants as rows of their own, their launches from phase
     12's counted runs; the training variants' rows of M and M-bwd by
     format and BK at D = 19 and 4, their launches from phase 12b's timed
-    steps), then the result line.
+    steps; kernel W's mesh mode and kernel M's dirslab and bf16shade
+    variants, their launches from phase 12c's counted runs), then the
+    result line.
 """
 
 import contextlib
@@ -191,6 +216,10 @@ SLEEP_CYCLES = 20_000_000   # ~10 ms of device sleep ahead of a timed run
 PLAIN_POSES = 4     # poses of a display batch the plain march runs on
 # tolerances of each kernel against its plain version on the card
 TOL_M = 1e-3        # acc4: both f32, they differ only in summation order
+# kernel M's bf16 shading against its plain version's bf16 rounding: the
+# kernel's f32 basis differs from the plain version's in the last bits,
+# which can flip the bf16 rounding of a plane or of a partial sum
+TOL_BF16_SHADE = 5e-3
 # ... except where a ray's transmittance lands within float rounding of the
 # stop threshold: one version freezes, the other composites one more slab
 # (a discrete decision). Such rays are saturated in both versions, differ
@@ -410,23 +439,23 @@ def march_bwd_bound(torch, pay, qs, zb, G: int, gi: int, bd: int,
     return bound(nbytes, flops)
 
 
-def freeze_flip_check(torch, tag, acc_k, acc_p, stop):
+def freeze_flip_check(torch, tag, acc_k, acc_p, stop, tol=TOL_M):
     """Kernel M's acc against its plain version: max |diff|, and the rays
-    past TOL_M (stop-threshold freeze flips, allowed only in saturated rays,
-    up to MAX_FREEZE_FLIPS of them, by at most stop + TOL_M). Returns
+    past ``tol`` (stop-threshold freeze flips, allowed only in saturated
+    rays, up to MAX_FREEZE_FLIPS of them, by at most stop + tol). Returns
     (max err, flips, rays)."""
     diff = (acc_k - acc_p).abs().amax(1)                    # (P, gi, gi)
     err = float(diff.max())
-    off = diff > TOL_M
+    off = diff > tol
     sat = torch.maximum(acc_k[:, 3], acc_p[:, 3]) < stop
     flips = int(off.sum())
-    ok = (np.isfinite(err) and err <= stop + TOL_M
+    ok = (np.isfinite(err) and err <= stop + tol
           and bool(torch.all(sat[off]))
           and flips <= MAX_FREEZE_FLIPS * off.numel())
     log(f"kernel M [{tag}]: max |acc - plain| {err:.3e}; {flips} of "
-        f"{off.numel()} rays past {TOL_M} (stop-threshold freeze flips, "
+        f"{off.numel()} rays past {tol} (stop-threshold freeze flips, "
         f"allowed in saturated rays up to {MAX_FREEZE_FLIPS:.0e} of them, "
-        f"by <= {stop + TOL_M})")
+        f"by <= {stop + tol})")
     if not ok:
         fail(f"kernel M disagrees with its plain version at {tag}")
     return err, flips, off.numel()
@@ -796,7 +825,7 @@ def train_kernel_checks(torch, dev, planar, params, zb, gacc4, ids, cfg,
     def run_m():
         return slab_march.march_slabs(
             planar, params, qs, zb, G, GI, D, bd, perm, slab_ids=ids,
-            flip=flip, dir_win=False, occupancy=occ, **st)
+            flip=flip, dir_win=False, occupancy=occ, train=True, **st)
     acc_k = run_m()
     torch.cuda.synchronize()
     acc_p, mt_plain_ms = timed_once(
@@ -1463,15 +1492,16 @@ def warp_stage_turns(torch, tag, inter, geom, levels, P, B_, Wn, bg):
 def parent_warp_to_screen_sq(torch, choices, inter, opt, R, fx, fy,
                              width, height, gi, perm, u0, du, v0, dv,
                              scale, block=None, out_dtype=None,
-                             planar=False, plan=None, ndc=None, origin=None):
+                             planar=False, plan=None, ndc=None, origin=None,
+                             bg_pix=None):
     """The parent commit's display warp (display_warp.warp_to_screen_sq
     before kernel W): the fit predicates in PyTorch read on the host, then
     per level the PyTorch geometry, kernel B's int8 table, kernel C and an
     index-put of the frames; the misfit poses through the reference warp.
     ``plan`` is not read; each batch's per-pose level goes to
-    ``choices``. World trees only (the main path's; ``origin`` is not
-    read)."""
-    if ndc is not None:
+    ``choices``. World trees without a mesh only (the main path's;
+    ``origin`` is not read)."""
+    if ndc is not None or bg_pix is not None:
         fail("parent_warp_to_screen_sq: the parent's warp is compared on "
              "world trees only")
     from volrend_torch.ops import display_warp as dw
@@ -1638,6 +1668,8 @@ def reset_counts():
     display_warp.combine_emit.poses = 0
     display_warp.warp_display.launches = 0
     display_warp.warp_display.poses = 0
+    display_warp.warp_display.mesh_launches = 0
+    display_warp.warp_display.mesh_poses = 0
     display_warp.level_fit_counts.launches = 0
     slab_render._warp_to_screen_ref.poses = 0
 
@@ -1649,6 +1681,8 @@ def read_counts() -> dict:
         march_poses=slab_march.march_slabs.poses,
         warp=display_warp.warp_display.launches,
         warp_poses=display_warp.warp_display.poses,
+        warp_mesh=display_warp.warp_display.mesh_launches,
+        warp_mesh_poses=display_warp.warp_display.mesh_poses,
         fit=display_warp.level_fit_counts.launches,
         build=display_warp.build_table.launches,
         combine=display_warp.combine_emit.launches,
@@ -1968,7 +2002,8 @@ def ndc_phase(torch, dev, opt, stats, gate):
     torch.cuda.synchronize()
     counts = read_counts()
     fits = level >= 0
-    want = dict(march=1, march_poses=1, warp=0, warp_poses=0, fit=0,
+    want = dict(march=1, march_poses=1, warp=0, warp_poses=0, warp_mesh=0,
+                warp_mesh_poses=0, fit=0,
                 build=int(fits), combine=int(fits), combine_poses=int(fits),
                 ref_warp_poses=int(not fits))
     log(f"ndc: counts {counts}")
@@ -2150,14 +2185,17 @@ def variant_ops(grid, opt):
 
 
 def variant_check(torch, kernels, tag, grid, opt, cams, key, stats,
-                  perm_flip=None, unit_slope_box=False):
+                  perm_flip=None, unit_slope_box=False, dir_win=True,
+                  shade_bf16=False):
     """Kernel M's display variant of ``grid`` (its bake and format) and
     ``opt`` (its options) on the pose batch ``cams`` against its plain
     version (on up to PLAIN_POSES poses spread over the batch), with the
     launch's configuration and occupancy, its time on those poses beside
     their bound and the plain version's time, and the whole batch's time;
     the first check of a key gives its row's times and bound (the JSON
-    line's), every check its largest max_abs_err. Returns the row."""
+    line's), every check its largest max_abs_err. ``dir_win`` and
+    ``shade_bf16``: the display knobs, for kernel and plain version alike
+    (bf16 shading held within TOL_BF16_SHADE). Returns the row."""
     from volrend_torch.ops import slab_march, slab_render
     from volrend_torch.ops.render_exact import _rodrigues_matrix
     c0 = cams[0]
@@ -2183,14 +2221,15 @@ def variant_check(torch, kernels, tag, grid, opt, cams, key, stats,
               basis_lo=int(opt.basis_minmax[0]),
               basis_hi=int(opt.basis_minmax[1]))
     m = slab_march.march_inputs(pay, params, zb, grid.G, GI, slab_ids,
-                                slab_march._K_STEP, crop)
+                                slab_march._K_STEP if dir_win else 1, crop)
+    bf16_shade = shade_bf16 and int(grid.fmt) == 1 and not kw["depth"]
 
     def run_m(prm=params, z=zb):
         return slab_march.march_slabs(
             pay, prm, grid.qscale, z, grid.G, GI, grid.data_dim,
             grid.basis_dim, perm, slab_ids=slab_ids, sig2=grid.quantized,
-            flip=flip, dir_win=True, k_per_step=slab_march._K_STEP,
-            crop=crop, **kw)
+            flip=flip, dir_win=dir_win, shade_bf16=shade_bf16,
+            k_per_step=slab_march._K_STEP, crop=crop, **kw)
 
     P = len(cams)
     sub = np.unique(np.linspace(0, P - 1, min(P, PLAIN_POSES)).round()
@@ -2201,11 +2240,12 @@ def variant_check(torch, kernels, tag, grid, opt, cams, key, stats,
     cfg = dict(slab_march.march_slabs.display)
     acc_p, plain_ms = timed_once(torch, lambda: slab_march.march_slabs_ref(
         pay, grid.qscale, D=grid.data_dim, bd=grid.basis_dim, flip=flip,
-        dir_win=True, **kw, **m_sub))
+        dir_win=dir_win, bf16_shade=bf16_shade, **kw, **m_sub))
     err, _, _ = freeze_flip_check(
         torch, f"{tag} [{cfg['variant']}], {P} poses (plain version on "
         f"poses {sub}), crop {crop}, {len(slab_ids)} slabs", acc_k[sub],
-        acc_p, float(opt.stop_thresh))
+        acc_p, float(opt.stop_thresh),
+        tol=TOL_BF16_SHADE if bf16_shade else TOL_M)
     occ = display_occupancy(kernels, grid.basis_dim, cfg)
     p_sub, z_sub = params[sub], zb[sub]
     ms = cuda_ms(torch, lambda: run_m(p_sub, z_sub), KREPS)
@@ -2267,8 +2307,8 @@ def counted_render(torch, tag, fn, passes: int, world: bool, launched):
              f"ran ({counts}, {variants}, {calls})")
     if world and (counts["build"] or counts["combine"]):
         fail(f"{tag}: kernels B or C ran on a world tree ({counts})")
-    if counts["warp_poses"] + counts["ref_warp_poses"] + counts[
-            "combine_poses"] != passes:
+    if counts["warp_poses"] + counts["warp_mesh_poses"] + counts[
+            "ref_warp_poses"] + counts["combine_poses"] != passes:
         fail(f"{tag}: a pass was not warped once ({counts})")
     return frame, counts, variants
 
@@ -2674,6 +2714,493 @@ def train_variants_phase(torch, dev, stats):
             cams, lean=case == "SG9", precise=case == "SG9")
     del trees, tdev, tree
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 12c: mesh overlays (kernel W's mesh-background mode), the display
+# march's knobs (per-slab directions, bf16 SH shading) and codebook-quantized
+# trees
+# ---------------------------------------------------------------------------
+
+#: the reference's 800^2 mesh floor (tests/test_slab_render.py:1031-1069),
+#: which it sets at gi=448: a mesh frame's silhouettes are resolved on the
+#: slope grid (the clip is nearest-sampled there and the warp blends
+#: clipped and unclipped cells across the edge), so its PSNR rises with gi
+#: (37.990 dB at gi=256 on pose 0, NVIDIA H100 80GB HBM3 700 W)
+FLOOR_MESH = 38.0
+GI_MESH = 448
+#: a display knob's frame against the default frame (the reference's
+#: per-slab gate, tests/test_slab_render.py:1076-1106)
+FLOOR_KNOB = 50.0
+#: the quantized phase's tree: the sparse scene compressed at the
+#: compressor's defaults (its median cut over the dense scene's ~10^7 live
+#: leaves would take ~10 minutes of host time)
+CACHE_QUANT = os.path.join(HERE, ".torch_bench_sparse_quant_cache.npz")
+QUANT_ROWS = 1_000_000      # leaves fetch_rows is held to the decode on
+#: kernel W's mesh mode is checked at both production levels and one level
+#: of its generic kernel
+MESH_LEVELS = (((4, 4), (5, 5)), ((2, 2), (4, 4)), ((2, 4), (4, 5)))
+#: the JSON line's rows of this phase's new kernel variants: (stats key,
+#: row name, source, the TPU kernel it replaces)
+OVERLAY_ROWS = (
+    ("WM", "warp_display_mesh", "volrend_torch/csrc/warp_display.cu",
+     "volrend_tpu/ops/display_warp.py:239"),
+    ("M_dirslab", "slab_march_display_dirslab",
+     "volrend_torch/csrc/slab_march_display.cu",
+     "volrend_tpu/ops/pallas_slab.py:344"),
+    ("M_bf16shade", "slab_march_display_bf16shade",
+     "volrend_torch/csrc/slab_march_display.cu",
+     "volrend_tpu/ops/pallas_slab.py:344"),
+)
+
+
+def mesh_cube(cam, scale=0.45, k=0.35):
+    """The reference's 800^2 mesh test's cube (red, ``scale`` across, at
+    ``k`` of the way from the origin to the camera: it occludes part of
+    the volume and sits partly inside it)."""
+    from volrend_torch.models.mesh import Mesh
+    cube = Mesh.Cube((1.0, 0.1, 0.1))
+    cube.scale = scale
+    cube.translation = np.asarray(cam.center * k, np.float32)
+    return cube
+
+
+def mesh_gate(torch, tag, tdev, cam, frame, stride, floor, buf, opt):
+    """``frame`` (H, W, 4) uint8 on the host against the exact renderer's
+    rays composited over the mesh buffers ``buf`` (render_rays(tmax_bg=,
+    bg_rgb=), the reference's composite_with_meshes contract) at
+    ``stride``: rgb PSNR >= floor and alpha 255 on every sampled mesh
+    pixel. Returns the PSNR."""
+    from volrend_torch.ops import render_exact
+    ys, xs = np.arange(0, H, stride), np.arange(0, W, stride)
+    origins, dirs = cam.pixel_rays(xp=np)
+    sel = (ys[:, None] * W + xs[None, :]).reshape(-1)
+    t = time.perf_counter()
+    exact = render_exact.render_rays(
+        tdev, torch.as_tensor(np.ascontiguousarray(origins[sel])),
+        torch.as_tensor(np.ascontiguousarray(dirs[sel])), opt,
+        tmax_bg=np.ascontiguousarray(buf.dist.reshape(-1)[sel]),
+        bg_rgb=np.ascontiguousarray(buf.color.reshape(-1, 3)[sel])
+    ).cpu().numpy()
+    got = np.asarray(frame).reshape(-1, 4)[sel].astype(np.float64) / 255.0
+    hit = np.isfinite(buf.dist.reshape(-1)[sel])
+    p = psnr(got[:, :3], exact[:, :3])
+    log(f"{tag}: PSNR {p:.3f} dB vs exact rays over the mesh at stride "
+        f"{stride} (floor {floor}; {int(hit.sum())} sampled mesh pixels; "
+        f"exact rays in {time.perf_counter() - t:.1f} s)")
+    if not (p >= floor and np.all(got[hit, 3] == 1.0)):
+        fail(f"{tag}: PSNR {p:.3f} dB < {floor}, or a mesh pixel's alpha "
+             "is not 255")
+    return p
+
+
+def mesh_warp_checks(torch, dev, grid, opt, cam, buf, stats):
+    """Kernel W's mesh mode on orbit pose 0's own intermediate (the march
+    clipped at the mesh) against its plain version at MESH_LEVELS in uint8
+    and f32 (alpha 255 / 1 on every hit pixel); then at the production
+    level its time against its bound, its plain version's and W's without
+    the mesh on the same inputs. Returns the summary."""
+    from volrend_torch.ops import display_warp, slab_march, slab_render
+    perm, flip, _ = slab_render.choose_axis(grid, cam.transform, cam.fx,
+                                            cam.fy, W, H)
+    g = slab_render.FrameGeom(grid, cam.transform, cam.fx, cam.fy, perm,
+                              flip, W, H, opt, GI, mesh_dist=buf.dist)
+    params, zb = slab_render._march_frame_fields(grid, g, perm, flip, opt)
+    crop = slab_render.inplane_crop(grid, perm, float(opt.sigma_thresh))
+    acc = slab_march.march_slabs(
+        slab_render.prepare_payload(grid, perm, opt), params, grid.qscale,
+        zb, grid.G, GI, grid.data_dim, grid.basis_dim, perm,
+        slab_ids=grid.slab_ids(perm[0], flip, opt.sigma_thresh), sig2=True,
+        flip=flip, bbox_full=True, dir_win=True, crop=crop)
+    inter = slab_render._finalize_planar(acc, opt).contiguous()
+    prm = display_warp.display_params(g.R, g.fx, g.fy, g.u0, g.du, g.v0,
+                                      g.dv, g.scale, perm)
+    mesh = display_warp.mesh_background(buf.dist, buf.color, 1, H, W, dev)
+    hit = torch.as_tensor(np.isfinite(buf.dist), device=dev)
+    sel = torch.zeros(1, dtype=torch.int32, device=dev)
+    bgv = float(opt.background_brightness)
+    row = stats.setdefault("WM", {"max_abs_err": 0.0})
+    for B_, Wn in MESH_LEVELS:
+        for od, tol, one in ((torch.uint8, TOL_C_U8, 255),
+                             (torch.float32, TOL_C_F32, 1.0)):
+            o_k = display_warp.warp_display(
+                inter, prm, sel, torch.empty((1, H, W, 4), dtype=od,
+                                             device=dev), B_, Wn, GI, bgv,
+                mesh)
+            o_p = display_warp.warp_display_ref(
+                inter, prm, sel, torch.empty((1, H, W, 4), dtype=od,
+                                             device=dev), B_, Wn, GI, bgv,
+                mesh)
+            torch.cuda.synchronize()
+            err = float((o_k.float() - o_p.float()).abs().max())
+            n = int((o_k != o_p).any(-1).sum())
+            alpha_ok = bool(torch.all(o_k[0, ..., 3][hit] == one))
+            log(f"kernel W mesh mode {B_}x{Wn} {od}: max err {err:.3e} "
+                f"against its plain version (tol {tol}; {n} of {H * W} "
+                f"pixels differ), alpha {one} on all {int(hit.sum())} mesh "
+                f"pixels: {alpha_ok}")
+            if not (np.isfinite(err) and err <= tol and alpha_ok):
+                fail(f"kernel W's mesh mode disagrees at {B_}x{Wn} {od}")
+            if od == torch.float32:
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+    B_, Wn = MESH_LEVELS[0]
+    out = torch.empty((1, H, W, 4), dtype=torch.uint8, device=dev)
+    wm_ms = cuda_ms(torch, lambda: display_warp.warp_display(
+        inter, prm, sel, out, B_, Wn, GI, bgv, mesh), KREPS)
+    w_ms = cuda_ms(torch, lambda: display_warp.warp_display(
+        inter, prm, sel, out, B_, Wn, GI, bgv), KREPS)
+    plain_ms = cuda_ms(torch, lambda: display_warp.warp_display_ref(
+        inter, prm, sel, out, B_, Wn, GI, bgv, mesh), 3)
+    geom = (g.R, g.fx, g.fy, W, H, GI, perm, g.u0, g.du, g.v0, g.dv,
+            g.scale)
+    gys, gxs, okm, Y0, X0 = display_warp._level_geometry(geom, GI, B_, Wn)
+    taps = tent_taps(torch, gys - Y0.float()[:, None],
+                     gxs - X0.float()[:, None], okm, Wn)
+    # W's bytes and work, and the background's 8 bytes a pixel
+    bnd = bound(4 * GI * GI * 4 + H * W * 4 + H * W * 8 + 16 * 4 + 4,
+                H * W * (30 + 20 + 6) + taps * 9)
+    row.update(ms=wm_ms, plain_ms=plain_ms, bound_ms=bnd[0],
+               bound_by=bnd[1], library_ms=None, no_mesh_ms=w_ms)
+    log(f"kernel W mesh mode [{B_}x{Wn}, one pose, RGBA8]: {wm_ms:.4f} ms "
+        f"(bound {bnd[0]:.4f} ms, {bnd[1]}; plain {plain_ms:.2f} ms); W "
+        f"without the mesh on the same inputs {w_ms:.4f} ms")
+    return {"wm_ms": wm_ms, "w_ms": w_ms, "wm_bound_ms": bnd[0]}
+
+
+def mesh_phase(torch, dev, opt, stats, tdev, grid, host_tree, cams):
+    """Phase 12c (a): mesh overlays on the dense int8 scene (G=256), 800^2,
+    gi=256. Orbit pose 0 with mesh_cube: the host rasterizer's ms (median
+    of 3), kernel W's mesh mode against its plain version
+    (mesh_warp_checks), the counted render_image(meshes=[cube]) (one M,
+    one fit-mode and one W-mesh launch; no B, C or reference warp; no
+    plain version; alpha 255 on mesh pixels; its PSNR against the exact
+    composite logged), render_frame's median of REPS on the buffers, and
+    the frame at GI_MESH, the reference floor's own gi, >= FLOOR_MESH
+    against the exact composite; then tools/perf_split.py's e = 0.5 pose
+    with a cube (render_image counted: every class pass through W's mesh
+    mode; at GI_MESH >= FLOOR_MESH), and pose 0 with
+    ``opt.show_grid`` (the wireframe to grid_max_depth 2, counted, alpha
+    on its pixels, its PSNR against the exact composite logged)."""
+    import collections
+    import dataclasses
+    from volrend_torch.ops import display_warp, slab_render
+    from volrend_torch.ops.camera import Camera
+    from volrend_torch.ops.composite import wireframe_mesh
+    from volrend_torch.ops.rasterize import rasterize_meshes
+    out = {}
+    launched = collections.Counter()    # kernel M's variants, and W-mesh
+    cam = cams[0]
+    cube = mesh_cube(cam)
+    ts = []
+    for _ in range(3):
+        t = time.perf_counter()
+        buf = rasterize_meshes([cube], cam)
+        ts.append((time.perf_counter() - t) * 1e3)
+    hit = np.isfinite(buf.dist)
+    out["raster_host_ms"] = float(np.median(ts))
+    out["mesh_pixels"] = int(hit.sum())
+    log(f"mesh pose 0: cube rasterized on the host in {ts} ms (median "
+        f"{out['raster_host_ms']:.1f}); {out['mesh_pixels']} mesh pixels")
+    if not 0 < out["mesh_pixels"] < H * W:
+        fail("mesh pose 0: the cube covers no pixel, or every pixel")
+    out.update(mesh_warp_checks(torch, dev, grid, opt, cam, buf, stats))
+
+    def counted_mesh(tag, fn, passes):
+        frame, counts, _ = counted_render(torch, tag, fn, passes, True,
+                                          launched)
+        if (counts["warp_mesh"] != passes or counts["warp"]
+                or counts["ref_warp_poses"] or counts["fit"] != passes):
+            fail(f"{tag}: not one fit-mode and one W-mesh launch a pass "
+                 f"({counts})")
+        launched["WM"] += counts["warp_mesh"]
+        return frame, counts
+
+    frame, counts = counted_mesh(
+        "mesh pose 0", lambda: slab_render.render_image(
+            grid, cam, opt, gi=GI, meshes=[cube], out_dtype=torch.uint8), 1)
+    out["pose0_counts"] = counts
+    out["pose0_gi256_psnr_db"] = mesh_gate(
+        torch, f"mesh pose 0 (render_image, gi={GI})", tdev, cam, frame, 5,
+        0.0, buf, opt)
+    perm, flip, _ = slab_render.choose_axis(grid, cam.transform, cam.fx,
+                                            cam.fy, W, H)
+    pay = slab_render.prepare_payload(grid, perm, opt)
+    ts = []
+    for _ in range(REPS):
+        t = time.perf_counter()
+        slab_render.render_frame(grid, cam.transform, cam.fx, cam.fy, perm,
+                                 flip, W, H, opt, GI, payload=pay,
+                                 mesh_dist=buf.dist, mesh_rgb=buf.color,
+                                 out_dtype=torch.uint8)
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t) * 1e3)
+    out["render_frame_host_ms"] = float(np.median(ts))
+    log(f"mesh pose 0: render_frame on the buffers {ts} ms (median "
+        f"{out['render_frame_host_ms']:.2f}) beside the rasterizer's "
+        f"{out['raster_host_ms']:.1f} ms")
+    del pay
+    frame = slab_render.render_frame(
+        grid, cam.transform, cam.fx, cam.fy, perm, flip, W, H, opt, GI_MESH,
+        mesh_dist=buf.dist, mesh_rgb=buf.color, out_dtype=torch.uint8)
+    out["pose0_psnr_db"] = mesh_gate(
+        torch, f"mesh pose 0 (render_frame, gi={GI_MESH})", tdev, cam,
+        frame.cpu().numpy(), 5, FLOOR_MESH, buf, opt)
+
+    scam = split_sweep_poses(Camera)[0]
+    scube = mesh_cube(scam, scale=0.4, k=0.55)
+    sbuf = rasterize_meshes([scube], scam)
+    classes = slab_render.split_classes(grid, scam.transform, scam.fx,
+                                        scam.fy, W, H)
+    frame, counts = counted_mesh(
+        "mesh split e=0.5", lambda: slab_render.render_image(
+            grid, scam, opt, gi=GI, meshes=[scube], out_dtype=torch.uint8),
+        len(classes))
+    p256 = mesh_gate(torch, f"mesh split e=0.5 (render_image, gi={GI})",
+                     tdev, scam, frame, 5, 0.0, sbuf, opt)
+    frame = display_warp.to_display_dtype(slab_render.render_frame_split(
+        grid, scam.transform, scam.fx, scam.fy, W, H, opt, gi=GI_MESH,
+        mesh_dist=sbuf.dist, mesh_rgb=sbuf.color), torch.uint8)
+    out["split"] = {"classes": classes, "counts": counts,
+                    "mesh_pixels": int(np.isfinite(sbuf.dist).sum()),
+                    "gi256_psnr_db": p256,
+                    "psnr_db": mesh_gate(
+                        torch, f"mesh split e=0.5 (gi={GI_MESH})", tdev,
+                        scam, frame.cpu().numpy(), 5, FLOOR_MESH, sbuf,
+                        opt)}
+
+    # to depth 2: the default depth 4 draws 360,960 segments over 92 % of
+    # the dense scene's frame, 48.5 s of host rasterizing (NVIDIA H100
+    # 80GB HBM3 host, 700 W card)
+    gopt = dataclasses.replace(opt, show_grid=True, grid_max_depth=2)
+    t = time.perf_counter()
+    wire = wireframe_mesh(host_tree, gopt.grid_max_depth)
+    gbuf = rasterize_meshes([wire], cam)
+    out["grid_host_s"] = time.perf_counter() - t
+    frame, counts = counted_mesh(
+        "show_grid pose 0", lambda: slab_render.render_image(
+            grid, cam, gopt, gi=GI, host_tree=host_tree,
+            out_dtype=torch.uint8), 1)
+    ghit = np.isfinite(gbuf.dist)
+    out["grid"] = {"segments": int(wire.faces.size // 2),
+                   "wire_pixels": int(ghit.sum()), "counts": counts,
+                   "host_s": out["grid_host_s"]}
+    log(f"show_grid pose 0: wireframe to depth {gopt.grid_max_depth}: "
+        f"{out['grid']['segments']} segments, {int(ghit.sum())} pixels, "
+        f"built and rasterized in {out['grid_host_s']:.1f} s")
+    if not (ghit.any() and np.all(frame[ghit][:, 3] == 255)):
+        fail("show_grid pose 0: no wire pixel, or one with alpha below 255")
+    out["grid"]["psnr_db"] = mesh_gate(torch, "show_grid pose 0", tdev, cam,
+                                       frame, 5, 0.0, gbuf, gopt)
+    stats["WM"]["launches"] = launched["WM"]
+    out["launched"] = dict(launched)
+    log(f"mesh: {json.dumps(out)}")
+    return out
+
+
+def knob_phase(torch, kernels, dev, opt, stats, gate, tdev, grids, cams,
+               groups_of):
+    """Phase 12c (b): the display march's knobs on orbit group 0 of the dense
+    int8 grid and of the f16 route (``grids``: {name: grid}), with
+    slab_march._DIR_WIN = False and then _BF16_SHADE = True: each variant
+    against its plain version (variant_check: its time on PLAIN_POSES
+    poses, its bound, the whole group's time) beside the default's in the
+    same run, the group rendered with the switch flipped (counted: every
+    launch in the knob's variant, one W launch, no plain version), pose
+    0's frame against the default frame (>= FLOOR_KNOB) and against the
+    exact renderer (>= FLOOR_ORBIT)."""
+    import collections
+    from volrend_torch.ops import slab_march, slab_render
+    out = {}
+    launched = collections.Counter()
+    for name, grid in grids.items():
+        groups, pays, trs = groups_of(grid, cams)
+        first = next(iter(groups.values()))
+        gcams = [cams[i] for i in first]
+        perm, flip = next(iter(groups))
+        tr, _ = trs[(perm, flip)]
+        fx, fy = cams[0].fx, cams[0].fy
+
+        def render():
+            return slab_render.render_frames(
+                grid, tr, fx, fy, perm, flip, W, H, opt, gi=GI,
+                payload=pays[perm], out_dtype=torch.uint8)
+
+        variant_check(torch, kernels, f"{name} knobs default", grid, opt,
+                      gcams, f"M_knobbase_{name}", stats)
+        base_ms = stats["M_variants"][f"{name} knobs default"]["ms"]
+        base_frame = render()
+        for knob, attr, val, key, suffix in (
+                ("dirslab", "_DIR_WIN", False, "M_dirslab", "-dirslab"),
+                ("bf16shade", "_BF16_SHADE", True, "M_bf16shade",
+                 "-bf16shade")):
+            tag = f"{name} {knob}"
+            variant_check(torch, kernels, tag, grid, opt, gcams, key, stats,
+                          dir_win=val if attr == "_DIR_WIN" else True,
+                          shade_bf16=val if attr == "_BF16_SHADE" else False)
+            v = stats["M_variants"][tag]
+            calls = count_plain_calls()
+            setattr(slab_march, attr, val)
+            try:
+                torch.cuda.synchronize()
+                reset_counts()
+                slab_march.march_slabs.variants = {}
+                frames = render()
+                torch.cuda.synchronize()
+                counts = read_counts()
+                variants = dict(slab_march.march_slabs.variants)
+            finally:
+                setattr(slab_march, attr, not val)
+                restore_plain()
+            log(f"{tag}: counts {counts}, kernel M variants {variants}, "
+                f"plain versions called {sum(calls.values())}")
+            variant = next(iter(variants), "")
+            if (counts["march"] != 1 or len(variants) != 1
+                    or not variant.endswith(suffix)
+                    or counts["warp_poses"] != len(first)
+                    or any(calls.values())):
+                fail(f"{tag}: the group did not take the {knob} variant "
+                     f"once and kernel W ({counts}, {variants})")
+            launched[key] += 1
+            f0, b0 = frames[0].float() / 255.0, base_frame[0].float() / 255.0
+            mse = float(((f0[..., :3] - b0[..., :3]) ** 2).mean())
+            p_base = 99.0 if mse < 1e-12 else -10.0 * np.log10(mse)
+            log(f"{tag}: pose 0 {p_base:.3f} dB against the default frame "
+                f"(floor {FLOOR_KNOB}); kernel M on the group of "
+                f"{len(first)} {v['ms']:.3f} ms against the default's "
+                f"{base_ms:.3f} ms")
+            if not p_base >= FLOOR_KNOB:
+                fail(f"{tag}: {p_base:.3f} dB from the default frame")
+            out[tag] = {"variant": variant, "counts": counts,
+                        "group_ms": v["ms"], "sub_ms": v["sub_ms"],
+                        "default_group_ms": base_ms,
+                        "vs_default_db": p_base,
+                        "psnr_db": gate(tag, tdev, cams[0], frames[0], 5,
+                                        FLOOR_ORBIT)}
+            del frames
+        del pays, trs, base_frame
+        torch.cuda.empty_cache()
+    for key in ("M_dirslab", "M_bf16shade"):
+        stats[key]["launches"] = stats[key].get("launches", 0) + launched[key]
+    log(f"knobs: {json.dumps(out)}")
+    return out
+
+
+def quant_tree(tree_path: str):
+    """The compressed sparse scene (CACHE_QUANT: compress_tree at its
+    defaults, bits 16) and the host seconds it took (0 from the cache)."""
+    from volrend_torch.compress import compress_tree
+    if os.path.isfile(CACHE_QUANT):
+        return CACHE_QUANT, 0.0
+    t = time.perf_counter()
+    with np.load(tree_path, allow_pickle=False) as f:
+        z = compress_tree(dict(f.items()))
+    np.savez(CACHE_QUANT, **z)
+    return CACHE_QUANT, time.perf_counter() - t
+
+
+def quant_phase(torch, dev, opt, stats, gate, groups_of):
+    """Phase 12c (c): a codebook-quantized tree, the sparse scene compressed at
+    the compressor's defaults (bits 16; set-up, its host seconds logged).
+    QuantLeaves on the card (its device bytes against the decoded tree's
+    dense leaves); fetch_rows bit-equal to the host decode's rows on
+    QUANT_ROWS random leaves; the int8 bake of the QuantLeaves tree
+    bit-equal to the decode's (codes, qscale, occupancy); one orbit group
+    through render_frames, counted (kernel M and W only); pose 0 against
+    the exact renderer on the same QuantLeaves tree (>= FLOOR_SPARSE, the
+    scene's floor)."""
+    from volrend_torch.models.n3tree import N3Tree
+    from volrend_torch.models.quantized import (load_quantized,
+                                                to_device_quantized)
+    from volrend_torch.models.synthetic import make_solid_tree
+    from volrend_torch.ops import dense_grid, slab_render
+    from volrend_torch.probes import _common
+    _common.load_tree(CACHE_SPARSE, lambda: make_solid_tree(
+        max_depth=DEPTH, basis_dim=BASIS_DIM, seed=3))
+    path, secs = quant_tree(CACHE_SPARSE)
+    out = {"compress_host_s": secs}
+    t = time.perf_counter()
+    qdev = to_device_quantized(load_quantized(path), lut_depth=None,
+                               device=dev)
+    host = N3Tree(path)
+    hdev = host.to_device(lut_depth=None, device=dev)
+    torch.cuda.synchronize()
+    leaves = qdev.data
+    out["quant_bytes"] = leaves.nbytes()
+    out["dense_bytes"] = host.n_cells * host.data_dim * 2
+    log(f"quant: sparse scene compressed in {secs:.1f} s (0: from the "
+        f"cache), {leaves.n_q} codebooks of {leaves.codebooks.shape[1]} "
+        f"codes, {leaves.n_retain} retained; uploaded with its decode in "
+        f"{time.perf_counter() - t:.1f} s; QuantLeaves "
+        f"{out['quant_bytes'] / 2**20:.1f} MiB on the card against "
+        f"{out['dense_bytes'] / 2**20:.1f} MiB of dense f16 leaves")
+    D = host.data_dim
+    idx = torch.randint(0, host.n_cells, (QUANT_ROWS,), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    if not torch.equal(leaves.fetch_rows(idx), hdev.data[idx, :D]):
+        fail("quant: fetch_rows differs from the host decode's rows")
+    gq = dense_grid.bake_dense(qdev, dtype="int8")
+    gh = dense_grid.bake_dense(hdev, dtype="int8")
+    if not (torch.equal(gq.data, gh.data) and torch.equal(gq.qscale,
+                                                         gh.qscale)
+            and gq.occ_max == gh.occ_max):
+        fail("quant: the bake of the QuantLeaves tree differs from the "
+             "decode's")
+    log(f"quant: fetch_rows bit-equal to the decode on {QUANT_ROWS} leaves; "
+        f"int8 bake G={gq.G} bit-equal (codes, qscale, occupancy)")
+    del gh
+    cams = _common.orbit_poses(N_POSES, width=W, height=H)
+    groups, pays, trs = groups_of(gq, cams)
+    (perm, flip), first = next(iter(groups.items()))
+    tr, _ = trs[(perm, flip)]
+    calls = count_plain_calls()
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        frames = slab_render.render_frames(
+            gq, tr, cams[0].fx, cams[0].fy, perm, flip, W, H, opt, gi=GI,
+            payload=pays[perm], out_dtype=torch.uint8)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    finally:
+        restore_plain()
+    log(f"quant group 0 ({len(first)} poses): counts {counts}, plain "
+        f"versions called {sum(calls.values())}")
+    if (counts["march"] != 1 or counts["warp_poses"] != len(first)
+            or counts["build"] or counts["combine"]
+            or counts["ref_warp_poses"] or any(calls.values())):
+        fail(f"quant: the group did not take kernels M and W alone "
+             f"({counts})")
+    out["counts"] = counts
+    out["psnr_db"] = gate("quant pose 0", qdev, cams[0], frames[0], 5,
+                          FLOOR_SPARSE)
+    del frames, pays, trs, gq, hdev, qdev
+    torch.cuda.empty_cache()
+    log(f"quant: {json.dumps(out)}")
+    return out
+
+
+def overlay_phase(torch, kernels, dev, opt, stats, gate, groups_of):
+    """Phase 12c: mesh_phase and knob_phase on the dense scene (int8, then
+    the f16 route for the knobs), then quant_phase."""
+    from volrend_torch.ops import dense_grid
+    from volrend_torch.probes import _common
+    host_tree = _common.get_tree()
+    tdev = host_tree.to_device(lut_depth=None, device=dev)
+    grid = dense_grid.bake_dense(tdev, dtype="int8")
+    cams = _common.orbit_poses(N_POSES, width=W, height=H)
+    out = {"mesh": mesh_phase(torch, dev, opt, stats, tdev, grid, host_tree,
+                              cams)}
+    out["knobs"] = knob_phase(torch, kernels, dev, opt, stats, gate, tdev,
+                              {"int8": grid}, cams, groups_of)
+    del grid
+    torch.cuda.empty_cache()
+    f16 = dense_grid.bake_dense(tdev, dtype="f16")
+    out["knobs"].update(knob_phase(torch, kernels, dev, opt, stats, gate,
+                                   tdev, {"f16": f16}, cams, groups_of))
+    del f16, tdev
+    torch.cuda.empty_cache()
+    out["quant"] = quant_phase(torch, dev, opt, stats, gate, groups_of)
     return out
 
 
@@ -3212,6 +3739,9 @@ def main() -> None:
     # ---- 12b. the training pair's formats and options -----------------------
     train_variants = train_variants_phase(torch, dev, stats)
 
+    # ---- 12c. mesh overlays, the display knobs, a quantized tree ------------
+    overlay = overlay_phase(torch, kernels, dev, opt, stats, gate, groups_of)
+
     # ---- 13. result ---------------------------------------------------------
     summary = {"card": card, "m_launches": stats.get("M_launches"),
                "warp_stage": stats.get("warp_stage"),
@@ -3224,7 +3754,7 @@ def main() -> None:
                "dense_counts": counts, "sparse_counts": scounts,
                "train_lean_kernels": stats.get("train_lean_kernels"), **tsum,
                **probe, **steep, **ndc, "variants": variants,
-               "train_variants": train_variants,
+               "train_variants": train_variants, "overlay": overlay,
                "m_variant_launches": stats.get("M_variants"),
                "seconds": time.perf_counter() - _T0}
     log(f"summary {json.dumps(summary)}")
@@ -3278,6 +3808,8 @@ def main() -> None:
                    stats[key]["launches"]) for key, name, _ in VARIANT_ROWS)
     spec += tuple((key, name, src, rep, stats[key]["launches"])
                   for key, name, src, rep in TRAIN_VARIANT_ROWS)
+    spec += tuple((key, name, src, rep, stats[key]["launches"])
+                  for key, name, src, rep in OVERLAY_ROWS)
     rows = []
     for key, name, src, rep, launches in spec:
         s = stats[key]

@@ -224,13 +224,14 @@ def to_torch(x) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
-def march_pair(g, jg, cam, jopt, gi=32):
+def march_pair(g, jg, cam, jopt, gi=32, dir_win=True, shade_bf16=False):
     """One pose marched by both packages on the reference's inputs (its
     params, z interval, permuted payload, culled slab ids and crop) with
-    the formats and options of ``jopt`` (the reference's RenderOptions),
-    as the reference's display route calls its kernel; the reference runs
-    in interpret mode (the caller's ``interpret`` context). Returns (port
-    acc (4, gi, gi), reference acc) as numpy."""
+    the formats and options of ``jopt`` (the reference's RenderOptions)
+    and the display knobs ``dir_win`` and ``shade_bf16``, as the
+    reference's display route calls its kernel; the reference runs in
+    interpret mode (the caller's ``interpret`` context). Returns (port acc
+    (4, gi, gi), reference acc) as numpy."""
     from volrend_torch.ops import slab_march as t_march
     W, H = cam.width, cam.height
     perm, flip, slope = j_slab.choose_axis(jg, cam.transform, cam.fx,
@@ -248,8 +249,8 @@ def march_pair(g, jg, cam, jopt, gi=32):
               fmt=int(jg.fmt), depth=bool(jopt.render_depth),
               rot=(None if rotm is None else
                    tuple(float(v) for v in np.asarray(rotm).reshape(-1))),
-              flip=flip, bbox_full=j_slab._bbox_full(jopt), dir_win=True,
-              k_per_step=4, crop=crop)
+              flip=flip, bbox_full=j_slab._bbox_full(jopt), dir_win=dir_win,
+              shade_bf16=shade_bf16, k_per_step=4, crop=crop)
     want = pallas_slab.march_slabs(planar, params, jg.qscale, zb, jg.G, gi,
                                    jg.data_dim, jg.basis_dim, perm,
                                    extra=jg.extra, **kw)

@@ -264,13 +264,13 @@ def test_mixed_cascade_batch_on_card(grids):
 TOL_M = 1e-3
 
 
-def _agree(acc, ref):
+def _agree(acc, ref, tol=TOL_M):
     diff = (acc - ref).abs().amax(1)
-    off = diff > TOL_M
+    off = diff > tol
     sat = torch.maximum(acc[:, 3], ref[:, 3]) < OPT.stop_thresh
     assert bool(torch.all(sat[off])), float(diff.max())
     assert int(off.sum()) <= MAX_FREEZE_FLIPS * off.numel() + 1
-    assert float(diff.max()) <= OPT.stop_thresh + TOL_M
+    assert float(diff.max()) <= OPT.stop_thresh + tol
 
 
 def _display_case(g, backs, fx=200.0, crop=None, cull=None):
@@ -629,7 +629,7 @@ def _march_train(cfg, planar, params, zb, gi=GI):
     return slab_march.march_slabs(
         planar, params, torch.ones(cfg.D, device=planar.device), zb, cfg.G,
         gi, cfg.D, cfg.bd, cfg.perm, slab_ids=cfg.ids, flip=cfg.flip,
-        bbox_full=True, dir_win=False)
+        bbox_full=True, dir_win=False, train=True)
 
 
 def _march_plain(cfg, planar, params, zb, gi=GI):
@@ -1329,9 +1329,11 @@ def format_grids(card):
 
 
 def _variant_vs_plain(g, opt, backs=((1.0, 0.25, 0.35), (1.0, 0.1, 0.45)),
-                      fx=200.0, crop=None):
-    """Kernel M on grid ``g`` with the format and options of ``opt`` against
-    its plain version; returns (acc, the launch's variant)."""
+                      fx=200.0, crop=None, dir_win=True, shade_bf16=False,
+                      tol=TOL_M):
+    """Kernel M on grid ``g`` with the format and options of ``opt`` (and
+    the display knobs ``dir_win``, ``shade_bf16``) against its plain
+    version within ``tol``; returns (acc, the launch's variant)."""
     cams = _cams(backs, fx)
     perm, flip, _ = slab_render.choose_axis(g, cams[0].transform, fx, fx, W,
                                             H)
@@ -1350,17 +1352,18 @@ def _variant_vs_plain(g, opt, backs=((1.0, 0.25, 0.35), (1.0, 0.1, 0.45)),
     n0 = slab_march.march_slabs.launches
     acc = slab_march.march_slabs(
         pay, params, g.qscale, zb, g.G, GI, g.data_dim, g.basis_dim, perm,
-        slab_ids=ids, sig2=g.quantized, flip=flip, dir_win=True, crop=crop,
-        **kw)
+        slab_ids=ids, sig2=g.quantized, flip=flip, dir_win=dir_win,
+        shade_bf16=shade_bf16, crop=crop, **kw)
     assert slab_march.march_slabs.launches == n0 + 1
     variant = slab_march.march_slabs.display["variant"]
     m = slab_march.march_inputs(pay, params, zb, g.G, GI, ids, 4, crop)
-    ref = slab_march.march_slabs_ref(pay, g.qscale, D=g.data_dim,
-                                     bd=g.basis_dim, flip=flip, dir_win=True,
-                                     **kw, **m)
+    ref = slab_march.march_slabs_ref(
+        pay, g.qscale, D=g.data_dim, bd=g.basis_dim, flip=flip,
+        dir_win=dir_win, bf16_shade=shade_bf16 and g.fmt == 1
+        and not opt.render_depth, **kw, **m)
     torch.cuda.synchronize()
     assert float(acc[:, 3].min()) < 0.9
-    _agree(acc, ref)
+    _agree(acc, ref, tol)
     return acc, variant
 
 
@@ -1517,7 +1520,7 @@ def _train_variant_case(group_geom, fmt, nb, dtype, options=None, seed=0):
     slab_march.march_slabs_bwd.variants = {}
     acc = slab_march.march_slabs(planar, params, qs, zb, G, gi, D, nb, perm,
                                  slab_ids=ids, flip=flip, dir_win=False,
-                                 **st)
+                                 train=True, **st)
     m = slab_march.march_inputs(planar, params, zb, G, gi, ids)
     ref = slab_march.march_slabs_ref(planar, qs, D=D, bd=nb, flip=flip,
                                      **st, **m)
@@ -1675,3 +1678,219 @@ def test_frame_trainer_formats_on_card(card, fmt, nb, options, lean):
     assert slab_grad.bake_from_pyramid.launches == k0 + 3
     assert slab_march.march_occupancy.launches_live == l0 + 3
     assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+
+
+# ---------------------------------------------------------------------------
+# Kernel W's mesh-background mode, kernel M's display knobs (per-slab view
+# directions, bf16 SH shading) and the default instantiations they must
+# leave as they were; codebook-quantized leaves on the card
+# ---------------------------------------------------------------------------
+
+#: kernel W's no-mesh instantiations before the mesh mode was added (commit
+#: fb76777, NVIDIA H100 80GB HBM3; read by ``python
+#: volrend_torch/probes/display_info.py --root <that checkout>``): per
+#: (By, Bx, Wy, Wx, RGBA8), (blocks per SM, registers, spill store bytes)
+DEFAULT_W_INFO = {
+    (4, 4, 5, 5, 1): (8, 64, 0), (4, 4, 5, 5, 0): (7, 70, 0),
+    (2, 2, 4, 4, 1): (10, 44, 0), (2, 2, 4, 4, 0): (10, 44, 0),
+    (2, 4, 4, 5, 1): (5, 96, 0), (2, 4, 4, 5, 0): (5, 96, 0),
+}
+
+#: kernel M's 48 display instantiations before the display knobs were added
+#: (the same commit, card and probe): per instantiation, (blocks per SM,
+#: registers, spill bytes, static shared bytes)
+DEFAULT_DISPLAY_INFO = {
+    "SH1-int8-r1": (2, 100, 0, 144),
+    "SH1-int8-r2": (2, 113, 0, 144),
+    "SH1-bf16-r1": (2, 118, 0, 144),
+    "SH1-bf16-r2": (2, 114, 0, 144),
+    "SH4-int8-r1": (2, 110, 0, 192),
+    "SH4-int8-r2": (2, 122, 0, 192),
+    "SH4-bf16-r1": (2, 114, 0, 176),
+    "SH4-bf16-r2": (2, 126, 0, 176),
+    "SH9-int8-r1": (2, 117, 0, 240),
+    "SH9-int8-r2": (2, 122, 0, 240),
+    "SH9-bf16-r1": (2, 123, 0, 240),
+    "SH9-bf16-r2": (2, 125, 0, 240),
+    "SH16-int8-r1": (2, 124, 0, 336),
+    "SH16-int8-r2": (2, 121, 0, 336),
+    "SH16-bf16-r1": (2, 125, 0, 320),
+    "SH16-bf16-r2": (2, 123, 0, 320),
+    "SH25-int8-r1": (2, 126, 0, 432),
+    "SH25-int8-r2": (2, 127, 0, 432),
+    "SH25-bf16-r1": (2, 127, 0, 432),
+    "SH25-bf16-r2": (2, 125, 0, 432),
+    "SH1-int8-opt-r1": (2, 105, 0, 192),
+    "SH1-bf16-opt-r1": (2, 120, 0, 176),
+    "SH4-int8-opt-r1": (2, 111, 0, 224),
+    "SH4-bf16-opt-r1": (2, 120, 0, 224),
+    "SH9-int8-opt-r1": (2, 114, 0, 288),
+    "SH9-bf16-opt-r1": (2, 120, 0, 272),
+    "SH16-int8-opt-r1": (2, 121, 0, 368),
+    "SH16-bf16-opt-r1": (2, 122, 0, 368),
+    "SH25-int8-opt-r1": (2, 122, 0, 480),
+    "SH25-bf16-opt-r1": (2, 119, 0, 464),
+    "SG<=4-int8-opt-r1": (2, 117, 0, 288),
+    "SG<=4-bf16-opt-r1": (2, 124, 0, 288),
+    "SG<=9-int8-opt-r1": (2, 123, 0, 432),
+    "SG<=9-bf16-opt-r1": (2, 122, 0, 416),
+    "SG<=16-int8-opt-r1": (2, 126, 0, 624),
+    "SG<=16-bf16-opt-r1": (2, 126, 0, 624),
+    "SG<=25-int8-opt-r1": (2, 128, 0, 880),
+    "SG<=25-bf16-opt-r1": (2, 125, 0, 864),
+    "ASG<=4-int8-opt-r1": (2, 128, 24, 400),
+    "ASG<=4-bf16-opt-r1": (2, 128, 16, 400),
+    "ASG<=9-int8-opt-r1": (2, 128, 192, 672),
+    "ASG<=9-bf16-opt-r1": (2, 128, 168, 672),
+    "ASG<=16-int8-opt-r1": (2, 128, 552, 1072),
+    "ASG<=16-bf16-opt-r1": (2, 128, 536, 1072),
+    "ASG<=25-int8-opt-r1": (2, 128, 1016, 1568),
+    "ASG<=25-bf16-opt-r1": (2, 128, 1008, 1568),
+    "RGBA-int8-opt-r1": (2, 105, 0, 192),
+    "RGBA-bf16-opt-r1": (2, 120, 0, 176),
+}
+
+
+def _mesh_case(device, P, seed=5):
+    """A seeded (P, H, W, 4) f16 mesh background: half the pixels hit,
+    the mesh colours in [0, 1]."""
+    rng = np.random.default_rng(seed)
+    dist = rng.uniform(1.0, 3.0, (P, H, W)).astype(np.float32)
+    dist[rng.uniform(size=dist.shape) < 0.5] = np.inf
+    rgb = rng.uniform(0.0, 1.0, (P, H, W, 3)).astype(np.float32)
+    return display_warp.mesh_background(dist, rgb, P, H, W, device)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("level", LEVELS + (((2, 4), (4, 5)),))
+def test_warp_display_mesh_matches_plain(grids, out_dtype, level):
+    """W's mesh mode at both production levels and a generic one, on two
+    of three poses in place: against its plain version (uint8 within one
+    quantum, f32 within 1e-5), alpha 1 on every hit pixel, counted apart
+    from the no-mesh launches, the third pose's slot untouched."""
+    _, g = grids
+    B, win = level
+    _, prm, inter = _warp_case(g)
+    mesh = _mesh_case(g.data.device, 3)
+    sel = torch.tensor([2, 0], dtype=torch.int32, device=g.data.device)
+    fill = 7 if out_dtype == torch.uint8 else -3.0
+    out = torch.full((3, H, W, 4), fill, dtype=out_dtype,
+                     device=g.data.device)
+    wd = display_warp.warp_display
+    n0 = (wd.launches, wd.mesh_launches, wd.mesh_poses)
+    got = wd(inter, prm, sel, out.clone(), B, win, GI, 1.0, mesh)
+    assert (wd.launches, wd.mesh_launches, wd.mesh_poses) == (
+        n0[0], n0[1] + 1, n0[2] + 2)
+    assert torch.equal(got[1], out[1])
+    want = display_warp.warp_display_ref(inter, prm, sel, out.clone(), B,
+                                         win, GI, 1.0, mesh)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    assert float(diff.max()) <= (1.0 if out_dtype == torch.uint8 else 1e-5)
+    hit = mesh[..., 3] > 0.5
+    one = 255 if out_dtype == torch.uint8 else 1.0
+    for p in (0, 2):
+        assert bool(torch.all(got[p, ..., 3][hit[p]] == one))
+
+
+def test_warp_display_default_launch_info(card):
+    """W's no-mesh instantiations keep the registers and spills they had
+    before the mesh mode (DEFAULT_W_INFO), with their blocks per SM; the
+    mesh ones do not spill."""
+    from volrend_torch import kernels
+    assert DEFAULT_W_INFO
+    lib = kernels.lib("warp_display")
+    for (by, bx, wy, wx, u8), want in DEFAULT_W_INFO.items():
+        for mesh in (0, 1):
+            out = (ctypes.c_int * 4)()
+            kernels.check(lib.vt_warp_display_info(by, bx, wy, wx, u8, mesh,
+                                                   out), "warp_display")
+            if mesh:
+                assert out[0] > 0 and out[2] == 0, list(out)
+            else:
+                assert tuple(out[:3]) == tuple(want), (by, bx, u8,
+                                                       list(out))
+
+
+def test_default_display_instantiations_keep_their_launch(card):
+    """Kernel M's 48 display instantiations keep the blocks per SM,
+    registers, spills and static shared memory they had before the display
+    knobs (DEFAULT_DISPLAY_INFO)."""
+    from volrend_torch.probes import display_info
+    from volrend_torch import kernels
+    assert len(DEFAULT_DISPLAY_INFO) == 48
+    lib = kernels.lib("slab_march_display")
+    rows = {v[0]: v[1:] for v in display_info.M_VARIANTS}
+    for key, want in DEFAULT_DISPLAY_INFO.items():
+        bd, r, fmt, bf16, opt = rows[key]
+        out = (ctypes.c_int * 4)()
+        kernels.check(lib.vt_march_display_info(
+            bd, r, fmt, bf16, opt, slab_march._DISPLAY_SMEM, out),
+            "slab_march_display")
+        assert list(out) == list(want), (key, list(out))
+
+
+#: the bf16-shading variant against its plain version: the kernel's basis
+#: planes (f32, then rounded to bf16) differ from the plain version's in
+#: the last f32 bit, which can flip a bf16 rounding of a plane or a sum
+TOL_BF16_SHADE = 5e-3
+
+
+@pytest.mark.parametrize("key", [("SH", "int8"), ("SH", "f16"),
+                                 ("SG", "int8"), ("ASG", "f16")])
+def test_display_dir_slab_matches_plain(format_grids, key):
+    """Per-slab view directions (dir_win=False) on both payloads and the
+    lobe formats: one-slab windows of the format's own variant (the SH
+    default's for SH) against the plain version, named ``-dirslab``."""
+    g = format_grids[key]
+    _, variant = _variant_vs_plain(g, OPT, dir_win=False)
+    assert variant == (f"{key[0]}-{'bf16' if key[1] == 'f16' else 'int8'}"
+                       "-dirslab"), variant
+
+
+@pytest.mark.parametrize("options", ["none", "rot", "window"])
+@pytest.mark.parametrize("dt", ["int8", "f16"])
+def test_display_bf16_shade_matches_plain(format_grids, dt, options):
+    """bf16 SH shading on both payloads, alone and with options, against
+    the plain version's bf16 rounding (TOL_BF16_SHADE); with per-slab
+    directions too, and an SG tree shades in f32 as without the knob."""
+    g = format_grids[("SH", dt)]
+    opt = OPT.replace(**_OPTIONS[options])
+    _, variant = _variant_vs_plain(g, opt, shade_bf16=True,
+                                   tol=TOL_BF16_SHADE)
+    assert "-bf16shade" in variant, variant
+    _, variant = _variant_vs_plain(g, opt, shade_bf16=True, dir_win=False,
+                                   tol=TOL_BF16_SHADE)
+    assert variant.endswith("-bf16shade-dirslab"), variant
+    _, variant = _variant_vs_plain(format_grids[("SG", dt)], opt,
+                                   shade_bf16=True)
+    assert "bf16shade" not in variant, variant
+
+
+def test_quant_leaves_fetch_rows_card_matches_cpu(card):
+    """QuantLeaves.fetch_rows on the card equals the CPU's bit for bit,
+    and the host decode's rows."""
+    from volrend_torch.compress import compress_tree
+    from volrend_torch.models.n3tree import N3Tree
+    from volrend_torch.models.quantized import (load_quantized,
+                                                to_device_quantized)
+    import io
+    tree = make_test_tree(max_depth=3, basis_dim=16, seed=5,
+                          sigma_scale=60.0)
+    buf = io.BytesIO()
+    tree.save_npz(buf, compressed=False)
+    buf.seek(0)
+    with np.load(buf) as f:
+        z = compress_tree(dict(f.items()), bits=10)
+    host = N3Tree()
+    host.load_npz(z)
+    qt = load_quantized(z)
+    idx = np.random.default_rng(0).integers(0, host.n_cells, 4096)
+    rows = []
+    for dev in ("cpu", card):
+        leaves = to_device_quantized(qt, device=dev).data
+        rows.append(leaves.fetch_rows(torch.as_tensor(idx, device=dev))
+                    .cpu())
+    assert torch.equal(rows[0], rows[1])
+    want = host.data.reshape(-1, host.data_dim)[idx]
+    assert np.array_equal(rows[0].numpy(), want)

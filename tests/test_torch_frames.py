@@ -118,23 +118,29 @@ def test_render_image_matches_exact_renderer(kind, back):
 
 
 def test_render_image_refuses_later_slices(monkeypatch):
-    """Mesh overlays (item 13) raise NotImplementedError naming the later
-    slice; nothing falls back. The steep and NDC poses and the f16 bake
-    this test refused before their slices now render: a steep pose through
-    the split-frame passes, an NDC tree's pose on the slab path
+    """What this test refused before its slices now renders: a steep pose
+    through the split-frame passes, an NDC tree's pose on the slab path
     (tests/test_torch_split.py and tests/test_torch_ndc.py hold them
-    against the reference), and the f16 bake, here against the
-    reference's render_image in interpret mode (rgb >= 45 dB, alpha within
-    2e-2)."""
+    against the reference), mesh overlays (item 13: alpha 1 on the mesh's
+    pixels; tests/test_torch_mesh.py holds them against the reference; a
+    mesh distance without its colour raises ValueError), and the f16 bake,
+    here against the reference's render_image in interpret mode (rgb >= 45
+    dB, alpha within 2e-2)."""
     _, g, _, _ = scene("dense", 4, "int8")
     opt = RenderOptions(max_steps=64)
     steep = make_cam((1.0, 0.25, 0.35), width=W, height=H, fx=8.0)
     out = slab_render.render_image(g, steep, opt, gi=GI)
     assert out.shape == (H, W, 4) and np.all(np.isfinite(out))
     cam = make_cam((1.0, 0.25, 0.35), width=W, height=H)
-    with pytest.raises(NotImplementedError, match="slice B"):
-        slab_render.render_image(g, cam, opt, gi=GI, meshes=[object()])
-    with pytest.raises(NotImplementedError, match="slice B"):
+    from volrend_torch.models.mesh import Mesh
+    from volrend_torch.ops.rasterize import rasterize_meshes
+    cube = Mesh.Cube((1.0, 0.1, 0.1))
+    cube.scale = 0.4
+    cube.translation = np.asarray(cam.center * 0.35, np.float32)
+    out = slab_render.render_image(g, cam, opt, gi=GI, meshes=[cube])
+    hit = np.isfinite(rasterize_meshes([cube], cam).dist)
+    assert hit.any() and np.all(out[..., 3][hit] == 1.0)
+    with pytest.raises(ValueError, match="come together"):
         slab_render.render_frame(g, cam.transform, cam.fx, cam.fy,
                                  (0, 1, 2), False, W, H, opt, gi=GI,
                                  mesh_dist=np.zeros((H, W)))

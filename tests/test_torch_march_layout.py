@@ -114,7 +114,8 @@ def test_plain_versions_march_the_f32_view_as_its_bf16_copy(scene, group):
     view = bake.permute(perm[0], 3, perm[1], perm[2])
     planar = _parent_planar(bake, perm)
     qs = torch.ones(cfg.D)
-    kw = dict(slab_ids=cfg.ids, flip=flip, bbox_full=True, dir_win=False)
+    kw = dict(slab_ids=cfg.ids, flip=flip, bbox_full=True, dir_win=False,
+              train=True)
     accs = [slab_march.march_slabs(p, params[None], qs, zb[None], cfg.G, GI,
                                    cfg.D, cfg.bd, perm, **kw)
             for p in (view, planar)]

@@ -341,7 +341,8 @@ def test_ndc_training_march_matches_jax_grad_of_scan(ndc_train):
     qs = torch.ones(jg.data_dim)
     acc4 = slab_march.march_slabs(
         tp, tprm[None], qs, tzb[None], cfg.G, TGI, cfg.D, cfg.bd, perm,
-        slab_ids=ids, flip=flip, bbox_full=True, dir_win=False)[0]
+        slab_ids=ids, flip=flip, bbox_full=True, dir_win=False,
+        train=True)[0]
     np.testing.assert_allclose(acc4[:3].numpy(),
                                np.moveaxis(np.asarray(a), -1, 0), atol=5e-6)
     np.testing.assert_allclose(acc4[3].numpy(), np.asarray(T), atol=5e-6)

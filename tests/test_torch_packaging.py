@@ -32,7 +32,10 @@ MODULES = [
     "volrend_torch.probes", "volrend_torch.probes._common",
     "volrend_torch.probes.perf_overlap", "volrend_torch.probes.perf_sq3",
     "volrend_torch.probes.perf_sq4", "volrend_torch.probes.display_tiles",
-    "volrend_torch.probes.tma_box",
+    "volrend_torch.probes.tma_box", "volrend_torch.probes.display_info",
+    "volrend_torch.models.mesh", "volrend_torch.ops.rasterize",
+    "volrend_torch.ops.composite", "volrend_torch.compress",
+    "volrend_torch.models.quantized",
 ]
 
 
@@ -159,7 +162,14 @@ def _march_args(**over):
 ])
 def test_march_refuses_later_slices_options(option, item):
     """Kernel M's wrapper raises on every option it does not take (it does
-    not run some other path instead), naming the item that brings it."""
+    not run some other path instead), naming the item that brings it. The
+    display knobs item 10c brought (bf16 shading, per-slab directions on
+    the int8 payload) run now (tests/test_torch_display_knobs.py holds them
+    against the reference)."""
+    if item == "item 10c":
+        acc = slab_march.march_slabs(**_march_args(**option))
+        assert tuple(acc.shape) == (1, 4, 8, 8)
+        return
     with pytest.raises(NotImplementedError, match=item):
         slab_march.march_slabs(**_march_args(**option))
 
@@ -200,8 +210,8 @@ def test_march_default_options_run_on_cpu():
 
 def _train_args(**over):
     """The training path's option set: a bf16 payload with Dp = D and
-    per-slab view directions."""
-    kw = _march_args(sig2=False, dir_win=False)
+    per-slab view directions, in the training mode."""
+    kw = _march_args(sig2=False, dir_win=False, train=True)
     kw["gplanar"] = torch.zeros((4, kw["D"], 4, 4), dtype=torch.bfloat16)
     kw["qscale"] = torch.ones(kw["D"])
     kw.update(over)
@@ -217,9 +227,13 @@ def test_march_training_mode_refuses_other_options(option, error, match):
     """On the training payload (per-slab directions) the wrapper raises on
     every option it does not take: depth mode, which the reference's
     training path never marches (ValueError), and the options of later
-    items (NotImplementedError, naming the item). A bf16 payload with
-    window directions is the f16 bake's display route
+    items (NotImplementedError, naming the item). bf16 shading, which item
+    10c brought to the display mode, is refused here as a ValueError: the
+    reference's training path shades in f32. A bf16 payload outside the
+    training mode is the f16 bake's display route
     (test_march_runs_display_options)."""
+    if option.get("shade_bf16"):
+        error, match = ValueError, "shades in f32"
     with pytest.raises(error, match=match):
         slab_march.march_slabs(**_train_args(**option))
 
@@ -235,7 +249,7 @@ def test_march_training_mode_runs_formats_and_options(option):
     kw = _train_args(**option)
     acc = slab_march.march_slabs(**kw)
     assert tuple(acc.shape) == (1, 4, 8, 8) and acc.dtype == torch.float32
-    for k in ("sig2", "dir_win"):
+    for k in ("sig2", "dir_win", "train"):
         kw.pop(k)
     g = slab_march.march_slabs_bwd(
         kw.pop("gplanar"), kw.pop("params")[0], kw.pop("qscale"),

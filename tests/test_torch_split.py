@@ -182,8 +182,13 @@ def test_evict_perm_keeps_one_crop_per_perm():
 
 
 def test_split_refusals():
-    """Meshes in split frames wait for item 13 (NotImplementedError)."""
+    """Split frames refuse a mesh distance without its colour (ValueError);
+    meshes themselves ride along since item 13 (every class pass clips and
+    composites; tests/test_torch_mesh.py holds them against the
+    reference)."""
     _, g, _, _ = scene("dense", 4, "int8")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        slab_render.render_image(g, _steep(), OPT, gi=GI,
-                                 meshes=[object()])
+    cam = _steep()
+    with pytest.raises(ValueError, match="come together"):
+        slab_render.render_frame_split(
+            g, cam.transform, cam.fx, cam.fy, cam.width, cam.height, OPT,
+            gi=GI, mesh_dist=np.ones((cam.height, cam.width), np.float32))

@@ -93,6 +93,20 @@
 //   w * |z - z0| * tview), rot (9 floats on the window direction), the
 //   basis window (the MACs of the dropped planes skipped) and the bbox (an
 //   in-plane voxel-extent mask ANDed into the sigma mask).
+// - The display knobs (the reference's pallas_slab._DIR_WIN and
+//   _BF16_SHADE, pallas_slab.py:85-107): per-slab view directions
+//   (dir_win=False) need nothing of the kernel: each voxel's basis is
+//   evaluated at the window centre's distance, so a launch with one-slab
+//   windows (K = 1, slab_march.march_slabs) takes each slab's own; bf16 SH
+//   shading is an option variant of its own,
+//   Var<bf16, F_SH, true, true> at 32x8 on both payloads (degrees 0-4):
+//   each cell pair's basis planes times their scale are rounded to a bf16
+//   pair (__floats2bfloat162_rn) and each colour's sum over the planes is
+//   one __hfma2 a plane (fused, rounded to bf16), the codes exact in bf16;
+//   the sigmoid stays f32. It halves the multiply-adds but takes the 32x8
+//   tile of the option variants and packs the pairs: on an orbit group
+//   it runs slower than the default (PERF.md), as the reference's knob,
+//   off by default, is a TPU lane-packing trick.
 
 #include "slab_common.cuh"
 
@@ -172,11 +186,12 @@ struct WalkGeo {
 // A variant: the payload's element, the basis format, and whether the
 // run-time options (depth, rot, bbox, basis window, lobe count) are
 // compiled in.
-template <bool BF, int FM, bool O>
+template <bool BF, int FM, bool O, bool BS = false>
 struct Var {
   static constexpr bool BF16 = BF;         // bf16 (Dp = D), else int8 (D + 1)
   static constexpr int FMT = FM;
   static constexpr bool OPT = O;
+  static constexpr bool BSH = BS;          // SH shading in bf16 pairs
   static constexpr int ESZ = BF ? 2 : 1;   // bytes a cell of one plane
   static constexpr int CH = 16 / ESZ;      // cells a 16-byte chunk
   static constexpr int SIGP = BF ? 1 : 2;  // sigma planes
@@ -203,6 +218,19 @@ __device__ __forceinline__ float2 cell_pair(const uint8_t* p, int i) {
   } else {
     const uint32_t w = word(p);
     return make_float2(code(w, i), code(w, i + 1));
+  }
+}
+
+// the same pair as a bf16 pair (exact: an int8 code has 8 significant
+// bits; a bf16 payload word holds the pair as it is)
+template <bool BF>
+__device__ __forceinline__ __nv_bfloat162 cell_pair16(const uint8_t* p,
+                                                      int i) {
+  if constexpr (BF) {
+    return *reinterpret_cast<const __nv_bfloat162*>(p);
+  } else {
+    const float2 c = cell_pair<false>(p, i);
+    return __floats2bfloat162_rn(c.x, c.y);
   }
 }
 
@@ -296,23 +324,48 @@ __device__ __forceinline__ void shade_pair(const uint8_t* wp, int plane,
                          ((float)(gx + 1) + 0.5f) * c.invG - c.cx, bkb);
       float ra0 = 0.f, ra1 = 0.f, ra2 = 0.f, rb0 = 0.f, rb1 = 0.f,
             rb2 = 0.f;
+      if constexpr (V::BSH) {
+        // bf16 SH shading: the pair's scaled basis planes as a bf16 pair,
+        // one fused bf16 multiply-add a colour and plane
+        __nv_bfloat162 r0 = __float2bfloat162_rn(0.f), r1 = r0, r2 = r0;
 #pragma unroll
-      for (int kk = 0; kk < BD; ++kk) {
-        if constexpr (V::OPT) {
-          // the basis window and the lobe count: skip the plane's MACs
-          if (kk < o.blo || kk > o.bhi || kk >= nb) continue;
+        for (int kk = 0; kk < BD; ++kk) {
+          if (kk < o.blo || kk > o.bhi) continue;
+          const float q = c.qs[kk];
+          const __nv_bfloat162 qab =
+              __floats2bfloat162_rn(bka[kk] * q, bkb[kk] * q);
+          r0 = __hfma2(cell_pair16<V::BF16>(wp + kk * plane, i), qab, r0);
+          r1 = __hfma2(cell_pair16<V::BF16>(wp + (nb + kk) * plane, i), qab,
+                       r1);
+          r2 = __hfma2(cell_pair16<V::BF16>(wp + (2 * nb + kk) * plane, i),
+                       qab, r2);
         }
-        const float q = c.qs[kk];
-        const float qa = bka[kk] * q, qb = bkb[kk] * q;
-        const float2 c0 = cell_pair<V::BF16>(wp + kk * plane, i);
-        const float2 c1 = cell_pair<V::BF16>(wp + (nb + kk) * plane, i);
-        const float2 c2 = cell_pair<V::BF16>(wp + (2 * nb + kk) * plane, i);
-        ra0 += c0.x * qa;
-        ra1 += c1.x * qa;
-        ra2 += c2.x * qa;
-        rb0 += c0.y * qb;
-        rb1 += c1.y * qb;
-        rb2 += c2.y * qb;
+        ra0 = __low2float(r0);
+        rb0 = __high2float(r0);
+        ra1 = __low2float(r1);
+        rb1 = __high2float(r1);
+        ra2 = __low2float(r2);
+        rb2 = __high2float(r2);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < BD; ++kk) {
+          if constexpr (V::OPT) {
+            // the basis window and the lobe count: skip the plane's MACs
+            if (kk < o.blo || kk > o.bhi || kk >= nb) continue;
+          }
+          const float q = c.qs[kk];
+          const float qa = bka[kk] * q, qb = bkb[kk] * q;
+          const float2 c0 = cell_pair<V::BF16>(wp + kk * plane, i);
+          const float2 c1 = cell_pair<V::BF16>(wp + (nb + kk) * plane, i);
+          const float2 c2 =
+              cell_pair<V::BF16>(wp + (2 * nb + kk) * plane, i);
+          ra0 += c0.x * qa;
+          ra1 += c1.x * qa;
+          ra2 += c2.x * qa;
+          rb0 += c0.y * qb;
+          rb1 += c1.y * qb;
+          rb2 += c2.y * qb;
+        }
       }
       if (oka)
         oa = make_float4(sa, sa * fast_sigmoid(ra0), sa * fast_sigmoid(ra1),
@@ -774,8 +827,9 @@ __global__ void __launch_bounds__(DNT, 2)
 using KernFn = void (*)(const LaunchArgs);
 
 // The instantiations: SH (degrees 0-4) without options on both payloads
-// at both tile heights; SH with options, SG and ASG (lobe counts up to 4,
-// 9, 16, 25) and RGBA, on both payloads, at 32x8.
+// at both tile heights; SH with options, SH with bf16 shading (which takes
+// the options too), SG and ASG (lobe counts up to 4, 9, 16, 25) and RGBA,
+// on both payloads, at 32x8.
 template <int BD, class V>
 KernFn pick_rows(int rows) {
   if (rows == 1) return display_kernel<BD, 1, V>;
@@ -807,8 +861,13 @@ KernFn pick_lobes(int nb, int rows) {
   return nullptr;
 }
 
+// opt: 0 the defaults, 1 the option variants, 3 SH's bf16 shading
 template <bool BF>
 KernFn pick_payload(int bd, int rows, int fmt, int opt) {
+  if (opt == 3)
+    return fmt == F_SH ? pick_sh<Var<BF, F_SH, true, true>>(bd, rows)
+                       : nullptr;
+  if (opt != 0 && opt != 1) return nullptr;
   if (fmt == F_SH)
     return opt ? pick_sh<Var<BF, F_SH, true>>(bd, rows)
                : pick_sh<Var<BF, F_SH, false>>(bd, rows);
@@ -863,11 +922,11 @@ int display_smem(int stage_bytes, int chan_cells, int n_win) {
 // aligned base is staged with cp.async, any other with element copies.
 // The variant: fmt (0 RGBA, bd = -1; 1 SH; 2 SG, 3 ASG with bd lobes, 1 to
 // 25, whose parameters ``extra`` holds on the device), bf16 (the f16
-// bake's payload, Dp = D; else int8, Dp = D + 1) and opt (the option
+// bake's payload, Dp = D; else int8, Dp = D + 1) and opt (1: the option
 // variant, which every format but SH needs, and SH with depth, rot (9
-// floats on the host), bbox (params 16-19) or a basis window [basis_lo,
-// basis_hi] that drops planes). Returns cudaGetLastError() after the
-// launch.
+// floats on the host), bbox (params 16-19), a basis window [basis_lo,
+// basis_hi] that drops planes; 3: SH's bf16-shading variant, which takes
+// the same options). Returns cudaGetLastError() after the launch.
 extern "C" int vt_march_display(const void* payload, const void* params,
                                 const void* qscale, const void* zb,
                                 const void* wins_masks, int n_win, void* acc,

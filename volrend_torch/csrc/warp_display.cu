@@ -64,7 +64,25 @@
 // 8-byte (2-wide) store, so a warp writes 512 contiguous bytes of a screen
 // row. The kernel writes nothing but the frames: no window table, no
 // per-subpixel geometry, no index-put.
+//
+// Mesh-background mode (vt_warp_display_mesh): replaces the reference
+// combine kernel's has_mesh mode (display_warp.py:228, its mesh planes at
+// :282-293, fed by _combine_emit(mesh_planes=) and warp_to_screen_sq's
+// bg_pix). Each pixel also reads its pose's (P, H, W, 4) f16 background
+// [r, g, b, hit] (display_warp.mesh_background; 8 bytes a pixel) and
+// composites over it: the colour is tent + bgc * (1 - a) where the pixel is
+// in the grid and bgc elsewhere, bgc the mesh colour where hit and the flat
+// background where not, and alpha is 1 where hit. It adds 8 bytes a pixel
+// to the bytes that bound the warp (5.1 MB a pose at 800^2 beside the
+// 2.56 MB RGBA8 frame) and nothing to the window's work. The mode is a
+// template flag of the same kernels, so every cascade level composites the
+// mesh, and the no-mesh instantiations, whose entry points keep their
+// parameters, compile as before (their registers and spills are pinned by
+// tests/test_torch_cuda.py). One pose at the production level takes about
+// W's time on the same inputs (PERF.md: 0.0119 against 0.0116 ms): at one
+// pose both are bound by the launch, not by the extra bytes.
 
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -177,6 +195,44 @@ __device__ __forceinline__ float4 composite(float a0, float a1, float a2,
             : make_float4(bg, bg, bg, 0.f);
 }
 
+// the mesh mode's composite of one pixel's tent sums: over the pixel's
+// background m (four f16 [r, g, b, hit]) where the mesh pass hit, over
+// the flat background elsewhere; alpha 1 where hit (the reference
+// combine's has_mesh planes)
+__device__ __forceinline__ float4 composite_mesh(float a0, float a1,
+                                                 float a2, float a3, bool ok,
+                                                 float bg, float qscale,
+                                                 float qshift, uint2 m) {
+  const bool hit =
+      __half2float(__ushort_as_half((unsigned short)(m.y >> 16))) > 0.5f;
+  const float m0 = __half2float(__ushort_as_half((unsigned short)m.x));
+  const float m1 = __half2float(__ushort_as_half((unsigned short)(m.x >> 16)));
+  const float m2 = __half2float(__ushort_as_half((unsigned short)m.y));
+  const float b0 = hit ? m0 : bg, b1 = hit ? m1 : bg, b2 = hit ? m2 : bg;
+  a0 = a0 * qscale + qshift;
+  a1 = a1 * qscale + qshift;
+  a2 = a2 * qscale + qshift;
+  a3 = a3 * qscale + qshift;
+  const float rem = 1.f - a3;
+  return ok ? make_float4(a0 + b0 * rem, a1 + b1 * rem, a2 + b2 * rem,
+                          hit ? 1.f : a3)
+            : make_float4(b0, b1, b2, hit ? 1.f : 0.f);
+}
+
+// one pixel's composite: over its mesh background (MESH; the pixel's is
+// mesh[i]) or the flat one
+template <bool MESH>
+__device__ __forceinline__ float4 composite_px(float a0, float a1, float a2,
+                                               float a3, bool ok, float bg,
+                                               float qscale, float qshift,
+                                               const uint2* mesh, size_t i) {
+  if constexpr (MESH)
+    return composite_mesh(a0, a1, a2, a3, ok, bg, qscale, qshift,
+                          __ldg(mesh + i));
+  else
+    return composite(a0, a1, a2, a3, ok, bg, qscale, qshift);
+}
+
 // byte k of a cell packed by rgba8 (the code + 128) back to its exact code
 // as a float: the byte under the exponent of 2^23 (a byte permute, no
 // integer conversion), less 2^23 + 128
@@ -193,13 +249,13 @@ __device__ __forceinline__ float unpack(uint32_t w) {
 // fall in distinct banks), so that each pixel reads only the 2 x 2 cells
 // its tent weights reach. The cells it skips have weight 0, so the sums
 // equal kernel C's over the whole window bit for bit.
-template <int BY, int BX, int WY, int WX, bool U8>
-__global__ void __launch_bounds__(THREADS)
-    display_kernel(const float* __restrict__ inter,
-                   const float* __restrict__ prm,
-                   const int* __restrict__ sel, void* __restrict__ out,
-                   int P, int gi, int H, int W, float bg, float qscale,
-                   float qshift) {
+// MESH: the mesh mode, ``mesh`` the (P, H, W) pixels' f16 backgrounds.
+template <int BY, int BX, int WY, int WX, bool U8, bool MESH>
+__device__ __forceinline__ void display_body(
+    const float* __restrict__ inter, const float* __restrict__ prm,
+    const int* __restrict__ sel, void* __restrict__ out, int P, int gi,
+    int H, int W, float bg, float qscale, float qshift,
+    const uint2* __restrict__ mesh) {
   static_assert(WY >= 2 && WX >= 2, "the 2 x 2 taps need a 2 x 2 window");
   __shared__ uint32_t cells[WY * WX][THREADS];
   const int Hh = H / BY, Wh = W / BX;
@@ -284,7 +340,9 @@ __global__ void __launch_bounds__(THREADS)
       VT_TAP(wy1 * wx0, e10)
       VT_TAP(wy1 * wx1, e11)
 #undef VT_TAP
-      const float4 o = composite(a0, a1, a2, a3, ok, bg, qscale, qshift);
+      const float4 o = composite_px<MESH>(
+          a0, a1, a2, a3, ok, bg, qscale, qshift, mesh,
+          ((size_t)p * H + hh * BY + r) * W + (size_t)wh * BX + q);
       if constexpr (U8)
         row8[q] = rgba8(o.x, o.y, o.z, o.w);
       else
@@ -309,18 +367,39 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+template <int BY, int BX, int WY, int WX, bool U8>
+__global__ void __launch_bounds__(THREADS)
+    display_kernel(const float* __restrict__ inter,
+                   const float* __restrict__ prm,
+                   const int* __restrict__ sel, void* __restrict__ out,
+                   int P, int gi, int H, int W, float bg, float qscale,
+                   float qshift) {
+  display_body<BY, BX, WY, WX, U8, false>(inter, prm, sel, out, P, gi, H, W,
+                                          bg, qscale, qshift, nullptr);
+}
+
+template <int BY, int BX, int WY, int WX, bool U8>
+__global__ void __launch_bounds__(THREADS)
+    display_mesh(const float* __restrict__ inter,
+                 const float* __restrict__ prm, const int* __restrict__ sel,
+                 void* __restrict__ out, int P, int gi, int H, int W,
+                 float bg, float qscale, float qshift,
+                 const uint2* __restrict__ mesh) {
+  display_body<BY, BX, WY, WX, U8, true>(inter, prm, sel, out, P, gi, H, W,
+                                         bg, qscale, qshift, mesh);
+}
+
 // any other level: block sides at run time, windows up to 8 x 8. The
 // loops stay rolled and nothing is held in arrays (no local memory): each
 // pixel reads the (at most 2 x 2) window cells its tent weights reach
 // straight from the planar image. The cells it skips have weight 0, so the
 // sums equal kernel C's over the whole window bit for bit.
-template <bool U8>
-__global__ void __launch_bounds__(THREADS)
-    display_generic(const float* __restrict__ inter,
-                    const float* __restrict__ prm,
-                    const int* __restrict__ sel, void* __restrict__ out,
-                    int P, int gi, int H, int W, int by, int bx, int wy,
-                    int wx, float bg, float qscale, float qshift) {
+template <bool U8, bool MESH>
+__device__ __forceinline__ void generic_body(
+    const float* __restrict__ inter, const float* __restrict__ prm,
+    const int* __restrict__ sel, void* __restrict__ out, int P, int gi,
+    int H, int W, int by, int bx, int wy, int wx, float bg, float qscale,
+    float qshift, const uint2* __restrict__ mesh) {
   const int Hh = H / by, Wh = W / bx;
   const int blk = blockIdx.x * THREADS + threadIdx.x;
   const int p = sel[blockIdx.y];
@@ -359,13 +438,36 @@ __global__ void __launch_bounds__(THREADS)
           a3 += wyx * code(__ldg(c + 3 * npx));
         }
       }
-      const float4 o = composite(a0, a1, a2, a3, ok, bg, qscale, qshift);
+      const float4 o = composite_px<MESH>(a0, a1, a2, a3, ok, bg, qscale,
+                                          qshift, mesh, row + q);
       if constexpr (U8)
         ((uint32_t*)out)[row + q] = rgba8(o.x, o.y, o.z, o.w);
       else
         ((float4*)out)[row + q] = o;
     }
   }
+}
+
+template <bool U8>
+__global__ void __launch_bounds__(THREADS)
+    display_generic(const float* __restrict__ inter,
+                    const float* __restrict__ prm,
+                    const int* __restrict__ sel, void* __restrict__ out,
+                    int P, int gi, int H, int W, int by, int bx, int wy,
+                    int wx, float bg, float qscale, float qshift) {
+  generic_body<U8, false>(inter, prm, sel, out, P, gi, H, W, by, bx, wy, wx,
+                          bg, qscale, qshift, nullptr);
+}
+
+template <bool U8>
+__global__ void __launch_bounds__(THREADS)
+    generic_mesh(const float* __restrict__ inter,
+                 const float* __restrict__ prm, const int* __restrict__ sel,
+                 void* __restrict__ out, int P, int gi, int H, int W, int by,
+                 int bx, int wy, int wx, float bg, float qscale,
+                 float qshift, const uint2* __restrict__ mesh) {
+  generic_body<U8, true>(inter, prm, sel, out, P, gi, H, W, by, bx, wy, wx,
+                         bg, qscale, qshift, mesh);
 }
 
 // the cascade levels of one fit-mode launch
@@ -499,6 +601,23 @@ void dispatch(dim3 grid, cudaStream_t st, const float* inter,
         qshift);
 }
 
+template <bool U8>
+void dispatch_mesh(dim3 grid, cudaStream_t st, const float* inter,
+                   const float* prm, const int* sel, void* out, int P,
+                   int gi, int H, int W, int By, int Bx, int Wy, int Wx,
+                   float bg, float qscale, float qshift, const uint2* mesh) {
+  if (By == 4 && Bx == 4 && Wy == 5 && Wx == 5)
+    display_mesh<4, 4, 5, 5, U8><<<grid, THREADS, 0, st>>>(
+        inter, prm, sel, out, P, gi, H, W, bg, qscale, qshift, mesh);
+  else if (By == 2 && Bx == 2 && Wy == 4 && Wx == 4)
+    display_mesh<2, 2, 4, 4, U8><<<grid, THREADS, 0, st>>>(
+        inter, prm, sel, out, P, gi, H, W, bg, qscale, qshift, mesh);
+  else
+    generic_mesh<U8><<<grid, THREADS, 0, st>>>(inter, prm, sel, out, P, gi,
+                                               H, W, By, Bx, Wy, Wx, bg,
+                                               qscale, qshift, mesh);
+}
+
 int lcm(int a, int b) {
   int x = a, y = b;
   while (y) {
@@ -544,6 +663,31 @@ extern "C" int vt_warp_display(const void* inter, const void* prm,
   return (int)cudaGetLastError();
 }
 
+// vt_warp_display's mesh mode: mesh is the (P, H, W, 4) f16 background
+// [r, g, b, hit], 8-byte aligned, read at the listed poses' pixels.
+extern "C" int vt_warp_display_mesh(const void* inter, const void* prm,
+                                    const void* sel, void* out, int n_sel,
+                                    int out_u8, int P, int gi, int H, int W,
+                                    int By, int Bx, int Wy, int Wx, float bg,
+                                    float qscale, float qshift,
+                                    const void* mesh, void* stream) {
+  if (n_sel < 1 || n_sel > 65535 || P < 1 || !mesh ||
+      (uintptr_t)mesh % 8 || bad_level(gi, H, W, By, Bx, Wy, Wx))
+    return (int)cudaErrorInvalidValue;
+  const int nblk = (H / By) * (W / Bx);
+  const dim3 grid((nblk + THREADS - 1) / THREADS, n_sel);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (out_u8)
+    dispatch_mesh<true>(grid, st, (const float*)inter, (const float*)prm,
+                        (const int*)sel, out, P, gi, H, W, By, Bx, Wy, Wx,
+                        bg, qscale, qshift, (const uint2*)mesh);
+  else
+    dispatch_mesh<false>(grid, st, (const float*)inter, (const float*)prm,
+                         (const int*)sel, out, P, gi, H, W, By, Bx, Wy, Wx,
+                         bg, qscale, qshift, (const uint2*)mesh);
+  return (int)cudaGetLastError();
+}
+
 // prm: (P, 16) f32; counts: (L, P) int32, zeroed by the caller, each
 // (level, pose) count of blocks that misfit the level added to it; dims:
 // host int[4 * L], each level's By, Bx, Wy, Wx. One launch for all levels.
@@ -578,6 +722,42 @@ extern "C" int vt_warp_fit(const void* prm, void* counts, int P, int L,
                  st>>>((const float*)prm, (int*)counts, P, gi, H, W, lv);
   }
   return (int)cudaGetLastError();
+}
+
+// What the card makes of kernel W's instantiation for a level (By, Bx,
+// Wy, Wx; the generic kernel for any level but the two production ones),
+// RGBA8 or f32 frames (out_u8), with or without the mesh mode: out[0]
+// resident blocks per SM, out[1] registers a thread, out[2] local (spill)
+// bytes a thread, out[3] static shared bytes.
+extern "C" int vt_warp_display_info(int By, int Bx, int Wy, int Wx,
+                                    int out_u8, int mesh, int* out) {
+  const bool p4 = By == 4 && Bx == 4 && Wy == 5 && Wx == 5;
+  const bool p2 = By == 2 && Bx == 2 && Wy == 4 && Wx == 4;
+  const void* fn;
+  if (mesh)
+    fn = out_u8 ? (p4   ? (const void*)display_mesh<4, 4, 5, 5, true>
+                   : p2 ? (const void*)display_mesh<2, 2, 4, 4, true>
+                        : (const void*)generic_mesh<true>)
+                : (p4   ? (const void*)display_mesh<4, 4, 5, 5, false>
+                   : p2 ? (const void*)display_mesh<2, 2, 4, 4, false>
+                        : (const void*)generic_mesh<false>);
+  else
+    fn = out_u8 ? (p4   ? (const void*)display_kernel<4, 4, 5, 5, true>
+                   : p2 ? (const void*)display_kernel<2, 2, 4, 4, true>
+                        : (const void*)display_generic<true>)
+                : (p4   ? (const void*)display_kernel<4, 4, 5, 5, false>
+                   : p2 ? (const void*)display_kernel<2, 2, 4, 4, false>
+                        : (const void*)display_generic<false>);
+  cudaError_t e =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], fn, THREADS, 0);
+  if (e != cudaSuccess) return (int)e;
+  cudaFuncAttributes at;
+  e = cudaFuncGetAttributes(&at, fn);
+  if (e != cudaSuccess) return (int)e;
+  out[1] = at.numRegs;
+  out[2] = (int)at.localSizeBytes;
+  out[3] = (int)at.sharedSizeBytes;
+  return 0;
 }
 
 extern "C" const char* vt_error_string(int code) {

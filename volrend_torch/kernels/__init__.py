@@ -96,6 +96,11 @@ SOURCES = {
         # Wx, bg, qscale, qshift, stream
         "vt_warp_display": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _I, _I, _I, _F, _F, _F, _P],
+        # the same, then mesh (P, H, W, 4 f16), stream
+        "vt_warp_display_mesh": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _I, _I, _I, _I, _F, _F, _F, _P, _P],
+        # By, Bx, Wy, Wx, out_u8, mesh, out (int[4])
+        "vt_warp_display_info": [_I, _I, _I, _I, _I, _I, _P],
         # prm, counts, P, L, dims, gi, H, W, stream
         "vt_warp_fit": [_P, _P, _I, _I, _P, _I, _I, _I, _P],
     }),

@@ -35,6 +35,14 @@ homography, while an NDC pose's pixel->slope map runs through
 (``_sub_geometry(ndc=...)``) and warped by kernel B's int8 table and kernel
 C's generic combine (``_table_warp``), as the reference does.
 
+Mesh overlays: kernel W's mesh-background mode composites each pixel over
+a per-pose (P, H, W, 4) f16 background [r, g, b, hit] (``mesh_background``,
+from the host rasterizer's buffers): the mesh colour replaces the flat
+background where hit, and alpha is 1 there (the reference's combine
+``has_mesh`` mode). Kernel C needs no such mode: the display paths that
+reach it (NDC trees) refuse meshes, as the reference does, and the precise
+training warp takes no background.
+
 The training path's **precise** superquad warp (``_PreciseWarp``, behind
 the ``_PRECISE_SQ`` switch, off by default as in the reference) runs
 kernels B and C on an f32 table ((2, 2) blocks, 4 x 4 window; C at that
@@ -48,8 +56,7 @@ Every function takes a batch of poses: per-pose tensors carry a leading
 pose dimension. On CUDA tensors the wrappers launch the kernels; on CPU
 tensors they run the plain PyTorch versions (``warp_display_ref``,
 ``level_fit_counts_ref``, ``build_table_ref``, ``combine_emit_ref``,
-``combine_adjoint_ref``, ``build_adjoint_ref``). Mesh backgrounds come
-with a later slice.
+``combine_adjoint_ref``, ``build_adjoint_ref``).
 """
 
 from __future__ import annotations
@@ -502,8 +509,12 @@ combine_emit.launches_f32 = 0
 
 def combine_emit_ref(table, Y0, X0, ry, rx, okm, gi: int, height: int,
                      width: int, B, win, bg: float, out_dtype=None,
-                     qscale: float = _QSCALE, qshift: float = _QSHIFT):
-    """Plain PyTorch version of kernel C (f32 arithmetic)."""
+                     qscale: float = _QSCALE, qshift: float = _QSHIFT,
+                     mesh=None):
+    """Plain PyTorch version of kernel C (f32 arithmetic). ``mesh``: an
+    optional (P, H, W, 4) [r, g, b, hit] background (mesh_background): the
+    reference combine's has_mesh mode, what kernel W's mesh mode
+    computes."""
     By, Bx = _block2d(B)
     Wy, Wx = _win2d(win)
     P, _, C = table.shape
@@ -523,9 +534,18 @@ def combine_emit_ref(table, Y0, X0, ry, rx, okm, gi: int, height: int,
     rgba = rgba * qscale + qshift
     alpha = rgba[..., 3:4]
     ok = (okm > 0.5)[..., None]
-    rgb = torch.where(ok, rgba[..., :3] + bg * (1.0 - alpha),
-                      torch.full_like(rgba[..., :3], bg))
-    a = torch.where(ok, alpha, torch.zeros_like(alpha))
+    if mesh is None:
+        rgb = torch.where(ok, rgba[..., :3] + bg * (1.0 - alpha),
+                          torch.full_like(rgba[..., :3], bg))
+        a = torch.where(ok, alpha, torch.zeros_like(alpha))
+    else:
+        # the background in the subpixel layout (P, S, Hh, Wh, 4)
+        m = mesh.to(_F32).reshape(P, Hh, By, Wh, Bx, 4).permute(
+            0, 2, 4, 1, 3, 5).reshape(P, By * Bx, Hh, Wh, 4)
+        hit = m[..., 3:4] > 0.5
+        bgc = torch.where(hit, m[..., :3], bg)
+        rgb = torch.where(ok, rgba[..., :3] + bgc * (1.0 - alpha), bgc)
+        a = torch.where(hit, 1.0, torch.where(ok, alpha, 0.0))
     out = torch.cat([rgb, a], -1)                           # (P, S, Hh, Wh, 4)
     out = out.reshape(P, By, Bx, Hh, Wh, 4).permute(0, 3, 1, 4, 2, 5)
     out = out.reshape(P, height, width, 4)
@@ -719,11 +739,27 @@ def plan_fits(R, fx, fy, width: int, height: int, gi: int,
     return FitPlan(None, levels, counts, height, width)
 
 
-def _check_display(inter, prm, sel, out, B, win, gi: int):
+def mesh_background(mesh_dist, mesh_rgb, P: int, height: int, width: int,
+                    device) -> torch.Tensor:
+    """The (P, H, W, 4) float16 mesh background [r, g, b, hit] that kernel
+    W's mesh mode and the reference warp composite over, from a mesh
+    pass's buffers (ops/rasterize.py): ``mesh_dist`` (H, W) or (P, H, W),
+    inf where no mesh (hit = finite), ``mesh_rgb`` (H, W, 3) or
+    (P, H, W, 3). f16: 8 bytes a pixel, what the reference uploads, and
+    display-range colours lose nothing visible."""
+    md = to_device(mesh_dist, _F32, device).reshape(-1, height, width)
+    mr = to_device(mesh_rgb, _F32, device).reshape(-1, height, width, 3)
+    bg = torch.cat([mr, torch.isfinite(md).to(_F32)[..., None]], -1)
+    return bg.to(torch.float16).expand(P, -1, -1, -1).contiguous()
+
+
+def _check_display(inter, prm, sel, out, B, win, gi: int, mesh=None):
     """Kernel W's inputs on a CUDA device: contiguous (P, 4, gi, gi) f32
     planes, (P, 16) f32 rows, (n,) int32 pose list, (P, H, W, 4) uint8 or
-    f32 frames on a 16-byte boundary, and a level the kernel takes: blocks
-    of any side that tile the screen, windows up to 8 x 8 (as kernel C)."""
+    f32 frames on a 16-byte boundary, an optional contiguous (P, H, W, 4)
+    f16 mesh background on an 8-byte boundary, and a level the kernel
+    takes: blocks of any side that tile the screen, windows up to 8 x 8
+    (as kernel C)."""
     dev = inter.device
     P = inter.shape[0]
     _check("warp_display: inter", inter, _F32, (P, 4, gi, gi), dev)
@@ -734,6 +770,12 @@ def _check_display(inter, prm, sel, out, B, win, gi: int):
                          f"{out.dtype}")
     _check("warp_display: out", out, out.dtype, (P,) + tuple(out.shape[1:3])
            + (4,), dev)
+    if mesh is not None:
+        _check("warp_display: mesh", mesh, torch.float16, tuple(out.shape),
+               dev)
+        if mesh.data_ptr() % 8:
+            raise ValueError("warp_display: the mesh background must lie "
+                             "on an 8-byte boundary")
     By, Bx = _block2d(B)
     Wy, Wx = _win2d(win)
     H, W = out.shape[1], out.shape[2]
@@ -746,42 +788,55 @@ def _check_display(inter, prm, sel, out, B, win, gi: int):
 
 
 def warp_display(inter: torch.Tensor, prm: torch.Tensor, sel: torch.Tensor,
-                 out: torch.Tensor, B, win, gi: int, bg: float
-                 ) -> torch.Tensor:
+                 out: torch.Tensor, B, win, gi: int, bg: float,
+                 mesh: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Warp the poses ``sel`` (int32 indices into the batch) of the planar
     intermediate images ``inter`` (P, 4, gi, gi) f32 to their screens at
     one cascade level ((By, Bx) blocks, (Wy, Wx) window), writing them in
     place into ``out`` (P, H, W, 4) uint8 or f32: what _level_geometry,
     kernel B's int8 table and kernel C compute together. ``prm``: the
-    (P, 16) rows of display_params. Launches kernel W on CUDA tensors
-    (counted in ``launches`` and ``poses``); runs ``warp_display_ref`` on
-    CPU tensors. Returns ``out``."""
+    (P, 16) rows of display_params. ``mesh``: an optional (P, H, W, 4) f16
+    mesh background (mesh_background), which selects the kernel's mesh
+    mode. Launches kernel W on CUDA tensors (counted in ``launches`` and
+    ``poses``, the mesh mode in ``mesh_launches`` and ``mesh_poses``);
+    runs ``warp_display_ref`` on CPU tensors. Returns ``out``."""
     dev = inter.device
     if dev.type == "cpu":
-        return warp_display_ref(inter, prm, sel, out, B, win, gi, bg)
+        return warp_display_ref(inter, prm, sel, out, B, win, gi, bg, mesh)
     if dev.type != "cuda":
         raise RuntimeError(f"warp_display: no kernel for device {dev}")
-    _check_display(inter, prm, sel, out, B, win, gi)
+    _check_display(inter, prm, sel, out, B, win, gi, mesh)
     (By, Bx), (Wy, Wx) = _block2d(B), _win2d(win)
-    kernels.check(kernels.lib("warp_display").vt_warp_display(
-        inter.data_ptr(), prm.data_ptr(), sel.data_ptr(), out.data_ptr(),
-        sel.shape[0], int(out.dtype == torch.uint8), inter.shape[0], gi,
-        out.shape[1], out.shape[2], By, Bx, Wy, Wx, float(bg),
-        float(_QSCALE), float(_QSHIFT),
-        torch.cuda.current_stream(dev).cuda_stream), "warp_display")
-    warp_display.launches += 1
-    warp_display.poses += sel.shape[0]
+    lib = kernels.lib("warp_display")
+    args = (inter.data_ptr(), prm.data_ptr(), sel.data_ptr(), out.data_ptr(),
+            sel.shape[0], int(out.dtype == torch.uint8), inter.shape[0], gi,
+            out.shape[1], out.shape[2], By, Bx, Wy, Wx, float(bg),
+            float(_QSCALE), float(_QSHIFT))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if mesh is None:
+        kernels.check(lib.vt_warp_display(*args, stream), "warp_display")
+        warp_display.launches += 1
+        warp_display.poses += sel.shape[0]
+    else:
+        kernels.check(lib.vt_warp_display_mesh(*args, mesh.data_ptr(),
+                                               stream), "warp_display")
+        warp_display.mesh_launches += 1
+        warp_display.mesh_poses += sel.shape[0]
     return out
 
 
 warp_display.launches = 0
 warp_display.poses = 0
+warp_display.mesh_launches = 0
+warp_display.mesh_poses = 0
 
 
-def warp_display_ref(inter, prm, sel, out, B, win, gi: int, bg: float):
+def warp_display_ref(inter, prm, sel, out, B, win, gi: int, bg: float,
+                     mesh=None):
     """Plain PyTorch version of kernel W: the positions from the parameter
-    rows, the window corners, kernel B's and C's plain versions, and the
-    frames of ``sel`` written into ``out``."""
+    rows, the window corners, kernel B's and C's plain versions (with the
+    mesh background of the poses ``sel``, when given), and the frames of
+    ``sel`` written into ``out``."""
     sel = sel.long()
     H, W = out.shape[1], out.shape[2]
     gy, gx = _display_positions(prm.index_select(0, sel), B, H, W)
@@ -790,7 +845,7 @@ def warp_display_ref(inter, prm, sel, out, B, win, gi: int, bg: float):
         build_table_ref(inter.index_select(0, sel), win), Y0, X0,
         gys - Y0.to(_F32)[:, None], gxs - X0.to(_F32)[:, None], okm, gi, H,
         W, B, win, bg, out_dtype=out.dtype if out.dtype == torch.uint8
-        else None)
+        else None, mesh=None if mesh is None else mesh.index_select(0, sel))
     return out
 
 
@@ -834,7 +889,7 @@ def warp_to_screen_sq(inter, opt: RenderOptions, R, fx, fy,
                       perm: Tuple[int, int, int],
                       u0, du, v0, dv, scale, block=None, out_dtype=None,
                       planar: bool = False, plan: Optional[FitPlan] = None,
-                      ndc=None, origin=None):
+                      ndc=None, origin=None, bg_pix=None):
     """Warp a batch of intermediate images ((P, gi, gi, 4), or planar
     (P, 4, gi, gi) with ``planar=True``) to (P, H, W, 4) screens with the
     background composited.
@@ -847,8 +902,13 @@ def warp_to_screen_sq(inter, opt: RenderOptions, R, fx, fy,
     queues them here and waits for them. Each level then warps its poses
     with one launch of kernel W, in place into the frames. An NDC tree
     (``ndc``, the poses' (P, 3) ``origin``) warps each level's poses with
-    kernels B and C instead (``_table_warp``). (The reference's
-    mesh-background variant comes with a later slice.)"""
+    kernels B and C instead (``_table_warp``). ``bg_pix``: a world tree's
+    (P, H, W, 4) f16 mesh background (mesh_background), composited by
+    kernel W's mesh mode and, for the poses no level fits, the reference
+    warp; NDC trees take none (ValueError, as in the reference)."""
+    if bg_pix is not None and ndc is not None:
+        raise ValueError("mesh compositing on the slab path supports world "
+                         "trees only")
     from volrend_torch.ops import slab_render
     dev = inter.device
     P = inter.shape[0]
@@ -881,14 +941,15 @@ def warp_to_screen_sq(inter, opt: RenderOptions, R, fx, fy,
             continue
         sel = (torch.arange(P, dtype=torch.int32, device=dev)
                if idx.size == P else to_device(idx, torch.int32, dev))
-        warp_display(itp, plan.prm, sel, out, B, W, gi, bg)
+        warp_display(itp, plan.prm, sel, out, B, W, gi, bg, bg_pix)
     idx = np.nonzero(choice < 0)[0]
     if idx.size:
         sel = to_device(idx, torch.int64, dev)
         sub = _select_geom(geom_args, sel)
         ref = slab_render._warp_to_screen_ref(
             itp.index_select(0, sel).movedim(1, -1), opt, *sub[:12],
-            ndc=ndc, origin=None if ndc is None else sub[13])
+            ndc=ndc, origin=None if ndc is None else sub[13],
+            bg_pix=None if bg_pix is None else bg_pix.index_select(0, sel))
         out[sel] = to_display_dtype(ref, out_dtype)
     return out
 

@@ -127,7 +127,10 @@ def query_batched(tree: TreeArrays, pos):
 
 
 def _fetch_rows(data, leaf_idx):
-    """Leaf payload gather."""
+    """Leaf payload gather: a dense (K, D) tensor, or a quantized tree's
+    QuantLeaves (models/quantized.py), dequantized as it is fetched."""
+    if hasattr(data, "fetch_rows"):
+        return data.fetch_rows(leaf_idx)
     return data[leaf_idx.long()]
 
 
@@ -307,28 +310,52 @@ def _finalize(light, acc, stopped, hit, opt: RenderOptions):
 # Public API
 # ---------------------------------------------------------------------------
 
-def render_rays(tree: TreeArrays, origins, dirs, opt: RenderOptions):
+def render_rays(tree: TreeArrays, origins, dirs, opt: RenderOptions,
+                tmax_bg=None, bg_rgb=None):
     """Render world-space rays; returns (R, 4) RGBA with background
     composited (render_kernel offscreen semantics, volrend.cu:135-163).
 
     origins/dirs: (R, 3) tensors (or arrays) — moved to the tree's device.
-    Mesh compositing (a per-ray distance cap and background) comes with
-    the mesh overlays of slice B."""
+    tmax_bg: optional (R,) world-space distance cap (a mesh pass's
+    euclidean distance, inf where no mesh: ops/rasterize.py). bg_rgb:
+    optional (R, 3) per-ray background (the mesh colour); rays whose cap is
+    finite composite their remaining transmittance over it instead of the
+    flat background and report alpha 1 (volrend.cu:143-163, the mesh
+    branch)."""
     dev = tree.data.device
     origins = torch.as_tensor(origins, device=dev)
     dirs = torch.as_tensor(dirs, device=dev)
     cen, d, vdir, invdir, delta_scale = prepare_rays(tree, origins, dirs, opt)
     basis_vals = _precalc_basis(tree, vdir, opt)
     tmin, tmax = _dda_world(cen, invdir, opt.render_bbox)
+    if tmax_bg is not None:
+        tmax_bg = torch.as_tensor(tmax_bg, dtype=_F32, device=dev)
+        tmax = torch.minimum(tmax, tmax_bg / delta_scale)
     rgb, alpha = _march(tree.data, tree.child, tree.lut, tree_meta(tree),
                         opt, cen, d, invdir, delta_scale, basis_vals,
                         tmin, tmax)
-    rgb = rgb + float(opt.background_brightness) * (1.0 - alpha)[:, None]
+    remaining = (1.0 - alpha)[:, None]
+    bg = float(opt.background_brightness)
+    if bg_rgb is not None and tmax_bg is not None:
+        bg_rgb = torch.as_tensor(bg_rgb, dtype=_F32, device=dev)
+        hit = torch.isfinite(tmax_bg)[:, None]
+        rgb = rgb + remaining * torch.where(hit, bg_rgb, bg)
+        alpha = torch.where(hit[:, 0], 1.0, alpha)
+    else:
+        rgb = rgb + bg * remaining
     return torch.cat([rgb, alpha[:, None]], -1)
 
 
-def render_image(tree: TreeArrays, cam, opt: RenderOptions) -> torch.Tensor:
-    """Render a full frame; returns (H, W, 4) float32 on the tree's device."""
+def render_image(tree: TreeArrays, cam, opt: RenderOptions,
+                 tmax_bg=None, bg_rgb=None) -> torch.Tensor:
+    """Render a full frame; returns (H, W, 4) float32 on the tree's device.
+    tmax_bg (H, W) / bg_rgb (H, W, 3): a mesh pass's distance and colour
+    buffers (see render_rays)."""
     origins, dirs = cam.pixel_rays(xp=np)
-    out = render_rays(tree, np.ascontiguousarray(origins), dirs, opt)
+    if tmax_bg is not None:
+        tmax_bg = np.asarray(tmax_bg, np.float32).reshape(-1)
+    if bg_rgb is not None:
+        bg_rgb = np.asarray(bg_rgb, np.float32).reshape(-1, 3)
+    out = render_rays(tree, np.ascontiguousarray(origins), dirs, opt,
+                      tmax_bg=tmax_bg, bg_rgb=bg_rgb)
     return out.reshape(cam.height, cam.width, 4)

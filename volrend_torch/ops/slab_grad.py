@@ -587,6 +587,7 @@ class _MarchKernel(torch.autograd.Function):
             pay, params[None], qs, zb[None], cfg.G, cfg.gi, cfg.D, cfg.bd,
             cfg.perm, slab_ids=cfg.ids, sig2=False, depth=False,
             shade_bf16=False, dir_win=False, occupancy=occ, extra=extra,
+            train=True,
             **_kernel_statics(cfg))[0]
         ctx.save_for_backward(pay, params, zb, acc4)
         ctx.occ = occ

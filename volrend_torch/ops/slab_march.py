@@ -20,15 +20,18 @@ Two option sets are taken:
 - the display path's: an int8 payload (colour codes, then the 14-bit
   sigma's hi and lo planes, Dp = D + 1; ``sig2=True``) or the f16 bake's
   bf16 payload (sigma in the last plane, Dp = D), with the view direction
-  taken once per K-slab window at the window centre (``dir_win=True``);
-  every format (SH, SG and ASG with their lobes in ``extra``, RGBA) and
-  option (depth mode, ``rot``, a non-full bbox, any basis window);
+  taken once per K-slab window at the window centre (``dir_win=True``, the
+  default of the ``_DIR_WIN`` knob) or per slab (``dir_win=False``), and
+  SH shading in f32 or, with ``shade_bf16`` (the ``_BF16_SHADE`` knob), in
+  bf16; every format (SH, SG and ASG with their lobes in ``extra``, RGBA)
+  and option (depth mode, ``rot``, a non-full bbox, any basis window);
 - the training path's: the bake's own f32 or bf16 tensor, seen as the
   (Gz, D, Gy, Gx) view of the pose group's permutation (channel stride 1:
   each voxel's D values are one record; ``_record_strides``), with
   sigma last and the view direction per slab (``dir_win=False``), all slabs
-  or a culled list; every format and option of the display path but depth
-  mode, which the reference's training path never marches. Both versions
+  or a culled list (``train=True``); every format and option of the display
+  path but depth mode, which the reference's training path never marches,
+  and bf16 shading, which it never takes. Both versions
   round f32 to bf16 as they read it, so both dtypes march the values of
   the bake's bf16 copy. ``march_slabs_bwd`` is its payload cotangent,
   written through the same strides.
@@ -77,6 +80,15 @@ _TRAIN_DTYPES = (torch.float32, torch.bfloat16)
 #: display-path slabs per window (the view direction is shared by the
 #: window's slabs; K-aligned occupancy masks)
 _K_STEP = 4
+
+#: the display march's knobs, read at call time by
+#: slab_render._march_finalize, as the reference reads pallas_slab's
+#: (volrend_tpu/ops/pallas_slab.py:85-107): bf16 SH shading (the basis
+#: planes and the payload multiply-adds in bf16 pairs; off), and the view
+#: direction shared by a K-slab window (at its centre; on) or taken per
+#: slab (off)
+_BF16_SHADE = False
+_DIR_WIN = True
 
 # params vector layout (f32): see _pack_params (+1 slot appended by
 # march_slabs: [30] = z_base, the global z of the payload's first slab)
@@ -195,32 +207,33 @@ _TRAIN_DEPTH = ("depth mode on the training payload: the reference's "
 
 def _check_options(gplanar, G, D, bd, sig2, fmt, extra, depth, rot,
                    basis_lo, basis_hi, bbox_full, shade_bf16, dir_win,
-                   z_base, acc_init) -> bool:
-    """The display path's option set (an int8 payload or the f16 bake's
-    bf16 one, window directions: every format and option) or the training
-    path's (f32 or bf16, per-slab directions: every format and option but
-    depth, which raises ValueError); anything else is a later item.
-    Returns True for a display payload."""
+                   z_base, acc_init, train) -> bool:
+    """The display mode's option set (an int8 payload or the f16 bake's
+    bf16 one, window or per-slab directions, f32 or bf16 SH shading: every
+    format and option) or the training mode's (``train``: f32 or bf16,
+    per-slab directions, f32 shading: every format and option but depth,
+    which raises ValueError); an f32 payload is the training mode's.
+    Anything else is a later item. Returns True for the display mode."""
     dt = gplanar.dtype
     if gplanar.dim() != 4 or dt not in (torch.int8,) + _TRAIN_DTYPES:
         raise ValueError(f"payload must be (Gz, Dp, Gy, Gx) int8, f32 or "
                          f"bf16, got {tuple(gplanar.shape)} {dt}")
-    display = dt == torch.int8 or (dt == torch.bfloat16 and dir_win)
-    later = []
-    if shade_bf16:
-        later.append("bf16 shading comes with item 10c")
-    if dt == torch.int8 and not dir_win:
-        later.append("per-slab shading directions (dir_win=False) on the "
-                     "int8 payload come with item 10c")
+    if train and dt == torch.int8:
+        raise ValueError("the training mode takes the bake's f32 or bf16 "
+                         "tensor, not the int8 display payload")
+    display = not train and dt != torch.float32
     if z_base is not None or acc_init is not None:
-        later.append("z-sharded segments (z_base, acc_init) come with "
-                     "item 19, slice D")
-    _later_items(later)
+        _later_items(["z-sharded segments (z_base, acc_init) come with "
+                      "item 19, slice D"])
     if depth and not display:
         raise ValueError(_TRAIN_DEPTH)
-    if dt == torch.float32 and dir_win:
-        raise ValueError("window shading directions take the display "
-                         "path's int8 or bf16 payload, not f32")
+    if dir_win and not display:
+        raise ValueError("window shading directions are the display mode's "
+                         "(an int8 or bf16 payload), not the training "
+                         "mode's")
+    if shade_bf16 and not display:
+        raise ValueError("bf16 shading is the display mode's: the "
+                         "reference's training path shades in f32")
     _check_format(fmt, bd, D, extra)
     if sig2 != (dt == torch.int8):
         raise ValueError("an int8 payload carries the 14-bit sigma split "
@@ -240,7 +253,10 @@ class MarchMode(NamedTuple):
     lobes ``extra`` (SG/ASG), ``depth`` (march depth instead of colour; the
     display path only), ``rot`` (9 floats, the view-direction rotation, or
     None), ``bbox_full`` (else the in-plane voxel-extent mask of params
-    16-19) and the basis window [basis_lo, basis_hi]."""
+    16-19), the basis window [basis_lo, basis_hi], and the display mode's
+    knobs: ``dir_slab`` (the view direction per slab, not per window: the
+    kernel takes it as one-slab windows, K = 1, in any variant) and
+    ``bf16_shade`` (SH shading in bf16, a variant of its own)."""
     fmt: int = int(BasisType.SH)
     extra: Optional[torch.Tensor] = None
     depth: bool = False
@@ -248,24 +264,33 @@ class MarchMode(NamedTuple):
     bbox_full: bool = True
     basis_lo: int = 0
     basis_hi: int = 24
+    dir_slab: bool = False
+    bf16_shade: bool = False
 
     def options(self, bd: int) -> bool:
         """Does this mode take the kernels' option variant (every format
         but SH, and SH with any option that changes the march)?"""
         return (self.fmt != int(BasisType.SH) or self.depth
                 or self.rot is not None or not self.bbox_full
-                or self.basis_lo > 0 or self.basis_hi < bd - 1)
+                or self.basis_lo > 0 or self.basis_hi < bd - 1
+                or self.bf16_shade)
 
 
 def display_variant(mode: MarchMode, bd: int, bf16: bool) -> str:
     """The name of the display kernel variant a launch takes (the key of
     ``march_slabs.variants``): format, payload, ``opt`` for an SH option
-    set, ``depth`` for depth mode; ``SH-int8`` is the default."""
+    set or ``bf16shade`` for the bf16-shading one (which takes the options
+    too), ``depth`` for depth mode, ``dirslab`` for per-slab directions;
+    ``SH-int8`` is the default."""
     name = BasisType(mode.fmt).name + ("-bf16" if bf16 else "-int8")
-    if mode.fmt == int(BasisType.SH) and mode.options(bd):
+    if mode.bf16_shade:
+        name += "-bf16shade"
+    elif mode.fmt == int(BasisType.SH) and mode.options(bd):
         name += "-opt"
     if mode.depth:
         name += "-depth"
+    if mode.dir_slab:
+        name += "-dirslab"
     return name
 
 
@@ -302,16 +327,18 @@ def march_slabs(gplanar, params, qscale, zbounds, G: int,
                 bbox_full: bool = False, shade_bf16: bool = False,
                 dir_win: bool = False, z_base=None, acc_init=None,
                 crop: Optional[Tuple[int, int, int, int]] = None,
-                occupancy: Optional[torch.Tensor] = None):
+                occupancy: Optional[torch.Tensor] = None,
+                train: bool = False):
     """Run the fused march for a batch of poses sharing one payload;
     returns acc (P, 4, gi, gi): [r, g, b, T].
 
     gplanar: (G, Dp, Gy, Gx) permuted payload: contiguous channel-planar
         int8 codes with Dp = D+1 (colour codes + 14-bit sigma over the last
-        two planes; sig2=True, dir_win=True: the display path), or the
-        bake's f32 or bf16 tensor seen through its permutation, Dp = D
-        (sigma last; sig2=False, dir_win=False: the training path, view
-        directions per slab; on the card its channel stride must be 1,
+        two planes; sig2=True: the display path) or the f16 bake's
+        contiguous bf16 planes (Dp = D, sig2=False: the display path), or,
+        with ``train``, the bake's f32 or bf16 tensor seen through its
+        permutation, Dp = D (sigma last; sig2=False, dir_win=False: the
+        training path; on the card its channel stride must be 1,
         ``_record_strides``).
     params: (P, 30) f32 (see _pack_params). qscale: (Dp,) f32, each basis
         function's scale shared across rgb (the int8 bake's; ones for
@@ -326,18 +353,28 @@ def march_slabs(gplanar, params, qscale, zbounds, G: int,
         (``march_occupancy``, at these poses' sigma threshold), to share one
         between calls; None builds it (on the card; the plain version
         needs none).
+    train: the training mode (per-slab directions, f32 shading, no depth),
+        which an f32 payload always takes; else the display mode, where
+        ``dir_win`` shares the view direction across a K-slab window (else
+        per slab) and ``shade_bf16`` shades SH in bf16 (other formats and
+        depth mode shade as without it, as in the reference).
     Both paths take every format (``fmt``, ``extra``) and option (``rot``,
     a non-full bbox, any basis window); ``depth`` is the display path's
-    (an int8 payload, or bf16 with ``dir_win``) only. The remaining
-    arguments mirror the reference's signature (see _check_options).
+    only. The remaining arguments mirror the reference's signature (see
+    _check_options).
     """
     display = _check_options(gplanar, G, D, bd, sig2, fmt, extra, depth,
                              rot, basis_lo, basis_hi, bbox_full, shade_bf16,
-                             dir_win, z_base, acc_init)
+                             dir_win, z_base, acc_init, train)
     mode = MarchMode(int(fmt), extra, bool(depth), rot, bool(bbox_full),
-                       int(basis_lo), int(basis_hi))
+                     int(basis_lo), int(basis_hi),
+                     dir_slab=display and not dir_win,
+                     bf16_shade=bool(display and shade_bf16 and not depth
+                                     and int(fmt) == int(BasisType.SH)))
+    # the display kernel evaluates each voxel's basis at its window
+    # centre's distance: one-slab windows give each slab its own
     m = march_inputs(gplanar, params, zbounds, G, gi, slab_ids,
-                     k_per_step, crop)
+                     1 if mode.dir_slab else k_per_step, crop)
     dev = gplanar.device
     if not m["wins"]:
         acc = torch.zeros((m["params"].shape[0], 4, gi, gi), dtype=_F32,
@@ -491,14 +528,15 @@ def _march_train_cuda(gplanar, qscale, params, zb, wins, masks, G, gi, D,
 def _variant_args(mode: MarchMode, bd: int, dev) -> tuple:
     """A launch's variant arguments as the kernels' entries take them:
     (the lobes' device tensor, kept alive for the call, or None; then fmt,
-    opt, the lobes' pointer, rot_on, rot (host float[9]), bbox, basis_lo,
-    basis_hi)."""
+    opt (1 the option variant, 3 the bf16-shading one), the lobes'
+    pointer, rot_on, rot (host float[9]), bbox, basis_lo, basis_hi)."""
     extra, extra_ptr = None, 0
     if mode.fmt in (int(BasisType.SG), int(BasisType.ASG)):
         extra = to_device(mode.extra, _F32, dev).contiguous()
         extra_ptr = extra.data_ptr()
     rot = (ctypes.c_float * 9)(*(mode.rot or _IDENTITY))
-    return (extra, mode.fmt, int(mode.options(bd)), extra_ptr,
+    opt = int(mode.options(bd)) | (2 if mode.bf16_shade else 0)
+    return (extra, mode.fmt, opt, extra_ptr,
             int(mode.rot is not None), rot, int(not mode.bbox_full),
             mode.basis_lo, mode.basis_hi)
 
@@ -677,9 +715,9 @@ def _counts_ptr(counts, dev) -> int:
 def _march_display_cuda(gplanar, qscale, params, zb, wins, masks, G, gi, D,
                         bd, K, flip, y0, x0,
                         mode: MarchMode = MarchMode()):
-    """Launch kernel M's display mode (an int8 or bf16 payload, window
-    directions, the format and options of ``mode``) over the whole pose
-    batch (one launch)."""
+    """Launch kernel M's display mode (an int8 or bf16 payload, the format,
+    options and knobs of ``mode``) over the whole pose batch (one
+    launch)."""
     _check_launch(gplanar, qscale, params, zb, G, gi)
     cfg = display_config(params.shape[0], gi, len(wins), gplanar.shape[1],
                          _sm_count(gplanar.device.index),
@@ -696,9 +734,8 @@ def _display_launch(gplanar, qscale, params, zb, wins, masks, G, gi, bd, K,
     _, Dp, Gy, Gx = gplanar.shape
     P = params.shape[0]
     bf16 = gplanar.dtype == torch.bfloat16
-    opt = mode.options(bd)
     # the SG/ASG lobes are kept alive until the launch is queued
-    extra, fmt, _, extra_ptr, rot_on, rot, bbox, blo, bhi = _variant_args(
+    extra, fmt, opt, extra_ptr, rot_on, rot, bbox, blo, bhi = _variant_args(
         mode, bd, dev)
     wm = to_device(np.asarray([wins, masks], np.int32), torch.int32, dev)
     acc = torch.empty((P, 4, gi, gi), dtype=_F32, device=dev)
@@ -707,7 +744,7 @@ def _display_launch(gplanar, qscale, params, zb, wins, masks, G, gi, bd, K,
         gplanar.data_ptr(), params.data_ptr(), qscale.data_ptr(),
         zb.data_ptr(), wm.data_ptr(), len(wins), acc.data_ptr(),
         P, G, gi, Dp, Gy, Gx, y0, x0, bd, K, int(bool(flip)), cfg["rows"],
-        cfg["stage_bytes"], cfg["chan_cells"], fmt, int(bf16), int(opt),
+        cfg["stage_bytes"], cfg["chan_cells"], fmt, int(bf16), opt,
         extra_ptr, int(mode.depth), rot_on, rot, bbox, blo, bhi,
         torch.cuda.current_stream(dev).cuda_stream), "slab_march_display")
     march_slabs.launches += 1
@@ -715,7 +752,7 @@ def _display_launch(gplanar, qscale, params, zb, wins, masks, G, gi, bd, K,
     name = display_variant(mode, bd, bf16)
     march_slabs.variants[name] = march_slabs.variants.get(name, 0) + 1
     march_slabs.display = dict(cfg, variant=name, fmt=mode.fmt,
-                               bf16=int(bf16), opt=int(opt))
+                               bf16=int(bf16), opt=opt)
     return acc
 
 
@@ -810,6 +847,21 @@ def _basis_planes(dirs, bd: int, mode: MarchMode, qs) -> torch.Tensor:
     return torch.where(win, bk * qs[:bd], 0.0)
 
 
+def _bf16_macs(codes, bkq) -> torch.Tensor:
+    """(3, Gy, Gx) f32 raw colours of kernel M's bf16 shading: (3, bd, Gy,
+    Gx) exact codes times the (Gy, Gx, bd) basis planes rounded to bf16,
+    summed over k in order with each multiply-add fused and rounded to bf16
+    (the kernel's __hfma2; here in f64, then to bf16 through f32)."""
+    q = bkq.to(torch.bfloat16).to(torch.float64).permute(2, 0, 1)
+    c = codes.to(torch.float64)
+    raw = torch.zeros(codes.shape[0:1] + codes.shape[2:],
+                      dtype=torch.float64, device=codes.device)
+    for k in range(codes.shape[1]):
+        raw = (c[:, k] * q[k] + raw).to(_F32).to(torch.bfloat16).to(
+            torch.float64)
+    return raw.to(_F32)
+
+
 def march_slabs_ref(gplanar, qscale, params, zb, wins: Sequence[int],
                     masks: Sequence[int], G: int, gi: int, D: int, bd: int,
                     K: int, flip: bool, y0: int = 0, x0: int = 0,
@@ -818,19 +870,23 @@ def march_slabs_ref(gplanar, qscale, params, zb, wins: Sequence[int],
                     depth: bool = False,
                     rot: Optional[Tuple[float, ...]] = None,
                     bbox_full: bool = True, basis_lo: int = 0,
-                    basis_hi: int = 24):
+                    basis_hi: int = 24, dir_slab: bool = False,
+                    bf16_shade: bool = False):
     """Plain PyTorch version of kernel M: the same function, with the warp
     as dense (gi, Gy) @ (Gy, Gx) @ (Gx, gi) overlap-matrix products as the
     reference builds them (in f32). Inputs as ``march_inputs`` prepares
     them (params (P, 31), zb (P, 4, gi, gi)); returns acc (P, 4, gi, gi).
 
-    The mode follows the payload and ``dir_win``, as for the kernel: the
-    display mode (int8 with the sig2 split, or bf16 with ``dir_win``) takes
-    the view direction once per window and every format and option; the
-    training mode (f32 or bf16 without ``dir_win``; f32 rounded to bf16 as
-    it is read, as the kernel reads it) takes it per slab. ``dir_win``
-    None means True for int8 and False otherwise. The options, as the
-    reference's kernel body computes them (pallas_slab.py:391-537):
+    ``dir_win`` takes the view direction once per window (the display
+    mode's default), else (or with ``dir_slab``, the display mode's
+    per-slab knob) per slab, as the training mode does; a training
+    payload's f32 values are rounded to bf16 as they are read, as the
+    kernel reads them. ``dir_win`` None means True for int8 and False
+    otherwise. ``bf16_shade``: SH shading rounded where kernel M's bf16
+    shading variant rounds: each basis plane times its scale to bf16, then
+    each payload multiply-add fused and rounded to bf16 (in f64, then to
+    bf16 through f32), the sigmoid in f32. The options, as the reference's
+    kernel body computes them (pallas_slab.py:391-537):
     - ``fmt``/``extra``: SH, SG and ASG shade srgb = sigma * sigmoid(sum_k
       code_k * basis_k * qs[k]); RGBA srgb = sigma * code_c * qs[c];
     - ``rot``: 9 floats applied to the unit view direction;
@@ -845,8 +901,9 @@ def march_slabs_ref(gplanar, qscale, params, zb, wins: Sequence[int],
     sig2 = gplanar.dtype == torch.int8
     if dir_win is None:
         dir_win = sig2
+    dir_win = dir_win and not dir_slab
     mode = MarchMode(int(fmt), extra, depth, rot, bbox_full, basis_lo,
-                       basis_hi)
+                     basis_hi)
     rgba = BasisType(fmt) == BasisType.RGBA
     qs = qscale.to(_F32)
     ycell = torch.arange(Gy, dtype=_F32, device=dev) + y0
@@ -903,6 +960,11 @@ def march_slabs_ref(gplanar, qscale, params, zb, wins: Sequence[int],
                     chans = torch.cat([sigma[None],
                                        sigma[None] * slab[:3]
                                        * qs[:3, None, None]])
+                elif bf16_shade:
+                    codes = slab[:3 * bd].reshape(3, bd, Gy, Gx)
+                    raw = _bf16_macs(codes, bkq)
+                    chans = torch.cat([sigma[None],
+                                       sigma[None] * torch.sigmoid(raw)])
                 else:
                     codes = slab[:3 * bd].reshape(3, bd, Gy, Gx)
                     raw = torch.sum(codes * bkq.permute(2, 0, 1)[None], 1)

@@ -33,9 +33,13 @@ rays' dominant tree axis, stitched per pixel.
 Every function takes a batch of poses: per-pose values are tensors with a
 leading pose dimension (P, ...), the pose-invariant ones (fx, fy, grid
 metadata) are shared. The display path takes the int8 and the f16 bake,
-SH, SG, ASG and RGBA trees and the viewer's render options (depth,
-render_bbox, the basis window, rot_dirs); mesh overlays raise
-``NotImplementedError`` naming the item that brings them (ROADMAP.md).
+SH, SG, ASG and RGBA trees, the viewer's render options (depth,
+render_bbox, the basis window, rot_dirs) and mesh overlays on world trees
+(``render_image(meshes=...)``, ``opt.show_grid``): the host rasterizer's
+distance buffer clips each pixel's z interval (``FrameGeom(mesh_dist=)``)
+and kernel W composites the remaining transmittance over the mesh colour
+(its mesh-background mode). NDC trees take meshes on the exact renderer
+only, as in the reference (ValueError).
 """
 
 from __future__ import annotations
@@ -70,8 +74,6 @@ _CROP_MULT_X = 128
 #: box-tap warp accuracy limit: per-slab spans stay near one voxel only
 #: while boundary-ray slopes are below this
 MAX_SLAB_SLOPE = 4.0
-
-_MESHES = "mesh overlays come with item 13, slice B of the port (ROADMAP.md)"
 
 
 def inplane_crop(grid: DenseGrid, perm: Tuple[int, int, int],
@@ -332,12 +334,19 @@ class FrameGeom:
 
     transforms: (P, 3, 4) or (3, 4) C2W [right|up|back|center].
     unit_slope_box: the split-frame class pass's fixed slope box (see
-    _slope_grid)."""
+    _slope_grid).
+    mesh_dist: optional (H, W), or (P, H, W), f32 euclidean camera distance
+    of the nearest rasterized mesh fragment (inf where none:
+    ops/rasterize.py MeshBuffers.dist). World trees only: each
+    intermediate pixel's live z interval is clipped at the mesh surface,
+    so the march stops at the mesh distance (volrend.cu:143-146) with the
+    kernel's sub-slab precision (its boundary slabs count by their overlap
+    with the interval)."""
 
     def __init__(self, grid: DenseGrid, transforms, fx, fy,
                  perm: Tuple[int, int, int], flip: bool,
                  width: int, height: int, opt: RenderOptions, gi: int,
-                 unit_slope_box: bool = False):
+                 unit_slope_box: bool = False, mesh_dist=None):
         dev = grid.device
         tr = to_device(transforms, _F32, dev).reshape(-1, 3, 4)
         P = tr.shape[0]
@@ -442,7 +451,56 @@ class FrameGeom:
             z_hi_pix = torch.minimum(z_hi_pix, cz[:, None, None])
         elif ndc is None:
             z_lo_pix = torch.maximum(z_lo_pix, cz[:, None, None])
+        if mesh_dist is not None:
+            if ndc is not None:
+                raise ValueError("mesh compositing on the slab path "
+                                 "supports world trees only (use the exact "
+                                 "renderer)")
+            z_mesh = self._mesh_zgrid(mesh_dist, width, height, gi, perm)
+            if flip:
+                z_lo_pix = torch.maximum(z_lo_pix, z_mesh)
+            else:
+                z_hi_pix = torch.minimum(z_hi_pix, z_mesh)
         self.z_lo_pix, self.z_hi_pix = z_lo_pix, z_hi_pix
+
+    def _mesh_zgrid(self, mesh_dist, width: int, height: int, gi: int,
+                    perm: Tuple[int, int, int]) -> torch.Tensor:
+        """(P, gi, gi) slab-axis z of the mesh surface on each
+        intermediate pixel's ray: the screen distance buffer sampled
+        nearest at the pixel's screen position (a silhouette quantized to
+        a screen pixel, the order of the warp's own resampling) and turned
+        from euclidean camera distance into z = cz + sgn * d / |w|, w the
+        world direction per unit of slab z; inf where the ray meets no
+        mesh. The reference gathers 8-wide rows with a one-hot select (a
+        TPU gather workaround); a plain gather gives what it computes."""
+        uy, ux, sgn, R = self.uy, self.ux, self.sgn, self.R
+        P = R.shape[0]
+        inv_scale = 1.0 / self.scale
+        d_perm = [torch.full((P, gi, gi), sgn, dtype=_F32, device=R.device),
+                  (sgn * uy[:, :, None]).expand(P, gi, gi),
+                  (sgn * ux[:, None, :]).expand(P, gi, gi)]
+        d_tree = [None] * 3
+        for i in range(3):
+            d_tree[perm[i]] = d_perm[i]
+        d_world = torch.stack([d_tree[a] * inv_scale[a] for a in range(3)],
+                              -1)
+        d_cam = torch.einsum("pyxk,pkc->pyxc", d_world, R)      # R^T d
+        front = d_cam[..., 2] < -1e-9
+        dz = torch.where(front, d_cam[..., 2], -1e-9)
+        sx = (d_cam[..., 0] / -dz) * self.fx + 0.5 * width
+        sy = -(d_cam[..., 1] / -dz) * self.fy + 0.5 * height
+        jx = torch.round(sx).to(torch.int64)
+        jy = torch.round(sy).to(torch.int64)
+        valid = front & (jx >= 0) & (jx < width) & (jy >= 0) & (jy < height)
+        flat = (torch.clamp(jy, 0, height - 1) * width
+                + torch.clamp(jx, 0, width - 1))
+        md = to_device(mesh_dist, _F32, R.device).reshape(-1, height * width)
+        dist = torch.gather(md.expand(P, -1), 1, flat.reshape(P, -1))
+        dist = torch.where(valid, dist.reshape(P, gi, gi), float("inf"))
+        L = torch.sqrt(inv_scale[perm[0]] ** 2
+                       + (uy[:, :, None] * inv_scale[perm[1]]) ** 2
+                       + (ux[:, None, :] * inv_scale[perm[2]]) ** 2)
+        return self.cz[:, None, None] + sgn * dist / L
 
 
 def _march_frame_fields(grid: DenseGrid, g: FrameGeom, perm, flip: bool,
@@ -470,11 +528,15 @@ def _bbox_full(opt: RenderOptions) -> bool:
 def _march_finalize(grid: DenseGrid, payload, params, zb, R, u0, du, v0, dv,
                     fx, fy, perm: Tuple[int, int, int], flip: bool,
                     width: int, height: int, opt: RenderOptions, gi: int,
-                    out_dtype=None, crop=None, fits=None, origin=None):
+                    out_dtype=None, crop=None, fits=None, origin=None,
+                    bg_pix=None):
     """March a pose batch through the fused kernel (one launch), finalize
     planar (rt_core.cuh:176-194 semantics) and warp to the screen (``fits``:
     the warp's fit plan, queued ahead of the march; ``origin``: the poses'
-    (P, 3) camera origins, which an NDC tree's warp reads)."""
+    (P, 3) camera origins, which an NDC tree's warp reads; ``bg_pix``: the
+    mesh background, display_warp.mesh_background). The march's two knobs
+    are slab_march._BF16_SHADE and slab_march._DIR_WIN, read here at call
+    time, as the reference reads pallas_slab's."""
     slab_ids = grid.slab_ids(perm[0], flip, opt.sigma_thresh)
     blo, bhi = opt.basis_minmax
     rotm = _rodrigues_matrix(opt.rot_dirs)
@@ -486,12 +548,14 @@ def _march_finalize(grid: DenseGrid, payload, params, zb, R, u0, du, v0, dv,
         depth=bool(opt.render_depth),
         rot=(None if rotm is None
              else tuple(float(v) for v in rotm.reshape(-1))),
-        flip=flip, bbox_full=_bbox_full(opt), shade_bf16=False,
-        dir_win=True, k_per_step=slab_march._K_STEP, crop=crop)
+        flip=flip, bbox_full=_bbox_full(opt),
+        shade_bf16=slab_march._BF16_SHADE, dir_win=slab_march._DIR_WIN,
+        k_per_step=slab_march._K_STEP, crop=crop)
     return _warp_to_screen(_finalize_planar(acc4, opt), opt, R, fx, fy,
                            width, height, gi, perm, u0, du, v0, dv,
                            grid.scale, out_dtype=out_dtype, planar=True,
-                           fits=fits, ndc=grid.ndc, origin=origin)
+                           fits=fits, ndc=grid.ndc, origin=origin,
+                           bg_pix=bg_pix)
 
 
 def _finalize_planar(acc4: torch.Tensor, opt: RenderOptions) -> torch.Tensor:
@@ -523,13 +587,31 @@ def render_frames(grid: DenseGrid, transforms, fx, fy,
     ``payload``, see prepare_payload). Returns (N, H, W, 4) on the grid's
     device: float32, or uint8 when ``out_dtype=torch.uint8`` (the RGBA8
     display write-out, volrend.cu:166-172). ``unit_slope_box``: a
-    split-frame class pass (render_frame_split)."""
+    split-frame class pass (render_frame_split). Meshes are
+    render_frame's and render_frame_split's, as in the reference."""
+    return _render_batch(grid, transforms, fx, fy, perm, flip, width,
+                         height, opt, gi, payload, out_dtype, unit_slope_box)
+
+
+def _render_batch(grid: DenseGrid, transforms, fx, fy,
+                  perm: Tuple[int, int, int], flip: bool, width: int,
+                  height: int, opt: RenderOptions, gi: int, payload=None,
+                  out_dtype=None, unit_slope_box: bool = False,
+                  mesh_dist=None, mesh_rgb=None):
+    """render_frames, with an optional mesh pass's buffers (mesh_dist
+    (P, H, W) or (H, W), mesh_rgb (P, H, W, 3) or (H, W, 3)): the march
+    clipped at the mesh and the warp composited over it."""
     _kernel_ok(grid)
     crop = inplane_crop(grid, perm, float(opt.sigma_thresh))
     if payload is None:
         payload = _permuted_grid(grid, perm, crop=crop)
     g = FrameGeom(grid, transforms, fx, fy, perm, flip, width, height, opt,
-                  gi, unit_slope_box=unit_slope_box)
+                  gi, unit_slope_box=unit_slope_box, mesh_dist=mesh_dist)
+    bg_pix = None
+    if mesh_dist is not None:
+        bg_pix = display_warp.mesh_background(mesh_dist, mesh_rgb,
+                                              g.R.shape[0], height, width,
+                                              grid.device)
     # the warp's fit decisions go to the card ahead of the march, so the
     # host reads them while kernel M runs
     fits = None
@@ -541,7 +623,7 @@ def render_frames(grid: DenseGrid, transforms, fx, fy,
     return _march_finalize(grid, payload, params, zb, g.R, g.u0, g.du, g.v0,
                            g.dv, g.fx, g.fy, perm, flip, width, height, opt,
                            gi, out_dtype=out_dtype, crop=crop, fits=fits,
-                           origin=g.origin_w)
+                           origin=g.origin_w, bg_pix=bg_pix)
 
 
 def render_frame(grid: DenseGrid, transform, fx, fy,
@@ -551,21 +633,28 @@ def render_frame(grid: DenseGrid, transform, fx, fy,
                  mesh_dist=None, mesh_rgb=None, out_dtype=None):
     """Render one pinhole frame; returns (H, W, 4) (float32, or uint8 with
     out_dtype=torch.uint8). transform: (3,4) C2W. perm/flip: from
-    choose_axis. Mesh compositing (mesh_dist/mesh_rgb) comes with a later
-    slice on world trees; NDC trees take meshes on the exact renderer
-    only, as in the reference (ValueError)."""
-    if mesh_dist is not None or mesh_rgb is not None:
-        _refuse_meshes(grid)
+    choose_axis. mesh_dist/mesh_rgb: optional (H, W) euclidean mesh
+    distance (inf where none) and (H, W, 3) mesh colour, the buffers of
+    ops/rasterize.py: the march is clipped at the mesh surface and its
+    remaining transmittance composited over the mesh colour, alpha 1 on
+    mesh pixels (volrend.cu:143-163). World trees only: NDC trees take
+    meshes on the exact renderer, as in the reference (ValueError)."""
+    if mesh_dist is not None and grid.ndc is not None:
+        raise ValueError("mesh compositing on the slab path supports world "
+                         "trees only; use the exact renderer")
+    if (mesh_dist is None) != (mesh_rgb is None):
+        raise ValueError("mesh_dist and mesh_rgb come together")
     tr = torch.as_tensor(transform, dtype=_F32).reshape(1, 3, 4)
-    return render_frames(grid, tr, fx, fy, perm, flip, width, height, opt,
-                         gi=gi, payload=payload, out_dtype=out_dtype)[0]
+    return _render_batch(grid, tr, fx, fy, perm, flip, width, height, opt,
+                         gi, payload, out_dtype, mesh_dist=mesh_dist,
+                         mesh_rgb=mesh_rgb)[0]
 
 
 def _warp_to_screen(inter, opt: RenderOptions, R, fx, fy,
                     width: int, height: int, gi: int, perm,
                     u0, du, v0, dv, scale, out_dtype=None,
                     planar: bool = False, precise: bool = False,
-                    fits=None, ndc=None, origin=None):
+                    fits=None, ndc=None, origin=None, bg_pix=None):
     """Projective bilinear warp of a batch of intermediate images
     ((P, gi, gi, 4), or planar (P, 4, gi, gi)) to (P, H, W, 4) screens plus
     background compositing: the superquad warp where it applies, else the
@@ -585,9 +674,13 @@ def _warp_to_screen(inter, opt: RenderOptions, R, fx, fy,
     a display_warp.FitPlan (render_frames queues it ahead of the march);
     None computes them here and reads them back, which waits for the
     queued work. ``ndc``/``origin``: an NDC tree's sidecar and the poses'
-    (P, 3) camera origins. (The mesh-background variant comes with a later
-    slice.)"""
+    (P, 3) camera origins. ``bg_pix``: the display path's mesh background
+    (display_warp.mesh_background: (P, H, W, 4) f16 [r, g, b, hit]),
+    composited by kernel W's mesh mode or the reference warp; the
+    training path takes none."""
     if precise:
+        if bg_pix is not None:
+            raise ValueError("the training warp takes no mesh background")
         if planar:
             inter = inter.movedim(1, -1)
         geom = (R, fx, fy, width, height, gi, perm, u0, du, v0, dv, scale)
@@ -602,13 +695,13 @@ def _warp_to_screen(inter, opt: RenderOptions, R, fx, fy,
         return display_warp.warp_to_screen_sq(
             inter, opt, R, fx, fy, width, height, gi, perm,
             u0, du, v0, dv, scale, out_dtype=out_dtype, planar=planar,
-            plan=fits, ndc=ndc, origin=origin)
+            plan=fits, ndc=ndc, origin=origin, bg_pix=bg_pix)
     if planar:
         inter = inter.movedim(1, -1)
     return display_warp.to_display_dtype(
         _warp_to_screen_ref(inter, opt, R, fx, fy, width, height, gi,
                             perm, u0, du, v0, dv, scale, ndc=ndc,
-                            origin=origin), out_dtype)
+                            origin=origin, bg_pix=bg_pix), out_dtype)
 
 
 def _warp_precise_routed(inter, opt: RenderOptions, geom, fits=None,
@@ -650,7 +743,7 @@ def _warp_precise_routed(inter, opt: RenderOptions, geom, fits=None,
 def _warp_to_screen_ref(inter, opt: RenderOptions, R, fx, fy,
                         width: int, height: int, gi: int, perm,
                         u0, du, v0, dv, scale, precise: bool = False,
-                        ndc=None, origin=None):
+                        ndc=None, origin=None, bg_pix=None):
     """Reference warp: per-pixel quad-row gather (the exact display
     semantics the superquad warp is held against), in plain PyTorch.
 
@@ -660,7 +753,10 @@ def _warp_to_screen_ref(inter, opt: RenderOptions, R, fx, fy,
     quantize the outputs below a gradient step). Linear in ``inter`` and
     differentiable by autograd. Returns (P, H, W, 4) float32. An NDC tree
     (``ndc``) maps each pixel's ray through world2ndc from its pose's
-    ``origin`` (P, 3). Display-path calls (not ``precise``) count their
+    ``origin`` (P, 3). ``bg_pix``: a mesh background ((P, H, W, 4) [r, g,
+    b, hit], display_warp.mesh_background): the remaining transmittance
+    composites over the mesh colour where hit, and alpha is 1 there
+    (volrend.cu:152-163). Display-path calls (not ``precise``) count their
     poses in ``poses``, training calls in ``precise_poses``: a run shows
     with them that no pose fell back here."""
     if precise:
@@ -714,8 +810,14 @@ def _warp_to_screen_ref(inter, opt: RenderOptions, R, fx, fy,
            + (v10 * (1 - fx_) + v11 * fx_) * fy_)
     out = torch.where(ok[..., None], out, torch.zeros_like(out)).to(_F32)
     bg = float(opt.background_brightness)
-    rgb = out[..., :3] + bg * (1.0 - out[..., 3:4])
-    return torch.cat([rgb, out[..., 3:4]], -1)
+    if bg_pix is None:
+        rgb = out[..., :3] + bg * (1.0 - out[..., 3:4])
+        return torch.cat([rgb, out[..., 3:4]], -1)
+    mesh = bg_pix.to(_F32)
+    hit = mesh[..., 3:4] > 0.5
+    bgp = torch.where(hit, mesh[..., :3], bg)
+    rgb = out[..., :3] + bgp * (1.0 - out[..., 3:4])
+    return torch.cat([rgb, torch.where(hit, 1.0, out[..., 3:4])], -1)
 
 
 #: poses warped through the reference warp (plain counters, so a run can
@@ -723,16 +825,6 @@ def _warp_to_screen_ref(inter, opt: RenderOptions, R, fx, fy,
 #: poses (every pose with _PRECISE_SQ off; the misfit poses with it on)
 _warp_to_screen_ref.poses = 0
 _warp_to_screen_ref.precise_poses = 0
-
-
-def _refuse_meshes(grid: DenseGrid) -> None:
-    """Mesh overlays on the slab path: a later slice for world trees; never
-    for NDC trees, which take meshes on the exact renderer only (the
-    reference's ValueError)."""
-    if grid.ndc is not None:
-        raise ValueError("mesh compositing on the slab path supports world "
-                         "trees only; use the exact renderer")
-    raise NotImplementedError(_MESHES)
 
 
 def _evict_perm(cache: dict, perm) -> None:
@@ -779,8 +871,8 @@ def split_classes(grid: DenseGrid, transform, fx, fy, width: int,
 
 def render_frame_split(grid: DenseGrid, transform, fx, fy, width: int,
                        height: int, opt: RenderOptions, gi: int = 384,
-                       payload_cache: Optional[dict] = None
-                       ) -> torch.Tensor:
+                       payload_cache: Optional[dict] = None,
+                       mesh_dist=None, mesh_rgb=None) -> torch.Tensor:
     """Render ANY world-tree pinhole pose by split-frame slab passes;
     returns (H, W, 4) float32 on the grid's device.
 
@@ -792,20 +884,26 @@ def render_frame_split(grid: DenseGrid, transform, fx, fy, width: int,
     render_frames over the fixed unit slope box with perm (axis, axis+1,
     axis+2), and the passes are stitched per pixel by the argmax class of
     the pixel's ray, in f32 (plain tensor ops). ``payload_cache``: as for
-    render_image, shared by the passes. NDC trees raise ValueError (the
-    NDC warp's slope caustic is not axis-separable; the exact renderer
-    takes such poses)."""
+    render_image, shared by the passes. mesh_dist/mesh_rgb: a mesh pass's
+    buffers, as for render_frame: every class pass clips at the mesh and
+    composites over it, and the stitch keeps the owning pass's pixels, so
+    mesh pixels keep alpha 1. NDC trees raise ValueError (the NDC warp's
+    slope caustic is not axis-separable; the exact renderer takes such
+    poses)."""
     if grid.ndc is not None:
         raise ValueError("render_frame_split supports world trees only")
+    if (mesh_dist is None) != (mesh_rgb is None):
+        raise ValueError("mesh_dist and mesh_rgb come together")
     classes = split_classes(grid, transform, fx, fy, width, height)
     tr = to_device(transform, _F32, grid.device).reshape(1, 3, 4)
     outs = []
     for axis, flip in classes:
         perm = (axis, (axis + 1) % 3, (axis + 2) % 3)
-        outs.append(render_frames(
-            grid, tr, fx, fy, perm, flip, width, height, opt, gi=gi,
+        outs.append(_render_batch(
+            grid, tr, fx, fy, perm, flip, width, height, opt, gi,
             payload=_cached_payload(grid, perm, opt, payload_cache),
-            unit_slope_box=True)[0])
+            unit_slope_box=True, mesh_dist=mesh_dist,
+            mesh_rgb=mesh_rgb)[0])
     dev = grid.device
     px = (torch.arange(width, dtype=_F32, device=dev) - 0.5 * width) / fx
     py = -(torch.arange(height, dtype=_F32, device=dev) - 0.5 * height) / fy
@@ -823,6 +921,30 @@ def render_frame_split(grid: DenseGrid, transform, fx, fy, width: int,
     return out
 
 
+def _mesh_buffers(grid: DenseGrid, cam, opt: RenderOptions, meshes,
+                  host_tree):
+    """The host mesh pass of a frame (cuda_renderer.cpp:103-112): the
+    visible meshes and, with ``opt.show_grid`` and a ``host_tree``, its
+    wireframe, rasterized into (H, W) distance and (H, W, 3) colour
+    buffers, both f16 as the reference uploads them; (None, None) when no
+    mesh covers a pixel. NDC trees raise ValueError (the exact renderer
+    takes meshes on them, as in the reference)."""
+    mesh_list = list(meshes) if meshes else []
+    if opt.show_grid and host_tree is not None:
+        from volrend_torch.ops.composite import wireframe_mesh
+        mesh_list.append(wireframe_mesh(host_tree, opt.grid_max_depth))
+    if not mesh_list:
+        return None, None
+    if grid.ndc is not None:
+        raise ValueError("mesh compositing on the slab path supports world "
+                         "trees only; use the exact renderer")
+    from volrend_torch.ops.rasterize import rasterize_meshes
+    buf = rasterize_meshes(mesh_list, cam)
+    if not np.isfinite(buf.dist).any():
+        return None, None
+    return buf.dist.astype(np.float16), buf.color.astype(np.float16)
+
+
 def render_image(grid: DenseGrid, cam, opt: RenderOptions,
                  gi: Optional[int] = None,
                  payload_cache: Optional[dict] = None,
@@ -837,29 +959,30 @@ def render_image(grid: DenseGrid, cam, opt: RenderOptions,
     slab axis) render as split frames (render_frame_split), stitched in
     f32 and converted to ``out_dtype`` once. NDC poses the slab path cannot
     take (an interior camera, rays straddling the NDC z axis) raise
-    ValueError: the exact renderer (render_exact) takes them. Mesh
-    overlays (meshes, opt.show_grid) raise NotImplementedError on world
-    trees (item 13) and ValueError on NDC trees, as in the reference."""
+    ValueError: the exact renderer (render_exact) takes them.
+    meshes: mesh overlays (models/mesh.py) rasterized on the host, as the
+    reference's GL mesh pass (cuda_renderer.cpp:103-112), and composited
+    on world trees (render_frame's mesh_dist/mesh_rgb); host_tree: the
+    source N3Tree, for the ``opt.show_grid`` wireframe. NDC trees with
+    meshes raise ValueError, as in the reference."""
     if gi is None:
         gi = default_gi(grid)
     perm, flip, slope = choose_axis(
         grid, cam.transform, cam.fx, cam.fy, cam.width, cam.height)
-    want_meshes = bool(meshes) or (opt.show_grid and host_tree is not None)
     if not (np.isfinite(slope) and slope < MAX_SLAB_SLOPE):
         if grid.ndc is not None:
             raise ValueError("pose not renderable by the slab path (rays "
                              "straddle the slab axis); use render_exact")
-        if want_meshes:
-            raise NotImplementedError(_MESHES)
+        md, mr = _mesh_buffers(grid, cam, opt, meshes, host_tree)
         out = render_frame_split(grid, cam.transform, cam.fx, cam.fy,
                                  cam.width, cam.height, opt, gi=gi,
-                                 payload_cache=payload_cache)
+                                 payload_cache=payload_cache, mesh_dist=md,
+                                 mesh_rgb=mr)
         return display_warp.to_display_dtype(out, out_dtype).cpu().numpy()
-    if want_meshes:
-        _refuse_meshes(grid)
+    md, mr = _mesh_buffers(grid, cam, opt, meshes, host_tree)
     out = render_frame(grid, cam.transform, cam.fx, cam.fy, perm, flip,
                        cam.width, cam.height, opt, gi,
                        payload=_cached_payload(grid, perm, opt,
                                                payload_cache),
-                       out_dtype=out_dtype)
+                       mesh_dist=md, mesh_rgb=mr, out_dtype=out_dtype)
     return out.cpu().numpy()
