@@ -164,6 +164,28 @@ Phases (any failure exits non-zero and prints no result):
     host decode's, one orbit group counted (M and W only), pose 0 against
     the exact renderer on the QuantLeaves tree (>= 47.5 dB, the scene's
     floor);
+12d. T2 ray-batch training and the headless batch renderer
+    (t2_phase, headless_phase): (a) ``Trainer`` (the exact march and its
+    fused re-march VJP, ops/grad.py; plain PyTorch, no kernel of its own)
+    on the training bench's tree (depth-7 SH9 solid scene, full-depth LUT,
+    max_steps 512) from corrupted leaves, on 1024- and 8192-ray batches of
+    the 4 orbit poses at 800^2 against the clean tree's exact render: the
+    median of 12 step times, peak memory, march iterations forward and
+    backward, the march's host syncs and sync debug mode's count, one
+    traced step (kernels per iteration, idle share), a held-out loss that
+    must fall; the fused gradient against autograd through the fixed-length
+    loop on 256 rays of examples/train_demo.py's scene (tests/test_grad.py's
+    tolerance) with PARITY.md's config2 numbers. (b) The T2 recovery gate
+    (examples/train_demo.py: 10 poses at 64^2, 150 steps): pose 0's loss
+    must end at most 0.35 of its start. (c) ``python -m
+    volrend_torch.cli.headless`` on the dense scene's npz: 16 orbit pose
+    files and tools/perf_split.py's e = 0.5 pose as subprocesses (ms per
+    frame, fps; the orbit PNGs byte-equal to render_frames' frames, the
+    split pose's within one quantum of render_frame_split's), a counted
+    in-process run (every orbit pose through M, W and the fit mode, no
+    plain version), ``--renderer exact`` at scale 0.25 within one quantum
+    of render_image, ``--renderer oracle`` on a depth-3 tree at 24x24 at
+    >= 60 dB against the exact renderer;
 13. one JSON line with every kernel's numbers (kernels B's and C's
     launches from phase 10's run, the display path that takes them; kernel
     M's display variants as rows of their own, their launches from phase
@@ -3204,6 +3226,511 @@ def overlay_phase(torch, kernels, dev, opt, stats, gate, groups_of):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12d: T2 ray-batch training (Trainer: the exact march and its fused
+# re-march VJP, ops/grad.py) and the headless batch renderer (cli/headless)
+# ---------------------------------------------------------------------------
+
+T2_BATCHES = (1024, 8192)     # examples/train_demo.py's batch, and 8x it
+T2_STEPS = 12                 # timed Trainer.step calls per batch size
+T2_WARM = 2                   # untimed steps before them
+T2_MAX_STEPS = 512            # examples/train_demo.py's RenderOptions
+T2_NOISE = 0.35               # tests/test_train.py:40-45's corruption
+T2_LR = 5e-2
+T2_HELD = 8192                # rays of the held-out batch
+T2_GRAD_RAYS = 256
+T2_FD_COORDS = 5
+T2_FD_EPS = 3e-3              # tools/config_report.py's config2 step
+T2_GRAD_ATOL = 3e-3           # times max|g| (tests/test_grad.py)
+T2_GRAD_RTOL = 2e-3
+T2_MAX_REL = 1e-3             # config2's pass: fused vs autodiff
+T2_MAX_FD = 5e-2              # config2's pass: median FD relative error
+DEMO2_POSES = 10              # examples/train_demo.py
+DEMO2_SIZE = 64
+DEMO2_STEPS = 150
+DEMO2_BATCH = 1024
+DEMO2_NOISE = 0.4
+DEMO2_RATIO = 0.35            # tests/test_train.py:68's recovery ratio
+HEADLESS_POSES = 16
+FLOOR_ORACLE = 60.0
+HEADLESS_DIR = os.path.join(HERE, "build", "smoke_headless")
+
+
+def demo_scene(dev):
+    """examples/train_demo.py's scene on ``dev``: the depth-4 SH9 test tree,
+    full-depth LUT, its 10 orbit poses at 64^2 (fx 80)."""
+    from volrend_torch.models.synthetic import make_test_tree
+    from volrend_torch.ops.camera import Camera
+    tree = make_test_tree(max_depth=4, basis_dim=9, seed=11,
+                          sigma_scale=50.0)
+    cams = []
+    for th in np.linspace(0, 2 * np.pi, DEMO2_POSES, endpoint=False):
+        b = np.array([np.cos(th), np.sin(th), 0.45])
+        b /= np.linalg.norm(b)
+        cams.append(Camera.from_vectors(center=tuple(2.6 * b),
+                                        v_back=tuple(b), width=DEMO2_SIZE,
+                                        height=DEMO2_SIZE, fx=80.0))
+    return tree.to_device(lut_depth=None, device=dev), cams
+
+
+def sync_count(torch, fn):
+    """(fn(), the synchronizing CUDA operations it made): the warnings of
+    torch.cuda's sync debug mode."""
+    import warnings
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(x.message) for x in w)
+
+
+def t2_grad_checks(torch, dev):
+    """The fused gradient on the card against autograd through the
+    fixed-length loop (tests/test_grad.py's tolerance) and PARITY.md's
+    config2 numbers, on T2_GRAD_RAYS rays of the demo scene."""
+    import dataclasses
+    from volrend_torch.ops import grad as grad_mod, render_exact
+    from volrend_torch.utils.options import RenderOptions
+    tdev, cams = demo_scene(dev)
+    dopt = RenderOptions(max_steps=T2_MAX_STEPS, renormalize=False)
+    rng = np.random.default_rng(5)
+    rays = [c.pixel_rays(xp=np) for c in cams]
+    k = rng.integers(0, len(cams), T2_GRAD_RAYS)
+    px = rng.integers(0, DEMO2_SIZE * DEMO2_SIZE, T2_GRAD_RAYS)
+    o = torch.as_tensor(np.stack([rays[a][0][b] for a, b in zip(k, px)]),
+                        device=dev)
+    d = torch.as_tensor(np.stack([rays[a][1][b] for a, b in zip(k, px)]),
+                        device=dev)
+    tgt = torch.as_tensor(rng.uniform(0, 1, (T2_GRAD_RAYS, 4)).astype(
+        np.float32), device=dev)
+    data32 = tdev.data.float()
+    loss_f, g_f = grad_mod.l2_loss_and_grad(tdev, o, d, tgt, dopt,
+                                            data=data32)
+    dat = data32.clone().requires_grad_(True)
+    out = render_exact.render_rays(dataclasses.replace(tdev, data=dat), o,
+                                   d, dopt, differentiable=True,
+                                   n_steps=T2_MAX_STEPS)
+    loss_a = torch.mean((out[:, :3] - tgt[:, :3]) ** 2)
+    loss_a.backward()
+    g_f, g_a = g_f.cpu().numpy(), dat.grad.cpu().numpy()
+    scale = float(np.abs(g_a).max())
+    err = np.abs(g_f - g_a)
+    ok = bool(np.all(err <= T2_GRAD_ATOL * scale
+                     + T2_GRAD_RTOL * np.abs(g_a)))
+    rel = float(err.max() / max(scale, 1e-12))
+
+    def loss_fused(dat):
+        with torch.no_grad():
+            out = grad_mod.render_rays_train(tdev, o, d, dopt, data=dat)
+            return float(torch.mean((out[:, :3] - tgt[:, :3]) ** 2))
+
+    fd_errs = []
+    for idx in np.argsort(-np.abs(g_f).ravel())[:T2_FD_COORDS]:
+        i, j = np.unravel_index(idx, g_f.shape)
+        dp, dm = data32.clone(), data32.clone()
+        dp[i, j] += T2_FD_EPS
+        dm[i, j] -= T2_FD_EPS
+        fd = (loss_fused(dp) - loss_fused(dm)) / (2 * T2_FD_EPS)
+        fd_errs.append(abs(fd - float(g_f[i, j])) / max(abs(fd), 1e-9))
+    fd_med = float(np.median(fd_errs))
+    log(f"T2 gradient [{T2_GRAD_RAYS} rays of the demo scene]: fused loss "
+        f"{float(loss_f):.8f}, autograd {float(loss_a.detach()):.8f}; max|g| "
+        f"{scale:.4e}, max|fused - autograd| {float(err.max()):.4e} "
+        f"(atol {T2_GRAD_ATOL} x max|g|, rtol {T2_GRAD_RTOL}: "
+        f"{'within' if ok else 'OUTSIDE'}); config2: fused_vs_autodiff_max_"
+        f"rel {rel:.4e}, finite_diff_median_rel_err {fd_med:.4e} over the "
+        f"{T2_FD_COORDS} largest-|grad| coordinates (eps {T2_FD_EPS}; "
+        f"each {[round(e, 6) for e in fd_errs]})")
+    if not (ok and rel < T2_MAX_REL and fd_med < T2_MAX_FD
+            and np.isclose(float(loss_f), float(loss_a.detach()),
+                           rtol=1e-5)):
+        fail("T2: the fused gradient disagrees with autograd or finite "
+             "differences")
+    return {"t2_fused_vs_autodiff_max_rel": rel,
+            "t2_finite_diff_median_rel_err": fd_med}
+
+
+def t2_recovery(torch, dev):
+    """(b) examples/train_demo.py's configuration: corrupted leaves (noise
+    DEMO2_NOISE, seed 0), Trainer(lr 5e-2), DEMO2_STEPS steps of
+    DEMO2_BATCH rays over the 10 poses; pose 0's loss must end at most
+    DEMO2_RATIO of its start."""
+    import dataclasses
+    from volrend_torch import train
+    from volrend_torch.ops import render_exact
+    from volrend_torch.utils.options import RenderOptions
+    tdev, cams = demo_scene(dev)
+    dopt = RenderOptions(max_steps=T2_MAX_STEPS, renormalize=False)
+    targets = [render_exact.render_image(tdev, c, dopt) for c in cams]
+    rng = np.random.default_rng(0)
+    noisy = (tdev.data.float().cpu().numpy()
+             + rng.normal(0, DEMO2_NOISE, tuple(tdev.data.shape)
+                          ).astype(np.float32))
+    tr = train.Trainer(dataclasses.replace(
+        tdev, data=torch.as_tensor(noisy, dtype=torch.float16, device=dev)),
+        dopt, lr=T2_LR)
+    rays = [tuple(torch.as_tensor(np.ascontiguousarray(x), device=dev)
+                  for x in c.pixel_rays(xp=np)) for c in cams]
+
+    def pose0():
+        img = render_exact.render_image(tr.current_tree(), cams[0], dopt)
+        mse = float(torch.mean((img[..., :3] - targets[0][..., :3]) ** 2))
+        return mse, 99.0 if mse < 1e-12 else -10.0 * float(np.log10(mse))
+
+    l0, p0 = pose0()
+    losses = []
+    t0 = time.perf_counter()
+    for it in range(DEMO2_STEPS):
+        k = it % len(cams)
+        sel = torch.as_tensor(rng.integers(0, DEMO2_SIZE * DEMO2_SIZE,
+                                           DEMO2_BATCH), device=dev)
+        losses.append(tr.step(rays[k][0][sel], rays[k][1][sel],
+                              targets[k].reshape(-1, 4)[sel]))
+    secs = time.perf_counter() - t0
+    l1, p1 = pose0()
+    log(f"T2 recovery (examples/train_demo.py: {DEMO2_POSES} poses at "
+        f"{DEMO2_SIZE}^2, {DEMO2_BATCH}-ray batches, noise {DEMO2_NOISE}, "
+        f"lr {T2_LR}, {DEMO2_STEPS} steps in {secs:.2f} s): pose 0 loss "
+        f"{l0:.6f} -> {l1:.6f} (ratio {l1 / l0:.4f}, gate "
+        f"{DEMO2_RATIO}), PSNR {p0:.3f} -> {p1:.3f} dB; step losses "
+        f"{losses[0]:.6f} -> {losses[-1]:.6f}")
+    if not (np.all(np.isfinite(losses)) and l1 <= DEMO2_RATIO * l0):
+        fail(f"T2 recovery: pose 0's loss {l0:.6f} -> {l1:.6f}, above "
+             f"{DEMO2_RATIO} of its start")
+    return {"t2_recovery_loss_ratio": l1 / l0, "t2_recovery_psnr_db":
+            [p0, p1], "t2_recovery_seconds": secs}
+
+
+def t2_phase(torch, dev):
+    """Phase 12d (a) and (b): T2 ray-batch training at the training bench's
+    width (the depth-7 SH9 solid tree, full-depth LUT), then the gradient
+    checks and the recovery gate on the demo scene."""
+    import dataclasses
+    from volrend_torch import train
+    from volrend_torch.models.synthetic import make_solid_tree
+    from volrend_torch.ops import grad as grad_mod, render_exact
+    from volrend_torch.ops.camera import Camera
+    from volrend_torch.probes import _common
+    from volrend_torch.utils.options import RenderOptions
+
+    topt = RenderOptions(max_steps=T2_MAX_STEPS, renormalize=False)
+    tree = _common.load_tree(CACHE_TRAIN, lambda: make_solid_tree(
+        max_depth=DEPTH, basis_dim=9, seed=7))
+    clean = tree.to_device(lut_depth=None, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    noisy = dataclasses.replace(clean, data=(
+        clean.data.float() + T2_NOISE * torch.randn(
+            tuple(clean.data.shape), generator=gen, device=dev)
+    ).to(torch.float16))
+    cams = train_orbit(Camera)
+    rays = [c.pixel_rays(xp=np) for c in cams]
+    rng = np.random.default_rng(7)
+
+    def batch(n):
+        """n rays drawn from the 4 poses; the clean tree's exact render of
+        them as the target; all on the card."""
+        k = rng.integers(0, len(cams), n)
+        px = rng.integers(0, W * H, n)
+        o = torch.as_tensor(np.stack([rays[a][0][b] for a, b in zip(k, px)]),
+                            device=dev)
+        d = torch.as_tensor(np.stack([rays[a][1][b] for a, b in zip(k, px)]),
+                            device=dev)
+        return o, d, render_exact.render_rays(clean, o, d, topt)
+
+    held = batch(T2_HELD)
+
+    def held_loss(tr):
+        with torch.no_grad():
+            out = grad_mod.render_rays_train(tr.tree, held[0], held[1],
+                                             tr.opt, data=tr.data)
+            return float(torch.mean((out[:, :3] - held[2][:, :3]) ** 2))
+
+    out = {"t2_leaves": int(clean.data.shape[0])}
+    for n in T2_BATCHES:
+        batches = [batch(n) for _ in range(T2_WARM + T2_STEPS + 3)]
+        tr = train.Trainer(noisy, topt, lr=T2_LR)
+        h0 = held_loss(tr)
+        for b in batches[:T2_WARM]:
+            tr.step(*b)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, iters, losses = [], [], []
+        for b in batches[T2_WARM:T2_WARM + T2_STEPS]:
+            render_exact.reset_march_counts()
+            t0 = time.perf_counter()
+            losses.append(tr.step(*b))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            iters.append(dict(render_exact.march_counts))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        render_exact.reset_march_counts()
+        _, n_sync = sync_count(torch, lambda: tr.step(*batches[-3]))
+        counted = dict(render_exact.march_counts)
+        render_exact.reset_march_counts()
+        prof = _common.profile_run(lambda: tr.step(*batches[-2]),
+                                   f"T2 step, {n} rays", log)
+        traced = dict(render_exact.march_counts)
+        n_kern = sum(v[1] for v in prof.values())
+        per_iter = n_kern / max(1, traced["fwd"] + traced["bwd"])
+        h1 = held_loss(tr)
+        med = float(np.median(ms))
+        fwd = [c["fwd"] for c in iters]
+        bwd = [c["bwd"] for c in iters]
+        syn = [c["syncs"] for c in iters]
+        log(f"T2 Trainer.step [{n} rays, {len(clean.data)} leaves, {W}x{H} "
+            f"orbit rays]: median {med:.2f} ms over {T2_STEPS} steps "
+            f"({n / med:.1f} krays/s), steps (ms) "
+            f"{[round(x, 2) for x in ms]}; peak {peak:.3f} GiB allocated; "
+            f"march iterations forward {fwd}, backward {bwd}; the march's "
+            f"host syncs {syn} a step (every "
+            f"{render_exact.ACTIVE_CHECK_EVERY} iterations, each way, plus "
+            f"the loss); sync debug mode counted {n_sync} synchronizing "
+            f"operations in one step ({counted}); the traced step launched "
+            f"{n_kern} kernels over {traced['fwd']} + {traced['bwd']} "
+            f"iterations ({per_iter:.1f} a iteration); held-out loss "
+            f"{h0:.6f} -> {h1:.6f}; step losses "
+            f"{[round(x, 6) for x in losses]}")
+        if not (np.all(np.isfinite(losses)) and h1 < h0):
+            fail(f"T2 [{n} rays]: the held-out loss did not fall "
+                 f"({h0:.6f} -> {h1:.6f})")
+        out[f"t2_{n}"] = {
+            "median_ms": med, "step_ms": ms, "peak_gib": peak,
+            "fwd_iterations": fwd, "bwd_iterations": bwd,
+            "march_syncs": syn, "sync_debug_syncs": n_sync,
+            "kernels_per_iteration": per_iter, "held_loss": [h0, h1]}
+        del tr, batches
+        torch.cuda.empty_cache()
+    del clean, noisy
+    torch.cuda.empty_cache()
+    out.update(t2_grad_checks(torch, dev))
+    out.update(t2_recovery(torch, dev))
+    return out
+
+
+def _write_pose(path, transform) -> None:
+    c2w = np.eye(4)
+    c2w[:3] = np.asarray(transform, np.float64).reshape(3, 4)
+    np.savetxt(path, c2w)
+
+
+def _write_intrin(path, f) -> None:
+    k = np.eye(4)
+    k[0, 0] = k[1, 1] = f
+    np.savetxt(path, k)
+
+
+def _headless(torch, argv, subprocess_run: bool):
+    """One headless run (``python -m volrend_torch.cli.headless argv``) as
+    a subprocess or in this process; returns (ms per frame, fps, stderr)."""
+    import io
+    from volrend_torch.cli import headless
+    if subprocess_run:
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (HERE, env.get("PYTHONPATH")) if p)
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m",
+                              "volrend_torch.cli.headless", *argv],
+                             cwd=HERE, env=env, capture_output=True,
+                             text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if res.returncode != 0:
+            fail(f"headless {argv[-4:]} exited {res.returncode}: "
+                 f"{res.stderr[-3000:]}")
+        out, err = res.stdout, res.stderr
+    else:
+        so, se = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se):
+            rc = headless.main(list(argv))
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"headless {argv[-4:]} returned {rc}")
+        out, err = so.getvalue(), se.getvalue()
+    vals = {}
+    for line in out.splitlines():
+        for key in ("ms per frame", "fps"):
+            if line.strip().endswith(key):
+                vals[key] = float(line.split()[0])
+    if len(vals) != 2:
+        fail(f"headless {argv[-4:]}: no ms per frame / fps in {out!r}")
+    return vals["ms per frame"], vals["fps"], err.strip(), wall
+
+
+def headless_phase(torch, dev):
+    """Phase 12d (c): the headless batch renderer on the dense bench scene
+    (its npz cache, written by N3Tree.save_npz): HEADLESS_POSES orbit poses
+    and tools/perf_split.py's e = 0.5 sweep pose as 4x4 txt files, each
+    with its intrinsics txt, through ``--renderer slab`` as subprocesses;
+    the PNGs against render_frames / render_frame_split; a counted
+    in-process run; ``--renderer exact`` at scale 0.25 against
+    render_image; ``--renderer oracle`` on a small tree against the exact
+    renderer."""
+    import shutil
+    from volrend_torch.cli import headless, opts
+    from volrend_torch.models.synthetic import make_test_tree
+    from volrend_torch.ops import dense_grid, render_exact, slab_render
+    from volrend_torch.ops.camera import Camera, poses_from_files, read_intrins
+    from volrend_torch.probes import _common
+    from volrend_torch.utils.png import read_png, rgba_to_bytes
+
+    shutil.rmtree(HEADLESS_DIR, ignore_errors=True)
+    os.makedirs(HEADLESS_DIR)
+    _common.get_tree()                           # writes the npz cache
+    tree_path = _common.CACHE
+    cams = _common.orbit_poses(HEADLESS_POSES)
+    poses = []
+    for i, c in enumerate(cams):
+        poses.append(os.path.join(HEADLESS_DIR, f"orbit_{i:03d}.txt"))
+        _write_pose(poses[-1], c.transform)
+    intrin = os.path.join(HEADLESS_DIR, "intrin.txt")
+    _write_intrin(intrin, cams[0].fx)
+    scam = split_sweep_poses(Camera)[0]
+    split_pose = os.path.join(HEADLESS_DIR, "split_e05.txt")
+    _write_pose(split_pose, scam.transform)
+    split_intrin = os.path.join(HEADLESS_DIR, "intrin_split.txt")
+    _write_intrin(split_intrin, scam.fx)
+    common = ["-W", str(W), "-H", str(H), "--device", str(dev)]
+    out_dir = os.path.join(HEADLESS_DIR, "slab")
+    res = {}
+    ms, fps, err, wall = _headless(
+        torch, [tree_path, *poses, "-i", intrin, *common, "--renderer",
+                "slab", "-o", out_dir], True)
+    log(f"headless slab [{HEADLESS_POSES} orbit poses, subprocess, wall "
+        f"{wall:.1f} s]: {ms:.3f} ms per frame, {fps:.3f} fps; {err}")
+    res.update(headless_slab_ms=ms, headless_slab_fps=fps,
+               headless_slab_wall_s=wall)
+    ms2, fps2, err2, wall2 = _headless(
+        torch, [tree_path, split_pose, "-i", split_intrin, *common,
+                "--renderer", "slab", "-o", out_dir], True)
+    log(f"headless slab [the e = 0.5 split pose, subprocess, wall "
+        f"{wall2:.1f} s]: {ms2:.3f} ms per frame, {fps2:.3f} fps; {err2}")
+    res.update(headless_split_ms=ms2, headless_split_fps=fps2)
+
+    # the frames the CLI must have written, rendered here from the same
+    # files through the same entry points
+    args = headless.build_parser().parse_args([tree_path, poses[0]])
+    hopt = opts.render_options_from_args(args).replace(max_steps=4096)
+    from volrend_torch.models.n3tree import N3Tree
+    tdev = N3Tree(tree_path).to_device(lut_depth=None, device=dev)
+    grid = dense_grid.bake_dense(tdev)
+    gi = slab_render.default_gi(grid)
+    trans, names = poses_from_files(poses)
+    fx, fy = read_intrins(intrin)
+    fcams = [Camera(W, H, fx, fy, t) for t in trans]
+    groups = {}
+    for i, c in enumerate(fcams):
+        perm, flip, slope = slab_render.choose_axis(grid, c.transform, fx,
+                                                    fy, W, H)
+        if not (np.isfinite(slope) and slope < slab_render.MAX_SLAB_SLOPE):
+            fail(f"headless: orbit pose {i} past the slab gate")
+        groups.setdefault((perm, flip), []).append(i)
+    n_diff = 0
+    for (perm, flip), idx in groups.items():
+        frames = slab_render.render_frames(
+            grid, torch.as_tensor(np.stack([trans[i] for i in idx]),
+                                  device=dev), fx, fy, perm, flip, W, H,
+            hopt, gi=gi, payload=slab_render.prepare_payload(grid, perm,
+                                                             hopt),
+            out_dtype=torch.uint8).cpu().numpy()
+        for j, i in enumerate(idx):
+            png_img = read_png(os.path.join(out_dir, names[i] + ".png"))
+            n_diff += int(not np.array_equal(png_img, frames[j]))
+    log(f"headless slab PNGs against render_frames (gi {gi}, "
+        f"{len(groups)} groups): {HEADLESS_POSES - n_diff} of "
+        f"{HEADLESS_POSES} byte-equal")
+    if n_diff:
+        fail(f"headless: {n_diff} slab PNGs differ from render_frames")
+    sfx, sfy = read_intrins(split_intrin)
+    (strans,), _ = poses_from_files([split_pose])
+    sframe = rgba_to_bytes(slab_render.render_frame_split(
+        grid, strans, sfx, sfy, W, H, hopt, gi=gi).cpu().numpy())
+    spng = read_png(os.path.join(out_dir, "split_e05.png"))
+    serr = int(np.abs(spng.astype(np.int32) - sframe).max())
+    log(f"headless split PNG against render_frame_split: max {serr} "
+        f"quanta, {int((spng != sframe).any(-1).sum())} pixels differ")
+    if serr > 1:
+        fail(f"headless: the split pose's PNG is {serr} quanta from "
+             "render_frame_split's")
+    del grid
+    torch.cuda.empty_cache()
+
+    # the counted in-process run: warm-up + timed pass, every orbit pose
+    # through M, W and the fit mode, no plain version
+    reset_counts()
+    plain = count_plain_calls()
+    try:
+        ms3, fps3, _, _ = _headless(
+            torch, [tree_path, *poses, "-i", intrin, *common], False)
+    finally:
+        restore_plain()
+    counts = read_counts()
+    log(f"headless slab in process: {ms3:.3f} ms per frame, {fps3:.3f} "
+        f"fps; counts {counts}; plain calls {plain}")
+    n2 = 2 * HEADLESS_POSES
+    if (counts["march_poses"] != n2 or counts["warp_poses"] != n2
+            or counts["fit"] < 1 or counts["build"] or counts["combine"]
+            or counts["ref_warp_poses"] or any(plain.values())):
+        fail(f"headless: not every orbit pose went through M, W and the "
+             f"fit mode alone ({counts}, plain {plain})")
+    res.update(headless_counts=counts)
+
+    # --renderer exact at scale 0.25, one image
+    ex_dir = os.path.join(HEADLESS_DIR, "exact")
+    ms4, fps4, _, _ = _headless(
+        torch, [tree_path, poses[0], "-i", intrin, *common, "--renderer",
+                "exact", "--max_imgs", "1", "--scale", "0.25", "-o", ex_dir],
+        False)
+    w4, h4 = int(W * 0.25), int(H * 0.25)
+    ecam = Camera(w4, h4, fx * 0.25, fy * 0.25, trans[0])
+    eimg = rgba_to_bytes(render_exact.render_image(tdev, ecam, hopt)
+                         .cpu().numpy())
+    epng = read_png(os.path.join(ex_dir, names[0] + ".png"))
+    eerr = int(np.abs(epng.astype(np.int32) - eimg).max())
+    log(f"headless exact [{w4}x{h4}]: {ms4:.3f} ms per frame, {fps4:.3f} "
+        f"fps; PNG against render_image: max {eerr} quanta")
+    if eerr > 1:
+        fail(f"headless: the exact PNG is {eerr} quanta from render_image")
+    res.update(headless_exact_ms=ms4, headless_exact_fps=fps4)
+    del tdev
+    torch.cuda.empty_cache()
+
+    # --renderer oracle on a small tree against the exact renderer
+    small = make_test_tree(max_depth=3, basis_dim=4, seed=5)
+    small_path = os.path.join(HEADLESS_DIR, "small.npz")
+    small.save_npz(small_path)
+    back = np.array([1.0, 0.2, 0.3])
+    back /= np.linalg.norm(back)
+    ocam = Camera.from_vectors(center=tuple(2.5 * back), v_back=tuple(back),
+                               width=24, height=24, fx=30.0)
+    opose = os.path.join(HEADLESS_DIR, "oracle_pose.txt")
+    _write_pose(opose, ocam.transform)
+    ointrin = os.path.join(HEADLESS_DIR, "intrin_oracle.txt")
+    _write_intrin(ointrin, ocam.fx)
+    or_dir = os.path.join(HEADLESS_DIR, "oracle")
+    ms5, _, _, _ = _headless(
+        torch, [small_path, opose, "-i", ointrin, "-W", "24", "-H", "24",
+                "--device", str(dev), "--renderer", "oracle", "-o", or_dir],
+        False)
+    (otrans,), _ = poses_from_files([opose])
+    ofx, ofy = read_intrins(ointrin)
+    ref = render_exact.render_image(
+        small.to_device(lut_depth=None, device=dev),
+        Camera(24, 24, ofx, ofy, otrans), hopt).cpu().numpy()
+    ogot = read_png(os.path.join(or_dir, "oracle_pose.png")) / 255.0
+    p_or = psnr(ogot[..., :3], rgba_to_bytes(ref)[..., :3] / 255.0)
+    log(f"headless oracle [24x24, depth-3 tree]: {ms5:.1f} ms per frame; "
+        f"PNG against the exact renderer's frame {p_or:.2f} dB (floor "
+        f"{FLOOR_ORACLE})")
+    if not p_or >= FLOOR_ORACLE:
+        fail(f"headless: the oracle's PNG at {p_or:.2f} dB < {FLOOR_ORACLE}")
+    res.update(headless_oracle_psnr_db=p_or, headless_oracle_ms=ms5)
+    shutil.rmtree(HEADLESS_DIR, ignore_errors=True)
+    return res
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3742,6 +4269,10 @@ def main() -> None:
     # ---- 12c. mesh overlays, the display knobs, a quantized tree ------------
     overlay = overlay_phase(torch, kernels, dev, opt, stats, gate, groups_of)
 
+    # ---- 12d. T2 ray-batch training, the headless batch renderer -----------
+    t2 = t2_phase(torch, dev)
+    t2.update(headless_phase(torch, dev))
+
     # ---- 13. result ---------------------------------------------------------
     summary = {"card": card, "m_launches": stats.get("M_launches"),
                "warp_stage": stats.get("warp_stage"),
@@ -3755,7 +4286,7 @@ def main() -> None:
                "train_lean_kernels": stats.get("train_lean_kernels"), **tsum,
                **probe, **steep, **ndc, "variants": variants,
                "train_variants": train_variants, "overlay": overlay,
-               "m_variant_launches": stats.get("M_variants"),
+               "m_variant_launches": stats.get("M_variants"), "t2": t2,
                "seconds": time.perf_counter() - _T0}
     log(f"summary {json.dumps(summary)}")
     spec = (

@@ -35,7 +35,10 @@ MODULES = [
     "volrend_torch.probes.tma_box", "volrend_torch.probes.display_info",
     "volrend_torch.models.mesh", "volrend_torch.ops.rasterize",
     "volrend_torch.ops.composite", "volrend_torch.compress",
-    "volrend_torch.models.quantized",
+    "volrend_torch.models.quantized", "volrend_torch.ops.grad",
+    "volrend_torch.ops.oracle", "volrend_torch.utils.png",
+    "volrend_torch.cli", "volrend_torch.cli.opts",
+    "volrend_torch.cli.headless",
 ]
 
 
@@ -126,23 +129,39 @@ def test_c_entries_match_their_argtypes(name):
         assert want == argtypes, (src, fn)
 
 
-@pytest.mark.parametrize("entry", ["to_device", "bake_dense", "resolve"])
-def test_entry_points_default_to_cuda(entry):
+@pytest.mark.parametrize("entry", ["to_device", "bake_dense", "resolve",
+                                   "trainer", "headless"])
+def test_entry_points_default_to_cuda(entry, tmp_path):
     """Called without ``device=`` on a machine with no card, the entry
-    points raise instead of running on the CPU."""
+    points raise instead of running on the CPU: the ray-batch Trainer
+    (on a tree uploaded by default) and the headless CLI (without
+    ``--device cpu``) too."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
+    from volrend_torch import train
+    from volrend_torch.cli import headless
     from volrend_torch.models.synthetic import make_test_tree
     from volrend_torch.ops import dense_grid
     from volrend_torch.utils.device import resolve
     tree = make_test_tree(max_depth=1, basis_dim=1, seed=0)
+    tree_path, pose = str(tmp_path / "t.npz"), str(tmp_path / "p.txt")
+    tree.save_npz(tree_path)
+    np.savetxt(pose, np.eye(4))
     call = {"to_device": lambda: tree.to_device(),
             "bake_dense": lambda: dense_grid.bake_dense(tree),
-            "resolve": lambda: resolve(None)}[entry]
+            "resolve": lambda: resolve(None),
+            "trainer": lambda: train.Trainer(tree.to_device()),
+            "headless": lambda: headless.main([tree_path, pose])}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
     # asking for the CPU explicitly works
     assert tree.to_device(device="cpu").data.device.type == "cpu"
+    if entry == "trainer":
+        tr = train.Trainer(tree.to_device(device="cpu"))
+        assert tr.data.device.type == "cpu"
+    if entry == "headless":
+        assert headless.main([tree_path, pose, "--device", "cpu", "-W",
+                              "4", "-H", "4", "--renderer", "exact"]) == 0
 
 
 def _march_args(**over):

@@ -232,9 +232,15 @@ def test_lean_trainer_keeps_grid_metadata_only(setting):
                                     "step_frame_zsharded",
                                     "step_frames_sharded"])
 def test_later_slices_raise(setting, method):
-    """Ray-batch training (ROADMAP item 18) and the sharded steps (slice D)
-    raise NotImplementedError naming where they come."""
+    """FrameTrainer refuses ray batches with the reference's TypeError
+    (``step``, ``step_sharded``: ray-batch training is ``Trainer.step``);
+    the sharded frame steps (slice D) raise NotImplementedError naming where
+    they come."""
     _, tdev, _, _ = setting
     tr = train.FrameTrainer(tdev, OPT, lr=LR, gi=GI)
+    if method in ("step", "step_sharded"):
+        with pytest.raises(TypeError, match="use Trainer for ray-batch"):
+            getattr(tr, method)()
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         getattr(tr, method)()

@@ -2,10 +2,11 @@
 
 The inputs are the fields of ``volrend_tpu``'s ``TreeArrays`` / ``DenseGrid``
 (or any producer of the same layout) as numpy arrays, plus their static
-metadata, or a ``FrameTrainer``'s state; the outputs are the port's tensor
-dataclasses, parameters and optimizer state on ``device``. The tests use
-these to march identical payloads through both packages, and
-``train.FrameTrainer.restore_checkpoint`` to carry a trainer's state across.
+metadata, or a ``Trainer``'s or ``FrameTrainer``'s state; the outputs are
+the port's tensor dataclasses, parameters and optimizer state on
+``device``. The tests use these to march identical payloads through both
+packages, and the trainers' ``restore_checkpoint`` to carry a trainer's
+state across.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from volrend_torch.ops.dense_grid import DenseGrid
 from volrend_torch.utils.device import DeviceLike, resolve
 
 __all__ = ["tree_from_numpy", "grid_from_numpy",
-           "frame_trainer_state_from_numpy"]
+           "trainer_state_from_numpy", "frame_trainer_state_from_numpy"]
 
 
 def _t(a, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
@@ -96,6 +97,41 @@ def grid_from_numpy(data, offset, scale, extra, qscale, sigma_grid, *,
         ndc=None if ndc is None else tuple(float(v) for v in ndc))
 
 
+def _opt_state(opt_leaves: Sequence, optimizer, shapes, dev,
+               what: str) -> dict:
+    leaves = [torch.from_numpy(np.array(_widen_bf16(np.asarray(x)),
+                                        order="C")).to(dev)
+              for x in opt_leaves]
+    state = optimizer.from_leaves(leaves)
+    for name in ("mu", "nu"):
+        if [tuple(m.shape) for m in state[name]] != shapes:
+            raise ValueError(f"optimizer moments ({name}) do not match the "
+                             f"{what}")
+    return state
+
+
+def trainer_state_from_numpy(data, opt_leaves: Sequence, optimizer,
+                             device: DeviceLike = None
+                             ) -> Tuple[torch.Tensor, dict]:
+    """A ray-batch Trainer's state -> the port trainer's f32 master leaf
+    rows and optimizer state on ``device``.
+
+    data: the (K, D) leaf rows (a numpy array or a tensor). opt_leaves: the
+        optimizer state's leaves in the reference's
+        ``jax.tree_util.tree_flatten`` order, ``optax.adam``'s (count, mu,
+        nu) or ``lean_adam``'s (m, v, t), as for
+        ``frame_trainer_state_from_numpy``. optimizer: the port trainer's
+        ``train.Adam``."""
+    dev = resolve(device)
+    if isinstance(data, torch.Tensor):
+        data = data.detach().to(dev, torch.float32)
+    else:
+        data = _t(data, torch.float32, dev)
+    state = _opt_state(opt_leaves, optimizer, [tuple(data.shape)], dev,
+                       "leaf rows' shape")
+    return data, state
+
+
 def frame_trainer_state_from_numpy(pyramid: Sequence, opt_leaves: Sequence,
                                    optimizer, device: DeviceLike = None
                                    ) -> Tuple[List[torch.nn.Parameter],
@@ -116,13 +152,7 @@ def frame_trainer_state_from_numpy(pyramid: Sequence, opt_leaves: Sequence,
                                  if not isinstance(p, torch.Tensor)
                                  else p.detach().to(dev, torch.float32))
               for p in pyramid]
-    leaves = [torch.from_numpy(np.array(_widen_bf16(np.asarray(x)),
-                                        order="C")).to(dev)
-              for x in opt_leaves]
-    state = optimizer.from_leaves(leaves)
-    for name in ("mu", "nu"):
-        if [tuple(m.shape) for m in state[name]] != [tuple(p.shape)
-                                                     for p in params]:
-            raise ValueError(f"optimizer moments ({name}) do not match the "
-                             "pyramid's level shapes")
+    state = _opt_state(opt_leaves, optimizer,
+                       [tuple(p.shape) for p in params], dev,
+                       "pyramid's level shapes")
     return params, state

@@ -6,13 +6,16 @@ Same conventions as the reference (``src/camera.cpp``,
 (``src/cuda/volrend.cu:22-32``): d_cam = ((ix-W/2)/fx, -(iy-H/2)/fy, -1).
 Default focal 1111.11 (camera.hpp:12) and default orbit pose (camera.cpp:32-36).
 
-The pose-file readers and the drag camera of the apps are ported with the
-apps; the display path needs the camera and its rays only.
+The pose-file readers of the headless renderer (``main_headless.cpp``) are
+host numpy; the drag camera of the viewer and the animator is ported with
+those apps.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -85,3 +88,57 @@ class Camera:
         origins = xp.broadcast_to(
             xp.asarray(self.transform[:, 3]), dirs.shape)
         return origins, dirs
+
+
+# ---------------------------------------------------------------------------
+# Pose files (main_headless.cpp)
+# ---------------------------------------------------------------------------
+
+def opencv_to_nerf(transform: np.ndarray) -> np.ndarray:
+    """Flip OpenCV camera axes to NeRF convention: negate y & z columns."""
+    out = np.array(transform, np.float32).reshape(3, 4).copy()
+    out[:, 1] *= -1
+    out[:, 2] *= -1
+    return out
+
+
+def read_transform_matrices(path: str) -> List[np.ndarray]:
+    """Read one or more 3x4/4x4 row-major C2W poses from a whitespace txt.
+
+    Matches main_headless.cpp:40-63: reads rows of 4 floats; every 4th row
+    (if present) is discarded; multiple matrices may be concatenated.
+    """
+    vals = np.loadtxt(path, dtype=np.float32).reshape(-1, 4)
+    out = []
+    i = 0
+    n = vals.shape[0]
+    while i + 3 <= n:
+        out.append(vals[i:i + 3].copy())
+        i += 3
+        if i < n:
+            i += 1  # homogeneous/garbage row, consumed whenever present
+    return out
+
+
+def read_intrins(path: str) -> Tuple[float, float]:
+    """fx, fy from a 4x4 intrinsics txt (main_headless.cpp:65-74)."""
+    vals = np.loadtxt(path, dtype=np.float32).reshape(-1)
+    return float(vals[0]), float(vals[5])
+
+
+def poses_from_files(paths: Sequence[str], reverse_yz: bool = False
+                     ) -> Tuple[List[np.ndarray], List[str]]:
+    """Load poses + basenames like the headless app
+    (main_headless.cpp:113-128)."""
+    trans, basenames = [], []
+    for path in paths:
+        mats = read_transform_matrices(path)
+        stem = os.path.splitext(os.path.basename(path))[0]
+        if len(mats) == 1:
+            basenames.append(stem)
+        else:
+            basenames.extend(f"{stem}_{i:06d}" for i in range(len(mats)))
+        trans.extend(mats)
+    if reverse_yz:
+        trans = [opencv_to_nerf(t) for t in trans]
+    return trans, basenames

@@ -8,6 +8,14 @@ leaf-pointer LUT (``models/n3tree.py:build_lut``), and the march is a Python
 loop that exits once no ray is active. The dense bake (``dense_grid``) uses
 its query; the display path's quality gate compares against its frames.
 
+Training (T2): ``render_rays(..., differentiable=True)`` runs a fixed-length
+loop of ``n_steps`` that autograd differentiates through (the reference's
+``lax.scan`` ground truth); ``ops/grad.py``'s fused VJP marches with the
+training semantics of ``_finalize``. Whether any ray is still active is a
+host sync; the loop asks every ``ACTIVE_CHECK_EVERY`` iterations (rays that
+finished are masked, so the extra iterations change nothing), and
+``march_counts`` counts the iterations and the syncs.
+
 All math float32; leaf data stays fp16 on the device and is widened per
 sample, as the CUDA reference does (rt_core.cuh:118-119).
 """
@@ -25,9 +33,45 @@ from volrend_torch.ops import basis as basis_mod
 from volrend_torch.utils.options import RenderOptions
 
 __all__ = ["TreeMeta", "tree_meta", "query_batched", "render_rays",
-           "render_image", "prepare_rays", "world2ndc"]
+           "render_image", "prepare_rays", "world2ndc", "march_counts",
+           "reset_march_counts", "ACTIVE_CHECK_EVERY"]
 
 _F32 = torch.float32
+
+#: the march asks the device whether any ray is active (a host sync) once
+#: every this many iterations
+ACTIVE_CHECK_EVERY = 8
+
+#: iterations of the forward march (``fwd``, the while-march and the
+#: fixed-length differentiable loop), of the fused backward's re-march
+#: (``bwd``, ops/grad.py), and the host syncs both made
+march_counts = {"fwd": 0, "bwd": 0, "syncs": 0}
+
+
+def reset_march_counts() -> None:
+    for k in march_counts:
+        march_counts[k] = 0
+
+
+def any_active(active: torch.Tensor, i: int) -> bool:
+    """False once no ray is active, asked on iteration ``i`` of a march
+    when ``i`` is a multiple of ACTIVE_CHECK_EVERY (else True)."""
+    if i % ACTIVE_CHECK_EVERY:
+        return True
+    march_counts["syncs"] += 1
+    return bool(active.any())
+
+
+_CONSTS = {}
+
+
+def _const(values, device) -> torch.Tensor:
+    """A small f32 constant on ``device``, copied there once: a copy from
+    host memory at every use would wait for the device each time."""
+    key = (tuple(float(v) for v in values), str(device))
+    if key not in _CONSTS:
+        _CONSTS[key] = torch.tensor(key[0], dtype=_F32, device=device)
+    return _CONSTS[key]
 
 
 class TreeMeta(NamedTuple):
@@ -98,9 +142,8 @@ def _query(child, lut, pos, meta: TreeMeta):
         leaf_idx = torch.where(is_leaf, e >> 4, zeros_i)
         depth = torch.where(is_leaf, e & 15,
                             torch.full_like(e, meta.lut_depth))
-        cube_table = torch.as_tensor(
-            np.float32(N) ** np.arange(16, dtype=np.float32),
-            device=xyz.device)
+        cube_table = _const(np.float32(N) ** np.arange(16, dtype=np.float32),
+                            xyz.device)
         cube_sz = cube_table[depth.long()]
         scaled = xyz * cube_sz[..., None]
         rel = scaled - torch.floor(scaled)
@@ -191,7 +234,7 @@ def prepare_rays(tree: TreeArrays, origins, dirs, opt: RenderOptions):
     cen = tree.offset + tree.scale * origins
     R = _rodrigues_matrix(opt.rot_dirs)
     if R is not None:
-        vdir = vdir @ torch.as_tensor(R, device=vdir.device).T
+        vdir = vdir @ _const(R.ravel(), vdir.device).reshape(3, 3).T
     d = dirs * tree.scale
     delta_scale = 1.0 / _norm(d)
     d = d * delta_scale[..., None]
@@ -202,8 +245,8 @@ def prepare_rays(tree: TreeArrays, origins, dirs, opt: RenderOptions):
 def _dda_world(cen, invdir, render_bbox):
     """Batched ray/bbox clip (rt_core.cuh:17-34)."""
     bb = np.asarray(render_bbox, np.float32)
-    lo = torch.as_tensor(bb[:3] + 1e-6, device=cen.device)
-    hi = torch.as_tensor(bb[3:] - 1e-6, device=cen.device)
+    lo = _const(bb[:3] + np.float32(1e-6), cen.device)
+    hi = _const(bb[3:] - np.float32(1e-6), cen.device)
     t1 = (lo - cen) * invdir
     t2 = (hi - cen) * invdir
     tmin = torch.clamp(torch.amax(torch.minimum(t1, t2), -1), min=0.0)
@@ -253,11 +296,22 @@ def _sample_step(data, child, lut, meta: TreeMeta, opt: RenderOptions,
 
 
 def _march(data, child, lut, meta: TreeMeta, opt: RenderOptions,
-           cen, d, invdir, delta_scale, basis_vals, tmin, tmax):
+           cen, d, invdir, delta_scale, basis_vals, tmin, tmax,
+           differentiable: bool = False, n_steps: Optional[int] = None,
+           train: Optional[bool] = None):
     """Core march loop over a ray batch: every active ray steps until it
     leaves its [tmin, tmax) range or saturates (the reference's unbounded
-    ``while t < tmax``, capped at ``opt.max_steps``); the loop ends when no
-    ray is active."""
+    ``while t < tmax``).
+
+    differentiable=False: at most ``opt.max_steps`` iterations, ending once
+    no ray is active. differentiable=True: a fixed-length loop of
+    ``n_steps`` (default ``opt.max_steps``) that autograd differentiates
+    through; it too ends once no ray is active, since inactive rays are
+    masked either way. train: the training termination semantics of
+    ``_finalize``; defaults to ``differentiable``."""
+    if train is None:
+        train = differentiable
+    n_iter = (n_steps or opt.max_steps) if differentiable else opt.max_steps
     Rn = cen.shape[0]
     dev = cen.device
     hit = (tmax >= 0) & (tmin <= tmax)
@@ -266,9 +320,10 @@ def _march(data, child, lut, meta: TreeMeta, opt: RenderOptions,
     acc = torch.zeros((Rn, 3), dtype=_F32, device=dev)
     active = hit & (tmin < tmax)
     stopped = torch.zeros(Rn, dtype=torch.bool, device=dev)
-    for _ in range(opt.max_steps):
-        if not bool(active.any()):
+    for i in range(n_iter):
+        if not any_active(active, i):
             break
+        march_counts["fwd"] += 1
         _, sigma, delta_t, rgb, _ = _sample_step(
             data, child, lut, meta, opt, cen, d, invdir, basis_vals, t)
         valid = active & (sigma > opt.sigma_thresh)
@@ -286,18 +341,27 @@ def _march(data, child, lut, meta: TreeMeta, opt: RenderOptions,
         t = torch.where(active, t + delta_t, t)
         active = active & (t < tmax)
         stopped = stopped | stopped_now
-    return _finalize(light, acc, stopped, hit, opt)
+    return _finalize(light, acc, stopped, hit, opt, train)
 
 
-def _finalize(light, acc, stopped, hit, opt: RenderOptions):
-    """Per-ray termination semantics (rt_core.cuh:176-194)."""
+def _finalize(light, acc, stopped, hit, opt: RenderOptions,
+              train: bool = False):
+    """Per-ray termination semantics (rt_core.cuh:176-194). Training mode
+    skips the early-stop renormalization and keeps the smooth alpha
+    ``1 - light`` (a stopped ray is not forced to alpha 1), so gradients
+    stay well defined; its branches are not computed at all, so autograd
+    never meets the renormalization's 0/0 on rays that saw nothing."""
     Rn = light.shape[0]
     renorm = stopped & opt.renormalize
     if opt.render_depth:
         dep = torch.clamp(acc[:, 0] * 0.3, max=1.0)
-        dep = torch.where(renorm, dep / (1.0 - light), dep)
+        if not train:
+            dep = torch.where(renorm, dep / (1.0 - light), dep)
         rgb = torch.stack([dep, dep, dep], -1)
         alpha = torch.ones(Rn, dtype=_F32, device=light.device)
+    elif train:
+        rgb = acc
+        alpha = torch.where(hit, 1.0 - light, 0.0)
     else:
         rgb = torch.where(renorm[:, None], acc / (1.0 - light[:, None]), acc)
         # early-stopped rays report alpha=1 (rt_core.cuh:183)
@@ -311,9 +375,16 @@ def _finalize(light, acc, stopped, hit, opt: RenderOptions):
 # ---------------------------------------------------------------------------
 
 def render_rays(tree: TreeArrays, origins, dirs, opt: RenderOptions,
-                tmax_bg=None, bg_rgb=None):
+                tmax_bg=None, bg_rgb=None, differentiable: bool = False,
+                n_steps: Optional[int] = None):
     """Render world-space rays; returns (R, 4) RGBA with background
     composited (render_kernel offscreen semantics, volrend.cu:135-163).
+
+    differentiable=True: the fixed-length loop of ``n_steps`` (default
+    ``opt.max_steps``) with the training semantics, which autograd
+    differentiates through to ``tree.data`` (pass a tree whose data is an
+    f32 tensor that requires grad): the ground truth of ops/grad.py's fused
+    VJP.
 
     origins/dirs: (R, 3) tensors (or arrays) — moved to the tree's device.
     tmax_bg: optional (R,) world-space distance cap (a mesh pass's
@@ -333,7 +404,7 @@ def render_rays(tree: TreeArrays, origins, dirs, opt: RenderOptions,
         tmax = torch.minimum(tmax, tmax_bg / delta_scale)
     rgb, alpha = _march(tree.data, tree.child, tree.lut, tree_meta(tree),
                         opt, cen, d, invdir, delta_scale, basis_vals,
-                        tmin, tmax)
+                        tmin, tmax, differentiable, n_steps)
     remaining = (1.0 - alpha)[:, None]
     bg = float(opt.background_brightness)
     if bg_rgb is not None and tmax_bg is not None:

@@ -1,15 +1,21 @@
-"""Training: optimize per-leaf SH/sigma from whole-frame supervision (the
-counterpart of ``volrend_tpu/train.py``'s ``FrameTrainer``).
+"""Training: optimize per-leaf SH/sigma from pixel supervision (the
+counterpart of ``volrend_tpu/train.py``).
 
-Pixel L2 loss -> the differentiable slab path (``ops/slab_grad``: pyramid
-bake, kernel M in its training mode, the backward march kernel, the precise
-screen warp) -> grid-space (pyramid) gradients -> Adam on float32 master
-parameters, all on the trainer's device.
+``Trainer``: ray batches. Pixel L2 loss -> the exact renderer's fused
+hand-written backward (``ops/grad.py``: the T2 march and its O(1)-memory
+re-march) -> per-leaf gradients -> Adam on a float32 master copy of the
+leaf payloads.
 
-Checkpoints are plain npz files with the reference's keys (``step``,
-``data``, ``n_opt_leaves``, ``opt_i``) and leaf order, so a checkpoint
-written by either package restores into the other
-(``convert.frame_trainer_state_from_numpy``).
+``FrameTrainer``: whole frames. Pixel L2 loss -> the differentiable slab
+path (``ops/slab_grad``: pyramid bake, kernel M in its training mode, the
+backward march kernel, the precise screen warp) -> grid-space (pyramid)
+gradients -> Adam on float32 master parameters.
+
+Both run on the trainer's device. Checkpoints are plain npz files with the
+reference's keys (``step``, ``data``, ``n_opt_leaves``, ``opt_i``) and leaf
+order, so a checkpoint written by either package restores into the other
+(``convert.trainer_state_from_numpy``,
+``convert.frame_trainer_state_from_numpy``).
 """
 
 from __future__ import annotations
@@ -22,12 +28,13 @@ import numpy as np
 import torch
 
 from volrend_torch.models.n3tree import N3Tree, TreeArrays
+from volrend_torch.utils.device import to_device
 from volrend_torch.utils.options import RenderOptions
 
-__all__ = ["FrameTrainer", "Adam", "adam", "lean_adam", "psnr"]
+__all__ = ["Trainer", "FrameTrainer", "Adam", "adam", "lean_adam", "psnr"]
 
 _F32 = torch.float32
-_SLICE_C2 = "ROADMAP.md item 18 (T2 training)"
+_RAY_SHARDED = "slice D of the port (ROADMAP.md item 19)"
 _SLICE_D = "slice D of the port (ROADMAP.md item 20)"
 
 
@@ -132,7 +139,96 @@ def psnr(a, b) -> float:
     return float("inf") if mse == 0 else -10.0 * math.log10(mse)
 
 
-class FrameTrainer:
+class Trainer:
+    """Optimizes a tree's leaf payloads against (rays, rgb) batches through
+    the exact renderer's fused backward (``ops/grad.py``).
+
+    ``data`` is an f32 master copy of ``tree.data`` on the tree's device;
+    the optimizer is ``adam(lr)`` unless one is given. A codebook-quantized
+    tree (``QuantLeaves``) is not trainable (ValueError), as in the
+    reference, whose trainer densifies ``tree.data``."""
+
+    def __init__(self, tree: TreeArrays, opt: Optional[RenderOptions] = None,
+                 optimizer: Optional[Adam] = None, lr: float = 1e-2):
+        if hasattr(tree.data, "fetch_rows"):
+            raise ValueError(
+                "a codebook-quantized tree (QuantLeaves) is not trainable: "
+                "the trainer optimizes dense leaf rows; densify it first")
+        self.tree = tree
+        self.opt = (opt or RenderOptions()).replace(renormalize=False)
+        self.optimizer = optimizer or adam(lr)
+        self.data = tree.data.to(_F32, copy=True)
+        self.opt_state = self.optimizer.init([self.data])
+        self.step_count = 0
+
+    def step(self, origins, dirs, target) -> float:
+        """One Adam step on a ray batch ((R, 3) origins and directions,
+        (R, >=3) target colours: arrays or tensors); returns the mean RGB
+        L2 loss."""
+        from volrend_torch.ops import grad as grad_mod
+        dev = self.data.device
+        origins, dirs, target = (to_device(x, _F32, dev)
+                                 for x in (origins, dirs, target))
+        loss, g = grad_mod.l2_loss_and_grad(self.tree, origins, dirs, target,
+                                            self.opt, data=self.data)
+        self.optimizer.step([self.data], [g], self.opt_state)
+        self.step_count += 1
+        return float(loss)
+
+    def shard_batch(self, *args, **kw):
+        raise NotImplementedError(
+            f"ray-batch sharding comes with {_RAY_SHARDED}")
+
+    def step_sharded(self, *args, **kw):
+        raise NotImplementedError(
+            f"ray-batch sharded training comes with {_RAY_SHARDED}")
+
+    # -- state export ----------------------------------------------------------
+
+    def current_tree(self) -> TreeArrays:
+        """TreeArrays with the optimized payloads (f16, render-ready)."""
+        return dataclasses.replace(self.tree,
+                                   data=self.data.to(torch.float16))
+
+    def export_npz(self, host_tree: N3Tree, path: str) -> None:
+        """Write the optimized scene as a reference-compatible npz."""
+        ht = host_tree
+        shape = (ht.capacity, ht.N, ht.N, ht.N, ht.data_dim)
+        rows = self.data.cpu().numpy().astype(np.float16)[:, :ht.data_dim]
+        ht.data = rows.reshape(shape)
+        ht.save_npz(path)
+
+    # -- checkpoint / resume -----------------------------------------------------
+
+    def save_checkpoint(self, path: str) -> None:
+        leaves = self.optimizer.leaves(self.opt_state)
+        np.savez(
+            path,
+            step=np.int64(self.step_count),
+            data=self.data.cpu().numpy().astype(np.float32),
+            n_opt_leaves=np.int64(len(leaves)),
+            **{f"opt_{i}": _leaf_np(leaf) for i, leaf in enumerate(leaves)},
+        )
+
+    def _read_checkpoint(self, path: str):
+        with np.load(path, allow_pickle=False) as z:
+            step = int(z["step"])
+            data = np.asarray(z["data"], np.float32)
+            n = int(z["n_opt_leaves"])
+            leaves = [np.asarray(z[f"opt_{i}"]) for i in range(n)]
+        return step, data, leaves
+
+    def restore_checkpoint(self, path: str) -> None:
+        """Restore a checkpoint of this trainer or of the reference's
+        ``Trainer`` (same keys, same leaf order)."""
+        from volrend_torch import convert
+        step, data, leaves = self._read_checkpoint(path)
+        self.data, self.opt_state = convert.trainer_state_from_numpy(
+            data, leaves, self.optimizer, device=self.data.device)
+        self.step_count = step
+
+
+class FrameTrainer(Trainer):
     """Trains leaf payloads through the fast slab path (``ops/slab_grad``):
     whole-frame supervision, gradients flowing leaf -> baked grid -> slab
     march -> pixels.
@@ -151,6 +247,7 @@ class FrameTrainer:
     def __init__(self, tree: TreeArrays, opt: Optional[RenderOptions] = None,
                  optimizer: Optional[Adam] = None, lr: float = 1e-2,
                  G: Optional[int] = None, gi: int = 512, lean: bool = False):
+        # Trainer.__init__ is not called: the state lives in the pyramid
         from volrend_torch.ops import dense_grid, slab_grad
         if lean and optimizer is None:
             optimizer = lean_adam(lr)
@@ -194,14 +291,13 @@ class FrameTrainer:
 
     # -- steps -----------------------------------------------------------------
 
-    def step(self, *args, **kw):
-        raise NotImplementedError(
-            "ray-batch training (Trainer.step) comes with " + _SLICE_C2
-            + "; FrameTrainer takes whole frames (step_frame)")
+    def step(self, *args, **kw) -> float:
+        raise TypeError(
+            "FrameTrainer optimizes grid-space (pyramid) parameters and "
+            "takes whole-frame supervision (step_frame / "
+            "step_frames_sharded); use Trainer for ray-batch training")
 
-    def step_sharded(self, *args, **kw):
-        raise NotImplementedError(
-            "ray-batch sharded training comes with " + _SLICE_C2)
+    step_sharded = step
 
     def step_frame_zsharded(self, *args, **kw):
         raise NotImplementedError(
@@ -217,8 +313,7 @@ class FrameTrainer:
             self._axis_grid, cam.transform, cam.fx, cam.fy, cam.width,
             cam.height)
         if not np.isfinite(slope):
-            raise ValueError("pose not slab-renderable (ray-batch training "
-                             f"comes with {_SLICE_C2})")
+            raise ValueError("pose not slab-renderable; use Trainer.step")
         return perm, flip
 
     def step_frame(self, cam, target, sync: bool = True):
@@ -238,42 +333,13 @@ class FrameTrainer:
         self.step_count += 1
         return float(loss) if sync else loss
 
-    # -- state export ----------------------------------------------------------
-
-    def current_tree(self) -> TreeArrays:
-        """TreeArrays with the optimized payloads (f16, render-ready)."""
-        return dataclasses.replace(self.tree,
-                                   data=self.data.to(torch.float16))
-
-    def export_npz(self, host_tree: N3Tree, path: str) -> None:
-        """Write the optimized scene as a reference-compatible npz."""
-        ht = host_tree
-        shape = (ht.capacity, ht.N, ht.N, ht.N, ht.data_dim)
-        rows = self.data.cpu().numpy().astype(np.float16)[:, :ht.data_dim]
-        ht.data = rows.reshape(shape)
-        ht.save_npz(path)
-
     # -- checkpoint / resume -----------------------------------------------------
-
-    def save_checkpoint(self, path: str) -> None:
-        leaves = self.optimizer.leaves(self.opt_state)
-        np.savez(
-            path,
-            step=np.int64(self.step_count),
-            data=self.data.cpu().numpy().astype(np.float32),
-            n_opt_leaves=np.int64(len(leaves)),
-            **{f"opt_{i}": _leaf_np(leaf) for i, leaf in enumerate(leaves)},
-        )
 
     def restore_checkpoint(self, path: str) -> None:
         """Restore a checkpoint of this trainer or of the reference's
         ``FrameTrainer`` (same keys, same leaf order)."""
         from volrend_torch import convert
-        with np.load(path, allow_pickle=False) as z:
-            step = int(z["step"])
-            data = np.asarray(z["data"], np.float32)
-            n = int(z["n_opt_leaves"])
-            leaves = [np.asarray(z[f"opt_{i}"]) for i in range(n)]
+        step, data, leaves = self._read_checkpoint(path)
         self.data = data
         self.pyramid, self.opt_state = \
             convert.frame_trainer_state_from_numpy(
