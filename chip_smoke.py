@@ -186,19 +186,45 @@ Phases (any failure exits non-zero and prints no result):
     plain version), ``--renderer exact`` at scale 0.25 within one quantum
     of render_image, ``--renderer oracle`` on a depth-3 tree at 24x24 at
     >= 60 dB against the exact renderer;
+12e. the parallel layer (zshard_phase): (a) in this process, kernel M's
+    display mode on the dense scene's pose 0 (G=256 int8, gi=256, 800^2,
+    stop_thresh 0) over 2 and 4 z-segments, each launch with its z_base
+    and the upstream segments' state as acc_init (the resume variants)
+    against its plain version, the last against the whole-grid launch;
+    kernel M's training mode and M-bwd on 2 z-segments of the training
+    bench's G=256 SH9 bake (the forward chained through acc_init, the
+    backward of each segment from its incoming (T, A), state_init), each
+    against its plain version, the segments' cotangent within 1e-5
+    relative L2 of the whole grid's; the rows' times are the downstream
+    segment's launches as the sharded paths make them (z_base, no
+    acc_init; M-bwd with state_init), each also against its plain version;
+    (b) a two-rank gloo world, both ranks on cuda:0, and (c) a one-rank
+    NCCL world (launch.spawn, after the kernels are built) through the
+    same calls: the z-sharded frames of the dense scene's orbit group 0
+    against the unsharded frames, FrameTrainer.step_frame_zsharded against
+    step_frame (and each step's device memory above its base) and
+    step_frames_sharded over the 4 training poses against
+    a one-rank mesh (the dry run's tolerances), Trainer.step_sharded at
+    8192 rays against Trainer.step, a leaf-sharded render of the training
+    tree against the replicated one; each case's host-clock ms beside the
+    unsharded call's (two ranks sharing one card: a correctness run, not a
+    scaling number), the segment launches of world (b) counted from 0;
 13. one JSON line with every kernel's numbers (kernels B's and C's
     launches from phase 10's run, the display path that takes them; kernel
     M's display variants as rows of their own, their launches from phase
     12's counted runs; the training variants' rows of M and M-bwd by
     format and BK at D = 19 and 4, their launches from phase 12b's timed
     steps; kernel W's mesh mode and kernel M's dirslab and bf16shade
-    variants, their launches from phase 12c's counted runs), then the
-    result line.
+    variants, their launches from phase 12c's counted runs; kernel M's
+    and M-bwd's z-segment launches as rows of their own, their times from
+    phase 12e (a), their launches from world (b)'s run), then the result
+    line.
 """
 
 import contextlib
 import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -360,7 +386,8 @@ def tent_taps(torch, ry, rx, okm, win) -> int:
 
 
 def march_work(torch, pay, qs, zb, slab_ids, G: int, bd: int,
-               sigma_thresh: float, D=None, colour_planes=None, okb=None):
+               sigma_thresh: float, D=None, colour_planes=None, okb=None,
+               z_base: float = 0.0):
     """What this run's data asks of the march, counted from the payload and
     the per-pixel z intervals: a slab is marched for a pose when some
     pixel's interval [zlo, zhi] (zb[p, 0:2]) meets it; a voxel is shaded,
@@ -374,7 +401,9 @@ def march_work(torch, pay, qs, zb, slab_ids, G: int, bd: int,
     point where the ray saturates. ``D`` (default 3 * bd + 1), the colour
     planes read a voxel (default D - 1: fewer under a basis window, none in
     depth mode) and ``okb``, an in-plane (Gy, Gx) mask of the voxels a
-    render_bbox keeps, follow a display variant's format and options."""
+    render_bbox keeps, follow a display variant's format and options;
+    ``z_base``: the global z of a z-segment's first slab (its slab ids are
+    local)."""
     D = 3 * bd + 1 if D is None else D
     colour_planes = D - 1 if colour_planes is None else colour_planes
     Gy, Gx = pay.shape[2], pay.shape[3]
@@ -393,7 +422,7 @@ def march_work(torch, pay, qs, zb, slab_ids, G: int, bd: int,
     over = np.asarray(over, np.int64)
     hG = 0.5 / G
     z = (torch.as_tensor(ids, dtype=torch.float32, device=zb.device)
-         + 0.5) / G
+         + 0.5) / G + z_base
     marched = np.zeros(len(ids), bool)
     over_p, pairs_p = [], []
     for p in range(zb.shape[0]):
@@ -3731,6 +3760,542 @@ def headless_phase(torch, dev):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 12e: the parallel layer (z-segments of kernels M and M-bwd; the
+# sharded renders and trainers on torch.distributed)
+# ---------------------------------------------------------------------------
+
+#: the kernels line's rows of this phase: kernel M's display and training
+#: modes and M-bwd on z-segments (z_base, acc_init, state_init)
+ZSEG_ROWS = (
+    ("MZ", "slab_march_display_zseg",
+     "volrend_torch/csrc/slab_march_display.cu",
+     "volrend_tpu/ops/pallas_slab.py:344"),
+    ("MTZ", "slab_march_train_zseg", "volrend_torch/csrc/slab_march.cu",
+     "volrend_tpu/ops/pallas_slab.py:344"),
+    ("MBZ", "slab_march_bwd_zseg", "volrend_torch/csrc/slab_march_bwd.cu",
+     "volrend_tpu/ops/pallas_slab.py:951"),
+)
+TOL_ZSEG_BWD_REL = 1e-5     # the segments' cotangent against the whole's
+TOL_ZSTEP_LOSS = 1e-5       # the dry run's: a sharded step's loss, relative
+TOL_ZSTEP_ATOL = 2e-4       # ... and its parameters
+TOL_ZSTEP_RTOL = 1e-4
+# z-sharded frames against unsharded ones: their accumulators agree to f32
+# rounding, but the display warp quantizes the intermediate image to int8
+# steps of 1/255 (display_warp._quantize_affine), so a cell on a step's
+# edge may move one step: one quantum, and a PSNR floor
+TOL_ZFRAME = 1.0 / 255.0 + 1e-6
+FLOOR_ZFRAME_DB = 60.0
+TOL_RAYS = 2e-5             # ray-sharded / leaf-sharded renders
+ZRAYS = 8192                # the ray-sharded trainer's batch
+ZSHARD_TIMEOUT_S = 600
+
+
+def zseg_display_checks(torch, dev, stats):
+    """12e (a), kernel M's display mode on z-segments: the dense scene
+    (G=256 int8, gi=256) at orbit pose 0, 800^2, stop_thresh 0: over 2 and
+    4 segments, each launched with its z_base and the upstream segments'
+    state as acc_init, held against the plain version on the same inputs;
+    the last segment's output against the whole-grid launch (the chained
+    launches take the resume variants). Fills stats["MZ"] (times of the
+    downstream segment of two as the z-sharded render launches it: its
+    z_base, no acc_init)."""
+    from volrend_torch.ops import slab_march, slab_render
+    from volrend_torch.parallel import dist as pdist
+    from volrend_torch.probes import _common
+    from volrend_torch.utils.options import RenderOptions
+    grid = _common.dense_grid_on(dev)
+    cam = _common.orbit_poses(N_POSES)[0]
+    sopt = RenderOptions(max_steps=1024, stop_thresh=0.0, renormalize=False)
+    perm, flip, _ = slab_render.choose_axis(grid, cam.transform, cam.fx,
+                                            cam.fy, W, H)
+    g = slab_render.FrameGeom(grid, cam.transform, cam.fx, cam.fy, perm,
+                              flip, W, H, sopt, GI)
+    params, zb = slab_render._march_frame_fields(grid, g, perm, flip, sopt)
+    G, D, bd = grid.G, grid.data_dim, grid.basis_dim
+    qs = grid.qscale
+    kw = dict(sig2=True, flip=flip, bbox_full=True, dir_win=True,
+              fmt=int(grid.fmt), extra=grid.extra, k_per_step=4)
+    args = (qs, zb, G, GI, D, bd, perm)
+    pay = slab_render._permuted_grid(grid, perm)
+    whole = slab_march.march_slabs(
+        pay, params, *args,
+        slab_ids=tuple(range(G - 1, -1, -1) if flip else range(G)), **kw)
+    del pay
+    out = {"segments": {}}
+    worst = 0.0
+    for n in (2, 4):
+        Gl = G // n
+        order = list(range(n - 1, -1, -1) if flip else range(n))
+        lids = tuple(range(Gl - 1, -1, -1) if flip else range(Gl))
+        acc = None
+        for k, i in enumerate(order):
+            seg = pdist._zsegment(grid, perm, Gl, i)
+            zbase = i * (Gl / G)
+            acc_k = slab_march.march_slabs(seg, params, *args, slab_ids=lids,
+                                           z_base=zbase, acc_init=acc, **kw)
+            m = slab_march.march_inputs(seg, params, zb, G, GI, lids, 4,
+                                        None, zbase)
+            acc_p = slab_march.march_slabs_ref(
+                seg, qs, D=D, bd=bd, flip=flip, dir_win=True,
+                acc_init=None if acc is None else acc.clone(), **m)
+            err, _, _ = freeze_flip_check(
+                torch, f"display segment {i} of {n}", acc_k, acc_p, 0.0)
+            worst = max(worst, err)
+            if n == 2 and k == 1:
+                # the timed launch: the downstream segment of two, as the
+                # z-sharded render launches it (its parts fold afterwards),
+                # against its plain version too
+                def path_launch():
+                    return slab_march.march_slabs(
+                        seg, params, *args, slab_ids=lids, z_base=zbase,
+                        **kw)
+                acc_p, plain_ms = timed_once(torch, lambda: slab_march.
+                                             march_slabs_ref(
+                    seg, qs, D=D, bd=bd, flip=flip, dir_win=True, **m))
+                err, _, _ = freeze_flip_check(
+                    torch, f"display segment {i} of {n} (no acc_init)",
+                    path_launch(), acc_p, 0.0)
+                worst = max(worst, err)
+                stats["MZ"] = {
+                    "plain_ms": plain_ms, "library_ms": None,
+                    "ms": cuda_ms(torch, path_launch, KREPS),
+                    "segment": f"{i} of {n}, z_base {zbase}"}
+                stats["MZ"]["bound_ms"], stats["MZ"]["bound_by"] = (
+                    march_bound(torch, seg, qs, m["zb"], lids, G, GI, bd,
+                                float(m["params"][0, 14]), z_base=zbase))
+            acc = acc_k
+            del seg, acc_p
+        d = float((acc - whole).abs().max())
+        out["segments"][n] = d
+        log(f"kernel M display on {n} z-segments (pose 0, z_base and "
+            f"acc_init chained): each against its plain version, the last "
+            f"against the whole-grid launch: max |diff| {d:.3e}")
+        if not d <= TOL_M:
+            fail(f"kernel M's display segments ({n}) differ from the whole "
+                 f"grid's launch by {d}")
+    stats["MZ"]["max_abs_err"] = worst
+    del grid, whole
+    torch.cuda.empty_cache()
+    return out
+
+
+def zseg_train_checks(torch, dev, stats):
+    """12e (a), kernel M's training mode and M-bwd on z-segments: the
+    training bench's G=256 SH9 bake (f32) at its pose 0, stop_thresh 0,
+    over 2 segments (slab_grad.zsegment, their coarse occupancy the whole
+    one's slice): the forward chained through acc_init (the resume
+    variant), each launch against its plain version, the last against the
+    whole grid's; the backward of each segment from its incoming (T, A)
+    (state_init, from the forward's parts) against its plain version, and
+    the segments' cotangent together within TOL_ZSEG_BWD_REL of the whole
+    grid's. Fills stats["MTZ"] and stats["MBZ"] (times of the downstream
+    segment as the z-sharded trainer launches it: z_base, and state_init
+    for M-bwd)."""
+    from volrend_torch import train
+    from volrend_torch.models.synthetic import make_solid_tree
+    from volrend_torch.ops import slab_grad, slab_march, slab_render
+    from volrend_torch.ops.camera import Camera
+    from volrend_torch.probes import _common
+    from volrend_torch.utils.options import RenderOptions
+    sopt = RenderOptions(max_steps=1024, stop_thresh=0.0)
+    tree = _common.load_tree(CACHE_TRAIN, lambda: make_solid_tree(
+        max_depth=DEPTH, basis_dim=9, seed=7))
+    tr = train.FrameTrainer(tree.to_device(lut_depth=None, device=dev),
+                            opt=sopt, lr=TRAIN_LR, gi=GI)
+    sthr = float(tr.opt.sigma_thresh)
+    with torch.no_grad():  # the kernels' inputs: no autograd graph
+        bake, live = slab_grad.bake_from_pyramid(tuple(tr.pyramid), tr.bmap,
+                                                 live_thresh=sthr)
+    cam = train_orbit(Camera)[0]
+    perm, flip = tr._group(cam)
+    G, D, bd = tr.grid.G, tr.grid.data_dim, tr.grid.basis_dim
+    geom = slab_render.FrameGeom(tr.grid, cam.transform, cam.fx, cam.fy,
+                                 perm, flip, W, H, tr.opt, GI)
+    cfg = slab_grad.SlabCfg(G=G, gi=GI, D=D, bd=bd, fmt=int(tr.grid.fmt),
+                            perm=perm, flip=flip, ids=(), opt=tr.opt)
+    params = slab_grad._pack_geom_params(geom, cfg, 1.0 / geom.scale)
+    zb = torch.stack([geom.z_lo_pix, geom.z_hi_pix], 1)
+    del tr
+    q = (perm[0], 3, perm[1], perm[2])
+    qs = torch.ones(D, device=dev)
+    st = slab_grad._kernel_statics(cfg)
+    st.pop("flip")
+    occ = slab_march.march_occupancy(bake.permute(*q), params.cpu(), qs,
+                                     live=live, perm=perm)
+    kw = dict(flip=flip, dir_win=False, train=True, **st)
+    whole = slab_march.march_slabs(
+        bake.permute(*q), params, qs, zb, G, GI, D, bd, perm,
+        slab_ids=tuple(range(G - 1, -1, -1) if flip else range(G)),
+        occupancy=occ, **kw)[0]
+    gacc4 = torch.as_tensor(np.random.default_rng(0).normal(
+        size=(4, GI, GI)).astype(np.float32), device=dev)
+    bkw = dict(flip=flip, **st)
+    whole_g = slab_march.march_slabs_bwd(bake.permute(*q), params[0], qs,
+                                         zb[0], gacc4, whole, G, GI, D, bd,
+                                         perm, occupancy=occ, **bkw)
+    n, Gl = 2, G // 2
+    order = [1, 0] if flip else [0, 1]
+    lids = tuple(range(Gl - 1, -1, -1) if flip else range(Gl))
+    segs, parts = {}, {}
+    acc, worst = None, 0.0
+    for k, i in enumerate(order):
+        seg = slab_grad.zsegment(bake.permute(*q), i, Gl)
+        socc = occ[i * Gl:(i + 1) * Gl]
+        zbase = i * (Gl / G)
+        segs[i] = (seg, socc, zbase)
+        acc_k = slab_march.march_slabs(seg, params, qs, zb, G, GI, D, bd,
+                                       perm, slab_ids=lids, z_base=zbase,
+                                       acc_init=acc, occupancy=socc, **kw)
+        m = slab_march.march_inputs(seg, params, zb, G, GI, lids, 4, None,
+                                    zbase)
+        mode_kw = {k2: v for k2, v in st.items() if k2 != "extra"}
+        acc_p = slab_march.march_slabs_ref(
+            seg, qs, D=D, bd=bd, flip=flip,
+            acc_init=None if acc is None else acc.clone(), **mode_kw, **m)
+        err, _, _ = freeze_flip_check(
+            torch, f"training segment {i} of {n}", acc_k, acc_p, 0.0)
+        worst = max(worst, err)
+
+        def path_launch():
+            # the segment as the z-sharded trainer launches it: its parts
+            # fold afterwards
+            return slab_march.march_slabs(
+                seg, params, qs, zb, G, GI, D, bd, perm, slab_ids=lids,
+                z_base=zbase, occupancy=socc, **kw)
+        parts[i] = path_launch()[0]
+        if k == 1:
+            acc_p, mt_plain_ms = timed_once(torch, lambda: slab_march.
+                                            march_slabs_ref(
+                seg, qs, D=D, bd=bd, flip=flip, **mode_kw, **m))
+            err, _, _ = freeze_flip_check(
+                torch, f"training segment {i} of {n} (no acc_init)",
+                parts[i][None], acc_p, 0.0)
+            worst = max(worst, err)
+            stats["MTZ"] = {
+                "plain_ms": mt_plain_ms, "library_ms": None,
+                "ms": cuda_ms(torch, path_launch, KREPS),
+                "segment": f"{i} of {n}, z_base {zbase}"}
+            stats["MTZ"]["bound_ms"], stats["MTZ"]["bound_by"] = (
+                march_bound(torch, seg, qs, m["zb"], lids, G, GI, bd, sthr,
+                            z_base=zbase))
+        acc = acc_k
+        del acc_p
+    stats["MTZ"]["max_abs_err"] = worst
+    d = float((acc[0] - whole).abs().max())
+    log(f"kernel M training mode on {n} z-segments (pose 0, z_base and "
+        f"acc_init chained): the last against the whole grid's launch: max "
+        f"|diff| {d:.3e}")
+    if not d <= TOL_M:
+        fail(f"kernel M's training segments differ from the whole grid's "
+             f"launch by {d}")
+    states = slab_grad.segment_states(
+        torch.stack([parts[i] for i in range(n)]), gacc4, order)
+    gsegs, mb = [], {}
+    for k, i in enumerate(order):
+        seg, socc, zbase = segs[i]
+        g_k = slab_march.march_slabs_bwd(
+            seg, params[0], qs, zb[0], gacc4, whole, G, GI, D, bd, perm,
+            occupancy=socc, z_base=zbase, state_init=states[i], **bkw)
+        bprm, bzb, bgacc, aux = slab_march.march_bwd_inputs(
+            params[0], zb[0], gacc4, whole, G, GI, states[i], zbase)
+        mode = slab_march.MarchMode(cfg.fmt, None, False, st["rot"],
+                                    st["bbox_full"], st["basis_lo"],
+                                    st["basis_hi"])
+        g_p, mb_plain_ms = timed_once(torch, lambda: slab_march.
+                                      march_slabs_bwd_ref(
+            seg, qs, bprm, bzb, bgacc, aux, G, GI, D, bd, flip,
+            mode=mode))
+        gk, gp = g_k.double(), g_p.double()
+        rel = float((gk - gp).norm() / gp.norm())
+        cos = float((gk * gp).sum() / (gk.norm() * gp.norm()))
+        log(f"kernel M-bwd on segment {i} of {n} (z_base {zbase}, "
+            f"state_init): against its plain version relative L2 {rel:.3e}, "
+            f"cosine {cos:.9f}")
+        if not (rel < TOL_BWD_REL and cos > MIN_BWD_COS):
+            fail(f"kernel M-bwd's segment {i} disagrees with its plain "
+                 f"version")
+        mb["max_abs_err"] = max(mb.get("max_abs_err", 0.0),
+                                float((g_k - g_p).abs().max()))
+        if k == 1:
+            mb.update(plain_ms=mb_plain_ms, library_ms=None,
+                      segment=f"{i} of {n}, z_base {zbase}, state_init",
+                      ms=cuda_ms(torch, lambda: slab_march.march_slabs_bwd(
+                          seg, params[0], qs, zb[0], gacc4, whole, G, GI, D,
+                          bd, perm, occupancy=socc, z_base=zbase,
+                          state_init=states[i], **bkw), KREPS))
+            mb["bound_ms"], mb["bound_by"] = march_bwd_bound(
+                torch, seg, qs, bzb[None], G, GI, bd, sthr, z_base=zbase)
+        gsegs.append((i, g_k))
+        del g_p, gk, gp
+    gsegs.sort()
+    # slab-major views: the segments' cotangents follow each other
+    full = torch.cat([g.permute(0, 2, 3, 1) for _, g in gsegs]).double()
+    wg = whole_g.permute(0, 2, 3, 1).double()
+    rel = float((full - wg).norm() / wg.norm())
+    mb["segments_vs_whole_rel_l2"] = rel
+    stats["MBZ"] = mb
+    log(f"kernel M-bwd on {n} z-segments: the segments' cotangent against "
+        f"the whole grid's relative L2 {rel:.3e} (tolerance "
+        f"{TOL_ZSEG_BWD_REL})")
+    if not rel < TOL_ZSEG_BWD_REL:
+        fail(f"the z-segments' cotangent differs from the whole grid's "
+             f"({rel})")
+    del bake, live, occ, whole_g, full, wg, gsegs, segs
+    torch.cuda.empty_cache()
+    return {"train_segments_vs_whole": d, "bwd_segments_rel_l2": rel}
+
+
+def _zshard_counts():
+    from volrend_torch.ops import render_exact, slab_march
+    from volrend_torch.parallel import mesh as mesh_mod
+    slab_march.march_slabs.segments = 0
+    slab_march.march_slabs.train_segments = 0
+    slab_march.march_slabs_bwd.segments = 0
+    mesh_mod.collective_counts.clear()
+    render_exact.reset_march_counts()
+
+
+def _close_report(torch, a, b, atol, rtol):
+    """(max |a - b|, values past atol + rtol |b|) of two tensors."""
+    d = (a.float() - b.float()).abs()
+    return float(d.max()), int((d > atol + rtol * b.float().abs()).sum())
+
+
+def zshard_rank(rank: int, backend: str, device: str = "cuda:0") -> dict:
+    """12e (b)/(c): one rank of the sharded world (gloo: every rank on
+    cuda:0; NCCL: one rank). Drives the parallel layer's entry points at
+    full width and holds each against its unsharded run in this rank:
+    - render_frames_slab_zsharded on the dense scene's orbit group 0 and
+      render_frame_slab_zsharded on its first pose, against render_frames
+      (stop_thresh 0): max |diff| within TOL_ZFRAME, PSNR >= 60 dB;
+    - two FrameTrainer.step_frame_zsharded steps on the training bench
+      (800^2, gi=256) against two step_frame steps: the second loss and
+      the parameters at the dry run's tolerances;
+    - step_frames_sharded over the 4 training poses against a one-rank
+      mesh's (no collective);
+    - Trainer.step_sharded at ZRAYS rays against Trainer.step;
+    - a leaf-sharded render of the training tree against the replicated
+      one.
+    Each case's host-clock ms (its second call, after a warming one;
+    the trainers' steps likewise two a side) beside the unsharded call's;
+    the segment launches and collectives counted over the run (from 0).
+    Returns a dict of numbers; raises on a failed check."""
+    import torch
+    import torch.distributed as tdist
+    sys.path.insert(0, HERE)
+    from volrend_torch import train
+    from volrend_torch.models.synthetic import make_solid_tree
+    from volrend_torch.ops import render_exact, slab_march, slab_render
+    from volrend_torch.ops.camera import Camera
+    from volrend_torch.parallel import dist as pdist
+    from volrend_torch.parallel import leaf_shard
+    from volrend_torch.parallel import mesh as mesh_mod
+    from volrend_torch.probes import _common
+    from volrend_torch.utils.options import RenderOptions
+
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    res = {"rank": rank, "backend": backend,
+           "world": tdist.get_world_size()}
+    problems = []
+
+    def check(ok, what):
+        if not ok:
+            problems.append(what)
+
+    def timed(fn):
+        """fn's second call and its host-clock ms (the first call warms
+        it: a trainer takes two steps)."""
+        fn()
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t) * 1e3
+
+    _zshard_counts()
+    # ---- the z-sharded display frames: the dense scene's group 0 --------
+    sopt = RenderOptions(max_steps=1024, stop_thresh=0.0, renormalize=False)
+    grid = _common.dense_grid_on(dev)
+    cams = _common.orbit_poses(N_POSES)
+    (perm, flip), idx = next(iter(_common.pose_groups(grid, cams, W,
+                                                      H).items()))
+    trs = np.stack([cams[i].transform for i in idx])
+    zmesh = mesh_mod.make_mesh("z", device=dev)
+    fx, fy = cams[0].fx, cams[0].fy
+    fz, ms_z = timed(lambda: pdist.render_frames_slab_zsharded(
+        grid, trs, fx, fy, W, H, sopt, zmesh, gi=GI))
+    fu, ms_u = timed(lambda: slab_render.render_frames(
+        grid, trs, fx, fy, perm, flip, W, H, sopt, gi=GI))
+    err = float((fz - fu).abs().max())
+    mse = float(((fz[..., :3] - fu[..., :3]).double() ** 2).mean())
+    f1, ms_1 = timed(lambda: pdist.render_frame_slab_zsharded(
+        grid, trs[0], fx, fy, W, H, sopt, zmesh, gi=GI))
+    err1 = float((f1 - fz[0]).abs().max())
+    db = 99.0 if mse < 1e-12 else -10 * math.log10(mse)
+    res["frames"] = {"poses": len(idx), "max_abs_diff": err, "psnr_db": db,
+                     "values_past_1e-5": int(((fz - fu).abs() > 1e-5).sum()),
+                     "one_pose_vs_batch": err1, "ms": ms_z,
+                     "unsharded_ms": ms_u, "one_pose_ms": ms_1}
+    check(err <= TOL_ZFRAME and err1 <= TOL_ZFRAME and db >= FLOOR_ZFRAME_DB,
+          f"z-sharded frames differ from the unsharded ones ({err}, {err1}, "
+          f"{db} dB)")
+    del grid, fz, fu, f1
+
+    # ---- the training bench: z-sharded and pose-sharded frame steps ----
+    tree = _common.load_tree(CACHE_TRAIN, lambda: make_solid_tree(
+        max_depth=DEPTH, basis_dim=9, seed=7))
+    tdev = tree.to_device(lut_depth=None, device=dev)
+    tcams = train_orbit(Camera)
+    tgt = torch.full((H, W, 4), 0.5, dtype=torch.float32, device=dev)
+    def step_extra_gib(fn):
+        """The device memory one more call of fn takes above what is
+        allocated before it (this process's peak over its base), GiB;
+        not measured (nan) off the card."""
+        if dev.type != "cuda":
+            fn()
+            return float("nan")
+        sync()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        fn()
+        sync()
+        return (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
+
+    tz = train.FrameTrainer(tdev, opt=sopt, lr=TRAIN_LR, gi=GI)
+    lz, ms_z = timed(lambda: tz.step_frame_zsharded(zmesh, tcams[0], tgt))
+    pz = [p.detach().clone() for p in tz.pyramid]
+    gib_z = step_extra_gib(lambda: tz.step_frame_zsharded(zmesh, tcams[0],
+                                                          tgt))
+    del tz
+    tu = train.FrameTrainer(tdev, opt=sopt, lr=TRAIN_LR, gi=GI)
+    lu, ms_u = timed(lambda: tu.step_frame(tcams[0], tgt))
+    pu = [p.detach().clone() for p in tu.pyramid]
+    gib_u = step_extra_gib(lambda: tu.step_frame(tcams[0], tgt))
+    worst, past = 0.0, 0
+    for a, b in zip(pz, pu):
+        m, c = _close_report(torch, a, b, TOL_ZSTEP_ATOL, TOL_ZSTEP_RTOL)
+        worst, past = max(worst, m), past + c
+    res["zstep"] = {"loss": lz, "unsharded_loss": lu, "param_max_diff":
+                    worst, "params_past_tol": past, "ms": ms_z,
+                    "unsharded_ms": ms_u, "step_extra_gib": gib_z,
+                    "unsharded_step_extra_gib": gib_u}
+    check(abs(lz - lu) <= TOL_ZSTEP_LOSS * max(1.0, abs(lu)),
+          f"z-sharded step loss {lz} != unsharded {lu}")
+    check(past == 0, f"z-sharded step: {past} parameters past the "
+                     f"tolerance (max |diff| {worst})")
+    del tu, pz, pu
+    topt = RenderOptions(max_steps=1024)
+    fmesh = mesh_mod.make_mesh("frames", device=dev)
+    ts = train.FrameTrainer(tdev, opt=topt, lr=TRAIN_LR, gi=GI)
+    placed = ts.place_frames(tcams, [tgt] * len(tcams))
+    ls, ms_s = timed(lambda: ts.step_frames_sharded(fmesh, tcams, placed))
+    ps = [p.detach() for p in ts.pyramid]
+    del ts
+    t1 = train.FrameTrainer(tdev, opt=topt, lr=TRAIN_LR, gi=GI)
+    one = mesh_mod.make_mesh("frames", device=dev,
+                             ranks=[tdist.get_rank()])
+    l1, ms_1 = timed(lambda: t1.step_frames_sharded(one, tcams, placed))
+    worst, past = 0.0, 0
+    for a, b in zip(ps, t1.pyramid):
+        m, c = _close_report(torch, a, b.detach(), TOL_ZSTEP_ATOL,
+                             TOL_ZSTEP_RTOL)
+        worst, past = max(worst, m), past + c
+    res["frames_step"] = {"poses": len(tcams), "loss": ls,
+                          "one_rank_loss": l1, "param_max_diff": worst,
+                          "params_past_tol": past, "ms": ms_s,
+                          "one_rank_ms": ms_1}
+    check(abs(ls - l1) <= TOL_ZSTEP_LOSS * max(1.0, abs(l1)),
+          f"pose-sharded step loss {ls} != one rank's {l1}")
+    check(past == 0, f"pose-sharded step: {past} parameters past the "
+                     f"tolerance (max |diff| {worst})")
+    del t1, ps, placed
+
+    # ---- the ray-batch trainer and the leaf-sharded render -------------
+    rmesh = mesh_mod.make_mesh("rays", device=dev)
+    o, d = tcams[0].pixel_rays(xp=np)
+    mid = o.shape[0] // 2 - ZRAYS // 2
+    o = np.ascontiguousarray(o[mid:mid + ZRAYS])
+    d = np.ascontiguousarray(d[mid:mid + ZRAYS])
+    tt = np.full((ZRAYS, 4), 0.5, np.float32)
+    ta = train.Trainer(tdev, topt, lr=TRAIN_LR)
+    tb = train.Trainer(tdev, topt, lr=TRAIN_LR)
+    la, ms_a = timed(lambda: ta.step(o, d, tt))
+    lb, ms_b = timed(lambda: tb.step_sharded(rmesh, o, d, tt))
+    m, c = _close_report(torch, tb.data, ta.data, TOL_ZSTEP_ATOL,
+                         TOL_ZSTEP_RTOL)
+    res["ray_step"] = {"rays": ZRAYS, "loss": lb, "unsharded_loss": la,
+                       "data_max_diff": m, "data_past_tol": c, "ms": ms_b,
+                       "unsharded_ms": ms_a}
+    check(abs(la - lb) <= TOL_ZSTEP_LOSS * max(1.0, abs(la)),
+          f"ray-sharded step loss {lb} != unsharded {la}")
+    check(c == 0, f"ray-sharded step: {c} rows past the tolerance")
+    del ta, tb
+    ref, ms_r = timed(lambda: render_exact.render_rays(tdev, o, d, topt))
+    tree_s, rps = leaf_shard.shard_tree_leaves(tdev, rmesh)
+    ol, dl, nv = pdist.shard_rays(o, d, rmesh)
+    got, ms_l = timed(lambda: leaf_shard.render_rays_leaf_sharded(
+        tree_s, ol, dl, topt, rmesh, rps)[:nv])
+    m, c = _close_report(torch, got, ref, TOL_RAYS, 1e-5)
+    res["leaf_render"] = {"rays": ZRAYS, "rows_per_rank": rps,
+                          "max_abs_diff": m, "past_tol": c, "ms": ms_l,
+                          "unsharded_ms": ms_r,
+                          "iterations": render_exact.march_counts["fwd"]}
+    check(c == 0, f"leaf-sharded render: {c} values past the tolerance")
+    res["counts"] = {
+        "display_segments": slab_march.march_slabs.segments,
+        "train_segments": slab_march.march_slabs.train_segments,
+        "bwd_segments": slab_march.march_slabs_bwd.segments,
+        "collectives": dict(mesh_mod.collective_counts)}
+    res["problems"] = problems
+    return res
+
+
+def zshard_phase(torch, dev, stats):
+    """Phase 12e: the z-segment kernels in this process (a), then the
+    parallel layer's entry points in a two-rank gloo world whose ranks
+    share cuda:0 (b) and a one-rank NCCL world (c), both started with the
+    kernels already built. Two ranks on one card are a correctness run:
+    their times are not a scaling number. Fills the MZ, MTZ and MBZ rows
+    (launches: the segment launches of world (b)'s run); returns a summary
+    dict."""
+    from volrend_torch.parallel import launch
+    out = {"display": zseg_display_checks(torch, dev, stats)}
+    out.update(zseg_train_checks(torch, dev, stats))
+    worlds = {}
+    for n, backend in ((2, "gloo"), (1, "nccl")):
+        t = time.perf_counter()
+        ranks = launch.spawn(zshard_rank, n, args=(backend, "cuda:0"),
+                             backend=backend, timeout_s=ZSHARD_TIMEOUT_S)
+        secs = time.perf_counter() - t
+        for r in ranks:
+            log(f"sharded world [{backend} x{n}, rank {r['rank']}, all on "
+                f"cuda:0; a correctness run, not a scaling number]: "
+                f"{json.dumps(r)}")
+            if r["problems"]:
+                fail(f"sharded world {backend} x{n} rank {r['rank']}: "
+                     f"{r['problems']}")
+        cn = {k: sum(r["counts"][k] for r in ranks)
+              for k in ("display_segments", "train_segments",
+                        "bwd_segments")}
+        log(f"sharded world [{backend} x{n}] in {secs:.1f} s: segment "
+            f"launches {cn}" + ("" if n > 1 else " (one rank: the z-sharded "
+                                "step marches the whole grid)"))
+        if n > 1 and min(cn.values()) < 1:
+            fail(f"sharded world {backend} x{n}: a segment kernel never "
+                 f"launched ({cn})")
+        worlds[f"{backend}x{n}"] = {"seconds": secs, "counts": cn,
+                                    "rank0": ranks[0]}
+    for key, cnt in (("MZ", "display_segments"), ("MTZ", "train_segments"),
+                     ("MBZ", "bwd_segments")):
+        stats[key]["launches"] = worlds["gloox2"]["counts"][cnt]
+    out["worlds"] = worlds
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4273,6 +4838,9 @@ def main() -> None:
     t2 = t2_phase(torch, dev)
     t2.update(headless_phase(torch, dev))
 
+    # ---- 12e. the parallel layer: z-segments, the sharded worlds ------------
+    zshard = zshard_phase(torch, dev, stats)
+
     # ---- 13. result ---------------------------------------------------------
     summary = {"card": card, "m_launches": stats.get("M_launches"),
                "warp_stage": stats.get("warp_stage"),
@@ -4287,6 +4855,7 @@ def main() -> None:
                **probe, **steep, **ndc, "variants": variants,
                "train_variants": train_variants, "overlay": overlay,
                "m_variant_launches": stats.get("M_variants"), "t2": t2,
+               "zshard": zshard,
                "seconds": time.perf_counter() - _T0}
     log(f"summary {json.dumps(summary)}")
     spec = (
@@ -4341,6 +4910,8 @@ def main() -> None:
                   for key, name, src, rep in TRAIN_VARIANT_ROWS)
     spec += tuple((key, name, src, rep, stats[key]["launches"])
                   for key, name, src, rep in OVERLAY_ROWS)
+    spec += tuple((key, name, src, rep, stats[key]["launches"])
+                  for key, name, src, rep in ZSEG_ROWS)
     rows = []
     for key, name, src, rep, launches in spec:
         s = stats[key]

@@ -1894,3 +1894,138 @@ def test_quant_leaves_fetch_rows_card_matches_cpu(card):
     assert torch.equal(rows[0], rows[1])
     want = host.data.reshape(-1, host.data_dim)[idx]
     assert np.array_equal(rows[0].numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# z-segments (kernel M's two modes and M-bwd) and the parallel layer
+# ---------------------------------------------------------------------------
+
+def test_zsegments_match_plain_and_whole(card):
+    """Kernel M's display mode over 2 and 4 z-segments of an int8 grid, and
+    its training mode and M-bwd over 2 segments of a bake
+    (slab_grad.zsegment; the coarse occupancy the whole one's slice), each
+    launch with its z_base and the upstream state (acc_init, which takes
+    the resume variants; M-bwd's state_init from the forward's parts)
+    against its plain version on the same CUDA tensors; the chained
+    segments equal the whole-grid launch, and the segments' cotangent the
+    whole grid's (relative L2 < 1e-5)."""
+    from volrend_torch import train
+    from volrend_torch.ops import slab_grad
+    from volrend_torch.parallel import dist as pdist
+    tdev = make_test_tree(max_depth=4, basis_dim=4, seed=5,
+                          sigma_scale=60.0).to_device(lut_depth=None,
+                                                      device=card)
+    grid = dense_grid.bake_dense(tdev, dtype="int8")
+    cam = Camera.from_vectors(center=(2.4, 0.5, 0.7),
+                              v_back=(0.92, 0.2, 0.27), width=W, height=H,
+                              fx=200.0)
+    opt = RenderOptions(max_steps=512, stop_thresh=0.0, renormalize=False)
+    perm, flip, _ = slab_render.choose_axis(grid, cam.transform, cam.fx,
+                                            cam.fy, W, H)
+    g = slab_render.FrameGeom(grid, cam.transform, cam.fx, cam.fy, perm,
+                              flip, W, H, opt, GI)
+    params, zb = slab_render._march_frame_fields(grid, g, perm, flip, opt)
+    G, D, bd = grid.G, grid.data_dim, grid.basis_dim
+    args = (grid.qscale, zb, G, GI, D, bd, perm)
+    kw = dict(sig2=True, flip=flip, bbox_full=True, dir_win=True)
+    whole = slab_march.march_slabs(
+        slab_render._permuted_grid(grid, perm), params, *args,
+        slab_ids=tuple(range(G - 1, -1, -1) if flip else range(G)), **kw)
+    for n in (2, 4):
+        Gl = G // n
+        lids = tuple(range(Gl - 1, -1, -1) if flip else range(Gl))
+        acc = None
+        for i in (range(n - 1, -1, -1) if flip else range(n)):
+            pay = pdist._zsegment(grid, perm, Gl, i)
+            a = slab_march.march_slabs(pay, params, *args, slab_ids=lids,
+                                       z_base=i * Gl / G, acc_init=acc,
+                                       **kw)
+            m = slab_march.march_inputs(pay, params, zb, G, GI, lids, 4,
+                                        None, i * Gl / G)
+            ap = slab_march.march_slabs_ref(
+                pay, grid.qscale, D=D, bd=bd, flip=flip, dir_win=True,
+                acc_init=None if acc is None else acc.clone(), **m)
+            _agree(a, ap)
+            acc = a
+        assert float((acc - whole).abs().max()) <= TOL_M
+    assert slab_march.march_slabs.variants.get("SH-int8-opt-resume")
+    tr = train.FrameTrainer(tdev, opt=opt, lr=1e-2, gi=GI)
+    with torch.no_grad():
+        bake, live = slab_grad.bake_from_pyramid(
+            tuple(tr.pyramid), tr.bmap, live_thresh=opt.sigma_thresh)
+    perm, flip = tr._group(cam)
+    geom = slab_render.FrameGeom(tr.grid, cam.transform, cam.fx, cam.fy,
+                                 perm, flip, W, H, tr.opt, GI)
+    cfg = slab_grad.SlabCfg(G=G, gi=GI, D=D, bd=bd, fmt=int(tr.grid.fmt),
+                            perm=perm, flip=flip, ids=(), opt=tr.opt)
+    prm = slab_grad._pack_geom_params(geom, cfg, 1.0 / geom.scale)
+    zb1 = torch.stack([geom.z_lo_pix, geom.z_hi_pix], 1)
+    q = (perm[0], 3, perm[1], perm[2])
+    qs = torch.ones(D, device=card)
+    st = slab_grad._kernel_statics(cfg)
+    st.pop("flip")
+    occ = slab_march.march_occupancy(bake.permute(*q), prm.cpu(), qs,
+                                     live=live, perm=perm)
+    tkw = dict(flip=flip, dir_win=False, train=True, **st)
+    wacc = slab_march.march_slabs(
+        bake.permute(*q), prm, qs, zb1, G, GI, D, bd, perm,
+        slab_ids=tuple(range(G - 1, -1, -1) if flip else range(G)),
+        occupancy=occ, **tkw)[0]
+    gacc4 = torch.as_tensor(np.random.default_rng(0).normal(
+        size=(4, GI, GI)).astype(np.float32), device=card)
+    wg = slab_march.march_slabs_bwd(bake.permute(*q), prm[0], qs, zb1[0],
+                                    gacc4, wacc, G, GI, D, bd, perm,
+                                    flip=flip, occupancy=occ, **st)
+    Gl = G // 2
+    order = [1, 0] if flip else [0, 1]
+    lids = tuple(range(Gl - 1, -1, -1) if flip else range(Gl))
+    acc, parts, segs = None, {}, {}
+    for i in order:
+        seg = slab_grad.zsegment(bake.permute(*q), i, Gl)
+        socc = occ[i * Gl:(i + 1) * Gl]
+        a = slab_march.march_slabs(seg, prm, qs, zb1, G, GI, D, bd, perm,
+                                   slab_ids=lids, z_base=i * Gl / G,
+                                   acc_init=acc, occupancy=socc, **tkw)
+        m = slab_march.march_inputs(seg, prm, zb1, G, GI, lids, 4, None,
+                                    i * Gl / G)
+        ap = slab_march.march_slabs_ref(
+            seg, qs, D=D, bd=bd, flip=flip,
+            acc_init=None if acc is None else acc.clone(),
+            **{k: v for k, v in st.items() if k != "extra"}, **m)
+        _agree(a, ap)
+        acc = a
+        parts[i] = slab_march.march_slabs(
+            seg, prm, qs, zb1, G, GI, D, bd, perm, slab_ids=lids,
+            z_base=i * Gl / G, occupancy=socc, **tkw)[0]
+        segs[i] = (seg, socc)
+    assert float((acc[0] - wacc).abs().max()) <= TOL_M
+    assert slab_march.march_slabs.train_variants.get("SH-f32-opt-resume")
+    states = slab_grad.segment_states(torch.stack([parts[0], parts[1]]),
+                                      gacc4, order)
+    gs = []
+    for i in range(2):
+        seg, socc = segs[i]
+        gk = slab_march.march_slabs_bwd(
+            seg, prm[0], qs, zb1[0], gacc4, wacc, G, GI, D, bd, perm,
+            flip=flip, occupancy=socc, z_base=i * Gl / G,
+            state_init=states[i], **st)
+        bprm, bzb, bgacc, aux = slab_march.march_bwd_inputs(
+            prm[0], zb1[0], gacc4, wacc, G, GI, states[i], i * Gl / G)
+        gp = slab_march.march_slabs_bwd_ref(seg, qs, bprm, bzb, bgacc, aux,
+                                            G, GI, D, bd, flip)
+        _bwd_agrees(gk, gp, torch.float32)
+        gs.append(gk.permute(0, 2, 3, 1))
+    full = torch.cat(gs).double()
+    wgs = wg.permute(0, 2, 3, 1).double()
+    rel = float((full - wgs).norm() / wgs.norm())
+    assert rel < 1e-5, rel
+
+
+def test_dryrun_multichip_on_card(card):
+    """The parallel layer's dry run with two gloo ranks sharing the card:
+    the ray-sharded step, the leaf-sharded render and step, a pose-sharded
+    frame step, a z-sharded render and a z-sharded training step equal to
+    the unsharded one."""
+    from volrend_torch.parallel import dryrun
+    res = dryrun.dryrun_multichip(2, "cuda", timeout_s=300)
+    assert all(np.isfinite(v) for v in res.values()), res

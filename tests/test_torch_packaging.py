@@ -38,7 +38,11 @@ MODULES = [
     "volrend_torch.models.quantized", "volrend_torch.ops.grad",
     "volrend_torch.ops.oracle", "volrend_torch.utils.png",
     "volrend_torch.cli", "volrend_torch.cli.opts",
-    "volrend_torch.cli.headless",
+    "volrend_torch.cli.headless", "volrend_torch.parallel",
+    "volrend_torch.parallel.mesh", "volrend_torch.parallel.dist",
+    "volrend_torch.parallel.leaf_shard", "volrend_torch.parallel.multihost",
+    "volrend_torch.parallel.work_queue", "volrend_torch.parallel.launch",
+    "volrend_torch.parallel.dryrun",
 ]
 
 
@@ -80,6 +84,34 @@ def test_port_sources_import_no_jax():
     assert bad == [], bad
 
 
+def test_parallel_layer_is_scanned_and_its_entry_points_run():
+    """The parallel layer (volrend_torch/parallel/) is in the scans above,
+    and the sharded entry points it brought no longer raise
+    NotImplementedError: the trainers' sharded steps and slab_grad's
+    sharded frame training."""
+    import inspect
+    from volrend_torch import train
+    from volrend_torch.ops import slab_grad
+    files = _port_files()
+    for name in ("__init__", "mesh", "dist", "leaf_shard", "multihost",
+                 "work_queue", "launch", "dryrun"):
+        assert os.path.join(ROOT, "volrend_torch", "parallel",
+                            name + ".py") in files
+        assert f"volrend_torch.parallel.{name}".replace(
+            ".__init__", "") in MODULES
+    for fn in (train.Trainer.shard_batch, train.Trainer.step_sharded,
+               train.FrameTrainer.step_frame_zsharded,
+               train.FrameTrainer.place_frames,
+               train.FrameTrainer.step_frames_sharded,
+               slab_grad.loss_and_grad_frames_sharded,
+               slab_grad.render_frame_train_zsharded,
+               slab_march.march_slabs, slab_march.march_slabs_bwd):
+        assert "NotImplementedError" not in inspect.getsource(fn), fn
+    src = open(os.path.join(ROOT, "volrend_torch", "train.py")).read()
+    assert "slice D" not in src
+    assert "slice D" not in inspect.getsource(slab_grad)
+
+
 def test_cuda_sources_name_their_tpu_kernel():
     """Each CUDA source opens with a note naming the TPU kernel it
     replaces, what bounds it on the card and its design."""
@@ -96,7 +128,7 @@ def test_cuda_sources_name_their_tpu_kernel():
             "probe_build.cu": "perf_sq4.py:build_pallas",
             "bake_pyramid.cu": "slab_grad.py:bake_from_pyramid"}
     # (kernel M's training mode and M-bwd are each built as three
-    # libraries from one source)
+    # libraries from one source, its display mode as two)
     assert sorted(want) == sorted({src for src, _ in
                                    kernels.SOURCES.values()})
     for name, ref in want.items():
@@ -130,18 +162,19 @@ def test_c_entries_match_their_argtypes(name):
 
 
 @pytest.mark.parametrize("entry", ["to_device", "bake_dense", "resolve",
-                                   "trainer", "headless"])
+                                   "trainer", "headless", "dryrun"])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     """Called without ``device=`` on a machine with no card, the entry
     points raise instead of running on the CPU: the ray-batch Trainer
-    (on a tree uploaded by default) and the headless CLI (without
-    ``--device cpu``) too."""
+    (on a tree uploaded by default), the headless CLI (without
+    ``--device cpu``) and the parallel layer's dry run too."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from volrend_torch import train
     from volrend_torch.cli import headless
     from volrend_torch.models.synthetic import make_test_tree
     from volrend_torch.ops import dense_grid
+    from volrend_torch.parallel import dryrun
     from volrend_torch.utils.device import resolve
     tree = make_test_tree(max_depth=1, basis_dim=1, seed=0)
     tree_path, pose = str(tmp_path / "t.npz"), str(tmp_path / "p.txt")
@@ -151,7 +184,8 @@ def test_entry_points_default_to_cuda(entry, tmp_path):
             "bake_dense": lambda: dense_grid.bake_dense(tree),
             "resolve": lambda: resolve(None),
             "trainer": lambda: train.Trainer(tree.to_device()),
-            "headless": lambda: headless.main([tree_path, pose])}[entry]
+            "headless": lambda: headless.main([tree_path, pose]),
+            "dryrun": lambda: dryrun.dryrun_multichip(2)}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
     # asking for the CPU explicitly works
@@ -180,17 +214,19 @@ def _march_args(**over):
     (dict(acc_init=0.0), "item 19"), (dict(z_base=0.5), "item 19"),
 ])
 def test_march_refuses_later_slices_options(option, item):
-    """Kernel M's wrapper raises on every option it does not take (it does
-    not run some other path instead), naming the item that brings it. The
-    display knobs item 10c brought (bf16 shading, per-slab directions on
-    the int8 payload) run now (tests/test_torch_display_knobs.py holds them
-    against the reference)."""
-    if item == "item 10c":
-        acc = slab_march.march_slabs(**_march_args(**option))
-        assert tuple(acc.shape) == (1, 4, 8, 8)
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        slab_march.march_slabs(**_march_args(**option))
+    """Kernel M's wrapper runs the options the later slices brought: the
+    display knobs of item 10c (bf16 shading, per-slab directions on the
+    int8 payload; tests/test_torch_display_knobs.py holds them against the
+    reference) and the z-segments of item 19 (``z_base``, ``acc_init``:
+    tests/test_torch_zshard.py); an acc_init of the wrong shape raises
+    ValueError rather than running something else."""
+    if "acc_init" in option:
+        with pytest.raises(ValueError, match="acc_init must be"):
+            slab_march.march_slabs(**_march_args(**option))
+        init = torch.rand((4, 8, 8))
+        option = dict(acc_init=init)
+    acc = slab_march.march_slabs(**_march_args(**option))
+    assert tuple(acc.shape) == (1, 4, 8, 8)
 
 
 def _bf16_display(**over):
@@ -245,14 +281,20 @@ def _train_args(**over):
 def test_march_training_mode_refuses_other_options(option, error, match):
     """On the training payload (per-slab directions) the wrapper raises on
     every option it does not take: depth mode, which the reference's
-    training path never marches (ValueError), and the options of later
-    items (NotImplementedError, naming the item). bf16 shading, which item
-    10c brought to the display mode, is refused here as a ValueError: the
-    reference's training path shades in f32. A bf16 payload outside the
+    training path never marches (ValueError). bf16 shading, which item 10c
+    brought to the display mode, is refused here as a ValueError: the
+    reference's training path shades in f32. The z-segments of item 19
+    run (``z_base``: tests/test_torch_zshard.py holds them); a payload of
+    more than G slabs raises ValueError. A bf16 payload outside the
     training mode is the f16 bake's display route
     (test_march_runs_display_options)."""
     if option.get("shade_bf16"):
         error, match = ValueError, "shades in f32"
+    if match == "item 19":
+        acc = slab_march.march_slabs(**_train_args(**option))
+        assert tuple(acc.shape) == (1, 4, 8, 8)
+        error, match = ValueError, "at most G"
+        option = dict(option, G=2)
     with pytest.raises(error, match=match):
         slab_march.march_slabs(**_train_args(**option))
 

@@ -505,16 +505,48 @@ def test_precise_warp_and_its_gradient_match_reference(maps):
 
 @pytest.mark.parametrize("call", ["zsharded", "frames_sharded", "z_base"])
 def test_later_slices_raise(call):
-    """The z-sharded and pose-sharded training entry points, and a
-    z-segment payload in the backward wrapper, raise naming slice D."""
-    with pytest.raises(NotImplementedError, match="slice"):
-        if call == "zsharded":
-            slab_grad.render_frame_train_zsharded()
-        elif call == "frames_sharded":
-            slab_grad.loss_and_grad_frames_sharded()
-        else:
-            z = torch.zeros((4, 4, 4))
-            slab_march.march_slabs_bwd(
-                torch.zeros((4, 13, 4, 4), dtype=torch.bfloat16),
-                torch.zeros(30), torch.ones(13), z[:2], z, z, 4, 4, 13, 4,
-                (0, 1, 2), bbox_full=True, z_base=0.5)
+    """The z-sharded and pose-sharded training entry points and a
+    z-segment payload in the backward wrapper, which slice D brought, run:
+    on a one-rank mesh (no process group) the z-sharded frame equals the
+    unsharded kernel path's under the segment semantics (stop_thresh 0)
+    and the pose-sharded loss and gradient loss_and_grad_frame's (1e-6);
+    a two-slab segment's backward (z_base 0.5) has the segment's shape.
+    The multi-rank cases are tests/test_torch_zshard.py's."""
+    from volrend_torch.parallel import mesh as mesh_mod
+    tdev, tg, _, _ = scene("dense", 4, "f16")
+    tb = slab_grad.build_bake_map(tdev)
+    cam = make_cam(BACKS["dense"], width=W, height=H, fx=30.0)
+    perm, flip, _ = slab_render.choose_axis(tg, cam.transform, cam.fx,
+                                            cam.fy, W, H)
+    tgt = np.random.default_rng(3).uniform(0, 1, (H, W, 4)).astype(
+        np.float32)
+    tp = slab_grad.data_to_pyramid(tdev.data.float(), tb)
+    args = (cam.transform, cam.fx, cam.fy, perm, flip, W, H)
+    if call == "zsharded":
+        opt = OPT.replace(stop_thresh=0.0)
+        with torch.no_grad():
+            got = slab_grad.render_frame_train_zsharded(
+                tp, tb, tg, *args, opt, mesh_mod.make_mesh("z",
+                                                           device="cpu"),
+                gi=GI)
+            want = slab_grad.render_frame_train(tp, tb, tg, *args, opt,
+                                                gi=GI, backend="kernel")
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
+    elif call == "frames_sharded":
+        loss, g = slab_grad.loss_and_grad_frames_sharded(
+            tp, tb, tg, cam.transform[None], cam.fx, cam.fy, perm, flip, W,
+            H, tgt[None], OPT, mesh_mod.make_mesh("frames", device="cpu"),
+            gi=GI)
+        wl, wg = slab_grad.loss_and_grad_frame(tp, tb, tg, *args, tgt, OPT,
+                                               gi=GI)
+        assert np.isclose(float(loss), float(wl), rtol=1e-6)
+        for a, b in zip(g, wg):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6,
+                                       rtol=1e-6)
+    else:
+        z = torch.zeros((4, 4, 4))
+        g = slab_march.march_slabs_bwd(
+            torch.zeros((2, 13, 4, 4), dtype=torch.bfloat16),
+            torch.zeros(30), torch.ones(13), z[:2], z, z, 4, 4, 13, 4,
+            (0, 1, 2), bbox_full=True, z_base=0.5)
+        assert tuple(g.shape) == (2, 13, 4, 4)

@@ -233,14 +233,31 @@ def test_lean_trainer_keeps_grid_metadata_only(setting):
                                     "step_frames_sharded"])
 def test_later_slices_raise(setting, method):
     """FrameTrainer refuses ray batches with the reference's TypeError
-    (``step``, ``step_sharded``: ray-batch training is ``Trainer.step``);
-    the sharded frame steps (slice D) raise NotImplementedError naming where
-    they come."""
-    _, tdev, _, _ = setting
-    tr = train.FrameTrainer(tdev, OPT, lr=LR, gi=GI)
+    (``step``, ``step_sharded``: ray-batch training is ``Trainer.step``).
+    The sharded frame steps that slice D brought run: on a one-rank mesh
+    (no process group) each equals the unsharded step — the z-sharded one
+    step_frame under the segment semantics (stop_thresh 0), the
+    pose-sharded one step_frame on its one pose (the multi-rank cases are
+    tests/test_torch_zshard.py's)."""
+    from volrend_torch.parallel import mesh as mesh_mod
+    _, tdev, cam, tgt = setting
     if method in ("step", "step_sharded"):
+        tr = train.FrameTrainer(tdev, OPT, lr=LR, gi=GI)
         with pytest.raises(TypeError, match="use Trainer for ray-batch"):
             getattr(tr, method)()
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(tr, method)()
+    opt = OPT.replace(stop_thresh=0.0) if method == "step_frame_zsharded" \
+        else OPT
+    tr = train.FrameTrainer(tdev, opt, lr=LR, gi=GI)
+    tu = train.FrameTrainer(tdev, opt, lr=LR, gi=GI)
+    if method == "step_frame_zsharded":
+        loss = tr.step_frame_zsharded(mesh_mod.make_mesh("z", device="cpu"),
+                                      cam, tgt)
+    else:
+        loss = tr.step_frames_sharded(
+            mesh_mod.make_mesh("frames", device="cpu"), [cam], [tgt])
+    want = tu.step_frame(cam, tgt)
+    assert abs(loss - want) <= 1e-5 * max(1.0, abs(want))
+    for a, b in zip(tr.pyramid, tu.pyramid):
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
+                                   atol=2e-4, rtol=1e-4)

@@ -202,10 +202,24 @@ def test_trainer_keeps_its_own_master_copy(problem):
 
 @pytest.mark.parametrize("method", ["shard_batch", "step_sharded"])
 def test_sharded_steps_raise(problem, method):
-    """Ray-batch sharding comes with slice D (ROADMAP item 19)."""
+    """Ray-batch sharding, which slice D (ROADMAP item 19) brought, runs:
+    on a one-rank mesh (no process group) shard_batch places the whole
+    batch and step_sharded equals step (the multi-rank case is
+    tests/test_torch_multihost.py's)."""
+    from volrend_torch.parallel import mesh as mesh_mod
     _, tt = _trainers(problem)
-    with pytest.raises(NotImplementedError, match="item 19"):
-        getattr(tt, method)(None, None, None, None)
+    _, tu = _trainers(problem)
+    mesh = mesh_mod.make_mesh("rays", device="cpu")
+    o, d, t = _batches(problem, 1)[0]
+    if method == "shard_batch":
+        shard = tt.shard_batch(mesh, o, d, t)
+        for got, want in zip(shard, (o, d, t)):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        return
+    loss = tt.step_sharded(mesh, o, d, t)
+    want = tu.step(o, d, t)
+    assert abs(loss - want) < 1e-5
+    np.testing.assert_allclose(tt.data.numpy(), tu.data.numpy(), atol=1e-6)
 
 
 def test_quantized_tree_is_not_trainable(problem, tmp_path):

@@ -82,11 +82,13 @@
 //   run-time options are compiled in; the defaults (SH without options,
 //   ShVar) take none of their code and keep the parameters they had before
 //   the variants, so their registers stay as measured (a larger parameter
-//   struct alone moved six of the ten). SG and ASG take their lobe count,
-//   and so their record width D = 3 nb + 1, at run time, under bounds 4, 9,
-//   16 and 25 (record slots sized by the bound; 16-byte copies where a
-//   record is a whole number of 16-byte units, words elsewhere); the lobes
-//   and the rotation go into shared memory once a block. The source is
+//   struct alone moved six of the ten). A z-segment's resume from its
+//   upstream state (``flip``'s bit 1) is one of the run-time options. SG
+//   and ASG take their lobe count, and so their record width D = 3 nb + 1,
+//   at run time, under bounds 4, 9, 16 and 25 (record slots sized by the
+//   bound; 16-byte copies where a record is a whole number of 16-byte
+//   units, words elsewhere); the lobes and the rotation go into shared
+//   memory once a block. The source is
 //   built three times (VT_TRAIN_SET: the defaults, SH with options and
 //   RGBA, SG and ASG), in parallel, to keep the build's wall time.
 
@@ -147,6 +149,7 @@ march_kernel(const tmarch::ArgsOf<V, TrainArgs> a) {
   c.yend = a.y0 + a.Gy - 1;
   c.xend = a.x0 + a.Gx - 1;
   c.flip = a.flip;
+  if constexpr (V::OPT) c.flip = a.flip & 1;  // bit 1: resume (below)
   c.Gf = (float)a.G;
   c.hG = 0.5f / c.Gf;
   c.cz = s_prm[0];
@@ -184,6 +187,16 @@ march_kernel(const tmarch::ArgsOf<V, TrainArgs> a) {
   const tmarch::MarchSmem sm = tmarch::carve(smem, s_st);
 
   float r = 0.f, g = 0.f, b = 0.f, T = 1.f;
+  if constexpr (V::OPT) {
+    if ((a.flip & 2) && c.inpix) {
+      // a z-segment resumed from its upstream segments' state in acc
+      const float* in = a.acc + (size_t)p * 4 * npx + pix;
+      r = in[0];
+      g = in[npx];
+      b = in[2 * npx];
+      T = in[3 * npx];
+    }
+  }
   const float Gf = c.Gf, hG = c.hG, zlo = c.zlo, zhi = c.zhi;
   const float stop_thresh = c.stop_thresh;
   const bool inpix = c.inpix;
@@ -253,19 +266,23 @@ struct Launch {
 
 }  // namespace
 
-// The launch of kernel M's training mode. payload: element (0, 0, 0, 0) of
-// a (Gz, D, Gy, Gx) view with channel stride 1 and slab/row/column element
-// strides ss, sr, sc, f32 (pay_f32) or bf16, 16-byte aligned; params
-// (P, 31) f32; qscale (D,) f32; zb (P, 4, gi, gi) f32; ids (n_ids,) int32
-// slab ids in march order; occ: Gz * ceil(Gy / 8) * ceil(Gx / 512) uint64,
-// the payload's coarse occupancy (vt_march_occupancy); acc (P, 4, gi, gi)
-// f32; counts: tmarch::N_COUNTS uint64 (tmarch::add_counts) or null. The
-// variant (tmarch::with_variant, tmarch::make_var): fmt (0 RGBA, bd = -1,
-// D = 4; 1 SH; 2 SG, 3 ASG with bd lobes, 1 to 25, whose parameters
-// ``extra`` holds on the device; D = 3 bd + 1 otherwise), opt (the option
-// variant: every format but SH, and SH with rot (9 floats on the host),
-// bbox (params 16-19) or a basis window [basis_lo, basis_hi] that drops
-// planes). Returns cudaGetLastError() after the launch.
+// The launch of kernel M's training mode. payload: element (0, 0, 0, 0) of a
+// (Gz, D, Gy, Gx) view with channel stride 1 and slab/row/column element
+// strides ss, sr, sc, f32 (pay_f32) or bf16, 16-byte aligned; params (P, 31)
+// f32; qscale (D,) f32; zb (P, 4, gi, gi) f32; ids (n_ids,) int32 slab ids
+// in march order; occ: Gz * ceil(Gy / 8) * ceil(Gx / 512) uint64, the
+// payload's coarse occupancy (vt_march_occupancy); acc (P, 4, gi, gi) f32;
+// counts: tmarch::N_COUNTS uint64 (tmarch::add_counts) or null. The payload
+// may be a z-segment of the grid (Gz <= G slabs, its global z in
+// params[30]); flip: bit 0 the march runs toward -z, bit 1 (the option
+// variants only) resumes such a segment from the state acc holds on entry
+// instead of (0, 0, 0, 1). The variant (tmarch::with_variant,
+// tmarch::make_var): fmt (0 RGBA, bd = -1, D = 4; 1 SH; 2 SG, 3 ASG with bd
+// lobes, 1 to 25, whose parameters ``extra`` holds on the device; D = 3 bd +
+// 1 otherwise), opt (the option variant: every format but SH, and SH with
+// rot (9 floats on the host), bbox (params 16-19) or a basis window
+// [basis_lo, basis_hi] that drops planes). Returns cudaGetLastError() after
+// the launch.
 extern "C" int vt_march_slabs(const void* payload, int pay_f32,
                               long long ss, long long sr, long long sc,
                               const void* params, const void* qscale,
@@ -277,6 +294,7 @@ extern "C" int vt_march_slabs(const void* payload, int pay_f32,
                               int bbox, int basis_lo, int basis_hi,
                               void* stream) {
   if (P < 1 || P > 65535 || gi < 1 || n_ids < 1 || Gy < 1 || Gx < 1 ||
+      Gz > G || (flip & ~3) || ((flip & 2) && !opt) ||
       (reinterpret_cast<uintptr_t>(payload) & 15))
     return (int)cudaErrorInvalidValue;
   tmarch::VarArgs va;

@@ -382,7 +382,9 @@ struct Fns {
   static cudaError_t shade(const void* payload, const BwdArgs& a,
                            const tmarch::VarArgs& va, void* out,
                            int out_bf16, cudaStream_t s) {
-    const long long n_vox = (long long)a.G * a.G * a.G;
+    // the payload's voxels: a z-segment's (slab axis outermost) are its
+    // Gz slabs' first, so the shade pass's slab index stays below G
+    const long long n_vox = (long long)a.n_ids * a.G * a.G;
     const unsigned blocks = (unsigned)((n_vox + NT2 - 1) / NT2);
     bwd_shade_kernel<V, PT><<<blocks, NT2, 0, s>>>(
         (const PT*)payload, a.params, a.qscale, (const float4*)a.gbuf, out,
@@ -437,13 +439,15 @@ int info(int* out) {
 // payload: element (0, 0, 0, 0) of the (Gz, D, G, G) view the forward
 // marched, f32 (pay_f32) or bf16, 16-byte aligned, channel stride 1 and
 // slab/row/column element strides ss, sr, sc a permutation of (G*G*D,
-// G*D, D) (the bake's layout); params (31,) f32; qscale (D,) f32; zb
-// (4, gi, gi) f32 (_zb_planes); gacc (4, gi, gi) f32; aux (4, gi, gi) f32 =
-// [ctot, T_end * g_T, T_in, A_in]; ids (Gz,) int32, every slab in forward
-// order; occ: G * ceil(G / 8) * ceil(G / 512) uint64, the payload's coarse
-// occupancy (vt_march_occupancy in slab_march.cu); gbuf (G^3, 4) f32 in
-// the payload's voxel order, zeroed by the caller; out: the cotangent,
-// the payload's strides, f32 or bf16 (out_bf16); counts: tmarch::N_COUNTS
+// G*D, D) (the bake's layout), or a z-segment of Gz < G slabs (its global
+// z in params[30], its incoming state in aux) with ss = G*G*D, the slab
+// axis outermost; params (31,) f32; qscale (D,) f32; zb (4, gi, gi) f32
+// (_zb_planes); gacc (4, gi, gi) f32; aux (4, gi, gi) f32 = [ctot, T_end *
+// g_T, T_in, A_in]; ids (Gz,) int32, every slab in forward order; occ: Gz
+// * ceil(G / 8) * ceil(G / 512) uint64, the payload's coarse occupancy
+// (vt_march_occupancy in slab_march.cu); gbuf (Gz G^2, 4) f32 in the
+// payload's voxel order, zeroed by the caller; out: the cotangent, the
+// payload's strides, f32 or bf16 (out_bf16); counts: tmarch::N_COUNTS
 // uint64 (pass 1's, tmarch::add_counts) or null; the variant (bd, fmt,
 // opt, extra, rot_on, rot, bbox, basis_lo, basis_hi) as for
 // vt_march_slabs. Returns cudaGetLastError() after the launches.
@@ -463,7 +467,8 @@ extern "C" int vt_march_slabs_bwd(const void* payload, int pay_f32,
                         basis_hi, va))
     return (int)cudaErrorInvalidValue;
   const int D = fmt == F_RGBA ? 4 : 3 * bd + 1;
-  if (Gz != G || G < 1 || gi < 1 ||
+  if (Gz < 1 || Gz > G || gi < 1 ||
+      (Gz < G && ss != (long long)G * G * D) ||
       (reinterpret_cast<uintptr_t>(payload) & 15) || ss % D || sr % D ||
       sc % D)
     return (int)cudaErrorInvalidValue;

@@ -183,15 +183,17 @@ struct WalkGeo {
   float zbase, cz, cyG, cxG, hG, Gf, ujGa, ujGb, vkGa, vkGb;
 };
 
-// A variant: the payload's element, the basis format, and whether the
+// A variant: the payload's element, the basis format, whether the
 // run-time options (depth, rot, bbox, basis window, lobe count) are
-// compiled in.
-template <bool BF, int FM, bool O, bool BS = false>
+// compiled in, and whether each pixel resumes from the state ``acc``
+// holds (RS: a z-segment after upstream ones; only in the resume build).
+template <bool BF, int FM, bool O, bool BS = false, bool RS = false>
 struct Var {
   static constexpr bool BF16 = BF;         // bf16 (Dp = D), else int8 (D + 1)
   static constexpr int FMT = FM;
   static constexpr bool OPT = O;
   static constexpr bool BSH = BS;          // SH shading in bf16 pairs
+  static constexpr bool RESUME = RS;       // start from acc, not (0, 1)
   static constexpr int ESZ = BF ? 2 : 1;   // bytes a cell of one plane
   static constexpr int CH = 16 / ESZ;      // cells a 16-byte chunk
   static constexpr int SIGP = BF ? 1 : 2;  // sigma planes
@@ -579,6 +581,15 @@ __global__ void __launch_bounds__(DNT, 2)
     ujG[rr] = (u0 + du * (float)j) * Gf;
     r[rr] = g[rr] = b[rr] = 0.f;
     T[rr] = 1.f;
+    if constexpr (V::RESUME) {
+      if (inpix[rr]) {
+        const float* in = a.acc + (size_t)p * 4 * npx + (size_t)j * gi + k;
+        r[rr] = in[0];
+        g[rr] = in[npx];
+        b[rr] = in[2 * npx];
+        T[rr] = in[3 * npx];
+      }
+    }
     w4[rr] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
   const float vkG = (v0 + dv * (float)k) * Gf;
@@ -861,21 +872,38 @@ KernFn pick_lobes(int nb, int rows) {
   return nullptr;
 }
 
+// The source is built twice (volrend_torch/kernels): VT_DISPLAY_SET 0
+// holds every variant above; 1, the resume build
+// (slab_march_display_resume), holds the option variants (opt 1 and 3)
+// with RS, which a z-segment's launch with an upstream state takes (SH
+// without options as the option variant at its defaults), so the
+// defaults' code stays as it is.
+#ifndef VT_DISPLAY_SET
+#define VT_DISPLAY_SET 0
+#endif
+constexpr bool RS_SET = VT_DISPLAY_SET == 1;
+
 // opt: 0 the defaults, 1 the option variants, 3 SH's bf16 shading
 template <bool BF>
 KernFn pick_payload(int bd, int rows, int fmt, int opt) {
   if (opt == 3)
-    return fmt == F_SH ? pick_sh<Var<BF, F_SH, true, true>>(bd, rows)
-                       : nullptr;
+    return fmt == F_SH
+               ? pick_sh<Var<BF, F_SH, true, true, RS_SET>>(bd, rows)
+               : nullptr;
   if (opt != 0 && opt != 1) return nullptr;
-  if (fmt == F_SH)
-    return opt ? pick_sh<Var<BF, F_SH, true>>(bd, rows)
-               : pick_sh<Var<BF, F_SH, false>>(bd, rows);
+  if (fmt == F_SH) {
+    if (opt) return pick_sh<Var<BF, F_SH, true, false, RS_SET>>(bd, rows);
+    if constexpr (RS_SET) return nullptr;
+    else return pick_sh<Var<BF, F_SH, false>>(bd, rows);
+  }
   if (!opt || rows != 1) return nullptr;
   switch (fmt) {
-    case F_SG: return pick_lobes<Var<BF, F_SG, true>>(bd, rows);
-    case F_ASG: return pick_lobes<Var<BF, F_ASG, true>>(bd, rows);
-    case F_RGBA: return display_kernel<1, 1, Var<BF, F_RGBA, true>>;
+    case F_SG:
+      return pick_lobes<Var<BF, F_SG, true, false, RS_SET>>(bd, rows);
+    case F_ASG:
+      return pick_lobes<Var<BF, F_ASG, true, false, RS_SET>>(bd, rows);
+    case F_RGBA:
+      return display_kernel<1, 1, Var<BF, F_RGBA, true, false, RS_SET>>;
     default: return nullptr;
   }
 }
@@ -914,19 +942,22 @@ int display_smem(int stage_bytes, int chan_cells, int n_win) {
 
 }  // namespace
 
-// wins_masks: (2, n_win) int32 on the device — window ids then occupancy
-// bit masks, in march order. rows: pixel rows a thread (1: 32x8 tiles, 2:
-// 32x16). stage_bytes: the stage's size (a multiple of 16, at least one
-// 256-cell row of Dp planes); chan_cells: the shaded-cell buffer's cells
-// (>= 256). A payload whose rows are whole 16-byte chunks of a 16-byte
-// aligned base is staged with cp.async, any other with element copies.
-// The variant: fmt (0 RGBA, bd = -1; 1 SH; 2 SG, 3 ASG with bd lobes, 1 to
-// 25, whose parameters ``extra`` holds on the device), bf16 (the f16
-// bake's payload, Dp = D; else int8, Dp = D + 1) and opt (1: the option
-// variant, which every format but SH needs, and SH with depth, rot (9
-// floats on the host), bbox (params 16-19), a basis window [basis_lo,
-// basis_hi] that drops planes; 3: SH's bf16-shading variant, which takes
-// the same options). Returns cudaGetLastError() after the launch.
+// wins_masks: (2, n_win) int32 on the device — window ids then occupancy bit
+// masks, in march order. acc: the (P, 4, gi, gi) [r, g, b, T] output; in the
+// resume build it holds on entry the state each pixel starts from (a
+// z-segment's upstream segments'; the payload a z-segment of the grid whose
+// global z is params[30]), and only opt 1 and 3 are built there. rows: pixel
+// rows a thread (1: 32x8 tiles, 2: 32x16). stage_bytes: the stage's size (a
+// multiple of 16, at least one 256-cell row of Dp planes); chan_cells: the
+// shaded-cell buffer's cells (>= 256). A payload whose rows are whole 16-byte
+// chunks of a 16-byte aligned base is staged with cp.async, any other with
+// element copies. The variant: fmt (0 RGBA, bd = -1; 1 SH; 2 SG, 3 ASG with bd
+// lobes, 1 to 25, whose parameters ``extra`` holds on the device), bf16 (the
+// f16 bake's payload, Dp = D; else int8, Dp = D + 1) and opt (1: the option
+// variant, which every format but SH needs, and SH with depth, rot (9 floats
+// on the host), bbox (params 16-19), a basis window [basis_lo, basis_hi] that
+// drops planes; 3: SH's bf16-shading variant, which takes the same options).
+// Returns cudaGetLastError() after the launch.
 extern "C" int vt_march_display(const void* payload, const void* params,
                                 const void* qscale, const void* zb,
                                 const void* wins_masks, int n_win, void* acc,

@@ -139,10 +139,17 @@ for _base in ("slab_march", "slab_march_bwd"):
     for _suffix in ("_opt", "_lobes"):
         SOURCES[_base + _suffix] = (_src, _train)
 
+# kernel M's display mode is built twice: the variants, and "_resume"
+# (VT_DISPLAY_SET in csrc/slab_march_display.cu), the option variants that
+# start each pixel from the state the output buffer holds (a z-segment after
+# upstream ones), so the defaults' code does not carry it
+SOURCES["slab_march_display_resume"] = SOURCES["slab_march_display"]
+
 #: extra nvcc flags of a library (its instantiation set)
 _FLAGS = {f"{base}{suffix}": [f"-DVT_TRAIN_SET={n}"]
           for base in ("slab_march", "slab_march_bwd")
           for n, suffix in ((1, "_opt"), (2, "_lobes"))}
+_FLAGS["slab_march_display_resume"] = ["-DVT_DISPLAY_SET=1"]
 
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-lineinfo", "-Xptxas", "-v", "-shared",

@@ -53,12 +53,18 @@ def reset_march_counts() -> None:
         march_counts[k] = 0
 
 
-def any_active(active: torch.Tensor, i: int) -> bool:
+def any_active(active: torch.Tensor, i: int, sync_group=None) -> bool:
     """False once no ray is active, asked on iteration ``i`` of a march
-    when ``i`` is a multiple of ACTIVE_CHECK_EVERY (else True)."""
+    when ``i`` is a multiple of ACTIVE_CHECK_EVERY (else True).
+    ``sync_group``: a process group whose ranks march together (the leaf-
+    sharded render, whose every iteration is a collective): the answer is
+    theirs together (one all-reduce), so all run the same iterations."""
     if i % ACTIVE_CHECK_EVERY:
         return True
     march_counts["syncs"] += 1
+    if sync_group is not None:
+        from volrend_torch.parallel import mesh
+        return mesh.any_true(active, sync_group)
     return bool(active.any())
 
 
@@ -298,7 +304,7 @@ def _sample_step(data, child, lut, meta: TreeMeta, opt: RenderOptions,
 def _march(data, child, lut, meta: TreeMeta, opt: RenderOptions,
            cen, d, invdir, delta_scale, basis_vals, tmin, tmax,
            differentiable: bool = False, n_steps: Optional[int] = None,
-           train: Optional[bool] = None):
+           train: Optional[bool] = None, dt_clamp=None, sync_group=None):
     """Core march loop over a ray batch: every active ray steps until it
     leaves its [tmin, tmax) range or saturates (the reference's unbounded
     ``while t < tmax``).
@@ -308,7 +314,12 @@ def _march(data, child, lut, meta: TreeMeta, opt: RenderOptions,
     ``n_steps`` (default ``opt.max_steps``) that autograd differentiates
     through; it too ends once no ray is active, since inactive rays are
     masked either way. train: the training termination semantics of
-    ``_finalize``; defaults to ``differentiable``."""
+    ``_finalize``; defaults to ``differentiable``.
+
+    dt_clamp: (R,) per-ray t past which a step integrates nothing (the
+    context-parallel render's segment end: the next rank owns [hi, ...));
+    the ray still advances by the whole step, so termination matches.
+    sync_group: the ranks that march together (``any_active``)."""
     if train is None:
         train = differentiable
     n_iter = (n_steps or opt.max_steps) if differentiable else opt.max_steps
@@ -321,13 +332,17 @@ def _march(data, child, lut, meta: TreeMeta, opt: RenderOptions,
     active = hit & (tmin < tmax)
     stopped = torch.zeros(Rn, dtype=torch.bool, device=dev)
     for i in range(n_iter):
-        if not any_active(active, i):
+        if not any_active(active, i, sync_group):
             break
         march_counts["fwd"] += 1
         _, sigma, delta_t, rgb, _ = _sample_step(
             data, child, lut, meta, opt, cen, d, invdir, basis_vals, t)
         valid = active & (sigma > opt.sigma_thresh)
-        att = torch.exp(-delta_t * delta_scale * sigma)
+        dt_eff = delta_t
+        if dt_clamp is not None:
+            dt_eff = torch.minimum(torch.clamp(dt_clamp - t, min=0.0),
+                                   delta_t)
+        att = torch.exp(-dt_eff * delta_scale * sigma)
         weight = light * (1.0 - att)
         if opt.render_depth:
             contrib = torch.stack([weight * t, torch.zeros_like(weight),
@@ -376,7 +391,7 @@ def _finalize(light, acc, stopped, hit, opt: RenderOptions,
 
 def render_rays(tree: TreeArrays, origins, dirs, opt: RenderOptions,
                 tmax_bg=None, bg_rgb=None, differentiable: bool = False,
-                n_steps: Optional[int] = None):
+                n_steps: Optional[int] = None, sync_group=None):
     """Render world-space rays; returns (R, 4) RGBA with background
     composited (render_kernel offscreen semantics, volrend.cu:135-163).
 
@@ -392,7 +407,8 @@ def render_rays(tree: TreeArrays, origins, dirs, opt: RenderOptions,
     optional (R, 3) per-ray background (the mesh colour); rays whose cap is
     finite composite their remaining transmittance over it instead of the
     flat background and report alpha 1 (volrend.cu:143-163, the mesh
-    branch)."""
+    branch). sync_group: the ranks that march together, each iteration a
+    collective (the leaf-sharded render: parallel/leaf_shard.py)."""
     dev = tree.data.device
     origins = torch.as_tensor(origins, device=dev)
     dirs = torch.as_tensor(dirs, device=dev)
@@ -404,7 +420,8 @@ def render_rays(tree: TreeArrays, origins, dirs, opt: RenderOptions,
         tmax = torch.minimum(tmax, tmax_bg / delta_scale)
     rgb, alpha = _march(tree.data, tree.child, tree.lut, tree_meta(tree),
                         opt, cen, d, invdir, delta_scale, basis_vals,
-                        tmin, tmax, differentiable, n_steps)
+                        tmin, tmax, differentiable, n_steps,
+                        sync_group=sync_group)
     remaining = (1.0 - alpha)[:, None]
     bg = float(opt.background_brightness)
     if bg_rgb is not None and tmax_bg is not None:

@@ -66,10 +66,10 @@ __all__ = ["BakeMap", "build_bake_map", "bake_from_data",
            "data_to_pyramid", "pyramid_to_data", "bake_from_pyramid",
            "bake_from_pyramid_ref", "live_bits_ref",
            "render_frame_train", "loss_and_grad_frame",
-           "render_frame_train_zsharded"]
+           "render_frame_train_zsharded", "loss_and_grad_frames_sharded",
+           "segment_states"]
 
 _F32 = torch.float32
-_SLICE_D = "slice D of the port (ROADMAP.md item 20)"
 
 
 # ---------------------------------------------------------------------------
@@ -552,6 +552,16 @@ def _kernel_statics(cfg: SlabCfg):
                 bbox_full=slab_render._bbox_full(cfg.opt))
 
 
+def zsegment(planar: torch.Tensor, i: int, Gl: int) -> torch.Tensor:
+    """Slabs [i Gl, (i + 1) Gl) of ``planar`` (the bake seen as (G, D, G,
+    G) through its permutation) as the kernels take a z-segment: a copy
+    with the slab axis outermost (voxel records in (slab, row, column)
+    order), seen as (Gl, D, G, G). No copy when it already is one (slabs
+    along the bake's first axis)."""
+    return planar.narrow(0, i * Gl, Gl).permute(0, 2, 3, 1).contiguous(
+        ).permute(0, 3, 1, 2)
+
+
 class _MarchKernel(torch.autograd.Function):
     """Slab march on the kernels, the counterpart of the reference's
     ``_march_diff_pallas``: forward is kernel M in its training mode,
@@ -566,58 +576,106 @@ class _MarchKernel(torch.autograd.Function):
     live bits (``bake_from_pyramid``), from which the kernels' coarse
     occupancy is reduced; without them it reads every voxel's sigma.
     ``extra``: the tree's SG/ASG lobes (``grid.extra``; not trained, as the
-    reference stops their gradient)."""
+    reference stops their gradient).
+
+    With a ``mesh`` whose ``axis_name`` has n > 1 ranks the march is
+    z-sharded (the reference's ``_make_zsharded_march``): rank i marches
+    slabs [i Gl, (i + 1) Gl), Gl = G / n (``zsegment``, its coarse
+    occupancy the whole one's slice), with ``z_base`` = i Gl / G; one
+    all-gather of the (4, gi, gi) parts and the front-to-back fold give the
+    whole march on every rank. The backward needs no serialization: each
+    segment's incoming (T, A) follows from the forward's parts
+    (``segment_states``), M-bwd back-marches the local segment from it
+    (``state_init``), and one all-gather into a whole-grid tensor hands
+    every rank the whole cotangent, so the bake's adjoint and the
+    optimizer run unsharded and identical on every rank. This splits the
+    march's work, not the memory: every rank holds the whole bake and its
+    whole cotangent, as the reference's replicated bake does."""
 
     @staticmethod
-    def forward(ctx, planar, params, zb, cfg, live=None, extra=None):
-        pay, occ = planar, None
+    def forward(ctx, planar, params, zb, cfg, live=None, extra=None,
+                mesh=None, axis_name="z"):
+        G = cfg.G
+        n = 1 if mesh is None else mesh.size(axis_name)
+        i = 0 if n == 1 else mesh.get_local_rank(axis_name)
+        Gl = G // n
+        seg, occ = planar, None
         qs = torch.ones((cfg.D,), dtype=_F32, device=planar.device)
         if planar.device.type == "cpu":
-            pay = torch.empty(planar.shape, dtype=torch.bfloat16).copy_(
-                planar)
-        elif live is not None:  # one coarse occupancy for both kernels
-            # the bits mode checks the threshold on the host: the params
-            # carry opt.sigma_thresh in slot 14 (_pack_geom_params)
-            thr = torch.full((15,), cfg.opt.sigma_thresh, dtype=_F32)
-            occ = slab_march.march_occupancy(pay, thr, qs, live=live,
-                                             perm=cfg.perm)
+            seg = planar.narrow(0, i * Gl, Gl)
+            seg = torch.empty(seg.shape, dtype=torch.bfloat16).copy_(seg)
         else:
-            occ = slab_march.march_occupancy(pay, params, qs)
+            if n > 1:
+                seg = zsegment(planar, i, Gl)
+            if live is not None:  # one coarse occupancy for both kernels
+                # the bits mode checks the threshold on the host: the params
+                # carry opt.sigma_thresh in slot 14 (_pack_geom_params)
+                thr = torch.full((15,), cfg.opt.sigma_thresh, dtype=_F32)
+                occ = slab_march.march_occupancy(
+                    planar, thr, qs, live=live,
+                    perm=cfg.perm)[i * Gl:(i + 1) * Gl]
+            else:
+                occ = slab_march.march_occupancy(seg, params, qs)
+        ids, z_base = cfg.ids, None
+        if n > 1:
+            ids = tuple(range(Gl - 1, -1, -1) if cfg.flip else range(Gl))
+            z_base = i * (Gl / G)
         acc4 = slab_march.march_slabs(
-            pay, params[None], qs, zb[None], cfg.G, cfg.gi, cfg.D, cfg.bd,
-            cfg.perm, slab_ids=cfg.ids, sig2=False, depth=False,
+            seg, params[None], qs, zb[None], G, cfg.gi, cfg.D, cfg.bd,
+            cfg.perm, slab_ids=ids, sig2=False, depth=False,
             shade_bf16=False, dir_win=False, occupancy=occ, extra=extra,
-            train=True,
-            **_kernel_statics(cfg))[0]
-        ctx.save_for_backward(pay, params, zb, acc4)
-        ctx.occ = occ
-        ctx.extra = extra
-        ctx.cfg = cfg
+            train=True, z_base=z_base, **_kernel_statics(cfg))[0]
+        parts, order = acc4[None], (0,)
+        if n > 1:
+            from volrend_torch.parallel import mesh as mesh_mod
+            from volrend_torch.parallel.dist import fold_segments
+            parts = mesh_mod.all_gather(acc4, mesh.get_group(axis_name))
+            order = tuple(range(n - 1, -1, -1) if cfg.flip else range(n))
+            C, T = fold_segments(parts, order, 0)
+            acc4 = torch.cat([C, T[None]])
+        ctx.save_for_backward(seg, params, zb, acc4, parts)
+        ctx.occ, ctx.extra, ctx.cfg = occ, extra, cfg
+        ctx.mesh, ctx.axis_name, ctx.i, ctx.z_base = (mesh, axis_name, i,
+                                                      z_base)
+        ctx.order = order
         ctx.pdtype = planar.dtype
         ctx.pstride = planar.stride()
         return acc4[:3].movedim(0, -1).contiguous(), acc4[3].clone()
 
     @staticmethod
     def backward(ctx, g_acc, g_T):
-        pay, params, zb, acc4 = ctx.saved_tensors
+        seg, params, zb, acc4, parts = ctx.saved_tensors
         cfg = ctx.cfg
         gi = cfg.gi
+        n = parts.shape[0]
         if g_acc is None:
             g_acc = torch.zeros((gi, gi, 3), dtype=_F32, device=acc4.device)
         if g_T is None:
             g_T = torch.zeros((gi, gi), dtype=_F32, device=acc4.device)
         gacc4 = torch.cat([g_acc.to(_F32).movedim(-1, 0),
                            g_T.to(_F32)[None]])
+        state = (None if n == 1
+                 else segment_states(parts, gacc4, ctx.order)[ctx.i])
         grad = slab_march.march_slabs_bwd(
-            pay, params, torch.ones((cfg.D,), dtype=_F32, device=pay.device),
+            seg, params, torch.ones((cfg.D,), dtype=_F32, device=seg.device),
             zb, gacc4, acc4, cfg.G, gi, cfg.D, cfg.bd, cfg.perm,
             out_dtype=ctx.pdtype, occupancy=ctx.occ, extra=ctx.extra,
-            **_kernel_statics(cfg))
-        if grad.stride() != ctx.pstride:
+            z_base=ctx.z_base, state_init=state, **_kernel_statics(cfg))
+        if n > 1:
+            from volrend_torch.parallel import mesh as mesh_mod
+            # the segments' cotangents, slab-major, straight into one
+            # whole-grid tensor (rank order is slab order)
+            loc = grad.permute(0, 2, 3, 1)
+            full = torch.empty((n,) + tuple(loc.shape), dtype=loc.dtype,
+                               device=loc.device)
+            mesh_mod.all_gather(loc, ctx.mesh.get_group(ctx.axis_name),
+                                out=full)
+            grad = full.flatten(0, 1).permute(0, 3, 1, 2)
+        elif grad.stride() != ctx.pstride:
             grad = torch.empty_strided(grad.shape, ctx.pstride,
                                        dtype=ctx.pdtype,
                                        device=grad.device).copy_(grad)
-        return grad, None, None, None, None, None
+        return grad, None, None, None, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -629,7 +687,8 @@ def render_frame_train(data, bmap: BakeMap, grid: DenseGrid, transform,
                        width: int, height: int, opt: RenderOptions,
                        gi: int = 512, use_custom_vjp: bool = True,
                        cull: bool = False, backend: str = "auto",
-                       grad_bf16: bool = False) -> torch.Tensor:
+                       grad_bf16: bool = False, mesh=None,
+                       axis_name: str = "z") -> torch.Tensor:
     """Differentiable (H, W, 4) render of one pose from leaf ``data``.
 
     data: (K, >=D) float32 trainable leaf payloads (flattened tree rows),
@@ -649,6 +708,8 @@ def render_frame_train(data, bmap: BakeMap, grid: DenseGrid, transform,
     grad_bf16: the lean trainer's mode: the bake is cast to bf16 before the
         kernels read it and the backward kernel emits a bf16 cotangent (a
         per-call setting; the reference's is process-global).
+    mesh: z-shard the kernel march over this mesh's ``axis_name``
+        (``render_frame_train_zsharded``); None marches the whole grid.
     """
     opt = opt.replace(renormalize=False, render_depth=False)
     if cull:
@@ -661,6 +722,11 @@ def render_frame_train(data, bmap: BakeMap, grid: DenseGrid, transform,
     if backend == "auto":
         backend = ("kernel" if use_custom_vjp and _kernel_train_ok(cfg)
                    else "scan")
+    if mesh is not None and (cull or backend != "kernel"
+                             or not _kernel_train_ok(cfg)):
+        raise ValueError("a z-sharded march takes the fused kernels (a grid "
+                         "and options they take, backend 'kernel') and "
+                         "every slab (cull=False)")
     live = None
     if isinstance(data, (tuple, list)):
         pyr = tuple(p.to(_F32) for p in data)
@@ -680,7 +746,7 @@ def render_frame_train(data, bmap: BakeMap, grid: DenseGrid, transform,
             params = _pack_geom_params(geom, cfg, 1.0 / geom.scale)[0]
             zb = torch.stack([geom.z_lo_pix[0], geom.z_hi_pix[0]])
         acc, T = _MarchKernel.apply(planar, params, zb, cfg, live,
-                                    grid.extra.detach())
+                                    grid.extra.detach(), mesh, axis_name)
     elif backend == "scan":
         pperm = payload.permute(*perm, 3)
         gm = dict(cz=geom.cz[0], cy=geom.cy[0], cx=geom.cx[0],
@@ -782,14 +848,107 @@ def loss_and_grad_frame(data, bmap: BakeMap, grid: DenseGrid, transform,
     return loss.detach(), (tuple(grads) if pyramid else grads[0])
 
 
-def loss_and_grad_frames_sharded(*args, **kw):
-    """DP over poses with one all-reduce (the reference's shard_map form)
-    comes with the parallel layer."""
-    raise NotImplementedError(f"sharded frame training comes with {_SLICE_D}")
+def loss_and_grad_frames_sharded(data, bmap: BakeMap, grid: DenseGrid,
+                                 transforms, fx, fy, perm, flip, width: int,
+                                 height: int, targets, opt: RenderOptions,
+                                 mesh, gi: int = 512,
+                                 axis_name: str = "frames",
+                                 grad_bf16: bool = False):
+    """Data parallelism over poses: each rank takes its block of the pose
+    batch through the training frame's backward, summing its gradients,
+    then ONE all-reduce sums (loss, grads) over the mesh axis — the
+    frame-level analog of ``parallel.dist.loss_and_grad_sharded``.
+
+    data: a pyramid (the trainer's state) or (K, D) rows, the same on every
+    rank; transforms (F, 3, 4) and targets (F, H, W, >=3): the whole batch
+    (arrays or tensors), F divisible by the axis's size; all poses share
+    (perm, flip). The loss is the mean squared RGB error over the whole
+    batch. Returns (loss 0-d tensor, grads like ``data``), the same on
+    every rank."""
+    from volrend_torch.parallel import mesh as mesh_mod
+    pyramid = isinstance(data, (tuple, list))
+    leaves = [d.detach().requires_grad_(True)
+              for d in (data if pyramid else [data])]
+    dev = leaves[0].device
+    trs = to_device(transforms, _F32, dev).reshape(-1, 3, 4)
+    n_total = trs.shape[0]
+    lo, hi = mesh_mod.shard_range(n_total, mesh.size(axis_name),
+                                  mesh.get_local_rank(axis_name))
+    norm = 3.0 * width * height * n_total
+    g_sum = [torch.zeros_like(x, dtype=_F32) for x in leaves]
+    loss_sum = torch.zeros((), dtype=_F32, device=dev)
+    for f in range(lo, hi):
+        with torch.enable_grad():
+            out = render_frame_train(
+                tuple(leaves) if pyramid else leaves[0], bmap, grid,
+                trs[f], fx, fy, perm, flip, width, height, opt, gi,
+                grad_bf16=grad_bf16)
+            tgt = to_device(targets[f], _F32, out.device)
+            diff = out[..., :3] - tgt[..., :3]
+            loss = torch.sum(diff * diff) / norm
+            grads = torch.autograd.grad(loss, leaves)
+        loss_sum += loss.detach()
+        for a, g in zip(g_sum, grads):
+            a += g
+        del grads
+    buf = torch.cat([loss_sum.reshape(1)] + [g.reshape(-1) for g in g_sum])
+    del g_sum
+    mesh_mod.all_reduce(buf, mesh.get_group(axis_name))
+    out, at = [], 1
+    for x in leaves:
+        out.append(buf[at:at + x.numel()].reshape(x.shape))
+        at += x.numel()
+    return buf[0], (tuple(out) if pyramid else out[0])
 
 
-def render_frame_train_zsharded(*args, **kw):
-    """The z-sharded training march (both kernels on z-segments) comes with
-    the parallel layer."""
-    raise NotImplementedError(
-        f"z-sharded training renders come with {_SLICE_D}")
+# ---------------------------------------------------------------------------
+# The z-sharded training march (both kernels on z-segments)
+# ---------------------------------------------------------------------------
+
+def _inverse(q):
+    inv = [0] * len(q)
+    for k, a in enumerate(q):
+        inv[a] = k
+    return tuple(inv)
+
+
+def segment_states(parts: torch.Tensor, gacc4: torch.Tensor, order
+                   ) -> torch.Tensor:
+    """Each segment's incoming (T_in, A_in) of the backward, from the
+    forward's parts (n, 4, gi, gi) and the cotangent gacc4 (4, gi, gi):
+    T_in_d = the product of the upstream segments' T, A_in_d = the sum over
+    upstream d' of T_in_d' B_d' with B_d' = sum_c gacc_c C_d'_c (a
+    segment's sum of w G_pix is its colour times the cotangent). ``order``:
+    the segments in march order. Returns (n, 2, gi, gi)."""
+    n = parts.shape[0]
+    states = [None] * n
+    Tc = torch.ones_like(parts[0, 3])
+    Ac = torch.zeros_like(parts[0, 3])
+    for d in order:
+        states[d] = torch.stack([Tc, Ac])
+        Ac = Ac + Tc * torch.sum(gacc4[:3] * parts[d, :3], 0)
+        Tc = Tc * parts[d, 3]
+    return torch.stack(states)
+
+
+def render_frame_train_zsharded(data, bmap: BakeMap, grid: DenseGrid,
+                                transform, fx, fy,
+                                perm: Tuple[int, int, int], flip: bool,
+                                width: int, height: int, opt: RenderOptions,
+                                mesh, gi: int = 512, axis_name: str = "z",
+                                grad_bf16: bool = False) -> torch.Tensor:
+    """``render_frame_train`` with the march (kernel M's training mode and
+    M-bwd) z-sharded over ``mesh`` (``_MarchKernel`` with a mesh): the
+    march's work splits over the ranks; each holds the whole bake and its
+    cotangent. Segment semantics apply (stop_thresh = 0; training renders
+    already run renormalize=False). Every rank passes the same ``data``
+    and pose and gets the same (H, W, 4) frame, and a backward through it
+    the same whole gradient. Raises ValueError when the axis's size does
+    not divide G, or the kernels do not take the grid."""
+    n = mesh.size(axis_name)
+    if grid.G % n:
+        raise ValueError(f"G={grid.G} not divisible by mesh axis {n}")
+    return render_frame_train(
+        data, bmap, grid, transform, fx, fy, perm, flip, width, height,
+        opt.replace(stop_thresh=0.0), gi, backend="kernel",
+        grad_bf16=grad_bf16, mesh=mesh, axis_name=axis_name)

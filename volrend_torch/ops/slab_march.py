@@ -45,7 +45,13 @@ stages sigma ahead, skips footprints with no voxel above the threshold and
 stages colour only above it; its tile, pieces and ring are fixed when it
 is built, ``csrc/slab_common.cuh``; ``train_variant`` names the
 instantiation a launch takes); ``march_slabs_bwd`` launches the backward
-kernel (``csrc/slab_march_bwd.cu``). On CPU tensors they run
+kernel (``csrc/slab_march_bwd.cu``). Both modes march a z-segment of the
+grid too (``z_base``, the segment's global z, and ``acc_init``, the
+upstream segments' accumulator, which takes the kernels' resume
+variants), and the backward a slab-major segment from its incoming (T, A)
+(``state_init``): the parallel layer's z-sharded paths
+(``volrend_torch/parallel/dist.py``, ``slab_grad._MarchKernel`` with a
+mesh). On CPU tensors they run
 ``march_slabs_ref`` and ``march_slabs_bwd_ref``, the same functions in plain
 PyTorch (dense overlap matrices, as the reference builds them). Kernel and
 plain version differ only in summation order. Unlike the reference kernels,
@@ -171,12 +177,6 @@ def _window_masks(slab_ids: Sequence[int], K: int
 DISPLAY_LOBES = range(1, 26)
 
 
-def _later_items(unsupported: List[str]) -> None:
-    if unsupported:
-        raise NotImplementedError(
-            "march_slabs: " + "; ".join(unsupported) + " (ROADMAP.md)")
-
-
 def _check_format(fmt, bd: int, D: int, extra) -> None:
     """The basis formats of the march (the reference's ``_pallas_ok``):
     SH of degree 0-4, SG and ASG with their lobes in ``extra`` (bd x 4 and
@@ -207,7 +207,7 @@ _TRAIN_DEPTH = ("depth mode on the training payload: the reference's "
 
 def _check_options(gplanar, G, D, bd, sig2, fmt, extra, depth, rot,
                    basis_lo, basis_hi, bbox_full, shade_bf16, dir_win,
-                   z_base, acc_init, train) -> bool:
+                   train) -> bool:
     """The display mode's option set (an int8 payload or the f16 bake's
     bf16 one, window or per-slab directions, f32 or bf16 SH shading: every
     format and option) or the training mode's (``train``: f32 or bf16,
@@ -222,9 +222,6 @@ def _check_options(gplanar, G, D, bd, sig2, fmt, extra, depth, rot,
         raise ValueError("the training mode takes the bake's f32 or bf16 "
                          "tensor, not the int8 display payload")
     display = not train and dt != torch.float32
-    if z_base is not None or acc_init is not None:
-        _later_items(["z-sharded segments (z_base, acc_init) come with "
-                      "item 19, slice D"])
     if depth and not display:
         raise ValueError(_TRAIN_DEPTH)
     if dir_win and not display:
@@ -243,8 +240,9 @@ def _check_options(gplanar, G, D, bd, sig2, fmt, extra, depth, rot,
     if gplanar.shape[1] != Dp:
         raise ValueError(f"{dt} payload has {gplanar.shape[1]} planes; "
                          f"expected {Dp}")
-    if gplanar.shape[0] != G:
-        raise ValueError("payload must hold all G slabs")
+    if not 1 <= gplanar.shape[0] <= G:
+        raise ValueError(f"payload must hold at most G = {G} slabs (a "
+                         f"z-segment of the grid), got {gplanar.shape[0]}")
     return display
 
 
@@ -276,32 +274,40 @@ class MarchMode(NamedTuple):
                 or self.bf16_shade)
 
 
-def display_variant(mode: MarchMode, bd: int, bf16: bool) -> str:
+def display_variant(mode: MarchMode, bd: int, bf16: bool,
+                    resume: bool = False) -> str:
     """The name of the display kernel variant a launch takes (the key of
     ``march_slabs.variants``): format, payload, ``opt`` for an SH option
     set or ``bf16shade`` for the bf16-shading one (which takes the options
-    too), ``depth`` for depth mode, ``dirslab`` for per-slab directions;
-    ``SH-int8`` is the default."""
+    too), ``depth`` for depth mode, ``dirslab`` for per-slab directions,
+    ``resume`` for a launch from an upstream state (``acc_init``: the
+    option variants of the resume build); ``SH-int8`` is the default."""
     name = BasisType(mode.fmt).name + ("-bf16" if bf16 else "-int8")
     if mode.bf16_shade:
         name += "-bf16shade"
-    elif mode.fmt == int(BasisType.SH) and mode.options(bd):
+    elif mode.fmt == int(BasisType.SH) and (mode.options(bd) or resume):
         name += "-opt"
     if mode.depth:
         name += "-depth"
     if mode.dir_slab:
         name += "-dirslab"
+    if resume:
+        name += "-resume"
     return name
 
 
-def train_variant(mode: MarchMode, bd: int, f32: bool) -> str:
+def train_variant(mode: MarchMode, bd: int, f32: bool,
+                  resume: bool = False) -> str:
     """The name of the training kernels' variant a launch takes (the key of
     ``march_slabs.train_variants`` and ``march_slabs_bwd.variants``):
-    format, payload, ``opt`` for an SH option set; ``SH-f32`` is the
-    default trainer's."""
+    format, payload, ``opt`` for an SH option set, ``resume`` for a launch
+    from an upstream state (``acc_init``: an option variant); ``SH-f32``
+    is the default trainer's."""
     name = BasisType(mode.fmt).name + ("-f32" if f32 else "-bf16")
-    if mode.fmt == int(BasisType.SH) and mode.options(bd):
+    if mode.fmt == int(BasisType.SH) and (mode.options(bd) or resume):
         name += "-opt"
+    if resume:
+        name += "-resume"
     return name
 
 
@@ -347,6 +353,17 @@ def march_slabs(gplanar, params, qscale, zbounds, G: int,
     slab_ids: slab z-indices in march order, pre-culled of empty slabs;
         None means all G slabs in ascending order.
     flip: True when the march runs toward -z (descending slab ids).
+    z_base: the global z (in units of the grid's extent, slab i of the
+        payload at (i + 0.5) / G + z_base) of the payload's first slab: the
+        payload may be a z-segment of the grid, Gz <= G slabs, whose
+        ``slab_ids`` are local; None = 0 (the whole grid).
+    acc_init: optional (P, 4, gi, gi) or (4, gi, gi) initial [r, g, b, T]
+        accumulator: every pixel resumes from it instead of (0, 0, 0, 1)
+        (a segment after an upstream one; the stop threshold sees the
+        incoming T). With no slab to march it is returned as it is. On the
+        card such a launch takes the kernels' resume variants (the option
+        variants at their defaults: ``display_variant``/``train_variant``
+        name them "-resume"), so the defaults' code does not carry it.
     crop: optional (y0, Gy, x0, Gx) in-plane occupancy crop of the payload
         (slab_render.inplane_crop); None = uncropped.
     occupancy: the training mode's coarse occupancy of this payload
@@ -365,7 +382,7 @@ def march_slabs(gplanar, params, qscale, zbounds, G: int,
     """
     display = _check_options(gplanar, G, D, bd, sig2, fmt, extra, depth,
                              rot, basis_lo, basis_hi, bbox_full, shade_bf16,
-                             dir_win, z_base, acc_init, train)
+                             dir_win, train)
     mode = MarchMode(int(fmt), extra, bool(depth), rot, bool(bbox_full),
                      int(basis_lo), int(basis_hi),
                      dir_slab=display and not dir_win,
@@ -374,27 +391,42 @@ def march_slabs(gplanar, params, qscale, zbounds, G: int,
     # the display kernel evaluates each voxel's basis at its window
     # centre's distance: one-slab windows give each slab its own
     m = march_inputs(gplanar, params, zbounds, G, gi, slab_ids,
-                     1 if mode.dir_slab else k_per_step, crop)
+                     1 if mode.dir_slab else k_per_step, crop, z_base)
     dev = gplanar.device
+    P = m["params"].shape[0]
+    segment = (z_base is not None or acc_init is not None
+               or gplanar.shape[0] < G)
+    if acc_init is not None:
+        acc_init = _acc_init(acc_init, P, gi, dev)
     if not m["wins"]:
-        acc = torch.zeros((m["params"].shape[0], 4, gi, gi), dtype=_F32,
-                          device=dev)
+        if acc_init is not None:
+            return acc_init
+        acc = torch.zeros((P, 4, gi, gi), dtype=_F32, device=dev)
         acc[:, 3] = 1.0
         return acc
     if dev.type == "cuda":
         if not display:
             return _march_train_cuda(gplanar, qscale, D=D, bd=bd, flip=flip,
-                                     occ=occupancy, mode=mode, **m)
+                                     occ=occupancy, mode=mode,
+                                     acc_init=acc_init, segment=segment,
+                                     **m)
         return _march_display_cuda(gplanar, qscale, D=D, bd=bd, flip=flip,
-                                   mode=mode, **m)
+                                   mode=mode, acc_init=acc_init,
+                                   segment=segment, **m)
     if dev.type == "cpu":
         return march_slabs_ref(gplanar, qscale, D=D, bd=bd, flip=flip,
-                               dir_win=display, **mode._asdict(), **m)
+                               dir_win=display, acc_init=acc_init,
+                               **mode._asdict(), **m)
     raise RuntimeError(f"march_slabs: no kernel for device {dev}")
 
 
 march_slabs.launches = 0
 march_slabs.poses = 0
+#: launches that marched a z-segment (a payload of fewer than G slabs, or a
+#: z_base or acc_init given), a subset of ``launches``: display mode's and
+#: training mode's
+march_slabs.segments = 0
+march_slabs.train_segments = 0
 #: display launches by kernel variant (display_variant)
 march_slabs.variants = {}
 #: training launches by kernel variant (train_variant)
@@ -404,12 +436,27 @@ march_slabs.train_variants = {}
 march_slabs.display = None
 
 
+def _acc_init(acc_init, P: int, gi: int, dev) -> torch.Tensor:
+    """A march's initial accumulator as a fresh contiguous (P, 4, gi, gi)
+    f32 tensor on ``dev`` (the kernels write their output over it)."""
+    a = torch.as_tensor(acc_init, dtype=_F32)
+    if a.dim() == 3:
+        a = a[None]
+    if tuple(a.shape[1:]) != (4, gi, gi) or a.shape[0] not in (1, P):
+        raise ValueError(f"acc_init must be (4, {gi}, {gi}) or ({P}, 4, "
+                         f"{gi}, {gi}), got {tuple(a.shape)}")
+    if a.device != dev:
+        raise ValueError(f"acc_init must lie on {dev}, got {a.device}")
+    return a.expand(P, 4, gi, gi).clone(memory_format=torch.contiguous_format)
+
+
 def march_inputs(gplanar, params, zbounds, G: int, gi: int,
                  slab_ids: Optional[Sequence[int]] = None,
                  k_per_step: int = _K_STEP,
-                 crop: Optional[Tuple[int, int, int, int]] = None) -> dict:
+                 crop: Optional[Tuple[int, int, int, int]] = None,
+                 z_base=None) -> dict:
     """The march's prepared inputs, shared by kernel M and its plain
-    version: params (P, 31) (z_base appended), zb (P, 4, gi, gi)
+    version: params (P, 31) (z_base appended: 0 when None), zb (P, 4, gi, gi)
     (_zb_planes), the K-aligned windows and occupancy masks in march
     order, and the statics G, gi, K, y0, x0."""
     Gz, _, Gy, Gx = gplanar.shape
@@ -423,9 +470,10 @@ def march_inputs(gplanar, params, zbounds, G: int, gi: int,
     if params.dim() != 2 or params.shape[1] < 30:
         raise ValueError("params must be (P, 30) (see _pack_params)")
     P = params.shape[0]
-    params = torch.cat([params[:, :30],
-                        torch.zeros((P, 1), dtype=_F32,
-                                    device=params.device)], 1).contiguous()
+    zcol = torch.zeros((P, 1), dtype=_F32, device=params.device)
+    if z_base is not None:
+        zcol += to_device(z_base, _F32, params.device).reshape(-1, 1)
+    params = torch.cat([params[:, :30], zcol], 1).contiguous()
     zb = _zb_planes(params, zbounds, G, gi).contiguous()
     wins, masks = _window_masks(slab_ids, K)
     return dict(params=params, zb=zb, wins=wins, masks=masks, G=G, gi=gi,
@@ -441,7 +489,7 @@ def _check_launch(gplanar, qscale, params, zb, G, gi):
     Gz, Dp, Gy, Gx = gplanar.shape
     P = params.shape[0]
     for name, t, dt, shape in (
-            ("payload", gplanar, gplanar.dtype, (G, Dp, Gy, Gx)),
+            ("payload", gplanar, gplanar.dtype, (Gz, Dp, Gy, Gx)),
             ("params", params, _F32, (P, _NP)),
             ("qscale", qscale, _F32, (Dp,)),
             ("zbounds", zb, _F32, (P, 4, gi, gi))):
@@ -459,8 +507,10 @@ def _record_strides(gplanar, bake: bool = False) -> Tuple[int, int, int]:
     voxel's D values one record; the bake's contiguous (G, G, G, D) tensor
     seen through ``permute(perm[0], 3, perm[1], perm[2])`` is one) and a
     16-byte aligned first element; with ``bake``, also a permutation of a
-    contiguous (G, G, G, D) tensor (the backward walks the voxels in its
-    memory order)."""
+    contiguous (G, G, G, D) tensor, or a z-segment of one (Gz < G slabs)
+    with its slab axis outermost, as ``slab_grad.zsegment`` makes it (the
+    backward walks the voxels in memory order and takes a voxel's slab
+    from its offset)."""
     Gz, D, Gy, Gx = gplanar.shape
     ss, sc, sr, sx = gplanar.stride()
     if sc != 1 or min(ss, sr, sx) < 1 or gplanar.data_ptr() % 16:
@@ -468,11 +518,20 @@ def _record_strides(gplanar, bake: bool = False) -> Tuple[int, int, int]:
             f"the training payload must be a view with channel stride 1 "
             f"(each voxel's values one record) and a 16-byte aligned first "
             f"element, got strides {gplanar.stride()}")
-    if bake and not (Gz == Gy == Gx and sorted((ss, sr, sx)) ==
-                     [D, Gx * D, Gx * Gx * D]):
-        raise ValueError(f"the backward's payload must be a permuted "
-                         f"contiguous (G, G, G, D) bake, got shape "
-                         f"{tuple(gplanar.shape)} strides {gplanar.stride()}")
+    if bake:
+        # a permutation of a contiguous tensor: sorted by stride, each
+        # axis's stride is the product of the extents inside it
+        ok = Gy == Gx and (Gz == Gy or (Gz < Gy and ss == D * Gy * Gx))
+        inner = D
+        for st, n in sorted(((ss, Gz), (sr, Gy), (sx, Gx))):
+            ok = ok and st == inner
+            inner *= n
+        if not ok:
+            raise ValueError(
+                f"the backward's payload must be a permuted contiguous "
+                f"(G, G, G, D) bake or a slab-major z-segment of one, got "
+                f"shape "
+                f"{tuple(gplanar.shape)} strides {gplanar.stride()}")
     return ss, sr, sx
 
 
@@ -487,14 +546,19 @@ def march_slab_ids(wins: Sequence[int], masks: Sequence[int], K: int,
 
 def _march_train_cuda(gplanar, qscale, params, zb, wins, masks, G, gi, D,
                       bd, K, flip, y0, x0, counts=None, occ=None,
-                      mode: MarchMode = MarchMode()):
+                      mode: MarchMode = MarchMode(), acc_init=None,
+                      segment: bool = False):
     """Launch kernel M's training mode (the bake's f32 or bf16 view, per-slab
     view directions; the format and options of ``mode``) over the whole
     pose batch (one launch). ``occ``: the payload's coarse occupancy
     (``march_occupancy``; None builds it); ``counts``: an int64
     (N_COUNTS,) tensor on the card to add the launch's counts to (slabs met
     and shaded, footprint pieces met, staged and shaded;
-    ``tmarch::add_counts`` in csrc/slab_common.cuh)."""
+    ``tmarch::add_counts`` in csrc/slab_common.cuh); ``acc_init``: the
+    initial accumulator (``_acc_init``'s), which the launch overwrites
+    (the option variant resumes from it: ``flip``'s bit 1);
+    ``segment``: the launch marches a z-segment (counted in
+    ``march_slabs.train_segments``)."""
     _check_launch(gplanar, qscale, params, zb, G, gi)
     ss, sr, sx = _record_strides(gplanar)
     dev = gplanar.device
@@ -505,37 +569,49 @@ def _march_train_cuda(gplanar, qscale, params, zb, wins, masks, G, gi, D,
     if occ is None:
         occ = march_occupancy(gplanar, params, qscale)
     _check_occupancy(occ, Gz, Gy, Gx, dev)
-    acc = torch.empty((P, 4, gi, gi), dtype=_F32, device=dev)
+    acc = (torch.empty((P, 4, gi, gi), dtype=_F32, device=dev)
+           if acc_init is None else acc_init)
     f32 = gplanar.dtype == _F32
-    va = _variant_args(mode, bd, dev)
-    lib = train_lib("slab_march", mode.fmt, mode.options(bd))
+    resume = acc_init is not None
+    va = _variant_args(mode, bd, dev, resume)
+    lib = train_lib("slab_march", mode.fmt, mode.options(bd) or resume)
     kernels.check(lib.vt_march_slabs(
         gplanar.data_ptr(), int(f32), ss, sr, sx,
         params.data_ptr(), qscale.data_ptr(), zb.data_ptr(), ids.data_ptr(),
         ids.numel(), occ.data_ptr(), acc.data_ptr(),
         _counts_ptr(counts, dev), P, Gz, G, gi, Gy, Gx, y0, x0, bd,
-        int(bool(flip)), *va[1:],
+        int(bool(flip)) | (2 if resume else 0), *va[1:],
         torch.cuda.current_stream(dev).cuda_stream),
         "slab_march")
-    march_slabs.launches += 1
-    march_slabs.poses += P
-    name = train_variant(mode, bd, f32)
+    _count_launch(P, segment, True)
+    name = train_variant(mode, bd, f32, resume)
     march_slabs.train_variants[name] = (
         march_slabs.train_variants.get(name, 0) + 1)
     return acc
 
 
-def _variant_args(mode: MarchMode, bd: int, dev) -> tuple:
+def _count_launch(P: int, segment: bool, train: bool) -> None:
+    march_slabs.launches += 1
+    march_slabs.poses += P
+    if segment and train:
+        march_slabs.train_segments += 1
+    elif segment:
+        march_slabs.segments += 1
+
+
+def _variant_args(mode: MarchMode, bd: int, dev,
+                  resume: bool = False) -> tuple:
     """A launch's variant arguments as the kernels' entries take them:
     (the lobes' device tensor, kept alive for the call, or None; then fmt,
-    opt (1 the option variant, 3 the bf16-shading one), the lobes'
-    pointer, rot_on, rot (host float[9]), bbox, basis_lo, basis_hi)."""
+    opt (1 the option variant, which a launch that ``resume``s takes, 3
+    the bf16-shading one), the lobes' pointer, rot_on, rot (host
+    float[9]), bbox, basis_lo, basis_hi)."""
     extra, extra_ptr = None, 0
     if mode.fmt in (int(BasisType.SG), int(BasisType.ASG)):
         extra = to_device(mode.extra, _F32, dev).contiguous()
         extra_ptr = extra.data_ptr()
     rot = (ctypes.c_float * 9)(*(mode.rot or _IDENTITY))
-    opt = int(mode.options(bd)) | (2 if mode.bf16_shade else 0)
+    opt = int(mode.options(bd) or resume) | (2 if mode.bf16_shade else 0)
     return (extra, mode.fmt, opt, extra_ptr,
             int(mode.rot is not None), rot, int(not mode.bbox_full),
             mode.basis_lo, mode.basis_hi)
@@ -714,42 +790,51 @@ def _counts_ptr(counts, dev) -> int:
 
 def _march_display_cuda(gplanar, qscale, params, zb, wins, masks, G, gi, D,
                         bd, K, flip, y0, x0,
-                        mode: MarchMode = MarchMode()):
+                        mode: MarchMode = MarchMode(), acc_init=None,
+                        segment: bool = False):
     """Launch kernel M's display mode (an int8 or bf16 payload, the format,
-    options and knobs of ``mode``) over the whole pose batch (one
-    launch)."""
+    options and knobs of ``mode``) over the whole pose batch (one launch;
+    ``acc_init`` and ``segment`` as for _march_train_cuda)."""
     _check_launch(gplanar, qscale, params, zb, G, gi)
     cfg = display_config(params.shape[0], gi, len(wins), gplanar.shape[1],
                          _sm_count(gplanar.device.index),
-                         esz=gplanar.element_size(), opt=mode.options(bd))
+                         esz=gplanar.element_size(),
+                         opt=mode.options(bd) or acc_init is not None)
     return _display_launch(gplanar, qscale, params, zb, wins, masks, G, gi,
-                           bd, K, flip, y0, x0, cfg, mode)
+                           bd, K, flip, y0, x0, cfg, mode, acc_init, segment)
 
 
 def _display_launch(gplanar, qscale, params, zb, wins, masks, G, gi, bd, K,
-                    flip, y0, x0, cfg, mode: MarchMode = MarchMode()):
+                    flip, y0, x0, cfg, mode: MarchMode = MarchMode(),
+                    acc_init=None, segment: bool = False):
     """One display launch of checked inputs with the configuration ``cfg``
-    (display_config's) and the format and options of ``mode``."""
+    (display_config's), the format and options of ``mode`` and the initial
+    accumulator ``acc_init`` (``_acc_init``'s, overwritten; None starts
+    from (0, 0, 0, 1); else the option variant of the resume build,
+    ``slab_march_display_resume``, starts from it); ``segment`` as for
+    _march_train_cuda."""
     dev = gplanar.device
     _, Dp, Gy, Gx = gplanar.shape
     P = params.shape[0]
     bf16 = gplanar.dtype == torch.bfloat16
+    resume = acc_init is not None
     # the SG/ASG lobes are kept alive until the launch is queued
     extra, fmt, opt, extra_ptr, rot_on, rot, bbox, blo, bhi = _variant_args(
-        mode, bd, dev)
+        mode, bd, dev, resume)
     wm = to_device(np.asarray([wins, masks], np.int32), torch.int32, dev)
-    acc = torch.empty((P, 4, gi, gi), dtype=_F32, device=dev)
-    lib = kernels.lib("slab_march_display")
+    acc = (torch.empty((P, 4, gi, gi), dtype=_F32, device=dev)
+           if acc_init is None else acc_init)
+    lib = kernels.lib("slab_march_display_resume" if resume
+                      else "slab_march_display")
     kernels.check(lib.vt_march_display(
         gplanar.data_ptr(), params.data_ptr(), qscale.data_ptr(),
         zb.data_ptr(), wm.data_ptr(), len(wins), acc.data_ptr(),
-        P, G, gi, Dp, Gy, Gx, y0, x0, bd, K, int(bool(flip)), cfg["rows"],
-        cfg["stage_bytes"], cfg["chan_cells"], fmt, int(bf16), opt,
-        extra_ptr, int(mode.depth), rot_on, rot, bbox, blo, bhi,
+        P, G, gi, Dp, Gy, Gx, y0, x0, bd, K, int(bool(flip)),
+        cfg["rows"], cfg["stage_bytes"], cfg["chan_cells"], fmt, int(bf16),
+        opt, extra_ptr, int(mode.depth), rot_on, rot, bbox, blo, bhi,
         torch.cuda.current_stream(dev).cuda_stream), "slab_march_display")
-    march_slabs.launches += 1
-    march_slabs.poses += P
-    name = display_variant(mode, bd, bf16)
+    _count_launch(P, segment, False)
+    name = display_variant(mode, bd, bf16, resume)
     march_slabs.variants[name] = march_slabs.variants.get(name, 0) + 1
     march_slabs.display = dict(cfg, variant=name, fmt=mode.fmt,
                                bf16=int(bf16), opt=opt)
@@ -871,7 +956,7 @@ def march_slabs_ref(gplanar, qscale, params, zb, wins: Sequence[int],
                     rot: Optional[Tuple[float, ...]] = None,
                     bbox_full: bool = True, basis_lo: int = 0,
                     basis_hi: int = 24, dir_slab: bool = False,
-                    bf16_shade: bool = False):
+                    bf16_shade: bool = False, acc_init=None):
     """Plain PyTorch version of kernel M: the same function, with the warp
     as dense (gi, Gy) @ (Gy, Gx) @ (Gx, gi) overlap-matrix products as the
     reference builds them (in f32). Inputs as ``march_inputs`` prepares
@@ -894,7 +979,10 @@ def march_slabs_ref(gplanar, qscale, params, zb, wins: Sequence[int],
     - a non-full bbox masks sigma by the voxel extent's overlap with the
       in-plane box of params 16-19;
     - ``depth``: only sigma is warped, and acc[0] += w * |z - params[29]|
-      * zb[3] (acc[1:3] stay 0)."""
+      * zb[3] (acc[1:3] stay 0).
+    A z-segment: slab i of the payload lies at z = (i + 0.5) / G +
+    params[30]; ``acc_init`` (P, 4, gi, gi) is the accumulator each pose
+    starts from (None: rgb 0, T 1)."""
     dev = gplanar.device
     Gz, Dp, Gy, Gx = gplanar.shape
     P = params.shape[0]
@@ -929,8 +1017,11 @@ def march_slabs_ref(gplanar, qscale, params, zb, wins: Sequence[int],
             okb = (((yc + hG > prm[16]) & (yc - hG < prm[17]))[:, None]
                    & ((xc + hG > prm[18]) & (xc - hG < prm[19]))[None, :])
         zlo, zhi, dtp = zb[p, 0], zb[p, 1], zb[p, 2]
-        rgb = torch.zeros((3, gi, gi), dtype=_F32, device=dev)
-        T = torch.ones((gi, gi), dtype=_F32, device=dev)
+        if acc_init is None:
+            rgb = torch.zeros((3, gi, gi), dtype=_F32, device=dev)
+            T = torch.ones((gi, gi), dtype=_F32, device=dev)
+        else:
+            rgb, T = acc_init[p, :3].clone(), acc_init[p, 3].clone()
         shade = not depth and not rgba
         for w, m in zip(wins, masks):
             if dir_win and shade:
@@ -1009,15 +1100,17 @@ def march_slabs_bwd(gplanar, params, qscale, zbounds, gacc4, acc4,
     """Payload cotangent of the training-mode ``march_slabs`` for one pose.
 
     gplanar: (Gz, D, G, G) f32 or bf16 payload — the array the forward
-        marched (on the card, the bake's view: ``_record_strides``).
+        marched (on the card, the bake's view, or a z-segment of it:
+        ``_record_strides``).
         params: (30,) f32 (see _pack_params); qscale:
         (D,) f32; zbounds: (2, gi, gi) f32 per-pixel live z interval.
     gacc4: (4, gi, gi) upstream cotangent [g_r, g_g, g_b, g_T].
     acc4: (4, gi, gi) the forward output [r, g, b, T].
     state_init: optional (2, gi, gi) incoming (T, A) suffix state; None =
         (1, 0), the whole-grid march.
-    z_base: the global z of the payload's first slab (z-sharded segments,
-        slice D); only None is taken.
+    z_base: the global z of the payload's first slab (as for
+        ``march_slabs``: the payload may be a z-segment of Gz <= G slabs;
+        with ``state_init`` the segment's incoming state); None = 0.
     occupancy: the payload's coarse occupancy (``march_occupancy``; the
         forward's, shared); None builds it (on the card).
     Returns (Gz, D, G, G) in ``out_dtype`` (f32, or bf16 for the lean
@@ -1030,12 +1123,10 @@ def march_slabs_bwd(gplanar, params, qscale, zbounds, gacc4, acc4,
     ``k_per_step`` mirror the reference's signature and are not needed
     here.
     """
-    if z_base is not None:
-        _later_items(["z-sharded segments (z_base) come with item 19, "
-                      "slice D"])
     _check_format(fmt, bd, D, extra)
     if (gplanar.dtype not in _TRAIN_DTYPES or gplanar.dim() != 4
-            or tuple(gplanar.shape[1:]) != (D, G, G)):
+            or tuple(gplanar.shape[1:]) != (D, G, G)
+            or not 1 <= gplanar.shape[0] <= G):
         raise ValueError(f"payload must be (Gz, {D}, {G}, {G}) f32 or bf16, "
                          f"got {tuple(gplanar.shape)} {gplanar.dtype}")
     if out_dtype not in (_F32, torch.bfloat16):
@@ -1043,14 +1134,16 @@ def march_slabs_bwd(gplanar, params, qscale, zbounds, gacc4, acc4,
                          f"{out_dtype}")
     dev = gplanar.device
     prm, zb, gacc4, aux = march_bwd_inputs(params, zbounds, gacc4, acc4, G,
-                                           gi, state_init)
+                                           gi, state_init, z_base)
     qscale = qscale.to(_F32).contiguous()
     mode = MarchMode(int(fmt), extra, False, rot, bool(bbox_full),
                      int(basis_lo), int(basis_hi))
     if dev.type == "cuda":
         return _march_bwd_cuda(gplanar, prm, qscale, zb, gacc4, aux, G, gi,
                                D, bd, flip, out_dtype, occ=occupancy,
-                               mode=mode)
+                               mode=mode, segment=(z_base is not None
+                                                   or state_init is not None
+                                                   or gplanar.shape[0] < G))
     if dev.type == "cpu":
         g = march_slabs_bwd_ref(gplanar, qscale, prm, zb, gacc4, aux, G, gi,
                                 D, bd, flip, out_dtype, mode=mode)
@@ -1062,20 +1155,27 @@ def march_slabs_bwd(gplanar, params, qscale, zbounds, gacc4, acc4,
 
 
 march_slabs_bwd.launches = 0
+#: launches on a z-segment (z_base or state_init given, or fewer than G
+#: slabs), a subset of ``launches``
+march_slabs_bwd.segments = 0
 #: launches by kernel variant (train_variant)
 march_slabs_bwd.variants = {}
 
 
 def march_bwd_inputs(params, zbounds, gacc4, acc4, G: int, gi: int,
-                     state_init=None):
+                     state_init=None, z_base=None):
     """The backward's prepared inputs, shared by its kernel and its plain
-    version: params (31,) (z_base 0 appended), zb (4, gi, gi) (_zb_planes),
+    version: params (31,) (z_base appended, 0 when None), zb (4, gi, gi)
+    (_zb_planes),
     gacc4 (4, gi, gi) f32, and aux (4, gi, gi) = [ctot, T_end * g_T, T_in,
     A_in] with ctot = sum_c gacc_c * acc_c and (T_in, A_in) = state_init or
     (1, 0)."""
     dev = gacc4.device
+    zcol = torch.zeros(1, dtype=_F32, device=dev)
+    if z_base is not None:
+        zcol += to_device(z_base, _F32, dev).reshape(1)
     prm = torch.cat([torch.as_tensor(params, dtype=_F32).reshape(-1)[:30],
-                     torch.zeros(1, dtype=_F32, device=dev)]).contiguous()
+                     zcol]).contiguous()
     zb = _zb_planes(prm[None], zbounds.to(_F32).reshape(1, 2, gi, gi), G,
                     gi)[0].contiguous()
     gacc4 = gacc4.to(_F32).contiguous()
@@ -1092,11 +1192,12 @@ def march_bwd_inputs(params, zbounds, gacc4, acc4, G: int, gi: int,
 
 def _march_bwd_cuda(gplanar, params, qscale, zb, gacc4, aux, G, gi, D, bd,
                     flip, out_dtype, counts=None, occ=None,
-                    mode: MarchMode = MarchMode()):
+                    mode: MarchMode = MarchMode(), segment: bool = False):
     """Launch the backward kernel (its two passes: re-march + adjoint warp,
     then the per-voxel shade adjoint) for one pose; the cotangent takes the
     payload's strides. ``counts``, ``occ`` and ``mode`` as for
-    _march_train_cuda (``counts``: pass 1's)."""
+    _march_train_cuda (``counts``: pass 1's); ``segment``: the launch
+    counts as a z-segment's (``march_slabs_bwd.segments``)."""
     dev = gplanar.device
     Gz = gplanar.shape[0]
     for name, t, shape in (("params", params, (_NP,)), ("qscale", qscale, (D,)),
@@ -1130,6 +1231,7 @@ def _march_bwd_cuda(gplanar, params, qscale, zb, gacc4, aux, G, gi, D, bd,
         torch.cuda.current_stream(dev).cuda_stream),
         "slab_march_bwd")
     march_slabs_bwd.launches += 1
+    march_slabs_bwd.segments += int(segment)
     name = train_variant(mode, bd, f32)
     march_slabs_bwd.variants[name] = march_slabs_bwd.variants.get(name,
                                                                   0) + 1

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -31,11 +31,18 @@ from volrend_torch.models.n3tree import N3Tree, TreeArrays
 from volrend_torch.utils.device import to_device
 from volrend_torch.utils.options import RenderOptions
 
-__all__ = ["Trainer", "FrameTrainer", "Adam", "adam", "lean_adam", "psnr"]
+__all__ = ["Trainer", "FrameTrainer", "Adam", "adam", "lean_adam", "psnr",
+           "RayShard"]
 
 _F32 = torch.float32
-_RAY_SHARDED = "slice D of the port (ROADMAP.md item 19)"
-_SLICE_D = "slice D of the port (ROADMAP.md item 20)"
+
+
+class RayShard(NamedTuple):
+    """This rank's block of a ray batch, placed on the mesh's device
+    (``Trainer.shard_batch``): origins, dirs, target."""
+    origins: torch.Tensor
+    dirs: torch.Tensor
+    target: torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,13 +182,31 @@ class Trainer:
         self.step_count += 1
         return float(loss)
 
-    def shard_batch(self, *args, **kw):
-        raise NotImplementedError(
-            f"ray-batch sharding comes with {_RAY_SHARDED}")
+    def shard_batch(self, mesh, origins, dirs, target) -> RayShard:
+        """This rank's block of a whole ray batch on the mesh's device (one
+        host-to-device copy); pass it to ``step_sharded`` as ``origins`` to
+        skip the per-step copy."""
+        from volrend_torch.parallel import dist
+        o, d, _ = dist.shard_rays(origins, dirs, mesh)
+        t = to_device(dist._block(target, mesh, "rays"), _F32, mesh.device)
+        return RayShard(o, d, t)
 
-    def step_sharded(self, *args, **kw):
-        raise NotImplementedError(
-            f"ray-batch sharded training comes with {_RAY_SHARDED}")
+    def step_sharded(self, mesh, origins, dirs=None, target=None) -> float:
+        """One Adam step with the ray batch sharded over ``mesh`` (its
+        "rays" axis): each rank marches its block, and one all-reduce sums
+        (loss, grad) (``parallel.dist.loss_and_grad_sharded``); the Adam
+        state stays replicated, the same on every rank. Takes the whole
+        batch (every rank the same arrays; sharded here) or, as
+        ``origins``, a ``RayShard`` from ``shard_batch``."""
+        from volrend_torch.parallel import dist
+        shard = (origins if isinstance(origins, RayShard)
+                 else self.shard_batch(mesh, origins, dirs, target))
+        loss, g = dist.loss_and_grad_sharded(
+            self.tree, self.data, shard.origins, shard.dirs, shard.target,
+            self.opt, mesh)
+        self.optimizer.step([self.data], [g], self.opt_state)
+        self.step_count += 1
+        return float(loss)
 
     # -- state export ----------------------------------------------------------
 
@@ -299,14 +324,6 @@ class FrameTrainer(Trainer):
 
     step_sharded = step
 
-    def step_frame_zsharded(self, *args, **kw):
-        raise NotImplementedError(
-            f"z-sharded frame training comes with {_SLICE_D}")
-
-    def step_frames_sharded(self, *args, **kw):
-        raise NotImplementedError(
-            f"pose-sharded frame training comes with {_SLICE_D}")
-
     def _group(self, cam):
         from volrend_torch.ops import slab_render
         perm, flip, slope = slab_render.choose_axis(
@@ -332,6 +349,71 @@ class FrameTrainer(Trainer):
         del grads
         self.step_count += 1
         return float(loss) if sync else loss
+
+    def step_frame_zsharded(self, mesh, cam, target,
+                            axis_name: str = "z") -> float:
+        """One Adam step with the march's kernels z-sharded over ``mesh``
+        (``slab_grad.render_frame_train_zsharded``): the march's work
+        splits over the ranks; each holds the whole bake, its cotangent
+        and the Adam state. Segment semantics (stop_thresh = 0). Every rank passes the same
+        pose and target; the gradient, and so the parameters and the Adam
+        state, come out the same on every rank. Returns the loss."""
+        from volrend_torch.ops import slab_grad
+        perm, flip = self._group(cam)
+        leaves = [p.detach().requires_grad_(True) for p in self.pyramid]
+        with torch.enable_grad():
+            out = slab_grad.render_frame_train_zsharded(
+                tuple(leaves), self.bmap, self.grid, cam.transform,
+                float(cam.fx), float(cam.fy), perm, flip, cam.width,
+                cam.height, self.opt, mesh, gi=self.gi, axis_name=axis_name,
+                grad_bf16=self.lean)
+            tgt = to_device(target, _F32, out.device)
+            diff = out[..., :3] - tgt[..., :3]
+            loss = torch.mean(diff * diff)
+            grads = torch.autograd.grad(loss, leaves)
+        self.optimizer.step(self.pyramid, grads, self.opt_state)
+        del grads
+        self.step_count += 1
+        return float(loss.detach())
+
+    def place_frames(self, cams, targets) -> torch.Tensor:
+        """A pose batch's targets as one (F, H, W, C) f32 tensor on the
+        trainer's device, placed ONCE: pass it as ``targets`` to
+        ``step_frames_sharded`` on every epoch."""
+        dev = self.tree.data.device
+        return to_device(np.stack([
+            t.detach().cpu().numpy() if isinstance(t, torch.Tensor)
+            else np.asarray(t) for t in targets]), _F32, dev)
+
+    def step_frames_sharded(self, mesh, cams, targets,
+                            axis_name: str = "frames") -> float:
+        """One Adam step on a pose batch sharded over ``mesh``: each rank
+        takes its block of the poses through the frame backward, and one
+        all-reduce sums (loss, grads) (``slab_grad.
+        loss_and_grad_frames_sharded``). All cams share (perm, flip), (fx,
+        fy) and (W, H); len(cams) divisible by the axis's size. ``targets``:
+        the whole batch (a list of frames, copied here every call) or the
+        tensor of ``place_frames``. Returns the loss, the mean over the
+        batch."""
+        from volrend_torch.ops import slab_grad
+        groups = {self._group(c) for c in cams}
+        if len(groups) != 1:
+            raise ValueError(f"poses span {len(groups)} (perm, flip) "
+                             "groups; shard each group separately")
+        (perm, flip), = groups
+        cam = cams[0]
+        if not isinstance(targets, torch.Tensor):
+            targets = self.place_frames(cams, targets)
+        trs = np.stack([np.asarray(c.transform, np.float32) for c in cams])
+        loss, grads = slab_grad.loss_and_grad_frames_sharded(
+            self.pyramid, self.bmap, self.grid, trs, float(cam.fx),
+            float(cam.fy), perm, flip, cam.width, cam.height, targets,
+            self.opt, mesh, gi=self.gi, axis_name=axis_name,
+            grad_bf16=self.lean)
+        self.optimizer.step(self.pyramid, grads, self.opt_state)
+        del grads
+        self.step_count += 1
+        return float(loss)
 
     # -- checkpoint / resume -----------------------------------------------------
 
