@@ -209,6 +209,28 @@ Phases (any failure exits non-zero and prints no result):
     tree against the replicated one; each case's host-clock ms beside the
     unsharded call's (two ranks sharing one card: a correctness run, not a
     scaling number), the segment launches of world (b) counted from 0;
+12f. the apps (apps_phase), on the dense scene's npz at W x H: (a)
+    ``python -m volrend_torch.cli.animate`` as a subprocess on a
+    3-keyframe orbit script (24 frames; its FrameTimer's ms a frame), then
+    the same CLI in this process, counted (one M, W and fit-mode launch a
+    frame), both runs' PNGs byte-equal to render_image of the interpolated
+    cameras, frame 0 >= 54 dB against the exact renderer; (b) the web
+    viewer (``web.server.build_server``: the int8 bake, one warm frame)
+    with phase 12c's cube visible, served on 127.0.0.1 at a free port in a
+    thread: 12 /frame requests with a drag between each (the median round
+    trip), each frame byte-equal to render_image of the state's camera
+    with the mesh, /info's backend slab-cuda, kernel M and W's mesh mode
+    counted once a frame; three captured keyframes and an /anim/export of
+    8 frames (no error in its status, each PNG equal to the render of its
+    state); 40 "-" presses and a drag past the slab gate (slab-split,
+    byte-equal); (c) the viewer on bench.py's NDC tree at its default gi
+    (2G = 256 on an NDC grid), its camera from ndc_camera: that pose's
+    frame and the frame after 20 "s" presses (z = 0.2, bench.py's NDC
+    pose's), each through M, B and C alone, counted, equal to
+    render_image, >= 47.5 dB (gi = G = 128's PSNR logged beside it); (d) ``export_html.main`` in this process (8 orbit frames,
+    counted, the embedded PNGs equal to render_image); (e) the native npz
+    loader on the dense npz against np.load (every member equal, both
+    timed; fails unless the native loader ran);
 13. one JSON line with every kernel's numbers (kernels B's and C's
     launches from phase 10's run, the display path that takes them; kernel
     M's display variants as rows of their own, their launches from phase
@@ -217,8 +239,10 @@ Phases (any failure exits non-zero and prints no result):
     steps; kernel W's mesh mode and kernel M's dirslab and bf16shade
     variants, their launches from phase 12c's counted runs; kernel M's
     and M-bwd's z-segment launches as rows of their own, their times from
-    phase 12e (a), their launches from world (b)'s run), then the result
-    line.
+    phase 12e (a), their launches from world (b)'s run; phase 12f's
+    launches in a key of their own on every row, ``apps_launches``: those
+    of M, B, C, W, its fit mode and its mesh mode, 0 on the others), then
+    the result line.
 """
 
 import contextlib
@@ -4296,6 +4320,527 @@ def zshard_phase(torch, dev, stats):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12f: the apps (the animation CLI, the web viewer, the HTML export,
+# the native npz loader)
+# ---------------------------------------------------------------------------
+
+APPS_DIR = os.path.join(HERE, "build", "smoke_apps")
+APPS_FPS = 12               # 12 + 11 + 1 = 24 frames from two segments
+APPS_SEGMENTS = (1.0, 0.9)  # the end keyframes' t_max
+APPS_VIEWER_FRAMES = 12
+APPS_EXPORT_FPS = 4         # 4 + 3 + 1 = 8 exported frames
+APPS_EXPORT_SEGMENTS = (1.0, 0.75)
+APPS_HTML_FRAMES = 8
+APPS_NPZ_REPS = 3
+#: the kernels line's rows whose ``apps_launches`` this phase's counts give
+APPS_ROWS = (("M", "march"), ("B", "build"), ("C", "combine"),
+             ("W", "warp"), ("WF", "fit"), ("WM", "warp_mesh"))
+
+
+def _add_counts(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _counted(torch, fn):
+    """fn() with the display path's launch counts and kernel M's variants
+    set to 0 just before and read just after; (out, counts, variants)."""
+    from volrend_torch.ops import slab_march
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    reset_counts()
+    slab_march.march_slabs.variants = {}
+    out = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, read_counts(), dict(slab_march.march_slabs.variants)
+
+
+def _anim_script(path: str) -> list:
+    """A 3-keyframe orbit on the bench's orbit circle (radius 2.8,
+    elevation 0.45, thirds of a turn, the bench's focal length at W);
+    returns the keyframes' (center, back)."""
+    kfs = []
+    for k in range(3):
+        th = 2 * np.pi * k / 3
+        back = np.array([np.cos(th) * np.cos(0.45),
+                         np.sin(th) * np.cos(0.45), np.sin(0.45)])
+        kf = {"center": (2.8 * back).tolist(), "v_back": back.tolist(),
+              "fx": 1111.11 * W / 800}
+        if k:
+            kf["t_max"] = APPS_SEGMENTS[k - 1]
+        kfs.append(kf)
+    with open(path, "w") as f:
+        json.dump({"fps": APPS_FPS, "keyframes": kfs}, f)
+    return kfs
+
+
+def anim_apps(torch, dev, tree_path, gate, total):
+    """12f (a): ``python -m volrend_torch.cli.animate`` on the dense
+    scene's npz as a subprocess (its FrameTimer's ms a frame), then the
+    same CLI in this process, counted (one kernel M and one W launch a
+    frame: every pose of the orbit passes the slab gate); both runs' PNGs
+    byte-equal to render_image of the interpolated cameras; frame 0 at the
+    orbit's floor against the exact renderer."""
+    import io
+    from volrend_torch import anim
+    from volrend_torch.cli import animate
+    from volrend_torch.models.n3tree import N3Tree
+    from volrend_torch.ops import dense_grid, slab_render
+    from volrend_torch.ops.camera import Camera
+    from volrend_torch.utils.png import read_png
+
+    script = os.path.join(APPS_DIR, "orbit.json")
+    _anim_script(script)
+    kfs, cfg = anim.load_script(script)
+    schedule = anim.frame_times(kfs, cfg["fps"])
+    n = len(schedule)
+    argv = [tree_path, script, "-W", str(W), "-H", str(H), "--device",
+            str(dev)]
+    sub_dir, in_dir = (os.path.join(APPS_DIR, d) for d in ("anim_sub",
+                                                           "anim_in"))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "volrend_torch.cli.animate",
+                          *argv, "-o", sub_dir], cwd=HERE, env=env,
+                         capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        fail(f"animate exited {res.returncode}: {res.stderr[-3000:]}")
+    ms = [float(line.split()[0]) for line in res.stdout.splitlines()
+          if line.strip().endswith("ms per frame")]
+    if len(ms) != 1:
+        fail(f"animate: no ms per frame in {res.stdout!r}")
+    log(f"animate [{n} frames at {W}x{H}, subprocess, wall {wall:.1f} s]: "
+        f"{ms[0]:.3f} ms a frame (FrameTimer: render + PNG write)")
+    so = io.StringIO()
+    with contextlib.redirect_stdout(so):
+        rc, counts, variants = _counted(torch, lambda: animate.main(
+            argv + ["-o", in_dir]))
+    if rc != 0:
+        fail(f"animate in process returned {rc}")
+    in_ms = float([line for line in so.getvalue().splitlines()
+                   if line.strip().endswith("ms per frame")][0].split()[0])
+    log(f"animate in process: {in_ms:.3f} ms a frame; counts {counts}, "
+        f"kernel M variants {variants}")
+    _add_counts(total, counts)
+    if (counts["march"] != n or counts["warp"] != n or counts["fit"] != n
+            or counts["build"] or counts["combine"]
+            or counts["ref_warp_poses"] or counts["warp_mesh"]):
+        fail(f"animate: not one M, W and fit-mode launch a frame ({counts})")
+
+    # the frames the CLI must have written, rendered here
+    tdev = N3Tree(tree_path).to_device(lut_depth=None, device=dev)
+    grid = dense_grid.bake_dense(tdev, dtype="int8")
+    gi = animate.build_parser().parse_args(argv + ["-o", in_dir]).gi
+    cache, n_diff, frame0, cam0 = {}, 0, None, None
+    up = np.asarray(cfg.get("world_up", (0.0, 0.0, 1.0)), float)
+    for i, (seg, q) in enumerate(schedule):
+        center, v_back, fx, fy, opt, _ = anim.interpolate(
+            kfs[seg], kfs[seg + 1], q, up, first_segment=(seg == 0))
+        cam = Camera.from_vectors(center=tuple(center), v_back=tuple(v_back),
+                                  v_world_up=tuple(up), width=W, height=H,
+                                  fx=fx, fy=fy)
+        want = slab_render.render_image(
+            grid, cam, opt.replace(max_steps=4096), gi=gi,
+            payload_cache=cache, out_dtype=torch.uint8)
+        for d in (sub_dir, in_dir):
+            got = read_png(os.path.join(d, f"{i:06d}.png"))
+            n_diff += int(not np.array_equal(got, want))
+        if i == 0:
+            frame0, cam0 = want, cam
+    log(f"animate PNGs against render_image (gi {gi}): {2 * n - n_diff} "
+        f"of {2 * n} byte-equal")
+    if n_diff:
+        fail(f"animate: {n_diff} PNGs differ from render_image")
+    p = gate("apps animate frame 0", tdev, cam0,
+             torch.as_tensor(frame0, device=dev), 5, FLOOR_ORBIT)
+    del grid, tdev, cache
+    return {"anim_frames": n, "anim_ms_per_frame": ms[0],
+            "anim_wall_s": wall, "anim_in_process_ms_per_frame": in_ms,
+            "anim_counts": counts, "anim_gi": gi, "psnr_anim_db": p}
+
+
+def _http(url, body=None):
+    import urllib.request
+    req = urllib.request.Request(
+        url, data=None if body is None else json.dumps(body).encode(),
+        method="GET" if body is None else "POST")
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return r.read()
+
+
+def _decode_png(data: bytes, tag: str) -> np.ndarray:
+    from volrend_torch.utils.png import read_png
+    path = os.path.join(APPS_DIR, f"{tag}.png")
+    with open(path, "wb") as f:
+        f.write(data)
+    return read_png(path)
+
+
+def _state_frame(torch, state, w, h, cache):
+    """render_image of the viewer's current camera, options and meshes
+    (what ``ViewerState._render_locked`` must have sent); ``cache``: the
+    payload cache of these reference renders."""
+    from volrend_torch.ops import slab_render
+    from volrend_torch.ops.camera import Camera
+    cam = Camera(w, h, state.cam.fx, state.cam.fy, state.cam.transform.copy())
+    any_mesh = any(m.visible for m in state.meshes) or state.opt.show_grid
+    return slab_render.render_image(
+        state.grid, cam, state.opt, payload_cache=cache,
+        meshes=state.meshes if any_mesh else None, host_tree=state.tree,
+        out_dtype=torch.uint8)
+
+
+def viewer_apps(torch, dev, tree_path, total):
+    """12f (b): the web viewer on the dense scene (int8 bake) with phase
+    12c's cube visible, served on 127.0.0.1 at a free port in a thread:
+    one warm frame, then APPS_VIEWER_FRAMES /frame requests at W x H with
+    a drag between each (round-trip ms: render, PNG encode, HTTP), each
+    frame byte-equal to render_image of the state's camera with the mesh,
+    /info's backend slab-cuda, kernel M and W's mesh mode counted once a
+    frame; a zoom-out and a steep drag past the slab gate render
+    slab-split; three captured keyframes and an /anim/export of 8 frames
+    (no error in its status, each PNG equal to the render of its
+    state)."""
+    import copy
+    import threading
+    from volrend_torch import anim
+    from volrend_torch.ops import slab_render
+    from volrend_torch.utils.png import read_png
+    from volrend_torch.web import server
+
+    httpd = server.build_server(tree_path, port=0, host="127.0.0.1",
+                                device=dev)
+    state = httpd.state
+    state.meshes.append(mesh_cube(state.cam))
+    base = f"http://127.0.0.1:{httpd.server_port}"
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    out = {}
+    try:
+        frame = f"{base}/frame?w={W}&h={H}"
+        _http(frame)                                  # warm, with the mesh
+
+        def drag(dx, dy, pan=False):
+            """A drag from the canvas centre by (dx, dy) pixels of an
+            800-pixel canvas, scaled to W."""
+            x, y = W // 2, H // 2
+            _http(f"{base}/event", {"type": "down", "x": x, "y": y,
+                                    "pan": pan, "about_origin": True})
+            _http(f"{base}/event", {"type": "move", "x": x + dx * W / 800,
+                                    "y": y + dy * W / 800})
+            _http(f"{base}/event", {"type": "up"})
+
+        rts, got, cams, cache = [], [], [], {}
+
+        def run():
+            for i in range(APPS_VIEWER_FRAMES):
+                drag(23 * (1 + i % 3), -7 * (i % 2), pan=(i % 5 == 4))
+                t0 = time.perf_counter()
+                got.append(_http(frame))
+                rts.append(1e3 * (time.perf_counter() - t0))
+                cams.append(copy.deepcopy(state.cam))
+        _, counts, variants = _counted(torch, run)
+        info = json.loads(_http(f"{base}/info"))
+        n = APPS_VIEWER_FRAMES
+        med = float(np.median(rts))
+        log(f"viewer [{n} frames at {W}x{H} with a cube, a drag between "
+            f"each]: round trip median {med:.2f} ms (render + PNG encode + "
+            f"HTTP; all {[round(t, 2) for t in rts]}); backend "
+            f"{info['backend']}; counts {counts}; kernel M variants "
+            f"{variants}")
+        _add_counts(total, counts)
+        if info["backend"] != "slab-cuda":
+            fail(f"viewer: backend {info['backend']}, not slab-cuda")
+        if (counts["march"] != n or sum(variants.values()) != n
+                or counts["warp_mesh"] != n or counts["warp"]
+                or counts["build"] or counts["combine"]
+                or counts["ref_warp_poses"]):
+            fail(f"viewer: not one kernel M and one W-mesh launch a frame "
+                 f"({counts}, {variants})")
+        n_diff = 0
+        for i, (data, cam) in enumerate(zip(got, cams)):
+            st = copy.copy(state)
+            st.cam = cam
+            want = _state_frame(torch, st, W, H, cache)
+            n_diff += int(not np.array_equal(_decode_png(data, f"v{i}"),
+                                             want))
+        log(f"viewer frames against render_image: {n - n_diff} of {n} "
+            "byte-equal")
+        if n_diff:
+            fail(f"viewer: {n_diff} frames differ from render_image")
+        out.update(viewer_rt_ms_median=med, viewer_rt_ms=rts,
+                   viewer_counts=counts, viewer_backend=info["backend"])
+
+        # three keyframes along the orbit, then an export of 8 frames
+        state.keyframes = []
+        for k, t_max in enumerate((1.0,) + APPS_EXPORT_SEGMENTS):
+            if k:
+                drag(120, -20)
+            _http(f"{base}/anim/capture", {"t_max": t_max})
+        ex_dir = os.path.join(APPS_DIR, "viewer_export")
+
+        def export():
+            r = json.loads(_http(f"{base}/anim/export", {
+                "path": ex_dir, "fps": APPS_EXPORT_FPS, "width": W,
+                "height": H}))
+            for _ in range(6000):
+                if not state.anim_status["running"]:
+                    break
+                time.sleep(0.05)
+            return r
+        t0 = time.perf_counter()
+        r, ecounts, _ = _counted(torch, export)
+        esecs = time.perf_counter() - t0
+        status = dict(state.anim_status)
+        log(f"viewer export [{r['total']} frames at {W}x{H}] in "
+            f"{esecs:.1f} s: status {status}; counts {ecounts}")
+        _add_counts(total, ecounts)
+        if (status.get("error") or status["running"]
+                or status["done"] != r["total"] or r["total"] != 8):
+            fail(f"viewer export: status {status}, {r}")
+        if ecounts["march"] != 8 or ecounts["warp_mesh"] != 8:
+            fail(f"viewer export: not one M and W-mesh launch a frame "
+                 f"({ecounts})")
+        kfs = list(state.keyframes)
+        n_diff = 0
+        for i, (seg, q) in enumerate(anim.frame_times(kfs,
+                                                      APPS_EXPORT_FPS)):
+            with state.lock:
+                state._apply_state(*anim.interpolate(
+                    kfs[seg], kfs[seg + 1], q, state.cam.v_world_up,
+                    first_segment=(seg == 0)))
+                state.cam.width, state.cam.height = W, H
+                want = _state_frame(torch, state, W, H, cache)
+            got_i = read_png(os.path.join(ex_dir, f"{i:06d}.png"))
+            n_diff += int(not np.array_equal(got_i, want))
+        log(f"viewer export PNGs against render_image of each state: "
+            f"{8 - n_diff} of 8 byte-equal")
+        if n_diff:
+            fail(f"viewer export: {n_diff} PNGs differ from their states' "
+                 "renders")
+        out.update(viewer_export_s=esecs, viewer_export_counts=ecounts)
+
+        # zoom out ("-" keys), then a drag past the slab gate
+        for _ in range(40):
+            _http(f"{base}/event", {"type": "key", "key": "-"})
+        probe = copy.deepcopy(state.cam)
+        probe.width, probe.height = W, H
+        target = None
+        for dx in range(0, 800, 10):
+            for dy in (0, 120, -120, 240, -240):
+                c = copy.deepcopy(probe)
+                c.begin_drag(W // 2, H // 2, False, True)
+                c.drag_update(W // 2 + dx * W / 800, H // 2 + dy * W / 800)
+                if not slab_render.compatible(state.grid, c.transform, c.fx,
+                                              c.fy, W, H):
+                    target = (dx, dy)
+                    break
+            if target:
+                break
+        if target is None:
+            fail("viewer: no drag found that leaves the slab gate")
+        drag(*target)
+        sdata, scounts, _ = _counted(torch, lambda: _http(frame))
+        sinfo = json.loads(_http(f"{base}/info"))
+        want = _state_frame(torch, state, W, H, cache)
+        same = np.array_equal(_decode_png(sdata, "steep"), want)
+        log(f"viewer steep drag {target} at fx {state.cam.fx:.1f}: backend "
+            f"{sinfo['backend']}, counts {scounts}, frame byte-equal to "
+            f"render_image: {same}")
+        _add_counts(total, scounts)
+        if sinfo["backend"] != "slab-split" or not same:
+            fail(f"viewer: the steep drag rendered {sinfo['backend']} "
+                 f"(byte-equal {same})")
+        out.update(viewer_steep_counts=scounts)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    del state, httpd
+    return out
+
+
+#: "s" presses that step the NDC viewer's camera back from ndc_camera's
+#: pose (z = 1e-3) to bench.py's NDC pose's z = 0.2 (0.01 a press)
+NDC_STEPS_BACK = 20
+
+
+def viewer_ndc_apps(torch, dev, gate, total):
+    """12f (c): the viewer on bench.py's NDC tree at its own intermediate
+    resolution (slab_render.default_gi: 2G for an NDC grid, 256 for this
+    G=128), its camera from ndc_camera: that pose's frame, then the frame
+    after the camera steps back NDC_STEPS_BACK times ("s"), each through
+    kernels M, B and C alone, counted, at the NDC floor against the exact
+    renderer. Beside each, render_image of the same camera at gi = G (the
+    world grids' rule), uncounted, its PSNR logged and not gated."""
+    from volrend_torch.ops import slab_render
+    from volrend_torch.ops.camera import Camera, ndc_camera
+    from volrend_torch.web import server
+    tree = ndc_tree()
+    state = server.ViewerState(tree, device=dev)
+    gi = slab_render.default_gi(state.grid)
+    gi_g = int(min(512, max(128, -(-state.grid.G // 128) * 128)))
+    if not np.array_equal(state.cam.transform,
+                          ndc_camera(tree.ndc).transform):
+        fail("viewer NDC: the camera is not ndc_camera's")
+    state.render(W, H)                                  # warm
+    out = {"viewer_ndc_gi": gi}
+    for tag, steps in (("ndc_camera", 0), ("stepped_back", NDC_STEPS_BACK)):
+        for _ in range(steps):
+            state.handle_event({"type": "key", "key": "s"})
+        data, counts, _ = _counted(torch, lambda: state.render(W, H))
+        log(f"viewer NDC, {tag} [{W}x{H}, fx {state.cam.fx:.2f}, G "
+            f"{state.grid.G}, default gi {gi}, center "
+            f"{state.cam.center.tolist()}]: backend {state.last_backend}; "
+            f"counts {counts}")
+        _add_counts(total, counts)
+        if state.last_backend != "slab-cuda":
+            fail(f"viewer NDC: backend {state.last_backend}, not slab-cuda")
+        if (counts["march"] != 1 or counts["build"] < 1
+                or counts["combine"] != 1 or counts["warp"]
+                or counts["warp_mesh"] or counts["ref_warp_poses"]):
+            fail(f"viewer NDC: not kernels M, B and C alone ({counts})")
+        frame = _decode_png(data, f"ndc_{tag}")
+        cam = Camera(W, H, state.cam.fx, state.cam.fy, state.cam.transform)
+        want = slab_render.render_image(state.grid, cam, state.opt,
+                                        out_dtype=torch.uint8)
+        if not np.array_equal(frame, want):
+            fail(f"viewer NDC, {tag}: the frame differs from render_image "
+                 "at the default gi")
+        out[f"psnr_viewer_ndc_{tag}_db"] = gate(
+            f"apps viewer NDC, {tag}, gi {gi}", state.dev, cam,
+            torch.as_tensor(frame.copy(), device=dev), 8, FLOOR_NDC)
+        low = slab_render.render_image(state.grid, cam, state.opt, gi=gi_g,
+                                       out_dtype=torch.uint8)
+        out[f"psnr_ndc_{tag}_gi{gi_g}_db"] = gate(
+            f"apps NDC render_image, {tag}, gi {gi_g} (not gated)",
+            state.dev, cam, torch.as_tensor(low, device=dev), 8,
+            float("-inf"))
+        out[f"viewer_ndc_{tag}_counts"] = counts
+    del state
+    return out
+
+
+def export_apps(torch, dev, tree_path, total):
+    """12f (d): ``export_html.main`` in this process, APPS_HTML_FRAMES
+    orbit frames at W x H, counted (one M and one W launch a frame); the
+    embedded PNGs decoded equal to render_image of the same orbit."""
+    import base64
+    import io
+    import re
+    from volrend_torch.cli import export_html
+    from volrend_torch.models.n3tree import N3Tree
+    from volrend_torch.ops import dense_grid, slab_render
+    from volrend_torch.probes import _common
+    from volrend_torch.utils.options import RenderOptions
+    html = os.path.join(APPS_DIR, "scene.html")
+    so = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(so):
+        rc, counts, _ = _counted(torch, lambda: export_html.main(
+            [tree_path, "-o", html, "--frames", str(APPS_HTML_FRAMES),
+             "--size", str(W), "--device", str(dev)]))
+    secs = time.perf_counter() - t0
+    n = APPS_HTML_FRAMES
+    log(f"export_html [{n} frames at {W}x{W}] in {secs:.1f} s: "
+        f"{so.getvalue().strip()}; counts {counts}")
+    _add_counts(total, counts)
+    if rc != 0:
+        fail(f"export_html returned {rc}")
+    if (counts["march"] != n or counts["warp"] != n or counts["build"]
+            or counts["combine"] or counts["ref_warp_poses"]):
+        fail(f"export_html: not one M and W launch a frame ({counts})")
+    found = re.findall(r'"([A-Za-z0-9+/=]{100,})"', open(html).read())
+    if len(found) != n:
+        fail(f"export_html: {len(found)} embedded frames, not {n}")
+    tdev = N3Tree(tree_path).to_device(lut_depth=None, device=dev)
+    grid = dense_grid.bake_dense(tdev, dtype="int8")
+    cache, n_diff = {}, 0
+    for i, cam in enumerate(_common.orbit_poses(n, width=W, height=W)):
+        want = slab_render.render_image(grid, cam, RenderOptions(),
+                                        payload_cache=cache,
+                                        out_dtype=torch.uint8)
+        got = _decode_png(base64.b64decode(found[i]), f"html{i}")
+        n_diff += int(not np.array_equal(got, want))
+    log(f"export_html frames against render_image: {n - n_diff} of {n} "
+        "equal")
+    if n_diff:
+        fail(f"export_html: {n_diff} frames differ from render_image")
+    del grid, tdev, cache
+    return {"html_s": secs, "html_counts": counts,
+            "html_mb": os.path.getsize(html) / 1e6}
+
+
+def npz_apps(tree_path):
+    """12f (e): the native npz loader on the dense scene's npz against
+    np.load: every member equal, both timed (the file is in the page
+    cache: warm reads); fails unless the native loader ran."""
+    from volrend_torch.io import native_npz
+    if not native_npz.available():
+        fail(f"native npz loader unavailable: {native_npz.native_error()}")
+
+    def numpy_load():
+        with np.load(tree_path, allow_pickle=False) as f:
+            return dict(f.items())
+
+    ts = {"native": [], "numpy": []}
+    for _ in range(APPS_NPZ_REPS):
+        for key, fn in (("native", native_npz.load_npz),
+                        ("numpy", numpy_load)):
+            t0 = time.perf_counter()
+            got = fn(tree_path) if key == "native" else fn()
+            ts[key].append(1e3 * (time.perf_counter() - t0))
+            if key == "native":
+                nat = got
+            else:
+                ref = got
+    if sorted(nat) != sorted(ref) or any(
+            nat[k].dtype != ref[k].dtype or not np.array_equal(nat[k], ref[k])
+            for k in ref):
+        fail("native npz loader: members differ from np.load's")
+    mb = os.path.getsize(tree_path) / 2**20
+    med = {k: float(np.median(v)) for k, v in ts.items()}
+    log(f"npz load [{mb:.1f} MiB, {len(ref)} members, warm page cache]: "
+        f"native {med['native']:.1f} ms, np.load {med['numpy']:.1f} ms "
+        f"(median of {APPS_NPZ_REPS}; all {ts})")
+    return {"npz_mib": mb, "npz_native_ms": med["native"],
+            "npz_numpy_ms": med["numpy"]}
+
+
+def apps_phase(torch, dev, gate, stats):
+    """Phase 12f: the animation CLI (a), the web viewer on the dense scene
+    (b) and on the NDC scene (c), the HTML export (d) and the native npz
+    loader (e). Adds the phase's launches to the M, B, C, W, WF and WM
+    rows; returns a summary dict."""
+    import shutil
+    from volrend_torch.probes import _common
+    shutil.rmtree(APPS_DIR, ignore_errors=True)
+    os.makedirs(APPS_DIR)
+    _common.get_tree()                           # writes the npz cache
+    tree_path = _common.CACHE
+    total: dict = {}
+    out = anim_apps(torch, dev, tree_path, gate, total)
+    torch.cuda.empty_cache()
+    out.update(viewer_apps(torch, dev, tree_path, total))
+    torch.cuda.empty_cache()
+    out.update(viewer_ndc_apps(torch, dev, gate, total))
+    torch.cuda.empty_cache()
+    out.update(export_apps(torch, dev, tree_path, total))
+    torch.cuda.empty_cache()
+    out.update(npz_apps(tree_path))
+    log(f"apps phase: launches {total}")
+    for key, cnt in APPS_ROWS:
+        stats[key]["apps_launches"] = total.get(cnt, 0)
+    out["apps_counts"] = total
+    shutil.rmtree(APPS_DIR, ignore_errors=True)
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4841,6 +5386,9 @@ def main() -> None:
     # ---- 12e. the parallel layer: z-segments, the sharded worlds ------------
     zshard = zshard_phase(torch, dev, stats)
 
+    # ---- 12f. the apps: animation, the viewer, HTML export, npz loader ------
+    apps = apps_phase(torch, dev, gate, stats)
+
     # ---- 13. result ---------------------------------------------------------
     summary = {"card": card, "m_launches": stats.get("M_launches"),
                "warp_stage": stats.get("warp_stage"),
@@ -4855,7 +5403,7 @@ def main() -> None:
                **probe, **steep, **ndc, "variants": variants,
                "train_variants": train_variants, "overlay": overlay,
                "m_variant_launches": stats.get("M_variants"), "t2": t2,
-               "zshard": zshard,
+               "zshard": zshard, "apps": apps,
                "seconds": time.perf_counter() - _T0}
     log(f"summary {json.dumps(summary)}")
     spec = (
@@ -4916,7 +5464,9 @@ def main() -> None:
     for key, name, src, rep, launches in spec:
         s = stats[key]
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": rep, "launches": launches,
+                     "replaces": rep,
+                     "launches": launches,
+                     "apps_launches": s.get("apps_launches", 0),
                      "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                      "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                      "bound_by": s["bound_by"],

@@ -32,6 +32,29 @@ def psnr(a, b) -> float:
     return 99.0 if mse < 1e-12 else -10.0 * float(np.log10(mse))
 
 
+#: uint8 frames of the slab path across packages: rgb PSNR and alpha
+#: (the reference's bf16 warp against the port's f32 one)
+FRAME_GATE_DB = 45.0
+FRAME_ALPHA_ATOL = 2e-2
+
+
+def frames_agree(got, want, renderer: str) -> None:
+    """``got`` (a uint8 frame of the port's) against ``want`` (the
+    reference's): within one quantum from the exact renderer; from the
+    slab path rgb PSNR >= FRAME_GATE_DB and alpha within
+    FRAME_ALPHA_ATOL."""
+    got = np.asarray(got, np.int32)
+    want = np.asarray(want, np.int32)
+    assert got.shape == want.shape
+    if renderer == "exact":
+        assert int(np.abs(got - want).max()) <= 1
+        return
+    p = psnr(got[..., :3] / 255.0, want[..., :3] / 255.0)
+    assert p >= FRAME_GATE_DB, p
+    np.testing.assert_allclose(got[..., 3] / 255.0, want[..., 3] / 255.0,
+                               atol=FRAME_ALPHA_ATOL)
+
+
 def make_cam(back, width=48, height=48, fx=60.0, radius=2.5):
     back = np.asarray(back, np.float64)
     back /= np.linalg.norm(back)

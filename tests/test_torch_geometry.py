@@ -166,3 +166,16 @@ def test_window_masks(flip):
 def test_default_gi_matches():
     _, g, _, jg = scene("dense", 4, "int8")
     assert slab_render.default_gi(g) == j_slab.default_gi(jg) == 128
+
+
+@pytest.mark.parametrize("G, world, ndc", [(8, 128, 128), (64, 128, 128),
+                                           (128, 128, 256), (200, 256, 512),
+                                           (256, 256, 512), (1024, 512, 512)])
+def test_default_gi_doubles_on_ndc_grids(G, world, ndc):
+    """A world grid takes the reference's grid-matched gi; an NDC grid,
+    whose x and y span the whole frame, takes the reference's rule at 2G
+    (bench.py's NDC scene, G=128, renders at 256)."""
+    for cfg, want in ((None, world), ((800.0, 800.0, 1111.0), ndc)):
+        fake = type("g", (), {"G": G, "ndc": cfg})
+        ref = type("g", (), {"G": G * (2 if cfg else 1)})
+        assert slab_render.default_gi(fake) == j_slab.default_gi(ref) == want

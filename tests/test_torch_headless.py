@@ -119,7 +119,7 @@ def test_native_encoder_builds_into_the_build_dir():
     png.write_png(os.devnull, np.zeros((2, 2, 3), np.uint8))
     if png.native_error() is not None:
         pytest.skip(f"no native encoder here: {png.native_error()}")
-    t = png._target()
+    t = png._NATIVE.target()
     assert t.parent == kernels.build_dir() and t.is_file()
     assert t.name.startswith("libvolrend_png_")
 

@@ -42,8 +42,21 @@ MODULES = [
     "volrend_torch.parallel.mesh", "volrend_torch.parallel.dist",
     "volrend_torch.parallel.leaf_shard", "volrend_torch.parallel.multihost",
     "volrend_torch.parallel.work_queue", "volrend_torch.parallel.launch",
-    "volrend_torch.parallel.dryrun",
+    "volrend_torch.parallel.dryrun", "volrend_torch.anim",
+    "volrend_torch.cli.animate", "volrend_torch.cli.viewer",
+    "volrend_torch.cli.export_html", "volrend_torch.cli.compress",
+    "volrend_torch.cli.extract_poses", "volrend_torch.web",
+    "volrend_torch.web.server", "volrend_torch.utils.profiling",
+    "volrend_torch.utils.morton", "volrend_torch.utils.sh_mesh",
+    "volrend_torch.io", "volrend_torch.io.native_npz", "volrend_torch.ops",
+    "volrend_torch.models", "volrend_torch.utils",
+    "volrend_torch.utils.native",
 ]
+
+#: reference modules the port names differently (the rest keep their
+#: paths under volrend_torch/)
+RENAMED = {"ops/pallas_slab.py": "ops/slab_march.py",
+           "ops/render_jax.py": "ops/render_exact.py"}
 
 
 def test_port_imports_without_jax():
@@ -161,33 +174,84 @@ def test_c_entries_match_their_argtypes(name):
         assert want == argtypes, (src, fn)
 
 
-@pytest.mark.parametrize("entry", ["to_device", "bake_dense", "resolve",
-                                   "trainer", "headless", "dryrun"])
+def test_every_reference_module_has_its_counterpart():
+    """Each ``.py`` of the JAX package has a module of the port at the same
+    path under volrend_torch/ (or at its RENAMED one), and every module
+    that pairing names is in MODULES, the import scan above."""
+    ref = os.path.join(ROOT, "volrend_tpu")
+    pairs = []
+    for base, _, names in os.walk(ref):
+        for n in sorted(names):
+            if n.endswith(".py"):
+                rel = os.path.relpath(os.path.join(base, n), ref)
+                pairs.append((rel, RENAMED.get(rel, rel)))
+    assert len(pairs) > 40
+    missing = [r for r, p in pairs if not os.path.isfile(
+        os.path.join(ROOT, "volrend_torch", p))]
+    assert missing == [], missing
+    for _, p in pairs:
+        mod = "volrend_torch." + p[:-3].replace(os.sep, ".")
+        mod = mod.replace(".__init__", "")
+        assert mod in MODULES, mod
+    from volrend_torch.ops import camera
+    assert callable(camera.ndc_camera) and hasattr(camera.DragCamera,
+                                                   "drag_update")
+
+
+@pytest.mark.parametrize("entry", [
+    "to_device", "bake_dense", "resolve", "trainer", "headless", "dryrun",
+    "viewer_state", "serve", "viewer", "animate", "export_html"])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     """Called without ``device=`` on a machine with no card, the entry
     points raise instead of running on the CPU: the ray-batch Trainer
-    (on a tree uploaded by default), the headless CLI (without
-    ``--device cpu``) and the parallel layer's dry run too."""
+    (on a tree uploaded by default), the headless, animation, viewer and
+    HTML-export CLIs (without ``--device cpu``), the viewer's state and
+    server, and the parallel layer's dry run too."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
+    import json
     from volrend_torch import train
-    from volrend_torch.cli import headless
+    from volrend_torch.cli import animate, export_html, headless, viewer
     from volrend_torch.models.synthetic import make_test_tree
     from volrend_torch.ops import dense_grid
     from volrend_torch.parallel import dryrun
     from volrend_torch.utils.device import resolve
+    from volrend_torch.web import server
     tree = make_test_tree(max_depth=1, basis_dim=1, seed=0)
     tree_path, pose = str(tmp_path / "t.npz"), str(tmp_path / "p.txt")
     tree.save_npz(tree_path)
     np.savetxt(pose, np.eye(4))
+    script = str(tmp_path / "s.json")
+    with open(script, "w") as f:
+        json.dump({"fps": 1, "keyframes": [
+            {"center": [2.5, 0, 0.5], "v_back": [1, 0, 0.2], "fx": 4.0},
+            {"center": [0, 2.5, 0.5], "v_back": [0, 1, 0.2], "fx": 4.0}]},
+            f)
+    out = str(tmp_path / "out")
     call = {"to_device": lambda: tree.to_device(),
             "bake_dense": lambda: dense_grid.bake_dense(tree),
             "resolve": lambda: resolve(None),
             "trainer": lambda: train.Trainer(tree.to_device()),
             "headless": lambda: headless.main([tree_path, pose]),
-            "dryrun": lambda: dryrun.dryrun_multichip(2)}[entry]
+            "dryrun": lambda: dryrun.dryrun_multichip(2),
+            "viewer_state": lambda: server.ViewerState(tree),
+            "serve": lambda: server.serve(tree_path, port=0),
+            "viewer": lambda: viewer.main([tree_path, "--port", "0"]),
+            "animate": lambda: animate.main([tree_path, script, "-o", out]),
+            "export_html": lambda: export_html.main(
+                [tree_path, "-o", out + ".html"])}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
+    if entry == "viewer_state":
+        st = server.ViewerState(tree, device="cpu", use_slab=False)
+        assert st.dev.data.device.type == "cpu"
+    if entry == "animate":
+        assert animate.main([tree_path, script, "-o", out, "-W", "4", "-H",
+                             "4", "--device", "cpu"]) == 0
+    if entry == "export_html":
+        assert export_html.main([tree_path, "-o", out + ".html", "--size",
+                                 "4", "--frames", "2", "--device",
+                                 "cpu"]) == 0
     # asking for the CPU explicitly works
     assert tree.to_device(device="cpu").data.device.type == "cpu"
     if entry == "trainer":

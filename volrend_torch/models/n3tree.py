@@ -185,8 +185,8 @@ class N3Tree:
     def open(self, path: str) -> "N3Tree":
         assert path.endswith(".npz"), "expected .npz octree file"
         self.npz_path = path
-        with np.load(path, allow_pickle=False) as npz:
-            self.load_npz(dict(npz.items()))
+        from volrend_torch.io import native_npz
+        self.load_npz(native_npz.load_npz(path))
         pb_path = path[:-4] + "_poses_bounds.npy"
         if os.path.isfile(pb_path):
             self.use_ndc = True

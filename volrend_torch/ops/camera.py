@@ -6,16 +6,16 @@ Same conventions as the reference (``src/camera.cpp``,
 (``src/cuda/volrend.cu:22-32``): d_cam = ((ix-W/2)/fx, -(iy-H/2)/fy, -1).
 Default focal 1111.11 (camera.hpp:12) and default orbit pose (camera.cpp:32-36).
 
-The pose-file readers of the headless renderer (``main_headless.cpp``) are
-host numpy; the drag camera of the viewer and the animator is ported with
-those apps.
+The drag camera of the viewer and the animator (``src/camera.cpp:78-138``),
+the NDC scenes' initial camera and the pose-file readers of the headless
+renderer (``main_headless.cpp``) are host numpy.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -88,6 +88,134 @@ class Camera:
         origins = xp.broadcast_to(
             xp.asarray(self.transform[:, 3]), dirs.shape)
         return origins, dirs
+
+
+@dataclasses.dataclass
+class DragCamera(Camera):
+    """Camera with the GUI drag state machine (src/camera.cpp:78-138):
+    orbit about origin with pole-flip prevention, pan, move."""
+    origin: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(3, np.float32))
+    v_world_up: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.array([0.0, 0.0, 1.0], np.float32))
+    _drag: Optional[dict] = None
+
+    @property
+    def v_right(self) -> np.ndarray:
+        return self.transform[:, 0]
+
+    @property
+    def v_up(self) -> np.ndarray:
+        return self.transform[:, 1]
+
+    def update_basis(self, v_back=None, center=None) -> None:
+        """Orthonormalize basis from back + world_up (Camera::_update)."""
+        if v_back is None:
+            v_back = self.v_back
+        if center is None:
+            center = self.center
+        back = np.asarray(v_back, np.float64)
+        back /= np.linalg.norm(back)
+        right = np.cross(self.v_world_up.astype(np.float64), back)
+        n = np.linalg.norm(right)
+        if n < 1e-9:
+            right = np.array([1.0, 0.0, 0.0])
+            n = 1.0
+        right /= n
+        up = np.cross(back, right)
+        self.transform = np.stack(
+            [right, up, back, np.asarray(center, np.float64)],
+            axis=1).astype(np.float32)
+
+    def begin_drag(self, x: float, y: float, is_pan: bool,
+                   about_origin: bool) -> None:
+        self._drag = dict(
+            start=np.array([x, y], np.float64),
+            back=self.v_back.copy(), right=self.v_right.copy(),
+            up=self.v_up.copy(), center=self.center.copy(),
+            origin=self.origin.copy(), is_pan=is_pan,
+            about_origin=about_origin)
+
+    def drag_update(self, x: float, y: float) -> None:
+        d = self._drag
+        if d is None:
+            return
+        delta = (np.array([x, y], np.float64) - d["start"]) * (
+            -2.0 * self.movement_speed / max(self.width, self.height))
+        if d["is_pan"]:
+            shift = delta[0] * d["right"] - delta[1] * d["up"]
+            self.update_basis(center=d["center"] + shift)
+            if d["about_origin"]:
+                self.origin = (d["origin"] + shift).astype(np.float32)
+            return
+        if d["about_origin"]:
+            delta = -delta
+
+        def rot(axis, angle):
+            return _axis_angle(axis, angle)
+
+        m_tmp = rot(d["right"], -delta[1])
+        v_back_tmp = m_tmp @ d["back"]
+        # prevent flip over the pole (camera.cpp:111-115)
+        if np.dot(np.cross(self.v_world_up, v_back_tmp), d["right"]) < 0:
+            return
+        m = rot(self.v_world_up, -np.fmod(delta[0], 2 * np.pi)) @ m_tmp
+        new_back = m @ d["back"]
+        if d["about_origin"]:
+            center = m @ (d["center"] - d["origin"]) + d["origin"]
+        else:
+            center = self.center
+        self.update_basis(v_back=new_back, center=center)
+
+    def end_drag(self) -> None:
+        self._drag = None
+
+    def move(self, xyz) -> None:
+        shift = np.asarray(xyz, np.float64) * self.movement_speed
+        self.update_basis(center=self.center + shift)
+        if self._drag is not None:
+            self._drag["center"] = self._drag["center"] + shift
+
+
+def _axis_angle(axis, angle: float) -> np.ndarray:
+    axis = np.asarray(axis, np.float64)
+    n = np.linalg.norm(axis)
+    if n < 1e-12 or abs(angle) < 1e-12:
+        return np.eye(3)
+    k = axis / n
+    K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return (np.eye(3) * np.cos(angle) + np.sin(angle) * K
+            + (1 - np.cos(angle)) * np.outer(k, k))
+
+
+def ndc_camera(ndc, width: int = 800, height: int = 800,
+               fx: float = -1.0, fy: float = -1.0) -> "DragCamera":
+    """Initial camera for an NDC/LLFF scene (main.cpp:731-741).
+
+    In NDC space the mean training camera is at the origin looking down -z
+    (the warp is defined in the mean-pose frame), so the init is the fixed
+    pose center=(0,0,0), back=(0,0,1), world_up=(0,1,0), orbit pivot
+    origin=(0,0,-3); default focal = ndc.focal * 0.25. The ``ndc.avg_*``
+    fields (the mean pose in *world* coordinates, n3tree.cpp:21-52) supply
+    the orbit pivot direction hint; the reference parses but never reads
+    them — here they are kept for /info display and pivot sanity.
+    """
+    if fx <= 0:
+        fx = float(ndc.focal) * 0.25
+    if fy <= 0:
+        fy = fx
+    cam = DragCamera(width=width, height=height, fx=fx, fy=fy,
+                     movement_speed=0.1)
+    cam.origin = np.array([0.0, 0.0, -3.0], np.float32)
+    cam.v_world_up = np.array([0.0, 1.0, 0.0], np.float32)
+    # nudged off the exact z=0 plane: there the projective NDC image of the
+    # camera is at infinity (warped rays turn parallel), which the slab
+    # fast path's finite-pinhole parameterization cannot express — 1e-3
+    # is visually identical at this focal and keeps the default LLFF pose
+    # on the fast path (slab_render.choose_axis NDC gates)
+    cam.update_basis(v_back=np.array([0.0, 0.0, 1.0]),
+                     center=np.array([0.0, 0.0, 1e-3]))
+    return cam
 
 
 # ---------------------------------------------------------------------------

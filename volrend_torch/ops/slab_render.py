@@ -276,8 +276,13 @@ def prepare_payload(grid: DenseGrid, perm: Tuple[int, int, int],
 
 def default_gi(grid: DenseGrid) -> int:
     """Intermediate-plane resolution matched to the volume: gi = G rounded
-    up to a multiple of 128, in [128, 512]."""
-    return int(min(512, max(128, -(-grid.G // 128) * 128)))
+    up to a multiple of 128, in [128, 512]; 2G for an NDC grid. An NDC
+    grid's x and y span the whole frame, so a plane of G samples gives
+    each sample a voxel's width of the frame: at gi = G, bench.py's NDC
+    scene (G=128, 800^2) renders below its 47.5 dB gate
+    (chip_smoke.py, phase 12f (c))."""
+    g = 2 * grid.G if grid.ndc is not None else grid.G
+    return int(min(512, max(128, -(-g // 128) * 128)))
 
 
 def _slope_grid(R, fx, fy, scale, perm: Tuple[int, int, int], width: int,

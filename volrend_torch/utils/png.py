@@ -4,11 +4,8 @@ counterpart of ``volrend_tpu/utils/png.py``).
 Replaces the reference's libpng path (``src/imwrite.cpp:14-79``).
 ``native/png_writer.cpp`` splits scanlines across threads (pigz-style
 chunked deflate, one IDAT per chunk). It is compiled by ``g++`` at first
-use into the port's git-ignored build directory (``kernels.build_dir()``),
-keyed by a hash of the source and the flags, and bound with ctypes. Where
-that build fails (no compiler, no zlib headers, no source beside an
-installed package) the pure-Python encoder writes instead, as in the
-reference; ``write_png`` returns which encoder wrote the file and
+use into the port's build directory (``utils/native.py``). Where that
+build fails the pure-Python encoder writes instead, as in the reference; ``write_png`` returns which encoder wrote the file and
 ``native_error()`` says why the native one is missing. PNG encoding is host
 code, not a kernel.
 """
@@ -16,79 +13,32 @@ code, not a kernel.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import struct
-import subprocess
-import threading
 import zlib
-from pathlib import Path
 from typing import Optional
 
 import numpy as np
 
+from volrend_torch.utils.native import HostLib
+
 __all__ = ["write_png", "write_png_bytes", "rgba_to_bytes", "read_png",
            "native_error"]
 
-_SRC = Path(__file__).resolve().parents[2] / "native" / "png_writer.cpp"
-_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
-_LIBS = ("-lz", "-lpthread")
-
-_LOCK = threading.Lock()
-_LIB: Optional[ctypes.CDLL] = None
-_TRIED = False
-_ERROR: Optional[str] = None
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.png_write.restype = ctypes.c_int
+    lib.png_write.argtypes = [
+        ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int]
 
 
-def _target() -> Path:
-    from volrend_torch import kernels
-    h = hashlib.sha256(_SRC.read_bytes())
-    h.update(" ".join(_FLAGS + _LIBS).encode())
-    return kernels.build_dir() / f"libvolrend_png_{h.hexdigest()[:16]}.so"
-
-
-def _build() -> Path:
-    """The native encoder's library, compiled on a miss (into a file of
-    this process's own, then renamed, so concurrent builds never see a
-    partial library)."""
-    if not _SRC.is_file():
-        raise FileNotFoundError(f"{_SRC} not found")
-    so = _target()
-    if so.is_file():
-        return so
-    so.parent.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    out = subprocess.run(["g++", *_FLAGS, str(_SRC), "-o", str(tmp), *_LIBS],
-                         capture_output=True, text=True, timeout=120)
-    if out.returncode != 0:
-        raise RuntimeError(f"g++ failed: {out.stderr[-2000:]}")
-    os.replace(tmp, so)
-    return so
-
-
-def _lib() -> Optional[ctypes.CDLL]:
-    global _LIB, _TRIED, _ERROR
-    with _LOCK:
-        if _LIB is not None or _TRIED:
-            return _LIB
-        _TRIED = True
-        try:
-            lib = ctypes.CDLL(str(_build()))
-        except Exception as e:  # any failure: the Python encoder writes
-            _ERROR = f"{type(e).__name__}: {e}"
-            return None
-        lib.png_write.restype = ctypes.c_int
-        lib.png_write.argtypes = [
-            ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int]
-        _LIB = lib
-        return _LIB
+_NATIVE = HostLib("png_writer.cpp", "libvolrend_png", _bind)
 
 
 def native_error() -> Optional[str]:
     """Why the native encoder is unavailable (None if it built, or was not
     tried yet)."""
-    return _ERROR
+    return _NATIVE.error
 
 
 def _chunk(tag: bytes, payload: bytes) -> bytes:
@@ -144,7 +94,7 @@ def write_png(path: str, img, level: int = 1, native: bool = True) -> str:
     img = _as_image(img)
     h, w, c = img.shape
     if native and c in (1, 3, 4):
-        lib = _lib()
+        lib = _NATIVE.load()
         if lib is not None:
             buf = np.ascontiguousarray(img)
             n_threads = min(os.cpu_count() or 1, 16)
