@@ -2234,7 +2234,6 @@ FLOOR_DEPTH = 30.0     # the reference's slab-vs-exact depth floor
 # floor sits 4.5 dB under it, above the reference test's own 30 dB
 # (tests/test_slab_render.py:689)
 FLOOR_BBOX = 40.0
-LOBE_SEED = 4          # the SG/ASG lobes of the format trees
 
 
 def variant_ops(grid, opt):
@@ -2355,6 +2354,34 @@ def variant_check(torch, kernels, tag, grid, opt, cams, key, stats,
     return row
 
 
+def lobe_depth_infos(kernels) -> dict:
+    """What the card makes of kernel M's SG, ASG and depth instantiations
+    (volrend_torch/probes/display_info.py's keys, at the display path's
+    shared-memory budget): registers, spill bytes and blocks per SM, each
+    logged; fails if one spills, takes more than 128 registers or holds
+    fewer than two blocks an SM."""
+    import ctypes
+    from volrend_torch.ops import slab_march
+    from volrend_torch.probes import display_info
+    lib = kernels.lib("slab_march_display")
+    out = {}
+    for key, bd, rows, fmt, bf16, opt in display_info.M_VARIANTS:
+        if not key.startswith(("SG", "ASG", "depth")):
+            continue
+        info = (ctypes.c_int * 4)()
+        kernels.check(lib.vt_march_display_info(
+            bd, rows, fmt, bf16, opt, slab_march._DISPLAY_SMEM, info),
+            "slab_march_display")
+        out[key] = {"blocks_per_sm": info[0], "regs": info[1],
+                    "spill_bytes": info[2], "static_smem": info[3]}
+        log(f"kernel M {key}: {info[1]} registers, {info[2]} spill bytes, "
+            f"{info[0]} blocks an SM, {info[3]} B static shared memory")
+        if info[2] or info[1] > 128 or info[0] < 2:
+            fail(f"kernel M {key} spills, takes more than 128 registers "
+                 f"or holds fewer than two blocks an SM ({out[key]})")
+    return out
+
+
 def counted_render(torch, tag, fn, passes: int, world: bool, launched):
     """fn() (one render_image call of ``passes`` slab passes) with the
     launch counts and the plain versions' calls reset just before and
@@ -2388,60 +2415,17 @@ def counted_render(torch, tag, fn, passes: int, world: bool, launched):
     return frame, counts, variants
 
 
-def format_trees_on(torch, tdev, nb=None):
-    """The dense bench tree's arrays read as SG16 and ASG16 trees (its leaf
-    rows as lobe coefficients, the lobes drawn from LOBE_SEED as the
-    reference's tests draw them, tests/test_slab_render.py:241-258 and
-    :349-376) and as an RGBA tree (D = 4: each colour channel's first
-    coefficient through a sigmoid, and sigma): {name: TreeArrays}. With
-    ``nb``, the SG and ASG trees keep the first nb coefficients of each
-    colour and sigma (D = 3 nb + 1) and draw nb lobes."""
-    import dataclasses
-    from volrend_torch.models.data_format import BasisType
-    bd = tdev.basis_dim
-    nb = bd if nb is None else nb
-    rng = np.random.default_rng(LOBE_SEED)
-    mu = rng.normal(size=(nb, 3))
-    mu /= np.linalg.norm(mu, axis=-1, keepdims=True)
-    sg = np.concatenate([rng.uniform(1.0, 6.0, (nb, 1)), mu], -1)
-    asg = np.zeros((nb, 11))
-    for i in range(nb):
-        q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
-        asg[i, 0] = rng.uniform(0.5, 4.0)
-        asg[i, 1] = rng.uniform(0.5, 4.0)
-        asg[i, 2:] = q.T.reshape(-1)
-    dev = tdev.data.device
-    D = tdev.data_dim
-    lobe = tdev
-    if nb != bd:
-        keep = [c * bd + k for c in range(3) for k in range(nb)] + [D - 1]
-        lobe = dataclasses.replace(
-            tdev, data=tdev.data[:, keep].contiguous(), data_dim=3 * nb + 1,
-            basis_dim=nb)
-    rgba = torch.cat([torch.sigmoid(tdev.data[:, 0:3 * bd:bd].float()),
-                      tdev.data[:, D - 1:D].float()], 1)
-    return {
-        "SG": dataclasses.replace(
-            lobe, fmt=BasisType.SG,
-            extra=torch.as_tensor(sg, dtype=torch.float32, device=dev)),
-        "ASG": dataclasses.replace(
-            lobe, fmt=BasisType.ASG,
-            extra=torch.as_tensor(asg, dtype=torch.float32, device=dev)),
-        "RGBA": dataclasses.replace(
-            tdev, data=rgba.to(tdev.data.dtype).contiguous(), data_dim=4,
-            basis_dim=-1, fmt=BasisType.RGBA),
-    }
-
-
 def variants_phase(torch, kernels, dev, opt, stats, gate, main_path,
                    groups_of, render_all):
-    """Phase 12: kernel M's display variants at full width. (a) The f16
-    route: the dense SH16 scene baked f16 (a bf16 payload), the 200 orbit
-    poses through render_frames (RGBA8, gi=256) with every pose through
+    """Phase 12: kernel M's display variants at full width. First each
+    SG, ASG and depth instantiation's registers and spills
+    (lobe_depth_infos: none may spill). (a) The f16 route: the dense SH16
+    scene baked f16 (a bf16 payload), the 200 orbit poses through
+    render_frames (RGBA8, gi=256) with every pose through
     the SH-bf16 variant and kernel W and nothing else, throughput and
     peak memory, the variant against its plain version on PLAIN_POSES of
     group 0 and pose 0 gated at >= FLOOR_ORBIT. (b) SG16, ASG16 and RGBA
-    trees from the same leaves (format_trees_on), baked int8: each
+    trees from the same leaves (_common.format_trees), baked int8: each
     variant against its plain version on pose 0's group and render_image
     of pose 0 counted and gated at >= FLOOR_SPARSE. (c) On the dense int8
     grid, pose 0: render_depth, render_bbox, a basis window and rot_dirs,
@@ -2457,7 +2441,7 @@ def variants_phase(torch, kernels, dev, opt, stats, gate, main_path,
     from volrend_torch.ops import dense_grid, slab_march, slab_render
     from volrend_torch.ops.camera import Camera
     from volrend_torch.probes import _common
-    out = {}
+    out = {"instantiations": lobe_depth_infos(kernels)}
     # each variant's launches in the counted runs (the main path's for
     # SH-bf16): the JSON line's counts
     launched = collections.Counter()
@@ -2503,7 +2487,7 @@ def variants_phase(torch, kernels, dev, opt, stats, gate, main_path,
 
     # (b) the formats
     cam0 = cams[0]
-    for fmt, tree in format_trees_on(torch, tdev).items():
+    for fmt, tree in _common.format_trees(tdev).items():
         key = "M_" + fmt.lower()
         t = time.perf_counter()
         g = dense_grid.bake_dense(tree, dtype="int8")
@@ -2600,8 +2584,8 @@ def variants_phase(torch, kernels, dev, opt, stats, gate, main_path,
 # ---------------------------------------------------------------------------
 
 #: phase 12b's cases: (name, tree, render options); the trees are the
-#: training bench's leaves read as SG9, ASG9, RGBA and SG6 (format_trees_on)
-#: and the SH9 tree itself
+#: training bench's leaves read as SG9, ASG9, RGBA and SG6
+#: (_common.format_trees) and the SH9 tree itself
 TRAIN_CASES = (
     ("SG9", "SG", {}), ("ASG9", "ASG", {}), ("RGBA", "RGBA", {}),
     ("SG6", "SG6", {}),
@@ -2766,7 +2750,7 @@ def train_variants_phase(torch, dev, stats):
     bench's width (tools/bench_train.py's scene: make_solid_tree(
     max_depth=7, basis_dim=9, seed=7), G=256, 800^2, gi=256, 4 orbit poses
     of one group, FrameTrainer(lr=5e-2)): its leaves read as SG9, ASG9,
-    RGBA and SG6 trees (format_trees_on; SG6 takes D = 19, a run-time
+    RGBA and SG6 trees (_common.format_trees; SG6 takes D = 19, a run-time
     record width and a new bake width) and the SH9 tree with rot_dirs, a
     basis window and a render_bbox, each through train_variant_case (SG9
     also on the lean trainer's bf16 bake, and one step with the precise
@@ -2779,8 +2763,8 @@ def train_variants_phase(torch, dev, stats):
     tree = _common.load_tree(CACHE_TRAIN, lambda: make_solid_tree(
         max_depth=DEPTH, basis_dim=9, seed=7))
     tdev = tree.to_device(lut_depth=None, device=dev)
-    trees = dict(format_trees_on(torch, tdev), SH=tdev,
-                 SG6=format_trees_on(torch, tdev, nb=6)["SG"])
+    trees = dict(_common.format_trees(tdev), SH=tdev,
+                 SG6=_common.format_trees(tdev, nb=6)["SG"])
     cams = train_orbit(Camera)
     out = {}
     for case, key, option in TRAIN_CASES:

@@ -318,15 +318,20 @@ def _display_vs_plain(g, case, seen=True):
 NDC_CFG = (float(W), float(H), 200.0)
 
 
-@pytest.fixture(scope="module")
-def ndc_grids(card):
-    """(cpu grid, cuda grid) of an NDC tree (G=32 fog, the bench's NDC
-    scene at depth 4)."""
+def _ndc_tree():
+    """An NDC tree: G=32 fog, the bench's NDC scene at depth 4."""
     from volrend_torch.models.n3tree import NdcConfig
     tree = make_test_tree(max_depth=4, basis_dim=16, seed=4, n_blobs=6,
                           sigma_scale=60.0)
     tree.use_ndc = True
     tree.ndc = NdcConfig(*NDC_CFG)
+    return tree
+
+
+@pytest.fixture(scope="module")
+def ndc_grids(card):
+    """(cpu grid, cuda grid) of the NDC tree, baked int8."""
+    tree = _ndc_tree()
     return tuple(dense_grid.bake_dense(
         tree.to_device(lut_depth=None, device=d), dtype="int8")
         for d in ("cpu", card))
@@ -1419,13 +1424,16 @@ def test_display_cropped_options_match_plain(format_grids, crop, dt, option):
                       crop=crop)
 
 
-def test_display_variants_lobe_counts(card):
-    """SG lobe counts across the compiled buckets (1..25) and a count past
-    them, which raises ValueError naming the set."""
+@pytest.mark.parametrize("fmt, dt", [("SG", "int8"), ("SG", "f16"),
+                                     ("ASG", "int8"), ("ASG", "f16")])
+def test_display_variants_lobe_counts(card, fmt, dt):
+    """SG and ASG lobe counts from 1 to 25 on both bakes, each against the
+    plain version (one instantiation takes every count at run time), and
+    a count past them, which raises ValueError naming the set."""
     from volrend_torch.models.data_format import BasisType
-    for bd in (1, 5, 9, 12, 25):
+    for bd in (1, 5, 9, 12, 16, 25):
         tree = make_test_tree(max_depth=4, basis_dim=bd if bd in (
-            1, 9, 25) else 4, seed=5, sigma_scale=60.0)
+            1, 9, 16, 25) else 4, seed=5, sigma_scale=60.0)
         dev = tree.to_device(lut_depth=None, device=card)
         if dev.basis_dim != bd:
             # widen to bd lobes: repeat the leaf's coefficients
@@ -1437,13 +1445,81 @@ def test_display_variants_lobe_counts(card):
             dev = dataclasses.replace(dev, data=data.to(dev.data.dtype),
                                       data_dim=3 * bd + 1, basis_dim=bd)
         dev = dataclasses.replace(
-            dev, fmt=BasisType.SG,
-            extra=torch.as_tensor(_lobes("SG", bd, bd), device=card))
-        g = dense_grid.bake_dense(dev, dtype="int8")
-        _variant_vs_plain(g, OPT)
+            dev, fmt=BasisType[fmt],
+            extra=torch.as_tensor(_lobes(fmt, bd, bd), device=card))
+        g = dense_grid.bake_dense(dev, dtype=dt)
+        _, variant = _variant_vs_plain(g, OPT)
+        assert variant == f"{fmt}-{'bf16' if dt == 'f16' else 'int8'}"
     g = dataclasses.replace(g, basis_dim=26, data_dim=79)
     with pytest.raises(ValueError, match="1..25"):
         slab_render.prepare_payload(g, (0, 1, 2), OPT)
+
+
+@pytest.mark.parametrize("P", [1, 51])
+def test_lobe_and_depth_display_launch_configuration(card, P):
+    """Every SG and ASG instantiation (both payloads, both tile heights)
+    and the depth variant (both payloads) at the launch configuration
+    display_config gives it: two blocks an SM, no spill bytes, at most
+    128 registers."""
+    from volrend_torch import kernels
+    lib = kernels.lib("slab_march_display")
+    cases = [(fmt, bf16, rows, False) for fmt in (2, 3) for bf16 in (0, 1)
+             for rows in (1, 2)]
+    cases += [(1, bf16, 1, True) for bf16 in (0, 1)]
+    for fmt, bf16, rows, depth in cases:
+        nb = 16
+        Dp = 3 * nb + (1 if bf16 else 2)
+        cfg = slab_march.display_config(P, 256, 64, Dp, 132, esz=1 + bf16,
+                                        opt=True, depth=depth)
+        out = (ctypes.c_int * 4)()
+        kernels.check(lib.vt_march_display_info(
+            nb, rows, fmt, bf16, 5 if depth else 1, cfg["smem"], out),
+            "slab_march_display")
+        assert out[0] == 2 and out[2] == 0 and out[1] <= 128, (
+            fmt, bf16, rows, depth, list(out))
+
+
+@pytest.mark.parametrize("dt", ["int8", "f16"])
+@pytest.mark.parametrize("fmt", ["SH", "ASG"])
+def test_display_depth_unaligned_rows_match_plain(format_grids, fmt, dt):
+    """The depth variant on both payloads on a crop whose rows are not
+    whole 16-byte chunks (Gx = 30: staged by element copies), and on an
+    aligned crop (Gx = 16 at x0 = 16: cp.async), against the plain
+    version; named ``-depth``."""
+    g = format_grids[(fmt, dt)]
+    dopt = dataclasses.replace(OPT, render_depth=True)
+    for crop in ((0, 32, 1, 30), (2, 28, 16, 16)):
+        _, variant = _variant_vs_plain(g, dopt, crop=crop)
+        assert variant.endswith("-depth"), variant
+
+
+@pytest.mark.parametrize("dt", ["int8", "f16"])
+def test_display_depth_ndc_matches_plain(card, ndc_grids, dt):
+    """The depth variant on two NDC poses (the NDC geometry's z0 and
+    tview planes) on both payloads, against the plain version."""
+    g = ndc_grids[1] if dt == "int8" else dense_grid.bake_dense(
+        _ndc_tree().to_device(lut_depth=None, device=card), dtype="f16")
+    dopt = dataclasses.replace(OPT, render_depth=True)
+    cams = _ndc_cams()
+    perm, flip, _ = slab_render.choose_axis(g, cams[0].transform, 200.0,
+                                            200.0, W, H)
+    geom = slab_render.FrameGeom(g, np.stack([c.transform for c in cams]),
+                                 200.0, 200.0, perm, flip, W, H, dopt, GI)
+    params, zb = slab_render._march_frame_fields(g, geom, perm, flip, dopt)
+    pay = slab_render._permuted_grid(g, perm)
+    ids = g.slab_ids(perm[0], flip, dopt.sigma_thresh)
+    kw = dict(fmt=int(g.fmt), extra=g.extra, depth=True, bbox_full=True)
+    acc = slab_march.march_slabs(
+        pay, params, g.qscale, zb, g.G, GI, g.data_dim, g.basis_dim, perm,
+        slab_ids=ids, sig2=g.quantized, flip=flip, dir_win=True, **kw)
+    assert slab_march.march_slabs.display["variant"].endswith("-depth")
+    m = slab_march.march_inputs(pay, params, zb, g.G, GI, ids, 4)
+    ref = slab_march.march_slabs_ref(pay, g.qscale, D=g.data_dim,
+                                     bd=g.basis_dim, flip=flip,
+                                     dir_win=True, **kw, **m)
+    torch.cuda.synchronize()
+    assert float(acc[:, 0].max()) > 0.0
+    _agree(acc, ref)
 
 
 @pytest.mark.parametrize("bd", [1, 4, 9, 16, 25])
@@ -1696,9 +1772,13 @@ DEFAULT_W_INFO = {
     (2, 4, 4, 5, 1): (5, 96, 0), (2, 4, 4, 5, 0): (5, 96, 0),
 }
 
-#: kernel M's 48 display instantiations before the display knobs were added
-#: (the same commit, card and probe): per instantiation, (blocks per SM,
-#: registers, spill bytes, static shared bytes)
+#: kernel M's 52 display instantiations (NVIDIA H100 80GB HBM3; read by
+#: ``python volrend_torch/probes/display_info.py``): per instantiation,
+#: (blocks per SM, registers, spill bytes, static shared bytes). The SH
+#: defaults (no option) keep the values they had before the display knobs;
+#: the SH option, bf16-shading and RGBA variants moved by 0-9 registers
+#: when depth mode left them for a variant of its own; SG and ASG (one
+#: instantiation for every lobe count) spill nothing since their redesign
 DEFAULT_DISPLAY_INFO = {
     "SH1-int8-r1": (2, 100, 0, 144),
     "SH1-int8-r2": (2, 113, 0, 144),
@@ -1720,34 +1800,38 @@ DEFAULT_DISPLAY_INFO = {
     "SH25-int8-r2": (2, 127, 0, 432),
     "SH25-bf16-r1": (2, 127, 0, 432),
     "SH25-bf16-r2": (2, 125, 0, 432),
-    "SH1-int8-opt-r1": (2, 105, 0, 192),
+    "SH1-int8-opt-r1": (2, 102, 0, 192),
     "SH1-bf16-opt-r1": (2, 120, 0, 176),
-    "SH4-int8-opt-r1": (2, 111, 0, 224),
+    "SH4-int8-opt-r1": (2, 114, 0, 224),
     "SH4-bf16-opt-r1": (2, 120, 0, 224),
     "SH9-int8-opt-r1": (2, 114, 0, 288),
     "SH9-bf16-opt-r1": (2, 120, 0, 272),
     "SH16-int8-opt-r1": (2, 121, 0, 368),
     "SH16-bf16-opt-r1": (2, 122, 0, 368),
-    "SH25-int8-opt-r1": (2, 122, 0, 480),
+    "SH25-int8-opt-r1": (2, 121, 0, 480),
     "SH25-bf16-opt-r1": (2, 119, 0, 464),
-    "SG<=4-int8-opt-r1": (2, 117, 0, 288),
-    "SG<=4-bf16-opt-r1": (2, 124, 0, 288),
-    "SG<=9-int8-opt-r1": (2, 123, 0, 432),
-    "SG<=9-bf16-opt-r1": (2, 122, 0, 416),
-    "SG<=16-int8-opt-r1": (2, 126, 0, 624),
-    "SG<=16-bf16-opt-r1": (2, 126, 0, 624),
-    "SG<=25-int8-opt-r1": (2, 128, 0, 880),
-    "SG<=25-bf16-opt-r1": (2, 125, 0, 864),
-    "ASG<=4-int8-opt-r1": (2, 128, 24, 400),
-    "ASG<=4-bf16-opt-r1": (2, 128, 16, 400),
-    "ASG<=9-int8-opt-r1": (2, 128, 192, 672),
-    "ASG<=9-bf16-opt-r1": (2, 128, 168, 672),
-    "ASG<=16-int8-opt-r1": (2, 128, 552, 1072),
-    "ASG<=16-bf16-opt-r1": (2, 128, 536, 1072),
-    "ASG<=25-int8-opt-r1": (2, 128, 1016, 1568),
-    "ASG<=25-bf16-opt-r1": (2, 128, 1008, 1568),
-    "RGBA-int8-opt-r1": (2, 105, 0, 192),
+    "SH1-int8-bf16shade-r1": (2, 102, 0, 192),
+    "SH1-bf16-bf16shade-r1": (2, 120, 0, 176),
+    "SH4-int8-bf16shade-r1": (2, 114, 0, 224),
+    "SH4-bf16-bf16shade-r1": (2, 120, 0, 224),
+    "SH9-int8-bf16shade-r1": (2, 115, 0, 288),
+    "SH9-bf16-bf16shade-r1": (2, 120, 0, 272),
+    "SH16-int8-bf16shade-r1": (2, 121, 0, 368),
+    "SH16-bf16-bf16shade-r1": (2, 122, 0, 368),
+    "SH25-int8-bf16shade-r1": (2, 119, 0, 480),
+    "SH25-bf16-bf16shade-r1": (2, 120, 0, 464),
+    "SG-int8-opt-r1": (2, 117, 0, 880),
+    "SG-int8-opt-r2": (2, 124, 0, 880),
+    "SG-bf16-opt-r1": (2, 124, 0, 880),
+    "SG-bf16-opt-r2": (2, 128, 0, 880),
+    "ASG-int8-opt-r1": (2, 128, 0, 1680),
+    "ASG-int8-opt-r2": (2, 128, 0, 1680),
+    "ASG-bf16-opt-r1": (2, 126, 0, 1680),
+    "ASG-bf16-opt-r2": (2, 128, 0, 1680),
+    "RGBA-int8-opt-r1": (2, 96, 0, 192),
     "RGBA-bf16-opt-r1": (2, 120, 0, 176),
+    "depth-int8-r1": (2, 119, 0, 144),
+    "depth-bf16-r1": (2, 124, 0, 128),
 }
 
 
@@ -1813,12 +1897,11 @@ def test_warp_display_default_launch_info(card):
 
 
 def test_default_display_instantiations_keep_their_launch(card):
-    """Kernel M's 48 display instantiations keep the blocks per SM,
-    registers, spills and static shared memory they had before the display
-    knobs (DEFAULT_DISPLAY_INFO)."""
+    """Kernel M's 52 display instantiations keep the blocks per SM,
+    registers, spills and static shared memory of DEFAULT_DISPLAY_INFO."""
     from volrend_torch.probes import display_info
     from volrend_torch import kernels
-    assert len(DEFAULT_DISPLAY_INFO) == 48
+    assert len(DEFAULT_DISPLAY_INFO) == 52
     lib = kernels.lib("slab_march_display")
     rows = {v[0]: v[1:] for v in display_info.M_VARIANTS}
     for key, want in DEFAULT_DISPLAY_INFO.items():

@@ -217,3 +217,73 @@ def test_display_probes_refuse_to_run_without_a_card(probe, monkeypatch):
     monkeypatch.setattr("sys.argv", [probe])
     with pytest.raises(RuntimeError, match="CUDA device"):
         mod.main()
+
+
+@pytest.mark.parametrize("Dp, esz", [(5, 1), (50, 1), (77, 1), (49, 2)])
+def test_display_config_depth_stages_sigma_alone(Dp, esz):
+    """The depth variant's stage counts sigma's bytes alone (2 a cell: the
+    int8 hi and lo planes, or the bf16 plane), whatever the payload's
+    planes, and its shaded-cell buffer one float a cell; the two hold the
+    same cells (to one 128-byte step of stage), ~11x an SH16 int8 launch's
+    (whose stage holds 50 bytes a cell and its buffer a float4)."""
+    for n_win in (1, 64, 256):
+        cfg = slab_march.display_config(1, GI, n_win, Dp, 132, esz=esz,
+                                        opt=True, depth=True)
+        assert cfg == slab_march.display_config(1, GI, n_win, 3, 132,
+                                                opt=True, depth=True)
+        assert cfg["rows"] == 1
+        assert cfg["smem"] == (cfg["stage_bytes"] + 4 * cfg["chan_cells"]
+                               + 12 * n_win)
+        assert cfg["smem"] <= slab_march._DISPLAY_SMEM
+        assert 2 * (cfg["smem"] + 1024 + 1024) <= 228 * 1024
+        assert cfg["stage_bytes"] % 128 == 0
+        assert cfg["stage_bytes"] >= 2 * 256 and cfg["chan_cells"] >= 256
+        cells = cfg["stage_bytes"] // 2
+        assert cells <= cfg["chan_cells"] < cells + 128
+        sh16 = slab_march.display_config(1, GI, n_win, DP, 132, opt=True)
+        assert cells >= 10 * (sh16["stage_bytes"] // DP)
+
+
+@pytest.mark.parametrize("kind", ["orbit", "steep", "cropped"])
+def test_depth_footprints_stage_whole(grid, kind):
+    """In depth mode (32x8 tiles, sigma's two int8 planes staged) every
+    tile-slab footprint of an orbit, a steep and a cropped pose goes in
+    one piece, where the SH16 stage takes most of them in one and the
+    steep pose's in several (test above)."""
+    params, ids, crop, _ = _pose(grid, kind)
+    cfg = slab_march.display_config(1, GI, G // 4, DP, 132, opt=True,
+                                    depth=True)
+    (y_lo, y_hi), (x_lo, x_hi) = _footprints(params, ids, G, GI, 1, crop)
+    n_pieces = []
+    for si in range(0, len(ids), 5):
+        for ty in range(y_lo.shape[2]):
+            for tx in range(x_lo.shape[2]):
+                f = (y_lo[0, si, ty], y_hi[0, si, ty], x_lo[0, si, tx],
+                     x_hi[0, si, tx])
+                if f[0] <= f[1] and f[2] <= f[3]:
+                    n_pieces.append(len(_pieces(f, crop[2], 2,
+                                                cfg["stage_bytes"],
+                                                cfg["chan_cells"])))
+    assert n_pieces and max(n_pieces) == 1
+
+
+def test_lobe_launches_follow_the_tile_rule():
+    """SG and ASG launches with no other option take the tile rule's
+    height (32x16 on a 51-pose group, probes/display_tiles); with another
+    option, in depth mode or resumed they take 32x8, as RGBA and SH with
+    an option do."""
+    from volrend_torch.models.data_format import BasisType
+    M = slab_march.MarchMode
+    for fmt in (BasisType.SG, BasisType.ASG):
+        assert M(int(fmt)).tall_tiles(16)
+        assert M(int(fmt), dir_slab=True).tall_tiles(16)
+        for other in (dict(depth=True), dict(rot=(0.0,) * 9),
+                      dict(bbox_full=False), dict(basis_lo=1),
+                      dict(basis_hi=9)):
+            assert not M(int(fmt), **other).tall_tiles(16), other
+    assert M().tall_tiles(16) and not M(depth=True).tall_tiles(16)
+    assert not M(int(BasisType.RGBA)).tall_tiles(-1)
+    for tall, rows in ((True, 2), (False, 1)):
+        cfg = slab_march.display_config(51, GI, 64, 3 * 16 + 2, 132,
+                                        opt=not tall)
+        assert cfg["rows"] == rows

@@ -83,16 +83,13 @@
 //   payload (the f16 bake) holds two cells in a 32-bit word (each to f32
 //   by an exact 16-bit shift), a 16-byte chunk 8 cells, and its stage is
 //   sized in bytes (half the cells of an int8 stage: more footprints go in
-//   pieces, which add). The option variants (one tile height, 32x8) take
-//   the rest at run time:
-//   SG and ASG (lobe counts up to 4, 9, 16 or 25 compiled, the count at
-//   run time; the lobes loaded once a block into shared memory; the
-//   int8 bake shares each lobe's scale across rgb, so the per-k basis x
-//   qs[k] trick holds), RGBA (no basis, no sigmoid, a scale a channel),
-//   depth (sigma alone warped: one tap channel, and the composite adds
-//   w * |z - z0| * tview), rot (9 floats on the window direction), the
-//   basis window (the MACs of the dropped planes skipped) and the bbox (an
-//   in-plane voxel-extent mask ANDed into the sigma mask).
+//   pieces, which add). The option variants (32x8 tiles; SG and ASG at
+//   both heights) take the rest at run time: SG and ASG (below), RGBA (no
+//   basis, no sigmoid, a scale a channel), rot (9 floats on the window
+//   direction), the basis window (the MACs of the dropped planes skipped)
+//   and the bbox (an in-plane voxel-extent mask ANDed into the sigma
+//   mask); depth is a variant of its own (below: sigma alone warped, one
+//   tap channel, and the composite adds w * |z - z0| * tview).
 // - The display knobs (the reference's pallas_slab._DIR_WIN and
 //   _BF16_SHADE, pallas_slab.py:85-107): per-slab view directions
 //   (dir_win=False) need nothing of the kernel: each voxel's basis is
@@ -107,6 +104,24 @@
 //   tile of the option variants and packs the pairs: on an orbit group
 //   it runs slower than the default (PERF.md), as the reference's knob,
 //   off by default, is a TPU lane-packing trick.
+// - SG and ASG shading streams the lobes: one instantiation a format,
+//   payload and tile height takes any count of 1 to 25 lobes at run time.
+//   A block folds each lobe's constants once, as it loads them into shared
+//   memory (fold_lobe: log2(e), the lobe count's 1/nb and the scale qs[k]
+//   the int8 bake shares across rgb folded in; SG one float4 a lobe, ASG
+//   three, its exponent a quadratic form in the view direction), and each
+//   shading unit evaluates one lobe at a time for both of its cells (one
+//   ex2 each) straight into the six colour sums. A first version held two
+//   whole basis arrays of the compiled bound (4, 9, 16 or 25) a unit and
+//   the lobes' 4 or 11 loop-invariant floats: ASG spilled up to 1016 bytes
+//   a thread under the two-block register cap and ran ~39x its bound.
+// - Depth mode is a variant of its own (F_DEPTH, any format): it stages
+//   the sigma planes alone (int8 hi and lo, or the bf16 plane: 2 bytes a
+//   cell) and keeps one float a shaded cell, so its stage holds ~11x the
+//   cells of an SH16 int8 launch and every orbit footprint stages whole.
+//   A one-pose launch is one wave of blocks that each walk every slab, and
+//   the walk's steps, not the staged bytes, take its time (PERF.md): a
+//   ring of four stage slots, three jobs' copies in flight, was no faster.
 
 #include "slab_common.cuh"
 
@@ -117,6 +132,10 @@ constexpr int DWARPS = 8;
 constexpr int DNT = DTX * DWARPS;  // threads per block
 constexpr int MAX_COLS = 240;      // a piece's columns (its row <= 256 B)
 constexpr int SMEM_MAX = 232448;   // dynamic shared memory a block can use
+constexpr int MAX_LOBES = 25;      // SG/ASG lobes a launch takes
+// the depth mode's shading, a variant of its own for every format: sigma
+// alone (beside the basis formats F_RGBA .. F_ASG of slab_common.cuh)
+constexpr int F_DEPTH = 4;
 
 struct DispArgs {
   const int8_t* payload;
@@ -183,8 +202,8 @@ struct WalkGeo {
   float zbase, cz, cyG, cxG, hG, Gf, ujGa, ujGb, vkGa, vkGb;
 };
 
-// A variant: the payload's element, the basis format, whether the
-// run-time options (depth, rot, bbox, basis window, lobe count) are
+// A variant: the payload's element, the basis format (or F_DEPTH),
+// whether the run-time options (rot, bbox, basis window, lobe count) are
 // compiled in, and whether each pixel resumes from the state ``acc``
 // holds (RS: a z-segment after upstream ones; only in the resume build).
 template <bool BF, int FM, bool O, bool BS = false, bool RS = false>
@@ -197,10 +216,16 @@ struct Var {
   static constexpr int ESZ = BF ? 2 : 1;   // bytes a cell of one plane
   static constexpr int CH = 16 / ESZ;      // cells a 16-byte chunk
   static constexpr int SIGP = BF ? 1 : 2;  // sigma planes
+  static constexpr bool DEPTH = FM == F_DEPTH;  // stages sigma's planes only
+  static constexpr bool LOBES = FM == F_SG || FM == F_ASG;
+  // float4 a lobe of the folded lobe table (fold_lobe)
+  static constexpr int LW = FM == F_ASG ? 3 : 1;
 };
 
 // a launch's arguments: the payload, geometry and stage, and the run-time
-// options (read by the option variants only)
+// options (read by the option variants only; ``depth`` picks the depth
+// variant on the host and is read by no kernel: the struct keeps its
+// layout, which the defaults' parameter space follows)
 struct LaunchArgs {
   DispArgs a;
   const float* extra;
@@ -237,42 +262,139 @@ __device__ __forceinline__ __nv_bfloat162 cell_pair16(const uint8_t* p,
 }
 
 // The option variants' run-time state: the rotation (9 floats in shared
-// memory, or null), the lobes' parameters (shared memory; SG 4, ASG 11
-// floats a lobe), the lobe count, the basis window [blo, bhi], depth mode,
-// and the in-plane box of params 16-19 with the half cell h.
+// memory, or null), the folded lobe table (shared memory, fold_lobe), the
+// lobe count nb and the lobes [klo, khi] the basis window keeps, the basis
+// window [blo, bhi], and the in-plane box of params 16-19 with the half
+// cell h.
 struct OptCtx {
   const float* rot;
-  const float* ext;
-  int nb, blo, bhi, depth, bbox;
-  float inv_nb, lo1, hi1, lo2, hi2, h;
+  const float4* lobes;
+  int nb, blo, bhi, bbox, klo, khi;
+  float lo1, hi1, lo2, hi2, h;
 };
 
-// The basis of variant V at the voxel's view direction (slab_common.cuh
-// view_dir, at camera distance c.sc of the window centre, rotated by o.rot
-// first); lobes past the count are zero.
+// The voxel's unit view direction (slab_common.cuh view_dir, at camera
+// distance c.sc of the window centre), rotated by o.rot.
+template <class V>
+__device__ __forceinline__ void voxel_dir(const ShadeCtx& c, const OptCtx& o,
+                                          float ycm, float xcm, float& x,
+                                          float& y, float& z) {
+  view_dir(c.prm, ycm, xcm, c.sc, c.ssign, x, y, z);
+  if constexpr (V::OPT) {
+    if (o.rot) rotate(o.rot, x, y, z);
+  }
+}
+
+// The SH basis of degree BD at the voxel's view direction.
 template <int BD, class V>
 __device__ __forceinline__ void voxel_basis(const ShadeCtx& c,
                                             const OptCtx& o, float ycm,
                                             float xcm, float* bk) {
   float x, y, z;
-  view_dir(c.prm, ycm, xcm, c.sc, c.ssign, x, y, z);
-  if constexpr (V::OPT) {
-    if (o.rot) rotate(o.rot, x, y, z);
+  voxel_dir<V>(c, o, ycm, xcm, x, y, z);
+  sh_basis<BD>(x, y, z, bk);
+}
+
+// 2^x, one MUFU.EX2 (subnormal results flush to zero)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Lobe k of ``nb`` folded into out[LW * k ..] (LW float4), for the lobe
+// loop's one ex2 a lobe and cell; lobe k's value times its scale qs[k]
+// (which the int8 bake shares across rgb; the bakes' scales are > 0) at
+// the unit view direction d:
+// - SG, exp(lambda (mu . d - 1)) / nb (lumisphere.hpp:30-36) x qs[k]:
+//   (A, B) with A = log2(e) lambda mu, B = log2(qs[k] / nb) - log2(e)
+//   lambda; the value ex2(A . d + B).
+// - ASG, S exp(-a (mu_x . d)^2 - b (mu_y . d)^2) / nb (lumisphere.hpp:
+//   14-28) x qs[k], S = mu_z . d: the exponent times log2(e) is the
+//   quadratic form -log2(e) d^T M d, M = a mu_x mu_x^T + b mu_y mu_y^T,
+//   with z^2 = 1 - x^2 - y^2 folded into its constant: (c, qxx, qyy,
+//   qxy), (qxz, qyz, S'x, S'y), (S'z, 0, 0, 0), S' = mu_z qs[k] / nb; the
+//   value (S' . d) ex2(c + qxx x^2 + qyy y^2 + qxy xy + qxz xz + qyz yz).
+//   Five multiply-adds for the exponent whatever the signs of a and b.
+// volrend_torch/ops/slab_march.py's plain version evaluates the lobes as
+// the reference writes them; tests/test_torch_display_lobes.py holds this
+// fold, mirrored in PyTorch, against the reference's basis.
+template <int FM>
+__device__ __forceinline__ void fold_lobe(const float* ext, const float* qs,
+                                          int k, int nb, float4* out) {
+  constexpr float L2E = 1.4426950408889634f;
+  if constexpr (FM == F_SG) {
+    const float* e = ext + 4 * k;
+    const float l = e[0] * L2E;
+    out[k] = make_float4(l * e[1], l * e[2], l * e[3],
+                         (log2f(qs[k]) - log2f((float)nb)) - l);
+  } else {
+    const float* e = ext + 11 * k;
+    const float a = e[0], b = e[1];
+    const float *mx = e + 2, *my = e + 5, *mz = e + 8;
+    float m[3][3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        m[i][j] = a * (mx[i] * mx[j]) + b * (my[i] * my[j]);
+    const float s = -L2E, s2 = -2.f * L2E, q = qs[k] / (float)nb;
+    out[3 * k] = make_float4(s * m[2][2], s * (m[0][0] - m[2][2]),
+                             s * (m[1][1] - m[2][2]), s2 * m[0][1]);
+    out[3 * k + 1] = make_float4(s2 * m[0][2], s2 * m[1][2], mz[0] * q,
+                                 mz[1] * q);
+    out[3 * k + 2] = make_float4(mz[2] * q, 0.f, 0.f, 0.f);
   }
-  basis_at<BD, V::FMT>(x, y, z, o.ext, o.nb, o.inv_nb, bk);
+}
+
+// A unit direction's terms the lobes read: SG x, y, z; ASG also x^2, y^2,
+// xy, xz, yz (the quadratic form's).
+struct LobeDir {
+  float x, y, z, xx, yy, xy, xz, yz;
+};
+
+template <int FM>
+__device__ __forceinline__ LobeDir lobe_dir(float x, float y, float z) {
+  LobeDir d{};
+  d.x = x;
+  d.y = y;
+  d.z = z;
+  if constexpr (FM == F_ASG) {
+    d.xx = x * x;
+    d.yy = y * y;
+    d.xy = x * y;
+    d.xz = x * z;
+    d.yz = y * z;
+  }
+  return d;
+}
+
+// lobe L's value times its scale at direction d (fold_lobe)
+template <int FM>
+__device__ __forceinline__ float lobe_at(const float4* L, const LobeDir& d) {
+  if constexpr (FM == F_SG) {
+    const float4 a = L[0];
+    return ex2(fmaf(a.x, d.x, fmaf(a.y, d.y, fmaf(a.z, d.z, a.w))));
+  } else {
+    const float4 a = L[0], b = L[1], c = L[2];
+    const float e = fmaf(b.y, d.yz, fmaf(b.x, d.xz, fmaf(a.w, d.xy, fmaf(
+        a.z, d.yy, fmaf(a.y, d.xx, a.x)))));
+    return fmaf(c.x, d.z, fmaf(b.w, d.y, b.z * d.x)) * ex2(e);
+  }
 }
 
 // Two neighbouring cells of the stage at ``wp`` (int8: the word that
 // holds them, cells i and i + 1, i = 0 or 2; bf16: their word), planes
 // ``plane`` bytes apart, D data planes (int8: sigma's hi plane D - 1 and
 // lo plane D; bf16: sigma in plane D - 1), into out[0..1] as [sigma,
-// sigma*r, sigma*g, sigma*b]; zero under the sigma threshold. ``gy``/
+// sigma*r, sigma*g, sigma*b] (the depth variant: sigma, its stage the
+// sigma planes alone, D = 1); zero under the sigma threshold. ``gy``/
 // ``gx``: the first cell's global indices.
-template <int BD, class V>
+template <int BD, class V, class Cell>
 __device__ __forceinline__ void shade_pair(const uint8_t* wp, int plane,
                                            int i, const ShadeCtx& c,
                                            const OptCtx& o, int D, int gy,
-                                           int gx, float4* out) {
+                                           int gx, Cell* out) {
   const float qsig = c.qs[D - 1];
   float sa, sb;
   if constexpr (V::BF16) {
@@ -296,71 +418,46 @@ __device__ __forceinline__ void shade_pair(const uint8_t* wp, int plane,
       oka = oka && yin && (xa + o.h > o.lo2) && (xa - o.h < o.hi2);
       okb = okb && yin && (xb + o.h > o.lo2) && (xb - o.h < o.hi2);
     }
-    if (o.depth) {
-      out[0] = make_float4(oka ? sa : 0.f, 0.f, 0.f, 0.f);
-      out[1] = make_float4(okb ? sb : 0.f, 0.f, 0.f, 0.f);
-      return;
-    }
   }
-  float4 oa = make_float4(0.f, 0.f, 0.f, 0.f), ob = oa;
-  if (oka || okb) {
-    if constexpr (V::FMT == F_RGBA) {
-      // raw colours: no basis, no sigmoid, a scale a channel
-      const float2 c0 = cell_pair<V::BF16>(wp, i);
-      const float2 c1 = cell_pair<V::BF16>(wp + plane, i);
-      const float2 c2 = cell_pair<V::BF16>(wp + 2 * plane, i);
-      const float q0 = c.qs[0], q1 = c.qs[1], q2 = c.qs[2];
-      if (oka)
-        oa = make_float4(sa, sa * (c0.x * q0), sa * (c1.x * q1),
-                         sa * (c2.x * q2));
-      if (okb)
-        ob = make_float4(sb, sb * (c0.y * q0), sb * (c1.y * q1),
-                         sb * (c2.y * q2));
-    } else {
-      const int nb = V::FMT == F_SH ? BD : o.nb;
-      const float ycm = ((float)gy + 0.5f) * c.invG - c.cy;
-      float bka[BD], bkb[BD];
-      voxel_basis<BD, V>(c, o, ycm, ((float)gx + 0.5f) * c.invG - c.cx,
-                         bka);
-      voxel_basis<BD, V>(c, o, ycm,
-                         ((float)(gx + 1) + 0.5f) * c.invG - c.cx, bkb);
-      float ra0 = 0.f, ra1 = 0.f, ra2 = 0.f, rb0 = 0.f, rb1 = 0.f,
-            rb2 = 0.f;
-      if constexpr (V::BSH) {
-        // bf16 SH shading: the pair's scaled basis planes as a bf16 pair,
-        // one fused bf16 multiply-add a colour and plane
-        __nv_bfloat162 r0 = __float2bfloat162_rn(0.f), r1 = r0, r2 = r0;
-#pragma unroll
-        for (int kk = 0; kk < BD; ++kk) {
-          if (kk < o.blo || kk > o.bhi) continue;
-          const float q = c.qs[kk];
-          const __nv_bfloat162 qab =
-              __floats2bfloat162_rn(bka[kk] * q, bkb[kk] * q);
-          r0 = __hfma2(cell_pair16<V::BF16>(wp + kk * plane, i), qab, r0);
-          r1 = __hfma2(cell_pair16<V::BF16>(wp + (nb + kk) * plane, i), qab,
-                       r1);
-          r2 = __hfma2(cell_pair16<V::BF16>(wp + (2 * nb + kk) * plane, i),
-                       qab, r2);
-        }
-        ra0 = __low2float(r0);
-        rb0 = __high2float(r0);
-        ra1 = __low2float(r1);
-        rb1 = __high2float(r1);
-        ra2 = __low2float(r2);
-        rb2 = __high2float(r2);
-      } else {
-#pragma unroll
-        for (int kk = 0; kk < BD; ++kk) {
-          if constexpr (V::OPT) {
-            // the basis window and the lobe count: skip the plane's MACs
-            if (kk < o.blo || kk > o.bhi || kk >= nb) continue;
-          }
-          const float q = c.qs[kk];
-          const float qa = bka[kk] * q, qb = bkb[kk] * q;
-          const float2 c0 = cell_pair<V::BF16>(wp + kk * plane, i);
-          const float2 c1 = cell_pair<V::BF16>(wp + (nb + kk) * plane, i);
-          const float2 c2 =
-              cell_pair<V::BF16>(wp + (2 * nb + kk) * plane, i);
+  if constexpr (V::DEPTH) {
+    out[0] = oka ? sa : 0.f;
+    out[1] = okb ? sb : 0.f;
+  } else {
+    float4 oa = make_float4(0.f, 0.f, 0.f, 0.f), ob = oa;
+    if (oka || okb) {
+      if constexpr (V::FMT == F_RGBA) {
+        // raw colours: no basis, no sigmoid, a scale a channel
+        const float2 c0 = cell_pair<V::BF16>(wp, i);
+        const float2 c1 = cell_pair<V::BF16>(wp + plane, i);
+        const float2 c2 = cell_pair<V::BF16>(wp + 2 * plane, i);
+        const float q0 = c.qs[0], q1 = c.qs[1], q2 = c.qs[2];
+        if (oka)
+          oa = make_float4(sa, sa * (c0.x * q0), sa * (c1.x * q1),
+                           sa * (c2.x * q2));
+        if (okb)
+          ob = make_float4(sb, sb * (c0.y * q0), sb * (c1.y * q1),
+                           sb * (c2.y * q2));
+      } else if constexpr (V::LOBES) {
+        // the lobes streamed: one at a time, for both cells, straight into
+        // the six colour sums; the colour planes of lobe k are k, nb + k
+        // and 2 nb + k
+        const float ycm = ((float)gy + 0.5f) * c.invG - c.cy;
+        float x, y, z;
+        voxel_dir<V>(c, o, ycm, ((float)gx + 0.5f) * c.invG - c.cx, x, y, z);
+        const LobeDir da = lobe_dir<V::FMT>(x, y, z);
+        voxel_dir<V>(c, o, ycm, ((float)(gx + 1) + 0.5f) * c.invG - c.cx, x,
+                     y, z);
+        const LobeDir db = lobe_dir<V::FMT>(x, y, z);
+        const int cs = o.nb * plane;
+        const uint8_t* p = wp + o.klo * plane;
+        float ra0 = 0.f, ra1 = 0.f, ra2 = 0.f, rb0 = 0.f, rb1 = 0.f, rb2 = 0.f;
+#pragma unroll 2
+        for (int k = o.klo; k <= o.khi; ++k, p += plane) {
+          const float4* L = o.lobes + V::LW * k;
+          const float qa = lobe_at<V::FMT>(L, da), qb = lobe_at<V::FMT>(L, db);
+          const float2 c0 = cell_pair<V::BF16>(p, i);
+          const float2 c1 = cell_pair<V::BF16>(p + cs, i);
+          const float2 c2 = cell_pair<V::BF16>(p + 2 * cs, i);
           ra0 += c0.x * qa;
           ra1 += c1.x * qa;
           ra2 += c2.x * qa;
@@ -368,17 +465,76 @@ __device__ __forceinline__ void shade_pair(const uint8_t* wp, int plane,
           rb1 += c1.y * qb;
           rb2 += c2.y * qb;
         }
+        if (oka)
+          oa = make_float4(sa, sa * fast_sigmoid(ra0), sa * fast_sigmoid(ra1),
+                           sa * fast_sigmoid(ra2));
+        if (okb)
+          ob = make_float4(sb, sb * fast_sigmoid(rb0), sb * fast_sigmoid(rb1),
+                           sb * fast_sigmoid(rb2));
+      } else {
+        const int nb = BD;
+        const float ycm = ((float)gy + 0.5f) * c.invG - c.cy;
+        float bka[BD], bkb[BD];
+        voxel_basis<BD, V>(c, o, ycm, ((float)gx + 0.5f) * c.invG - c.cx,
+                           bka);
+        voxel_basis<BD, V>(c, o, ycm,
+                           ((float)(gx + 1) + 0.5f) * c.invG - c.cx, bkb);
+        float ra0 = 0.f, ra1 = 0.f, ra2 = 0.f, rb0 = 0.f, rb1 = 0.f,
+              rb2 = 0.f;
+        if constexpr (V::BSH) {
+          // bf16 SH shading: the pair's scaled basis planes as a bf16 pair,
+          // one fused bf16 multiply-add a colour and plane
+          __nv_bfloat162 r0 = __float2bfloat162_rn(0.f), r1 = r0, r2 = r0;
+#pragma unroll
+          for (int kk = 0; kk < BD; ++kk) {
+            if (kk < o.blo || kk > o.bhi) continue;
+            const float q = c.qs[kk];
+            const __nv_bfloat162 qab =
+                __floats2bfloat162_rn(bka[kk] * q, bkb[kk] * q);
+            r0 = __hfma2(cell_pair16<V::BF16>(wp + kk * plane, i), qab, r0);
+            r1 = __hfma2(cell_pair16<V::BF16>(wp + (nb + kk) * plane, i), qab,
+                         r1);
+            r2 = __hfma2(cell_pair16<V::BF16>(wp + (2 * nb + kk) * plane, i),
+                         qab, r2);
+          }
+          ra0 = __low2float(r0);
+          rb0 = __high2float(r0);
+          ra1 = __low2float(r1);
+          rb1 = __high2float(r1);
+          ra2 = __low2float(r2);
+          rb2 = __high2float(r2);
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < BD; ++kk) {
+            if constexpr (V::OPT) {
+              // the basis window and the lobe count: skip the plane's MACs
+              if (kk < o.blo || kk > o.bhi || kk >= nb) continue;
+            }
+            const float q = c.qs[kk];
+            const float qa = bka[kk] * q, qb = bkb[kk] * q;
+            const float2 c0 = cell_pair<V::BF16>(wp + kk * plane, i);
+            const float2 c1 = cell_pair<V::BF16>(wp + (nb + kk) * plane, i);
+            const float2 c2 =
+                cell_pair<V::BF16>(wp + (2 * nb + kk) * plane, i);
+            ra0 += c0.x * qa;
+            ra1 += c1.x * qa;
+            ra2 += c2.x * qa;
+            rb0 += c0.y * qb;
+            rb1 += c1.y * qb;
+            rb2 += c2.y * qb;
+          }
+        }
+        if (oka)
+          oa = make_float4(sa, sa * fast_sigmoid(ra0), sa * fast_sigmoid(ra1),
+                           sa * fast_sigmoid(ra2));
+        if (okb)
+          ob = make_float4(sb, sb * fast_sigmoid(rb0), sb * fast_sigmoid(rb1),
+                           sb * fast_sigmoid(rb2));
       }
-      if (oka)
-        oa = make_float4(sa, sa * fast_sigmoid(ra0), sa * fast_sigmoid(ra1),
-                         sa * fast_sigmoid(ra2));
-      if (okb)
-        ob = make_float4(sb, sb * fast_sigmoid(rb0), sb * fast_sigmoid(rb1),
-                         sb * fast_sigmoid(rb2));
     }
+    out[0] = oa;
+    out[1] = ob;
   }
-  out[0] = oa;
-  out[1] = ob;
 }
 
 // The block's walk over its staged jobs, one per (slab, footprint piece),
@@ -452,12 +608,17 @@ struct Walk {
 // 16-byte cp.async copies, stage row ly holding the DP planes of BX cells
 // (ESZ bytes each) of payload row py + ly. A thread takes one (plane,
 // chunk) column of the piece and walks it down the rows, so each copy
-// costs two adds; the caller commits the group.
-template <int ESZ, class W>
+// costs two adds; the caller commits the group. SIG: the stage holds the
+// last DP of a slab's SL planes (the depth variant's sigma planes). The
+// defaults' addresses keep their expressions, and with them their machine
+// code (volrend_torch/probes/display_sass.py: a common slab offset for both
+// cases moved the scheduling of every default).
+template <int ESZ, bool SIG = false, class W>
 __device__ __forceinline__ void copy_piece(const int8_t* payload,
                                            const W& pw, const WalkGeo& g,
                                            uint8_t* st, int tid, int Gy,
-                                           int Gx, int y0, const int DP) {
+                                           int Gx, int y0, const int DP,
+                                           const int SL = 0) {
   const int bx = pw.BX(g);
   const int rows = pw.rows(g);
   const size_t plane = (size_t)Gy * Gx;
@@ -466,6 +627,8 @@ __device__ __forceinline__ void copy_piece(const int8_t* payload,
       reinterpret_cast<const uint8_t*>(payload) +
       ((size_t)pw.sid * DP * plane + (size_t)(pw.py - y0) * Gx + pw.cs(g)) *
           ESZ;
+  if constexpr (SIG)
+    base += ((size_t)pw.sid * (SL - DP) + (SL - DP)) * plane * ESZ;
   const int rstride = DP * bx * ESZ;
   for (int u = tid; u < DP * nch; u += DNT) {
     const int d = u / nch, ch = u - d * nch;
@@ -479,22 +642,33 @@ __device__ __forceinline__ void copy_piece(const int8_t* payload,
   }
 }
 
+// The lobe table's shared memory: LW float4 a lobe, MAX_LOBES of them.
+template <int LW>
+__device__ __forceinline__ float4* lobe_smem() {
+  __shared__ float4 s[LW * MAX_LOBES];
+  return s;
+}
+
 // A block: one tile of ROWS x 8 rows and 32 columns of one pose; a
 // thread owns column k of rows j0 + warp + 8 * rr. V: the payload
-// element, format and options; BD: the SH basis dimension, the largest
-// SG/ASG lobe count of the instantiation, or 1 for RGBA.
+// element, format and options; BD: the SH basis dimension, or 1 for the
+// other formats and depth.
 template <int BD, int ROWS, class V>
 __global__ void __launch_bounds__(DNT, 2)
     display_kernel(const LaunchArgs args) {
   const DispArgs& a = args.a;
-  // planes: compile-time for SH and RGBA, the lobe count's for SG/ASG
+  // planes staged: compile-time for SH, RGBA and depth (sigma's alone),
+  // the lobe count's for SG/ASG
   constexpr int DPC = V::FMT == F_SH     ? 3 * BD + V::SIGP
                       : V::FMT == F_RGBA ? 3 + V::SIGP
+                      : V::DEPTH         ? V::SIGP
                                          : 0;
-  constexpr int DPMAX = DPC ? DPC : 3 * BD + V::SIGP;
+  constexpr int DPMAX = DPC ? DPC : 3 * MAX_LOBES + V::SIGP;
   const int DP = DPC ? DPC : a.Dp;
   constexpr int TY = DWARPS * ROWS;
   using WalkV = Walk<V::CH, V::ESZ>;
+  // a shaded cell: [sigma, sigma*r, sigma*g, sigma*b], or sigma alone
+  using Cell = std::conditional_t<V::DEPTH, float, float4>;
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ float s_prm[NP];
   __shared__ float s_qs[DPMAX];
@@ -505,36 +679,43 @@ __global__ void __launch_bounds__(DNT, 2)
   const int p = bid % a.P, tile = bid / a.P;  // pose fastest
   const int j0 = (tile / a.ntx) * TY, k0 = (tile % a.ntx) * DTX;
   const int G = a.G, gi = a.gi;
-  float4* s_chan = reinterpret_cast<float4*>(smem + a.stage_bytes);
+  Cell* s_chan = reinterpret_cast<Cell*>(smem + a.stage_bytes);
   int* s_w = reinterpret_cast<int*>(s_chan + a.chan_cells);
   int* s_m = s_w + a.n_win;
   int* s_live = s_m + a.n_win;
 
   if (tid < NP) s_prm[tid] = a.params[(size_t)p * NP + tid];
-  for (int i = tid; i < DP; i += DNT) s_qs[i] = a.qscale[i];
+  if constexpr (V::DEPTH) {
+    // the staged planes' scales: sigma's, the last SIGP of the payload's
+    for (int i = tid; i < DP; i += DNT) s_qs[i] = a.qscale[a.Dp - DP + i];
+  } else {
+    for (int i = tid; i < DP; i += DNT) s_qs[i] = a.qscale[i];
+  }
   for (int i = tid; i < a.n_win; i += DNT) {
     s_w[i] = a.wins[i];
     s_m[i] = a.masks[i];
     s_live[i] = 0;
   }
   OptCtx o{};  // read by the option variants only
-  if constexpr (V::OPT) {
-    constexpr int EXW = V::FMT == F_SG ? 4 : V::FMT == F_ASG ? 11 : 0;
-    float* s_opt = opt_smem<9 + EXW * BD>();
+  if constexpr (V::OPT && !V::DEPTH) {
+    float* s_opt = opt_smem<9>();
 #pragma unroll
     for (int r = 0; r < 9; ++r)
       if (tid == r) s_opt[r] = args.rot[r];
-    for (int i = tid; i < EXW * args.nb; i += DNT)
-      s_opt[9 + i] = args.extra[i];
     o.rot = args.rot_on ? s_opt : nullptr;
-    o.ext = s_opt + 9;
     o.nb = args.nb;
     o.blo = args.blo;
     o.bhi = args.bhi;
-    o.depth = args.depth;
-    o.bbox = args.bbox;
-    o.inv_nb = 1.f / (float)args.nb;
   }
+  if constexpr (V::LOBES) {
+    float4* s_lobe = lobe_smem<V::LW>();
+    for (int i = tid; i < args.nb; i += DNT)
+      fold_lobe<V::FMT>(args.extra, a.qscale, i, args.nb, s_lobe);
+    o.lobes = s_lobe;
+    o.klo = max(args.blo, 0);
+    o.khi = min(args.bhi, args.nb - 1);
+  }
+  if constexpr (V::OPT) o.bbox = args.bbox;
   __syncthreads();
 
   const float Gf = (float)G;
@@ -545,14 +726,13 @@ __global__ void __launch_bounds__(DNT, 2)
   const float cyG = cy * Gf, cxG = cx * Gf;
   const float hG = 0.5f / Gf;
   const int K = a.K;
-  bool depth = false;  // the sigma channel alone is warped
+  constexpr bool depth = V::DEPTH;  // the sigma channel alone is warped
   if constexpr (V::OPT) {
     o.lo1 = s_prm[16];
     o.hi1 = s_prm[17];
     o.lo2 = s_prm[18];
     o.hi2 = s_prm[19];
     o.h = hG;
-    depth = args.depth != 0;
   }
 
   // this thread's pixels: column k, rows j0 + warp + 8 * rr
@@ -576,7 +756,7 @@ __global__ void __launch_bounds__(DNT, 2)
       zlo[rr] = zbp[0];
       zhi[rr] = zbp[npx];
       dtp[rr] = zbp[2 * npx];
-      if (depth) tvb[rr] = zbp[3 * npx];
+      if constexpr (depth) tvb[rr] = zbp[3 * npx];
     }
     ujG[rr] = (u0 + du * (float)j) * Gf;
     r[rr] = g[rr] = b[rr] = 0.f;
@@ -643,7 +823,12 @@ __global__ void __launch_bounds__(DNT, 2)
   uint8_t* const st = smem;
   if (a.async) {
     if (p_has) {
-      copy_piece<V::ESZ>(a.payload, pw, wg, st, tid, a.Gy, a.Gx, a.y0, DP);
+      if constexpr (V::DEPTH)
+        copy_piece<V::ESZ, true>(a.payload, pw, wg, st, tid, a.Gy, a.Gx,
+                                 a.y0, DP, a.Dp);
+      else
+        copy_piece<V::ESZ>(a.payload, pw, wg, st, tid, a.Gy, a.Gx, a.y0,
+                           DP);
       p_has = pw.next(wg);
     }
     cp_async_commit();
@@ -691,12 +876,16 @@ __global__ void __launch_bounds__(DNT, 2)
     // payload column cs (global column x0 + cs + cell)
     const int xoff = cw.xoff(wg), gx0 = a.x0 + cw.cs(wg);
     if (!a.async) {
-      // synchronous staging: the piece's rows, lanes along x
+      // synchronous staging: the piece's rows, lanes along x (the depth
+      // variant: the slab's last DP planes, an offset of its own)
       const int cs = cw.cs(wg);
       if constexpr (V::BF16) {
         const uint16_t* src =
             reinterpret_cast<const uint16_t*>(a.payload) +
-            (size_t)cw.sid * DP * a.Gy * a.Gx;
+            (size_t)cw.sid * DP * a.Gy * a.Gx +
+            (V::DEPTH
+                 ? ((size_t)cw.sid * (a.Dp - DP) + (a.Dp - DP)) * a.Gy * a.Gx
+                 : 0);
         uint16_t* st16 = reinterpret_cast<uint16_t*>(st);
         for (int row = warp; row < FY * DP; row += DWARPS) {
           const int ly = row / DP, d = row - ly * DP;
@@ -709,7 +898,11 @@ __global__ void __launch_bounds__(DNT, 2)
           }
         }
       } else {
-        const int8_t* src = a.payload + (size_t)cw.sid * DP * a.Gy * a.Gx;
+        const int8_t* src =
+            a.payload + (size_t)cw.sid * DP * a.Gy * a.Gx +
+            (V::DEPTH
+                 ? ((size_t)cw.sid * (a.Dp - DP) + (a.Dp - DP)) * a.Gy * a.Gx
+                 : 0);
         for (int row = warp; row < FY * DP; row += DWARPS) {
           const int ly = row / DP, d = row - ly * DP;
           const int gy = cw.py - a.y0 + ly;
@@ -744,7 +937,12 @@ __global__ void __launch_bounds__(DNT, 2)
     __syncthreads();  // the stage is consumed, s_chan is complete
     if (a.async) {
       if (p_has) {
-        copy_piece<V::ESZ>(a.payload, pw, wg, st, tid, a.Gy, a.Gx, a.y0, DP);
+        if constexpr (V::DEPTH)
+          copy_piece<V::ESZ, true>(a.payload, pw, wg, st, tid, a.Gy, a.Gx,
+                                   a.y0, DP, a.Dp);
+        else
+          copy_piece<V::ESZ>(a.payload, pw, wg, st, tid, a.Gy, a.Gx, a.y0,
+                             DP);
         p_has = pw.next(wg);
       }
       cp_async_commit();
@@ -764,13 +962,13 @@ __global__ void __launch_bounds__(DNT, 2)
         const int xa = max(sp.rx_lo, cw.px);
         const int xb = min(sp.rx_hi, cw.px + FX - 1);
         float4 acc = w4[rr];
-        if (depth) {
+        if constexpr (depth) {
           for (int cyy = ya; cyy <= yb; ++cyy) {
             const float wr = overlap(cyy, G, sp.pmin, sp.pmax, sp.inv_r);
-            const float4* row = s_chan + (cyy - cw.py) * BX;
+            const float* row = s_chan + (cyy - cw.py) * BX;
             for (int cxx = xa; cxx <= xb; ++cxx)
               acc.x += wr * overlap(cxx, G, sp.qmin, sp.qmax, sp.inv_c) *
-                       row[cxx - gx0].x;
+                       row[cxx - gx0];
           }
         } else {
           for (int cyy = ya; cyy <= yb; ++cyy) {
@@ -796,7 +994,7 @@ __global__ void __launch_bounds__(DNT, 2)
               1.f);
           const float tau = acc.x * dtp[rr] * frac;
           const float att = __expf(-tau);
-          if (depth) {
+          if constexpr (depth) {
             // depth: w * |z - z0| * tview (pallas_slab.py's depth mode)
             if (T[rr] >= stop_thresh && tau > 0.f) {
               r[rr] += (T[rr] * (1.f - att)) * fabsf(z - s_prm[29]) *
@@ -839,8 +1037,8 @@ using KernFn = void (*)(const LaunchArgs);
 
 // The instantiations: SH (degrees 0-4) without options on both payloads
 // at both tile heights; SH with options, SH with bf16 shading (which takes
-// the options too), SG and ASG (lobe counts up to 4, 9, 16, 25) and RGBA,
-// on both payloads, at 32x8.
+// the options too), RGBA and depth, on both payloads, at 32x8; SG and ASG
+// (1 to 25 lobes at run time) on both payloads at both tile heights.
 template <int BD, class V>
 KernFn pick_rows(int rows) {
   if (rows == 1) return display_kernel<BD, 1, V>;
@@ -862,30 +1060,35 @@ KernFn pick_sh(int bd, int rows) {
   }
 }
 
-template <class V>
-KernFn pick_lobes(int nb, int rows) {
-  if (nb < 1 || rows != 1) return nullptr;
-  if (nb <= 4) return display_kernel<4, 1, V>;
-  if (nb <= 9) return display_kernel<9, 1, V>;
-  if (nb <= 16) return display_kernel<16, 1, V>;
-  if (nb <= 25) return display_kernel<25, 1, V>;
-  return nullptr;
-}
-
 // The source is built twice (volrend_torch/kernels): VT_DISPLAY_SET 0
 // holds every variant above; 1, the resume build
-// (slab_march_display_resume), holds the option variants (opt 1 and 3)
-// with RS, which a z-segment's launch with an upstream state takes (SH
-// without options as the option variant at its defaults), so the
-// defaults' code stays as it is.
+// (slab_march_display_resume), holds the option variants (opt 1, 3 and 5;
+// 32x8 tiles) with RS, which a z-segment's launch with an upstream state
+// takes (SH without options as the option variant at its defaults), so
+// the defaults' code stays as it is.
 #ifndef VT_DISPLAY_SET
 #define VT_DISPLAY_SET 0
 #endif
 constexpr bool RS_SET = VT_DISPLAY_SET == 1;
 
-// opt: 0 the defaults, 1 the option variants, 3 SH's bf16 shading
+template <class V>
+KernFn pick_lobes(int nb, int rows) {
+  if (nb < 1 || nb > MAX_LOBES) return nullptr;
+  if (rows == 1) return display_kernel<1, 1, V>;
+  if constexpr (!RS_SET) {
+    if (rows == 2) return display_kernel<1, 2, V>;
+  }
+  return nullptr;
+}
+
+// opt: 0 the defaults, 1 the option variants, 3 SH's bf16 shading, 5 the
+// depth variant (any format)
 template <bool BF>
 KernFn pick_payload(int bd, int rows, int fmt, int opt) {
+  if (opt == 5)
+    return rows == 1 ? display_kernel<1, 1, Var<BF, F_DEPTH, true, false,
+                                                 RS_SET>>
+                     : nullptr;
   if (opt == 3)
     return fmt == F_SH
                ? pick_sh<Var<BF, F_SH, true, true, RS_SET>>(bd, rows)
@@ -896,14 +1099,16 @@ KernFn pick_payload(int bd, int rows, int fmt, int opt) {
     if constexpr (RS_SET) return nullptr;
     else return pick_sh<Var<BF, F_SH, false>>(bd, rows);
   }
-  if (!opt || rows != 1) return nullptr;
+  if (!opt) return nullptr;
   switch (fmt) {
     case F_SG:
       return pick_lobes<Var<BF, F_SG, true, false, RS_SET>>(bd, rows);
     case F_ASG:
       return pick_lobes<Var<BF, F_ASG, true, false, RS_SET>>(bd, rows);
     case F_RGBA:
-      return display_kernel<1, 1, Var<BF, F_RGBA, true, false, RS_SET>>;
+      return rows == 1
+                 ? display_kernel<1, 1, Var<BF, F_RGBA, true, false, RS_SET>>
+                 : nullptr;
     default: return nullptr;
   }
 }
@@ -935,9 +1140,10 @@ cudaError_t allow_smem(const void* fn, int smem) {
 }
 
 // The dynamic shared memory of a launch (slab_march.display_config): the
-// stage, the float4 shaded cells, three ints a window.
-int display_smem(int stage_bytes, int chan_cells, int n_win) {
-  return stage_bytes + 16 * chan_cells + 12 * n_win;
+// stage, the shaded cells (a float4 each, the depth variant's a float),
+// three ints a window.
+int display_smem(int stage_bytes, int chan_cells, int n_win, bool depth) {
+  return stage_bytes + (depth ? 4 : 16) * chan_cells + 12 * n_win;
 }
 
 }  // namespace
@@ -946,18 +1152,20 @@ int display_smem(int stage_bytes, int chan_cells, int n_win) {
 // masks, in march order. acc: the (P, 4, gi, gi) [r, g, b, T] output; in the
 // resume build it holds on entry the state each pixel starts from (a
 // z-segment's upstream segments'; the payload a z-segment of the grid whose
-// global z is params[30]), and only opt 1 and 3 are built there. rows: pixel
-// rows a thread (1: 32x8 tiles, 2: 32x16). stage_bytes: the stage's size (a
-// multiple of 16, at least one 256-cell row of Dp planes); chan_cells: the
-// shaded-cell buffer's cells (>= 256). A payload whose rows are whole 16-byte
-// chunks of a 16-byte aligned base is staged with cp.async, any other with
-// element copies. The variant: fmt (0 RGBA, bd = -1; 1 SH; 2 SG, 3 ASG with bd
-// lobes, 1 to 25, whose parameters ``extra`` holds on the device), bf16 (the
-// f16 bake's payload, Dp = D; else int8, Dp = D + 1) and opt (1: the option
-// variant, which every format but SH needs, and SH with depth, rot (9 floats
-// on the host), bbox (params 16-19), a basis window [basis_lo, basis_hi] that
-// drops planes; 3: SH's bf16-shading variant, which takes the same options).
-// Returns cudaGetLastError() after the launch.
+// global z is params[30]), and only opt 1, 3 and 5 are built there. rows:
+// pixel rows a thread (1: 32x8 tiles, 2: 32x16). stage_bytes: the stage's
+// size (a multiple of 16, at least one 256-cell row of the staged planes: Dp,
+// or the depth variant's sigma planes); chan_cells: the shaded-cell buffer's
+// cells (>= 256). A payload whose rows are whole 16-byte chunks of a 16-byte
+// aligned base is staged with cp.async, any other with element copies. The
+// variant: fmt (0 RGBA, bd = -1; 1 SH; 2 SG, 3 ASG with bd lobes, 1 to 25,
+// whose parameters ``extra`` holds on the device), bf16 (the f16 bake's
+// payload, Dp = D; else int8, Dp = D + 1) and opt (1: the option variant,
+// which every format but SH needs, and SH with rot (9 floats on the host),
+// bbox (params 16-19), a basis window [basis_lo, basis_hi] that drops planes;
+// 3: SH's bf16-shading variant, which takes the same options; 5, with
+// ``depth`` set and only then: the depth variant of any format, which takes
+// the bbox). Returns cudaGetLastError() after the launch.
 extern "C" int vt_march_display(const void* payload, const void* params,
                                 const void* qscale, const void* zb,
                                 const void* wins_masks, int n_win, void* acc,
@@ -971,11 +1179,13 @@ extern "C" int vt_march_display(const void* payload, const void* params,
   const int esz = bf16 ? 2 : 1, sigp = bf16 ? 1 : 2;
   const int D = fmt == F_RGBA ? 4 : 3 * bd + 1;
   const bool cuts = fmt == F_SH && (basis_lo > 0 || basis_hi < bd - 1);
+  const bool dvar = opt == 5;  // the depth variant stages sigma alone
   if ((fmt == F_RGBA) != (bd < 0) || Dp != D - 1 + sigp || P < 1 ||
       gi < 1 || K < 1 || n_win < 1 || Dp > 256 || stage_bytes % 16 ||
-      stage_bytes < Dp * 256 * esz || chan_cells < 256 ||
-      (!opt && (fmt != F_SH || depth || rot_on || bbox || cuts)) ||
-      (rot_on && !rot) || (fmt >= F_SG && !extra))
+      stage_bytes < (dvar ? sigp : Dp) * 256 * esz || chan_cells < 256 ||
+      dvar != (depth != 0) ||
+      (!opt && (fmt != F_SH || rot_on || bbox || cuts)) ||
+      (rot_on && !rot) || (fmt >= F_SG && (!extra || bd > MAX_LOBES)))
     return (int)cudaErrorInvalidValue;
   // cp.async moves whole 16-byte chunks of 16-byte aligned rows
   const bool async = (Gx * esz) % 16 == 0 && (uintptr_t)payload % 16 == 0;
@@ -985,7 +1195,7 @@ extern "C" int vt_march_display(const void* payload, const void* params,
   const int nty = (gi + DWARPS * rows - 1) / (DWARPS * rows);
   const long long blocks = (long long)P * ntx * nty;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int smem = display_smem(stage_bytes, chan_cells, n_win);
+  const int smem = display_smem(stage_bytes, chan_cells, n_win, dvar);
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   const int* wins = (const int*)wins_masks;
   LaunchArgs v;
@@ -1028,9 +1238,9 @@ extern "C" int vt_march_display(const void* payload, const void* params,
 }
 
 // What the card makes of the variant (bd, rows, fmt, bf16, opt as for
-// vt_march_display) at ``smem`` bytes of dynamic shared memory: out[0]
-// resident blocks per SM, out[1] registers a thread, out[2] local (spill)
-// bytes a thread, out[3] static shared bytes.
+// vt_march_display; opt 5 the depth variant) at ``smem`` bytes of dynamic
+// shared memory: out[0] resident blocks per SM, out[1] registers a thread,
+// out[2] local (spill) bytes a thread, out[3] static shared bytes.
 extern "C" int vt_march_display_info(int bd, int rows, int fmt, int bf16,
                                      int opt, int smem, int* out) {
   const void* fn = pick_any(bd, rows, fmt, bf16, opt);

@@ -172,8 +172,9 @@ def _window_masks(slab_ids: Sequence[int], K: int
     return win_order, [win_mask[w] for w in win_order]
 
 
-#: the SG/ASG lobe counts kernel M's display mode takes (the kernel is
-#: compiled for lobe counts up to 4, 9, 16 and 25)
+#: the SG/ASG lobe counts the march takes (kernel M's display mode reads
+#: the count at run time; its training mode and M-bwd are compiled for
+#: counts up to 4, 9, 16 and 25)
 DISPLAY_LOBES = range(1, 26)
 
 
@@ -272,6 +273,14 @@ class MarchMode(NamedTuple):
                 or self.rot is not None or not self.bbox_full
                 or self.basis_lo > 0 or self.basis_hi < bd - 1
                 or self.bf16_shade)
+
+    def tall_tiles(self, bd: int) -> bool:
+        """May the display mode's tile rule give this mode 32x16 tiles
+        (``display_config``)? SH without options and SG or ASG without
+        another option: their variants are built at both tile heights."""
+        lobes = self.fmt in (int(BasisType.SG), int(BasisType.ASG))
+        return not (self._replace(fmt=int(BasisType.SH)) if lobes
+                    else self).options(bd)
 
 
 def display_variant(mode: MarchMode, bd: int, bf16: bool,
@@ -604,14 +613,16 @@ def _variant_args(mode: MarchMode, bd: int, dev,
     """A launch's variant arguments as the kernels' entries take them:
     (the lobes' device tensor, kept alive for the call, or None; then fmt,
     opt (1 the option variant, which a launch that ``resume``s takes, 3
-    the bf16-shading one), the lobes' pointer, rot_on, rot (host
+    the bf16-shading one, 5 the display mode's depth variant), the lobes'
+    pointer, rot_on, rot (host
     float[9]), bbox, basis_lo, basis_hi)."""
     extra, extra_ptr = None, 0
     if mode.fmt in (int(BasisType.SG), int(BasisType.ASG)):
         extra = to_device(mode.extra, _F32, dev).contiguous()
         extra_ptr = extra.data_ptr()
     rot = (ctypes.c_float * 9)(*(mode.rot or _IDENTITY))
-    opt = int(mode.options(bd) or resume) | (2 if mode.bf16_shade else 0)
+    opt = (int(mode.options(bd) or resume) | (2 if mode.bf16_shade else 0)
+           | (4 if mode.depth else 0))
     return (extra, mode.fmt, opt, extra_ptr,
             int(mode.rot is not None), rot, int(not mode.bbox_full),
             mode.basis_lo, mode.basis_hi)
@@ -799,7 +810,8 @@ def _march_display_cuda(gplanar, qscale, params, zb, wins, masks, G, gi, D,
     cfg = display_config(params.shape[0], gi, len(wins), gplanar.shape[1],
                          _sm_count(gplanar.device.index),
                          esz=gplanar.element_size(),
-                         opt=mode.options(bd) or acc_init is not None)
+                         opt=not mode.tall_tiles(bd) or acc_init is not None,
+                         depth=mode.depth)
     return _display_launch(gplanar, qscale, params, zb, wins, masks, G, gi,
                            bd, K, flip, y0, x0, cfg, mode, acc_init, segment)
 
@@ -850,12 +862,15 @@ def _sm_count(index) -> int:
 
 def display_config(P: int, gi: int, n_win: int, Dp: int, n_sm: int,
                    smem: int = _DISPLAY_SMEM, esz: int = 1,
-                   opt: bool = False) -> dict:
+                   opt: bool = False, depth: bool = False) -> dict:
     """A display launch's configuration: ``rows`` of 8 pixel rows a thread
     and the block's ``smem`` split into the stage (``stage_bytes``, a
     multiple of 128, at least one 256-cell row) and the shaded-cell buffer
-    (``chan_cells`` float4, one a cell of stage: Dp values of ``esz`` bytes,
-    1 for int8, 2 for bf16) after three ints a window.
+    (``chan_cells``, one a cell of stage) after three ints a window. A
+    cell of stage holds Dp values of ``esz`` bytes (1 for int8, 2 for
+    bf16), a shaded cell a float4; in ``depth`` mode (the depth variant)
+    a cell of stage holds sigma's planes alone (2 bytes: int8 hi and lo,
+    or one bf16) and a shaded cell one float.
 
     The tile height, from the P poses at gi and the card's ``n_sm`` SMs
     (measured on the display launches by ``probes.display_tiles``,
@@ -863,17 +878,20 @@ def display_config(P: int, gi: int, n_win: int, Dp: int, n_sm: int,
     tiles (rows=1) make twice the blocks, so a launch of few tiles, whose
     costs differ, ends sooner after its costliest ones. 32x16 when the
     launch holds at least six of them an SM (three waves of two blocks),
-    32x8 below that. The option variants (``opt``: every format but SH, and
-    SH with an option, MarchMode.options) are built with 32x8 tiles
-    only."""
+    32x8 below that (SG16 and ASG16 groups too, measured). ``opt``: the
+    launch's variant is built with 32x8 tiles only (every mode that
+    ``MarchMode.tall_tiles`` refuses: SH with an option, RGBA, depth, SG
+    and ASG with another option, a resumed z-segment)."""
     tiles = P * -(-gi // _DTX) * -(-gi // (2 * _DWARPS))
     rows = 2 if tiles >= 6 * n_sm and not opt else 1
     avail = smem - 12 * n_win
-    cell = Dp * esz
-    stage_bytes = max(avail * cell // (cell + 16) // 128 * 128, cell * 256)
-    chan_cells = max(256, (avail - stage_bytes) // 16)
+    cell = 2 if depth else Dp * esz
+    shaded = 4 if depth else 16
+    stage_bytes = max(avail * cell // (cell + shaded) // 128 * 128,
+                      cell * 256)
+    chan_cells = max(256, (avail - stage_bytes) // shaded)
     return dict(rows=rows, stage_bytes=stage_bytes, chan_cells=chan_cells,
-                smem=stage_bytes + 16 * chan_cells + 12 * n_win)
+                smem=stage_bytes + shaded * chan_cells + 12 * n_win)
 
 
 def _overlap_mat(c0G, slope_G, s0, s1, cell, G: int):

@@ -15,6 +15,9 @@ answered on the card:
   layouts (``build_probe`` is the build kernel of two of them);
 - ``display_tiles``: kernel M's display launches at both tile heights,
   the evidence behind ``slab_march.display_config``'s tile rule;
+- ``display_info`` and ``display_sass``: what the card makes of kernel M's
+  display instantiations (blocks per SM, registers, spills), and whether
+  the SH int8 defaults' machine code equals another checkout's;
 - ``tma_box``: whether a one-box TMA load over the display payload works
   on the card (``csrc/probe_tma_box.cu``, built apart from the port's
   kernels).

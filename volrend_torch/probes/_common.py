@@ -1,6 +1,7 @@
 """What the probes share (the reference's probes take it from ``bench.py``
-or repeat it in each file): the dense bench scene with its npz cache, the
-orbit poses, the (perm, flip) grouping, a timer on CUDA events and a
+or repeat it in each file): the dense bench scene with its npz cache (and
+its leaves read as SG, ASG and RGBA trees, ``format_trees``), the orbit
+poses, the (perm, flip) grouping, a timer on CUDA events and a
 device-time tracer (torch.profiler).
 
 The reference's probes subtract ``FLOOR = 0.027`` s from each reading, the
@@ -61,6 +62,56 @@ def dense_grid_on(device):
     from volrend_torch.ops import dense_grid
     tdev = get_tree().to_device(lut_depth=None, device=device)
     return dense_grid.bake_dense(tdev, dtype="int8")
+
+
+#: the seed of the SG/ASG lobes of format_trees
+LOBE_SEED = 4
+
+
+def format_trees(tdev, nb=None):
+    """A tree's arrays on the card read as SG and ASG trees (its leaf rows
+    as lobe coefficients, the lobes drawn from LOBE_SEED as the
+    reference's tests draw them, tests/test_slab_render.py:241-258 and
+    :349-376) and as an RGBA tree (D = 4: each colour channel's first
+    coefficient through a sigmoid, and sigma): {name: TreeArrays}. The SG
+    and ASG trees take the tree's basis_dim lobes or, with ``nb``, keep
+    the first nb coefficients of each colour and sigma (D = 3 nb + 1) and
+    draw nb lobes."""
+    import dataclasses
+    from volrend_torch.models.data_format import BasisType
+    bd = tdev.basis_dim
+    nb = bd if nb is None else nb
+    rng = np.random.default_rng(LOBE_SEED)
+    mu = rng.normal(size=(nb, 3))
+    mu /= np.linalg.norm(mu, axis=-1, keepdims=True)
+    sg = np.concatenate([rng.uniform(1.0, 6.0, (nb, 1)), mu], -1)
+    asg = np.zeros((nb, 11))
+    for i in range(nb):
+        q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        asg[i, 0] = rng.uniform(0.5, 4.0)
+        asg[i, 1] = rng.uniform(0.5, 4.0)
+        asg[i, 2:] = q.T.reshape(-1)
+    dev = tdev.data.device
+    D = tdev.data_dim
+    lobe = tdev
+    if nb != bd:
+        keep = [c * bd + k for c in range(3) for k in range(nb)] + [D - 1]
+        lobe = dataclasses.replace(
+            tdev, data=tdev.data[:, keep].contiguous(), data_dim=3 * nb + 1,
+            basis_dim=nb)
+    rgba = torch.cat([torch.sigmoid(tdev.data[:, 0:3 * bd:bd].float()),
+                      tdev.data[:, D - 1:D].float()], 1)
+    return {
+        "SG": dataclasses.replace(
+            lobe, fmt=BasisType.SG,
+            extra=torch.as_tensor(sg, dtype=torch.float32, device=dev)),
+        "ASG": dataclasses.replace(
+            lobe, fmt=BasisType.ASG,
+            extra=torch.as_tensor(asg, dtype=torch.float32, device=dev)),
+        "RGBA": dataclasses.replace(
+            tdev, data=rgba.to(tdev.data.dtype).contiguous(), data_dim=4,
+            basis_dim=-1, fmt=BasisType.RGBA),
+    }
 
 
 def orbit_poses(n: int, radius: float = 2.8, elev: float = 0.45,

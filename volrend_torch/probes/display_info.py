@@ -4,7 +4,8 @@ For every instantiation of kernel M's display mode
 (``csrc/slab_march_display.cu``: resident blocks per SM, registers a
 thread, spill bytes a thread and static shared memory, from
 ``vt_march_display_info`` at the display path's shared-memory budget,
-keyed ``<fmt><bd>-<payload>[-opt|-bf16shade]-r<rows>``) and of kernel W
+keyed ``<fmt><bd>-<payload>[-opt|-bf16shade]-r<rows>``, SG and ASG without
+a lobe count, ``depth-<payload>-r1`` the depth variant) and of kernel W
 (``csrc/warp_display.cu``: registers and spill stores of each entry
 function, from the build's ``ptxas -v`` report, keyed by the demangled
 name where ``c++filt`` is on the path), printed as one JSON line.
@@ -30,7 +31,8 @@ import sys
 _HERE = os.path.dirname(os.path.abspath(__file__))
 
 #: (key, bd, rows, fmt, bf16, opt) of kernel M's display instantiations
-#: (the SG/ASG ones by lobe bound)
+#: (SG and ASG: one for every lobe count, read at 16 lobes; depth: opt 5,
+#: one for every format)
 M_VARIANTS = (
     [(f"SH{b}-{p}-r{r}", b, r, 1, bf, 0)
      for b in (1, 4, 9, 16, 25) for bf, p in ((0, "int8"), (1, "bf16"))
@@ -38,10 +40,12 @@ M_VARIANTS = (
     + [(f"SH{b}-{p}-{o}-r1", b, 1, 1, bf, code)
        for o, code in (("opt", 1), ("bf16shade", 3))
        for b in (1, 4, 9, 16, 25) for bf, p in ((0, "int8"), (1, "bf16"))]
-    + [(f"{f}<={b}-{p}-opt-r1", b, 1, fm, bf, 1)
-       for f, fm in (("SG", 2), ("ASG", 3)) for b in (4, 9, 16, 25)
-       for bf, p in ((0, "int8"), (1, "bf16"))]
+    + [(f"{f}-{p}-opt-r{r}", 16, r, fm, bf, 1)
+       for f, fm in (("SG", 2), ("ASG", 3))
+       for bf, p in ((0, "int8"), (1, "bf16")) for r in (1, 2)]
     + [(f"RGBA-{p}-opt-r1", -1, 1, 0, bf, 1)
+       for bf, p in ((0, "int8"), (1, "bf16"))]
+    + [(f"depth-{p}-r1", 16, 1, 1, bf, 5)
        for bf, p in ((0, "int8"), (1, "bf16"))])
 
 

@@ -13,7 +13,10 @@ through ``march_slabs`` itself:
 - the probes' protocol (96 poses, gi=448): pose 0's group whole, its
   first pose, and each of its poses alone, one launch after another;
 - the sparse orbit (96 poses, gi=256): each group whole (cropped payload,
-  culled slabs) and four poses spread over it.
+  culled slabs) and four poses spread over it;
+- with ``--formats SG,ASG``: the dense scene's leaves read as SG16 and
+  ASG16 trees (``_common.format_trees``, int8): each group whole, four
+  poses spread over it and its first pose, through the lobe variants.
 
 Every time is the card's: CUDA events around back-to-back launches queued
 behind a device sleep, median of three runs; each launch includes its
@@ -25,7 +28,7 @@ package (run it by path with that checkout first on ``PYTHONPATH``).
 Run on a card from the root of the checkout::
 
     python -m volrend_torch.probes.display_tiles [--modes package,1,2]
-        [--only NAME]
+        [--only NAME] [--formats SH,SG,ASG]
 """
 
 from __future__ import annotations
@@ -87,8 +90,9 @@ class Launch:
     ``grid`` at ``gi``, as the display path prepares them."""
 
     def __init__(self, name, grid, cams, gi, opt, payloads):
-        from volrend_torch.ops import slab_render
+        from volrend_torch.ops import slab_march, slab_render
         self.name, self.grid, self.gi, self.P = name, grid, gi, len(cams)
+        self.mode = slab_march.MarchMode(int(grid.fmt), grid.extra)
         c0 = cams[0]
         perm, flip, _ = slab_render.choose_axis(grid, c0.transform, c0.fx,
                                                 c0.fy, c.W, c.H)
@@ -114,7 +118,8 @@ class Launch:
             self.pay, self.params, g.qscale, self.zb, g.G, self.gi,
             g.data_dim, g.basis_dim, self.perm, slab_ids=self.slab_ids,
             sig2=True, flip=self.flip, bbox_full=True, dir_win=True,
-            k_per_step=slab_march._K_STEP, crop=self.crop)
+            k_per_step=slab_march._K_STEP, crop=self.crop,
+            fmt=self.mode.fmt, extra=self.mode.extra)
 
     def rows(self, rows=None):
         """The launch with ``rows`` pixel rows a thread (None: the rule's
@@ -128,13 +133,14 @@ class Launch:
                                  g.G, self.gi)
         cfg = slab_march.display_config(
             self.P, self.gi, len(m["wins"]), self.pay.shape[1],
-            slab_march._sm_count(self.pay.device.index))
+            slab_march._sm_count(self.pay.device.index),
+            opt=not self.mode.tall_tiles(g.basis_dim))
         if rows is not None:
             cfg = dict(cfg, rows=rows)
         acc = slab_march._display_launch(
             self.pay, g.qscale, m["params"], m["zb"], m["wins"], m["masks"],
             g.G, self.gi, g.basis_dim, m["K"], self.flip, m["y0"], m["x0"],
-            cfg)
+            cfg, self.mode)
         return acc, cfg
 
 
@@ -153,9 +159,37 @@ class Series:
         return [ln.rows(rows) for ln in self.items][-1]
 
 
-def launches(opt):
+def lobe_launches(opt, fmt):
+    """The dense scene read as an SG16 or ASG16 tree (int8): each group
+    whole, four poses spread over it, its first pose."""
+    from volrend_torch.ops import dense_grid
+    dev = torch.device("cuda")
+    tdev = c.get_tree().to_device(lut_depth=None, device=dev)
+    grid = dense_grid.bake_dense(c.format_trees(tdev)[fmt], dtype="int8")
+    del tdev
+    pays = {}
+    cams = c.orbit_poses(N_DENSE)
+    for gk, (key, idx) in enumerate(c.pose_groups(grid, cams).items()):
+        sel = [cams[i] for i in idx]
+        spread = np.unique(np.linspace(0, len(sel) - 1, 4).round())
+        for tag, sub in ((f"{len(sel)} poses", sel),
+                         ("4 spread", [sel[int(i)] for i in spread]),
+                         ("1 pose", sel[:1])):
+            yield Launch(f"dense {fmt}16 group {gk} {key}: {tag}", grid,
+                         sub, GI_MAIN, opt, pays)
+    del grid, pays
+    torch.cuda.empty_cache()
+
+
+def launches(opt, formats=("SH",)):
     """The display launches this probe times, scene by scene (a generator,
-    so one scene's payloads are freed before the next is built)."""
+    so one scene's payloads are freed before the next is built): the SH
+    scenes' unless ``formats`` leaves SH out, then the lobe trees'."""
+    for fmt in formats:
+        if fmt != "SH":
+            yield from lobe_launches(opt, fmt)
+    if "SH" not in formats:
+        return
     from volrend_torch.models.synthetic import make_solid_tree
     from volrend_torch.ops import dense_grid
     dev = torch.device("cuda")
@@ -205,6 +239,9 @@ def main():
                          "tiles), 2 (32x16 tiles)")
     ap.add_argument("--only", default="",
                     help="time only the launches whose name holds this")
+    ap.add_argument("--formats", default="SH",
+                    help="comma-separated: SH (the SH scenes), SG, ASG "
+                         "(the dense scene's leaves as SG16/ASG16 trees)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("display_tiles times kernel M on a CUDA device; "
@@ -213,7 +250,8 @@ def main():
     modes = args.modes.split(",")
     c.log(f"{torch.cuda.get_device_name(0)}; modes {modes}")
     rows = []
-    for ln in launches(RenderOptions(max_steps=1024)):
+    for ln in launches(RenderOptions(max_steps=1024),
+                       args.formats.split(",")):
         if args.only not in ln.name:
             continue
         n = getattr(ln, "n", 1)
