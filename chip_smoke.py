@@ -157,7 +157,12 @@ Phases (any failure exits non-zero and prints no result):
     of the f16 route with slab_march._DIR_WIN = False, then _BF16_SHADE =
     True: each variant against its plain version, its time beside the
     default's, the group rendered counted, pose 0 >= 50 dB from the
-    default frame and >= 54 dB against the exact renderer. (c) the sparse
+    default frame and >= 54 dB against the exact renderer; bf16 shading's
+    variant without options at both tile heights (probes/display_tiles),
+    its instantiations' registers and spills, the SH int8 defaults' SASS
+    against pinned digests (probes/display_sass --pinned) and kernel M's
+    job loop by part (probes/display_march, its build compiled beside the
+    kernels'). (c) the sparse
     scene compressed by compress_tree at its defaults (bits 16; the dense
     scene's ~10^7 live leaves would take the median cut ~10 minutes):
     QuantLeaves on the card, fetch_rows and the int8 bake bit-equal to the
@@ -2236,14 +2241,17 @@ FLOOR_DEPTH = 30.0     # the reference's slab-vs-exact depth floor
 FLOOR_BBOX = 40.0
 
 
-def variant_ops(grid, opt):
+def variant_ops(grid, opt, bf16_shade=False):
     """(operations a shaded voxel, operations a marched (pixel, slab) pair,
     colour planes a shaded voxel reads) of a display variant, for its
     bound: SH 9*bd + 30 a voxel (march_bound's), SG ~14 and ASG ~20 a lobe
     (the lobe's dot products, exponential and 3 multiply-adds) + 30, RGBA
     ~10; the basis window counts its lobes only, rot adds 15; depth shades
     nothing past the sigma decode (~5) and taps one channel (~30 a pair
-    against four channels' 60)."""
+    against four channels' 60). ``bf16_shade``: the 9 a basis function
+    (the polynomial, its scale, 3 multiply-adds) run as packed bf16x2 at
+    twice the f32 rate (134 TFLOP/s without the tensor cores, NVIDIA's H100
+    SXM figure), counted as 4.5 f32 operations."""
     from volrend_torch.models.data_format import BasisType
     bt = BasisType(grid.fmt)
     bd = grid.basis_dim
@@ -2253,7 +2261,8 @@ def variant_ops(grid, opt):
         return (10, 60), 3
     lo, hi = opt.basis_minmax
     n = len([k for k in range(bd) if lo <= k <= hi])
-    per = {BasisType.SH: 9, BasisType.SG: 14, BasisType.ASG: 20}[bt]
+    per = {BasisType.SH: 4.5 if bf16_shade else 9, BasisType.SG: 14,
+           BasisType.ASG: 20}[bt]
     rot = 15 if any(float(v) != 0.0 for v in opt.rot_dirs) else 0
     return (per * n + 30 + rot, 60), 3 * n
 
@@ -2323,7 +2332,7 @@ def variant_check(torch, kernels, tag, grid, opt, cams, key, stats,
     occ = display_occupancy(kernels, grid.basis_dim, cfg)
     p_sub, z_sub = params[sub], zb[sub]
     ms = cuda_ms(torch, lambda: run_m(p_sub, z_sub), KREPS)
-    ops, colour = variant_ops(grid, opt)
+    ops, colour = variant_ops(grid, opt, bf16_shade)
     okb = None
     if not kw["bbox_full"]:
         ycell = torch.arange(pay.shape[2], device=pay.device) + m["y0"]
@@ -2337,6 +2346,11 @@ def variant_check(torch, kernels, tag, grid, opt, cams, key, stats,
                       z_planes=4 if kw["depth"] else 3, D=grid.data_dim,
                       colour_planes=colour, okb=okb)
     whole_ms = cuda_ms(torch, run_m, KREPS) if P > len(sub) else ms
+    whole_bnd = bnd if P == len(sub) else march_bound(
+        torch, pay, grid.qscale, m["zb"], slab_ids, grid.G, GI,
+        grid.basis_dim, float(opt.sigma_thresh), ops=ops,
+        z_planes=4 if kw["depth"] else 3, D=grid.data_dim,
+        colour_planes=colour, okb=okb)
     row = stats.setdefault(key, {"max_abs_err": 0.0})
     if "ms" not in row:
         row.update(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0],
@@ -2345,28 +2359,30 @@ def variant_check(torch, kernels, tag, grid, opt, cams, key, stats,
     row["max_abs_err"] = max(row["max_abs_err"], err)
     log(f"kernel M [{tag}, {cfg['variant']}]: {len(sub)} poses {ms:.3f} ms "
         f"(bound {bnd[0]:.3f} ms, {bnd[1]}; plain {plain_ms:.1f} ms), "
-        f"{P} poses {whole_ms:.3f} ms; launch {cfg}, on the card {occ}")
+        f"{P} poses {whole_ms:.3f} ms (bound {whole_bnd[0]:.3f} ms, "
+        f"{whole_bnd[1]}); launch {cfg}, on the card {occ}")
     stats.setdefault("M_variants", {})[tag] = {
         "variant": cfg["variant"], "poses": P, "ms": whole_ms,
-        "sub_ms": ms, "bound_ms": bnd[0], "plain_ms": plain_ms,
+        "sub_ms": ms, "bound_ms": bnd[0], "whole_bound_ms": whole_bnd[0],
+        "plain_ms": plain_ms,
         "max_abs_err": err, **occ, "rows": cfg["rows"]}
     del pay, acc_k, acc_p
     return row
 
 
-def lobe_depth_infos(kernels) -> dict:
-    """What the card makes of kernel M's SG, ASG and depth instantiations
-    (volrend_torch/probes/display_info.py's keys, at the display path's
-    shared-memory budget): registers, spill bytes and blocks per SM, each
-    logged; fails if one spills, takes more than 128 registers or holds
-    fewer than two blocks an SM."""
+def instantiation_infos(kernels, keep) -> dict:
+    """What the card makes of kernel M's display instantiations whose
+    volrend_torch/probes/display_info.py key ``keep`` accepts (at the
+    display path's shared-memory budget): registers, spill bytes and
+    blocks per SM, each logged; fails if one spills, takes more than 128
+    registers or holds fewer than two blocks an SM."""
     import ctypes
     from volrend_torch.ops import slab_march
     from volrend_torch.probes import display_info
     lib = kernels.lib("slab_march_display")
     out = {}
     for key, bd, rows, fmt, bf16, opt in display_info.M_VARIANTS:
-        if not key.startswith(("SG", "ASG", "depth")):
+        if not keep(key):
             continue
         info = (ctypes.c_int * 4)()
         kernels.check(lib.vt_march_display_info(
@@ -2418,8 +2434,9 @@ def counted_render(torch, tag, fn, passes: int, world: bool, launched):
 def variants_phase(torch, kernels, dev, opt, stats, gate, main_path,
                    groups_of, render_all):
     """Phase 12: kernel M's display variants at full width. First each
-    SG, ASG and depth instantiation's registers and spills
-    (lobe_depth_infos: none may spill). (a) The f16 route: the dense SH16
+    SG, ASG and depth instantiation's registers and spills, and the f16
+    route's SH-bf16 at both tile heights (instantiation_infos: none may
+    spill). (a) The f16 route: the dense SH16
     scene baked f16 (a bf16 payload), the 200 orbit poses through
     render_frames (RGBA8, gi=256) with every pose through
     the SH-bf16 variant and kernel W and nothing else, throughput and
@@ -2441,7 +2458,9 @@ def variants_phase(torch, kernels, dev, opt, stats, gate, main_path,
     from volrend_torch.ops import dense_grid, slab_march, slab_render
     from volrend_torch.ops.camera import Camera
     from volrend_torch.probes import _common
-    out = {"instantiations": lobe_depth_infos(kernels)}
+    out = {"instantiations": instantiation_infos(
+        kernels, lambda k: k.startswith(("SG", "ASG", "depth"))
+        or ("-bf16-r" in k and k.startswith("SH")))}
     # each variant's launches in the counted runs (the main path's for
     # SH-bf16): the JSON line's counts
     launched = collections.Counter()
@@ -3057,6 +3076,34 @@ def mesh_phase(torch, dev, opt, stats, tdev, grid, host_tree, cams):
     return out
 
 
+def bf16_shade_tiles(torch, name, grid, gcams, opt, pays) -> dict:
+    """volrend_torch/probes/display_tiles on bf16 shading's variant without
+    options (opt 2, both tile heights): orbit group 0 of ``grid`` whole and
+    PLAIN_POSES poses spread over it, each launch at 32x8 and 32x16 tiles
+    and through march_slabs (the tile rule's height), logged; fails if the
+    two heights disagree past a freeze flip (another piece order)."""
+    from volrend_torch.probes import display_tiles
+    spread = np.unique(np.linspace(0, len(gcams) - 1, PLAIN_POSES).round())
+    out = {}
+    for sub in (gcams, [gcams[int(i)] for i in spread]):
+        ln = display_tiles.Launch(f"{name} bf16shade, {len(sub)} poses",
+                                  grid, sub, GI, opt, pays, bf16_shade=True)
+        accs, row = {}, {}
+        for rows in (1, 2):
+            accs[rows] = ln.rows(rows)[0]
+            row[f"rows{rows}_ms"] = display_tiles.device_ms(
+                lambda r=rows: ln.rows(r))
+        row["rule_rows"] = ln.rows()[1]["rows"]
+        row["package_ms"] = display_tiles.device_ms(ln.package)
+        row["max_abs_diff"] = float((accs[1] - accs[2]).abs().max())
+        log(f"display_tiles [{ln.name}]: {json.dumps(row)}")
+        if not row["max_abs_diff"] <= float(opt.stop_thresh) + TOL_M:
+            fail(f"{ln.name}: the tile heights disagree ({row})")
+        out[f"{len(sub)} poses"] = row
+        del accs
+    return out
+
+
 def knob_phase(torch, kernels, dev, opt, stats, gate, tdev, grids, cams,
                groups_of):
     """Phase 12c (b): the display march's knobs on orbit group 0 of the dense
@@ -3098,6 +3145,8 @@ def knob_phase(torch, kernels, dev, opt, stats, gate, tdev, grids, cams,
                           dir_win=val if attr == "_DIR_WIN" else True,
                           shade_bf16=val if attr == "_BF16_SHADE" else False)
             v = stats["M_variants"][tag]
+            tiles = (bf16_shade_tiles(torch, name, grid, gcams, opt, pays)
+                     if knob == "bf16shade" else None)
             calls = count_plain_calls()
             setattr(slab_march, attr, val)
             try:
@@ -3131,6 +3180,7 @@ def knob_phase(torch, kernels, dev, opt, stats, gate, tdev, grids, cams,
             if not p_base >= FLOOR_KNOB:
                 fail(f"{tag}: {p_base:.3f} dB from the default frame")
             out[tag] = {"variant": variant, "counts": counts,
+                        "tiles": tiles,
                         "group_ms": v["ms"], "sub_ms": v["sub_ms"],
                         "default_group_ms": base_ms,
                         "vs_default_db": p_base,
@@ -3239,9 +3289,55 @@ def quant_phase(torch, dev, opt, stats, gate, groups_of):
     return out
 
 
-def overlay_phase(torch, kernels, dev, opt, stats, gate, groups_of):
+def sass_check() -> dict:
+    """volrend_torch/probes/display_sass --pinned in a process of its own:
+    the SH int8 defaults' machine code against the digests it pins; fails
+    unless all ten are equal."""
+    res = subprocess.run([sys.executable, "-m",
+                          "volrend_torch.probes.display_sass", "--pinned"],
+                         cwd=HERE, capture_output=True, text=True,
+                         timeout=600)
+    lines = res.stdout.strip().splitlines()
+    try:
+        out = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        out = {"ok": False}
+    log(f"display_sass --pinned (rc {res.returncode}): "
+        f"{json.dumps(out.get('defaults'))}")
+    if res.returncode != 0 or not out.get("ok"):
+        fail(f"display_sass: the SH int8 defaults' SASS moved or was not "
+             f"read (rc {res.returncode}; {res.stderr[-2000:]})")
+    return out
+
+
+def display_march_phase(torch, dev, opt, probe_build) -> dict:
+    """volrend_torch/probes/display_march on its build started with the
+    kernels' (``probe_build``: -DVT_DM_CYCLES): thread 0's cycles by part
+    of the job loop for SH-int8, SH-bf16 and bf16 shading on both payloads,
+    on 4 poses and orbit group 0 whole, each row logged; fails if a launch
+    on the probe build disagrees with the port's past a freeze flip."""
+    from volrend_torch.probes import display_march
+    res = display_march.run(dev, ["probe"],
+                            display_march.load(probe_build))
+    for row in res["probe"]:
+        log(f"display_march [{row['launch']}]: "
+            f"{row['ms']:.3f} ms, rows {row['rows']}, pieces a slab "
+            f"{row['pieces_a_slab']:.3f}, loop max {row['loop_max']}, "
+            f"share {json.dumps(row['share'])}")
+        if not row["max_abs_diff_own_build"] <= float(
+                opt.stop_thresh) + TOL_M:
+            fail(f"display_march: {row['launch']} on the probe build "
+                 f"differs from the port's ({row['max_abs_diff_own_build']})")
+    return res
+
+
+def overlay_phase(torch, kernels, dev, opt, stats, gate, groups_of,
+                  probe_build):
     """Phase 12c: mesh_phase and knob_phase on the dense scene (int8, then
-    the f16 route for the knobs), then quant_phase."""
+    the f16 route for the knobs), bf16 shading's instantiations
+    (instantiation_infos), the SH int8 defaults' SASS (sass_check), the
+    display march by part (display_march_phase, on ``probe_build``), then
+    quant_phase."""
     from volrend_torch.ops import dense_grid
     from volrend_torch.probes import _common
     host_tree = _common.get_tree()
@@ -3258,6 +3354,11 @@ def overlay_phase(torch, kernels, dev, opt, stats, gate, groups_of):
     out["knobs"].update(knob_phase(torch, kernels, dev, opt, stats, gate,
                                    tdev, {"f16": f16}, cams, groups_of))
     del f16, tdev
+    torch.cuda.empty_cache()
+    out["instantiations"] = instantiation_infos(
+        kernels, lambda k: "-bf16shade" in k)
+    out["sass"] = sass_check()
+    out["display_march"] = display_march_phase(torch, dev, opt, probe_build)
     torch.cuda.empty_cache()
     out["quant"] = quant_phase(torch, dev, opt, stats, gate, groups_of)
     return out
@@ -4848,6 +4949,9 @@ def main() -> None:
 
     # ---- 1. build -----------------------------------------------------------
     t = time.perf_counter()
+    # the display march's cycle probe (phase 12c) compiles beside them
+    from volrend_torch.probes import display_march
+    probe_build = display_march.start_build()
     blogs = kernels.build_all()
     log(f"kernels built in {time.perf_counter() - t:.1f} s "
         f"({sorted(blogs)} compiled this run)")
@@ -5361,7 +5465,8 @@ def main() -> None:
     train_variants = train_variants_phase(torch, dev, stats)
 
     # ---- 12c. mesh overlays, the display knobs, a quantized tree ------------
-    overlay = overlay_phase(torch, kernels, dev, opt, stats, gate, groups_of)
+    overlay = overlay_phase(torch, kernels, dev, opt, stats, gate, groups_of,
+                            probe_build)
 
     # ---- 12d. T2 ray-batch training, the headless batch renderer -----------
     t2 = t2_phase(torch, dev)

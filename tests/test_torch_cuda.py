@@ -1772,34 +1772,39 @@ DEFAULT_W_INFO = {
     (2, 4, 4, 5, 1): (5, 96, 0), (2, 4, 4, 5, 0): (5, 96, 0),
 }
 
-#: kernel M's 52 display instantiations (NVIDIA H100 80GB HBM3; read by
+#: kernel M's 72 display instantiations (NVIDIA H100 80GB HBM3; read by
 #: ``python volrend_torch/probes/display_info.py``): per instantiation,
 #: (blocks per SM, registers, spill bytes, static shared bytes). The SH
-#: defaults (no option) keep the values they had before the display knobs;
-#: the SH option, bf16-shading and RGBA variants moved by 0-9 registers
-#: when depth mode left them for a variant of its own; SG and ASG (one
-#: instantiation for every lobe count) spill nothing since their redesign
+#: int8 defaults keep the values they had before the display knobs (and
+#: their machine code: probes/display_sass); the SH option and RGBA
+#: variants moved by 0-9 registers when depth mode left them for a variant
+#: of its own; SG and ASG (one instantiation for every lobe count) spill
+#: nothing since their redesign; bf16 shading took a variant of its own
+#: without options at both tile heights (``-bf16shade``; the option
+#: variant is ``-bf16shade-opt``) and the packed bf16 basis, and it and the
+#: bf16 payload's SH defaults take each job's walk once: every one within
+#: 128 registers, no spills, two blocks an SM
 DEFAULT_DISPLAY_INFO = {
     "SH1-int8-r1": (2, 100, 0, 144),
     "SH1-int8-r2": (2, 113, 0, 144),
-    "SH1-bf16-r1": (2, 118, 0, 144),
-    "SH1-bf16-r2": (2, 114, 0, 144),
+    "SH1-bf16-r1": (2, 124, 0, 144),
+    "SH1-bf16-r2": (2, 128, 0, 144),
     "SH4-int8-r1": (2, 110, 0, 192),
     "SH4-int8-r2": (2, 122, 0, 192),
-    "SH4-bf16-r1": (2, 114, 0, 176),
-    "SH4-bf16-r2": (2, 126, 0, 176),
+    "SH4-bf16-r1": (2, 126, 0, 176),
+    "SH4-bf16-r2": (2, 128, 0, 176),
     "SH9-int8-r1": (2, 117, 0, 240),
     "SH9-int8-r2": (2, 122, 0, 240),
-    "SH9-bf16-r1": (2, 123, 0, 240),
-    "SH9-bf16-r2": (2, 125, 0, 240),
+    "SH9-bf16-r1": (2, 126, 0, 240),
+    "SH9-bf16-r2": (2, 123, 0, 240),
     "SH16-int8-r1": (2, 124, 0, 336),
     "SH16-int8-r2": (2, 121, 0, 336),
-    "SH16-bf16-r1": (2, 125, 0, 320),
-    "SH16-bf16-r2": (2, 123, 0, 320),
+    "SH16-bf16-r1": (2, 126, 0, 320),
+    "SH16-bf16-r2": (2, 125, 0, 320),
     "SH25-int8-r1": (2, 126, 0, 432),
     "SH25-int8-r2": (2, 127, 0, 432),
-    "SH25-bf16-r1": (2, 127, 0, 432),
-    "SH25-bf16-r2": (2, 125, 0, 432),
+    "SH25-bf16-r1": (2, 126, 0, 432),
+    "SH25-bf16-r2": (2, 128, 0, 432),
     "SH1-int8-opt-r1": (2, 102, 0, 192),
     "SH1-bf16-opt-r1": (2, 120, 0, 176),
     "SH4-int8-opt-r1": (2, 114, 0, 224),
@@ -1810,16 +1815,36 @@ DEFAULT_DISPLAY_INFO = {
     "SH16-bf16-opt-r1": (2, 122, 0, 368),
     "SH25-int8-opt-r1": (2, 121, 0, 480),
     "SH25-bf16-opt-r1": (2, 119, 0, 464),
-    "SH1-int8-bf16shade-r1": (2, 102, 0, 192),
-    "SH1-bf16-bf16shade-r1": (2, 120, 0, 176),
-    "SH4-int8-bf16shade-r1": (2, 114, 0, 224),
-    "SH4-bf16-bf16shade-r1": (2, 120, 0, 224),
-    "SH9-int8-bf16shade-r1": (2, 115, 0, 288),
-    "SH9-bf16-bf16shade-r1": (2, 120, 0, 272),
-    "SH16-int8-bf16shade-r1": (2, 121, 0, 368),
-    "SH16-bf16-bf16shade-r1": (2, 122, 0, 368),
-    "SH25-int8-bf16shade-r1": (2, 119, 0, 480),
-    "SH25-bf16-bf16shade-r1": (2, 120, 0, 464),
+    "SH1-int8-bf16shade-opt-r1": (2, 102, 0, 208),
+    "SH1-bf16-bf16shade-opt-r1": (2, 120, 0, 192),
+    "SH4-int8-bf16shade-opt-r1": (2, 114, 0, 272),
+    "SH4-bf16-bf16shade-opt-r1": (2, 117, 0, 272),
+    "SH9-int8-bf16shade-opt-r1": (2, 115, 0, 400),
+    "SH9-bf16-bf16shade-opt-r1": (2, 120, 0, 384),
+    "SH16-int8-bf16shade-opt-r1": (2, 108, 0, 560),
+    "SH16-bf16-bf16shade-opt-r1": (2, 96, 0, 560),
+    "SH25-int8-bf16shade-opt-r1": (2, 107, 0, 784),
+    "SH25-bf16-bf16shade-opt-r1": (2, 114, 0, 768),
+    "SH1-int8-bf16shade-r1": (2, 118, 0, 176),
+    "SH1-int8-bf16shade-r2": (2, 122, 0, 176),
+    "SH1-bf16-bf16shade-r1": (2, 124, 0, 160),
+    "SH1-bf16-bf16shade-r2": (2, 128, 0, 160),
+    "SH4-int8-bf16shade-r1": (2, 123, 0, 240),
+    "SH4-int8-bf16shade-r2": (2, 126, 0, 240),
+    "SH4-bf16-bf16shade-r1": (2, 128, 0, 240),
+    "SH4-bf16-bf16shade-r2": (2, 127, 0, 240),
+    "SH9-int8-bf16shade-r1": (2, 119, 0, 368),
+    "SH9-int8-bf16shade-r2": (2, 117, 0, 368),
+    "SH9-bf16-bf16shade-r1": (2, 127, 0, 352),
+    "SH9-bf16-bf16shade-r2": (2, 127, 0, 352),
+    "SH16-int8-bf16shade-r1": (2, 110, 0, 528),
+    "SH16-int8-bf16shade-r2": (2, 117, 0, 528),
+    "SH16-bf16-bf16shade-r1": (2, 120, 0, 528),
+    "SH16-bf16-bf16shade-r2": (2, 123, 0, 528),
+    "SH25-int8-bf16shade-r1": (2, 116, 0, 752),
+    "SH25-int8-bf16shade-r2": (2, 125, 0, 752),
+    "SH25-bf16-bf16shade-r1": (2, 116, 0, 736),
+    "SH25-bf16-bf16shade-r2": (2, 124, 0, 736),
     "SG-int8-opt-r1": (2, 117, 0, 880),
     "SG-int8-opt-r2": (2, 124, 0, 880),
     "SG-bf16-opt-r1": (2, 124, 0, 880),
@@ -1897,11 +1922,11 @@ def test_warp_display_default_launch_info(card):
 
 
 def test_default_display_instantiations_keep_their_launch(card):
-    """Kernel M's 52 display instantiations keep the blocks per SM,
+    """Kernel M's 72 display instantiations keep the blocks per SM,
     registers, spills and static shared memory of DEFAULT_DISPLAY_INFO."""
     from volrend_torch.probes import display_info
     from volrend_torch import kernels
-    assert len(DEFAULT_DISPLAY_INFO) == 52
+    assert len(DEFAULT_DISPLAY_INFO) == 72
     lib = kernels.lib("slab_march_display")
     rows = {v[0]: v[1:] for v in display_info.M_VARIANTS}
     for key, want in DEFAULT_DISPLAY_INFO.items():
@@ -1913,9 +1938,10 @@ def test_default_display_instantiations_keep_their_launch(card):
         assert list(out) == list(want), (key, list(out))
 
 
-#: the bf16-shading variant against its plain version: the kernel's basis
-#: planes (f32, then rounded to bf16) differ from the plain version's in
-#: the last f32 bit, which can flip a bf16 rounding of a plane or a sum
+#: the bf16-shading variants against their plain version: the kernel's
+#: view directions (f32, then rounded to bf16) differ from the plain
+#: version's in the last f32 bit, which can flip a bf16 rounding of a
+#: direction, a basis plane or a sum
 TOL_BF16_SHADE = 5e-3
 
 
@@ -1948,6 +1974,76 @@ def test_display_bf16_shade_matches_plain(format_grids, dt, options):
     _, variant = _variant_vs_plain(format_grids[("SG", dt)], opt,
                                    shade_bf16=True)
     assert "bf16shade" not in variant, variant
+
+
+def _no_option_launch(g, case, rows, shade_bf16):
+    """SH without options, with or without bf16 shading, at ``rows`` pixel
+    rows a thread on the display case ``case``: (acc, plain version's)."""
+    pay, params, zb, ids, perm, flip, crop = case
+    m = slab_march.march_inputs(pay, params, zb, g.G, GI, ids, 4, crop)
+    cfg = dict(slab_march.display_config(
+        params.shape[0], GI, len(m["wins"]), pay.shape[1], 132,
+        esz=pay.element_size()), rows=rows)
+    acc = slab_march._display_launch(
+        pay, g.qscale, m["params"], m["zb"], m["wins"], m["masks"], g.G, GI,
+        g.basis_dim, m["K"], flip, m["y0"], m["x0"], cfg,
+        slab_march.MarchMode(bf16_shade=shade_bf16))
+    ref = slab_march.march_slabs_ref(pay, g.qscale, D=g.data_dim,
+                                     bd=g.basis_dim, flip=flip, dir_win=True,
+                                     bf16_shade=shade_bf16, **m)
+    torch.cuda.synchronize()
+    return acc, ref
+
+
+@pytest.mark.parametrize("crop", [None, (2, 28, 8, 24)])
+@pytest.mark.parametrize("rows", [1, 2])
+@pytest.mark.parametrize("dt", ["int8", "f16"])
+@pytest.mark.parametrize("shade_bf16", [False, True])
+def test_display_no_option_variants_match_plain(format_grids, shade_bf16, dt,
+                                                rows, crop):
+    """SH without options, with and without bf16 shading, on both payloads
+    at both tile heights (the f16 payload's staged by TMA boxes, past a
+    crop's edges too) on the steep fx = 80 pose (footprints in several
+    pieces), against the plain version (TOL_BF16_SHADE, TOL_M), named by
+    display_variant; each instantiation two blocks an SM, no spills, at
+    most 128 registers."""
+    from volrend_torch import kernels
+    g = format_grids[("SH", dt)]
+    case = _display_case(g, [(1.0, 0.25, 0.35), (1.0, 0.1, 0.45)], fx=80.0,
+                         crop=crop)
+    acc, ref = _no_option_launch(g, case, rows, shade_bf16)
+    _agree(acc, ref, TOL_BF16_SHADE if shade_bf16 else TOL_M)
+    want = f"SH-{'bf16' if dt == 'f16' else 'int8'}" + (
+        "-bf16shade" if shade_bf16 else "")
+    assert slab_march.march_slabs.display["variant"] == want
+    assert slab_march.march_slabs.display["opt"] == (2 if shade_bf16 else 0)
+    out = (ctypes.c_int * 4)()
+    kernels.check(kernels.lib("slab_march_display").vt_march_display_info(
+        g.basis_dim, rows, 1, int(dt == "f16"), 2 if shade_bf16 else 0,
+        slab_march._DISPLAY_SMEM, out), "slab_march_display")
+    assert out[0] == 2 and out[2] == 0 and out[1] <= 128, list(out)
+
+
+@pytest.mark.parametrize("dt", ["int8", "f16"])
+@pytest.mark.parametrize("shade_bf16", [False, True])
+def test_display_no_option_variants_batch_equals_single_poses(
+        format_grids, shade_bf16, dt):
+    """A batch of three poses against the same poses launched one at a
+    time, within 1e-6, with and without bf16 shading on both payloads."""
+    g = format_grids[("SH", dt)]
+    backs = [(1.0, 0.25, 0.35), (1.0, 0.1, 0.45), (1.0, 0.3, 0.2)]
+    pay, params, zb, ids, perm, flip, _ = _display_case(g, backs)
+
+    def run(prm, z):
+        return slab_march.march_slabs(
+            pay, prm, g.qscale, z, g.G, GI, g.data_dim, g.basis_dim, perm,
+            slab_ids=ids, sig2=g.quantized, flip=flip, bbox_full=True,
+            dir_win=True, shade_bf16=shade_bf16)
+
+    whole = run(params, zb)
+    for i in range(len(backs)):
+        one = run(params[i:i + 1], zb[i:i + 1])
+        assert float((one[0] - whole[i]).abs().max()) <= 1e-6
 
 
 def test_quant_leaves_fetch_rows_card_matches_cpu(card):

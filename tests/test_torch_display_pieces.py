@@ -53,18 +53,20 @@ def _footprints(params, slab_ids, G: int, gi: int, rows: int, crop):
     return out
 
 
-def _pieces(f, x0: int, Dp: int, stage_bytes: int, chan_cells: int):
+def _pieces(f, x0: int, Dp: int, stage_bytes: int, chan_cells: int,
+            ch: int = 16):
     """The kernel's pieces of one tile-slab footprint ``f`` = (y_lo, y_hi,
     x_lo, x_hi), in its order (its Walk): columns of up to 240 cells,
     staged from the 16-byte chunk of the payload row (cropped at ``x0``)
     that holds its first cell over the fewest whole chunks that hold it (BX
-    cells), rows as many as a stage and the shaded-cell buffer hold.
-    Returns [(py, px, rows, cols, BX)]."""
+    cells; ``ch`` cells a chunk: 16 int8, 8 bf16), rows as many as a stage
+    and the shaded-cell buffer hold (``Dp`` bytes a cell: the planes times
+    the element size). Returns [(py, px, rows, cols, BX)]."""
     y_lo, y_hi, x_lo, x_hi = f
     out = []
     for px in range(x_lo, x_hi + 1, 240):
         cols = min(240, x_hi - px + 1)
-        BX = -(-((px - x0) % 16 + cols) // 16) * 16
+        BX = -(-((px - x0) % ch + cols) // ch) * ch
         rp = min(stage_bytes // (Dp * BX), chan_cells // BX)
         for py in range(y_lo, y_hi + 1, rp):
             out.append((py, px, min(rp, y_hi - py + 1), cols, BX))
@@ -287,3 +289,79 @@ def test_lobe_launches_follow_the_tile_rule():
         cfg = slab_march.display_config(51, GI, 64, 3 * 16 + 2, 132,
                                         opt=not tall)
         assert cfg["rows"] == rows
+
+
+def test_bf16_shade_launches_follow_the_tile_rule():
+    """bf16 SH shading without another option is a variant of its own
+    (vt_march_display's opt 2, built at both tile heights): it takes the
+    tile rule's height (32x16 on a 51-pose group) and no option variant;
+    with rot, a bbox or a basis window, or resumed, it takes the option
+    variant (opt 3, 32x8). Both are named ``-bf16shade``."""
+    M = slab_march.MarchMode
+    rot = (0.0,) * 9
+    shade = M(bf16_shade=True)
+    assert shade.tall_tiles(16) and not shade.options(16)
+    assert M(bf16_shade=True, dir_slab=True).tall_tiles(16)
+    for other in (dict(rot=rot), dict(bbox_full=False), dict(basis_lo=1),
+                  dict(basis_hi=9)):
+        mode = M(bf16_shade=True, **other)
+        assert not mode.tall_tiles(16) and mode.options(16), other
+        assert slab_march._variant_args(mode, 16, "cpu")[2] == 3, other
+    codes = ((M(), False, 0), (shade, False, 2), (M(rot=rot), False, 1),
+             (shade, True, 3), (M(), True, 1), (M(depth=True), False, 5))
+    for mode, resume, code in codes:
+        assert slab_march._variant_args(mode, 16, "cpu", resume)[2] == code
+    for bf16 in (False, True):
+        name = f"SH-{'bf16' if bf16 else 'int8'}-bf16shade"
+        assert slab_march.display_variant(shade, 16, bf16) == name
+        assert slab_march.display_variant(M(bf16_shade=True, rot=rot), 16,
+                                          bf16) == name
+    for esz, Dp in ((1, 50), (2, 49)):
+        for tall, rows in ((True, 2), (False, 1)):
+            mode = shade if tall else M(bf16_shade=True, bbox_full=False)
+            cfg = slab_march.display_config(51, GI, 64, Dp, 132, esz=esz,
+                                            opt=not mode.tall_tiles(16))
+            assert cfg["rows"] == rows
+
+
+@pytest.mark.parametrize("kind", ["orbit", "steep", "cropped"])
+def test_bf16_pieces_cover_every_footprint(grid, kind):
+    """The f16 route's SH variants stage the bf16 payload by the same walk
+    (the consumer takes the producer's walk, so the pieces are the
+    producer's): 8-cell (16-byte) chunks, a stage sized for 98 bytes a cell
+    (SH16: 49 bf16 planes). At both tile heights each footprint's pieces
+    tile it exactly within the stage and the shaded-cell buffer; the steep
+    pose's footprints go in several pieces (the split the 32x16 stage
+    forces), and an orbit footprint mostly in one."""
+    params, ids, crop, _ = _pose(grid, kind)
+    Dp = 49
+    for rows in (1, 2):
+        cfg = slab_march.display_config(51 if rows == 2 else 1, GI, G // 4,
+                                        Dp, 132, esz=2)
+        (y_lo, y_hi), (x_lo, x_hi) = _footprints(params, ids, G, GI, rows,
+                                                 crop)
+        n_pieces = []
+        for si in range(0, len(ids), 5):
+            for ty in range(y_lo.shape[2]):
+                for tx in range(x_lo.shape[2]):
+                    f = (y_lo[0, si, ty], y_hi[0, si, ty], x_lo[0, si, tx],
+                         x_hi[0, si, tx])
+                    if f[0] > f[1] or f[2] > f[3]:
+                        continue
+                    cover = np.zeros((f[1] - f[0] + 1, f[3] - f[2] + 1), int)
+                    pcs = _pieces(f, crop[2], 2 * Dp, cfg["stage_bytes"],
+                                  cfg["chan_cells"], ch=8)
+                    for py, px, nr, nc, bx in pcs:
+                        xoff = (px - crop[2]) % 8
+                        assert bx % 8 == 0 and xoff + nc <= bx < xoff + nc + 8
+                        assert nr * 2 * Dp * bx <= cfg["stage_bytes"]
+                        assert nr * bx <= cfg["chan_cells"]
+                        cover[py - f[0]:py - f[0] + nr,
+                              px - f[2]:px - f[2] + nc] += 1
+                    assert np.all(cover == 1)
+                    n_pieces.append(len(pcs))
+        assert n_pieces
+        if kind == "steep":
+            assert max(n_pieces) > 1
+        else:
+            assert np.mean(np.asarray(n_pieces) == 1) > 0.5

@@ -304,3 +304,92 @@ def test_sq4_variants_through_tail():
     # b0 (the f16 quad-gather warp) agrees with the bf16-table variants to
     # their rounding
     assert float((outs["b0 ref quad"] - sq).abs().max()) < 1e-2
+
+
+# ---------------------------------------------------------------------------
+# probes/display_march: kernel M's display mode by part of its job loop
+# (the card runs it; here its host side)
+# ---------------------------------------------------------------------------
+
+def test_display_march_slots_follow_the_kernel_clock():
+    """The probe's parts are the display kernel's DPart enum in order, then
+    the loop's cycles and the jobs, slabs and windows (DM_SLOTS)."""
+    import re
+    from volrend_torch import kernels
+    from volrend_torch.probes import display_march
+    src = (kernels._CSRC / "slab_march_display.cu").read_text()
+    body = src[src.index("enum DPart {"):src.index("D_NPARTS")]
+    names = re.findall(r"^\s*(D_[A-Z]+),", body, re.M)
+    assert len(names) == len(display_march.PARTS) == 10
+    assert names[0] == "D_PRO" and names[-1] == "D_COMP"
+    assert "constexpr int DM_SLOTS = D_NPARTS + 4;" in src
+    assert display_march.SLOTS[len(names):] == ("loop", "jobs", "slabs",
+                                                "windows")
+
+
+def test_display_march_summarize():
+    """A launch's clock rows summed as the probe reports them: the parts
+    and the loop over the blocks, each part's share, the slowest block's
+    row, the jobs, slabs and windows summed, a block's mean and most, the
+    pieces a slab."""
+    from volrend_torch.probes import display_march
+    n = len(display_march.PARTS)
+    rows = np.zeros((3, len(display_march.SLOTS)), np.int64)
+    rows[:, :n] = np.arange(n) + 1
+    rows[1, 4] = 100                    # block 1 shades longest
+    rows[:, n] = rows[:, :n].sum(1)
+    rows[:, n + 1:] = [[4, 2, 1], [6, 3, 1], [5, 5, 2]]
+    out = display_march.summarize(rows)
+    assert out["blocks"] == 3
+    assert out["cycles"]["shade"] == 5 + 100 + 5
+    assert out["cycles"]["prologue"] == 3
+    assert out["loop_sum"] == int(rows[:, n].sum())
+    assert out["loop_max"] == int(rows[1, n])
+    assert out["slowest"]["shade"] == 100 and out["slowest"]["jobs"] == 6
+    assert out["jobs"] == {"sum": 15, "mean": 5.0, "max": 6}
+    assert out["slabs"]["sum"] == 10 and out["windows"]["max"] == 2
+    assert out["pieces_a_slab"] == 1.5
+    assert abs(sum(out["share"].values()) - 1.0) < 1e-3
+
+
+def test_display_march_builds_apart_and_reports_failures(monkeypatch,
+                                                         tmp_path):
+    """The probe build is one nvcc of the display source with the port's
+    flags and -DVT_DM_CYCLES, into the build directory's display_march/,
+    apart from the port's libraries; a failed build raises with its
+    log."""
+    import subprocess
+    from volrend_torch import kernels
+    from volrend_torch.probes import display_march
+    cmds = []
+
+    class Proc:
+        returncode = 1
+
+        def __init__(self, cmd, **kw):
+            cmds.append(cmd)
+
+        def communicate(self):
+            return "ptxas: no card here", None
+
+    monkeypatch.setattr(kernels, "build_dir", lambda: tmp_path)
+    monkeypatch.setattr(kernels, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(subprocess, "Popen", Proc)
+    with pytest.raises(RuntimeError, match="no card here"):
+        display_march.build()
+    (cmd,) = cmds
+    assert cmd[0] == "nvcc" and "-DVT_DM_CYCLES" in cmd
+    assert all(f in cmd for f in kernels._NVCC_FLAGS)
+    out = cmd[cmd.index("-o") + 1]
+    assert out.startswith(str(tmp_path / "display_march"))
+    assert cmd[-1].endswith("slab_march_display.cu")
+
+
+def test_display_march_refuses_to_run_without_a_card(monkeypatch):
+    """The probe measures on the card only: without one it raises before
+    building or timing anything."""
+    from volrend_torch.probes import display_march
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr("sys.argv", ["display_march"])
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        display_march.main()

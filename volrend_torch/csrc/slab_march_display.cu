@@ -95,15 +95,35 @@
 //   (dir_win=False) need nothing of the kernel: each voxel's basis is
 //   evaluated at the window centre's distance, so a launch with one-slab
 //   windows (K = 1, slab_march.march_slabs) takes each slab's own; bf16 SH
-//   shading is an option variant of its own,
-//   Var<bf16, F_SH, true, true> at 32x8 on both payloads (degrees 0-4):
-//   each cell pair's basis planes times their scale are rounded to a bf16
-//   pair (__floats2bfloat162_rn) and each colour's sum over the planes is
-//   one __hfma2 a plane (fused, rounded to bf16), the codes exact in bf16;
-//   the sigmoid stays f32. It halves the multiply-adds but takes the 32x8
-//   tile of the option variants and packs the pairs: on an orbit group
-//   it runs slower than the default (PERF.md), as the reference's knob,
-//   off by default, is a TPU lane-packing trick.
+//   shading is a variant of its own, Var<bf16, F_SH, false, true> without
+//   another option at both tile heights (the tile rule's) and
+//   Var<bf16, F_SH, true, true> with rot, bbox or a basis window at 32x8,
+//   on both payloads (degrees 0-4). A shading unit takes its two cells'
+//   f32 view directions to bf16 pairs and evaluates the SH polynomials in
+//   packed bf16x2 arithmetic (sh_basis2: __hmul2 / __hfma2, the constants
+//   rounded to bf16), as the reference evaluates them in bf16
+//   (pallas_slab.py:393-397), scales each plane by its bf16 scale (one
+//   __hmul2), and sums each colour over the planes with one __hfma2 a
+//   plane, the codes exact in bf16; the sigmoid stays f32. A first version
+//   (an option variant, 32x8 tiles only, the basis in f32 and each scaled
+//   plane rounded into a pair) ran 26 % slower than the f32 default on an
+//   orbit group, mostly for its tile height (PERF.md).
+// - The f16 route's SH variants (Var<true, F_SH, false> and bf16 shading
+//   without options on either payload) take each job's walk once: the
+//   consumer's next job is the piece the producer has just issued, where
+//   the defaults walk every job twice. Thread 0's clock on the f16 orbit
+//   group (probes/display_march.py, PERF.md) had the copy issue at 28 % of
+//   the loop, stalled behind the burst of copies all warps make at once
+//   (twice the bytes and copies a cell of the int8 payload, 1.40 pieces a
+//   slab against 1.12), shading at 39 % and the walk at 10 %. Tried and
+//   not kept (PERF.md): one TMA box a job waited 80 % of the loop for its
+//   rows of 80 bytes across 49 planes and, its shape fixed by its tensor
+//   map, took 1.82 pieces a slab: 2.8x slower; a box must start on a
+//   16-byte chunk (one that starts inside a chunk faults with an illegal
+//   instruction, probes/tma_box.py --box3: the fault of the first TMA
+//   version). The next piece's copies issued in parts between the tap sums
+//   ran 2-3 % slower than in one burst. Several slabs a job do not fit: a
+//   32x16 tile's footprint is ~760 cells, the bf16 stage ~990.
 // - SG and ASG shading streams the lobes: one instantiation a format,
 //   payload and tile height takes any count of 1 to 25 lobes at run time.
 //   A block folds each lobe's constants once, as it loads them into shared
@@ -186,11 +206,162 @@ __device__ __forceinline__ float fast_sigmoid(float x) {
   return __fdividef(1.f, 1.f + __expf(-x));
 }
 
+// A probe build's clock (VT_DM_CYCLES, volrend_torch/probes/display_march.py):
+// thread 0's clock cycles by part of the job loop, then the whole loop's,
+// the jobs (slab pieces) and slabs it walked and the windows it entered,
+// one row a block in dm_cycles (blocks past DM_BLOCKS are not kept);
+// vt_display_cycles reads and clears the rows. Other builds' clock is
+// empty and adds no instruction.
+enum DPart {
+  D_PRO,       // the block's set-up: params, live windows, the first copy
+  D_WALK,      // Walk::next: the next job and its footprint
+  D_ISSUE,     // issuing the next job's copies
+  D_WAIT,      // waiting for them
+  D_SHADE,     // shading the staged cells
+  D_BWIN,      // the two __syncthreads_or of a new window
+  D_BSHADE,    // the barrier after shading (the stage is consumed)
+  D_BEND,      // the barrier at a job's end (s_chan has been read)
+  D_TAPS,      // the pixels' tap sums
+  D_COMP,      // the composite after a slab's last piece
+  D_NPARTS
+};
+constexpr int DM_SLOTS = D_NPARTS + 4;  // + loop, jobs, slabs, windows
+#ifdef VT_DM_CYCLES
+constexpr int DM_BLOCKS = 1 << 16;
+__device__ unsigned long long dm_cycles[DM_BLOCKS][DM_SLOTS];
+struct DClock {
+  long long n[DM_SLOTS], t, t0;
+  __device__ DClock() {
+    for (int i = 0; i < DM_SLOTS; ++i) n[i] = 0;
+    t0 = t = clock64();
+  }
+  __device__ void lap(DPart p) {
+    const long long u = clock64();
+    n[p] += u - t;
+    t = u;
+  }
+  __device__ void count(int slot) { ++n[D_NPARTS + 1 + slot]; }
+  __device__ void store(int tid, int bid) {
+    if (tid != 0 || bid >= DM_BLOCKS) return;
+    n[D_NPARTS] = clock64() - t0;
+    for (int i = 0; i < DM_SLOTS; ++i)
+      dm_cycles[bid][i] = (unsigned long long)n[i];
+  }
+};
+#else
+struct DClock {
+  __device__ void lap(DPart) {}
+  __device__ void count(int) {}
+  __device__ void store(int, int) {}
+};
+#endif
+// DClock::count slots
+constexpr int DM_JOB = 0, DM_SLAB = 1, DM_WIN = 2;
+
 struct ShadeCtx {
   float invG, cy, cx, sc, ssign, thr;
   const float* prm;
   const float* qs;
 };
+
+// bf16 shading's context: each staged plane's scale as a bf16 pair too.
+struct ShadeCtxB : ShadeCtx {
+  const __nv_bfloat162* qsb;
+};
+
+// The bf16 bits nearest a normal f32 v (ties to even), at compile time:
+// the packed SH basis's constants.
+__host__ __device__ constexpr unsigned short bf16_bits(float v) {
+  const unsigned short s = v < 0.f ? 0x8000 : 0;
+  float a = v < 0.f ? -v : v;
+  if (a == 0.f) return s;
+  int e = 0;
+  while (a >= 2.f) {
+    a *= 0.5f;
+    ++e;
+  }
+  while (a < 1.f) {
+    a *= 2.f;
+    --e;
+  }
+  const float m = a * 128.f;  // [128, 256): 7 fraction bits kept
+  int q = (int)m;
+  const float r = m - (float)q;
+  if (r > 0.5f || (r == 0.5f && (q & 1))) ++q;
+  if (q == 256) {
+    q = 128;
+    ++e;
+  }
+  return (unsigned short)(s | ((e + 127) << 7) | (q - 128));
+}
+
+// a bf16 pair of two equal halves of the bits b
+__device__ __forceinline__ __nv_bfloat162 bpair(unsigned short b) {
+  const uint32_t u = (uint32_t)b * 0x10001u;
+  return *reinterpret_cast<const __nv_bfloat162*>(&u);
+}
+
+// The SH basis of degree BD at a pair of unit directions (x, y, z: bf16
+// pairs), in packed bf16 arithmetic, each operation rounded to bf16 (ties
+// to even), the constants rounded to bf16 first; the reference's planes
+// (pallas_slab._sh_planes) with their shared products taken once.
+// volrend_torch/ops/slab_march.py's _sh_basis_bf16 is its plain version,
+// operation for operation.
+template <int BD>
+__device__ __forceinline__ void sh_basis2(__nv_bfloat162 x, __nv_bfloat162 y,
+                                          __nv_bfloat162 z,
+                                          __nv_bfloat162* bk) {
+#define VT_K(v) \
+  bpair(std::integral_constant<unsigned short, bf16_bits(v)>::value)
+  bk[0] = VT_K(C0);
+  if constexpr (BD >= 4) {
+    bk[1] = __hmul2(VT_K(-C1), y);
+    bk[2] = __hmul2(VT_K(C1), z);
+    bk[3] = __hmul2(VT_K(-C1), x);
+  }
+  if constexpr (BD >= 9) {
+    const __nv_bfloat162 xx = __hmul2(x, x), yy = __hmul2(y, y),
+                         zz = __hmul2(z, z);
+    const __nv_bfloat162 xy = __hmul2(x, y), yz = __hmul2(y, z),
+                         xz = __hmul2(x, z);
+    const __nv_bfloat162 s = __hadd2(xx, yy), d = __hsub2(xx, yy);
+    bk[4] = __hmul2(VT_K(C2_0), xy);
+    bk[5] = __hmul2(VT_K(C2_1), yz);
+    bk[6] = __hmul2(VT_K(C2_2), __hfma2(VT_K(2.f), zz, __hneg2(s)));
+    bk[7] = __hmul2(VT_K(C2_3), xz);
+    bk[8] = __hmul2(VT_K(C2_4), d);
+    if constexpr (BD >= 16) {
+      const __nv_bfloat162 t4 = __hfma2(VT_K(4.f), zz, __hneg2(s));
+      const __nv_bfloat162 u3 = __hfma2(VT_K(3.f), xx, __hneg2(yy));
+      const __nv_bfloat162 v3 = __hfma2(VT_K(-3.f), yy, xx);
+      bk[9] = __hmul2(__hmul2(VT_K(C3_0), y), u3);
+      bk[10] = __hmul2(__hmul2(VT_K(C3_1), xy), z);
+      bk[11] = __hmul2(__hmul2(VT_K(C3_2), y), t4);
+      bk[12] = __hmul2(__hmul2(VT_K(C3_3), z),
+                       __hfma2(VT_K(-3.f), s, __hadd2(zz, zz)));
+      bk[13] = __hmul2(__hmul2(VT_K(C3_4), x), t4);
+      bk[14] = __hmul2(__hmul2(VT_K(C3_5), z), d);
+      bk[15] = __hmul2(__hmul2(VT_K(C3_6), x), v3);
+      if constexpr (BD >= 25) {
+        const __nv_bfloat162 z71 = __hfma2(VT_K(7.f), zz, VT_K(-1.f));
+        const __nv_bfloat162 z73 = __hfma2(VT_K(7.f), zz, VT_K(-3.f));
+        bk[16] = __hmul2(__hmul2(VT_K(C4_0), xy), d);
+        bk[17] = __hmul2(__hmul2(VT_K(C4_1), yz), u3);
+        bk[18] = __hmul2(__hmul2(VT_K(C4_2), xy), z71);
+        bk[19] = __hmul2(__hmul2(VT_K(C4_3), yz), z73);
+        bk[20] = __hmul2(VT_K(C4_4),
+                         __hfma2(zz, __hfma2(VT_K(35.f), zz, VT_K(-30.f)),
+                                 VT_K(3.f)));
+        bk[21] = __hmul2(__hmul2(VT_K(C4_5), xz), z73);
+        bk[22] = __hmul2(__hmul2(VT_K(C4_6), d), z71);
+        bk[23] = __hmul2(__hmul2(VT_K(C4_7), xz), v3);
+        bk[24] = __hmul2(VT_K(C4_8),
+                         __hfma2(xx, v3, __hneg2(__hmul2(yy, u3))));
+      }
+    }
+  }
+#undef VT_K
+}
 
 // What a block's walk shares: its windows, the slab geometry and its
 // tile's corner rays.
@@ -220,6 +391,9 @@ struct Var {
   static constexpr bool LOBES = FM == F_SG || FM == F_ASG;
   // float4 a lobe of the folded lobe table (fold_lobe)
   static constexpr int LW = FM == F_ASG ? 3 : 1;
+  // the SH variants without options but the int8 default (the f16
+  // route's and bf16 shading's) take each job's walk once
+  static constexpr bool WALK1 = FM == F_SH && !O && (BF || BS);
 };
 
 // a launch's arguments: the payload, geometry and stage, and the run-time
@@ -390,9 +564,9 @@ __device__ __forceinline__ float lobe_at(const float4* L, const LobeDir& d) {
 // sigma*r, sigma*g, sigma*b] (the depth variant: sigma, its stage the
 // sigma planes alone, D = 1); zero under the sigma threshold. ``gy``/
 // ``gx``: the first cell's global indices.
-template <int BD, class V, class Cell>
+template <int BD, class V, class Cell, class Ctx>
 __device__ __forceinline__ void shade_pair(const uint8_t* wp, int plane,
-                                           int i, const ShadeCtx& c,
+                                           int i, const Ctx& c,
                                            const OptCtx& o, int D, int gy,
                                            int gx, Cell* out) {
   const float qsig = c.qs[D - 1];
@@ -471,6 +645,42 @@ __device__ __forceinline__ void shade_pair(const uint8_t* wp, int plane,
         if (okb)
           ob = make_float4(sb, sb * fast_sigmoid(rb0), sb * fast_sigmoid(rb1),
                            sb * fast_sigmoid(rb2));
+      } else if constexpr (V::BSH) {
+        // bf16 SH shading: the pair's directions as bf16 pairs, the basis
+        // in packed bf16 (sh_basis2), each plane times its bf16 scale one
+        // __hmul2, then one fused bf16 multiply-add a colour and plane
+        const float ycm = ((float)gy + 0.5f) * c.invG - c.cy;
+        float xa, ya, za, xb, yb, zb;
+        voxel_dir<V>(c, o, ycm, ((float)gx + 0.5f) * c.invG - c.cx, xa, ya,
+                     za);
+        voxel_dir<V>(c, o, ycm, ((float)(gx + 1) + 0.5f) * c.invG - c.cx, xb,
+                     yb, zb);
+        __nv_bfloat162 bk[BD];
+        sh_basis2<BD>(__floats2bfloat162_rn(xa, xb),
+                      __floats2bfloat162_rn(ya, yb),
+                      __floats2bfloat162_rn(za, zb), bk);
+        __nv_bfloat162 r0 = bpair(0), r1 = r0, r2 = r0;
+#pragma unroll
+        for (int kk = 0; kk < BD; ++kk) {
+          if constexpr (V::OPT) {
+            // the basis window: skip the plane's multiply-adds
+            if (kk < o.blo || kk > o.bhi) continue;
+          }
+          const __nv_bfloat162 q = __hmul2(bk[kk], c.qsb[kk]);
+          r0 = __hfma2(cell_pair16<V::BF16>(wp + kk * plane, i), q, r0);
+          r1 = __hfma2(cell_pair16<V::BF16>(wp + (BD + kk) * plane, i), q,
+                       r1);
+          r2 = __hfma2(cell_pair16<V::BF16>(wp + (2 * BD + kk) * plane, i),
+                       q, r2);
+        }
+        if (oka)
+          oa = make_float4(sa, sa * fast_sigmoid(__low2float(r0)),
+                           sa * fast_sigmoid(__low2float(r1)),
+                           sa * fast_sigmoid(__low2float(r2)));
+        if (okb)
+          ob = make_float4(sb, sb * fast_sigmoid(__high2float(r0)),
+                           sb * fast_sigmoid(__high2float(r1)),
+                           sb * fast_sigmoid(__high2float(r2)));
       } else {
         const int nb = BD;
         const float ycm = ((float)gy + 0.5f) * c.invG - c.cy;
@@ -481,48 +691,24 @@ __device__ __forceinline__ void shade_pair(const uint8_t* wp, int plane,
                            ((float)(gx + 1) + 0.5f) * c.invG - c.cx, bkb);
         float ra0 = 0.f, ra1 = 0.f, ra2 = 0.f, rb0 = 0.f, rb1 = 0.f,
               rb2 = 0.f;
-        if constexpr (V::BSH) {
-          // bf16 SH shading: the pair's scaled basis planes as a bf16 pair,
-          // one fused bf16 multiply-add a colour and plane
-          __nv_bfloat162 r0 = __float2bfloat162_rn(0.f), r1 = r0, r2 = r0;
 #pragma unroll
-          for (int kk = 0; kk < BD; ++kk) {
-            if (kk < o.blo || kk > o.bhi) continue;
-            const float q = c.qs[kk];
-            const __nv_bfloat162 qab =
-                __floats2bfloat162_rn(bka[kk] * q, bkb[kk] * q);
-            r0 = __hfma2(cell_pair16<V::BF16>(wp + kk * plane, i), qab, r0);
-            r1 = __hfma2(cell_pair16<V::BF16>(wp + (nb + kk) * plane, i), qab,
-                         r1);
-            r2 = __hfma2(cell_pair16<V::BF16>(wp + (2 * nb + kk) * plane, i),
-                         qab, r2);
+        for (int kk = 0; kk < BD; ++kk) {
+          if constexpr (V::OPT) {
+            // the basis window and the lobe count: skip the plane's MACs
+            if (kk < o.blo || kk > o.bhi || kk >= nb) continue;
           }
-          ra0 = __low2float(r0);
-          rb0 = __high2float(r0);
-          ra1 = __low2float(r1);
-          rb1 = __high2float(r1);
-          ra2 = __low2float(r2);
-          rb2 = __high2float(r2);
-        } else {
-#pragma unroll
-          for (int kk = 0; kk < BD; ++kk) {
-            if constexpr (V::OPT) {
-              // the basis window and the lobe count: skip the plane's MACs
-              if (kk < o.blo || kk > o.bhi || kk >= nb) continue;
-            }
-            const float q = c.qs[kk];
-            const float qa = bka[kk] * q, qb = bkb[kk] * q;
-            const float2 c0 = cell_pair<V::BF16>(wp + kk * plane, i);
-            const float2 c1 = cell_pair<V::BF16>(wp + (nb + kk) * plane, i);
-            const float2 c2 =
-                cell_pair<V::BF16>(wp + (2 * nb + kk) * plane, i);
-            ra0 += c0.x * qa;
-            ra1 += c1.x * qa;
-            ra2 += c2.x * qa;
-            rb0 += c0.y * qb;
-            rb1 += c1.y * qb;
-            rb2 += c2.y * qb;
-          }
+          const float q = c.qs[kk];
+          const float qa = bka[kk] * q, qb = bkb[kk] * q;
+          const float2 c0 = cell_pair<V::BF16>(wp + kk * plane, i);
+          const float2 c1 = cell_pair<V::BF16>(wp + (nb + kk) * plane, i);
+          const float2 c2 =
+              cell_pair<V::BF16>(wp + (2 * nb + kk) * plane, i);
+          ra0 += c0.x * qa;
+          ra1 += c1.x * qa;
+          ra2 += c2.x * qa;
+          rb0 += c0.y * qb;
+          rb1 += c1.y * qb;
+          rb2 += c2.y * qb;
         }
         if (oka)
           oa = make_float4(sa, sa * fast_sigmoid(ra0), sa * fast_sigmoid(ra1),
@@ -642,6 +828,13 @@ __device__ __forceinline__ void copy_piece(const int8_t* payload,
   }
 }
 
+// bf16 shading: each staged plane's scale as a bf16 pair
+template <int N>
+__device__ __forceinline__ __nv_bfloat162* qsb_smem() {
+  __shared__ __nv_bfloat162 s[N];
+  return s;
+}
+
 // The lobe table's shared memory: LW float4 a lobe, MAX_LOBES of them.
 template <int LW>
 __device__ __forceinline__ float4* lobe_smem() {
@@ -676,6 +869,7 @@ __global__ void __launch_bounds__(DNT, 2)
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int bid = (int)blockIdx.x;
+  DClock clk;  // a probe build's (VT_DM_CYCLES); empty otherwise
   const int p = bid % a.P, tile = bid / a.P;  // pose fastest
   const int j0 = (tile / a.ntx) * TY, k0 = (tile % a.ntx) * DTX;
   const int G = a.G, gi = a.gi;
@@ -716,6 +910,13 @@ __global__ void __launch_bounds__(DNT, 2)
     o.khi = min(args.bhi, args.nb - 1);
   }
   if constexpr (V::OPT) o.bbox = args.bbox;
+  const __nv_bfloat162* qsb = nullptr;  // bf16 shading's scales
+  if constexpr (V::BSH) {
+    __nv_bfloat162* s_qsb = qsb_smem<DPMAX>();
+    for (int i = tid; i < DP; i += DNT)
+      s_qsb[i] = __float2bfloat162_rn(a.qscale[i]);
+    qsb = s_qsb;
+  }
   __syncthreads();
 
   const float Gf = (float)G;
@@ -835,19 +1036,22 @@ __global__ void __launch_bounds__(DNT, 2)
     cp_async_wait();
     __syncthreads();
   }
+  clk.lap(D_PRO);
 
-  ShadeCtx sh;
+  std::conditional_t<V::BSH, ShadeCtxB, ShadeCtx> sh;
   sh.invG = 1.f / Gf;
   sh.cy = cy;
   sh.cx = cx;
   sh.thr = sigma_thresh;
   sh.prm = s_prm;
   sh.qs = s_qs;
+  if constexpr (V::BSH) sh.qsb = qsb;
   sh.sc = 0.f;
   sh.ssign = 0.f;
 
   int cur_wi = -1;
   bool work = false;
+  WalkV nxt = cw;  // WALK1: the next job, as the producer walked it
   while (has) {
     if (cw.wi != cur_wi) {
       // a new window: leave when no pixel can still accumulate; skip the
@@ -870,6 +1074,8 @@ __global__ void __launch_bounds__(DNT, 2)
       // view directions once per window, at the window centre
       sh.sc = ((float)(w * K) + 0.5f * (float)K) / Gf + zbase - cz;
       sh.ssign = sign_of(sh.sc);
+      clk.lap(D_BWIN);
+      clk.count(DM_WIN);
     }
     const int FY = cw.rows(wg), FX = cw.cols(), BX = cw.BX(wg);
     // the piece's cells are row cells [xoff, xoff + FX) of the stage, from
@@ -915,6 +1121,7 @@ __global__ void __launch_bounds__(DNT, 2)
         }
       }
       __syncthreads();
+      clk.lap(D_ISSUE);
     }
 
     if (work) {
@@ -934,7 +1141,10 @@ __global__ void __launch_bounds__(DNT, 2)
         }
       }
     }
+    clk.lap(D_SHADE);
     __syncthreads();  // the stage is consumed, s_chan is complete
+    clk.lap(D_BSHADE);
+    bool issued = false;  // WALK1: the producer staged the next job
     if (a.async) {
       if (p_has) {
         if constexpr (V::DEPTH)
@@ -943,9 +1153,17 @@ __global__ void __launch_bounds__(DNT, 2)
         else
           copy_piece<V::ESZ>(a.payload, pw, wg, st, tid, a.Gy, a.Gx, a.y0,
                              DP);
+        clk.lap(D_ISSUE);
+        if constexpr (V::WALK1) {
+          // the producer's piece is the consumer's next job
+          nxt = pw;
+          issued = true;
+        }
         p_has = pw.next(wg);
+        clk.lap(D_WALK);
       }
       cp_async_commit();
+      clk.lap(D_ISSUE);
     }
     if (work) {
       const float z = cw.z;
@@ -986,6 +1204,7 @@ __global__ void __launch_bounds__(DNT, 2)
           }
         }
         w4[rr] = acc;
+        clk.lap(D_TAPS);
         if (last) {
           // boundary slabs contribute by their overlap with [zlo, zhi]
           const float frac = fminf(
@@ -1012,11 +1231,26 @@ __global__ void __launch_bounds__(DNT, 2)
             }
           }
         }
+        clk.lap(D_COMP);
       }
     }
-    has = cw.next(wg);
+    clk.count(DM_JOB);
+    if (cw.first_piece()) clk.count(DM_SLAB);
+    if constexpr (V::WALK1) {
+      if (a.async) {
+        cw = nxt;
+        has = issued;
+      } else {
+        has = cw.next(wg);
+      }
+    } else {
+      has = cw.next(wg);
+    }
+    clk.lap(D_WALK);
     if (a.async) cp_async_wait();  // the next job's copies
+    clk.lap(D_WAIT);
     __syncthreads();  // ... are in for all threads; s_chan has been read
+    clk.lap(D_BEND);
   }
   // a block that leaves early waits for the copies it still has in flight
   if (a.async) asm volatile("cp.async.wait_all;" ::: "memory");
@@ -1031,14 +1265,16 @@ __global__ void __launch_bounds__(DNT, 2)
     out[2 * npx] = b[rr];
     out[3 * npx] = T[rr];
   }
+  clk.store(tid, bid);
 }
 
 using KernFn = void (*)(const LaunchArgs);
 
-// The instantiations: SH (degrees 0-4) without options on both payloads
-// at both tile heights; SH with options, SH with bf16 shading (which takes
-// the options too), RGBA and depth, on both payloads, at 32x8; SG and ASG
-// (1 to 25 lobes at run time) on both payloads at both tile heights.
+// The instantiations: SH (degrees 0-4) without options, and with bf16
+// shading and no other option, on both payloads at both tile heights; SH
+// with options, SH with bf16 shading and options, RGBA and depth, on both
+// payloads, at 32x8; SG and ASG (1 to 25 lobes at run time) on both
+// payloads at both tile heights.
 template <int BD, class V>
 KernFn pick_rows(int rows) {
   if (rows == 1) return display_kernel<BD, 1, V>;
@@ -1081,10 +1317,16 @@ KernFn pick_lobes(int nb, int rows) {
   return nullptr;
 }
 
-// opt: 0 the defaults, 1 the option variants, 3 SH's bf16 shading, 5 the
-// depth variant (any format)
+// opt: 0 the defaults, 1 the option variants, 2 SH's bf16 shading without
+// another option, 3 with options, 5 the depth variant (any format)
 template <bool BF>
 KernFn pick_payload(int bd, int rows, int fmt, int opt) {
+  if (opt == 2) {
+    if constexpr (RS_SET) return nullptr;
+    else
+      return fmt == F_SH ? pick_sh<Var<BF, F_SH, false, true>>(bd, rows)
+                         : nullptr;
+  }
   if (opt == 5)
     return rows == 1 ? display_kernel<1, 1, Var<BF, F_DEPTH, true, false,
                                                  RS_SET>>
@@ -1123,15 +1365,15 @@ const void* pick_any(int bd, int rows, int fmt, int bf16, int opt) {
 // set again only when a kernel's size changes (one host call saved a
 // launch, which counts for one-pose launches).
 cudaError_t allow_smem(const void* fn, int smem) {
-  static const void* fns[64];
-  static int sizes[64];
+  static const void* fns[128];
+  static int sizes[128];
   static int n = 0;
   int i = 0;
   while (i < n && fns[i] != fn) ++i;
   if (i < n && sizes[i] == smem) return cudaSuccess;
   const cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e == cudaSuccess && i < 64) {
+  if (e == cudaSuccess && i < 128) {
     fns[i] = fn;
     sizes[i] = smem;
     if (i == n) ++n;
@@ -1163,7 +1405,8 @@ int display_smem(int stage_bytes, int chan_cells, int n_win, bool depth) {
 // payload, Dp = D; else int8, Dp = D + 1) and opt (1: the option variant,
 // which every format but SH needs, and SH with rot (9 floats on the host),
 // bbox (params 16-19), a basis window [basis_lo, basis_hi] that drops planes;
-// 3: SH's bf16-shading variant, which takes the same options; 5, with
+// 2: SH's bf16-shading variant without options, 3: with the same options;
+// 5, with
 // ``depth`` set and only then: the depth variant of any format, which takes
 // the bbox). Returns cudaGetLastError() after the launch.
 extern "C" int vt_march_display(const void* payload, const void* params,
@@ -1184,7 +1427,7 @@ extern "C" int vt_march_display(const void* payload, const void* params,
       gi < 1 || K < 1 || n_win < 1 || Dp > 256 || stage_bytes % 16 ||
       stage_bytes < (dvar ? sigp : Dp) * 256 * esz || chan_cells < 256 ||
       dvar != (depth != 0) ||
-      (!opt && (fmt != F_SH || rot_on || bbox || cuts)) ||
+      ((opt == 0 || opt == 2) && (fmt != F_SH || rot_on || bbox || cuts)) ||
       (rot_on && !rot) || (fmt >= F_SG && (!extra || bd > MAX_LOBES)))
     return (int)cudaErrorInvalidValue;
   // cp.async moves whole 16-byte chunks of 16-byte aligned rows
@@ -1261,3 +1504,19 @@ extern "C" int vt_march_display_info(int bd, int rows, int fmt, int bf16,
 extern "C" const char* vt_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
+
+#ifdef VT_DM_CYCLES
+// A probe build's clock (DClock): copy the rows of blocks [0, n) to
+// ``out`` (host, n x (D_NPARTS + 4) counters: the parts, the loop's
+// cycles, jobs, slabs, windows) and clear them. Returns a CUDA error code.
+extern "C" int vt_display_cycles(unsigned long long* out, int n) {
+  if (n < 0 || n > DM_BLOCKS) return (int)cudaErrorInvalidValue;
+  const size_t bytes = (size_t)n * DM_SLOTS * sizeof(unsigned long long);
+  cudaError_t e = cudaMemcpyFromSymbol(out, dm_cycles, bytes);
+  if (e != cudaSuccess) return (int)e;
+  void* dst = nullptr;
+  e = cudaGetSymbolAddress(&dst, dm_cycles);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaMemset(dst, 0, bytes);
+}
+#endif

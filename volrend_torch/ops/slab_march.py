@@ -268,16 +268,18 @@ class MarchMode(NamedTuple):
 
     def options(self, bd: int) -> bool:
         """Does this mode take the kernels' option variant (every format
-        but SH, and SH with any option that changes the march)?"""
+        but SH, and SH with any option that changes the march)? bf16
+        shading alone does not: it has a variant of its own without
+        options."""
         return (self.fmt != int(BasisType.SH) or self.depth
                 or self.rot is not None or not self.bbox_full
-                or self.basis_lo > 0 or self.basis_hi < bd - 1
-                or self.bf16_shade)
+                or self.basis_lo > 0 or self.basis_hi < bd - 1)
 
     def tall_tiles(self, bd: int) -> bool:
         """May the display mode's tile rule give this mode 32x16 tiles
-        (``display_config``)? SH without options and SG or ASG without
-        another option: their variants are built at both tile heights."""
+        (``display_config``)? SH without options, with or without bf16
+        shading, and SG or ASG without another option: their variants are
+        built at both tile heights."""
         lobes = self.fmt in (int(BasisType.SG), int(BasisType.ASG))
         return not (self._replace(fmt=int(BasisType.SH)) if lobes
                     else self).options(bd)
@@ -287,9 +289,9 @@ def display_variant(mode: MarchMode, bd: int, bf16: bool,
                     resume: bool = False) -> str:
     """The name of the display kernel variant a launch takes (the key of
     ``march_slabs.variants``): format, payload, ``opt`` for an SH option
-    set or ``bf16shade`` for the bf16-shading one (which takes the options
-    too), ``depth`` for depth mode, ``dirslab`` for per-slab directions,
-    ``resume`` for a launch from an upstream state (``acc_init``: the
+    set or ``bf16shade`` for bf16 shading (with or without options: two
+    variants, vt_march_display's opt 2 and 3), ``depth`` for depth mode,
+    ``dirslab`` for per-slab directions, ``resume`` for a launch from an upstream state (``acc_init``: the
     option variants of the resume build); ``SH-int8`` is the default."""
     name = BasisType(mode.fmt).name + ("-bf16" if bf16 else "-int8")
     if mode.bf16_shade:
@@ -612,9 +614,9 @@ def _variant_args(mode: MarchMode, bd: int, dev,
                   resume: bool = False) -> tuple:
     """A launch's variant arguments as the kernels' entries take them:
     (the lobes' device tensor, kept alive for the call, or None; then fmt,
-    opt (1 the option variant, which a launch that ``resume``s takes, 3
-    the bf16-shading one, 5 the display mode's depth variant), the lobes'
-    pointer, rot_on, rot (host
+    opt (1 the option variant, which a launch that ``resume``s takes, 2
+    bf16 shading without options, 3 with options, 5 the display mode's
+    depth variant), the lobes' pointer, rot_on, rot (host
     float[9]), bbox, basis_lo, basis_hi)."""
     extra, extra_ptr = None, 0
     if mode.fmt in (int(BasisType.SG), int(BasisType.ASG)):
@@ -937,31 +939,107 @@ def _slab_sigma(slab, qs, D: int, sig2: bool) -> torch.Tensor:
     return slab[D - 1] * qs[D - 1]
 
 
-def _basis_planes(dirs, bd: int, mode: MarchMode, qs) -> torch.Tensor:
+def _basis_planes(dirs, bd: int, mode: MarchMode, qs,
+                  bf16: bool = False) -> torch.Tensor:
     """(Gy, Gx, bd) basis of ``mode``'s format at unit ``dirs`` (rotated by
     ``mode.rot`` first), zero outside the basis window, times each basis
-    function's scale qs[k] (shared by rgb)."""
+    function's scale qs[k] (shared by rgb). ``bf16`` (SH): as kernel M's
+    bf16 shading computes it, the directions rounded to bf16, the basis
+    in bf16 (``_sh_basis_bf16``) times the scale rounded to bf16, each
+    product rounded to bf16 (bf16 values, returned as f32)."""
     if mode.rot is not None:
         R = torch.as_tensor(mode.rot, dtype=_F32, device=dirs.device)
         dirs = dirs @ R.reshape(3, 3).T
-    bk = basis_mod.eval_basis(BasisType(mode.fmt), bd, dirs, mode.extra)
     k = torch.arange(bd, device=dirs.device)
     win = (k >= mode.basis_lo) & (k <= mode.basis_hi)
+    if bf16:
+        bk = _sh_basis_bf16(dirs.to(torch.bfloat16), bd)
+        bkq = (bk * qs[:bd].to(torch.bfloat16)).to(_F32)
+        return torch.where(win, bkq, 0.0)
+    bk = basis_mod.eval_basis(BasisType(mode.fmt), bd, dirs, mode.extra)
     return torch.where(win, bk * qs[:bd], 0.0)
+
+
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """f64 values to the nearest bf16 (ties to even) in one rounding: the
+    significand keeps 8 of its 53 bits (a round through f32 would round
+    twice)."""
+    bits = x.to(torch.float64).view(torch.int64)
+    lsb = (bits >> 45) & 1
+    bits = (bits + ((1 << 44) - 1) + lsb) & ~((1 << 45) - 1)
+    return bits.view(torch.float64).to(_F32).to(torch.bfloat16)
+
+
+def _fma_bf16(a, b, c) -> torch.Tensor:
+    """a * b + c of bf16 tensors (or numbers, rounded to bf16 first) fused
+    and rounded once to bf16, as __hfma2 computes it (exact in f64 at
+    these magnitudes)."""
+    dev = next(v.device for v in (a, b, c) if isinstance(v, torch.Tensor))
+
+    def f64(v):
+        return (v.to(torch.float64) if isinstance(v, torch.Tensor)
+                else torch.tensor(float(torch.tensor(v, dtype=_F32)
+                                        .to(torch.bfloat16)),
+                                  dtype=torch.float64, device=dev))
+    return _round_bf16(f64(a) * f64(b) + f64(c))
+
+
+def _sh_basis_bf16(dirs, bd: int) -> torch.Tensor:
+    """(..., bd) bf16 SH basis at the bf16 unit directions ``dirs`` (...,
+    3), operation for operation as kernel M's bf16 shading evaluates it
+    (csrc/slab_march_display.cu sh_basis2): each multiply and add rounded
+    to bf16 (ties to even), each fused multiply-add rounded once, the
+    constants rounded to bf16 first."""
+    bf = torch.bfloat16
+
+    def K(v):
+        return torch.tensor(v, dtype=_F32, device=dirs.device).to(bf)
+
+    x, y, z = dirs[..., 0], dirs[..., 1], dirs[..., 2]
+    C2, C3, C4 = basis_mod._C2, basis_mod._C3, basis_mod._C4
+    out = [K(basis_mod._C0).expand(x.shape)]
+    if bd >= 4:
+        out += [K(-basis_mod._C1) * y, K(basis_mod._C1) * z,
+                K(-basis_mod._C1) * x]
+    if bd >= 9:
+        xx, yy, zz = x * x, y * y, z * z
+        xy, yz, xz = x * y, y * z, x * z
+        s, d = xx + yy, xx - yy
+        out += [K(C2[0]) * xy, K(C2[1]) * yz,
+                K(C2[2]) * _fma_bf16(2.0, zz, -s), K(C2[3]) * xz,
+                K(C2[4]) * d]
+    if bd >= 16:
+        t4 = _fma_bf16(4.0, zz, -s)
+        u3 = _fma_bf16(3.0, xx, -yy)
+        v3 = _fma_bf16(-3.0, yy, xx)
+        out += [(K(C3[0]) * y) * u3, (K(C3[1]) * xy) * z,
+                (K(C3[2]) * y) * t4,
+                (K(C3[3]) * z) * _fma_bf16(-3.0, s, zz + zz),
+                (K(C3[4]) * x) * t4, (K(C3[5]) * z) * d,
+                (K(C3[6]) * x) * v3]
+    if bd >= 25:
+        z71 = _fma_bf16(7.0, zz, -1.0)
+        z73 = _fma_bf16(7.0, zz, -3.0)
+        out += [(K(C4[0]) * xy) * d, (K(C4[1]) * yz) * u3,
+                (K(C4[2]) * xy) * z71, (K(C4[3]) * yz) * z73,
+                K(C4[4]) * _fma_bf16(zz, _fma_bf16(35.0, zz, -30.0), 3.0),
+                (K(C4[5]) * xz) * z73, (K(C4[6]) * d) * z71,
+                (K(C4[7]) * xz) * v3,
+                K(C4[8]) * _fma_bf16(xx, v3, -(yy * u3))]
+    return torch.stack(out, -1)
 
 
 def _bf16_macs(codes, bkq) -> torch.Tensor:
     """(3, Gy, Gx) f32 raw colours of kernel M's bf16 shading: (3, bd, Gy,
     Gx) exact codes times the (Gy, Gx, bd) basis planes rounded to bf16,
-    summed over k in order with each multiply-add fused and rounded to bf16
-    (the kernel's __hfma2; here in f64, then to bf16 through f32)."""
+    summed over k in order with each multiply-add fused and rounded once to
+    bf16 (the kernel's __hfma2; here exact in f64, then _round_bf16)."""
     q = bkq.to(torch.bfloat16).to(torch.float64).permute(2, 0, 1)
     c = codes.to(torch.float64)
     raw = torch.zeros(codes.shape[0:1] + codes.shape[2:],
                       dtype=torch.float64, device=codes.device)
     for k in range(codes.shape[1]):
-        raw = (c[:, k] * q[k] + raw).to(_F32).to(torch.bfloat16).to(
-            torch.float64)
+        raw = _round_bf16(c[:, k] * q[k] + raw).to(torch.float64)
     return raw.to(_F32)
 
 
@@ -986,10 +1064,11 @@ def march_slabs_ref(gplanar, qscale, params, zb, wins: Sequence[int],
     payload's f32 values are rounded to bf16 as they are read, as the
     kernel reads them. ``dir_win`` None means True for int8 and False
     otherwise. ``bf16_shade``: SH shading rounded where kernel M's bf16
-    shading variant rounds: each basis plane times its scale to bf16, then
-    each payload multiply-add fused and rounded to bf16 (in f64, then to
-    bf16 through f32), the sigmoid in f32. The options, as the reference's
-    kernel body computes them (pallas_slab.py:391-537):
+    shading variants round: the directions to bf16, the SH polynomials in
+    bf16 (``_sh_basis_bf16``), each plane times its bf16 scale rounded to
+    bf16, then each payload multiply-add fused and rounded to bf16 (in f64,
+    then to bf16 in one rounding), the sigmoid in f32. The options, as the
+    reference's kernel body computes them (pallas_slab.py:391-537):
     - ``fmt``/``extra``: SH, SG and ASG shade srgb = sigma * sigmoid(sum_k
       code_k * basis_k * qs[k]); RGBA srgb = sigma * code_c * qs[c];
     - ``rot``: 9 floats applied to the unit view direction;
@@ -1045,7 +1124,8 @@ def march_slabs_ref(gplanar, qscale, params, zb, wins: Sequence[int],
             if dir_win and shade:
                 # view directions once per window, at the window centre
                 sc = ((w * K) + 0.5 * K) / G + zbase - cz
-                bkq = _basis_planes(_dirs(dirp, prm, sc), bd, mode, qs)
+                bkq = _basis_planes(_dirs(dirp, prm, sc), bd, mode, qs,
+                                    bf16_shade)
             order = range(K - 1, -1, -1) if flip else range(K)
             for dzi in order:
                 if not (m >> dzi) & 1:
@@ -1056,7 +1136,7 @@ def march_slabs_ref(gplanar, qscale, params, zb, wins: Sequence[int],
                 s1 = z + hG - cz
                 if not dir_win and shade:
                     bkq = _basis_planes(_dirs(dirp, prm, z - cz), bd, mode,
-                                        qs)
+                                        qs, bf16_shade)
                 slab = _slab_values(gplanar[sid])              # (Dp,Gy,Gx)
                 sigma = _slab_sigma(slab, qs, D, sig2)
                 ok = sigma > sigma_thresh

@@ -56,12 +56,13 @@ def get_tree():
         max_depth=7, basis_dim=16, seed=3, n_blobs=6, sigma_scale=60.0))
 
 
-def dense_grid_on(device):
+def dense_grid_on(device, dtype: str = "int8"):
     """The dense scene uploaded to ``device`` and baked to its int8 grid
-    (G=256, SH16: Dp = 50 planes)."""
+    (G=256, SH16: Dp = 50 planes), or with ``dtype`` "f16" to the f16
+    bake's bf16 payload (Dp = 49)."""
     from volrend_torch.ops import dense_grid
     tdev = get_tree().to_device(lut_depth=None, device=device)
-    return dense_grid.bake_dense(tdev, dtype="int8")
+    return dense_grid.bake_dense(tdev, dtype=dtype)
 
 
 #: the seed of the SG/ASG lobes of format_trees

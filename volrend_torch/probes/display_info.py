@@ -4,7 +4,8 @@ For every instantiation of kernel M's display mode
 (``csrc/slab_march_display.cu``: resident blocks per SM, registers a
 thread, spill bytes a thread and static shared memory, from
 ``vt_march_display_info`` at the display path's shared-memory budget,
-keyed ``<fmt><bd>-<payload>[-opt|-bf16shade]-r<rows>``, SG and ASG without
+keyed ``<fmt><bd>-<payload>[-opt|-bf16shade|-bf16shade-opt]-r<rows>``
+(``-bf16shade``: bf16 shading without options), SG and ASG without
 a lobe count, ``depth-<payload>-r1`` the depth variant) and of kernel W
 (``csrc/warp_display.cu``: registers and spill stores of each entry
 function, from the build's ``ptxas -v`` report, keyed by the demangled
@@ -38,8 +39,11 @@ M_VARIANTS = (
      for b in (1, 4, 9, 16, 25) for bf, p in ((0, "int8"), (1, "bf16"))
      for r in (1, 2)]
     + [(f"SH{b}-{p}-{o}-r1", b, 1, 1, bf, code)
-       for o, code in (("opt", 1), ("bf16shade", 3))
+       for o, code in (("opt", 1), ("bf16shade-opt", 3))
        for b in (1, 4, 9, 16, 25) for bf, p in ((0, "int8"), (1, "bf16"))]
+    + [(f"SH{b}-{p}-bf16shade-r{r}", b, r, 1, bf, 2)
+       for b in (1, 4, 9, 16, 25) for bf, p in ((0, "int8"), (1, "bf16"))
+       for r in (1, 2)]
     + [(f"{f}-{p}-opt-r{r}", 16, r, fm, bf, 1)
        for f, fm in (("SG", 2), ("ASG", 3))
        for bf, p in ((0, "int8"), (1, "bf16")) for r in (1, 2)]

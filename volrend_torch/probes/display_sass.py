@@ -7,17 +7,21 @@ disassembles both with ``cuobjdump -sass`` and compares, function by
 function, the SASS of the SH int8 defaults (``Var<false, F_SH, false>``
 at both tile heights, degrees 0-4): a redesign of the other variants must
 leave these instructions as they were. Prints one JSON line ({kernel:
-{"equal": bool, "instructions": n, "parent_instructions": n}} and the
-other instantiations' counts) and exits 1 if a default differs or is
-missing. Run on a card (the build needs the toolkit's nvcc and
-cuobjdump)::
+{"equal": bool, "instructions": n, "parent_instructions": n, "sha256":
+digest of its SASS lines}} and the other instantiations' counts) and exits
+1 if a default differs or is missing. ``--pinned`` compares the defaults
+with the digests this file pins (PINNED: read from the commit whose
+defaults every later one keeps, with the card's toolkit) instead of a
+parent checkout, for a checkout that has no parent beside it. Run on a
+card (the build needs the toolkit's nvcc and cuobjdump)::
 
-    python -m volrend_torch.probes.display_sass --parent DIR
+    python -m volrend_torch.probes.display_sass (--parent DIR | --pinned)
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import re
@@ -33,6 +37,39 @@ _ROOT = os.path.dirname(os.path.dirname(_HERE))
 DEFAULT = re.compile(r"display_kernel<(\d+), (\d+), "
                      r"\(anonymous namespace\)::Var<false, 1, false, false, "
                      r"false> >")
+
+
+#: the defaults' SASS digests (sha256 of the lines ``functions`` keeps) of
+#: the commit whose machine code every later commit keeps (ec5a22c, read
+#: beside it with --parent), on NVIDIA H100 80GB HBM3 with the card
+#: machine's toolkit (nvcc 12.9)
+PINNED = {
+    "SH1-int8-r1":
+        "943191aa6fe5da773ea1f0b849d2c4f274f2c336639470ec0dc01cfff0e056d7",
+    "SH1-int8-r2":
+        "1cb43af26a268bd7ffdd4813cef3f6591cc7d4e639a0cc74bcb40bda099f00ef",
+    "SH4-int8-r1":
+        "122aeb45cbb41c4111fee6d07820279935fa6cd26707b4b70d6e1708ae89738a",
+    "SH4-int8-r2":
+        "a2e377ce1f241b394c2fee0d1b1f9abd67804db97c8e68a15a93abe70852943e",
+    "SH9-int8-r1":
+        "20e1701256c17043a9d767af37191c5d0a5a582fb4fc5489fe8c26b391fa4b18",
+    "SH9-int8-r2":
+        "a25210d7f61b7c08860308e80af54f0860ab0555d6fa9ebd7f29157dd430e36d",
+    "SH16-int8-r1":
+        "ac3eb09652255cf051c01a3250685100898fd0b543d9778f90349267ada91d6a",
+    "SH16-int8-r2":
+        "2bc0060b5a6981c1fc647dbc15f28ee68fe2fca13064913358c87ebb673a6868",
+    "SH25-int8-r1":
+        "345a58140ffaaeeb5f4c15849e31882b554a4ceeecbbaf35cf0c29af0788bbbc",
+    "SH25-int8-r2":
+        "708b8a15b559804f58d9ac3050f3efe78d676872ddb46cae521f28b2748b7d8d",
+}
+
+
+def digest(sass) -> str:
+    """The sha256 of a function's SASS lines."""
+    return hashlib.sha256("\n".join(sass).encode()).hexdigest()
 
 
 def library(root: str) -> str:
@@ -54,7 +91,11 @@ def _tool(name: str) -> str:
 
 
 def functions(lib: str) -> dict:
-    """{demangled kernel name: its SASS lines} of a library."""
+    """{demangled kernel name: its SASS lines} of a library, each line's
+    runs of whitespace collapsed to one space: cuobjdump pads its comment
+    column to the longest instruction of the whole library, so a new
+    instantiation with a longer instruction moves every function's padding
+    while their instructions and encodings stay as they were."""
     text = subprocess.run([_tool("cuobjdump"), "-sass", lib], check=True,
                           capture_output=True, text=True).stdout
     out, name = {}, None
@@ -64,7 +105,7 @@ def functions(lib: str) -> dict:
             name = m.group(1)
             out[name] = []
         elif name and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
-            out[name].append(line.strip())
+            out[name].append(" ".join(line.split()))
     filt = shutil.which("c++filt")
     if filt and out:
         names = list(out)
@@ -77,15 +118,19 @@ def functions(lib: str) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--parent", required=True,
-                    help="the checkout whose defaults to compare with")
+    how = ap.add_mutually_exclusive_group(required=True)
+    how.add_argument("--parent",
+                     help="the checkout whose defaults to compare with")
+    how.add_argument("--pinned", action="store_true",
+                     help="compare with the digests PINNED holds")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         raise RuntimeError("display_sass reads kernels built for a CUDA "
                            "device; none is available")
     mine = functions(library(_ROOT))
-    theirs = functions(library(os.path.abspath(args.parent)))
+    theirs = ({} if args.pinned
+              else functions(library(os.path.abspath(args.parent))))
     out, ok = {"defaults": {}, "others": {}}, True
     for name, sass in sorted(mine.items()):
         m = DEFAULT.search(name)
@@ -93,13 +138,24 @@ def main() -> None:
             out["others"][name] = len(sass)
             continue
         key = f"SH{m.group(1)}-int8-r{m.group(2)}"
-        old = next((v for k, v in theirs.items() if DEFAULT.search(k)
-                    and DEFAULT.search(k).groups() == m.groups()), None)
-        equal = old == sass
+        if args.pinned:
+            equal = PINNED.get(key) == digest(sass)
+            old = None
+        else:
+            old = next((v for k, v in theirs.items() if DEFAULT.search(k)
+                        and DEFAULT.search(k).groups() == m.groups()), None)
+            equal = old == sass
         ok &= equal
         out["defaults"][key] = {
             "equal": equal, "instructions": len(sass),
-            "parent_instructions": None if old is None else len(old)}
+            "parent_instructions": None if old is None else len(old),
+            "sha256": digest(sass)}
+        if old is not None and not equal:
+            # where they part: the differing lines' count and the first few
+            diff = [(i, a, b) for i, (a, b) in enumerate(zip(sass, old))
+                    if a != b]
+            out["defaults"][key]["differing_lines"] = len(diff)
+            out["defaults"][key]["first_differences"] = diff[:6]
     ok &= len(out["defaults"]) == 10
     out["ok"] = ok
     print(json.dumps(out), flush=True)

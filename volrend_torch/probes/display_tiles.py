@@ -16,7 +16,10 @@ through ``march_slabs`` itself:
   culled slabs) and four poses spread over it;
 - with ``--formats SG,ASG``: the dense scene's leaves read as SG16 and
   ASG16 trees (``_common.format_trees``, int8): each group whole, four
-  poses spread over it and its first pose, through the lobe variants.
+  poses spread over it and its first pose, through the lobe variants;
+- with ``--bf16-shade``: the SH launches through bf16 shading's variant
+  without options; with ``--f16``: the dense scene's launches on its f16
+  bake (the f16 route's bf16 payload).
 
 Every time is the card's: CUDA events around back-to-back launches queued
 behind a device sleep, median of three runs; each launch includes its
@@ -28,7 +31,7 @@ package (run it by path with that checkout first on ``PYTHONPATH``).
 Run on a card from the root of the checkout::
 
     python -m volrend_torch.probes.display_tiles [--modes package,1,2]
-        [--only NAME] [--formats SH,SG,ASG]
+        [--only NAME] [--formats SH,SG,ASG] [--bf16-shade] [--f16]
 """
 
 from __future__ import annotations
@@ -87,12 +90,16 @@ def steep_camera(grid, lo: float = 3.6, hi: float = 3.95):
 
 class Launch:
     """One display launch: the march's inputs for the cameras ``cams`` on
-    ``grid`` at ``gi``, as the display path prepares them."""
+    ``grid`` (an int8 or f16 bake) at ``gi``, as the display path prepares
+    them; ``bf16_shade``: SH shading in bf16 (its variant without
+    options)."""
 
-    def __init__(self, name, grid, cams, gi, opt, payloads):
+    def __init__(self, name, grid, cams, gi, opt, payloads,
+                 bf16_shade=False):
         from volrend_torch.ops import slab_march, slab_render
         self.name, self.grid, self.gi, self.P = name, grid, gi, len(cams)
-        self.mode = slab_march.MarchMode(int(grid.fmt), grid.extra)
+        self.mode = slab_march.MarchMode(int(grid.fmt), grid.extra,
+                                         bf16_shade=bf16_shade)
         c0 = cams[0]
         perm, flip, _ = slab_render.choose_axis(grid, c0.transform, c0.fx,
                                                 c0.fy, c.W, c.H)
@@ -117,9 +124,10 @@ class Launch:
         return slab_march.march_slabs(
             self.pay, self.params, g.qscale, self.zb, g.G, self.gi,
             g.data_dim, g.basis_dim, self.perm, slab_ids=self.slab_ids,
-            sig2=True, flip=self.flip, bbox_full=True, dir_win=True,
+            sig2=g.quantized, flip=self.flip, bbox_full=True, dir_win=True,
             k_per_step=slab_march._K_STEP, crop=self.crop,
-            fmt=self.mode.fmt, extra=self.mode.extra)
+            fmt=self.mode.fmt, extra=self.mode.extra,
+            shade_bf16=self.mode.bf16_shade)
 
     def rows(self, rows=None):
         """The launch with ``rows`` pixel rows a thread (None: the rule's
@@ -134,6 +142,7 @@ class Launch:
         cfg = slab_march.display_config(
             self.P, self.gi, len(m["wins"]), self.pay.shape[1],
             slab_march._sm_count(self.pay.device.index),
+            esz=self.pay.element_size(),
             opt=not self.mode.tall_tiles(g.basis_dim))
         if rows is not None:
             cfg = dict(cfg, rows=rows)
@@ -181,10 +190,12 @@ def lobe_launches(opt, fmt):
     torch.cuda.empty_cache()
 
 
-def launches(opt, formats=("SH",)):
+def launches(opt, formats=("SH",), bf16_shade=False, dtype="int8"):
     """The display launches this probe times, scene by scene (a generator,
     so one scene's payloads are freed before the next is built): the SH
-    scenes' unless ``formats`` leaves SH out, then the lobe trees'."""
+    scenes' unless ``formats`` leaves SH out (``bf16_shade``: shaded in
+    bf16; ``dtype`` "f16": the dense scene's f16 bake), then the lobe
+    trees'."""
     for fmt in formats:
         if fmt != "SH":
             yield from lobe_launches(opt, fmt)
@@ -193,7 +204,7 @@ def launches(opt, formats=("SH",)):
     from volrend_torch.models.synthetic import make_solid_tree
     from volrend_torch.ops import dense_grid
     dev = torch.device("cuda")
-    grid = c.dense_grid_on(dev)
+    grid = c.dense_grid_on(dev, dtype)
     pays = {}
     cams = c.orbit_poses(N_DENSE)
     for gk, (key, idx) in enumerate(c.pose_groups(grid, cams).items()):
@@ -203,17 +214,17 @@ def launches(opt, formats=("SH",)):
                          ("4 spread", [sel[int(i)] for i in spread]),
                          ("4 first", sel[:4]), ("1 pose", sel[:1])):
             yield Launch(f"dense group {gk} {key}: {tag}", grid, sub,
-                         GI_MAIN, opt, pays)
+                         GI_MAIN, opt, pays, bf16_shade)
     yield Launch("dense steep pose", grid, [steep_camera(grid)], GI_MAIN,
-                 opt, pays)
+                 opt, pays, bf16_shade)
     cams = c.orbit_poses(c.N_ORBIT)
     key, idx = next((k, v) for k, v in c.pose_groups(grid, cams).items()
                     if 0 in v)
     for tag, sub in ((f"{len(idx)} poses", idx), ("1 pose", idx[:1])):
         yield Launch(f"dense gi={c.GI} group {key}: {tag}", grid,
-                     [cams[i] for i in sub], c.GI, opt, pays)
+                     [cams[i] for i in sub], c.GI, opt, pays, bf16_shade)
     yield Series(f"dense gi={c.GI} group {key}: each pose alone",
-                 [Launch("", grid, [cams[i]], c.GI, opt, pays)
+                 [Launch("", grid, [cams[i]], c.GI, opt, pays, bf16_shade)
                   for i in idx])
     del grid, pays
     torch.cuda.empty_cache()
@@ -229,7 +240,7 @@ def launches(opt, formats=("SH",)):
         for tag, sub in ((f"{len(sel)} poses", sel),
                          ("4 spread", [sel[int(i)] for i in spread])):
             yield Launch(f"sparse group {gk} {key}: {tag}", grid, sub,
-                         GI_MAIN, opt, pays)
+                         GI_MAIN, opt, pays, bf16_shade)
 
 
 def main():
@@ -239,6 +250,12 @@ def main():
                          "tiles), 2 (32x16 tiles)")
     ap.add_argument("--only", default="",
                     help="time only the launches whose name holds this")
+    ap.add_argument("--bf16-shade", action="store_true",
+                    help="the SH launches shade in bf16 (the bf16-shading "
+                         "variant without options)")
+    ap.add_argument("--f16", action="store_true",
+                    help="the dense scene's launches on its f16 bake (the "
+                         "bf16 payload of the f16 route)")
     ap.add_argument("--formats", default="SH",
                     help="comma-separated: SH (the SH scenes), SG, ASG "
                          "(the dense scene's leaves as SG16/ASG16 trees)")
@@ -251,7 +268,8 @@ def main():
     c.log(f"{torch.cuda.get_device_name(0)}; modes {modes}")
     rows = []
     for ln in launches(RenderOptions(max_steps=1024),
-                       args.formats.split(",")):
+                       args.formats.split(","), args.bf16_shade,
+                       "f16" if args.f16 else "int8"):
         if args.only not in ln.name:
             continue
         n = getattr(ln, "n", 1)
