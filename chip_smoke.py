@@ -3292,7 +3292,9 @@ def quant_phase(torch, dev, opt, stats, gate, groups_of):
 def sass_check() -> dict:
     """volrend_torch/probes/display_sass --pinned in a process of its own:
     the SH int8 defaults' machine code against the digests it pins; fails
-    unless all ten are equal."""
+    unless all ten are equal, or are reported unchecked (the card's nvcc
+    is not the release the digests were read with: logged, not a
+    failure)."""
     res = subprocess.run([sys.executable, "-m",
                           "volrend_torch.probes.display_sass", "--pinned"],
                          cwd=HERE, capture_output=True, text=True,
@@ -3302,7 +3304,9 @@ def sass_check() -> dict:
         out = json.loads(lines[-1])
     except (IndexError, ValueError):
         out = {"ok": False}
-    log(f"display_sass --pinned (rc {res.returncode}): "
+    log(f"display_sass --pinned (rc {res.returncode}, nvcc "
+        f"{out.get('toolkit')}, "
+        f"{'checked' if out.get('checked') else 'UNCHECKED'}): "
         f"{json.dumps(out.get('defaults'))}")
     if res.returncode != 0 or not out.get("ok"):
         fail(f"display_sass: the SH int8 defaults' SASS moved or was not "
@@ -3311,18 +3315,17 @@ def sass_check() -> dict:
 
 
 def display_march_phase(torch, dev, opt, probe_build) -> dict:
-    """volrend_torch/probes/display_march on its build started with the
+    """volrend_torch/probes/display_march on its build, loaded after the
     kernels' (``probe_build``: -DVT_DM_CYCLES): thread 0's cycles by part
     of the job loop for SH-int8, SH-bf16 and bf16 shading on both payloads,
     on 4 poses and orbit group 0 whole, each row logged; fails if a launch
     on the probe build disagrees with the port's past a freeze flip."""
     from volrend_torch.probes import display_march
-    res = display_march.run(dev, ["probe"],
-                            display_march.load(probe_build))
+    res = display_march.run(dev, ["probe"], probe_build)
     for row in res["probe"]:
         log(f"display_march [{row['launch']}]: "
-            f"{row['ms']:.3f} ms, rows {row['rows']}, pieces a slab "
-            f"{row['pieces_a_slab']:.3f}, loop max {row['loop_max']}, "
+            f"{row['ms']:.3f} ms, rows {row['rows']}, jobs a slab "
+            f"{row['jobs_a_slab']:.3f}, loop max {row['loop_max']}, "
             f"share {json.dumps(row['share'])}")
         if not row["max_abs_diff_own_build"] <= float(
                 opt.stop_thresh) + TOL_M:
@@ -4950,11 +4953,14 @@ def main() -> None:
     # ---- 1. build -----------------------------------------------------------
     t = time.perf_counter()
     # the display march's cycle probe (phase 12c) compiles beside them
+    # (unless built), and is waited for before any phase times anything
     from volrend_torch.probes import display_march
-    probe_build = display_march.start_build()
+    probe_started = display_march.start_build()
     blogs = kernels.build_all()
+    probe_build = display_march.load(probe_started)
     log(f"kernels built in {time.perf_counter() - t:.1f} s "
-        f"({sorted(blogs)} compiled this run)")
+        f"({sorted(blogs)} compiled this run; the display march probe "
+        f"{'built' if probe_started[1] else 'reused'})")
     for name, text in blogs.items():
         for line in text.splitlines():
             if ("registers" in line or "spill" in line

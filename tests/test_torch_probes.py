@@ -331,7 +331,7 @@ def test_display_march_summarize():
     """A launch's clock rows summed as the probe reports them: the parts
     and the loop over the blocks, each part's share, the slowest block's
     row, the jobs, slabs and windows summed, a block's mean and most, the
-    pieces a slab."""
+    jobs a slab."""
     from volrend_torch.probes import display_march
     n = len(display_march.PARTS)
     rows = np.zeros((3, len(display_march.SLOTS)), np.int64)
@@ -348,7 +348,7 @@ def test_display_march_summarize():
     assert out["slowest"]["shade"] == 100 and out["slowest"]["jobs"] == 6
     assert out["jobs"] == {"sum": 15, "mean": 5.0, "max": 6}
     assert out["slabs"]["sum"] == 10 and out["windows"]["max"] == 2
-    assert out["pieces_a_slab"] == 1.5
+    assert out["jobs_a_slab"] == 1.5
     assert abs(sum(out["share"].values()) - 1.0) < 1e-3
 
 
@@ -393,3 +393,59 @@ def test_display_march_refuses_to_run_without_a_card(monkeypatch):
     monkeypatch.setattr("sys.argv", ["display_march"])
     with pytest.raises(RuntimeError, match="CUDA device"):
         display_march.main()
+
+
+def test_display_march_reuses_its_build(monkeypatch, tmp_path):
+    """The probe build is keyed as the port's libraries are (source, shared
+    headers, flags): when it is built, no nvcc starts."""
+    import subprocess
+    from volrend_torch import kernels
+    from volrend_torch.probes import display_march
+    monkeypatch.setattr(kernels, "build_dir", lambda: tmp_path)
+
+    def no_nvcc(*a, **kw):
+        raise AssertionError("nvcc started for a built probe")
+
+    out, building = None, None
+    monkeypatch.setattr(subprocess, "Popen", no_nvcc)
+    key = kernels._target(display_march._NAME).name
+    built = tmp_path / "display_march" / key.replace(
+        "lib" + display_march._NAME + "_",
+        "lib" + display_march._NAME + "_cycles_")
+    built.parent.mkdir(parents=True)
+    built.write_bytes(b"")
+    out, building = display_march.start_build()
+    assert out == built and building is None
+
+
+@pytest.mark.parametrize("release, checked", [("12.9", True),
+                                              ("13.0", False)])
+def test_display_sass_pinned_digests_hold_only_their_toolkit(
+        monkeypatch, capsys, release, checked):
+    """``display_sass --pinned`` holds the defaults to the digests it pins
+    only under the nvcc release they were read with: a default whose SASS
+    differs fails there, and under another release every default is
+    reported unchecked and the exit code is 0."""
+    import json
+    from volrend_torch.probes import display_sass
+    name = ("void (anonymous namespace)::display_kernel<16, 2, "
+            "(anonymous namespace)::Var<false, 1, false, false, false> >"
+            "(LaunchArgs)")
+    sass = {name.replace("<16, 2,", f"<{bd}, {r},"): ["SASS"]
+            for bd in (1, 4, 9, 16, 25) for r in (1, 2)}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(display_sass, "library", lambda root: root)
+    monkeypatch.setattr(display_sass, "functions", lambda lib: sass)
+    monkeypatch.setattr(display_sass, "toolkit", lambda: release)
+    monkeypatch.setattr("sys.argv", ["display_sass", "--pinned"])
+    if checked:
+        with pytest.raises(SystemExit):
+            display_sass.main()
+    else:
+        display_sass.main()
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["checked"] is checked and out["toolkit"] == release
+    assert len(out["defaults"]) == 10
+    assert out["ok"] is not checked
+    assert all(v["equal"] is (False if checked else None)
+               for v in out["defaults"].values())

@@ -23,8 +23,9 @@ libraries, and the whole int8 and f16 routes (the 200 orbit poses through
 ``render_frames``, RGBA8, gi=256, Mrays/s), so the same file times another
 checkout of the package: run it by path with that checkout first on
 ``PYTHONPATH``. Every time is the card's: CUDA events around back-to-back
-calls queued behind a device sleep, median of three. Run on a card from the
-root of the checkout::
+calls queued behind a device sleep, median of three; the routes also as
+chip_smoke.py's main path times them, queued from the host
+(``route_mrays``). Run on a card from the root of the checkout::
 
     python -m volrend_torch.probes.display_march [--modes probe,package]
         [--out display_march.json]
@@ -62,14 +63,20 @@ _NAME = "slab_march_display"
 
 def start_build():
     """Start compiling the probe build (one nvcc, the port's flags and
-    -DVT_DM_CYCLES); ``load`` waits for it."""
+    -DVT_DM_CYCLES) unless it is built: keyed, as the port's libraries
+    are, by the source, the shared headers and the flags. ``load`` waits
+    for it."""
     out_dir = kernels.build_dir() / "display_march"
     out_dir.mkdir(parents=True, exist_ok=True)
-    out = out_dir / f"lib{_NAME}_cycles.so"
-    return out, subprocess.Popen(
+    out = out_dir / kernels._target(_NAME).name.replace(
+        f"lib{_NAME}_", f"lib{_NAME}_cycles_")
+    if out.exists():
+        return out, None
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    return out, (tmp, subprocess.Popen(
         [kernels._nvcc(), *kernels._NVCC_FLAGS, "-DVT_DM_CYCLES", "-o",
-         str(out), str(kernels._CSRC / kernels.SOURCES[_NAME][0])],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+         str(tmp), str(kernels._CSRC / kernels.SOURCES[_NAME][0])],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
 
 
 def build():
@@ -80,10 +87,14 @@ def build():
 def load(started):
     """Wait for ``start_build``'s compile and load the library (raises with
     the log if the build failed)."""
-    out, proc = started
-    log, _ = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(f"display_march: the probe build failed:\n{log}")
+    out, building = started
+    if building is not None:
+        tmp, proc = building
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"display_march: the probe build failed:\n{log}")
+        os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     for fn, argtypes in kernels.SOURCES[_NAME][1].items():
         getattr(lib, fn).argtypes = argtypes
@@ -123,7 +134,9 @@ def summarize(rows: np.ndarray) -> dict:
     """A launch's clock rows as the probe reports them: each part and the
     loop summed over the blocks (thread 0's cycles), each part's share of
     the summed loop, the slowest block's loop and parts, and the jobs,
-    slabs and windows summed, a block's mean and most."""
+    slabs and windows summed, a block's mean and most; the jobs a slab (a
+    job: one piece of a slab, or the whole footprints of several slabs in
+    the multi-slab loop)."""
     n = len(PARTS)
     loop = rows[:, n]
     slow = int(np.argmax(loop))
@@ -137,7 +150,7 @@ def summarize(rows: np.ndarray) -> dict:
         col = rows[:, n + 1 + i]
         out[k] = {"sum": int(col.sum()), "mean": float(col.mean()),
                   "max": int(col.max())}
-    out["pieces_a_slab"] = out["jobs"]["sum"] / max(out["slabs"]["sum"], 1)
+    out["jobs_a_slab"] = out["jobs"]["sum"] / max(out["slabs"]["sum"], 1)
     return out
 
 
@@ -201,7 +214,10 @@ def scene(dev, opt):
 def route_mrays(grid, cams, opt) -> dict:
     """The display route over ``cams`` (render_frames a (perm, flip) group,
     RGBA8 at gi=256, payloads and transforms prepared once): the card's
-    time of all groups and its Mrays/s."""
+    time of all groups queued behind a device sleep and its Mrays/s
+    (``ms``, ``mrays``), and as chip_smoke.py's main path times it, CUDA
+    events recorded around the run from the host, median of three after a
+    warm run (``host_ms``, ``host_mrays``)."""
     from volrend_torch.ops import slab_render
     dev = grid.data.device
     groups = c.pose_groups(grid, cams)
@@ -222,7 +238,20 @@ def route_mrays(grid, cams, opt) -> dict:
                 payload=pays[perm], out_dtype=torch.uint8)
 
     ms = device_ms(run, 1)
-    return {"ms": ms, "mrays": len(cams) * c.W * c.H / ms / 1e3}
+    run()
+    ts = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        run()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    host = float(np.median(ts))
+    rays = len(cams) * c.W * c.H
+    return {"ms": ms, "mrays": rays / ms / 1e3, "host_ms": host,
+            "host_mrays": rays / host / 1e3}
 
 
 def run(dev, modes, lib=None) -> dict:

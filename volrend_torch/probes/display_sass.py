@@ -11,9 +11,11 @@ leave these instructions as they were. Prints one JSON line ({kernel:
 digest of its SASS lines}} and the other instantiations' counts) and exits
 1 if a default differs or is missing. ``--pinned`` compares the defaults
 with the digests this file pins (PINNED: read from the commit whose
-defaults every later one keeps, with the card's toolkit) instead of a
-parent checkout, for a checkout that has no parent beside it. Run on a
-card (the build needs the toolkit's nvcc and cuobjdump)::
+defaults every later one keeps, with the toolkit PINNED_TOOLKIT names)
+instead of a parent checkout, for a checkout that has no parent beside
+it; under another toolkit release the digests say nothing, so the
+defaults are reported unchecked (``"checked": false``) and the exit code
+is 0. Run on a card (the build needs the toolkit's nvcc and cuobjdump)::
 
     python -m volrend_torch.probes.display_sass (--parent DIR | --pinned)
 """
@@ -39,10 +41,13 @@ DEFAULT = re.compile(r"display_kernel<(\d+), (\d+), "
                      r"false> >")
 
 
+#: the nvcc release PINNED was read with
+PINNED_TOOLKIT = "12.9"
+
 #: the defaults' SASS digests (sha256 of the lines ``functions`` keeps) of
 #: the commit whose machine code every later commit keeps (ec5a22c, read
-#: beside it with --parent), on NVIDIA H100 80GB HBM3 with the card
-#: machine's toolkit (nvcc 12.9)
+#: beside it with --parent), on NVIDIA H100 80GB HBM3, built by nvcc
+#: release PINNED_TOOLKIT
 PINNED = {
     "SH1-int8-r1":
         "943191aa6fe5da773ea1f0b849d2c4f274f2c336639470ec0dc01cfff0e056d7",
@@ -81,6 +86,15 @@ def library(root: str) -> str:
     out = subprocess.run([sys.executable, "-c", code, root], check=True,
                          capture_output=True, text=True)
     return out.stdout.strip().splitlines()[-1]
+
+
+def toolkit() -> str:
+    """The release of the nvcc the kernels are built with ("12.9")."""
+    from volrend_torch import kernels
+    text = subprocess.run([kernels._nvcc(), "--version"], check=True,
+                          capture_output=True, text=True).stdout
+    m = re.search(r"release (\d+\.\d+)", text)
+    return m.group(1) if m else text.strip().splitlines()[-1]
 
 
 def _tool(name: str) -> str:
@@ -131,7 +145,10 @@ def main() -> None:
     mine = functions(library(_ROOT))
     theirs = ({} if args.pinned
               else functions(library(os.path.abspath(args.parent))))
-    out, ok = {"defaults": {}, "others": {}}, True
+    out, ok = {"defaults": {}, "others": {}, "checked": True}, True
+    if args.pinned:
+        out["toolkit"] = toolkit()
+        out["checked"] = out["toolkit"] == PINNED_TOOLKIT
     for name, sass in sorted(mine.items()):
         m = DEFAULT.search(name)
         if not m:
@@ -139,13 +156,15 @@ def main() -> None:
             continue
         key = f"SH{m.group(1)}-int8-r{m.group(2)}"
         if args.pinned:
-            equal = PINNED.get(key) == digest(sass)
+            # None: not checked, the digests come from another toolkit
+            equal = (PINNED.get(key) == digest(sass) if out["checked"]
+                     else None)
             old = None
         else:
             old = next((v for k, v in theirs.items() if DEFAULT.search(k)
                         and DEFAULT.search(k).groups() == m.groups()), None)
             equal = old == sass
-        ok &= equal
+        ok &= equal is not False
         out["defaults"][key] = {
             "equal": equal, "instructions": len(sass),
             "parent_instructions": None if old is None else len(old),
