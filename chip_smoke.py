@@ -3324,8 +3324,8 @@ def display_march_phase(torch, dev, opt, probe_build) -> dict:
     res = display_march.run(dev, ["probe"], probe_build)
     for row in res["probe"]:
         log(f"display_march [{row['launch']}]: "
-            f"{row['ms']:.3f} ms, rows {row['rows']}, jobs a slab "
-            f"{row['jobs_a_slab']:.3f}, loop max {row['loop_max']}, "
+            f"{row['ms']:.3f} ms, rows {row['rows']}, pieces a slab "
+            f"{row['pieces_a_slab']:.3f}, loop max {row['loop_max']}, "
             f"share {json.dumps(row['share'])}")
         if not row["max_abs_diff_own_build"] <= float(
                 opt.stop_thresh) + TOL_M:

@@ -1782,9 +1782,8 @@ DEFAULT_W_INFO = {
 #: nothing since their redesign; bf16 shading took a variant of its own
 #: without options at both tile heights (``-bf16shade``; the option
 #: variant is ``-bf16shade-opt``) and the packed bf16 basis, and it and the
-#: bf16 payload's SH defaults stage several slabs a job (the multi-slab
-#: loop, its job slots in static shared memory): every one within 128
-#: registers, no spills, two blocks an SM
+#: bf16 payload's SH defaults take each job's walk once: every one within
+#: 128 registers, no spills, two blocks an SM
 DEFAULT_DISPLAY_INFO = {
     "SH1-int8-r1": (2, 100, 0, 144),
     "SH1-int8-r2": (2, 113, 0, 144),
@@ -2003,12 +2002,11 @@ def _no_option_launch(g, case, rows, shade_bf16):
 def test_display_no_option_variants_match_plain(format_grids, shade_bf16, dt,
                                                 rows, crop):
     """SH without options, with and without bf16 shading, on both payloads
-    at both tile heights (several slabs' whole footprints a job where
-    they fit, past a crop's edges too; the int8 crop's rows are staged by
-    element copies) on the steep fx = 80 pose (footprints in several
-    pieces), against the plain version (TOL_BF16_SHADE, TOL_M), named by
-    display_variant; each instantiation two blocks an SM, no spills, at
-    most 128 registers."""
+    at both tile heights (past a crop's edges too; the int8 crop's rows
+    are staged by element copies) on the steep fx = 80 pose (footprints in
+    several pieces), against the plain version (TOL_BF16_SHADE, TOL_M),
+    named by display_variant; each instantiation two blocks an SM, no
+    spills, at most 128 registers."""
     from volrend_torch import kernels
     g = format_grids[("SH", dt)]
     case = _display_case(g, [(1.0, 0.25, 0.35), (1.0, 0.1, 0.45)], fx=80.0,

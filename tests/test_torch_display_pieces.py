@@ -365,85 +365,3 @@ def test_bf16_pieces_cover_every_footprint(grid, kind):
             assert max(n_pieces) > 1
         else:
             assert np.mean(np.asarray(n_pieces) == 1) > 0.5
-
-
-#: slabs a multi-slab job stages at most (csrc/slab_march_display.cu DJOB)
-DJOB = 4
-
-
-def _jobs(slab_pieces, K: int, Dp_bytes: int, stage_bytes: int,
-          chan_cells: int):
-    """The multi-slab loop's jobs of one tile (its stage_job), in march
-    order: ``slab_pieces`` holds each occupied slab's (position in march
-    order, its pieces from ``_pieces``); a job is one piece, or the whole
-    footprints (one piece each) of up to DJOB consecutive occupied slabs of
-    one window of K slabs that fit the stage and the shaded-cell buffer
-    together. Returns [[(position, piece)]]."""
-    flat = [(pos, pc, len(pcs) == 1) for pos, pcs in slab_pieces
-            for pc in pcs]
-    jobs, i = [], 0
-    while i < len(flat):
-        pos, pc, whole = flat[i]
-        job = [(pos, pc)]
-        used_b, used_c = Dp_bytes * pc[2] * pc[4], pc[2] * pc[4]
-        i += 1
-        while whole and len(job) < DJOB and i < len(flat):
-            pos2, pc2, whole2 = flat[i]
-            c2 = pc2[2] * pc2[4]
-            if (pos2 // K != pos // K or not whole2
-                    or used_b + Dp_bytes * c2 > stage_bytes
-                    or used_c + c2 > chan_cells):
-                break
-            job.append((pos2, pc2))
-            used_b += Dp_bytes * c2
-            used_c += c2
-            i += 1
-        jobs.append(job)
-    return jobs
-
-
-@pytest.mark.parametrize("kind", ["orbit", "steep", "cropped"])
-@pytest.mark.parametrize("payload", ["int8", "bf16"])
-def test_multi_slab_jobs_cover_every_slab_once(grid, kind, payload):
-    """The f16 route's SH variant and bf16 shading (both payloads) stage
-    several slabs' whole footprints a job where they fit: each job fits the
-    stage and the shaded-cell buffer, holds the slabs of one window in
-    march order, every piece of every slab lies in exactly one job, and a
-    slab split in pieces is staged a piece a job. At 32x8 an orbit's
-    footprints mostly share their job with another slab's."""
-    params, ids, crop, _ = _pose(grid, kind)
-    Dp, esz, ch = (49, 2, 8) if payload == "bf16" else (50, 1, 16)
-    K = slab_march._K_STEP
-    for rows in (1, 2):
-        cfg = slab_march.display_config(51 if rows == 2 else 1, GI, G // K,
-                                        Dp, 132, esz=esz)
-        (y_lo, y_hi), (x_lo, x_hi) = _footprints(params, ids, G, GI, rows,
-                                                 crop)
-        n_jobs = n_slabs = 0
-        for ty in range(0, y_lo.shape[2], 3):
-            for tx in range(0, x_lo.shape[2], 3):
-                slabs = []
-                for si in range(len(ids)):
-                    f = (y_lo[0, si, ty], y_hi[0, si, ty], x_lo[0, si, tx],
-                         x_hi[0, si, tx])
-                    if f[0] <= f[1] and f[2] <= f[3]:
-                        slabs.append((si, _pieces(
-                            f, crop[2], Dp * esz, cfg["stage_bytes"],
-                            cfg["chan_cells"], ch=ch)))
-                jobs = _jobs(slabs, K, Dp * esz, cfg["stage_bytes"],
-                             cfg["chan_cells"])
-                assert [x for j in jobs for x in j] == [
-                    (si, pc) for si, pcs in slabs for pc in pcs]
-                whole = {si for si, pcs in slabs if len(pcs) == 1}
-                for job in jobs:
-                    cells = [pc[2] * pc[4] for _, pc in job]
-                    assert sum(cells) * Dp * esz <= cfg["stage_bytes"]
-                    assert sum(cells) <= cfg["chan_cells"]
-                    assert len({si // K for si, _ in job}) == 1
-                    assert len(job) <= DJOB
-                    if len(job) > 1:
-                        assert all(si in whole for si, _ in job)
-                n_jobs += len(jobs)
-                n_slabs += len(slabs)
-        if kind == "orbit" and rows == 1:
-            assert n_jobs < 0.7 * n_slabs, (payload, n_jobs / n_slabs)

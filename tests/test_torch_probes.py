@@ -331,7 +331,7 @@ def test_display_march_summarize():
     """A launch's clock rows summed as the probe reports them: the parts
     and the loop over the blocks, each part's share, the slowest block's
     row, the jobs, slabs and windows summed, a block's mean and most, the
-    jobs a slab."""
+    pieces a slab."""
     from volrend_torch.probes import display_march
     n = len(display_march.PARTS)
     rows = np.zeros((3, len(display_march.SLOTS)), np.int64)
@@ -348,7 +348,7 @@ def test_display_march_summarize():
     assert out["slowest"]["shade"] == 100 and out["slowest"]["jobs"] == 6
     assert out["jobs"] == {"sum": 15, "mean": 5.0, "max": 6}
     assert out["slabs"]["sum"] == 10 and out["windows"]["max"] == 2
-    assert out["jobs_a_slab"] == 1.5
+    assert out["pieces_a_slab"] == 1.5
     assert abs(sum(out["share"].values()) - 1.0) < 1e-3
 
 

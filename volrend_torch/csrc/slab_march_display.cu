@@ -118,12 +118,16 @@
 //   slab against 1.12), shading at 39 % and the walk at 10 %. Tried and
 //   not kept (PERF.md): one TMA box a job waited 80 % of the loop for its
 //   rows of 80 bytes across 49 planes and, its shape fixed by its tensor
-//   map, took 1.82 pieces a slab: 2.8x slower; a box must start on a
-//   16-byte chunk (one that starts inside a chunk faults with an illegal
-//   instruction, probes/tma_box.py --box3: the fault of the first TMA
-//   version). The next piece's copies issued in parts between the tap sums
-//   ran 2-3 % slower than in one burst. Several slabs a job do not fit: a
-//   32x16 tile's footprint is ~760 cells, the bf16 stage ~990.
+//   map, took 1.82 pieces a slab: 2.8x slower; on this card every box
+//   tried that starts inside a 16-byte chunk faults with an illegal
+//   instruction (probes/tma_box.py --box3 --x: the first TMA version's
+//   fault). The next piece's copies issued in parts between the tap sums
+//   ran 2-3 % slower than in one burst. Several slabs a job (the whole
+//   footprints of up to four slabs of a window staged together where they
+//   fit, their walk states handed over in shared memory: 0.70 jobs a slab
+//   at 32x8, 1.32 at 32x16) ran 5.5-5.8 % slower than the same loop with
+//   one slab a job: each job's copies come in a larger burst, and the
+//   barriers it saves were 0.4 % of the loop.
 // - SG and ASG shading streams the lobes: one instantiation a format,
 //   payload and tile height takes any count of 1 to 25 lobes at run time.
 //   A block folds each lobe's constants once, as it loads them into shared
@@ -153,7 +157,6 @@ constexpr int DNT = DTX * DWARPS;  // threads per block
 constexpr int MAX_COLS = 240;      // a piece's columns (its row <= 256 B)
 constexpr int SMEM_MAX = 232448;   // dynamic shared memory a block can use
 constexpr int MAX_LOBES = 25;      // SG/ASG lobes a launch takes
-constexpr int DJOB = 4;            // slabs a multi-slab job stages at most
 // the depth mode's shading, a variant of its own for every format: sigma
 // alone (beside the basis formats F_RGBA .. F_ASG of slab_common.cuh)
 constexpr int F_DEPTH = 4;
@@ -393,9 +396,8 @@ struct Var {
   // float4 a lobe of the folded lobe table (fold_lobe)
   static constexpr int LW = FM == F_ASG ? 3 : 1;
   // the SH variants without options but the int8 default (the f16
-  // route's and bf16 shading's) stage whole footprints of several slabs a
-  // job (the multi-slab loop of display_kernel)
-  static constexpr bool MS = FM == F_SH && !O && (BF || BS);
+  // route's and bf16 shading's) take each job's walk once
+  static constexpr bool WALK1 = FM == F_SH && !O && (BF || BS);
 };
 
 // a launch's arguments: the payload, geometry and stage, and the run-time
@@ -830,87 +832,6 @@ __device__ __forceinline__ void copy_piece(const int8_t* payload,
   }
 }
 
-// every thread: its share of one piece of the walk into ``st``: cp.async
-// copies (copy_piece) when the payload's rows are whole 16-byte chunks of
-// an aligned base, else element copies, lanes along x (the same stage
-// layout: row ly holds the DP planes of BX cells); the caller commits the
-// copies or, for element copies, passes a barrier before they are read.
-template <class V, class W>
-__device__ __forceinline__ void stage_piece(const DispArgs& a, const W& pw,
-                                            const WalkGeo& g, uint8_t* st,
-                                            int tid, int DP) {
-  if (a.async) {
-    copy_piece<V::ESZ>(a.payload, pw, g, st, tid, a.Gy, a.Gx, a.y0, DP);
-    return;
-  }
-  using E = std::conditional_t<V::BF16, uint16_t, uint8_t>;
-  const int BX = pw.BX(g), FY = pw.rows(g), cs = pw.cs(g);
-  const int warp = tid >> 5, lane = tid & 31;
-  const E* src = reinterpret_cast<const E*>(a.payload) +
-                 (size_t)pw.sid * DP * a.Gy * a.Gx;
-  E* ste = reinterpret_cast<E*>(st);
-  for (int row = warp; row < FY * DP; row += DWARPS) {
-    const int ly = row / DP, d = row - ly * DP;
-    const int gy = pw.py - a.y0 + ly;
-    for (int lx = lane; lx < BX; lx += 32) {
-      const int gx = cs + lx;
-      ste[row * BX + lx] =
-          gx < a.Gx ? src[((size_t)d * a.Gy + gy) * a.Gx + gx] : (E)0;
-    }
-  }
-}
-
-// A multi-slab job: the producer stages the walk's next piece at ``st``
-// and, while that piece and the next are whole footprints of one window
-// (K consecutive slabs, one view direction) and both fit what is left of
-// the stage and of the shaded-cell buffer, the next slabs' (at most DJOB),
-// one after the other; thread 0 writes their walk states to ``job`` and
-// their count to ``nj``, which the consumer reads after the barrier that
-// ends its current job. ``pw`` is left at the job after; returns whether
-// there is one.
-template <class V, class W, class Clock>
-__device__ __forceinline__ bool stage_job(const DispArgs& a, W& pw,
-                                          const WalkGeo& g, uint8_t* st,
-                                          W* job, int* nj, int tid, int DP,
-                                          Clock& clk) {
-  const int wi = pw.wi;
-  int n = 0, bytes = 0, cells = 0;
-  bool more;
-  for (;;) {
-    stage_piece<V>(a, pw, g, st + bytes, tid, DP);
-    clk.lap(D_ISSUE);
-    if (tid == 0) job[n] = pw;
-    ++n;
-    const int c = pw.rows(g) * pw.BX(g);
-    bytes += DP * c * V::ESZ;
-    cells += c;
-    const bool whole = pw.first_piece() && pw.last_piece(g);
-    more = pw.next(g);
-    clk.lap(D_WALK);
-    if (!more || !whole || n == DJOB || pw.wi != wi || !pw.last_piece(g))
-      break;
-    const int c2 = pw.rows(g) * pw.BX(g);
-    if (bytes + DP * c2 * V::ESZ > g.stage_bytes ||
-        cells + c2 > g.chan_cells)
-      break;
-  }
-  if (tid == 0) *nj = n;
-  return more;
-}
-
-// the multi-slab loop's jobs: two slots of DJOB walk states, and their
-// counts
-template <class W>
-__device__ __forceinline__ W* job_smem() {
-  __shared__ W s[2 * DJOB];
-  return s;
-}
-
-__device__ __forceinline__ int* njob_smem() {
-  __shared__ int s[2];
-  return s;
-}
-
 // bf16 shading: each staged plane's scale as a bf16 pair
 template <int N>
 __device__ __forceinline__ __nv_bfloat162* qsb_smem() {
@@ -1100,180 +1021,8 @@ __global__ void __launch_bounds__(DNT, 2)
   wg.vkGb = (v0 + dv * (float)kl) * Gf;
   WalkV cw;
   bool has = cw.from(wg, 0, 0);
-  if constexpr (V::MS) {
-    // The multi-slab loop: a job is one piece of a slab's footprint, or the
-    // whole footprints of up to DJOB consecutive slabs of a window that fit
-    // the stage together (stage_job); its slabs are shaded into the shaded-
-    // cell buffer one after the other, then tap-summed and composited in
-    // march order, so a job's barriers and copy wait are paid once for all
-    // its slabs. The producer walks each piece once and hands the consumer
-    // its walk states through shared memory (two slots, one a job in
-    // flight).
-    WalkV* const s_job = job_smem<WalkV>();
-    int* const s_nj = njob_smem();
-    uint8_t* const st = smem;
-    WalkV pw = cw;
-    bool p_has = false;
-    if (has) p_has = stage_job<V>(a, pw, wg, st, s_job, s_nj, tid, DP, clk);
-    if (a.async) {
-      cp_async_commit();
-      cp_async_wait();
-    }
-    __syncthreads();
-    clk.lap(D_PRO);
 
-    std::conditional_t<V::BSH, ShadeCtxB, ShadeCtx> sh;
-    sh.invG = 1.f / Gf;
-    sh.cy = cy;
-    sh.cx = cx;
-    sh.thr = sigma_thresh;
-    sh.prm = s_prm;
-    sh.qs = s_qs;
-    if constexpr (V::BSH) sh.qsb = qsb;
-    sh.sc = 0.f;
-    sh.ssign = 0.f;
-
-    int cur_wi = -1, slot = 0;
-    bool work = false;
-    while (has) {
-      const WalkV* job = s_job + slot * DJOB;
-      const int nj = s_nj[slot];
-      const int wi = job[0].wi;  // every slab of a job is in one window
-      if (wi != cur_wi) {
-        // a new window: leave when no pixel can still accumulate; skip the
-        // window's shading when no live pixel meets it
-        cur_wi = wi;
-        const int w = s_w[wi];
-        const float zw0 = (float)(w * K) / Gf + zbase;
-        const float zw1 = ((float)(w * K) + (float)K) / Gf + zbase;
-        bool alive_any = false, live_any = false;
-#pragma unroll
-        for (int rr = 0; rr < ROWS; ++rr) {
-          const bool passed = a.flip ? (zw1 < zlo[rr]) : (zw0 > zhi[rr]);
-          const bool alive = inpix[rr] && (T[rr] >= stop_thresh) &&
-                             (zlo[rr] <= zhi[rr]) && !passed;
-          alive_any |= alive;
-          live_any |= alive && (zlo[rr] <= zw1) && (zhi[rr] >= zw0);
-        }
-        if (!__syncthreads_or(alive_any)) break;
-        work = __syncthreads_or(live_any);
-        // view directions once per window, at the window centre
-        sh.sc = ((float)(w * K) + 0.5f * (float)K) / Gf + zbase - cz;
-        sh.ssign = sign_of(sh.sc);
-        clk.lap(D_BWIN);
-        clk.count(DM_WIN);
-      }
-      if (work) {
-        // each slab's piece: stage bytes from boff, shaded cells from coff
-        int boff = 0, coff = 0;
-        for (int i = 0; i < nj; ++i) {
-          const WalkV& jw = job[i];
-          const int FY = jw.rows(wg), FX = jw.cols(), BX = jw.BX(wg);
-          const int xoff = jw.xoff(wg), gx0 = a.x0 + jw.cs(wg), py = jw.py;
-          const uint8_t* sp = st + boff;
-          Cell* cp = s_chan + coff;
-          // two cells a thread: pairs p_lo .. of each row
-          const int p_lo = xoff >> 1;
-          const int pcols = ((xoff + FX - 1) >> 1) - p_lo + 1;
-          const int units = FY * pcols;
-          for (int u = tid; u < units; u += DNT) {
-            const int ly = u / pcols, x = 2 * (p_lo + u - ly * pcols);
-            if constexpr (V::BF16) {
-              shade_pair<BD, V>(sp + 2 * (ly * DP * BX + x), 2 * BX, 0, sh, o,
-                                DP, py + ly, gx0 + x, cp + ly * BX + x);
-            } else {
-              shade_pair<BD, V>(sp + ly * DP * BX + (x & ~3), BX, x & 3, sh,
-                                o, DP - 1, py + ly, gx0 + x,
-                                cp + ly * BX + x);
-            }
-          }
-          boff += DP * FY * BX * V::ESZ;
-          coff += FY * BX;
-        }
-      }
-      clk.lap(D_SHADE);
-      __syncthreads();  // the stage is consumed, s_chan is complete
-      clk.lap(D_BSHADE);
-      // the next job into the stage and the other slot; its copies overlap
-      // this job's tap sums
-      has = p_has;
-      if (p_has)
-        p_has = stage_job<V>(a, pw, wg, st, s_job + (slot ^ 1) * DJOB,
-                             s_nj + (slot ^ 1), tid, DP, clk);
-      if (a.async) cp_async_commit();
-      clk.lap(D_ISSUE);
-      if (work) {
-        int coff = 0;
-        for (int i = 0; i < nj; ++i) {
-          const WalkV& jw = job[i];
-          const int FY = jw.rows(wg), FX = jw.cols(), BX = jw.BX(wg);
-          const int gx0 = a.x0 + jw.cs(wg), py = jw.py, px = jw.px;
-          const float4* cp = s_chan + coff;
-          const float z = jw.z;
-          const float s0 = z - hG - cz, s1 = z + hG - cz;
-          const bool first = jw.first_piece(), last = jw.last_piece(wg);
-#pragma unroll
-          for (int rr = 0; rr < ROWS; ++rr) {
-            if (!inpix[rr]) continue;
-            if (first) w4[rr] = make_float4(0.f, 0.f, 0.f, 0.f);
-            const PixelSpan sp = pixel_span(cyG, cxG, s0, s1, ujG[rr], vkG, G,
-                                            jw.f);
-            const int ya = max(sp.ry_lo, py);
-            const int yb = min(sp.ry_hi, py + FY - 1);
-            const int xa = max(sp.rx_lo, px);
-            const int xb = min(sp.rx_hi, px + FX - 1);
-            float4 acc = w4[rr];
-            for (int cyy = ya; cyy <= yb; ++cyy) {
-              const float wr = overlap(cyy, G, sp.pmin, sp.pmax, sp.inv_r);
-              const float4* row = cp + (cyy - py) * BX;
-              for (int cxx = xa; cxx <= xb; ++cxx) {
-                const float wgt =
-                    wr * overlap(cxx, G, sp.qmin, sp.qmax, sp.inv_c);
-                const float4 v = row[cxx - gx0];
-                acc.x += wgt * v.x;
-                acc.y += wgt * v.y;
-                acc.z += wgt * v.z;
-                acc.w += wgt * v.w;
-              }
-            }
-            w4[rr] = acc;
-            clk.lap(D_TAPS);
-            if (last) {
-              // boundary slabs contribute by their overlap with [zlo, zhi]
-              const float frac = fminf(
-                  fmaxf((fminf(z + hG, zhi[rr]) - fmaxf(z - hG, zlo[rr])) *
-                            Gf,
-                        0.f),
-                  1.f);
-              const float tau = acc.x * dtp[rr] * frac;
-              const float att = __expf(-tau);
-              const float sig_inv = 1.f / fmaxf(acc.x, 1e-12f);
-              if (T[rr] >= stop_thresh && tau > 0.f) {
-                const float wn = (T[rr] * (1.f - att)) * sig_inv;
-                r[rr] += wn * acc.y;
-                g[rr] += wn * acc.z;
-                b[rr] += wn * acc.w;
-                T[rr] = T[rr] * att;
-              }
-            }
-            clk.lap(D_COMP);
-          }
-          coff += FY * BX;
-        }
-      }
-      clk.count(DM_JOB);
-      for (int i = 0; i < nj; ++i)
-        if (job[i].first_piece()) clk.count(DM_SLAB);
-      if (a.async) cp_async_wait();  // the next job's copies
-      clk.lap(D_WAIT);
-      __syncthreads();  // ... are in for all threads; s_chan has been read
-      clk.lap(D_BEND);
-      slot ^= 1;
-    }
-  } else {
-  // The one-piece loop of the other variants: a job is one piece of one
-  // slab, and the consumer walks the producer's steps again.
-  // The producer: every thread copies its share, one job ahead.
+  // the producer: every thread copies its share, one job ahead
   WalkV pw = cw;
   bool p_has = has;
   uint8_t* const st = smem;
@@ -1306,6 +1055,7 @@ __global__ void __launch_bounds__(DNT, 2)
 
   int cur_wi = -1;
   bool work = false;
+  WalkV nxt = cw;  // WALK1: the next job, as the producer walked it
   while (has) {
     if (cw.wi != cur_wi) {
       // a new window: leave when no pixel can still accumulate; skip the
@@ -1398,6 +1148,7 @@ __global__ void __launch_bounds__(DNT, 2)
     clk.lap(D_SHADE);
     __syncthreads();  // the stage is consumed, s_chan is complete
     clk.lap(D_BSHADE);
+    bool issued = false;  // WALK1: the producer staged the next job
     if (a.async) {
       if (p_has) {
         if constexpr (V::DEPTH)
@@ -1407,6 +1158,11 @@ __global__ void __launch_bounds__(DNT, 2)
           copy_piece<V::ESZ>(a.payload, pw, wg, st, tid, a.Gy, a.Gx, a.y0,
                              DP);
         clk.lap(D_ISSUE);
+        if constexpr (V::WALK1) {
+          // the producer's piece is the consumer's next job
+          nxt = pw;
+          issued = true;
+        }
         p_has = pw.next(wg);
         clk.lap(D_WALK);
       }
@@ -1484,13 +1240,21 @@ __global__ void __launch_bounds__(DNT, 2)
     }
     clk.count(DM_JOB);
     if (cw.first_piece()) clk.count(DM_SLAB);
-    has = cw.next(wg);
+    if constexpr (V::WALK1) {
+      if (a.async) {
+        cw = nxt;
+        has = issued;
+      } else {
+        has = cw.next(wg);
+      }
+    } else {
+      has = cw.next(wg);
+    }
     clk.lap(D_WALK);
     if (a.async) cp_async_wait();  // the next job's copies
     clk.lap(D_WAIT);
     __syncthreads();  // ... are in for all threads; s_chan has been read
     clk.lap(D_BEND);
-  }
   }
   // a block that leaves early waits for the copies it still has in flight
   if (a.async) asm volatile("cp.async.wait_all;" ::: "memory");

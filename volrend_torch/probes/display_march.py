@@ -134,9 +134,7 @@ def summarize(rows: np.ndarray) -> dict:
     """A launch's clock rows as the probe reports them: each part and the
     loop summed over the blocks (thread 0's cycles), each part's share of
     the summed loop, the slowest block's loop and parts, and the jobs,
-    slabs and windows summed, a block's mean and most; the jobs a slab (a
-    job: one piece of a slab, or the whole footprints of several slabs in
-    the multi-slab loop)."""
+    slabs and windows summed, a block's mean and most."""
     n = len(PARTS)
     loop = rows[:, n]
     slow = int(np.argmax(loop))
@@ -150,7 +148,7 @@ def summarize(rows: np.ndarray) -> dict:
         col = rows[:, n + 1 + i]
         out[k] = {"sum": int(col.sum()), "mean": float(col.mean()),
                   "max": int(col.max())}
-    out["jobs_a_slab"] = out["jobs"]["sum"] / max(out["slabs"]["sum"], 1)
+    out["pieces_a_slab"] = out["jobs"]["sum"] / max(out["slabs"]["sum"], 1)
     return out
 
 
