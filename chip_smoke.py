@@ -2357,6 +2357,11 @@ def variant_check(torch, kernels, tag, grid, opt, cams, key, stats,
                    bound_by=bnd[1], library_ms=None, poses=len(sub),
                    variant=cfg["variant"], tag=tag)
     row["max_abs_err"] = max(row["max_abs_err"], err)
+    # every case's time and bound, on its sub-batch and its whole batch
+    row.setdefault("cases", {})[tag] = {
+        "ms": ms, "bound_ms": bnd[0], "bound_by": bnd[1], "poses": len(sub),
+        "whole_ms": whole_ms, "whole_bound_ms": whole_bnd[0],
+        "whole_poses": P}
     log(f"kernel M [{tag}, {cfg['variant']}]: {len(sub)} poses {ms:.3f} ms "
         f"(bound {bnd[0]:.3f} ms, {bnd[1]}; plain {plain_ms:.1f} ms), "
         f"{P} poses {whole_ms:.3f} ms (bound {whole_bnd[0]:.3f} ms, "
@@ -2757,10 +2762,74 @@ def train_variant_case(torch, dev, stats, case, tdev, topt, cams,
                            "march" if kind == "MT" else "march_bwd"])
         row["max_abs_err"] = max([row["max_abs_err"]] + [
             k[kind]["max_abs_err"] for k in kern.values()])
+        # every case's (and payload's) time and bound, each on its own D
+        for dt, k in kern.items():
+            row.setdefault("cases", {})[
+                f"{case}-{dt.replace('torch.', '')}"] = {
+                    key: k[kind][key] for key in ("ms", "plain_ms",
+                                                  "bound_ms", "bound_by")}
     if D in (19, 4):
         stats[f"BK_{D}"] = dict(bk, launches=r["counts"]["bake"], case=case)
     del tr, tgts
     torch.cuda.empty_cache()
+    return out
+
+
+#: the training pair's SG and ASG instantiations (by lobe bound, each
+#: payload) as the card made them before their redesign (commit 5ec07bc,
+#: NVIDIA H100 80GB HBM3; probes/train_info.py): resident blocks per SM of
+#: kernel M's training mode, M-bwd's pass 1 and its pass 2
+LOBE_PARENT_BLOCKS = {
+    "SG<=4-f32": (4, 4, 12),
+    "SG<=4-bf16": (4, 5, 12),
+    "SG<=9-f32": (2, 2, 12),
+    "SG<=9-bf16": (4, 4, 12),
+    "SG<=16-f32": (2, 2, 8),
+    "SG<=16-bf16": (3, 3, 8),
+    "SG<=25-f32": (1, 1, 5),
+    "SG<=25-bf16": (2, 2, 5),
+    "ASG<=4-f32": (4, 4, 12),
+    "ASG<=4-bf16": (4, 5, 12),
+    "ASG<=9-f32": (2, 2, 10),
+    "ASG<=9-bf16": (4, 4, 10),
+    "ASG<=16-f32": (2, 2, 7),
+    "ASG<=16-bf16": (3, 3, 7),
+    "ASG<=25-f32": (1, 1, 4),
+    "ASG<=25-bf16": (2, 2, 4),
+}
+
+
+def train_lobe_infos(kernels) -> dict:
+    """What the card makes of every SG and ASG instantiation of kernel M's
+    training mode and M-bwd (lobe bounds 4, 9, 16 and 25; f32 and bf16
+    payloads): registers, local bytes and blocks per SM, each logged
+    beside the SH default's of the same bound and payload. Fails if M or
+    pass 1 takes more local bytes than that SH default, pass 2 takes any,
+    or one holds fewer blocks an SM than before the redesign
+    (LOBE_PARENT_BLOCKS)."""
+    out = {}
+    parts = ("M", "M-bwd pass 1", "M-bwd pass 2")
+    for f32 in (1, 0):
+        for bound in (4, 9, 16, 25):
+            sh = train_occupancy(kernels, bound, f32)
+            for name, fmt in (("SG", 2), ("ASG", 3)):
+                key = f"{name}<={bound}-{'f32' if f32 else 'bf16'}"
+                info = train_occupancy(kernels, bound, f32, fmt, True)
+                out[key] = {p: info[p] for p in parts}
+                log(f"training {key}: " + "; ".join(
+                    f"{p} {info[p]['regs']} registers, "
+                    f"{info[p]['spill_bytes']} local bytes (SH{bound} "
+                    f"{sh[p]['spill_bytes']}), {info[p]['blocks_per_sm']} "
+                    f"blocks an SM" for p in parts))
+                limit = (sh["M"]["spill_bytes"],
+                         sh["M-bwd pass 1"]["spill_bytes"], 0)
+                blocks = LOBE_PARENT_BLOCKS.get(key, (0, 0, 0))
+                if any(info[p]["spill_bytes"] > lim
+                       or info[p]["blocks_per_sm"] < b
+                       for p, lim, b in zip(parts, limit, blocks)):
+                    fail(f"training {key} takes more local bytes than SH"
+                         f"{bound}'s {limit} or fewer blocks an SM than "
+                         f"{blocks}: {out[key]}")
     return out
 
 
@@ -2773,12 +2842,15 @@ def train_variants_phase(torch, dev, stats):
     record width and a new bake width) and the SH9 tree with rot_dirs, a
     basis window and a render_bbox, each through train_variant_case (SG9
     also on the lean trainer's bf16 bake, and one step with the precise
-    warp's switch on). Returns {case: summary}."""
+    warp's switch on); first every SG and ASG instantiation's registers
+    and local bytes (train_lobe_infos). Returns {case: summary}."""
+    from volrend_torch import kernels
     from volrend_torch.models.synthetic import make_solid_tree
     from volrend_torch.ops.camera import Camera
     from volrend_torch.probes import _common
     from volrend_torch.utils.options import RenderOptions
     topt = RenderOptions(max_steps=1024)
+    infos = train_lobe_infos(kernels)
     tree = _common.load_tree(CACHE_TRAIN, lambda: make_solid_tree(
         max_depth=DEPTH, basis_dim=9, seed=7))
     tdev = tree.to_device(lut_depth=None, device=dev)
@@ -2790,6 +2862,7 @@ def train_variants_phase(torch, dev, stats):
         out[case] = train_variant_case(
             torch, dev, stats, case, trees[key], topt.replace(**option),
             cams, lean=case == "SG9", precise=case == "SG9")
+    out["lobe_instantiations"] = infos
     del trees, tdev, tree
     torch.cuda.empty_cache()
     return out

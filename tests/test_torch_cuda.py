@@ -1678,6 +1678,65 @@ def test_default_train_launches_keep_their_configuration(card):
         assert (list(m[:4]), list(b)) == (want[0], want[1]), key
 
 
+#: the SG and ASG instantiations of the training pair (by lobe bound and
+#: payload) before their lobes were folded and streamed (commit 5ec07bc,
+#: NVIDIA H100 80GB HBM3; ``python volrend_torch/probes/train_info.py``):
+#: resident blocks per SM of M, M-bwd's pass 1 and its pass 2, which the
+#: redesign keeps or raises
+LOBE_TRAIN_INFO = {
+    "SG<=4-f32": (4, 4, 12),
+    "SG<=4-bf16": (4, 5, 12),
+    "SG<=9-f32": (2, 2, 12),
+    "SG<=9-bf16": (4, 4, 12),
+    "SG<=16-f32": (2, 2, 8),
+    "SG<=16-bf16": (3, 3, 8),
+    "SG<=25-f32": (1, 1, 5),
+    "SG<=25-bf16": (2, 2, 5),
+    "ASG<=4-f32": (4, 4, 12),
+    "ASG<=4-bf16": (4, 5, 12),
+    "ASG<=9-f32": (2, 2, 10),
+    "ASG<=9-bf16": (4, 4, 10),
+    "ASG<=16-f32": (2, 2, 7),
+    "ASG<=16-bf16": (3, 3, 7),
+    "ASG<=25-f32": (1, 1, 4),
+    "ASG<=25-bf16": (2, 2, 4),
+}
+
+
+def test_lobe_train_launches_stay_within_their_limits(card):
+    """Every SG and ASG instantiation of kernel M's training mode and of
+    M-bwd, at lobe bounds 4, 9, 16 and 25 on f32 and bf16 payloads: M and
+    pass 1 take no more local bytes than the SH default of the same bound
+    and payload, pass 2 takes none, and each holds at least the blocks an
+    SM it held before the redesign (LOBE_TRAIN_INFO)."""
+    assert len(LOBE_TRAIN_INFO) == 16
+
+    def info(bd, f32, fmt):
+        m = (ctypes.c_int * 11)()
+        b = (ctypes.c_int * 7)()
+        opt = int(fmt != 1)
+        kernels.check(slab_march.train_lib("slab_march", fmt, opt)
+                      .vt_march_slabs_info(bd, f32, fmt, opt, m),
+                      "slab_march")
+        kernels.check(slab_march.train_lib("slab_march_bwd", fmt, opt)
+                      .vt_march_slabs_bwd_info(bd, f32, fmt, opt, b),
+                      "slab_march_bwd")
+        # (blocks, local bytes) of M, pass 1 and pass 2
+        return ((m[0], m[2]), (b[0], b[2]), (b[4], b[6]))
+
+    from volrend_torch import kernels
+    for key, blocks in LOBE_TRAIN_INFO.items():
+        name, rest = key.split("<=")
+        bound, pay = rest.split("-")
+        f32 = int(pay == "f32")
+        sh = info(int(bound), f32, 1)
+        got = info(int(bound), f32, 2 if name == "SG" else 3)
+        assert all(g[0] >= b for g, b in zip(got, blocks)), (key, got)
+        assert got[0][1] <= sh[0][1] and got[1][1] <= sh[1][1], (key, got,
+                                                                  sh)
+        assert got[2][1] == 0, (key, got)
+
+
 def test_train_variants_refuse_what_is_not_built(card, group_geom):
     """More than 25 lobes raises ValueError, as on the display path; the
     option variant is the only one an SG tree takes (the entry refuses an

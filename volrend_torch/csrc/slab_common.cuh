@@ -109,37 +109,97 @@ __device__ __forceinline__ void rotate(const float* R, float& x, float& y,
   z = rz;
 }
 
-// The basis of format FM at the unit direction (x, y, z): SH's BD
-// functions, or nb <= BD SG/ASG lobes whose parameters ``ext`` holds (4 or
-// 11 floats a lobe), each divided by the lobe count (inv_nb = 1 / nb);
-// lobes past nb are zero.
-template <int BD, int FM>
-__device__ __forceinline__ void basis_at(float x, float y, float z,
-                                         const float* ext, int nb,
-                                         float inv_nb, float* bk) {
-  if constexpr (FM == F_SH) {
-    sh_basis<BD>(x, y, z, bk);
-  } else if constexpr (FM == F_SG) {
-    // exp(lambda (mu . d - 1)) / bd (lumisphere.hpp:30-36)
+// 2^x, one MUFU.EX2 (subnormal results flush to zero)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The SG and ASG lobes, folded once a block and streamed: kernel M's
+// display mode (slab_march_display.cu) and the training pair (tmarch:
+// march_loop's shading and M-bwd's shade pass) share this one fold.
+//
+// Lobe k of ``nb`` (its raw parameters ``ext``: 4 floats a lobe for SG, 11
+// for ASG) folded into out[LW * k ..] (LW float4: 1 for SG, 3 for ASG),
+// for one ex2 a lobe and cell; lobe k's value times the scale ``q`` (the
+// bakes' scales are > 0; the training bake's are ones) at the unit view
+// direction d:
+// - SG, exp(lambda (mu . d - 1)) / nb (lumisphere.hpp:30-36) x q:
+//   (A, B) with A = log2(e) lambda mu, B = log2(q / nb) - log2(e)
+//   lambda; the value ex2(A . d + B).
+// - ASG, S exp(-a (mu_x . d)^2 - b (mu_y . d)^2) / nb (lumisphere.hpp:
+//   14-28) x q, S = mu_z . d: the exponent times log2(e) is the
+//   quadratic form -log2(e) d^T M d, M = a mu_x mu_x^T + b mu_y mu_y^T,
+//   with z^2 = 1 - x^2 - y^2 folded into its constant: (c, qxx, qyy,
+//   qxy), (qxz, qyz, S'x, S'y), (S'z, 0, 0, 0), S' = mu_z q / nb; the
+//   value (S' . d) ex2(c + qxx x^2 + qyy y^2 + qxy xy + qxz xz + qyz yz).
+//   Five multiply-adds for the exponent whatever the signs of a and b.
+// volrend_torch/ops/slab_march.py's plain versions evaluate the lobes as
+// the reference writes them; tests/test_torch_display_lobes.py and
+// tests/test_torch_train_lobes.py hold this fold, mirrored in PyTorch,
+// against the reference's basis.
+template <int FM>
+__device__ __forceinline__ void fold_lobe(const float* ext, float q, int k,
+                                          int nb, float4* out) {
+  constexpr float L2E = 1.4426950408889634f;
+  if constexpr (FM == F_SG) {
+    const float* e = ext + 4 * k;
+    const float l = e[0] * L2E;
+    out[k] = make_float4(l * e[1], l * e[2], l * e[3],
+                         (log2f(q) - log2f((float)nb)) - l);
+  } else {
+    const float* e = ext + 11 * k;
+    const float a = e[0], b = e[1];
+    const float *mx = e + 2, *my = e + 5, *mz = e + 8;
+    float m[3][3];
 #pragma unroll
-    for (int k = 0; k < BD; ++k) {
-      const float* e = ext + 4 * k;
-      bk[k] = k < nb
-                  ? __expf(e[0] * (e[1] * x + e[2] * y + e[3] * z - 1.f)) *
-                        inv_nb
-                  : 0.f;
-    }
-  } else if constexpr (FM == F_ASG) {
-    // S exp(-a dotx^2 - b doty^2) / bd (lumisphere.hpp:14-28)
+    for (int i = 0; i < 3; ++i)
 #pragma unroll
-    for (int k = 0; k < BD; ++k) {
-      const float* e = ext + 11 * k;
-      const float dx = e[2] * x + e[3] * y + e[4] * z;
-      const float dy = e[5] * x + e[6] * y + e[7] * z;
-      const float sz = e[8] * x + e[9] * y + e[10] * z;
-      bk[k] = k < nb ? sz * __expf(-e[0] * dx * dx - e[1] * dy * dy) * inv_nb
-                     : 0.f;
-    }
+      for (int j = 0; j < 3; ++j)
+        m[i][j] = a * (mx[i] * mx[j]) + b * (my[i] * my[j]);
+    const float s = -L2E, s2 = -2.f * L2E, qn = q / (float)nb;
+    out[3 * k] = make_float4(s * m[2][2], s * (m[0][0] - m[2][2]),
+                             s * (m[1][1] - m[2][2]), s2 * m[0][1]);
+    out[3 * k + 1] = make_float4(s2 * m[0][2], s2 * m[1][2], mz[0] * qn,
+                                 mz[1] * qn);
+    out[3 * k + 2] = make_float4(mz[2] * qn, 0.f, 0.f, 0.f);
+  }
+}
+
+// A unit direction's terms the lobes read: SG x, y, z; ASG also x^2, y^2,
+// xy, xz, yz (the quadratic form's).
+struct LobeDir {
+  float x, y, z, xx, yy, xy, xz, yz;
+};
+
+template <int FM>
+__device__ __forceinline__ LobeDir lobe_dir(float x, float y, float z) {
+  LobeDir d{};
+  d.x = x;
+  d.y = y;
+  d.z = z;
+  if constexpr (FM == F_ASG) {
+    d.xx = x * x;
+    d.yy = y * y;
+    d.xy = x * y;
+    d.xz = x * z;
+    d.yz = y * z;
+  }
+  return d;
+}
+
+// lobe L's value times its scale at direction d (fold_lobe)
+template <int FM>
+__device__ __forceinline__ float lobe_at(const float4* L, const LobeDir& d) {
+  if constexpr (FM == F_SG) {
+    const float4 a = L[0];
+    return ex2(fmaf(a.x, d.x, fmaf(a.y, d.y, fmaf(a.z, d.z, a.w))));
+  } else {
+    const float4 a = L[0], b = L[1], c = L[2];
+    const float e = fmaf(b.y, d.yz, fmaf(b.x, d.xz, fmaf(a.w, d.xy, fmaf(
+        a.z, d.yy, fmaf(a.y, d.xx, a.x)))));
+    return fmaf(c.x, d.z, fmaf(b.w, d.y, b.z * d.x)) * ex2(e);
   }
 }
 
@@ -331,7 +391,9 @@ __device__ __forceinline__ float sigma_of(uint32_t w, long long e) {
 // the lobe count's bound (1 for RGBA). A record holds at most DMAX values:
 // 3 B + 1, or 4 for RGBA; SG and ASG take theirs, 3 nb + 1 for nb <= B
 // lobes, at run time (RTD). The default variants, SH without options
-// (ShVar), are what the training bench marches.
+// (ShVar), are what the training bench marches. SG and ASG shade from the
+// lobe table each block folds (fold_lobe: LW float4 a lobe, from EXW raw
+// floats a lobe).
 template <int FM, bool O, int B>
 struct TVar {
   static constexpr int FMT = FM, BD = B;
@@ -339,6 +401,7 @@ struct TVar {
   static constexpr bool RTD = FM == F_SG || FM == F_ASG;
   static constexpr int DMAX = FM == F_RGBA ? 4 : 3 * B + 1;
   static constexpr int EXW = FM == F_SG ? 4 : FM == F_ASG ? 11 : 0;
+  static constexpr int LW = FM == F_ASG ? 3 : 1;
 };
 template <int BD>
 using ShVar = TVar<F_SH, false, BD>;
@@ -363,14 +426,17 @@ template <class V, class A>
 using ArgsOf = typename std::conditional<V::OPT, WithVar<A>, A>::type;
 
 // An option variant's run-time state in the kernel: the rotation (shared
-// memory, or null), the lobes (shared memory), the lobe count nb and its
-// inverse, the record width D, the basis window, and the bbox (its
-// in-plane box from params 16-19).
+// memory, or null), the lobe count nb (ext and inv_nb: unused), the record
+// width D, the basis window, the bbox (its in-plane box from params
+// 16-19), and for SG and ASG the folded lobe table (shared memory,
+// fold_lobe) and the lobes [klo, khi] the window keeps.
 struct TrainOpt {
   const float* rot;
   const float* ext;
   int nb, D, blo, bhi, bbox;
   float inv_nb, lo1, hi1, lo2, hi2;
+  const float4* lobes;
+  int klo, khi;
 };
 
 // the record width of variant V: a constant, or the lobe count's (RTD)
@@ -382,14 +448,49 @@ __device__ __forceinline__ int rec_dim(const TrainOpt& o) {
     return V::DMAX;
 }
 
+// The folded lobe table's shared memory: LW float4 a lobe, N lobes.
+template <int LW, int N>
+__device__ __forceinline__ float4* lobe_table() {
+  __shared__ float4 s[LW * N];
+  return s;
+}
+
 // Load an option variant's options into shared memory (the block's NTH
 // threads; the caller synchronizes before use) and return its state; the
-// bbox's box is set from the pose's params by set_box. Empty for the
-// default variants.
+// bbox's box is set from the pose's params by set_box. SG and ASG fold
+// their lobes once here (fold_lobe), each times its scale qs[k] (the
+// payload's scales, on the device; null: ones), or copy ``folded``, a
+// table folded once a launch, where given. Empty for the default
+// variants.
 template <class V, int NTH>
-__device__ __forceinline__ TrainOpt load_opt(const VarArgs& va, int tid) {
+__device__ __forceinline__ TrainOpt load_opt(const VarArgs& va,
+                                             const float* qs, int tid,
+                                             const float4* folded = nullptr) {
   TrainOpt o{};
-  if constexpr (V::OPT) {
+  if constexpr (V::RTD) {
+    float* s = opt_smem<9>();
+    // the rotation with constant indices (a run-time index into the
+    // kernel's parameters would copy them to local memory)
+#pragma unroll
+    for (int r = 0; r < 9; ++r)
+      if (tid == r) s[r] = va.rot[r];
+    float4* t = lobe_table<V::LW, V::BD>();
+    if (folded) {
+      for (int i = tid; i < V::LW * va.nb; i += NTH) t[i] = folded[i];
+    } else {
+      for (int k = tid; k < va.nb; k += NTH)
+        fold_lobe<V::FMT>(va.extra, qs ? qs[k] : 1.f, k, va.nb, t);
+    }
+    o.rot = va.rot_on ? s : nullptr;
+    o.nb = va.nb;
+    o.D = 3 * va.nb + 1;
+    o.blo = va.blo;
+    o.bhi = va.bhi;
+    o.bbox = va.bbox;
+    o.lobes = t;
+    o.klo = max(va.blo, 0);
+    o.khi = min(va.bhi, va.nb - 1);
+  } else if constexpr (V::OPT) {
     float* s = opt_smem<9 + V::EXW * V::BD>();
     if (tid < 9) s[tid] = va.rot[tid];
     for (int i = tid; i < V::EXW * va.nb; i += NTH) s[9 + i] = va.extra[i];
@@ -559,12 +660,13 @@ __device__ __forceinline__ void voxel_rgb(const float* rec, const float* qs,
   rgb[2] = sigmoid(raw2);
 }
 
-// An option variant's rgb of a voxel, from its record ``rec`` (staged, or
-// in the payload; values as pay_val reads them), as the reference's kernel
-// shades it (pallas_slab.py:391-471): SH, SG and ASG take sigmoid(sum_k
-// rec[c nb + k] bk[k] qs[k]), bk the basis at the view direction rotated
-// by o.rot, zero outside the window [blo, bhi] and past nb lobes (bk is
-// returned so); RGBA takes rec[c] qs[c] (no basis, no sigmoid).
+// An SH or RGBA option variant's rgb of a voxel, from its record ``rec``
+// (staged, or in the payload; values as pay_val reads them), as the
+// reference's kernel shades it (pallas_slab.py:391-471): SH takes
+// sigmoid(sum_k rec[c BD + k] bk[k] qs[k]), bk the basis at the view
+// direction rotated by o.rot, zero outside the window [blo, bhi] (bk is
+// returned so); RGBA takes rec[c] qs[c] (no basis, no sigmoid). SG and ASG
+// take voxel_rgb_lobes.
 template <class V, typename PT>
 __device__ __forceinline__ void voxel_rgb_opt(const PT* rec,
                                               const TrainOpt& o,
@@ -577,10 +679,11 @@ __device__ __forceinline__ void voxel_rgb_opt(const PT* rec,
 #pragma unroll
     for (int c = 0; c < 3; ++c) rgb[c] = pay_val(rec[c]) * qs[c];
   } else {
+    static_assert(V::FMT == F_SH, "SG and ASG shade by voxel_rgb_lobes");
     float x, y, z;
     view_dir(prm, ycm, xcm, s, ssign, x, y, z);
     if (o.rot) rotate(o.rot, x, y, z);
-    basis_at<V::BD, V::FMT>(x, y, z, o.ext, o.nb, o.inv_nb, bk);
+    sh_basis<V::BD>(x, y, z, bk);
     const int nb = V::FMT == F_SH ? V::BD : o.nb;
     float raw0 = 0.f, raw1 = 0.f, raw2 = 0.f;
 #pragma unroll
@@ -598,6 +701,135 @@ __device__ __forceinline__ void voxel_rgb_opt(const PT* rec,
     rgb[1] = sigmoid(raw1);
     rgb[2] = sigmoid(raw2);
   }
+}
+
+// How lobe_sums walks the lobes in the march (M-bwd's shade pass, whose
+// row is in shared memory, keeps the run-time loop): VT_LOBE_UNROLL 1,
+// unrolled over the bound (a lobe past the window or the count is
+// skipped; the record's three colour planes read at constant offsets
+// from three pointers), 0, a run-time loop over [klo, khi];
+// VT_LOBE_WHOLE 1 also reads a staged f32 record whole (float4) where it
+// is a whole number of 16-byte units and holds the bound's lobes. Each
+// was timed (probes/train_march --cases --alt, PERF.md); the build takes
+// the faster.
+#ifndef VT_LOBE_UNROLL
+#define VT_LOBE_UNROLL 1
+#endif
+#ifndef VT_LOBE_WHOLE
+#define VT_LOBE_WHOLE 0
+#endif
+
+// An SG or ASG variant's raw colour sums of a voxel (before the sigmoid),
+// its lobes streamed: the view direction (view_dir, rotated by o.rot)
+// taken once, then each lobe k the basis window keeps, [klo, khi],
+// evaluated once from the block's folded table (lobe_at: one ex2, its
+// scale folded in) straight into the three sums over the record's colour
+// values k, nb + k and 2 nb + k. ``rec``: the record staged or in the
+// payload, read as pay_val reads it; with ROW, the values as the march
+// takes them (record_row's). No basis array is kept. ``qs`` (or null: the
+// scales are in the table) scales lobe k's value by qs[k]; ``stash`` (or
+// null) receives each kept lobe's value, before that scale, at stash[k],
+// after its record values are read (it may be the row itself).
+template <class V, bool ROW = false, typename T>
+__device__ __forceinline__ float3 lobe_sums(const T* rec, const TrainOpt& o,
+                                            const float* prm, float ycm,
+                                            float xcm, float s, float ssign,
+                                            const float* qs, float* stash) {
+  float x, y, z;
+  view_dir(prm, ycm, xcm, s, ssign, x, y, z);
+  if (o.rot) rotate(o.rot, x, y, z);
+  const LobeDir d = lobe_dir<V::FMT>(x, y, z);
+  const int nb = o.nb;
+  float raw0 = 0.f, raw1 = 0.f, raw2 = 0.f;
+  auto val = [](T v) {
+    if constexpr (ROW)
+      return (float)v;
+    else
+      return pay_val(v);
+  };
+  // lobe k into the sums, its colour values v0, v1, v2
+  auto lobe = [&](int k, float v0, float v1, float v2) {
+    const float b = lobe_at<V::FMT>(o.lobes + V::LW * k, d);
+    if (stash) stash[k] = b;
+    const float bq = qs ? b * qs[k] : b;
+    raw0 = fmaf(v0, bq, raw0);
+    raw1 = fmaf(v1, bq, raw1);
+    raw2 = fmaf(v2, bq, raw2);
+  };
+#if VT_LOBE_WHOLE
+  if constexpr (!ROW && sizeof(T) == 4 && V::DMAX % 4 == 0) {
+    if (nb == V::BD && (reinterpret_cast<uintptr_t>(rec) & 15) == 0) {
+      float v[V::DMAX];
+      load_record<V::DMAX, T>(rec, v);
+#pragma unroll
+      for (int k = 0; k < V::BD; ++k)
+        if (k >= o.klo && k <= o.khi)
+          lobe(k, v[k], v[V::BD + k], v[2 * V::BD + k]);
+      return make_float3(raw0, raw1, raw2);
+    }
+  }
+#endif
+  if constexpr (VT_LOBE_UNROLL && !ROW) {
+    const T *p0 = rec, *p1 = rec + nb, *p2 = rec + 2 * nb;
+#pragma unroll
+    for (int k = 0; k < V::BD; ++k)
+      if (k >= o.klo && k <= o.khi)
+        lobe(k, val(p0[k]), val(p1[k]), val(p2[k]));
+  } else {
+    const T* p = rec + o.klo;
+#pragma unroll 1
+    for (int k = o.klo; k <= o.khi; ++k, ++p)
+      lobe(k, val(p[0]), val(p[nb]), val(p[2 * nb]));
+  }
+  return make_float3(raw0, raw1, raw2);
+}
+
+// A voxel's D record values at ``rec`` (the payload) into ``row`` (f32,
+// 16-byte aligned where D % 4 == 0) as the march takes them (pay_val),
+// read whole: float4 loads where the record is f32 and 16-byte aligned,
+// aligned 32-bit words (two bf16 values each) for bf16, else one value at
+// a time. An aligned word holding a byte of the tensor lies inside its
+// (aligned) allocation.
+template <typename PT>
+__device__ __forceinline__ void record_row(const PT* rec, int D, float* row) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(rec);
+  if constexpr (sizeof(PT) == 4) {
+    if ((D & 3) == 0 && (a & 15) == 0) {
+      const float4* r4 = reinterpret_cast<const float4*>(rec);
+      float4* o4 = reinterpret_cast<float4*>(row);
+      for (int q = 0; q < (D >> 2); ++q) {
+        const float4 t = __ldg(r4 + q);
+        o4[q] = make_float4(pay_val(t.x), pay_val(t.y), pay_val(t.z),
+                            pay_val(t.w));
+      }
+    } else {
+      for (int q = 0; q < D; ++q) row[q] = pay_val(__ldg(rec + q));
+    }
+  } else {
+    const int off = (int)(a & 3) >> 1;  // the record's first half-word
+    const uint32_t* w =
+        reinterpret_cast<const uint32_t*>(a & ~(uintptr_t)3);
+    for (int i = 0; 2 * i < off + D; ++i) {
+      const uint32_t u = __ldg(w + i);
+      const int e = 2 * i - off;
+      if (e >= 0) row[e] = __uint_as_float(u << 16);
+      if (e + 1 < D) row[e + 1] = __uint_as_float(u & 0xffff0000u);
+    }
+  }
+}
+
+// an SG or ASG variant's rgb of a voxel (lobe_sums, then the sigmoid)
+template <class V, typename PT>
+__device__ __forceinline__ void voxel_rgb_lobes(const PT* rec,
+                                                const TrainOpt& o,
+                                                const float* prm, float ycm,
+                                                float xcm, float s,
+                                                float ssign, float* rgb) {
+  const float3 r = lobe_sums<V>(rec, o, prm, ycm, xcm, s, ssign, nullptr,
+                                nullptr);
+  rgb[0] = sigmoid(r.x);
+  rgb[1] = sigmoid(r.y);
+  rgb[2] = sigmoid(r.z);
 }
 
 // The coarse occupancy of a payload: per slab and per row of OCC x OCC
@@ -735,6 +967,17 @@ template <class V, typename PT>
 constexpr size_t march_smem() {
   return (size_t)PS * PS * 16 + RING_BYTES +
          (size_t)(DC + 1) * RSLOTS * NT * rec_slot<V::DMAX, PT>();
+}
+
+// The blocks an SM's shared memory (228 KB) holds of a march kernel of
+// variant V: its dynamic bytes, MarchStatic, ~2 KB of the kernels' other
+// static arrays and the 1 KB the card reserves a block. The SG/ASG
+// variants' pass 1 declares it as its minimum blocks an SM
+// (slab_march_bwd.cu), so that the compiler's register budget is the one
+// the launch can use.
+template <class V, typename PT>
+constexpr int smem_blocks() {
+  return (int)(233472 / (march_smem<V, PT>() + sizeof(MarchStatic) + 3072));
 }
 
 // march_loop's shared memory: the block's dynamic bytes and its MarchStatic
@@ -1044,7 +1287,8 @@ __device__ __forceinline__ void issue_colour(const Job& j, bool has,
 //   calls it; it may synchronize).
 // ``T`` is the pixel's transmittance, which on_slab updates. V is the
 // variant (TVar): an option variant's cells are shaded only inside its
-// bbox (cell_live), by voxel_rgb_opt with the state ``opt``.
+// bbox (cell_live), by voxel_rgb_opt (SG and ASG: voxel_rgb_lobes) with
+// the state ``opt``.
 template <class V, typename PT, typename OnSlab>
 __device__ __forceinline__ void march_loop(const MarchCtx& c,
                                            const MarchSmem& sm,
@@ -1206,7 +1450,10 @@ __device__ __forceinline__ void march_loop(const MarchCtx& c,
           const float xcm =
               ((float)(cons.px + lx) + 0.5f) * (1.f / c.Gf) - c.cx;
           float bk[BD], rgb[3];
-          if constexpr (V::OPT) {
+          if constexpr (V::RTD) {
+            voxel_rgb_lobes<V, PT>(rec, opt, s_prm, ycm, xcm, sd, sdsign,
+                                   rgb);
+          } else if constexpr (V::OPT) {
             voxel_rgb_opt<V, PT>(rec, opt, s_qs, s_prm, ycm, xcm, sd, sdsign,
                                  bk, rgb);
           } else {

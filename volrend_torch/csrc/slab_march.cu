@@ -87,8 +87,11 @@
 //   and ASG take their lobe count, and so their record width D = 3 nb + 1,
 //   at run time, under bounds 4, 9, 16 and 25 (record slots sized by the
 //   bound; 16-byte copies where a record is a whole number of 16-byte
-//   units, words elsewhere); the lobes and the rotation go into shared
-//   memory once a block. The source is
+//   units, words elsewhere); the rotation goes into shared memory once a
+//   block, and the lobes as the table each block folds once (fold_lobe,
+//   slab_common.cuh, shared with the display mode), streamed one at a time
+//   into the colour sums (tmarch::lobe_sums: one ex2 a lobe, no basis
+//   array). The source is
 //   built three times (VT_TRAIN_SET: the defaults, SH with options and
 //   RGBA, SG and ASG), in parallel, to keep the build's wall time.
 
@@ -129,7 +132,7 @@ march_kernel(const tmarch::ArgsOf<V, TrainArgs> a) {
   const int gi = a.gi;
 
   tmarch::TrainOpt opt{};  // the option variants' (their arguments' va)
-  if constexpr (V::OPT) opt = tmarch::load_opt<V, NT>(a.va, tid);
+  if constexpr (V::OPT) opt = tmarch::load_opt<V, NT>(a.va, a.qscale, tid);
   const int D = tmarch::rec_dim<V>(opt);
   for (int i = tid; i < NP; i += NT) s_prm[i] = a.params[(size_t)p * NP + i];
   for (int i = tid; i < D; i += NT) s_qs[i] = a.qscale[i];

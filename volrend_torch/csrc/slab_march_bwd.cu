@@ -64,12 +64,37 @@
 //   float4 where it is f32 and 16-byte aligned), turns them into the D
 //   record values (zeros elsewhere), and writes the block's records as one
 //   contiguous run with 16-byte stores: ~0.75 ms against the 0.56 ms write.
+// - SG and ASG (the lobe count at run time): both passes shade from a lobe
+//   table each block folds once (fold_lobe in slab_common.cuh, shared with
+//   the display mode: log2(e) and 1/nb folded in, SG one float4 a lobe,
+//   ASG three) and stream the lobes one at a time into the colour sums
+//   (tmarch::lobe_sums), no basis array live. Pass 2 reads a voxel's
+//   record whole (float4 loads where it is f32 and 16-byte aligned,
+//   aligned words for bf16) into the voxel's own output row, stashes each
+//   lobe's value over its plane-0 value as the sums take it, and writes
+//   the record's cotangent from the stash, planes 2 and 1 first and plane
+//   0 last, over its own stash. Evaluated as the reference writes it
+//   (each lobe's raw parameters re-read from shared memory for every
+//   cell, the record one scalar at a time, a basis array live across the
+//   sums), SG9 took 0.44 ms a launch more than SH9 on the training bench
+//   (pass 2 0.31 of it) and ASG's pass 1 spilled 256 bytes a thread
+//   (PERF.md).
 
 #include "slab_common.cuh"
 
 namespace {
 
 constexpr int NT2 = 128;  // pass 2: voxels a block
+
+// Where pass 2 of an SG/ASG variant takes its lobe table: 0, each block
+// folds the lobes itself (fold_lobe, as pass 1's blocks do); 1, it copies
+// the table pass 1's first block folded into the tail of gbuf (LOBE_ROWS
+// float4 past its voxels). Both were timed (probes/train_march --cases
+// --alt -DVT_BWD_FOLD=1, PERF.md); the build takes the faster.
+#ifndef VT_BWD_FOLD
+#define VT_BWD_FOLD 0
+#endif
+constexpr int LOBE_ROWS = 3 * 25;  // float4 rows of the largest table
 
 struct BwdArgs {
   tmarch::PayView pv;
@@ -86,9 +111,10 @@ struct BwdArgs {
   int n_ids, G, gi, flip;
 };
 
+// Pass 1 of variant V (bwd_march_kernel, bwd_march_lobes)
 template <class V, typename PT>
-__global__ void __launch_bounds__(tmarch::NT)
-bwd_march_kernel(const tmarch::ArgsOf<V, BwdArgs> a) {
+__device__ __forceinline__ void bwd_march(
+    const tmarch::ArgsOf<V, BwdArgs>& a) {
   using tmarch::NT;
   using tmarch::PS;
   using tmarch::TX;
@@ -107,7 +133,15 @@ bwd_march_kernel(const tmarch::ArgsOf<V, BwdArgs> a) {
   const int gi = a.gi, G = a.G;
 
   tmarch::TrainOpt opt{};  // the option variants' (their arguments' va)
-  if constexpr (V::OPT) opt = tmarch::load_opt<V, NT>(a.va, tid);
+  if constexpr (V::OPT) opt = tmarch::load_opt<V, NT>(a.va, a.qscale, tid);
+  if constexpr (V::RTD && VT_BWD_FOLD == 1) {
+    // pass 2's table, without the scales: once a launch, in gbuf's tail
+    if (blockIdx.x == 0 && blockIdx.y == 0)
+      for (int k = tid; k < a.va.nb; k += NT)
+        fold_lobe<V::FMT>(a.va.extra, 1.f, k, a.va.nb,
+                          reinterpret_cast<float4*>(a.gbuf) +
+                              (long long)a.n_ids * G * G);
+  }
   const int D = tmarch::rec_dim<V>(opt);
   for (int i = tid; i < NP; i += NT) s_prm[i] = a.params[i];
   for (int i = tid; i < D; i += NT) s_qs[i] = a.qscale[i];
@@ -258,22 +292,86 @@ bwd_march_kernel(const tmarch::ArgsOf<V, BwdArgs> a) {
       });
 }
 
+// Pass 1's kernels. The SH and RGBA variants declare the block's threads
+// alone, and the compiler sets their register budget (the defaults'
+// registers are pinned). SG and ASG also declare the blocks an SM their
+// shared memory allows (tmarch::smem_blocks), at most VT_LOBE_MINB: left
+// to its own budget the compiler cut them to 96 registers and spilled
+// 104-224 bytes a thread, and with one block declared it took more
+// registers than the bf16 payload's four blocks an SM leave (PERF.md).
+#ifndef VT_LOBE_MINB
+#define VT_LOBE_MINB 8
+#endif
+template <class V, typename PT>
+constexpr int pass1_blocks() {
+  return tmarch::smem_blocks<V, PT>() < VT_LOBE_MINB
+             ? tmarch::smem_blocks<V, PT>()
+             : VT_LOBE_MINB;
+}
+
+template <class V, typename PT>
+__global__ void __launch_bounds__(tmarch::NT)
+bwd_march_kernel(const tmarch::ArgsOf<V, BwdArgs> a) {
+  bwd_march<V, PT>(a);
+}
+
+template <class V, typename PT>
+__global__ void __launch_bounds__(tmarch::NT, pass1_blocks<V, PT>())
+bwd_march_lobes(const tmarch::ArgsOf<V, BwdArgs> a) {
+  bwd_march<V, PT>(a);
+}
+
+// An SG or ASG voxel's record cotangent in its own row ``o`` (D floats):
+// the record read whole into the row (record_row), the lobes streamed into
+// the colour sums (lobe_sums over the row, scaled a plane each by qs[k]),
+// each lobe's value stashed over its plane-0 value (zero outside the basis
+// window); then sigma's slot, and from the stash o[c nb + k] = graw[c]
+// b_k qs[c nb + k], planes 2 and 1 first and plane 0 last, over its own
+// stash. No basis array is kept.
+template <class V, typename PT>
+__device__ __forceinline__ void lobe_adjoint(const PT* rec,
+                                             const tmarch::TrainOpt& opt,
+                                             const float* qs,
+                                             const float* prm, float ycm,
+                                             float xcm, float sd, float4 g,
+                                             float sigma, int D, float* o) {
+  tmarch::record_row<PT>(rec, D, o);
+  const int nb = opt.nb;
+  for (int k = 0; k < opt.klo; ++k) o[k] = 0.f;
+  for (int k = opt.khi + 1; k < nb; ++k) o[k] = 0.f;
+  const float3 r = tmarch::lobe_sums<V, true>(o, opt, prm, ycm, xcm, sd,
+                                              sign_of(sd), qs, o);
+  const float c0 = sigmoid(r.x), c1 = sigmoid(r.y), c2 = sigmoid(r.z);
+  o[D - 1] = (g.x + g.y * c0 + g.z * c1 + g.w * c2) * qs[D - 1];
+  const float gr0 = g.y * sigma * c0 * (1.f - c0);
+  const float gr1 = g.z * sigma * c1 * (1.f - c1);
+  const float gr2 = g.w * sigma * c2 * (1.f - c2);
+  for (int k = 0; k < nb; ++k) {
+    const float b = o[k];
+    o[2 * nb + k] = gr2 * b * qs[2 * nb + k];
+    o[nb + k] = gr1 * b * qs[nb + k];
+    o[k] = gr0 * b * qs[k];
+  }
+}
+
 // the shade adjoint, one thread per voxel in the payload's memory order;
 // the block's records go out as one contiguous run
 template <class V, typename PT>
-__global__ void __launch_bounds__(NT2)
-bwd_shade_kernel(const PT* __restrict__ payload,
-                 const float* __restrict__ params,
-                 const float* __restrict__ qscale,
-                 const float4* __restrict__ gbuf, void* __restrict__ out,
-                 int out_bf16, int G, long long vs, long long vr,
-                 long long vc, long long n_vox, const tmarch::VarArgs va) {
+__device__ __forceinline__ void bwd_shade(
+    const PT* __restrict__ payload, const float* __restrict__ params,
+    const float* __restrict__ qscale, const float4* __restrict__ gbuf,
+    void* __restrict__ out, int out_bf16, int G, long long vs, long long vr,
+    long long vc, long long n_vox, const tmarch::VarArgs& va) {
   constexpr int BD = V::BD, DMAX = V::DMAX;
+  static_assert(V::LW * BD <= LOBE_ROWS, "gbuf's tail holds the table");
   __shared__ float s_prm[NP];
   __shared__ float s_qs[DMAX];
   __shared__ __align__(16) float s_out[NT2 * DMAX];
   const int tid = threadIdx.x;
-  tmarch::TrainOpt opt = tmarch::load_opt<V, NT2>(va, tid);
+  // SG/ASG: the lobes folded without the scales, which the shade adjoint
+  // takes a plane each (VT_BWD_FOLD 1: pass 1 folded them into gbuf's tail)
+  tmarch::TrainOpt opt = tmarch::load_opt<V, NT2>(
+      va, nullptr, tid, VT_BWD_FOLD == 1 ? gbuf + n_vox : nullptr);
   const int D = tmarch::rec_dim<V>(opt);
   for (int i = tid; i < NP; i += NT2) s_prm[i] = params[i];
   for (int i = tid; i < D; i += NT2) s_qs[i] = qscale[i];
@@ -300,45 +398,61 @@ bwd_shade_kernel(const PT* __restrict__ payload,
           const float sd = z - s_prm[0];
           const float ycm = ((float)gy + 0.5f) * (1.f / Gf) - s_prm[1];
           const float xcm = ((float)gx + 0.5f) * (1.f / Gf) - s_prm[2];
-          float bk[BD], rgb[3];
-          if constexpr (V::OPT) {
-            tmarch::voxel_rgb_opt<V, PT>(rec, opt, s_qs, s_prm, ycm, xcm,
-                                         sd, sign_of(sd), bk, rgb);
+          if constexpr (V::RTD) {
+            lobe_adjoint<V, PT>(rec, opt, s_qs, s_prm, ycm, xcm, sd, g,
+                                sigma, D, o);
+            done = true;
           } else {
-            float vals[DMAX];
-            tmarch::load_record<DMAX, PT>(rec, vals);
-            tmarch::voxel_rgb<BD>(vals, s_qs, s_prm, ycm, xcm, sd,
-                                  sign_of(sd), bk, rgb);
-          }
-          const float gsig =
-              g.x + g.y * rgb[0] + g.z * rgb[1] + g.w * rgb[2];
-          o[D - 1] = gsig * s_qs[D - 1];
-          if constexpr (V::FMT == F_RGBA) {
-            // raw colours: their cotangent is g_srgb * sigma (no sigmoid')
-            o[0] = g.y * sigma * s_qs[0];
-            o[1] = g.z * sigma * s_qs[1];
-            o[2] = g.w * sigma * s_qs[2];
-          } else {
-            // sigmoid' x the basis; planes outside the window (bk = 0) and
-            // past the lobe count get zero
-            const int nb = V::RTD ? opt.nb : BD;
-            const float graw[3] = {g.y * sigma * rgb[0] * (1.f - rgb[0]),
-                                   g.z * sigma * rgb[1] * (1.f - rgb[1]),
-                                   g.w * sigma * rgb[2] * (1.f - rgb[2])};
-#pragma unroll
-            for (int ch = 0; ch < 3; ++ch) {
-#pragma unroll
-              for (int kk = 0; kk < BD; ++kk)
-                if (kk < nb)
-                  o[ch * nb + kk] = graw[ch] * bk[kk] * s_qs[ch * nb + kk];
+            float bk[BD], rgb[3];
+            if constexpr (V::OPT) {
+              tmarch::voxel_rgb_opt<V, PT>(rec, opt, s_qs, s_prm, ycm, xcm,
+                                           sd, sign_of(sd), bk, rgb);
+            } else {
+              float vals[DMAX];
+              tmarch::load_record<DMAX, PT>(rec, vals);
+              tmarch::voxel_rgb<BD>(vals, s_qs, s_prm, ycm, xcm, sd,
+                                    sign_of(sd), bk, rgb);
             }
+            const float gsig =
+                g.x + g.y * rgb[0] + g.z * rgb[1] + g.w * rgb[2];
+            o[D - 1] = gsig * s_qs[D - 1];
+            if constexpr (V::FMT == F_RGBA) {
+              // raw colours: their cotangent is g_srgb * sigma (no sigmoid')
+              o[0] = g.y * sigma * s_qs[0];
+              o[1] = g.z * sigma * s_qs[1];
+              o[2] = g.w * sigma * s_qs[2];
+            } else {
+              // sigmoid' x the basis; planes outside the window (bk = 0)
+              // get zero
+              const int nb = V::RTD ? opt.nb : BD;
+              const float graw[3] = {g.y * sigma * rgb[0] * (1.f - rgb[0]),
+                                     g.z * sigma * rgb[1] * (1.f - rgb[1]),
+                                     g.w * sigma * rgb[2] * (1.f - rgb[2])};
+#pragma unroll
+              for (int ch = 0; ch < 3; ++ch) {
+#pragma unroll
+                for (int kk = 0; kk < BD; ++kk)
+                  if (kk < nb)
+                    o[ch * nb + kk] = graw[ch] * bk[kk] * s_qs[ch * nb + kk];
+              }
+            }
+            done = true;
           }
-          done = true;
         }
       }
     }
   }
-  if (!done) {
+  if constexpr (V::RTD) {
+    // 16-byte stores where the rows are (a conflict-free phase a quad)
+    if (!done) {
+      if ((D & 3) == 0) {
+        for (int q = 0; q < (D >> 2); ++q)
+          reinterpret_cast<float4*>(o)[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+      } else {
+        for (int ch = 0; ch < D; ++ch) o[ch] = 0.f;
+      }
+    }
+  } else if (!done) {
 #pragma unroll
     for (int ch = 0; ch < DMAX; ++ch)
       if (ch < D) o[ch] = 0.f;
@@ -371,14 +485,64 @@ bwd_shade_kernel(const PT* __restrict__ payload,
   }
 }
 
+// Pass 2's kernels: the SH and RGBA variants with the block's threads
+// alone (the defaults' registers are pinned); SG and ASG also with the
+// blocks an SM each bound's variants held before their redesign (SG 12,
+// 12, 8, 5 and ASG 12, 10, 7, 4 at bounds 4, 9, 16, 25; VT_PASS2_MINB 0:
+// one).
+#ifndef VT_PASS2_MINB
+#define VT_PASS2_MINB 1
+#endif
+template <class V>
+constexpr int pass2_blocks() {
+  if (!VT_PASS2_MINB) return 1;
+  constexpr int i = V::BD <= 4 ? 0 : V::BD <= 9 ? 1 : V::BD <= 16 ? 2 : 3;
+  constexpr int sg[4] = {12, 12, 8, 5}, asg[4] = {12, 10, 7, 4};
+  return V::FMT == F_ASG ? asg[i] : sg[i];
+}
+
+#define VT_SHADE_ARGS                                                     \
+  const PT *__restrict__ payload, const float *__restrict__ params,       \
+      const float *__restrict__ qscale, const float4 *__restrict__ gbuf,  \
+      void *__restrict__ out, int out_bf16, int G, long long vs,          \
+      long long vr, long long vc, long long n_vox, const tmarch::VarArgs va
+template <class V, typename PT>
+__global__ void __launch_bounds__(NT2) bwd_shade_kernel(VT_SHADE_ARGS) {
+  bwd_shade<V, PT>(payload, params, qscale, gbuf, out, out_bf16, G, vs, vr,
+                   vc, n_vox, va);
+}
+
+template <class V, typename PT>
+__global__ void __launch_bounds__(NT2, pass2_blocks<V>())
+    bwd_shade_lobes(VT_SHADE_ARGS) {
+  bwd_shade<V, PT>(payload, params, qscale, gbuf, out, out_bf16, G, vs, vr,
+                   vc, n_vox, va);
+}
+#undef VT_SHADE_ARGS
+
 // the two passes' kernels of variant V on a payload of PT
 template <class V, typename PT>
 struct Fns {
   using Var = V;
   using MarchFn = void (*)(const tmarch::ArgsOf<V, BwdArgs>);
   static constexpr size_t SMEM = tmarch::march_smem<V, PT>();
-  static MarchFn march() { return bwd_march_kernel<V, PT>; }
-  static const void* shade_fn() { return (const void*)bwd_shade_kernel<V, PT>; }
+  static MarchFn march() {
+    if constexpr (V::RTD)
+      return bwd_march_lobes<V, PT>;
+    else
+      return bwd_march_kernel<V, PT>;
+  }
+  using ShadeFn = void (*)(const PT*, const float*, const float*,
+                          const float4*, void*, int, int, long long,
+                          long long, long long, long long,
+                          const tmarch::VarArgs);
+  static ShadeFn shade_kernel() {
+    if constexpr (V::RTD)
+      return bwd_shade_lobes<V, PT>;
+    else
+      return bwd_shade_kernel<V, PT>;
+  }
+  static const void* shade_fn() { return (const void*)shade_kernel(); }
   static cudaError_t shade(const void* payload, const BwdArgs& a,
                            const tmarch::VarArgs& va, void* out,
                            int out_bf16, cudaStream_t s) {
@@ -386,7 +550,7 @@ struct Fns {
     // Gz slabs' first, so the shade pass's slab index stays below G
     const long long n_vox = (long long)a.n_ids * a.G * a.G;
     const unsigned blocks = (unsigned)((n_vox + NT2 - 1) / NT2);
-    bwd_shade_kernel<V, PT><<<blocks, NT2, 0, s>>>(
+    shade_kernel()<<<blocks, NT2, 0, s>>>(
         (const PT*)payload, a.params, a.qscale, (const float4*)a.gbuf, out,
         out_bf16, a.G, a.vs, a.vr, a.vc, n_vox, va);
     return cudaGetLastError();
@@ -445,8 +609,9 @@ int info(int* out) {
 // (_zb_planes); gacc (4, gi, gi) f32; aux (4, gi, gi) f32 = [ctot, T_end *
 // g_T, T_in, A_in]; ids (Gz,) int32, every slab in forward order; occ: Gz
 // * ceil(G / 8) * ceil(G / 512) uint64, the payload's coarse occupancy
-// (vt_march_occupancy in slab_march.cu); gbuf (Gz G^2, 4) f32 in the
-// payload's voxel order, zeroed by the caller; out: the cotangent, the
+// (vt_march_occupancy in slab_march.cu); gbuf (Gz G^2 + LOBE_ROWS, 4)
+// f32, the voxels in the payload's voxel order, then room for an SG/ASG
+// lobe table, zeroed by the caller; out: the cotangent, the
 // payload's strides, f32 or bf16 (out_bf16); counts: tmarch::N_COUNTS
 // uint64 (pass 1's, tmarch::add_counts) or null; the variant (bd, fmt,
 // opt, extra, rot_on, rot, bbox, basis_lo, basis_hi) as for

@@ -473,94 +473,6 @@ __device__ __forceinline__ void voxel_basis(const ShadeCtx& c,
   sh_basis<BD>(x, y, z, bk);
 }
 
-// 2^x, one MUFU.EX2 (subnormal results flush to zero)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Lobe k of ``nb`` folded into out[LW * k ..] (LW float4), for the lobe
-// loop's one ex2 a lobe and cell; lobe k's value times its scale qs[k]
-// (which the int8 bake shares across rgb; the bakes' scales are > 0) at
-// the unit view direction d:
-// - SG, exp(lambda (mu . d - 1)) / nb (lumisphere.hpp:30-36) x qs[k]:
-//   (A, B) with A = log2(e) lambda mu, B = log2(qs[k] / nb) - log2(e)
-//   lambda; the value ex2(A . d + B).
-// - ASG, S exp(-a (mu_x . d)^2 - b (mu_y . d)^2) / nb (lumisphere.hpp:
-//   14-28) x qs[k], S = mu_z . d: the exponent times log2(e) is the
-//   quadratic form -log2(e) d^T M d, M = a mu_x mu_x^T + b mu_y mu_y^T,
-//   with z^2 = 1 - x^2 - y^2 folded into its constant: (c, qxx, qyy,
-//   qxy), (qxz, qyz, S'x, S'y), (S'z, 0, 0, 0), S' = mu_z qs[k] / nb; the
-//   value (S' . d) ex2(c + qxx x^2 + qyy y^2 + qxy xy + qxz xz + qyz yz).
-//   Five multiply-adds for the exponent whatever the signs of a and b.
-// volrend_torch/ops/slab_march.py's plain version evaluates the lobes as
-// the reference writes them; tests/test_torch_display_lobes.py holds this
-// fold, mirrored in PyTorch, against the reference's basis.
-template <int FM>
-__device__ __forceinline__ void fold_lobe(const float* ext, const float* qs,
-                                          int k, int nb, float4* out) {
-  constexpr float L2E = 1.4426950408889634f;
-  if constexpr (FM == F_SG) {
-    const float* e = ext + 4 * k;
-    const float l = e[0] * L2E;
-    out[k] = make_float4(l * e[1], l * e[2], l * e[3],
-                         (log2f(qs[k]) - log2f((float)nb)) - l);
-  } else {
-    const float* e = ext + 11 * k;
-    const float a = e[0], b = e[1];
-    const float *mx = e + 2, *my = e + 5, *mz = e + 8;
-    float m[3][3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-        m[i][j] = a * (mx[i] * mx[j]) + b * (my[i] * my[j]);
-    const float s = -L2E, s2 = -2.f * L2E, q = qs[k] / (float)nb;
-    out[3 * k] = make_float4(s * m[2][2], s * (m[0][0] - m[2][2]),
-                             s * (m[1][1] - m[2][2]), s2 * m[0][1]);
-    out[3 * k + 1] = make_float4(s2 * m[0][2], s2 * m[1][2], mz[0] * q,
-                                 mz[1] * q);
-    out[3 * k + 2] = make_float4(mz[2] * q, 0.f, 0.f, 0.f);
-  }
-}
-
-// A unit direction's terms the lobes read: SG x, y, z; ASG also x^2, y^2,
-// xy, xz, yz (the quadratic form's).
-struct LobeDir {
-  float x, y, z, xx, yy, xy, xz, yz;
-};
-
-template <int FM>
-__device__ __forceinline__ LobeDir lobe_dir(float x, float y, float z) {
-  LobeDir d{};
-  d.x = x;
-  d.y = y;
-  d.z = z;
-  if constexpr (FM == F_ASG) {
-    d.xx = x * x;
-    d.yy = y * y;
-    d.xy = x * y;
-    d.xz = x * z;
-    d.yz = y * z;
-  }
-  return d;
-}
-
-// lobe L's value times its scale at direction d (fold_lobe)
-template <int FM>
-__device__ __forceinline__ float lobe_at(const float4* L, const LobeDir& d) {
-  if constexpr (FM == F_SG) {
-    const float4 a = L[0];
-    return ex2(fmaf(a.x, d.x, fmaf(a.y, d.y, fmaf(a.z, d.z, a.w))));
-  } else {
-    const float4 a = L[0], b = L[1], c = L[2];
-    const float e = fmaf(b.y, d.yz, fmaf(b.x, d.xz, fmaf(a.w, d.xy, fmaf(
-        a.z, d.yy, fmaf(a.y, d.xx, a.x)))));
-    return fmaf(c.x, d.z, fmaf(b.w, d.y, b.z * d.x)) * ex2(e);
-  }
-}
-
 // Two neighbouring cells of the stage at ``wp`` (int8: the word that
 // holds them, cells i and i + 1, i = 0 or 2; bf16: their word), planes
 // ``plane`` bytes apart, D data planes (int8: sigma's hi plane D - 1 and
@@ -908,7 +820,7 @@ __global__ void __launch_bounds__(DNT, 2)
   if constexpr (V::LOBES) {
     float4* s_lobe = lobe_smem<V::LW>();
     for (int i = tid; i < args.nb; i += DNT)
-      fold_lobe<V::FMT>(args.extra, a.qscale, i, args.nb, s_lobe);
+      fold_lobe<V::FMT>(args.extra, a.qscale[i], i, args.nb, s_lobe);
     o.lobes = s_lobe;
     o.klo = max(args.blo, 0);
     o.khi = min(args.bhi, args.nb - 1);

@@ -22,12 +22,34 @@ within 1e-3 but for stop-threshold freeze flips (the pieces' side sets
 the order of the tap sums), the backward's to relative L2 1e-4 (its
 global atomics add in a run-dependent order).
 
+``--cases SH9,SG9,ASG9,SG6`` instead times the formats at the port's own
+configuration: the training bench's leaves read as SG9, ASG9 and SG6 trees
+(any SG or ASG lobe count, ``_common.format_trees``; SH9 the baseline; a
+``-bf16`` suffix marches the lean trainer's bf16 cast and writes a bf16
+cotangent), each baked by its own ``FrameTrainer``. For each case and build it times kernel M and M-bwd
+on pose 0, splits M-bwd into pass 1, pass 2 and the cotangent buffer's fill
+(torch.profiler), reads thread 0's cycles by part of the loop from a
+``-DVT_TM_CYCLES`` build, and reads every launch's registers, local bytes
+and blocks per SM (``vt_march_slabs_info``, ``vt_march_slabs_bwd_info``).
+Both kernels' outputs are held to the port's plain versions
+(``march_slabs_ref``, ``march_slabs_bwd_ref``) at chip_smoke.py's
+tolerances. ``--parent DIR`` builds the same two sources of another
+checkout (an unpacked parent; the C entry points must be the same) and
+times it in turns with this one: parent, change, change, parent; ``--alt
+FLAGS`` builds this checkout again with extra nvcc flags (a build-time
+alternative, e.g. ``-DVT_BWD_FOLD=1``; several separated by ``;``) and
+times each between them. Each build's SH defaults and SG/ASG
+instantiations at every lobe bound are listed by their launches
+(``lobe_info``); ``--cases none`` builds and lists them only.
+
 Every time is the card's: CUDA events around back-to-back launches queued
 behind a device sleep, median of three runs. Run on a card from the root of
 the checkout::
 
     python -m volrend_torch.probes.train_march [--configs 8:8:128:4:2:1,...]
         [--out train_march.json]
+    python -m volrend_torch.probes.train_march --cases SH9,SG9,ASG9,SG6
+        [--parent DIR] [--alt "FLAGS;FLAGS"] [--out cases.json]
 """
 
 from __future__ import annotations
@@ -125,18 +147,24 @@ def _cycles(lib) -> dict:
     return dict(zip(_PARTS, out))
 
 
-def _pose0(dev):
-    """The training bench's trainer and pose 0's march inputs (the bake's
-    f32 view, params, z interval, slab ids, config)."""
-    from volrend_torch import train
+def _bench_tree(dev):
+    """The training bench's SH9 tree on ``dev``."""
     from volrend_torch.models.synthetic import make_solid_tree
+    tree = c.load_tree(CACHE_TRAIN, lambda: make_solid_tree(
+        max_depth=7, basis_dim=9, seed=7))
+    return tree.to_device(lut_depth=None, device=dev)
+
+
+def _pose0(dev, tdev=None):
+    """The training bench's trainer (on ``tdev``, default the SH9 tree)
+    and pose 0's march inputs (the bake's f32 view, params, z interval,
+    slab ids, config)."""
+    from volrend_torch import train
     from volrend_torch.ops import slab_grad, slab_render
     from volrend_torch.ops.camera import Camera
     from volrend_torch.utils.options import RenderOptions
 
-    tree = c.load_tree(CACHE_TRAIN, lambda: make_solid_tree(
-        max_depth=7, basis_dim=9, seed=7))
-    tr = train.FrameTrainer(tree.to_device(lut_depth=None, device=dev),
+    tr = train.FrameTrainer(_bench_tree(dev) if tdev is None else tdev,
                             opt=RenderOptions(max_steps=1024), lr=5e-2,
                             gi=GI)
     back = np.array([np.cos(0.25), np.sin(0.25), 0.45])
@@ -155,7 +183,8 @@ def _pose0(dev):
                             perm=perm, flip=flip, ids=ids, opt=tr.opt)
     params = slab_grad._pack_geom_params(geom, cfg, 1.0 / geom.scale)
     zb = torch.stack([geom.z_lo_pix, geom.z_hi_pix], 1)
-    return bake.permute(perm[0], 3, perm[1], perm[2]), params, zb, cfg
+    return (bake.permute(perm[0], 3, perm[1], perm[2]), params, zb, cfg,
+            tr.grid.extra)
 
 
 def run(dev, configs=CONFIGS) -> dict:
@@ -163,7 +192,7 @@ def run(dev, configs=CONFIGS) -> dict:
     configs = [tuple(tc[:3]) + (2 * max(tc[:2]) + 8,) + tuple(tc[3:])
                for tc in configs]
     libs = build(configs)
-    planar, params, zb, cfg = _pose0(dev)
+    planar, params, zb, cfg, _ = _pose0(dev)
     G, D, bd, flip = cfg.G, cfg.D, cfg.bd, cfg.flip
     qs = torch.ones(D, device=dev)
     m = slab_march.march_inputs(planar, params, zb, G, GI, cfg.ids)
@@ -237,20 +266,252 @@ def run(dev, configs=CONFIGS) -> dict:
             "occupancy_ms": occ_ms, "configs": rows, "parts_ms": parts}
 
 
+# ---- --cases: the formats at the port's configuration ----------------------
+
+#: the libraries a checkout's training pair is built as for --cases: the
+#: defaults and the SG/ASG set (VT_TRAIN_SET; kernels._FLAGS)
+_CASE_LIBS = (("slab_march", 0), ("slab_march_bwd", 0),
+              ("slab_march_lobes", 2), ("slab_march_bwd_lobes", 2))
+#: chip_smoke.py's tolerances against the plain versions: M's acc (but
+#: stop-threshold freeze flips), M-bwd's relative L2 (f32, bf16 cotangent)
+_TOL_M, _TOL_BWD = 1e-3, {torch.float32: 1e-3, torch.bfloat16: 4e-3}
+
+
+def build_checkout(root: str, tag: str, flags=(), clock=True) -> dict:
+    """Compile the training pair of the checkout at ``root`` (its
+    ``volrend_torch/csrc``, with the extra nvcc ``flags``) as _CASE_LIBS,
+    each without and (``clock``) with the clock (``-DVT_TM_CYCLES``), one
+    nvcc each, all started together, into
+    ``build/volrend_torch/train_march/<tag>/``: {clock: {library: CDLL}}."""
+    from pathlib import Path
+    csrc = Path(root) / "volrend_torch" / "csrc"
+    out_dir = kernels.build_dir() / "train_march" / tag
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for clock in (False, True) if clock else (False,):
+        for name, tset in _CASE_LIBS:
+            out = out_dir / f"lib{name}{'_clock' if clock else ''}.so"
+            src = csrc / kernels.SOURCES[name][0]
+            procs.append((clock, name, out, subprocess.Popen(
+                [kernels._nvcc(), *kernels._NVCC_FLAGS, *flags,
+                 f"-DVT_TRAIN_SET={tset}",
+                 *(["-DVT_TM_CYCLES"] if clock else []), "-o", str(out),
+                 str(src)], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)))
+    libs = {}
+    for clock, name, out, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"train_march: build of {name} ({tag}) "
+                               f"failed:\n{log}")
+        lib = ctypes.CDLL(str(out))
+        for fn, argtypes in kernels.SOURCES[name][1].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.vt_error_string.argtypes = [ctypes.c_int]
+        lib.vt_error_string.restype = ctypes.c_char_p
+        if clock:
+            lib.vt_train_cycles.argtypes = [ctypes.c_void_p]
+            lib.vt_train_cycles.restype = ctypes.c_int
+        libs.setdefault(clock, {})[name] = lib
+    return libs
+
+
+def _case_tree(name: str, tdev):
+    """Case ``name``'s tree: the SH9 bench tree, or its leaves read as SG
+    or ASG lobes (SG6: the first six coefficients a colour)."""
+    fmt = name.split("-")[0]
+    if fmt == "SH9":
+        return tdev
+    nb = int(fmt.lstrip("ASG"))
+    return c.format_trees(tdev, nb=nb)[fmt.rstrip("0123456789")]
+
+
+def _split(prof: dict) -> dict:
+    """M-bwd's traced kernels by part: pass 1, pass 2, and the rest (the
+    cotangent buffer's fill and the output's allocation)."""
+    out = {"pass1": 0.0, "pass2": 0.0, "fill": 0.0}
+    for kname, (ms, _n, _mx) in prof.items():
+        key = ("pass1" if "bwd_march" in kname
+               else "pass2" if "bwd_shade" in kname else "fill")
+        out[key] += ms
+    return out
+
+
+def _parts(fn, tag: str):
+    """M-bwd's parts (_split) from a trace of one call of ``fn``; None if
+    the profiler caught no device activity twice (it can miss a trace)."""
+    for _ in range(2):
+        try:
+            return _split(c.profile_run(fn, f"train_march {tag}"))
+        except RuntimeError as e:
+            if "no device activity" not in str(e):
+                raise
+            c.log(f"train_march {tag}: {e}")
+    return None
+
+
+def _info(libs: dict, fmt: int, bd: int, f32: bool) -> dict:
+    """The launches of a case's instantiation in ``libs``."""
+    lobes = fmt in (2, 3)
+    fwd = libs["slab_march_lobes" if lobes else "slab_march"]
+    bwd = libs["slab_march_bwd_lobes" if lobes else "slab_march_bwd"]
+    m = (ctypes.c_int * 11)()
+    b = (ctypes.c_int * 7)()
+    args = (bd, int(f32), fmt, int(lobes))
+    kernels.check(fwd.vt_march_slabs_info(*args, m), "slab_march")
+    kernels.check(bwd.vt_march_slabs_bwd_info(*args, b), "slab_march_bwd")
+    keys = ("blocks_per_sm", "regs", "local_bytes", "smem")
+    return {"M": dict(zip(keys, m[:4])), "pass1": dict(zip(keys, b[:4])),
+            "pass2": dict(zip(keys[:3], b[4:]))}
+
+
+def lobe_info(libs: dict) -> dict:
+    """A build's SH defaults and SG/ASG instantiations by lobe bound and
+    payload (_info), keyed as probes/train_info.py keys them."""
+    out = {}
+    for f32 in (True, False):
+        for bound in (4, 9, 16, 25):
+            for name, fmt in (("SH", 1), ("SG", 2), ("ASG", 3)):
+                key = (f"SH{bound}" if fmt == 1 else f"{name}<={bound}")
+                out[f"{key}-{'f32' if f32 else 'bf16'}"] = _info(
+                    libs, fmt, bound, f32)
+    return out
+
+
+def run_cases(dev, cases, parent=None, alt=None) -> dict:
+    """--cases: each case's M and M-bwd on pose 0 for this checkout's
+    build (and ``parent``'s, and this checkout's built with each flag set
+    of ``alt``, in turns), as the module's docstring says."""
+    from volrend_torch.ops import slab_grad, slab_march
+    builds = {"change": build_checkout(c._ROOT, "change")}
+    if parent is not None:
+        builds["parent"] = build_checkout(parent, "parent")
+    alts = [a for a in (alt or "").split(";") if a.strip()]
+    for i, flags in enumerate(alts):
+        builds[f"alt{i}"] = build_checkout(c._ROOT, f"alt{i}", flags.split(),
+                                           clock=False)
+    tags = [t for t in ("parent", "change") if t in builds] + [
+        f"alt{i}" for i in range(len(alts))]
+    order = tags + tags[::-1] if len(tags) > 1 else tags
+    infos = {t: lobe_info(b[False]) for t, b in builds.items()}
+    for t, info in infos.items():
+        c.log(f"train_march lobe_info ({t}"
+              f"{': ' + alts[int(t[3:])] if t.startswith('alt') else ''}): "
+              f"{json.dumps(info)}")
+    cases = [k for k in cases if k != "none"]
+    tdev = _bench_tree(dev)
+    out = {}
+    for case in cases:
+        dt = torch.bfloat16 if case.endswith("-bf16") else torch.float32
+        planar, params, zb, cfg, extra = _pose0(dev, _case_tree(case, tdev))
+        planar = planar if dt == torch.float32 else planar.to(dt)
+        G, D, bd, flip = cfg.G, cfg.D, cfg.bd, cfg.flip
+        qs = torch.ones(D, device=dev)
+        st = slab_grad._kernel_statics(cfg)
+        mode = slab_march.MarchMode(cfg.fmt, extra, False, st["rot"],
+                                    st["bbox_full"], st["basis_lo"],
+                                    st["basis_hi"])
+        m = slab_march.march_inputs(planar, params, zb, G, GI, cfg.ids)
+        occ = slab_march.march_occupancy(planar, m["params"], qs)
+        gacc4 = torch.as_tensor(np.random.default_rng(0).normal(
+            size=(4, GI, GI)).astype(np.float32), device=dev)
+
+        def fwd(counts=None):
+            return slab_march._march_train_cuda(
+                planar, qs, D=D, bd=bd, flip=flip, counts=counts, occ=occ,
+                mode=mode, **m)
+
+        st.pop("flip")
+        acc_p = slab_march.march_slabs_ref(planar, qs, D=D, bd=bd, flip=flip,
+                                           extra=extra, **st, **m)
+        prm, bzb, bg, aux = slab_march.march_bwd_inputs(
+            params[0], zb[0], gacc4, acc_p[0], G, GI)
+
+        def bwd(counts=None):
+            return slab_march._march_bwd_cuda(
+                planar, prm, qs, bzb, bg, aux, G, GI, D, bd, flip, dt,
+                counts=counts, occ=occ, mode=mode)
+
+        g_p = slab_march.march_slabs_bwd_ref(planar, qs, prm, bzb, bg, aux,
+                                             G, GI, D, bd, flip,
+                                             mode=mode).double()
+        rows = {}
+        for tag in order:
+            libs = builds[tag]
+            with _standing_in(libs[False]):
+                m_ms, bwd_ms = device_ms(fwd), device_ms(bwd)
+                row = rows.setdefault(tag, {"m_ms": [], "bwd_ms": []})
+                row["m_ms"].append(m_ms)
+                row["bwd_ms"].append(bwd_ms)
+                if "parts_ms" in row:
+                    continue
+                d = (fwd() - acc_p).abs().amax(1)
+                g = bwd().double()
+                row["m_max_diff"] = float(d.max())
+                row["m_rays_past_tol"] = int((d > _TOL_M).sum())
+                row["bwd_rel_l2"] = float((g - g_p).norm() / g_p.norm())
+                del g
+                row["parts_ms"] = _parts(bwd, f"{case} M-bwd ({tag})")
+                row["info"] = _info(libs[False], cfg.fmt, bd,
+                                    dt == torch.float32)
+            if (row["bwd_rel_l2"] > _TOL_BWD[dt] or row["m_max_diff"]
+                    > float(cfg.opt.stop_thresh) + _TOL_M):
+                raise RuntimeError(f"train_march {case} ({tag}) disagrees "
+                                   f"with the plain versions: {row}")
+            lobes = cfg.fmt in (2, 3)
+            if True not in libs:  # an --alt build: no clock
+                continue
+            with _standing_in(libs[True]):
+                cnt = torch.zeros(slab_march.N_COUNTS, dtype=torch.int64,
+                                  device=dev)
+                fwd(cnt)
+                row["m_cycles"] = _cycles(libs[True][
+                    "slab_march_lobes" if lobes else "slab_march"])
+                row["m_counts"] = cnt.tolist()
+                cnt.zero_()
+                bwd(cnt)
+                row["bwd_cycles"] = _cycles(libs[True][
+                    "slab_march_bwd_lobes" if lobes else "slab_march_bwd"])
+                row["bwd_counts"] = cnt.tolist()
+        for tag, row in rows.items():
+            c.log(f"train_march {case} ({tag}): {json.dumps(row)}")
+        out[case] = rows
+        del planar, acc_p, g_p, occ, m
+        torch.cuda.empty_cache()
+    return {"device": torch.cuda.get_device_name(0), "alts": alts,
+            "lobe_info": infos, "cases": out}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--configs", default=",".join(
         ":".join(map(str, k)) for k in CONFIGS),
                     help="rows:columns:threads:ring:colour distance:record "
                     "slots, comma-separated")
+    ap.add_argument("--cases", default=None,
+                    help="time these formats at the port's configuration "
+                    "instead (SH9, SG<n>, ASG<n>; a -bf16 suffix the lean "
+                    "trainer's payload; none: list the builds only), "
+                    "comma-separated")
+    ap.add_argument("--parent", default=None,
+                    help="with --cases: a parent checkout to time in turns")
+    ap.add_argument("--alt", default=None,
+                    help="with --cases: extra nvcc flags of another build "
+                    "of this checkout to time in turns (several: separated "
+                    "by ';')")
     ap.add_argument("--out", default=None,
                     help="also write the result as JSON to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("train_march: needs a CUDA device")
-    configs = [tuple(int(v) for v in k.split(":"))
-               for k in args.configs.split(",")]
-    out = run(torch.device("cuda"), configs)
+    if args.cases:
+        out = run_cases(torch.device("cuda"), args.cases.split(","),
+                        args.parent, args.alt)
+    else:
+        configs = [tuple(int(v) for v in k.split(":"))
+                   for k in args.configs.split(",")]
+        out = run(torch.device("cuda"), configs)
     print(json.dumps(out), flush=True)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
