@@ -1708,7 +1708,9 @@ def test_lobe_train_launches_stay_within_their_limits(card):
     M-bwd, at lobe bounds 4, 9, 16 and 25 on f32 and bf16 payloads: M and
     pass 1 take no more local bytes than the SH default of the same bound
     and payload, pass 2 takes none, and each holds at least the blocks an
-    SM it held before the redesign (LOBE_TRAIN_INFO)."""
+    SM it held before the redesign (LOBE_TRAIN_INFO); pass 1 at bound 4 on
+    bf16 held five by spilling at 96 registers, and holds the SH
+    default's four without spills (faster: PERF.md)."""
     assert len(LOBE_TRAIN_INFO) == 16
 
     def info(bd, f32, fmt):
@@ -1731,7 +1733,8 @@ def test_lobe_train_launches_stay_within_their_limits(card):
         f32 = int(pay == "f32")
         sh = info(int(bound), f32, 1)
         got = info(int(bound), f32, 2 if name == "SG" else 3)
-        assert all(g[0] >= b for g, b in zip(got, blocks)), (key, got)
+        want = (blocks[0], min(blocks[1], sh[1][0]), blocks[2])
+        assert all(g[0] >= b for g, b in zip(got, want)), (key, got)
         assert got[0][1] <= sh[0][1] and got[1][1] <= sh[1][1], (key, got,
                                                                   sh)
         assert got[2][1] == 0, (key, got)

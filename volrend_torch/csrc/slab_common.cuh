@@ -426,10 +426,11 @@ template <class V, class A>
 using ArgsOf = typename std::conditional<V::OPT, WithVar<A>, A>::type;
 
 // An option variant's run-time state in the kernel: the rotation (shared
-// memory, or null), the lobe count nb (ext and inv_nb: unused), the record
-// width D, the basis window, the bbox (its in-plane box from params
-// 16-19), and for SG and ASG the folded lobe table (shared memory,
-// fold_lobe) and the lobes [klo, khi] the window keeps.
+// memory, or null), the lobe count nb, the record width D, the basis
+// window, the bbox (its in-plane box from params 16-19), and for SG and
+// ASG the folded lobe table (shared memory, fold_lobe) and the lobes
+// [klo, khi] the window keeps. (ext and inv_nb are set only by the SH and
+// RGBA option variants' load_opt, which keeps its earlier text.)
 struct TrainOpt {
   const float* rot;
   const float* ext;
@@ -459,13 +460,11 @@ __device__ __forceinline__ float4* lobe_table() {
 // threads; the caller synchronizes before use) and return its state; the
 // bbox's box is set from the pose's params by set_box. SG and ASG fold
 // their lobes once here (fold_lobe), each times its scale qs[k] (the
-// payload's scales, on the device; null: ones), or copy ``folded``, a
-// table folded once a launch, where given. Empty for the default
+// payload's scales, on the device; null: ones). Empty for the default
 // variants.
 template <class V, int NTH>
 __device__ __forceinline__ TrainOpt load_opt(const VarArgs& va,
-                                             const float* qs, int tid,
-                                             const float4* folded = nullptr) {
+                                             const float* qs, int tid) {
   TrainOpt o{};
   if constexpr (V::RTD) {
     float* s = opt_smem<9>();
@@ -475,12 +474,8 @@ __device__ __forceinline__ TrainOpt load_opt(const VarArgs& va,
     for (int r = 0; r < 9; ++r)
       if (tid == r) s[r] = va.rot[r];
     float4* t = lobe_table<V::LW, V::BD>();
-    if (folded) {
-      for (int i = tid; i < V::LW * va.nb; i += NTH) t[i] = folded[i];
-    } else {
-      for (int k = tid; k < va.nb; k += NTH)
-        fold_lobe<V::FMT>(va.extra, qs ? qs[k] : 1.f, k, va.nb, t);
-    }
+    for (int k = tid; k < va.nb; k += NTH)
+      fold_lobe<V::FMT>(va.extra, qs ? qs[k] : 1.f, k, va.nb, t);
     o.rot = va.rot_on ? s : nullptr;
     o.nb = va.nb;
     o.D = 3 * va.nb + 1;
@@ -491,6 +486,9 @@ __device__ __forceinline__ TrainOpt load_opt(const VarArgs& va,
     o.klo = max(va.blo, 0);
     o.khi = min(va.bhi, va.nb - 1);
   } else if constexpr (V::OPT) {
+    // The SH and RGBA option variants: their earlier code, kept as it was
+    // (EXW is 0, so the loop copies nothing; a rewrite without it gave
+    // kernel M's SH9 and SH16 option variants other registers, PERF.md).
     float* s = opt_smem<9 + V::EXW * V::BD>();
     if (tid < 9) s[tid] = va.rot[tid];
     for (int i = tid; i < V::EXW * va.nb; i += NTH) s[9 + i] = va.extra[i];
@@ -666,7 +664,7 @@ __device__ __forceinline__ void voxel_rgb(const float* rec, const float* qs,
 // sigmoid(sum_k rec[c BD + k] bk[k] qs[k]), bk the basis at the view
 // direction rotated by o.rot, zero outside the window [blo, bhi] (bk is
 // returned so); RGBA takes rec[c] qs[c] (no basis, no sigmoid). SG and ASG
-// take voxel_rgb_lobes.
+// take lobe_sums.
 template <class V, typename PT>
 __device__ __forceinline__ void voxel_rgb_opt(const PT* rec,
                                               const TrainOpt& o,
@@ -679,7 +677,7 @@ __device__ __forceinline__ void voxel_rgb_opt(const PT* rec,
 #pragma unroll
     for (int c = 0; c < 3; ++c) rgb[c] = pay_val(rec[c]) * qs[c];
   } else {
-    static_assert(V::FMT == F_SH, "SG and ASG shade by voxel_rgb_lobes");
+    static_assert(V::FMT == F_SH, "SG and ASG shade by lobe_sums");
     float x, y, z;
     view_dir(prm, ycm, xcm, s, ssign, x, y, z);
     if (o.rot) rotate(o.rot, x, y, z);
@@ -703,33 +701,19 @@ __device__ __forceinline__ void voxel_rgb_opt(const PT* rec,
   }
 }
 
-// How lobe_sums walks the lobes in the march (M-bwd's shade pass, whose
-// row is in shared memory, keeps the run-time loop): VT_LOBE_UNROLL 1,
-// unrolled over the bound (a lobe past the window or the count is
-// skipped; the record's three colour planes read at constant offsets
-// from three pointers), 0, a run-time loop over [klo, khi];
-// VT_LOBE_WHOLE 1 also reads a staged f32 record whole (float4) where it
-// is a whole number of 16-byte units and holds the bound's lobes. Each
-// was timed (probes/train_march --cases --alt, PERF.md); the build takes
-// the faster.
-#ifndef VT_LOBE_UNROLL
-#define VT_LOBE_UNROLL 1
-#endif
-#ifndef VT_LOBE_WHOLE
-#define VT_LOBE_WHOLE 0
-#endif
-
-// An SG or ASG variant's raw colour sums of a voxel (before the sigmoid),
-// its lobes streamed: the view direction (view_dir, rotated by o.rot)
-// taken once, then each lobe k the basis window keeps, [klo, khi],
-// evaluated once from the block's folded table (lobe_at: one ex2, its
-// scale folded in) straight into the three sums over the record's colour
-// values k, nb + k and 2 nb + k. ``rec``: the record staged or in the
-// payload, read as pay_val reads it; with ROW, the values as the march
-// takes them (record_row's). No basis array is kept. ``qs`` (or null: the
-// scales are in the table) scales lobe k's value by qs[k]; ``stash`` (or
-// null) receives each kept lobe's value, before that scale, at stash[k],
-// after its record values are read (it may be the row itself).
+// An SG or ASG variant's raw colour sums of a voxel (before the sigmoid), its
+// lobes streamed: the view direction (view_dir, rotated by o.rot) taken once,
+// then each lobe k the basis window keeps, [klo, khi], evaluated once from the
+// block's folded table (lobe_at: one ex2, its scale folded in) straight into
+// the three sums over the record's colour values k, nb + k and 2 nb + k, a
+// lobe an iteration of a run-time loop (unrolled over the bound, or with the
+// record read whole as float4 where it is, it ran no faster on the training
+// bench: PERF.md). ``rec``: the record staged or in the payload, read as
+// pay_val reads it; with ROW, the values as the march takes them
+// (record_row's). No basis array is kept. ``qs`` (or null: the scales are in
+// the table) scales lobe k's value by qs[k]; ``stash`` (or null) receives each
+// kept lobe's value, before that scale, at stash[k], after its record values
+// are read (it may be the row itself).
 template <class V, bool ROW = false, typename T>
 __device__ __forceinline__ float3 lobe_sums(const T* rec, const TrainOpt& o,
                                             const float* prm, float ycm,
@@ -741,45 +725,26 @@ __device__ __forceinline__ float3 lobe_sums(const T* rec, const TrainOpt& o,
   const LobeDir d = lobe_dir<V::FMT>(x, y, z);
   const int nb = o.nb;
   float raw0 = 0.f, raw1 = 0.f, raw2 = 0.f;
-  auto val = [](T v) {
-    if constexpr (ROW)
-      return (float)v;
-    else
-      return pay_val(v);
-  };
-  // lobe k into the sums, its colour values v0, v1, v2
-  auto lobe = [&](int k, float v0, float v1, float v2) {
-    const float b = lobe_at<V::FMT>(o.lobes + V::LW * k, d);
+  const T* p = rec + o.klo;
+  const float4* L = o.lobes + V::LW * o.klo;
+#pragma unroll 1
+  for (int k = o.klo; k <= o.khi; ++k, ++p, L += V::LW) {
+    float v0, v1, v2;
+    if constexpr (ROW) {
+      v0 = p[0];
+      v1 = p[nb];
+      v2 = p[2 * nb];
+    } else {
+      v0 = pay_val(p[0]);
+      v1 = pay_val(p[nb]);
+      v2 = pay_val(p[2 * nb]);
+    }
+    const float b = lobe_at<V::FMT>(L, d);
     if (stash) stash[k] = b;
     const float bq = qs ? b * qs[k] : b;
     raw0 = fmaf(v0, bq, raw0);
     raw1 = fmaf(v1, bq, raw1);
     raw2 = fmaf(v2, bq, raw2);
-  };
-#if VT_LOBE_WHOLE
-  if constexpr (!ROW && sizeof(T) == 4 && V::DMAX % 4 == 0) {
-    if (nb == V::BD && (reinterpret_cast<uintptr_t>(rec) & 15) == 0) {
-      float v[V::DMAX];
-      load_record<V::DMAX, T>(rec, v);
-#pragma unroll
-      for (int k = 0; k < V::BD; ++k)
-        if (k >= o.klo && k <= o.khi)
-          lobe(k, v[k], v[V::BD + k], v[2 * V::BD + k]);
-      return make_float3(raw0, raw1, raw2);
-    }
-  }
-#endif
-  if constexpr (VT_LOBE_UNROLL && !ROW) {
-    const T *p0 = rec, *p1 = rec + nb, *p2 = rec + 2 * nb;
-#pragma unroll
-    for (int k = 0; k < V::BD; ++k)
-      if (k >= o.klo && k <= o.khi)
-        lobe(k, val(p0[k]), val(p1[k]), val(p2[k]));
-  } else {
-    const T* p = rec + o.klo;
-#pragma unroll 1
-    for (int k = o.klo; k <= o.khi; ++k, ++p)
-      lobe(k, val(p[0]), val(p[nb]), val(p[2 * nb]));
   }
   return make_float3(raw0, raw1, raw2);
 }
@@ -816,20 +781,6 @@ __device__ __forceinline__ void record_row(const PT* rec, int D, float* row) {
       if (e + 1 < D) row[e + 1] = __uint_as_float(u & 0xffff0000u);
     }
   }
-}
-
-// an SG or ASG variant's rgb of a voxel (lobe_sums, then the sigmoid)
-template <class V, typename PT>
-__device__ __forceinline__ void voxel_rgb_lobes(const PT* rec,
-                                                const TrainOpt& o,
-                                                const float* prm, float ycm,
-                                                float xcm, float s,
-                                                float ssign, float* rgb) {
-  const float3 r = lobe_sums<V>(rec, o, prm, ycm, xcm, s, ssign, nullptr,
-                                nullptr);
-  rgb[0] = sigmoid(r.x);
-  rgb[1] = sigmoid(r.y);
-  rgb[2] = sigmoid(r.z);
 }
 
 // The coarse occupancy of a payload: per slab and per row of OCC x OCC
@@ -972,7 +923,7 @@ constexpr size_t march_smem() {
 // The blocks an SM's shared memory (228 KB) holds of a march kernel of
 // variant V: its dynamic bytes, MarchStatic, ~2 KB of the kernels' other
 // static arrays and the 1 KB the card reserves a block. The SG/ASG
-// variants' pass 1 declares it as its minimum blocks an SM
+// variants' pass 1 declares it (at most four) as its minimum blocks an SM
 // (slab_march_bwd.cu), so that the compiler's register budget is the one
 // the launch can use.
 template <class V, typename PT>
@@ -1287,8 +1238,8 @@ __device__ __forceinline__ void issue_colour(const Job& j, bool has,
 //   calls it; it may synchronize).
 // ``T`` is the pixel's transmittance, which on_slab updates. V is the
 // variant (TVar): an option variant's cells are shaded only inside its
-// bbox (cell_live), by voxel_rgb_opt (SG and ASG: voxel_rgb_lobes) with
-// the state ``opt``.
+// bbox (cell_live), by voxel_rgb_opt (SG and ASG: lobe_sums) with the
+// state ``opt``.
 template <class V, typename PT, typename OnSlab>
 __device__ __forceinline__ void march_loop(const MarchCtx& c,
                                            const MarchSmem& sm,
@@ -1451,8 +1402,11 @@ __device__ __forceinline__ void march_loop(const MarchCtx& c,
               ((float)(cons.px + lx) + 0.5f) * (1.f / c.Gf) - c.cx;
           float bk[BD], rgb[3];
           if constexpr (V::RTD) {
-            voxel_rgb_lobes<V, PT>(rec, opt, s_prm, ycm, xcm, sd, sdsign,
-                                   rgb);
+            const float3 r = lobe_sums<V>(rec, opt, s_prm, ycm, xcm, sd,
+                                          sdsign, nullptr, nullptr);
+            rgb[0] = sigmoid(r.x);
+            rgb[1] = sigmoid(r.y);
+            rgb[2] = sigmoid(r.z);
           } else if constexpr (V::OPT) {
             voxel_rgb_opt<V, PT>(rec, opt, s_qs, s_prm, ycm, xcm, sd, sdsign,
                                  bk, rgb);

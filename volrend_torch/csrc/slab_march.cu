@@ -281,11 +281,12 @@ struct Launch {
 // variants only) resumes such a segment from the state acc holds on entry
 // instead of (0, 0, 0, 1). The variant (tmarch::with_variant,
 // tmarch::make_var): fmt (0 RGBA, bd = -1, D = 4; 1 SH; 2 SG, 3 ASG with bd
-// lobes, 1 to 25, whose parameters ``extra`` holds on the device; D = 3 bd +
-// 1 otherwise), opt (the option variant: every format but SH, and SH with
-// rot (9 floats on the host), bbox (params 16-19) or a basis window
-// [basis_lo, basis_hi] that drops planes). Returns cudaGetLastError() after
-// the launch.
+// lobes, 1 to 25, whose parameters ``extra`` holds on the device, their
+// scales qscale[k] > 0, which fold into the lobes' exponents (the trainer's
+// are ones); D = 3 bd + 1 otherwise), opt (the option variant: every
+// format but SH, and SH with rot (9 floats on the host), bbox (params
+// 16-19) or a basis window [basis_lo, basis_hi] that drops planes).
+// Returns cudaGetLastError() after the launch.
 extern "C" int vt_march_slabs(const void* payload, int pay_f32,
                               long long ss, long long sr, long long sc,
                               const void* params, const void* qscale,

@@ -40,10 +40,11 @@
 // meets through one synchronous chain each.
 //
 // Design:
-// - Pass 1 (bwd_march_kernel) runs kernel M's slab loop (tmarch::march_loop
-//   in slab_common.cuh: the tile's slab range, the pieces the forward's
-//   coarse occupancy marks, the staged sigma ring, the empty-piece skip,
-//   the colour records queued ahead, the same shading and tap sums), so T
+// - Pass 1 (bwd_march_kernel; SG/ASG bwd_march_lobes) runs kernel M's
+//   slab loop (tmarch::march_loop in slab_common.cuh: the tile's slab
+//   range, the pieces the forward's coarse occupancy marks, the staged
+//   sigma ring, the empty-piece skip, the colour records queued ahead, the
+//   same shading and tap sums), so T
 //   follows the forward's trajectory float for float. The skip is exact
 //   here too: a slab with no cell above the threshold gives w = 0 and
 //   g_tau = 0, leaves A and T as they are, and has zero cotangents. After
@@ -57,8 +58,9 @@
 //   cell collects several tiles' sums, in an order that varies from run to
 //   run; the result agrees with the plain version to f32 rounding (the
 //   tolerance is stated in chip_smoke.py and tests/test_torch_cuda.py).
-// - Pass 2 (bwd_shade_kernel) walks the voxels in the payload's memory
-//   order, 128 a block: it reads the four voxel cotangents as one float4,
+// - Pass 2 (bwd_shade_kernel; SG/ASG bwd_shade_lobes) walks the voxels in
+//   the payload's memory order, 128 a block: it reads the four voxel
+//   cotangents as one float4,
 //   recomputes sigma and rgb at the slab's view direction for the voxels
 //   with a nonzero one and sigma above the threshold (the record read as
 //   float4 where it is f32 and 16-byte aligned), turns them into the D
@@ -73,12 +75,16 @@
 //   aligned words for bf16) into the voxel's own output row, stashes each
 //   lobe's value over its plane-0 value as the sums take it, and writes
 //   the record's cotangent from the stash, planes 2 and 1 first and plane
-//   0 last, over its own stash. Evaluated as the reference writes it
+//   0 last, over its own stash; its zero rows are 16-byte stores where the
+//   record is a whole number of float4. Each pass declares the blocks an
+//   SM it runs (bwd_march_lobes, bwd_shade_lobes), so the compiler keeps
+//   their registers without spills. Evaluated as the reference writes it
 //   (each lobe's raw parameters re-read from shared memory for every
 //   cell, the record one scalar at a time, a basis array live across the
-//   sums), SG9 took 0.44 ms a launch more than SH9 on the training bench
-//   (pass 2 0.31 of it) and ASG's pass 1 spilled 256 bytes a thread
-//   (PERF.md).
+//   sums), SG9 took 0.44 ms a launch more than SH9 on the training bench:
+//   pass 2 0.31 of it, most of that its zero rows' scalar stores (four-way
+//   bank conflicts at D = 28), and pass 1 spilled 136 bytes a thread (ASG
+//   256; PERF.md).
 
 #include "slab_common.cuh"
 
@@ -86,15 +92,6 @@ namespace {
 
 constexpr int NT2 = 128;  // pass 2: voxels a block
 
-// Where pass 2 of an SG/ASG variant takes its lobe table: 0, each block
-// folds the lobes itself (fold_lobe, as pass 1's blocks do); 1, it copies
-// the table pass 1's first block folded into the tail of gbuf (LOBE_ROWS
-// float4 past its voxels). Both were timed (probes/train_march --cases
-// --alt -DVT_BWD_FOLD=1, PERF.md); the build takes the faster.
-#ifndef VT_BWD_FOLD
-#define VT_BWD_FOLD 0
-#endif
-constexpr int LOBE_ROWS = 3 * 25;  // float4 rows of the largest table
 
 struct BwdArgs {
   tmarch::PayView pv;
@@ -134,14 +131,6 @@ __device__ __forceinline__ void bwd_march(
 
   tmarch::TrainOpt opt{};  // the option variants' (their arguments' va)
   if constexpr (V::OPT) opt = tmarch::load_opt<V, NT>(a.va, a.qscale, tid);
-  if constexpr (V::RTD && VT_BWD_FOLD == 1) {
-    // pass 2's table, without the scales: once a launch, in gbuf's tail
-    if (blockIdx.x == 0 && blockIdx.y == 0)
-      for (int k = tid; k < a.va.nb; k += NT)
-        fold_lobe<V::FMT>(a.va.extra, 1.f, k, a.va.nb,
-                          reinterpret_cast<float4*>(a.gbuf) +
-                              (long long)a.n_ids * G * G);
-  }
   const int D = tmarch::rec_dim<V>(opt);
   for (int i = tid; i < NP; i += NT) s_prm[i] = a.params[i];
   for (int i = tid; i < D; i += NT) s_qs[i] = a.qscale[i];
@@ -295,18 +284,14 @@ __device__ __forceinline__ void bwd_march(
 // Pass 1's kernels. The SH and RGBA variants declare the block's threads
 // alone, and the compiler sets their register budget (the defaults'
 // registers are pinned). SG and ASG also declare the blocks an SM their
-// shared memory allows (tmarch::smem_blocks), at most VT_LOBE_MINB: left
-// to its own budget the compiler cut them to 96 registers and spilled
-// 104-224 bytes a thread, and with one block declared it took more
-// registers than the bf16 payload's four blocks an SM leave (PERF.md).
-#ifndef VT_LOBE_MINB
-#define VT_LOBE_MINB 8
-#endif
+// shared memory allows (tmarch::smem_blocks), at most four: left to its
+// own budget the compiler cut them to 96 registers and spilled 104-224
+// bytes a thread; with one block declared it took more registers than the
+// bf16 payload's four blocks an SM leave; and five blocks (bound 4 on
+// bf16: 96 registers) spilled 96 bytes and ran slower than four (PERF.md).
 template <class V, typename PT>
 constexpr int pass1_blocks() {
-  return tmarch::smem_blocks<V, PT>() < VT_LOBE_MINB
-             ? tmarch::smem_blocks<V, PT>()
-             : VT_LOBE_MINB;
+  return tmarch::smem_blocks<V, PT>() < 4 ? tmarch::smem_blocks<V, PT>() : 4;
 }
 
 template <class V, typename PT>
@@ -363,15 +348,14 @@ __device__ __forceinline__ void bwd_shade(
     void* __restrict__ out, int out_bf16, int G, long long vs, long long vr,
     long long vc, long long n_vox, const tmarch::VarArgs& va) {
   constexpr int BD = V::BD, DMAX = V::DMAX;
-  static_assert(V::LW * BD <= LOBE_ROWS, "gbuf's tail holds the table");
   __shared__ float s_prm[NP];
   __shared__ float s_qs[DMAX];
   __shared__ __align__(16) float s_out[NT2 * DMAX];
   const int tid = threadIdx.x;
   // SG/ASG: the lobes folded without the scales, which the shade adjoint
-  // takes a plane each (VT_BWD_FOLD 1: pass 1 folded them into gbuf's tail)
-  tmarch::TrainOpt opt = tmarch::load_opt<V, NT2>(
-      va, nullptr, tid, VT_BWD_FOLD == 1 ? gbuf + n_vox : nullptr);
+  // takes a plane each (each block folds them: copying a table folded once
+  // a launch ran no faster, PERF.md)
+  tmarch::TrainOpt opt = tmarch::load_opt<V, NT2>(va, nullptr, tid);
   const int D = tmarch::rec_dim<V>(opt);
   for (int i = tid; i < NP; i += NT2) s_prm[i] = params[i];
   for (int i = tid; i < D; i += NT2) s_qs[i] = qscale[i];
@@ -488,14 +472,11 @@ __device__ __forceinline__ void bwd_shade(
 // Pass 2's kernels: the SH and RGBA variants with the block's threads
 // alone (the defaults' registers are pinned); SG and ASG also with the
 // blocks an SM each bound's variants held before their redesign (SG 12,
-// 12, 8, 5 and ASG 12, 10, 7, 4 at bounds 4, 9, 16, 25; VT_PASS2_MINB 0:
-// one).
-#ifndef VT_PASS2_MINB
-#define VT_PASS2_MINB 1
-#endif
+// 12, 8, 5 and ASG 12, 10, 7, 4 at bounds 4, 9, 16, 25): left to its own
+// budget the compiler took 73 registers (6 blocks), 0.10 ms slower on the
+// lean payload's SG9 (PERF.md).
 template <class V>
 constexpr int pass2_blocks() {
-  if (!VT_PASS2_MINB) return 1;
   constexpr int i = V::BD <= 4 ? 0 : V::BD <= 9 ? 1 : V::BD <= 16 ? 2 : 3;
   constexpr int sg[4] = {12, 12, 8, 5}, asg[4] = {12, 10, 7, 4};
   return V::FMT == F_ASG ? asg[i] : sg[i];
@@ -609,9 +590,8 @@ int info(int* out) {
 // (_zb_planes); gacc (4, gi, gi) f32; aux (4, gi, gi) f32 = [ctot, T_end *
 // g_T, T_in, A_in]; ids (Gz,) int32, every slab in forward order; occ: Gz
 // * ceil(G / 8) * ceil(G / 512) uint64, the payload's coarse occupancy
-// (vt_march_occupancy in slab_march.cu); gbuf (Gz G^2 + LOBE_ROWS, 4)
-// f32, the voxels in the payload's voxel order, then room for an SG/ASG
-// lobe table, zeroed by the caller; out: the cotangent, the
+// (vt_march_occupancy in slab_march.cu); gbuf (Gz G^2, 4) f32 in the
+// payload's voxel order, zeroed by the caller; out: the cotangent, the
 // payload's strides, f32 or bf16 (out_bf16); counts: tmarch::N_COUNTS
 // uint64 (pass 1's, tmarch::add_counts) or null; the variant (bd, fmt,
 // opt, extra, rot_on, rot, bbox, basis_lo, basis_hi) as for

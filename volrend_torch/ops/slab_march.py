@@ -632,9 +632,6 @@ def _variant_args(mode: MarchMode, bd: int, dev,
 
 #: entries of the training kernels' counts (tmarch::N_COUNTS)
 N_COUNTS = 5
-#: float4 rows of M-bwd's voxel buffer past its voxels: the SG/ASG lobe
-#: table's, 3 a lobe of up to 25 (csrc/slab_march_bwd.cu LOBE_ROWS)
-_LOBE_ROWS = 75
 #: cells a side of the coarse occupancy's blocks (tmarch::OCC)
 _OCC = 8
 
@@ -1316,10 +1313,7 @@ def _march_bwd_cuda(gplanar, params, qscale, zb, gacc4, aux, G, gi, D, bd,
     if occ is None:
         occ = march_occupancy(gplanar, params, qscale)
     _check_occupancy(occ, Gz, G, G, dev)
-    # the voxel cotangents, and the SG/ASG lobe table's rows past them
-    # (csrc/slab_march_bwd.cu LOBE_ROWS)
-    gbuf = torch.zeros((Gz * G * G + _LOBE_ROWS, 4), dtype=_F32,
-                       device=dev)
+    gbuf = torch.zeros((Gz * G * G, 4), dtype=_F32, device=dev)
     out = torch.empty_strided(gplanar.shape, gplanar.stride(),
                               dtype=out_dtype, device=dev)
     f32 = gplanar.dtype == _F32

@@ -23,24 +23,23 @@ the order of the tap sums), the backward's to relative L2 1e-4 (its
 global atomics add in a run-dependent order).
 
 ``--cases SH9,SG9,ASG9,SG6`` instead times the formats at the port's own
-configuration: the training bench's leaves read as SG9, ASG9 and SG6 trees
-(any SG or ASG lobe count, ``_common.format_trees``; SH9 the baseline; a
-``-bf16`` suffix marches the lean trainer's bf16 cast and writes a bf16
-cotangent), each baked by its own ``FrameTrainer``. For each case and build it times kernel M and M-bwd
-on pose 0, splits M-bwd into pass 1, pass 2 and the cotangent buffer's fill
-(torch.profiler), reads thread 0's cycles by part of the loop from a
-``-DVT_TM_CYCLES`` build, and reads every launch's registers, local bytes
-and blocks per SM (``vt_march_slabs_info``, ``vt_march_slabs_bwd_info``).
+configuration: the training bench's leaves read as SG9, ASG9 and SG6 trees (any
+SG or ASG lobe count, ``_common.format_trees``; SH9 the baseline; a ``-bf16``
+suffix marches the lean trainer's bf16 cast and writes a bf16 cotangent), each
+baked by its own ``FrameTrainer``. For each case and build it times kernel M
+and M-bwd on pose 0, splits M-bwd into pass 1, pass 2 and the cotangent
+buffer's fill (torch.profiler), reads thread 0's cycles by part of the loop
+from a ``-DVT_TM_CYCLES`` build, and reads every launch's registers, local
+bytes and blocks per SM (``vt_march_slabs_info``, ``vt_march_slabs_bwd_info``).
 Both kernels' outputs are held to the port's plain versions
-(``march_slabs_ref``, ``march_slabs_bwd_ref``) at chip_smoke.py's
-tolerances. ``--parent DIR`` builds the same two sources of another
-checkout (an unpacked parent; the C entry points must be the same) and
-times it in turns with this one: parent, change, change, parent; ``--alt
-FLAGS`` builds this checkout again with extra nvcc flags (a build-time
-alternative, e.g. ``-DVT_BWD_FOLD=1``; several separated by ``;``) and
-times each between them. Each build's SH defaults and SG/ASG
-instantiations at every lobe bound are listed by their launches
-(``lobe_info``); ``--cases none`` builds and lists them only.
+(``march_slabs_ref``, ``march_slabs_bwd_ref``) at chip_smoke.py's tolerances.
+``--parent DIR`` builds the same two sources of another checkout (an unpacked
+parent; the C entry points must be the same) and times it in turns with this
+one: parent, change, change, parent; ``--alt FLAGS`` builds this checkout again
+with extra nvcc flags (a build-time alternative a source reads as a macro;
+several separated by ``;``) and times each between them. Each build's SH
+defaults and SG/ASG instantiations at every lobe bound are listed by their
+launches (``lobe_info``).
 
 Every time is the card's: CUDA events around back-to-back launches queued
 behind a device sleep, median of three runs. Run on a card from the root of
@@ -399,7 +398,6 @@ def run_cases(dev, cases, parent=None, alt=None) -> dict:
         c.log(f"train_march lobe_info ({t}"
               f"{': ' + alts[int(t[3:])] if t.startswith('alt') else ''}): "
               f"{json.dumps(info)}")
-    cases = [k for k in cases if k != "none"]
     tdev = _bench_tree(dev)
     out = {}
     for case in cases:
@@ -492,8 +490,7 @@ def main() -> None:
     ap.add_argument("--cases", default=None,
                     help="time these formats at the port's configuration "
                     "instead (SH9, SG<n>, ASG<n>; a -bf16 suffix the lean "
-                    "trainer's payload; none: list the builds only), "
-                    "comma-separated")
+                    "trainer's payload), comma-separated")
     ap.add_argument("--parent", default=None,
                     help="with --cases: a parent checkout to time in turns")
     ap.add_argument("--alt", default=None,
