@@ -942,8 +942,15 @@ def train_kernel_checks(torch, dev, planar, params, zb, gacc4, ids, cfg,
             planar, params[0], qs, zb[0], gacc4, acc4, G, GI, D, bd, perm,
             flip=flip, out_dtype=planar.dtype, occupancy=occ, **st)
 
+    # the device memory M-bwd's call holds above what was allocated before
+    # it: its output and its buffers (RGBA with an f32 cotangent: the
+    # output alone)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     g_k = run_b()
     torch.cuda.synchronize()
+    alloc_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
     if g_k.stride() != planar.stride():
         fail(f"the backward's cotangent has strides {g_k.stride()}, not the "
              f"payload's {planar.stride()}")
@@ -964,13 +971,15 @@ def train_kernel_checks(torch, dev, planar, params, zb, gacc4, ids, cfg,
     tol = TOL_BWD_REL if f32 else TOL_BWD_REL_BF16
     log(f"kernel M-bwd [{tag}]: relative L2 {rel:.3e}, cosine {cos:.9f}, "
         f"max |diff| {mx:.3e} (max |plain| {float(gp.abs().max()):.3e}); "
+        f"the call holds {alloc_mib:.1f} MiB above its inputs; "
         f"forward freeze flips {flips} of {nray} rays (tolerance: relative "
         f"L2 < {tol}, cosine > {MIN_BWD_COS})")
     if not (np.isfinite(rel) and rel < tol and cos > MIN_BWD_COS):
         fail(f"the backward kernel disagrees with its plain version ({tag})")
     del g_k, g_p, gk, gp
     mb = {"max_abs_err": mx, "rel_l2": rel, "cosine": cos,
-          "freeze_flips": flips, "plain_ms": mb_plain_ms,
+          "freeze_flips": flips, "alloc_mib": alloc_mib,
+          "plain_ms": mb_plain_ms,
           "ms": cuda_ms(torch, run_b, KREPS), "library_ms": None}
     mb["bound_ms"], mb["bound_by"] = march_bwd_bound(
         torch, planar, qs, bzb[None], G, GI, bd, sthr,
@@ -2836,6 +2845,39 @@ def train_lobe_infos(kernels) -> dict:
     return out
 
 
+def train_opt_infos(kernels) -> dict:
+    """What the card makes of every SH option and RGBA instantiation of
+    kernel M's training mode and M-bwd (SH1-SH25 with options, RGBA; f32
+    and bf16 payloads): registers, local bytes and blocks per SM, each
+    logged beside the SH default's of the same bound and payload (RGBA's
+    records, D = 4, beside SH1's). Fails if M-bwd's pass 1 takes more local
+    bytes than that SH default or its pass 2 takes any."""
+    out = {}
+    parts = ("M", "M-bwd pass 1", "M-bwd pass 2")
+    for f32 in (1, 0):
+        pay = "f32" if f32 else "bf16"
+        for bound in (1, 4, 9, 16, 25, -1):  # -1: RGBA
+            rgba = bound < 0
+            sh_bd = 1 if rgba else bound
+            sh = train_occupancy(kernels, sh_bd, f32)
+            key = f"RGBA-{pay}" if rgba else f"SH{bound}-opt-{pay}"
+            info = train_occupancy(kernels, bound, f32, 0 if rgba else 1,
+                                   True)
+            out[key] = {p: info[p] for p in parts}
+            log(f"training {key}: " + "; ".join(
+                f"{p} {info[p]['regs']} registers, "
+                f"{info[p]['spill_bytes']} local bytes (SH{sh_bd} "
+                f"{sh[p]['spill_bytes']}), {info[p]['blocks_per_sm']} "
+                f"blocks an SM" for p in parts))
+            limit = sh["M-bwd pass 1"]["spill_bytes"]
+            if (info["M-bwd pass 1"]["spill_bytes"] > limit
+                    or info["M-bwd pass 2"]["spill_bytes"]):
+                fail(f"training {key}: M-bwd's pass 1 takes more local "
+                     f"bytes than SH{sh_bd}'s {limit}, or its pass 2 takes "
+                     f"any: {out[key]}")
+    return out
+
+
 def train_variants_phase(torch, dev, stats):
     """Phase 12b: the training pair's formats and options at the training
     bench's width (tools/bench_train.py's scene: make_solid_tree(
@@ -2846,7 +2888,8 @@ def train_variants_phase(torch, dev, stats):
     basis window and a render_bbox, each through train_variant_case (SG9
     also on the lean trainer's bf16 bake, and one step with the precise
     warp's switch on); first every SG and ASG instantiation's registers
-    and local bytes (train_lobe_infos). Returns {case: summary}."""
+    and local bytes (train_lobe_infos), and every SH option and RGBA
+    instantiation's (train_opt_infos). Returns {case: summary}."""
     from volrend_torch import kernels
     from volrend_torch.models.synthetic import make_solid_tree
     from volrend_torch.ops.camera import Camera
@@ -2854,6 +2897,7 @@ def train_variants_phase(torch, dev, stats):
     from volrend_torch.utils.options import RenderOptions
     topt = RenderOptions(max_steps=1024)
     infos = train_lobe_infos(kernels)
+    opt_infos = train_opt_infos(kernels)
     tree = _common.load_tree(CACHE_TRAIN, lambda: make_solid_tree(
         max_depth=DEPTH, basis_dim=9, seed=7))
     tdev = tree.to_device(lut_depth=None, device=dev)
@@ -2866,6 +2910,7 @@ def train_variants_phase(torch, dev, stats):
             torch, dev, stats, case, trees[key], topt.replace(**option),
             cams, lean=case == "SG9", precise=case == "SG9")
     out["lobe_instantiations"] = infos
+    out["opt_instantiations"] = opt_infos
     del trees, tdev, tree
     torch.cuda.empty_cache()
     return out

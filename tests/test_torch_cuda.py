@@ -1644,6 +1644,63 @@ def test_train_rgba_matches_plain(group_geom, dtype):
                                seed=2).startswith("RGBA-")
 
 
+@pytest.mark.parametrize("pay, out, options", [
+    (torch.float32, torch.float32, {}),
+    (torch.bfloat16, torch.bfloat16, {}),
+    (torch.bfloat16, torch.float32,
+     dict(render_bbox=(0.2,) * 3 + (0.8,) * 3))])
+def test_train_rgba_zsegment_matches_plain(group_geom, pay, out, options):
+    """M-bwd on the two z-segments of an RGBA bake (slab_grad.zsegment),
+    each launched with its z_base and an incoming (T, A) state
+    (state_init), against its plain version on the same CUDA tensors:
+    with an f32 cotangent (pass 1 writes it itself; on a bf16 payload, and
+    with a bbox) and with a bf16 one (the sum buffer and pass 2)."""
+    from volrend_torch.models.data_format import BasisType
+    from volrend_torch.ops import slab_grad
+    grid, cams = group_geom
+    (perm, flip), cam = sorted(cams.items())[3 % len(cams)]
+    G, D, gi = grid.G, 4, 40
+    dev = grid.data.device
+    opt = OPT.replace(renormalize=False, **options)
+    geom = slab_render.FrameGeom(grid, cam.transform, cam.fx, cam.fy, perm,
+                                 flip, 48, 48, opt, gi)
+    cfg = slab_grad.SlabCfg(G=G, gi=gi, D=D, bd=-1,
+                            fmt=int(BasisType.RGBA), perm=perm, flip=flip,
+                            ids=(), opt=opt)
+    params = slab_grad._pack_geom_params(geom, cfg, 1.0 / geom.scale)
+    zb = torch.stack([geom.z_lo_pix, geom.z_hi_pix], 1)
+    st = slab_grad._kernel_statics(cfg)
+    st.pop("flip")
+    mode = slab_march.MarchMode(cfg.fmt, None, False, st["rot"],
+                                st["bbox_full"], st["basis_lo"],
+                                st["basis_hi"])
+    qs = torch.ones(D, device=dev)
+    rng = np.random.default_rng(7)
+    gacc4 = torch.as_tensor(rng.normal(size=(4, gi, gi)).astype(np.float32),
+                            device=dev)
+    acc4 = torch.as_tensor(rng.uniform(size=(4, gi, gi)).astype(np.float32),
+                           device=dev)
+    planar = _view(_two_cubes(G, D, pay, dev, 3), perm)
+    Gl = G // 2
+    for i in range(2):
+        seg = slab_grad.zsegment(planar, i, Gl)
+        state = torch.as_tensor(np.stack([
+            rng.uniform(0.3, 1.0, (gi, gi)), rng.normal(0.0, 0.5, (gi, gi))
+        ]).astype(np.float32), device=dev)
+        n0 = slab_march.march_slabs_bwd.segments
+        gk = slab_march.march_slabs_bwd(
+            seg, params[0], qs, zb[0], gacc4, acc4, G, gi, D, -1, perm,
+            flip=flip, z_base=i * Gl / G, state_init=state, out_dtype=out,
+            **st)
+        assert slab_march.march_slabs_bwd.segments == n0 + 1
+        assert gk.dtype == out and gk.stride() == seg.stride()
+        bprm, bzb, bgacc, aux = slab_march.march_bwd_inputs(
+            params[0], zb[0], gacc4, acc4, G, gi, state, i * Gl / G)
+        gp = slab_march.march_slabs_bwd_ref(seg, qs, bprm, bzb, bgacc, aux,
+                                            G, gi, D, -1, flip, mode=mode)
+        _bwd_agrees(gk, gp, out)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bd", [1, 4, 9, 16, 25])
 @pytest.mark.parametrize("option", ["rot", "window", "bbox", "all"])
@@ -1737,6 +1794,60 @@ def test_lobe_train_launches_stay_within_their_limits(card):
         assert all(g[0] >= b for g, b in zip(got, want)), (key, got)
         assert got[0][1] <= sh[0][1] and got[1][1] <= sh[1][1], (key, got,
                                                                   sh)
+        assert got[2][1] == 0, (key, got)
+
+
+#: the SH option and RGBA instantiations of the training pair (by bound and
+#: payload) since their redesign (NVIDIA H100 80GB HBM3;
+#: ``python volrend_torch/probes/train_info.py``): resident blocks per SM
+#: of M, M-bwd's pass 1 (RGBA on f32: the pass that writes the cotangent
+#: itself) and its pass 2
+OPT_TRAIN_INFO = {
+    "SH1-opt-f32": (4, 4, 12),
+    "SH1-opt-bf16": (4, 4, 12),
+    "SH4-opt-f32": (4, 4, 10),
+    "SH4-opt-bf16": (4, 4, 10),
+    "SH9-opt-f32": (2, 2, 8),
+    "SH9-opt-bf16": (4, 4, 8),
+    "SH16-opt-f32": (2, 2, 6),
+    "SH16-opt-bf16": (3, 3, 6),
+    "SH25-opt-f32": (1, 1, 4),
+    "SH25-opt-bf16": (2, 2, 4),
+    "RGBA-f32": (4, 4, 12),
+    "RGBA-bf16": (4, 4, 12),
+}
+
+
+def test_opt_train_launches_stay_within_their_limits(card):
+    """Every SH option (SH1 to SH25 with rot, a basis window or a bbox) and
+    RGBA instantiation of kernel M's training mode and of M-bwd, on f32
+    and bf16 payloads: M-bwd's pass 1 takes no more local bytes than the
+    SH default of the same bound and payload (RGBA's 4-value records:
+    SH1's), pass 2 takes none, and each holds at least the blocks an SM of
+    OPT_TRAIN_INFO."""
+    from volrend_torch import kernels
+    assert len(OPT_TRAIN_INFO) == 12
+
+    def info(bd, f32, fmt, opt):
+        m = (ctypes.c_int * 11)()
+        b = (ctypes.c_int * 7)()
+        kernels.check(slab_march.train_lib("slab_march", fmt, opt)
+                      .vt_march_slabs_info(bd, f32, fmt, opt, m),
+                      "slab_march")
+        kernels.check(slab_march.train_lib("slab_march_bwd", fmt, opt)
+                      .vt_march_slabs_bwd_info(bd, f32, fmt, opt, b),
+                      "slab_march_bwd")
+        # (blocks, local bytes) of M, pass 1 and pass 2
+        return ((m[0], m[2]), (b[0], b[2]), (b[4], b[6]))
+
+    for key, blocks in OPT_TRAIN_INFO.items():
+        name, pay = key.rsplit("-", 1)
+        f32 = int(pay == "f32")
+        bd = -1 if name == "RGBA" else int(name.split("-")[0][2:])
+        sh = info(max(bd, 1), f32, 1, 0)
+        got = info(bd, f32, 0 if bd < 0 else 1, 1)
+        assert all(g[0] >= b for g, b in zip(got, blocks)), (key, got)
+        assert got[1][1] <= sh[1][1], (key, got, sh)
         assert got[2][1] == 0, (key, got)
 
 

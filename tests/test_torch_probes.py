@@ -449,3 +449,58 @@ def test_display_sass_pinned_digests_hold_only_their_toolkit(
     assert out["ok"] is not checked
     assert all(v["equal"] is (False if checked else None)
                for v in out["defaults"].values())
+
+
+# ---------------------------------------------------------------------------
+# probes/train_march --cases: the training pair's formats and options (the
+# card runs them; here the cases' names)
+# ---------------------------------------------------------------------------
+
+#: chip_smoke.py's tree keys as (format, lobes or SH basis functions) of the
+#: training bench's SH9 tree (_common.format_trees; SG6 its six-lobe SG)
+_SMOKE_TREES = {"SH": ("SH", 9), "SG": ("SG", 9), "ASG": ("ASG", 9),
+                "SG6": ("SG", 6), "RGBA": ("RGBA", None)}
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_train_march_cases_are_the_smoke_cases(bf16):
+    """Every case name of chip_smoke.TRAIN_CASES, and the SH9 baseline, is a
+    case ``train_march --cases`` accepts, with the tree format, lobe count,
+    render options and payload (a -bf16 suffix: the lean trainer's bf16
+    payload and cotangent) that the smoke's phase 12b gives it."""
+    import chip_smoke
+    from volrend_torch.probes import train_march
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    cases = list(chip_smoke.TRAIN_CASES) + [("SH9", "SH", {})]
+    assert {"RGBA", "SH9-rot", "SH9-window", "SH9-bbox"} <= {
+        c[0] for c in cases}
+    for name, key, option in cases:
+        spec = train_march.case_spec(name + ("-bf16" if bf16 else ""))
+        assert (spec.fmt, spec.nb) == _SMOKE_TREES[key], name
+        assert spec.options == option and spec.dtype == dtype, name
+        # the library that marches it (VT_TRAIN_SET: 0 defaults, 1 SH
+        # options and RGBA, 2 SG/ASG) is the one the port picks
+        fmt = {"SH": 1, "SG": 2, "ASG": 3, "RGBA": 0}[spec.fmt]
+        opt = fmt != 1 or bool(option)
+        suffix = train_march._SET_SUFFIX[train_march._case_set(spec)]
+        assert suffix == ("_lobes" if fmt > 1 else "_opt" if opt else ""), \
+            name
+
+
+@pytest.mark.parametrize("name", ["SH4", "SH9-all", "SH9-rot-window",
+                                  "SG0", "SG26", "ASG", "SG09", "RGBA-rot",
+                                  "RGBA-bf16-bf16", "rgba", ""])
+def test_train_march_refuses_unknown_cases(name, monkeypatch):
+    """A case name outside SH9[-rot|-window|-bbox], SG<n>, ASG<n> (1 to 25
+    lobes) and RGBA, each with an optional -bf16, is refused, also by the
+    command line before anything is built or run."""
+    from volrend_torch.probes import train_march
+    with pytest.raises(ValueError, match="unknown case"):
+        train_march.case_spec(name)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(train_march, "run_cases",
+                        lambda *a: pytest.fail("the cases ran"))
+    monkeypatch.setattr("sys.argv", ["train_march", "--cases",
+                                     f"SH9,{name}"])
+    with pytest.raises(ValueError, match="unknown case"):
+        train_march.main()

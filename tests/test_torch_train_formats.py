@@ -42,6 +42,10 @@ OPT = RenderOptions(max_steps=512)
 ROT = dict(rot_dirs=(0.3, -0.2, 0.5))
 WINDOW = dict(basis_minmax=(0, 2))
 BBOX = dict(render_bbox=(0.3,) * 3 + (0.7,) * 3)
+#: the training bench's option cases (chip_smoke.TRAIN_CASES) at its
+#: basis width, SH9
+BENCH_WINDOW = dict(basis_minmax=(0, 3))
+BENCH_BBOX = dict(render_bbox=(0.25,) * 3 + (0.75,) * 3)
 #: (format, basis_dim, render options) of each case
 CASES = {
     "SG4": ("SG", 4, {}), "SG3": ("SG", 3, {}), "ASG4": ("ASG", 4, {}),
@@ -49,6 +53,8 @@ CASES = {
     "SH4-rot": ("SH", 4, ROT), "SH4-window": ("SH", 4, WINDOW),
     "SH4-bbox": ("SH", 4, BBOX), "SH4-all": ("SH", 4, {**ROT, **WINDOW,
                                                       **BBOX}),
+    "SH9-rot": ("SH", 9, ROT), "SH9-window": ("SH", 9, BENCH_WINDOW),
+    "SH9-bbox": ("SH", 9, BENCH_BBOX),
 }
 
 

@@ -392,15 +392,13 @@ __device__ __forceinline__ float sigma_of(uint32_t w, long long e) {
 // 3 B + 1, or 4 for RGBA; SG and ASG take theirs, 3 nb + 1 for nb <= B
 // lobes, at run time (RTD). The default variants, SH without options
 // (ShVar), are what the training bench marches. SG and ASG shade from the
-// lobe table each block folds (fold_lobe: LW float4 a lobe, from EXW raw
-// floats a lobe).
+// lobe table each block folds (fold_lobe: LW float4 a lobe).
 template <int FM, bool O, int B>
 struct TVar {
   static constexpr int FMT = FM, BD = B;
   static constexpr bool OPT = O;
   static constexpr bool RTD = FM == F_SG || FM == F_ASG;
   static constexpr int DMAX = FM == F_RGBA ? 4 : 3 * B + 1;
-  static constexpr int EXW = FM == F_SG ? 4 : FM == F_ASG ? 11 : 0;
   static constexpr int LW = FM == F_ASG ? 3 : 1;
 };
 template <int BD>
@@ -429,13 +427,11 @@ using ArgsOf = typename std::conditional<V::OPT, WithVar<A>, A>::type;
 // memory, or null), the lobe count nb, the record width D, the basis
 // window, the bbox (its in-plane box from params 16-19), and for SG and
 // ASG the folded lobe table (shared memory, fold_lobe) and the lobes
-// [klo, khi] the window keeps. (ext and inv_nb are set only by the SH and
-// RGBA option variants' load_opt, which keeps its earlier text.)
+// [klo, khi] the window keeps.
 struct TrainOpt {
   const float* rot;
-  const float* ext;
   int nb, D, blo, bhi, bbox;
-  float inv_nb, lo1, hi1, lo2, hi2;
+  float lo1, hi1, lo2, hi2;
   const float4* lobes;
   int klo, khi;
 };
@@ -466,36 +462,23 @@ template <class V, int NTH>
 __device__ __forceinline__ TrainOpt load_opt(const VarArgs& va,
                                              const float* qs, int tid) {
   TrainOpt o{};
-  if constexpr (V::RTD) {
+  if constexpr (V::OPT) {
     float* s = opt_smem<9>();
     // the rotation with constant indices (a run-time index into the
     // kernel's parameters would copy them to local memory)
 #pragma unroll
     for (int r = 0; r < 9; ++r)
       if (tid == r) s[r] = va.rot[r];
-    float4* t = lobe_table<V::LW, V::BD>();
-    for (int k = tid; k < va.nb; k += NTH)
-      fold_lobe<V::FMT>(va.extra, qs ? qs[k] : 1.f, k, va.nb, t);
+    if constexpr (V::RTD) {
+      float4* t = lobe_table<V::LW, V::BD>();
+      for (int k = tid; k < va.nb; k += NTH)
+        fold_lobe<V::FMT>(va.extra, qs ? qs[k] : 1.f, k, va.nb, t);
+      o.lobes = t;
+      o.klo = max(va.blo, 0);
+      o.khi = min(va.bhi, va.nb - 1);
+    }
     o.rot = va.rot_on ? s : nullptr;
     o.nb = va.nb;
-    o.D = 3 * va.nb + 1;
-    o.blo = va.blo;
-    o.bhi = va.bhi;
-    o.bbox = va.bbox;
-    o.lobes = t;
-    o.klo = max(va.blo, 0);
-    o.khi = min(va.bhi, va.nb - 1);
-  } else if constexpr (V::OPT) {
-    // The SH and RGBA option variants: their earlier code, kept as it was
-    // (EXW is 0, so the loop copies nothing; a rewrite without it gave
-    // kernel M's SH9 and SH16 option variants other registers, PERF.md).
-    float* s = opt_smem<9 + V::EXW * V::BD>();
-    if (tid < 9) s[tid] = va.rot[tid];
-    for (int i = tid; i < V::EXW * va.nb; i += NTH) s[9 + i] = va.extra[i];
-    o.rot = va.rot_on ? s : nullptr;
-    o.ext = s + 9;
-    o.nb = va.nb;
-    o.inv_nb = 1.f / (float)va.nb;
     o.D = V::RTD ? 3 * va.nb + 1 : V::DMAX;
     o.blo = va.blo;
     o.bhi = va.bhi;
@@ -658,15 +641,15 @@ __device__ __forceinline__ void voxel_rgb(const float* rec, const float* qs,
   rgb[2] = sigmoid(raw2);
 }
 
-// An SH or RGBA option variant's rgb of a voxel, from its record ``rec``
-// (staged, or in the payload; values as pay_val reads them), as the
-// reference's kernel shades it (pallas_slab.py:391-471): SH takes
-// sigmoid(sum_k rec[c BD + k] bk[k] qs[k]), bk the basis at the view
-// direction rotated by o.rot, zero outside the window [blo, bhi] (bk is
-// returned so); RGBA takes rec[c] qs[c] (no basis, no sigmoid). SG and ASG
-// take lobe_sums.
-template <class V, typename PT>
-__device__ __forceinline__ void voxel_rgb_opt(const PT* rec,
+// An SH or RGBA option variant's rgb of a voxel, from its record's values
+// ``rec`` (load_record's: the record read whole, staged or from the
+// payload), as the reference's kernel shades it (pallas_slab.py:391-471):
+// SH takes sigmoid(sum_k rec[c BD + k] bk[k] qs[k]), bk the basis at the
+// view direction rotated by o.rot, zero outside the window [blo, bhi] (a
+// mask on the basis, k ascending; bk is returned so); RGBA takes rec[c]
+// qs[c] (no basis, no sigmoid). SG and ASG take lobe_sums.
+template <class V>
+__device__ __forceinline__ void voxel_rgb_opt(const float* rec,
                                               const TrainOpt& o,
                                               const float* qs,
                                               const float* prm, float ycm,
@@ -675,25 +658,22 @@ __device__ __forceinline__ void voxel_rgb_opt(const PT* rec,
                                               float* rgb) {
   if constexpr (V::FMT == F_RGBA) {
 #pragma unroll
-    for (int c = 0; c < 3; ++c) rgb[c] = pay_val(rec[c]) * qs[c];
+    for (int c = 0; c < 3; ++c) rgb[c] = rec[c] * qs[c];
   } else {
     static_assert(V::FMT == F_SH, "SG and ASG shade by lobe_sums");
+    constexpr int BD = V::BD;
     float x, y, z;
     view_dir(prm, ycm, xcm, s, ssign, x, y, z);
     if (o.rot) rotate(o.rot, x, y, z);
-    sh_basis<V::BD>(x, y, z, bk);
-    const int nb = V::FMT == F_SH ? V::BD : o.nb;
+    sh_basis<BD>(x, y, z, bk);
     float raw0 = 0.f, raw1 = 0.f, raw2 = 0.f;
 #pragma unroll
-    for (int k = 0; k < V::BD; ++k) {
-      if (k < o.blo || k > o.bhi || k >= nb) {
-        bk[k] = 0.f;
-        continue;
-      }
+    for (int k = 0; k < BD; ++k) {
+      bk[k] = (k >= o.blo && k <= o.bhi) ? bk[k] : 0.f;
       const float bq = bk[k] * qs[k];
-      raw0 += pay_val(rec[k]) * bq;
-      raw1 += pay_val(rec[nb + k]) * bq;
-      raw2 += pay_val(rec[2 * nb + k]) * bq;
+      raw0 += rec[k] * bq;
+      raw1 += rec[BD + k] * bq;
+      raw2 += rec[2 * BD + k] * bq;
     }
     rgb[0] = sigmoid(raw0);
     rgb[1] = sigmoid(raw1);
@@ -1407,13 +1387,14 @@ __device__ __forceinline__ void march_loop(const MarchCtx& c,
             rgb[0] = sigmoid(r.x);
             rgb[1] = sigmoid(r.y);
             rgb[2] = sigmoid(r.z);
-          } else if constexpr (V::OPT) {
-            voxel_rgb_opt<V, PT>(rec, opt, s_qs, s_prm, ycm, xcm, sd, sdsign,
-                                 bk, rgb);
           } else {
             float vals[V::DMAX];
             load_record<V::DMAX, PT>(rec, vals);
-            voxel_rgb<BD>(vals, s_qs, s_prm, ycm, xcm, sd, sdsign, bk, rgb);
+            if constexpr (V::OPT)
+              voxel_rgb_opt<V>(vals, opt, s_qs, s_prm, ycm, xcm, sd, sdsign,
+                               bk, rgb);
+            else
+              voxel_rgb<BD>(vals, s_qs, s_prm, ycm, xcm, sd, sdsign, bk, rgb);
           }
           o = make_float4(sig, sig * rgb[0], sig * rgb[1], sig * rgb[2]);
         }

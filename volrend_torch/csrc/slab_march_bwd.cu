@@ -40,11 +40,11 @@
 // meets through one synchronous chain each.
 //
 // Design:
-// - Pass 1 (bwd_march_kernel; SG/ASG bwd_march_lobes) runs kernel M's
-//   slab loop (tmarch::march_loop in slab_common.cuh: the tile's slab
-//   range, the pieces the forward's coarse occupancy marks, the staged
-//   sigma ring, the empty-piece skip, the colour records queued ahead, the
-//   same shading and tap sums), so T
+// - Pass 1 (bwd_march_kernel; the option variants' bwd_march_opt) runs
+//   kernel M's slab loop (tmarch::march_loop in slab_common.cuh: the
+//   tile's slab range, the pieces the forward's coarse occupancy marks,
+//   the staged sigma ring, the empty-piece skip, the colour records queued
+//   ahead, the same shading and tap sums), so T
 //   follows the forward's trajectory float for float. The skip is exact
 //   here too: a slab with no cell above the threshold gives w = 0 and
 //   g_tau = 0, leaves A and T as they are, and has zero cotangents. After
@@ -58,14 +58,14 @@
 //   cell collects several tiles' sums, in an order that varies from run to
 //   run; the result agrees with the plain version to f32 rounding (the
 //   tolerance is stated in chip_smoke.py and tests/test_torch_cuda.py).
-// - Pass 2 (bwd_shade_kernel; SG/ASG bwd_shade_lobes) walks the voxels in
-//   the payload's memory order, 128 a block: it reads the four voxel
-//   cotangents as one float4,
-//   recomputes sigma and rgb at the slab's view direction for the voxels
-//   with a nonzero one and sigma above the threshold (the record read as
-//   float4 where it is f32 and 16-byte aligned), turns them into the D
-//   record values (zeros elsewhere), and writes the block's records as one
-//   contiguous run with 16-byte stores: ~0.75 ms against the 0.56 ms write.
+// - Pass 2 (bwd_shade_kernel; the option variants' bwd_shade_opt) walks
+//   the voxels in the payload's memory order, 128 a block: it reads the
+//   four voxel cotangents as one float4, recomputes sigma and rgb at the
+//   slab's view direction for the voxels with a nonzero one and sigma
+//   above the threshold (the record read as float4 where it is f32 and
+//   16-byte aligned), turns them into the D record values (zeros
+//   elsewhere), and writes the block's records as one contiguous run with
+//   16-byte stores: ~0.75 ms against the 0.56 ms write.
 // - SG and ASG (the lobe count at run time): both passes shade from a lobe
 //   table each block folds once (fold_lobe in slab_common.cuh, shared with
 //   the display mode: log2(e) and 1/nb folded in, SG one float4 a lobe,
@@ -76,15 +76,34 @@
 //   lobe's value over its plane-0 value as the sums take it, and writes
 //   the record's cotangent from the stash, planes 2 and 1 first and plane
 //   0 last, over its own stash; its zero rows are 16-byte stores where the
-//   record is a whole number of float4. Each pass declares the blocks an
-//   SM it runs (bwd_march_lobes, bwd_shade_lobes), so the compiler keeps
-//   their registers without spills. Evaluated as the reference writes it
+//   record is a whole number of float4. Evaluated as the reference writes it
 //   (each lobe's raw parameters re-read from shared memory for every
 //   cell, the record one scalar at a time, a basis array live across the
 //   sums), SG9 took 0.44 ms a launch more than SH9 on the training bench:
 //   pass 2 0.31 of it, most of that its zero rows' scalar stores (four-way
 //   bank conflicts at D = 28), and pass 1 spilled 136 bytes a thread (ASG
 //   256; PERF.md).
+// - The option variants (SH with rot, a basis window or a bbox; RGBA; SG;
+//   ASG) have pass kernels of their own that declare the blocks an SM they
+//   run (bwd_march_opt, bwd_shade_opt), so the compiler keeps their
+//   registers without spills; their options are loaded with constant
+//   indices (a run-time index copied the kernel's option arguments to
+//   local memory in every block of pass 2). SH with options reads a record
+//   whole in both passes (load_record: float4 for f32) and applies the
+//   basis window as a mask on the basis. With the arguments copied, the
+//   records read a value at a time and the compiler's own register
+//   budget, SH9's option variants took 1.50-1.52 ms against SH9's 1.20
+//   (pass 2 1.00 against 0.76); passing over footprint pieces whose coarse
+//   occupancy is empty in pass 1's flush (their cotangent is zero) ran
+//   slower, SH9-rot 1.2405 ms with it and 1.2123 without (PERF.md).
+// - RGBA with an f32 cotangent has no pass 2: its record cotangent is
+//   linear in the voxel's four sums, with coefficients from its own record
+//   (g_c sigma qs[c]; (g_sigma + sum_c g_c rgb_c) qs[3]), so pass 1 maps
+//   each flushed cell's sums through the record and adds them into the
+//   zeroed cotangent with one 16-byte atomic (direct_flush): the 256 MiB
+//   sum buffer, its fill and pass 2's reads and writes go (0.85 ms at G =
+//   256 before, pass 2 0.40 of it). A bf16 cotangent keeps the sum buffer
+//   and pass 2, so that it is the f32 sum rounded once.
 
 #include "slab_common.cuh"
 
@@ -108,8 +127,39 @@ struct BwdArgs {
   int n_ids, G, gi, flip;
 };
 
-// Pass 1 of variant V (bwd_march_kernel, bwd_march_lobes)
+// RGBA's cotangent of voxel (sid, gy, gx), written by pass 1 (DIRECT): the
+// record's cotangent is linear in the cell's four sums ``v`` = [g_sigma_w,
+// g_srgb_w x 3] with coefficients from the voxel's own record, so each
+// tile's sums are mapped as pass 2 maps their total, [v_c sigma qs[c]] and
+// (v_sigma + sum_c v_c rgb_c) qs[3] (rgb_c = rec[c] qs[c]: raw colours), and
+// added into the cotangent's record ``cell`` (f32, 16-byte aligned: the
+// payload's strides) with one 16-byte atomic; a voxel under the threshold
+// or outside the bbox gets none (its cotangent stays zero).
 template <class V, typename PT>
+__device__ __forceinline__ void direct_flush(
+    const tmarch::ArgsOf<V, BwdArgs>& a, const tmarch::TrainOpt& opt,
+    const float* qs, float sigma_thresh, float Gf, int sid, int gy, int gx,
+    float4 v, float* cell) {
+  static_assert(V::FMT == F_RGBA, "only RGBA's cotangent is linear");
+  float r[4];
+  tmarch::load_record<4, PT>(
+      reinterpret_cast<const PT*>(a.pv.ptr) + (long long)sid * a.pv.ss +
+          (long long)gy * a.pv.sr + (long long)gx * a.pv.sc,
+      r);
+  const float sigma = r[3] * qs[3];
+  if (!(sigma > sigma_thresh) || !tmarch::in_box<V>(opt, Gf, gy, gx)) return;
+  const float c0 = r[0] * qs[0], c1 = r[1] * qs[1], c2 = r[2] * qs[2];
+  const float gsig = v.x + v.y * c0 + v.z * c1 + v.w * c2;
+  atomicAdd(reinterpret_cast<float4*>(cell),
+            make_float4(v.y * sigma * qs[0], v.z * sigma * qs[1],
+                        v.w * sigma * qs[2], gsig * qs[3]));
+}
+
+// Pass 1 of variant V (bwd_march_kernel, bwd_march_opt). DIRECT (RGBA
+// with an f32 cotangent, in gbuf, which is then the cotangent itself): the
+// flush maps each cell's sums through the cell's record into the voxel's
+// cotangent (direct_flush), and no pass 2 follows.
+template <class V, typename PT, bool DIRECT = false>
 __device__ __forceinline__ void bwd_march(
     const tmarch::ArgsOf<V, BwdArgs>& a) {
   using tmarch::NT;
@@ -271,6 +321,11 @@ __device__ __forceinline__ void bwd_march(
               float* cell =
                   a.gbuf + 4 * (vbase + (long long)gy * a.vr +
                                 (long long)gx * a.vc);
+              if constexpr (DIRECT) {
+                direct_flush<V, PT>(a, opt, s_qs, c.sigma_thresh, Gf, jb.sid,
+                                    gy, gx, v, cell);
+                continue;
+              }
               if (v.x != 0.f) atomicAdd(cell, v.x);
               if (v.y != 0.f) atomicAdd(cell + 1, v.y);
               if (v.z != 0.f) atomicAdd(cell + 2, v.z);
@@ -281,14 +336,15 @@ __device__ __forceinline__ void bwd_march(
       });
 }
 
-// Pass 1's kernels. The SH and RGBA variants declare the block's threads
-// alone, and the compiler sets their register budget (the defaults'
-// registers are pinned). SG and ASG also declare the blocks an SM their
-// shared memory allows (tmarch::smem_blocks), at most four: left to its
-// own budget the compiler cut them to 96 registers and spilled 104-224
-// bytes a thread; with one block declared it took more registers than the
-// bf16 payload's four blocks an SM leave; and five blocks (bound 4 on
-// bf16: 96 registers) spilled 96 bytes and ran slower than four (PERF.md).
+// Pass 1's kernels. The SH defaults declare the block's threads alone,
+// and the compiler sets their register budget (their registers are
+// pinned). The option variants (SH with options, RGBA, SG, ASG) also
+// declare the blocks an SM their shared memory allows
+// (tmarch::smem_blocks), at most four: left to its own budget the
+// compiler cut them to 96 registers and spilled (SG/ASG 104-224 bytes a
+// thread); with one block declared it took more registers than the bf16
+// payload's four blocks an SM leave; and five blocks (bound 4 on bf16, and
+// RGBA: 96 registers) spilled and ran slower than four (PERF.md).
 template <class V, typename PT>
 constexpr int pass1_blocks() {
   return tmarch::smem_blocks<V, PT>() < 4 ? tmarch::smem_blocks<V, PT>() : 4;
@@ -300,10 +356,10 @@ bwd_march_kernel(const tmarch::ArgsOf<V, BwdArgs> a) {
   bwd_march<V, PT>(a);
 }
 
-template <class V, typename PT>
+template <class V, typename PT, bool DIRECT>
 __global__ void __launch_bounds__(tmarch::NT, pass1_blocks<V, PT>())
-bwd_march_lobes(const tmarch::ArgsOf<V, BwdArgs> a) {
-  bwd_march<V, PT>(a);
+bwd_march_opt(const tmarch::ArgsOf<V, BwdArgs> a) {
+  bwd_march<V, PT, DIRECT>(a);
 }
 
 // An SG or ASG voxel's record cotangent in its own row ``o`` (D floats):
@@ -339,6 +395,55 @@ __device__ __forceinline__ void lobe_adjoint(const PT* rec,
   }
 }
 
+// An SH-with-options or RGBA voxel's record cotangent in its own row ``o``
+// (V::DMAX floats), false where the voxel is masked out of the forward
+// (under the sigma threshold or outside the bbox: its cotangent is zero
+// whatever reached it). The record is read whole (load_record: float4
+// loads for f32) and shaded as the march shades it (voxel_rgb_opt).
+template <class V, typename PT>
+__device__ __forceinline__ bool opt_adjoint(const PT* rec,
+                                            const tmarch::TrainOpt& opt,
+                                            const float* qs, const float* prm,
+                                            int G, long long v, long long vs,
+                                            long long vr, long long vc,
+                                            float4 g, float* o) {
+  constexpr int D = V::DMAX, BD = V::BD;
+  float vals[D];
+  tmarch::load_record<D, PT>(rec, vals);
+  const float sigma = vals[D - 1] * qs[D - 1];
+  if (!(sigma > prm[14])) return false;
+  const float Gf = (float)G;
+  const int sid = (int)((v / vs) % G);
+  const int gy = (int)((v / vr) % G), gx = (int)((v / vc) % G);
+  if (!tmarch::in_box<V>(opt, Gf, gy, gx)) return false;
+  const float z = ((float)sid + 0.5f) / Gf + prm[30];
+  const float sd = z - prm[0];
+  const float ycm = ((float)gy + 0.5f) * (1.f / Gf) - prm[1];
+  const float xcm = ((float)gx + 0.5f) * (1.f / Gf) - prm[2];
+  float bk[BD], rgb[3];
+  tmarch::voxel_rgb_opt<V>(vals, opt, qs, prm, ycm, xcm, sd, sign_of(sd), bk,
+                           rgb);
+  o[D - 1] = (g.x + g.y * rgb[0] + g.z * rgb[1] + g.w * rgb[2]) * qs[D - 1];
+  if constexpr (V::FMT == F_RGBA) {
+    // raw colours: their cotangent is g_srgb * sigma (no sigmoid')
+    o[0] = g.y * sigma * qs[0];
+    o[1] = g.z * sigma * qs[1];
+    o[2] = g.w * sigma * qs[2];
+  } else {
+    // sigmoid' x the basis; planes outside the window (bk = 0) get zero
+    const float graw[3] = {g.y * sigma * rgb[0] * (1.f - rgb[0]),
+                           g.z * sigma * rgb[1] * (1.f - rgb[1]),
+                           g.w * sigma * rgb[2] * (1.f - rgb[2])};
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+#pragma unroll
+      for (int kk = 0; kk < BD; ++kk)
+        o[ch * BD + kk] = graw[ch] * bk[kk] * qs[ch * BD + kk];
+    }
+  }
+  return true;
+}
+
 // the shade adjoint, one thread per voxel in the payload's memory order;
 // the block's records go out as one contiguous run
 template <class V, typename PT>
@@ -368,7 +473,11 @@ __device__ __forceinline__ void bwd_shade(
   bool done = false;
   if (v < n_vox) {
     const float4 g = gbuf[v];
-    if (g.x != 0.f || g.y != 0.f || g.z != 0.f || g.w != 0.f) {
+    if constexpr (V::OPT && !V::RTD) {
+      if (g.x != 0.f || g.y != 0.f || g.z != 0.f || g.w != 0.f)
+        done = opt_adjoint<V, PT>(payload + v * D, opt, s_qs, s_prm, G, v,
+                                  vs, vr, vc, g, o);
+    } else if (g.x != 0.f || g.y != 0.f || g.z != 0.f || g.w != 0.f) {
       const PT* rec = payload + v * D;
       const float sigma = tmarch::pay_val(rec[D - 1]) * s_qs[D - 1];
       // a voxel under the sigma threshold (or outside the bbox) is masked
@@ -387,38 +496,24 @@ __device__ __forceinline__ void bwd_shade(
                                 sigma, D, o);
             done = true;
           } else {
+            // the SH defaults
             float bk[BD], rgb[3];
-            if constexpr (V::OPT) {
-              tmarch::voxel_rgb_opt<V, PT>(rec, opt, s_qs, s_prm, ycm, xcm,
-                                           sd, sign_of(sd), bk, rgb);
-            } else {
-              float vals[DMAX];
-              tmarch::load_record<DMAX, PT>(rec, vals);
-              tmarch::voxel_rgb<BD>(vals, s_qs, s_prm, ycm, xcm, sd,
-                                    sign_of(sd), bk, rgb);
-            }
+            float vals[DMAX];
+            tmarch::load_record<DMAX, PT>(rec, vals);
+            tmarch::voxel_rgb<BD>(vals, s_qs, s_prm, ycm, xcm, sd,
+                                  sign_of(sd), bk, rgb);
             const float gsig =
                 g.x + g.y * rgb[0] + g.z * rgb[1] + g.w * rgb[2];
             o[D - 1] = gsig * s_qs[D - 1];
-            if constexpr (V::FMT == F_RGBA) {
-              // raw colours: their cotangent is g_srgb * sigma (no sigmoid')
-              o[0] = g.y * sigma * s_qs[0];
-              o[1] = g.z * sigma * s_qs[1];
-              o[2] = g.w * sigma * s_qs[2];
-            } else {
-              // sigmoid' x the basis; planes outside the window (bk = 0)
-              // get zero
-              const int nb = V::RTD ? opt.nb : BD;
-              const float graw[3] = {g.y * sigma * rgb[0] * (1.f - rgb[0]),
-                                     g.z * sigma * rgb[1] * (1.f - rgb[1]),
-                                     g.w * sigma * rgb[2] * (1.f - rgb[2])};
+            // sigmoid' x the basis
+            const float graw[3] = {g.y * sigma * rgb[0] * (1.f - rgb[0]),
+                                   g.z * sigma * rgb[1] * (1.f - rgb[1]),
+                                   g.w * sigma * rgb[2] * (1.f - rgb[2])};
 #pragma unroll
-              for (int ch = 0; ch < 3; ++ch) {
+            for (int ch = 0; ch < 3; ++ch) {
 #pragma unroll
-                for (int kk = 0; kk < BD; ++kk)
-                  if (kk < nb)
-                    o[ch * nb + kk] = graw[ch] * bk[kk] * s_qs[ch * nb + kk];
-              }
+              for (int kk = 0; kk < BD; ++kk)
+                o[ch * BD + kk] = graw[ch] * bk[kk] * s_qs[ch * BD + kk];
             }
             done = true;
           }
@@ -469,17 +564,23 @@ __device__ __forceinline__ void bwd_shade(
   }
 }
 
-// Pass 2's kernels: the SH and RGBA variants with the block's threads
-// alone (the defaults' registers are pinned); SG and ASG also with the
-// blocks an SM each bound's variants held before their redesign (SG 12,
-// 12, 8, 5 and ASG 12, 10, 7, 4 at bounds 4, 9, 16, 25): left to its own
-// budget the compiler took 73 registers (6 blocks), 0.10 ms slower on the
-// lean payload's SG9 (PERF.md).
+// Pass 2's kernels: the SH defaults with the block's threads alone (their
+// registers are pinned); the option variants also with the blocks an SM
+// that each held before its redesign: SG 12, 12, 8, 5 and ASG 12, 10, 7,
+// 4 at bounds 4, 9, 16, 25 (left to its own budget the compiler took 73
+// registers, 6 blocks, 0.10 ms slower on the lean payload's SG9, PERF.md);
+// SH with options the blocks the compiler's own budget gives it without
+// spills (12, 10, 8, 6, 4 at SH1, 4, 9, 16, 25; at the SH defaults' 16 or
+// 12, 10, 8, 5 it spilled 48-112 bytes), RGBA 12.
 template <class V>
 constexpr int pass2_blocks() {
   constexpr int i = V::BD <= 4 ? 0 : V::BD <= 9 ? 1 : V::BD <= 16 ? 2 : 3;
-  constexpr int sg[4] = {12, 12, 8, 5}, asg[4] = {12, 10, 7, 4};
-  return V::FMT == F_ASG ? asg[i] : sg[i];
+  constexpr int sg[4] = {12, 12, 8, 5}, asg[4] = {12, 10, 7, 4},
+                sh[4] = {V::BD == 1 ? 12 : 10, 8, 6, 4};
+  return V::FMT == F_ASG   ? asg[i]
+         : V::FMT == F_SG  ? sg[i]
+         : V::FMT == F_SH  ? sh[i]
+                           : 12;
 }
 
 #define VT_SHADE_ARGS                                                     \
@@ -495,7 +596,7 @@ __global__ void __launch_bounds__(NT2) bwd_shade_kernel(VT_SHADE_ARGS) {
 
 template <class V, typename PT>
 __global__ void __launch_bounds__(NT2, pass2_blocks<V>())
-    bwd_shade_lobes(VT_SHADE_ARGS) {
+    bwd_shade_opt(VT_SHADE_ARGS) {
   bwd_shade<V, PT>(payload, params, qscale, gbuf, out, out_bf16, G, vs, vr,
                    vc, n_vox, va);
 }
@@ -505,11 +606,16 @@ __global__ void __launch_bounds__(NT2, pass2_blocks<V>())
 template <class V, typename PT>
 struct Fns {
   using Var = V;
+  using Elem = PT;
   using MarchFn = void (*)(const tmarch::ArgsOf<V, BwdArgs>);
   static constexpr size_t SMEM = tmarch::march_smem<V, PT>();
-  static MarchFn march() {
-    if constexpr (V::RTD)
-      return bwd_march_lobes<V, PT>;
+  // pass 1; ``direct``: RGBA's, writing an f32 cotangent itself
+  static MarchFn march(bool direct) {
+    if constexpr (V::FMT == F_RGBA) {
+      if (direct) return bwd_march_opt<V, PT, true>;
+    }
+    if constexpr (V::OPT)
+      return bwd_march_opt<V, PT, false>;
     else
       return bwd_march_kernel<V, PT>;
   }
@@ -518,8 +624,8 @@ struct Fns {
                           long long, long long, long long,
                           const tmarch::VarArgs);
   static ShadeFn shade_kernel() {
-    if constexpr (V::RTD)
-      return bwd_shade_lobes<V, PT>;
+    if constexpr (V::OPT)
+      return bwd_shade_opt<V, PT>;
     else
       return bwd_shade_kernel<V, PT>;
   }
@@ -538,10 +644,15 @@ struct Fns {
   }
 };
 
+// Both passes; RGBA with an f32 cotangent handed as gbuf itself (zeroed)
+// takes pass 1 alone, which writes the cotangent (DIRECT).
 template <typename F>
 int launch(const BwdArgs& a, const tmarch::VarArgs& va, const void* payload,
            void* out, int out_bf16, cudaStream_t s) {
-  const typename F::MarchFn fn = F::march();
+  const bool direct = (void*)a.gbuf == out;
+  if (direct && (F::Var::FMT != F_RGBA || out_bf16))
+    return (int)cudaErrorInvalidValue;
+  const typename F::MarchFn fn = F::march(direct);
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F::SMEM);
   if (e != cudaSuccess) return (int)e;
@@ -550,13 +661,17 @@ int launch(const BwdArgs& a, const tmarch::VarArgs& va, const void* payload,
   fn<<<grid, tmarch::NT, F::SMEM, s>>>(
       tmarch::args_of<typename F::Var>(a, va));
   e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  if (e != cudaSuccess || direct) return (int)e;
   return (int)F::shade(payload, a, va, out, out_bf16, s);
 }
 
+// pass 1 as the trainers launch it: RGBA's on an f32 payload writes its
+// f32 cotangent itself (DIRECT); the lean trainer's bf16 one takes gbuf
 template <typename F>
 int info(int* out) {
-  const typename F::MarchFn fn = F::march();
+  using PT = typename F::Elem;
+  const typename F::MarchFn fn =
+      F::march(F::Var::FMT == F_RGBA && sizeof(PT) == 4);
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F::SMEM);
   if (e != cudaSuccess) return (int)e;
@@ -592,7 +707,10 @@ int info(int* out) {
 // * ceil(G / 8) * ceil(G / 512) uint64, the payload's coarse occupancy
 // (vt_march_occupancy in slab_march.cu); gbuf (Gz G^2, 4) f32 in the
 // payload's voxel order, zeroed by the caller; out: the cotangent, the
-// payload's strides, f32 or bf16 (out_bf16); counts: tmarch::N_COUNTS
+// payload's strides, f32 or bf16 (out_bf16); for RGBA with an f32
+// cotangent gbuf may be ``out`` itself (zeroed: pass 1 then writes the
+// cotangent and pass 2 does not run; the layouts agree at D = 4, so a
+// build that runs pass 2 computes it in place); counts: tmarch::N_COUNTS
 // uint64 (pass 1's, tmarch::add_counts) or null; the variant (bd, fmt,
 // opt, extra, rot_on, rot, bbox, basis_lo, basis_hi) as for
 // vt_march_slabs. Returns cudaGetLastError() after the launches.
@@ -648,8 +766,9 @@ extern "C" int vt_march_slabs_bwd(const void* payload, int pay_f32,
 // What the card makes of the launches of variant (bd, fmt, opt; as for
 // vt_march_slabs_bwd) on a payload of f32 (pay_f32) or bf16: out[0..3]
 // pass 1's resident blocks per SM, registers a thread, spill bytes a
-// thread and dynamic shared memory a block; out[4..6] pass 2's blocks per
-// SM, registers, spill bytes.
+// thread and dynamic shared memory a block (RGBA on f32: the pass that
+// writes the f32 cotangent itself); out[4..6] pass 2's blocks per SM,
+// registers, spill bytes.
 extern "C" int vt_march_slabs_bwd_info(int bd, int pay_f32, int fmt,
                                        int opt, int* out) {
   return tmarch::with_variant(fmt, bd, opt, pay_f32, [&](auto v, auto e) {

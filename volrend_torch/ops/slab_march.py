@@ -1293,9 +1293,11 @@ def _march_bwd_cuda(gplanar, params, qscale, zb, gacc4, aux, G, gi, D, bd,
                     mode: MarchMode = MarchMode(), segment: bool = False):
     """Launch the backward kernel (its two passes: re-march + adjoint warp,
     then the per-voxel shade adjoint) for one pose; the cotangent takes the
-    payload's strides. ``counts``, ``occ`` and ``mode`` as for
-    _march_train_cuda (``counts``: pass 1's); ``segment``: the launch
-    counts as a z-segment's (``march_slabs_bwd.segments``)."""
+    payload's strides. RGBA with an f32 cotangent takes pass 1 alone: it
+    adds each voxel's cotangent into the zeroed output itself, which then
+    stands in for the (Gz G^2, 4) sum buffer. ``counts``, ``occ`` and
+    ``mode`` as for _march_train_cuda (``counts``: pass 1's); ``segment``:
+    the launch counts as a z-segment's (``march_slabs_bwd.segments``)."""
     dev = gplanar.device
     Gz = gplanar.shape[0]
     for name, t, shape in (("params", params, (_NP,)), ("qscale", qscale, (D,)),
@@ -1313,9 +1315,12 @@ def _march_bwd_cuda(gplanar, params, qscale, zb, gacc4, aux, G, gi, D, bd,
     if occ is None:
         occ = march_occupancy(gplanar, params, qscale)
     _check_occupancy(occ, Gz, G, G, dev)
-    gbuf = torch.zeros((Gz * G * G, 4), dtype=_F32, device=dev)
     out = torch.empty_strided(gplanar.shape, gplanar.stride(),
                               dtype=out_dtype, device=dev)
+    if mode.fmt == int(BasisType.RGBA) and out_dtype == _F32:
+        gbuf = out.zero_()
+    else:
+        gbuf = torch.zeros((Gz * G * G, 4), dtype=_F32, device=dev)
     f32 = gplanar.dtype == _F32
     va = _variant_args(mode, bd, dev)
     lib = train_lib("slab_march_bwd", mode.fmt, mode.options(bd))

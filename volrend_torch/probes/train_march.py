@@ -22,24 +22,30 @@ within 1e-3 but for stop-threshold freeze flips (the pieces' side sets
 the order of the tap sums), the backward's to relative L2 1e-4 (its
 global atomics add in a run-dependent order).
 
-``--cases SH9,SG9,ASG9,SG6`` instead times the formats at the port's own
-configuration: the training bench's leaves read as SG9, ASG9 and SG6 trees (any
-SG or ASG lobe count, ``_common.format_trees``; SH9 the baseline; a ``-bf16``
-suffix marches the lean trainer's bf16 cast and writes a bf16 cotangent), each
-baked by its own ``FrameTrainer``. For each case and build it times kernel M
+``--cases SH9,SG9,ASG9,SG6`` instead times the formats and options at the
+port's own configuration, each case as ``chip_smoke.TRAIN_CASES`` builds it
+(``case_spec``): the training bench's leaves read as SG and ASG trees of any
+lobe count and as an RGBA tree (``_common.format_trees``), the SH9 tree itself
+(SH9, the baseline) and with its render options (SH9-rot, SH9-window,
+SH9-bbox: the SH option variant); a ``-bf16`` suffix marches the lean
+trainer's bf16 cast and writes a bf16 cotangent. Each is baked by its own
+``FrameTrainer``. For each case and build it times kernel M
 and M-bwd on pose 0, splits M-bwd into pass 1, pass 2 and the cotangent
 buffer's fill (torch.profiler), reads thread 0's cycles by part of the loop
 from a ``-DVT_TM_CYCLES`` build, and reads every launch's registers, local
-bytes and blocks per SM (``vt_march_slabs_info``, ``vt_march_slabs_bwd_info``).
+bytes and blocks per SM (``vt_march_slabs_info``, ``vt_march_slabs_bwd_info``),
+and the device memory M-bwd's call holds above what was allocated before it
+(``bwd_alloc_mib``: its output and its buffers).
 Both kernels' outputs are held to the port's plain versions
 (``march_slabs_ref``, ``march_slabs_bwd_ref``) at chip_smoke.py's tolerances.
 ``--parent DIR`` builds the same two sources of another checkout (an unpacked
 parent; the C entry points must be the same) and times it in turns with this
 one: parent, change, change, parent; ``--alt FLAGS`` builds this checkout again
 with extra nvcc flags (a build-time alternative a source reads as a macro;
-several separated by ``;``) and times each between them. Each build's SH
-defaults and SG/ASG instantiations at every lobe bound are listed by their
-launches (``lobe_info``).
+several separated by ``;``) and times each between them. Each build's
+instantiations in the libraries the cases need (the SH defaults, SH with
+options and RGBA, SG and ASG at every lobe bound) are listed by their
+launches (``variant_info``).
 
 Every time is the card's: CUDA events around back-to-back launches queued
 behind a device sleep, median of three runs. Run on a card from the root of
@@ -59,6 +65,7 @@ import ctypes
 import json
 import os
 import subprocess
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -66,6 +73,7 @@ import torch
 from volrend_torch import kernels
 from volrend_torch.probes import _common as c
 from volrend_torch.probes.display_tiles import device_ms
+from volrend_torch.utils.options import RenderOptions
 
 GI = 256
 W = H = 800
@@ -154,18 +162,17 @@ def _bench_tree(dev):
     return tree.to_device(lut_depth=None, device=dev)
 
 
-def _pose0(dev, tdev=None):
-    """The training bench's trainer (on ``tdev``, default the SH9 tree)
-    and pose 0's march inputs (the bake's f32 view, params, z interval,
-    slab ids, config)."""
+def _pose0(dev, tdev=None, options=None):
+    """The training bench's trainer (on ``tdev``, default the SH9 tree,
+    with the render ``options``) and pose 0's march inputs (the bake's f32
+    view, params, z interval, slab ids, config)."""
     from volrend_torch import train
     from volrend_torch.ops import slab_grad, slab_render
     from volrend_torch.ops.camera import Camera
-    from volrend_torch.utils.options import RenderOptions
 
     tr = train.FrameTrainer(_bench_tree(dev) if tdev is None else tdev,
-                            opt=RenderOptions(max_steps=1024), lr=5e-2,
-                            gi=GI)
+                            opt=RenderOptions(max_steps=1024).replace(
+                                **(options or {})), lr=5e-2, gi=GI)
     back = np.array([np.cos(0.25), np.sin(0.25), 0.45])
     back /= np.linalg.norm(back)
     cam = Camera.from_vectors(center=tuple(2.6 * back), v_back=tuple(back),
@@ -268,20 +275,25 @@ def run(dev, configs=CONFIGS) -> dict:
 # ---- --cases: the formats at the port's configuration ----------------------
 
 #: the libraries a checkout's training pair is built as for --cases: the
-#: defaults and the SG/ASG set (VT_TRAIN_SET; kernels._FLAGS)
-_CASE_LIBS = (("slab_march", 0), ("slab_march_bwd", 0),
-              ("slab_march_lobes", 2), ("slab_march_bwd_lobes", 2))
+#: defaults, the SH option and RGBA set and the SG/ASG set (VT_TRAIN_SET;
+#: kernels._FLAGS), each a kernel M and an M-bwd library
+_SET_SUFFIX = {0: "", 1: "_opt", 2: "_lobes"}
+_CASE_LIBS = tuple((f"{kind}{suffix}", tset)
+                   for tset, suffix in _SET_SUFFIX.items()
+                   for kind in ("slab_march", "slab_march_bwd"))
 #: chip_smoke.py's tolerances against the plain versions: M's acc (but
 #: stop-threshold freeze flips), M-bwd's relative L2 (f32, bf16 cotangent)
 _TOL_M, _TOL_BWD = 1e-3, {torch.float32: 1e-3, torch.bfloat16: 4e-3}
 
 
-def build_checkout(root: str, tag: str, flags=(), clock=True) -> dict:
+def build_checkout(root: str, tag: str, flags=(), clock=True,
+                   sets=(0, 1, 2)) -> dict:
     """Compile the training pair of the checkout at ``root`` (its
-    ``volrend_torch/csrc``, with the extra nvcc ``flags``) as _CASE_LIBS,
-    each without and (``clock``) with the clock (``-DVT_TM_CYCLES``), one
-    nvcc each, all started together, into
-    ``build/volrend_torch/train_march/<tag>/``: {clock: {library: CDLL}}."""
+    ``volrend_torch/csrc``, with the extra nvcc ``flags``) as the
+    _CASE_LIBS of the VT_TRAIN_SET ``sets``, each without and (``clock``)
+    with the clock (``-DVT_TM_CYCLES``), one nvcc each, all started
+    together, into ``build/volrend_torch/train_march/<tag>/``: {clock:
+    {library: CDLL}}."""
     from pathlib import Path
     csrc = Path(root) / "volrend_torch" / "csrc"
     out_dir = kernels.build_dir() / "train_march" / tag
@@ -289,6 +301,8 @@ def build_checkout(root: str, tag: str, flags=(), clock=True) -> dict:
     procs = []
     for clock in (False, True) if clock else (False,):
         for name, tset in _CASE_LIBS:
+            if tset not in sets:
+                continue
             out = out_dir / f"lib{name}{'_clock' if clock else ''}.so"
             src = csrc / kernels.SOURCES[name][0]
             procs.append((clock, name, out, subprocess.Popen(
@@ -316,14 +330,61 @@ def build_checkout(root: str, tag: str, flags=(), clock=True) -> dict:
     return libs
 
 
-def _case_tree(name: str, tdev):
-    """Case ``name``'s tree: the SH9 bench tree, or its leaves read as SG
-    or ASG lobes (SG6: the first six coefficients a colour)."""
-    fmt = name.split("-")[0]
-    if fmt == "SH9":
+#: the render options of the SH9 option cases, as chip_smoke.TRAIN_CASES
+#: sets them
+CASE_OPTIONS = {"rot": dict(rot_dirs=(0.3, -0.2, 0.5)),
+                "window": dict(basis_minmax=(0, 3)),
+                "bbox": dict(render_bbox=(0.25,) * 3 + (0.75,) * 3)}
+
+
+class Case(NamedTuple):
+    """A --cases case: the tree's format (SH, SG, ASG, RGBA), its lobe
+    count or SH basis functions (None for RGBA), the render options and
+    the payload's dtype (the cotangent's too)."""
+    fmt: str
+    nb: Optional[int]
+    options: dict
+    dtype: torch.dtype
+
+
+def case_spec(name: str) -> Case:
+    """What --cases marches for ``name``: SH9 (the training bench's tree),
+    SH9-rot, SH9-window, SH9-bbox (with CASE_OPTIONS), SG<n> and ASG<n>
+    (1 <= n <= 25 lobes), RGBA; each with an optional -bf16 suffix (the
+    lean trainer's payload). Raises ValueError for any other name."""
+    base, bf16 = (name[:-5], True) if name.endswith("-bf16") else (name,
+                                                                    False)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    fmt, _, option = base.partition("-")
+    if fmt == "SH9" and (not option or option in CASE_OPTIONS):
+        return Case("SH", 9, dict(CASE_OPTIONS.get(option, {})), dtype)
+    if fmt == "RGBA" and not option:
+        return Case("RGBA", None, {}, dtype)
+    for lobes in ("ASG", "SG"):
+        n = fmt[len(lobes):]
+        if (fmt.startswith(lobes) and not option and n.isdigit()
+                and 1 <= int(n) <= 25 and not n.startswith("0")):
+            return Case(lobes, int(n), {}, dtype)
+    raise ValueError(f"train_march: unknown case {name!r} (SH9, SH9-rot, "
+                     f"SH9-window, SH9-bbox, SG<n>, ASG<n>, RGBA, each with "
+                     f"an optional -bf16)")
+
+
+def _case_tree(spec: Case, tdev):
+    """Case ``spec``'s tree: the SH9 bench tree, or its leaves read as SG
+    or ASG lobes (SG6: the first six coefficients a colour) or as RGBA."""
+    if spec.fmt == "SH":
         return tdev
-    nb = int(fmt.lstrip("ASG"))
-    return c.format_trees(tdev, nb=nb)[fmt.rstrip("0123456789")]
+    if spec.fmt == "RGBA":
+        return c.format_trees(tdev)["RGBA"]
+    return c.format_trees(tdev, nb=spec.nb)[spec.fmt]
+
+
+def _case_set(spec: Case) -> int:
+    """The VT_TRAIN_SET of the library that marches case ``spec``."""
+    if spec.fmt in ("SG", "ASG"):
+        return 2
+    return 1 if spec.fmt == "RGBA" or spec.options else 0
 
 
 def _split(prof: dict) -> dict:
@@ -350,14 +411,15 @@ def _parts(fn, tag: str):
     return None
 
 
-def _info(libs: dict, fmt: int, bd: int, f32: bool) -> dict:
-    """The launches of a case's instantiation in ``libs``."""
-    lobes = fmt in (2, 3)
-    fwd = libs["slab_march_lobes" if lobes else "slab_march"]
-    bwd = libs["slab_march_bwd_lobes" if lobes else "slab_march_bwd"]
+def _info(libs: dict, fmt: int, bd: int, f32: bool, opt: bool) -> dict:
+    """The launches of an instantiation (format ``fmt``, option variant or
+    not) in ``libs``."""
+    suffix = _SET_SUFFIX[2 if fmt in (2, 3) else int(opt)]
+    fwd = libs["slab_march" + suffix]
+    bwd = libs["slab_march_bwd" + suffix]
     m = (ctypes.c_int * 11)()
     b = (ctypes.c_int * 7)()
-    args = (bd, int(f32), fmt, int(lobes))
+    args = (bd, int(f32), fmt, int(opt))
     kernels.check(fwd.vt_march_slabs_info(*args, m), "slab_march")
     kernels.check(bwd.vt_march_slabs_bwd_info(*args, b), "slab_march_bwd")
     keys = ("blocks_per_sm", "regs", "local_bytes", "smem")
@@ -365,16 +427,26 @@ def _info(libs: dict, fmt: int, bd: int, f32: bool) -> dict:
             "pass2": dict(zip(keys[:3], b[4:]))}
 
 
-def lobe_info(libs: dict) -> dict:
-    """A build's SH defaults and SG/ASG instantiations by lobe bound and
-    payload (_info), keyed as probes/train_info.py keys them."""
+def variant_info(libs: dict) -> dict:
+    """A build's instantiations by bound and payload (_info), keyed as
+    probes/train_info.py keys them, of the libraries it holds: the SH
+    defaults, SH with options and RGBA, SG and ASG by lobe bound."""
     out = {}
     for f32 in (True, False):
-        for bound in (4, 9, 16, 25):
-            for name, fmt in (("SH", 1), ("SG", 2), ("ASG", 3)):
-                key = (f"SH{bound}" if fmt == 1 else f"{name}<={bound}")
-                out[f"{key}-{'f32' if f32 else 'bf16'}"] = _info(
-                    libs, fmt, bound, f32)
+        pay = "f32" if f32 else "bf16"
+        if "slab_march_opt" in libs:
+            out[f"RGBA-{pay}"] = _info(libs, 0, -1, f32, True)
+        for bound in (1, 4, 9, 16, 25):
+            for name, fmt, opt in (("SH", 1, False), ("SH", 1, True),
+                                   ("SG", 2, True), ("ASG", 3, True)):
+                if bound == 1 and fmt > 1:
+                    continue
+                suffix = _SET_SUFFIX[2 if fmt > 1 else int(opt)]
+                if "slab_march" + suffix not in libs:
+                    continue
+                key = (f"SH{bound}{'-opt' if opt else ''}" if fmt == 1
+                       else f"{name}<={bound}")
+                out[f"{key}-{pay}"] = _info(libs, fmt, bound, f32, opt)
     return out
 
 
@@ -383,26 +455,30 @@ def run_cases(dev, cases, parent=None, alt=None) -> dict:
     build (and ``parent``'s, and this checkout's built with each flag set
     of ``alt``, in turns), as the module's docstring says."""
     from volrend_torch.ops import slab_grad, slab_march
-    builds = {"change": build_checkout(c._ROOT, "change")}
+    specs = {case: case_spec(case) for case in cases}
+    sets = sorted({0} | {_case_set(s) for s in specs.values()})
+    builds = {"change": build_checkout(c._ROOT, "change", sets=sets)}
     if parent is not None:
-        builds["parent"] = build_checkout(parent, "parent")
+        builds["parent"] = build_checkout(parent, "parent", sets=sets)
     alts = [a for a in (alt or "").split(";") if a.strip()]
     for i, flags in enumerate(alts):
         builds[f"alt{i}"] = build_checkout(c._ROOT, f"alt{i}", flags.split(),
-                                           clock=False)
+                                           clock=False, sets=sets)
     tags = [t for t in ("parent", "change") if t in builds] + [
         f"alt{i}" for i in range(len(alts))]
     order = tags + tags[::-1] if len(tags) > 1 else tags
-    infos = {t: lobe_info(b[False]) for t, b in builds.items()}
+    infos = {t: variant_info(b[False]) for t, b in builds.items()}
     for t, info in infos.items():
-        c.log(f"train_march lobe_info ({t}"
+        c.log(f"train_march variant_info ({t}"
               f"{': ' + alts[int(t[3:])] if t.startswith('alt') else ''}): "
               f"{json.dumps(info)}")
     tdev = _bench_tree(dev)
     out = {}
     for case in cases:
-        dt = torch.bfloat16 if case.endswith("-bf16") else torch.float32
-        planar, params, zb, cfg, extra = _pose0(dev, _case_tree(case, tdev))
+        spec = specs[case]
+        dt = spec.dtype
+        planar, params, zb, cfg, extra = _pose0(dev, _case_tree(spec, tdev),
+                                                spec.options)
         planar = planar if dt == torch.float32 else planar.to(dt)
         G, D, bd, flip = cfg.G, cfg.D, cfg.bd, cfg.flip
         qs = torch.ones(D, device=dev)
@@ -445,32 +521,40 @@ def run_cases(dev, cases, parent=None, alt=None) -> dict:
                 if "parts_ms" in row:
                     continue
                 d = (fwd() - acc_p).abs().amax(1)
-                g = bwd().double()
+                # the device memory M-bwd's call holds above what was
+                # allocated before it: its output and its buffers
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                g = bwd()
+                torch.cuda.synchronize()
+                row["bwd_alloc_mib"] = (torch.cuda.max_memory_allocated()
+                                        - base) / 2**20
+                g = g.double()
                 row["m_max_diff"] = float(d.max())
                 row["m_rays_past_tol"] = int((d > _TOL_M).sum())
                 row["bwd_rel_l2"] = float((g - g_p).norm() / g_p.norm())
                 del g
                 row["parts_ms"] = _parts(bwd, f"{case} M-bwd ({tag})")
                 row["info"] = _info(libs[False], cfg.fmt, bd,
-                                    dt == torch.float32)
+                                    dt == torch.float32, mode.options(bd))
             if (row["bwd_rel_l2"] > _TOL_BWD[dt] or row["m_max_diff"]
                     > float(cfg.opt.stop_thresh) + _TOL_M):
                 raise RuntimeError(f"train_march {case} ({tag}) disagrees "
                                    f"with the plain versions: {row}")
-            lobes = cfg.fmt in (2, 3)
+            suffix = _SET_SUFFIX[_case_set(spec)]
             if True not in libs:  # an --alt build: no clock
                 continue
             with _standing_in(libs[True]):
                 cnt = torch.zeros(slab_march.N_COUNTS, dtype=torch.int64,
                                   device=dev)
                 fwd(cnt)
-                row["m_cycles"] = _cycles(libs[True][
-                    "slab_march_lobes" if lobes else "slab_march"])
+                row["m_cycles"] = _cycles(libs[True]["slab_march" + suffix])
                 row["m_counts"] = cnt.tolist()
                 cnt.zero_()
                 bwd(cnt)
                 row["bwd_cycles"] = _cycles(libs[True][
-                    "slab_march_bwd_lobes" if lobes else "slab_march_bwd"])
+                    "slab_march_bwd" + suffix])
                 row["bwd_counts"] = cnt.tolist()
         for tag, row in rows.items():
             c.log(f"train_march {case} ({tag}): {json.dumps(row)}")
@@ -478,7 +562,7 @@ def run_cases(dev, cases, parent=None, alt=None) -> dict:
         del planar, acc_p, g_p, occ, m
         torch.cuda.empty_cache()
     return {"device": torch.cuda.get_device_name(0), "alts": alts,
-            "lobe_info": infos, "cases": out}
+            "variant_info": infos, "cases": out}
 
 
 def main() -> None:
@@ -489,8 +573,9 @@ def main() -> None:
                     "slots, comma-separated")
     ap.add_argument("--cases", default=None,
                     help="time these formats at the port's configuration "
-                    "instead (SH9, SG<n>, ASG<n>; a -bf16 suffix the lean "
-                    "trainer's payload), comma-separated")
+                    "instead (SH9, SH9-rot, SH9-window, SH9-bbox, SG<n>, "
+                    "ASG<n>, RGBA; a -bf16 suffix the lean trainer's "
+                    "payload), comma-separated")
     ap.add_argument("--parent", default=None,
                     help="with --cases: a parent checkout to time in turns")
     ap.add_argument("--alt", default=None,
@@ -503,6 +588,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("train_march: needs a CUDA device")
     if args.cases:
+        for case in args.cases.split(","):
+            case_spec(case)  # an unknown case fails before any build
         out = run_cases(torch.device("cuda"), args.cases.split(","),
                         args.parent, args.alt)
     else:
