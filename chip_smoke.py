@@ -833,7 +833,7 @@ def train_occupancy(kernels, bd: int, f32: bool, fmt: int = 1,
 
 
 def train_kernel_checks(torch, dev, planar, params, zb, gacc4, ids, cfg,
-                        stop, live, extra=None):
+                        stop, live, extra=None, probe_lib=None):
     """Phase 8a on one payload (the bake's f32 view or its bf16 cast):
     kernel M's training mode and the backward kernel against their plain
     versions on pose 0 (and their shared coarse occupancy in both modes,
@@ -843,8 +843,14 @@ def train_kernel_checks(torch, dev, planar, params, zb, gacc4, ids, cfg,
     ``live``: the pyramid bake's live bits. The variant is the one
     ``cfg`` trains (its format, and the options of cfg.opt), with the
     SG/ASG lobes ``extra``; an option variant's bounds count its
-    variant_ops. Returns {"MT", "MB", "MO", "acc4"}; "MO" is the bits mode
-    the step launches, with the full read's numbers under "full_read"."""
+    variant_ops. With ``probe_lib`` (probes/train_march's clock build of
+    kernel M's narrowed variants) and a narrowed variant (the SH options,
+    RGBA), kernel M's launch on that build too: each block's loop cycles
+    and the cells of the pieces it ran, staged, queued and shaded, logged
+    (the cells left out: listed but not staged), its output against the
+    port's launch (bit for bit, logged; past a freeze flip fails). Returns
+    {"MT", "MB", "MO", "acc4"}; "MO" is the bits mode the step launches,
+    with the full read's numbers under "full_read"."""
     import types
     from volrend_torch import kernels
     from volrend_torch.ops import slab_grad, slab_march
@@ -1008,6 +1014,27 @@ def train_kernel_checks(torch, dev, planar, params, zb, gacc4, ids, cfg,
             f"pieces {st['pieces']} (staged: a coarse block above the "
             f"threshold)")
     log(f"kernel M-bwd pass 2 [{tag}]: on the card {occ_info['M-bwd pass 2']}")
+    if probe_lib is not None and mode.options(bd) and cfg.fmt in (0, 1):
+        from volrend_torch.probes import train_march
+        pr = train_march.probe_launch(
+            probe_lib, lambda: slab_march._march_train_cuda(
+                planar, qs, D=D, bd=bd, flip=flip, occ=occ, mode=mode, **m),
+            GI, params.shape[0])
+        diff = float((pr.pop("acc") - acc_k).abs().max())
+        cells = pr["cells"]
+        log(f"kernel M's narrowed variant on the probe build [{tag}]: "
+            f"{cells['listed'] - cells['staged']} of {cells['listed']} "
+            f"listed cells left out of the staging "
+            f"({cells['unstaged_share']:.4f}), {cells['queued']} records "
+            f"queued, {cells['shaded']} cells shaded ("
+            f"{cells['shaded_out_share']:.4f} outside every live pixel's "
+            f"span); block loop cycles {json.dumps(pr['blocks'])}; output "
+            f"{'bit-equal to' if diff == 0.0 else 'differs from'} the "
+            f"port's launch (max |diff| {diff:.3e})")
+        if not diff <= stop + TOL_M:
+            fail(f"kernel M on the probe build differs from the port's "
+                 f"launch ({tag}: {diff})")
+        mt["probe"] = dict(pr, max_abs_diff=diff)
     mt["config"], mb["config"] = tcfg, tcfg
     mt["occupancy"], mb["occupancy"] = occ_info["M"], {
         k: occ_info[k] for k in ("M-bwd pass 1", "M-bwd pass 2")}
@@ -2665,7 +2692,7 @@ def train_counts_ok(tag, counts, n, variant, precise=False):
 
 
 def train_variant_case(torch, dev, stats, case, tdev, topt, cams,
-                       lean=False, precise=False):
+                       lean=False, precise=False, probe_lib=None):
     """One case of phase 12b: FrameTrainer on ``tdev`` with ``topt``; the
     bake kernel against its plain versions; kernel M's training mode and
     M-bwd against theirs on pose 0 (the f32 bake, and with ``lean`` its
@@ -2673,9 +2700,10 @@ def train_variant_case(torch, dev, stats, case, tdev, topt, cams,
     leaves (as phase 11 corrupts them) timed steps, counted (one launch of
     BK, the bits mode, M and M-bwd in the case's variant a step, no plain
     version), peak memory, and pose 0's loss must fall; with ``precise``,
-    then one step with the precise warp's switch on, counted. Fills the
-    kernels line's rows (TRAIN_VARIANT_ROWS); returns the case's
-    summary."""
+    then one step with the precise warp's switch on, counted; with
+    ``probe_lib``, kernel M's narrowed variants on that probe build too
+    (train_kernel_checks). Fills the kernels line's rows
+    (TRAIN_VARIANT_ROWS); returns the case's summary."""
     from volrend_torch import train
     from volrend_torch.ops import display_warp, slab_grad, slab_render
     t = time.perf_counter()
@@ -2703,7 +2731,7 @@ def train_variant_case(torch, dev, stats, case, tdev, topt, cams,
         res = train_kernel_checks(
             torch, dev, pay.permute(perm[0], 3, perm[1], perm[2]), params,
             zb, gacc4, ids, cfg, float(topt.stop_thresh), live,
-            extra=tr.grid.extra)
+            extra=tr.grid.extra, probe_lib=probe_lib)
         kern[str(dt)] = {k: res[k] for k in ("MT", "MB")}
         log(f"train {case} kernels [{dt}]: M (training mode) "
             f"{json.dumps(res['MT'])}; M-bwd {json.dumps(res['MB'])}")
@@ -2845,13 +2873,20 @@ def train_lobe_infos(kernels) -> dict:
     return out
 
 
+#: kernel M's local bytes a thread in every SH option and RGBA
+#: instantiation before they were narrowed to the live footprint (commit
+#: bb0fdfb, NVIDIA H100 80GB HBM3; probes/train_info.py): its counts
+OPT_M_PARENT_LOCAL = 40
+
+
 def train_opt_infos(kernels) -> dict:
     """What the card makes of every SH option and RGBA instantiation of
     kernel M's training mode and M-bwd (SH1-SH25 with options, RGBA; f32
     and bf16 payloads): registers, local bytes and blocks per SM, each
     logged beside the SH default's of the same bound and payload (RGBA's
     records, D = 4, beside SH1's). Fails if M-bwd's pass 1 takes more local
-    bytes than that SH default or its pass 2 takes any."""
+    bytes than that SH default or its pass 2 takes any, or kernel M more
+    than before its narrowing (OPT_M_PARENT_LOCAL)."""
     out = {}
     parts = ("M", "M-bwd pass 1", "M-bwd pass 2")
     for f32 in (1, 0):
@@ -2871,14 +2906,16 @@ def train_opt_infos(kernels) -> dict:
                 f"blocks an SM" for p in parts))
             limit = sh["M-bwd pass 1"]["spill_bytes"]
             if (info["M-bwd pass 1"]["spill_bytes"] > limit
-                    or info["M-bwd pass 2"]["spill_bytes"]):
+                    or info["M-bwd pass 2"]["spill_bytes"]
+                    or info["M"]["spill_bytes"] > OPT_M_PARENT_LOCAL):
                 fail(f"training {key}: M-bwd's pass 1 takes more local "
-                     f"bytes than SH{sh_bd}'s {limit}, or its pass 2 takes "
-                     f"any: {out[key]}")
+                     f"bytes than SH{sh_bd}'s {limit}, its pass 2 takes "
+                     f"any, or kernel M more than {OPT_M_PARENT_LOCAL}: "
+                     f"{out[key]}")
     return out
 
 
-def train_variants_phase(torch, dev, stats):
+def train_variants_phase(torch, dev, stats, probe_lib=None):
     """Phase 12b: the training pair's formats and options at the training
     bench's width (tools/bench_train.py's scene: make_solid_tree(
     max_depth=7, basis_dim=9, seed=7), G=256, 800^2, gi=256, 4 orbit poses
@@ -2889,7 +2926,10 @@ def train_variants_phase(torch, dev, stats):
     also on the lean trainer's bf16 bake, and one step with the precise
     warp's switch on); first every SG and ASG instantiation's registers
     and local bytes (train_lobe_infos), and every SH option and RGBA
-    instantiation's (train_opt_infos). Returns {case: summary}."""
+    instantiation's (train_opt_infos). With ``probe_lib``
+    (probes/train_march's clock build of kernel M's narrowed variants),
+    the SH option and RGBA cases' kernel M also runs on it, each block's
+    cycles and the cells left out logged. Returns {case: summary}."""
     from volrend_torch import kernels
     from volrend_torch.models.synthetic import make_solid_tree
     from volrend_torch.ops.camera import Camera
@@ -2908,7 +2948,8 @@ def train_variants_phase(torch, dev, stats):
     for case, key, option in TRAIN_CASES:
         out[case] = train_variant_case(
             torch, dev, stats, case, trees[key], topt.replace(**option),
-            cams, lean=case == "SG9", precise=case == "SG9")
+            cams, lean=case == "SG9", precise=case == "SG9",
+            probe_lib=probe_lib)
     out["lobe_instantiations"] = infos
     out["opt_instantiations"] = opt_infos
     del trees, tdev, tree
@@ -5073,15 +5114,19 @@ def main() -> None:
 
     # ---- 1. build -----------------------------------------------------------
     t = time.perf_counter()
-    # the display march's cycle probe (phase 12c) compiles beside them
-    # (unless built), and is waited for before any phase times anything
-    from volrend_torch.probes import display_march
+    # the display march's cycle probe (phase 12c) and the training march's
+    # (phase 12b) compile beside them (unless built), and are waited for
+    # before any phase times anything
+    from volrend_torch.probes import display_march, train_march
     probe_started = display_march.start_build()
+    train_started = train_march.start_probe_build()
     blogs = kernels.build_all()
     probe_build = display_march.load(probe_started)
+    train_probe = train_march.load_probe_build(train_started)
     log(f"kernels built in {time.perf_counter() - t:.1f} s "
         f"({sorted(blogs)} compiled this run; the display march probe "
-        f"{'built' if probe_started[1] else 'reused'})")
+        f"{'built' if probe_started[1] else 'reused'}, the training march "
+        f"probe {'built' if train_started[1] else 'reused'})")
     for name, text in blogs.items():
         for line in text.splitlines():
             if ("registers" in line or "spill" in line
@@ -5589,7 +5634,8 @@ def main() -> None:
                               main_path, groups_of, render_all)
 
     # ---- 12b. the training pair's formats and options -----------------------
-    train_variants = train_variants_phase(torch, dev, stats)
+    train_variants = train_variants_phase(torch, dev, stats,
+                                          train_probe)
 
     # ---- 12c. mesh overlays, the display knobs, a quantized tree ------------
     overlay = overlay_phase(torch, kernels, dev, opt, stats, gate, groups_of,

@@ -1818,12 +1818,21 @@ OPT_TRAIN_INFO = {
 }
 
 
+#: kernel M's local bytes a thread in the SH option and RGBA
+#: instantiations before they were narrowed to the live footprint (commit
+#: bb0fdfb, NVIDIA H100 80GB HBM3; ``python
+#: volrend_torch/probes/train_info.py --root <that checkout>``): the
+#: launch's counts, every one of them
+OPT_TRAIN_M_LOCAL = 40
+
+
 def test_opt_train_launches_stay_within_their_limits(card):
     """Every SH option (SH1 to SH25 with rot, a basis window or a bbox) and
     RGBA instantiation of kernel M's training mode and of M-bwd, on f32
     and bf16 payloads: M-bwd's pass 1 takes no more local bytes than the
     SH default of the same bound and payload (RGBA's 4-value records:
-    SH1's), pass 2 takes none, and each holds at least the blocks an SM of
+    SH1's), pass 2 takes none, kernel M no more than before its narrowing
+    (OPT_TRAIN_M_LOCAL), and each holds at least the blocks an SM of
     OPT_TRAIN_INFO."""
     from volrend_torch import kernels
     assert len(OPT_TRAIN_INFO) == 12
@@ -1847,8 +1856,80 @@ def test_opt_train_launches_stay_within_their_limits(card):
         sh = info(max(bd, 1), f32, 1, 0)
         got = info(bd, f32, 0 if bd < 0 else 1, 1)
         assert all(g[0] >= b for g, b in zip(got, blocks)), (key, got)
+        assert got[0][1] <= OPT_TRAIN_M_LOCAL, (key, got)
         assert got[1][1] <= sh[1][1], (key, got, sh)
         assert got[2][1] == 0, (key, got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["SH1", "SH4", "SH9", "SH16", "SH25",
+                                     "RGBA", "SH9-resume", "RGBA-resume"])
+def test_train_narrowed_variants_match_plain(group_geom, variant, dtype):
+    """Kernel M's narrowed training variants (each job staged, queued and
+    shaded over the live pixels' footprint alone: the SH options at every
+    bound, RGBA, and the resume instantiations a z-segment takes after
+    upstream ones) against their plain versions on a two-cube bake at the
+    training stop_thresh, whose rays freeze inside the cubes while their
+    neighbours miss them: tiles with frozen and live pixels both (the
+    silhouette tiles the narrowing serves). The resume cases march the two
+    z-segments of the bake in march order, each from the state the one
+    before left."""
+    from volrend_torch.models.data_format import BasisType
+    from volrend_torch.ops import slab_grad
+    grid, cams = group_geom
+    (perm, flip), cam = sorted(cams.items())[len(variant) % len(cams)]
+    fmt = "RGBA" if variant.startswith("RGBA") else "SH"
+    nb = -1 if fmt == "RGBA" else int(variant.split("-")[0][2:])
+    resume = variant.endswith("-resume")
+    D = 4 if fmt == "RGBA" else 3 * nb + 1
+    G, gi = grid.G, 40
+    dev = grid.data.device
+    options = {} if fmt == "RGBA" else dict(
+        rot_dirs=(0.3, -0.2, 0.5), render_bbox=(0.1,) * 3 + (0.85,) * 3,
+        basis_minmax=(0, max(0, nb - 2)))
+    opt = OPT.replace(renormalize=False, **options)
+    assert float(opt.stop_thresh) == 1e-2
+    geom = slab_render.FrameGeom(grid, cam.transform, cam.fx, cam.fy, perm,
+                                 flip, 48, 48, opt, gi)
+    cfg = slab_grad.SlabCfg(G=G, gi=gi, D=D, bd=nb, fmt=int(BasisType[fmt]),
+                            perm=perm, flip=flip, ids=(), opt=opt)
+    params = slab_grad._pack_geom_params(geom, cfg, 1.0 / geom.scale)
+    zb = torch.stack([geom.z_lo_pix, geom.z_hi_pix], 1)
+    st = slab_grad._kernel_statics(cfg)
+    st.pop("flip")
+    planar = _view(_two_cubes(G, D, dtype, dev, seed=nb + 7), perm)
+    qs = torch.ones(D, device=dev)
+    slab_march.march_slabs.train_variants = {}
+    n_seg = 2 if resume else 1
+    Gl = G // n_seg
+    lids = tuple(range(Gl - 1, -1, -1) if flip else range(Gl))
+    acc = None
+    for i in (range(n_seg - 1, -1, -1) if flip else range(n_seg)):
+        seg = slab_grad.zsegment(planar, i, Gl) if resume else planar
+        zbase = i * Gl / G if resume else None
+        got = slab_march.march_slabs(
+            seg, params, qs, zb, G, gi, D, nb, perm, slab_ids=lids,
+            flip=flip, dir_win=False, train=True, z_base=zbase,
+            acc_init=acc, **st)
+        m = slab_march.march_inputs(seg, params, zb, G, gi, lids, 4, None,
+                                    zbase)
+        ref = slab_march.march_slabs_ref(
+            seg, qs, D=D, bd=nb, flip=flip,
+            acc_init=None if acc is None else acc.clone(), **st, **m)
+        torch.cuda.synchronize()
+        _freeze_flip_ok(got, ref)
+        acc = got
+    T = acc[0, 3]
+    frozen = (T < opt.stop_thresh).reshape(gi // 4, 4, gi // 8, 8)
+    mixed = frozen.any(3).any(1) & ~frozen.all(3).all(1)
+    assert bool(mixed.any()), variant
+    name = slab_march.train_variant(
+        slab_march.MarchMode(cfg.fmt, None, False, st["rot"],
+                             st["bbox_full"], st["basis_lo"],
+                             st["basis_hi"]), nb, dtype == torch.float32,
+        resume)
+    assert slab_march.march_slabs.train_variants.get(name) == 1, (
+        name, slab_march.march_slabs.train_variants)
 
 
 def test_train_variants_refuse_what_is_not_built(card, group_geom):

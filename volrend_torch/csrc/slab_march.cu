@@ -77,7 +77,19 @@
 //   4x8 tiles of 128 threads, pieces of 24 x 24 cells, ring 4, colour 2
 //   pieces ahead), the fastest of those probes/train_march.py built and
 //   timed (PERF.md).
-// - One kernel template, march_kernel<V, PT>: the variant V
+// - The SH option, RGBA and resume instantiations (live_of) also keep the
+//   tile's live pixels (those that can still accumulate) as a mask, a
+//   ballot refreshed once a slab, and stage, queue and shade each piece
+//   over the live pixels' footprint alone; the live pixels decide whether
+//   a piece is shaded, each over its own span, and a frozen pixel sums no
+//   taps. A silhouette tile's missing rays then pass over the object's
+//   cells that only its frozen pixels see. The pieces are the same, so
+//   every live pixel sums the same cells in the same order: the output is
+//   bit-equal to the unnarrowed loop's (M-bwd's pass 1 recomputes it
+//   unnarrowed).
+// - One kernel body, march<V, PT>, behind march_kernel (and, for the
+//   narrowed variants, march_live_kernel, which declares its blocks an
+//   SM): the variant V
 //   (tmarch::TVar<format, options, BD>) picks the format and whether the
 //   run-time options are compiled in; the defaults (SH without options,
 //   ShVar) take none of their code and keep the parameters they had before
@@ -111,9 +123,25 @@ struct TrainArgs {
   int n_ids, G, gi, Gy, Gx, y0, x0, flip;
 };
 
+// How the march of variant V tracks the tile's live pixels
+// (tmarch::march_loop's LIVE): the SH option, RGBA and resume
+// instantiations narrow each job to the live pixels' footprint; the SH
+// defaults, SG and ASG keep the march as it was. A probe build with
+// VT_TM_WIDE (probes/train_march.py) marches the narrowed ones unnarrowed,
+// counting the cells that lie outside every live pixel's span.
+#if defined(VT_TM_WIDE)
+constexpr int NARROWED = tmarch::LIVE_TRACK;
+#elif defined(VT_TM_NARROW)
+constexpr int NARROWED = tmarch::LIVE_NARROW;
+#else
+constexpr int NARROWED = tmarch::LIVE_NONE;
+#endif
+template <class V>
+constexpr int live_of = V::OPT && !V::RTD ? NARROWED : tmarch::LIVE_NONE;
+
+// The march of one tile and pose (the kernels below).
 template <class V, typename PT>
-__global__ void __launch_bounds__(tmarch::NT)
-march_kernel(const tmarch::ArgsOf<V, TrainArgs> a) {
+__device__ __forceinline__ void march(const tmarch::ArgsOf<V, TrainArgs>& a) {
   using tmarch::NT;
   using tmarch::TX;
   using tmarch::TY;
@@ -203,7 +231,7 @@ march_kernel(const tmarch::ArgsOf<V, TrainArgs> a) {
   const float Gf = c.Gf, hG = c.hG, zlo = c.zlo, zhi = c.zhi;
   const float stop_thresh = c.stop_thresh;
   const bool inpix = c.inpix;
-  tmarch::march_loop<V, PT>(
+  tmarch::march_loop<V, PT, live_of<V>>(
       c, sm, s_qs, s_prm, opt, T, a.counts,
       [&](const tmarch::Job& jb, const PixelSpan&, float4 w4) {
         if (!inpix) return;
@@ -221,7 +249,8 @@ march_kernel(const tmarch::ArgsOf<V, TrainArgs> a) {
           b += wn * w4.w;
           T = T * att;
         }
-      });
+      },
+      tmarch::LiveTile{j0, k0, u0, du, v0, dv});
 
   if (c.inpix) {
     float* out = a.acc + (size_t)p * 4 * npx + pix;
@@ -232,14 +261,48 @@ march_kernel(const tmarch::ArgsOf<V, TrainArgs> a) {
   }
 }
 
+// The march's kernels. The SH defaults, SG and ASG declare the block's
+// threads alone, and the compiler sets their register budget (the
+// defaults' registers are pinned). The narrowed variants also declare the
+// blocks an SM their shared memory allows, at most four (as M-bwd's pass
+// 1 does): left to its own budget the compiler held the bf16 payload's
+// at 128 registers and spilled.
+template <class V, typename PT>
+__global__ void __launch_bounds__(tmarch::NT)
+march_kernel(const tmarch::ArgsOf<V, TrainArgs> a) {
+  march<V, PT>(a);
+}
+
+template <class V, typename PT>
+constexpr int live_blocks() {
+  return tmarch::smem_blocks<V, PT>() < 4 ? tmarch::smem_blocks<V, PT>() : 4;
+}
+
+template <class V, typename PT>
+__global__ void __launch_bounds__(tmarch::NT, live_blocks<V, PT>())
+march_live_kernel(const tmarch::ArgsOf<V, TrainArgs> a) {
+  march<V, PT>(a);
+}
+
 // one launch of the march of variant V (on a coarse occupancy built)
 template <class V, typename PT>
 struct Launch {
   using KernFn = void (*)(const tmarch::ArgsOf<V, TrainArgs>);
   static constexpr size_t SMEM = tmarch::march_smem<V, PT>();
+  static KernFn kernel() {
+#ifdef VT_TM_PLAIN_BOUNDS
+    constexpr bool PLAIN = true;
+#else
+    constexpr bool PLAIN = false;
+#endif
+    if constexpr (live_of<V> == tmarch::LIVE_NONE || PLAIN)
+      return march_kernel<V, PT>;
+    else
+      return march_live_kernel<V, PT>;
+  }
   static int run(const TrainArgs& a, const tmarch::VarArgs& va, int P,
                  cudaStream_t s) {
-    const KernFn fn = march_kernel<V, PT>;
+    const KernFn fn = kernel();
     cudaError_t e = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
     if (e != cudaSuccess) return (int)e;
@@ -249,7 +312,7 @@ struct Launch {
     return (int)cudaGetLastError();
   }
   static int info(int* out) {
-    const KernFn fn = march_kernel<V, PT>;
+    const KernFn fn = kernel();
     cudaError_t e = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
     if (e != cudaSuccess) return (int)e;

@@ -32,15 +32,23 @@ trainer's bf16 cast and writes a bf16 cotangent. Each is baked by its own
 ``FrameTrainer``. For each case and build it times kernel M
 and M-bwd on pose 0, splits M-bwd into pass 1, pass 2 and the cotangent
 buffer's fill (torch.profiler), reads thread 0's cycles by part of the loop
-from a ``-DVT_TM_CYCLES`` build, and reads every launch's registers, local
-bytes and blocks per SM (``vt_march_slabs_info``, ``vt_march_slabs_bwd_info``),
-and the device memory M-bwd's call holds above what was allocated before it
-(``bwd_alloc_mib``: its output and its buffers).
-Both kernels' outputs are held to the port's plain versions
+from a ``-DVT_TM_CYCLES`` build with each block's loop cycles (``m_blocks``:
+mean, 99th percentile, slowest and its tile) and, for kernel M's narrowed
+variants (the SH options and RGBA), its cell counts (``m_cells``: the cells
+of the pieces run, staged, queued and shaded, and the queued and shaded ones
+outside every live pixel's span at their slab), and reads every launch's
+registers, local bytes and blocks per SM (``vt_march_slabs_info``,
+``vt_march_slabs_bwd_info``), and the device memory M-bwd's call holds above
+what was allocated before it (``bwd_alloc_mib``: its output and its
+buffers). For those variants a ``-DVT_TM_WIDE`` clock build marches them
+unnarrowed, as the parent does, and counts the same cells (case row
+``wide``). Both kernels' outputs are held to the port's plain versions
 (``march_slabs_ref``, ``march_slabs_bwd_ref``) at chip_smoke.py's tolerances.
 ``--parent DIR`` builds the same two sources of another checkout (an unpacked
 parent; the C entry points must be the same) and times it in turns with this
-one: parent, change, change, parent; ``--alt FLAGS`` builds this checkout again
+one: parent, change, change, parent; kernel M's outputs are compared with the
+parent's bit for bit (``m_bit_equal_parent``) and every library's SASS
+function by function (``sass``); ``--alt FLAGS`` builds this checkout again
 with extra nvcc flags (a build-time alternative a source reads as a macro;
 several separated by ``;``) and times each between them. Each build's
 instantiations in the libraries the cases need (the SH defaults, SH with
@@ -92,6 +100,33 @@ _LIB_NAMES = ("slab_march", "slab_march_bwd")
 #: the parts of tmarch::Clock, then the loop's cycles summed and largest
 _PARTS = ("queue", "decide", "shade", "taps", "composite", "list",
           "loop_sum", "loop_max")
+#: tmarch::CellCount: the cells of the pieces run, staged, the records
+#: queued ahead and those outside every live pixel's span at their slab,
+#: the cells shaded and those outside every live pixel's span
+_CELLS = ("listed", "staged", "queued", "queued_out", "shaded",
+          "shaded_out")
+
+
+def _load(path, name: str, clock: bool) -> ctypes.CDLL:
+    """A probe build's library ``name`` at ``path``, its entries typed (a
+    clock build's readers too, where it has them: an older checkout's
+    build may lack the per-block and cell readers)."""
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in kernels.SOURCES[name][1].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.vt_error_string.argtypes = [ctypes.c_int]
+    lib.vt_error_string.restype = ctypes.c_char_p
+    if clock:
+        for fn, argtypes in (("vt_train_cycles", [ctypes.c_void_p]),
+                             ("vt_train_blocks",
+                              [ctypes.c_void_p, ctypes.c_void_p,
+                               ctypes.c_int]),
+                             ("vt_train_cells", [ctypes.c_void_p])):
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+    return lib
 
 
 def build(configs) -> dict:
@@ -118,15 +153,7 @@ def build(configs) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"train_march: build of {name} at {tc} "
                                f"failed:\n{log}")
-        lib = ctypes.CDLL(str(out))
-        for fn, argtypes in kernels.SOURCES[name][1].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        lib.vt_error_string.argtypes = [ctypes.c_int]
-        lib.vt_error_string.restype = ctypes.c_char_p
-        lib.vt_train_cycles.argtypes = [ctypes.c_void_p]
-        lib.vt_train_cycles.restype = ctypes.c_int
-        libs.setdefault(tc, {})[name] = lib
+        libs.setdefault(tc, {})[name] = _load(out, name, True)
     return libs
 
 
@@ -152,6 +179,58 @@ def _cycles(lib) -> dict:
     out = (ctypes.c_ulonglong * len(_PARTS))()
     kernels.check(lib.vt_train_cycles(out), "slab_march")
     return dict(zip(_PARTS, out))
+
+
+def _blocks(lib, gi: int, P: int, tile=(4, 8)) -> Optional[dict]:
+    """The last launch's loop cycles and jobs by block (read and cleared;
+    None for a build that does not keep them): the cycles' mean, 99th
+    percentile, slowest, their ratios to the mean; the slowest block's
+    pose and tile (its pixel rows and columns on the slope grid; ``tile``:
+    the build's rows and columns a tile), its jobs run and shaded and its
+    cycles a job run; the jobs' mean and largest over the blocks."""
+    if not hasattr(lib, "vt_train_blocks"):
+        return None
+    ty, tx = tile
+    gx, gy = -(-gi // tx), -(-gi // ty)
+    n = gx * gy * P
+    out = (ctypes.c_ulonglong * n)()
+    jobs = (ctypes.c_ulonglong * n)()
+    torch.cuda.synchronize()
+    kernels.check(lib.vt_train_blocks(out, jobs, n), "slab_march")
+    a = np.frombuffer(out, dtype=np.uint64).astype(np.float64)
+    j = np.frombuffer(jobs, dtype=np.uint64)
+    run, shaded = (j & 0xffffffff).astype(np.float64), (j >> 32).astype(
+        np.float64)
+    i = int(a.argmax())
+    bx, by, p = i % gx, (i // gx) % gy, i // (gx * gy)
+    mean = float(a.mean())
+    p99 = float(np.percentile(a, 99))
+    return {"blocks": n, "mean": mean, "p99": p99, "max": float(a[i]),
+            "p99_over_mean": p99 / max(mean, 1.0),
+            "max_over_mean": float(a[i]) / max(mean, 1.0),
+            "slowest": {"pose": p, "rows": [by * ty, by * ty + ty - 1],
+                        "cols": [bx * tx, bx * tx + tx - 1],
+                        "jobs_run": int(run[i]), "jobs_shaded": int(shaded[i]),
+                        "cycles_a_job": float(a[i]) / max(run[i], 1.0)},
+            "jobs_run_mean": float(run.mean()), "jobs_run_max": int(run.max()),
+            "jobs_shaded_mean": float(shaded.mean())}
+
+
+def _cells(lib) -> Optional[dict]:
+    """The last launch's cell counts (tmarch::CellCount; read and cleared)
+    with the shares of the queued and the shaded ones outside every live
+    pixel's span at their slab, and of the listed cells left unstaged;
+    None for a build without them."""
+    if not hasattr(lib, "vt_train_cells"):
+        return None
+    out = (ctypes.c_ulonglong * len(_CELLS))()
+    torch.cuda.synchronize()
+    kernels.check(lib.vt_train_cells(out), "slab_march")
+    n = dict(zip(_CELLS, (int(v) for v in out)))
+    n["queued_out_share"] = n["queued_out"] / max(n["queued"], 1)
+    n["shaded_out_share"] = n["shaded_out"] / max(n["shaded"], 1)
+    n["unstaged_share"] = 1.0 - n["staged"] / max(n["listed"], 1)
+    return n
 
 
 def _bench_tree(dev):
@@ -286,48 +365,122 @@ _CASE_LIBS = tuple((f"{kind}{suffix}", tset)
 _TOL_M, _TOL_BWD = 1e-3, {torch.float32: 1e-3, torch.bfloat16: 4e-3}
 
 
-def build_checkout(root: str, tag: str, flags=(), clock=True,
-                   sets=(0, 1, 2)) -> dict:
-    """Compile the training pair of the checkout at ``root`` (its
+def start_checkout(root: str, tag: str, flags=(), clock=True,
+                   sets=(0, 1, 2), plain=True) -> list:
+    """Start compiling the training pair of the checkout at ``root`` (its
     ``volrend_torch/csrc``, with the extra nvcc ``flags``) as the
-    _CASE_LIBS of the VT_TRAIN_SET ``sets``, each without and (``clock``)
-    with the clock (``-DVT_TM_CYCLES``), one nvcc each, all started
-    together, into ``build/volrend_torch/train_march/<tag>/``: {clock:
-    {library: CDLL}}."""
+    _CASE_LIBS of the VT_TRAIN_SET ``sets``, each without (``plain``) and
+    with (``clock``) the clock (``-DVT_TM_CYCLES``), one nvcc each, into
+    ``build/volrend_torch/train_march/<tag>/``; ``finish_checkout`` waits
+    for them."""
     from pathlib import Path
     csrc = Path(root) / "volrend_torch" / "csrc"
     out_dir = kernels.build_dir() / "train_march" / tag
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = []
-    for clock in (False, True) if clock else (False,):
+    for clock in (False,) * plain + (True,) * clock:
         for name, tset in _CASE_LIBS:
             if tset not in sets:
                 continue
             out = out_dir / f"lib{name}{'_clock' if clock else ''}.so"
             src = csrc / kernels.SOURCES[name][0]
-            procs.append((clock, name, out, subprocess.Popen(
+            procs.append((tag, clock, name, out, subprocess.Popen(
                 [kernels._nvcc(), *kernels._NVCC_FLAGS, *flags,
                  f"-DVT_TRAIN_SET={tset}",
                  *(["-DVT_TM_CYCLES"] if clock else []), "-o", str(out),
                  str(src)], stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True)))
+    return procs
+
+
+def finish_checkout(procs: list) -> dict:
+    """Wait for ``start_checkout``'s compiles and load them: {clock:
+    {library: CDLL}}; raises with the log of a build that failed."""
     libs = {}
-    for clock, name, out, proc in procs:
+    for tag, clock, name, out, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"train_march: build of {name} ({tag}) "
                                f"failed:\n{log}")
-        lib = ctypes.CDLL(str(out))
-        for fn, argtypes in kernels.SOURCES[name][1].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        lib.vt_error_string.argtypes = [ctypes.c_int]
-        lib.vt_error_string.restype = ctypes.c_char_p
-        if clock:
-            lib.vt_train_cycles.argtypes = [ctypes.c_void_p]
-            lib.vt_train_cycles.restype = ctypes.c_int
-        libs.setdefault(clock, {})[name] = lib
+        libs.setdefault(clock, {})[name] = _load(out, name, clock)
     return libs
+
+
+def build_checkout(root: str, tag: str, flags=(), clock=True,
+                   sets=(0, 1, 2), plain=True) -> dict:
+    """``start_checkout`` and ``finish_checkout``: {clock: {library:
+    CDLL}}."""
+    return finish_checkout(start_checkout(root, tag, flags, clock, sets,
+                                          plain))
+
+
+#: the library of kernel M's narrowed variants, whose clock build
+#: chip_smoke.py's phase 12b reads (start_probe_build)
+PROBE_LIB = "slab_march_opt"
+
+
+def start_probe_build():
+    """Start compiling the clock build (``-DVT_TM_CYCLES``) of PROBE_LIB,
+    with the port's flags, into ``build/volrend_torch/train_march/``
+    unless it is built: keyed, as the port's libraries are, by the source,
+    the shared headers and the flags. ``load_probe_build`` waits for it."""
+    out_dir = kernels.build_dir() / "train_march"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    out = out_dir / kernels._target(PROBE_LIB).name.replace(
+        f"lib{PROBE_LIB}_", f"lib{PROBE_LIB}_cycles_")
+    if out.exists():
+        return out, None
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    return out, (tmp, subprocess.Popen(
+        [kernels._nvcc(), *kernels._NVCC_FLAGS,
+         *kernels._FLAGS.get(PROBE_LIB, []), "-DVT_TM_CYCLES", "-o",
+         str(tmp), str(kernels._CSRC / kernels.SOURCES[PROBE_LIB][0])],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+
+
+def load_probe_build(started) -> ctypes.CDLL:
+    """Wait for ``start_probe_build``'s compile and load the library
+    (raises with the log if the build failed)."""
+    out, building = started
+    if building is not None:
+        tmp, proc = building
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"train_march: the probe build failed:\n"
+                               f"{log}")
+        os.replace(tmp, out)
+    return _load(out, PROBE_LIB, True)
+
+
+def probe_launch(lib, fwd, gi: int, P: int) -> dict:
+    """One launch of ``fwd`` (kernel M's training mode, a narrowed variant)
+    on the clock build ``lib`` of PROBE_LIB: its output, thread 0's cycles
+    by part, each block's loop cycles and the cell counts (_blocks,
+    _cells)."""
+    with _standing_in({PROBE_LIB: lib}):
+        _cycles(lib), _blocks(lib, gi, P), _cells(lib)  # cleared
+        acc = fwd()
+        return {"acc": acc, "cycles": _cycles(lib),
+                "blocks": _blocks(lib, gi, P), "cells": _cells(lib)}
+
+
+def sass_compare(parent: dict, change: dict) -> dict:
+    """The SASS of two builds' libraries (``build_checkout``'s CDLLs
+    without the clock), function by function (cuobjdump, as
+    probes/display_sass reads it): per library, the functions equal and
+    those that differ or are missing from one build. Kernel M's narrowed
+    variants (the "_opt" library's march_live_kernel) are meant to differ;
+    every other function is meant to be the parent's."""
+    from volrend_torch.probes.display_sass import functions
+    out = {}
+    for name in sorted(set(parent) & set(change)):
+        a, b = functions(parent[name]._name), functions(change[name]._name)
+        out[name] = {
+            "equal": sum(a[k] == b[k] for k in set(a) & set(b)),
+            "differ": sorted(k for k in set(a) & set(b) if a[k] != b[k]),
+            "parent_only": sorted(set(a) - set(b)),
+            "change_only": sorted(set(b) - set(a))}
+    return out
 
 
 #: the render options of the SH9 option cases, as chip_smoke.TRAIN_CASES
@@ -427,15 +580,27 @@ def _info(libs: dict, fmt: int, bd: int, f32: bool, opt: bool) -> dict:
             "pass2": dict(zip(keys[:3], b[4:]))}
 
 
+def _info_or_none(libs: dict, fmt: int, bd: int, f32: bool,
+                  opt: bool) -> Optional[dict]:
+    """_info, or None for an instantiation whose block needs more shared
+    memory than the card gives one (an --alt build's)."""
+    try:
+        return _info(libs, fmt, bd, f32, opt)
+    except RuntimeError as e:
+        if "invalid argument" not in str(e):
+            raise
+        return None
+
+
 def variant_info(libs: dict) -> dict:
-    """A build's instantiations by bound and payload (_info), keyed as
-    probes/train_info.py keys them, of the libraries it holds: the SH
+    """A build's instantiations by bound and payload (_info_or_none), keyed
+    as probes/train_info.py keys them, of the libraries it holds: the SH
     defaults, SH with options and RGBA, SG and ASG by lobe bound."""
     out = {}
     for f32 in (True, False):
         pay = "f32" if f32 else "bf16"
         if "slab_march_opt" in libs:
-            out[f"RGBA-{pay}"] = _info(libs, 0, -1, f32, True)
+            out[f"RGBA-{pay}"] = _info_or_none(libs, 0, -1, f32, True)
         for bound in (1, 4, 9, 16, 25):
             for name, fmt, opt in (("SH", 1, False), ("SH", 1, True),
                                    ("SG", 2, True), ("ASG", 3, True)):
@@ -446,24 +611,42 @@ def variant_info(libs: dict) -> dict:
                     continue
                 key = (f"SH{bound}{'-opt' if opt else ''}" if fmt == 1
                        else f"{name}<={bound}")
-                out[f"{key}-{pay}"] = _info(libs, fmt, bound, f32, opt)
+                out[f"{key}-{pay}"] = _info_or_none(libs, fmt, bound, f32,
+                                                    opt)
     return out
 
 
-def run_cases(dev, cases, parent=None, alt=None) -> dict:
+#: the builds --cases can time: this checkout's, the parent's, and this
+#: checkout's narrowed variants marched unnarrowed (VT_TM_WIDE)
+BUILDS = ("change", "parent", "wide")
+
+
+def run_cases(dev, cases, parent=None, alt=None, only=BUILDS) -> dict:
     """--cases: each case's M and M-bwd on pose 0 for this checkout's
     build (and ``parent``'s, and this checkout's built with each flag set
-    of ``alt``, in turns), as the module's docstring says."""
+    of ``alt``, in turns), as the module's docstring says; ``only`` keeps
+    some of BUILDS (the alternatives are timed whenever given)."""
     from volrend_torch.ops import slab_grad, slab_march
     specs = {case: case_spec(case) for case in cases}
     sets = sorted({0} | {_case_set(s) for s in specs.values()})
-    builds = {"change": build_checkout(c._ROOT, "change", sets=sets)}
-    if parent is not None:
-        builds["parent"] = build_checkout(parent, "parent", sets=sets)
     alts = [a for a in (alt or "").split(";") if a.strip()]
+    # every build's nvcc started together, then waited for
+    started = {}
+    if "change" in only:
+        started["change"] = start_checkout(c._ROOT, "change", sets=sets)
+    if parent is not None and "parent" in only:
+        started["parent"] = start_checkout(parent, "parent", sets=sets)
+    if "wide" in only and 1 in sets:
+        # the narrowed variants marched unnarrowed (the parent's march),
+        # with the clock and the live set tracked for the cell counts
+        started["wide"] = start_checkout(c._ROOT, "wide", ("-DVT_TM_WIDE",),
+                                         sets=(1,), plain=False)
     for i, flags in enumerate(alts):
-        builds[f"alt{i}"] = build_checkout(c._ROOT, f"alt{i}", flags.split(),
-                                           clock=False, sets=sets)
+        started[f"alt{i}"] = start_checkout(c._ROOT, f"alt{i}",
+                                            flags.split(), clock=False,
+                                            sets=sets)
+    builds = {t: finish_checkout(p) for t, p in started.items()}
+    wide = builds.pop("wide", {}).get(True)
     tags = [t for t in ("parent", "change") if t in builds] + [
         f"alt{i}" for i in range(len(alts))]
     order = tags + tags[::-1] if len(tags) > 1 else tags
@@ -472,6 +655,10 @@ def run_cases(dev, cases, parent=None, alt=None) -> dict:
         c.log(f"train_march variant_info ({t}"
               f"{': ' + alts[int(t[3:])] if t.startswith('alt') else ''}): "
               f"{json.dumps(info)}")
+    sass = None
+    if "parent" in builds and "change" in builds:
+        sass = sass_compare(builds["parent"][False], builds["change"][False])
+        c.log(f"train_march SASS against the parent: {json.dumps(sass)}")
     tdev = _bench_tree(dev)
     out = {}
     for case in cases:
@@ -510,7 +697,7 @@ def run_cases(dev, cases, parent=None, alt=None) -> dict:
         g_p = slab_march.march_slabs_bwd_ref(planar, qs, prm, bzb, bg, aux,
                                              G, GI, D, bd, flip,
                                              mode=mode).double()
-        rows = {}
+        rows, outs = {}, {}
         for tag in order:
             libs = builds[tag]
             with _standing_in(libs[False]):
@@ -520,7 +707,8 @@ def run_cases(dev, cases, parent=None, alt=None) -> dict:
                 row["bwd_ms"].append(bwd_ms)
                 if "parts_ms" in row:
                     continue
-                d = (fwd() - acc_p).abs().amax(1)
+                outs[tag] = fwd()
+                d = (outs[tag] - acc_p).abs().amax(1)
                 # the device memory M-bwd's call holds above what was
                 # allocated before it: its output and its buffers
                 torch.cuda.synchronize()
@@ -549,20 +737,40 @@ def run_cases(dev, cases, parent=None, alt=None) -> dict:
                 cnt = torch.zeros(slab_march.N_COUNTS, dtype=torch.int64,
                                   device=dev)
                 fwd(cnt)
-                row["m_cycles"] = _cycles(libs[True]["slab_march" + suffix])
+                lib = libs[True]["slab_march" + suffix]
+                row["m_cycles"] = _cycles(lib)
+                row["m_blocks"] = _blocks(lib, GI, 1)
+                row["m_cells"] = _cells(lib)
                 row["m_counts"] = cnt.tolist()
                 cnt.zero_()
                 bwd(cnt)
                 row["bwd_cycles"] = _cycles(libs[True][
                     "slab_march_bwd" + suffix])
                 row["bwd_counts"] = cnt.tolist()
+        # kernel M's output bit for bit against the parent's build's
+        for tag in outs:
+            if tag != "parent" and "parent" in outs:
+                rows[tag]["m_bit_equal_parent"] = bool(
+                    torch.equal(outs[tag], outs["parent"]))
+        if wide is not None and _case_set(spec) == 1:
+            # the parent's march with its cells counted (VT_TM_WIDE)
+            with _standing_in(wide):
+                cnt = torch.zeros(slab_march.N_COUNTS, dtype=torch.int64,
+                                  device=dev)
+                acc_w = fwd(cnt)
+                lib = wide["slab_march_opt"]
+                rows["wide"] = {
+                    "m_cycles": _cycles(lib), "m_blocks": _blocks(lib, GI, 1),
+                    "m_cells": _cells(lib), "m_counts": cnt.tolist(),
+                    "m_bit_equal": {t: bool(torch.equal(acc_w, o))
+                                    for t, o in outs.items()}}
         for tag, row in rows.items():
             c.log(f"train_march {case} ({tag}): {json.dumps(row)}")
         out[case] = rows
-        del planar, acc_p, g_p, occ, m
+        del planar, acc_p, g_p, occ, m, outs
         torch.cuda.empty_cache()
     return {"device": torch.cuda.get_device_name(0), "alts": alts,
-            "variant_info": infos, "cases": out}
+            "variant_info": infos, "sass": sass, "cases": out}
 
 
 def main() -> None:
@@ -582,6 +790,9 @@ def main() -> None:
                     help="with --cases: extra nvcc flags of another build "
                     "of this checkout to time in turns (several: separated "
                     "by ';')")
+    ap.add_argument("--builds", default=",".join(BUILDS),
+                    help="with --cases: the builds to time, of "
+                    f"{','.join(BUILDS)} (the parent needs --parent)")
     ap.add_argument("--out", default=None,
                     help="also write the result as JSON to this file")
     args = ap.parse_args()
@@ -591,7 +802,8 @@ def main() -> None:
         for case in args.cases.split(","):
             case_spec(case)  # an unknown case fails before any build
         out = run_cases(torch.device("cuda"), args.cases.split(","),
-                        args.parent, args.alt)
+                        args.parent, args.alt,
+                        tuple(args.builds.split(",")))
     else:
         configs = [tuple(int(v) for v in k.split(":"))
                    for k in args.configs.split(",")]
