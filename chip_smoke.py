@@ -844,11 +844,11 @@ def train_kernel_checks(torch, dev, planar, params, zb, gacc4, ids, cfg,
     ``cfg`` trains (its format, and the options of cfg.opt), with the
     SG/ASG lobes ``extra``; an option variant's bounds count its
     variant_ops. With ``probe_lib`` (probes/train_march's clock build of
-    kernel M's narrowed variants) and a narrowed variant (the SH options,
-    RGBA), kernel M's launch on that build too: each block's loop cycles
-    and the cells of the pieces it ran, staged, queued and shaded, logged
-    (the cells left out: listed but not staged), its output against the
-    port's launch (bit for bit, logged; past a freeze flip fails). Returns
+    the option variants' library) and an SH option or RGBA variant, kernel
+    M's launch on that build too: each block's loop cycles and pieces run
+    and shaded (the slowest block's, and the mean), logged, and its output
+    against the port's launch (bit for bit, logged; past a freeze flip
+    fails). Returns
     {"MT", "MB", "MO", "acc4"}; "MO" is the bits mode the step launches,
     with the full read's numbers under "full_read"."""
     import types
@@ -1021,14 +1021,12 @@ def train_kernel_checks(torch, dev, planar, params, zb, gacc4, ids, cfg,
                 planar, qs, D=D, bd=bd, flip=flip, occ=occ, mode=mode, **m),
             GI, params.shape[0])
         diff = float((pr.pop("acc") - acc_k).abs().max())
-        cells = pr["cells"]
-        log(f"kernel M's narrowed variant on the probe build [{tag}]: "
-            f"{cells['listed'] - cells['staged']} of {cells['listed']} "
-            f"listed cells left out of the staging "
-            f"({cells['unstaged_share']:.4f}), {cells['queued']} records "
-            f"queued, {cells['shaded']} cells shaded ("
-            f"{cells['shaded_out_share']:.4f} outside every live pixel's "
-            f"span); block loop cycles {json.dumps(pr['blocks'])}; output "
+        blk = pr["blocks"]
+        log(f"kernel M on the probe build [{tag}]: the slowest block "
+            f"{blk['max']:.0f} cycles, {blk['max_over_mean']:.2f} times the "
+            f"mean, tile {blk['slowest']}; pieces run a block "
+            f"{blk['jobs_run_mean']:.3f}, shaded {blk['jobs_shaded_mean']:.3f}"
+            f" (the mean); output "
             f"{'bit-equal to' if diff == 0.0 else 'differs from'} the "
             f"port's launch (max |diff| {diff:.3e})")
         if not diff <= stop + TOL_M:
@@ -2701,8 +2699,8 @@ def train_variant_case(torch, dev, stats, case, tdev, topt, cams,
     BK, the bits mode, M and M-bwd in the case's variant a step, no plain
     version), peak memory, and pose 0's loss must fall; with ``precise``,
     then one step with the precise warp's switch on, counted; with
-    ``probe_lib``, kernel M's narrowed variants on that probe build too
-    (train_kernel_checks). Fills the kernels line's rows
+    ``probe_lib``, kernel M's SH option and RGBA variants on that probe
+    build too (train_kernel_checks). Fills the kernels line's rows
     (TRAIN_VARIANT_ROWS); returns the case's summary."""
     from volrend_torch import train
     from volrend_torch.ops import display_warp, slab_grad, slab_render
@@ -2874,8 +2872,9 @@ def train_lobe_infos(kernels) -> dict:
 
 
 #: kernel M's local bytes a thread in every SH option and RGBA
-#: instantiation before they were narrowed to the live footprint (commit
-#: bb0fdfb, NVIDIA H100 80GB HBM3; probes/train_info.py): its counts
+#: instantiation before the SH option variant took a narrowed one for
+#: launches with a bbox (commit bb0fdfb, NVIDIA H100 80GB HBM3;
+#: probes/train_info.py): its counts
 OPT_M_PARENT_LOCAL = 40
 
 
@@ -2884,9 +2883,12 @@ def train_opt_infos(kernels) -> dict:
     kernel M's training mode and M-bwd (SH1-SH25 with options, RGBA; f32
     and bf16 payloads): registers, local bytes and blocks per SM, each
     logged beside the SH default's of the same bound and payload (RGBA's
-    records, D = 4, beside SH1's). Fails if M-bwd's pass 1 takes more local
-    bytes than that SH default or its pass 2 takes any, or kernel M more
-    than before its narrowing (OPT_M_PARENT_LOCAL)."""
+    records, D = 4, beside SH1's), and kernel M's narrowed SH option
+    instantiations (opt 3: a launch with a bbox takes them) beside the
+    option variant's. Fails if M-bwd's pass 1 takes more local bytes than
+    that SH default or its pass 2 takes any, kernel M more than before
+    (OPT_M_PARENT_LOCAL), or the narrowed instantiation holds fewer blocks
+    an SM than the option variant."""
     out = {}
     parts = ("M", "M-bwd pass 1", "M-bwd pass 2")
     for f32 in (1, 0):
@@ -2912,7 +2914,35 @@ def train_opt_infos(kernels) -> dict:
                      f"bytes than SH{sh_bd}'s {limit}, its pass 2 takes "
                      f"any, or kernel M more than {OPT_M_PARENT_LOCAL}: "
                      f"{out[key]}")
+            if not rgba:
+                live = train_live_info(kernels, bound, f32)
+                out[key]["M narrowed"] = live
+                log(f"training {key}, kernel M's narrowed instantiation (a "
+                    f"launch with a bbox): {live['regs']} registers, "
+                    f"{live['spill_bytes']} local bytes, "
+                    f"{live['blocks_per_sm']} blocks an SM")
+                if (live["spill_bytes"] > OPT_M_PARENT_LOCAL
+                        or live["blocks_per_sm"]
+                        < info["M"]["blocks_per_sm"]):
+                    fail(f"training {key}: kernel M's narrowed instantiation "
+                         f"takes more than {OPT_M_PARENT_LOCAL} local bytes "
+                         f"or fewer blocks an SM than the option variant: "
+                         f"{live}")
     return out
+
+
+def train_live_info(kernels, bd: int, f32: bool) -> dict:
+    """What the card makes of kernel M's narrowed SH option instantiation
+    of ``bd`` basis functions (vt_march_slabs_info's opt 3): resident
+    blocks per SM, registers and spill bytes a thread, dynamic shared
+    memory."""
+    import ctypes
+    from volrend_torch.ops.slab_march import train_lib
+    m = (ctypes.c_int * 11)()
+    kernels.check(train_lib("slab_march", 1, True).vt_march_slabs_info(
+        bd, int(f32), 1, 3, m), "slab_march")
+    return dict(zip(("blocks_per_sm", "regs", "spill_bytes", "smem"),
+                    m[:4]))
 
 
 def train_variants_phase(torch, dev, stats, probe_lib=None):
@@ -2927,9 +2957,9 @@ def train_variants_phase(torch, dev, stats, probe_lib=None):
     warp's switch on); first every SG and ASG instantiation's registers
     and local bytes (train_lobe_infos), and every SH option and RGBA
     instantiation's (train_opt_infos). With ``probe_lib``
-    (probes/train_march's clock build of kernel M's narrowed variants),
+    (probes/train_march's clock build of the option variants' library),
     the SH option and RGBA cases' kernel M also runs on it, each block's
-    cycles and the cells left out logged. Returns {case: summary}."""
+    cycles and pieces logged. Returns {case: summary}."""
     from volrend_torch import kernels
     from volrend_torch.models.synthetic import make_solid_tree
     from volrend_torch.ops.camera import Camera

@@ -1,19 +1,18 @@
-"""The rule of kernel M's narrowed training variants (the SH options, RGBA
-and resume; csrc/slab_common.cuh ``live_fp``) on the CPU: a tile's pixels
-that cannot accumulate any more (T under stop_thresh, or their z interval
-passed) never will, so each job may stage, queue and shade only the cells
-of the live footprint, the footprint of the live pixels' bounding
-sub-rectangle with its one-cell margin, and shade a job only when a live
-pixel's own span holds a cell above the threshold. Here that rule is
-mirrored in plain
-PyTorch (``slab_march.live_footprint``, ``march_slabs_ref(narrow=True)``)
-on a G = 16 two-cube bake from a numpy seed at the training stop_thresh,
-whose rays freeze inside the cubes: at every slab the live footprint holds
-every live pixel's span, the cells outside it are zeroed, and the march
-gives the unnarrowed plain version's output and the reference's scan march
-(``volrend_tpu/ops/slab_grad.py:_march_fwd_impl``) on the same payload.
-The kernel itself is held bit for bit to its parent and to its plain
-version on the card (tests/test_torch_cuda.py, probes/train_march.py)."""
+"""The rule of kernel M's narrowed training instantiation (the SH option
+variant launched with a bbox; csrc/slab_common.cuh, march_loop's NARROW)
+on the CPU: a tile's pixels that cannot accumulate any more (T under
+stop_thresh, or their z interval passed) never will, so a piece is shaded
+only when a pixel that can still accumulate finds a cell above the
+threshold in its own span. Here that rule is mirrored in plain PyTorch
+(``slab_march.live_warp``, ``march_slabs_ref(narrow=True)``) on a G = 16
+two-cube bake from a numpy seed at the training stop_thresh, whose rays
+freeze inside the cubes, seen with a bbox from both sides of a slab axis
+(flip off and on): tiles whose shaded cells only frozen pixels see are
+passed over, and the march gives the unnarrowed plain version's output and
+the reference's scan march (``volrend_tpu/ops/slab_grad.py:
+_march_fwd_impl``) on the same payload. The kernel itself is held to the
+parent's bit for bit (probes/train_march.py) and to its plain version on
+the card (tests/test_torch_cuda.py)."""
 
 import numpy as np
 import pytest
@@ -40,11 +39,14 @@ STOP = 1e-2
 JOPT = JOpt(max_steps=512).replace(renormalize=False, render_depth=False)
 #: camera directions of a (perm, flip) group with flip off and on
 BACKS = {False: (-1.0, -0.25, -0.35), True: (1.0, 0.25, 0.35)}
-#: (format, basis functions, render options): the narrowed variants
+BBOX = dict(render_bbox=(0.1,) * 3 + (0.8,) * 3)
+#: (format, basis functions, render options): launches that take the
+#: narrowed instantiation (SH with options and a bbox)
 CASES = {
-    "SH4-rot": ("SH", 4, dict(rot_dirs=(0.3, -0.2, 0.5))),
-    "SH4-bbox": ("SH", 4, dict(render_bbox=(0.1,) * 3 + (0.8,) * 3)),
-    "RGBA": ("RGBA", -1, {}),
+    "SH1-bbox": ("SH", 1, BBOX),
+    "SH4-bbox": ("SH", 4, BBOX),
+    "SH4-all": ("SH", 4, dict(rot_dirs=(0.3, -0.2, 0.5),
+                              basis_minmax=(1, 2), **BBOX)),
 }
 #: the narrowed march sums each tile's warp apart (another summation
 #: order than the whole-slab products): f32 rounding
@@ -128,24 +130,21 @@ def _march(case, narrow, stats=None):
                                       stats=stats, **statics, **m)[0]
 
 
-def test_live_footprint_holds_every_live_span(case):
-    """At every slab and tile, every live pixel's span (its cells in the
-    tile's footprint, the cells its taps sum) lies in the live footprint;
-    the rule leaves cells out (rays froze inside the cubes), and the live
-    pixels' decision passes over tiles whose shaded cells only frozen
-    pixels see."""
+def test_live_decision_passes_over_frozen_tiles(case):
+    """The rule passes over (tile, slab) pairs whose shaded cells only
+    frozen pixels see (rays froze inside the cubes), and shades the
+    others."""
     stats = {}
     acc = _march(case, True, stats)
-    assert stats["live_pixels"] > 0 and stats["spans_outside"] == 0, stats
+    assert 0 < stats["tiles_passed_over"] < stats["tiles_live"], stats
     assert 0 < stats["cells_left_out"] < stats["cells_shaded"], stats
-    assert stats["tiles_passed_over"] > 0, stats
     assert float(acc[3].min()) < STOP
 
 
 def test_narrowed_march_matches_plain_and_reference(case):
-    """The plain march with each tile's cells outside its live footprint
-    zeroed gives the unnarrowed plain version's output and the reference's
-    scan march on the same bf16-rounded payload."""
+    """The plain march with the rule applied tile by tile gives the
+    unnarrowed plain version's output and the reference's scan march on
+    the same bf16-rounded payload."""
     name, *_, ref = case
     got = _march(case, True).numpy()
     plain = _march(case, False).numpy()
@@ -155,29 +154,44 @@ def test_narrowed_march_matches_plain_and_reference(case):
     assert frozen.any() and (~frozen).any(), name
 
 
-def test_live_footprint_of_one_pixel_is_its_span_and_margin():
-    """A lone live pixel's footprint is its own span with one cell of
-    margin on each side (clipped to the crop), and a tile without a live
-    pixel has none."""
-    G = 16
-    prm = np.zeros(31, np.float32)
-    prm[0:3] = (-1.5, 0.4, 0.6)           # camera z, y, x
-    prm[3:7] = (-0.3, 0.02, -0.25, 0.015)  # u0, du, v0, dv
+def test_live_warp_shades_where_a_live_span_sees_sigma():
+    """live_warp on one slab of a crop: a tile passes over the slab while
+    its live pixels' spans hold no shaded cell, and warps it, as the plain
+    product does, once one of them does; a tile without live pixels warps
+    nothing."""
+    G, gi = 16, 8
+    prm = torch.zeros(31)
+    prm[0:3] = torch.tensor((-1.5, 0.5, 0.5))            # camera z, y, x
+    prm[3:7] = torch.tensor((-0.1, 0.025, -0.1, 0.025))  # u0, du, v0, dv
+    z = 0.53
     crop = (0, G - 1, 0, G - 1)
-    live = np.zeros(slab_march.TRAIN_TILE, bool)
-    assert slab_march.live_footprint(prm, G, live, 8, 16, 0.53, crop) is None
-    live[2, 5] = True
-    f = slab_march.live_footprint(prm, G, live, 8, 16, 0.53, crop)
-    one = slab_march.tile_footprint(prm, G, (10, 10), (21, 21), 0.53, crop)
-    assert f == one
-    whole = slab_march.tile_footprint(prm, G, (8, 11), (16, 23), 0.53, crop)
-    assert whole[0] <= f[0] <= f[1] <= whole[1]
-    assert whole[2] <= f[2] <= f[3] <= whole[3]
-    # the span's cells and the margin
-    f32 = np.float32
-    hG = f32(0.5) / f32(G)
-    s0, s1 = f32(0.53) - hG - prm[0], f32(0.53) + hG - prm[0]
-    u = (prm[3] + prm[4] * f32(10)) * f32(G)
-    ys = sorted((prm[1] * G + s0 * u, prm[1] * G + s1 * u))
-    assert f[0] == max(int(np.floor(ys[0])) - 1, 0)
-    assert f[1] == min(int(np.floor(ys[1])) + 1, G - 1)
+    cell = torch.arange(G, dtype=torch.float32)
+    hG = 0.5 / G
+    s0, s1 = z - hG - float(prm[0]), z + hG - float(prm[0])
+    ray = torch.arange(gi, dtype=torch.float32)
+    m_r = slab_march._overlap_mat(float(prm[1]) * G,
+                                  (prm[3] + prm[4] * ray) * G, s0, s1,
+                                  cell, G)
+    m_c = slab_march._overlap_mat(float(prm[2]) * G,
+                                  (prm[5] + prm[6] * ray) * G, s0, s1,
+                                  cell, G)
+    live = torch.zeros((gi, gi), dtype=torch.bool)
+    live[0, 0] = True             # one live pixel in the first tile
+    chans = torch.zeros((4, G, G))
+    far = m_r[0].argmin(), m_c[0].argmin()  # a cell pixel (0, 0) misses
+    chans[:, far[0], far[1]] = 1.0
+    assert float(m_r[0, far[0]] * m_c[0, far[1]]) == 0.0
+    stats = {}
+    out = slab_march.live_warp(prm, G, gi, z, live, chans, m_r, m_c, crop,
+                               stats)
+    assert stats["tiles_live"] == 1 and stats["tiles_passed_over"] == 1
+    assert not out.any()
+    near = m_r[0].argmax(), m_c[0].argmax()  # a cell in its span
+    chans[:, near[0], near[1]] = 2.0
+    stats = {}
+    out = slab_march.live_warp(prm, G, gi, z, live, chans, m_r, m_c, crop,
+                               stats)
+    assert stats.get("tiles_passed_over", 0) == 0
+    plain = m_r @ chans @ m_c.T
+    torch.testing.assert_close(out[:, :4, :8], plain[:, :4, :8])
+    assert not out[:, 4:].any() and not out[:, :, 8:].any()

@@ -414,9 +414,21 @@ struct TVar {
   static constexpr bool RTD = FM == F_SG || FM == F_ASG;
   static constexpr int DMAX = FM == F_RGBA ? 4 : 3 * B + 1;
   static constexpr int LW = FM == F_ASG ? 3 : 1;
+  static constexpr bool LIVE = false;  // kernel M's narrowed march (LiveVar)
 };
 template <int BD>
 using ShVar = TVar<F_SH, false, BD>;
+
+// Kernel M's SH option variant as a launch with a non-full bbox takes it:
+// its march narrowed to the tile's live pixels (march_loop's NARROW),
+// which passes over the pieces whose cells above the threshold only frozen
+// pixels see. The bbox's culling leaves many such pieces; without it the
+// narrowing costs more than it saves, so the other launches keep TVar
+// (PERF.md).
+template <int B>
+struct LiveVar : TVar<F_SH, true, B> {
+  static constexpr bool LIVE = true;
+};
 
 // The launch's options, as the host passes them: the lobes (SG/ASG: nb x 4
 // or 11 floats on the device), the lobe count, the rotation (rot_on, 9
@@ -545,22 +557,15 @@ __device__ __forceinline__ bool in_box(const TrainOpt& o, float Gf, int gy,
 // copies and is read as float4 (the 8 threads of a phase hit 8 distinct
 // bank quads), else an odd number of words (read as words: 32 distinct
 // banks). A variant with its record width at run time sizes the slot by
-// its bound DMAX, which holds every narrower record either way. A build
-// with VT_TM_TIGHT_SLOTS takes only the slack the copies need: none for
-// f32 (its words are aligned), a half-word for bf16.
+// its bound DMAX, which holds every narrower record either way.
 template <int D, typename PT>
 __host__ __device__ constexpr int rec_slot() {
   constexpr int RB = D * (int)sizeof(PT);
-#ifdef VT_TM_TIGHT_SLOTS
-  constexpr int SLACK = sizeof(PT) == 4 ? 0 : 2;
-#else
-  constexpr int SLACK = 8;
-#endif
   if constexpr (RB % 16 == 0) {
-    constexpr int u = (RB + SLACK + 15) / 16;
+    constexpr int u = (RB + 8 + 15) / 16;
     return 16 * (u | 1);
   } else {
-    constexpr int w = (RB + SLACK + 3) / 4;
+    constexpr int w = (RB + 8 + 3) / 4;
     return 4 * (w | 1);
   }
 }
@@ -1017,40 +1022,6 @@ struct Clock {
 };
 #endif
 
-// A probe build's cell counts of kernel M's variants that track the tile's
-// live pixels (march_loop's LIVE), summed over the launch into cells[]:
-// the cells of the pieces the loop ran, those whose sigma was staged, the
-// colour records queued ahead, those of them that lay outside every live
-// pixel's span at their slab (counted as they were shaded), the cells
-// shaded and those of them outside every live pixel's span. A live pixel
-// can still accumulate: on the grid, T >= stop_thresh, its z interval not
-// passed. Read and cleared by vt_train_cells; empty in other builds.
-enum CellCount {
-  C_LISTED, C_STAGED, C_QUEUED, C_QUEUED_OUT, C_SHADED, C_SHADED_OUT,
-  N_CELLS
-};
-#ifdef VT_TM_CYCLES
-__device__ unsigned long long cells[N_CELLS];
-struct CellTally {
-  long long n[N_CELLS] = {};
-  __device__ void add(CellCount k, long long v) { n[k] += v; }
-  __device__ void flush() {
-#pragma unroll
-    for (int k = 0; k < N_CELLS; ++k) {
-      unsigned long long v = (unsigned long long)n[k];
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(~0u, v, o);
-      if ((threadIdx.x & 31) == 0 && v) atomicAdd(cells + k, v);
-    }
-  }
-};
-#else
-struct CellTally {
-  __device__ void add(CellCount, long long) {}
-  __device__ void flush() {}
-};
-#endif
-
 // One job: one piece (at most PS x PS cells) of one slab's tile footprint.
 struct Job {
   int i;    // index into ids
@@ -1198,46 +1169,17 @@ __device__ __forceinline__ long long cell_elem(const Job& j,
          (long long)(j.px + lx - c.x0) * c.pv.sc;
 }
 
-// march_loop's LIVE: whether it tracks the tile's live pixels (those that
-// can still accumulate): not at all (LIVE_NONE: M-bwd's pass 1, the SH
-// defaults, SG and ASG); to narrow each job to their footprint
-// (LIVE_NARROW: kernel M's SH option, RGBA and resume variants); or for a
-// probe build's cell counts alone (LIVE_TRACK: the march unnarrowed,
-// VT_TM_WIDE).
-constexpr int LIVE_NONE = 0, LIVE_NARROW = 1, LIVE_TRACK = 2;
-#ifdef VT_TM_CYCLES
-constexpr bool CLOCKED = true;
-#else
-constexpr bool CLOCKED = false;
-#endif
-
-// does cell i of job j (FX columns) lie in footprint f?
-__device__ __forceinline__ bool in_fp(const Footprint& f, const Job& j,
-                                      int i, int FX) {
-  const int ly = i / FX;
-  const int gy = j.py + ly, gx = j.px + i - ly * FX;
-  return gy >= f.y_lo && gy <= f.y_hi && gx >= f.x_lo && gx <= f.x_hi;
-}
-
 // queue the sigma words of job j (if ``has``) into ``slot`` and commit a
 // copy group (empty when there is no job, so that every job has one). Cell
 // i is copied, checked and shaded by thread i % NT only, so the ring needs
-// no barrier. Records hold D values, sigma last. LIVE_NARROW copies the
-// cells of footprint ``L`` alone; LIVE != LIVE_NONE counts into ``ct``.
-template <typename PT, int LIVE = LIVE_NONE>
+// no barrier. Records hold D values, sigma last.
+template <typename PT>
 __device__ __forceinline__ void issue(const Job& j, bool has,
                                       const MarchCtx& c, uint32_t* slot,
-                                      int D, const Footprint* L = nullptr,
-                                      CellTally* ct = nullptr) {
+                                      int D) {
   if (has) {
-    for (int i = c.tid; i < j.FY * j.FX; i += NT) {
-      if constexpr (LIVE != LIVE_NONE) ct->add(C_LISTED, 1);
-      if constexpr (LIVE == LIVE_NARROW) {
-        if (!in_fp(*L, j, i, j.FX)) continue;
-      }
+    for (int i = c.tid; i < j.FY * j.FX; i += NT)
       cp4(slot + i, word_of<PT>(c.pv.ptr, cell_elem(j, c, i, j.FX) + D - 1));
-      if constexpr (LIVE != LIVE_NONE) ct->add(C_STAGED, 1);
-    }
   }
   commit();
 }
@@ -1269,84 +1211,43 @@ __device__ __forceinline__ bool cell_live(float sig, const MarchCtx& c,
 // queue the colour records of job j's shaded cells (cell_live: this
 // thread's cells, whose sigma words have landed in ``ring_slot``) into its
 // slots of colour set ``set``, at most RSLOTS of them (the shading stages
-// any further one itself), and commit a copy group (empty without a job).
-// LIVE_NARROW queues the cells of footprint ``L`` alone (its shading
-// takes the same cells); LIVE != LIVE_NONE counts into ``ct``.
-template <class V, typename PT, int LIVE = LIVE_NONE>
-__device__ __forceinline__ void issue_colour(
-    const Job& j, bool has, const MarchCtx& c, const MarchSmem& sm,
-    const TrainOpt& o, const uint32_t* ring_slot, int set, float qsig, int D,
-    const Footprint* L = nullptr, CellTally* ct = nullptr) {
+// any further one itself), and commit a copy group (empty without a job)
+template <class V, typename PT>
+__device__ __forceinline__ void issue_colour(const Job& j, bool has,
+                                             const MarchCtx& c,
+                                             const MarchSmem& sm,
+                                             const TrainOpt& o,
+                                             const uint32_t* ring_slot,
+                                             int set, float qsig, int D) {
   if (has) {
     int k = 0;
     for (int i = c.tid; i < j.FY * j.FX && k < RSLOTS; i += NT) {
-      if constexpr (LIVE == LIVE_NARROW) {
-        if (!in_fp(*L, j, i, j.FX)) continue;
-      }
       const long long e = cell_elem(j, c, i, j.FX);
       if (cell_live<V>(sigma_of<PT>(ring_slot[i], e + D - 1) * qsig, c, o,
-                       j, i, j.FX)) {
+                       j, i, j.FX))
         stage_record<V, PT>(rec_slot_of<V::DMAX, PT>(c, sm, set, k++),
                             reinterpret_cast<const PT*>(c.pv.ptr) + e, D);
-        if constexpr (LIVE != LIVE_NONE) ct->add(C_QUEUED, 1);
-      }
     }
   }
   commit();
 }
 
-// ---- the live footprint (march_loop's LIVE_NARROW) -------------------------
+// ---- the live pixels (march_loop's NARROW) ---------------------------------
 // A pixel that cannot accumulate any more (T under stop_thresh, or its z
 // interval passed) never will, so the cells that only such pixels' spans
-// meet change nothing kernel M writes. Kernel M's narrowed variants keep
+// meet change nothing kernel M writes. Kernel M's narrowed variant keeps
 // the tile's live pixels as a mask (bit TX r + k: the pixel in row r and
 // column k; thread t's pixel is bit t), refreshed once a slab by a ballot,
-// and stage, queue and shade only the cells of the live footprint: the
-// footprint of the live pixels' bounding sub-rectangle (tile_footprint's,
-// with its +-1 cell margin), which holds every live pixel's span as the
-// tile's footprint holds every pixel's. Live sets only shrink, so a
-// footprint taken earlier holds a later one. Whether a job is shaded at
-// all the live pixels decide, each over its own span's cells.
+// and shades a piece only when a live pixel's own span holds a cell above
+// the threshold.
 
-// The tile as the narrowed variants see it: its first row and column and
+// The tile as the narrowed variant sees it: its first row and column and
 // the slope grid (params 3-6: row j's ray slope is u0 + du j, column k's
 // v0 + dv k).
 struct LiveTile {
   int j0, k0;
   float u0, du, v0, dv;
 };
-
-// ray slopes x G of the first and last row and column of the live pixels'
-// bounding sub-rectangle (as kernel M takes the tile's, so that a lone
-// live pixel's are its own)
-struct LiveSlopes {
-  float ua, ub, va, vb;
-};
-
-__device__ __forceinline__ LiveSlopes live_slopes(unsigned mask,
-                                                  const LiveTile& lt,
-                                                  float Gf) {
-  static_assert(TY * TX <= 32, "one ballot holds the tile's pixels");
-  constexpr unsigned ROW = TX >= 32 ? ~0u : (1u << TX) - 1u;
-  unsigned rows = 0, cols = 0;
-#pragma unroll
-  for (int r = 0; r < TY; ++r) {
-    const unsigned b = (mask >> (r * TX)) & ROW;
-    rows |= (unsigned)(b != 0u) << r;
-    cols |= b;
-  }
-  const int ja = lt.j0 + __ffs(rows) - 1, jb = lt.j0 + 31 - __clz(rows);
-  const int ka = lt.k0 + __ffs(cols) - 1, kb = lt.k0 + 31 - __clz(cols);
-  return {(lt.u0 + lt.du * (float)ja) * Gf, (lt.u0 + lt.du * (float)jb) * Gf,
-          (lt.v0 + lt.dv * (float)ka) * Gf, (lt.v0 + lt.dv * (float)kb) * Gf};
-}
-
-// the live footprint at the slab of centre z
-__device__ __forceinline__ Footprint live_fp(const MarchCtx& c,
-                                             const LiveSlopes& s, float z) {
-  return tile_footprint(c.cyG, c.cxG, z - c.hG - c.cz, z + c.hG - c.cz, s.ua,
-                        s.ub, s.va, s.vb, c.G, c.y0, c.yend, c.x0, c.xend);
-}
 
 // the payload element of the record of global cell (gy, gx) of job j's
 // slab
@@ -1371,68 +1272,12 @@ __device__ __forceinline__ bool passed_at(const MarchCtx& c, const Job& j) {
   return c.flip ? (j.z + c.hG < c.zlo) : (j.z - c.hG > c.zhi);
 }
 
-// The live set's shared state (kept out of the registers the shading
-// needs): the mask of each refresh, two by its parity (a thread reads the
-// newest after the barrier that follows the write, before the next write
-// but one); the slopes of the newest, which every thread writes alike
-// right after that barrier, before any thread reads them again; and the
-// live footprint of each ring stage's job, taken once as its sigma is
-// issued (every thread writes it alike; the job's reads end before the
-// barriers that precede the next write to its stage), which its colour
-// queue, its decision and its shading then share.
-struct LiveShared {
-  unsigned mask[2];
-  LiveSlopes ls;
-  Footprint fp[RING];
-};
-template <int LIVE>
-__device__ __forceinline__ LiveShared& live_shared() {
-  __shared__ LiveShared s;
+// The mask of each refresh, two by its parity: a thread reads the newest
+// after the barrier that follows the write, before the next write but one.
+template <bool NARROW>
+__device__ __forceinline__ unsigned* live_masks() {
+  __shared__ unsigned s[2];
   return s;
-}
-
-// The spans of the tile's pixel rows and columns at one slab (pixel_span's
-// cells, clipped to the tile's footprint f): a probe build's test of
-// whether a cell lies in a live pixel's span (the spans are separable: a
-// pixel's rows depend on its row alone, its columns on its column).
-struct SpanSet {
-  int ylo[TY], yhi[TY], xlo[TX], xhi[TX];
-};
-
-__device__ __forceinline__ SpanSet span_set(const MarchCtx& c,
-                                            const LiveTile& lt,
-                                            const Footprint& f, float z) {
-  SpanSet s;
-  const float s0 = z - c.hG - c.cz, s1 = z + c.hG - c.cz;
-#pragma unroll
-  for (int r = 0; r < TY; ++r) {
-    const float u = (lt.u0 + lt.du * (float)(lt.j0 + r)) * c.Gf;
-    const float p0 = c.cyG + s0 * u, p1 = c.cyG + s1 * u;
-    s.ylo[r] = max(cell_floor(fminf(p0, p1), 0, c.G - 1), f.y_lo);
-    s.yhi[r] = min(cell_floor(fmaxf(p0, p1), 0, c.G - 1), f.y_hi);
-  }
-#pragma unroll
-  for (int k = 0; k < TX; ++k) {
-    const float v = (lt.v0 + lt.dv * (float)(lt.k0 + k)) * c.Gf;
-    const float q0 = c.cxG + s0 * v, q1 = c.cxG + s1 * v;
-    s.xlo[k] = max(cell_floor(fminf(q0, q1), 0, c.G - 1), f.x_lo);
-    s.xhi[k] = min(cell_floor(fmaxf(q0, q1), 0, c.G - 1), f.x_hi);
-  }
-  return s;
-}
-
-// does cell (gy, gx) lie in the span of a pixel of ``mask``?
-__device__ __forceinline__ bool in_span(const SpanSet& s, unsigned mask,
-                                        int gy, int gx) {
-  unsigned cols = 0;
-#pragma unroll
-  for (int k = 0; k < TX; ++k)
-    cols |= (unsigned)(gx >= s.xlo[k] && gx <= s.xhi[k]) << k;
-  bool in = false;
-#pragma unroll
-  for (int r = 0; r < TY; ++r)
-    in |= gy >= s.ylo[r] && gy <= s.yhi[r] && ((mask >> (r * TX)) & cols);
-  return in;
 }
 
 // The training march's slab loop, shared by kernel M's training mode and
@@ -1468,20 +1313,16 @@ __device__ __forceinline__ bool in_span(const SpanSet& s, unsigned mask,
 // bbox (cell_live), by voxel_rgb_opt (SG and ASG: lobe_sums) with the
 // state ``opt``.
 //
-// LIVE_NARROW (kernel M's narrowed variants, tile ``lt``): the live mask
-// is refreshed at each slab's first job (warp 0's ballot before the
+// NARROW (kernel M's narrowed variant, tile ``lt``): the mask of the live
+// pixels is refreshed at each slab's first job (warp 0's ballot before the
 // decision's barrier, read by all after it), and the loop leaves when it
-// is empty (in place of the check above); each job's sigma is staged, its
-// colour queued and its cells shaded over its live footprint alone
-// (live_fp, taken once from the mask as its sigma is issued); the
-// decision is the live pixels' own, each over the cells its taps would
-// sum (a job with cells above the threshold only where frozen pixels look
-// is passed over after its barrier), and a pixel that cannot accumulate
-// sums no taps. Every live pixel sums the same cells in the same order
-// (the pieces are the same), so the output is bit-equal to the unnarrowed
-// loop's. LIVE_TRACK refreshes the mask for a probe build's cell counts
-// (CellTally) and narrows nothing.
-template <class V, typename PT, int LIVE = LIVE_NONE, typename OnSlab>
+// is empty (in place of the check above); the decision is the live
+// pixels' own, each over the cells its taps would sum, spread over the
+// warps (a job with cells above the threshold only where frozen pixels
+// look is passed over after its barrier), and a pixel that cannot
+// accumulate sums no taps. Every live pixel sums the same cells in the
+// same order, so the output is bit-equal to the unnarrowed loop's.
+template <class V, typename PT, bool NARROW = false, typename OnSlab>
 __device__ __forceinline__ void march_loop(const MarchCtx& c,
                                            const MarchSmem& sm,
                                            const float* s_qs,
@@ -1491,19 +1332,10 @@ __device__ __forceinline__ void march_loop(const MarchCtx& c,
                                            unsigned long long* counts,
                                            OnSlab&& on_slab,
                                            const LiveTile& lt = LiveTile{}) {
-  constexpr bool NARROW = LIVE == LIVE_NARROW;
-  constexpr bool TRACK = LIVE != LIVE_NONE;
-  // the live footprint narrows the staging, the queue and the shading (a
-  // probe build with VT_TM_DECIDE_ONLY keeps the narrowed decision alone)
-#ifdef VT_TM_DECIDE_ONLY
-  constexpr bool FPN = false;
-#else
-  constexpr bool FPN = NARROW;
-#endif
-  constexpr int FP_LIVE = FPN ? LIVE_NARROW : LIVE_TRACK;
-  static_assert(!NARROW || DC >= 1,
+  static_assert(!NARROW || (DC >= 1 && TY * TX <= 32),
                 "the narrowed decision reads the sigma other threads staged "
-                "at least one barrier before it");
+                "at least one barrier before it, and one ballot holds the "
+                "tile's pixels");
   constexpr int BD = V::BD;
   const int D = rec_dim<V>(opt);
   constexpr int CELLS = PS * PS;
@@ -1525,12 +1357,12 @@ __device__ __forceinline__ void march_loop(const MarchCtx& c,
     sm.rng[0] = c.n_ids;
     sm.rng[1] = 0;
   }
-  if constexpr (TRACK) {
+  if constexpr (NARROW) {
     // the pixels that can accumulate at all (T may be a resumed state's)
     if (warp == 0) {
       const unsigned m0 =
           __ballot_sync(0xffffffffu, valid && (T >= c.stop_thresh));
-      if (lane == 0) live_shared<LIVE>().mask[0] = m0;
+      if (lane == 0) live_masks<NARROW>()[0] = m0;
     }
   }
   __syncthreads();
@@ -1551,23 +1383,17 @@ __device__ __forceinline__ void march_loop(const MarchCtx& c,
   const int i0 = sm.rng[0], i1 = sm.rng[1];
   long long n_cnt[N_COUNTS] = {};
   long long* met = counts != nullptr ? n_cnt : nullptr;
-  [[maybe_unused]] unsigned mask = 0;  // the live pixels (TRACK)
+  [[maybe_unused]] unsigned mask = 0;  // the live pixels (NARROW)
   bool none = i0 >= i1;
-  if constexpr (TRACK) {
-    mask = live_shared<LIVE>().mask[0];
-    if constexpr (NARROW) none = none || mask == 0u;
+  if constexpr (NARROW) {
+    mask = live_masks<NARROW>()[0];
+    none = none || mask == 0u;
   }
   if (none) {
     clk.add(c.tid);
     add_counts(counts, c.tid, n_cnt);
     return;
   }
-  if constexpr (FPN) live_shared<LIVE>().ls = live_slopes(mask, lt, c.Gf);
-  [[maybe_unused]] bool refresh = false;  // the slab's mask is not read yet
-  [[maybe_unused]] int n_refresh = 0;
-  [[maybe_unused]] CellTally ct;
-  [[maybe_unused]] SpanSet spans;  // the slab's spans (the probe's counts)
-  [[maybe_unused]] PixelSpan dsp;  // NARROW: pixel ``lane``'s span
 
   // ---- the staged jobs, in rounds of the list, through the ring ----------
   // Each iteration n commits two copy groups: the sigma of job n + RING - 1
@@ -1581,22 +1407,9 @@ __device__ __forceinline__ void march_loop(const MarchCtx& c,
   slab.i = -1;
   PixelSpan sp;
   bool left = false;      // no pixel of the tile can still accumulate
-  // TRACK: the sigma of job j into ring stage r, and the colour records of
-  // job j into set ``set`` (the live footprint's cells alone where NARROW)
-  auto stage_sigma = [&](const Job& j, bool has, int r) {
-    Footprint f{};
-    if constexpr (FPN) {
-      f = live_fp(c, live_shared<LIVE>().ls, j.z);
-      live_shared<LIVE>().fp[r] = f;
-    }
-    issue<PT, FP_LIVE>(j, has, c, sm.ring + r * CELLS, D, &f, &ct);
-  };
-  auto queue_colour = [&](const Job& j, bool has, int r, int set) {
-    Footprint f{};
-    if constexpr (FPN) f = live_shared<LIVE>().fp[r];
-    issue_colour<V, PT, FP_LIVE>(j, has, c, sm, opt, sm.ring + r * CELLS,
-                                 set, qsig, D, &f, &ct);
-  };
+  [[maybe_unused]] bool refresh = false;  // the slab's mask is not read yet
+  [[maybe_unused]] int n_refresh = 0;
+  [[maybe_unused]] PixelSpan dsp;  // NARROW: pixel ``lane``'s span
   for (int i_cur = i0, p_cur = 0; i_cur < i1 && !left;) {
     clk.start();
     const int nj = build_list(c, sm, i_cur, p_cur, i1, i_cur, p_cur, met);
@@ -1604,10 +1417,7 @@ __device__ __forceinline__ void march_loop(const MarchCtx& c,
 #pragma unroll
     for (int r = 0; r < RING - 1; ++r) {
       if (r < nj) job_at(pj, c, sm.list[r]);
-      if constexpr (TRACK)
-        stage_sigma(pj, r < nj, r);
-      else
-        issue<PT>(pj, r < nj, c, sm.ring + r * CELLS, D);
+      issue<PT>(pj, r < nj, c, sm.ring + r * CELLS, D);
     }
     wait_n<0>();
     // NARROW: the first job's sigma is decided on by other threads than
@@ -1616,12 +1426,9 @@ __device__ __forceinline__ void march_loop(const MarchCtx& c,
 #pragma unroll
     for (int d = 0; d < DC; ++d) {
       if (d < nj) job_at(qj, c, sm.list[d]);
-      if constexpr (TRACK)
-        queue_colour(qj, d < nj, d % RING, d % (DC + 1));
-      else
-        issue_colour<V, PT>(qj, d < nj, c, sm, opt,
-                            sm.ring + (d % RING) * CELLS, d % (DC + 1), qsig,
-                            D);
+      issue_colour<V, PT>(qj, d < nj, c, sm, opt,
+                          sm.ring + (d % RING) * CELLS, d % (DC + 1), qsig,
+                          D);
     }
     clk.lap(LIST);
     for (int n = 0; n < nj; ++n) {
@@ -1652,34 +1459,27 @@ __device__ __forceinline__ void march_loop(const MarchCtx& c,
                              (lt.v0 + lt.dv * (float)pk) * c.Gf, c.G,
                              slab.f);
           }
+          refresh = true;
         }
-        if constexpr (TRACK) refresh = true;
       }
       clk.start();
       const int m = n + RING - 1, m2 = n + DC;
       if (m < nj) job_at(pj, c, sm.list[m]);
-      if constexpr (TRACK)
-        stage_sigma(pj, m < nj, m % RING);
-      else
-        issue<PT>(pj, m < nj, c, sm.ring + (m % RING) * CELLS, D);
+      issue<PT>(pj, m < nj, c, sm.ring + (m % RING) * CELLS, D);
       wait_n<2 * (RING - 1 - DC)>();  // S(n + DC) has landed
       if (m2 < nj) job_at(qj, c, sm.list[m2]);
-      if constexpr (TRACK)
-        queue_colour(qj, m2 < nj, m2 % RING, m2 % (DC + 1));
-      else
-        issue_colour<V, PT>(qj, m2 < nj, c, sm, opt,
-                            sm.ring + (m2 % RING) * CELLS, m2 % (DC + 1),
-                            qsig, D);
+      issue_colour<V, PT>(qj, m2 < nj, c, sm, opt,
+                          sm.ring + (m2 % RING) * CELLS, m2 % (DC + 1), qsig,
+                          D);
       clk.lap(QUEUE);
       const uint32_t* slot = sm.ring + (n % RING) * CELLS;
       const int FY = cons.FY, FX = cons.FX;
       bool above = false;
       if constexpr (NARROW) {
         // the live pixels (the mask) over the cells their taps would sum
-        // (their spans', whose sigma the live footprint staged; the copies
-        // of other threads landed before the last barrier), a pixel's
-        // cells spread over the warps: a job none of them finds above the
-        // threshold changes no live pixel
+        // (their spans'; the copies of other threads landed before the
+        // last barrier), a pixel's cells spread over the warps: a job none
+        // of them finds above the threshold changes no live pixel
         if ((mask >> lane) & 1u) {
           const int ya = max(dsp.ry_lo, cons.py);
           const int yb = min(dsp.ry_hi, cons.py + FY - 1);
@@ -1696,6 +1496,12 @@ __device__ __forceinline__ void march_loop(const MarchCtx& c,
                 c, opt, y, x);
           }
         }
+        if (refresh && warp == 0) {
+          const unsigned mk = __ballot_sync(
+              0xffffffffu, c.inpix && (c.zlo <= c.zhi) &&
+                               (T >= c.stop_thresh) && !passed_at(c, cons));
+          if (lane == 0) live_masks<NARROW>()[(n_refresh + 1) & 1] = mk;
+        }
       } else {
         for (int i = c.tid; i < FY * FX; i += NT)
           above |= cell_live<V>(
@@ -1703,29 +1509,15 @@ __device__ __forceinline__ void march_loop(const MarchCtx& c,
                   qsig,
               c, opt, cons, i, FX);
       }
-      if constexpr (TRACK) {
-        if (refresh && warp == 0) {
-          const unsigned mk = __ballot_sync(
-              0xffffffffu, c.inpix && (c.zlo <= c.zhi) &&
-                               (T >= c.stop_thresh) && !passed_at(c, cons));
-          if (lane == 0) live_shared<LIVE>().mask[(n_refresh + 1) & 1] = mk;
-        }
-      }
       const bool any = __syncthreads_or(above);
-      if constexpr (TRACK) {
+      if constexpr (NARROW) {
         if (refresh) {
           refresh = false;
-          ++n_refresh;
-          mask = live_shared<LIVE>().mask[n_refresh & 1];
-          if constexpr (NARROW) {
-            if (mask == 0u) {  // no pixel of the tile can accumulate
-              left = true;
-              break;
-            }
-            if constexpr (FPN)
-              live_shared<LIVE>().ls = live_slopes(mask, lt, c.Gf);
+          mask = live_masks<NARROW>()[++n_refresh & 1];
+          if (mask == 0u) {  // no pixel of the tile can accumulate
+            left = true;
+            break;
           }
-          if constexpr (CLOCKED) spans = span_set(c, lt, slab.f, cons.z);
         }
       }
       clk.lap(DECIDE);
@@ -1757,13 +1549,7 @@ __device__ __forceinline__ void march_loop(const MarchCtx& c,
         const long long e = cell_elem(cons, c, i, FX);
         const float sig = sigma_of<PT>(slot[i], e + D - 1) * qsig;
         float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
-        bool shade;
-        if constexpr (FPN)
-          shade = in_fp(live_shared<LIVE>().fp[n % RING], cons, i, FX) &&
-                  cell_live<V>(sig, c, opt, cons, i, FX);
-        else
-          shade = cell_live<V>(sig, c, opt, cons, i, FX);
-        if (shade) {
+        if (cell_live<V>(sig, c, opt, cons, i, FX)) {
           const PT* src = reinterpret_cast<const PT*>(c.pv.ptr) + e;
           const PT* rec;
           if (k < RSLOTS) {
@@ -1777,12 +1563,6 @@ __device__ __forceinline__ void march_loop(const MarchCtx& c,
           }
           ++k;
           const int ly = i / FX, lx = i - ly * FX;
-          if constexpr (TRACK && CLOCKED) {
-            const bool out = !in_span(spans, mask, cons.py + ly, cons.px + lx);
-            ct.add(C_SHADED, 1);
-            ct.add(C_SHADED_OUT, out);
-            if (k <= RSLOTS) ct.add(C_QUEUED_OUT, out);  // it was queued
-          }
           const float ycm =
               ((float)(cons.py + ly) + 0.5f) * (1.f / c.Gf) - c.cy;
           const float xcm =
@@ -1841,7 +1621,6 @@ __device__ __forceinline__ void march_loop(const MarchCtx& c,
     on_slab(slab, sp, make_float4(sw, rw, gw, bw));
     clk.lap(COMPOSITE);
   }
-  if constexpr (TRACK) ct.flush();
   clk.add(c.tid);
   add_counts(counts, c.tid, n_cnt);
 }
@@ -1969,15 +1748,5 @@ extern "C" int vt_train_blocks(unsigned long long* cycles,
   if (e == cudaSuccess) e = cudaGetSymbolAddress(&dev, tmarch::block_jobs);
   if (e == cudaSuccess) e = cudaMemset(dev, 0, bytes);
   return (int)e;
-}
-
-// The cell counts (tmarch::CellCount, N_CELLS of them) into ``out``
-// (host), then clear them.
-extern "C" int vt_train_cells(unsigned long long* out) {
-  cudaError_t e =
-      cudaMemcpyFromSymbol(out, tmarch::cells, sizeof(tmarch::cells));
-  if (e != cudaSuccess) return (int)e;
-  const unsigned long long zero[tmarch::N_CELLS] = {};
-  return (int)cudaMemcpyToSymbol(tmarch::cells, zero, sizeof(zero));
 }
 #endif

@@ -76,8 +76,7 @@ __all__ = ["march_slabs", "march_slabs_ref", "march_slabs_bwd",
            "march_slabs_bwd_ref", "march_bwd_inputs", "march_occupancy",
            "MarchMode", "train_variant", "train_lib",
            "march_occupancy_ref", "march_occupancy_live_ref", "LiveBits",
-           "display_config", "march_slab_ids", "live_footprint",
-           "TRAIN_TILE"]
+           "display_config", "march_slab_ids", "TRAIN_TILE"]
 
 _F32 = torch.float32
 #: the training mode's payload dtypes: the default trainer's f32 bake and
@@ -1083,11 +1082,12 @@ def march_slabs_ref(gplanar, qscale, params, zb, wins: Sequence[int],
     params[30]; ``acc_init`` (P, 4, gi, gi) is the accumulator each pose
     starts from (None: rgb 0, T 1).
 
-    ``narrow`` applies the rule of kernel M's narrowed training variants
-    (``live_footprint``): each TRAIN_TILE tile of pixels warps the slab
-    with the cells outside its live footprint zeroed (a tile with no live
-    pixel warps none); the output is the same function's. ``stats`` (a
-    dict) then receives the counts ``narrowed_warp`` adds up."""
+    ``narrow`` applies the rule of kernel M's narrowed training
+    instantiation (the SH option variant launched with a bbox): each
+    TRAIN_TILE tile of pixels warps a slab only when one of its pixels that
+    can still accumulate finds a shaded cell in its span (``live_warp``);
+    the output is the same function's. ``stats`` (a dict) then receives the
+    counts ``live_warp`` adds up."""
     dev = gplanar.device
     Gz, Dp, Gy, Gx = gplanar.shape
     P = params.shape[0]
@@ -1172,9 +1172,9 @@ def march_slabs_ref(gplanar, qscale, params, zb, wins: Sequence[int],
                 if narrow:
                     live = ((T >= stop_thresh) & (zlo <= zhi)
                             & ((z + hG >= zlo) if flip else (z - hG <= zhi)))
-                    warped = narrowed_warp(prm, G, gi, z, live, chans, m_r,
-                                           m_c, (y0, y0 + Gy - 1, x0,
-                                                 x0 + Gx - 1), stats)
+                    warped = live_warp(prm, G, gi, z, live, chans, m_r, m_c,
+                                       (y0, y0 + Gy - 1, x0, x0 + Gx - 1),
+                                       stats)
                 else:
                     warped = m_r @ chans @ m_c.T                # (C,gi,gi)
                 sig_w = warped[0]
@@ -1196,7 +1196,7 @@ def march_slabs_ref(gplanar, qscale, params, zb, wins: Sequence[int],
 
 
 # ---------------------------------------------------------------------------
-# Kernel M's narrowed training variants: the live footprint
+# Kernel M's narrowed training instantiation: the live pixels' decision
 # ---------------------------------------------------------------------------
 
 #: kernel M's training tile, pixel rows and columns (tmarch::TY, TX in
@@ -1216,72 +1216,45 @@ def _span(c0G, slope_G, s0, s1, G: int, lo: int, hi: int):
             min(_cell_floor(max(p0, p1), 0, G - 1), hi))
 
 
-def _slopes(prm, G: int):
-    """Row and column ray slope x G of pixel index j, as the kernels take
-    them (f32): (u0 + du j) G, (v0 + dv k) G."""
-    u0, du, v0, dv = (np.float32(prm[i]) for i in range(3, 7))
-    Gf = np.float32(G)
-    return (lambda j: (u0 + du * np.float32(j)) * Gf,
-            lambda k: (v0 + dv * np.float32(k)) * Gf)
-
-
-def tile_footprint(prm, G: int, rows, cols, z, crop):
-    """tile_footprint (csrc/slab_common.cuh) of the pixels in rows
-    [rows[0], rows[1]] and columns [cols[0], cols[1]] at the slab of centre
-    ``z``: the cells (y_lo, y_hi, x_lo, x_hi) their spans can meet, with a
-    cell of margin on each side for rounding, clipped to ``crop`` (y_lo,
-    y_hi, x_lo, x_hi)."""
+def _tile_cells(prm, G: int, rows, cols, z, crop):
+    """The cells (y_lo, y_hi, x_lo, x_hi) the spans of the pixels in rows
+    [rows[0], rows[1]] and columns [cols[0], cols[1]] can meet at the slab
+    of centre ``z`` (the kernels' tile footprint: a cell of margin on each
+    side for rounding), clipped to ``crop`` (y_lo, y_hi, x_lo, x_hi)."""
     f32 = np.float32
     cz, cy, cx = (f32(prm[i]) for i in range(3))
+    u0, du, v0, dv = (f32(prm[i]) for i in range(3, 7))
     Gf, hG = f32(G), f32(0.5) / f32(G)
     s0, s1 = f32(z) - hG - cz, f32(z) + hG - cz
-    uj, vk = _slopes(prm, G)
-    ys = [cy * Gf + s * uj(j) for s in (s0, s1) for j in rows]
-    xs = [cx * Gf + s * vk(k) for s in (s0, s1) for k in cols]
+    ys = [cy * Gf + s * (u0 + du * f32(j)) * Gf for s in (s0, s1)
+          for j in rows]
+    xs = [cx * Gf + s * (v0 + dv * f32(k)) * Gf for s in (s0, s1)
+          for k in cols]
     return (max(_cell_floor(min(ys), 0, G - 1) - 1, crop[0]),
             min(_cell_floor(max(ys), 0, G - 1) + 1, crop[1]),
             max(_cell_floor(min(xs), 0, G - 1) - 1, crop[2]),
             min(_cell_floor(max(xs), 0, G - 1) + 1, crop[3]))
 
 
-def live_footprint(prm, G: int, live, j0: int, k0: int, z, crop):
-    """The live footprint of kernel M's narrowed training variants (the SH
-    options, RGBA and resume; ``live_fp`` in csrc/slab_common.cuh): for
-    the tile whose first pixel is (j0, k0), with ``live`` the (rows, cols)
-    mask of its pixels that can still accumulate (on the grid, T >=
-    stop_thresh, the z interval not passed), the tile_footprint of their
-    bounding sub-rectangle at the slab of centre ``z``; None when no pixel
-    is live. A pixel that cannot accumulate never will, so only the cells
-    of this footprint change what the tile writes."""
-    live = np.asarray(live, bool)
-    if not live.any():
-        return None
-    rows = np.nonzero(live.any(1))[0]
-    cols = np.nonzero(live.any(0))[0]
-    return tile_footprint(prm, G, (j0 + rows[0], j0 + rows[-1]),
-                          (k0 + cols[0], k0 + cols[-1]), z, crop)
-
-
-def narrowed_warp(prm, G: int, gi: int, z, live, chans, m_r, m_c, crop,
-                  stats: Optional[dict] = None):
-    """One slab's warp (C, gi, gi) as kernel M's narrowed variants sum it:
-    tile by tile (TRAIN_TILE), the shaded cells ``chans`` (C, Gy, Gx) of the
-    crop outside the tile's live footprint zeroed (live_footprint, of the
-    (gi, gi) mask ``live``), then the overlap matrices m_r (gi, Gy) and m_c
-    (gi, Gx); a tile without a live pixel, or whose live pixels' spans hold
-    no shaded cell (the kernel's decision), warps nothing. ``stats`` adds
-    up the live pixels (``live_pixels``), those whose span at the slab (its
-    cells in the tile's footprint, as the kernel sums them) the live
-    footprint does not hold (``spans_outside``: 0 for the rule to be
-    exact), the tiles passed over by the decision (``tiles_passed_over``),
-    the cells with a shaded sigma and those of them left out
+def live_warp(prm, G: int, gi: int, z, live, chans, m_r, m_c, crop,
+              stats: Optional[dict] = None):
+    """One slab's warp (C, gi, gi) of the shaded cells ``chans`` (C, Gy, Gx)
+    of the crop through the overlap matrices m_r (gi, Gy) and m_c (gi, Gx),
+    tile by tile (TRAIN_TILE) as kernel M's narrowed instantiation decides:
+    a tile warps the slab only when a pixel of the (gi, gi) mask ``live``
+    (those that can still accumulate) finds a shaded cell in its span (the
+    cells its taps sum: its ray's, clipped to the tile's cells). A pixel
+    that cannot accumulate never will, so a tile passed over changes
+    nothing the march writes. ``stats`` adds up the tiles with a live pixel
+    (``tiles_live``), those passed over (``tiles_passed_over``), and the
+    shaded cells of the tiles' cells and those of them left unshaded
     (``cells_shaded``, ``cells_left_out``)."""
     TY, TX = TRAIN_TILE
     f32 = np.float32
     cz, cy, cx = (f32(prm[i]) for i in range(3))
+    u0, du, v0, dv = (f32(prm[i]) for i in range(3, 7))
     Gf, hG = f32(G), f32(0.5) / f32(G)
     s0, s1 = f32(z) - hG - cz, f32(z) + hG - cz
-    uj, vk = _slopes(prm, G)
     y0, x0 = crop[0], crop[2]
     live_np = live.cpu().numpy()
     sig_np = (chans[0] != 0).cpu().numpy()
@@ -1292,40 +1265,27 @@ def narrowed_warp(prm, G: int, gi: int, z, live, chans, m_r, m_c, crop,
         for k0 in range(0, gi, TX):
             j1, k1 = min(j0 + TY, gi), min(k0 + TX, gi)
             lv = live_np[j0:j1, k0:k1]
-            f = live_footprint(prm, G, lv, j0, k0, z, crop)
-            if f is None:
+            if not lv.any():
                 continue
-            tile = tile_footprint(prm, G, (j0, j1 - 1), (k0, k1 - 1), z, crop)
+            st["tiles_live"] = st.get("tiles_live", 0) + 1
+            tile = _tile_cells(prm, G, (j0, j1 - 1), (k0, k1 - 1), z,
+                               crop)
             seen = False  # a live pixel's span holds a shaded cell
             for j, k in zip(*np.nonzero(lv)):
-                ry = _span(cy * Gf, uj(j0 + j), s0, s1, G, tile[0], tile[1])
-                rx = _span(cx * Gf, vk(k0 + k), s0, s1, G, tile[2], tile[3])
-                # an empty span (a > b) sums nothing
-                inside = (ry[0] > ry[1] or rx[0] > rx[1]
-                          or (f[0] <= ry[0] and ry[1] <= f[1]
-                              and f[2] <= rx[0] and rx[1] <= f[3]))
-                st["live_pixels"] = st.get("live_pixels", 0) + 1
-                st["spans_outside"] = (st.get("spans_outside", 0)
-                                       + (not inside))
+                ry = _span(cy * Gf, (u0 + du * f32(j0 + j)) * Gf, s0, s1, G,
+                           tile[0], tile[1])
+                rx = _span(cx * Gf, (v0 + dv * f32(k0 + k)) * Gf, s0, s1, G,
+                           tile[2], tile[3])
                 seen = seen or bool(sig_np[ry[0] - y0:ry[1] - y0 + 1,
                                            rx[0] - x0:rx[1] - x0 + 1].any())
-            keep = torch.zeros(chans.shape[1:], dtype=torch.bool,
-                               device=chans.device)
-            keep[max(f[0] - y0, 0):max(f[1] - y0 + 1, 0),
-                 max(f[2] - x0, 0):max(f[3] - x0 + 1, 0)] = seen
-            # the cells of the tile's footprint the unnarrowed kernel shades
-            ty0, tx0 = max(tile[0] - y0, 0), max(tile[2] - x0, 0)
-            ty1, tx1 = max(tile[1] - y0 + 1, 0), max(tile[3] - x0 + 1, 0)
-            shaded = sig_np[ty0:ty1, tx0:tx1]
-            st["cells_shaded"] = st.get("cells_shaded", 0) + int(
-                shaded.sum())
-            st["cells_left_out"] = st.get("cells_left_out", 0) + int(
-                (shaded & ~keep[ty0:ty1, tx0:tx1].cpu().numpy()).sum())
+            shaded = int(sig_np[tile[0] - y0:tile[1] - y0 + 1,
+                                tile[2] - x0:tile[3] - x0 + 1].sum())
+            st["cells_shaded"] = st.get("cells_shaded", 0) + shaded
             if not seen:
                 st["tiles_passed_over"] = st.get("tiles_passed_over", 0) + 1
+                st["cells_left_out"] = st.get("cells_left_out", 0) + shaded
                 continue
-            ch = torch.where(keep[None], chans, 0.0)
-            out[:, j0:j1, k0:k1] = m_r[j0:j1] @ ch @ m_c[k0:k1].T
+            out[:, j0:j1, k0:k1] = m_r[j0:j1] @ chans @ m_c[k0:k1].T
     return out
 
 

@@ -32,23 +32,22 @@ trainer's bf16 cast and writes a bf16 cotangent. Each is baked by its own
 ``FrameTrainer``. For each case and build it times kernel M
 and M-bwd on pose 0, splits M-bwd into pass 1, pass 2 and the cotangent
 buffer's fill (torch.profiler), reads thread 0's cycles by part of the loop
-from a ``-DVT_TM_CYCLES`` build with each block's loop cycles (``m_blocks``:
-mean, 99th percentile, slowest and its tile) and, for kernel M's narrowed
-variants (the SH options and RGBA), its cell counts (``m_cells``: the cells
-of the pieces run, staged, queued and shaded, and the queued and shaded ones
-outside every live pixel's span at their slab), and reads every launch's
-registers, local bytes and blocks per SM (``vt_march_slabs_info``,
-``vt_march_slabs_bwd_info``), and the device memory M-bwd's call holds above
-what was allocated before it (``bwd_alloc_mib``: its output and its
-buffers). For those variants a ``-DVT_TM_WIDE`` clock build marches them
-unnarrowed, as the parent does, and counts the same cells (case row
-``wide``). Both kernels' outputs are held to the port's plain versions
+from a ``-DVT_TM_CYCLES`` build with each block's loop cycles and jobs
+(``m_blocks``: the cycles' mean, 99th percentile and slowest, the slowest
+block's tile, its pieces run and shaded and its cycles a piece), and reads
+every launch's registers, local bytes and blocks per SM
+(``vt_march_slabs_info``, ``vt_march_slabs_bwd_info``; ``SH<n>-opt-bbox``
+the narrowed instantiation a launch with a bbox takes), and the device
+memory M-bwd's call holds above what was allocated before it
+(``bwd_alloc_mib``: its output and its buffers). Both kernels' outputs are
+held to the port's plain versions
 (``march_slabs_ref``, ``march_slabs_bwd_ref``) at chip_smoke.py's tolerances.
 ``--parent DIR`` builds the same two sources of another checkout (an unpacked
 parent; the C entry points must be the same) and times it in turns with this
 one: parent, change, change, parent; kernel M's outputs are compared with the
 parent's bit for bit (``m_bit_equal_parent``) and every library's SASS
-function by function (``sass``); ``--alt FLAGS`` builds this checkout again
+function by function (``sass``); ``--builds parent`` times the parent alone
+(before a change runs on the card); ``--alt FLAGS`` builds this checkout again
 with extra nvcc flags (a build-time alternative a source reads as a macro;
 several separated by ``;``) and times each between them. Each build's
 instantiations in the libraries the cases need (the SH defaults, SH with
@@ -100,17 +99,12 @@ _LIB_NAMES = ("slab_march", "slab_march_bwd")
 #: the parts of tmarch::Clock, then the loop's cycles summed and largest
 _PARTS = ("queue", "decide", "shade", "taps", "composite", "list",
           "loop_sum", "loop_max")
-#: tmarch::CellCount: the cells of the pieces run, staged, the records
-#: queued ahead and those outside every live pixel's span at their slab,
-#: the cells shaded and those outside every live pixel's span
-_CELLS = ("listed", "staged", "queued", "queued_out", "shaded",
-          "shaded_out")
 
 
 def _load(path, name: str, clock: bool) -> ctypes.CDLL:
     """A probe build's library ``name`` at ``path``, its entries typed (a
     clock build's readers too, where it has them: an older checkout's
-    build may lack the per-block and cell readers)."""
+    build may lack the per-block reader)."""
     lib = ctypes.CDLL(str(path))
     for fn, argtypes in kernels.SOURCES[name][1].items():
         getattr(lib, fn).argtypes = argtypes
@@ -121,8 +115,7 @@ def _load(path, name: str, clock: bool) -> ctypes.CDLL:
         for fn, argtypes in (("vt_train_cycles", [ctypes.c_void_p]),
                              ("vt_train_blocks",
                               [ctypes.c_void_p, ctypes.c_void_p,
-                               ctypes.c_int]),
-                             ("vt_train_cells", [ctypes.c_void_p])):
+                               ctypes.c_int])):
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
@@ -214,23 +207,6 @@ def _blocks(lib, gi: int, P: int, tile=(4, 8)) -> Optional[dict]:
                         "cycles_a_job": float(a[i]) / max(run[i], 1.0)},
             "jobs_run_mean": float(run.mean()), "jobs_run_max": int(run.max()),
             "jobs_shaded_mean": float(shaded.mean())}
-
-
-def _cells(lib) -> Optional[dict]:
-    """The last launch's cell counts (tmarch::CellCount; read and cleared)
-    with the shares of the queued and the shaded ones outside every live
-    pixel's span at their slab, and of the listed cells left unstaged;
-    None for a build without them."""
-    if not hasattr(lib, "vt_train_cells"):
-        return None
-    out = (ctypes.c_ulonglong * len(_CELLS))()
-    torch.cuda.synchronize()
-    kernels.check(lib.vt_train_cells(out), "slab_march")
-    n = dict(zip(_CELLS, (int(v) for v in out)))
-    n["queued_out_share"] = n["queued_out"] / max(n["queued"], 1)
-    n["shaded_out_share"] = n["shaded_out"] / max(n["shaded"], 1)
-    n["unstaged_share"] = 1.0 - n["staged"] / max(n["listed"], 1)
-    return n
 
 
 def _bench_tree(dev):
@@ -366,11 +342,11 @@ _TOL_M, _TOL_BWD = 1e-3, {torch.float32: 1e-3, torch.bfloat16: 4e-3}
 
 
 def start_checkout(root: str, tag: str, flags=(), clock=True,
-                   sets=(0, 1, 2), plain=True) -> list:
+                   sets=(0, 1, 2)) -> list:
     """Start compiling the training pair of the checkout at ``root`` (its
     ``volrend_torch/csrc``, with the extra nvcc ``flags``) as the
-    _CASE_LIBS of the VT_TRAIN_SET ``sets``, each without (``plain``) and
-    with (``clock``) the clock (``-DVT_TM_CYCLES``), one nvcc each, into
+    _CASE_LIBS of the VT_TRAIN_SET ``sets``, each without and (``clock``)
+    with the clock (``-DVT_TM_CYCLES``), one nvcc each, into
     ``build/volrend_torch/train_march/<tag>/``; ``finish_checkout`` waits
     for them."""
     from pathlib import Path
@@ -378,7 +354,7 @@ def start_checkout(root: str, tag: str, flags=(), clock=True,
     out_dir = kernels.build_dir() / "train_march" / tag
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = []
-    for clock in (False,) * plain + (True,) * clock:
+    for clock in (False, True) if clock else (False,):
         for name, tset in _CASE_LIBS:
             if tset not in sets:
                 continue
@@ -406,16 +382,9 @@ def finish_checkout(procs: list) -> dict:
     return libs
 
 
-def build_checkout(root: str, tag: str, flags=(), clock=True,
-                   sets=(0, 1, 2), plain=True) -> dict:
-    """``start_checkout`` and ``finish_checkout``: {clock: {library:
-    CDLL}}."""
-    return finish_checkout(start_checkout(root, tag, flags, clock, sets,
-                                          plain))
-
-
-#: the library of kernel M's narrowed variants, whose clock build
-#: chip_smoke.py's phase 12b reads (start_probe_build)
+#: the library of kernel M's SH option and RGBA variants (and the narrowed
+#: instantiation), whose clock build chip_smoke.py's phase 12b reads
+#: (start_probe_build)
 PROBE_LIB = "slab_march_opt"
 
 
@@ -453,19 +422,18 @@ def load_probe_build(started) -> ctypes.CDLL:
 
 
 def probe_launch(lib, fwd, gi: int, P: int) -> dict:
-    """One launch of ``fwd`` (kernel M's training mode, a narrowed variant)
+    """One launch of ``fwd`` (kernel M's training mode, an option variant)
     on the clock build ``lib`` of PROBE_LIB: its output, thread 0's cycles
-    by part, each block's loop cycles and the cell counts (_blocks,
-    _cells)."""
+    by part, and each block's loop cycles and jobs (_blocks)."""
     with _standing_in({PROBE_LIB: lib}):
-        _cycles(lib), _blocks(lib, gi, P), _cells(lib)  # cleared
+        _cycles(lib), _blocks(lib, gi, P)  # cleared
         acc = fwd()
         return {"acc": acc, "cycles": _cycles(lib),
-                "blocks": _blocks(lib, gi, P), "cells": _cells(lib)}
+                "blocks": _blocks(lib, gi, P)}
 
 
 def sass_compare(parent: dict, change: dict) -> dict:
-    """The SASS of two builds' libraries (``build_checkout``'s CDLLs
+    """The SASS of two builds' libraries (``finish_checkout``'s CDLLs
     without the clock), function by function (cuobjdump, as
     probes/display_sass reads it): per library, the functions equal and
     those that differ or are missing from one build. Kernel M's narrowed
@@ -564,26 +532,30 @@ def _parts(fn, tag: str):
     return None
 
 
-def _info(libs: dict, fmt: int, bd: int, f32: bool, opt: bool) -> dict:
-    """The launches of an instantiation (format ``fmt``, option variant or
-    not) in ``libs``."""
-    suffix = _SET_SUFFIX[2 if fmt in (2, 3) else int(opt)]
+def _info(libs: dict, fmt: int, bd: int, f32: bool, opt: int) -> dict:
+    """The launches of an instantiation (format ``fmt``; ``opt`` 0 the
+    default, 1 the option variant, 3 its narrowed instantiation, which a
+    launch with a bbox takes and M-bwd does not have) in ``libs``."""
+    suffix = _SET_SUFFIX[2 if fmt in (2, 3) else int(bool(opt))]
     fwd = libs["slab_march" + suffix]
     bwd = libs["slab_march_bwd" + suffix]
     m = (ctypes.c_int * 11)()
     b = (ctypes.c_int * 7)()
     args = (bd, int(f32), fmt, int(opt))
     kernels.check(fwd.vt_march_slabs_info(*args, m), "slab_march")
-    kernels.check(bwd.vt_march_slabs_bwd_info(*args, b), "slab_march_bwd")
     keys = ("blocks_per_sm", "regs", "local_bytes", "smem")
+    if opt == 3:
+        return {"M": dict(zip(keys, m[:4]))}
+    kernels.check(bwd.vt_march_slabs_bwd_info(*args, b), "slab_march_bwd")
     return {"M": dict(zip(keys, m[:4])), "pass1": dict(zip(keys, b[:4])),
             "pass2": dict(zip(keys[:3], b[4:]))}
 
 
 def _info_or_none(libs: dict, fmt: int, bd: int, f32: bool,
-                  opt: bool) -> Optional[dict]:
-    """_info, or None for an instantiation whose block needs more shared
-    memory than the card gives one (an --alt build's)."""
+                  opt: int) -> Optional[dict]:
+    """_info, or None for an instantiation the build refuses: one whose
+    block needs more shared memory than the card gives one (an --alt
+    build's), or one it does not have (a parent's narrowed ones)."""
     try:
         return _info(libs, fmt, bd, f32, opt)
     except RuntimeError as e:
@@ -595,30 +567,30 @@ def _info_or_none(libs: dict, fmt: int, bd: int, f32: bool,
 def variant_info(libs: dict) -> dict:
     """A build's instantiations by bound and payload (_info_or_none), keyed
     as probes/train_info.py keys them, of the libraries it holds: the SH
-    defaults, SH with options and RGBA, SG and ASG by lobe bound."""
+    defaults, SH with options (and their narrowed instantiations, kernel M
+    alone: ``-opt-bbox``) and RGBA, SG and ASG by lobe bound."""
     out = {}
     for f32 in (True, False):
         pay = "f32" if f32 else "bf16"
         if "slab_march_opt" in libs:
-            out[f"RGBA-{pay}"] = _info_or_none(libs, 0, -1, f32, True)
+            out[f"RGBA-{pay}"] = _info_or_none(libs, 0, -1, f32, 1)
         for bound in (1, 4, 9, 16, 25):
-            for name, fmt, opt in (("SH", 1, False), ("SH", 1, True),
-                                   ("SG", 2, True), ("ASG", 3, True)):
+            for name, fmt, opt in (("SH", 1, 0), ("SH", 1, 1), ("SH", 1, 3),
+                                   ("SG", 2, 1), ("ASG", 3, 1)):
                 if bound == 1 and fmt > 1:
                     continue
-                suffix = _SET_SUFFIX[2 if fmt > 1 else int(opt)]
+                suffix = _SET_SUFFIX[2 if fmt > 1 else int(bool(opt))]
                 if "slab_march" + suffix not in libs:
                     continue
-                key = (f"SH{bound}{'-opt' if opt else ''}" if fmt == 1
-                       else f"{name}<={bound}")
+                key = (f"SH{bound}{('', '-opt', '', '-opt-bbox')[opt]}"
+                       if fmt == 1 else f"{name}<={bound}")
                 out[f"{key}-{pay}"] = _info_or_none(libs, fmt, bound, f32,
                                                     opt)
     return out
 
 
-#: the builds --cases can time: this checkout's, the parent's, and this
-#: checkout's narrowed variants marched unnarrowed (VT_TM_WIDE)
-BUILDS = ("change", "parent", "wide")
+#: the builds --cases can time: this checkout's and the parent's
+BUILDS = ("change", "parent")
 
 
 def run_cases(dev, cases, parent=None, alt=None, only=BUILDS) -> dict:
@@ -636,17 +608,11 @@ def run_cases(dev, cases, parent=None, alt=None, only=BUILDS) -> dict:
         started["change"] = start_checkout(c._ROOT, "change", sets=sets)
     if parent is not None and "parent" in only:
         started["parent"] = start_checkout(parent, "parent", sets=sets)
-    if "wide" in only and 1 in sets:
-        # the narrowed variants marched unnarrowed (the parent's march),
-        # with the clock and the live set tracked for the cell counts
-        started["wide"] = start_checkout(c._ROOT, "wide", ("-DVT_TM_WIDE",),
-                                         sets=(1,), plain=False)
     for i, flags in enumerate(alts):
         started[f"alt{i}"] = start_checkout(c._ROOT, f"alt{i}",
                                             flags.split(), clock=False,
                                             sets=sets)
     builds = {t: finish_checkout(p) for t, p in started.items()}
-    wide = builds.pop("wide", {}).get(True)
     tags = [t for t in ("parent", "change") if t in builds] + [
         f"alt{i}" for i in range(len(alts))]
     order = tags + tags[::-1] if len(tags) > 1 else tags
@@ -724,8 +690,15 @@ def run_cases(dev, cases, parent=None, alt=None, only=BUILDS) -> dict:
                 row["bwd_rel_l2"] = float((g - g_p).norm() / g_p.norm())
                 del g
                 row["parts_ms"] = _parts(bwd, f"{case} M-bwd ({tag})")
-                row["info"] = _info(libs[False], cfg.fmt, bd,
-                                    dt == torch.float32, mode.options(bd))
+                f32 = dt == torch.float32
+                row["info"] = _info(libs[False], cfg.fmt, bd, f32,
+                                    int(mode.options(bd)))
+                if cfg.fmt == 1 and not mode.bbox_full:
+                    # kernel M's launch takes the narrowed instantiation
+                    # where the build has one
+                    live = _info_or_none(libs[False], 1, bd, f32, 3)
+                    if live is not None:
+                        row["info"]["M"] = live["M"]
             if (row["bwd_rel_l2"] > _TOL_BWD[dt] or row["m_max_diff"]
                     > float(cfg.opt.stop_thresh) + _TOL_M):
                 raise RuntimeError(f"train_march {case} ({tag}) disagrees "
@@ -740,7 +713,6 @@ def run_cases(dev, cases, parent=None, alt=None, only=BUILDS) -> dict:
                 lib = libs[True]["slab_march" + suffix]
                 row["m_cycles"] = _cycles(lib)
                 row["m_blocks"] = _blocks(lib, GI, 1)
-                row["m_cells"] = _cells(lib)
                 row["m_counts"] = cnt.tolist()
                 cnt.zero_()
                 bwd(cnt)
@@ -752,18 +724,6 @@ def run_cases(dev, cases, parent=None, alt=None, only=BUILDS) -> dict:
             if tag != "parent" and "parent" in outs:
                 rows[tag]["m_bit_equal_parent"] = bool(
                     torch.equal(outs[tag], outs["parent"]))
-        if wide is not None and _case_set(spec) == 1:
-            # the parent's march with its cells counted (VT_TM_WIDE)
-            with _standing_in(wide):
-                cnt = torch.zeros(slab_march.N_COUNTS, dtype=torch.int64,
-                                  device=dev)
-                acc_w = fwd(cnt)
-                lib = wide["slab_march_opt"]
-                rows["wide"] = {
-                    "m_cycles": _cycles(lib), "m_blocks": _blocks(lib, GI, 1),
-                    "m_cells": _cells(lib), "m_counts": cnt.tolist(),
-                    "m_bit_equal": {t: bool(torch.equal(acc_w, o))
-                                    for t, o in outs.items()}}
         for tag, row in rows.items():
             c.log(f"train_march {case} ({tag}): {json.dumps(row)}")
         out[case] = rows
