@@ -204,7 +204,7 @@ def _blocks(lib, gi: int, P: int, tile=(4, 8)) -> Optional[dict]:
             "slowest": {"pose": p, "rows": [by * ty, by * ty + ty - 1],
                         "cols": [bx * tx, bx * tx + tx - 1],
                         "jobs_run": int(run[i]), "jobs_shaded": int(shaded[i]),
-                        "cycles_a_job": float(a[i]) / max(run[i], 1.0)},
+                        "cycles_a_job": float(a[i]) / max(float(run[i]), 1.0)},
             "jobs_run_mean": float(run.mean()), "jobs_run_max": int(run.max()),
             "jobs_shaded_mean": float(shaded.mean())}
 
