@@ -2872,9 +2872,8 @@ def train_lobe_infos(kernels) -> dict:
 
 
 #: kernel M's local bytes a thread in every SH option and RGBA
-#: instantiation before the SH option variant took a narrowed one for
-#: launches with a bbox (commit bb0fdfb, NVIDIA H100 80GB HBM3;
-#: probes/train_info.py): its counts
+#: instantiation (commit bb0fdfb, NVIDIA H100 80GB HBM3;
+#: probes/train_info.py): the launch's counts
 OPT_M_PARENT_LOCAL = 40
 
 
@@ -2883,12 +2882,9 @@ def train_opt_infos(kernels) -> dict:
     kernel M's training mode and M-bwd (SH1-SH25 with options, RGBA; f32
     and bf16 payloads): registers, local bytes and blocks per SM, each
     logged beside the SH default's of the same bound and payload (RGBA's
-    records, D = 4, beside SH1's), and kernel M's narrowed SH option
-    instantiations (opt 3: a launch with a bbox takes them) beside the
-    option variant's. Fails if M-bwd's pass 1 takes more local bytes than
-    that SH default or its pass 2 takes any, kernel M more than before
-    (OPT_M_PARENT_LOCAL), or the narrowed instantiation holds fewer blocks
-    an SM than the option variant."""
+    records, D = 4, beside SH1's). Fails if M-bwd's pass 1 takes more local
+    bytes than that SH default or its pass 2 takes any, or kernel M more
+    than OPT_M_PARENT_LOCAL."""
     out = {}
     parts = ("M", "M-bwd pass 1", "M-bwd pass 2")
     for f32 in (1, 0):
@@ -2914,35 +2910,7 @@ def train_opt_infos(kernels) -> dict:
                      f"bytes than SH{sh_bd}'s {limit}, its pass 2 takes "
                      f"any, or kernel M more than {OPT_M_PARENT_LOCAL}: "
                      f"{out[key]}")
-            if not rgba:
-                live = train_live_info(kernels, bound, f32)
-                out[key]["M narrowed"] = live
-                log(f"training {key}, kernel M's narrowed instantiation (a "
-                    f"launch with a bbox): {live['regs']} registers, "
-                    f"{live['spill_bytes']} local bytes, "
-                    f"{live['blocks_per_sm']} blocks an SM")
-                if (live["spill_bytes"] > OPT_M_PARENT_LOCAL
-                        or live["blocks_per_sm"]
-                        < info["M"]["blocks_per_sm"]):
-                    fail(f"training {key}: kernel M's narrowed instantiation "
-                         f"takes more than {OPT_M_PARENT_LOCAL} local bytes "
-                         f"or fewer blocks an SM than the option variant: "
-                         f"{live}")
     return out
-
-
-def train_live_info(kernels, bd: int, f32: bool) -> dict:
-    """What the card makes of kernel M's narrowed SH option instantiation
-    of ``bd`` basis functions (vt_march_slabs_info's opt 3): resident
-    blocks per SM, registers and spill bytes a thread, dynamic shared
-    memory."""
-    import ctypes
-    from volrend_torch.ops.slab_march import train_lib
-    m = (ctypes.c_int * 11)()
-    kernels.check(train_lib("slab_march", 1, True).vt_march_slabs_info(
-        bd, int(f32), 1, 3, m), "slab_march")
-    return dict(zip(("blocks_per_sm", "regs", "spill_bytes", "smem"),
-                    m[:4]))
 
 
 def train_variants_phase(torch, dev, stats, probe_lib=None):

@@ -1819,10 +1819,8 @@ OPT_TRAIN_INFO = {
 
 
 #: kernel M's local bytes a thread in every SH option and RGBA
-#: instantiation before the SH option variant took a narrowed one for
-#: launches with a bbox (commit bb0fdfb, NVIDIA H100 80GB HBM3; ``python
-#: volrend_torch/probes/train_info.py --root <that checkout>``): the
-#: launch's counts
+#: instantiation (commit bb0fdfb, NVIDIA H100 80GB HBM3; ``python
+#: volrend_torch/probes/train_info.py``): the launch's counts
 OPT_TRAIN_M_LOCAL = 40
 
 
@@ -1831,10 +1829,8 @@ def test_opt_train_launches_stay_within_their_limits(card):
     RGBA instantiation of kernel M's training mode and of M-bwd, on f32
     and bf16 payloads: M-bwd's pass 1 takes no more local bytes than the
     SH default of the same bound and payload (RGBA's 4-value records:
-    SH1's), pass 2 takes none, kernel M no more than before
-    (OPT_TRAIN_M_LOCAL), and each holds at least the blocks an SM of
-    OPT_TRAIN_INFO; so does kernel M's narrowed SH option instantiation
-    (opt 3: a launch with a bbox takes it) beside the option variant's."""
+    SH1's), pass 2 takes none, kernel M no more than OPT_TRAIN_M_LOCAL,
+    and each holds at least the blocks an SM of OPT_TRAIN_INFO."""
     from volrend_torch import kernels
     assert len(OPT_TRAIN_INFO) == 12
 
@@ -1860,13 +1856,6 @@ def test_opt_train_launches_stay_within_their_limits(card):
         assert got[0][1] <= OPT_TRAIN_M_LOCAL, (key, got)
         assert got[1][1] <= sh[1][1], (key, got, sh)
         assert got[2][1] == 0, (key, got)
-        if bd > 0:  # the narrowed instantiation: kernel M alone
-            m = (ctypes.c_int * 11)()
-            kernels.check(slab_march.train_lib("slab_march", 1, True)
-                          .vt_march_slabs_info(bd, f32, 1, 3, m),
-                          "slab_march")
-            assert m[0] >= blocks[0] and m[2] <= OPT_TRAIN_M_LOCAL, (
-                key, list(m[:4]))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1877,9 +1866,9 @@ def test_train_option_variants_match_plain_on_silhouette_tiles(
     """Kernel M's option training variants against their plain versions on
     a two-cube bake at the training stop_thresh, whose rays freeze inside
     the cubes while their neighbours miss them: tiles with frozen and live
-    pixels both. SH at every bound with rot, a basis window and a bbox
-    takes the narrowed instantiation (the live pixels decide on each piece
-    over their own spans); RGBA takes the option variant; the resume cases
+    pixels both (SH at every bound with rot, a basis window and a bbox;
+    RGBA), where a tile marches on for its live pixels past the slabs at
+    which its frozen ones stopped accumulating; the resume cases
     march the two z-segments of the bake in march order, each from the
     state the one before left (acc_init)."""
     from volrend_torch.models.data_format import BasisType

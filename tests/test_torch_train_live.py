@@ -1,18 +1,22 @@
-"""The rule of kernel M's narrowed training instantiation (the SH option
-variant launched with a bbox; csrc/slab_common.cuh, march_loop's NARROW)
-on the CPU: a tile's pixels that cannot accumulate any more (T under
-stop_thresh, or their z interval passed) never will, so a piece is shaded
-only when a pixel that can still accumulate finds a cell above the
-threshold in its own span. Here that rule is mirrored in plain PyTorch
-(``slab_march.live_warp``, ``march_slabs_ref(narrow=True)``) on a G = 16
+"""The live pixels' footprint, the lever for a silhouette tile's march, on
+the CPU. A pixel that cannot accumulate any more (T under stop_thresh, or
+its z interval passed) never will, so at each slab only the cells that the
+spans of a tile's live pixels meet can change what kernel M writes. The
+rule is mirrored here in plain PyTorch: a tile's live footprint is the
+tile footprint (``tile_footprint`` in csrc/slab_common.cuh, with its cell
+of margin) of the live pixels' bounding sub-rectangle. On a G = 16
 two-cube bake from a numpy seed at the training stop_thresh, whose rays
-freeze inside the cubes, seen with a bbox from both sides of a slab axis
-(flip off and on): tiles whose shaded cells only frozen pixels see are
-passed over, and the march gives the unnarrowed plain version's output and
-the reference's scan march (``volrend_tpu/ops/slab_grad.py:
-_march_fwd_impl``) on the same payload. The kernel itself is held to the
-parent's bit for bit (probes/train_march.py) and to its plain version on
-the card (tests/test_torch_cuda.py)."""
+freeze inside the cubes, seen from both sides of a slab axis (flip off
+and on) with rot, a basis window and a bbox, and as RGBA, the test marches
+the port's plain version (``slab_march.march_slabs_ref``) slab by slab,
+each slab from the state the one before left (``acc_init``), and shows
+that every live pixel's overlap weights lie inside its tile's live
+footprint, that the footprints leave shaded cells out, and that zeroing
+the cells outside them changes no bit of the march, which agrees with the
+reference's scan march (``volrend_tpu/ops/slab_grad.py:_march_fwd_impl``)
+on the same payload. Kernel M itself marches every cell of the whole
+tile's footprint: the narrowing, measured on the card, did not pay
+(PERF.md §6)."""
 
 import numpy as np
 import pytest
@@ -34,24 +38,25 @@ torch.set_num_threads(1)
 
 W = H = 48
 GI = 24
+#: kernel M's training tile, pixel rows and columns (tmarch::TY, TX in
+#: csrc/slab_common.cuh)
+TILE = (4, 8)
 #: the training stop threshold (utils/options.py's default)
 STOP = 1e-2
 JOPT = JOpt(max_steps=512).replace(renormalize=False, render_depth=False)
 #: camera directions of a (perm, flip) group with flip off and on
 BACKS = {False: (-1.0, -0.25, -0.35), True: (1.0, 0.25, 0.35)}
 BBOX = dict(render_bbox=(0.1,) * 3 + (0.8,) * 3)
-#: (format, basis functions, render options): launches that take the
-#: narrowed instantiation (SH with options and a bbox)
+#: (format, basis functions, render options): kernel M's SH option and
+#: RGBA training variants
 CASES = {
     "SH1-bbox": ("SH", 1, BBOX),
-    "SH4-bbox": ("SH", 4, BBOX),
     "SH4-all": ("SH", 4, dict(rot_dirs=(0.3, -0.2, 0.5),
                               basis_minmax=(1, 2), **BBOX)),
+    "RGBA": ("RGBA", -1, {}),
 }
-#: the narrowed march sums each tile's warp apart (another summation
-#: order than the whole-slab products): f32 rounding
-TOL_SAME = 2e-6
-#: against the reference's scan march (tests/test_torch_train_formats.py)
+#: the march slab by slab against the whole march and the reference's
+#: scan march (tests/test_torch_train_formats.py): f32 rounding
 TOL_REF = 5e-6
 
 
@@ -70,13 +75,68 @@ def two_cubes(G, D, seed):
     return bake
 
 
+def _cell_floor(v, G: int) -> int:
+    return int(min(max(np.floor(v), 0), G - 1))
+
+
+def live_footprint(prm, G: int, rows, cols, z):
+    """The cells (y_lo, y_hi, x_lo, x_hi) that the spans of the pixels in
+    rows [rows[0], rows[1]] and columns [cols[0], cols[1]] can meet at the
+    slab of centre ``z``: ``tile_footprint``'s, a cell of margin on each
+    side for rounding, clipped to the grid."""
+    f32 = np.float32
+    cz, cy, cx = (f32(prm[i]) for i in range(3))
+    u0, du, v0, dv = (f32(prm[i]) for i in range(3, 7))
+    Gf, hG = f32(G), f32(0.5) / f32(G)
+    s0, s1 = f32(z) - hG - cz, f32(z) + hG - cz
+    ys = [cy * Gf + s * (u0 + du * f32(j)) * Gf for s in (s0, s1)
+          for j in rows]
+    xs = [cx * Gf + s * (v0 + dv * f32(k)) * Gf for s in (s0, s1)
+          for k in cols]
+    return (max(_cell_floor(min(ys), G) - 1, 0),
+            min(_cell_floor(max(ys), G) + 1, G - 1),
+            max(_cell_floor(min(xs), G) - 1, 0),
+            min(_cell_floor(max(xs), G) + 1, G - 1))
+
+
+def live_mask(prm, G: int, gi: int, z, live):
+    """(G, G) the cells of the slab of centre ``z`` inside some tile's
+    live footprint (the (gi, gi) mask ``live``: the pixels that can still
+    accumulate), and {(tile row, tile column): footprint} of the tiles
+    with a live pixel."""
+    TY, TX = TILE
+    keep = torch.zeros((G, G), dtype=torch.bool)
+    foot = {}
+    for j0 in range(0, gi, TY):
+        for k0 in range(0, gi, TX):
+            lv = live[j0:j0 + TY, k0:k0 + TX]
+            if not bool(lv.any()):
+                continue
+            js, ks = torch.nonzero(lv, as_tuple=True)
+            f = live_footprint(prm, G, (j0 + int(js.min()),
+                                        j0 + int(js.max())),
+                               (k0 + int(ks.min()), k0 + int(ks.max())), z)
+            foot[j0 // TY, k0 // TX] = f
+            keep[f[0]:f[1] + 1, f[2]:f[3] + 1] = True
+    return keep, foot
+
+
+def _live(T, zb, z, hG, flip):
+    """The pixels that can still accumulate at the slab of centre ``z``
+    (kernel M's predicate): T at or above stop_thresh, a z interval, and
+    the march not past it."""
+    zlo, zhi = zb[0], zb[1]
+    ahead = (z + hG >= zlo) if flip else (z - hG <= zhi)
+    return (T >= STOP) & (zlo <= zhi) & ahead
+
+
 @pytest.fixture(scope="module", params=[(c, f) for c in sorted(CASES)
                                         for f in (False, True)],
                 ids=lambda p: f"{p[0]}-flip{int(p[1])}")
 def case(request):
-    """One pose of a case: the port's march inputs and statics on the
-    bf16-rounded two-cube payload, and the reference's scan march on the
-    same payload."""
+    """One pose of a case: the bf16-rounded two-cube payload seen through
+    the pose group's permutation, its march inputs, the plain version's
+    statics, and the reference's scan march on the same payload."""
     name, flip_want = request.param
     fmt, bd, options = CASES[name]
     jg = scene("dense", 4, "f16")[3]
@@ -112,86 +172,147 @@ def case(request):
                    basis_lo=int(jopt.basis_minmax[0]),
                    basis_hi=int(jopt.basis_minmax[1]))
     zb = torch.tensor(np.stack([np.asarray(geom.z_lo_pix),
-                                np.asarray(geom.z_hi_pix)]))
-    m = slab_march.march_inputs(torch.tensor(p16).to(torch.bfloat16),
-                                torch.tensor(np.asarray(params))[None],
-                                zb[None], G, GI, ids)
-    m.pop("gi")
+                                np.asarray(geom.z_hi_pix)]))[None]
     ref = np.concatenate([np.moveaxis(np.asarray(a), -1, 0),
                           np.asarray(T)[None]])
-    return (name, torch.tensor(p16).to(torch.bfloat16), D, bd, flip, m,
-            statics, ref)
+    return dict(name=name, planar=torch.tensor(p16).to(torch.bfloat16),
+                D=D, bd=bd, flip=flip, ids=ids,
+                params=torch.tensor(np.asarray(params))[None], zb=zb,
+                statics=statics, ref=ref)
 
 
-def _march(case, narrow, stats=None):
-    _, planar, D, bd, flip, m, statics, _ = case
-    return slab_march.march_slabs_ref(planar, torch.ones(D), D=D, bd=bd,
-                                      flip=flip, gi=GI, narrow=narrow,
-                                      stats=stats, **statics, **m)[0]
+def march_by_slab(case, zero_outside: bool):
+    """The plain version slab by slab in march order, each slab a z-segment
+    marched from the state the one before left. Before each slab: the live
+    pixels (_live) and their tiles' footprints (live_mask); with
+    ``zero_outside`` the records of the cells outside every footprint are
+    zeroed. Returns the accumulator (4, gi, gi) and, by slab, (slab id,
+    live pixels, footprints, cells kept, the slab's overlap matrices and
+    its cells above the threshold)."""
+    planar, D, bd, flip = (case[k] for k in ("planar", "D", "bd", "flip"))
+    G = planar.shape[0]
+    hG = 0.5 / G
+    acc, steps = None, []
+    for sid in case["ids"]:
+        seg = planar[sid:sid + 1].clone()
+        m = slab_march.march_inputs(seg, case["params"], case["zb"], G, GI,
+                                    (0,), z_base=sid / G)
+        m.pop("gi")
+        prm = m["params"][0]
+        z = (sid + 0.5) / G
+        T = torch.ones((GI, GI)) if acc is None else acc[0, 3]
+        live = _live(T, m["zb"][0], z, hG, flip)
+        keep, foot = live_mask(prm, G, GI, z, live)
+        if zero_outside:
+            seg[0, :, ~keep] = 0
+        acc = slab_march.march_slabs_ref(
+            seg, torch.ones(D), D=D, bd=bd, flip=flip, gi=GI,
+            acc_init=acc, **case["statics"], **m)
+        sigma = slab_march._slab_sigma(
+            slab_march._slab_values(planar[sid]), torch.ones(D), D, False)
+        cy, cx, s0, s1 = (float(prm[1]), float(prm[2]),
+                          z - hG - float(prm[0]), z + hG - float(prm[0]))
+        ray = torch.arange(GI, dtype=torch.float32)
+        cell = torch.arange(G, dtype=torch.float32)
+        m_r = slab_march._overlap_mat(cy * G, (prm[3] + prm[4] * ray) * G,
+                                      s0, s1, cell, G)
+        m_c = slab_march._overlap_mat(cx * G, (prm[5] + prm[6] * ray) * G,
+                                      s0, s1, cell, G)
+        steps.append((sid, live, foot, keep, m_r, m_c,
+                      sigma > float(prm[14])))
+    return acc[0], steps
 
 
-def test_live_decision_passes_over_frozen_tiles(case):
-    """The rule passes over (tile, slab) pairs whose shaded cells only
-    frozen pixels see (rays froze inside the cubes), and shades the
-    others."""
-    stats = {}
-    acc = _march(case, True, stats)
-    assert 0 < stats["tiles_passed_over"] < stats["tiles_live"], stats
-    assert 0 < stats["cells_left_out"] < stats["cells_shaded"], stats
-    assert float(acc[3].min()) < STOP
+@pytest.fixture(scope="module")
+def marched(case):
+    return march_by_slab(case, False), march_by_slab(case, True)[0]
 
 
-def test_narrowed_march_matches_plain_and_reference(case):
-    """The plain march with the rule applied tile by tile gives the
-    unnarrowed plain version's output and the reference's scan march on
-    the same bf16-rounded payload."""
-    name, *_, ref = case
-    got = _march(case, True).numpy()
-    plain = _march(case, False).numpy()
-    np.testing.assert_allclose(got, plain, atol=TOL_SAME, err_msg=name)
-    np.testing.assert_allclose(got, ref, atol=TOL_REF, err_msg=name)
+def _support(w):
+    """(first, last) cell of nonzero weight of each row of ``w``."""
+    nz = w > 0
+    idx = torch.arange(w.shape[1])
+    return (torch.where(nz, idx, w.shape[1]).amin(1),
+            torch.where(nz, idx, -1).amax(1))
+
+
+def test_live_footprint_holds_every_live_span(case, marched):
+    """At every slab, each live pixel's overlap weights (the plain
+    version's, nonzero on the cells its span meets) lie inside its tile's
+    live footprint, and the footprints leave out shaded cells that the
+    whole tiles' footprints hold (rays froze inside the cubes while their
+    tiles march on)."""
+    (_, steps), _ = marched
+    G = case["planar"].shape[0]
+    n_live, left_out = 0, 0
+    for sid, live, foot, keep, m_r, m_c, above in steps:
+        r_lo, r_hi = _support(m_r)
+        c_lo, c_hi = _support(m_c)
+        for j, k in torch.nonzero(live).tolist():
+            f = foot[j // TILE[0], k // TILE[1]]
+            assert (f[0] <= r_lo[j] and r_hi[j] <= f[1]
+                    and f[2] <= c_lo[k] and c_hi[k] <= f[3]), (
+                case["name"], sid, j, k, f)
+            n_live += 1
+        tiles = torch.zeros((G, G), dtype=torch.bool)
+        prm = case["params"][0]
+        for j0 in range(0, GI, TILE[0]):
+            for k0 in range(0, GI, TILE[1]):
+                f = live_footprint(prm, G, (j0, j0 + TILE[0] - 1),
+                                   (k0, k0 + TILE[1] - 1), (sid + 0.5) / G)
+                tiles[f[0]:f[1] + 1, f[2]:f[3] + 1] = True
+        assert not bool((keep & ~tiles).any()), (case["name"], sid)
+        left_out += int((above & tiles & ~keep).sum())
+    assert n_live > 0 and left_out > 0, (case["name"], n_live, left_out)
+
+
+def test_march_unchanged_outside_the_live_footprints(case, marched):
+    """Zeroing the records outside the live footprints before each slab
+    changes no bit of the march; the march slab by slab agrees with the
+    plain version's whole march and the reference's scan march on the same
+    bf16-rounded payload, and leaves frozen and live pixels both."""
+    (got, _), zeroed = marched
+    assert torch.equal(got, zeroed), case["name"]
+    m = slab_march.march_inputs(case["planar"], case["params"], case["zb"],
+                                case["planar"].shape[0], GI, case["ids"])
+    m.pop("gi")
+    whole = slab_march.march_slabs_ref(
+        case["planar"], torch.ones(case["D"]), D=case["D"], bd=case["bd"],
+        flip=case["flip"], gi=GI, **case["statics"], **m)[0]
+    np.testing.assert_allclose(got.numpy(), whole.numpy(), atol=TOL_REF,
+                               err_msg=case["name"])
+    np.testing.assert_allclose(got.numpy(), case["ref"], atol=TOL_REF,
+                               err_msg=case["name"])
     frozen = got[3] < STOP
-    assert frozen.any() and (~frozen).any(), name
+    assert bool(frozen.any()) and bool((~frozen).any()), case["name"]
 
 
-def test_live_warp_shades_where_a_live_span_sees_sigma():
-    """live_warp on one slab of a crop: a tile passes over the slab while
-    its live pixels' spans hold no shaded cell, and warps it, as the plain
-    product does, once one of them does; a tile without live pixels warps
-    nothing."""
-    G, gi = 16, 8
+def test_live_footprint_of_one_pixel_is_its_span():
+    """A tile with one live pixel: its live footprint is that pixel's span
+    with a cell of margin, inside the whole tile's footprint and narrower
+    than it; a tile without live pixels has none."""
+    G = 16
     prm = torch.zeros(31)
     prm[0:3] = torch.tensor((-1.5, 0.5, 0.5))            # camera z, y, x
     prm[3:7] = torch.tensor((-0.1, 0.025, -0.1, 0.025))  # u0, du, v0, dv
     z = 0.53
-    crop = (0, G - 1, 0, G - 1)
-    cell = torch.arange(G, dtype=torch.float32)
+    live = torch.zeros((8, 8), dtype=torch.bool)
+    live[0, 0] = True
+    keep, foot = live_mask(prm, G, 8, z, live)
+    assert set(foot) == {(0, 0)}
     hG = 0.5 / G
     s0, s1 = z - hG - float(prm[0]), z + hG - float(prm[0])
-    ray = torch.arange(gi, dtype=torch.float32)
-    m_r = slab_march._overlap_mat(float(prm[1]) * G,
-                                  (prm[3] + prm[4] * ray) * G, s0, s1,
-                                  cell, G)
-    m_c = slab_march._overlap_mat(float(prm[2]) * G,
-                                  (prm[5] + prm[6] * ray) * G, s0, s1,
-                                  cell, G)
-    live = torch.zeros((gi, gi), dtype=torch.bool)
-    live[0, 0] = True             # one live pixel in the first tile
-    chans = torch.zeros((4, G, G))
-    far = m_r[0].argmin(), m_c[0].argmin()  # a cell pixel (0, 0) misses
-    chans[:, far[0], far[1]] = 1.0
-    assert float(m_r[0, far[0]] * m_c[0, far[1]]) == 0.0
-    stats = {}
-    out = slab_march.live_warp(prm, G, gi, z, live, chans, m_r, m_c, crop,
-                               stats)
-    assert stats["tiles_live"] == 1 and stats["tiles_passed_over"] == 1
-    assert not out.any()
-    near = m_r[0].argmax(), m_c[0].argmax()  # a cell in its span
-    chans[:, near[0], near[1]] = 2.0
-    stats = {}
-    out = slab_march.live_warp(prm, G, gi, z, live, chans, m_r, m_c, crop,
-                               stats)
-    assert stats.get("tiles_passed_over", 0) == 0
-    plain = m_r @ chans @ m_c.T
-    torch.testing.assert_close(out[:, :4, :8], plain[:, :4, :8])
-    assert not out[:, 4:].any() and not out[:, :, 8:].any()
+    cell = torch.arange(G, dtype=torch.float32)
+    r_lo, r_hi = _support(slab_march._overlap_mat(
+        float(prm[1]) * G, prm[3:4] * G, s0, s1, cell, G))
+    c_lo, c_hi = _support(slab_march._overlap_mat(
+        float(prm[2]) * G, prm[5:6] * G, s0, s1, cell, G))
+    f = foot[0, 0]
+    assert f == (max(int(r_lo[0]) - 1, 0), min(int(r_hi[0]) + 1, G - 1),
+                 max(int(c_lo[0]) - 1, 0), min(int(c_hi[0]) + 1, G - 1))
+    whole = live_footprint(prm, G, (0, TILE[0] - 1), (0, TILE[1] - 1), z)
+    assert (whole[0] <= f[0] and f[1] <= whole[1] and whole[2] <= f[2]
+            and f[3] <= whole[3])
+    assert (f[1] - f[0]) + (f[3] - f[2]) < ((whole[1] - whole[0])
+                                            + (whole[3] - whole[2]))
+    assert int(keep.sum()) == (f[1] - f[0] + 1) * (f[3] - f[2] + 1)

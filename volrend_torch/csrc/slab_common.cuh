@@ -414,21 +414,9 @@ struct TVar {
   static constexpr bool RTD = FM == F_SG || FM == F_ASG;
   static constexpr int DMAX = FM == F_RGBA ? 4 : 3 * B + 1;
   static constexpr int LW = FM == F_ASG ? 3 : 1;
-  static constexpr bool LIVE = false;  // kernel M's narrowed march (LiveVar)
 };
 template <int BD>
 using ShVar = TVar<F_SH, false, BD>;
-
-// Kernel M's SH option variant as a launch with a non-full bbox takes it:
-// its march narrowed to the tile's live pixels (march_loop's NARROW),
-// which passes over the pieces whose cells above the threshold only frozen
-// pixels see. The bbox's culling leaves many such pieces; without it the
-// narrowing costs more than it saves, so the other launches keep TVar
-// (PERF.md).
-template <int B>
-struct LiveVar : TVar<F_SH, true, B> {
-  static constexpr bool LIVE = true;
-};
 
 // The launch's options, as the host passes them: the lobes (SG/ASG: nb x 4
 // or 11 floats on the device), the lobe count, the rotation (rot_on, 9
@@ -1232,54 +1220,6 @@ __device__ __forceinline__ void issue_colour(const Job& j, bool has,
   commit();
 }
 
-// ---- the live pixels (march_loop's NARROW) ---------------------------------
-// A pixel that cannot accumulate any more (T under stop_thresh, or its z
-// interval passed) never will, so the cells that only such pixels' spans
-// meet change nothing kernel M writes. Kernel M's narrowed variant keeps
-// the tile's live pixels as a mask (bit TX r + k: the pixel in row r and
-// column k; thread t's pixel is bit t), refreshed once a slab by a ballot,
-// and shades a piece only when a live pixel's own span holds a cell above
-// the threshold.
-
-// The tile as the narrowed variant sees it: its first row and column and
-// the slope grid (params 3-6: row j's ray slope is u0 + du j, column k's
-// v0 + dv k).
-struct LiveTile {
-  int j0, k0;
-  float u0, du, v0, dv;
-};
-
-// the payload element of the record of global cell (gy, gx) of job j's
-// slab
-__device__ __forceinline__ long long elem_at(const Job& j, const MarchCtx& c,
-                                             int gy, int gx) {
-  return (long long)j.sid * c.pv.ss + (long long)(gy - c.y0) * c.pv.sr +
-         (long long)(gx - c.x0) * c.pv.sc;
-}
-
-// cell_live for global cell (gy, gx)
-template <class V>
-__device__ __forceinline__ bool cell_live_at(float sig, const MarchCtx& c,
-                                             const TrainOpt& o, int gy,
-                                             int gx) {
-  if (!(sig > c.sigma_thresh)) return false;
-  if constexpr (V::OPT) return in_box<V>(o, c.Gf, gy, gx);
-  return true;
-}
-
-// has this pixel's z interval passed at job j's slab (in march order)?
-__device__ __forceinline__ bool passed_at(const MarchCtx& c, const Job& j) {
-  return c.flip ? (j.z + c.hG < c.zlo) : (j.z - c.hG > c.zhi);
-}
-
-// The mask of each refresh, two by its parity: a thread reads the newest
-// after the barrier that follows the write, before the next write but one.
-template <bool NARROW>
-__device__ __forceinline__ unsigned* live_masks() {
-  __shared__ unsigned s[2];
-  return s;
-}
-
 // The training march's slab loop, shared by kernel M's training mode and
 // the backward's forward recompute (every thread of the block calls it).
 //
@@ -1312,17 +1252,7 @@ __device__ __forceinline__ unsigned* live_masks() {
 // variant (TVar): an option variant's cells are shaded only inside its
 // bbox (cell_live), by voxel_rgb_opt (SG and ASG: lobe_sums) with the
 // state ``opt``.
-//
-// NARROW (kernel M's narrowed variant, tile ``lt``): the mask of the live
-// pixels is refreshed at each slab's first job (warp 0's ballot before the
-// decision's barrier, read by all after it), and the loop leaves when it
-// is empty (in place of the check above); the decision is the live
-// pixels' own, each over the cells its taps would sum, spread over the
-// warps (a job with cells above the threshold only where frozen pixels
-// look is passed over after its barrier), and a pixel that cannot
-// accumulate sums no taps. Every live pixel sums the same cells in the
-// same order, so the output is bit-equal to the unnarrowed loop's.
-template <class V, typename PT, bool NARROW = false, typename OnSlab>
+template <class V, typename PT, typename OnSlab>
 __device__ __forceinline__ void march_loop(const MarchCtx& c,
                                            const MarchSmem& sm,
                                            const float* s_qs,
@@ -1330,12 +1260,7 @@ __device__ __forceinline__ void march_loop(const MarchCtx& c,
                                            const TrainOpt& opt,
                                            const float& T,
                                            unsigned long long* counts,
-                                           OnSlab&& on_slab,
-                                           const LiveTile& lt = LiveTile{}) {
-  static_assert(!NARROW || (DC >= 1 && TY * TX <= 32),
-                "the narrowed decision reads the sigma other threads staged "
-                "at least one barrier before it, and one ballot holds the "
-                "tile's pixels");
+                                           OnSlab&& on_slab) {
   constexpr int BD = V::BD;
   const int D = rec_dim<V>(opt);
   constexpr int CELLS = PS * PS;
@@ -1357,14 +1282,6 @@ __device__ __forceinline__ void march_loop(const MarchCtx& c,
     sm.rng[0] = c.n_ids;
     sm.rng[1] = 0;
   }
-  if constexpr (NARROW) {
-    // the pixels that can accumulate at all (T may be a resumed state's)
-    if (warp == 0) {
-      const unsigned m0 =
-          __ballot_sync(0xffffffffu, valid && (T >= c.stop_thresh));
-      if (lane == 0) live_masks<NARROW>()[0] = m0;
-    }
-  }
   __syncthreads();
   float zmin = 3.4e38f, zmax = -3.4e38f;
 #pragma unroll
@@ -1383,13 +1300,7 @@ __device__ __forceinline__ void march_loop(const MarchCtx& c,
   const int i0 = sm.rng[0], i1 = sm.rng[1];
   long long n_cnt[N_COUNTS] = {};
   long long* met = counts != nullptr ? n_cnt : nullptr;
-  [[maybe_unused]] unsigned mask = 0;  // the live pixels (NARROW)
-  bool none = i0 >= i1;
-  if constexpr (NARROW) {
-    mask = live_masks<NARROW>()[0];
-    none = none || mask == 0u;
-  }
-  if (none) {
+  if (i0 >= i1) {
     clk.add(c.tid);
     add_counts(counts, c.tid, n_cnt);
     return;
@@ -1407,9 +1318,6 @@ __device__ __forceinline__ void march_loop(const MarchCtx& c,
   slab.i = -1;
   PixelSpan sp;
   bool left = false;      // no pixel of the tile can still accumulate
-  [[maybe_unused]] bool refresh = false;  // the slab's mask is not read yet
-  [[maybe_unused]] int n_refresh = 0;
-  [[maybe_unused]] PixelSpan dsp;  // NARROW: pixel ``lane``'s span
   for (int i_cur = i0, p_cur = 0; i_cur < i1 && !left;) {
     clk.start();
     const int nj = build_list(c, sm, i_cur, p_cur, i1, i_cur, p_cur, met);
@@ -1420,9 +1328,6 @@ __device__ __forceinline__ void march_loop(const MarchCtx& c,
       issue<PT>(pj, r < nj, c, sm.ring + r * CELLS, D);
     }
     wait_n<0>();
-    // NARROW: the first job's sigma is decided on by other threads than
-    // their copiers (the later ones' land before a decision's barrier)
-    if constexpr (NARROW) __syncthreads();
 #pragma unroll
     for (int d = 0; d < DC; ++d) {
       if (d < nj) job_at(qj, c, sm.list[d]);
@@ -1445,22 +1350,6 @@ __device__ __forceinline__ void march_loop(const MarchCtx& c,
         slab_of(slab, c, cons.i);
         sp = pixel_span(c.cyG, c.cxG, slab.z - c.hG - c.cz,
                         slab.z + c.hG - c.cz, c.ujG, c.vkG, c.G, slab.f);
-        if constexpr (NARROW) {
-          // the span of pixel ``lane`` (bit ``lane`` of the mask), whose
-          // cells ``warp``, ``warp`` + NT / 32, ... this thread decides on
-          // (warp 0's own)
-          if (warp == 0) {
-            dsp = sp;
-          } else {
-            const int pj = lt.j0 + lane / TX, pk = lt.k0 + lane % TX;
-            dsp = pixel_span(c.cyG, c.cxG, slab.z - c.hG - c.cz,
-                             slab.z + c.hG - c.cz,
-                             (lt.u0 + lt.du * (float)pj) * c.Gf,
-                             (lt.v0 + lt.dv * (float)pk) * c.Gf, c.G,
-                             slab.f);
-          }
-          refresh = true;
-        }
       }
       clk.start();
       const int m = n + RING - 1, m2 = n + DC;
@@ -1475,64 +1364,22 @@ __device__ __forceinline__ void march_loop(const MarchCtx& c,
       const uint32_t* slot = sm.ring + (n % RING) * CELLS;
       const int FY = cons.FY, FX = cons.FX;
       bool above = false;
-      if constexpr (NARROW) {
-        // the live pixels (the mask) over the cells their taps would sum
-        // (their spans'; the copies of other threads landed before the
-        // last barrier), a pixel's cells spread over the warps: a job none
-        // of them finds above the threshold changes no live pixel
-        if ((mask >> lane) & 1u) {
-          const int ya = max(dsp.ry_lo, cons.py);
-          const int yb = min(dsp.ry_hi, cons.py + FY - 1);
-          const int xa = max(dsp.rx_lo, cons.px);
-          const int xb = min(dsp.rx_hi, cons.px + FX - 1);
-          const int nx = xb - xa + 1;
-          const int nq = yb >= ya && nx > 0 ? (yb - ya + 1) * nx : 0;
-          for (int q = warp; q < nq; q += NT / 32) {
-            const int y = ya + q / nx, x = xa + q % nx;
-            above |= cell_live_at<V>(
-                sigma_of<PT>(slot[(y - cons.py) * FX + x - cons.px],
-                             elem_at(cons, c, y, x) + D - 1) *
-                    qsig,
-                c, opt, y, x);
-          }
-        }
-        if (refresh && warp == 0) {
-          const unsigned mk = __ballot_sync(
-              0xffffffffu, c.inpix && (c.zlo <= c.zhi) &&
-                               (T >= c.stop_thresh) && !passed_at(c, cons));
-          if (lane == 0) live_masks<NARROW>()[(n_refresh + 1) & 1] = mk;
-        }
-      } else {
-        for (int i = c.tid; i < FY * FX; i += NT)
-          above |= cell_live<V>(
-              sigma_of<PT>(slot[i], cell_elem(cons, c, i, FX) + D - 1) *
-                  qsig,
-              c, opt, cons, i, FX);
-      }
+      for (int i = c.tid; i < FY * FX; i += NT)
+        above |= cell_live<V>(
+            sigma_of<PT>(slot[i], cell_elem(cons, c, i, FX) + D - 1) * qsig,
+            c, opt, cons, i, FX);
       const bool any = __syncthreads_or(above);
-      if constexpr (NARROW) {
-        if (refresh) {
-          refresh = false;
-          mask = live_masks<NARROW>()[++n_refresh & 1];
-          if (mask == 0u) {  // no pixel of the tile can accumulate
-            left = true;
-            break;
-          }
-        }
-      }
       clk.lap(DECIDE);
       if (!any) continue;
       if (!slab_any) {
-        if constexpr (!NARROW) {
-          // once per slab: can a pixel of the tile still accumulate?
-          const bool passed = c.flip ? (cons.z + c.hG < c.zlo)
-                                     : (cons.z - c.hG > c.zhi);
-          const bool alive = c.inpix && (T >= c.stop_thresh) &&
-                             (c.zlo <= c.zhi) && !passed;
-          if (!__syncthreads_or(alive)) {
-            left = true;
-            break;
-          }
+        // once per slab: can a pixel of the tile still accumulate?
+        const bool passed = c.flip ? (cons.z + c.hG < c.zlo)
+                                   : (cons.z - c.hG > c.zhi);
+        const bool alive = c.inpix && (T >= c.stop_thresh) &&
+                           (c.zlo <= c.zhi) && !passed;
+        if (!__syncthreads_or(alive)) {
+          left = true;
+          break;
         }
         slab_any = true;
         ++n_cnt[1];
@@ -1589,11 +1436,7 @@ __device__ __forceinline__ void march_loop(const MarchCtx& c,
       }
       clk.lap(SHADE);
       __syncthreads();
-      bool taps = c.inpix;
-      // a pixel that cannot accumulate: its sums are never read
-      if constexpr (NARROW)
-        taps = taps && (T >= c.stop_thresh) && !passed_at(c, cons);
-      if (taps) {
+      if (c.inpix) {
         const int ya = max(sp.ry_lo, cons.py);
         const int yb = min(sp.ry_hi, cons.py + FY - 1);
         const int xa = max(sp.rx_lo, cons.px);

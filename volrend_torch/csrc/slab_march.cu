@@ -77,22 +77,7 @@
 //   4x8 tiles of 128 threads, pieces of 24 x 24 cells, ring 4, colour 2
 //   pieces ahead), the fastest of those probes/train_march.py built and
 //   timed (PERF.md).
-// - The SH option variant, launched with a non-full bbox (and resumed or
-//   not), takes a narrowed instantiation (tmarch::LiveVar): it keeps the
-//   tile's live pixels (those that can still accumulate) as a mask, a
-//   ballot refreshed once a slab; the live pixels decide whether a piece
-//   is shaded, each over its own span, and a frozen pixel sums no taps. A
-//   silhouette tile's missing rays then pass over the pieces whose cells
-//   only its frozen pixels see, which the bbox's culling makes many. The
-//   pieces and the cells shaded are the same, so every live pixel sums
-//   the same cells in the same order: the output is bit-equal to the
-//   unnarrowed march's (M-bwd's pass 1 recomputes it unnarrowed). Without
-//   a bbox, and for RGBA, the narrowing cost more than it saved (the
-//   slowest tiles run ~90 pieces a launch at ~4400 cycles each, at most a
-//   cell a thread: PERF.md), so those launches keep the unnarrowed march.
-// - One kernel body, march<V, PT>, behind march_kernel (and, for the
-//   narrowed instantiations, march_live_kernel, which declares its blocks
-//   an SM): the variant V
+// - One kernel template, march_kernel<V, PT>: the variant V
 //   (tmarch::TVar<format, options, BD>) picks the format and whether the
 //   run-time options are compiled in; the defaults (SH without options,
 //   ShVar) take none of their code and keep the parameters they had before
@@ -126,9 +111,9 @@ struct TrainArgs {
   int n_ids, G, gi, Gy, Gx, y0, x0, flip;
 };
 
-// The march of one tile and pose (the kernels below).
 template <class V, typename PT>
-__device__ __forceinline__ void march(const tmarch::ArgsOf<V, TrainArgs>& a) {
+__global__ void __launch_bounds__(tmarch::NT)
+march_kernel(const tmarch::ArgsOf<V, TrainArgs> a) {
   using tmarch::NT;
   using tmarch::TX;
   using tmarch::TY;
@@ -218,7 +203,7 @@ __device__ __forceinline__ void march(const tmarch::ArgsOf<V, TrainArgs>& a) {
   const float Gf = c.Gf, hG = c.hG, zlo = c.zlo, zhi = c.zhi;
   const float stop_thresh = c.stop_thresh;
   const bool inpix = c.inpix;
-  tmarch::march_loop<V, PT, V::LIVE>(
+  tmarch::march_loop<V, PT>(
       c, sm, s_qs, s_prm, opt, T, a.counts,
       [&](const tmarch::Job& jb, const PixelSpan&, float4 w4) {
         if (!inpix) return;
@@ -236,8 +221,7 @@ __device__ __forceinline__ void march(const tmarch::ArgsOf<V, TrainArgs>& a) {
           b += wn * w4.w;
           T = T * att;
         }
-      },
-      tmarch::LiveTile{j0, k0, u0, du, v0, dv});
+      });
 
   if (c.inpix) {
     float* out = a.acc + (size_t)p * 4 * npx + pix;
@@ -248,43 +232,14 @@ __device__ __forceinline__ void march(const tmarch::ArgsOf<V, TrainArgs>& a) {
   }
 }
 
-// The march's kernels. The variants declare the block's threads alone,
-// and the compiler sets their register budget (the defaults' registers are
-// pinned). The narrowed ones (LiveVar) also declare the blocks an SM their
-// shared memory allows, at most four (as M-bwd's pass 1 does): left to its
-// own budget the compiler held the bf16 payload's at 128 registers and
-// spilled.
-template <class V, typename PT>
-__global__ void __launch_bounds__(tmarch::NT)
-march_kernel(const tmarch::ArgsOf<V, TrainArgs> a) {
-  march<V, PT>(a);
-}
-
-template <class V, typename PT>
-constexpr int live_blocks() {
-  return tmarch::smem_blocks<V, PT>() < 4 ? tmarch::smem_blocks<V, PT>() : 4;
-}
-
-template <class V, typename PT>
-__global__ void __launch_bounds__(tmarch::NT, live_blocks<V, PT>())
-march_live_kernel(const tmarch::ArgsOf<V, TrainArgs> a) {
-  march<V, PT>(a);
-}
-
 // one launch of the march of variant V (on a coarse occupancy built)
 template <class V, typename PT>
 struct Launch {
   using KernFn = void (*)(const tmarch::ArgsOf<V, TrainArgs>);
   static constexpr size_t SMEM = tmarch::march_smem<V, PT>();
-  static KernFn kernel() {
-    if constexpr (V::LIVE)
-      return march_live_kernel<V, PT>;
-    else
-      return march_kernel<V, PT>;
-  }
   static int run(const TrainArgs& a, const tmarch::VarArgs& va, int P,
                  cudaStream_t s) {
-    const KernFn fn = kernel();
+    const KernFn fn = march_kernel<V, PT>;
     cudaError_t e = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
     if (e != cudaSuccess) return (int)e;
@@ -294,7 +249,7 @@ struct Launch {
     return (int)cudaGetLastError();
   }
   static int info(int* out) {
-    const KernFn fn = kernel();
+    const KernFn fn = march_kernel<V, PT>;
     cudaError_t e = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
     if (e != cudaSuccess) return (int)e;
@@ -311,23 +266,6 @@ struct Launch {
     return 0;
   }
 };
-
-#if VT_TRAIN_SET == 1
-// Call f(LiveVar<bd>{}, Elem<PT>{}) with the payload's element (f32, else
-// bf16): the SH option variant's narrowed instantiations, degrees 0-4.
-// Returns f's result, or cudaErrorInvalidValue for another bd.
-template <class F>
-int with_live(int bd, int f32, F&& f) {
-  switch (bd) {
-    case 1: return tmarch::with_payload<tmarch::LiveVar<1>>(f32, f);
-    case 4: return tmarch::with_payload<tmarch::LiveVar<4>>(f32, f);
-    case 9: return tmarch::with_payload<tmarch::LiveVar<9>>(f32, f);
-    case 16: return tmarch::with_payload<tmarch::LiveVar<16>>(f32, f);
-    case 25: return tmarch::with_payload<tmarch::LiveVar<25>>(f32, f);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-#endif
 
 }  // namespace
 
@@ -347,8 +285,7 @@ int with_live(int bd, int f32, F&& f) {
 // scales qscale[k] > 0, which fold into the lobes' exponents (the trainer's
 // are ones); D = 3 bd + 1 otherwise), opt (the option variant: every
 // format but SH, and SH with rot (9 floats on the host), bbox (params
-// 16-19) or a basis window [basis_lo, basis_hi] that drops planes; SH with
-// a bbox takes the narrowed instantiation, tmarch::LiveVar).
+// 16-19) or a basis window [basis_lo, basis_hi] that drops planes).
 // Returns cudaGetLastError() after the launch.
 extern "C" int vt_march_slabs(const void* payload, int pay_f32,
                               long long ss, long long sr, long long sc,
@@ -389,14 +326,10 @@ extern "C" int vt_march_slabs(const void* payload, int pay_f32,
   a.x0 = x0;
   a.flip = flip;
   cudaStream_t s = (cudaStream_t)stream;
-  auto launch = [&](auto v, auto e) {
+  return tmarch::with_variant(fmt, bd, opt, pay_f32, [&](auto v, auto e) {
     return Launch<decltype(v), typename decltype(e)::type>::run(a, va, P,
                                                                  s);
-  };
-#if VT_TRAIN_SET == 1
-  if (fmt == F_SH && opt && bbox) return with_live(bd, pay_f32, launch);
-#endif
-  return tmarch::with_variant(fmt, bd, opt, pay_f32, launch);
+  });
 }
 
 // The coarse occupancy of a payload view (as for vt_march_slabs: channel
@@ -539,24 +472,16 @@ extern "C" int vt_march_occupancy_live(const void* live, int G,
 }
 
 // What the card makes of the launch of variant (bd, fmt, opt; as for
-// vt_march_slabs, opt 3 the SH option variant's narrowed instantiation,
-// which a launch with a bbox takes) on a payload of f32 (pay_f32) or bf16:
-// out[0] resident blocks per SM, out[1] registers a thread, out[2] spill
-// (local) bytes a thread, out[3] dynamic shared memory a block; out[4..10]
-// the configuration it was built with (tmarch::CONFIG: ty, tx, nt, ps,
-// ring, dc, rslots).
+// vt_march_slabs) on a payload of f32 (pay_f32) or bf16: out[0] resident
+// blocks per SM, out[1] registers a thread, out[2] spill (local) bytes a
+// thread, out[3] dynamic shared memory a block; out[4..10] the
+// configuration it was built with (tmarch::CONFIG: ty, tx, nt, ps, ring,
+// dc, rslots).
 extern "C" int vt_march_slabs_info(int bd, int pay_f32, int fmt, int opt,
                                    int* out) {
-  auto info = [&](auto v, auto e) {
+  return tmarch::with_variant(fmt, bd, opt, pay_f32, [&](auto v, auto e) {
     return Launch<decltype(v), typename decltype(e)::type>::info(out);
-  };
-  if (opt == 3) {
-#if VT_TRAIN_SET == 1
-    if (fmt == F_SH) return with_live(bd, pay_f32, info);
-#endif
-    return (int)cudaErrorInvalidValue;
-  }
-  return tmarch::with_variant(fmt, bd, opt, pay_f32, info);
+  });
 }
 
 extern "C" const char* vt_error_string(int code) {

@@ -76,7 +76,7 @@ __all__ = ["march_slabs", "march_slabs_ref", "march_slabs_bwd",
            "march_slabs_bwd_ref", "march_bwd_inputs", "march_occupancy",
            "MarchMode", "train_variant", "train_lib",
            "march_occupancy_ref", "march_occupancy_live_ref", "LiveBits",
-           "display_config", "march_slab_ids", "TRAIN_TILE"]
+           "display_config", "march_slab_ids"]
 
 _F32 = torch.float32
 #: the training mode's payload dtypes: the default trainer's f32 bake and
@@ -1052,8 +1052,7 @@ def march_slabs_ref(gplanar, qscale, params, zb, wins: Sequence[int],
                     rot: Optional[Tuple[float, ...]] = None,
                     bbox_full: bool = True, basis_lo: int = 0,
                     basis_hi: int = 24, dir_slab: bool = False,
-                    bf16_shade: bool = False, acc_init=None,
-                    narrow: bool = False, stats: Optional[dict] = None):
+                    bf16_shade: bool = False, acc_init=None):
     """Plain PyTorch version of kernel M: the same function, with the warp
     as dense (gi, Gy) @ (Gy, Gx) @ (Gx, gi) overlap-matrix products as the
     reference builds them (in f32). Inputs as ``march_inputs`` prepares
@@ -1080,14 +1079,7 @@ def march_slabs_ref(gplanar, qscale, params, zb, wins: Sequence[int],
       * zb[3] (acc[1:3] stay 0).
     A z-segment: slab i of the payload lies at z = (i + 0.5) / G +
     params[30]; ``acc_init`` (P, 4, gi, gi) is the accumulator each pose
-    starts from (None: rgb 0, T 1).
-
-    ``narrow`` applies the rule of kernel M's narrowed training
-    instantiation (the SH option variant launched with a bbox): each
-    TRAIN_TILE tile of pixels warps a slab only when one of its pixels that
-    can still accumulate finds a shaded cell in its span (``live_warp``);
-    the output is the same function's. ``stats`` (a dict) then receives the
-    counts ``live_warp`` adds up."""
+    starts from (None: rgb 0, T 1)."""
     dev = gplanar.device
     Gz, Dp, Gy, Gx = gplanar.shape
     P = params.shape[0]
@@ -1169,14 +1161,7 @@ def march_slabs_ref(gplanar, qscale, params, zb, wins: Sequence[int],
                                        sigma[None] * torch.sigmoid(raw)])
                 m_r = _overlap_mat(cy * G, ujG, s0, s1, ycell, G)
                 m_c = _overlap_mat(cx * G, vkG, s0, s1, xcell, G)
-                if narrow:
-                    live = ((T >= stop_thresh) & (zlo <= zhi)
-                            & ((z + hG >= zlo) if flip else (z - hG <= zhi)))
-                    warped = live_warp(prm, G, gi, z, live, chans, m_r, m_c,
-                                       (y0, y0 + Gy - 1, x0, x0 + Gx - 1),
-                                       stats)
-                else:
-                    warped = m_r @ chans @ m_c.T                # (C,gi,gi)
+                warped = m_r @ chans @ m_c.T                    # (C,gi,gi)
                 sig_w = warped[0]
                 frac = torch.clamp((torch.clamp(zhi, max=z + hG)
                                     - torch.clamp(zlo, min=z - hG)) * G,
@@ -1193,100 +1178,6 @@ def march_slabs_ref(gplanar, qscale, params, zb, wins: Sequence[int],
                 T = torch.where(live, T * att, T)
         out.append(torch.cat([rgb, T[None]]))
     return torch.stack(out)
-
-
-# ---------------------------------------------------------------------------
-# Kernel M's narrowed training instantiation: the live pixels' decision
-# ---------------------------------------------------------------------------
-
-#: kernel M's training tile, pixel rows and columns (tmarch::TY, TX in
-#: csrc/slab_common.cuh)
-TRAIN_TILE = (4, 8)
-
-
-def _cell_floor(v, lo: int, hi: int) -> int:
-    return int(min(max(np.floor(v), lo), hi))
-
-
-def _span(c0G, slope_G, s0, s1, G: int, lo: int, hi: int):
-    """The cells [a, b] a ray's span through the slab meets along one axis,
-    clipped to [lo, hi] (pixel_span's)."""
-    p0, p1 = c0G + s0 * slope_G, c0G + s1 * slope_G
-    return (max(_cell_floor(min(p0, p1), 0, G - 1), lo),
-            min(_cell_floor(max(p0, p1), 0, G - 1), hi))
-
-
-def _tile_cells(prm, G: int, rows, cols, z, crop):
-    """The cells (y_lo, y_hi, x_lo, x_hi) the spans of the pixels in rows
-    [rows[0], rows[1]] and columns [cols[0], cols[1]] can meet at the slab
-    of centre ``z`` (the kernels' tile footprint: a cell of margin on each
-    side for rounding), clipped to ``crop`` (y_lo, y_hi, x_lo, x_hi)."""
-    f32 = np.float32
-    cz, cy, cx = (f32(prm[i]) for i in range(3))
-    u0, du, v0, dv = (f32(prm[i]) for i in range(3, 7))
-    Gf, hG = f32(G), f32(0.5) / f32(G)
-    s0, s1 = f32(z) - hG - cz, f32(z) + hG - cz
-    ys = [cy * Gf + s * (u0 + du * f32(j)) * Gf for s in (s0, s1)
-          for j in rows]
-    xs = [cx * Gf + s * (v0 + dv * f32(k)) * Gf for s in (s0, s1)
-          for k in cols]
-    return (max(_cell_floor(min(ys), 0, G - 1) - 1, crop[0]),
-            min(_cell_floor(max(ys), 0, G - 1) + 1, crop[1]),
-            max(_cell_floor(min(xs), 0, G - 1) - 1, crop[2]),
-            min(_cell_floor(max(xs), 0, G - 1) + 1, crop[3]))
-
-
-def live_warp(prm, G: int, gi: int, z, live, chans, m_r, m_c, crop,
-              stats: Optional[dict] = None):
-    """One slab's warp (C, gi, gi) of the shaded cells ``chans`` (C, Gy, Gx)
-    of the crop through the overlap matrices m_r (gi, Gy) and m_c (gi, Gx),
-    tile by tile (TRAIN_TILE) as kernel M's narrowed instantiation decides:
-    a tile warps the slab only when a pixel of the (gi, gi) mask ``live``
-    (those that can still accumulate) finds a shaded cell in its span (the
-    cells its taps sum: its ray's, clipped to the tile's cells). A pixel
-    that cannot accumulate never will, so a tile passed over changes
-    nothing the march writes. ``stats`` adds up the tiles with a live pixel
-    (``tiles_live``), those passed over (``tiles_passed_over``), and the
-    shaded cells of the tiles' cells and those of them left unshaded
-    (``cells_shaded``, ``cells_left_out``)."""
-    TY, TX = TRAIN_TILE
-    f32 = np.float32
-    cz, cy, cx = (f32(prm[i]) for i in range(3))
-    u0, du, v0, dv = (f32(prm[i]) for i in range(3, 7))
-    Gf, hG = f32(G), f32(0.5) / f32(G)
-    s0, s1 = f32(z) - hG - cz, f32(z) + hG - cz
-    y0, x0 = crop[0], crop[2]
-    live_np = live.cpu().numpy()
-    sig_np = (chans[0] != 0).cpu().numpy()
-    out = torch.zeros((chans.shape[0], gi, gi), dtype=chans.dtype,
-                      device=chans.device)
-    st = stats if stats is not None else {}
-    for j0 in range(0, gi, TY):
-        for k0 in range(0, gi, TX):
-            j1, k1 = min(j0 + TY, gi), min(k0 + TX, gi)
-            lv = live_np[j0:j1, k0:k1]
-            if not lv.any():
-                continue
-            st["tiles_live"] = st.get("tiles_live", 0) + 1
-            tile = _tile_cells(prm, G, (j0, j1 - 1), (k0, k1 - 1), z,
-                               crop)
-            seen = False  # a live pixel's span holds a shaded cell
-            for j, k in zip(*np.nonzero(lv)):
-                ry = _span(cy * Gf, (u0 + du * f32(j0 + j)) * Gf, s0, s1, G,
-                           tile[0], tile[1])
-                rx = _span(cx * Gf, (v0 + dv * f32(k0 + k)) * Gf, s0, s1, G,
-                           tile[2], tile[3])
-                seen = seen or bool(sig_np[ry[0] - y0:ry[1] - y0 + 1,
-                                           rx[0] - x0:rx[1] - x0 + 1].any())
-            shaded = int(sig_np[tile[0] - y0:tile[1] - y0 + 1,
-                                tile[2] - x0:tile[3] - x0 + 1].sum())
-            st["cells_shaded"] = st.get("cells_shaded", 0) + shaded
-            if not seen:
-                st["tiles_passed_over"] = st.get("tiles_passed_over", 0) + 1
-                st["cells_left_out"] = st.get("cells_left_out", 0) + shaded
-                continue
-            out[:, j0:j1, k0:k1] = m_r[j0:j1] @ chans @ m_c[k0:k1].T
-    return out
 
 
 # ---------------------------------------------------------------------------

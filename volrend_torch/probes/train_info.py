@@ -28,7 +28,6 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 #: bound; csrc/slab_common.cuh tmarch::with_variant)
 VARIANTS = ([(f"SH{b}", 1, b, 0) for b in (1, 4, 9, 16, 25)]
             + [(f"SH{b}-opt", 1, b, 1) for b in (1, 4, 9, 16, 25)]
-            + [(f"SH{b}-opt-bbox", 1, b, 3) for b in (1, 4, 9, 16, 25)]
             + [(f"{f}<={b}", fm, b, 1) for f, fm in (("SG", 2), ("ASG", 3))
                for b in (4, 9, 16, 25)]
             + [("RGBA", 0, -1, 1)])
@@ -36,9 +35,7 @@ VARIANTS = ([(f"SH{b}", 1, b, 0) for b in (1, 4, 9, 16, 25)]
 
 def read(kernels, fmt: int, bd: int, opt: int, f32: int,
          old: bool) -> dict:
-    """The launches of one instantiation: M's and M-bwd's passes (``opt``
-    3: kernel M's narrowed SH option instantiation, which a launch with a
-    bbox takes; M-bwd has none: M alone)."""
+    """The launches of one instantiation: M's and M-bwd's passes."""
     m = (ctypes.c_int * 11)()
     b = (ctypes.c_int * 7)()
     if old:
@@ -50,23 +47,11 @@ def read(kernels, fmt: int, bd: int, opt: int, f32: int,
                           train_lib("slab_march", fmt, opt),
                           train_lib("slab_march_bwd", fmt, opt))
     kernels.check(fwd.vt_march_slabs_info(*args, m), "slab_march")
-    keys = ("blocks_per_sm", "regs", "spill_bytes", "smem")
-    if opt == 3:
-        return {"M": dict(zip(keys, m[:4]))}
     kernels.check(bwd.vt_march_slabs_bwd_info(*args, b), "slab_march_bwd")
+    keys = ("blocks_per_sm", "regs", "spill_bytes", "smem")
     return {"M": dict(zip(keys, m[:4])),
             "M-bwd pass 1": dict(zip(keys, b[:4])),
             "M-bwd pass 2": dict(zip(keys[:3], b[4:]))}
-
-
-def _has_live(kernels) -> bool:
-    """Does this checkout's kernel M hold the narrowed SH option
-    instantiations (its info entry answers opt 3)?"""
-    import ctypes as ct
-    from volrend_torch.ops.slab_march import train_lib
-    out = (ct.c_int * 11)()
-    return train_lib("slab_march", 1, 1).vt_march_slabs_info(
-        9, 1, 1, 3, out) == 0
 
 
 def main() -> None:
@@ -84,8 +69,6 @@ def main() -> None:
            "device": torch.cuda.get_device_name(0)}
     for name, fmt, bd, opt in VARIANTS:
         if old and (fmt != 1 or opt):
-            continue
-        if opt == 3 and not _has_live(kernels):
             continue
         for f32 in (1, 0):
             key = f"{name}-{'f32' if f32 else 'bf16'}"

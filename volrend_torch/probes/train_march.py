@@ -36,8 +36,7 @@ from a ``-DVT_TM_CYCLES`` build with each block's loop cycles and jobs
 (``m_blocks``: the cycles' mean, 99th percentile and slowest, the slowest
 block's tile, its pieces run and shaded and its cycles a piece), and reads
 every launch's registers, local bytes and blocks per SM
-(``vt_march_slabs_info``, ``vt_march_slabs_bwd_info``; ``SH<n>-opt-bbox``
-the narrowed instantiation a launch with a bbox takes), and the device
+(``vt_march_slabs_info``, ``vt_march_slabs_bwd_info``), and the device
 memory M-bwd's call holds above what was allocated before it
 (``bwd_alloc_mib``: its output and its buffers). Both kernels' outputs are
 held to the port's plain versions
@@ -382,8 +381,7 @@ def finish_checkout(procs: list) -> dict:
     return libs
 
 
-#: the library of kernel M's SH option and RGBA variants (and the narrowed
-#: instantiation), whose clock build chip_smoke.py's phase 12b reads
+#: the library of kernel M's SH option and RGBA variants, whose clock build chip_smoke.py's phase 12b reads
 #: (start_probe_build)
 PROBE_LIB = "slab_march_opt"
 
@@ -436,9 +434,7 @@ def sass_compare(parent: dict, change: dict) -> dict:
     """The SASS of two builds' libraries (``finish_checkout``'s CDLLs
     without the clock), function by function (cuobjdump, as
     probes/display_sass reads it): per library, the functions equal and
-    those that differ or are missing from one build. Kernel M's narrowed
-    variants (the "_opt" library's march_live_kernel) are meant to differ;
-    every other function is meant to be the parent's."""
+    those that differ or are missing from one build."""
     from volrend_torch.probes.display_sass import functions
     out = {}
     for name in sorted(set(parent) & set(change)):
@@ -532,30 +528,27 @@ def _parts(fn, tag: str):
     return None
 
 
-def _info(libs: dict, fmt: int, bd: int, f32: bool, opt: int) -> dict:
-    """The launches of an instantiation (format ``fmt``; ``opt`` 0 the
-    default, 1 the option variant, 3 its narrowed instantiation, which a
-    launch with a bbox takes and M-bwd does not have) in ``libs``."""
-    suffix = _SET_SUFFIX[2 if fmt in (2, 3) else int(bool(opt))]
+def _info(libs: dict, fmt: int, bd: int, f32: bool, opt: bool) -> dict:
+    """The launches of an instantiation (format ``fmt``, option variant or
+    not) in ``libs``."""
+    suffix = _SET_SUFFIX[2 if fmt in (2, 3) else int(opt)]
     fwd = libs["slab_march" + suffix]
     bwd = libs["slab_march_bwd" + suffix]
     m = (ctypes.c_int * 11)()
     b = (ctypes.c_int * 7)()
     args = (bd, int(f32), fmt, int(opt))
     kernels.check(fwd.vt_march_slabs_info(*args, m), "slab_march")
-    keys = ("blocks_per_sm", "regs", "local_bytes", "smem")
-    if opt == 3:
-        return {"M": dict(zip(keys, m[:4]))}
     kernels.check(bwd.vt_march_slabs_bwd_info(*args, b), "slab_march_bwd")
+    keys = ("blocks_per_sm", "regs", "local_bytes", "smem")
     return {"M": dict(zip(keys, m[:4])), "pass1": dict(zip(keys, b[:4])),
             "pass2": dict(zip(keys[:3], b[4:]))}
 
 
 def _info_or_none(libs: dict, fmt: int, bd: int, f32: bool,
-                  opt: int) -> Optional[dict]:
+                  opt: bool) -> Optional[dict]:
     """_info, or None for an instantiation the build refuses: one whose
     block needs more shared memory than the card gives one (an --alt
-    build's), or one it does not have (a parent's narrowed ones)."""
+    build's)."""
     try:
         return _info(libs, fmt, bd, f32, opt)
     except RuntimeError as e:
@@ -567,23 +560,22 @@ def _info_or_none(libs: dict, fmt: int, bd: int, f32: bool,
 def variant_info(libs: dict) -> dict:
     """A build's instantiations by bound and payload (_info_or_none), keyed
     as probes/train_info.py keys them, of the libraries it holds: the SH
-    defaults, SH with options (and their narrowed instantiations, kernel M
-    alone: ``-opt-bbox``) and RGBA, SG and ASG by lobe bound."""
+    defaults, SH with options and RGBA, SG and ASG by lobe bound."""
     out = {}
     for f32 in (True, False):
         pay = "f32" if f32 else "bf16"
         if "slab_march_opt" in libs:
-            out[f"RGBA-{pay}"] = _info_or_none(libs, 0, -1, f32, 1)
+            out[f"RGBA-{pay}"] = _info_or_none(libs, 0, -1, f32, True)
         for bound in (1, 4, 9, 16, 25):
-            for name, fmt, opt in (("SH", 1, 0), ("SH", 1, 1), ("SH", 1, 3),
-                                   ("SG", 2, 1), ("ASG", 3, 1)):
+            for name, fmt, opt in (("SH", 1, False), ("SH", 1, True),
+                                   ("SG", 2, True), ("ASG", 3, True)):
                 if bound == 1 and fmt > 1:
                     continue
-                suffix = _SET_SUFFIX[2 if fmt > 1 else int(bool(opt))]
+                suffix = _SET_SUFFIX[2 if fmt > 1 else int(opt)]
                 if "slab_march" + suffix not in libs:
                     continue
-                key = (f"SH{bound}{('', '-opt', '', '-opt-bbox')[opt]}"
-                       if fmt == 1 else f"{name}<={bound}")
+                key = (f"SH{bound}{'-opt' if opt else ''}" if fmt == 1
+                       else f"{name}<={bound}")
                 out[f"{key}-{pay}"] = _info_or_none(libs, fmt, bound, f32,
                                                     opt)
     return out
@@ -690,15 +682,8 @@ def run_cases(dev, cases, parent=None, alt=None, only=BUILDS) -> dict:
                 row["bwd_rel_l2"] = float((g - g_p).norm() / g_p.norm())
                 del g
                 row["parts_ms"] = _parts(bwd, f"{case} M-bwd ({tag})")
-                f32 = dt == torch.float32
-                row["info"] = _info(libs[False], cfg.fmt, bd, f32,
-                                    int(mode.options(bd)))
-                if cfg.fmt == 1 and not mode.bbox_full:
-                    # kernel M's launch takes the narrowed instantiation
-                    # where the build has one
-                    live = _info_or_none(libs[False], 1, bd, f32, 3)
-                    if live is not None:
-                        row["info"]["M"] = live["M"]
+                row["info"] = _info(libs[False], cfg.fmt, bd,
+                                    dt == torch.float32, mode.options(bd))
             if (row["bwd_rel_l2"] > _TOL_BWD[dt] or row["m_max_diff"]
                     > float(cfg.opt.stop_thresh) + _TOL_M):
                 raise RuntimeError(f"train_march {case} ({tag}) disagrees "
