@@ -24,30 +24,40 @@
 // upsample and the where's output: ~5.6 GB at the finest level alone.
 //
 // Design:
-// - One warp a word of bits, i.e. 32 x-neighbours of one (z, y) row. Each
-//   lane finds its voxel's level by walking the levels' masks coarse to
-//   fine (the bake map's own bool masks: a stored (G, G, G) level map
-//   would add G^3 bytes at the training step's peak; the coarse masks stay
-//   in L1/L2, and the finest, as large as such a map, is read only for
-//   the voxels no coarser level covers), finds its source record, and
-//   votes its live bit (__ballot_sync; lane 0 stores the word, no
-//   atomics).
+// - One warp a word of bits, i.e. 32 x-neighbours of one (z, y) row, or,
+//   where a record is short (D = 4 and 13: 512 and 1 664 bytes a word),
+//   WORDS of them (4 and 2), so that a warp keeps as many bytes in flight
+//   as the wide records' warps do.
+// - Each lane finds its voxel's level from the levels' masks (the bake
+//   map's own bool masks: a stored (G, G, G) level map would add G^3
+//   bytes at the training step's peak). The probes of up to PROBES levels
+//   are issued together, for all of a warp's words, before any is read,
+//   and the coarsest level that covers the voxel is taken (coarse to fine,
+//   as the chain's wheres nest): the walk is one load's latency, not L
+//   dependent ones. The coarse masks stay in L1/L2; the finest, as large
+//   as such a map, is read once, coalesced. A voxel's block index at level
+//   j is its coordinates divided by G / B_j, taken as a multiply by a
+//   magic number (exact for coordinates and factors below 2^16).
 // - The warp's 32 records are one contiguous run of the bake: lane l moves
 //   elements l, l + 32, ... of the run, 16-byte units where a record is a
 //   multiple of 16 bytes (D = 4, 28, 76) and 4-byte words otherwise,
 //   taking each element's source address from the lane that owns its
-//   voxel (__shfl_sync). A whole word's loads are all issued before its
-//   stores (D / 4 or D registers a lane), so a warp keeps its run's reads
-//   in flight. Stores are coalesced, and so are the finest level's loads;
-//   a coarse level's record is re-read by its neighbours from L1/L2.
+//   voxel (__shfl_sync). All of a warp's loads are issued before its
+//   stores (WORDS x D / 4 or D registers a lane). Stores are coalesced, and
+//   so are the finest level's loads; a coarse level's record is re-read by
+//   its neighbours from L1/L2.
+// - The live bit's sigma is the element the warp loads anyway: at D = 4 the
+//   lane's own record's last float (.w), at other widths a shuffle from the
+//   lane that holds element D - 1 of the voxel's record. Each lane votes
+//   (__ballot_sync); lane 0 stores the word, no atomics.
 // - The SH widths (D = 4, 13, 28, 49, 76: one instantiation each) keep
 //   their record width at compile time. Every other width the trainer's
 //   formats take (SG and ASG of nb lobes, D = 3 nb + 1 up to 76) goes
 //   through one instantiation with D at run time (bake_kernel<0>), whose
 //   lanes move the run's 4-byte words one at a time (a load, then its
-//   store).
-// - The levels' and masks' pointers and sides are kernel parameters
-//   (indexed per lane from the constant bank).
+//   store), as does a row's last, partial word at any width.
+// - The levels' and masks' pointers, sides and magic numbers are kernel
+//   parameters (indexed per lane from the constant bank).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,13 +69,56 @@ namespace {
 constexpr int MAX_LEVELS = 24;
 constexpr int WARPS = 8;  // warps a block
 
+// The levels probed together before any is read (probes/bake.py --alt
+// builds others; 1: the walk, coarse to fine, a level a step).
+#ifndef VT_BK_PROBES
+#define VT_BK_PROBES 1
+#endif
+constexpr int PROBES = VT_BK_PROBES;
+
 struct Levels {
   const float* p[MAX_LEVELS];     // level j: (B_j, B_j, B_j, D) f32
   const uint8_t* m[MAX_LEVELS];   // its mask: (B_j, B_j, B_j) bool
+  // floor(2^32 / f) + 1 for f = G / B_j: c / f = (c * mag) >> 32
+  unsigned long long mag[MAX_LEVELS];
   int side[MAX_LEVELS];           // B_j
-  int fac[MAX_LEVELS];            // G / B_j
   int L;
 };
+
+// c / f for a coordinate c < 2^16 and f <= 2^16 (exact: the magic's excess
+// adds less than 2^-16 <= 1 / f to c / f)
+__device__ __forceinline__ int div_by(int c, unsigned long long mag) {
+  return (int)(((unsigned long long)(unsigned)c * mag) >> 32);
+}
+
+// the flat block index of voxel (z, y, x) at level j
+__device__ __forceinline__ long long block_of(const Levels& lv, int j, int z,
+                                              int y, int x) {
+  const unsigned long long mg = lv.mag[j];
+  const long long B = lv.side[j];
+  return ((long long)div_by(z, mg) * B + div_by(y, mg)) * B + div_by(x, mg);
+}
+
+// bit i set when level min(j0 + i, L - 1) covers voxel (z, y, x): PROBES
+// loads, none waiting on another
+__device__ __forceinline__ unsigned probe(const Levels& lv, int j0, int z,
+                                          int y, int x) {
+  unsigned hit = 0;
+#pragma unroll
+  for (int i = 0; i < PROBES; ++i) {
+    const int j = min(j0 + i, lv.L - 1);
+    hit |= (unsigned)(__ldg(lv.m[j] + block_of(lv, j, z, y, x)) != 0) << i;
+  }
+  return hit;
+}
+
+// a record element's last float: sigma, where the element ends a record
+__device__ __forceinline__ float last_of(float4 v) { return v.w; }
+__device__ __forceinline__ float last_of(float v) { return v; }
+
+__device__ __forceinline__ bool live_of(float sigma, float thresh) {
+  return __bfloat162float(__float2bfloat16_rn(sigma)) > thresh;
+}
 
 template <int DC>
 __global__ void __launch_bounds__(32 * WARPS)
@@ -80,25 +133,24 @@ bake_kernel(Levels lv, int G, int NW, float thresh, float* __restrict__ out,
   const int x0 = 32 * (int)(word - row * NW);
   const int z = (int)(row / G), y = (int)(row - (long long)z * G);
   const int n = min(32, G - x0);  // the run's voxels
-  const float* src = nullptr;
-  if (lane < n) {
-    const int x = x0 + lane;
-    long long blk = 0;
-    int j = 0;
-    for (; j < lv.L; ++j) {  // the one level whose mask covers the voxel
-      const int f = lv.fac[j], B = lv.side[j];
-      blk = ((long long)(z / f) * B + y / f) * B + x / f;
-      if (__ldg(lv.m[j] + blk)) break;
+  // a lane past the row's end walks its last voxel, unused
+  const int x = min(x0 + lane, G - 1);
+  int j = lv.L - 1;  // the finest, where no level covers the voxel
+#ifdef VT_BK_LEVEL_KNOWN
+  // a probe build (probes/bake.py): the voxel's level read from a stored
+  // (G, G, G) level map handed as the first mask, one load for the walk
+  j = __ldg(lv.m[0] + ((long long)z * G + y) * G + x);
+#else
+  // the coarsest level whose mask covers the voxel, PROBES levels a step
+  for (int j0 = 0; j0 < lv.L; j0 += PROBES) {
+    const unsigned hit = probe(lv, j0, z, y, x);
+    if (hit) {
+      j = j0 + __ffs(hit) - 1;
+      break;
     }
-    src = lv.p[min(j, lv.L - 1)] + blk * D;
   }
-  if (live) {
-    const bool on =
-        src && __bfloat162float(__float2bfloat16_rn(__ldg(src + D - 1))) >
-                   thresh;
-    const unsigned b = __ballot_sync(0xffffffffu, on);
-    if (lane == 0) live[word] = b;
-  }
+#endif
+  const float* src = lv.p[j] + block_of(lv, j, z, y, x) * D;
   const unsigned long long sp = reinterpret_cast<unsigned long long>(src);
   // the run's elements: 16-byte units where a record is a multiple of 16
   // bytes, else 4-byte words; E a record
@@ -116,12 +168,34 @@ bake_kernel(Levels lv, int G, int NW, float thresh, float* __restrict__ out,
             reinterpret_cast<const T*>(__shfl_sync(0xffffffffu, sp, u));
         v[i] = __ldg(s + (q - u * EC));
       }
+      if (live) {
+        // the lane's voxel's sigma from the loaded run: element EC - 1 of
+        // its record, held by lane qs % 32 as its element qs / 32 (its own
+        // at D = 4)
+        float sig = last_of(v[0]);
+        if constexpr (EC > 1) {
+          const int qs = lane * EC + EC - 1;
+#pragma unroll
+          for (int i = 0; i < EC; ++i) {
+            const float s = __shfl_sync(0xffffffffu, last_of(v[i]), qs & 31);
+            if (i == qs >> 5) sig = s;
+          }
+        }
+        const unsigned b = __ballot_sync(0xffffffffu, live_of(sig, thresh));
+        if (lane == 0) live[word] = b;
+      }
 #pragma unroll
       for (int i = 0; i < EC; ++i) dst[32 * i + lane] = v[i];
       return;
     }
   }
-  // a run of any width, or the row's last, partial word
+  // a run of any width, or the row's last, partial word: the live bit from
+  // a load of its own, then the run's elements one at a time
+  if (live) {
+    const bool on = lane < n && live_of(__ldg(src + D - 1), thresh);
+    const unsigned b = __ballot_sync(0xffffffffu, on);
+    if (lane == 0) live[word] = b;
+  }
   const int elems = n * E;
   for (int base = 0; base < elems; base += 32) {  // uniform trip count
     const int q = base + lane;
@@ -148,16 +222,16 @@ int launch(const Levels& lv, int G, int D, float thresh, float* out,
 // (B_j, B_j, B_j, D) f32 tensor, 16-byte aligned; masks: a host array of L
 // device pointers, level j's (B_j, B_j, B_j) bool mask, every voxel covered
 // by exactly one level; sides: a host array of the L sides B_j (each
-// dividing G); live: (G, G, ceil(G / 32)) int32 words of the voxels' live
-// bits at ``thresh``, or null for none. D is 3 nb + 1 for nb = 1 to 25
-// (SH of 1 to 25 basis functions, SG and ASG of nb lobes; 4 is also RGBA).
-// Returns cudaGetLastError() after the launch.
+// dividing G; G below 2^16); live: (G, G, ceil(G / 32)) int32 words of the
+// voxels' live bits at ``thresh``, or null for none. D is 3 nb + 1 for nb =
+// 1 to 25 (SH of 1 to 25 basis functions, SG and ASG of nb lobes; 4 is also
+// RGBA). Returns cudaGetLastError() after the launch.
 extern "C" int vt_bake_pyramid(const void* levels, const void* masks,
                                const void* sides, int L, int G, int D,
                                float thresh, void* out, void* live,
                                void* stream) {
-  if (L < 1 || L > MAX_LEVELS || G < 1 || D < 4 || D > 76 || D % 3 != 1 ||
-      (reinterpret_cast<uintptr_t>(out) & 15))
+  if (L < 1 || L > MAX_LEVELS || G < 1 || G >= 65536 || D < 4 || D > 76 ||
+      D % 3 != 1 || (reinterpret_cast<uintptr_t>(out) & 15))
     return (int)cudaErrorInvalidValue;
   Levels lv{};
   const void* const* ptrs = static_cast<const void* const*>(levels);
@@ -169,7 +243,7 @@ extern "C" int vt_bake_pyramid(const void* levels, const void* masks,
     lv.p[j] = static_cast<const float*>(ptrs[j]);
     lv.m[j] = static_cast<const uint8_t*>(mks[j]);
     lv.side[j] = sd[j];
-    lv.fac[j] = G / sd[j];
+    lv.mag[j] = (1ull << 32) / (unsigned long long)(G / sd[j]) + 1;
   }
   lv.L = L;
   float* o = static_cast<float*>(out);

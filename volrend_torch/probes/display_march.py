@@ -25,10 +25,29 @@ checkout of the package: run it by path with that checkout first on
 ``PYTHONPATH``. Every time is the card's: CUDA events around back-to-back
 calls queued behind a device sleep, median of three; the routes also as
 chip_smoke.py's main path times them, queued from the host
-(``route_mrays``). Run on a card from the root of the checkout::
+(``route_mrays``). ``--modes options`` takes the viewer's one-pose launches of kernel M's
+display option variants, as chip_smoke.py's phase 12 (c)/(d) builds
+them (``OPTION_CASES``: rot_dirs, the basis window (0, 8) and the
+render_bbox 0.25-0.75 on the dense int8 grid's pose 0, and bench.py's NDC
+pose with the viz options), beside the default variant's one-pose launch
+and a 4-pose option launch: each launch's time (``march_slabs`` as the
+package makes it) and ``render_image``'s end to end (host clock around
+the call and a synchronize, median of REPS_E2E after a warm call); with
+``clock`` also its clock build's per-block loop cycles (mean, p99, the
+slowest block and its tile), windows, slabs and pieces walked. Where the
+package splits a one-pose option launch into z-segments
+(``slab_march.display_segments``), the same launch unsplit and at each
+forced segment count of ``SEGMENTS`` is timed too, with its passes apart
+and the resume build's clock (the second pass's blocks).
+``--parent DIR`` runs the options mode in turns (parent, change, change,
+parent), each turn this file run by path in a process with that
+checkout's root first on ``PYTHONPATH`` (``--modes options`` alone: the
+package's own launches), logs beside ``--out``.
+
+Run on a card from the root of the checkout::
 
     python -m volrend_torch.probes.display_march [--modes probe,package]
-        [--out display_march.json]
+        [--parent DIR] [--out display_march.json]
 """
 
 from __future__ import annotations
@@ -42,6 +61,10 @@ import subprocess
 
 import numpy as np
 import torch
+
+import shutil
+import sys
+import time
 
 from volrend_torch import kernels
 from volrend_torch.probes import _common as c
@@ -59,23 +82,41 @@ PARTS = ("prologue", "walk", "issue", "wait", "shade", "barrier_window",
          "barrier_shade", "barrier_end", "taps", "composite")
 SLOTS = PARTS + ("loop", "jobs", "slabs", "windows")
 _NAME = "slab_march_display"
+#: the one-pose launches of the option variants (chip_smoke.py phase 12
+#: (c)/(d)) and their yardsticks: (name, scene, render options, poses)
+OPTION_CASES = (
+    ("rot", "dense", dict(rot_dirs=(0.3, -0.2, 0.5)), 1),
+    ("window", "dense", dict(basis_minmax=(0, 8)), 1),
+    ("bbox", "dense", dict(render_bbox=(0.25,) * 3 + (0.75,) * 3), 1),
+    ("ndc-viz", "ndc", dict(rot_dirs=(0.25, -0.15, 0.3),
+                            render_bbox=(0.1, 0.1, 0.0, 0.9, 0.9, 1.0),
+                            basis_minmax=(0, 2)), 1),
+    ("default", "dense", {}, 1),
+    ("rot-4poses", "dense", dict(rot_dirs=(0.3, -0.2, 0.5)), 4),
+)
+#: the forced segment counts timed beside the package's own choice
+SEGMENTS = (2, 4, 8)
+#: render_image calls a case's end-to-end time is the median of
+REPS_E2E = 30
 
 
-def start_build():
-    """Start compiling the probe build (one nvcc, the port's flags and
-    -DVT_DM_CYCLES) unless it is built: keyed, as the port's libraries
-    are, by the source, the shared headers and the flags. ``load`` waits
-    for it."""
+def start_build(name: str = _NAME):
+    """Start compiling the probe build of library ``name`` (the display
+    variants, or "slab_march_display_resume": one nvcc, the port's flags,
+    the library's and -DVT_DM_CYCLES) unless it is built: keyed, as the
+    port's libraries are, by the source, the shared headers and the
+    flags. ``load`` waits for it."""
     out_dir = kernels.build_dir() / "display_march"
     out_dir.mkdir(parents=True, exist_ok=True)
-    out = out_dir / kernels._target(_NAME).name.replace(
-        f"lib{_NAME}_", f"lib{_NAME}_cycles_")
+    out = out_dir / kernels._target(name).name.replace(
+        f"lib{name}_", f"lib{name}_cycles_")
     if out.exists():
         return out, None
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     return out, (tmp, subprocess.Popen(
-        [kernels._nvcc(), *kernels._NVCC_FLAGS, "-DVT_DM_CYCLES", "-o",
-         str(tmp), str(kernels._CSRC / kernels.SOURCES[_NAME][0])],
+        [kernels._nvcc(), *kernels._NVCC_FLAGS,
+         *kernels._FLAGS.get(name, []), "-DVT_DM_CYCLES", "-o",
+         str(tmp), str(kernels._CSRC / kernels.SOURCES[name][0])],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
 
 
@@ -107,18 +148,18 @@ def load(started):
 
 
 @contextlib.contextmanager
-def standing_in(lib):
-    """The port's display launches take ``lib`` (a probe build) while the
-    block runs."""
-    saved = kernels._LIBS.get(_NAME)
-    kernels._LIBS[_NAME] = lib
+def standing_in(lib, name: str = _NAME):
+    """The port's launches of library ``name`` take ``lib`` (a probe
+    build) while the block runs."""
+    saved = kernels._LIBS.get(name)
+    kernels._LIBS[name] = lib
     try:
         yield
     finally:
         if saved is None:
-            kernels._LIBS.pop(_NAME, None)
+            kernels._LIBS.pop(name, None)
         else:
-            kernels._LIBS[_NAME] = saved
+            kernels._LIBS[name] = saved
 
 
 def read_cycles(lib, n_blocks: int) -> np.ndarray:
@@ -252,6 +293,275 @@ def route_mrays(grid, cams, opt) -> dict:
             "host_mrays": rays / host / 1e3}
 
 
+class OptLaunch:
+    """One display launch of ``cams`` on ``grid`` with the render options
+    ``opt``, as chip_smoke.py's variant_check makes it (kernel M's option
+    variants on a non-default ``opt``); ``segments`` forces the z-segment
+    count of a package that splits launches (1: the launch unsplit;
+    None: the package's own choice)."""
+
+    def __init__(self, name, grid, cams, opt):
+        from volrend_torch.ops import slab_march, slab_render
+        from volrend_torch.ops.render_exact import _rodrigues_matrix
+        self.name, self.grid, self.cams, self.opt = name, grid, cams, opt
+        self.P = len(cams)
+        c0 = cams[0]
+        perm, flip, _ = slab_render.choose_axis(grid, c0.transform, c0.fx,
+                                                c0.fy, c.W, c.H)
+        self.perm, self.flip = perm, flip
+        self.crop = slab_render.inplane_crop(grid, perm,
+                                             float(opt.sigma_thresh))
+        self.pay = slab_render.prepare_payload(grid, perm, opt)
+        tr = torch.as_tensor(np.stack([x.transform for x in cams]),
+                             dtype=torch.float32, device=self.pay.device)
+        geom = slab_render.FrameGeom(grid, tr, c0.fx, c0.fy, perm, flip,
+                                     c.W, c.H, opt, GI)
+        self.params, self.zb = slab_render._march_frame_fields(
+            grid, geom, perm, flip, opt)
+        self.slab_ids = grid.slab_ids(perm[0], flip, opt.sigma_thresh)
+        rotm = _rodrigues_matrix(opt.rot_dirs)
+        self.kw = dict(
+            fmt=int(grid.fmt), extra=grid.extra,
+            rot=(None if rotm is None
+                 else tuple(float(v) for v in rotm.reshape(-1))),
+            bbox_full=slab_render._bbox_full(opt),
+            basis_lo=int(opt.basis_minmax[0]),
+            basis_hi=int(opt.basis_minmax[1]),
+            perm=perm, slab_ids=self.slab_ids, sig2=grid.quantized,
+            flip=flip, dir_win=True, k_per_step=slab_march._K_STEP,
+            crop=self.crop)
+
+    def args(self):
+        g = self.grid
+        return (self.pay, self.params, g.qscale, self.zb, g.G, GI,
+                g.data_dim, g.basis_dim)
+
+    def __call__(self, segments=None):
+        from volrend_torch.ops import slab_march
+        if segments is None:
+            return slab_march.march_slabs(*self.args(), **self.kw)
+        return slab_march.march_slabs_segmented(*self.args(), segments,
+                                                **self.kw)
+
+    def options(self) -> bool:
+        """Does the launch take an option variant that a package may split
+        (SH with rot, a bbox or a basis window)?"""
+        kw = self.kw
+        return (kw["rot"] is not None or not kw["bbox_full"]
+                or kw["basis_lo"] > 0
+                or kw["basis_hi"] < self.grid.basis_dim - 1)
+
+    def split(self, S: int):
+        """The launch split into S z-segments (slab_march.DisplaySplit),
+        its passes callable apart."""
+        from volrend_torch.ops import slab_march
+        g, kw = self.grid, self.kw
+        m = slab_march.march_inputs(self.pay, self.params, self.zb, g.G, GI,
+                                    self.slab_ids, slab_march._K_STEP,
+                                    self.crop)
+        mode = slab_march.MarchMode(kw["fmt"], kw["extra"], False, kw["rot"],
+                                    kw["bbox_full"], kw["basis_lo"],
+                                    kw["basis_hi"])
+        return slab_march.DisplaySplit(self.pay, g.qscale, D=g.data_dim,
+                                       bd=g.basis_dim, flip=self.flip,
+                                       mode=mode, S=min(S, len(m["wins"])),
+                                       **m)
+
+    def frame(self):
+        from volrend_torch.ops import slab_render
+        return slab_render.render_image(self.grid, self.cams[0], self.opt,
+                                        gi=GI, out_dtype=torch.uint8)
+
+
+def _beside(sp):
+    """A split march's segment 0 on its second stream beside pass 1 on the
+    current one, as DisplaySplit runs them."""
+    from volrend_torch.ops import slab_march
+    main = torch.cuda.current_stream(sp.gplanar.device)
+    side = slab_march._side_stream(sp.gplanar.device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        sp.first()
+    sp.transmittance()
+    main.wait_stream(side)
+
+
+def e2e_ms(fn, reps: int = REPS_E2E) -> float:
+    """A viewer's wait for ``fn()``: host clock around the call and a
+    synchronize, median of ``reps`` after a warm call."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(ts))
+
+
+def block_stats(rows: np.ndarray, P: int, ntx: int) -> dict:
+    """A launch's per-block clock rows: the loop's cycles (mean, p99, the
+    slowest block with its tile, pose and parts), and the windows, slabs
+    and pieces (jobs) walked, mean and the slowest block's."""
+    n = len(PARTS)
+    loop = rows[:, n].astype(np.float64)
+    slow = int(np.argmax(loop))
+    tile, pose = divmod(slow, P)
+    jobs, slabs, wins = (rows[:, n + 1 + i] for i in range(3))
+    return {
+        "blocks": int(len(rows)), "loop_mean": float(loop.mean()),
+        "loop_p99": float(np.percentile(loop, 99)),
+        "loop_max": int(loop[slow]),
+        "max_over_mean": float(loop[slow] / max(loop.mean(), 1.0)),
+        "slowest": {"block": slow, "pose": pose,
+                    "tile_rows": [tile // ntx * 8, tile // ntx * 8 + 7],
+                    "tile_cols": [tile % ntx * 32, tile % ntx * 32 + 31],
+                    "windows": int(wins[slow]), "slabs": int(slabs[slow]),
+                    "pieces": int(jobs[slow]),
+                    "parts": {k: int(v) for k, v in zip(PARTS, rows[slow])}},
+        "windows_mean": float(wins.mean()), "slabs_mean": float(slabs.mean()),
+        "pieces_mean": float(jobs.mean())}
+
+
+def option_scene(dev, opt):
+    """The option cases' launches: {name: OptLaunch} on the dense int8
+    grid (orbit pose 0, or four poses spread over its group) and the NDC
+    tree's int8 grid (bench.py's NDC pose)."""
+    import dataclasses
+    import chip_smoke
+    from volrend_torch.ops import dense_grid
+    from volrend_torch.ops.camera import Camera
+    tdev = c.get_tree().to_device(lut_depth=None, device=dev)
+    dense = dense_grid.bake_dense(tdev, dtype="int8")
+    del tdev
+    ndev = chip_smoke.ndc_tree().to_device(lut_depth=None, device=dev)
+    ndc = dense_grid.bake_dense(ndev, dtype="int8")
+    del ndev
+    cams = c.orbit_poses(N_POSES)
+    first = next(iter(c.pose_groups(dense, cams).values()))
+    four = [cams[first[int(i)]] for i in
+            np.unique(np.linspace(0, len(first) - 1, 4).round())]
+    ncam = chip_smoke.bench_ndc_pose(Camera)
+    out = {}
+    for name, where, o, P in OPTION_CASES:
+        grid = ndc if where == "ndc" else dense
+        sub = [ncam] if where == "ndc" else (four if P == 4 else cams[:1])
+        out[name] = OptLaunch(name, grid, sub, dataclasses.replace(opt, **o))
+    return out
+
+
+def run_options(dev, modes, lib=None) -> dict:
+    """The option cases (OPTION_CASES): each launch's time, render_image's
+    end to end, forced segment counts where the package splits launches,
+    and with ``clock`` in ``modes`` the clock build's per-block rows of
+    each launch unsplit."""
+    from volrend_torch.utils.options import RenderOptions
+    from volrend_torch.ops import slab_march
+    opt = RenderOptions(max_steps=1024)
+    launches = option_scene(dev, opt)
+    split = hasattr(slab_march, "march_slabs_segmented")
+    res = {}
+    for name, ln in launches.items():
+        acc = ln()
+        cfg = dict(slab_march.march_slabs.display)
+        row = {"variant": cfg["variant"], "poses": ln.P,
+               "ms": device_ms(ln), "render_image_ms": e2e_ms(ln.frame)}
+        if split and ln.options():
+            row["segments"] = cfg.get("segments", 1)
+            ref = ln(1)
+            row["max_abs_diff_unsplit"] = float((acc - ref).abs().max())
+            row["ms_forced"] = {str(S): device_ms(lambda: ln(S))
+                                for S in (1,) + SEGMENTS}
+            row["passes"] = {}
+            for S in SEGMENTS:
+                sp = ln.split(S)
+                T_in = sp.handover(sp.transmittance())
+                acc_0, acc_c = sp.first(), sp.colour(T_in)
+                acc_t = sp.transmittance()
+                row["passes"][str(S)] = {
+                    "first_and_transmittance_ms": device_ms(
+                        lambda: _beside(sp)),
+                    "first_ms": device_ms(sp.first),
+                    "transmittance_ms": device_ms(sp.transmittance),
+                    "handover_ms": device_ms(lambda: sp.handover(acc_t)),
+                    "colour_ms": device_ms(lambda: sp.colour(T_in)),
+                    "combine_ms": device_ms(lambda: sp.combine(
+                        T_in, acc_0, acc_c))}
+        res[name] = row
+        c.log(f"display_march options {name} {json.dumps(row)}")
+    if "clock" in modes:
+        resume = _NAME + "_resume"
+        started = start_build(resume) if split else None
+        lib = build() if lib is None else lib
+        ntx = -(-GI // 32)
+        with standing_in(lib):
+            for name, ln in launches.items():
+                ln(1) if split and ln.options() else ln()
+                n_blocks = ln.P * ntx * -(-GI // 8)
+                res[name]["clock"] = block_stats(
+                    read_cycles(lib, n_blocks), ln.P, ntx)
+                c.log(f"display_march options {name} clock "
+                      f"{json.dumps(res[name]['clock'])}")
+        if split:
+            rlib = load(started)
+            with standing_in(rlib, resume):
+                for name, ln in launches.items():
+                    if "passes" not in res[name]:
+                        continue
+                    S = res[name]["segments"]
+                    sp = ln.split(max(S, 2))
+                    n_blocks = ln.P * sp.S * ntx * -(-GI // 8)
+                    T_in = sp.handover(sp.transmittance())
+                    t_rows = read_cycles(rlib, n_blocks)
+                    sp.colour(T_in)
+                    c_rows = read_cycles(rlib, n_blocks)
+                    res[name]["clock_split"] = {
+                        "segments": sp.S,
+                        "transmittance": block_stats(t_rows, ln.P * sp.S,
+                                                     ntx),
+                        "colour": block_stats(c_rows, ln.P * sp.S, ntx)}
+                    c.log(f"display_march options {name} split clock "
+                          f"{json.dumps(res[name]['clock_split'])}")
+    return res
+
+
+def parent_turns(parent: str, out_path) -> dict:
+    """The options mode in turns: parent, change, change, parent, each a
+    process running this file by path with the checkout's root first on
+    ``PYTHONPATH`` (the scenes' npz caches copied to the parent's root
+    when it has none)."""
+    import chip_smoke
+    roots = {"parent": os.path.abspath(parent), "change": c._ROOT}
+    for cache in (c.CACHE, chip_smoke.CACHE_NDC):
+        dst = os.path.join(roots["parent"], os.path.basename(cache))
+        if os.path.isfile(cache) and not os.path.isfile(dst):
+            shutil.copyfile(cache, dst)
+    log_dir = os.path.dirname(os.path.abspath(out_path or "x.json"))
+    turns = []
+    for i, tag in enumerate(("parent", "change", "change", "parent")):
+        root = roots[tag]
+        jpath = os.path.join(log_dir, f"display_turn{i}_{tag}.json")
+        env = dict(os.environ, PYTHONPATH=root)
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--modes",
+             "options", "--out", jpath], cwd=root, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        with open(jpath[:-5] + ".log", "w") as fh:
+            fh.write(proc.stdout)
+        if proc.returncode != 0:
+            raise RuntimeError(f"display_march: the {tag} turn failed "
+                               f"(exit {proc.returncode}; its log "
+                               f"{jpath[:-5]}.log)")
+        with open(jpath) as fh:
+            opts = json.load(fh)["options"]
+        turns.append({"tag": tag, "options": opts})
+        c.log(f"display_march turn {i} {tag}: " + "; ".join(
+            f"{k} {v['ms']:.4f} ms, render_image {v['render_image_ms']:.3f}"
+            for k, v in opts.items()))
+    return {"turns": turns}
+
+
 def run(dev, modes, lib=None) -> dict:
     """The probe's measurements (``modes``: probe, package); ``lib``: the
     probe build, when already built."""
@@ -260,6 +570,10 @@ def run(dev, modes, lib=None) -> dict:
     grids, cams, launches = scene(dev, opt)
     res = {"device": torch.cuda.get_device_name(0), "package": [],
            "probe": []}
+    if "options" in modes:
+        res["options"] = run_options(dev, modes, lib)
+    if not {"package", "probe"} & set(modes):
+        return res
     own = {}
     for name, lns in launches.items():
         for ln in lns:
@@ -297,14 +611,22 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--modes", default="probe,package",
                     help="comma-separated: probe (the clock builds), "
-                         "package (march_slabs and the routes as built)")
+                         "package (march_slabs and the routes as built), "
+                         "options (the one-pose option launches), clock "
+                         "(their clock build's blocks)")
+    ap.add_argument("--parent", default=None,
+                    help="run the options mode in turns with this parent "
+                         "checkout")
     ap.add_argument("--out", default=None,
                     help="also write the result as JSON to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("display_march times kernel M on a CUDA device; "
                            "none is available")
-    out = run(torch.device("cuda"), args.modes.split(","))
+    if args.parent:
+        out = parent_turns(args.parent, args.out)
+    else:
+        out = run(torch.device("cuda"), args.modes.split(","))
     print(json.dumps(out), flush=True)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

@@ -10,8 +10,9 @@ cases named by ``--cases`` (``chip_smoke.TRAIN_CASES``: SG9, with the lean
 trainer's bf16 payload, ASG9, RGBA, SG6, the SH9 options), runs
 ``train_variants_phase`` as the smoke does (each kernel against its plain
 version, timed steps, every loss falling; a failure ends the turn), and
-prints the kernels line's rows of kernel M's training mode and M-bwd
-(``MT_*``, ``MB_*``); every case's and payload's M and M-bwd numbers are
+prints the kernels line's rows of kernel M's training mode, M-bwd and
+the bake kernel at the cases' widths (``MT_*``, ``MB_*``, ``BK_*``: D = 19
+for SG6, 4 for RGBA); every case's and payload's M and M-bwd numbers are
 read from the phase's log lines (``train <case> kernels [<dtype>]``).
 Run on a card from the root of the change's checkout::
 
@@ -38,7 +39,8 @@ keep = set(sys.argv[1].split(","))
 cs.TRAIN_CASES = tuple(t for t in cs.TRAIN_CASES if t[0] in keep)
 stats = {}
 cs.train_variants_phase(torch, torch.device("cuda"), stats)
-rows = {k: v for k, v in stats.items() if k.startswith(("MT_", "MB_"))}
+rows = {k: v for k, v in stats.items()
+        if k.startswith(("MT_", "MB_", "BK_"))}
 print("PHASE_ROWS " + json.dumps(rows, default=str), flush=True)
 """
 
@@ -92,7 +94,9 @@ def main() -> None:
         out["turns"].append(dict(res, tag=tag))
         c.log(f"phase_turns {tag}: " + "; ".join(
             f"{k} M {v['M_ms']:.4f} ms, M-bwd {v['Mbwd_ms']:.4f} ms"
-            for k, v in sorted(res["cases"].items())))
+            for k, v in sorted(res["cases"].items())) + "; " + "; ".join(
+            f"{k} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f})"
+            for k, v in sorted(res["rows"].items()) if k.startswith("BK_")))
     print(json.dumps(out), flush=True)
     if args.out:
         with open(args.out, "w") as f:
