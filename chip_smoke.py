@@ -2255,17 +2255,14 @@ def ndc_train_phase(torch, dev, tree, stats):
 # ---------------------------------------------------------------------------
 
 #: the JSON line's rows of kernel M's display variants: (stats key, row
-#: name, the variants whose launches the row counts; the option variants'
-#: one-pose launches are split into z-segments, two launches each:
-#: slab_march.DisplaySplit)
+#: name, the variant whose launches the row counts)
 VARIANT_ROWS = (
-    ("M_bf16", "slab_march_display_bf16", ("SH-bf16",)),
-    ("M_sg", "slab_march_display_sg", ("SG-int8",)),
-    ("M_asg", "slab_march_display_asg", ("ASG-int8",)),
-    ("M_rgba", "slab_march_display_rgba", ("RGBA-int8",)),
-    ("M_opt", "slab_march_display_opt", ("SH-int8-opt", "SH-int8-segT",
-                                         "SH-int8-opt-seg")),
-    ("M_depth", "slab_march_display_depth", ("SH-int8-opt-depth",)),
+    ("M_bf16", "slab_march_display_bf16", "SH-bf16"),
+    ("M_sg", "slab_march_display_sg", "SG-int8"),
+    ("M_asg", "slab_march_display_asg", "ASG-int8"),
+    ("M_rgba", "slab_march_display_rgba", "RGBA-int8"),
+    ("M_opt", "slab_march_display_opt", "SH-int8-opt"),
+    ("M_depth", "slab_march_display_depth", "SH-int8-opt-depth"),
 )
 FLOOR_DEPTH = 30.0     # the reference's slab-vs-exact depth floor
 # the render_bbox frame's floor: the slab path masks voxels by their
@@ -2440,94 +2437,31 @@ def instantiation_infos(kernels, keep) -> dict:
     return out
 
 
-def split_parts(torch, tag, grid, opt, cam) -> dict:
-    """The split one-pose launch of ``opt`` on ``grid`` (pose ``cam``, as
-    render_image makes it): its segment count S, the split march's time
-    beside the same launch unsplit (march_slabs_segmented at 1: the tail
-    the split takes off), and its passes apart (pass 1, sigma alone from
-    T = 1; pass 2, the option variant from each segment's incoming T),
-    each logged."""
-    from volrend_torch.ops import slab_march, slab_render
-    from volrend_torch.ops.render_exact import _rodrigues_matrix
-    perm, flip, _ = slab_render.choose_axis(grid, cam.transform, cam.fx,
-                                            cam.fy, W, H)
-    crop = slab_render.inplane_crop(grid, perm, float(opt.sigma_thresh))
-    pay = slab_render.prepare_payload(grid, perm, opt)
-    tr = torch.as_tensor(cam.transform[None], dtype=torch.float32,
-                         device=grid.device)
-    g = slab_render.FrameGeom(grid, tr, cam.fx, cam.fy, perm, flip, W, H,
-                              opt, GI)
-    params, zb = slab_render._march_frame_fields(grid, g, perm, flip, opt)
-    ids = grid.slab_ids(perm[0], flip, opt.sigma_thresh)
-    rotm = _rodrigues_matrix(opt.rot_dirs)
-    mode = slab_march.MarchMode(
-        int(grid.fmt), grid.extra, False,
-        None if rotm is None else tuple(float(v) for v in rotm.reshape(-1)),
-        slab_render._bbox_full(opt), int(opt.basis_minmax[0]),
-        int(opt.basis_minmax[1]))
-    kw = dict(slab_ids=ids, sig2=grid.quantized, flip=flip, dir_win=True,
-              crop=crop, fmt=mode.fmt, extra=mode.extra, rot=mode.rot,
-              bbox_full=mode.bbox_full, basis_lo=mode.basis_lo,
-              basis_hi=mode.basis_hi)
-    args = (pay, params, grid.qscale, zb, grid.G, GI, grid.data_dim,
-            grid.basis_dim)
-    m = slab_march.march_inputs(pay, params, zb, grid.G, GI, ids,
-                                slab_march._K_STEP, crop)
-    S = slab_march.display_segments(1, GI, len(m["wins"]),
-                                    slab_march._sm_count(grid.device.index))
-    sp = slab_march.DisplaySplit(pay, grid.qscale, D=grid.data_dim,
-                                 bd=grid.basis_dim, flip=flip, mode=mode,
-                                 S=S, **m)
-    T_in = sp.handover(sp.transmittance())
-    res = {"segments": S,
-           "split_ms": cuda_ms(torch, lambda: slab_march.march_slabs(
-               *args, perm, **kw), KREPS),
-           "unsplit_ms": cuda_ms(torch, lambda: slab_march.
-                                 march_slabs_segmented(*args, 1, perm, **kw),
-                                 KREPS),
-           "first_ms": cuda_ms(torch, sp.first, KREPS),
-           "pass1_ms": cuda_ms(torch, sp.transmittance, KREPS),
-           "pass2_ms": cuda_ms(torch, lambda: sp.colour(T_in), KREPS)}
-    res["tail_ms"] = res["unsplit_ms"] - res["split_ms"]
-    log(f"{tag}: split into S = {S} z-segments {res['split_ms']:.4f} ms "
-        f"(segment 0 {res['first_ms']:.4f} beside pass 1 "
-        f"{res['pass1_ms']:.4f}, then pass 2 {res['pass2_ms']:.4f}), "
-        f"unsplit {res['unsplit_ms']:.4f} ms: the split takes "
-        f"{res['tail_ms']:.4f} ms of the one-wave tail off")
-    return res
-
-
-def counted_render(torch, tag, fn, passes: int, world: bool, launched,
-                   split: int = 0):
+def counted_render(torch, tag, fn, passes: int, world: bool, launched):
     """fn() (one render_image call of ``passes`` slab passes) with the
     launch counts and the plain versions' calls reset just before and
-    read just after: kernel M once a pass, or, for the ``split`` passes
-    split into z-segments (slab_march.DisplaySplit), three times, through display
-    variants only (march_slabs.variants), no plain version, and on a world
-    tree no B or C. Returns (frame, counts, variants)."""
+    read just after: kernel M once a pass, through display variants only
+    (march_slabs.variants), no plain version, and on a world tree no B or
+    C. Returns (frame, counts, variants)."""
     from volrend_torch.ops import slab_march
     calls = count_plain_calls()
     try:
         torch.cuda.synchronize()
         reset_counts()
         slab_march.march_slabs.variants = {}
-        slab_march.march_slabs.split = 0
         frame = fn()
         torch.cuda.synchronize()
         counts = read_counts()
-        counts["split"] = slab_march.march_slabs.split
         variants = dict(slab_march.march_slabs.variants)
     finally:
         restore_plain()
     log(f"{tag}: counts {counts}, kernel M variants {variants}, plain "
         f"versions called {sum(calls.values())}")
     launched.update(variants)
-    want = passes + 2 * split
-    if (counts["split"] != split or counts["march"] != want
-            or sum(variants.values()) != want or any(calls.values())):
-        fail(f"{tag}: not one kernel M launch a pass ({split} of them split "
-             f"in three), or a plain version ran ({counts}, {variants}, "
-             f"{calls})")
+    if (counts["march"] != passes or sum(variants.values()) != passes
+            or any(calls.values())):
+        fail(f"{tag}: not one kernel M launch a pass, or a plain version "
+             f"ran ({counts}, {variants}, {calls})")
     if world and (counts["build"] or counts["combine"]):
         fail(f"{tag}: kernels B or C ran on a world tree ({counts})")
     if counts["warp_poses"] + counts["warp_mesh_poses"] + counts[
@@ -2642,19 +2576,15 @@ def variants_phase(torch, kernels, dev, opt, stats, gate, main_path,
         vopt = dataclasses.replace(opt, **o)
         variant_check(torch, kernels, f"option {name}", grid, vopt, [cam0],
                       key, stats)
-        split = int(name != "depth")
         frame, counts, _ = counted_render(
             torch, f"option {name}", lambda: slab_render.render_image(
                 grid, cam0, vopt, gi=GI, out_dtype=torch.uint8), 1, True,
-            launched, split)
+            launched)
         out[f"option_{name}"] = {
             "counts": counts,
             "psnr_db": gate(f"option {name}", tdev, cam0,
                             torch.as_tensor(frame, device=dev), 5, floor,
                             vopt)}
-        if split:
-            out[f"option_{name}"]["split"] = split_parts(
-                torch, f"option {name}", grid, vopt, cam0)
     # (d) the split sweep pose at e = 0.5, depth mode: every class pass
     scam = split_sweep_poses(Camera)[0]
     dopt = dataclasses.replace(opt, render_depth=True)
@@ -2688,23 +2618,19 @@ def variants_phase(torch, kernels, dev, opt, stats, gate, main_path,
         vopt = dataclasses.replace(opt, **o)
         variant_check(torch, kernels, f"ndc {name}", ngrid, vopt, [ncam],
                       "M_depth" if name == "depth" else "M_opt", stats)
-        split = int(name == "viz")
         frame, counts, _ = counted_render(
             torch, f"ndc {name}", lambda: slab_render.render_image(
                 ngrid, ncam, vopt, gi=GI, out_dtype=torch.uint8), 1, False,
-            launched, split)
+            launched)
         out[f"ndc_{name}"] = {
             "counts": counts,
             "psnr_db": gate(f"ndc {name}", ndev, ncam,
                             torch.as_tensor(frame, device=dev), 8,
                             FLOOR_DEPTH, vopt)}
-        if split:
-            out[f"ndc_{name}"]["split"] = split_parts(
-                torch, f"ndc {name}", ngrid, vopt, ncam)
     del ngrid, ndev
     torch.cuda.empty_cache()
-    for key, _, names in VARIANT_ROWS:
-        stats[key]["launches"] = sum(launched[n] for n in names)
+    for key, _, name in VARIANT_ROWS:
+        stats[key]["launches"] = launched[name]
     out["launched"] = dict(launched)
     log(f"variants: {json.dumps(out)}")
     return out

@@ -1003,11 +1003,11 @@ _BAKE_TREES = [(128, 4), (128, 13), (128, 19), (128, 28), (16, 4),
 def test_bake_kernel_bit_equal(card, case):
     """The bake kernel equals its plain version bit for bit for D = 4, 13,
     28, 49, 76 (records of 16, 52, 112, 196, 304 bytes: 16-byte units and
-    4-byte words; a warp takes 4, 2 and 1 words), its live bits equal
-    live_bits_ref (sigma around the threshold), and its gradient equals
-    autograd through the plain version (G = 32); and on _BAKE_TREES: a
-    G = 128 pyramid with leaves at every one of its levels, G = 16 rows of
-    half a bit word, and D = 19 (bake_kernel<0>)."""
+    4-byte words), its live bits equal live_bits_ref (sigma around the
+    threshold), and its gradient equals autograd through the plain version
+    (G = 32); and on _BAKE_TREES: a G = 128 pyramid with leaves at every
+    one of its seven levels (the walk's longest), G = 16 rows of half a
+    bit word (the partial-word path) and D = 19 (bake_kernel<0>)."""
     from volrend_torch.ops import slab_grad
     if isinstance(case, int):
         tree = make_test_tree(max_depth=4, basis_dim=case, seed=case,
@@ -1360,11 +1360,7 @@ def _variant_vs_plain(g, opt, backs=((1.0, 0.25, 0.35), (1.0, 0.1, 0.45)),
                       tol=TOL_M):
     """Kernel M on grid ``g`` with the format and options of ``opt`` (and
     the display knobs ``dir_win``, ``shade_bf16``) against its plain
-    version within ``tol``; returns (acc, the launch's variant). The
-    option variants' launches of few tiles (slab_march.display_segments:
-    these 2 poses at gi=64, 32 tiles) are split into z-segments, three
-    launches (slab_march.DisplaySplit); the variant returned is the one
-    the last runs, without its "-seg"."""
+    version within ``tol``; returns (acc, the launch's variant)."""
     cams = _cams(backs, fx)
     perm, flip, _ = slab_render.choose_axis(g, cams[0].transform, fx, fx, W,
                                             H)
@@ -1381,21 +1377,12 @@ def _variant_vs_plain(g, opt, backs=((1.0, 0.25, 0.35), (1.0, 0.1, 0.45)),
               basis_lo=int(opt.basis_minmax[0]),
               basis_hi=int(opt.basis_minmax[1]))
     n0 = slab_march.march_slabs.launches
-    s0 = slab_march.march_slabs.split
     acc = slab_march.march_slabs(
         pay, params, g.qscale, zb, g.G, GI, g.data_dim, g.basis_dim, perm,
         slab_ids=ids, sig2=g.quantized, flip=flip, dir_win=dir_win,
         shade_bf16=shade_bf16, crop=crop, **kw)
-    split = slab_march.march_slabs.split - s0
-    mode = slab_march.MarchMode(int(g.fmt), None, kw["depth"], kw["rot"],
-                                kw["bbox_full"], kw["basis_lo"],
-                                kw["basis_hi"])
-    assert split == int(slab_march.splits(mode, g.basis_dim))
-    assert slab_march.march_slabs.launches == n0 + 1 + 2 * split
+    assert slab_march.march_slabs.launches == n0 + 1
     variant = slab_march.march_slabs.display["variant"]
-    if split:
-        assert variant.endswith("-seg"), variant
-        variant = variant[:-len("-seg")]
     m = slab_march.march_inputs(pay, params, zb, g.G, GI, ids, 4, crop)
     ref = slab_march.march_slabs_ref(
         pay, g.qscale, D=g.data_dim, bd=g.basis_dim, flip=flip,
@@ -2260,117 +2247,6 @@ def test_display_bf16_shade_matches_plain(format_grids, dt, options):
     _, variant = _variant_vs_plain(format_grids[("SG", dt)], opt,
                                    shade_bf16=True)
     assert "bf16shade" not in variant, variant
-
-
-# ---------------------------------------------------------------------------
-# A one-pose launch of the option variants split into z-segments
-# (slab_march.DisplaySplit: the resume build's depth variant from T = 1,
-# the hand-over, the option variant from each segment's incoming T)
-# ---------------------------------------------------------------------------
-
-@pytest.fixture(scope="module")
-def sh_option_grids(card):
-    """{(bd, bake dtype): grid}: the G=32 fog at SH1-25, int8 and f16."""
-    out = {}
-    for bd in (1, 4, 9, 16, 25):
-        dev = make_test_tree(max_depth=4, basis_dim=bd, seed=5,
-                             sigma_scale=60.0).to_device(lut_depth=None,
-                                                         device=card)
-        for dt in ("int8", "f16"):
-            out[(bd, dt)] = dense_grid.bake_dense(dev, dtype=dt)
-    return out
-
-
-def _split_options(option, bd):
-    """rot, a basis window that drops planes, or a bbox."""
-    return {"rot": dict(rot_dirs=(0.3, -0.2, 0.5)),
-            "window": dict(basis_minmax=(0, max(bd // 2 - 1, 0))),
-            "bbox": dict(render_bbox=(0.25,) * 3 + (0.75,) * 3)}[option]
-
-
-def _split_vs_plain(g, opt, cam, shade_bf16=False, tol=TOL_M):
-    """One pose of grid ``g`` with ``opt`` through march_slabs (a split
-    launch: 16 tiles at gi=64), counted (three launches, the variant's
-    "-seg" twice and "-segT" once, one split), and through
-    march_slabs_segmented at 2
-    and 8 segments, each against the whole plain march within ``tol``
-    (freeze flips aside, _agree)."""
-    perm, flip, _ = slab_render.choose_axis(g, cam.transform, cam.fx,
-                                            cam.fy, W, H)
-    geom = slab_render.FrameGeom(g, cam.transform[None], cam.fx, cam.fy,
-                                 perm, flip, W, H, opt, GI)
-    params, zb = slab_render._march_frame_fields(g, geom, perm, flip, opt)
-    pay = slab_render._permuted_grid(g, perm)
-    ids = g.slab_ids(perm[0], flip, opt.sigma_thresh)
-    rotm = slab_render._rodrigues_matrix(opt.rot_dirs)
-    kw = dict(fmt=int(g.fmt), extra=g.extra,
-              rot=(None if rotm is None
-                   else tuple(float(v) for v in rotm.reshape(-1))),
-              bbox_full=slab_render._bbox_full(opt),
-              basis_lo=int(opt.basis_minmax[0]),
-              basis_hi=int(opt.basis_minmax[1]), slab_ids=ids,
-              sig2=g.quantized, flip=flip, dir_win=True,
-              shade_bf16=shade_bf16)
-    args = (pay, params, g.qscale, zb, g.G, GI, g.data_dim, g.basis_dim)
-    n0, s0 = slab_march.march_slabs.launches, slab_march.march_slabs.split
-    slab_march.march_slabs.variants = {}
-    acc = slab_march.march_slabs(*args, perm, **kw)
-    assert slab_march.march_slabs.launches == n0 + 3
-    assert slab_march.march_slabs.split == s0 + 1
-    pay_name = "-bf16" if pay.dtype == torch.bfloat16 else "-int8"
-    colour = "SH" + pay_name + ("-bf16shade" if shade_bf16 else "-opt")
-    assert slab_march.march_slabs.variants == {
-        "SH" + pay_name + "-segT": 1, colour + "-seg": 2}
-    assert slab_march.march_slabs.display["segments"] == min(
-        4, len(slab_march.march_inputs(pay, params, zb, g.G, GI, ids,
-                                       4)["wins"]))
-    m = slab_march.march_inputs(pay, params, zb, g.G, GI, ids, 4)
-    ref = slab_march.march_slabs_ref(
-        pay, g.qscale, D=g.data_dim, bd=g.basis_dim, flip=flip,
-        dir_win=True, bf16_shade=shade_bf16,
-        **{k: kw[k] for k in ("fmt", "extra", "rot", "bbox_full",
-                              "basis_lo", "basis_hi")}, **m)
-    torch.cuda.synchronize()
-    assert float(acc[:, 3].min()) < 0.9
-    _agree(acc, ref, tol)
-    for S in (2, 8):
-        _agree(slab_march.march_slabs_segmented(*args, S, perm, **kw), ref,
-               tol)
-    return acc
-
-
-@pytest.mark.parametrize("bd, dt, option", [
-    (bd, dt, o) for bd in (1, 4, 9, 16, 25) for dt in ("int8", "f16")
-    for o in ("rot", "window", "bbox") if not (bd == 1 and o == "window")])
-def test_split_display_launch_matches_plain(sh_option_grids, bd, dt, option):
-    """SH1-25 with rot, a basis window and a bbox on both payloads: the
-    split launch against the whole plain march, its launches counted."""
-    g = sh_option_grids[(bd, dt)]
-    _split_vs_plain(g, OPT.replace(**_split_options(option, bd)),
-                    _cams([(1.0, 0.25, 0.35)])[0])
-
-
-@pytest.mark.parametrize("dt", ["int8", "f16"])
-@pytest.mark.parametrize("option", ["rot", "window"])
-def test_split_display_launch_bf16_shading(sh_option_grids, dt, option):
-    """bf16 SH shading with options (opt 3 in the resume build), split,
-    against the plain version's bf16 rounding."""
-    g = sh_option_grids[(16, dt)]
-    _split_vs_plain(g, OPT.replace(**_split_options(option, 16)),
-                    _cams([(1.0, 0.25, 0.35)])[0], shade_bf16=True,
-                    tol=TOL_BF16_SHADE)
-
-
-@pytest.mark.parametrize("dt", ["int8", "f16"])
-def test_split_display_launch_ndc_viz_pose(card, ndc_grids, dt):
-    """The NDC viz pose (rot_dirs, a bbox, the basis window (0, 2)) on the
-    NDC tree's bakes, split."""
-    g = ndc_grids[1] if dt == "int8" else dense_grid.bake_dense(
-        _ndc_tree().to_device(lut_depth=None, device=card), dtype="f16")
-    opt = OPT.replace(rot_dirs=(0.25, -0.15, 0.3),
-                      render_bbox=(0.1, 0.1, 0.0, 0.9, 0.9, 1.0),
-                      basis_minmax=(0, 2))
-    _split_vs_plain(g, opt, _ndc_cams()[0])
 
 
 def _no_option_launch(g, case, rows, shade_bf16):

@@ -24,38 +24,38 @@
 // upsample and the where's output: ~5.6 GB at the finest level alone.
 //
 // Design:
-// - One warp a word of bits, i.e. 32 x-neighbours of one (z, y) row, or,
-//   where a record is short (D = 4 and 13: 512 and 1 664 bytes a word),
-//   WORDS of them (4 and 2), so that a warp keeps as many bytes in flight
-//   as the wide records' warps do.
-// - Each lane finds its voxel's level from the levels' masks (the bake
-//   map's own bool masks: a stored (G, G, G) level map would add G^3
-//   bytes at the training step's peak). The probes of up to PROBES levels
-//   are issued together, for all of a warp's words, before any is read,
-//   and the coarsest level that covers the voxel is taken (coarse to fine,
-//   as the chain's wheres nest): the walk is one load's latency, not L
-//   dependent ones. The coarse masks stay in L1/L2; the finest, as large
-//   as such a map, is read once, coalesced. A voxel's block index at level
-//   j is its coordinates divided by G / B_j, taken as a multiply by a
-//   magic number (exact for coordinates and factors below 2^16).
+// - One warp a word of bits, i.e. 32 x-neighbours of one (z, y) row. Each
+//   lane finds its voxel's level by walking the levels' masks coarse to
+//   fine (the bake map's own bool masks: a stored (G, G, G) level map
+//   would add G^3 bytes at the training step's peak; the coarse masks stay
+//   in L1/L2, and the finest, as large as such a map, is read only for
+//   the voxels no coarser level covers; the port hands it only the levels
+//   with leaves, slab_grad.walked_levels). A voxel's block at level j is its
+//   coordinates divided by G / B_j, taken as a multiply by a magic number
+//   (exact for coordinates and factors below 2^16): the walk's steps wait
+//   on their loads, not on integer divisions (probing 2, 4 and 8 levels
+//   at once, and a warp taking 2, 4 and 8 words, were measured slower at
+//   D = 4: PERF.md §6).
 // - The warp's 32 records are one contiguous run of the bake: lane l moves
 //   elements l, l + 32, ... of the run, 16-byte units where a record is a
 //   multiple of 16 bytes (D = 4, 28, 76) and 4-byte words otherwise,
 //   taking each element's source address from the lane that owns its
-//   voxel (__shfl_sync). All of a warp's loads are issued before its
-//   stores (WORDS x D / 4 or D registers a lane). Stores are coalesced, and
-//   so are the finest level's loads; a coarse level's record is re-read by
-//   its neighbours from L1/L2.
-// - The live bit's sigma is the element the warp loads anyway: at D = 4 the
-//   lane's own record's last float (.w), at other widths a shuffle from the
-//   lane that holds element D - 1 of the voxel's record. Each lane votes
+//   voxel (__shfl_sync). A whole word's loads are all issued before its
+//   stores (D / 4 or D registers a lane), so a warp keeps its run's reads
+//   in flight. Stores are coalesced, and so are the finest level's loads;
+//   a coarse level's record is re-read by its neighbours from L1/L2.
+// - A whole word's live bits take each voxel's sigma from the run the warp
+//   loads anyway: at D = 4 the lane's own record's last float (.w), at
+//   other widths a shuffle from the lane that holds element D - 1 of the
+//   voxel's record; no load waits on the walk for it. Each lane votes
 //   (__ballot_sync); lane 0 stores the word, no atomics.
 // - The SH widths (D = 4, 13, 28, 49, 76: one instantiation each) keep
 //   their record width at compile time. Every other width the trainer's
 //   formats take (SG and ASG of nb lobes, D = 3 nb + 1 up to 76) goes
 //   through one instantiation with D at run time (bake_kernel<0>), whose
-//   lanes move the run's 4-byte words one at a time (a load, then its
-//   store), as does a row's last, partial word at any width.
+//   lanes load the live bit's sigma first and then move the run's 4-byte
+//   words one at a time (a load, then its store), as a row's last, partial
+//   word does at any width.
 // - The levels' and masks' pointers, sides and magic numbers are kernel
 //   parameters (indexed per lane from the constant bank).
 #include <cuda_bf16.h>
@@ -68,13 +68,6 @@ namespace {
 
 constexpr int MAX_LEVELS = 24;
 constexpr int WARPS = 8;  // warps a block
-
-// The levels probed together before any is read (probes/bake.py --alt
-// builds others; 1: the walk, coarse to fine, a level a step).
-#ifndef VT_BK_PROBES
-#define VT_BK_PROBES 1
-#endif
-constexpr int PROBES = VT_BK_PROBES;
 
 struct Levels {
   const float* p[MAX_LEVELS];     // level j: (B_j, B_j, B_j, D) f32
@@ -97,19 +90,6 @@ __device__ __forceinline__ long long block_of(const Levels& lv, int j, int z,
   const unsigned long long mg = lv.mag[j];
   const long long B = lv.side[j];
   return ((long long)div_by(z, mg) * B + div_by(y, mg)) * B + div_by(x, mg);
-}
-
-// bit i set when level min(j0 + i, L - 1) covers voxel (z, y, x): PROBES
-// loads, none waiting on another
-__device__ __forceinline__ unsigned probe(const Levels& lv, int j0, int z,
-                                          int y, int x) {
-  unsigned hit = 0;
-#pragma unroll
-  for (int i = 0; i < PROBES; ++i) {
-    const int j = min(j0 + i, lv.L - 1);
-    hit |= (unsigned)(__ldg(lv.m[j] + block_of(lv, j, z, y, x)) != 0) << i;
-  }
-  return hit;
 }
 
 // a record element's last float: sigma, where the element ends a record
@@ -141,11 +121,9 @@ bake_kernel(Levels lv, int G, int NW, float thresh, float* __restrict__ out,
   // (G, G, G) level map handed as the first mask, one load for the walk
   j = __ldg(lv.m[0] + ((long long)z * G + y) * G + x);
 #else
-  // the coarsest level whose mask covers the voxel, PROBES levels a step
-  for (int j0 = 0; j0 < lv.L; j0 += PROBES) {
-    const unsigned hit = probe(lv, j0, z, y, x);
-    if (hit) {
-      j = j0 + __ffs(hit) - 1;
+  for (int i = 0; i < lv.L; ++i) {  // the one level whose mask covers it
+    if (__ldg(lv.m[i] + block_of(lv, i, z, y, x))) {
+      j = i;
       break;
     }
   }

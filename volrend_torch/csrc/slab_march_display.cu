@@ -787,18 +787,6 @@ __global__ void __launch_bounds__(DNT, 2)
   const int bid = (int)blockIdx.x;
   DClock clk;  // a probe build's (VT_DM_CYCLES); empty otherwise
   const int p = bid % a.P, tile = bid / a.P;  // pose fastest
-#if VT_DISPLAY_SET == 1
-  // the resume build: a launch of S z-segments of a.P / S poses (p = pose
-  // * S + segment, each pose's segments neighbours), each segment a run
-  // [wlo, whi) of the window list; wins_masks carries S and the S + 1
-  // bounds after the masks. Params and zbounds are the pose's, acc the
-  // segment's.
-  const int* sgb = a.masks + a.n_win;
-  const int n_seg = sgb[0], pz = p / n_seg, sg = p - pz * n_seg;
-  const int wlo = sgb[1 + sg], whi = sgb[2 + sg];
-#else
-  const int pz = p;
-#endif
   const int j0 = (tile / a.ntx) * TY, k0 = (tile % a.ntx) * DTX;
   const int G = a.G, gi = a.gi;
   Cell* s_chan = reinterpret_cast<Cell*>(smem + a.stage_bytes);
@@ -806,7 +794,7 @@ __global__ void __launch_bounds__(DNT, 2)
   int* s_m = s_w + a.n_win;
   int* s_live = s_m + a.n_win;
 
-  if (tid < NP) s_prm[tid] = a.params[(size_t)pz * NP + tid];
+  if (tid < NP) s_prm[tid] = a.params[(size_t)p * NP + tid];
   if constexpr (V::DEPTH) {
     // the staged planes' scales: sigma's, the last SIGP of the payload's
     for (int i = tid; i < DP; i += DNT) s_qs[i] = a.qscale[a.Dp - DP + i];
@@ -881,7 +869,7 @@ __global__ void __launch_bounds__(DNT, 2)
     dtp[rr] = 0.f;
     tvb[rr] = 0.f;
     if (inpix[rr]) {
-      const float* zbp = a.zb + (size_t)pz * 4 * npx + (size_t)j * gi + k;
+      const float* zbp = a.zb + (size_t)p * 4 * npx + (size_t)j * gi + k;
       zlo[rr] = zbp[0];
       zhi[rr] = zbp[npx];
       dtp[rr] = zbp[2 * npx];
@@ -903,13 +891,8 @@ __global__ void __launch_bounds__(DNT, 2)
   }
   const float vkG = (v0 + dv * (float)k) * Gf;
 
-  // the windows some pixel's z interval meets: only these are staged (of
-  // the block's segment, in the resume build)
-#if VT_DISPLAY_SET == 1
-  for (int wi = wlo; wi < whi; ++wi) {
-#else
+  // the windows some pixel's z interval meets: only these are staged
   for (int wi = 0; wi < a.n_win; ++wi) {
-#endif
     const int w = s_w[wi];
     const float zw0 = (float)(w * K) / Gf + zbase;
     const float zw1 = ((float)(w * K) + (float)K) / Gf + zbase;
@@ -1233,10 +1216,8 @@ KernFn pick_sh(int bd, int rows) {
 // holds every variant above; 1, the resume build
 // (slab_march_display_resume), holds the option variants (opt 1, 3 and 5;
 // 32x8 tiles) with RS, which a z-segment's launch with an upstream state
-// takes (SH without options as the option variant at its defaults), and
-// the passes of a split one-pose launch (slab_march.DisplaySplit: opt 5
-// from T = 1, then opt 1 or 3 from each segment's incoming T, the segment
-// in the block index), so the defaults' code stays as it is.
+// takes (SH without options as the option variant at its defaults), so
+// the defaults' code stays as it is.
 #ifndef VT_DISPLAY_SET
 #define VT_DISPLAY_SET 0
 #endif
@@ -1326,14 +1307,10 @@ int display_smem(int stage_bytes, int chan_cells, int n_win, bool depth) {
 }  // namespace
 
 // wins_masks: (2, n_win) int32 on the device — window ids then occupancy bit
-// masks, in march order; in the resume build followed by S and the S + 1
-// increasing window-list bounds of the launch's z-segments (S = 1, bounds
-// 0 and n_win: one segment). acc: the (P, 4, gi, gi) [r, g, b, T] output;
-// in the resume build it holds on entry the state each pixel starts from
-// (a z-segment's upstream segments'; the payload a z-segment of the grid
-// whose global z is params[30]), P = poses x S rows (pose p's segment s at
-// p S + s; params and zb hold the poses' P / S rows), and only opt 1, 3
-// and 5 are built there. rows:
+// masks, in march order. acc: the (P, 4, gi, gi) [r, g, b, T] output; in the
+// resume build it holds on entry the state each pixel starts from (a
+// z-segment's upstream segments'; the payload a z-segment of the grid whose
+// global z is params[30]), and only opt 1, 3 and 5 are built there. rows:
 // pixel rows a thread (1: 32x8 tiles, 2: 32x16). stage_bytes: the stage's
 // size (a multiple of 16, at least one 256-cell row of the staged planes: Dp,
 // or the depth variant's sigma planes); chan_cells: the shaded-cell buffer's

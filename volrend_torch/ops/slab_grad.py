@@ -331,8 +331,20 @@ class _BakeKernel(torch.autograd.Function):
         return (None, None, *grads)
 
 
+def walked_levels(bmap: BakeMap) -> Tuple[int, ...]:
+    """The levels the bake kernel walks: every level with leaves, and the
+    last (where the walk ends for a voxel no mask covers). A level with
+    no leaves covers no voxel, so leaving it out changes no record and
+    spares every voxel below it a step (the training bench's coarsest
+    level, B = 2, has none)."""
+    L = len(bmap.masks)
+    return tuple(j for j in range(L)
+                 if j == L - 1 or not bmap.sizes or bmap.sizes[j])
+
+
 def _bake_cuda(pyr, bmap: BakeMap, thresh):
-    """One ``vt_bake_pyramid`` launch: (bake, live bits or None)."""
+    """One ``vt_bake_pyramid`` launch over the ``walked_levels``: (bake,
+    live bits or None)."""
     G, D = bmap.G, bmap.D
     dev = pyr[0].device
     if D not in _BAKE_DIMS:
@@ -359,10 +371,11 @@ def _bake_cuda(pyr, bmap: BakeMap, thresh):
     if thresh is not None:
         bits = torch.empty((G, G, -(-G // 32)), dtype=torch.int32,
                            device=dev)
-    L = len(sides)
-    ptrs = (ctypes.c_void_p * L)(*(p.data_ptr() for p in pyr))
-    mptrs = (ctypes.c_void_p * L)(*(m.data_ptr() for m in bmap.masks))
-    csides = (ctypes.c_int * L)(*sides)
+    walk = walked_levels(bmap)
+    L = len(walk)
+    ptrs = (ctypes.c_void_p * L)(*(pyr[j].data_ptr() for j in walk))
+    mptrs = (ctypes.c_void_p * L)(*(bmap.masks[j].data_ptr() for j in walk))
+    csides = (ctypes.c_int * L)(*(sides[j] for j in walk))
     kernels.check(kernels.lib("bake_pyramid").vt_bake_pyramid(
         ptrs, mptrs, csides, L, G, D,
         _f32(0.0 if thresh is None else thresh), bake.data_ptr(),

@@ -73,7 +73,6 @@ from volrend_torch.ops import basis as basis_mod
 from volrend_torch.utils.device import to_device
 
 __all__ = ["march_slabs", "march_slabs_ref", "march_slabs_bwd",
-           "march_slabs_segmented", "DisplaySplit", "display_segments",
            "march_slabs_bwd_ref", "march_bwd_inputs", "march_occupancy",
            "MarchMode", "train_variant", "train_lib",
            "march_occupancy_ref", "march_occupancy_live_ref", "LiveBits",
@@ -392,41 +391,6 @@ def march_slabs(gplanar, params, qscale, zbounds, G: int,
     only. The remaining arguments mirror the reference's signature (see
     _check_options).
     """
-    return _march(gplanar, params, qscale, zbounds, G, gi, D, bd, slab_ids,
-                  basis_lo, basis_hi, sig2, extra, fmt, depth, rot, flip,
-                  k_per_step, bbox_full, shade_bf16, dir_win, z_base,
-                  acc_init, crop, occupancy, train)
-
-
-def march_slabs_segmented(gplanar, params, qscale, zbounds, G: int, gi: int,
-                          D: int, bd: int, segments: int,
-                          perm: Tuple[int, int, int] = (0, 1, 2),
-                          slab_ids: Optional[Tuple[int, ...]] = None,
-                          basis_lo: int = 0, basis_hi: int = 24,
-                          sig2: bool = False, extra=None, fmt: int = 1,
-                          rot: Optional[Tuple[float, ...]] = None,
-                          flip: bool = False, k_per_step: int = 4,
-                          bbox_full: bool = False, shade_bf16: bool = False,
-                          dir_win: bool = True,
-                          crop: Optional[Tuple[int, int, int, int]] = None):
-    """``march_slabs``'s display mode split into ``segments`` z-segments
-    (``DisplaySplit``; 1: the launch unsplit, or the whole plain march on
-    the CPU), whatever ``display_segments`` would choose: for the tests
-    and the probes, on either device. Only the option variants split
-    (``splits``); the arguments are march_slabs'."""
-    return _march(gplanar, params, qscale, zbounds, G, gi, D, bd, slab_ids,
-                  basis_lo, basis_hi, sig2, extra, fmt, False, rot, flip,
-                  k_per_step, bbox_full, shade_bf16, dir_win, None, None,
-                  crop, None, False, segments=int(segments))
-
-
-def _march(gplanar, params, qscale, zbounds, G, gi, D, bd, slab_ids,
-           basis_lo, basis_hi, sig2, extra, fmt, depth, rot, flip,
-           k_per_step, bbox_full, shade_bf16, dir_win, z_base, acc_init,
-           crop, occupancy, train, segments: Optional[int] = None):
-    """march_slabs; ``segments`` forces a split display march's segment
-    count (march_slabs_segmented), None takes display_segments' on the
-    card and the whole plain march on the CPU."""
     display = _check_options(gplanar, G, D, bd, sig2, fmt, extra, depth,
                              rot, basis_lo, basis_hi, bbox_full, shade_bf16,
                              dir_win, train)
@@ -451,31 +415,16 @@ def _march(gplanar, params, qscale, zbounds, G, gi, D, bd, slab_ids,
         acc = torch.zeros((P, 4, gi, gi), dtype=_F32, device=dev)
         acc[:, 3] = 1.0
         return acc
-    if segments is not None and not (display and splits(mode, bd)):
-        raise ValueError("only the display mode's option variants split "
-                         "into z-segments (slab_march.splits)")
     if dev.type == "cuda":
         if not display:
             return _march_train_cuda(gplanar, qscale, D=D, bd=bd, flip=flip,
                                      occ=occupancy, mode=mode,
                                      acc_init=acc_init, segment=segment,
                                      **m)
-        S = segments
-        if S is None and acc_init is None and not segment and splits(mode,
-                                                                     bd):
-            S = display_segments(P, gi, len(m["wins"]),
-                                 _sm_count(dev.index))
-        if S is not None and S > 1:
-            return DisplaySplit(gplanar, qscale, D=D, bd=bd, flip=flip,
-                                mode=mode, S=min(S, len(m["wins"])), **m)()
         return _march_display_cuda(gplanar, qscale, D=D, bd=bd, flip=flip,
                                    mode=mode, acc_init=acc_init,
                                    segment=segment, **m)
     if dev.type == "cpu":
-        if segments is not None and segments > 1:
-            return DisplaySplit(gplanar, qscale, D=D, bd=bd, flip=flip,
-                                mode=mode, S=min(segments, len(m["wins"])),
-                                **m)()
         return march_slabs_ref(gplanar, qscale, D=D, bd=bd, flip=flip,
                                dir_win=display, acc_init=acc_init,
                                **mode._asdict(), **m)
@@ -489,11 +438,7 @@ march_slabs.poses = 0
 #: training mode's
 march_slabs.segments = 0
 march_slabs.train_segments = 0
-#: display marches split into z-segments (DisplaySplit: three launches
-#: each, all in ``launches``)
-march_slabs.split = 0
-#: display launches by kernel variant (display_variant; a split march's
-#: passes as "<fmt>-<payload>-segT" and its variant's name + "-seg")
+#: display launches by kernel variant (display_variant)
 march_slabs.variants = {}
 #: training launches by kernel variant (train_variant)
 march_slabs.train_variants = {}
@@ -875,19 +820,13 @@ def _march_display_cuda(gplanar, qscale, params, zb, wins, masks, G, gi, D,
 
 def _display_launch(gplanar, qscale, params, zb, wins, masks, G, gi, bd, K,
                     flip, y0, x0, cfg, mode: MarchMode = MarchMode(),
-                    acc_init=None, segment: bool = False, *, bounds=None,
-                    name: Optional[str] = None, poses: Optional[int] = None):
+                    acc_init=None, segment: bool = False):
     """One display launch of checked inputs with the configuration ``cfg``
     (display_config's), the format and options of ``mode`` and the initial
     accumulator ``acc_init`` (``_acc_init``'s, overwritten; None starts
     from (0, 0, 0, 1); else the option variant of the resume build,
     ``slab_march_display_resume``, starts from it); ``segment`` as for
-    _march_train_cuda. ``bounds``: the resume build's z-segments, S + 1
-    increasing indices into the window list (None: one segment, the whole
-    list); ``acc_init`` then holds (P * S, 4, gi, gi), pose p's segment s
-    at p * S + s. ``name`` (the variant's key in
-    ``march_slabs.variants``) and ``poses`` (counted in
-    ``march_slabs.poses``) replace display_variant's name and P."""
+    _march_train_cuda."""
     dev = gplanar.device
     _, Dp, Gy, Gx = gplanar.shape
     P = params.shape[0]
@@ -896,17 +835,7 @@ def _display_launch(gplanar, qscale, params, zb, wins, masks, G, gi, bd, K,
     # the SG/ASG lobes are kept alive until the launch is queued
     extra, fmt, opt, extra_ptr, rot_on, rot, bbox, blo, bhi = _variant_args(
         mode, bd, dev, resume)
-    wm = list(wins) + list(masks)
-    n_seg = 1
-    if resume:
-        # the resume build reads the segments after the masks
-        bounds = (0, len(wins)) if bounds is None else tuple(bounds)
-        n_seg = len(bounds) - 1
-        wm += [n_seg, *bounds]
-        if acc_init.shape[0] != P * n_seg:
-            raise ValueError(f"acc_init holds {acc_init.shape[0]} rows for "
-                             f"{P} poses of {n_seg} segments")
-    wm = to_device(np.asarray(wm, np.int32), torch.int32, dev)
+    wm = to_device(np.asarray([wins, masks], np.int32), torch.int32, dev)
     acc = (torch.empty((P, 4, gi, gi), dtype=_F32, device=dev)
            if acc_init is None else acc_init)
     lib = kernels.lib("slab_march_display_resume" if resume
@@ -914,226 +843,16 @@ def _display_launch(gplanar, qscale, params, zb, wins, masks, G, gi, bd, K,
     kernels.check(lib.vt_march_display(
         gplanar.data_ptr(), params.data_ptr(), qscale.data_ptr(),
         zb.data_ptr(), wm.data_ptr(), len(wins), acc.data_ptr(),
-        P * n_seg, G, gi, Dp, Gy, Gx, y0, x0, bd, K, int(bool(flip)),
+        P, G, gi, Dp, Gy, Gx, y0, x0, bd, K, int(bool(flip)),
         cfg["rows"], cfg["stage_bytes"], cfg["chan_cells"], fmt, int(bf16),
         opt, extra_ptr, int(mode.depth), rot_on, rot, bbox, blo, bhi,
         torch.cuda.current_stream(dev).cuda_stream), "slab_march_display")
-    _count_launch(P if poses is None else poses, segment, False)
-    name = name or display_variant(mode, bd, bf16, resume)
+    _count_launch(P, segment, False)
+    name = display_variant(mode, bd, bf16, resume)
     march_slabs.variants[name] = march_slabs.variants.get(name, 0) + 1
     march_slabs.display = dict(cfg, variant=name, fmt=mode.fmt,
-                               bf16=int(bf16), opt=opt, segments=n_seg)
+                               bf16=int(bf16), opt=opt)
     return acc
-
-
-#: the most z-segments a one-pose display launch is split into
-MAX_SEGMENTS = 8
-#: display blocks an SM holds (__launch_bounds__(DNT, 2), ``_DISPLAY_SMEM``)
-_DISPLAY_BLOCKS_SM = 2
-
-
-def splits(mode: MarchMode, bd: int) -> bool:
-    """Is ``mode`` one of the display variants a launch of few tiles splits
-    into z-segments (``display_segments``): SH with options, with or
-    without bf16 shading (vt_march_display's opt 1 and 3)? The defaults,
-    SG, ASG, RGBA and depth mode keep their one launch."""
-    return (mode.fmt == int(BasisType.SH) and not mode.depth
-            and mode.options(bd))
-
-
-def display_segments(P: int, gi: int, n_win: int, n_sm: int) -> int:
-    """The z-segments S a display launch of an option variant (``splits``)
-    is split into: 1 (not split) when its 32x8 tiles fill the card's
-    resident blocks (two an SM on ``n_sm`` SMs), else S = 4 (at most
-    MAX_SEGMENTS and one window a segment). A launch of fewer tiles than
-    resident blocks runs one wave that lasts as long as its slowest tile
-    (PERF.md §6, PR 23); split, a long tile's slabs run in S blocks at
-    once."""
-    tiles = P * -(-gi // _DTX) * -(-gi // _DWARPS)
-    if tiles >= _DISPLAY_BLOCKS_SM * n_sm:
-        return 1
-    return max(1, min(4, MAX_SEGMENTS, n_win))
-
-
-def segment_bounds(n_win: int, S: int) -> Tuple[int, ...]:
-    """S + 1 increasing indices into a launch's window list (march order):
-    segment s is windows [b_s, b_s+1), S runs of as equal lengths as
-    whole windows allow (S <= n_win)."""
-    if not 1 <= S <= n_win:
-        raise ValueError(f"{S} segments of {n_win} windows")
-    return tuple((s * n_win) // S for s in range(S + 1))
-
-
-class DisplaySplit:
-    """One display march of an option variant (``splits``) over S
-    z-segments, each a run of whole K-slab windows of the launch's window
-    list (``segment_bounds``), exact at the stop threshold:
-
-    1. ``first``: segment 0 marched in ``mode`` from (0, 0, 0, 1), as the
-       whole march starts it (the option variant);
-    2. ``transmittance``, beside it: every (pose, segment) but the last
-       marches its slabs from T = 1 with sigma's planes alone (the depth
-       variant) and keeps its T_s (the last segment's is never needed);
-    3. ``handover``: each segment's incoming T_in, the product of the
-       segments' T_s before it in march order (T_in = 1 for the first);
-    4. ``colour``: every (pose, segment) after the first marches its
-       slabs in ``mode`` from (0, 0, 0, T_in) (the resume variant), so a
-       pixel freezes where the whole march would: one that saturates in a
-       segment sees every later T_in below the stop threshold (the
-       unfrozen product is no larger than the frozen T), one that does
-       not sees the running T;
-    5. ``combine``: each pixel's colour summed over the segments, and the
-       T of the last segment it entered live (T_in at or above the stop
-       threshold), the whole march's frozen T.
-
-    Association aside (T_in is a product of the segments' products), this
-    is the whole march. On the card 1 is a launch of its own on a second
-    stream, overlapping 2 to 4, which are one launch each of the resume
-    build (``slab_march_display_resume``) with the segment in the block
-    index; on the CPU each segment is ``march_slabs_ref`` over its
-    windows (``acc_init`` (0, 0, 0, T_in) in 4). Inputs as
-    ``march_inputs`` prepares them."""
-
-    def __init__(self, gplanar, qscale, params, zb, wins, masks, G, gi, D,
-                 bd, K, flip, y0, x0, mode: MarchMode, S: int):
-        if not splits(mode, bd):
-            raise ValueError(f"a split display march takes SH with options, "
-                             f"not {mode}")
-        if S < 2:
-            raise ValueError(f"a split display march takes 2 or more "
-                             f"segments, not {S}")
-        self.gplanar, self.qscale, self.params, self.zb = (gplanar, qscale,
-                                                           params, zb)
-        self.wins, self.masks = list(wins), list(masks)
-        self.G, self.gi, self.D, self.bd, self.K = G, gi, D, bd, K
-        self.flip, self.y0, self.x0, self.mode = flip, y0, x0, mode
-        self.bounds = segment_bounds(len(self.wins), S)
-        self.S = S
-        self.P = params.shape[0]
-        # pass 2's variant: sigma alone, the bbox's mask kept
-        self.tmode = mode._replace(depth=True, rot=None, bf16_shade=False)
-        self.cuda = gplanar.device.type == "cuda"
-        if self.cuda:
-            _check_launch(gplanar, qscale, params, zb, G, gi)
-            n_sm = _sm_count(gplanar.device.index)
-            esz = gplanar.element_size()
-            Dp, n = gplanar.shape[1], len(self.wins)
-            self.cfg_0 = display_config(self.P, gi, self.bounds[1], Dp, n_sm,
-                                        esz=esz, opt=True)
-            self.cfg_t = display_config(self.P * (S - 1), gi, n, Dp, n_sm,
-                                        esz=esz, opt=True, depth=True)
-            self.cfg_c = display_config(self.P * (S - 1), gi, n, Dp, n_sm,
-                                        esz=esz, opt=True)
-            bf16 = gplanar.dtype == torch.bfloat16
-            pay = "-bf16" if bf16 else "-int8"
-            self.name_t = "SH" + pay + "-segT"
-            self.name_c = display_variant(mode, bd, bf16) + "-seg"
-
-    def _acc(self, T, n_seg: int) -> torch.Tensor:
-        """(P, n_seg, 4, gi, gi) accumulators (0, 0, 0, T)."""
-        acc = torch.zeros((self.P, n_seg, 4, self.gi, self.gi), dtype=_F32,
-                          device=self.gplanar.device)
-        acc[:, :, 3] = T
-        return acc
-
-    def _ref(self, mode, acc, segs) -> torch.Tensor:
-        """The plain marches of segments ``segs`` over their windows, from
-        ``acc`` (P, len(segs), 4, gi, gi) or (0, 0, 0, 1); returns (P,
-        len(segs), 4, gi, gi)."""
-        out = []
-        for i, s in enumerate(segs):
-            lo, hi = self.bounds[s], self.bounds[s + 1]
-            out.append(march_slabs_ref(
-                self.gplanar, self.qscale, self.params, self.zb,
-                self.wins[lo:hi], self.masks[lo:hi], self.G, self.gi,
-                self.D, self.bd, self.K, self.flip, self.y0, self.x0,
-                dir_win=True, acc_init=None if acc is None else acc[:, i],
-                **mode._asdict()))
-        return torch.stack(out, 1)
-
-    def _launch(self, cfg, mode, acc, bounds, name, poses):
-        _display_launch(self.gplanar, self.qscale, self.params, self.zb,
-                        self.wins, self.masks, self.G, self.gi, self.bd,
-                        self.K, self.flip, self.y0, self.x0, cfg, mode,
-                        acc.view(-1, 4, self.gi, self.gi), bounds=bounds,
-                        name=name, poses=poses)
-        return acc
-
-    def first(self) -> torch.Tensor:
-        """(P, 1, 4, gi, gi): segment 0's colour and T from (0, 0, 0, 1)."""
-        if not self.cuda:
-            return self._ref(self.mode, None, (0,))
-        b = self.bounds[1]
-        return _display_launch(
-            self.gplanar, self.qscale, self.params, self.zb, self.wins[:b],
-            self.masks[:b], self.G, self.gi, self.bd, self.K, self.flip,
-            self.y0, self.x0, self.cfg_0, self.mode, name=self.name_c,
-            poses=0)[:, None]
-
-    def transmittance(self) -> torch.Tensor:
-        """(P, S - 1, 4, gi, gi): the T_s of every segment but the last in
-        channel 3."""
-        segs = range(self.S - 1)
-        if not self.cuda:
-            return self._ref(self.tmode, None, segs)
-        return self._launch(self.cfg_t, self.tmode, self._acc(1.0, len(segs)),
-                            self.bounds[:-1], self.name_t, 0)
-
-    def handover(self, acc_t) -> torch.Tensor:
-        """(P, S, gi, gi): each segment's incoming transmittance T_in, the
-        product of the T_s before it in march order (front to back)."""
-        T = acc_t[:, :, 3]
-        return torch.cat([torch.ones_like(T[:, :1]), torch.cumprod(T, 1)],
-                         1)
-
-    def colour(self, T_in) -> torch.Tensor:
-        """(P, S - 1, 4, gi, gi): each segment after the first, its colour
-        and T marched from (0, 0, 0, T_in)."""
-        acc = self._acc(T_in[:, 1:], self.S - 1)
-        if not self.cuda:
-            return self._ref(self.mode, acc, range(1, self.S))
-        return self._launch(self.cfg_c, self.mode, acc, self.bounds[1:],
-                            self.name_c, self.P)
-
-    def combine(self, T_in, acc_0, acc_c) -> torch.Tensor:
-        """(P, 4, gi, gi): the colours summed over the segments; T that of
-        the last segment a pixel entered live (T_in at or above the stop
-        threshold; T_in falls from segment to segment)."""
-        acc = torch.cat([acc_0, acc_c], 1)
-        stop = self.params[:, 15].reshape(-1, 1, 1, 1)
-        entered = (T_in >= stop).sum(1, keepdim=True) - 1
-        T = torch.gather(acc[:, :, 3], 1, entered.clamp(min=0))
-        return torch.cat([acc[:, :, :3].sum(1), T], 1)
-
-    def __call__(self) -> torch.Tensor:
-        if self.cuda:
-            # segment 0 on a second stream, beside the passes it needs none
-            # of
-            main = torch.cuda.current_stream(self.gplanar.device)
-            side = _side_stream(self.gplanar.device)
-            side.wait_stream(main)
-            with torch.cuda.stream(side):
-                acc_0 = self.first()
-        else:
-            acc_0 = self.first()
-        T_in = self.handover(self.transmittance())
-        acc_c = self.colour(T_in)
-        if self.cuda:
-            main.wait_stream(side)
-            acc_0.record_stream(main)
-        march_slabs.split += 1
-        return self.combine(T_in, acc_0, acc_c)
-
-
-_SIDE = {}
-
-
-def _side_stream(device):
-    """A second stream of ``device`` for a split march's first segment."""
-    key = torch.device(device).index
-    if key not in _SIDE:
-        _SIDE[key] = torch.cuda.Stream(device)
-    return _SIDE[key]
 
 
 @functools.lru_cache(maxsize=None)

@@ -26,8 +26,8 @@ checkout's ``bake_pyramid.cu`` (and its level-known build, where its
 source has the macro) and times both kernels in turns (parent, change,
 change, parent), each held to the plain chain bit for bit; ``--alt
 "FLAGS;FLAGS"`` builds this checkout's source again with each set of
-nvcc flags (the kernel's launch-shape macros, ``VT_BK_*``) and times
-those builds in the same turns. Each width's
+nvcc flags (a design a source reads as a macro) and times those builds
+in the same turns, each held to the plain chain too. Each width's
 bound is chip_smoke.py's: the bake and its bits written, each level's
 masked records and its mask read once, at 3.35 TB/s.
 
@@ -44,9 +44,11 @@ from __future__ import annotations
 import argparse
 import ctypes
 import dataclasses
+import hashlib
 import itertools
 import json
 import os
+import subprocess
 
 import torch
 
@@ -62,40 +64,65 @@ _SRC = os.path.join("volrend_torch", "csrc", "bake_pyramid.cu")
 
 
 def start_lib(root: str, tag: str, flags=()):
-    """Start compiling ``root``'s bake_pyramid.cu with ``flags`` into
-    build/volrend_torch/bake_probe/ (keyed by the source and the flags)."""
+    """Start compiling ``root``'s bake_pyramid.cu with the port's nvcc
+    flags and ``flags`` into build/volrend_torch/bake_probe/ (keyed by the
+    source and the flags) unless it is built: (library path, None or
+    (temporary path, nvcc process)); ``load_lib`` waits for it."""
     from volrend_torch import kernels
     src = os.path.join(root, _SRC)
-    key = c.source_key(src, flags=flags)
-    out = kernels.build_dir() / "bake_probe" / f"libbake_{tag}_{key}.so"
-    return c.start_nvcc(src, out, flags)
+    with open(src, "rb") as fh:
+        key = hashlib.sha256(fh.read() + " ".join(flags).encode())
+    out = kernels.build_dir() / "bake_probe" / (
+        f"libbake_{tag}_{key.hexdigest()[:16]}.so")
+    if out.exists():
+        return out, None
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    return out, (tmp, subprocess.Popen(
+        [kernels._nvcc(), *kernels._NVCC_FLAGS, *flags, "-o", str(tmp),
+         src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
 
 
 def load_lib(started):
+    """Wait for ``start_lib``'s compile (raises with its log if it failed)
+    and load the library with vt_bake_pyramid's argument types."""
     from volrend_torch import kernels
-    return c.load_built(started, kernels.SOURCES["bake_pyramid"][1])
+    out, building = started
+    if building is not None:
+        tmp, proc = building
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"bake: the build {out.name} failed:\n{log}")
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    lib.vt_bake_pyramid.argtypes = kernels.SOURCES["bake_pyramid"][1][
+        "vt_bake_pyramid"]
+    lib.vt_bake_pyramid.restype = ctypes.c_int
+    return lib
 
 
-def bake_with(lib, pyr, bmap, thresh, masks=None):
+def bake_with(lib, pyr, bmap, thresh, masks=None, walk=None):
     """One vt_bake_pyramid launch of ``lib`` on checked levels (as
     ``slab_grad._bake_cuda`` makes it; ``masks`` in place of the bake
-    map's): (bake, bits)."""
+    map's), over the levels ``walk`` (None: all): (bake, bits)."""
     from volrend_torch import kernels
-    G, D, L = bmap.G, bmap.D, len(pyr)
+    G, D = bmap.G, bmap.D
+    walk = range(len(pyr)) if walk is None else walk
+    masks = bmap.masks if masks is None else masks
+    L = len(walk)
     dev = pyr[0].device
     bake = torch.empty((G, G, G, D), dtype=torch.float32, device=dev)
     bits = torch.empty((G, G, -(-G // 32)), dtype=torch.int32, device=dev)
-    ptrs = (ctypes.c_void_p * L)(*(p.data_ptr() for p in pyr))
-    mptrs = (ctypes.c_void_p * L)(*(m.data_ptr() for m in (
-        bmap.masks if masks is None else masks)))
-    sides = (ctypes.c_int * L)(*(m.shape[0] for m in bmap.masks))
+    ptrs = (ctypes.c_void_p * L)(*(pyr[j].data_ptr() for j in walk))
+    mptrs = (ctypes.c_void_p * L)(*(masks[j].data_ptr() for j in walk))
+    sides = (ctypes.c_int * L)(*(bmap.masks[j].shape[0] for j in walk))
     rc = lib.vt_bake_pyramid(ptrs, mptrs, sides, L, G, D,
                              ctypes.c_float(thresh), bake.data_ptr(),
                              bits.data_ptr(),
                              torch.cuda.current_stream(dev).cuda_stream)
     if rc:
-        raise RuntimeError(f"bake: CUDA error {rc} "
-                           f"({kernels.lib('bake_pyramid').vt_error_string(rc)})")
+        msg = kernels.lib("bake_pyramid").vt_error_string(rc).decode()
+        raise RuntimeError(f"bake: CUDA error {rc} ({msg})")
     return bake, bits
 
 
@@ -114,16 +141,17 @@ def width_pyramids(tdev, bmap, widths):
     return out
 
 
-def in_turns(libs: dict, pyr, bmap, reps: int = 5) -> dict:
-    """Each library's time in turns: the parent (if any), the change and
-    each alternative build, then back in the reverse order."""
+def in_turns(libs: dict, walks: dict, pyr, bmap, reps: int = 5) -> dict:
+    """Each library's time in turns, each over its levels ``walks[tag]``:
+    the parent (if any), the change and each alternative build, then back
+    in the reverse order."""
     order = [k for k in ("parent", "change") if k in libs] + sorted(
         k for k in libs if k not in ("parent", "change"))
     order = order + order[::-1]
     out = {k: [] for k in libs}
     for tag in order:
         out[tag].append(device_ms(lambda: bake_with(
-            libs[tag], pyr, bmap, SIGMA_THRESH), reps))
+            libs[tag], pyr, bmap, SIGMA_THRESH, walk=walks[tag]), reps))
     return out
 
 
@@ -195,6 +223,11 @@ def run(dev, kernel: bool, widths=(28,), parent=None, alts=()) -> dict:
     libs = {"change": kernels.lib("bake_pyramid")}
     libs.update({k: load_lib(v) for k, v in started.items()})
     known = {k: libs.pop(k) for k in ("known", "parent_known") if k in libs}
+    # the parent's kernel walks every level, this checkout's the levels
+    # slab_grad.walked_levels keeps (the builds reading a level map take
+    # every level: the map's indices)
+    walks = {k: None if k == "parent" else slab_grad.walked_levels(bmap)
+             for k in libs}
     lmap = slab_grad.level_map(bmap)
     out["widths"] = {}
     for Dw in widths:
@@ -204,14 +237,14 @@ def run(dev, kernel: bool, widths=(28,), parent=None, alts=()) -> dict:
         row = {"plain_ms": device_ms(
             lambda: slab_grad.bake_from_pyramid_ref(pw, bm), 3)}
         for tag, lib in libs.items():
-            b, bits = bake_with(lib, pw, bm, SIGMA_THRESH)
+            b, bits = bake_with(lib, pw, bm, SIGMA_THRESH, walk=walks[tag])
             row[f"{tag}_bit_equal"] = bool(
                 torch.equal(b, want) and torch.equal(bits, want_bits))
             if not row[f"{tag}_bit_equal"]:
                 raise SystemExit(f"bake: the {tag} kernel differs from the "
                                  f"plain chain at D = {Dw}")
         del b, bits
-        row["ms"] = in_turns(libs, pw, bm)
+        row["ms"] = in_turns(libs, walks, pw, bm)
         kmasks = (lmap,) + tuple(bm.masks[1:])
         for tag, lib in known.items():
             b, bits = bake_with(lib, pw, bm, SIGMA_THRESH, kmasks)

@@ -25,7 +25,9 @@ checkout of the package: run it by path with that checkout first on
 ``PYTHONPATH``. Every time is the card's: CUDA events around back-to-back
 calls queued behind a device sleep, median of three; the routes also as
 chip_smoke.py's main path times them, queued from the host
-(``route_mrays``). ``--modes options`` takes the viewer's one-pose launches of kernel M's
+(``route_mrays``).
+
+``--modes options`` takes the viewer's one-pose launches of kernel M's
 display option variants, as chip_smoke.py's phase 12 (c)/(d) builds
 them (``OPTION_CASES``: rot_dirs, the basis window (0, 8) and the
 render_bbox 0.25-0.75 on the dense int8 grid's pose 0, and bench.py's NDC
@@ -34,11 +36,8 @@ and a 4-pose option launch: each launch's time (``march_slabs`` as the
 package makes it) and ``render_image``'s end to end (host clock around
 the call and a synchronize, median of REPS_E2E after a warm call); with
 ``clock`` also its clock build's per-block loop cycles (mean, p99, the
-slowest block and its tile), windows, slabs and pieces walked. Where the
-package splits a one-pose option launch into z-segments
-(``slab_march.display_segments``), the same launch unsplit and at each
-forced segment count of ``SEGMENTS`` is timed too, with its passes apart
-and the resume build's clock (the second pass's blocks).
+slowest block and its tile), windows, slabs and pieces walked: a launch
+of fewer tiles than resident blocks lasts as long as its slowest block.
 ``--parent DIR`` runs the options mode in turns (parent, change, change,
 parent), each turn this file run by path in a process with that
 checkout's root first on ``PYTHONPATH`` (``--modes options`` alone: the
@@ -57,14 +56,13 @@ import contextlib
 import ctypes
 import json
 import os
+import shutil
 import subprocess
+import sys
+import time
 
 import numpy as np
 import torch
-
-import shutil
-import sys
-import time
 
 from volrend_torch import kernels
 from volrend_torch.probes import _common as c
@@ -94,29 +92,25 @@ OPTION_CASES = (
     ("default", "dense", {}, 1),
     ("rot-4poses", "dense", dict(rot_dirs=(0.3, -0.2, 0.5)), 4),
 )
-#: the forced segment counts timed beside the package's own choice
-SEGMENTS = (2, 4, 8)
 #: render_image calls a case's end-to-end time is the median of
 REPS_E2E = 30
 
 
-def start_build(name: str = _NAME):
-    """Start compiling the probe build of library ``name`` (the display
-    variants, or "slab_march_display_resume": one nvcc, the port's flags,
-    the library's and -DVT_DM_CYCLES) unless it is built: keyed, as the
-    port's libraries are, by the source, the shared headers and the
-    flags. ``load`` waits for it."""
+def start_build():
+    """Start compiling the probe build (one nvcc, the port's flags and
+    -DVT_DM_CYCLES) unless it is built: keyed, as the port's libraries
+    are, by the source, the shared headers and the flags. ``load`` waits
+    for it."""
     out_dir = kernels.build_dir() / "display_march"
     out_dir.mkdir(parents=True, exist_ok=True)
-    out = out_dir / kernels._target(name).name.replace(
-        f"lib{name}_", f"lib{name}_cycles_")
+    out = out_dir / kernels._target(_NAME).name.replace(
+        f"lib{_NAME}_", f"lib{_NAME}_cycles_")
     if out.exists():
         return out, None
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     return out, (tmp, subprocess.Popen(
-        [kernels._nvcc(), *kernels._NVCC_FLAGS,
-         *kernels._FLAGS.get(name, []), "-DVT_DM_CYCLES", "-o",
-         str(tmp), str(kernels._CSRC / kernels.SOURCES[name][0])],
+        [kernels._nvcc(), *kernels._NVCC_FLAGS, "-DVT_DM_CYCLES", "-o",
+         str(tmp), str(kernels._CSRC / kernels.SOURCES[_NAME][0])],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
 
 
@@ -148,18 +142,18 @@ def load(started):
 
 
 @contextlib.contextmanager
-def standing_in(lib, name: str = _NAME):
-    """The port's launches of library ``name`` take ``lib`` (a probe
-    build) while the block runs."""
-    saved = kernels._LIBS.get(name)
-    kernels._LIBS[name] = lib
+def standing_in(lib):
+    """The port's display launches take ``lib`` (a probe build) while the
+    block runs."""
+    saved = kernels._LIBS.get(_NAME)
+    kernels._LIBS[_NAME] = lib
     try:
         yield
     finally:
         if saved is None:
-            kernels._LIBS.pop(name, None)
+            kernels._LIBS.pop(_NAME, None)
         else:
-            kernels._LIBS[name] = saved
+            kernels._LIBS[_NAME] = saved
 
 
 def read_cycles(lib, n_blocks: int) -> np.ndarray:
@@ -296,9 +290,7 @@ def route_mrays(grid, cams, opt) -> dict:
 class OptLaunch:
     """One display launch of ``cams`` on ``grid`` with the render options
     ``opt``, as chip_smoke.py's variant_check makes it (kernel M's option
-    variants on a non-default ``opt``); ``segments`` forces the z-segment
-    count of a package that splits launches (1: the launch unsplit;
-    None: the package's own choice)."""
+    variants on a non-default ``opt``)."""
 
     def __init__(self, name, grid, cams, opt):
         from volrend_torch.ops import slab_march, slab_render
@@ -308,9 +300,7 @@ class OptLaunch:
         c0 = cams[0]
         perm, flip, _ = slab_render.choose_axis(grid, c0.transform, c0.fx,
                                                 c0.fy, c.W, c.H)
-        self.perm, self.flip = perm, flip
-        self.crop = slab_render.inplane_crop(grid, perm,
-                                             float(opt.sigma_thresh))
+        crop = slab_render.inplane_crop(grid, perm, float(opt.sigma_thresh))
         self.pay = slab_render.prepare_payload(grid, perm, opt)
         tr = torch.as_tensor(np.stack([x.transform for x in cams]),
                              dtype=torch.float32, device=self.pay.device)
@@ -318,7 +308,6 @@ class OptLaunch:
                                      c.W, c.H, opt, GI)
         self.params, self.zb = slab_render._march_frame_fields(
             grid, geom, perm, flip, opt)
-        self.slab_ids = grid.slab_ids(perm[0], flip, opt.sigma_thresh)
         rotm = _rodrigues_matrix(opt.rot_dirs)
         self.kw = dict(
             fmt=int(grid.fmt), extra=grid.extra,
@@ -327,63 +316,22 @@ class OptLaunch:
             bbox_full=slab_render._bbox_full(opt),
             basis_lo=int(opt.basis_minmax[0]),
             basis_hi=int(opt.basis_minmax[1]),
-            perm=perm, slab_ids=self.slab_ids, sig2=grid.quantized,
-            flip=flip, dir_win=True, k_per_step=slab_march._K_STEP,
-            crop=self.crop)
+            slab_ids=grid.slab_ids(perm[0], flip, opt.sigma_thresh),
+            sig2=grid.quantized, flip=flip, dir_win=True,
+            k_per_step=slab_march._K_STEP, crop=crop)
+        self.perm = perm
 
-    def args(self):
+    def __call__(self):
+        from volrend_torch.ops import slab_march
         g = self.grid
-        return (self.pay, self.params, g.qscale, self.zb, g.G, GI,
-                g.data_dim, g.basis_dim)
-
-    def __call__(self, segments=None):
-        from volrend_torch.ops import slab_march
-        if segments is None:
-            return slab_march.march_slabs(*self.args(), **self.kw)
-        return slab_march.march_slabs_segmented(*self.args(), segments,
-                                                **self.kw)
-
-    def options(self) -> bool:
-        """Does the launch take an option variant that a package may split
-        (SH with rot, a bbox or a basis window)?"""
-        kw = self.kw
-        return (kw["rot"] is not None or not kw["bbox_full"]
-                or kw["basis_lo"] > 0
-                or kw["basis_hi"] < self.grid.basis_dim - 1)
-
-    def split(self, S: int):
-        """The launch split into S z-segments (slab_march.DisplaySplit),
-        its passes callable apart."""
-        from volrend_torch.ops import slab_march
-        g, kw = self.grid, self.kw
-        m = slab_march.march_inputs(self.pay, self.params, self.zb, g.G, GI,
-                                    self.slab_ids, slab_march._K_STEP,
-                                    self.crop)
-        mode = slab_march.MarchMode(kw["fmt"], kw["extra"], False, kw["rot"],
-                                    kw["bbox_full"], kw["basis_lo"],
-                                    kw["basis_hi"])
-        return slab_march.DisplaySplit(self.pay, g.qscale, D=g.data_dim,
-                                       bd=g.basis_dim, flip=self.flip,
-                                       mode=mode, S=min(S, len(m["wins"])),
-                                       **m)
+        return slab_march.march_slabs(
+            self.pay, self.params, g.qscale, self.zb, g.G, GI, g.data_dim,
+            g.basis_dim, self.perm, **self.kw)
 
     def frame(self):
         from volrend_torch.ops import slab_render
         return slab_render.render_image(self.grid, self.cams[0], self.opt,
                                         gi=GI, out_dtype=torch.uint8)
-
-
-def _beside(sp):
-    """A split march's segment 0 on its second stream beside pass 1 on the
-    current one, as DisplaySplit runs them."""
-    from volrend_torch.ops import slab_march
-    main = torch.cuda.current_stream(sp.gplanar.device)
-    side = slab_march._side_stream(sp.gplanar.device)
-    side.wait_stream(main)
-    with torch.cuda.stream(side):
-        sp.first()
-    sp.transmittance()
-    main.wait_stream(side)
 
 
 def e2e_ms(fn, reps: int = REPS_E2E) -> float:
@@ -452,77 +400,30 @@ def option_scene(dev, opt):
 
 
 def run_options(dev, modes, lib=None) -> dict:
-    """The option cases (OPTION_CASES): each launch's time, render_image's
-    end to end, forced segment counts where the package splits launches,
-    and with ``clock`` in ``modes`` the clock build's per-block rows of
-    each launch unsplit."""
+    """The option cases (OPTION_CASES): each launch's time and
+    render_image's end to end, and with ``clock`` in ``modes`` the clock
+    build's per-block rows of each launch."""
     from volrend_torch.utils.options import RenderOptions
     from volrend_torch.ops import slab_march
     opt = RenderOptions(max_steps=1024)
     launches = option_scene(dev, opt)
-    split = hasattr(slab_march, "march_slabs_segmented")
     res = {}
     for name, ln in launches.items():
-        acc = ln()
+        ln()
         cfg = dict(slab_march.march_slabs.display)
-        row = {"variant": cfg["variant"], "poses": ln.P,
-               "ms": device_ms(ln), "render_image_ms": e2e_ms(ln.frame)}
-        if split and ln.options():
-            row["segments"] = cfg.get("segments", 1)
-            ref = ln(1)
-            row["max_abs_diff_unsplit"] = float((acc - ref).abs().max())
-            row["ms_forced"] = {str(S): device_ms(lambda: ln(S))
-                                for S in (1,) + SEGMENTS}
-            row["passes"] = {}
-            for S in SEGMENTS:
-                sp = ln.split(S)
-                T_in = sp.handover(sp.transmittance())
-                acc_0, acc_c = sp.first(), sp.colour(T_in)
-                acc_t = sp.transmittance()
-                row["passes"][str(S)] = {
-                    "first_and_transmittance_ms": device_ms(
-                        lambda: _beside(sp)),
-                    "first_ms": device_ms(sp.first),
-                    "transmittance_ms": device_ms(sp.transmittance),
-                    "handover_ms": device_ms(lambda: sp.handover(acc_t)),
-                    "colour_ms": device_ms(lambda: sp.colour(T_in)),
-                    "combine_ms": device_ms(lambda: sp.combine(
-                        T_in, acc_0, acc_c))}
-        res[name] = row
-        c.log(f"display_march options {name} {json.dumps(row)}")
+        res[name] = {"variant": cfg["variant"], "poses": ln.P,
+                     "ms": device_ms(ln), "render_image_ms": e2e_ms(ln.frame)}
+        c.log(f"display_march options {name} {json.dumps(res[name])}")
     if "clock" in modes:
-        resume = _NAME + "_resume"
-        started = start_build(resume) if split else None
         lib = build() if lib is None else lib
         ntx = -(-GI // 32)
         with standing_in(lib):
             for name, ln in launches.items():
-                ln(1) if split and ln.options() else ln()
-                n_blocks = ln.P * ntx * -(-GI // 8)
+                ln()
                 res[name]["clock"] = block_stats(
-                    read_cycles(lib, n_blocks), ln.P, ntx)
+                    read_cycles(lib, ln.P * ntx * -(-GI // 8)), ln.P, ntx)
                 c.log(f"display_march options {name} clock "
                       f"{json.dumps(res[name]['clock'])}")
-        if split:
-            rlib = load(started)
-            with standing_in(rlib, resume):
-                for name, ln in launches.items():
-                    if "passes" not in res[name]:
-                        continue
-                    S = res[name]["segments"]
-                    sp = ln.split(max(S, 2))
-                    n_blocks = ln.P * sp.S * ntx * -(-GI // 8)
-                    T_in = sp.handover(sp.transmittance())
-                    t_rows = read_cycles(rlib, n_blocks)
-                    sp.colour(T_in)
-                    c_rows = read_cycles(rlib, n_blocks)
-                    res[name]["clock_split"] = {
-                        "segments": sp.S,
-                        "transmittance": block_stats(t_rows, ln.P * sp.S,
-                                                     ntx),
-                        "colour": block_stats(c_rows, ln.P * sp.S, ntx)}
-                    c.log(f"display_march options {name} split clock "
-                          f"{json.dumps(res[name]['clock_split'])}")
     return res
 
 
