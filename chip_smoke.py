@@ -789,11 +789,10 @@ def bake_checks(torch, tr, thresh: float):
               "ms_without_bits": cuda_ms(
                   torch, lambda: slab_grad.bake_from_pyramid(pyr, bmap),
                   KREPS)}
-        # bytes: the bake written, each level's masked records and its mask
-        # read once, the bits written
-        st["bound_ms"], st["bound_by"] = bound(
-            G ** 3 * D * 4 + sum(bmap.sizes) * D * 4
-            + sum(m.numel() for m in bmap.masks) + live.bits.numel() * 4, 0)
+        # bytes: the bake and its bits written, each level's masked records
+        # and the walked masks but the finest read once (probes/bake.py)
+        from volrend_torch.probes.bake import bound_bytes
+        st["bound_ms"], st["bound_by"] = bound(bound_bytes(bmap), 0)
         if "--profile" in sys.argv[1:]:  # the parent's forward by launch
             from volrend_torch.probes import _common
             _common.profile_run(run_p, "forward bake, plain chain", log)

@@ -5,8 +5,10 @@ floor(2^32 / f) + 1 and a shift instead of a division by f = G / B_j,
 and the walk, coarse to fine, equal to ``slab_grad.level_map`` (the
 plain map the kernel stores none of) at N = 2 and 3; and the inputs
 ``probes/bake.py --widths`` times the kernel on (the training bench's
-levels at D = 4, 19 and 28). No JAX; the kernel itself is held against
-the plain chain on the card (tests/test_torch_cuda.py)."""
+levels at D = 4, 19 and 28) and its bound; and the probes' bookkeeping
+(display_march's per-block summary, its turns with a parent checkout).
+No JAX; the kernel itself is held against the plain chain on the card
+(tests/test_torch_cuda.py)."""
 
 import dataclasses
 
@@ -46,14 +48,15 @@ def test_magic_division_is_exact_below_2_16(N):
 
 
 def _walk(bmap) -> np.ndarray:
-    """The kernel's walk of every voxel over ``slab_grad.walked_levels``,
-    coarse to fine, with the magic division: (G, G, G) level indices, the
-    finest where none covers."""
+    """The kernel's walk of every voxel over ``slab_grad.walked_levels``
+    but the finest, coarse to fine, with the magic division: (G, G, G)
+    level indices, the finest where none covers (its mask is not read)."""
     G = bmap.G
     z, y, x = np.meshgrid(*(np.arange(G),) * 3, indexing="ij")
-    lev = np.full((G, G, G), len(bmap.masks) - 1, np.int64)
+    walk = slab_grad.walked_levels(bmap)
+    lev = np.full((G, G, G), walk[-1], np.int64)
     found = np.zeros((G, G, G), bool)
-    for j in slab_grad.walked_levels(bmap):
+    for j in walk[:-1]:
         m = bmap.masks[j]
         B = m.shape[0]
         mag = _magic(G // B)
@@ -105,6 +108,23 @@ def test_probe_widths_share_the_bench_levels():
         assert torch.equal(out[..., -1], sig28)
 
 
+def test_probe_bound_counts_the_masks_the_walk_reads():
+    """probes/bake.py's bound (chip_smoke.py's too): the bake and its bit
+    words written, each level's leaves' records read once, and the masks
+    of the walked levels but the finest: neither the leafless coarsest
+    level's nor the finest's, which the walk never reads."""
+    from volrend_torch.probes import bake
+    tdev = make_solid_tree(max_depth=3, basis_dim=9, seed=7).to_device(
+        lut_depth=None, device=torch.device("cpu"))
+    bmap = slab_grad.build_bake_map(tdev)
+    G, D = bmap.G, bmap.D
+    sides = [m.shape[0] for m in bmap.masks]
+    assert bmap.sizes[0] == 0 and sides[-1] == G
+    read = sum(B ** 3 for B in sides[1:-1])
+    assert bake.bound_bytes(bmap) == (G ** 3 * D * 4 + G * G * 4
+                                      + sum(bmap.sizes) * D * 4 + read)
+
+
 def test_probe_block_stats_name_the_slowest_tile():
     """probes/display_march's per-block clock summary: the slowest block's
     tile from its block index (tile-major, poses fastest), with the
@@ -124,3 +144,42 @@ def test_probe_block_stats_name_the_slowest_tile():
     assert st["slowest"]["tile_cols"] == [96, 127]
     assert st["slowest"]["slabs"] == 64 and st["slowest"]["windows"] == 16
     assert st["max_over_mean"] == pytest.approx(900 / rows[:, n].mean())
+
+
+def test_display_march_parent_turns_write_nothing_into_the_parent(
+        monkeypatch, tmp_path):
+    """probes/display_march --parent: four turns, parent first, each this
+    file run in the checkout's root with the root first on PYTHONPATH and
+    this checkout's scene caches handed by ``--caches``; no file lands in
+    the parent's tree, and the turns' JSON and logs go beside --out."""
+    import json
+    import subprocess
+    import chip_smoke
+    from volrend_torch.probes import display_march as dm
+    parent = tmp_path / "parent"
+    parent.mkdir()
+    monkeypatch.setattr(dm.c, "get_tree", lambda: None)
+    monkeypatch.setattr(chip_smoke, "ndc_tree", lambda: None)
+    runs = []
+
+    def fake_run(cmd, cwd, env, **kw):
+        runs.append((cmd, cwd, env["PYTHONPATH"]))
+        with open(cmd[cmd.index("--out") + 1], "w") as fh:
+            json.dump({"options": {"rot": {"ms": 1.0,
+                                           "render_image_ms": 2.0}}}, fh)
+        return subprocess.CompletedProcess(cmd, 0, stdout="")
+
+    monkeypatch.setattr(subprocess, "run", fake_run)
+    out = tmp_path / "logs" / "dm.json"
+    res = dm.parent_turns(str(parent), str(out))
+    assert [t["tag"] for t in res["turns"]] == ["parent", "change",
+                                                 "change", "parent"]
+    assert list(parent.iterdir()) == []
+    roots = {"parent": str(parent), "change": dm.c._ROOT}
+    for (cmd, cwd, path), tag in zip(runs, ("parent", "change", "change",
+                                            "parent")):
+        assert cwd == path == roots[tag]
+        assert cmd[cmd.index("--caches") + 1].split(",") == [
+            dm.c.CACHE, chip_smoke.CACHE_NDC]
+        assert cmd[cmd.index("--out") + 1].startswith(str(out.parent))
+    assert len(list(out.parent.glob("display_turn*.log"))) == 4

@@ -19,18 +19,19 @@
 //
 // What bounds it on the H100: bytes. The bake's write (G^3 D 4 bytes: 1.88
 // GB at the training bench's G = 256 SH9, 0.56 ms at 3.35 TB/s), each
-// level's masked records read once, the masks (the sum of B_j^3 bytes) and
-// the bits (G^3 / 8 bytes). The chain writes and reads each level's
-// upsample and the where's output: ~5.6 GB at the finest level alone.
+// level's masked records read once, the masks but the finest (the sum of
+// B_j^3 bytes) and the bits (G^3 / 8 bytes). The chain writes and reads
+// each level's upsample and the where's output: ~5.6 GB at the finest
+// level alone.
 //
 // Design:
 // - One warp a word of bits, i.e. 32 x-neighbours of one (z, y) row. Each
 //   lane finds its voxel's level by walking the levels' masks coarse to
 //   fine (the bake map's own bool masks: a stored (G, G, G) level map
 //   would add G^3 bytes at the training step's peak; the coarse masks stay
-//   in L1/L2, and the finest, as large as such a map, is read only for
-//   the voxels no coarser level covers; the port hands it only the levels
-//   with leaves, slab_grad.walked_levels). A voxel's block at level j is its
+//   in L1/L2, and the finest, as large as such a map, is never read: a
+//   voxel no coarser level covers is the finest's; the port hands it only
+//   the levels with leaves, slab_grad.walked_levels). A voxel's block at level j is its
 //   coordinates divided by G / B_j, taken as a multiply by a magic number
 //   (exact for coordinates and factors below 2^16): the walk's steps wait
 //   on their loads, not on integer divisions (probing 2, 4 and 8 levels
@@ -115,13 +116,15 @@ bake_kernel(Levels lv, int G, int NW, float thresh, float* __restrict__ out,
   const int n = min(32, G - x0);  // the run's voxels
   // a lane past the row's end walks its last voxel, unused
   const int x = min(x0 + lane, G - 1);
-  int j = lv.L - 1;  // the finest, where no level covers the voxel
+  // the finest, where no coarser level covers the voxel: every voxel has
+  // one level, so the finest mask decides nothing and is not read
+  int j = lv.L - 1;
 #ifdef VT_BK_LEVEL_KNOWN
   // a probe build (probes/bake.py): the voxel's level read from a stored
-  // (G, G, G) level map handed as the first mask, one load for the walk
-  j = __ldg(lv.m[0] + ((long long)z * G + y) * G + x);
+  // (G, G, G) level map handed as the finest mask, one load for the walk
+  j = __ldg(lv.m[lv.L - 1] + ((long long)z * G + y) * G + x);
 #else
-  for (int i = 0; i < lv.L; ++i) {  // the one level whose mask covers it
+  for (int i = 0; i < lv.L - 1; ++i) {  // the one level whose mask covers it
     if (__ldg(lv.m[i] + block_of(lv, i, z, y, x))) {
       j = i;
       break;

@@ -333,18 +333,19 @@ class _BakeKernel(torch.autograd.Function):
 
 def walked_levels(bmap: BakeMap) -> Tuple[int, ...]:
     """The levels the bake kernel walks: every level with leaves, and the
-    last (where the walk ends for a voxel no mask covers). A level with
-    no leaves covers no voxel, so leaving it out changes no record and
-    spares every voxel below it a step (the training bench's coarsest
-    level, B = 2, has none)."""
+    last (the level of a voxel no coarser mask covers; its own mask is not
+    read). A level with no leaves covers no voxel, so leaving it out
+    changes no record and spares every voxel below it a step (the
+    training bench's coarsest level, B = 2, has none)."""
     L = len(bmap.masks)
     return tuple(j for j in range(L)
                  if j == L - 1 or not bmap.sizes or bmap.sizes[j])
 
 
-def _bake_cuda(pyr, bmap: BakeMap, thresh):
-    """One ``vt_bake_pyramid`` launch over the ``walked_levels``: (bake,
-    live bits or None)."""
+def _bake_cuda(pyr, bmap: BakeMap, thresh, lib=None, walk=None):
+    """One ``vt_bake_pyramid`` launch of the port's library (or ``lib``, a
+    build of the same entry point) over the levels ``walk`` (default: the
+    ``walked_levels``): (bake, live bits or None)."""
     G, D = bmap.G, bmap.D
     dev = pyr[0].device
     if D not in _BAKE_DIMS:
@@ -371,12 +372,13 @@ def _bake_cuda(pyr, bmap: BakeMap, thresh):
     if thresh is not None:
         bits = torch.empty((G, G, -(-G // 32)), dtype=torch.int32,
                            device=dev)
-    walk = walked_levels(bmap)
+    walk = walked_levels(bmap) if walk is None else tuple(walk)
     L = len(walk)
     ptrs = (ctypes.c_void_p * L)(*(pyr[j].data_ptr() for j in walk))
     mptrs = (ctypes.c_void_p * L)(*(bmap.masks[j].data_ptr() for j in walk))
     csides = (ctypes.c_int * L)(*(sides[j] for j in walk))
-    kernels.check(kernels.lib("bake_pyramid").vt_bake_pyramid(
+    lib = kernels.lib("bake_pyramid") if lib is None else lib
+    kernels.check(lib.vt_bake_pyramid(
         ptrs, mptrs, csides, L, G, D,
         _f32(0.0 if thresh is None else thresh), bake.data_ptr(),
         0 if bits is None else bits.data_ptr(),

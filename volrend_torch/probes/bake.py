@@ -20,35 +20,29 @@ bits must equal the plain chain's (``bake_from_pyramid_ref``,
 ``live_bits_ref``) bit for bit, and a probe build of the same source
 with ``-DVT_BK_LEVEL_KNOWN`` (each voxel's level read from a stored
 (G, G, G) level map, ``slab_grad.level_map``, handed in place of the
-first mask: one coalesced load instead of the walk; bit-equal too) times
-the launch without its level walk. ``--parent DIR`` also builds that
-checkout's ``bake_pyramid.cu`` (and its level-known build, where its
-source has the macro) and times both kernels in turns (parent, change,
-change, parent), each held to the plain chain bit for bit; ``--alt
-"FLAGS;FLAGS"`` builds this checkout's source again with each set of
-nvcc flags (a design a source reads as a macro) and times those builds
-in the same turns, each held to the plain chain too. Each width's
-bound is chip_smoke.py's: the bake and its bits written, each level's
-masked records and its mask read once, at 3.35 TB/s.
+finest mask: one coalesced load instead of the walk; bit-equal too)
+times the launch without its level walk. ``--parent DIR`` also builds
+that checkout's ``bake_pyramid.cu`` (and its level-known build, where
+its source has the macro) and times both kernels in turns (parent,
+change, change, parent), each held to the plain chain bit for bit. Each
+width's bound is chip_smoke.py's (``bound_bytes`` at 3.35 TB/s).
 
 Every time is the card's: CUDA events around back-to-back launches queued
 behind a device sleep, median of three runs. Run on a card from the root of
 the checkout::
 
     python -m volrend_torch.probes.bake [--kernel] [--widths 4,19,28]
-        [--parent DIR] [--alt "FLAGS;FLAGS"] [--out bake.json]
+        [--parent DIR] [--out bake.json]
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import dataclasses
 import hashlib
 import itertools
 import json
 import os
-import subprocess
 
 import torch
 
@@ -63,67 +57,36 @@ LEVEL_KNOWN = "-DVT_BK_LEVEL_KNOWN"
 _SRC = os.path.join("volrend_torch", "csrc", "bake_pyramid.cu")
 
 
+def bound_bytes(bmap) -> int:
+    """The bytes the bake of ``bmap`` must move (its bound, chip_smoke.py's
+    too): the bake and its live bits written, each level's masked records
+    read once, and the masks of the walked levels but the finest (a voxel
+    no coarser level covers is the finest's, so its mask decides
+    nothing)."""
+    from volrend_torch.ops import slab_grad
+    G, D = bmap.G, bmap.D
+    walk = slab_grad.walked_levels(bmap)
+    return (G ** 3 * D * 4 + G * G * -(-G // 32) * 4
+            + sum(bmap.sizes) * D * 4
+            + sum(bmap.masks[j].numel() for j in walk[:-1]))
+
+
 def start_lib(root: str, tag: str, flags=()):
     """Start compiling ``root``'s bake_pyramid.cu with the port's nvcc
     flags and ``flags`` into build/volrend_torch/bake_probe/ (keyed by the
-    source and the flags) unless it is built: (library path, None or
-    (temporary path, nvcc process)); ``load_lib`` waits for it."""
+    source and the flags) unless it is built (``_common.start_nvcc``)."""
     from volrend_torch import kernels
     src = os.path.join(root, _SRC)
     with open(src, "rb") as fh:
         key = hashlib.sha256(fh.read() + " ".join(flags).encode())
-    out = kernels.build_dir() / "bake_probe" / (
-        f"libbake_{tag}_{key.hexdigest()[:16]}.so")
-    if out.exists():
-        return out, None
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    return out, (tmp, subprocess.Popen(
-        [kernels._nvcc(), *kernels._NVCC_FLAGS, *flags, "-o", str(tmp),
-         src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return c.start_nvcc(kernels.build_dir() / "bake_probe" / (
+        f"libbake_{tag}_{key.hexdigest()[:16]}.so"), src, flags)
 
 
 def load_lib(started):
-    """Wait for ``start_lib``'s compile (raises with its log if it failed)
-    and load the library with vt_bake_pyramid's argument types."""
-    from volrend_torch import kernels
-    out, building = started
-    if building is not None:
-        tmp, proc = building
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"bake: the build {out.name} failed:\n{log}")
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
-    lib.vt_bake_pyramid.argtypes = kernels.SOURCES["bake_pyramid"][1][
-        "vt_bake_pyramid"]
-    lib.vt_bake_pyramid.restype = ctypes.c_int
-    return lib
-
-
-def bake_with(lib, pyr, bmap, thresh, masks=None, walk=None):
-    """One vt_bake_pyramid launch of ``lib`` on checked levels (as
-    ``slab_grad._bake_cuda`` makes it; ``masks`` in place of the bake
-    map's), over the levels ``walk`` (None: all): (bake, bits)."""
-    from volrend_torch import kernels
-    G, D = bmap.G, bmap.D
-    walk = range(len(pyr)) if walk is None else walk
-    masks = bmap.masks if masks is None else masks
-    L = len(walk)
-    dev = pyr[0].device
-    bake = torch.empty((G, G, G, D), dtype=torch.float32, device=dev)
-    bits = torch.empty((G, G, -(-G // 32)), dtype=torch.int32, device=dev)
-    ptrs = (ctypes.c_void_p * L)(*(pyr[j].data_ptr() for j in walk))
-    mptrs = (ctypes.c_void_p * L)(*(masks[j].data_ptr() for j in walk))
-    sides = (ctypes.c_int * L)(*(bmap.masks[j].shape[0] for j in walk))
-    rc = lib.vt_bake_pyramid(ptrs, mptrs, sides, L, G, D,
-                             ctypes.c_float(thresh), bake.data_ptr(),
-                             bits.data_ptr(),
-                             torch.cuda.current_stream(dev).cuda_stream)
-    if rc:
-        msg = kernels.lib("bake_pyramid").vt_error_string(rc).decode()
-        raise RuntimeError(f"bake: CUDA error {rc} ({msg})")
-    return bake, bits
+    """Wait for ``start_lib``'s compile and load the library."""
+    return c.typed_lib(c.finish_nvcc(started, "bake: a probe build"),
+                       "bake_pyramid")
 
 
 def width_pyramids(tdev, bmap, widths):
@@ -143,19 +106,18 @@ def width_pyramids(tdev, bmap, widths):
 
 def in_turns(libs: dict, walks: dict, pyr, bmap, reps: int = 5) -> dict:
     """Each library's time in turns, each over its levels ``walks[tag]``:
-    the parent (if any), the change and each alternative build, then back
-    in the reverse order."""
-    order = [k for k in ("parent", "change") if k in libs] + sorted(
-        k for k in libs if k not in ("parent", "change"))
-    order = order + order[::-1]
+    the parent (if any), then the change, then back in the reverse
+    order."""
+    from volrend_torch.ops import slab_grad
+    order = [k for k in ("parent", "change") if k in libs]
     out = {k: [] for k in libs}
-    for tag in order:
-        out[tag].append(device_ms(lambda: bake_with(
-            libs[tag], pyr, bmap, SIGMA_THRESH, walk=walks[tag]), reps))
+    for tag in order + order[::-1]:
+        out[tag].append(device_ms(lambda: slab_grad._bake_cuda(
+            pyr, bmap, SIGMA_THRESH, libs[tag], walks[tag]), reps))
     return out
 
 
-def run(dev, kernel: bool, widths=(28,), parent=None, alts=()) -> dict:
+def run(dev, kernel: bool, widths=(28,), parent=None) -> dict:
     from volrend_torch import kernels
     from volrend_torch.models.synthetic import make_solid_tree
     from volrend_torch.ops import slab_grad, slab_march
@@ -168,9 +130,6 @@ def run(dev, kernel: bool, widths=(28,), parent=None, alts=()) -> dict:
                 if "VT_BK_LEVEL_KNOWN" in fh.read():
                     started["parent_known"] = start_lib(
                         parent, "parent_known", (LEVEL_KNOWN,))
-        for i, flags in enumerate(alts):
-            started[f"alt:{flags}"] = start_lib(c._ROOT, f"alt{i}",
-                                                tuple(flags.split()))
     # every kernel library loaded before the first trace (the kernel's
     # trace below saw no device activity without it)
     for name in kernels.SOURCES:
@@ -226,9 +185,9 @@ def run(dev, kernel: bool, widths=(28,), parent=None, alts=()) -> dict:
     # the parent's kernel walks every level, this checkout's the levels
     # slab_grad.walked_levels keeps (the builds reading a level map take
     # every level: the map's indices)
-    walks = {k: None if k == "parent" else slab_grad.walked_levels(bmap)
-             for k in libs}
-    lmap = slab_grad.level_map(bmap)
+    every = tuple(range(len(bmap.masks)))
+    walks = {"parent": every, "change": None}
+    lmap = slab_grad.level_map(bmap).view(torch.bool).unsqueeze(-1)
     out["widths"] = {}
     for Dw in widths:
         pw, bm = pyrs[Dw]
@@ -237,7 +196,8 @@ def run(dev, kernel: bool, widths=(28,), parent=None, alts=()) -> dict:
         row = {"plain_ms": device_ms(
             lambda: slab_grad.bake_from_pyramid_ref(pw, bm), 3)}
         for tag, lib in libs.items():
-            b, bits = bake_with(lib, pw, bm, SIGMA_THRESH, walk=walks[tag])
+            b, bits = slab_grad._bake_cuda(pw, bm, SIGMA_THRESH, lib,
+                                           walks[tag])
             row[f"{tag}_bit_equal"] = bool(
                 torch.equal(b, want) and torch.equal(bits, want_bits))
             if not row[f"{tag}_bit_equal"]:
@@ -245,18 +205,15 @@ def run(dev, kernel: bool, widths=(28,), parent=None, alts=()) -> dict:
                                  f"plain chain at D = {Dw}")
         del b, bits
         row["ms"] = in_turns(libs, walks, pw, bm)
-        kmasks = (lmap,) + tuple(bm.masks[1:])
+        # the level map in the finest mask's place (the builds reading it)
+        km = dataclasses.replace(bm, masks=bm.masks[:-1] + (lmap,))
         for tag, lib in known.items():
-            b, bits = bake_with(lib, pw, bm, SIGMA_THRESH, kmasks)
+            b, bits = slab_grad._bake_cuda(pw, km, SIGMA_THRESH, lib, every)
             row[f"{tag}_bit_equal"] = bool(
                 torch.equal(b, want) and torch.equal(bits, want_bits))
-            row[f"{tag}_ms"] = device_ms(lambda: bake_with(
-                lib, pw, bm, SIGMA_THRESH, kmasks), 5)
-        # chip_smoke.py's bound: the bake written, each level's masked
-        # records and its mask read once, the bits written
-        nbytes = (G ** 3 * Dw * 4 + sum(bm.sizes) * Dw * 4
-                  + sum(m.numel() for m in bm.masks) + G ** 3 // 8)
-        row["bound_ms"] = nbytes / 3.35e12 * 1e3
+            row[f"{tag}_ms"] = device_ms(lambda: slab_grad._bake_cuda(
+                pw, km, SIGMA_THRESH, lib, every), 5)
+        row["bound_ms"] = bound_bytes(bm) / 3.35e12 * 1e3
         del want, want_bits
         out["widths"][str(Dw)] = row
         c.log(f"bake D={Dw}: {json.dumps(row)}")
@@ -274,17 +231,13 @@ def main() -> None:
     ap.add_argument("--parent", default=None,
                     help="a parent checkout whose bake kernel is timed in "
                          "turns with this one's")
-    ap.add_argument("--alt", default="",
-                    help="builds of this source with other nvcc flags, "
-                         "';'-separated, timed in the same turns")
     ap.add_argument("--out", default=None,
                     help="also write the result as JSON to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bake: needs a CUDA device")
     out = run(torch.device("cuda"), args.kernel,
-              tuple(int(d) for d in args.widths.split(",")), args.parent,
-              tuple(a.strip() for a in args.alt.split(";") if a.strip()))
+              tuple(int(d) for d in args.widths.split(",")), args.parent)
     print(json.dumps(out), flush=True)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

@@ -41,7 +41,9 @@ of fewer tiles than resident blocks lasts as long as its slowest block.
 ``--parent DIR`` runs the options mode in turns (parent, change, change,
 parent), each turn this file run by path in a process with that
 checkout's root first on ``PYTHONPATH`` (``--modes options`` alone: the
-package's own launches), logs beside ``--out``.
+package's own launches), logs beside ``--out``. Every turn reads this
+checkout's scene caches (``--caches``), so nothing is written into the
+parent's tree but its own kernels' build.
 
 Run on a card from the root of the checkout::
 
@@ -56,7 +58,6 @@ import contextlib
 import ctypes
 import json
 import os
-import shutil
 import subprocess
 import sys
 import time
@@ -101,17 +102,10 @@ def start_build():
     -DVT_DM_CYCLES) unless it is built: keyed, as the port's libraries
     are, by the source, the shared headers and the flags. ``load`` waits
     for it."""
-    out_dir = kernels.build_dir() / "display_march"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    out = out_dir / kernels._target(_NAME).name.replace(
-        f"lib{_NAME}_", f"lib{_NAME}_cycles_")
-    if out.exists():
-        return out, None
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    return out, (tmp, subprocess.Popen(
-        [kernels._nvcc(), *kernels._NVCC_FLAGS, "-DVT_DM_CYCLES", "-o",
-         str(tmp), str(kernels._CSRC / kernels.SOURCES[_NAME][0])],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    out = kernels.build_dir() / "display_march" / kernels._target(
+        _NAME).name.replace(f"lib{_NAME}_", f"lib{_NAME}_cycles_")
+    return c.start_nvcc(out, kernels._CSRC / kernels.SOURCES[_NAME][0],
+                        ("-DVT_DM_CYCLES",))
 
 
 def build():
@@ -122,20 +116,8 @@ def build():
 def load(started):
     """Wait for ``start_build``'s compile and load the library (raises with
     the log if the build failed)."""
-    out, building = started
-    if building is not None:
-        tmp, proc = building
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"display_march: the probe build failed:\n{log}")
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
-    for fn, argtypes in kernels.SOURCES[_NAME][1].items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
-    lib.vt_error_string.argtypes = [ctypes.c_int]
-    lib.vt_error_string.restype = ctypes.c_char_p
+    lib = c.typed_lib(c.finish_nvcc(
+        started, "display_march: the probe build"), _NAME)
     lib.vt_display_cycles.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.vt_display_cycles.restype = ctypes.c_int
     return lib
@@ -190,12 +172,14 @@ def summarize(rows: np.ndarray) -> dict:
 class Launch:
     """One display launch of ``cams`` on ``grid`` (its payload cached in
     ``pays``), with or without bf16 shading, as the display path makes
-    it."""
+    it: with ``opt``'s rot_dirs, basis window and render_bbox, kernel M's
+    option variants where they are not the defaults."""
 
-    def __init__(self, name, grid, cams, opt, pays, bf16_shade):
+    def __init__(self, name, grid, cams, opt, pays, bf16_shade=False):
         from volrend_torch.ops import slab_render
-        self.name, self.grid, self.P = name, grid, len(cams)
-        self.bf16_shade = bf16_shade
+        from volrend_torch.ops.render_exact import _rodrigues_matrix
+        self.name, self.grid, self.cams, self.opt = name, grid, cams, opt
+        self.P, self.bf16_shade = len(cams), bf16_shade
         c0 = cams[0]
         perm, flip, _ = slab_render.choose_axis(grid, c0.transform, c0.fx,
                                                 c0.fy, c.W, c.H)
@@ -211,6 +195,13 @@ class Launch:
         self.params, self.zb = slab_render._march_frame_fields(
             grid, geom, perm, flip, opt)
         self.slab_ids = grid.slab_ids(perm[0], flip, opt.sigma_thresh)
+        rotm = _rodrigues_matrix(opt.rot_dirs)
+        self.options = dict(
+            rot=(None if rotm is None
+                 else tuple(float(v) for v in rotm.reshape(-1))),
+            bbox_full=slab_render._bbox_full(opt),
+            basis_lo=int(opt.basis_minmax[0]),
+            basis_hi=int(opt.basis_minmax[1]))
 
     def __call__(self):
         from volrend_torch.ops import slab_march
@@ -218,9 +209,15 @@ class Launch:
         return slab_march.march_slabs(
             self.pay, self.params, g.qscale, self.zb, g.G, GI, g.data_dim,
             g.basis_dim, self.perm, slab_ids=self.slab_ids,
-            sig2=g.quantized, flip=self.flip, bbox_full=True, dir_win=True,
-            shade_bf16=self.bf16_shade, k_per_step=slab_march._K_STEP,
-            crop=self.crop)
+            sig2=g.quantized, fmt=int(g.fmt), extra=g.extra, flip=self.flip,
+            dir_win=True, shade_bf16=self.bf16_shade,
+            k_per_step=slab_march._K_STEP, crop=self.crop, **self.options)
+
+    def frame(self):
+        """render_image of the first camera, as the viewer renders it."""
+        from volrend_torch.ops import slab_render
+        return slab_render.render_image(self.grid, self.cams[0], self.opt,
+                                        gi=GI, out_dtype=torch.uint8)
 
 
 def scene(dev, opt):
@@ -287,53 +284,6 @@ def route_mrays(grid, cams, opt) -> dict:
             "host_mrays": rays / host / 1e3}
 
 
-class OptLaunch:
-    """One display launch of ``cams`` on ``grid`` with the render options
-    ``opt``, as chip_smoke.py's variant_check makes it (kernel M's option
-    variants on a non-default ``opt``)."""
-
-    def __init__(self, name, grid, cams, opt):
-        from volrend_torch.ops import slab_march, slab_render
-        from volrend_torch.ops.render_exact import _rodrigues_matrix
-        self.name, self.grid, self.cams, self.opt = name, grid, cams, opt
-        self.P = len(cams)
-        c0 = cams[0]
-        perm, flip, _ = slab_render.choose_axis(grid, c0.transform, c0.fx,
-                                                c0.fy, c.W, c.H)
-        crop = slab_render.inplane_crop(grid, perm, float(opt.sigma_thresh))
-        self.pay = slab_render.prepare_payload(grid, perm, opt)
-        tr = torch.as_tensor(np.stack([x.transform for x in cams]),
-                             dtype=torch.float32, device=self.pay.device)
-        geom = slab_render.FrameGeom(grid, tr, c0.fx, c0.fy, perm, flip,
-                                     c.W, c.H, opt, GI)
-        self.params, self.zb = slab_render._march_frame_fields(
-            grid, geom, perm, flip, opt)
-        rotm = _rodrigues_matrix(opt.rot_dirs)
-        self.kw = dict(
-            fmt=int(grid.fmt), extra=grid.extra,
-            rot=(None if rotm is None
-                 else tuple(float(v) for v in rotm.reshape(-1))),
-            bbox_full=slab_render._bbox_full(opt),
-            basis_lo=int(opt.basis_minmax[0]),
-            basis_hi=int(opt.basis_minmax[1]),
-            slab_ids=grid.slab_ids(perm[0], flip, opt.sigma_thresh),
-            sig2=grid.quantized, flip=flip, dir_win=True,
-            k_per_step=slab_march._K_STEP, crop=crop)
-        self.perm = perm
-
-    def __call__(self):
-        from volrend_torch.ops import slab_march
-        g = self.grid
-        return slab_march.march_slabs(
-            self.pay, self.params, g.qscale, self.zb, g.G, GI, g.data_dim,
-            g.basis_dim, self.perm, **self.kw)
-
-    def frame(self):
-        from volrend_torch.ops import slab_render
-        return slab_render.render_image(self.grid, self.cams[0], self.opt,
-                                        gi=GI, out_dtype=torch.uint8)
-
-
 def e2e_ms(fn, reps: int = REPS_E2E) -> float:
     """A viewer's wait for ``fn()``: host clock around the call and a
     synchronize, median of ``reps`` after a warm call."""
@@ -373,7 +323,7 @@ def block_stats(rows: np.ndarray, P: int, ntx: int) -> dict:
 
 
 def option_scene(dev, opt):
-    """The option cases' launches: {name: OptLaunch} on the dense int8
+    """The option cases' launches: {name: Launch} on the dense int8
     grid (orbit pose 0, or four poses spread over its group) and the NDC
     tree's int8 grid (bench.py's NDC pose)."""
     import dataclasses
@@ -391,21 +341,22 @@ def option_scene(dev, opt):
     four = [cams[first[int(i)]] for i in
             np.unique(np.linspace(0, len(first) - 1, 4).round())]
     ncam = chip_smoke.bench_ndc_pose(Camera)
+    pays = {"dense": {}, "ndc": {}}
     out = {}
     for name, where, o, P in OPTION_CASES:
         grid = ndc if where == "ndc" else dense
         sub = [ncam] if where == "ndc" else (four if P == 4 else cams[:1])
-        out[name] = OptLaunch(name, grid, sub, dataclasses.replace(opt, **o))
+        out[name] = Launch(name, grid, sub, dataclasses.replace(opt, **o),
+                           pays[where])
     return out
 
 
-def run_options(dev, modes, lib=None) -> dict:
-    """The option cases (OPTION_CASES): each launch's time and
-    render_image's end to end, and with ``clock`` in ``modes`` the clock
-    build's per-block rows of each launch."""
-    from volrend_torch.utils.options import RenderOptions
+def run_options(dev, opt, modes, lib=None) -> dict:
+    """The option cases (OPTION_CASES) with the render options ``opt``
+    besides each case's: each launch's time and render_image's end to
+    end, and with ``clock`` in ``modes`` the clock build's per-block rows
+    of each launch."""
     from volrend_torch.ops import slab_march
-    opt = RenderOptions(max_steps=1024)
     launches = option_scene(dev, opt)
     res = {}
     for name, ln in launches.items():
@@ -430,23 +381,26 @@ def run_options(dev, modes, lib=None) -> dict:
 def parent_turns(parent: str, out_path) -> dict:
     """The options mode in turns: parent, change, change, parent, each a
     process running this file by path with the checkout's root first on
-    ``PYTHONPATH`` (the scenes' npz caches copied to the parent's root
-    when it has none)."""
+    ``PYTHONPATH``. Every turn reads this checkout's scene caches
+    (``--caches``; made here first where missing) and writes no bytecode,
+    so the parent's turns write nothing into the parent's tree but its
+    kernels' build; the turns' JSON and logs go beside ``out_path``."""
     import chip_smoke
     roots = {"parent": os.path.abspath(parent), "change": c._ROOT}
-    for cache in (c.CACHE, chip_smoke.CACHE_NDC):
-        dst = os.path.join(roots["parent"], os.path.basename(cache))
-        if os.path.isfile(cache) and not os.path.isfile(dst):
-            shutil.copyfile(cache, dst)
+    c.get_tree(), chip_smoke.ndc_tree()  # the caches, made where missing
+    caches = f"{c.CACHE},{chip_smoke.CACHE_NDC}"
     log_dir = os.path.dirname(os.path.abspath(out_path or "x.json"))
+    os.makedirs(log_dir, exist_ok=True)
     turns = []
     for i, tag in enumerate(("parent", "change", "change", "parent")):
         root = roots[tag]
         jpath = os.path.join(log_dir, f"display_turn{i}_{tag}.json")
-        env = dict(os.environ, PYTHONPATH=root)
+        env = dict(os.environ, PYTHONPATH=root,
+                   PYTHONDONTWRITEBYTECODE="1")
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--modes",
-             "options", "--out", jpath], cwd=root, env=env,
+             "options", "--caches", caches, "--out", jpath], cwd=root,
+            env=env,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         with open(jpath[:-5] + ".log", "w") as fh:
             fh.write(proc.stdout)
@@ -468,13 +422,13 @@ def run(dev, modes, lib=None) -> dict:
     probe build, when already built."""
     from volrend_torch.utils.options import RenderOptions
     opt = RenderOptions(max_steps=1024)
-    grids, cams, launches = scene(dev, opt)
     res = {"device": torch.cuda.get_device_name(0), "package": [],
            "probe": []}
     if "options" in modes:
-        res["options"] = run_options(dev, modes, lib)
+        res["options"] = run_options(dev, opt, modes, lib)
     if not {"package", "probe"} & set(modes):
         return res
+    grids, cams, launches = scene(dev, opt)
     own = {}
     for name, lns in launches.items():
         for ln in lns:
@@ -518,12 +472,19 @@ def main() -> None:
     ap.add_argument("--parent", default=None,
                     help="run the options mode in turns with this parent "
                          "checkout")
+    ap.add_argument("--caches", default=None,
+                    help="the dense and NDC scenes' npz files, "
+                         "comma-separated, read in place of the "
+                         "checkout's own (the turns of --parent)")
     ap.add_argument("--out", default=None,
                     help="also write the result as JSON to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("display_march times kernel M on a CUDA device; "
                            "none is available")
+    if args.caches:
+        import chip_smoke
+        c.CACHE, chip_smoke.CACHE_NDC = args.caches.split(",")
     if args.parent:
         out = parent_turns(args.parent, args.out)
     else:

@@ -104,12 +104,7 @@ def _load(path, name: str, clock: bool) -> ctypes.CDLL:
     """A probe build's library ``name`` at ``path``, its entries typed (a
     clock build's readers too, where it has them: an older checkout's
     build may lack the per-block reader)."""
-    lib = ctypes.CDLL(str(path))
-    for fn, argtypes in kernels.SOURCES[name][1].items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
-    lib.vt_error_string.argtypes = [ctypes.c_int]
-    lib.vt_error_string.restype = ctypes.c_char_p
+    lib = c.typed_lib(path, name)
     if clock:
         for fn, argtypes in (("vt_train_cycles", [ctypes.c_void_p]),
                              ("vt_train_blocks",
@@ -391,32 +386,19 @@ def start_probe_build():
     with the port's flags, into ``build/volrend_torch/train_march/``
     unless it is built: keyed, as the port's libraries are, by the source,
     the shared headers and the flags. ``load_probe_build`` waits for it."""
-    out_dir = kernels.build_dir() / "train_march"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    out = out_dir / kernels._target(PROBE_LIB).name.replace(
-        f"lib{PROBE_LIB}_", f"lib{PROBE_LIB}_cycles_")
-    if out.exists():
-        return out, None
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    return out, (tmp, subprocess.Popen(
-        [kernels._nvcc(), *kernels._NVCC_FLAGS,
-         *kernels._FLAGS.get(PROBE_LIB, []), "-DVT_TM_CYCLES", "-o",
-         str(tmp), str(kernels._CSRC / kernels.SOURCES[PROBE_LIB][0])],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    out = kernels.build_dir() / "train_march" / kernels._target(
+        PROBE_LIB).name.replace(f"lib{PROBE_LIB}_",
+                                f"lib{PROBE_LIB}_cycles_")
+    return c.start_nvcc(
+        out, kernels._CSRC / kernels.SOURCES[PROBE_LIB][0],
+        (*kernels._FLAGS.get(PROBE_LIB, []), "-DVT_TM_CYCLES"))
 
 
 def load_probe_build(started) -> ctypes.CDLL:
     """Wait for ``start_probe_build``'s compile and load the library
     (raises with the log if the build failed)."""
-    out, building = started
-    if building is not None:
-        tmp, proc = building
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"train_march: the probe build failed:\n"
-                               f"{log}")
-        os.replace(tmp, out)
-    return _load(out, PROBE_LIB, True)
+    return _load(c.finish_nvcc(started, "train_march: the probe build"),
+                 PROBE_LIB, True)
 
 
 def probe_launch(lib, fwd, gi: int, P: int) -> dict:
