@@ -123,8 +123,12 @@ Phases (any failure exits non-zero and prints no result):
     variant against its plain version on group 0; pose 0 >= 54 dB), SG16,
     ASG16 and RGBA trees read from the same leaves (int8 bakes; each
     variant against its plain version on pose 0's group, render_image of
-    pose 0 counted, >= 47.5 dB), the render options on pose 0 of the dense
-    int8 grid (render_depth, render_bbox, a basis window, rot_dirs: each
+    pose 0 counted, >= 47.5 dB; RGBA's launches through its kernel of its
+    own, RGBA-int8, their tile heights logged, pose 0 alone against its
+    plain version too (two blocks an SM; the group three); RGBA with a
+    render_bbox through its option variant, RGBA-int8-opt, against its
+    plain version and counted on pose 0, >= 40 dB), the render options
+    on pose 0 of the dense int8 grid (render_depth, render_bbox, a basis window, rot_dirs: each
     against its plain version, counted, rot and the window >= 47.5 dB,
     the bbox >= 40 dB, depth >= 30 dB), tools/perf_split.py's e = 0.5 sweep pose in depth mode (each
     class pass against its plain version, >= 30 dB) and bench.py's NDC
@@ -2260,6 +2264,7 @@ VARIANT_ROWS = (
     ("M_sg", "slab_march_display_sg", "SG-int8"),
     ("M_asg", "slab_march_display_asg", "ASG-int8"),
     ("M_rgba", "slab_march_display_rgba", "RGBA-int8"),
+    ("M_rgba_opt", "slab_march_display_rgba_opt", "RGBA-int8-opt"),
     ("M_opt", "slab_march_display_opt", "SH-int8-opt"),
     ("M_depth", "slab_march_display_depth", "SH-int8-opt-depth"),
 )
@@ -2272,6 +2277,8 @@ FLOOR_DEPTH = 30.0     # the reference's slab-vs-exact depth floor
 # floor sits 4.5 dB under it, above the reference test's own 30 dB
 # (tests/test_slab_render.py:689)
 FLOOR_BBOX = 40.0
+#: phase 12's render_bbox (the dense grid's option case, RGBA's)
+BBOX_OPTION = (0.25,) * 3 + (0.75,) * 3
 
 
 def variant_ops(grid, opt, bf16_shade=False):
@@ -2403,19 +2410,19 @@ def variant_check(torch, kernels, tag, grid, opt, cams, key, stats,
         "variant": cfg["variant"], "poses": P, "ms": whole_ms,
         "sub_ms": ms, "bound_ms": bnd[0], "whole_bound_ms": whole_bnd[0],
         "plain_ms": plain_ms,
-        "max_abs_err": err, **occ, "rows": cfg["rows"]}
+        "max_abs_err": err, **occ, "rows": cfg["rows"],
+        "blocks": cfg.get("blocks")}
     del pay, acc_k, acc_p
     return row
 
 
 def instantiation_infos(kernels, keep) -> dict:
     """What the card makes of kernel M's display instantiations whose
-    volrend_torch/probes/display_info.py key ``keep`` accepts (at the
-    display path's shared-memory budget): registers, spill bytes and
-    blocks per SM, each logged; fails if one spills, takes more than 128
-    registers or holds fewer than two blocks an SM."""
+    volrend_torch/probes/display_info.py key ``keep`` accepts (at each
+    one's shared-memory budget, ``display_info.info_smem``): registers,
+    spill bytes and blocks per SM, each logged; fails if one spills, takes
+    more than 128 registers or holds fewer than two blocks an SM."""
     import ctypes
-    from volrend_torch.ops import slab_march
     from volrend_torch.probes import display_info
     lib = kernels.lib("slab_march_display")
     out = {}
@@ -2424,7 +2431,7 @@ def instantiation_infos(kernels, keep) -> dict:
             continue
         info = (ctypes.c_int * 4)()
         kernels.check(lib.vt_march_display_info(
-            bd, rows, fmt, bf16, opt, slab_march._DISPLAY_SMEM, info),
+            bd, rows, fmt, bf16, opt, display_info.info_smem(opt), info),
             "slab_march_display")
         out[key] = {"blocks_per_sm": info[0], "regs": info[1],
                     "spill_bytes": info[2], "static_smem": info[3]}
@@ -2482,7 +2489,12 @@ def variants_phase(torch, kernels, dev, opt, stats, gate, main_path,
     group 0 and pose 0 gated at >= FLOOR_ORBIT. (b) SG16, ASG16 and RGBA
     trees from the same leaves (_common.format_trees), baked int8: each
     variant against its plain version on pose 0's group and render_image
-    of pose 0 counted and gated at >= FLOOR_SPARSE. (c) On the dense int8
+    of pose 0 counted and gated at >= FLOOR_SPARSE; RGBA without a bbox
+    through its kernel of its own (RGBA-int8; pose 0's launch against its
+    plain version too, at two blocks an SM, the group's at three), with
+    the bbox of (c)
+    through the option variant (RGBA-int8-opt: against its plain version,
+    counted and gated at >= FLOOR_BBOX). (c) On the dense int8
     grid, pose 0: render_depth, render_bbox, a basis window and rot_dirs,
     each against its plain version, counted and gated (colour >=
     FLOOR_SPARSE, depth >= FLOOR_DEPTH, the bbox >= FLOOR_BBOX). (d)
@@ -2497,7 +2509,7 @@ def variants_phase(torch, kernels, dev, opt, stats, gate, main_path,
     from volrend_torch.ops.camera import Camera
     from volrend_torch.probes import _common
     out = {"instantiations": instantiation_infos(
-        kernels, lambda k: k.startswith(("SG", "ASG", "depth"))
+        kernels, lambda k: k.startswith(("SG", "ASG", "depth", "RGBA"))
         or ("-bf16-r" in k and k.startswith("SH")))}
     # each variant's launches in the counted runs (the main path's for
     # SH-bf16): the JSON line's counts
@@ -2556,10 +2568,47 @@ def variants_phase(torch, kernels, dev, opt, stats, gate, main_path,
             torch, fmt, lambda: slab_render.render_image(
                 g, cam0, opt, gi=GI, out_dtype=torch.uint8), 1, True,
             launched)
+        grp = stats["M_variants"][f"{fmt} orbit group 0"]
+        one = slab_march.march_slabs.display or {}
+        log(f"{fmt}: orbit group 0 ({grp['poses']} poses) through "
+            f"{grp['variant']} on 32x{8 * grp['rows']} tiles; pose 0's "
+            f"render_image through {variants} on 32x"
+            f"{8 * one.get('rows', 0)} tiles")
+        if fmt == "RGBA" and (grp["variant"] != "RGBA-int8"
+                              or set(variants) != {"RGBA-int8"}):
+            fail(f"RGBA: a launch missed RGBA's kernel of its own "
+                 f"(RGBA-int8): {grp['variant']}, {variants}")
         out[fmt] = {"counts": counts, "variants": variants,
                     "psnr_db": gate(f"{fmt} pose 0", tree, cam0,
                                     torch.as_tensor(frame, device=dev), 5,
                                     FLOOR_SPARSE)}
+        if fmt == "RGBA":
+            # one pose (a launch within one wave) takes RGBA's kernel at two
+            # blocks an SM, the group at three: each against its plain
+            # version
+            variant_check(torch, kernels, "RGBA pose 0", g, opt, [cam0],
+                          key, stats)
+            one = stats["M_variants"]["RGBA pose 0"]
+            if (one["variant"], one["blocks"], grp["blocks"]) != (
+                    "RGBA-int8", 2, 3):
+                fail(f"RGBA: pose 0 and group 0 did not take RGBA's kernel "
+                     f"at two and three blocks an SM: {one}, {grp}")
+            # a render_bbox keeps RGBA's option variant
+            bopt = dataclasses.replace(opt, render_bbox=BBOX_OPTION)
+            variant_check(torch, kernels, "RGBA bbox", g, bopt, [cam0],
+                          "M_rgba_opt", stats)
+            frame, counts, variants = counted_render(
+                torch, "RGBA bbox", lambda: slab_render.render_image(
+                    g, cam0, bopt, gi=GI, out_dtype=torch.uint8), 1, True,
+                launched)
+            if set(variants) != {"RGBA-int8-opt"}:
+                fail(f"RGBA bbox: the launch missed RGBA's option variant "
+                     f"(RGBA-int8-opt): {variants}")
+            out["RGBA_bbox"] = {
+                "counts": counts, "variants": variants,
+                "psnr_db": gate("RGBA bbox pose 0", tree, cam0,
+                                torch.as_tensor(frame, device=dev), 5,
+                                FLOOR_BBOX, bopt)}
         del g, frame
         torch.cuda.empty_cache()
 
@@ -2569,8 +2618,8 @@ def variants_phase(torch, kernels, dev, opt, stats, gate, main_path,
                ("rot", dict(rot_dirs=(0.3, -0.2, 0.5)), "M_opt",
                 FLOOR_SPARSE),
                ("window", dict(basis_minmax=(0, 8)), "M_opt", FLOOR_SPARSE),
-               ("bbox", dict(render_bbox=(0.25,) * 3 + (0.75,) * 3),
-                "M_opt", FLOOR_BBOX))
+               ("bbox", dict(render_bbox=BBOX_OPTION), "M_opt",
+                FLOOR_BBOX))
     for name, o, key, floor in options:
         vopt = dataclasses.replace(opt, **o)
         variant_check(torch, kernels, f"option {name}", grid, vopt, [cam0],
@@ -3471,6 +3520,32 @@ def sass_check() -> dict:
         fail(f"display_sass: the SH int8 defaults' SASS moved or was not "
              f"read (rc {res.returncode}; {res.stderr[-2000:]})")
     return out
+
+
+def fit_sass_per_pixel(kernels) -> dict:
+    """Kernel W's fit mode for the production cascade (fit_cascade, one
+    thread a 4 x 4 super block) in machine code: its instructions (NOPs
+    aside) up to the EXIT its closing self-branch follows (``main_path``;
+    any code past it is out of line) and those a pixel (over 16 pixels a
+    thread). Static counts: they include the correctly rounded divides'
+    slow paths where nvcc places them inline, so they bound the executed
+    count from above. Read with cuobjdump (probes/display_sass.functions);
+    where that fails, the error."""
+    from volrend_torch.probes import display_sass
+    try:
+        fns = display_sass.functions(str(kernels._target("warp_display")))
+        sass = next(v for k, v in fns.items() if "fit_cascade" in k)
+    except Exception as e:  # noqa: BLE001 - logged beside the row
+        return {"error": repr(e)[:200]}
+    ins = [ln.split("*/", 1)[1].strip() for ln in sass]
+    end = len(ins)
+    for i in range(len(ins) - 1):
+        if ins[i].startswith("EXIT") and ins[i + 1].startswith("BRA"):
+            end = i + 1
+            break
+    main = [x for x in ins[:end] if not x.startswith("NOP")]
+    return {"instructions": len([x for x in ins if not x.startswith("NOP")]),
+            "main_path": len(main), "per_pixel": len(main) / 16.0}
 
 
 def display_march_phase(torch, dev, opt, probe_build) -> dict:
@@ -5538,6 +5613,12 @@ def main() -> None:
             P * 16 * 4 + len(levels) * P * 4,
             P * H * W * (20 + 6 * len(levels)))
         stats["WF"]["library_ms"] = None
+        stats["WF"]["sass_per_pixel"] = fit_sass_per_pixel(kernels)
+        log(f"kernel W fit mode [{tag}, {P} poses]: {stats['WF']['ms']:.4f} "
+            f"ms, bound {stats['WF']['bound_ms']:.4f} ms "
+            f"({stats['WF']['bound_by']}; ~{20 + 6 * len(levels)} "
+            f"operations a pixel), fit_cascade's SASS "
+            f"{json.dumps(stats['WF']['sass_per_pixel'])}")
         stats["poses_per_launch"] = P
         log(f"kernel times [{tag}, {P} poses per launch]: "
             f"{json.dumps(stats)}")

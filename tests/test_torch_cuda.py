@@ -1433,6 +1433,131 @@ def test_display_bf16_unaligned_rows_match_plain(format_grids, fmt):
                       crop=(0, 32, 1, 30))
 
 
+def _rgba_backs(P):
+    """P view directions of one (perm, flip) group, spread over an arc."""
+    t = np.linspace(0.0, 1.0, P)
+    return [(1.0, 0.1 + 0.3 * a, 0.2 + 0.25 * (1.0 - a)) for a in t]
+
+
+def _rgba_blocks(P):
+    """The blocks an SM display_config gives RGBA's kernel of its own at P
+    poses: three past one wave of two blocks an SM, else two (at GI = 64,
+    P = 1 and 4 take two, 51 three)."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return 3 if P * -(-GI // 32) * -(-GI // 8) > 2 * n_sm else 2
+
+
+def _rgba_launch(g, P, bbox=False, crop=None, option_variant=False):
+    """One RGBA display launch of P poses on grid ``g`` (32x8 tiles), with a
+    render_bbox or without; ``option_variant``: the option variant
+    (vt_march_display's opt 1) under a bbox that holds the whole grid,
+    which masks nothing. Returns (acc, the plain version's acc, the
+    launch's configuration)."""
+    opt = OPT
+    if bbox:
+        opt = dataclasses.replace(OPT, **_OPTIONS["bbox"])
+    cams = _cams(_rgba_backs(P))
+    perm, flip, _ = slab_render.choose_axis(g, cams[0].transform, 200.0,
+                                            200.0, W, H)
+    geom = slab_render.FrameGeom(g, np.stack([c.transform for c in cams]),
+                                 200.0, 200.0, perm, flip, W, H, opt, GI)
+    params, zb = slab_render._march_frame_fields(g, geom, perm, flip, opt)
+    pay = slab_render._permuted_grid(g, perm, crop=crop)
+    ids = g.slab_ids(perm[0], flip, opt.sigma_thresh)
+    mode = slab_march.MarchMode(
+        int(g.fmt), None, False, None,
+        slab_render._bbox_full(opt) and not option_variant)
+    n0 = slab_march.march_slabs.launches
+    acc = slab_march.march_slabs(
+        pay, params, g.qscale, zb, g.G, GI, g.data_dim, g.basis_dim,
+        perm, slab_ids=ids, sig2=g.quantized, flip=flip, dir_win=True,
+        k_per_step=slab_march._K_STEP, crop=crop, fmt=mode.fmt,
+        bbox_full=mode.bbox_full)
+    assert slab_march.march_slabs.launches == n0 + 1
+    m = slab_march.march_inputs(pay, params, zb, g.G, GI, ids,
+                                slab_march._K_STEP, crop)
+    ref = slab_march.march_slabs_ref(pay, g.qscale, D=g.data_dim, bd=-1,
+                                     flip=flip, dir_win=True,
+                                     **mode._asdict(), **m)
+    torch.cuda.synchronize()
+    return acc, ref, dict(slab_march.march_slabs.display)
+
+
+@pytest.mark.parametrize("P", [1, 4, 51])
+@pytest.mark.parametrize("dt", ["int8", "f16"])
+def test_rgba_kernel_matches_plain(format_grids, dt, P):
+    """RGBA without a bbox takes its kernel of its own (rgba_kernel on
+    32x8 tiles, vt_march_display's opt 0 at two blocks an SM, 4 at three:
+    1 and 4 poses take two, 51 three) on both payloads, named
+    ``RGBA-<payload>``, and agrees with the plain version (TOL_M, freeze
+    flips aside)."""
+    g = format_grids[("RGBA", dt)]
+    acc, ref, cfg = _rgba_launch(g, P)
+    blocks = _rgba_blocks(P)
+    assert blocks == (3 if P == 51 else 2)
+    assert cfg["variant"] == ("RGBA-bf16" if dt == "f16" else "RGBA-int8")
+    assert (cfg["rows"], cfg["chan_cells"], cfg["blocks"]) == (1, 0, blocks)
+    assert cfg["opt"] == {2: 0, 3: 4}[blocks]
+    assert float(acc[:, 3].min()) < 0.9
+    _agree(acc, ref)
+
+
+@pytest.mark.parametrize("P", [1, 4, 51])
+@pytest.mark.parametrize("dt", ["int8", "f16"])
+def test_rgba_bbox_keeps_the_option_variant(format_grids, dt, P):
+    """RGBA with a render_bbox keeps the option variant (32x8, named
+    ``-opt``) and agrees with the plain version."""
+    g = format_grids[("RGBA", dt)]
+    acc, ref, cfg = _rgba_launch(g, P, bbox=True)
+    assert cfg["variant"].endswith("-opt") and cfg["opt"] == 1
+    _agree(acc, ref)
+
+
+@pytest.mark.parametrize("dt", ["int8", "f16"])
+def test_rgba_kernel_bit_equal_to_the_option_variant(format_grids, dt):
+    """Where each tile-slab footprint stages in one piece (this grid's
+    all do), the RGBA kernel's output is the option variant's bit for bit
+    at two and three blocks an SM: the taps decode each cell with the
+    shade pass's arithmetic and sum in its order (4 poses: two blocks; 51:
+    three)."""
+    g = format_grids[("RGBA", dt)]
+    for P, blocks in ((4, 2), (51, 3)):
+        acc_o, _, cfg_o = _rgba_launch(g, P, option_variant=True)
+        assert cfg_o["opt"] == 1
+        acc, _, cfg = _rgba_launch(g, P)
+        assert blocks == _rgba_blocks(P)
+        assert cfg["opt"] == {2: 0, 3: 4}[blocks]
+        assert torch.equal(acc, acc_o)
+
+
+@pytest.mark.parametrize("P, blocks", [(4, 2), (51, 3)])
+def test_rgba_kernel_unaligned_bf16_rows(format_grids, P, blocks):
+    """A bf16 crop whose rows are not whole 16-byte chunks (Gx = 30) is
+    staged into the RGBA kernel's slots by the producer's element copies,
+    at two blocks an SM (4 poses) and three (51), and agrees."""
+    g = format_grids[("RGBA", "f16")]
+    acc, ref, cfg = _rgba_launch(g, P, crop=(0, 32, 1, 30))
+    assert blocks == _rgba_blocks(P)
+    assert cfg["opt"] == {2: 0, 3: 4}[blocks]
+    _agree(acc, ref)
+
+
+@pytest.mark.parametrize("P", [1, 51])
+@pytest.mark.parametrize("levels", [
+    (((4, 4), (5, 5)), ((2, 2), (4, 4))),
+    (((4, 4), (5, 5)), ((5, 5), (6, 6)))], ids=["cascade", "spare"])
+def test_fit_cascade_bit_equal_at_a_group(grids, levels, P):
+    """W's fit mode at 1 and 51 poses: the production cascade, biggest
+    block first as plan_fits hands it (its kernel of its own,
+    fit_cascade), and a level set that does not nest in 16 pixels
+    (fit_kernel), bit-equal to the plain version."""
+    _, g = grids
+    _, prm, _ = _warp_case(g, 80.0, backs=_rgba_backs(P))
+    counts = display_warp.level_fit_counts(prm, levels, GI, H, W)
+    assert torch.equal(counts, display_warp.level_fit_counts_ref(
+        prm, levels, GI, H, W))
+
+
 @pytest.mark.parametrize("crop", [(0, 32, 1, 30), (2, 28, 16, 16)])
 @pytest.mark.parametrize("dt", ["int8", "f16"])
 @pytest.mark.parametrize("option", ["bbox", "all"])
@@ -2045,7 +2170,7 @@ DEFAULT_W_INFO = {
     (2, 4, 4, 5, 1): (5, 96, 0), (2, 4, 4, 5, 0): (5, 96, 0),
 }
 
-#: kernel M's 72 display instantiations (NVIDIA H100 80GB HBM3; read by
+#: kernel M's 76 display instantiations (NVIDIA H100 80GB HBM3; read by
 #: ``python volrend_torch/probes/display_info.py``): per instantiation,
 #: (blocks per SM, registers, spill bytes, static shared bytes). The SH
 #: int8 defaults keep the values they had before the display knobs (and
@@ -2055,8 +2180,11 @@ DEFAULT_W_INFO = {
 #: nothing since their redesign; bf16 shading took a variant of its own
 #: without options at both tile heights (``-bf16shade``; the option
 #: variant is ``-bf16shade-opt``) and the packed bf16 basis, and it and the
-#: bf16 payload's SH defaults take each job's walk once: every one within
-#: 128 registers, no spills, two blocks an SM
+#: bf16 payload's SH defaults take each job's walk once; RGBA without a
+#: bbox took a kernel of its own (``rgba_kernel``, 288 threads a block),
+#: read at two blocks an SM and, ``-b3``, at three in its 72 KB budget
+#: (``display_info.info_smem``): every one within 128 registers, no
+#: spills, two blocks an SM or more
 DEFAULT_DISPLAY_INFO = {
     "SH1-int8-r1": (2, 100, 0, 144),
     "SH1-int8-r2": (2, 113, 0, 144),
@@ -2128,6 +2256,10 @@ DEFAULT_DISPLAY_INFO = {
     "ASG-bf16-opt-r2": (2, 128, 0, 1680),
     "RGBA-int8-opt-r1": (2, 96, 0, 192),
     "RGBA-bf16-opt-r1": (2, 120, 0, 176),
+    "RGBA-int8-r1": (2, 95, 0, 720),
+    "RGBA-bf16-r1": (2, 96, 0, 784),
+    "RGBA-int8-b3-r1": (3, 72, 0, 720),
+    "RGBA-bf16-b3-r1": (3, 72, 0, 784),
     "depth-int8-r1": (2, 119, 0, 144),
     "depth-bf16-r1": (2, 124, 0, 128),
 }
@@ -2195,18 +2327,18 @@ def test_warp_display_default_launch_info(card):
 
 
 def test_default_display_instantiations_keep_their_launch(card):
-    """Kernel M's 72 display instantiations keep the blocks per SM,
+    """Kernel M's 76 display instantiations keep the blocks per SM,
     registers, spills and static shared memory of DEFAULT_DISPLAY_INFO."""
     from volrend_torch.probes import display_info
     from volrend_torch import kernels
-    assert len(DEFAULT_DISPLAY_INFO) == 72
+    assert len(DEFAULT_DISPLAY_INFO) == 76
     lib = kernels.lib("slab_march_display")
     rows = {v[0]: v[1:] for v in display_info.M_VARIANTS}
     for key, want in DEFAULT_DISPLAY_INFO.items():
         bd, r, fmt, bf16, opt = rows[key]
         out = (ctypes.c_int * 4)()
         kernels.check(lib.vt_march_display_info(
-            bd, r, fmt, bf16, opt, slab_march._DISPLAY_SMEM, out),
+            bd, r, fmt, bf16, opt, display_info.info_smem(opt), out),
             "slab_march_display")
         assert list(out) == list(want), (key, list(out))
 

@@ -313,7 +313,8 @@ def test_sq4_variants_through_tail():
 
 def test_display_march_slots_follow_the_kernel_clock():
     """The probe's parts are the display kernel's DPart enum in order, then
-    the loop's cycles and the jobs, slabs and windows (DM_SLOTS)."""
+    the loop's cycles and the jobs, slabs, windows and stages
+    (DM_SLOTS)."""
     import re
     from volrend_torch import kernels
     from volrend_torch.probes import display_march
@@ -322,23 +323,23 @@ def test_display_march_slots_follow_the_kernel_clock():
     names = re.findall(r"^\s*(D_[A-Z]+),", body, re.M)
     assert len(names) == len(display_march.PARTS) == 10
     assert names[0] == "D_PRO" and names[-1] == "D_COMP"
-    assert "constexpr int DM_SLOTS = D_NPARTS + 4;" in src
+    assert "constexpr int DM_SLOTS = D_NPARTS + 5;" in src
     assert display_march.SLOTS[len(names):] == ("loop", "jobs", "slabs",
-                                                "windows")
+                                                "windows", "stages")
 
 
 def test_display_march_summarize():
     """A launch's clock rows summed as the probe reports them: the parts
     and the loop over the blocks, each part's share, the slowest block's
-    row, the jobs, slabs and windows summed, a block's mean and most, the
-    pieces a slab."""
+    row, the jobs, slabs, windows and stages summed, a block's mean and
+    most, the pieces a slab and the slabs a stage."""
     from volrend_torch.probes import display_march
     n = len(display_march.PARTS)
     rows = np.zeros((3, len(display_march.SLOTS)), np.int64)
     rows[:, :n] = np.arange(n) + 1
     rows[1, 4] = 100                    # block 1 shades longest
     rows[:, n] = rows[:, :n].sum(1)
-    rows[:, n + 1:] = [[4, 2, 1], [6, 3, 1], [5, 5, 2]]
+    rows[:, n + 1:] = [[4, 2, 1, 4], [6, 3, 1, 2], [5, 5, 2, 4]]
     out = display_march.summarize(rows)
     assert out["blocks"] == 3
     assert out["cycles"]["shade"] == 5 + 100 + 5
@@ -349,6 +350,8 @@ def test_display_march_summarize():
     assert out["jobs"] == {"sum": 15, "mean": 5.0, "max": 6}
     assert out["slabs"]["sum"] == 10 and out["windows"]["max"] == 2
     assert out["pieces_a_slab"] == 1.5
+    assert out["stages"] == {"sum": 10, "mean": 10 / 3, "max": 4}
+    assert out["slabs_a_stage"] == 1.0
     assert abs(sum(out["share"].values()) - 1.0) < 1e-3
 
 

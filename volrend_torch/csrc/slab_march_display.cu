@@ -139,6 +139,11 @@
 //   whole basis arrays of the compiled bound (4, 9, 16 or 25) a unit and
 //   the lobes' 4 or 11 loop-invariant floats: ASG spilled up to 1016 bytes
 //   a thread under the two-block register cap and ran ~39x its bound.
+// - RGBA without a bbox is a kernel of its own (rgba_kernel, below, 32x8
+//   tiles): a producer warp that walks the tile once and issues the
+//   copies beside 8 consumer warps, two slots of stage, jobs of several
+//   slabs, and no shade pass (the taps decode the staged codes); the bbox
+//   keeps the option variant.
 // - Depth mode is a variant of its own (F_DEPTH, any format): it stages
 //   the sigma planes alone (int8 hi and lo, or the bf16 plane: 2 bytes a
 //   cell) and keeps one float a shaded cell, so its stage holds ~11x the
@@ -212,10 +217,10 @@ __device__ __forceinline__ float fast_sigmoid(float x) {
 
 // A probe build's clock (VT_DM_CYCLES, volrend_torch/probes/display_march.py):
 // thread 0's clock cycles by part of the job loop, then the whole loop's,
-// the jobs (slab pieces) and slabs it walked and the windows it entered,
-// one row a block in dm_cycles (blocks past DM_BLOCKS are not kept);
-// vt_display_cycles reads and clears the rows. Other builds' clock is
-// empty and adds no instruction.
+// the jobs (slab pieces) and slabs it walked, the windows it entered and
+// the stages it waited for, one row a block in dm_cycles (blocks past
+// DM_BLOCKS are not kept); vt_display_cycles reads and clears the rows.
+// Other builds' clock is empty and adds no instruction.
 enum DPart {
   D_PRO,       // the block's set-up: params, live windows, the first copy
   D_WALK,      // Walk::next: the next job and its footprint
@@ -229,7 +234,10 @@ enum DPart {
   D_COMP,      // the composite after a slab's last piece
   D_NPARTS
 };
-constexpr int DM_SLOTS = D_NPARTS + 4;  // + loop, jobs, slabs, windows
+// + loop, jobs (slab pieces), slabs, windows, stages (a stage's copies and
+// its end barrier: one a job in display_kernel, one a run of pieces in
+// rgba_kernel)
+constexpr int DM_SLOTS = D_NPARTS + 5;
 #ifdef VT_DM_CYCLES
 constexpr int DM_BLOCKS = 1 << 16;
 __device__ unsigned long long dm_cycles[DM_BLOCKS][DM_SLOTS];
@@ -260,7 +268,7 @@ struct DClock {
 };
 #endif
 // DClock::count slots
-constexpr int DM_JOB = 0, DM_SLAB = 1, DM_WIN = 2;
+constexpr int DM_JOB = 0, DM_SLAB = 1, DM_WIN = 2, DM_STAGE = 3;
 
 struct ShadeCtx {
   float invG, cy, cx, sc, ssign, thr;
@@ -1151,6 +1159,7 @@ __global__ void __launch_bounds__(DNT, 2)
       }
     }
     clk.count(DM_JOB);
+    clk.count(DM_STAGE);
     if (cw.first_piece()) clk.count(DM_SLAB);
     if constexpr (V::WALK1) {
       if (a.async) {
@@ -1184,13 +1193,474 @@ __global__ void __launch_bounds__(DNT, 2)
   clk.store(tid, bid);
 }
 
+// ---------------------------------------------------------------------------
+// RGBA without options: a kernel of its own for RGBA's chain
+// ---------------------------------------------------------------------------
+//
+// RGBA shades a cell with a sigma decode and three multiplies, so what
+// bounds display_kernel's RGBA variant is the chain each job walks (the
+// walk, taken by every thread twice, the copies issued by the 15 threads
+// of one warp that a 5-plane piece needs, the shade pass and three
+// barriers), not bytes or arithmetic (PERF.md: thread 0's loop a job
+// 26 % walk, 21 % copy issue, 23 % shading, 19 % taps). This kernel takes
+// RGBA launches without a bbox (rot and the basis window do nothing to
+// RGBA), on 32x8 tiles:
+// - warp-specialized: 8 consumer warps own the tile's pixels and take the
+//   taps and composites; a ninth, the producer, walks the tile's pieces
+//   (once), issues their copies and describes each piece in shared memory
+//   for the consumers, a job ahead of them;
+// - the stage is two slots; a job is a run of consecutive pieces (slab
+//   footprint pieces, in march order) whose cells fit one slot, up to
+//   RG_NJ of them, so one block barrier serves several slabs;
+// - no shade pass and no shaded-cell buffer: the taps decode the staged
+//   codes of each cell they reach (sigma's two planes or its bf16 plane;
+//   under the sigma threshold nothing more, else the three colour codes
+//   and their scales), with the arithmetic of shade_pair, so a launch's
+//   output is bit-equal to the option variant's where its footprints
+//   stage in the same pieces;
+// - the window checks are the consumers' alone (a named barrier's OR over
+//   their 256 threads); the block's one barrier a job hands the slots
+//   over, and a consumer's "no pixel alive" reaches the producer there;
+// - MINB blocks an SM: 2, or 3 for a launch of more blocks than two an
+//   SM hold at once, in 72 KB of shared memory each
+//   (slab_march.display_config). 32x16 tiles (two pixels a thread) were
+//   built and measured: at three blocks an SM they spilled (124 bytes a
+//   thread), at two they ran 5-7 % slower than 32x8 at three on every
+//   whole orbit group and slower on 4 poses and one
+//   (probes/display_tiles, PERF.md), so RGBA takes 32x8 alone.
+
+#ifndef VT_RG_NJ
+#define VT_RG_NJ 4
+#endif
+constexpr int RG_NJ = VT_RG_NJ;           // pieces a job at most
+constexpr int RG_NT = DNT + 32;           // consumers and the producer warp
+constexpr int RG_SMEM3 = 72 * 1024;      // a block's budget at three an SM
+
+// The RGBA kernel's walk: display_kernel's (Walk), with the rows a piece
+// takes read from a table of the slot's rows for each count of 16-byte
+// chunks a row (``rp``, the same quotient) in place of Walk::RP's two
+// integer divisions, which it takes several times a piece.
+template <int CH, int ESZ>
+struct RgWalk : Walk<CH, ESZ> {
+  const int* rp;
+  __device__ int RP(const WalkGeo& g) const { return rp[this->BX(g) / CH]; }
+  __device__ int rows(const WalkGeo& g) const {
+    return min(RP(g), this->f.y_hi - this->py + 1);
+  }
+  __device__ bool last_piece(const WalkGeo& g) const {
+    return this->px + MAX_COLS > this->f.x_hi &&
+           this->py + RP(g) > this->f.y_hi;
+  }
+  __device__ bool next(const WalkGeo& g) {
+    this->py += RP(g);
+    if (this->py <= this->f.y_hi) return true;
+    this->py = this->f.y_lo;
+    this->px += MAX_COLS;
+    if (this->px <= this->f.x_hi) return true;
+    return this->from(g, this->wi, this->t + 1);
+  }
+};
+
+// A staged piece as the consumers read it: its window, slab, first row
+// and column, its slab's footprint, its rows and columns, the stage row's
+// cells (BX) and the global column of its first cell, its offset in the
+// slot, and whether it is its slab's first and last piece.
+struct RgPiece {
+  int wi, sid, py, px;
+  int y_lo, y_hi, x_lo, x_hi;
+  int FY, FX, BX, gx0;
+  int off, first, last, pad;
+};
+
+// the producer warp's share of piece ``pw`` into ``st`` (rows of DP
+// planes of BX cells) as 16-byte cp.async copies: a lane takes (plane,
+// chunk) columns (the column's plane by a float reciprocal, exact for
+// columns below 2^10) down the piece's rows; the caller commits the group
+template <int ESZ, int DP, class W>
+__device__ __forceinline__ void rg_copy_async(const int8_t* payload,
+                                              const W& pw, const WalkGeo& g,
+                                              uint8_t* st, int lane, int Gy,
+                                              int Gx, int y0) {
+  const int bx = pw.BX(g), rows = pw.rows(g);
+  const size_t plane = (size_t)Gy * Gx;
+  const int nch = (bx * ESZ) >> 4, cols = DP * nch;
+  const float inv = __frcp_rn((float)nch);
+  const int rstride = DP * bx * ESZ;
+  const uint8_t* base =
+      reinterpret_cast<const uint8_t*>(payload) +
+      ((size_t)pw.sid * DP * plane + (size_t)(pw.py - y0) * Gx + pw.cs(g)) *
+          ESZ;
+  for (int cu = lane; cu < cols; cu += 32) {
+    const int d = (int)(((float)cu + 0.5f) * inv), ch = cu - d * nch;
+    const uint8_t* src = base + (size_t)d * plane * ESZ + 16 * ch;
+    uint8_t* dst = st + d * bx * ESZ + 16 * ch;
+    for (int ly = 0; ly < rows; ++ly) {
+      cp_async16(dst, src);
+      src += (size_t)Gx * ESZ;
+      dst += rstride;
+    }
+  }
+}
+
+// the same piece by element copies (rows that are not whole 16-byte
+// chunks); cells past the payload's row are zero
+template <int ESZ, int DP, class W>
+__device__ __forceinline__ void rg_copy_sync(const int8_t* payload,
+                                             const W& pw, const WalkGeo& g,
+                                             uint8_t* st, int lane, int Gy,
+                                             int Gx, int y0) {
+  using E = std::conditional_t<ESZ == 2, uint16_t, uint8_t>;
+  const int bx = pw.BX(g), rows = pw.rows(g), cs = pw.cs(g);
+  const E* src = reinterpret_cast<const E*>(payload) +
+                 (size_t)pw.sid * DP * Gy * Gx;
+  E* dst = reinterpret_cast<E*>(st);
+  for (int u = lane; u < rows * DP * bx; u += 32) {
+    const int row = u / bx, lx = u - row * bx;
+    const int ly = row / DP, d = row - ly * DP;
+    const int gx = cs + lx;
+    dst[u] = gx < Gx ? src[((size_t)d * Gy + pw.py - y0 + ly) * Gx + gx]
+                     : (E)0;
+  }
+}
+
+// One staged cell's tap (stage row ``row``, cell lx of its BX, planes BX
+// cells apart) added to ``acc`` with weight ``wgt``: its sigma decoded,
+// and under the threshold nothing added (the shade pass's zero cell adds
+// +0, which leaves every sum as it is); else its colours decoded with
+// shade_pair's RGBA arithmetic, [sigma, sigma*r, sigma*g, sigma*b].
+template <bool BF>
+__device__ __forceinline__ void rg_tap(const uint8_t* row, int lx, int BX,
+                                       float q0, float q1, float q2,
+                                       float qsig, float thr, float wgt,
+                                       float4& acc) {
+  float s, c0, c1, c2;
+  if constexpr (BF) {
+    // each bf16 cell to f32 by an exact 16-bit shift
+    const uint16_t* p = reinterpret_cast<const uint16_t*>(row) + lx;
+    s = __uint_as_float((uint32_t)p[3 * BX] << 16) * qsig;
+    if (!(s > thr)) return;
+    c0 = __uint_as_float((uint32_t)p[0] << 16);
+    c1 = __uint_as_float((uint32_t)p[BX] << 16);
+    c2 = __uint_as_float((uint32_t)p[2 * BX] << 16);
+  } else {
+    const uint8_t* p = row + (lx & ~3);
+    const int i = lx & 3;
+    s = (code(word(p + 3 * BX), i) * 128.f + code(word(p + 4 * BX), i)) *
+        qsig;
+    if (!(s > thr)) return;
+    c0 = code(word(p), i);
+    c1 = code(word(p + BX), i);
+    c2 = code(word(p + 2 * BX), i);
+  }
+  acc.x += wgt * s;
+  acc.y += wgt * (s * (c0 * q0));
+  acc.z += wgt * (s * (c1 * q1));
+  acc.w += wgt * (s * (c2 * q2));
+}
+
+// the OR of ``p`` over the 256 consumer threads (named barrier 1; the
+// producer warp takes no part)
+__device__ __forceinline__ bool consumers_or(bool p) {
+  int r;
+  asm volatile(
+      "{\n\t.reg .pred q, o;\n\t"
+      "setp.ne.b32 q, %1, 0;\n\t"
+      "bar.red.or.pred o, 1, 256, q;\n\t"
+      "selp.b32 %0, 1, 0, o;\n\t}"
+      : "=r"(r)
+      : "r"((int)p)
+      : "memory");
+  return r != 0;
+}
+
+// The producer warp: the pieces of one job from the walk ``pw`` (while it
+// ``has`` one) into the slot ``st``, as many as fit its ``slot_bytes`` up
+// to RG_NJ, the lanes copying and lane 0 describing each piece in
+// ``job``; commits the copies and returns the job's pieces.
+template <int ESZ, int DP, class W>
+__device__ __forceinline__ int rg_stage(const DispArgs& a, W& pw, bool& has,
+                                        const WalkGeo& g, uint8_t* st,
+                                        int slot_bytes, RgPiece* job,
+                                        int lane, DClock& clk) {
+  int n = 0, used = 0;
+  while (has && n < RG_NJ) {
+    const int bx = pw.BX(g), rows = pw.rows(g);
+    const int bytes = rows * DP * bx * ESZ;  // whole 16-byte rows
+    if (used + bytes > slot_bytes) break;
+    if (a.async)
+      rg_copy_async<ESZ, DP>(a.payload, pw, g, st + used, lane, a.Gy, a.Gx,
+                             a.y0);
+    else
+      rg_copy_sync<ESZ, DP>(a.payload, pw, g, st + used, lane, a.Gy, a.Gx,
+                            a.y0);
+    clk.lap(D_ISSUE);
+    if (lane == 0) {
+      RgPiece& d = job[n];
+      d.wi = pw.wi;
+      d.sid = pw.sid;
+      d.py = pw.py;
+      d.px = pw.px;
+      d.y_lo = pw.f.y_lo;
+      d.y_hi = pw.f.y_hi;
+      d.x_lo = pw.f.x_lo;
+      d.x_hi = pw.f.x_hi;
+      d.FY = rows;
+      d.FX = pw.cols();
+      d.BX = bx;
+      d.gx0 = a.x0 + pw.cs(g);
+      d.off = used;
+      d.first = pw.first_piece();
+      d.last = pw.last_piece(g);
+    }
+    used += bytes;
+    ++n;
+    has = pw.next(g);
+    clk.lap(D_WALK);
+  }
+  if (a.async) cp_async_commit();
+  return n;
+}
+
+// A block: one 32x8 tile of one pose, as display_kernel's at one pixel
+// row a thread, its pixels the consumers' (thread ``tid`` < 256 owns
+// column k0 + lane of row j0 + warp), and the producer warp; BF: the
+// bf16 payload (4 planes), else int8 (5); MINB: blocks an SM.
+template <bool BF, int MINB>
+__global__ void __launch_bounds__(RG_NT, MINB)
+    rgba_kernel(const LaunchArgs args) {
+  const DispArgs& a = args.a;
+  constexpr int ESZ = BF ? 2 : 1, CH = 16 / ESZ;
+  constexpr int DP = BF ? 4 : 5;
+  using WalkV = RgWalk<CH, ESZ>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ float s_prm[NP];
+  __shared__ RgPiece s_job[2][RG_NJ];
+  __shared__ int s_nj[2];    // each slot's job: its pieces
+  // the job of each slot is not to be taken: no consumer pixel can still
+  // accumulate (set while the other slot's job is taken, read after the
+  // block barrier that ends it)
+  __shared__ int s_stop[2];
+  __shared__ int s_rp[256 / CH + 1];  // a slot's rows by chunks a row
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int bid = (int)blockIdx.x;
+  DClock clk;  // a probe build's (VT_DM_CYCLES); empty otherwise
+  const int p = bid % a.P, tile = bid / a.P;  // pose fastest
+  const int j0 = (tile / a.ntx) * DWARPS, k0 = (tile % a.ntx) * DTX;
+  const int G = a.G, gi = a.gi;
+  // two slots of half the stage each, then three ints a window
+  const int slot_bytes = (a.stage_bytes >> 1) & ~15;
+  int* s_w = reinterpret_cast<int*>(smem + a.stage_bytes);
+  int* s_m = s_w + a.n_win;
+  int* s_live = s_m + a.n_win;
+
+  if (tid < NP) s_prm[tid] = a.params[(size_t)p * NP + tid];
+  for (int i = tid; i < a.n_win; i += RG_NT) {
+    s_w[i] = a.wins[i];
+    s_m[i] = a.masks[i];
+    s_live[i] = 0;
+  }
+  // Walk::RP's quotient, stage bytes over a row's (BX cells of DP planes)
+  if (tid <= 256 / CH) s_rp[tid] = tid ? slot_bytes / (DP * 16 * tid) : 0;
+  if (tid < 2) s_stop[tid] = 0;
+  __syncthreads();
+
+  const float Gf = (float)G;
+  const float cz = s_prm[0], cy = s_prm[1], cx = s_prm[2];
+  const float u0 = s_prm[3], du = s_prm[4], v0 = s_prm[5], dv = s_prm[6];
+  const float zbase = s_prm[30];
+  const float cyG = cy * Gf, cxG = cx * Gf;
+  const float hG = 0.5f / Gf;
+  const int K = a.K;
+
+  if (warp == DWARPS) {
+    // the producer: the tile's walk, a job ahead of the consumers, once
+    // the consumers have marked the windows some pixel's z interval meets
+    __syncthreads();
+    const int jl = min(j0 + DWARPS, gi) - 1, kl = min(k0 + DTX, gi) - 1;
+    WalkGeo wg;
+    wg.w = s_w;
+    wg.m = s_m;
+    wg.live = s_live;
+    wg.n_win = a.n_win;
+    wg.K = K;
+    wg.flip = a.flip;
+    wg.G = G;
+    wg.Dp = DP;
+    wg.stage_bytes = slot_bytes;  // a piece fits one slot
+    wg.chan_cells = 1 << 30;      // no shaded-cell buffer
+    wg.ylo = a.y0;
+    wg.yhi = a.y0 + a.Gy - 1;
+    wg.xlo = a.x0;
+    wg.xhi = a.x0 + a.Gx - 1;
+    wg.zbase = zbase;
+    wg.cz = cz;
+    wg.cyG = cyG;
+    wg.cxG = cxG;
+    wg.hG = hG;
+    wg.Gf = Gf;
+    wg.ujGa = (u0 + du * (float)j0) * Gf;
+    wg.ujGb = (u0 + du * (float)jl) * Gf;
+    wg.vkGa = (v0 + dv * (float)k0) * Gf;
+    wg.vkGb = (v0 + dv * (float)kl) * Gf;
+    WalkV pw;
+    pw.rp = s_rp;
+    bool has = pw.from(wg, 0, 0);
+    int slot = 0;
+    int n = rg_stage<ESZ, DP>(a, pw, has, wg, smem, slot_bytes, s_job[0],
+                              lane, clk);
+    if (lane == 0) s_nj[0] = n;
+    if (a.async) cp_async_wait();
+    __syncthreads();  // job 0 is in
+    while (s_nj[slot] > 0 && !s_stop[slot]) {
+      // the next job, staged while the consumers take this one
+      n = has ? rg_stage<ESZ, DP>(a, pw, has, wg,
+                                  smem + (slot ^ 1) * slot_bytes,
+                                  slot_bytes, s_job[slot ^ 1], lane, clk)
+              : 0;
+      if (lane == 0) s_nj[slot ^ 1] = n;
+      if (a.async) cp_async_wait();  // its copies
+      __syncthreads();  // ... are in; this slot has been read
+      slot ^= 1;
+    }
+    return;  // the clock rows are the consumers' (thread 0's)
+  }
+
+  const float sigma_thresh = s_prm[14], stop_thresh = s_prm[15];
+  const float q0 = a.qscale[0], q1 = a.qscale[1], q2 = a.qscale[2];
+  const float qsig = a.qscale[3];
+
+  // this thread's pixel: column k of row j
+  const size_t npx = (size_t)gi * gi;
+  const int j = j0 + warp, k = k0 + lane;
+  const bool inpix = (j < gi) && (k < gi);
+  float zlo = 1.f, zhi = 0.f, dtp = 0.f;  // an empty interval off-grid
+  if (inpix) {
+    const float* zbp = a.zb + (size_t)p * 4 * npx + (size_t)j * gi + k;
+    zlo = zbp[0];
+    zhi = zbp[npx];
+    dtp = zbp[2 * npx];
+  }
+  const float ujG = (u0 + du * (float)j) * Gf;
+  const float vkG = (v0 + dv * (float)k) * Gf;
+  float r = 0.f, g = 0.f, b = 0.f, T = 1.f;
+  float4 w4 = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  // the windows some pixel's z interval meets: only these are staged
+  for (int wi = 0; wi < a.n_win; ++wi) {
+    const int w = s_w[wi];
+    const float zw0 = (float)(w * K) / Gf + zbase;
+    const float zw1 = ((float)(w * K) + (float)K) / Gf + zbase;
+    const bool any =
+        inpix && (zlo <= zhi) && (zlo <= zw1) && (zhi >= zw0);
+    if (__ballot_sync(0xffffffffu, any) && lane == 0) s_live[wi] = 1;
+  }
+  __syncthreads();  // the live windows, for the producer's walk
+  __syncthreads();  // job 0 is in
+  clk.lap(D_PRO);
+
+  int slot = 0, cur_wi = -1;
+  bool work = false;
+  while (s_nj[slot] > 0 && !s_stop[slot]) {
+    const int nj = s_nj[slot];
+    const uint8_t* st = smem + slot * slot_bytes;
+    bool check = true;  // the job's first window checks for a live pixel
+    for (int jj = 0; jj < nj; ++jj) {
+      const RgPiece& pc = s_job[slot][jj];
+      if (pc.wi != cur_wi) {
+        // a new window: skip its taps when no live pixel meets it; at the
+        // job's first, leave when no pixel can still accumulate (a pixel
+        // that cannot at a window cannot at a later one, so until the
+        // next job's check the windows find no live pixel, as
+        // display_kernel's would, whose check is every window's)
+        cur_wi = pc.wi;
+        const int w = s_w[pc.wi];
+        const float zw0 = (float)(w * K) / Gf + zbase;
+        const float zw1 = ((float)(w * K) + (float)K) / Gf + zbase;
+        const bool passed = a.flip ? (zw1 < zlo) : (zw0 > zhi);
+        const bool alive =
+            inpix && (T >= stop_thresh) && (zlo <= zhi) && !passed;
+        if (check && !consumers_or(alive)) {
+          if (tid == 0) s_stop[slot ^ 1] = 1;
+          break;
+        }
+        check = false;
+        work = consumers_or(alive && (zlo <= zw1) && (zhi >= zw0));
+        clk.lap(D_BWIN);
+        clk.count(DM_WIN);
+      }
+      clk.count(DM_JOB);
+      if (pc.first) clk.count(DM_SLAB);
+      if (!work || !inpix) continue;
+      const float z = ((float)pc.sid + 0.5f) / Gf + zbase;
+      const float s0 = z - hG - cz, s1 = z + hG - cz;
+      Footprint f;
+      f.y_lo = pc.y_lo;
+      f.y_hi = pc.y_hi;
+      f.x_lo = pc.x_lo;
+      f.x_hi = pc.x_hi;
+      const int BX = pc.BX, gx0 = pc.gx0, py = pc.py;
+      if (pc.first) w4 = make_float4(0.f, 0.f, 0.f, 0.f);
+      const PixelSpan sp = pixel_span(cyG, cxG, s0, s1, ujG, vkG, G, f);
+      const int ya = max(sp.ry_lo, py), yb = min(sp.ry_hi, py + pc.FY - 1);
+      const int xa = max(sp.rx_lo, pc.px);
+      const int xb = min(sp.rx_hi, pc.px + pc.FX - 1);
+      const uint8_t* pst = st + pc.off;
+      float4 acc = w4;
+      for (int cyy = ya; cyy <= yb; ++cyy) {
+        const float wr = overlap(cyy, G, sp.pmin, sp.pmax, sp.inv_r);
+        const uint8_t* row = pst + (cyy - py) * DP * BX * ESZ;
+        for (int cxx = xa; cxx <= xb; ++cxx) {
+          const float wgt = wr * overlap(cxx, G, sp.qmin, sp.qmax, sp.inv_c);
+          rg_tap<BF>(row, cxx - gx0, BX, q0, q1, q2, qsig, sigma_thresh, wgt,
+                     acc);
+        }
+      }
+      w4 = acc;
+      clk.lap(D_TAPS);
+      if (pc.last) {
+        // boundary slabs contribute by their overlap with [zlo, zhi]
+        const float frac = fminf(
+            fmaxf((fminf(z + hG, zhi) - fmaxf(z - hG, zlo)) * Gf, 0.f), 1.f);
+        const float tau = acc.x * dtp * frac;
+        const float att = __expf(-tau);
+        const float sig_inv = 1.f / fmaxf(acc.x, 1e-12f);
+        if (T >= stop_thresh && tau > 0.f) {
+          const float wn = (T * (1.f - att)) * sig_inv;
+          r += wn * acc.y;
+          g += wn * acc.z;
+          b += wn * acc.w;
+          T = T * att;
+        }
+      }
+      clk.lap(D_COMP);
+    }
+    clk.lap(D_WAIT);
+    __syncthreads();  // the next job is in; this slot has been read
+    clk.lap(D_BEND);  // the consumers' wait for the producer
+    clk.count(DM_STAGE);
+    slot ^= 1;
+  }
+
+  if (inpix) {
+    float* out = a.acc + (size_t)p * 4 * npx + (size_t)j * gi + k;
+    out[0] = r;
+    out[npx] = g;
+    out[2 * npx] = b;
+    out[3 * npx] = T;
+  }
+  clk.store(tid, bid);
+}
+
 using KernFn = void (*)(const LaunchArgs);
 
 // The instantiations: SH (degrees 0-4) without options, and with bf16
 // shading and no other option, on both payloads at both tile heights; SH
-// with options, SH with bf16 shading and options, RGBA and depth, on both
-// payloads, at 32x8; SG and ASG (1 to 25 lobes at run time) on both
-// payloads at both tile heights.
+// with options, SH with bf16 shading and options, RGBA (with options,
+// and its kernel of its own, rgba_kernel, at two and three blocks an SM)
+// and depth, on both payloads, at 32x8; SG and ASG (1 to 25 lobes at run
+// time) on both payloads at both tile heights.
 template <int BD, class V>
 KernFn pick_rows(int rows) {
   if (rows == 1) return display_kernel<BD, 1, V>;
@@ -1233,8 +1703,9 @@ KernFn pick_lobes(int nb, int rows) {
   return nullptr;
 }
 
-// opt: 0 the defaults, 1 the option variants, 2 SH's bf16 shading without
-// another option, 3 with options, 5 the depth variant (any format)
+// opt: 0 the defaults (SH; RGBA: rgba_kernel at two blocks an SM, 4 at
+// three), 1 the option variants, 2 SH's bf16 shading without another
+// option, 3 with options, 5 the depth variant (any format)
 template <bool BF>
 KernFn pick_payload(int bd, int rows, int fmt, int opt) {
   if (opt == 2) {
@@ -1251,6 +1722,13 @@ KernFn pick_payload(int bd, int rows, int fmt, int opt) {
     return fmt == F_SH
                ? pick_sh<Var<BF, F_SH, true, true, RS_SET>>(bd, rows)
                : nullptr;
+  if ((opt == 0 || opt == 4) && fmt == F_RGBA) {
+    // RGBA without a bbox: rgba_kernel (32x8 tiles), two blocks an SM
+    // (opt 0) or three (opt 4)
+    if constexpr (RS_SET) return nullptr;
+    if (rows != 1) return nullptr;
+    return opt ? rgba_kernel<BF, 3> : rgba_kernel<BF, 2>;
+  }
   if (opt != 0 && opt != 1) return nullptr;
   if (fmt == F_SH) {
     if (opt) return pick_sh<Var<BF, F_SH, true, false, RS_SET>>(bd, rows);
@@ -1298,10 +1776,12 @@ cudaError_t allow_smem(const void* fn, int smem) {
 }
 
 // The dynamic shared memory of a launch (slab_march.display_config): the
-// stage, the shaded cells (a float4 each, the depth variant's a float),
-// three ints a window.
-int display_smem(int stage_bytes, int chan_cells, int n_win, bool depth) {
-  return stage_bytes + (depth ? 4 : 16) * chan_cells + 12 * n_win;
+// stage, the shaded cells (a float4 each, the depth variant's a float;
+// none for rgba_kernel, ``raw``), three ints a window.
+int display_smem(int stage_bytes, int chan_cells, int n_win, bool depth,
+                 bool raw) {
+  return stage_bytes + (raw ? 0 : (depth ? 4 : 16) * chan_cells) +
+         12 * n_win;
 }
 
 }  // namespace
@@ -1318,11 +1798,14 @@ int display_smem(int stage_bytes, int chan_cells, int n_win, bool depth) {
 // aligned base is staged with cp.async, any other with element copies. The
 // variant: fmt (0 RGBA, bd = -1; 1 SH; 2 SG, 3 ASG with bd lobes, 1 to 25,
 // whose parameters ``extra`` holds on the device), bf16 (the f16 bake's
-// payload, Dp = D; else int8, Dp = D + 1) and opt (1: the option variant,
-// which every format but SH needs, and SH with rot (9 floats on the host),
-// bbox (params 16-19), a basis window [basis_lo, basis_hi] that drops planes;
-// 2: SH's bf16-shading variant without options, 3: with the same options;
-// 5, with
+// payload, Dp = D; else int8, Dp = D + 1) and opt (0: SH's defaults, or
+// RGBA without a bbox through rgba_kernel at two blocks an SM, whose stage
+// is two slots and which takes no shaded-cell buffer (chan_cells is not
+// read), 4 the same at three blocks an SM (in at most RG_SMEM3); 1: the
+// option variant, which SG, ASG and RGBA with a bbox need, and SH with
+// rot (9 floats on the host), bbox (params 16-19), a basis window
+// [basis_lo, basis_hi] that drops planes; 2: SH's bf16-shading variant
+// without options, 3: with the same options; 5, with
 // ``depth`` set and only then: the depth variant of any format, which takes
 // the bbox). Returns cudaGetLastError() after the launch.
 extern "C" int vt_march_display(const void* payload, const void* params,
@@ -1339,11 +1822,16 @@ extern "C" int vt_march_display(const void* payload, const void* params,
   const int D = fmt == F_RGBA ? 4 : 3 * bd + 1;
   const bool cuts = fmt == F_SH && (basis_lo > 0 || basis_hi < bd - 1);
   const bool dvar = opt == 5;  // the depth variant stages sigma alone
+  // RGBA without a bbox (rot and the basis window do nothing to RGBA):
+  // rgba_kernel, two slots of stage and no shaded-cell buffer
+  const bool raw = (opt == 0 || opt == 4) && fmt == F_RGBA;
   if ((fmt == F_RGBA) != (bd < 0) || Dp != D - 1 + sigp || P < 1 ||
       gi < 1 || K < 1 || n_win < 1 || Dp > 256 || stage_bytes % 16 ||
-      stage_bytes < (dvar ? sigp : Dp) * 256 * esz || chan_cells < 256 ||
-      dvar != (depth != 0) ||
-      ((opt == 0 || opt == 2) && (fmt != F_SH || rot_on || bbox || cuts)) ||
+      stage_bytes < (raw ? 2 : 1) * (dvar ? sigp : Dp) * 256 * esz ||
+      (!raw && chan_cells < 256) || dvar != (depth != 0) ||
+      (raw && bbox) ||
+      ((opt == 0 || opt == 2) && !raw &&
+       (fmt != F_SH || rot_on || bbox || cuts)) ||
       (rot_on && !rot) || (fmt >= F_SG && (!extra || bd > MAX_LOBES)))
     return (int)cudaErrorInvalidValue;
   // cp.async moves whole 16-byte chunks of 16-byte aligned rows
@@ -1354,8 +1842,9 @@ extern "C" int vt_march_display(const void* payload, const void* params,
   const int nty = (gi + DWARPS * rows - 1) / (DWARPS * rows);
   const long long blocks = (long long)P * ntx * nty;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int smem = display_smem(stage_bytes, chan_cells, n_win, dvar);
-  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const int smem = display_smem(stage_bytes, chan_cells, n_win, dvar, raw);
+  if (smem > (opt == 4 ? RG_SMEM3 : SMEM_MAX))
+    return (int)cudaErrorInvalidValue;
   const int* wins = (const int*)wins_masks;
   LaunchArgs v;
   DispArgs& a = v.a;
@@ -1392,7 +1881,8 @@ extern "C" int vt_march_display(const void* payload, const void* params,
     v.rot[i] = rot_on ? ((const float*)rot)[i] : (i % 4 == 0 ? 1.f : 0.f);
   const cudaError_t e = allow_smem(fn, smem);
   if (e != cudaSuccess) return (int)e;
-  ((KernFn)fn)<<<(unsigned)blocks, DNT, smem, (cudaStream_t)stream>>>(v);
+  ((KernFn)fn)<<<(unsigned)blocks, raw ? RG_NT : DNT, smem,
+                 (cudaStream_t)stream>>>(v);
   return (int)cudaGetLastError();
 }
 
@@ -1406,7 +1896,9 @@ extern "C" int vt_march_display_info(int bd, int rows, int fmt, int bf16,
   if (!fn || smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   cudaError_t e = allow_smem(fn, smem);
   if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], fn, DNT, smem);
+  const bool raw = (opt == 0 || opt == 4) && fmt == F_RGBA;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], fn,
+                                                    raw ? RG_NT : DNT, smem);
   if (e != cudaSuccess) return (int)e;
   cudaFuncAttributes at;
   e = cudaFuncGetAttributes(&at, fn);
@@ -1423,8 +1915,8 @@ extern "C" const char* vt_error_string(int code) {
 
 #ifdef VT_DM_CYCLES
 // A probe build's clock (DClock): copy the rows of blocks [0, n) to
-// ``out`` (host, n x (D_NPARTS + 4) counters: the parts, the loop's
-// cycles, jobs, slabs, windows) and clear them. Returns a CUDA error code.
+// ``out`` (host, n x DM_SLOTS counters: the parts, the loop's cycles,
+// jobs, slabs, windows, stages) and clear them. Returns a CUDA error code.
 extern "C" int vt_display_cycles(unsigned long long* out, int n) {
   if (n < 0 || n > DM_BLOCKS) return (int)cudaErrorInvalidValue;
   const size_t bytes = (size_t)n * DM_SLOTS * sizeof(unsigned long long);

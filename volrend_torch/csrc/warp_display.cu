@@ -34,9 +34,15 @@
 // count of blocks whose extents over their in-grid subpixels overflow the
 // window (a block with none fits), summed with integer atomics, so the
 // count is deterministic. A pixel's position does not depend on the level:
-// where the levels' blocks nest in a super block of at most 16 pixels (the
-// production cascade's 4 x 4), each position is computed once for all
-// levels; otherwise each level recomputes its own.
+// the production cascade ((4, 4) x (5, 5) over (2, 2) x (4, 4)) has a
+// kernel of its own (fit_cascade: the divides of screen_x and screen_y
+// and the forms' products taken once a column and a row, the positions
+// kept in registers, the (4, 4) extents the min and max of the (2, 2)
+// ones); other levels whose blocks nest in a super block of at most 16
+// pixels compute each position once for all levels through shared memory
+// (fit_nested), any other each level its own (fit_kernel). Its bound is
+// the arithmetic of its correctly rounded divides: one reciprocal and two
+// divides a pixel, which the reference's fit rule needs bit for bit.
 //
 // What bounds it on the H100: bytes. Per pose at 800^2, gi = 256 and the
 // (4, 4) x (5, 5) level it reads the 1 MB intermediate once and writes the
@@ -542,6 +548,94 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// fit mode for the production cascade, (4, 4) x (5, 5) over (2, 2) x
+// (4, 4), its sizes constants: one thread per 4 x 4 super block of every
+// pose (grid y). screen_x and each linear form's x product are taken
+// once a column, screen_y and the y products once a row, and each pixel
+// keeps _lin_forms's add and subtract in lin's order, so every position
+// is bit-equal to position()'s. The positions never leave registers: each
+// updates the extents of its (2, 2) block as it is computed, and the
+// (4, 4) block's extents are the min and max of its four (2, 2) blocks'
+// (a block with no in-grid subpixel adds nothing to them). counts rows lc
+// (the (4, 4) level) and lf (the (2, 2) level) of (L, P).
+__global__ void __launch_bounds__(THREADS)
+    fit_cascade(const float* __restrict__ prm, int* __restrict__ counts,
+                int P, int gi, int H, int W, int lc, int lf) {
+  const int Hs = H / 4, Ws = W / 4;
+  const int blk = blockIdx.x * THREADS + threadIdx.x;
+  const int p = blockIdx.y;
+  int nc = 0, nf = 0;
+  if (blk < Hs * Ws) {
+    const int hh = blk / Ws, wh = blk - hh * Ws;
+    const Pose s = load_pose(prm + (size_t)p * NPRM);
+    const float gmax = (float)(gi - 1);
+    const float hi = (float)((double)(gi - 1) - 1e-6);
+    float fx[3][4], fy[3][4];  // each form's x product a column, y a row
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float xs = screen_x(wh * 4 + q, W, s.fx);
+      const float ys = screen_y(hh * 4 + q, H, s.fy);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        fx[i][q] = __fmul_rn(xs, s.a[3 * i]);
+        fy[i][q] = __fmul_rn(ys, s.a[3 * i + 1]);
+      }
+    }
+    // the (2, 2) blocks' extents over their in-grid subpixels
+    float ymin[4], ymax[4], xmin[4], xmax[4];
+    bool any[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      ymin[b] = xmin[b] = 1e9f;
+      ymax[b] = xmax[b] = -1e9f;
+      any[b] = false;
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float den = __fsub_rn(__fadd_rn(fx[0][q], fy[0][r]), s.a[2]);
+        const float nu = __fsub_rn(__fadd_rn(fx[1][q], fy[1][r]), s.a[5]);
+        const float nv = __fsub_rn(__fadd_rn(fx[2][q], fy[2][r]), s.a[8]);
+        const float inv = __frcp_rn(fabsf(den) < 1e-12f ? 1e-12f : den);
+        const float gy = __fdiv_rn(__fsub_rn(__fmul_rn(nu, inv), s.u0), s.du);
+        const float gx = __fdiv_rn(__fsub_rn(__fmul_rn(nv, inv), s.v0), s.dv);
+        if (gy >= 0.f && gy <= gmax && gx >= 0.f && gx <= gmax) {
+          const int b = (r >> 1) * 2 + (q >> 1);
+          const float cy = fminf(gy, hi), cx = fminf(gx, hi);
+          any[b] = true;
+          ymin[b] = fminf(ymin[b], cy);
+          ymax[b] = fmaxf(ymax[b], cy);
+          xmin[b] = fminf(xmin[b], cx);
+          xmax[b] = fmaxf(xmax[b], cx);
+        }
+      }
+    float cymin = 1e9f, cymax = -1e9f, cxmin = 1e9f, cxmax = -1e9f;
+    bool cany = false;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      cany |= any[b];
+      cymin = fminf(cymin, ymin[b]);
+      cymax = fmaxf(cymax, ymax[b]);
+      cxmin = fminf(cxmin, xmin[b]);
+      cxmax = fmaxf(cxmax, xmax[b]);
+      const float y0 = any[b] ? ymin[b] : 0.f, y1 = any[b] ? ymax[b] : 0.f;
+      const float x0 = any[b] ? xmin[b] : 0.f, x1 = any[b] ? xmax[b] : 0.f;
+      nf += y1 >= __fadd_rn(floorf(y0), 3.f) ||
+            x1 >= __fadd_rn(floorf(x0), 3.f);
+    }
+    if (!cany) cymin = cymax = cxmin = cxmax = 0.f;
+    nc = cymax >= __fadd_rn(floorf(cymin), 4.f) ||
+         cxmax >= __fadd_rn(floorf(cxmin), 4.f);
+  }
+  const int c = __reduce_add_sync(0xffffffffu, nc);
+  const int f = __reduce_add_sync(0xffffffffu, nf);
+  if ((threadIdx.x & 31) == 0) {
+    if (c) atomicAdd(counts + (size_t)lc * P + p, c);
+    if (f) atomicAdd(counts + (size_t)lf * P + p, f);
+  }
+}
+
 // fit mode for levels that do not nest in MAXS pixels: one thread per
 // screen block of every pose (grid y) and level (grid z); counts (L, P)
 __global__ void __launch_bounds__(THREADS)
@@ -712,7 +806,18 @@ extern "C" int vt_warp_fit(const void* prm, void* counts, int P, int L,
     LX = lcm(LX, d[1]);
   }
   cudaStream_t st = (cudaStream_t)stream;
-  if ((long long)LY * LX <= MAXS) {
+  // the production cascade: its own kernel, the sizes constants
+  const auto is = [&](int l, int by, int wy) {
+    return lv.by[l] == by && lv.bx[l] == by && lv.wy[l] == wy &&
+           lv.wx[l] == wy;
+  };
+  if (L == 2 &&
+      ((is(0, 4, 5) && is(1, 2, 4)) || (is(0, 2, 4) && is(1, 4, 5)))) {
+    const int lc = is(0, 4, 5) ? 0 : 1;
+    const int nsup = (H / 4) * (W / 4);
+    fit_cascade<<<dim3((nsup + THREADS - 1) / THREADS, P), THREADS, 0, st>>>(
+        (const float*)prm, (int*)counts, P, gi, H, W, lc, 1 - lc);
+  } else if ((long long)LY * LX <= MAXS) {
     // LY and LX divide H and W, as every level's block does
     const int nsup = (H / LY) * (W / LX);
     fit_nested<<<dim3((nsup + THREADS - 1) / THREADS, P), THREADS, 0, st>>>(

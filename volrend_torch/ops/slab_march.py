@@ -105,6 +105,10 @@ _IDENTITY = (1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0)
 
 #: dynamic shared memory a display block may take (two blocks an SM)
 _DISPLAY_SMEM = 110 * 1024
+#: RGBA's kernel of its own (``MarchMode.rgba_raw``): the dynamic shared
+#: memory a block takes at two and at three blocks an SM (csrc/
+#: slab_march_display.cu RG_SMEM3)
+_RGBA_SMEM = {2: _DISPLAY_SMEM, 3: 72 * 1024}
 _DTX, _DWARPS = 32, 8       # a display tile's columns; warps a block
 
 
@@ -279,17 +283,29 @@ class MarchMode(NamedTuple):
         """May the display mode's tile rule give this mode 32x16 tiles
         (``display_config``)? SH without options, with or without bf16
         shading, and SG or ASG without another option: their variants are
-        built at both tile heights."""
+        built at both tile heights (RGBA's kernel of its own takes 32x8
+        alone: ``rgba_raw``)."""
         lobes = self.fmt in (int(BasisType.SG), int(BasisType.ASG))
         return not (self._replace(fmt=int(BasisType.SH)) if lobes
                     else self).options(bd)
+
+    def rgba_raw(self) -> bool:
+        """Does a display launch of this mode take kernel M's RGBA kernel
+        of its own (``rgba_kernel``: a producer warp, its taps decoding
+        the staged codes, no shade pass; 32x8 tiles)? RGBA without a bbox
+        and not in depth mode (rot and the basis window do nothing to
+        RGBA); a launch that resumes from an upstream state takes the
+        option variant of the resume build instead."""
+        return (self.fmt == int(BasisType.RGBA) and not self.depth
+                and self.bbox_full)
 
 
 def display_variant(mode: MarchMode, bd: int, bf16: bool,
                     resume: bool = False) -> str:
     """The name of the display kernel variant a launch takes (the key of
     ``march_slabs.variants``): format, payload, ``opt`` for an SH option
-    set or ``bf16shade`` for bf16 shading (with or without options: two
+    set or RGBA with a bbox (RGBA without one: ``rgba_kernel``), or
+    ``bf16shade`` for bf16 shading (with or without options: two
     variants, vt_march_display's opt 2 and 3), ``depth`` for depth mode,
     ``dirslab`` for per-slab directions, ``resume`` for a launch from an upstream state (``acc_init``: the
     option variants of the resume build); ``SH-int8`` is the default."""
@@ -297,6 +313,9 @@ def display_variant(mode: MarchMode, bd: int, bf16: bool,
     if mode.bf16_shade:
         name += "-bf16shade"
     elif mode.fmt == int(BasisType.SH) and (mode.options(bd) or resume):
+        name += "-opt"
+    elif (mode.fmt == int(BasisType.RGBA) and not mode.depth
+          and not mode.bbox_full):
         name += "-opt"
     if mode.depth:
         name += "-depth"
@@ -813,7 +832,8 @@ def _march_display_cuda(gplanar, qscale, params, zb, wins, masks, G, gi, D,
                          _sm_count(gplanar.device.index),
                          esz=gplanar.element_size(),
                          opt=not mode.tall_tiles(bd) or acc_init is not None,
-                         depth=mode.depth)
+                         depth=mode.depth,
+                         raw=mode.rgba_raw() and acc_init is None)
     return _display_launch(gplanar, qscale, params, zb, wins, masks, G, gi,
                            bd, K, flip, y0, x0, cfg, mode, acc_init, segment)
 
@@ -835,6 +855,9 @@ def _display_launch(gplanar, qscale, params, zb, wins, masks, G, gi, bd, K,
     # the SG/ASG lobes are kept alive until the launch is queued
     extra, fmt, opt, extra_ptr, rot_on, rot, bbox, blo, bhi = _variant_args(
         mode, bd, dev, resume)
+    if mode.rgba_raw() and not resume:
+        # rgba_kernel at two blocks an SM (opt 0) or three (opt 4)
+        opt = 4 if cfg.get("blocks") == 3 else 0
     wm = to_device(np.asarray([wins, masks], np.int32), torch.int32, dev)
     acc = (torch.empty((P, 4, gi, gi), dtype=_F32, device=dev)
            if acc_init is None else acc_init)
@@ -863,8 +886,9 @@ def _sm_count(index) -> int:
 
 
 def display_config(P: int, gi: int, n_win: int, Dp: int, n_sm: int,
-                   smem: int = _DISPLAY_SMEM, esz: int = 1,
-                   opt: bool = False, depth: bool = False) -> dict:
+                   smem: Optional[int] = None, esz: int = 1,
+                   opt: bool = False, depth: bool = False,
+                   raw: bool = False) -> dict:
     """A display launch's configuration: ``rows`` of 8 pixel rows a thread
     and the block's ``smem`` split into the stage (``stage_bytes``, a
     multiple of 128, at least one 256-cell row) and the shaded-cell buffer
@@ -883,10 +907,27 @@ def display_config(P: int, gi: int, n_win: int, Dp: int, n_sm: int,
     32x8 below that (SG16 and ASG16 groups too, measured). ``opt``: the
     launch's variant is built with 32x8 tiles only (every mode that
     ``MarchMode.tall_tiles`` refuses: SH with an option, RGBA, depth, SG
-    and ASG with another option, a resumed z-segment)."""
+    and ASG with another option, a resumed z-segment). ``smem``: the
+    block's budget (None: ``_DISPLAY_SMEM``). ``raw``: RGBA's kernel of
+    its own (``MarchMode.rgba_raw``), whose taps read the stage itself:
+    the whole block but the windows' ints is stage (two slots of half of
+    it; ``chan_cells`` 0) on 32x8 tiles, and ``blocks`` an SM: three (in
+    ``_RGBA_SMEM[3]``) when the launch holds more blocks than two an SM
+    take at once, else two. Measured on an H100 (probes/display_march
+    --alt, PERF.md): past one wave two blocks ran 4-17 % slower than
+    three, within one wave three ran 5 % slower than two (a smaller
+    stage); 32x8 at three blocks ran 5-7 % faster than 32x16 at two on
+    every whole orbit group (probes/display_tiles)."""
     tiles = P * -(-gi // _DTX) * -(-gi // (2 * _DWARPS))
+    if raw:
+        launch = P * -(-gi // _DTX) * -(-gi // _DWARPS)
+        blocks = 3 if launch > 2 * n_sm else 2
+        avail = (_RGBA_SMEM[blocks] if smem is None else smem) - 12 * n_win
+        stage_bytes = max(avail // 128 * 128, 2 * Dp * esz * 256)
+        return dict(rows=1, stage_bytes=stage_bytes, chan_cells=0,
+                    smem=stage_bytes + 12 * n_win, blocks=blocks)
     rows = 2 if tiles >= 6 * n_sm and not opt else 1
-    avail = smem - 12 * n_win
+    avail = (_DISPLAY_SMEM if smem is None else smem) - 12 * n_win
     cell = 2 if depth else Dp * esz
     shaded = 4 if depth else 16
     stage_bytes = max(avail * cell // (cell + shaded) // 128 * 128,

@@ -18,6 +18,9 @@ answered on the card:
 - ``display_info`` and ``display_sass``: what the card makes of kernel M's
   display instantiations (blocks per SM, registers, spills), and whether
   the SH int8 defaults' machine code equals another checkout's;
+- ``warp_fit``: kernel W's fit mode at a group, 4 poses, one and the
+  steep pose, bit-equal to its plain version, in turns with a parent's
+  build of ``csrc/warp_display.cu``;
 - ``tma_box``: whether a one-box TMA load over the display payload works
   on the card (``csrc/probe_tma_box.cu``, built apart from the port's
   kernels).

@@ -6,7 +6,10 @@ thread, spill bytes a thread and static shared memory, from
 ``vt_march_display_info`` at the display path's shared-memory budget,
 keyed ``<fmt><bd>-<payload>[-opt|-bf16shade|-bf16shade-opt]-r<rows>``
 (``-bf16shade``: bf16 shading without options), SG and ASG without
-a lobe count, ``depth-<payload>-r1`` the depth variant) and of kernel W
+a lobe count, ``RGBA-<payload>-r1`` RGBA's kernel of its own
+(``rgba_kernel`` at two blocks an SM) and ``RGBA-<payload>-b3-r1`` at
+three (read at its budget: ``info_smem``), ``depth-<payload>-r1`` the
+depth variant) and of kernel W
 (``csrc/warp_display.cu``: registers and spill stores of each entry
 function, from the build's ``ptxas -v`` report, keyed by the demangled
 name where ``c++filt`` is on the path), printed as one JSON line.
@@ -49,8 +52,23 @@ M_VARIANTS = (
        for bf, p in ((0, "int8"), (1, "bf16")) for r in (1, 2)]
     + [(f"RGBA-{p}-opt-r1", -1, 1, 0, bf, 1)
        for bf, p in ((0, "int8"), (1, "bf16"))]
+    + [(f"RGBA-{p}{b}-r1", -1, 1, 0, bf, code)
+       for b, code in (("", 0), ("-b3", 4))
+       for bf, p in ((0, "int8"), (1, "bf16"))]
     + [(f"depth-{p}-r1", 16, 1, 1, bf, 5)
        for bf, p in ((0, "int8"), (1, "bf16"))])
+
+
+def info_smem(opt: int) -> int:
+    """The shared memory a variant's launch is read at: RGBA's kernel at
+    three blocks an SM (opt 4) at its own budget, every other at the
+    display path's."""
+    from volrend_torch.ops import slab_march
+    if opt == 4:
+        # a checkout that builds no such kernel leaves the row out (its
+        # info call fails), whatever budget it is read at
+        return getattr(slab_march, "_RGBA_SMEM", {3: 72 * 1024})[3]
+    return slab_march._DISPLAY_SMEM
 
 
 def ptxas_entries(log: str) -> dict:
@@ -92,17 +110,15 @@ def main() -> None:
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
     from volrend_torch import kernels
-    from volrend_torch.ops import slab_march
     if not torch.cuda.is_available():
         raise SystemExit("display_info: needs a CUDA device")
     out = {"root": os.path.abspath(args.root),
            "device": torch.cuda.get_device_name(0), "M": {}, "W": {}}
     lib = kernels.lib("slab_march_display")
-    smem = slab_march._DISPLAY_SMEM
     for key, bd, rows, fmt, bf16, opt in M_VARIANTS:
         info = (ctypes.c_int * 4)()
-        if lib.vt_march_display_info(bd, rows, fmt, bf16, opt, smem,
-                                     info) == 0:
+        if lib.vt_march_display_info(bd, rows, fmt, bf16, opt,
+                                     info_smem(opt), info) == 0:
             out["M"][key] = list(info)
     kernels.lib("warp_display")
     log = kernels._target("warp_display").with_suffix(".log").read_text()

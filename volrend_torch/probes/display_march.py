@@ -5,7 +5,9 @@ Builds ``csrc/slab_march_display.cu`` with ``-DVT_DM_CYCLES`` (thread 0's
 clock cycles by part of the job loop, ``DClock``: the block's set-up, the
 walk to the next job and its footprint, issuing the next job's copies,
 waiting for them, shading, each of the three barriers, the tap sums and
-the composite; the jobs, slabs and windows each block walked) into
+the composite; the jobs, slabs, windows and stages each block walked: a
+stage is one round of copies and its end barrier, a job in the display
+kernel, a run of pieces in the RGBA kernel) into
 ``build/volrend_torch/display_march/``, apart from ``kernels.SOURCES``;
 the port's ``march_slabs`` runs on that build (it stands in for the
 port's library).
@@ -38,17 +40,29 @@ the call and a synchronize, median of REPS_E2E after a warm call); with
 ``clock`` also its clock build's per-block loop cycles (mean, p99, the
 slowest block and its tile), windows, slabs and pieces walked: a launch
 of fewer tiles than resident blocks lasts as long as its slowest block.
-``--parent DIR`` runs the options mode in turns (parent, change, change,
-parent), each turn this file run by path in a process with that
-checkout's root first on ``PYTHONPATH`` (``--modes options`` alone: the
-package's own launches), logs beside ``--out``. Every turn reads this
-checkout's scene caches (``--caches``), so nothing is written into the
-parent's tree but its own kernels' build.
+``--modes rgba`` takes chip_smoke.py phase 12 (b)'s RGBA tree
+(``_common.format_trees``: the dense scene's leaves as plain colours) on
+its int8 and f16 bakes, and the SH16 default beside it (int8), each on
+orbit group 0 whole, four poses spread over it and pose 0 alone
+(``RGBA_CASES``): each launch's time and variant, render_image's end to
+end for pose 0, and with ``clock`` its clock build's parts summed and
+their shares, pieces a slab and the slowest block against the mean.
+``--alt "NAME=FLAGS[@BLOCKS];..."`` with ``--modes rgba`` builds the
+display source again with each set of flags (the RGBA kernel's
+``-DVT_RG_NJ``, pieces a job; no flags: the port's own build) and times
+the RGBA launches on each build in turns with the port's, at ``BLOCKS``
+blocks an SM where given (2 or 3, ``rgba_blocks``; else the rule's).
+``--parent DIR`` runs the options mode (or, with ``--modes rgba``, the
+RGBA cases) in turns (parent, change, change, parent), each turn this
+file run by path in a process with that checkout's root first on
+``PYTHONPATH`` (the package's own launches, no clock), logs beside
+``--out``. Every turn reads this checkout's scene caches (``--caches``),
+so nothing is written into the parent's tree but its own kernels' build.
 
 Run on a card from the root of the checkout::
 
     python -m volrend_torch.probes.display_march [--modes probe,package]
-        [--parent DIR] [--out display_march.json]
+        [--modes rgba[,clock]] [--parent DIR] [--out display_march.json]
 """
 
 from __future__ import annotations
@@ -56,6 +70,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import hashlib
 import json
 import os
 import subprocess
@@ -79,7 +94,7 @@ VARIANTS = (("SH-int8", "int8", False), ("SH-bf16", "f16", False),
 #: cycles and the counts a block keeps
 PARTS = ("prologue", "walk", "issue", "wait", "shade", "barrier_window",
          "barrier_shade", "barrier_end", "taps", "composite")
-SLOTS = PARTS + ("loop", "jobs", "slabs", "windows")
+SLOTS = PARTS + ("loop", "jobs", "slabs", "windows", "stages")
 _NAME = "slab_march_display"
 #: the one-pose launches of the option variants (chip_smoke.py phase 12
 #: (c)/(d)) and their yardsticks: (name, scene, render options, poses)
@@ -95,6 +110,13 @@ OPTION_CASES = (
 )
 #: render_image calls a case's end-to-end time is the median of
 REPS_E2E = 30
+#: the RGBA launches and the SH16 default's beside them: (name, tree,
+#: bake, poses of orbit group 0: the group whole, four spread over it, or
+#: orbit pose 0 alone)
+RGBA_CASES = tuple(
+    (f"{tree}-{dt} {n}", tree, dt, n)
+    for tree, dt in (("RGBA", "int8"), ("RGBA", "f16"), ("SH16", "int8"))
+    for n in ("group", "4 poses", "pose 0"))
 
 
 def start_build():
@@ -138,6 +160,28 @@ def standing_in(lib):
             kernels._LIBS[_NAME] = saved
 
 
+@contextlib.contextmanager
+def rgba_blocks(blocks):
+    """RGBA's kernel of its own takes ``blocks`` blocks an SM (2 or 3;
+    None: display_config's rule) while the block runs: display_config
+    stands in by one that decides its rule for a card of no SMs (every
+    launch past one wave: three) or of more SMs than any launch has
+    blocks (two)."""
+    from volrend_torch.ops import slab_march
+    own = slab_march.display_config
+    n_sm = {None: None, 2: 1 << 30, 3: 0}[blocks]
+
+    def config(P, gi, n_win, Dp, sm, *a, **k):
+        return own(P, gi, n_win, Dp,
+                   sm if n_sm is None or not k.get("raw") else n_sm, *a, **k)
+
+    slab_march.display_config = config
+    try:
+        yield
+    finally:
+        slab_march.display_config = own
+
+
 def read_cycles(lib, n_blocks: int) -> np.ndarray:
     """The build's rows of the last launch's ``n_blocks`` blocks (read and
     cleared): (n_blocks, len(SLOTS)) int64."""
@@ -161,11 +205,13 @@ def summarize(rows: np.ndarray) -> dict:
     out["share"] = {k: round(v / max(out["loop_sum"], 1), 4)
                     for k, v in out["cycles"].items()}
     out["slowest"] = {k: int(v) for k, v in zip(SLOTS, rows[slow])}
-    for i, k in enumerate(("jobs", "slabs", "windows")):
+    for i, k in enumerate(("jobs", "slabs", "windows", "stages")):
         col = rows[:, n + 1 + i]
         out[k] = {"sum": int(col.sum()), "mean": float(col.mean()),
                   "max": int(col.max())}
     out["pieces_a_slab"] = out["jobs"]["sum"] / max(out["slabs"]["sum"], 1)
+    out["slabs_a_stage"] = (out["slabs"]["sum"]
+                            / max(out["stages"]["sum"], 1))
     return out
 
 
@@ -378,13 +424,122 @@ def run_options(dev, opt, modes, lib=None) -> dict:
     return res
 
 
-def parent_turns(parent: str, out_path) -> dict:
-    """The options mode in turns: parent, change, change, parent, each a
-    process running this file by path with the checkout's root first on
-    ``PYTHONPATH``. Every turn reads this checkout's scene caches
-    (``--caches``; made here first where missing) and writes no bytecode,
-    so the parent's turns write nothing into the parent's tree but its
-    kernels' build; the turns' JSON and logs go beside ``out_path``."""
+def start_alt(flags: str):
+    """Start compiling the display source with the port's flags and
+    ``flags`` (an alternative build: ``-DVT_RG_*`` macros of the RGBA
+    kernel), keyed by the source, headers and flags, unless it is
+    built."""
+    key = hashlib.sha256(flags.encode()).hexdigest()[:8]
+    out = kernels.build_dir() / "display_march" / kernels._target(
+        _NAME).name.replace(f"lib{_NAME}_", f"lib{_NAME}_alt{key}_")
+    return c.start_nvcc(out, kernels._CSRC / kernels.SOURCES[_NAME][0],
+                        tuple(flags.split()))
+
+
+def parse_alts(spec: str):
+    """``--alt``'s builds: "NAME=FLAGS[@BLOCKS];..." -> [(name, flags,
+    the RGBA launches' blocks an SM, 2 or 3, or None for the rule)]; empty
+    flags: the port's own build."""
+    out = []
+    for item in filter(None, (x.strip() for x in spec.split(";"))):
+        name, rest = item.split("=", 1)
+        flags, _, blocks = rest.partition("@")
+        out.append((name, flags.strip(), int(blocks) if blocks else None))
+    return out
+
+
+def rgba_scene(dev, opt):
+    """The RGBA cases' launches (RGBA_CASES): {name: Launch}."""
+    from volrend_torch.ops import dense_grid
+    tdev = c.get_tree().to_device(lut_depth=None, device=dev)
+    trees = {"SH16": tdev, "RGBA": c.format_trees(tdev)["RGBA"]}
+    grids = {}
+    for _, tree, dt, _ in RGBA_CASES:
+        if (tree, dt) not in grids:
+            grids[(tree, dt)] = dense_grid.bake_dense(trees[tree], dtype=dt)
+    del tdev, trees
+    cams = c.orbit_poses(N_POSES)
+    first = next(iter(c.pose_groups(grids[("SH16", "int8")],
+                                    cams).values()))
+    spread = np.unique(np.linspace(0, len(first) - 1, 4).round())
+    sets = {"group": [cams[i] for i in first],
+            "4 poses": [cams[first[int(i)]] for i in spread],
+            "pose 0": cams[:1]}
+    pays = {k: {} for k in grids}
+    return {name: Launch(name, grids[(tree, dt)], sets[n], opt,
+                         pays[(tree, dt)])
+            for name, tree, dt, n in RGBA_CASES}
+
+
+def run_rgba(dev, opt, modes, lib=None, alts=()) -> dict:
+    """The RGBA cases (RGBA_CASES): each launch's variant, tile height and
+    time, render_image's end to end for pose 0, and with ``clock`` in
+    ``modes`` its clock build's rows summed (``summarize``) with the
+    slowest block against the mean and the largest difference from the
+    port's own build; ``alts`` (``parse_alts``): each alternative build's
+    time of the RGBA launches, in turns with the port's (port, alt, alt,
+    port), and its largest difference from the port's output."""
+    from volrend_torch.ops import slab_march
+    # the probe builds compile while the port's library builds and runs
+    started = start_build() if "clock" in modes and lib is None else None
+    alt_started = [(n, start_alt(f) if f else None, b) for n, f, b in alts]
+    launches = rgba_scene(dev, opt)
+    res, own = {}, {}
+    for name, ln in launches.items():
+        own[name] = ln()
+        cfg = dict(slab_march.march_slabs.display)
+        res[name] = {"variant": cfg["variant"], "rows": cfg["rows"],
+                     "poses": ln.P, "ms": device_ms(ln),
+                     "render_image_ms": (e2e_ms(ln.frame) if ln.P == 1
+                                         else None)}
+        c.log(f"display_march rgba {name} {json.dumps(res[name])}")
+    if "clock" in modes:
+        lib = load(started) if lib is None else lib
+        ntx = -(-GI // 32)
+        with standing_in(lib):
+            for name, ln in launches.items():
+                acc = ln()
+                rows = res[name]["rows"]
+                cyc = read_cycles(lib, ln.P * ntx * -(-GI // (8 * rows)))
+                st = block_stats(cyc, ln.P, ntx)
+                res[name]["clock"] = {
+                    **summarize(cyc), "loop_mean": st["loop_mean"],
+                    "max_over_mean": st["max_over_mean"],
+                    "max_abs_diff_own_build": float(
+                        (acc - own[name]).abs().max())}
+                c.log(f"display_march rgba {name} clock "
+                      f"{json.dumps(res[name]['clock'])}")
+    for aname, st, blocks in alt_started:
+        alib = (kernels.lib(_NAME) if st is None else c.typed_lib(
+            c.finish_nvcc(st, f"display_march: alt {aname}"), _NAME))
+        for name, ln in launches.items():
+            if not name.startswith("RGBA"):
+                continue
+            ts = {"port": [], aname: []}
+            for tag in ("port", aname, aname, "port"):
+                if tag == "port":
+                    ts[tag].append(device_ms(ln))
+                    continue
+                with rgba_blocks(blocks), standing_in(alib):
+                    ts[tag].append(device_ms(ln))
+                    acc = ln()
+                    cfg = dict(slab_march.march_slabs.display)
+            row = {"ms": ts, "rows": cfg["rows"],
+                   "blocks": cfg.get("blocks"), "max_abs_diff_port": float(
+                       (acc - own[name]).abs().max())}
+            res[name].setdefault("alts", {})[aname] = row
+            c.log(f"display_march rgba {name} alt {aname} {json.dumps(row)}")
+    return res
+
+
+def parent_turns(parent: str, out_path, mode: str = "options") -> dict:
+    """The options mode (or ``mode`` "rgba", the RGBA cases) in turns:
+    parent, change, change, parent, each a process running this file by
+    path with the checkout's root first on ``PYTHONPATH``. Every turn
+    reads this checkout's scene caches (``--caches``; made here first
+    where missing) and writes no bytecode, so the parent's turns write
+    nothing into the parent's tree but its kernels' build; the turns'
+    JSON and logs go beside ``out_path``."""
     import chip_smoke
     roots = {"parent": os.path.abspath(parent), "change": c._ROOT}
     c.get_tree(), chip_smoke.ndc_tree()  # the caches, made where missing
@@ -399,7 +554,7 @@ def parent_turns(parent: str, out_path) -> dict:
                    PYTHONDONTWRITEBYTECODE="1")
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--modes",
-             "options", "--caches", caches, "--out", jpath], cwd=root,
+             mode, "--caches", caches, "--out", jpath], cwd=root,
             env=env,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         with open(jpath[:-5] + ".log", "w") as fh:
@@ -409,23 +564,28 @@ def parent_turns(parent: str, out_path) -> dict:
                                f"(exit {proc.returncode}; its log "
                                f"{jpath[:-5]}.log)")
         with open(jpath) as fh:
-            opts = json.load(fh)["options"]
-        turns.append({"tag": tag, "options": opts})
+            opts = json.load(fh)[mode]
+        turns.append({"tag": tag, mode: opts})
         c.log(f"display_march turn {i} {tag}: " + "; ".join(
-            f"{k} {v['ms']:.4f} ms, render_image {v['render_image_ms']:.3f}"
+            f"{k} {v['ms']:.4f} ms" + (
+                "" if v.get("render_image_ms") is None
+                else f", render_image {v['render_image_ms']:.3f}")
             for k, v in opts.items()))
     return {"turns": turns}
 
 
-def run(dev, modes, lib=None) -> dict:
-    """The probe's measurements (``modes``: probe, package); ``lib``: the
-    probe build, when already built."""
+def run(dev, modes, lib=None, alts=()) -> dict:
+    """The probe's measurements (``modes``: probe, package, options, rgba,
+    clock); ``lib``: the probe build, when already built; ``alts``: the
+    rgba mode's alternative builds (``parse_alts``)."""
     from volrend_torch.utils.options import RenderOptions
     opt = RenderOptions(max_steps=1024)
     res = {"device": torch.cuda.get_device_name(0), "package": [],
            "probe": []}
     if "options" in modes:
         res["options"] = run_options(dev, opt, modes, lib)
+    if "rgba" in modes:
+        res["rgba"] = run_rgba(dev, opt, modes, lib, alts)
     if not {"package", "probe"} & set(modes):
         return res
     grids, cams, launches = scene(dev, opt)
@@ -467,11 +627,18 @@ def main() -> None:
     ap.add_argument("--modes", default="probe,package",
                     help="comma-separated: probe (the clock builds), "
                          "package (march_slabs and the routes as built), "
-                         "options (the one-pose option launches), clock "
-                         "(their clock build's blocks)")
+                         "options (the one-pose option launches), rgba "
+                         "(the RGBA tree's launches beside SH16's), clock "
+                         "(the options' or rgba's clock build)")
     ap.add_argument("--parent", default=None,
-                    help="run the options mode in turns with this parent "
+                    help="run the options mode (or, with --modes rgba, "
+                         "the RGBA cases) in turns with this parent "
                          "checkout")
+    ap.add_argument("--alt", default="",
+                    help="with --modes rgba: alternative builds of the "
+                         "display source timed against the port's, "
+                         "\"NAME=FLAGS[@BLOCKS];...\" (e.g. "
+                         "\"nj1=-DVT_RG_NJ=1;b2=@2\")")
     ap.add_argument("--caches", default=None,
                     help="the dense and NDC scenes' npz files, "
                          "comma-separated, read in place of the "
@@ -486,9 +653,11 @@ def main() -> None:
         import chip_smoke
         c.CACHE, chip_smoke.CACHE_NDC = args.caches.split(",")
     if args.parent:
-        out = parent_turns(args.parent, args.out)
+        out = parent_turns(args.parent, args.out,
+                           "rgba" if "rgba" in args.modes else "options")
     else:
-        out = run(torch.device("cuda"), args.modes.split(","))
+        out = run(torch.device("cuda"), args.modes.split(","),
+                  alts=parse_alts(args.alt))
     print(json.dumps(out), flush=True)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

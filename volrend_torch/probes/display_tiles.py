@@ -14,9 +14,12 @@ through ``march_slabs`` itself:
   first pose, and each of its poses alone, one launch after another;
 - the sparse orbit (96 poses, gi=256): each group whole (cropped payload,
   culled slabs) and four poses spread over it;
-- with ``--formats SG,ASG``: the dense scene's leaves read as SG16 and
-  ASG16 trees (``_common.format_trees``, int8): each group whole, four
-  poses spread over it and its first pose, through the lobe variants;
+- with ``--formats SG,ASG,RGBA``: the dense scene's leaves read as SG16,
+  ASG16 and RGBA trees (``_common.format_trees``, int8, or with
+  ``--f16`` the f16 bake): each group whole, four poses spread over it
+  and its first pose, through the lobe variants and RGBA's kernel of its
+  own (32x8 alone since it took three blocks an SM: 32x16 at two ran
+  slower on every launch, PERF.md; its 32x16 column is left empty);
 - with ``--bf16-shade``: the SH launches through bf16 shading's variant
   without options; with ``--f16``: the dense scene's launches on its f16
   bake (the f16 route's bf16 payload).
@@ -31,7 +34,7 @@ package (run it by path with that checkout first on ``PYTHONPATH``).
 Run on a card from the root of the checkout::
 
     python -m volrend_torch.probes.display_tiles [--modes package,1,2]
-        [--only NAME] [--formats SH,SG,ASG] [--bf16-shade] [--f16]
+        [--only NAME] [--formats SH,SG,ASG,RGBA] [--bf16-shade] [--f16]
 """
 
 from __future__ import annotations
@@ -143,7 +146,8 @@ class Launch:
             self.P, self.gi, len(m["wins"]), self.pay.shape[1],
             slab_march._sm_count(self.pay.device.index),
             esz=self.pay.element_size(),
-            opt=not self.mode.tall_tiles(g.basis_dim))
+            opt=not self.mode.tall_tiles(g.basis_dim),
+            raw=self.mode.rgba_raw())
         if rows is not None:
             cfg = dict(cfg, rows=rows)
         acc = slab_march._display_launch(
@@ -168,23 +172,25 @@ class Series:
         return [ln.rows(rows) for ln in self.items][-1]
 
 
-def lobe_launches(opt, fmt):
-    """The dense scene read as an SG16 or ASG16 tree (int8): each group
-    whole, four poses spread over it, its first pose."""
+def lobe_launches(opt, fmt, dtype="int8"):
+    """The dense scene read as an SG16, ASG16 or RGBA tree
+    (``_common.format_trees``; int8, or ``dtype`` "f16" the f16 bake):
+    each group whole, four poses spread over it, its first pose."""
     from volrend_torch.ops import dense_grid
     dev = torch.device("cuda")
     tdev = c.get_tree().to_device(lut_depth=None, device=dev)
-    grid = dense_grid.bake_dense(c.format_trees(tdev)[fmt], dtype="int8")
+    grid = dense_grid.bake_dense(c.format_trees(tdev)[fmt], dtype=dtype)
+    tag = fmt if fmt == "RGBA" else f"{fmt}16"
     del tdev
     pays = {}
     cams = c.orbit_poses(N_DENSE)
     for gk, (key, idx) in enumerate(c.pose_groups(grid, cams).items()):
         sel = [cams[i] for i in idx]
         spread = np.unique(np.linspace(0, len(sel) - 1, 4).round())
-        for tag, sub in ((f"{len(sel)} poses", sel),
-                         ("4 spread", [sel[int(i)] for i in spread]),
-                         ("1 pose", sel[:1])):
-            yield Launch(f"dense {fmt}16 group {gk} {key}: {tag}", grid,
+        for what, sub in ((f"{len(sel)} poses", sel),
+                          ("4 spread", [sel[int(i)] for i in spread]),
+                          ("1 pose", sel[:1])):
+            yield Launch(f"dense {tag} group {gk} {key}: {what}", grid,
                          sub, GI_MAIN, opt, pays)
     del grid, pays
     torch.cuda.empty_cache()
@@ -198,7 +204,7 @@ def launches(opt, formats=("SH",), bf16_shade=False, dtype="int8"):
     trees'."""
     for fmt in formats:
         if fmt != "SH":
-            yield from lobe_launches(opt, fmt)
+            yield from lobe_launches(opt, fmt, dtype)
     if "SH" not in formats:
         return
     from volrend_torch.models.synthetic import make_solid_tree
@@ -257,8 +263,9 @@ def main():
                     help="the dense scene's launches on its f16 bake (the "
                          "bf16 payload of the f16 route)")
     ap.add_argument("--formats", default="SH",
-                    help="comma-separated: SH (the SH scenes), SG, ASG "
-                         "(the dense scene's leaves as SG16/ASG16 trees)")
+                    help="comma-separated: SH (the SH scenes), SG, ASG, "
+                         "RGBA (the dense scene's leaves as SG16/ASG16/"
+                         "RGBA trees)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("display_tiles times kernel M on a CUDA device; "
@@ -279,6 +286,10 @@ def main():
             if mode == "package":
                 row["package_ms"] = device_ms(ln.package, max(1, REPS // n)
                                               ) / n
+                continue
+            if mode == "2" and getattr(ln, "mode", None) is not None \
+                    and ln.mode.rgba_raw():
+                row["rows2_ms"] = None  # RGBA's kernel takes 32x8 alone
                 continue
             acc, cfg = ln.rows(int(mode))
             outs[mode] = acc
