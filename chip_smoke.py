@@ -104,11 +104,26 @@ Phases (any failure exits non-zero and prints no result):
    leaf rows, train 60 steps, PSNR must rise by more than 5 dB;
 10. bench.py's NDC (LLFF) scene (``get_ndc_tree``: depth 6, G=128 int8)
     and pose (``ndc_pose``) through ``render_frame``: the pose on the NDC
-    z axis, kernel M on the NDC geometry and kernels B and C at every
-    usable level against their plain versions, the counted run (M, then B
-    and C at the pose's level: no kernel W, no fit mode, no reference
-    warp when the pose fits), REPS timed runs and the gate at stride 8
-    (>= 47.5 dB);
+    z axis, kernel M on the NDC geometry, kernel W's fit mode on the
+    pose's NDC parameter rows (``display_params_ndc``) bit for bit
+    against its plain version (misfit counts logged beside the pre-change
+    route's), kernels B and C at every usable level against their plain
+    versions on the pre-change geometry (times and per-pose bounds at the
+    pose's level), kernel W on the rows against its plain version and bit
+    for bit against B and C on the rows' own geometry, its frame against
+    the pre-change route's (``_table_warp``: max quanta, PSNR), the
+    counted run (M, the fit mode and W; no B, C or reference warp when
+    the pose fits), REPS timed runs, the frame in turns with the
+    pre-change route, and the gate at stride 8 (>= 47.5 dB);
+    (10b) 51 poses of one (perm, flip) group on an LLFF spiral around that
+    pose (``ndc_spiral_poses``) through ``render_frames``: the fit counts
+    bit-equal to their plain version, W on the rows as above with its
+    time, plain time and bound (the kernels line's W-ndc row), the warp
+    stage and the frames in turns with the pre-change route (the PyTorch
+    fit predicates, then B and C: ``parent_warp_to_screen_sq``), device
+    ms, host s and peak memory of both, the counted run (one M and one
+    fit-mode launch, W for every pose, no B, C or reference warp), both
+    routes' frames against each other, pose 0 >= 47.5 dB;
 11. frame training on the NDC scene (800^2, gi=256, 4 poses near the
     bench's): kernel M's training mode and the backward kernel against
     their plain versions on pose 0, then timed steps from corrupted leaves
@@ -235,15 +250,16 @@ Phases (any failure exits non-zero and prints no result):
     byte-equal); (c) the viewer on bench.py's NDC tree at its default gi
     (2G = 256 on an NDC grid), its camera from ndc_camera: that pose's
     frame and the frame after 20 "s" presses (z = 0.2, bench.py's NDC
-    pose's), each through M, B and C alone, counted, equal to
+    pose's), each through M, the fit mode and W alone, counted, equal to
     render_image, >= 47.5 dB (gi = G = 128's PSNR logged beside it); (d) ``export_html.main`` in this process (8 orbit frames,
     counted, the embedded PNGs equal to render_image); (e) the native npz
     loader on the dense npz against np.load (every member equal, both
     timed; fails unless the native loader ran);
 13. one JSON line with every kernel's numbers (kernels B's and C's
-    launches from phase 10's run, the display path that takes them; kernel
-    M's display variants as rows of their own, their launches from phase
-    12's counted runs; the training variants' rows of M and M-bwd by
+    launches from phase 10's counted run: 0, as no display path takes
+    them now; W-ndc's from the same run, its times from phase 10b's group;
+    kernel M's display variants as rows of their own, their launches from
+    phase 12's counted runs; the training variants' rows of M and M-bwd by
     format and BK at D = 19 and 4, their launches from phase 12b's timed
     steps; kernel W's mesh mode and kernel M's dirslab and bf16shade
     variants, their launches from phase 12c's counted runs; kernel M's
@@ -279,6 +295,9 @@ FLOOR_NDC = 47.5        # bench.py's NDC gate
 NDC_DEPTH = 6           # bench.py get_ndc_tree: G=128
 NDC_FOCAL = 1111.11
 NDC_TRAIN_POSES = 4
+# phase 10b's pose group: LLFF's render_path_spiral around bench.py's NDC
+# pose (probes._common.ndc_spiral)
+NDC_GROUP_POSES = 51
 CACHE_SPARSE = os.path.join(HERE, ".torch_bench_sparse_cache.npz")
 CACHE_NDC = os.path.join(HERE, ".torch_bench_ndc_cache.npz")
 CACHE_TRAIN = os.path.join(HERE, ".torch_bench_train_cache.npz")
@@ -1572,12 +1591,17 @@ def warp_stage_turns(torch, tag, inter, geom, levels, P, B_, Wn, bg):
     geometry, index copies, kernels B and C and the frames' index-put)
     against the change's (the parameter rows, the fit mode and its
     non-blocking copy to the host, kernel W), without the host's reads
-    (each CUDA events around KREPS back-to-back stages). Fails if the
-    change's stage is not faster."""
+    (each CUDA events around KREPS back-to-back stages); and each stage's
+    peak device memory above what was allocated before it. ``geom``: the
+    _sub_slopes geometry, an NDC tree's (14 arguments: its sidecar and the
+    poses' origins) included. Fails if the change's stage is not
+    faster."""
     from volrend_torch.ops import display_warp as dw
     from volrend_torch.probes._common import mean_fits, table_warp_level
     dev = inter.device
     _, _, _, w, h, gi = geom[:6]
+    ndc = geom[12] if len(geom) > 12 else None
+    origin = geom[13] if ndc is not None else None
     sel = torch.arange(P, device=dev)
     sel32 = sel.to(torch.int32)
 
@@ -1589,20 +1613,30 @@ def warp_stage_turns(torch, tag, inter, geom, levels, P, B_, Wn, bg):
         return out
 
     def change():
-        plan = dw.plan_fits(*geom)
+        plan = dw.plan_fits(*geom[:12], ndc=ndc, origin=origin)
         out = torch.empty((P, h, w, 4), dtype=torch.uint8, device=dev)
         return dw.warp_display(inter, plan.prm, sel32, out, B_, Wn, gi, bg)
 
+    peaks = {}
+    for name, fn in (("parent", parent), ("change", change)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peaks[name] = (torch.cuda.max_memory_allocated() - base) / 2**30
     ms = {"parent": [], "change": []}
     for name in ("parent", "change", "change", "parent"):
         ms[name].append(cuda_ms(torch, parent if name == "parent"
                                 else change, KREPS))
     log(f"warp stage [{tag}, {P} poses]: parent (fit predicates, geometry, "
         f"B, C, copies) {ms['parent']} ms, change (fit mode, W) "
-        f"{ms['change']} ms (device time)")
+        f"{ms['change']} ms (device time); peak above the inputs: parent "
+        f"{peaks['parent']:.4f} GiB, change {peaks['change']:.4f} GiB")
     if not max(ms["change"]) < min(ms["parent"]):
         fail(f"warp stage [{tag}]: the change's stage is not faster than "
              f"the parent's ({ms})")
+    ms["peak_gib"] = peaks
     return ms
 
 
@@ -1616,11 +1650,12 @@ def parent_warp_to_screen_sq(torch, choices, inter, opt, R, fx, fy,
     per level the PyTorch geometry, kernel B's int8 table, kernel C and an
     index-put of the frames; the misfit poses through the reference warp.
     ``plan`` is not read; each batch's per-pose level goes to
-    ``choices``. World trees without a mesh only (the main path's;
-    ``origin`` is not read)."""
-    if ndc is not None or bg_pix is not None:
-        fail("parent_warp_to_screen_sq: the parent's warp is compared on "
-             "world trees only")
+    ``choices``. World and NDC trees (``ndc``, the poses' ``origin``:
+    the parent's NDC route, the fit predicates on the world2ndc slopes and
+    _table_warp's B and C at each level) without a mesh."""
+    if bg_pix is not None:
+        fail("parent_warp_to_screen_sq: the parent's warp is compared "
+             "without a mesh")
     from volrend_torch.ops import display_warp as dw
     from volrend_torch.ops import slab_render
     from volrend_torch.probes._common import mean_fits, table_warp_level
@@ -1630,7 +1665,8 @@ def parent_warp_to_screen_sq(torch, choices, inter, opt, R, fx, fy,
     itp = itp.to(torch.float32).contiguous()
     fx = torch.as_tensor(fx, dtype=torch.float32, device=dev)
     fy = torch.as_tensor(fy, dtype=torch.float32, device=dev)
-    geom_args = (R, fx, fy, width, height, gi, perm, u0, du, v0, dv, scale)
+    geom_args = (R, fx, fy, width, height, gi, perm, u0, du, v0, dv, scale,
+                 ndc, origin)
     levels = dw._usable_levels(width, height, gi, block)
     choice = np.full(P, -1)
     if levels:
@@ -1654,11 +1690,10 @@ def parent_warp_to_screen_sq(torch, choices, inter, opt, R, fx, fy,
     idx = np.nonzero(choice < 0)[0]
     if idx.size:
         sel = torch.as_tensor(idx, device=dev)
+        sub = dw._select_geom(geom_args, sel)
         ref = slab_render._warp_to_screen_ref(
-            itp.index_select(0, sel).movedim(1, -1), opt,
-            R.index_select(0, sel), fx, fy, width, height, gi, perm,
-            u0.index_select(0, sel), du.index_select(0, sel),
-            v0.index_select(0, sel), dv.index_select(0, sel), scale)
+            itp.index_select(0, sel).movedim(1, -1), opt, *sub[:12],
+            ndc=ndc, origin=None if ndc is None else sub[13])
         out[sel] = dw.to_display_dtype(ref, out_dtype)
     return out
 
@@ -2037,12 +2072,77 @@ def bench_ndc_pose(Camera, center=(0.0, 0.0, 0.2), back=(0.05, 0.02, 1.0)):
                                height=H, fx=NDC_FOCAL)
 
 
-def ndc_phase(torch, dev, opt, stats, gate):
+def ndc_w_checks(torch, tag, inter, prm, sel, B, Wn, bgv, stats):
+    """Kernel W on NDC parameter rows (display_params_ndc) for the poses
+    ``sel`` (int32) at the level (B, Wn): uint8 and f32 frames against its
+    plain version (warp_display_ref: its einsum sums the window in another
+    order, so within TOL_C_U8 and TOL_C_F32, the differing pixels counted)
+    and bit for bit against kernels B and C on the rows' own geometry
+    (probes._common.rows_table_warp). Returns (results, the tent terms of
+    the frames' data, run_w, run_w_plain)."""
+    from volrend_torch.ops import display_warp
+    from volrend_torch.probes._common import rows_table_warp
+    P = int(sel.shape[0])
+
+    def run_w(od=torch.uint8, fn=display_warp.warp_display):
+        out = torch.empty((inter.shape[0], H, W, 4), dtype=od,
+                          device=inter.device)
+        return fn(inter, prm, sel, out, B, Wn, GI, bgv)
+
+    def run_w_plain(od=torch.uint8):
+        return run_w(od, display_warp.warp_display_ref)
+
+    res = {}
+    taps = None
+    idx = sel.long()
+    for od, tol in ((torch.uint8, TOL_C_U8), (torch.float32, TOL_C_F32)):
+        a = run_w(od).index_select(0, idx)
+        b = run_w_plain(od).index_select(0, idx)
+        c, geo = rows_table_warp(prm, inter, sel, B, Wn, GI, H, W, bgv,
+                                 torch.uint8 if od == torch.uint8 else None)
+        if taps is None:
+            taps = tent_taps(torch, *geo, Wn)
+        del geo
+        torch.cuda.synchronize()
+        err = float((a.float() - b.float()).abs().max())
+        n_p = int((a != b).any(-1).sum())
+        key = "u8" if od == torch.uint8 else "f32"
+        res[f"w_vs_plain_{key}"] = err
+        res[f"w_vs_plain_{key}_pixels"] = n_p
+        res[f"w_vs_rows_bc_{key}_equal"] = bool(torch.equal(a, c))
+        log(f"{tag} kernel W on NDC rows {od}: max err {err:.3e} against "
+            f"its plain version (tol {tol}; {n_p} of {P * H * W} pixels "
+            f"differ), bit-equal to B + C on the rows' geometry: "
+            f"{res[f'w_vs_rows_bc_{key}_equal']}")
+        if not (np.isfinite(err) and err <= tol):
+            fail(f"{tag}: kernel W on NDC rows disagrees with its plain "
+                 f"version ({od}: {err})")
+        if not torch.equal(a, c):
+            fail(f"{tag}: kernel W on NDC rows is not bit-equal to kernels "
+                 f"B and C on the rows' geometry ({od})")
+        if od == torch.float32:
+            stats["WN"]["max_abs_err"] = max(stats["WN"]["max_abs_err"],
+                                             err)
+        del a, b, c
+    return res, taps, run_w, run_w_plain
+
+
+def ndc_phase(torch, dev, opt, stats, gate, parent_warp):
     """Phase 10: bench.py's NDC scene and pose through render_frame
-    (RGBA8, gi=256): kernel M on the NDC geometry, kernel B's int8 table
-    and kernel C at every usable level against their plain versions, the
-    counted run (M, then B and C at the pose's level: no kernel W, no fit
-    mode), REPS timed runs and the PSNR gate. Returns (summary, tree)."""
+    (RGBA8, gi=256): kernel M on the NDC geometry; kernel W's fit mode on
+    the pose's NDC parameter rows (display_params_ndc) bit-equal to its
+    plain version, its misfit counts beside the pre-change route's
+    (_pixel_slopes, _level_misfits); kernel B's int8 table (bit-equal) and
+    kernel C at every usable level against their plain versions on the
+    pre-change geometry (_level_geometry(ndc=)), with their times and
+    bounds at the pose's level; at that level kernel W on the rows against
+    its plain version and bit for bit against B and C on the rows' own
+    geometry, and W's frame against the pre-change route's (_table_warp:
+    B and C on the world2ndc geometry); the counted run (M, the fit mode
+    and W: no B, no C and no reference warp when the pose fits), REPS
+    timed runs, render_frame in turns with the pre-change route
+    (``parent_warp``: parent_warp_to_screen_sq in place of kernel W) and
+    the PSNR gate. Returns (summary, tree)."""
     from volrend_torch.ops import dense_grid, display_warp, slab_render
     from volrend_torch.ops.camera import Camera
     t = time.perf_counter()
@@ -2071,13 +2171,28 @@ def ndc_phase(torch, dev, opt, stats, gate):
             g.scale, grid.ndc, g.origin_w)
     plan = display_warp.plan_fits(*geom[:12], ndc=grid.ndc,
                                   origin=g.origin_w)
+    if not torch.equal(plan.prm, display_warp.display_params_ndc(
+            *geom[:3], *geom[7:12], perm, grid.ndc, g.origin_w)):
+        fail("ndc: the fit plan's rows are not display_params_ndc's")
+    cnt = display_warp.level_fit_counts(plan.prm, plan.levels, GI, H, W)
+    if not torch.equal(cnt, display_warp.level_fit_counts_ref(
+            plan.prm, plan.levels, GI, H, W)):
+        fail("ndc: kernel W's fit counts on the NDC rows differ from their "
+             "plain version")
+    gyf, gxf = display_warp._pixel_slopes(*geom)
+    old_cnt = [int(display_warp._level_misfits(gyf, gxf, GI, B, Wn).sum())
+               for B, Wn in plan.levels]
+    del gyf, gxf
     level = int(plan.choice()[0])
     bgv = float(opt.background_brightness)
     res = {"perm": perm, "flip": flip, "slope": slope, "crop": crop,
            "misfit_blocks": plan.counts()[:, 0].tolist(),
+           "misfit_blocks_prechange": old_cnt,
            "warp": (str(plan.levels[level]) if level >= 0
                     else "reference warp"),
-           "m_ms": cuda_ms(torch, run_m, KREPS)}
+           "m_ms": cuda_ms(torch, run_m, KREPS),
+           "fit_ms": cuda_ms(torch, lambda: display_warp.level_fit_counts(
+               plan.prm, plan.levels, GI, H, W), KREPS)}
     for li, (B, Wn) in enumerate(plan.levels):
         tbl = display_warp.build_table(inter, Wn)
         if not torch.equal(tbl, display_warp.build_table_ref(inter, Wn)):
@@ -2103,9 +2218,43 @@ def ndc_phase(torch, dev, opt, stats, gate):
                 inter, Wn), KREPS)
             res["c_ms"] = cuda_ms(torch, lambda: display_warp.combine_emit(
                 *cargs, out_dtype=torch.uint8), KREPS)
+            # the per-pose bounds: B reads the planes once and writes its
+            # table; C reads the table rows its blocks gather, its geometry
+            # (corners, positions, masks), writes the frame, and does the
+            # tent terms' work (as check_kernels counts them)
+            H3, W3 = GI - Wn[0] + 1, GI - Wn[1] + 1
+            C = 4 * Wn[0] * Wn[1]
+            res["b_bound_ms"], res["b_bound_by"] = bound(
+                4 * GI * GI * 4 + H3 * W3 * C, 4 * GI * GI * 5)
+            S, Hh, Wh = B[0] * B[1], H // B[0], W // B[1]
+            rows = int(torch.unique(Y0.long() * W3 + X0.long()).numel())
+            res["c_bound_ms"], res["c_bound_by"] = bound(
+                rows * C + 2 * Hh * Wh * 4 + 3 * S * Hh * Wh * 4 + H * W * 4,
+                H * W * 30 + tent_taps(torch, *cargs[3:6], Wn) * 9)
+            old = display_warp._table_warp(geom, inter, B, Wn, bgv,
+                                           torch.uint8)
         del tbl, gys, gxs, okm, Y0, X0, cargs
+    if level >= 0:
+        B, Wn = plan.levels[level]
+        sel = torch.zeros(1, dtype=torch.int32, device=dev)
+        wres, taps, run_w, _ = ndc_w_checks(torch, "ndc pose", inter,
+                                            plan.prm, sel, B, Wn, bgv, stats)
+        res.update(wres)
+        res["w_ms"] = cuda_ms(torch, run_w, KREPS)
+        res["w_bound_ms"], res["w_bound_by"] = bound(
+            4 * GI * GI * 4 + H * W * 4 + 16 * 4 + 4,
+            H * W * (30 + 20) + taps * 9)
+        new = run_w()
+        diff = (new.int() - old.int()).abs()
+        res["w_vs_prechange_max_quanta"] = int(diff.max())
+        res["w_vs_prechange_pixels"] = int((diff > 0).any(-1).sum())
+        res["w_vs_prechange_psnr_db"] = psnr(
+            new[..., :3].float().cpu().numpy() / 255.0,
+            old[..., :3].float().cpu().numpy() / 255.0)
+        del new, old, diff
     log(f"ndc kernels: M, B (bit-equal) and C at levels {plan.levels} "
-        f"against their plain versions; {json.dumps(res)}")
+        f"against their plain versions, W and its fit mode on the NDC "
+        f"rows; {json.dumps(res)}")
     del acc, inter
 
     def run():
@@ -2119,10 +2268,9 @@ def ndc_phase(torch, dev, opt, stats, gate):
     torch.cuda.synchronize()
     counts = read_counts()
     fits = level >= 0
-    want = dict(march=1, march_poses=1, warp=0, warp_poses=0, warp_mesh=0,
-                warp_mesh_poses=0, fit=0,
-                build=int(fits), combine=int(fits), combine_poses=int(fits),
-                ref_warp_poses=int(not fits))
+    want = dict(march=1, march_poses=1, warp=int(fits), warp_poses=int(fits),
+                warp_mesh=0, warp_mesh_poses=0, fit=1, build=0, combine=0,
+                combine_poses=0, ref_warp_poses=int(not fits))
     log(f"ndc: counts {counts}")
     if counts != want:
         fail(f"ndc: the path's launches {counts}, not {want}")
@@ -2131,12 +2279,197 @@ def ndc_phase(torch, dev, opt, stats, gate):
         f"peak {peak:.3f} GiB allocated")
     if tuple(frame.shape) != (H, W, 4):
         fail(f"ndc: frame of shape {tuple(frame.shape)}")
+
+    def run_old():
+        with parent_warp([]):
+            return run()
+
+    turns = {"change": [], "prechange": []}
+    for name in ("prechange", "change", "change", "prechange"):
+        t_ms, t_host, t_peak = timed_reps(
+            torch, run if name == "change" else run_old)
+        turns[name].append({"ms": t_ms, "host_s": t_host,
+                            "peak_gib": t_peak})
+    log(f"ndc: render_frame in turns with the pre-change route (median "
+        f"device ms of {REPS}, host s, peak GiB): {json.dumps(turns)}")
     p = gate("ndc", tdev, cam, frame, 8, FLOOR_NDC)
     del grid, tdev, pay, frame
     torch.cuda.empty_cache()
     return ({"ndc_ms": ms, "ndc_host_s": host_s, "ndc_peak_gib": peak,
-             "ndc_counts": counts, "ndc_kernels": res, "psnr_ndc_db": p},
-            tree)
+             "ndc_turns": turns, "ndc_counts": counts, "ndc_kernels": res,
+             "psnr_ndc_db": p}, tree)
+
+
+def ndc_spiral_poses(Camera, n=NDC_GROUP_POSES):
+    """``n`` poses on a spiral of LLFF's render_path_spiral kind around
+    bench.py's ndc_pose (probes._common.ndc_spiral)."""
+    from volrend_torch.probes._common import ndc_spiral
+    return [bench_ndc_pose(Camera, center=tuple(c), back=tuple(b))
+            for c, b in ndc_spiral(bench_ndc_pose(Camera).transform, n)]
+
+
+def ndc_group_phase(torch, dev, opt, stats, gate, tree, parent_warp):
+    """Phase 10b: NDC_GROUP_POSES poses of one (perm, flip) group on a
+    spiral around bench.py's NDC pose (ndc_spiral_poses; what the headless
+    CLI renders of an LLFF scene) through render_frames (RGBA8, gi=256):
+    kernel M's group launch, the fit mode on the group's NDC rows against
+    its plain version and its decisions beside the pre-change predicates',
+    kernel W on the rows (ndc_w_checks) with its time, plain time and
+    bound (the kernels line's W-ndc row); the warp stage in turns with the
+    pre-change route's (the PyTorch fit predicates on the world2ndc
+    slopes, then per level B and C on that geometry) and their peak
+    memory; the counted run (one M, one fit-mode launch, W for every pose,
+    no B, C or reference warp); the frames' device ms, host s and peak
+    memory in turns with the pre-change route (parent_warp: the main
+    path with parent_warp_to_screen_sq in place of kernel W; its counted
+    run's launches are logged); the two routes' frames against each
+    other; pose 0's gate (>= 47.5 dB)."""
+    from volrend_torch.ops import dense_grid, display_warp, slab_render
+    from volrend_torch.ops import slab_march
+    from volrend_torch.ops.camera import Camera
+    from volrend_torch.probes import _common
+    tdev = tree.to_device(lut_depth=None, device=dev)
+    grid = dense_grid.bake_dense(tdev, dtype="int8")
+    cams = ndc_spiral_poses(Camera)
+    keys = []
+    for c in cams:
+        perm, flip, slope = slab_render.choose_axis(
+            grid, c.transform, c.fx, c.fy, W, H)
+        if perm[0] != 2 or not (np.isfinite(slope)
+                                and slope < slab_render.MAX_SLAB_SLOPE):
+            fail(f"ndc group: pose {c.center.tolist()} is not "
+                 f"slab-renderable on the NDC z axis ({perm}, {slope})")
+        keys.append((perm, flip))
+    centers = np.stack([c.center for c in cams])
+    off = float(np.abs(centers[:, :2]).max())
+    log(f"ndc group: {len(cams)} spiral poses (radii "
+        f"{_common.NDC_SPIRAL_RADS}, {_common.NDC_SPIRAL_ROTS} turns, focus "
+        f"{_common.NDC_SPIRAL_FOCUS} ahead), "
+        f"groups {sorted(set(keys))}, centres within {off:.4f} of "
+        f"(0, 0) in x and y, z in [{centers[:, 2].min():.4f}, "
+        f"{centers[:, 2].max():.4f}]")
+    if len(set(keys)) != 1 or off > 0.05:
+        fail("ndc group: the spiral is not one (perm, flip) group within "
+             "0.05 of the pose in x and y")
+    perm, flip = keys[0]
+    P = len(cams)
+    fx, fy = cams[0].fx, cams[0].fy
+    pay = slab_render.prepare_payload(grid, perm, opt)
+    crop = slab_render.inplane_crop(grid, perm, float(opt.sigma_thresh))
+    tr = torch.as_tensor(np.stack([c.transform for c in cams]),
+                         dtype=torch.float32, device=dev)
+    g = slab_render.FrameGeom(grid, tr, fx, fy, perm, flip, W, H, opt, GI)
+    params, zb = slab_render._march_frame_fields(grid, g, perm, flip, opt)
+    slab_ids = grid.slab_ids(perm[0], flip, opt.sigma_thresh)
+
+    def run_m():
+        return slab_march.march_slabs(
+            pay, params, grid.qscale, zb, grid.G, GI, grid.data_dim,
+            grid.basis_dim, perm, slab_ids=slab_ids, sig2=True, flip=flip,
+            bbox_full=True, dir_win=True, k_per_step=slab_march._K_STEP,
+            crop=crop)
+
+    inter = slab_render._finalize_planar(run_m(), opt).contiguous()
+    geom = (g.R, g.fx, g.fy, W, H, GI, perm, g.u0, g.du, g.v0, g.dv,
+            g.scale, grid.ndc, g.origin_w)
+    levels = display_warp._usable_levels(W, H, GI)
+    plan = display_warp.plan_fits(*geom[:12], ndc=grid.ndc,
+                                  origin=g.origin_w)
+    cnt = display_warp.level_fit_counts(plan.prm, levels, GI, H, W)
+    if not torch.equal(cnt, display_warp.level_fit_counts_ref(
+            plan.prm, levels, GI, H, W)):
+        fail("ndc group: kernel W's fit counts on the NDC rows differ from "
+             "their plain version")
+    choice = plan.choice()
+    old = _common.mean_fits(geom, levels).cpu().numpy()
+    new = display_warp._fits_from_counts(cnt.cpu(), levels, H, W).numpy()
+    res = {"poses": P, "perm": perm, "flip": flip,
+           "levels_taken": {str(levels[li]) if li >= 0 else "reference":
+                            int((choice == li).sum())
+                            for li in sorted(set(choice.tolist()))},
+           "misfit_blocks_max": cnt.max(1).values.tolist(),
+           "fit_decisions_as_prechange": bool(np.array_equal(old, new)),
+           "m_ms": cuda_ms(torch, run_m, KREPS),
+           "fit_ms": cuda_ms(torch, lambda: display_warp.level_fit_counts(
+               plan.prm, levels, GI, H, W), KREPS)}
+    if (choice < 0).any():
+        fail(f"ndc group: poses {np.nonzero(choice < 0)[0].tolist()} fit no "
+             "level")
+    li = int(np.bincount(choice).argmax())
+    B, Wn = levels[li]
+    sel = torch.as_tensor(np.nonzero(choice == li)[0], dtype=torch.int32,
+                          device=dev)
+    bgv = float(opt.background_brightness)
+    wres, taps, run_w, run_w_plain = ndc_w_checks(
+        torch, "ndc group", inter, plan.prm, sel, B, Wn, bgv, stats)
+    res.update(wres)
+    n = int(sel.shape[0])
+    stats["WN"]["poses"] = n
+    stats["WN"]["ms"] = cuda_ms(torch, run_w, KREPS)
+    stats["WN"]["plain_ms"] = cuda_ms(torch, run_w_plain, 3)
+    stats["WN"]["bound_ms"], stats["WN"]["bound_by"] = bound(
+        n * (4 * GI * GI * 4 + H * W * 4 + 16 * 4 + 4),
+        n * H * W * (30 + 20) + taps * 9)
+    stats["WN"]["library_ms"] = None
+    log(f"kernel W on NDC rows [ndc group, {n} poses at {(B, Wn)}]: "
+        f"{stats['WN']['ms']:.4f} ms, plain {stats['WN']['plain_ms']:.3f} "
+        f"ms, bound {stats['WN']['bound_ms']:.4f} ms "
+        f"({stats['WN']['bound_by']})")
+    res["warp_stage"] = warp_stage_turns(torch, "ndc group", inter, geom,
+                                         levels, P, B, Wn, bgv)
+    del inter
+
+    def run():
+        return slab_render.render_frames(
+            grid, tr, fx, fy, perm, flip, W, H, opt, gi=GI, payload=pay,
+            out_dtype=torch.uint8)
+
+    def run_old():
+        with parent_warp([]):
+            return run()
+
+    torch.cuda.synchronize()
+    reset_counts()
+    frames = run()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"ndc group: counts {counts}")
+    if (counts["march"] != 1 or counts["march_poses"] != P
+            or counts["fit"] != 1 or counts["warp"] < 1
+            or counts["warp_poses"] != P or counts["build"]
+            or counts["combine"] or counts["ref_warp_poses"]
+            or counts["warp_mesh"]):
+        fail(f"ndc group: not one M and fit-mode launch and W for every "
+             f"pose, or B, C or the reference warp ran ({counts})")
+    if tuple(frames.shape) != (P, H, W, 4):
+        fail(f"ndc group: frames of shape {tuple(frames.shape)}")
+    torch.cuda.synchronize()
+    reset_counts()
+    old_frames = run_old()
+    torch.cuda.synchronize()
+    old_counts = read_counts()
+    log(f"ndc group, the pre-change route: counts {old_counts}")
+    diff = (frames.int() - old_frames.int()).abs()
+    res["frames_vs_prechange"] = {
+        "max_quanta": int(diff.max()),
+        "pixels_differ": int((diff > 0).any(-1).sum()),
+        "psnr_db": psnr(frames[..., :3].float().cpu().numpy() / 255.0,
+                        old_frames[..., :3].float().cpu().numpy() / 255.0)}
+    del old_frames, diff
+    turns = {"change": [], "prechange": []}
+    for name in ("prechange", "change", "change", "prechange"):
+        ms, host_s, peak = timed_reps(
+            torch, run if name == "change" else run_old)
+        turns[name].append({"ms": ms, "host_s": host_s, "peak_gib": peak})
+    res["frames_turns"] = turns
+    log(f"ndc group: render_frames of {P} poses in turns (median device ms "
+        f"of {REPS}, host s, peak GiB allocated): {json.dumps(turns)}")
+    p = gate("ndc group pose 0", tdev, cams[0], frames[0], 8, FLOOR_NDC)
+    del grid, tdev, pay, frames
+    torch.cuda.empty_cache()
+    res["psnr_pose0_db"] = p
+    log(f"ndc group: {json.dumps(res)}")
+    return {"ndc_group": res, "ndc_group_counts": counts}
 
 
 def ndc_train_phase(torch, dev, tree, stats):
@@ -2443,12 +2776,12 @@ def instantiation_infos(kernels, keep) -> dict:
     return out
 
 
-def counted_render(torch, tag, fn, passes: int, world: bool, launched):
+def counted_render(torch, tag, fn, passes: int, launched):
     """fn() (one render_image call of ``passes`` slab passes) with the
     launch counts and the plain versions' calls reset just before and
     read just after: kernel M once a pass, through display variants only
-    (march_slabs.variants), no plain version, and on a world tree no B or
-    C. Returns (frame, counts, variants)."""
+    (march_slabs.variants), no plain version, and no B or C (world and
+    NDC trees alike). Returns (frame, counts, variants)."""
     from volrend_torch.ops import slab_march
     calls = count_plain_calls()
     try:
@@ -2468,8 +2801,8 @@ def counted_render(torch, tag, fn, passes: int, world: bool, launched):
             or any(calls.values())):
         fail(f"{tag}: not one kernel M launch a pass, or a plain version "
              f"ran ({counts}, {variants}, {calls})")
-    if world and (counts["build"] or counts["combine"]):
-        fail(f"{tag}: kernels B or C ran on a world tree ({counts})")
+    if counts["build"] or counts["combine"]:
+        fail(f"{tag}: kernels B or C ran on the display path ({counts})")
     if counts["warp_poses"] + counts["warp_mesh_poses"] + counts[
             "ref_warp_poses"] + counts["combine_poses"] != passes:
         fail(f"{tag}: a pass was not warped once ({counts})")
@@ -2566,8 +2899,7 @@ def variants_phase(torch, kernels, dev, opt, stats, gate, main_path,
                       [cams[i] for i in first], key, stats)
         frame, counts, variants = counted_render(
             torch, fmt, lambda: slab_render.render_image(
-                g, cam0, opt, gi=GI, out_dtype=torch.uint8), 1, True,
-            launched)
+                g, cam0, opt, gi=GI, out_dtype=torch.uint8), 1, launched)
         grp = stats["M_variants"][f"{fmt} orbit group 0"]
         one = slab_march.march_slabs.display or {}
         log(f"{fmt}: orbit group 0 ({grp['poses']} poses) through "
@@ -2599,8 +2931,7 @@ def variants_phase(torch, kernels, dev, opt, stats, gate, main_path,
                           "M_rgba_opt", stats)
             frame, counts, variants = counted_render(
                 torch, "RGBA bbox", lambda: slab_render.render_image(
-                    g, cam0, bopt, gi=GI, out_dtype=torch.uint8), 1, True,
-                launched)
+                    g, cam0, bopt, gi=GI, out_dtype=torch.uint8), 1, launched)
             if set(variants) != {"RGBA-int8-opt"}:
                 fail(f"RGBA bbox: the launch missed RGBA's option variant "
                      f"(RGBA-int8-opt): {variants}")
@@ -2626,8 +2957,7 @@ def variants_phase(torch, kernels, dev, opt, stats, gate, main_path,
                       key, stats)
         frame, counts, _ = counted_render(
             torch, f"option {name}", lambda: slab_render.render_image(
-                grid, cam0, vopt, gi=GI, out_dtype=torch.uint8), 1, True,
-            launched)
+                grid, cam0, vopt, gi=GI, out_dtype=torch.uint8), 1, launched)
         out[f"option_{name}"] = {
             "counts": counts,
             "psnr_db": gate(f"option {name}", tdev, cam0,
@@ -2646,7 +2976,7 @@ def variants_phase(torch, kernels, dev, opt, stats, gate, main_path,
     frame, counts, _ = counted_render(
         torch, "split depth", lambda: slab_render.render_image(
             grid, scam, dopt, gi=GI, out_dtype=torch.uint8), len(classes),
-        True, launched)
+        launched)
     out["split_depth"] = {"classes": classes, "counts": counts,
                           "psnr_db": gate("split depth", tdev, scam,
                                           torch.as_tensor(frame, device=dev),
@@ -2668,8 +2998,7 @@ def variants_phase(torch, kernels, dev, opt, stats, gate, main_path,
                       "M_depth" if name == "depth" else "M_opt", stats)
         frame, counts, _ = counted_render(
             torch, f"ndc {name}", lambda: slab_render.render_image(
-                ngrid, ncam, vopt, gi=GI, out_dtype=torch.uint8), 1, False,
-            launched)
+                ngrid, ncam, vopt, gi=GI, out_dtype=torch.uint8), 1, launched)
         out[f"ndc_{name}"] = {
             "counts": counts,
             "psnr_db": gate(f"ndc {name}", ndev, ncam,
@@ -3193,7 +3522,7 @@ def mesh_phase(torch, dev, opt, stats, tdev, grid, host_tree, cams):
     out.update(mesh_warp_checks(torch, dev, grid, opt, cam, buf, stats))
 
     def counted_mesh(tag, fn, passes):
-        frame, counts, _ = counted_render(torch, tag, fn, passes, True,
+        frame, counts, _ = counted_render(torch, tag, fn, passes,
                                           launched)
         if (counts["warp_mesh"] != passes or counts["warp"]
                 or counts["ref_warp_poses"] or counts["fit"] != passes):
@@ -4997,9 +5326,10 @@ def viewer_ndc_apps(torch, dev, gate, total):
     resolution (slab_render.default_gi: 2G for an NDC grid, 256 for this
     G=128), its camera from ndc_camera: that pose's frame, then the frame
     after the camera steps back NDC_STEPS_BACK times ("s"), each through
-    kernels M, B and C alone, counted, at the NDC floor against the exact
-    renderer. Beside each, render_image of the same camera at gi = G (the
-    world grids' rule), uncounted, its PSNR logged and not gated."""
+    kernel M, the fit mode and kernel W alone, counted, at the NDC floor
+    against the exact renderer. Beside each, render_image of the same
+    camera at gi = G (the world grids' rule), uncounted, its PSNR logged
+    and not gated."""
     from volrend_torch.ops import slab_render
     from volrend_torch.ops.camera import Camera, ndc_camera
     from volrend_torch.web import server
@@ -5023,10 +5353,12 @@ def viewer_ndc_apps(torch, dev, gate, total):
         _add_counts(total, counts)
         if state.last_backend != "slab-cuda":
             fail(f"viewer NDC: backend {state.last_backend}, not slab-cuda")
-        if (counts["march"] != 1 or counts["build"] < 1
-                or counts["combine"] != 1 or counts["warp"]
+        if (counts["march"] != 1 or counts["fit"] != 1
+                or counts["warp"] != 1 or counts["warp_poses"] != 1
+                or counts["build"] or counts["combine"]
                 or counts["warp_mesh"] or counts["ref_warp_poses"]):
-            fail(f"viewer NDC: not kernels M, B and C alone ({counts})")
+            fail(f"viewer NDC: not kernels M, W and its fit mode alone "
+                 f"({counts})")
         frame = _decode_png(data, f"ndc_{tag}")
         cam = Camera(W, H, state.cam.fx, state.cam.fy, state.cam.transform)
         want = slab_render.render_image(state.grid, cam, state.opt,
@@ -5390,7 +5722,8 @@ def main() -> None:
     B_, Wn = (4, 4), (5, 5)          # the cascade level all orbit poses take
     H3, W3 = GI - Wn[0] + 1, GI - Wn[1] + 1
     C = 4 * Wn[0] * Wn[1]
-    stats = {k: {"max_abs_err": 0.0} for k in ("M", "B", "C", "W", "WF")}
+    stats = {k: {"max_abs_err": 0.0}
+             for k in ("M", "B", "C", "W", "WF", "WN")}
 
     def check_kernels(tag, grid, pays, sel_cams, time_it):
         """Each kernel against its plain version on one pose batch of the
@@ -5703,7 +6036,9 @@ def main() -> None:
     tsum = train_phase(torch, dev, stats)
 
     # ---- 10-11. the NDC scene: display, then frame training ----------------
-    ndc, ndc_tree_ = ndc_phase(torch, dev, opt, stats, gate)
+    ndc, ndc_tree_ = ndc_phase(torch, dev, opt, stats, gate, parent_warp)
+    ndc.update(ndc_group_phase(torch, dev, opt, stats, gate, ndc_tree_,
+                               parent_warp))
     ndc.update(ndc_train_phase(torch, dev, ndc_tree_, stats))
     del ndc_tree_
 
@@ -5757,6 +6092,8 @@ def main() -> None:
          ndc["ndc_counts"]["combine"]),
         ("W", "warp_display", "volrend_torch/csrc/warp_display.cu",
          "volrend_tpu/ops/display_warp.py:228", counts["warp"]),
+        ("WN", "warp_display_ndc", "volrend_torch/csrc/warp_display.cu",
+         "volrend_tpu/ops/display_warp.py:228", ndc["ndc_counts"]["warp"]),
         ("WF", "warp_display_fit", "volrend_torch/csrc/warp_display.cu",
          "volrend_tpu/ops/display_warp.py:467", counts["fit"]),
         ("MT", "slab_march_train", "volrend_torch/csrc/slab_march.cu",

@@ -20,7 +20,8 @@ from volrend_torch.models.synthetic import make_solid_tree, make_test_tree
 from volrend_torch.ops import dense_grid, display_warp, slab_march, \
     slab_render
 from volrend_torch.ops.camera import Camera
-from volrend_torch.probes._common import mean_fits, table_warp_level
+from volrend_torch.probes._common import mean_fits, rows_table_warp, \
+    table_warp_level
 from volrend_torch.utils.options import RenderOptions
 
 pytestmark = pytest.mark.cuda
@@ -40,7 +41,10 @@ def card():
 
 @pytest.fixture(scope="module", params=["dense", "solid"])
 def grids(card, request):
-    """(cpu grid, cuda grid) of one scene (G=32 dense fog / G=64 solid)."""
+    """(cpu grid, cuda grid) of one scene (G=32 dense fog / G=64 solid;
+    "ndc", which a test asks for by indirect parametrization: ndc_grids)."""
+    if request.param == "ndc":
+        return request.getfixturevalue("ndc_grids")
     if request.param == "dense":
         tree = make_test_tree(max_depth=4, basis_dim=16, seed=5,
                               sigma_scale=60.0)
@@ -144,22 +148,36 @@ def test_render_frames_card_matches_cpu(grids, out_dtype):
 LEVELS = display_warp._CASCADE
 
 
-def _warp_case(g, fx=200.0, backs=((1.0, 0.25, 0.35), (1.0, 0.1, 0.45),
-                                   (1.0, 0.3, 0.2))):
+def _warp_case(g, fx=200.0, gi=GI, backs=((1.0, 0.25, 0.35),
+                                           (1.0, 0.1, 0.45),
+                                           (1.0, 0.3, 0.2))):
     """(geometry args, (P, 16) parameter rows, seeded (P, 4, gi, gi)
-    planes with values outside [0, 1] too) for poses on grid ``g``."""
-    cams = _cams(backs, fx)
+    planes with values outside [0, 1] too) for poses on grid ``g``: on a
+    world grid display_params' rows of the poses looking back along
+    ``backs``, on an NDC grid display_params_ndc's of three poses near
+    bench.py's NDC pose (the args then with the sidecar and the poses'
+    origins)."""
+    if g.ndc is None:
+        cams = _cams(backs, fx)
+    else:
+        cams = _ndc_cams(fx) + [Camera.from_vectors(
+            center=(-0.04, 0.03, 0.14), v_back=(0.07, -0.02, 1.0),
+            v_world_up=(0.0, 1.0, 0.0), width=W, height=H, fx=fx)]
     perm, flip, _ = slab_render.choose_axis(g, cams[0].transform, fx, fx,
                                             W, H)
     geom = slab_render.FrameGeom(g, np.stack([c.transform for c in cams]),
-                                 fx, fx, perm, flip, W, H, OPT, GI)
-    args = (geom.R, geom.fx, geom.fy, W, H, GI, perm, geom.u0, geom.du,
+                                 fx, fx, perm, flip, W, H, OPT, gi)
+    args = (geom.R, geom.fx, geom.fy, W, H, gi, perm, geom.u0, geom.du,
             geom.v0, geom.dv, geom.scale)
-    prm = display_warp.display_params(geom.R, geom.fx, geom.fy, geom.u0,
-                                      geom.du, geom.v0, geom.dv, geom.scale,
-                                      perm)
+    if g.ndc is None:
+        prm = display_warp.display_params(*args[:3], *args[7:12], perm)
+    else:
+        assert perm[0] == 2
+        args += (g.ndc, geom.origin_w)
+        prm = display_warp.display_params_ndc(*args[:3], *args[7:12], perm,
+                                              g.ndc, geom.origin_w)
     inter = torch.as_tensor(np.random.default_rng(3).uniform(
-        -0.1, 1.1, (len(cams), 4, GI, GI)).astype(np.float32),
+        -0.1, 1.1, (len(cams), 4, gi, gi)).astype(np.float32),
         device=g.data.device)
     return args, prm, inter
 
@@ -171,13 +189,15 @@ W_LEVELS = LEVELS + (((2, 4), (4, 5)), ((8, 8), (4, 4)),
                      ((16, 10), (8, 8)))
 
 
+@pytest.mark.parametrize("grids", ["dense", "solid", "ndc"], indirect=True)
 @pytest.mark.parametrize("out_dtype", [torch.uint8, torch.float32])
 @pytest.mark.parametrize("level", W_LEVELS)
 def test_warp_display_matches_plain_and_parent(grids, out_dtype, level):
     """W on two of three poses, in place: the parent's composition (the
-    same arithmetic, so equal), the plain version (einsum sums the window
-    in another order: uint8 within one quantum, f32 within 1e-5), and the
-    third pose's slot untouched."""
+    same arithmetic, so equal; on NDC rows kernels B and C on the rows'
+    own geometry, as the parent's world2ndc geometry is another), the
+    plain version (einsum sums the window in another order: uint8 within
+    one quantum, f32 within 1e-5), and the third pose's slot untouched."""
     _, g = grids
     B, win = level
     args, prm, inter = _warp_case(g)
@@ -195,38 +215,47 @@ def test_warp_display_matches_plain_and_parent(grids, out_dtype, level):
                                          win, GI, 1.0)
     diff = (got.float() - want.float()).abs()
     assert float(diff.max()) <= (1.0 if out_dtype == torch.uint8 else 1e-5)
-    parent = table_warp_level(args, inter, sel.long(), B, win, 1.0,
-                              torch.uint8 if out_dtype == torch.uint8
-                              else None)
+    od = torch.uint8 if out_dtype == torch.uint8 else None
+    if g.ndc is None:
+        parent = table_warp_level(args, inter, sel.long(), B, win, 1.0, od)
+    else:
+        parent, _ = rows_table_warp(prm, inter, sel, B, win, GI, H, W, 1.0,
+                                    od)
     assert torch.equal(got[sel.long()], parent)
 
 
-@pytest.mark.parametrize("fx,levels", [
-    (200.0, LEVELS), (80.0, LEVELS), (45.0, LEVELS),
-    (80.0, (((1, 2), (4, 4)), ((2, 4), (4, 5)), ((4, 4), (5, 5)))),
-    (80.0, (((2, 2), (4, 4)), ((5, 5), (6, 6))))])
-def test_fit_counts_bit_equal(grids, fx, levels):
+@pytest.mark.parametrize("grids,fx,levels,gi", [
+    *((scene, fx, levels, GI) for scene in ("dense", "solid")
+      for fx, levels in (
+          (200.0, LEVELS), (80.0, LEVELS), (45.0, LEVELS),
+          (80.0, (((1, 2), (4, 4)), ((2, 4), (4, 5)), ((4, 4), (5, 5)))),
+          (80.0, (((2, 2), (4, 4)), ((5, 5), (6, 6)))))),
+    ("ndc", 200.0, LEVELS, GI), ("ndc", 200.0, LEVELS, 160),
+    ("ndc", 80.0, LEVELS, 160)], indirect=["grids"])
+def test_fit_counts_bit_equal(grids, fx, levels, gi):
     """W's fit mode against its plain version on the card and on the CPU
     (bit-equal counts), and its decisions against the parent's
     predicates (torch.mean of the misfits on the card), for poses that
-    fit, a steep and a wide one; and on two other level sets, three levels
+    fit, a steep and a wide one; on two other level sets, three levels
     that nest in a 4 x 4 super block (positions shared, as for the
-    production pair) and two that do not (each level its own positions)."""
+    production pair) and two that do not (each level its own positions);
+    and on NDC rows at the tests' grid (every level fits) and at a finer
+    one with two focal lengths (the (4, 4) level misfits)."""
     _, g = grids
-    args, prm, _ = _warp_case(g, fx)
+    args, prm, _ = _warp_case(g, fx, gi)
     n0 = display_warp.level_fit_counts.launches
-    counts = display_warp.level_fit_counts(prm, levels, GI, H, W)
+    counts = display_warp.level_fit_counts(prm, levels, gi, H, W)
     assert display_warp.level_fit_counts.launches == n0 + 1
     assert torch.equal(counts, display_warp.level_fit_counts_ref(
-        prm, levels, GI, H, W))
+        prm, levels, gi, H, W))
     assert torch.equal(counts.cpu(), display_warp.level_fit_counts_ref(
-        prm.cpu(), levels, GI, H, W))
+        prm.cpu(), levels, gi, H, W))
     fits = display_warp._fits_from_counts(counts, levels, H, W)
     want = mean_fits(args, levels)
     assert torch.equal(fits, want), counts
     gyf, gxf = display_warp._pixel_slopes(*args)
     for li, (B, win) in enumerate(levels):
-        assert torch.equal(display_warp._level_fits(gyf, gxf, GI, B, win),
+        assert torch.equal(display_warp._level_fits(gyf, gxf, gi, B, win),
                            want[li])
 
 
@@ -311,8 +340,9 @@ def _display_vs_plain(g, case, seen=True):
 
 # ---------------------------------------------------------------------------
 # The last two display pose classes: NDC trees (kernel M on the NDC
-# geometry, then kernels B and C) and split-frame class passes (kernel M
-# over the unit slope box, then kernel W)
+# geometry, then kernel W and its fit mode on display_params_ndc's rows;
+# kernels B and C held on the same geometry) and split-frame class passes
+# (kernel M over the unit slope box, then kernel W)
 # ---------------------------------------------------------------------------
 
 NDC_CFG = (float(W), float(H), 200.0)
@@ -337,10 +367,10 @@ def ndc_grids(card):
         for d in ("cpu", card))
 
 
-def _ndc_cams():
+def _ndc_cams(fx=200.0):
     return [Camera.from_vectors(center=c, v_back=b,
                                 v_world_up=(0.0, 1.0, 0.0), width=W,
-                                height=H, fx=200.0)
+                                height=H, fx=fx)
             for c, b in (((0.0, 0.0, 0.2), (0.05, 0.02, 1.0)),
                          ((0.05, -0.02, 0.3), (-0.04, 0.03, 1.0)))]
 
@@ -380,11 +410,11 @@ def test_ndc_kernels_match_plain(ndc_grids):
 
 @pytest.mark.parametrize("out_dtype", [torch.uint8, None])
 def test_ndc_render_frames_card_matches_cpu(ndc_grids, out_dtype):
-    """NDC frames on the card (M, then B and C for each fitting level, no
-    kernel W and no reference warp) equal the CPU run: uint8 within one
-    quantum, f32 within one code of the int8 table (1/255): the march's
-    float rounding, card against CPU, can move an intermediate value across
-    a rounding boundary of its table code."""
+    """NDC frames on the card (M, the fit mode and W on the NDC rows, no
+    kernels B or C and no reference warp) equal the CPU run: uint8 within
+    one quantum, f32 within one code of the int8 table (1/255): the
+    march's float rounding, card against CPU, can move an intermediate
+    value across a rounding boundary of its table code."""
     cpu, gpu = ndc_grids
     cams = _ndc_cams()
     perm, flip, _ = slab_render.choose_axis(cpu, cams[0].transform, 200.0,
@@ -393,14 +423,16 @@ def test_ndc_render_frames_card_matches_cpu(ndc_grids, out_dtype):
     a = slab_render.render_frames(cpu, trs, 200.0, 200.0, perm, flip, W, H,
                                   OPT, gi=GI, out_dtype=out_dtype)
     n = (display_warp.build_table.launches, display_warp.combine_emit.poses,
-         display_warp.warp_display.launches,
+         display_warp.warp_display.poses,
+         display_warp.level_fit_counts.launches,
          slab_render._warp_to_screen_ref.poses)
     b = slab_render.render_frames(gpu, trs, 200.0, 200.0, perm, flip, W, H,
                                   OPT, gi=GI, out_dtype=out_dtype).cpu()
-    assert display_warp.build_table.launches >= n[0] + 1
-    assert display_warp.combine_emit.poses == n[1] + 2
-    assert display_warp.warp_display.launches == n[2]
-    assert slab_render._warp_to_screen_ref.poses == n[3]
+    assert display_warp.build_table.launches == n[0]
+    assert display_warp.combine_emit.poses == n[1]
+    assert display_warp.warp_display.poses == n[2] + 2
+    assert display_warp.level_fit_counts.launches == n[3] + 1
+    assert slab_render._warp_to_screen_ref.poses == n[4]
     assert float(b[..., 3].max()) > 0.5
     tol = 1.0 if out_dtype == torch.uint8 else 1.0 / 255.0
     assert float((a.float() - b.float()).abs().max()) <= tol

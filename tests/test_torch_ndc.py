@@ -1,7 +1,7 @@
 """NDC (LLFF) trees through the port: ``render_exact.world2ndc`` and the
 exact renderer, ``slab_render.choose_axis``, ``FrameGeom``,
-``display_warp._sub_geometry``, the display march and warp (kernels M, B
-and C as their plain versions on the CPU), whole frames and frame training,
+``display_warp._sub_geometry``, the display march and warp (kernels M and
+W as their plain versions on the CPU), whole frames and frame training,
 each against ``volrend_tpu`` on the same seeded inputs (its Pallas kernels
 in interpret mode) and against the port's exact renderer.
 
@@ -213,9 +213,9 @@ def test_march_plain_ndc_matches_interpret(monkeypatch):
 
 def test_render_frame_ndc_matches_interpret(monkeypatch):
     """A whole NDC frame at 64^2, gi=32, RGBA8 (the superquad warp applies:
-    the port's NDC poses take kernels B and C) against the reference's
-    render_frame with its kernels in interpret mode, both at the
-    cascade's (2, 2) x (4, 4) level (one level: the reference's
+    the port's NDC poses take kernel W on their NDC rows) against the
+    reference's render_frame with its kernels in interpret mode, both at
+    the cascade's (2, 2) x (4, 4) level (one level: the reference's
     interpret-mode compile of each level dominates this test)."""
     out_u8 = True
     _, g, _, jg = ndc_scene()
@@ -233,7 +233,7 @@ def test_render_frame_ndc_matches_interpret(monkeypatch):
     got = slab_render.render_frame(
         g, cam.transform, cam.fx, cam.fy, perm, flip, 64, 64, OPT, gi=32,
         out_dtype=torch.uint8 if out_u8 else None)
-    assert slab_render._warp_to_screen_ref.poses == 0    # B + C, no ref
+    assert slab_render._warp_to_screen_ref.poses == 0    # W, no ref
     got = np32(got)
     if out_u8:
         got, want = got / 255.0, want / 255.0

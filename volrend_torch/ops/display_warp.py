@@ -28,12 +28,15 @@ window. ``render_frames`` queues those counts ahead of the march
 A pose whose blocks misfit their window in bulk (wide-FOV / grazing
 geometry) falls through the cascade of (block, window) levels and finally
 to the reference quad-gather warp (``slab_render._warp_to_screen_ref``).
-Kernels B and C keep their table modes for the precise warp below, and
-carry the display warp of NDC trees: kernel W evaluates a world-tree
-homography, while an NDC pose's pixel->slope map runs through
-``render_exact.world2ndc``, so its geometry is computed in PyTorch
-(``_sub_geometry(ndc=...)``) and warped by kernel B's int8 table and kernel
-C's generic combine (``_table_warp``), as the reference does.
+
+An NDC (LLFF) tree's pixel->slope map runs through
+``render_exact.world2ndc``, and is a homography too: every ray of a pose
+starts from the same origin, so the warped direction is proportional to
+three linear forms of the camera direction, and the slope ratios cancel
+the rest (``display_params_ndc``). Its poses take kernel W
+and its fit mode on those rows, as world trees' do. Kernels B and C keep
+their table modes for the precise warp below; ``_table_warp`` composes
+them with the PyTorch geometry, the yardstick kernel W is held to.
 
 Mesh overlays: kernel W's mesh-background mode composites each pixel over
 a per-pose (P, H, W, 4) f16 background [r, g, b, hit] (``mesh_background``,
@@ -566,14 +569,52 @@ def display_params(R, fx, fy, u0, du, v0, dv, scale,
     0-8 the rows R[:, perm[k]] * scale[perm[k]] of _lin_forms for k = 0,
     1, 2 (the den, nu and nv forms), then fx, fy, u0, du, v0, dv and a
     zero."""
-    P, dev = R.shape[0], R.device
-    sc = torch.as_tensor(scale, dtype=_F32, device=dev).expand(3).reshape(3)
-    cols = [R[:, perm[k]] * sc[perm[k]] for k in range(3)]
+    sc = torch.as_tensor(scale, dtype=_F32, device=R.device
+                         ).expand(3).reshape(3)
+    return _pack_params([R[:, perm[k]] * sc[perm[k]] for k in range(3)],
+                        fx, fy, u0, du, v0, dv)
+
+
+def _pack_params(forms, fx, fy, u0, du, v0, dv) -> torch.Tensor:
+    """The (P, 16) f32 rows from the three (P, 3) forms (den, nu, nv) and
+    the pose's fx, fy, u0, du, v0, dv."""
+    P, dev = forms[0].shape[0], forms[0].device
+    cols = [f.to(_F32) for f in forms]
     cols += [torch.as_tensor(f, dtype=_F32, device=dev).reshape(-1)
              .expand(P)[:, None] for f in (fx, fy)]
     cols += [t.reshape(P, 1) for t in (u0, du, v0, dv)]
     cols.append(torch.zeros((P, 1), dtype=_F32, device=dev))
     return torch.cat(cols, 1).contiguous()
+
+
+def display_params_ndc(R, fx, fy, u0, du, v0, dv, scale,
+                       perm: Tuple[int, int, int], ndc,
+                       origin) -> torch.Tensor:
+    """display_params for an NDC tree: the (P, 16) rows whose forms give
+    world2ndc's slope map from each pose's (P, 3) ``origin`` o.
+
+    A camera ray's world direction has the components l_k = x * R[k, 0] +
+    y * R[k, 1] - R[k, 2]. world2ndc moves its origin to the near plane
+    (cen_z = -1), so its NDC direction is proportional to (sx * (o_x * l_z
+    - o_z * l_x), sy * (o_y * l_z - o_z * l_y), 2 * l_z) / l_z, with sx =
+    -2 f / W and sy = -2 f / H of the sidecar ``ndc`` (W, H, f). The slope
+    division of _slopes_from_dirs cancels l_z and the normalization, so
+    these three linear forms, scaled per tree axis and taken in ``perm``'s
+    order, are the den, nu and nv forms. They are computed in float64 and
+    rounded once to float32, on the device."""
+    width, height, focal = (np.float32(v) for v in ndc)
+    sx = float(-(np.float32(2.0) * focal) / width)
+    sy = float(-(np.float32(2.0) * focal) / height)
+    dev = R.device
+    r = R.to(torch.float64)
+    o = torch.as_tensor(origin, device=dev).to(torch.float64)
+    ndir = (sx * (o[:, 0, None] * r[:, 2] - o[:, 2, None] * r[:, 0]),
+            sy * (o[:, 1, None] * r[:, 2] - o[:, 2, None] * r[:, 1]),
+            2.0 * r[:, 2])                                   # 3 x (P, 3)
+    sc = torch.as_tensor(scale, device=dev).to(torch.float64
+                                               ).expand(3).reshape(3)
+    return _pack_params([ndir[perm[k]] * sc[perm[k]] for k in range(3)],
+                        fx, fy, u0, du, v0, dv)
 
 
 def _display_positions(prm: torch.Tensor, B, height: int, width: int):
@@ -680,15 +721,14 @@ def _fits_from_counts(counts, levels, height: int,
 class FitPlan:
     """A pose batch's fit decisions, computed on the device ahead of the
     warp (display_warp.plan_fits): the parameter rows kernel W reads
-    (``prm``; None for an NDC tree, whose poses take kernels B and C), the
-    usable cascade levels biggest block first (``levels``), and each
-    level's (L, P) misfit counts on their way to the host: a non-blocking
-    copy into pinned memory behind an event, so the host waits for the
-    counts only in ``choice``, once whatever the caller queued after the
-    plan (kernel M) is already on the card."""
+    (``prm``), the usable cascade levels biggest block first
+    (``levels``), and each level's (L, P) misfit counts on their way to
+    the host: a non-blocking copy into pinned memory behind an event, so
+    the host waits for the counts only in ``choice``, once whatever the
+    caller queued after the plan (kernel M) is already on the card."""
 
-    def __init__(self, prm: Optional[torch.Tensor], levels,
-                 counts: torch.Tensor, height: int, width: int):
+    def __init__(self, prm: torch.Tensor, levels, counts: torch.Tensor,
+                 height: int, width: int):
         self.prm, self.levels = prm, levels
         self.height, self.width = height, width
         self._event = None
@@ -720,23 +760,18 @@ def plan_fits(R, fx, fy, width: int, height: int, gi: int,
               perm: Tuple[int, int, int], u0, du, v0, dv, scale,
               block=None, ndc=None, origin=None) -> FitPlan:
     """Queue the fit decisions of a pose batch (the _sub_slopes geometry
-    arguments) for warp_to_screen_sq's ``plan``: the parameter rows and
-    one fit-mode launch over the usable levels; for an NDC tree
-    (``ndc``, the poses' (P, 3) ``origin``) the misfit counts of
-    _pixel_slopes and _level_misfits in PyTorch. Nothing waits for the
-    device."""
+    arguments) for warp_to_screen_sq's ``plan``: the parameter rows
+    (display_params, or display_params_ndc for an NDC tree: ``ndc``, the
+    poses' (P, 3) ``origin``) and one fit-mode launch over the usable
+    levels. Nothing waits for the device."""
     levels = _usable_levels(width, height, gi, block)
     if ndc is None:
         prm = display_params(R, fx, fy, u0, du, v0, dv, scale, perm)
-        counts = level_fit_counts(prm, levels, gi, height, width)
-        return FitPlan(prm, levels, counts, height, width)
-    counts = torch.zeros((0, R.shape[0]), dtype=torch.int32, device=R.device)
-    if levels:
-        gyf, gxf = _pixel_slopes(R, fx, fy, width, height, gi, perm, u0, du,
-                                 v0, dv, scale, ndc, origin)
-        counts = torch.stack([_level_misfits(gyf, gxf, gi, B, win).sum((1, 2))
-                              for B, win in levels]).to(torch.int32)
-    return FitPlan(None, levels, counts, height, width)
+    else:
+        prm = display_params_ndc(R, fx, fy, u0, du, v0, dv, scale, perm,
+                                 ndc, origin)
+    counts = level_fit_counts(prm, levels, gi, height, width)
+    return FitPlan(prm, levels, counts, height, width)
 
 
 def mesh_background(mesh_dist, mesh_rgb, P: int, height: int, width: int,
@@ -872,8 +907,9 @@ def _table_warp(geom_args, planes: torch.Tensor, B, win, bg: float,
     geometry of _level_geometry (``geom_args``: the _sub_slopes arguments
     of the batch, an NDC tree's included), then the table of the
     (P, 4, gi, gi) ``planes`` and the combine. Returns (P, H, W, 4)
-    frames, uint8 with ``out_dtype=torch.uint8``, else f32. The NDC
-    display path's warp, and the composition kernel W is held to."""
+    frames, uint8 with ``out_dtype=torch.uint8``, else f32. The
+    composition kernel W is held to, world and NDC trees alike; no display
+    path runs it."""
     gi, h, w = geom_args[5], geom_args[4], geom_args[3]
     gys, gxs, okm, Y0, X0 = _level_geometry(geom_args, gi, B, win)
     tbl = build_table(planes.contiguous(), win)
@@ -900,9 +936,9 @@ def warp_to_screen_sq(inter, opt: RenderOptions, R, fx, fy,
     earlier by plan_fits (render_frames queues them ahead of the march; a
     plan carries its own levels, so ``block`` is then not read); None
     queues them here and waits for them. Each level then warps its poses
-    with one launch of kernel W, in place into the frames. An NDC tree
-    (``ndc``, the poses' (P, 3) ``origin``) warps each level's poses with
-    kernels B and C instead (``_table_warp``). ``bg_pix``: a world tree's
+    with one launch of kernel W, in place into the frames, an NDC tree's
+    (``ndc``, the poses' (P, 3) ``origin``) on display_params_ndc's rows
+    too. ``bg_pix``: a world tree's
     (P, H, W, 4) f16 mesh background (mesh_background), composited by
     kernel W's mesh mode and, for the poses no level fits, the reference
     warp; NDC trees take none (ValueError, as in the reference)."""
@@ -929,15 +965,6 @@ def warp_to_screen_sq(inter, opt: RenderOptions, R, fx, fy,
     for li, (B, W) in enumerate(plan.levels):
         idx = np.nonzero(choice == li)[0]
         if idx.size == 0:
-            continue
-        if ndc is not None:        # kernel W takes world trees only
-            if idx.size == P:
-                out = _table_warp(geom_args, itp, B, W, bg, out_dtype)
-            else:
-                sel = to_device(idx, torch.int64, dev)
-                out[sel] = _table_warp(_select_geom(geom_args, sel),
-                                       itp.index_select(0, sel), B, W, bg,
-                                       out_dtype)
             continue
         sel = (torch.arange(P, dtype=torch.int32, device=dev)
                if idx.size == P else to_device(idx, torch.int32, dev))

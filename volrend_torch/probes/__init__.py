@@ -21,6 +21,10 @@ answered on the card:
 - ``warp_fit``: kernel W's fit mode at a group, 4 poses, one and the
   steep pose, bit-equal to its plain version, in turns with a parent's
   build of ``csrc/warp_display.cu``;
+- ``ndc_rows``: how far kernel W's NDC parameter rows
+  (``display_warp.display_params_ndc``) place each pixel from a float64
+  world2ndc, beside the float32 world2ndc chain they replaced (float
+  errors: it runs on the CPU too);
 - ``tma_box``: whether a one-box TMA load over the display payload works
   on the card (``csrc/probe_tma_box.cu``, built apart from the port's
   kernels).

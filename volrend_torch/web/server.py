@@ -12,10 +12,11 @@ FPS readout. The page is the reference package's, byte for byte.
 Frames: on a world tree the int8 bake through ``slab_render.render_image``
 (kernel M's display mode and kernel W, W's mesh mode under a visible mesh
 or ``show_grid``; split-frame passes for poses past the slab gate); on an
-NDC tree the same where the pose passes the gate (kernels M, B and C) and
-the exact renderer where it does not or where a mesh is visible. A bake or
-render error raises: nothing falls through to a slower path on its own
-(``use_slab=False`` is the caller's choice of the exact renderer).
+NDC tree the same where the pose passes the gate (kernels M and W, W on
+the NDC rows) and the exact renderer where it does not or where a mesh is
+visible. A bake or render error raises: nothing falls through to a slower
+path on its own (``use_slab=False`` is the caller's choice of the exact
+renderer).
 ``ViewerState.last_backend`` names what rendered the last frame:
 ``slab-cuda`` (kernels on the card), ``slab-cpu`` (their plain versions,
 on a CPU device), ``slab-split`` (split-frame passes) or ``exact``.
